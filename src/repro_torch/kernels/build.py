@@ -1,0 +1,138 @@
+"""Build and load the port's CUDA kernels from the sources in the checkout.
+
+``nvcc`` compiles ``csrc/*.cu`` into one shared library with a plain C
+interface at first use, and :mod:`ctypes` loads it.  The sources include no
+PyTorch header, so the build takes seconds rather than the minutes a
+``torch/extension.h`` translation unit takes; the wrappers pass pointers
+from ``Tensor.data_ptr()`` and PyTorch's current stream.
+
+Flags: ``-gencode=arch=compute_90a,code=sm_90a`` (Hopper) and
+``-fmad=false``; no ``--use_fast_math``, so ``sqrt``/``log1p`` stay IEEE.
+The library lands in ``kernels/_build/`` (listed in .gitignore) under a
+name hashed from the sources and flags, so an edited source rebuilds and
+concurrent processes never load a half-written file.
+
+A build or load failure raises :class:`KernelBuildError`.  Nothing here
+falls back to the plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-fmad=false", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+
+_P, _I, _I64, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
+#: C signature of every entry point (all return cudaGetLastError()).
+SIGNATURES = {
+    "rt_brownian_increment": (_I, _P, _I64, _D, _P, _I64, _I64, _P),
+    "rt_rev_heun_phase1_gen": (_I, _P, _P, _P, _P, _P, _I64, _D, _D, _D, _P, _P,
+                               _I64, _I64, _P),
+    "rt_rev_heun_phase2": (_I, _P, _P, _P, _P, _P, _P, _D, _D, _P, _I64, _P),
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing, the compile failed, or the library does not load."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel launch was refused (cudaGetLastError() != 0)."""
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    for cand in ([os.path.join(CUDA_HOME, "bin", "nvcc")] if CUDA_HOME else []) + [
+            shutil.which("nvcc") or ""]:
+        if cand and os.path.exists(cand):
+            return cand
+    raise KernelBuildError(
+        "nvcc not found (no CUDA_HOME/bin/nvcc and none on PATH): the port's "
+        "CUDA kernels are built from src/repro_torch/kernels/csrc at first use")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"repro_torch_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless the hashed library exists; return its path."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise KernelBuildError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def load():
+    """The loaded library (built at first call), with ctypes signatures set."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    with _lock:
+        if _lib is None:
+            path = build()
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError as e:
+                raise KernelBuildError(f"cannot load {path}: {e}") from e
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def device_guard(device):
+    """Make ``device`` current for a launch; a no-op when it already is (the
+    single-card case), which saves the guard's cost on every launch."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def check(name: str, err: int) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if err != 0:
+        raise KernelLaunchError(f"{name}: kernel launch failed with cudaError {err}")

@@ -1,0 +1,180 @@
+// Reversible-Heun state updates and in-kernel Brownian draws for Hopper.
+//
+// Replaces three Pallas kernels of the JAX package:
+//   rev_heun_phase2      src/repro/kernels/reversible_heun_step.py:161
+//   brownian_increment   src/repro/kernels/brownian.py:71
+//   rev_heun_phase1_gen  src/repro/kernels/brownian.py:132
+// The plain versions are src/repro_torch/kernels/ref.py; each kernel here
+// computes the same function with the same op order, bitwise.
+//
+// Design.  All three are elementwise over a (rows, d) state, one thread per
+// element in a grid-stride loop.  The TPU kernels held the whole state in
+// VMEM as one block; here no element needs another, so there is nothing to
+// stage in shared memory.  The draws are per row: row b's key is keys[b]
+// (the JAX package got per-row keys from jax.vmap), folded with the step
+// counter n inside the kernel, so the Brownian increment never goes through
+// device memory between generation and use in rev_heun_phase1_gen.
+//
+// Bound.  At the decode's shapes (rows <= 1024, d = 16) each launch moves
+// at most a few hundred KB, well under a microsecond at 3.35 TB/s, and the
+// ~0.5 KFLOP-equivalent of integer hashing per element is far under the
+// compute peak: the kernels are bound by launch latency, and by HBM bytes at
+// larger states.  Each thread recomputes its row's fold_in and, in float32,
+// the counter pair it shares with one other element: redundant integer work
+// that costs no memory traffic.
+//
+// Interface: plain C functions (loaded with ctypes by kernels/build.py),
+// dtype code 0 = float32, 1 = float64.  Each launches on the given stream and
+// returns cudaGetLastError().
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "threefry.cuh"
+
+namespace repro_torch {
+
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float sqrt_ieee(float a) { return sqrtf(a); }
+__device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ double sqrt_ieee(double a) { return sqrt(a); }
+
+// ΔW of element (b, i): normal(fold_in(keys[b], n), (d,))[i] · sqrt(dt_grid)
+template <typename T>
+__device__ __forceinline__ T increment(const int64_t* __restrict__ keys, int64_t n,
+                                       T sqrt_dt, int64_t b, int64_t i, int64_t d) {
+  uint32_t k0 = static_cast<uint32_t>(keys[2 * b]);
+  uint32_t k1 = static_cast<uint32_t>(keys[2 * b + 1]);
+  fold_in(k0, k1, n);
+  return mul(normal_elem(T(), k0, k1, i, d), sqrt_dt);
+}
+
+template <typename T>
+__global__ void brownian_increment_kernel(const int64_t* __restrict__ keys, int64_t n,
+                                          T dt, T* __restrict__ out, int64_t rows,
+                                          int64_t d) {
+  const T sqrt_dt = sqrt_ieee(dt);
+  const int64_t total = rows * d;
+  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+       e < total; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t b = e / d;
+    out[e] = increment(keys, n, sqrt_dt, b, e - b * d, d);
+  }
+}
+
+// ẑ₁ = 2z − ẑ + μ·(sign·Δt) + (sign·σ)·ΔW, with ΔW drawn here
+template <typename T>
+__global__ void phase1_gen_kernel(const T* __restrict__ z, const T* __restrict__ zh,
+                                  const T* __restrict__ mu, const T* __restrict__ sigma,
+                                  const int64_t* __restrict__ keys, int64_t n,
+                                  T dt_grid, T dt, T sign, T* __restrict__ zh1,
+                                  T* __restrict__ dw, int64_t rows, int64_t d) {
+  const T sqrt_dt = sqrt_ieee(dt_grid);
+  const T sdt = mul(sign, dt);
+  const int64_t total = rows * d;
+  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+       e < total; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t b = e / d;
+    const T w = increment(keys, n, sqrt_dt, b, e - b * d, d);
+    const T a = sub(mul(T(2), z[e]), zh[e]);
+    zh1[e] = add(add(a, mul(mu[e], sdt)), mul(mul(sign, sigma[e]), w));
+    dw[e] = w;
+  }
+}
+
+// z₁ = z + (sign·½Δt)(μ+μ′) + (sign·½)(σ+σ′)ΔW
+template <typename T>
+__global__ void phase2_kernel(const T* __restrict__ z, const T* __restrict__ mu,
+                              const T* __restrict__ mu1, const T* __restrict__ sigma,
+                              const T* __restrict__ sigma1, const T* __restrict__ dw,
+                              T dt, T sign, T* __restrict__ out, int64_t total) {
+  const T half_sign = mul(sign, T(0.5));
+  const T hdt = mul(half_sign, dt);
+  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+       e < total; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const T drift = mul(hdt, add(mu[e], mu1[e]));
+    const T noise = mul(mul(half_sign, add(sigma[e], sigma1[e])), dw[e]);
+    out[e] = add(add(z[e], drift), noise);
+  }
+}
+
+constexpr int kThreads = 256;
+
+inline unsigned blocks_for(int64_t total) {
+  const int64_t cap = 132 * 16;  // enough resident blocks to fill 132 SMs
+  int64_t b = (total + kThreads - 1) / kThreads;
+  return static_cast<unsigned>(b < 1 ? 1 : (b > cap ? cap : b));
+}
+
+}  // namespace repro_torch
+
+using repro_torch::blocks_for;
+using repro_torch::kThreads;
+
+extern "C" int rt_brownian_increment(int dtype, const int64_t* keys, int64_t n,
+                                     double dt, void* out, int64_t rows, int64_t d,
+                                     void* stream) {
+  const int64_t total = rows * d;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (total > 0) {
+    if (dtype == 0) {
+      repro_torch::brownian_increment_kernel<float><<<blocks_for(total), kThreads, 0, s>>>(
+          keys, n, static_cast<float>(dt), static_cast<float*>(out), rows, d);
+    } else {
+      repro_torch::brownian_increment_kernel<double><<<blocks_for(total), kThreads, 0, s>>>(
+          keys, n, dt, static_cast<double*>(out), rows, d);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int rt_rev_heun_phase1_gen(int dtype, const void* z, const void* zh,
+                                      const void* mu, const void* sigma,
+                                      const int64_t* keys, int64_t n, double dt_grid,
+                                      double dt, double sign, void* zh1, void* dw,
+                                      int64_t rows, int64_t d, void* stream) {
+  const int64_t total = rows * d;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (total > 0) {
+    if (dtype == 0) {
+      repro_torch::phase1_gen_kernel<float><<<blocks_for(total), kThreads, 0, s>>>(
+          static_cast<const float*>(z), static_cast<const float*>(zh),
+          static_cast<const float*>(mu), static_cast<const float*>(sigma), keys, n,
+          static_cast<float>(dt_grid), static_cast<float>(dt), static_cast<float>(sign),
+          static_cast<float*>(zh1), static_cast<float*>(dw), rows, d);
+    } else {
+      repro_torch::phase1_gen_kernel<double><<<blocks_for(total), kThreads, 0, s>>>(
+          static_cast<const double*>(z), static_cast<const double*>(zh),
+          static_cast<const double*>(mu), static_cast<const double*>(sigma), keys, n,
+          dt_grid, dt, sign, static_cast<double*>(zh1), static_cast<double*>(dw), rows, d);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int rt_rev_heun_phase2(int dtype, const void* z, const void* mu,
+                                  const void* mu1, const void* sigma, const void* sigma1,
+                                  const void* dw, double dt, double sign, void* out,
+                                  int64_t total, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (total > 0) {
+    if (dtype == 0) {
+      repro_torch::phase2_kernel<float><<<blocks_for(total), kThreads, 0, s>>>(
+          static_cast<const float*>(z), static_cast<const float*>(mu),
+          static_cast<const float*>(mu1), static_cast<const float*>(sigma),
+          static_cast<const float*>(sigma1), static_cast<const float*>(dw),
+          static_cast<float>(dt), static_cast<float>(sign), static_cast<float*>(out), total);
+    } else {
+      repro_torch::phase2_kernel<double><<<blocks_for(total), kThreads, 0, s>>>(
+          static_cast<const double*>(z), static_cast<const double*>(mu),
+          static_cast<const double*>(mu1), static_cast<const double*>(sigma),
+          static_cast<const double*>(sigma1), static_cast<const double*>(dw), dt, sign,
+          static_cast<double*>(out), total);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}

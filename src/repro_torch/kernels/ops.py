@@ -1,0 +1,88 @@
+"""Dispatch: the hand CUDA kernel for CUDA tensors, the plain version for
+CPU tensors (port of :mod:`repro.kernels.ops`).
+
+Policy, by the device of the operands and nothing else:
+
+* CUDA tensors run the kernel.  A build or launch failure raises; nothing
+  gives way to the plain version.
+* CPU tensors run the plain PyTorch version (:mod:`repro_torch.kernels.ref`)
+  — the port has no kernel interpreter, so this is the only CPU path.
+* ``use_kernel=False`` runs the plain version on any device: chip_smoke.py
+  and the tests compare the two this way.  ``use_kernel=True`` insists on
+  the kernel and raises for CPU tensors.
+
+``rev_heun_phase1`` (the kernel without in-kernel noise) is not ported
+yet: on CUDA tensors it raises unless the caller asks for the plain
+version, so a card never runs it silently off-kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import brownian as _bk
+from . import ref
+from . import reversible_heun_step as _rh
+
+
+class KernelNotPortedError(NotImplementedError):
+    """The TPU kernel behind this op has no CUDA port yet (ROADMAP.md, Queue 2)."""
+
+
+def _decide(name: str, tensor: torch.Tensor, use_kernel: Optional[bool]) -> bool:
+    if use_kernel is False:
+        return False
+    if tensor.is_cuda:
+        return True
+    if use_kernel:
+        raise ValueError(f"{name}: use_kernel=True needs CUDA tensors; the CUDA "
+                         f"kernels have no CPU mode (got {tensor.device})")
+    return False
+
+
+def rev_heun_phase1(z, zh, mu, sigma, dw, dt, sign: float = 1.0,
+                    use_kernel: Optional[bool] = None):
+    if _decide("rev_heun_phase1", z, use_kernel):
+        raise KernelNotPortedError(
+            "rev_heun_phase1 (src/repro/kernels/reversible_heun_step.py:152) is "
+            "ported with the training slice (ROADMAP.md, Queue 2); on the card, "
+            "decode with an in-kernel-noise BrownianPath (rev_heun_phase1_gen) "
+            "or pass use_kernel=False")
+    return ref.rev_heun_phase1(z, zh, mu, sigma, dw, dt, sign)
+
+
+def rev_heun_phase2(z, mu, mu1, sigma, sigma1, dw, dt, sign: float = 1.0,
+                    use_kernel: Optional[bool] = None):
+    if _decide("rev_heun_phase2", z, use_kernel):
+        return _rh.rev_heun_phase2(z, mu, mu1, sigma, sigma1, dw, dt, sign)
+    return ref.rev_heun_phase2(z, mu, mu1, sigma, sigma1, dw, dt, sign)
+
+
+def rev_heun_phase1_gen(z, zh, mu, sigma, key, n, dt_grid, dt, sign: float = 1.0,
+                        use_kernel: Optional[bool] = None):
+    """Phase 1 with ΔW drawn from ``key`` (shape ``(*K, 2)``) — ``(ẑ₁, ΔW)``."""
+    if _decide("rev_heun_phase1_gen", z, use_kernel):
+        return _bk.rev_heun_phase1_gen(z, zh, mu, sigma, key, n, dt_grid, dt, sign)
+    k1, k2 = key[..., 0], key[..., 1]
+    dw = ref.brownian_increment(k1, k2, n, z.shape[key.dim() - 1:], z.dtype, dt_grid)
+    return ref.rev_heun_phase1(z, zh, mu, sigma, dw, dt, sign), dw
+
+
+def brownian_increment(key, n, shape, dtype, dt, use_kernel: Optional[bool] = None):
+    """Step-``n`` uniform-grid increment per key: ``(*K, *shape)``."""
+    if _decide("brownian_increment", key, use_kernel):
+        return _bk.brownian_increment(key, n, tuple(shape), dtype, dt)
+    return ref.brownian_increment(key[..., 0], key[..., 1], n, tuple(shape), dtype, dt)
+
+
+def launch_counts() -> dict:
+    """Kernel launches by name since the last :func:`reset_launch_counts`."""
+    return {**_rh.LAUNCHES, **_bk.LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    for table in (_rh.LAUNCHES, _bk.LAUNCHES):
+        for name in table:
+            table[name] = 0

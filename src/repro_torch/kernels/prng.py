@@ -1,0 +1,266 @@
+"""Counter-based PRNG in plain PyTorch, bitwise ``jax.random`` (Threefry-2x32).
+
+Port of :mod:`repro.kernels.prng`, op for op, plus the two key helpers the
+reference takes from ``jax.random`` itself: :func:`PRNGKey` and
+:func:`split` (``jax.random.split`` under ``jax_threefry_partitionable=
+False``, the layout ``repro.kernels.prng`` transcribes).
+
+These are the plain versions of the device functions in
+``csrc/threefry.cuh``; the CUDA kernels and the CPU path both follow them.
+
+Representation: every 32-bit word is an ``int64`` tensor holding a value in
+``[0, 2**32)``.  On the CPU, torch's ``uint32`` has no ``+``, ``<<`` or
+``>>``, so additions are masked back to 32 bits and the right shift of a
+non-negative ``int64`` is the logical shift Threefry needs.  A key is an
+``int64`` tensor of shape ``(..., 2)``; the functions taking ``(k1, k2)``
+broadcast over any leading batch shape, so one call draws a row per key.
+
+Floats: bits, counters and keys are exact.  The normal transform copies
+XLA's ``erf_inv`` polynomials for float32 and float64 (coefficients and op
+order read from the compiled HLO of ``jax.lax.erf_inv``), written as
+separate multiplies and adds.  XLA on the CPU contracts them into FMAs and
+its ``log1p`` differs from torch's, so normals agree with ``jax.random``
+within a few ulp, not bitwise; tests/test_torch_prng.py states the bound.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import numpy as np
+import torch
+
+MASK = 0xFFFFFFFF
+_ROT_A = (13, 15, 26, 6)
+_ROT_B = (17, 29, 16, 24)
+_PARITY = 0x1BD11BDA
+
+# XLA's ErfInv for float32: 9 coefficients, branch on w < 5.
+_ERFINV32_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                 -4.39150654e-06, 0.00021858087, -0.00125372503,
+                 -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV32_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+                 -0.00367342844, 0.00573950773, -0.0076224613,
+                 0.00943887047, 1.00167406, 2.83297682)
+
+# XLA's ErfInv for float64: three branches on w (< 6.25, < 16, >= 16) with
+# 23, 19 and 17 coefficients.
+_ERFINV64_LT625 = (
+    -3.64441206401782e-21, -1.6850591381820166e-19, 1.28584807152564e-18,
+    1.1157877678025181e-17, -1.3331716628546209e-16, 2.0972767875968562e-17,
+    6.6376381343583238e-15, -4.0545662729752069e-14, -8.1519341976054722e-14,
+    2.6335093153082323e-12, -1.2975133253453532e-11, -5.4154120542946279e-11,
+    1.0512122733215323e-09, -4.1126339803469837e-09, -2.9070369957882005e-08,
+    4.2347877827932404e-07, -1.3654692000834679e-06, -1.3882523362786469e-05,
+    0.00018673420803405714, -0.000740702534166267, -0.0060336708714301491,
+    0.24015818242558962, 1.6536545626831027)
+_ERFINV64_LT16 = (
+    2.2137376921775787e-09, 9.0756561938885391e-08, -2.7517406297064545e-07,
+    1.8239629214389228e-08, 1.5027403968909828e-06, -4.013867526981546e-06,
+    2.9234449089955446e-06, 1.2475304481671779e-05, -4.7318229009055734e-05,
+    6.8284851459573175e-05, 2.4031110387097894e-05, -0.00035503752036284748,
+    0.0009532893797373805, -0.0016882755560235047, 0.0024914420961078508,
+    -0.0037512085075692412, 0.0053709145535900636, 1.0052589676941592,
+    3.0838856104922208)
+_ERFINV64_GE16 = (
+    -2.7109920616438573e-11, -2.5556418169965252e-10, 1.5076572693500548e-09,
+    -3.789465440126737e-09, 7.61570120807834e-09, -1.496002662714924e-08,
+    2.9147953450901081e-08, -6.7711997758452339e-08, 2.2900482228026655e-07,
+    -9.9298272942317e-07, 4.5260625972231537e-06, -1.9681778105531671e-05,
+    7.5995277030017761e-05, -0.00021503011930044477, -0.00013871931833623122,
+    1.0103004648645344, 4.8499064014085844)
+
+_NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def _words(x, device=None) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.int64) & MASK
+    return torch.as_tensor(x, dtype=torch.int64, device=device) & MASK
+
+
+def _rotl(x: torch.Tensor, d: int) -> torch.Tensor:
+    return ((x << d) & MASK) | (x >> (32 - d))
+
+
+def threefry2x32(k1, k2, x1, x2) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Threefry-2x32 hash; words broadcast like tensors."""
+    k1 = _words(k1)
+    k2 = _words(k2, k1.device)
+    x1 = _words(x1, k1.device)
+    x2 = _words(x2, k1.device)
+    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
+    x1 = (x1 + ks[0]) & MASK
+    x2 = (x2 + ks[1]) & MASK
+    schedule = ((_ROT_A, 1, 2), (_ROT_B, 2, 0), (_ROT_A, 0, 1),
+                (_ROT_B, 1, 2), (_ROT_A, 2, 0))
+    for i, (rots, ka, kb) in enumerate(schedule):
+        for r in rots:
+            x1 = (x1 + x2) & MASK
+            x2 = _rotl(x2, r) ^ x1
+        x1 = (x1 + ks[ka]) & MASK
+        x2 = (x2 + ks[kb] + (i + 1)) & MASK
+    return x1, x2
+
+
+def seed_pair(data) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)`` words of a non-negative integer counter."""
+    data = torch.as_tensor(data, dtype=torch.int64)
+    return (data >> 32) & MASK, data & MASK
+
+
+def fold_in(k1, k2, data) -> Tuple[torch.Tensor, torch.Tensor]:
+    """New key words, bitwise ``jax.random.fold_in(key, data)``."""
+    k1 = _words(k1)
+    hi, lo = seed_pair(data)
+    return threefry2x32(k1, k2, hi.to(k1.device), lo.to(k1.device))
+
+
+def _hash_counters(k1, k2, max_count: int):
+    """Hash ``iota(max_count)`` split in halves (JAX's odd-size zero pad).
+
+    Returns ``(y1, y2, half, odd)`` with ``y1, y2`` of shape
+    ``(*key_shape, half)``."""
+    k1 = _words(k1)
+    k2 = _words(k2, k1.device)
+    odd = max_count % 2
+    half = (max_count + odd) // 2
+    counts = torch.arange(half, dtype=torch.int64, device=k1.device)
+    x2 = counts + half
+    if odd:
+        x2[half - 1] = 0
+    return (*threefry2x32(k1[..., None], k2[..., None], counts, x2), half, odd)
+
+
+def _bits64_halves(k1, k2, size: int):
+    """``(hi, lo)`` words of the 64-bit stream: element i is ``hi << 32 | lo``."""
+    y1, y2, _, _ = _hash_counters(k1, k2, 2 * size)
+    return y1, y2
+
+
+def random_bits(k1, k2, bit_width: int, size: int) -> torch.Tensor:
+    """``(*key_shape, size)`` draws, bitwise ``_threefry_random_bits``.
+
+    32-bit words come back as ``int64`` in ``[0, 2**32)``; 64-bit words as
+    the ``int64`` with the same bit pattern as JAX's ``uint64``."""
+    if bit_width == 32:
+        y1, y2, half, odd = _hash_counters(k1, k2, size)
+        return torch.cat([y1, y2[..., :half - odd]], -1)
+    if bit_width == 64:
+        hi, lo = _bits64_halves(k1, k2, size)
+        hi_signed = torch.where(hi >= 2 ** 31, hi - 2 ** 32, hi)
+        return (hi_signed * 2 ** 32) | lo
+    raise ValueError(f"bit_width must be 32 or 64, got {bit_width}")
+
+
+def uniform(k1, k2, size: int, dtype) -> torch.Tensor:
+    """Unit uniforms ``bitcast(mantissa | 1.0) - 1`` in ``[0, 1)``."""
+    if dtype == torch.float32:
+        bits = random_bits(k1, k2, 32, size)
+        f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    elif dtype == torch.float64:
+        hi, lo = _bits64_halves(k1, k2, size)
+        f = ((hi << 20) | (lo >> 12) | 0x3FF0000000000000).view(torch.float64)
+    else:
+        raise ValueError(f"uniform draws float32 or float64, got {dtype}")
+    return f - 1.0
+
+
+def uniform_range(k1, k2, size: int, dtype, minval, maxval) -> torch.Tensor:
+    """``jax.random.uniform(key, (size,), dtype, minval, maxval)``."""
+    np_dtype = _NP_DTYPES[dtype]
+    lo = np.array(minval, np_dtype)
+    scale = np.array(maxval, np_dtype) - lo
+    floats = uniform(k1, k2, size, dtype)
+    lo_t = torch.tensor(float(lo), dtype=dtype, device=floats.device)
+    return torch.maximum(lo_t, floats * float(scale) + float(lo))
+
+
+def _erf_inv32(x: torch.Tensor) -> torch.Tensor:
+    w = -torch.log1p(x * (-x))
+    lt = w < 5.0
+    ww = torch.where(lt, w + (-2.5), torch.sqrt(w) + (-3.0))
+
+    def coef(a, b):
+        return torch.where(lt, torch.tensor(a, dtype=x.dtype, device=x.device),
+                           torch.tensor(b, dtype=x.dtype, device=x.device))
+
+    p = coef(_ERFINV32_LT5[0], _ERFINV32_GE5[0])
+    for a, b in zip(_ERFINV32_LT5[1:], _ERFINV32_GE5[1:]):
+        p = coef(a, b) + p * ww
+    return torch.where(torch.abs(x) == 1.0, x * math.inf, p * x)
+
+
+def _erf_inv64(x: torch.Tensor) -> torch.Tensor:
+    w = -torch.log1p(x * (-x))
+    lt625 = w < 6.25
+    lt16 = w < 16.0
+
+    def c(v):
+        return torch.tensor(v, dtype=x.dtype, device=x.device)
+
+    ww = torch.where(lt625, w + (-3.125),
+                     torch.sqrt(w) - torch.where(lt16, c(3.25), c(5.0)))
+
+    def coef(i):
+        if i >= 19:
+            return c(_ERFINV64_LT625[i])
+        k = torch.where(lt625, c(_ERFINV64_LT625[i]), c(_ERFINV64_LT16[i]))
+        return torch.where(lt16, k, c(_ERFINV64_GE16[i])) if i < 17 else k
+
+    p = coef(0)
+    for i in range(1, 17):
+        p = coef(i) + p * ww
+    for i in (17, 18):
+        p = torch.where(lt16, coef(i) + p * ww, p)
+    for i in range(19, 23):
+        p = torch.where(lt625, p * ww + coef(i), p)
+    return torch.where(torch.abs(x) == 1.0, x * math.inf, p * x)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """``jax.lax.erf_inv``'s polynomial, op for op (not ``torch.erfinv``)."""
+    if x.dtype == torch.float32:
+        return _erf_inv32(x)
+    if x.dtype == torch.float64:
+        return _erf_inv64(x)
+    raise ValueError(f"erf_inv takes float32 or float64, got {x.dtype}")
+
+
+def normal(k1, k2, size: int, dtype) -> torch.Tensor:
+    """``(*key_shape, size)`` standard normals, ``jax.random.normal``'s
+    transform: ``sqrt(2)·erf_inv(uniform(nextafter(-1, 0), 1))``."""
+    np_dtype = _NP_DTYPES[dtype]
+    lo = np.nextafter(np.array(-1.0, np_dtype), np.array(0.0, np_dtype),
+                      dtype=np_dtype)
+    u = uniform_range(k1, k2, size, dtype, lo, np.array(1.0, np_dtype))
+    return erf_inv(u) * float(np.array(np.sqrt(2), np_dtype))
+
+
+def normal_like(k1, k2, shape: Tuple[int, ...], dtype) -> torch.Tensor:
+    """Shaped normals, ``(*key_shape, *shape)``."""
+    z = normal(k1, k2, math.prod(shape), dtype)
+    return z.reshape(z.shape[:-1] + tuple(shape))
+
+
+# -----------------------------------------------------------------------------
+# key helpers (jax.random's, in the partitionable=False layout)
+# -----------------------------------------------------------------------------
+
+
+def PRNGKey(seed: int, device=None) -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)``: the ``(2,)`` key ``[seed >> 32, seed & mask]``."""
+    seed = int(seed)
+    return torch.tensor([(seed >> 32) & MASK, seed & MASK], dtype=torch.int64,
+                        device=device)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)``: ``(..., 2)`` -> ``(..., num, 2)``.
+
+    ``_threefry_split_original``: hash ``iota(2·num)`` and read the flat
+    output as ``num`` key pairs — the 32-bit stream of ``2·num`` words."""
+    bits = random_bits(key[..., 0], key[..., 1], 32, 2 * num)
+    return bits.reshape(bits.shape[:-1] + (num, 2))
+

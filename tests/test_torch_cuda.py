@@ -1,0 +1,87 @@
+"""The port's CUDA kernels on the card: bitwise against their plain PyTorch
+versions, launch counting, operand checks, and fused = unfused decode.
+
+These need an NVIDIA GPU with nvcc (the kernels have no CPU mode); each test
+skips without one.  On the GPU machine::
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+
+import pytest
+import torch
+
+from repro_torch.core.sde import LatentSDEConfig, latent_sde_init, latent_sde_sample_paths
+from repro_torch.kernels import ops, prng
+
+pytestmark = pytest.mark.cuda
+
+DTYPES = [torch.float32, torch.float64]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the hand-written kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _inputs(cuda, dtype, B, d, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    keys = torch.randint(0, 2 ** 32, (B, 2), generator=g, dtype=torch.int64).to(cuda)
+    st = [torch.randn(B, d, generator=g, dtype=dtype).to(cuda) for _ in range(7)]
+    return keys, st
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,d", [(1, 16), (3, 17), (64, 16)])
+def test_kernels_bitwise_equal_plain_versions(cuda, dtype, B, d):
+    keys, (z, zh, mu, sg, mu1, sg1, dw) = _inputs(cuda, dtype, B, d)
+    for sign in (1.0, -1.0):
+        a = ops.rev_heun_phase2(z, mu, mu1, sg, sg1, dw, 0.05, sign)
+        b = ops.rev_heun_phase2(z, mu, mu1, sg, sg1, dw, 0.05, sign, use_kernel=False)
+        assert torch.equal(a, b)
+        zh1, w = ops.rev_heun_phase1_gen(z, zh, mu, sg, keys, 4, 0.05, 0.05, sign)
+        zh1_r, w_r = ops.rev_heun_phase1_gen(z, zh, mu, sg, keys, 4, 0.05, 0.05, sign,
+                                             use_kernel=False)
+        assert torch.equal(zh1, zh1_r) and torch.equal(w, w_r)
+    inc = ops.brownian_increment(keys, 4, (d,), dtype, 0.05)
+    assert torch.equal(inc, ops.brownian_increment(keys, 4, (d,), dtype, 0.05,
+                                                   use_kernel=False))
+    assert torch.equal(inc, w)
+
+
+def test_each_launch_is_counted_once(cuda):
+    keys, (z, zh, mu, sg, mu1, sg1, dw) = _inputs(cuda, torch.float32, 4, 16)
+    ops.reset_launch_counts()
+    ops.rev_heun_phase2(z, mu, mu1, sg, sg1, dw, 0.1)
+    ops.rev_heun_phase1_gen(z, zh, mu, sg, keys, 0, 0.1, 0.1)
+    ops.brownian_increment(keys, 0, (16,), torch.float32, 0.1)
+    ops.brownian_increment(keys, 0, (16,), torch.float32, 0.1, use_kernel=False)
+    assert ops.launch_counts() == {"rev_heun_phase2": 1, "rev_heun_phase1_gen": 1,
+                                   "brownian_increment": 1}
+
+
+def test_operands_are_checked(cuda):
+    keys, (z, zh, mu, sg, mu1, sg1, dw) = _inputs(cuda, torch.float32, 4, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.rev_heun_phase2(z.t(), mu.t(), mu1.t(), sg.t(), sg1.t(), dw.t(), 0.1)
+    with pytest.raises(ValueError, match="does not match"):
+        ops.rev_heun_phase2(z, mu.double(), mu1, sg, sg1, dw, 0.1)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.rev_heun_phase2(z, mu.cpu(), mu1, sg, sg1, dw, 0.1)
+    with pytest.raises(ops.KernelNotPortedError, match="training slice"):
+        ops.rev_heun_phase1(z, zh, mu, sg, dw, 0.1)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_decode_equals_unfused_on_the_card(cuda, dtype):
+    widths = dict(data_dim=2, hidden_dim=16, context_dim=16, width=32, num_steps=6,
+                  dtype=dtype)
+    params = latent_sde_init(torch.Generator().manual_seed(1), LatentSDEConfig(**widths),
+                             device=cuda)
+    keys = torch.stack(prng.fold_in(3, 4, torch.arange(37)), -1).to(cuda)
+    fused = latent_sde_sample_paths(params, LatentSDEConfig(**widths, use_pallas_kernels=True),
+                                    keys)
+    unfused = latent_sde_sample_paths(params, LatentSDEConfig(**widths), keys)
+    assert fused.shape == (7, 37, 2) and torch.isfinite(fused).all()
+    assert torch.equal(fused, unfused)

@@ -1,0 +1,127 @@
+"""The port's plain kernel versions (repro_torch.kernels.ref, reached
+through repro_torch.kernels.ops on CPU tensors) against repro.kernels.ref
+and the Pallas kernels in interpret mode, on the CPU.
+
+Tolerances (stated per the port's parity rules):
+* elementwise phases: rtol=1e-6, atol=1e-7 in float32; rtol=1e-14,
+  atol=1e-15 in float64.  XLA contracts the phases' multiply-adds into FMAs;
+  the port rounds every op (as its CUDA kernels do with -fmad=false).
+* Brownian increments are normals scaled by sqrt(dt): in float32 the phase
+  tolerance holds (normals within 4 ulp); in float64 they carry the normal
+  bound of tests/test_torch_prng.py (2**19 ulp: XLA's CPU float64 normal
+  wobbles by up to 6e-11 relative at |z| > 3.3).  ``rev_heun_phase1_gen``'s
+  state update is then checked at the phase tolerance on the reference's ΔW.
+"""
+
+import functools
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import TORCH_DTYPES, jax_config, key_words, torch_keys, ulp_distance
+from repro.kernels import brownian as jbk
+from repro.kernels import ref as jref
+from repro.kernels import reversible_heun_step as jrh
+from repro_torch.kernels import ops, ref
+
+TOL = {"float32": dict(rtol=1e-6, atol=1e-7), "float64": dict(rtol=1e-14, atol=1e-15)}
+NORMAL_ULP = {"float32": 4, "float64": 2 ** 19}
+CASES = [("float32", (1, 16)), ("float32", (8, 17)), ("float64", (1, 17)),
+         ("float64", (8, 16))]
+
+
+def _state(seed, shape, dtype, n):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(dtype) for _ in range(n)]
+
+
+def _close(got, want, dtype):
+    torch.testing.assert_close(torch.as_tensor(np.array(got)),
+                               torch.as_tensor(np.array(want)), **TOL[dtype])
+
+
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+@pytest.mark.parametrize("dtype,shape", CASES)
+def test_rev_heun_phase2_matches_ref_and_pallas(dtype, shape, sign):
+    args = _state(10, shape, dtype, 6)
+    got = ops.rev_heun_phase2(*map(torch.from_numpy, args), 0.3, sign=sign)
+    with jax_config(x64=dtype == "float64"):
+        want = jax.jit(functools.partial(jref.rev_heun_phase2, sign=sign))(*args, 0.3)
+        pallas = jax.jit(lambda *a: jrh.rev_heun_phase2(*a, sign=sign, interpret=True))(
+            *args, 0.3)
+    _close(got, want, dtype)
+    _close(got, pallas, dtype)
+
+
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+@pytest.mark.parametrize("dtype,shape", CASES)
+def test_rev_heun_phase1_matches_ref_and_pallas(dtype, shape, sign):
+    args = _state(11, shape, dtype, 5)
+    got = ops.rev_heun_phase1(*map(torch.from_numpy, args), 0.01, sign=sign)
+    with jax_config(x64=dtype == "float64"):
+        want = jax.jit(functools.partial(jref.rev_heun_phase1, sign=sign))(*args, 0.01)
+        pallas = jax.jit(lambda *a: jrh.rev_heun_phase1(*a, sign=sign, interpret=True))(
+            *args, 0.01)
+    _close(got, want, dtype)
+    _close(got, pallas, dtype)
+
+
+def _assert_increment_close(got, want, dtype):
+    got, want = np.asarray(got), np.asarray(want)
+    if dtype == "float32":
+        _close(got, want, dtype)
+    assert ulp_distance(got, want).max() <= NORMAL_ULP[dtype]
+
+
+@pytest.mark.parametrize("n", [7])
+@pytest.mark.parametrize("dtype,shape", CASES)
+def test_brownian_increment_matches_ref_and_pallas(dtype, shape, n):
+    words = key_words(12, shape[0])
+    dt = 1.0 / 23
+    got = ops.brownian_increment(torch_keys(words), n, shape[1:], TORCH_DTYPES[dtype], dt)
+    assert got.shape == shape and got.dtype == TORCH_DTYPES[dtype]
+    with jax_config(x64=dtype == "float64"):
+        want = jax.jit(jax.vmap(lambda k1, k2, d: jref.brownian_increment(
+            k1, k2, n, shape[1:], dtype, d), in_axes=(0, 0, None)))(*words.T, dt)
+        pallas = jax.jit(jax.vmap(lambda k1, k2, d: jbk.brownian_increment(
+            k1, k2, n, shape[1:], dtype, d, interpret=True), in_axes=(0, 0, None)))(
+            *words.T, dt)
+    _assert_increment_close(got, want, dtype)
+    _assert_increment_close(got, pallas, dtype)
+
+
+@pytest.mark.parametrize("dtype,shape", CASES)
+def test_rev_heun_phase1_gen_matches_pallas(dtype, shape):
+    words = key_words(13, shape[0])
+    z, zh, mu, sigma = _state(14, shape, dtype, 4)
+    dt = 1.0 / 23
+    zh1, dw = ops.rev_heun_phase1_gen(*map(torch.from_numpy, (z, zh, mu, sigma)),
+                                      torch_keys(words), 3, dt, dt)
+    with jax_config(x64=dtype == "float64"):
+        j_zh1, j_dw = jax.jit(jax.vmap(lambda z_, zh_, mu_, s_, k1, k2: jbk.rev_heun_phase1_gen(
+            z_, zh_, mu_, s_, k1, k2, 3, dt, dt, interpret=True)))(z, zh, mu, sigma, *words.T)
+    _assert_increment_close(dw, j_dw, dtype)
+    on_ref_dw = ref.rev_heun_phase1(*map(torch.from_numpy, (z, zh, mu, sigma)),
+                                    torch.from_numpy(np.array(j_dw)), dt)
+    _close(on_ref_dw, j_zh1, dtype)
+    # in-port identity: the in-kernel ΔW is BrownianPath.increment's
+    inc = ops.brownian_increment(torch_keys(words), 3, shape[1:], TORCH_DTYPES[dtype], dt)
+    assert torch.equal(dw, inc)
+    assert torch.equal(zh1, ref.rev_heun_phase1(*map(torch.from_numpy, (z, zh, mu, sigma)),
+                                                inc, dt))
+
+
+def test_dispatch_policy_on_cpu():
+    """CPU tensors run the plain version; use_kernel=True needs CUDA tensors,
+    and no launch is counted."""
+    ops.reset_launch_counts()
+    x = torch.zeros(2, 3)
+    assert torch.equal(ops.rev_heun_phase2(x, x, x, x, x, x, 0.1), x)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ops.rev_heun_phase2(x, x, x, x, x, x, 0.1, use_kernel=True)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ops.brownian_increment(torch.zeros(2, 2, dtype=torch.int64), 0, (3,),
+                               torch.float32, 0.1, use_kernel=True)
+    assert set(ops.launch_counts().values()) == {0}
