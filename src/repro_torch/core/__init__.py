@@ -1,6 +1,10 @@
 """The solve stack and the Latent-SDE model (port of :mod:`repro.core`)."""
 
 from .brownian import AdaptiveSliceNotPortedError, BrownianPath  # noqa: F401
-from .gradients import GradientNotPortedError  # noqa: F401
 from .solve import SOLVERS, NotPortedError, SolverSpec, get_solver, solve  # noqa: F401
-from .solvers import NFE_PER_STEP, RevHeunState, reversible_heun_step  # noqa: F401
+from .solvers import (  # noqa: F401
+    NFE_PER_STEP,
+    RevHeunState,
+    reversible_heun_reverse_step,
+    reversible_heun_step,
+)

@@ -1,11 +1,9 @@
 """Gradient-backend registry and precision policy (port of
-:mod:`repro.core.gradients.base`, the parts the forward decode needs).
+:mod:`repro.core.gradients.base`, the fixed-grid parts).
 
 A :class:`GradientBackend` names one gradient path through a solve; the
 front-end (:mod:`repro_torch.core.solve`) validates against the registry and
-dispatches to ``backend.solve``.  This slice registers ``reversible_adjoint``
-forward-only: the exact-adjoint ``torch.autograd.Function`` is the training
-slice (ROADMAP.md).
+dispatches to ``backend.solve``.
 """
 
 from __future__ import annotations
@@ -17,18 +15,11 @@ __all__ = [
     "GRADIENT_BACKENDS",
     "PRECISION_POLICIES",
     "GradientBackend",
-    "GradientNotPortedError",
     "available_gradient_modes",
     "get_backend",
     "register_backend",
     "resolve_precision",
 ]
-
-
-class GradientNotPortedError(NotImplementedError):
-    """Gradients through the port's solves arrive with the training slice:
-    the exact-adjoint ``torch.autograd.Function`` (ROADMAP.md, top of
-    Queue 1).  Until then solves are forward-only."""
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,24 +1,60 @@
-"""Reversible Heun solve, forward pass (port of
+"""Reversible Heun with the paper's exact O(1)-memory adjoint (port of
 :mod:`repro.core.gradients.reversible`: ``_gen_spec``, ``_forward``,
-``_solve``).
+``_fwd_rule``, ``_bwd_rule``, ``_bwd_rule_final``, ``_fused_local_vjp``).
 
-The reference wraps the forward in a ``jax.custom_vjp`` whose backward
-reverses the solver algebraically.  That ``torch.autograd.Function`` is the
-next slice; here the forward runs under ``torch.no_grad()`` and a solve
-whose inputs require grad raises :class:`GradientNotPortedError`.
+The reference wraps the solve in a ``jax.custom_vjp``; here it is a
+``torch.autograd.Function``.  The forward runs Algorithm 1 under
+``torch.no_grad()`` and saves only the terminal :class:`RevHeunState`, the
+parameter leaves and (on the Function's context) the Brownian path.  The
+backward walks the grid right to left: it re-draws each step's ΔW from the
+path's key (the ``brownian_increment`` kernel on the card), reconstructs the
+step's left state in closed form (Algorithm 2), and pulls **one**
+``torch.autograd.grad`` of the fields per step.  Each step's graph is freed
+before the next, so memory does not grow with ``num_steps``.
+
+Parameters.  The params tree is flattened into tensor inputs of ``apply``
+(:mod:`repro_torch.tree`), so gradients reach non-leaf parameters too —
+the Latent SDE's encoder context ``ctx`` is the GRU's output.  Leaves the
+fields do not read get zero gradients.
+
+Fused vs unfused.  With ``use_pallas`` and diagonal noise the local VJP is
+the hand-derived transpose (:func:`_fused_local_vjp`): the phase kernels
+recompute ẑ₁, ``rev_heun_bwd_phase1`` seeds the field VJP,
+``rev_heun_bwd_phase2`` distributes its result.  Otherwise it is autograd
+of the unfused :func:`reversible_heun_step`.  The two agree bitwise: the
+kernels keep the transpose's grouping, and the ẑ₁ cotangent sum takes the
+``g_zh`` seed first in both, because autograd's graph root delivers it
+before any field contribution arrives (tests/test_torch_adjoint.py pins
+the identity in float64).
+
+Times.  Every field is evaluated at a grid time ``t0 + k·dt`` rounded once
+(:func:`repro_torch.core.solvers.grid_time`), a numpy scalar of the state
+dtype: the forward's step ``n`` at ``k = n+1``, the backward's
+reconstruction at ``k = n`` and its local forward at ``k = n+1``.  These are
+the bits the compiled reference evaluates (XLA contracts its ``t0 + (n+1)·dt
+− dt`` into fused multiply-adds), which matters because the posterior's
+context lookup turns ``t`` into an integer index.
 """
 
 from __future__ import annotations
 
-import numpy as np
+import dataclasses
+from typing import Any, Callable
+
 import torch
+from torch.autograd.function import once_differentiable
 
+from ... import tree
+from ...kernels import ops
 from ..brownian import BrownianPath
-from ..solvers import RevHeunState, reversible_heun_step
-from .base import GradientBackend, GradientNotPortedError, register_backend
-
-_NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
-
+from ..solvers import (
+    NP_DTYPES,
+    RevHeunState,
+    grid_time,
+    reversible_heun_reverse_step,
+    reversible_heun_step,
+)
+from .base import GradientBackend, register_backend
 
 def _gen_spec(bm, z0, noise, use_pallas):
     """``(keys, dt_grid_fn)`` for in-kernel ΔW generation, or ``None``.
@@ -35,66 +71,181 @@ def _gen_spec(bm, z0, noise, use_pallas):
     return bm.key, lambda num_steps: (bm.t1 - bm.t0) / num_steps
 
 
-def _check_no_grad(params, z0) -> None:
-    leaves = [z0]
-    stack = [params]
-    while stack:
-        p = stack.pop()
-        if isinstance(p, dict):
-            stack.extend(p.values())
-        elif isinstance(p, (list, tuple)):
-            stack.extend(p)
-        elif isinstance(p, torch.Tensor):
-            leaves.append(p)
-    if any(t.requires_grad for t in leaves):
-        raise GradientNotPortedError(
-            "an input of this solve requires grad, but the port's reversible "
-            "solve is forward-only: the exact adjoint (torch.autograd.Function "
-            "over Algorithm 2) is the training slice — ROADMAP.md Queue 1")
-
-
 def _forward(drift, diffusion, params, z0, bm, t0, t1, num_steps, noise,
-             use_pallas=False):
-    """Algorithm 1 over the uniform grid -> ``(trajectory, final state)``."""
+             use_pallas=False, save_trajectory=True):
+    """Algorithm 1 over the uniform grid -> ``(trajectory or None, final
+    state)``.  Without ``save_trajectory`` no state outlives its step, so
+    the terminal form holds O(1) states in the forward too."""
     dtype = z0.dtype
-    np_dtype = _NP_DTYPES[dtype]
+    np_dtype = NP_DTYPES[dtype]
     dt = np_dtype((t1 - t0) / num_steps)
     state = RevHeunState(z0, z0, drift(params, t0, z0), diffusion(params, t0, z0))
     gen = _gen_spec(bm, z0, noise, use_pallas)
-    zs = [z0]
+    zs = [z0] if save_trajectory else None
     for n in range(num_steps):
-        t = np_dtype(t0) + np_dtype(n) * dt
+        t, t1_n = grid_time(t0, n, dt), grid_time(t0, n + 1, dt)
         if gen is not None:
             keys, dt_grid_fn = gen
             state = reversible_heun_step(state, t, dt, None, drift, diffusion, params,
                                          noise, use_pallas=use_pallas,
-                                         gen=(keys, n, dt_grid_fn(num_steps)))
+                                         gen=(keys, n, dt_grid_fn(num_steps)), t1=t1_n)
         else:
             dw = bm.increment(n, num_steps).to(dtype)
             state = reversible_heun_step(state, t, dt, dw, drift, diffusion, params,
-                                         noise, use_pallas=use_pallas)
-        zs.append(state.z)
-    return torch.stack(zs), state
+                                         noise, use_pallas=use_pallas, t1=t1_n)
+        if zs is not None:
+            zs.append(state.z)
+    return (None if zs is None else torch.stack(zs)), state
+
+
+def _grads_or_zeros(grads, like):
+    return [torch.zeros_like(x) if g is None else g for g, x in zip(grads, like)]
+
+
+def _fused_local_vjp(drift, diffusion, params, wrt, state0, cts, t_right, dt, dw):
+    """Hand-derived VJP of one Algorithm-1 step, elementwise phases in the
+    kernels, one field VJP at ``t_right``.  ``state0`` is the step's
+    reconstructed left state; ``cts = (g_z, g_zh, g_mu, g_sigma)`` the
+    step-``n+1`` cotangents.  Returns ``(d_params, (d_z, d_zh, d_mu,
+    d_sigma))``."""
+    g_z, g_zh, g_mu, g_sigma = cts
+    # ẑ₁ recomputed from the left state: the bits the unfused local forward
+    # produces internally (state1.zh has drifted through reconstruction).
+    zh1 = ops.rev_heun_phase1(state0.z, state0.zh, state0.mu, state0.sigma, dw, dt)
+    c_mu1, c_sig1 = ops.rev_heun_bwd_phase1(g_z, g_mu, g_sigma, dw, dt)
+    with torch.enable_grad():
+        x = zh1.requires_grad_()
+        mu1 = drift(params, t_right, x)
+        sigma1 = diffusion(params, t_right, x)
+        # x itself is an output seeded with g_zh: the graph root delivers that
+        # seed before the field contributions, as in the unfused graph.
+        grads = torch.autograd.grad((x, mu1, sigma1), [*wrt, x], (g_zh, c_mu1, c_sig1),
+                                    allow_unused=True)
+    ghat = grads[-1].contiguous()
+    return grads[:-1], ops.rev_heun_bwd_phase2(g_z, ghat, dw, dt)
+
+
+def _local_vjp(drift, diffusion, params, wrt, state0, cts, t_left, t_right, dt, dw,
+               noise):
+    """Autograd of the unfused step from the reconstructed left state."""
+    with torch.enable_grad():
+        s = [x.detach().requires_grad_() for x in state0]
+        out = reversible_heun_step(RevHeunState(*s), t_left, dt, dw, drift, diffusion,
+                                   params, noise, t1=t_right)
+        grads = torch.autograd.grad(tuple(out), [*wrt, *s], cts, allow_unused=True)
+    return grads[:len(wrt)], tuple(_grads_or_zeros(grads[len(wrt):], s))
+
+
+@dataclasses.dataclass(frozen=True)
+class _SolveSpec:
+    """The non-tensor arguments of one solve (the reference's nondiff args)."""
+
+    drift: Callable
+    diffusion: Callable
+    treespec: Any
+    bm: Any
+    t0: float
+    t1: float
+    num_steps: int
+    noise: str
+    use_pallas: bool
+    save_trajectory: bool
+
+
+def _backward(spec: _SolveSpec, final: RevHeunState, leaves, needs, g_out):
+    """Algorithm 2 sweep -> ``(g_z0, [g_leaf or None])``."""
+    N = spec.num_steps
+    np_dtype = NP_DTYPES[final.z.dtype]
+    dt = np_dtype((spec.t1 - spec.t0) / N)
+    p_leaves = [leaf.detach().requires_grad_(need and leaf.is_floating_point())
+                for leaf, need in zip(leaves, needs)]
+    wrt = [leaf for leaf in p_leaves if leaf.requires_grad]
+    params = tree.unflatten(spec.treespec, p_leaves)
+    g_params = [torch.zeros_like(p) for p in wrt]
+    g_out = g_out.contiguous()
+    zeros = torch.zeros_like(final.z)
+    g_z = g_out[N] if spec.save_trajectory else g_out
+    cts = (g_z, zeros, zeros, torch.zeros_like(final.sigma))
+    fused = spec.use_pallas and spec.noise == "diagonal"
+    state = final
+    for n in range(N - 1, -1, -1):
+        t_left, t_right = grid_time(spec.t0, n, dt), grid_time(spec.t0, n + 1, dt)
+        dw = spec.bm.increment(n, N).to(final.z.dtype)
+        with torch.no_grad():
+            state = reversible_heun_reverse_step(state, t_right, dt, dw, spec.drift,
+                                                 spec.diffusion, params, spec.noise,
+                                                 use_pallas=spec.use_pallas, t0=t_left)
+        if fused:
+            d_params, d_state = _fused_local_vjp(spec.drift, spec.diffusion, params, wrt,
+                                                 state, cts, t_right, dt, dw)
+        else:
+            d_params, d_state = _local_vjp(spec.drift, spec.diffusion, params, wrt,
+                                           state, cts, t_left, t_right, dt, dw, spec.noise)
+        for g, d in zip(g_params, d_params):
+            if d is not None:
+                g.add_(d)
+        d_z = d_state[0] + g_out[n] if spec.save_trajectory else d_state[0]
+        cts = (d_z, *d_state[1:])
+    # initial condition: ẑ₀ = z₀, μ₀ = drift(t0, z₀), σ₀ = diffusion(t0, z₀)
+    with torch.enable_grad():
+        z0 = state.z.detach().requires_grad_()
+        outs = (z0, z0, spec.drift(params, spec.t0, z0), spec.diffusion(params, spec.t0, z0))
+        grads = torch.autograd.grad(outs, [*wrt, z0], cts, allow_unused=True)
+    for g, d in zip(g_params, grads[:-1]):
+        if d is not None:
+            g.add_(d)
+    it = iter(g_params)
+    return grads[-1], [next(it) if leaf.requires_grad else None for leaf in p_leaves]
+
+
+class _ReversibleAdjoint(torch.autograd.Function):
+    """``apply(spec, z0, *param_leaves)`` -> trajectory or terminal value."""
+
+    @staticmethod
+    def forward(ctx, spec, z0, *leaves):
+        params = tree.unflatten(spec.treespec, leaves)
+        traj, final = _forward(spec.drift, spec.diffusion, params, z0, spec.bm, spec.t0,
+                               spec.t1, spec.num_steps, spec.noise, spec.use_pallas,
+                               spec.save_trajectory)
+        ctx.spec = spec
+        # O(1)-in-depth residuals: the terminal state and the parameters.
+        ctx.save_for_backward(*final, *leaves)
+        return traj if spec.save_trajectory else final.z.clone()
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_out):
+        saved = ctx.saved_tensors
+        final, leaves = RevHeunState(*saved[:4]), saved[4:]
+        g_z0, g_leaves = _backward(ctx.spec, final, leaves, ctx.needs_input_grad[2:], g_out)
+        return (None, g_z0 if ctx.needs_input_grad[1] else None, *g_leaves)
+
+
+def _apply(drift, diffusion, params, z0, bm, t0, t1, num_steps, noise, use_pallas,
+           save_trajectory):
+    leaves, treespec = tree.flatten(params)
+    bad = [type(x).__name__ for x in leaves if not isinstance(x, torch.Tensor)]
+    if bad:
+        raise TypeError(f"reversible_adjoint: every parameter leaf must be a tensor, "
+                        f"got {bad}")
+    spec = _SolveSpec(drift, diffusion, treespec, bm, t0, t1, num_steps, noise,
+                      use_pallas, save_trajectory)
+    return _ReversibleAdjoint.apply(spec, z0, *leaves)
 
 
 def reversible_heun_solve(drift, diffusion, params, z0, bm, t0, t1, num_steps,
                           noise="diagonal", use_pallas=False):
-    """Trajectory ``(num_steps+1, *z0.shape)``; index 0 is ``z0``."""
-    _check_no_grad(params, z0)
-    with torch.no_grad():
-        traj, _ = _forward(drift, diffusion, params, z0, bm, t0, t1, num_steps,
-                           noise, use_pallas)
-    return traj
+    """Trajectory ``(num_steps+1, *z0.shape)`` (index 0 is ``z0``); exact
+    O(1)-memory gradients for any loss on any subset of it."""
+    return _apply(drift, diffusion, params, z0, bm, t0, t1, num_steps, noise,
+                  use_pallas, True)
 
 
 def reversible_heun_solve_final(drift, diffusion, params, z0, bm, t0, t1,
                                 num_steps, noise="diagonal", use_pallas=False):
-    """Terminal value only."""
-    _check_no_grad(params, z0)
-    with torch.no_grad():
-        _, final = _forward(drift, diffusion, params, z0, bm, t0, t1, num_steps,
-                            noise, use_pallas)
-    return final.z
+    """Terminal value only, with the same exact backward."""
+    return _apply(drift, diffusion, params, z0, bm, t0, t1, num_steps, noise,
+                  use_pallas, False)
 
 
 def _validate(spec, *, noise, save_trajectory, use_pallas):
@@ -112,8 +263,7 @@ def _solve(spec, drift, diffusion, params, z0, bm, t0, t1, num_steps, *,
 
 register_backend(GradientBackend(
     name="reversible_adjoint",
-    summary="paper's exact adjoint: algebraic reversal, O(1) memory "
-            "(forward only in this port so far)",
+    summary="paper's exact adjoint: algebraic reversal, O(1) memory",
     solve=_solve,
     validate=_validate,
 ))

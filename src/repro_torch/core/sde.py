@@ -1,7 +1,16 @@
-"""The Latent SDE's prior decode (port of :mod:`repro.core.sde`:
-``LatentSDEConfig``, ``_lsde_sigma``, ``latent_prior_drift``,
-``latent_prior_diffusion``, ``latent_sde_init``, ``_cfg_solve``,
-``latent_sde_sample_paths``).
+"""The Latent SDE: the ELBO for training and the prior decode for serving
+(port of :mod:`repro.core.sde`: ``LatentSDEConfig``, ``_cfg_solve``,
+``latent_sde_init``, ``validate_latent_grid``, ``_lsde_sigma``,
+``_latent_encode``, ``_step_index_lookup``, ``_latent_posterior_fields``,
+``latent_sde_loss``, ``latent_sde_loss_terminal``, ``latent_prior_drift``,
+``latent_prior_diffusion``, ``latent_sde_sample_paths``).
+
+Training (paper eq. (4), Appendix B): a backward GRU encodes the observed
+path into a context path, the posterior SDE runs over the augmented state
+``[x, kl]`` — the KL path integrand rides as a state channel — and the
+exact adjoint differentiates the whole trajectory.  Keys are ``(2,)`` int64
+tensors; every draw is the reference's ``jax.random`` draw on the port's
+Threefry.
 
 Serving contract, as in the reference: **every trajectory row is a pure
 function of ``(params, keys[i])``**, so padding a request batch up to a
@@ -17,12 +26,14 @@ import dataclasses
 import warnings
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .. import nn
 from ..kernels import prng
 from .brownian import BrownianPath
 from .solve import solve
+from .solvers import NP_DTYPES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +79,27 @@ def _cfg_solve(cfg, drift, diffusion, params, z0, bm, num_steps, noise,
                  precision=cfg.precision)
 
 
+def validate_latent_grid(num_steps: int, T: int) -> int:
+    """Check the solver grid aligns with the observation grid; return the
+    stride.  The reconstruction term reads the trajectory at the ``T + 1``
+    observation times, so ``num_steps`` must be a positive multiple of
+    ``T`` (checked eagerly, with the reference's named error)."""
+    if T < 1:
+        raise ValueError(
+            f"latent-SDE data must contain at least two observations; got "
+            f"T = {T} observation intervals")
+    if num_steps < T or num_steps % T != 0:
+        reason = (f"num_steps < T" if num_steps < T
+                  else f"num_steps % T == {num_steps % T} != 0")
+        raise ValueError(
+            f"latent-SDE solver grid is misaligned with the observation "
+            f"grid: cfg.num_steps ({num_steps}) must be a positive multiple "
+            f"of the data grid T ({T}, the number of observation intervals "
+            f"= len(y) - 1) so every observation lands on a solver step "
+            f"(valid: {T}, {2 * T}, {3 * T}, ...); got {reason}")
+    return num_steps // T
+
+
 def latent_sde_init(generator: torch.Generator, cfg: LatentSDEConfig, device=None):
     """Fresh parameters in the reference's tree: ζ (initial map), μ (prior
     drift), σ (diagonal diffusion), ℓ (readout), and the posterior's
@@ -90,6 +122,135 @@ def latent_sde_init(generator: torch.Generator, cfg: LatentSDEConfig, device=Non
 def _lsde_sigma(params, t, x):
     raw = nn.mlp(params["sigma"], nn.tcat(t, x), nn.lipswish)
     return nn.sigmoid(raw) * 0.5 + 0.05  # bounded positive diagonal
+
+
+def _normal(key, shape, dtype):
+    return prng.normal_like(key[0], key[1], tuple(shape), dtype)
+
+
+def _latent_encode(params, cfg: LatentSDEConfig, key, y_true):
+    """Backward-GRU context + initial-latent sample -> ``(ctx, x0, kl_v)``:
+    the ``(T+1, B, c)`` context path, ``ζ(V̂)`` with ``V̂ ~ N(m, s)`` from
+    ``ξ(ctx_0)``, and the per-sample ``KL(N(m, s) ‖ N(0, 1))``."""
+    ctx = nn.gru_scan(params["enc"], y_true, reverse=True)
+    ms = nn.mlp(params["qz0"], ctx[0], nn.lipswish)
+    m, log_s = ms.chunk(2, -1)
+    s = torch.exp(torch.clamp(log_s, -8, 4))
+    v = m + s * _normal(key, m.shape, cfg.dtype)
+    kl_v = 0.5 * torch.sum(m ** 2 + s ** 2 - 2.0 * torch.log(s) - 1.0, -1)
+    x0 = nn.mlp(params["zeta"], v, nn.lipswish)
+    return ctx, x0, kl_v
+
+
+def _step_index(t, t1: float, T: int, dtype) -> int:
+    """``int(t / t1 * T)`` clipped to ``[0, T]``, computed on the host in the
+    state dtype as the reference's ``jnp.asarray(t / t1 * T).astype(int32)``
+    rounds; one ulp of ``t`` can move it, so the times must be the
+    reference's (:func:`repro_torch.core.solvers.grid_time`)."""
+    np_dtype = NP_DTYPES[dtype]
+    if isinstance(t, np.floating):
+        x = t / np_dtype(t1) * np_dtype(T)
+    else:  # a Python float is folded in double, then cast, as a constant
+        x = np_dtype(t / t1 * T)
+    return min(max(int(x), 0), T)
+
+
+def _step_index_lookup(t1: float, T: int, dtype):
+    """``(path, t) -> path[_step_index(t)]``: index a ``(T+1, ...)`` tensor
+    (the encoder context, the observations) by solver time."""
+
+    def at(p, t):
+        return p[_step_index(t, t1, T, dtype)]
+
+    return at
+
+
+def _latent_posterior_fields(cfg: LatentSDEConfig, T: int, n_aux: int,
+                             with_recon: bool = False):
+    """Posterior drift/diffusion over the augmented state ``[x, kl(, recon)]``.
+
+    The KL path integrand ½‖(μ−ν)/σ‖² rides as a state channel (eq. (4)).
+    ``with_recon`` adds a channel integrating the squared reconstruction
+    error against the step-indexed observations (the terminal-only form).
+    Aux channels carry zero diffusion."""
+    ctx_at = _step_index_lookup(cfg.t1, T, cfg.dtype)
+    h = cfg.hidden_dim
+
+    def post_drift(p, t, u):
+        x = u[..., :h]
+        nets = p["nets"]
+        c = ctx_at(p["ctx"], t)
+        nu = nn.mlp(nets["nu"], torch.cat([nn.tcat(t, x), c], -1), nn.lipswish,
+                    torch.tanh)
+        mu = nn.mlp(nets["mu"], nn.tcat(t, x), nn.lipswish, torch.tanh)
+        sig = _lsde_sigma(nets, t, x)
+        u_ratio = (mu - nu) / sig
+        dkl = 0.5 * torch.sum(u_ratio * u_ratio, -1, keepdim=True)
+        chans = [nu, dkl]
+        if with_recon:
+            y_hat = nn.linear(nets["ell"], x)
+            chans.append(torch.mean((y_hat - ctx_at(p["y"], t)) ** 2, -1, keepdim=True))
+        return torch.cat(chans, -1)
+
+    def post_diffusion(p, t, u):
+        sig = _lsde_sigma(p["nets"], t, u[..., :h])
+        return torch.cat([sig, sig.new_zeros(sig.shape[:-1] + (n_aux,))], -1)
+
+    return post_drift, post_diffusion
+
+
+def _metrics(recon, kl_path, kl_v):
+    return {"recon": recon, "kl_path": torch.mean(kl_path), "kl_v": torch.mean(kl_v)}
+
+
+def latent_sde_loss(params, cfg: LatentSDEConfig, key, y_true):
+    """Negative ELBO (paper eq. (4) / Appendix B) -> ``(loss, metrics)``.
+
+    ``y_true``: ``(T+1, B, data_dim)`` on the training device; ``key`` a
+    ``(2,)`` key there.  The KL path integral rides as a state channel, so
+    the objective is a function of one solve's trajectory, which the
+    reconstruction term reads at the observation times."""
+    T, B = y_true.shape[0] - 1, y_true.shape[1]
+    stride = validate_latent_grid(cfg.num_steps, T)
+    dt_data = cfg.t1 / T
+    kz0, kw = prng.split(key)
+    ctx, x0, kl_v = _latent_encode(params, cfg, kz0, y_true)
+    post_drift, post_diffusion = _latent_posterior_fields(cfg, T, n_aux=1)
+    u0 = torch.cat([x0, x0.new_zeros(B, 1)], -1)
+    bm = BrownianPath(kw, 0.0, cfg.t1, (B, cfg.hidden_dim + 1), cfg.dtype)
+    traj = _cfg_solve(cfg, post_drift, post_diffusion, {"nets": params, "ctx": ctx},
+                      u0, bm, cfg.num_steps, "diagonal")
+    xs = traj[..., :cfg.hidden_dim]
+    kl_path = traj[-1][..., -1]
+    y_hat_obs = nn.linear(params["ell"], xs)[::stride]
+    recon = torch.sum(torch.mean((y_hat_obs - y_true) ** 2, dim=(1, 2))) * dt_data
+    recon0 = torch.mean(torch.sum((y_hat_obs[0] - y_true[0]) ** 2, -1))
+    loss = recon + recon0 + cfg.kl_weight * torch.mean(kl_path + kl_v)
+    return loss, _metrics(recon, kl_path, kl_v)
+
+
+def latent_sde_loss_terminal(params, cfg: LatentSDEConfig, key, y_true,
+                             gradient_mode=None, solver=None):
+    """Negative ELBO as a function of the terminal augmented state only:
+    both the KL path integral and the reconstruction error ride as state
+    channels (the form a terminal-cotangent adjoint needs), solved with the
+    exact adjoint's terminal form by default."""
+    T, B = y_true.shape[0] - 1, y_true.shape[1]
+    validate_latent_grid(cfg.num_steps, T)
+    kz0, kw = prng.split(key)
+    ctx, x0, kl_v = _latent_encode(params, cfg, kz0, y_true)
+    post_drift, post_diffusion = _latent_posterior_fields(cfg, T, n_aux=2, with_recon=True)
+    u0 = torch.cat([x0, x0.new_zeros(B, 2)], -1)
+    bm = BrownianPath(kw, 0.0, cfg.t1, (B, cfg.hidden_dim + 2), cfg.dtype)
+    uT = _cfg_solve(cfg, post_drift, post_diffusion,
+                    {"nets": params, "ctx": ctx, "y": y_true}, u0, bm, cfg.num_steps,
+                    "diagonal", gradient_mode=gradient_mode, solver=solver,
+                    save_trajectory=False)
+    kl_path = uT[..., cfg.hidden_dim]
+    recon = torch.mean(uT[..., cfg.hidden_dim + 1])
+    recon0 = torch.mean(torch.sum((nn.linear(params["ell"], x0) - y_true[0]) ** 2, -1))
+    loss = recon + recon0 + cfg.kl_weight * torch.mean(kl_path + kl_v)
+    return loss, _metrics(recon, kl_path, kl_v)
 
 
 def latent_prior_drift(p, t, x):

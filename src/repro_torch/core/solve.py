@@ -1,9 +1,10 @@
 """SDE-solve front-end, fixed grid (port of :mod:`repro.core.solve`).
 
 One entry point, :func:`solve`, validated eagerly against a solver registry
-and dispatched to a gradient backend — the reference's design.  This slice
-registers the reversible-Heun solver and the forward pass of its
-``reversible_adjoint`` backend.  Everything else the reference accepts
+and dispatched to a gradient backend — the reference's design.  The port
+registers the reversible-Heun solver with two backends: ``discretise``
+(autograd through the loop) and ``reversible_adjoint`` (the exact
+O(1)-memory adjoint).  Everything else the reference accepts
 raises :class:`NotPortedError` by name (solvers, gradient modes, adaptive
 stepping, the bf16 policy), so nothing silently runs another solver's
 numerics; ROADMAP.md lists the order they are ported in.
@@ -82,7 +83,7 @@ def available_solvers() -> Tuple[str, ...]:
 register_solver(SolverSpec(
     "reversible_heun", reversible_heun_step,
     nfe_per_step=1, strong_order=0.5,
-    gradient_modes=("reversible_adjoint",),
+    gradient_modes=("discretise", "reversible_adjoint"),
     supports_pallas=True,
     notes="algebraically reversible; O(1)-memory exact adjoint (paper §3)"))
 
@@ -124,9 +125,10 @@ def solve(drift, diffusion, params, z0, bm, t0: float, t1: float, num_steps: int
     """Solve ``dZ = μ dt + σ ∘ dW`` on a uniform grid of ``num_steps`` steps.
 
     Same signature and defaults as :func:`repro.core.solve.solve`.  Ported:
-    ``solver="reversible_heun"``, ``gradient_mode="reversible_adjoint"``
-    (forward only), diagonal noise, ``use_pallas_kernels`` (the CUDA kernels
-    on CUDA tensors), ``precision="highest"``.  Returns the trajectory
+    ``solver="reversible_heun"``, ``gradient_mode`` ``"discretise"`` and
+    ``"reversible_adjoint"``, diagonal noise (general noise unfused),
+    ``use_pallas_kernels`` (the CUDA kernels on CUDA tensors; exact adjoint
+    only), ``precision="highest"``.  Returns the trajectory
     ``(num_steps+1, *z0.shape)`` or, with ``save_trajectory=False``, the
     terminal value.
     """

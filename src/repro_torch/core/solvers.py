@@ -1,14 +1,19 @@
-"""Reversible Heun, one step (port of :mod:`repro.core.solvers`, the
-``reversible_heun`` forward stepper).
+"""Reversible Heun, one step forward and one back (port of
+:mod:`repro.core.solvers`: ``reversible_heun_step`` and
+``reversible_heun_reverse_step``).
 
 Calling convention as in the reference::
 
     drift(params, t, z)      -> dz/dt   (shape of z)
     diffusion(params, t, z)  -> sigma   (diagonal: shape of z)
 
-Times ``t`` are numpy scalars of the state dtype (or Python floats), so the
-grid arithmetic rounds as the reference's traced float arithmetic does and
-never needs a device round trip.
+Times ``t`` are numpy scalars of the state dtype (or Python floats) and
+never need a device round trip.  On a uniform grid every field time is
+:func:`grid_time`: ``t0 + k·Δt`` rounded once.  That is what the compiled
+reference evaluates — XLA contracts ``t0 + n·Δt`` and the ``± Δt`` after it
+into fused multiply-adds — and the plain two-rounding arithmetic differs
+from it by an ulp at some steps, enough to move the Latent SDE's context
+index (tests/test_torch_adjoint.py records the reference's times).
 
 With ``use_pallas=True`` (the reference's name for the fused path) and
 diagonal noise, the two state updates go through :mod:`repro_torch.
@@ -16,18 +21,25 @@ kernels.ops`: the CUDA kernels for CUDA tensors, the plain versions on the
 CPU.  ``gen=(keys, n, dt_grid)`` draws ΔW inside the phase-1 kernel.  The
 unfused path is plain tensor arithmetic whose bits the fused path matches
 exactly: ``(½Δt)·m`` and ``(½m)·Δt`` agree under power-of-two scaling.
+:func:`reversible_heun_reverse_step` is the algebraic inverse (Algorithm
+2): the same two kernels with ``sign=-1``.
 """
 
 from __future__ import annotations
 
+from fractions import Fraction
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..kernels import ops
 
 Drift = Callable
 Diffusion = Callable
+
+#: numpy scalar type of each state dtype (the times' arithmetic).
+NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
 #: drift+diffusion evaluations per step, per solver (paper's NFE accounting).
 NFE_PER_STEP = {
@@ -54,6 +66,13 @@ def dw_shape(z_shape, w_dim: Optional[int], noise: str):
     return tuple(z_shape[:-1]) + (w_dim,)
 
 
+def grid_time(t0: float, k: int, dt):
+    """``t0 + k·dt`` rounded once to ``dt``'s numpy dtype (exact arithmetic
+    in between; with ``t0 = 0``, as every solve here, float32 needs no
+    second rounding through the double)."""
+    return type(dt)(float(Fraction(t0) + k * Fraction(float(dt))))
+
+
 class RevHeunState(NamedTuple):
     """Carried state of the reversible Heun method (Algorithm 1)."""
 
@@ -65,8 +84,9 @@ class RevHeunState(NamedTuple):
 
 def reversible_heun_step(state: RevHeunState, t, dt, dw, drift, diffusion, params,
                          noise, use_pallas: bool = False,
-                         use_kernel: Optional[bool] = None, gen=None):
-    """One step of Algorithm 1: exactly one drift+diffusion evaluation.
+                         use_kernel: Optional[bool] = None, gen=None, t1=None):
+    """One step of Algorithm 1: exactly one drift+diffusion evaluation, at
+    ``t1`` (default ``t + dt``; the grid solves pass :func:`grid_time`).
 
     ``gen=(keys, n, dt_grid)`` draws this step's ΔW inside the phase-1
     kernel (bitwise ``BrownianPath.increment(n)``) instead of consuming
@@ -74,6 +94,7 @@ def reversible_heun_step(state: RevHeunState, t, dt, dw, drift, diffusion, param
     policy of :mod:`repro_torch.kernels.ops`.
     """
     z, zh, mu, sigma = state
+    t1 = t + dt if t1 is None else t1
     if use_pallas and noise == "diagonal":
         if gen is not None:
             keys, n, dt_grid = gen
@@ -81,13 +102,41 @@ def reversible_heun_step(state: RevHeunState, t, dt, dw, drift, diffusion, param
                                               use_kernel=use_kernel)
         else:
             zh1 = ops.rev_heun_phase1(z, zh, mu, sigma, dw, dt, use_kernel=use_kernel)
-        mu1 = drift(params, t + dt, zh1)
-        sigma1 = diffusion(params, t + dt, zh1)
+        mu1 = drift(params, t1, zh1)
+        sigma1 = diffusion(params, t1, zh1)
         z1 = ops.rev_heun_phase2(z, mu, mu1, sigma, sigma1, dw, dt,
                                  use_kernel=use_kernel)
         return RevHeunState(z1, zh1, mu1, sigma1)
     zh1 = 2.0 * z - zh + mu * dt + apply_diffusion(sigma, dw, noise)
-    mu1 = drift(params, t + dt, zh1)
-    sigma1 = diffusion(params, t + dt, zh1)
+    mu1 = drift(params, t1, zh1)
+    sigma1 = diffusion(params, t1, zh1)
     z1 = z + 0.5 * (mu + mu1) * dt + apply_diffusion(0.5 * (sigma + sigma1), dw, noise)
     return RevHeunState(z1, zh1, mu1, sigma1)
+
+
+def reversible_heun_reverse_step(state: RevHeunState, t1, dt, dw, drift, diffusion,
+                                 params, noise, use_pallas: bool = False,
+                                 use_kernel: Optional[bool] = None, t0=None):
+    """Algebraic inverse of :func:`reversible_heun_step` (Algorithm 2).
+
+    Reconstructs ``(z_n, ẑ_n, μ_n, σ_n)`` from the step-``n+1`` state in
+    closed form with one drift+diffusion evaluation at ``t0`` (default
+    ``t1 - dt``; the grid solves pass :func:`grid_time`).  The
+    fused path runs the phase kernels with ``sign=-1``; it is bitwise the
+    unfused arithmetic (``a − b`` is ``a + (−b)`` exactly).
+    """
+    z1, zh1, mu1, sigma1 = state
+    t = t1 - dt if t0 is None else t0
+    if use_pallas and noise == "diagonal":
+        zh = ops.rev_heun_phase1(z1, zh1, mu1, sigma1, dw, dt, sign=-1.0,
+                                 use_kernel=use_kernel)
+        mu = drift(params, t, zh)
+        sigma = diffusion(params, t, zh)
+        z = ops.rev_heun_phase2(z1, mu, mu1, sigma, sigma1, dw, dt, sign=-1.0,
+                                use_kernel=use_kernel)
+        return RevHeunState(z, zh, mu, sigma)
+    zh = 2.0 * z1 - zh1 - mu1 * dt - apply_diffusion(sigma1, dw, noise)
+    mu = drift(params, t, zh)
+    sigma = diffusion(params, t, zh)
+    z = z1 - 0.5 * (mu + mu1) * dt - apply_diffusion(0.5 * (sigma + sigma1), dw, noise)
+    return RevHeunState(z, zh, mu, sigma)

@@ -1,7 +1,8 @@
 """Device policy of the port's entry points.
 
-Entry points (``serve_sde``, the serve CLI, ``make_sample_step``) run on
-the card unless the caller asks for the CPU.  Without a card and without
+Entry points (``serve_sde``, ``train_latent_sde``, the serve and train
+CLIs, ``make_sample_step``, ``make_latent_sde_step``) run on the card
+unless the caller asks for the CPU.  Without a card and without
 an explicit CPU request they raise :class:`NoCudaDeviceError`; they never
 fall back to the CPU on their own.
 """

@@ -41,7 +41,10 @@ SIGNATURES = {
     "rt_brownian_increment": (_I, _P, _I64, _D, _P, _I64, _I64, _P),
     "rt_rev_heun_phase1_gen": (_I, _P, _P, _P, _P, _P, _I64, _D, _D, _D, _P, _P,
                                _I64, _I64, _P),
+    "rt_rev_heun_phase1": (_I, _P, _P, _P, _P, _P, _D, _D, _P, _I64, _P),
     "rt_rev_heun_phase2": (_I, _P, _P, _P, _P, _P, _P, _D, _D, _P, _I64, _P),
+    "rt_rev_heun_bwd_phase1": (_I, _P, _P, _P, _P, _D, _P, _P, _I64, _P),
+    "rt_rev_heun_bwd_phase2": (_I, _P, _P, _P, _D, _P, _P, _P, _P, _I64, _P),
 }
 
 _lock = threading.Lock()

@@ -1,27 +1,39 @@
-// Reversible-Heun state updates and in-kernel Brownian draws for Hopper.
+// Reversible-Heun state updates, their hand-derived backward phases, and
+// in-kernel Brownian draws for Hopper.
 //
-// Replaces three Pallas kernels of the JAX package:
-//   rev_heun_phase2      src/repro/kernels/reversible_heun_step.py:161
+// Replaces six Pallas kernels of the JAX package:
+//   rev_heun_phase1      src/repro/kernels/reversible_heun_step.py:152 (body :66)
+//   rev_heun_phase2      src/repro/kernels/reversible_heun_step.py:161 (body :76)
+//   rev_heun_bwd_phase1  src/repro/kernels/reversible_heun_step.py:170 (body :86)
+//   rev_heun_bwd_phase2  src/repro/kernels/reversible_heun_step.py:180 (body :94)
 //   brownian_increment   src/repro/kernels/brownian.py:71
 //   rev_heun_phase1_gen  src/repro/kernels/brownian.py:132
 // The plain versions are src/repro_torch/kernels/ref.py; each kernel here
-// computes the same function with the same op order, bitwise.
+// computes the same function with the same op order, bitwise.  The backward
+// pair's grouping (c_mu1 = g_mu1 + 0.5*(g_z1*dt), d_mu = 0.5*(g_z1*dt) +
+// ghat*dt, ...) is the transpose's own, which is what makes the fused exact
+// adjoint bitwise equal to autograd through the unfused step.
 //
-// Design.  All three are elementwise over a (rows, d) state, one thread per
+// Design.  All six are elementwise over a (rows, d) state, one thread per
 // element in a grid-stride loop.  The TPU kernels held the whole state in
 // VMEM as one block; here no element needs another, so there is nothing to
 // stage in shared memory.  The draws are per row: row b's key is keys[b]
 // (the JAX package got per-row keys from jax.vmap), folded with the step
 // counter n inside the kernel, so the Brownian increment never goes through
-// device memory between generation and use in rev_heun_phase1_gen.
+// device memory between generation and use in rev_heun_phase1_gen.  Step
+// size and sign are runtime scalars, so one compiled kernel serves every
+// step size and both directions (forward +1, reconstruction -1).
 //
-// Bound.  At the decode's shapes (rows <= 1024, d = 16) each launch moves
-// at most a few hundred KB, well under a microsecond at 3.35 TB/s, and the
-// ~0.5 KFLOP-equivalent of integer hashing per element is far under the
-// compute peak: the kernels are bound by launch latency, and by HBM bytes at
-// larger states.  Each thread recomputes its row's fold_in and, in float32,
-// the counter pair it shares with one other element: redundant integer work
-// that costs no memory traffic.
+// Bound.  The non-drawing kernels move 6 (phase 1, bwd phase 1) or 7
+// (phase 2, bwd phase 2) state-sized tensors and do a handful of flops per
+// element: HBM-bound, bytes / 3.35 TB/s.  At the training shapes (B <= 1024
+// rows, d = 17) that is at most ~0.15 us, far under the ~2.5 us launch
+// floor, so each launch costs its launch; only fusing phases (fewer
+// launches) would move the time.  The ~0.5 KFLOP-equivalent of integer
+// hashing per drawn element is far under the compute peak.  Each thread
+// recomputes its row's fold_in and, in float32, the counter pair it shares
+// with one other element: redundant integer work that costs no memory
+// traffic.
 //
 // Interface: plain C functions (loaded with ctypes by kernels/build.py),
 // dtype code 0 = float32, 1 = float64.  Each launches on the given stream and
@@ -86,6 +98,22 @@ __global__ void phase1_gen_kernel(const T* __restrict__ z, const T* __restrict__
   }
 }
 
+// ẑ₁ = 2z − ẑ + μ·(sign·Δt) + (sign·σ)·ΔW, with ΔW given.
+// Replaces _phase1_kernel (src/repro/kernels/reversible_heun_step.py:66).
+// Bound: 6 state-sized tensors through HBM (5 read, 1 written).
+template <typename T>
+__global__ void phase1_kernel(const T* __restrict__ z, const T* __restrict__ zh,
+                              const T* __restrict__ mu, const T* __restrict__ sigma,
+                              const T* __restrict__ dw, T dt, T sign,
+                              T* __restrict__ zh1, int64_t total) {
+  const T sdt = mul(sign, dt);
+  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+       e < total; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const T a = sub(mul(T(2), z[e]), zh[e]);
+    zh1[e] = add(add(a, mul(mu[e], sdt)), mul(mul(sign, sigma[e]), dw[e]));
+  }
+}
+
 // z₁ = z + (sign·½Δt)(μ+μ′) + (sign·½)(σ+σ′)ΔW
 template <typename T>
 __global__ void phase2_kernel(const T* __restrict__ z, const T* __restrict__ mu,
@@ -99,6 +127,43 @@ __global__ void phase2_kernel(const T* __restrict__ z, const T* __restrict__ mu,
     const T drift = mul(hdt, add(mu[e], mu1[e]));
     const T noise = mul(mul(half_sign, add(sigma[e], sigma1[e])), dw[e]);
     out[e] = add(add(z[e], drift), noise);
+  }
+}
+
+// Field-VJP seeds: c_mu1 = ḡ_mu1 + ½(ḡ_z1·Δt), c_sig1 = ḡ_sig1 + ½(ḡ_z1·ΔW).
+// Replaces _bwd_phase1_kernel (src/repro/kernels/reversible_heun_step.py:86).
+// Bound: 6 state-sized tensors through HBM (4 read, 2 written).
+template <typename T>
+__global__ void bwd_phase1_kernel(const T* __restrict__ g_z1, const T* __restrict__ g_mu1,
+                                  const T* __restrict__ g_sig1, const T* __restrict__ dw,
+                                  T dt, T* __restrict__ c_mu1, T* __restrict__ c_sig1,
+                                  int64_t total) {
+  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+       e < total; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const T g = g_z1[e];
+    c_mu1[e] = add(g_mu1[e], mul(T(0.5), mul(g, dt)));
+    c_sig1[e] = add(g_sig1[e], mul(T(0.5), mul(g, dw[e])));
+  }
+}
+
+// Step-n cotangents from ĝ (the total ẑ₁ cotangent):
+// d_z = ḡ_z1 + 2ĝ, d_zh = −ĝ, d_μ = ½(ḡ_z1·Δt) + ĝΔt, d_σ = ½(ḡ_z1·ΔW) + ĝΔW.
+// Replaces _bwd_phase2_kernel (src/repro/kernels/reversible_heun_step.py:94).
+// Bound: 7 state-sized tensors through HBM (3 read, 4 written).
+template <typename T>
+__global__ void bwd_phase2_kernel(const T* __restrict__ g_z1, const T* __restrict__ ghat,
+                                  const T* __restrict__ dw, T dt, T* __restrict__ d_z,
+                                  T* __restrict__ d_zh, T* __restrict__ d_mu,
+                                  T* __restrict__ d_sigma, int64_t total) {
+  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+       e < total; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const T g = g_z1[e];
+    const T h = ghat[e];
+    const T w = dw[e];
+    d_z[e] = add(g, mul(T(2), h));
+    d_zh[e] = -h;
+    d_mu[e] = add(mul(T(0.5), mul(g, dt)), mul(h, dt));
+    d_sigma[e] = add(mul(T(0.5), mul(g, w)), mul(h, w));
   }
 }
 
@@ -174,6 +239,72 @@ extern "C" int rt_rev_heun_phase2(int dtype, const void* z, const void* mu,
           static_cast<const double*>(mu1), static_cast<const double*>(sigma),
           static_cast<const double*>(sigma1), static_cast<const double*>(dw), dt, sign,
           static_cast<double*>(out), total);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int rt_rev_heun_phase1(int dtype, const void* z, const void* zh, const void* mu,
+                                  const void* sigma, const void* dw, double dt, double sign,
+                                  void* zh1, int64_t total, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (total > 0) {
+    if (dtype == 0) {
+      repro_torch::phase1_kernel<float><<<blocks_for(total), kThreads, 0, s>>>(
+          static_cast<const float*>(z), static_cast<const float*>(zh),
+          static_cast<const float*>(mu), static_cast<const float*>(sigma),
+          static_cast<const float*>(dw), static_cast<float>(dt), static_cast<float>(sign),
+          static_cast<float*>(zh1), total);
+    } else {
+      repro_torch::phase1_kernel<double><<<blocks_for(total), kThreads, 0, s>>>(
+          static_cast<const double*>(z), static_cast<const double*>(zh),
+          static_cast<const double*>(mu), static_cast<const double*>(sigma),
+          static_cast<const double*>(dw), dt, sign, static_cast<double*>(zh1), total);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int rt_rev_heun_bwd_phase1(int dtype, const void* g_z1, const void* g_mu1,
+                                      const void* g_sig1, const void* dw, double dt,
+                                      void* c_mu1, void* c_sig1, int64_t total,
+                                      void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (total > 0) {
+    if (dtype == 0) {
+      repro_torch::bwd_phase1_kernel<float><<<blocks_for(total), kThreads, 0, s>>>(
+          static_cast<const float*>(g_z1), static_cast<const float*>(g_mu1),
+          static_cast<const float*>(g_sig1), static_cast<const float*>(dw),
+          static_cast<float>(dt), static_cast<float*>(c_mu1), static_cast<float*>(c_sig1),
+          total);
+    } else {
+      repro_torch::bwd_phase1_kernel<double><<<blocks_for(total), kThreads, 0, s>>>(
+          static_cast<const double*>(g_z1), static_cast<const double*>(g_mu1),
+          static_cast<const double*>(g_sig1), static_cast<const double*>(dw), dt,
+          static_cast<double*>(c_mu1), static_cast<double*>(c_sig1), total);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int rt_rev_heun_bwd_phase2(int dtype, const void* g_z1, const void* ghat,
+                                      const void* dw, double dt, void* d_z, void* d_zh,
+                                      void* d_mu, void* d_sigma, int64_t total,
+                                      void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (total > 0) {
+    if (dtype == 0) {
+      repro_torch::bwd_phase2_kernel<float><<<blocks_for(total), kThreads, 0, s>>>(
+          static_cast<const float*>(g_z1), static_cast<const float*>(ghat),
+          static_cast<const float*>(dw), static_cast<float>(dt), static_cast<float*>(d_z),
+          static_cast<float*>(d_zh), static_cast<float*>(d_mu), static_cast<float*>(d_sigma),
+          total);
+    } else {
+      repro_torch::bwd_phase2_kernel<double><<<blocks_for(total), kThreads, 0, s>>>(
+          static_cast<const double*>(g_z1), static_cast<const double*>(ghat),
+          static_cast<const double*>(dw), dt, static_cast<double*>(d_z),
+          static_cast<double*>(d_zh), static_cast<double*>(d_mu),
+          static_cast<double*>(d_sigma), total);
     }
   }
   return static_cast<int>(cudaGetLastError());

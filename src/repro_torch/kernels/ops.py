@@ -11,9 +11,6 @@ Policy, by the device of the operands and nothing else:
   and the tests compare the two this way.  ``use_kernel=True`` insists on
   the kernel and raises for CPU tensors.
 
-``rev_heun_phase1`` (the kernel without in-kernel noise) is not ported
-yet: on CUDA tensors it raises unless the caller asks for the plain
-version, so a card never runs it silently off-kernel.
 """
 
 from __future__ import annotations
@@ -25,10 +22,6 @@ import torch
 from . import brownian as _bk
 from . import ref
 from . import reversible_heun_step as _rh
-
-
-class KernelNotPortedError(NotImplementedError):
-    """The TPU kernel behind this op has no CUDA port yet (ROADMAP.md, Queue 2)."""
 
 
 def _decide(name: str, tensor: torch.Tensor, use_kernel: Optional[bool]) -> bool:
@@ -45,11 +38,7 @@ def _decide(name: str, tensor: torch.Tensor, use_kernel: Optional[bool]) -> bool
 def rev_heun_phase1(z, zh, mu, sigma, dw, dt, sign: float = 1.0,
                     use_kernel: Optional[bool] = None):
     if _decide("rev_heun_phase1", z, use_kernel):
-        raise KernelNotPortedError(
-            "rev_heun_phase1 (src/repro/kernels/reversible_heun_step.py:152) is "
-            "ported with the training slice (ROADMAP.md, Queue 2); on the card, "
-            "decode with an in-kernel-noise BrownianPath (rev_heun_phase1_gen) "
-            "or pass use_kernel=False")
+        return _rh.rev_heun_phase1(z, zh, mu, sigma, dw, dt, sign)
     return ref.rev_heun_phase1(z, zh, mu, sigma, dw, dt, sign)
 
 
@@ -58,6 +47,20 @@ def rev_heun_phase2(z, mu, mu1, sigma, sigma1, dw, dt, sign: float = 1.0,
     if _decide("rev_heun_phase2", z, use_kernel):
         return _rh.rev_heun_phase2(z, mu, mu1, sigma, sigma1, dw, dt, sign)
     return ref.rev_heun_phase2(z, mu, mu1, sigma, sigma1, dw, dt, sign)
+
+
+def rev_heun_bwd_phase1(g_z1, g_mu1, g_sig1, dw, dt, use_kernel: Optional[bool] = None):
+    """Field-VJP seeds ``(c_mu1, c_sig1)`` of the fused exact adjoint."""
+    if _decide("rev_heun_bwd_phase1", g_z1, use_kernel):
+        return _rh.rev_heun_bwd_phase1(g_z1, g_mu1, g_sig1, dw, dt)
+    return ref.rev_heun_bwd_phase1(g_z1, g_mu1, g_sig1, dw, dt)
+
+
+def rev_heun_bwd_phase2(g_z1, ghat, dw, dt, use_kernel: Optional[bool] = None):
+    """Step-``n`` cotangents ``(d_z, d_zh, d_mu, d_sigma)`` from ``ĝ``."""
+    if _decide("rev_heun_bwd_phase2", g_z1, use_kernel):
+        return _rh.rev_heun_bwd_phase2(g_z1, ghat, dw, dt)
+    return ref.rev_heun_bwd_phase2(g_z1, ghat, dw, dt)
 
 
 def rev_heun_phase1_gen(z, zh, mu, sigma, key, n, dt_grid, dt, sign: float = 1.0,

@@ -7,6 +7,8 @@ False``, the layout ``repro.kernels.prng`` transcribes).
 
 These are the plain versions of the device functions in
 ``csrc/threefry.cuh``; the CUDA kernels and the CPU path both follow them.
+:func:`randint` is ``jax.random.randint``'s algorithm (two ``random_bits``
+draws from a split key, combined modulo the span), bitwise.
 
 Representation: every 32-bit word is an ``int64`` tensor holding a value in
 ``[0, 2**32)``.  On the CPU, torch's ``uint32`` has no ``+``, ``<<`` or
@@ -256,6 +258,12 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
                         device=device)
 
 
+def fold_in_key(key: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)`` on ``(..., 2)`` keys -> ``(..., 2)``;
+    ``data`` broadcasts against the key batch."""
+    return torch.stack(fold_in(key[..., 0], key[..., 1], data), -1)
+
+
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split(key, num)``: ``(..., 2)`` -> ``(..., num, 2)``.
 
@@ -264,3 +272,37 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     bits = random_bits(key[..., 0], key[..., 1], 32, 2 * num)
     return bits.reshape(bits.shape[:-1] + (num, 2))
 
+
+
+def randint(key: torch.Tensor, size: int, minval: int, maxval: int,
+            dtype=torch.int32) -> torch.Tensor:
+    """``jax.random.randint(key, (size,), minval, maxval, dtype)``, bitwise.
+
+    ``dtype`` int32 draws 32-bit words, int64 64-bit words — JAX's default
+    ``int`` is int32 without x64 and int64 with it.  JAX's unsigned modular
+    arithmetic is carried on int64 words: 32-bit products are masked back
+    to 32 bits, and 64-bit ones wrap as two's complement, the same bits as
+    ``uint64`` wrapping."""
+    nbits = {torch.int32: 32, torch.int64: 64}.get(dtype)
+    if nbits is None:
+        raise TypeError(f"randint draws int32 or int64, got {dtype}")
+    minval, maxval = int(minval), int(maxval)
+    span = 1 if maxval <= minval else maxval - minval
+    if span >= 2 ** 63:
+        raise ValueError(f"randint: span {span} does not fit the int64 words")
+    mult = pow(2, nbits // 2, span) ** 2 % 2 ** nbits % span  # uint product wraps
+    k = split(key)
+    hi_bits = random_bits(k[0, 0], k[0, 1], nbits, size)
+    lo_bits = random_bits(k[1, 0], k[1, 1], nbits, size)
+    if nbits == 32:
+        off = ((hi_bits % span) * mult + lo_bits % span) & MASK
+    else:
+        off = _urem64(hi_bits, span) * mult + _urem64(lo_bits, span)
+    off = _urem64(off, span) if nbits == 64 else off % span
+    return (minval + off).to(dtype)
+
+
+def _urem64(x: torch.Tensor, m: int) -> torch.Tensor:
+    """Unsigned remainder of the uint64 bit patterns held in int64 ``x``."""
+    r = torch.remainder(x, m)  # of the signed value; a negative one is u - 2**64
+    return torch.where(x < 0, (r + 2 ** 64 % m) % m, r)

@@ -29,6 +29,28 @@ def rev_heun_phase2(z, mu, mu1, sigma, sigma1, dw, dt, sign: float = 1.0):
     return z + (sign * 0.5 * dt) * (mu + mu1) + (sign * 0.5) * (sigma + sigma1) * dw
 
 
+def rev_heun_bwd_phase1(g_z1, g_mu1, g_sig1, dw, dt):
+    """Seeds of the field VJP: ``c_mu1 = ḡ_mu1 + ½(ḡ_z1·Δt)``,
+    ``c_sig1 = ḡ_sig1 + ½(ḡ_z1·ΔW)``.
+
+    The grouping is the transpose's own (power-of-two scalings commute with
+    rounding; two-term sums are order-free), so each output is bitwise what
+    autograd of the unfused step gives."""
+    c_mu1 = g_mu1 + 0.5 * (g_z1 * dt)
+    c_sig1 = g_sig1 + 0.5 * (g_z1 * dw)
+    return c_mu1, c_sig1
+
+
+def rev_heun_bwd_phase2(g_z1, ghat, dw, dt):
+    """Distribute ``ĝ`` (the total ẑ₁ cotangent) onto the step-``n`` state:
+    ``(d_z, d_zh, d_mu, d_sigma)``."""
+    d_z = g_z1 + 2.0 * ghat
+    d_zh = -ghat
+    d_mu = 0.5 * (g_z1 * dt) + ghat * dt
+    d_sigma = 0.5 * (g_z1 * dw) + ghat * dw
+    return d_z, d_zh, d_mu, d_sigma
+
+
 def brownian_increment(k1, k2, n, shape, dtype, dt):
     """Step-``n`` increment of a uniform grid with spacing ``dt``:
     ``normal(fold_in(key, n), shape)·sqrt(dt)``.

@@ -1,16 +1,17 @@
-"""Launcher of the reversible-Heun phase-2 CUDA kernel (port of
-:mod:`repro.kernels.reversible_heun_step`).
+"""Launchers of the reversible-Heun CUDA kernels (port of
+:mod:`repro.kernels.reversible_heun_step`), one per Pallas kernel there:
 
-``rev_heun_phase2`` replaces the Pallas kernel of the same name
-(src/repro/kernels/reversible_heun_step.py:161): one elementwise pass
-``z₁ = z + (sign·½Δt)(μ+μ′) + (sign·½)(σ+σ′)ΔW`` over the state, with
-``dt`` and ``sign`` as scalar kernel arguments so one compiled kernel
-serves every step size and both directions.  The kernel is in
-``csrc/rev_heun.cu``; the plain version is :func:`repro_torch.kernels.ref.
-rev_heun_phase2`.
+* :func:`rev_heun_phase1` (reference :152): ``ẑ₁ = 2z − ẑ + sign·(μΔt +
+  σΔW)`` — the forward ẑ₁ recompute (+1) and Algorithm 2's reconstruction
+  (−1).
+* :func:`rev_heun_phase2` (:161): ``z₁ = z + sign·(½(μ+μ′)Δt + ½(σ+σ′)ΔW)``.
+* :func:`rev_heun_bwd_phase1` (:170) and :func:`rev_heun_bwd_phase2` (:180):
+  the hand-derived transpose of one step around its single field VJP.
 
-The other three kernels of the reference module (``rev_heun_phase1`` and
-the backward pair) belong to the training slice (ROADMAP.md, Queue 2).
+Each is one elementwise pass over the state with ``dt`` and ``sign`` as
+scalar kernel arguments, so one compiled kernel serves every step size and
+both directions.  The kernels are in ``csrc/rev_heun.cu``; the plain
+versions in :mod:`repro_torch.kernels.ref`.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ import torch
 from . import build
 
 #: Kernel launches made by this module's wrappers (one per launch).
-LAUNCHES = {"rev_heun_phase2": 0}
+LAUNCHES = {"rev_heun_phase1": 0, "rev_heun_phase2": 0, "rev_heun_bwd_phase1": 0,
+            "rev_heun_bwd_phase2": 0}
 
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
@@ -48,6 +50,27 @@ def scalar(x) -> float:
     return float(x.item()) if isinstance(x, torch.Tensor) else float(x)
 
 
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def rev_heun_phase1(z, zh, mu, sigma, dw, dt, sign: float = 1.0):
+    """ẑ₁ = 2z − ẑ + μ(sign·Δt) + (sign·σ)ΔW — one launch."""
+    check_operands("rev_heun_phase1", z, (zh, mu, sigma, dw))
+    out = torch.empty_like(z)
+    if z.numel() == 0:
+        return out
+    lib = build.load()
+    with build.device_guard(z.device):
+        err = lib.rt_rev_heun_phase1(
+            DTYPE_CODES[z.dtype], z.data_ptr(), zh.data_ptr(), mu.data_ptr(),
+            sigma.data_ptr(), dw.data_ptr(), scalar(dt), scalar(sign), out.data_ptr(),
+            z.numel(), _stream(z))
+    build.check("rev_heun_phase1", err)
+    LAUNCHES["rev_heun_phase1"] += 1
+    return out
+
+
 def rev_heun_phase2(z, mu, mu1, sigma, sigma1, dw, dt, sign: float = 1.0):
     """z_{n+1} = z + sign·(½(μ+μ′)Δt + ½(σ+σ′)ΔW) — one launch."""
     check_operands("rev_heun_phase2", z, (mu, mu1, sigma, sigma1, dw))
@@ -59,8 +82,40 @@ def rev_heun_phase2(z, mu, mu1, sigma, sigma1, dw, dt, sign: float = 1.0):
         err = lib.rt_rev_heun_phase2(
             DTYPE_CODES[z.dtype], z.data_ptr(), mu.data_ptr(), mu1.data_ptr(),
             sigma.data_ptr(), sigma1.data_ptr(), dw.data_ptr(), scalar(dt),
-            scalar(sign), out.data_ptr(), z.numel(),
-            torch.cuda.current_stream(z.device).cuda_stream)
+            scalar(sign), out.data_ptr(), z.numel(), _stream(z))
     build.check("rev_heun_phase2", err)
     LAUNCHES["rev_heun_phase2"] += 1
     return out
+
+
+def rev_heun_bwd_phase1(g_z1, g_mu1, g_sig1, dw, dt):
+    """``(c_mu1, c_sig1)`` field-VJP seeds — one launch, two outputs."""
+    check_operands("rev_heun_bwd_phase1", g_z1, (g_mu1, g_sig1, dw))
+    c_mu1, c_sig1 = torch.empty_like(g_z1), torch.empty_like(g_z1)
+    if g_z1.numel() == 0:
+        return c_mu1, c_sig1
+    lib = build.load()
+    with build.device_guard(g_z1.device):
+        err = lib.rt_rev_heun_bwd_phase1(
+            DTYPE_CODES[g_z1.dtype], g_z1.data_ptr(), g_mu1.data_ptr(), g_sig1.data_ptr(),
+            dw.data_ptr(), scalar(dt), c_mu1.data_ptr(), c_sig1.data_ptr(),
+            g_z1.numel(), _stream(g_z1))
+    build.check("rev_heun_bwd_phase1", err)
+    LAUNCHES["rev_heun_bwd_phase1"] += 1
+    return c_mu1, c_sig1
+
+
+def rev_heun_bwd_phase2(g_z1, ghat, dw, dt):
+    """``(d_z, d_zh, d_mu, d_sigma)`` step-``n`` cotangents — one launch."""
+    check_operands("rev_heun_bwd_phase2", g_z1, (ghat, dw))
+    outs = tuple(torch.empty_like(g_z1) for _ in range(4))
+    if g_z1.numel() == 0:
+        return outs
+    lib = build.load()
+    with build.device_guard(g_z1.device):
+        err = lib.rt_rev_heun_bwd_phase2(
+            DTYPE_CODES[g_z1.dtype], g_z1.data_ptr(), ghat.data_ptr(), dw.data_ptr(),
+            scalar(dt), *(o.data_ptr() for o in outs), g_z1.numel(), _stream(g_z1))
+    build.check("rev_heun_bwd_phase2", err)
+    LAUNCHES["rev_heun_bwd_phase2"] += 1
+    return outs

@@ -1,8 +1,12 @@
-"""Step builders (port of :mod:`repro.launch.steps`; so far the serving
-sampler ``make_sample_step`` for the Latent-SDE prior decode)."""
+"""Step builders (port of :mod:`repro.launch.steps`): the Latent-SDE ELBO
+training step (``make_latent_sde_optimizer``, ``make_latent_sde_step``) and
+the serving sampler ``make_sample_step`` for the prior decode."""
 
 from __future__ import annotations
 
+import torch
+
+from .. import tree
 from ..device import resolve_device
 
 SERVE_WORKLOADS = ("sde-gan", "latent-sde")
@@ -39,3 +43,77 @@ def make_sample_step(workload: str, cfg, latent_mode: str = "prior", device=None
         return S.latent_sde_sample_paths(params, cfg, keys.to(dev))
 
     return sample
+
+
+def make_latent_sde_optimizer(lr: float = 1e-2):
+    """Adam, per the paper's Latent-SDE recipe (Appendix F): ``(init, update)``."""
+    from .. import optim
+
+    return optim.adam(lr)
+
+
+def make_latent_sde_step(cfg, opt_update, batch: int, seq_len: int,
+                         adjoint: str = "exact", device=None):
+    """Build the ELBO step ``(params, opt_state, key) -> (params, opt_state,
+    metrics)``.
+
+    One forward per step — the air-quality batch drawn from ``fold_in(key,
+    0)``, the encoder GRU and the posterior solve keyed by ``fold_in(key,
+    1)``, the KL path integral riding as a state channel — and one gradient
+    pull through the reversible-Heun exact O(1)-memory adjoint
+    (``adjoint="exact"``, the paper's recipe).  With
+    ``cfg.use_pallas_kernels`` the posterior solve's forward, its backward
+    reconstruction and the cotangent phases run in the CUDA kernels.
+
+    Runs on the card unless ``device="cpu"``; ``params`` must live on that
+    device, ``key`` is moved there.  Validation is eager: a misaligned grid,
+    a wrong data width or an illegal solver × adjoint × fusion cell raises a
+    named error here, at build time.  ``adjoint="backsolve"`` and
+    ``"checkpoint"`` are the reference's other derivations, not ported yet.
+    """
+    from ..core.sde import latent_sde_loss, validate_latent_grid
+    from ..core.solve import NotPortedError
+    from ..data.synthetic import air_quality_like
+    from ..kernels import prng
+    from ..optim import apply_updates
+
+    if adjoint not in ("exact", "backsolve", "checkpoint"):
+        raise ValueError(
+            f"adjoint must be 'exact', 'backsolve', or 'checkpoint', got {adjoint!r}")
+    if seq_len < 2:
+        raise ValueError(f"seq_len must be >= 2 observations, got {seq_len}")
+    validate_latent_grid(cfg.num_steps, seq_len - 1)
+    if cfg.data_dim != 2:
+        raise ValueError(
+            f"the latent-SDE workload trains on the bivariate air-quality "
+            f"dataset (PM2.5-like, O₃-like); cfg.data_dim must be 2, got "
+            f"{cfg.data_dim}")
+    if adjoint != "exact":
+        what = ("continuous-adjoint backsolve" if adjoint == "backsolve"
+                else "binomial checkpointing")
+        raise NotPortedError(
+            f"adjoint={adjoint!r} (the reference's {what} over the terminal-form "
+            f"ELBO) is not ported yet — ROADMAP.md Queue 1, item 9")
+    if cfg.use_pallas_kernels and not (cfg.solver == "reversible_heun" and cfg.exact_adjoint):
+        raise ValueError(
+            f"use_pallas_kernels requires solver='reversible_heun' with "
+            f"exact_adjoint=True (got solver={cfg.solver!r}, "
+            f"exact_adjoint={cfg.exact_adjoint}) — the fused kernels only "
+            f"apply to the exact-adjoint hot loop")
+    dev = resolve_device(device)
+
+    def step(params, opt_state, key):
+        key = key.to(dev)
+        ys, _ = air_quality_like(prng.fold_in_key(key, 0), batch, seq_len, dtype=cfg.dtype)
+        leaves, spec = tree.flatten(params)
+        leaves = [x.detach().requires_grad_() for x in leaves]
+        loss, parts = latent_sde_loss(tree.unflatten(spec, leaves), cfg,
+                                      prng.fold_in_key(key, 1), ys)
+        grads = tree.unflatten(spec, torch.autograd.grad(loss, leaves))
+        with torch.no_grad():
+            upd, opt_state = opt_update(grads, opt_state, params)
+            params = apply_updates(params, upd)
+        metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()}}
+        return params, opt_state, metrics
+
+    return step

@@ -2,7 +2,9 @@
 
 from .core import (  # noqa: F401
     ROW_BLOCK,
+    gru_cell,
     gru_init,
+    gru_scan,
     linear,
     linear_init,
     lipswish,

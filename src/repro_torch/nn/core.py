@@ -101,11 +101,34 @@ def mlp(params, x, activation: Callable = lipswish,
 
 def gru_init(generator: torch.Generator, in_dim: int, hidden: int,
              dtype=torch.float32, device=None):
-    """GRU cell parameters in the reference's layout (the Latent-SDE encoder;
-    the cell itself is ported with the training slice)."""
+    """GRU cell parameters in the reference's layout (the Latent-SDE encoder)."""
     return {
         "wi": linear_init(generator, in_dim, 3 * hidden, dtype=dtype, device=device),
         "wh": linear_init(generator, hidden, 3 * hidden, bias=False, dtype=dtype,
                           device=device),
         "h0": torch.zeros((hidden,), dtype=dtype, device=device),
     }
+
+
+def gru_cell(params, h, x):
+    """One GRU update ``h -> h'`` on input ``x`` (gates r, z, n)."""
+    gi = linear(params["wi"], x)
+    gh = linear(params["wh"], h)
+    i_r, i_z, i_n = gi.chunk(3, -1)
+    h_r, h_z, h_n = gh.chunk(3, -1)
+    r = sigmoid(i_r + h_r)
+    z = sigmoid(i_z + h_z)
+    n = torch.tanh(i_n + r * h_n)
+    return (1 - z) * n + z * h
+
+
+def gru_scan(params, xs, reverse: bool = False):
+    """Run a GRU over time axis 0 of ``xs`` (T, ..., in_dim) -> (T, ..., H);
+    ``reverse`` runs from the last step back, keeping outputs in time order."""
+    h = params["h0"].expand(xs.shape[1:-1] + params["h0"].shape)
+    steps = range(xs.shape[0] - 1, -1, -1) if reverse else range(xs.shape[0])
+    hs = [None] * xs.shape[0]
+    for i in steps:
+        h = gru_cell(params, h, xs[i])
+        hs[i] = h
+    return torch.stack(hs)

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: bitwise against their plain PyTorch
-versions, launch counting, operand checks, and fused = unfused decode.
+versions, launch counting, operand checks, fused = unfused decode, and the
+fused exact adjoint = the unfused one on a whole ELBO training step.
 
 These need an NVIDIA GPU with nvcc (the kernels have no CPU mode); each test
 skips without one.  On the GPU machine::
@@ -10,8 +11,10 @@ skips without one.  On the GPU machine::
 import pytest
 import torch
 
+from repro_torch import tree
 from repro_torch.core.sde import LatentSDEConfig, latent_sde_init, latent_sde_sample_paths
 from repro_torch.kernels import ops, prng
+from repro_torch.launch.steps import make_latent_sde_optimizer, make_latent_sde_step
 
 pytestmark = pytest.mark.cuda
 
@@ -50,6 +53,22 @@ def test_kernels_bitwise_equal_plain_versions(cuda, dtype, B, d):
     assert torch.equal(inc, w)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,d", [(1, 16), (64, 17), (1024, 17)])
+def test_training_kernels_bitwise_equal_plain_versions(cuda, dtype, B, d):
+    _, (z, zh, mu, sg, mu1, sg1, dw) = _inputs(cuda, dtype, B, d, seed=1)
+    for sign in (1.0, -1.0):
+        assert torch.equal(ops.rev_heun_phase1(z, zh, mu, sg, dw, 1 / 23, sign),
+                           ops.rev_heun_phase1(z, zh, mu, sg, dw, 1 / 23, sign,
+                                               use_kernel=False))
+    for got, want in zip(ops.rev_heun_bwd_phase1(z, zh, mu, dw, 1 / 23),
+                         ops.rev_heun_bwd_phase1(z, zh, mu, dw, 1 / 23, use_kernel=False)):
+        assert torch.equal(got, want)
+    for got, want in zip(ops.rev_heun_bwd_phase2(z, zh, dw, 1 / 23),
+                         ops.rev_heun_bwd_phase2(z, zh, dw, 1 / 23, use_kernel=False)):
+        assert torch.equal(got, want)
+
+
 def test_each_launch_is_counted_once(cuda):
     keys, (z, zh, mu, sg, mu1, sg1, dw) = _inputs(cuda, torch.float32, 4, 16)
     ops.reset_launch_counts()
@@ -57,8 +76,13 @@ def test_each_launch_is_counted_once(cuda):
     ops.rev_heun_phase1_gen(z, zh, mu, sg, keys, 0, 0.1, 0.1)
     ops.brownian_increment(keys, 0, (16,), torch.float32, 0.1)
     ops.brownian_increment(keys, 0, (16,), torch.float32, 0.1, use_kernel=False)
-    assert ops.launch_counts() == {"rev_heun_phase2": 1, "rev_heun_phase1_gen": 1,
-                                   "brownian_increment": 1}
+    ops.rev_heun_phase1(z, zh, mu, sg, dw, 0.1, -1.0)
+    ops.rev_heun_bwd_phase1(z, zh, mu, dw, 0.1)
+    ops.rev_heun_bwd_phase2(z, zh, dw, 0.1)
+    ops.rev_heun_bwd_phase2(z, zh, dw, 0.1, use_kernel=False)
+    assert ops.launch_counts() == {"rev_heun_phase1": 1, "rev_heun_phase2": 1,
+                                   "rev_heun_bwd_phase1": 1, "rev_heun_bwd_phase2": 1,
+                                   "rev_heun_phase1_gen": 1, "brownian_increment": 1}
 
 
 def test_operands_are_checked(cuda):
@@ -69,8 +93,12 @@ def test_operands_are_checked(cuda):
         ops.rev_heun_phase2(z, mu.double(), mu1, sg, sg1, dw, 0.1)
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.rev_heun_phase2(z, mu.cpu(), mu1, sg, sg1, dw, 0.1)
-    with pytest.raises(ops.KernelNotPortedError, match="training slice"):
-        ops.rev_heun_phase1(z, zh, mu, sg, dw, 0.1)
+    with pytest.raises(ValueError, match="does not match"):
+        ops.rev_heun_phase1(z, zh, mu, sg, dw[:2], 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.rev_heun_bwd_phase1(z.t(), mu.t(), sg.t(), dw.t(), 0.1)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.rev_heun_bwd_phase2(z, zh.cpu(), dw, 0.1)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -85,3 +113,28 @@ def test_fused_decode_equals_unfused_on_the_card(cuda, dtype):
     unfused = latent_sde_sample_paths(params, LatentSDEConfig(**widths), keys)
     assert fused.shape == (7, 37, 2) and torch.isfinite(fused).all()
     assert torch.equal(fused, unfused)
+
+
+def test_fused_training_step_equals_unfused_on_the_card(cuda):
+    """float64, full widths, batch 64: the fused exact adjoint (six kernels)
+    gives the unfused step's parameters bit for bit; one fused step launches
+    46 forward and 138 backward kernels."""
+    widths = dict(data_dim=2, hidden_dim=16, context_dim=16, width=32, num_steps=23,
+                  kl_weight=0.1, dtype=torch.float64)
+    init, update = make_latent_sde_optimizer(1e-2)
+    params = latent_sde_init(torch.Generator().manual_seed(2), LatentSDEConfig(**widths),
+                             device=cuda)
+    runs = []
+    for fused in (False, True):
+        step = make_latent_sde_step(LatentSDEConfig(**widths, use_pallas_kernels=fused),
+                                    update, 64, 24)
+        ops.reset_launch_counts()
+        runs.append(step(params, init(params), prng.PRNGKey(3)))
+        torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["rev_heun_phase1_gen"] == 23 and counts["brownian_increment"] == 23
+    assert counts["rev_heun_phase1"] == 46 and counts["rev_heun_phase2"] == 46
+    assert counts["rev_heun_bwd_phase1"] == 23 and counts["rev_heun_bwd_phase2"] == 23
+    assert torch.isfinite(runs[1][2]["loss"])
+    for a, b in zip(tree.leaves(runs[0][0]), tree.leaves(runs[1][0])):
+        assert torch.equal(a, b)

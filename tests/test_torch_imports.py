@@ -31,7 +31,8 @@ def _forbidden(name: str) -> bool:
 
 def test_port_files_exist():
     names = {p.name for p in PORT_FILES}
-    assert {"chip_smoke.py", "prng.py", "ops.py", "sde.py", "service.py"} <= names
+    assert {"chip_smoke.py", "prng.py", "ops.py", "sde.py", "service.py", "train.py",
+            "discretise.py", "synthetic.py", "optimizers.py", "tree.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -40,11 +41,20 @@ def test_port_module_imports_no_jax_and_no_repro(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
-def test_serving_cli_import_leaves_jax_unloaded():
+def _imports_leave_jax_unloaded(modules: str):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    code = ("import sys, repro_torch.launch.serve, repro_torch.kernels.build; "
+    code = (f"import sys, {modules}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_serving_cli_import_leaves_jax_unloaded():
+    _imports_leave_jax_unloaded("repro_torch.launch.serve, repro_torch.kernels.build")
+
+
+def test_train_cli_import_leaves_jax_unloaded():
+    _imports_leave_jax_unloaded("repro_torch.launch.train, repro_torch.core.gradients, "
+                                "repro_torch.data, repro_torch.optim")

@@ -68,6 +68,52 @@ def test_rev_heun_phase1_matches_ref_and_pallas(dtype, shape, sign):
     _close(got, pallas, dtype)
 
 
+@pytest.mark.parametrize("dtype,shape", CASES)
+def test_rev_heun_bwd_phase1_matches_ref_and_pallas(dtype, shape):
+    args = _state(15, shape, dtype, 4)
+    got = ops.rev_heun_bwd_phase1(*map(torch.from_numpy, args), 0.01)
+    with jax_config(x64=dtype == "float64"):
+        want = jax.jit(jref.rev_heun_bwd_phase1)(*args, 0.01)
+        pallas = jax.jit(lambda *a: jrh.rev_heun_bwd_phase1(*a, interpret=True))(*args, 0.01)
+    assert len(got) == 2
+    for g, w, p in zip(got, want, pallas):
+        _close(g, w, dtype)
+        _close(g, p, dtype)
+
+
+@pytest.mark.parametrize("dtype,shape", CASES)
+def test_rev_heun_bwd_phase2_matches_ref_and_pallas(dtype, shape):
+    args = _state(16, shape, dtype, 3)
+    got = ops.rev_heun_bwd_phase2(*map(torch.from_numpy, args), 0.01)
+    with jax_config(x64=dtype == "float64"):
+        want = jax.jit(jref.rev_heun_bwd_phase2)(*args, 0.01)
+        pallas = jax.jit(lambda *a: jrh.rev_heun_bwd_phase2(*a, interpret=True))(*args, 0.01)
+    assert len(got) == 4
+    for g, w, p in zip(got, want, pallas):
+        _close(g, w, dtype)
+        _close(g, p, dtype)
+
+
+def test_backward_phases_equal_autograd_of_the_unfused_step_bitwise():
+    """In-port identity the fused adjoint rests on: with the field VJP
+    stubbed by the identity, the two phases are autograd's transpose of the
+    step's elementwise algebra, bit for bit (float64)."""
+    rng = np.random.default_rng(17)
+    z, zh, mu, sg, mu1, sg1, dw, g_z, g_zh, g_mu, g_sg = (
+        torch.from_numpy(rng.standard_normal((5, 17))) for _ in range(11))
+    dt = 0.03
+    leaves = [x.clone().requires_grad_() for x in (z, zh, mu, sg, mu1, sg1)]
+    z_, zh_, mu_, sg_, mu1_, sg1_ = leaves
+    zh1 = 2.0 * z_ - zh_ + mu_ * dt + sg_ * dw
+    z1 = z_ + 0.5 * (mu_ + mu1_) * dt + (0.5 * (sg_ + sg1_)) * dw
+    grads = torch.autograd.grad((z1, zh1, mu1_, sg1_), leaves, (g_z, g_zh, g_mu, g_sg))
+    c_mu1, c_sig1 = ops.rev_heun_bwd_phase1(g_z, g_mu, g_sg, dw, dt)
+    assert torch.equal(c_mu1, grads[4]) and torch.equal(c_sig1, grads[5])
+    d = ops.rev_heun_bwd_phase2(g_z, g_zh, dw, dt)  # ĝ = g_zh: no field term
+    for got, want in zip(d, grads[:4]):
+        assert torch.equal(got, want)
+
+
 def _assert_increment_close(got, want, dtype):
     got, want = np.asarray(got), np.asarray(want)
     if dtype == "float32":
@@ -121,6 +167,12 @@ def test_dispatch_policy_on_cpu():
     assert torch.equal(ops.rev_heun_phase2(x, x, x, x, x, x, 0.1), x)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         ops.rev_heun_phase2(x, x, x, x, x, x, 0.1, use_kernel=True)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ops.rev_heun_phase1(x, x, x, x, x, 0.1, use_kernel=True)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ops.rev_heun_bwd_phase1(x, x, x, x, 0.1, use_kernel=True)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ops.rev_heun_bwd_phase2(x, x, x, 0.1, use_kernel=True)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         ops.brownian_increment(torch.zeros(2, 2, dtype=torch.int64), 0, (3,),
                                torch.float32, 0.1, use_kernel=True)

@@ -26,8 +26,9 @@ from repro_torch.core import sde
 from repro_torch.kernels import prng
 from repro_torch.launch import serve as serve_cli
 from repro_torch.launch.steps import make_sample_step
-from repro_torch.serving import (ServingNotPortedError, _request_keys, restore_for_serving,
-                                 serve_buckets, serve_sde, synthetic_requests)
+from repro_torch.serving import (PAD_SEED, ServingNotPortedError, _request_keys,
+                                 restore_for_serving, serve_buckets, serve_sde,
+                                 synthetic_requests)
 
 TRAJ_TOL = {"float32": dict(rtol=2e-5, atol=2e-6), "float64": dict(rtol=1e-11, atol=1e-13)}
 WIDTHS = dict(data_dim=2, hidden_dim=5, context_dim=4, initial_noise_dim=3, width=8,
@@ -157,3 +158,27 @@ def test_unported_workloads_and_modes_raise_named_errors():
         make_sample_step("sde-gan", None, device="cpu")
     with pytest.raises(ServingNotPortedError, match="ROADMAP"):
         serve_cli.main(["--workload", "lm"])
+
+
+def _request_keys_per_request(requests, pad_to):
+    """The previous derivation: one fold_in per request on the host."""
+    parts = []
+    for r in requests:
+        k = prng.PRNGKey(r.seed)
+        parts.append(torch.stack(prng.fold_in(k[0], k[1], torch.arange(r.size)), -1))
+    used = sum(r.size for r in requests)
+    if pad_to > used:
+        k = prng.PRNGKey(PAD_SEED)
+        parts.append(torch.stack(prng.fold_in(k[0], k[1], torch.arange(pad_to - used)), -1))
+    return torch.cat(parts)
+
+
+@pytest.mark.parametrize("n,pad_to", [(0, 4), (1, 1), (3, 16), (9, 32), (9, 8)])
+def test_batched_request_keys_equal_per_request_derivation(n, pad_to):
+    """One batched fold_in over all rows gives the per-request keys bitwise,
+    over mixed request sizes, with and without padding rows."""
+    reqs = list(synthetic_requests(9, 5, 3))[:n]
+    want = _request_keys_per_request(reqs, pad_to)
+    got = _request_keys(reqs, pad_to, "cpu")
+    assert got.dtype == torch.int64 and got.is_contiguous()
+    assert torch.equal(got, want)
