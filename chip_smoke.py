@@ -46,9 +46,34 @@ non-zero and the final result line is never printed):
    gets the same rows as served coalesced (padding invariance, bitwise),
    and that one bucket on the card matches the port on the CPU (float32
    tolerance below).
-9. Prints a ``{"kernels": [...]}`` JSON line (``launches``: the training
-   path's counts; ``serve_launches``: the serving path's) and, last, the
-   result line ``{"ok": true, "device": {...}}``.
+9. (Run right after 3.)  ``brownian_value`` (the adaptive loop's
+   Lévy-bridge point query) bitwise against its plain version: float32
+   and float64, one key over (256, 32) and (64, 17), 1024 keys and one key
+   over (4,), depth 10 and 24, times at t0, t1, a dyadic point and random points; timed beside its
+   bound at the serving shape (1024 rows of (4,), depth 24) and the
+   gradient shape (one key over (256, 32), depth 10).
+10. Adaptive serving: ``serve_sde("sde-gan", adaptive=True)`` at the
+   SDE-GAN's serving widths (data 1, hidden 16, noise 4, initial noise 4,
+   width 32, depth 1, dt0 = 1/16, atol 1e-6, budget 4096), 32 requests of
+   up to 64 rows through the four deadline classes, buckets up to 1024.
+   Counts zeroed before, read after: ``brownian_value`` must have launched
+   exactly once per sampler call plus once per loop iteration.  Both
+   SDE-GAN samplers must be padding-invariant (bucket 1 vs 1024, bitwise).
+11. The adaptive exact adjoint on the repo's adaptive workload
+   (benchmarks/solver_speed.py:207: the stiffness burst plus 0.05·MLP, σ =
+   0.05, batch 256, x_dim 32, rtol 2e-3, atol 1e-5, budget 2048), bridge
+   depth 10 and 24: the fused gradient's launches asserted per phase
+   (forward 1 + A ``brownian_value``, A of each phase; backward 2N
+   ``brownian_value``, 2N ``rev_heun_phase1``, N of each other phase, for
+   A attempts and N accepted steps); fused ≡ unfused bitwise; float64
+   exact vs autograd through the frozen accepted grid (≤1e-12 relative);
+   peak memory of both at rtol 2e-3 and 2e-4.
+12. Prints a ``{"kernels": [...]}`` JSON line (``launches``: the count on
+   the path each kernel was ported for — training, or the adaptive
+   gradient for ``brownian_value``; ``adaptive_launches``: the fused
+   adaptive gradient's; ``serve_launches``: the Latent-SDE service's, or
+   the adaptive service's for ``brownian_value``) and, last, the result
+   line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -92,6 +117,7 @@ ADJOINT_RTOL = 1e-12
 
 CSRC = "src/repro_torch/kernels/csrc/rev_heun.cu"
 KERNEL_SOURCES = {
+    "brownian_value": (CSRC, "src/repro/kernels/brownian.py:101"),
     "rev_heun_phase1": (CSRC, "src/repro/kernels/reversible_heun_step.py:152"),
     "rev_heun_phase2": (CSRC, "src/repro/kernels/reversible_heun_step.py:161"),
     "rev_heun_bwd_phase1": (CSRC, "src/repro/kernels/reversible_heun_step.py:170"),
@@ -111,6 +137,13 @@ STEP_LAUNCHES = {"rev_heun_phase1_gen": 23, "rev_heun_phase2": 46,
 WIDTHS = dict(data_dim=2, hidden_dim=16, context_dim=16, initial_noise_dim=8,
               width=32, depth=1, num_steps=23, t1=1.0)
 SEQ_LEN = 24
+# The SDE-GAN generator at the widths the repo trains and serves it at
+# (src/repro/launch/train.py:255, examples/sde_gan_ou.py:41,
+# src/repro/serving/service.py:51): dt0 = t1 / num_steps = 1/16.
+GAN_WIDTHS = dict(data_dim=1, hidden_dim=16, noise_dim=4, initial_noise_dim=4, width=32,
+                  depth=1, num_steps=16, t1=1.0)
+# The adaptive workload (benchmarks/solver_speed.py:207, benchmarks/convergence.py:96).
+BURST = dict(batch=256, x_dim=32, rtol=2e-3, atol=1e-5, max_steps=2048)
 
 
 class SmokeFailure(RuntimeError):
@@ -218,7 +251,7 @@ def kernel_checks(ops, dev) -> tuple:
     main paths' shapes.  Returns ``{(name, dtype, B, d): row}`` timings and
     ``{name: max |Δ|}``."""
     g = torch.Generator().manual_seed(1234)
-    errs = {name: 0.0 for name in KERNEL_SOURCES}
+    errs = {name: 0.0 for name in KERNEL_SOURCES if name != "brownian_value"}
     # (rows, d): small and serving shapes, the training state, and the
     # training path's one-key draws (one row of B*17: a BrownianPath with a
     # single key over the (B, 17) state).
@@ -246,7 +279,7 @@ def kernel_checks(ops, dev) -> tuple:
     timed = [(dt, B, 17) for dt in (torch.float32, torch.float64) for B in (64, 1024)]
     timed.append((torch.float32, 1024, 16))  # the serving bucket
     for dtype, B, d in timed:
-        for name in KERNEL_SOURCES:
+        for name in errs:
             if d == 16 and name not in SERVE_KERNELS:
                 continue
             # training draws come from one key over the whole (B, 17) state
@@ -534,6 +567,300 @@ def serve_checks(ops, dev, label: str) -> dict:
     return dict(launches=launches, results=results, decodes=decodes)
 
 
+def value_bound(rows: int, n_per_row: int, depth: int, dtype) -> tuple:
+    """Least time for ``brownian_value``: each row's key walk once (a root
+    fold_in, then a child and a midpoint fold_in per level), each
+    element's ``depth + 1`` normals (float32 draws share a hash by twos),
+    the combine and the tail; bytes: keys and times in, values out."""
+    s = torch.finfo(dtype).bits // 8
+    n = rows * n_per_row
+    hash_per_normal = 0.5 if dtype == torch.float32 else 1.0
+    ops = (rows * (1 + 2 * depth) * HASH_OPS
+           + n * (depth + 1) * (hash_per_normal * HASH_OPS + NORMAL_OPS[dtype])
+           + n * (6 * depth + 6))
+    nbytes = rows * (16 + s) + n * s
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def value_checks(ops, dev) -> tuple:
+    """Phase 9: ``brownian_value`` bitwise against its plain version, and
+    timed at the serving and the gradient shapes.  Returns ``({shape: row},
+    max |Δ|)``."""
+    g = torch.Generator().manual_seed(4321)
+    cases = [(1, (256, 32)), (1, (64, 17)), (1024, (4,)), (1, (4,))]
+    err, n_checked = 0.0, 0
+    for dtype in (torch.float32, torch.float64):
+        for rows, shape in cases:
+            keys = torch.randint(0, 2 ** 32, (rows, 2), generator=g, dtype=torch.int64).to(dev)
+            rand = torch.rand(max(rows, 4), generator=g, dtype=torch.float64).tolist()
+            if rows == 1:  # one key: each time in turn
+                times = [[0.0], [1.0], [0.375], [rand[0]], [rand[1]]]
+            else:  # many keys: t0, t1, a dyadic point and random times mixed
+                times = [[0.0, 1.0, 0.375][r % 3] if r < 3 else rand[r] for r in range(rows)]
+                times = [times]
+            for depth in (10, 24):
+                for tl in times:
+                    t = torch.tensor(tl, dtype=dtype, device=dev)
+                    got = ops.brownian_value(keys, t, 0.0, 1.0, shape, dtype, depth)
+                    want = ops.brownian_value(keys, t, 0.0, 1.0, shape, dtype, depth,
+                                              use_kernel=False)
+                    torch.cuda.synchronize()
+                    e = (got - want).abs().max().item()
+                    check(torch.equal(got, want) and e == 0.0,
+                          f"brownian_value {dtype} rows={rows} {shape} depth={depth}: "
+                          f"kernel != plain (max |Δ| {e})")
+                    err = max(err, e)
+                    n_checked += 1
+    print(f"bitwise: brownian_value x {{float32, float64}} x {cases} x depth {{10, 24}} "
+          f"({n_checked} calls, t0/t1/dyadic/random times): kernel == plain", flush=True)
+    rows_out = {}
+    for tag, rows, shape, depth in (("serve", 1024, (4,), 24), ("grad", 1, (256, 32), 10)):
+        keys = torch.randint(0, 2 ** 32, (rows, 2), generator=g, dtype=torch.int64).to(dev)
+        t = torch.rand(rows, generator=g, dtype=torch.float64).float().to(dev)
+        k_ms, k_host = time_ms(lambda: ops.brownian_value(keys, t, 0.0, 1.0, shape,
+                                                          torch.float32, depth))
+        p_ms, p_host = time_ms(lambda: ops.brownian_value(keys, t, 0.0, 1.0, shape,
+                                                          torch.float32, depth,
+                                                          use_kernel=False), reps=5, trials=3)
+        b_ms, b_by = value_bound(rows, math.prod(shape), depth, torch.float32)
+        print(f"brownian_value float32 {tag}: rows {rows} x {shape}, depth {depth}: kernel "
+              f"{k_ms:.5f} ms ({k_host:.5f} host), plain {p_ms:.5f} ms ({p_host:.5f}), "
+              f"bound {b_ms:.7f} ms ({b_by})", flush=True)
+        rows_out[tag] = dict(ms=k_ms, host_ms=k_host, plain_ms=p_ms, plain_host_ms=p_host,
+                             bound_ms=b_ms, bound_by=b_by)
+    return rows_out, err
+
+
+def _gan_params(dev, seed: int):
+    from repro_torch.core.sde import NeuralSDEConfig, generator_init
+
+    cfg = NeuralSDEConfig(**GAN_WIDTHS)
+    return cfg, generator_init(torch.Generator().manual_seed(seed), cfg, device=dev)
+
+
+def serve_adaptive_checks(ops, dev, label: str) -> dict:
+    """Phase 10: adaptive SDE-GAN serving through serve_sde, with the
+    brownian_value launches held against the loop iterations; padding
+    invariance of both SDE-GAN samplers at buckets 1 and 1024."""
+    from repro_torch.launch.steps import make_adaptive_terminal_step, make_sample_step
+    from repro_torch.serving import serve_sde
+    from repro_torch.serving.service import _request_keys
+    from repro_torch.serving.types import Request, synthetic_requests
+
+    serve = dict(max_batch=1024, requests=32, request_max=64, seed=5, collect=True)
+    ops.reset_launch_counts()
+    stats = serve_sde("sde-gan", adaptive=True, atol=1e-6, sde_steps=GAN_WIDTHS["num_steps"],
+                      **serve)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    calls = stats["warmup_iterations"] + [b["iterations"] for b in stats["batch_log"]]
+    expected = sum(1 + it for it in calls)
+    print(f"[{label}] adaptive serve: {stats['traj_per_s']:.1f} traj/s overall, p50 "
+          f"{stats['p50_s'] * 1e3:.2f} ms, p99 {stats['p99_s'] * 1e3:.2f} ms "
+          f"({stats['trajectories']} rows in {stats['batches']} batches)", flush=True)
+    for name, c in stats["per_class"].items():
+        print(f"[{label}] adaptive serve class {name}: {c['rows']} rows, "
+              f"{c['traj_per_s']:.1f} traj/s, p50 {c['p50_s'] * 1e3:.2f} ms, "
+              f"p99 {c['p99_s'] * 1e3:.2f} ms", flush=True)
+    for b in stats["batch_log"]:
+        print(f"[{label}] adaptive batch: class {b['deadline_class']}, {b['rows']} rows "
+              f"in bucket {b['bucket']}, rtol {b['rtol']}, {b['iterations']} loop "
+              f"iterations", flush=True)
+    print(f"[{label}] adaptive serving launches: {launches} (warm-up iterations "
+          f"{stats['warmup_iterations']})", flush=True)
+    check(launches["brownian_value"] == expected,
+          f"brownian_value: {launches['brownian_value']} launches, expected {expected} "
+          f"(1 + loop iterations per sampler call)")
+    check(stats["classes_served"] == ["realtime", "interactive", "standard", "relaxed"],
+          f"classes served: {stats['classes_served']}")
+    for rid, y in stats["samples"].items():
+        check(y.shape[1:] == (1,) and torch.isfinite(y).all().item(),
+              f"adaptive request {rid}: bad sample {tuple(y.shape)}")
+    print(f"[{label}] adaptive serve: {stats['non_converged']} rows out of budget",
+          flush=True)
+
+    cfg, params = _gan_params(dev, 6)
+    others = list(synthetic_requests(20, 64, 7, adaptive=True))
+    one = Request(rid=20, size=1, seed=424242, kind="terminal")
+    batch = others + [one]
+    row = sum(r.size for r in others)
+    check(row + 1 <= 1024, "padding batch too large")
+    big, small = _request_keys(batch, 1024, dev), _request_keys([one], 1, dev)
+    paths = make_sample_step("sde-gan", cfg)
+    terminal = make_adaptive_terminal_step(cfg)
+    check(torch.equal(paths(params, small)[:, 0], paths(params, big)[:, row]),
+          "fixed-grid SDE-GAN: bucket-1 row != its row in the 1024 bucket")
+    y1, c1, s1 = terminal(params, small, 1e-2)
+    y2, c2, s2 = terminal(params, big, 1e-2)
+    check(torch.equal(y1[0], y2[row]) and bool(c1[0] == c2[row]),
+          "adaptive SDE-GAN: bucket-1 row != its row in the 1024 bucket")
+    check(int(s1.num_accepted[0]) == int(s2.num_accepted[row])
+          and int(s1.num_rejected[0]) == int(s2.num_rejected[row]),
+          "adaptive SDE-GAN: the row's controller took other steps in the 1024 bucket")
+    print(f"padding invariance: SDE-GAN fixed-grid and adaptive rows, bucket 1 == bucket "
+          f"1024 (bitwise; the adaptive row: {int(s1.num_accepted[0])} accepted, "
+          f"{int(s1.num_rejected[0])} rejected; the 1024 bucket took {s2.iterations} "
+          f"iterations)", flush=True)
+    profile_call(lambda: terminal(params, big, 1e-2), f"{label}] [adaptive terminal "
+                                                      f"B=1024 rtol 1e-2")
+    return dict(launches=launches, stats=stats)
+
+
+def _burst(dev, dtype):
+    """The adaptive workload's fields, parameters and initial state."""
+    from repro_torch import nn
+
+    x = BURST["x_dim"]
+    g = torch.Generator().manual_seed(9)
+    params = {"f": nn.mlp_init(g, [x, 64, x], dtype=dtype, device=dev)}
+
+    def drift(p, t, y):
+        t = torch.as_tensor(t, dtype=y.dtype, device=y.device)
+        theta = 0.5 + 30.0 * torch.exp(-(((t - 0.5) / 0.05) ** 2))
+        return theta * (1.0 - y) + 0.05 * nn.mlp(p["f"], y, nn.lipswish, torch.tanh)
+
+    def diffusion(p, t, y):
+        return 0.05 * torch.ones_like(y)
+
+    z0 = torch.zeros(BURST["batch"], x, dtype=dtype, device=dev)
+    return drift, diffusion, params, z0
+
+
+def _burst_path(dev, dtype):
+    from repro_torch.core import BrownianPath
+    from repro_torch.kernels import prng
+
+    return BrownianPath(prng.PRNGKey(5, device=dev), 0.0, 1.0,
+                        (BURST["batch"], BURST["x_dim"]), dtype)
+
+
+def _adaptive_grad(dev, dtype, fused: bool, depth, rtol=None):
+    """``run() -> (z_T, grads)`` of mean(z_T²) through the adaptive exact
+    adjoint."""
+    from repro_torch import tree
+    from repro_torch.core import solve
+
+    drift, diffusion, params, z0 = _burst(dev, dtype)
+    bm = _burst_path(dev, dtype)
+
+    def run():
+        leaves, spec = tree.flatten(params)
+        leaves = [x.detach().requires_grad_() for x in leaves]
+        z = z0.clone().requires_grad_()
+        zT = solve(drift, diffusion, tree.unflatten(spec, leaves), z, bm, 0.0, 1.0, 16,
+                   gradient_mode="reversible_adjoint", save_trajectory=False, adaptive=True,
+                   rtol=BURST["rtol"] if rtol is None else rtol, atol=BURST["atol"],
+                   max_steps=BURST["max_steps"], bridge_depth=depth,
+                   use_pallas_kernels=fused)
+        return zT.detach(), torch.autograd.grad(torch.mean(zT ** 2), [z, *leaves])
+
+    return run
+
+
+def _frozen_grad(dev, dtype, depth, rtol=None):
+    """``run() -> (z_T, grads)``: autograd through the accepted grid held
+    fixed (the exact adjoint's oracle), and the solve's stats."""
+    from repro_torch import tree
+    from repro_torch.core.gradients.discretise import solve_accepted_grid
+    from repro_torch.core.solve import solve_adaptive
+
+    drift, diffusion, params, z0 = _burst(dev, dtype)
+    bm = _burst_path(dev, dtype)
+    _, st = solve_adaptive(drift, diffusion, params, z0, bm, 0.0, 1.0,
+                           rtol=BURST["rtol"] if rtol is None else rtol, atol=BURST["atol"],
+                           max_steps=BURST["max_steps"], dt0=1 / 16, bridge_depth=depth)
+    n = int(st.num_accepted)
+
+    def run():
+        leaves, spec = tree.flatten(params)
+        leaves = [x.detach().requires_grad_() for x in leaves]
+        z = z0.clone().requires_grad_()
+        zT = solve_accepted_grid(drift, diffusion, tree.unflatten(spec, leaves), z, bm, 0.0,
+                                 st.ts[:n], st.dts[:n], bridge_depth=depth)
+        return zT.detach(), torch.autograd.grad(torch.mean(zT ** 2), [z, *leaves])
+
+    return run, st
+
+
+def adaptive_grad_checks(ops, dev, label: str) -> dict:
+    """Phase 11: the adaptive exact adjoint — launches, fused ≡ unfused,
+    exact vs frozen-grid autograd, memory, time."""
+    counts = {}
+    for depth in (10, 24):
+        run_f = _adaptive_grad(dev, torch.float32, True, depth)
+        run_u = _adaptive_grad(dev, torch.float32, False, depth)
+        _, st = _frozen_grad(dev, torch.float32, depth)
+        A = int(st.num_accepted) + int(st.num_rejected)
+        N = int(st.num_accepted)
+        check(bool(st.converged), f"burst solve (depth {depth}) did not converge")
+        ops.reset_launch_counts()
+        z_f, g_f = run_f()
+        torch.cuda.synchronize()
+        c = ops.launch_counts()
+        want = {"brownian_value": 1 + A + 2 * N, "rev_heun_phase1": A + 2 * N,
+                "rev_heun_phase2": A + N, "rev_heun_bwd_phase1": N, "rev_heun_bwd_phase2": N,
+                "brownian_increment": 0, "rev_heun_phase1_gen": 0}
+        print(f"[{label}] adaptive gradient (float32, depth {depth}): {N} accepted, "
+              f"{A - N} rejected; launches {c}", flush=True)
+        for name, n in want.items():
+            check(c[name] == n, f"adaptive gradient depth {depth}: {name} launched {c[name]}"
+                                f" times, expected {n} (A={A}, N={N})")
+        if depth == 10:
+            counts = c
+        z_u, g_u = run_u()
+        check(torch.equal(z_f, z_u) and all(torch.equal(a, b) for a, b in zip(g_f, g_u)),
+              f"adaptive gradient depth {depth}: fused != unfused")
+        walls = {"fused": [], "unfused": []}
+        for i in range(6):
+            for variant in (("fused", "unfused") if i % 2 == 0 else ("unfused", "fused")):
+                t0 = time.perf_counter()
+                (run_f if variant == "fused" else run_u)()
+                torch.cuda.synchronize()
+                walls[variant].append(time.perf_counter() - t0)
+        for variant, w in walls.items():
+            print(f"[{label}] adaptive gradient depth {depth} ({variant}, float32, batch "
+                  f"{BURST['batch']}, x_dim {BURST['x_dim']}): median "
+                  f"{statistics.median(w) * 1e3:.1f} ms (all "
+                  f"{', '.join(f'{x * 1e3:.1f}' for x in w)} ms)", flush=True)
+        profile_call(run_f, f"{label}] [adaptive gradient fused depth {depth}")
+    print("adaptive gradient: launches as the code reads, fused == unfused bitwise "
+          "(depth 10 and 24)", flush=True)
+
+    run_x = _adaptive_grad(dev, torch.float64, False, 10)
+    run_r, st = _frozen_grad(dev, torch.float64, 10)
+    z_x, g_x = run_x()
+    z_r, g_r = run_r()
+    check(torch.equal(z_x, z_r), "float64: the frozen-grid replay's z_T != the solve's")
+    rel = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(g_x, g_r))
+    check(rel <= ADJOINT_RTOL, f"adaptive exact adjoint vs frozen-grid autograd: {rel}")
+    print(f"adaptive adjoint (float64, depth 10, {int(st.num_accepted)} accepted steps): "
+          f"exact vs frozen-grid autograd max relative error {rel:.3g} (<= "
+          f"{ADJOINT_RTOL})", flush=True)
+
+    peaks = {}
+    for rtol in (2e-3, 2e-4):
+        for mode in ("exact", "frozen"):
+            run = (_adaptive_grad(dev, torch.float32, True, 10, rtol) if mode == "exact"
+                   else _frozen_grad(dev, torch.float32, 10, rtol)[0])
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            run()
+            torch.cuda.synchronize()
+            peaks[(mode, rtol)] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        _, st = _frozen_grad(dev, torch.float32, 10, rtol)
+        print(f"[{label}] memory (adaptive gradient, rtol {rtol}, {int(st.num_accepted)} "
+              f"accepted steps): exact {peaks[('exact', rtol)]:.2f} MiB, frozen-grid "
+              f"autograd {peaks[('frozen', rtol)]:.2f} MiB", flush=True)
+    check(peaks[("exact", 2e-4)] <= 1.5 * peaks[("exact", 2e-3)],
+          f"adaptive exact adjoint's peak grew with the steps: {peaks}")
+    check(peaks[("frozen", 2e-4)] >= 2 * peaks[("frozen", 2e-3)],
+          f"frozen-grid autograd's peak did not grow with the steps: {peaks}")
+    return counts
+
+
 def _device_us(evt) -> float:
     return getattr(evt, "self_device_time_total", None) or getattr(
         evt, "self_cuda_time_total", 0.0)
@@ -607,23 +934,38 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     rows, errs = kernel_checks(ops, dev)
+    value_rows, errs["brownian_value"] = value_checks(ops, dev)
     identity_checks(ops, dev)
     adjoint_checks(dev)
     train_launches = train_checks(ops, dev, label)
     memory_checks(dev, label)
     serve = serve_checks(ops, dev, label)
+    adaptive_serve = serve_adaptive_checks(ops, dev, label)
+    adaptive_launches = adaptive_grad_checks(ops, dev, label)
 
     print(f"kernels: {', '.join(KERNEL_SOURCES)} (route cuda, bitwise = plain; "
           f"decodes: {serve['decodes']})", flush=True)
     entries = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
-        r = rows[(name, torch.float32, 1024, 17)]  # the training timing batch
+        if name == "brownian_value":  # timed at the adaptive gradient's shape
+            r = value_rows["grad"]
+            launches = adaptive_launches[name]
+            serve_launches = adaptive_serve["launches"][name]
+            extra = {"serve_ms": value_rows["serve"]["ms"],
+                     "serve_plain_ms": value_rows["serve"]["plain_ms"],
+                     "serve_bound_ms": value_rows["serve"]["bound_ms"]}
+        else:
+            r = rows[(name, torch.float32, 1024, 17)]  # the training timing batch
+            launches = train_launches[name]
+            serve_launches = serve["launches"][name]
+            extra = {}
         entries.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": train_launches[name], "max_abs_err": errs[name],
+                        "launches": launches, "max_abs_err": errs[name],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": None,
                         "host_ms": r["host_ms"], "plain_host_ms": r["plain_host_ms"],
-                        "serve_launches": serve["launches"][name]})
+                        "adaptive_launches": adaptive_launches[name],
+                        "serve_launches": serve_launches, **extra})
     print(json.dumps({"kernels": entries}), flush=True)
     print(f"card: {label}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

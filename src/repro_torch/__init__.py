@@ -6,7 +6,9 @@ The port imports ``torch`` and numpy only: nothing of JAX and nothing of
 ``repro``.
 
 What is ported so far — Latent-SDE ELBO training (the exact reversible
-adjoint) and the prior-decode serving path:
+adjoint), the prior-decode serving path, and adaptive stepping (the PI
+controller loop, the exact adjoint over the accepted grid, the SDE-GAN generator's
+fixed-grid and adaptive terminal services):
 
 =====================================  ======================================
 port module                            reference
@@ -17,25 +19,29 @@ repro_torch.kernels.ref                repro.kernels.ref (plain versions)
 repro_torch.kernels.csrc/*             the Pallas kernels rev_heun_phase1,
                                        rev_heun_phase2, rev_heun_bwd_phase1,
                                        rev_heun_bwd_phase2, rev_heun_phase1_gen,
-                                       brownian_increment
+                                       brownian_increment, brownian_value
 repro_torch.kernels.ops                repro.kernels.ops (dispatch)
 repro_torch.nn.core                    repro.nn.core (MLP pieces, GRU)
-repro_torch.core.brownian              repro.core.brownian (BrownianPath,
-                                       fixed-grid increments)
-repro_torch.core.solvers               repro.core.solvers (reversible Heun,
-                                       forward and reverse step)
+repro_torch.core.brownian              repro.core.brownian (BrownianPath:
+                                       grid increments, bridge point values)
+repro_torch.core.solvers               repro.core.solvers (reversible Heun:
+                                       forward, reverse, embedded step)
 repro_torch.core.gradients             repro.core.gradients (exact adjoint
-                                       as an autograd Function, discretise)
-repro_torch.core.solve                 repro.core.solve (fixed grid)
+                                       as autograd Functions, fixed grid and
+                                       adaptive; discretise)
+repro_torch.core.solve                 repro.core.solve (fixed grid and
+                                       adaptive)
 repro_torch.core.sde                   repro.core.sde (Latent SDE: ELBO and
-                                       prior decode)
+                                       prior decode; SDE-GAN generator
+                                       samplers)
 repro_torch.data                       repro.data.synthetic (air quality)
 repro_torch.optim                      repro.optim (Adam)
 repro_torch.tree                       jax.tree (flatten, map)
 repro_torch.checkpoint                 repro.checkpoint (bundles)
-repro_torch.serving / launch           repro.serving / repro.launch (prior
-                                       decode drain loop, serve and train
-                                       CLIs, step builders)
+repro_torch.serving / launch           repro.serving / repro.launch (drain
+                                       loops incl. adaptive terminal
+                                       sampling, serve and train CLIs, step
+                                       factories)
 =====================================  ======================================
 
 ROADMAP.md lists what is still to port, in order.

@@ -1,5 +1,5 @@
 """Gradient-backend registry and precision policy (port of
-:mod:`repro.core.gradients.base`, the fixed-grid parts).
+:mod:`repro.core.gradients.base`).
 
 A :class:`GradientBackend` names one gradient path through a solve; the
 front-end (:mod:`repro_torch.core.solve`) validates against the registry and
@@ -28,11 +28,15 @@ class GradientBackend:
 
     ``solve``: ``(spec, drift, diffusion, params, z0, bm, t0, t1,
     num_steps, *, noise, save_trajectory, use_pallas)`` fixed-grid entry
-    point; ``validate``: backend-specific eager checks, or ``None``."""
+    point; ``solve_adaptive``: ``(spec, drift, diffusion, params, z0, bm,
+    rtol, atol, t0, t1, max_steps, dt0, *, noise, use_pallas,
+    bridge_depth) -> (z_T, converged)``; ``validate``: backend-specific
+    eager checks, or ``None``."""
 
     name: str
     summary: str
     solve: Callable
+    solve_adaptive: Callable
     validate: Optional[Callable] = None
 
 

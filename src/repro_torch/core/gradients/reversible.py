@@ -1,6 +1,8 @@
 """Reversible Heun with the paper's exact O(1)-memory adjoint (port of
 :mod:`repro.core.gradients.reversible`: ``_gen_spec``, ``_forward``,
-``_fwd_rule``, ``_bwd_rule``, ``_bwd_rule_final``, ``_fused_local_vjp``).
+``_fwd_rule``, ``_bwd_rule``, ``_bwd_rule_final``, ``_fused_local_vjp``,
+and the adaptive ``reversible_heun_solve_adaptive`` with
+``_fwd_rule_adaptive`` / ``_bwd_rule_adaptive``).
 
 The reference wraps the solve in a ``jax.custom_vjp``; here it is a
 ``torch.autograd.Function``.  The forward runs Algorithm 1 under
@@ -98,6 +100,16 @@ def _forward(drift, diffusion, params, z0, bm, t0, t1, num_steps, noise,
     return (None if zs is None else torch.stack(zs)), state
 
 
+def _vjp(outputs, inputs, cotangents):
+    """``torch.autograd.grad`` of the outputs that depend on anything (a
+    field may be a constant, e.g. additive noise ``σ = c``)."""
+    pairs = [(o, c) for o, c in zip(outputs, cotangents) if o.requires_grad]
+    if not pairs:
+        return [None] * len(inputs)
+    outs, cts = zip(*pairs)
+    return torch.autograd.grad(outs, inputs, cts, allow_unused=True)
+
+
 def _grads_or_zeros(grads, like):
     return [torch.zeros_like(x) if g is None else g for g, x in zip(grads, like)]
 
@@ -119,8 +131,7 @@ def _fused_local_vjp(drift, diffusion, params, wrt, state0, cts, t_right, dt, dw
         sigma1 = diffusion(params, t_right, x)
         # x itself is an output seeded with g_zh: the graph root delivers that
         # seed before the field contributions, as in the unfused graph.
-        grads = torch.autograd.grad((x, mu1, sigma1), [*wrt, x], (g_zh, c_mu1, c_sig1),
-                                    allow_unused=True)
+        grads = _vjp((x, mu1, sigma1), [*wrt, x], (g_zh, c_mu1, c_sig1))
     ghat = grads[-1].contiguous()
     return grads[:-1], ops.rev_heun_bwd_phase2(g_z, ghat, dw, dt)
 
@@ -132,7 +143,7 @@ def _local_vjp(drift, diffusion, params, wrt, state0, cts, t_left, t_right, dt, 
         s = [x.detach().requires_grad_() for x in state0]
         out = reversible_heun_step(RevHeunState(*s), t_left, dt, dw, drift, diffusion,
                                    params, noise, t1=t_right)
-        grads = torch.autograd.grad(tuple(out), [*wrt, *s], cts, allow_unused=True)
+        grads = _vjp(tuple(out), [*wrt, *s], cts)
     return grads[:len(wrt)], tuple(_grads_or_zeros(grads[len(wrt):], s))
 
 
@@ -152,16 +163,22 @@ class _SolveSpec:
     save_trajectory: bool
 
 
+def _backward_leaves(treespec, leaves, needs):
+    """The backward's parameter leaves -> ``(leaves, the ones to
+    differentiate, the params tree, zeroed gradient accumulators)``."""
+    p_leaves = [leaf.detach().requires_grad_(need and leaf.is_floating_point())
+                for leaf, need in zip(leaves, needs)]
+    wrt = [leaf for leaf in p_leaves if leaf.requires_grad]
+    return p_leaves, wrt, tree.unflatten(treespec, p_leaves), [torch.zeros_like(p)
+                                                               for p in wrt]
+
+
 def _backward(spec: _SolveSpec, final: RevHeunState, leaves, needs, g_out):
     """Algorithm 2 sweep -> ``(g_z0, [g_leaf or None])``."""
     N = spec.num_steps
     np_dtype = NP_DTYPES[final.z.dtype]
     dt = np_dtype((spec.t1 - spec.t0) / N)
-    p_leaves = [leaf.detach().requires_grad_(need and leaf.is_floating_point())
-                for leaf, need in zip(leaves, needs)]
-    wrt = [leaf for leaf in p_leaves if leaf.requires_grad]
-    params = tree.unflatten(spec.treespec, p_leaves)
-    g_params = [torch.zeros_like(p) for p in wrt]
+    p_leaves, wrt, params, g_params = _backward_leaves(spec.treespec, leaves, needs)
     g_out = g_out.contiguous()
     zeros = torch.zeros_like(final.z)
     g_z = g_out[N] if spec.save_trajectory else g_out
@@ -186,11 +203,17 @@ def _backward(spec: _SolveSpec, final: RevHeunState, leaves, needs, g_out):
                 g.add_(d)
         d_z = d_state[0] + g_out[n] if spec.save_trajectory else d_state[0]
         cts = (d_z, *d_state[1:])
-    # initial condition: ẑ₀ = z₀, μ₀ = drift(t0, z₀), σ₀ = diffusion(t0, z₀)
+    return _initial_vjp(spec.drift, spec.diffusion, params, wrt, g_params, p_leaves,
+                        state.z, spec.t0, cts)
+
+
+def _initial_vjp(drift, diffusion, params, wrt, g_params, p_leaves, z0, t0, cts):
+    """Close the sweep at the initial condition (ẑ₀ = z₀, μ₀ = drift(t0, z₀),
+    σ₀ = diffusion(t0, z₀)) -> ``(g_z0, [g_leaf or None])``."""
     with torch.enable_grad():
-        z0 = state.z.detach().requires_grad_()
-        outs = (z0, z0, spec.drift(params, spec.t0, z0), spec.diffusion(params, spec.t0, z0))
-        grads = torch.autograd.grad(outs, [*wrt, z0], cts, allow_unused=True)
+        z0 = z0.detach().requires_grad_()
+        outs = (z0, z0, drift(params, t0, z0), diffusion(params, t0, z0))
+        grads = _vjp(outs, [*wrt, z0], cts)
     for g, d in zip(g_params, grads[:-1]):
         if d is not None:
             g.add_(d)
@@ -221,13 +244,18 @@ class _ReversibleAdjoint(torch.autograd.Function):
         return (None, g_z0 if ctx.needs_input_grad[1] else None, *g_leaves)
 
 
-def _apply(drift, diffusion, params, z0, bm, t0, t1, num_steps, noise, use_pallas,
-           save_trajectory):
+def _flat_tensor_leaves(params):
     leaves, treespec = tree.flatten(params)
     bad = [type(x).__name__ for x in leaves if not isinstance(x, torch.Tensor)]
     if bad:
         raise TypeError(f"reversible_adjoint: every parameter leaf must be a tensor, "
                         f"got {bad}")
+    return leaves, treespec
+
+
+def _apply(drift, diffusion, params, z0, bm, t0, t1, num_steps, noise, use_pallas,
+           save_trajectory):
+    leaves, treespec = _flat_tensor_leaves(params)
     spec = _SolveSpec(drift, diffusion, treespec, bm, t0, t1, num_steps, noise,
                       use_pallas, save_trajectory)
     return _ReversibleAdjoint.apply(spec, z0, *leaves)
@@ -248,7 +276,122 @@ def reversible_heun_solve_final(drift, diffusion, params, z0, bm, t0, t1,
                   use_pallas, False)
 
 
-def _validate(spec, *, noise, save_trajectory, use_pallas):
+# =============================================================================
+# Adaptive reversible Heun with the exact adjoint over the accepted grid
+# =============================================================================
+#
+# The forward (repro_torch.core.solve._adaptive_loop) accepts steps on a
+# controller-chosen grid and stores only the accepted (ts, dts): O(max_steps)
+# scalars, no trajectory.  The backward walks the accepted steps right to
+# left and re-derives each one's ΔW as value(ts[i] + dts[i]) − value(ts[i]):
+# the forward formed t + dt with the same tensor op, in the same dtype, on
+# the same device, so the replayed ΔW is bitwise the one the step consumed.
+# Rejected attempts never enter the buffers.
+
+
+@dataclasses.dataclass(frozen=True)
+class _AdaptiveSpec:
+    """The non-tensor arguments of one adaptive solve."""
+
+    drift: Callable
+    diffusion: Callable
+    treespec: Any
+    bm: Any
+    rtol: Any
+    atol: Any
+    t0: float
+    t1: float
+    max_steps: int
+    dt0: float
+    noise: str
+    use_pallas: bool
+    bridge_depth: Any
+
+
+def _backward_adaptive(spec: _AdaptiveSpec, final: RevHeunState, ts, dts, n_acc,
+                       leaves, needs, g_z):
+    """Algorithm 2 over the accepted grid -> ``(g_z0, [g_leaf or None])``."""
+    n = int(n_acc)
+    fused = spec.use_pallas and spec.noise == "diagonal"
+    dts_host = dts[:n].tolist() if fused else None  # the kernels' scalar step sizes
+    dkw = {} if spec.bridge_depth is None else {"depth": spec.bridge_depth}
+    p_leaves, wrt, params, g_params = _backward_leaves(spec.treespec, leaves, needs)
+    zeros = torch.zeros_like(final.z)
+    cts = (g_z.contiguous(), zeros, zeros, torch.zeros_like(final.sigma))
+    state = final
+    for i in range(n - 1, -1, -1):
+        t_left = ts[i]
+        t_right = t_left + dts[i]  # the forward's t + dt_eff, op for op
+        dw = (spec.bm.value(t_right, **dkw).to(final.z.dtype)
+              - spec.bm.value(t_left, **dkw).to(final.z.dtype))
+        dt = dts_host[i] if fused else dts[i]
+        with torch.no_grad():
+            state = reversible_heun_reverse_step(state, t_right, dt, dw, spec.drift,
+                                                 spec.diffusion, params, spec.noise,
+                                                 use_pallas=spec.use_pallas, t0=t_left)
+        if fused:
+            d_params, d_state = _fused_local_vjp(spec.drift, spec.diffusion, params, wrt,
+                                                 state, cts, t_right, dt, dw)
+        else:
+            d_params, d_state = _local_vjp(spec.drift, spec.diffusion, params, wrt, state,
+                                           cts, t_left, t_right, dt, dw, spec.noise)
+        for g, d in zip(g_params, d_params):
+            if d is not None:
+                g.add_(d)
+        cts = d_state
+    return _initial_vjp(spec.drift, spec.diffusion, params, wrt, g_params, p_leaves,
+                        state.z, spec.t0, cts)
+
+
+class _ReversibleAdjointAdaptive(torch.autograd.Function):
+    """``apply(spec, z0, *param_leaves)`` -> ``(z_T, converged)``."""
+
+    @staticmethod
+    def forward(ctx, spec, z0, *leaves):
+        from ..solve import _adaptive_loop, get_solver
+
+        params = tree.unflatten(spec.treespec, leaves)
+        final, stats = _adaptive_loop(get_solver("reversible_heun"), spec.drift,
+                                      spec.diffusion, params, z0, spec.bm, spec.t0,
+                                      spec.t1, spec.rtol, spec.atol, spec.max_steps,
+                                      spec.dt0, spec.noise, spec.use_pallas,
+                                      spec.bridge_depth)
+        ctx.spec = spec
+        # O(max_steps) scalars beside the terminal state and the parameters
+        ctx.save_for_backward(*final, stats.ts, stats.dts, stats.num_accepted, *leaves)
+        ctx.mark_non_differentiable(stats.converged)
+        return final.z.clone(), stats.converged
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_z, _g_converged):
+        saved = ctx.saved_tensors
+        final, (ts, dts, n_acc), leaves = RevHeunState(*saved[:4]), saved[4:7], saved[7:]
+        g_z0, g_leaves = _backward_adaptive(ctx.spec, final, ts, dts, n_acc, leaves,
+                                            ctx.needs_input_grad[2:], g_z)
+        return (None, g_z0 if ctx.needs_input_grad[1] else None, *g_leaves)
+
+
+def reversible_heun_solve_adaptive(drift, diffusion, params, z0, bm, rtol, atol, t0, t1,
+                                   max_steps, dt0, noise="diagonal", use_pallas=False,
+                                   bridge_depth=None):
+    """``(z_T, converged)`` of the adaptive reversible-Heun solve, with the
+    exact adjoint on ``z_T`` over the accepted grid.  One controller: ``bm``
+    is a single-key path.  ``use_pallas`` runs the forward's state updates
+    and the backward's reconstruction and cotangent phases in the kernels
+    (diagonal noise)."""
+    if bm.batch_shape:
+        raise ValueError(
+            f"the adaptive exact adjoint runs one controller per solve: pass a "
+            f"single-key BrownianPath (got key batch {bm.batch_shape}; "
+            f"solve_adaptive runs one controller per key row, forward only)")
+    leaves, treespec = _flat_tensor_leaves(params)
+    spec = _AdaptiveSpec(drift, diffusion, treespec, bm, rtol, atol, t0, t1, max_steps,
+                         dt0, noise, use_pallas, bridge_depth)
+    return _ReversibleAdjointAdaptive.apply(spec, z0, *leaves)
+
+
+def _validate(spec, *, noise, save_trajectory, use_pallas, adaptive):
     if spec.name != "reversible_heun":
         raise ValueError(
             f"solver {spec.name!r} declares reversible_adjoint but the exact "
@@ -261,9 +404,17 @@ def _solve(spec, drift, diffusion, params, z0, bm, t0, t1, num_steps, *,
     return fn(drift, diffusion, params, z0, bm, t0, t1, num_steps, noise, use_pallas)
 
 
+def _solve_adaptive(spec, drift, diffusion, params, z0, bm, rtol, atol, t0, t1,
+                    max_steps, dt0, *, noise, use_pallas, bridge_depth):
+    return reversible_heun_solve_adaptive(drift, diffusion, params, z0, bm, rtol, atol,
+                                          t0, t1, max_steps, dt0, noise, use_pallas,
+                                          bridge_depth)
+
+
 register_backend(GradientBackend(
     name="reversible_adjoint",
     summary="paper's exact adjoint: algebraic reversal, O(1) memory",
     solve=_solve,
+    solve_adaptive=_solve_adaptive,
     validate=_validate,
 ))

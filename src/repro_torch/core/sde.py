@@ -1,9 +1,17 @@
-"""The Latent SDE: the ELBO for training and the prior decode for serving
-(port of :mod:`repro.core.sde`: ``LatentSDEConfig``, ``_cfg_solve``,
+"""The SDE-GAN generator's serving samplers, and the Latent SDE: the ELBO
+for training and the prior decode for serving (port of
+:mod:`repro.core.sde`: ``NeuralSDEConfig``, ``generator_init``,
+``gen_drift``, ``gen_diffusion``, ``generator_sample_paths``,
+``generator_sample_terminal``, ``LatentSDEConfig``, ``_cfg_solve``,
 ``latent_sde_init``, ``validate_latent_grid``, ``_lsde_sigma``,
 ``_latent_encode``, ``_step_index_lookup``, ``_latent_posterior_fields``,
 ``latent_sde_loss``, ``latent_sde_loss_terminal``, ``latent_prior_drift``,
 ``latent_prior_diffusion``, ``latent_sde_sample_paths``).
+
+The generator (paper eq. (1)): ``X_0 = ζ(V)``, ``dX = μ(t, X) dt + σ(t,
+X) ∘ dW`` with general (matrix) noise, ``Y = ℓ(X)``.  Served two ways: the
+fixed-grid trajectory and the adaptive terminal sample, solved to a
+requested tolerance with one step-size controller per row.
 
 Training (paper eq. (4), Appendix B): a backward GRU encodes the observed
 path into a context path, the posterior SDE runs over the augmented state
@@ -32,8 +40,102 @@ import torch
 from .. import nn
 from ..kernels import prng
 from .brownian import BrownianPath
-from .solve import solve
+from .solve import solve, solve_adaptive
 from .solvers import NP_DTYPES
+
+
+@dataclasses.dataclass(frozen=True)
+class NeuralSDEConfig:
+    """The SDE-GAN's config, field for field the reference's (the
+    discriminator's fields ride along so bundles read both ways)."""
+
+    data_dim: int = 1
+    hidden_dim: int = 16
+    noise_dim: int = 4
+    initial_noise_dim: int = 4
+    width: int = 32
+    depth: int = 1
+    disc_hidden_dim: int = 16
+    disc_width: int = 32
+    disc_depth: int = 1
+    num_steps: int = 32
+    t1: float = 1.0
+    solver: str = "reversible_heun"
+    exact_adjoint: bool = True
+    gradient_mode: Optional[str] = None
+    precision: str = "highest"
+    use_pallas_kernels: bool = False
+    dtype: torch.dtype = torch.float32
+
+
+def generator_init(generator: torch.Generator, cfg: NeuralSDEConfig, device=None):
+    """Fresh generator parameters in the reference's tree: ζ (initial map),
+    μ (drift), σ (diffusion, ``hidden × noise`` outputs), ℓ (readout)."""
+    hid = [cfg.width] * cfg.depth
+    kw = dict(dtype=cfg.dtype, device=device)
+    h = cfg.hidden_dim
+    return {
+        "zeta": nn.mlp_init(generator, [cfg.initial_noise_dim] + hid + [h], **kw),
+        "mu": nn.mlp_init(generator, [1 + h] + hid + [h], **kw),
+        "sigma": nn.mlp_init(generator, [1 + h] + hid + [h * cfg.noise_dim], **kw),
+        "ell": nn.linear_init(generator, h, cfg.data_dim, **kw),
+    }
+
+
+def gen_drift(cfg: NeuralSDEConfig):
+    def mu(params, t, x):
+        return nn.mlp(params["mu"], nn.tcat(t, x), nn.lipswish, torch.tanh)
+    return mu
+
+
+def gen_diffusion(cfg: NeuralSDEConfig):
+    def sigma(params, t, x):
+        out = nn.mlp(params["sigma"], nn.tcat(t, x), nn.lipswish, torch.tanh)
+        return out.reshape(x.shape[:-1] + (cfg.hidden_dim, cfg.noise_dim))
+    return sigma
+
+
+def _generator_start(params, cfg: NeuralSDEConfig, keys: torch.Tensor):
+    """Per row, as the reference: ``kv, kw = split(key)``, ``x0 =
+    ζ(normal(kv, (initial_noise,)))``, and ``kw``'s Brownian path over the
+    noise channels -> ``(x0, bm)``."""
+    kk = prng.split(keys)
+    kv, kw = kk[:, 0], kk[:, 1]
+    v = prng.normal(kv[:, 0], kv[:, 1], cfg.initial_noise_dim, cfg.dtype)
+    x0 = nn.mlp(params["zeta"], v, nn.lipswish)
+    return x0, BrownianPath(kw.contiguous(), 0.0, cfg.t1, (cfg.noise_dim,), cfg.dtype)
+
+
+def generator_sample_paths(params, cfg: NeuralSDEConfig, keys: torch.Tensor):
+    """SDE-GAN generator rollout for serving, one trajectory per key:
+    ``(B, 2)`` keys -> ``(num_steps+1, B, data_dim)``, each row a pure
+    function of ``(params, keys[i])``."""
+    x0, bm = _generator_start(params, cfg, keys)
+    traj = _cfg_solve(cfg, gen_drift(cfg), gen_diffusion(cfg), params, x0, bm,
+                      cfg.num_steps, "general")
+    return nn.linear(params["ell"], traj)
+
+
+def generator_sample_terminal(params, cfg: NeuralSDEConfig, keys: torch.Tensor, rtol,
+                              atol, max_steps: Optional[int] = None):
+    """Adaptive terminal sampling for serving: one ``Y_T`` per key, solved
+    to the requested tolerance (DESIGN.md §10) with one PI controller per
+    row -> ``(samples (B, data_dim), converged (B,), stats)``.
+
+    ``rtol``/``atol`` are scalars (floats or tensors).  Each row is a pure
+    function of ``(params, keys[i], rtol, atol)``, padding rows included: a
+    row's controller never sees another row.  A row with ``converged[i] ==
+    False`` ran out of budget and holds the state at ``t_final < t1``.
+    ``stats`` is the solve's :class:`~repro_torch.core.solve.AdaptiveStats`
+    (the reference returns the first two only)."""
+    if max_steps is None:
+        max_steps = max(4 * cfg.num_steps, 256)
+    x0, bm = _generator_start(params, cfg, keys)
+    xT, stats = solve_adaptive(gen_drift(cfg), gen_diffusion(cfg), params, x0, bm, 0.0,
+                               cfg.t1, solver=cfg.solver, rtol=rtol, atol=atol,
+                               max_steps=max_steps, dt0=cfg.t1 / cfg.num_steps,
+                               noise="general")
+    return nn.linear(params["ell"], xT), stats.converged, stats
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,24 +1,31 @@
-"""SDE-solve front-end, fixed grid (port of :mod:`repro.core.solve`).
+"""SDE-solve front-end (port of :mod:`repro.core.solve`).
 
 One entry point, :func:`solve`, validated eagerly against a solver registry
 and dispatched to a gradient backend — the reference's design.  The port
 registers the reversible-Heun solver with two backends: ``discretise``
 (autograd through the loop) and ``reversible_adjoint`` (the exact
-O(1)-memory adjoint).  Everything else the reference accepts
-raises :class:`NotPortedError` by name (solvers, gradient modes, adaptive
-stepping, the bf16 policy), so nothing silently runs another solver's
-numerics; ROADMAP.md lists the order they are ported in.
+O(1)-memory adjoint), on the fixed grid and, with ``adaptive=True``, under
+the PI step-size controller (:func:`_adaptive_loop`, :func:`solve_adaptive`;
+DESIGN.md §10).  Everything else the reference accepts raises
+:class:`NotPortedError` by name (solvers, gradient modes, the bf16 policy),
+so nothing silently runs another solver's numerics; ROADMAP.md lists the
+order they are ported in.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+import inspect
+import math
+from typing import Callable, NamedTuple, Optional, Tuple
+
+import torch
 
 from .gradients import GRADIENT_BACKENDS, get_backend, resolve_precision
-from .solvers import reversible_heun_step
+from .solvers import RevHeunState, reversible_heun_embedded_step, reversible_heun_step
 
 __all__ = [
+    "AdaptiveStats",
     "NotPortedError",
     "SOLVERS",
     "SolverSpec",
@@ -26,6 +33,7 @@ __all__ = [
     "get_solver",
     "register_solver",
     "solve",
+    "solve_adaptive",
 ]
 
 #: Solvers and gradient modes of the reference (repro.core.solve) that this
@@ -52,6 +60,7 @@ class SolverSpec:
     sde_type: str = "stratonovich"
     notes: str = ""
     noise_types: Tuple[str, ...] = ("diagonal", "general")
+    embedded_stepper: Optional[Callable] = None
 
 
 SOLVERS: dict = {}
@@ -85,11 +94,13 @@ register_solver(SolverSpec(
     nfe_per_step=1, strong_order=0.5,
     gradient_modes=("discretise", "reversible_adjoint"),
     supports_pallas=True,
-    notes="algebraically reversible; O(1)-memory exact adjoint (paper §3)"))
+    notes="algebraically reversible; O(1)-memory exact adjoint (paper §3)",
+    embedded_stepper=reversible_heun_embedded_step))
 
 
 def _validate(spec: SolverSpec, gradient_mode: str, noise: str,
-              use_pallas_kernels: bool, save_trajectory: bool) -> None:
+              use_pallas_kernels: bool, save_trajectory: bool,
+              adaptive: bool = False) -> None:
     if gradient_mode not in spec.gradient_modes:
         if gradient_mode in REFERENCE_GRADIENT_MODES:
             raise NotPortedError(
@@ -109,10 +120,237 @@ def _validate(spec: SolverSpec, gradient_mode: str, noise: str,
             raise ValueError(
                 "use_pallas_kernels requires diagonal noise (the fused kernels "
                 "are elementwise; general noise needs an einsum)")
+    if adaptive:
+        if spec.embedded_stepper is None:
+            raise ValueError(
+                f"solver {spec.name!r} has no embedded error estimate, so "
+                f"adaptive=True has nothing to control the step size with")
+        if save_trajectory:
+            raise ValueError(
+                "adaptive=True accepts steps on a solver-chosen non-uniform "
+                "grid, which save_trajectory's fixed (num_steps+1)-point "
+                "output grid cannot represent — call solve(..., "
+                "save_trajectory=False) for the terminal value (or "
+                "solve_adaptive for the accepted-grid stats)")
     backend = get_backend(gradient_mode)
     if backend.validate is not None:
         backend.validate(spec, noise=noise, save_trajectory=save_trajectory,
-                         use_pallas=use_pallas_kernels)
+                         use_pallas=use_pallas_kernels, adaptive=adaptive)
+
+
+# =============================================================================
+# Adaptive stepping: PI-controlled accept/reject loop (DESIGN.md §10)
+# =============================================================================
+
+#: PI step-size controller gains, as the reference's: with the error ratio
+#: r (accept iff r <= 1) the next step is
+#: dt' = dt · clip(SAFETY · r^-BETA1 · r_prev^BETA2, FMIN, FMAX), r_prev
+#: the ratio of the last accepted step.
+_PI_SAFETY = 0.9
+_PI_BETA1 = 0.35
+_PI_BETA2 = 0.2
+_PI_FACTOR_MIN = 0.2
+_PI_FACTOR_MAX = 5.0
+_MIN_ERR_RATIO = 1e-10  # a zero error estimate must not produce dt = inf
+
+
+class AdaptiveStats(NamedTuple):
+    """Controller diagnostics of an adaptive solve, one entry per key row
+    of the Brownian path (shape ``K = bm.batch_shape``; ``()`` for a
+    single path).
+
+    ``dts``/``ts`` are ``(*K, max_steps)`` buffers: entry ``i <
+    num_accepted`` holds accepted step ``i``'s size and left endpoint, the
+    tail is zero.  ``nfe`` counts drift+diffusion evaluation pairs,
+    rejected attempts included.  ``converged`` is False where the step
+    budget ran out before ``t1`` (that row's state sits at ``t_final``).
+    ``iterations`` is the number of loop iterations the batch took, the
+    most attempts of any row (a host int)."""
+
+    num_accepted: torch.Tensor
+    num_rejected: torch.Tensor
+    nfe: torch.Tensor
+    t_final: torch.Tensor
+    converged: torch.Tensor
+    dts: torch.Tensor
+    ts: torch.Tensor
+    iterations: int
+
+
+def _rows(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-row ``K``-shaped tensor, broadcastable against ``like``
+    (shape ``(*K, ...)``)."""
+    return x.reshape(x.shape + (1,) * (like.dim() - x.dim()))
+
+
+def _scalar(x, dtype, device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    return torch.full((), float(x), dtype=dtype, device=device)
+
+
+def _pow(x: torch.Tensor, y: float) -> torch.Tensor:
+    """``x ** y`` for ``x > 0`` as ``exp(y·log x)``, with ``log x`` from the
+    exponent and ``log1p`` of the mantissa.  torch.pow's CPU kernel rounds
+    its vectorised body and its scalar tail differently, so a row's PI
+    factor would depend on how many rows sit beside it; exp, log1p and
+    frexp give every position the same bits (and agree with pow within a
+    few ulps — the factor is a heuristic)."""
+    m, e = torch.frexp(x)
+    return torch.exp(y * (torch.log1p(m - 1.0) + e.to(x.dtype) * math.log(2.0)))
+
+
+def _row_mean(x: torch.Tensor, nrow: int) -> torch.Tensor:
+    """Mean over every dimension after the first ``nrow``, summed in a fixed
+    pairwise order (halves added elementwise), so a row's result never
+    depends on how many rows sit beside it (a reduction kernel's order
+    can)."""
+    x = x.reshape(x.shape[:nrow] + (-1,))
+    n = x.shape[-1]
+    while x.shape[-1] > 1:
+        if x.shape[-1] % 2:
+            x = torch.cat([x, x.new_zeros(x.shape[:-1] + (1,))], -1)
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0] / n
+
+
+def _adaptive_loop(spec, drift, diffusion, params, z0, bm, t0: float, t1: float,
+                   rtol, atol, max_steps: int, dt0: float, noise: str,
+                   use_pallas: bool = False, bridge_depth: Optional[int] = None):
+    """Accept/reject loop under the PI controller -> ``(final state,
+    AdaptiveStats)`` (the reference's ``_adaptive_loop``).
+
+    One controller per key row of ``bm`` (``K = bm.batch_shape``): the
+    state is ``(*K, ...)``, and ``t``, ``dt``, the previous ratio, the
+    counts and ``done`` are ``K``-shaped tensors; each row's error ratio is
+    the RMS over its own elements.  A single-key path (``K = ()``) is the
+    library's one solve, its ratio over the whole state.  This is the
+    reference's ``vmap`` of the loop written out: the batch keeps stepping
+    until every row has stopped, and a row that is done or out of budget
+    is frozen.  Everything stays on the tensors' device — times, the PI
+    factor, the buffers; the one host read per iteration is whether any
+    row still runs (with the fused kernels, the step size rides along in
+    the same read: the kernels take it as a scalar).
+
+    Brownian increments are ``value(t + dt) − W(t_left)`` with ``W(t_left)``
+    carried from the last accepted step: one bridge descent per attempt,
+    all of a batch's rows in one ``brownian_value`` launch, and the bits
+    the exact adjoint's replay recomputes from the stored ``(ts, dts)``.
+    """
+    dtype, dev = z0.dtype, z0.device
+    K = bm.batch_shape
+    fused = use_pallas and noise == "diagonal"
+    if fused and K:
+        raise ValueError(
+            f"use_pallas_kernels with one controller per key row ({K} rows) is not "
+            f"supported: the fused kernels take one step size per launch; pass "
+            f"a single-key BrownianPath")
+    dkw = {} if bridge_depth is None else {"depth": bridge_depth}
+    rtol, atol = _scalar(rtol, dtype, dev), _scalar(atol, dtype, dev)
+    t1a = _scalar(t1, dtype, dev)
+    t = torch.full(K, float(t0), dtype=dtype, device=dev)
+    dt = torch.full(K, float(dt0), dtype=dtype, device=dev)
+    prev_ratio = torch.ones(K, dtype=dtype, device=dev)
+    n_acc = torch.zeros(K, dtype=torch.int32, device=dev)
+    n_rej = torch.zeros(K, dtype=torch.int32, device=dev)
+    done = torch.zeros(K, dtype=torch.bool, device=dev)
+    ts = torch.zeros(K + (max_steps,), dtype=dtype, device=dev)
+    dts = torch.zeros(K + (max_steps,), dtype=dtype, device=dev)
+    carry = RevHeunState(z0, z0, drift(params, t0, z0), diffusion(params, t0, z0))
+    w_left = bm.value(t, **dkw).to(dtype)
+    iterations = 0
+    while True:
+        running = ~done & (n_acc < max_steps) & (n_rej < max_steps)
+        remaining = t1a - t
+        is_last = dt >= remaining
+        dt_eff = torch.minimum(dt, remaining)
+        if fused:  # one read: the flag and the kernels' scalar step size
+            go, dt_step = torch.stack([running.to(dtype), dt_eff]).tolist()
+        else:
+            go, dt_step = bool(running.any()), _rows(dt_eff, z0)
+        if not go:
+            break
+        iterations += 1
+        t_next = t + dt_eff
+        w_right = bm.value(t_next, **dkw).to(dtype)
+        cand, err = spec.embedded_stepper(carry, t, dt_step, w_right - w_left, drift,
+                                          diffusion, params, noise, use_pallas=use_pallas,
+                                          t1=t_next)
+        scale = atol + rtol * torch.maximum(carry.z.abs(), cand.z.abs())
+        q = err / scale
+        ratio = torch.sqrt(_row_mean(q * q, len(K)))
+        ratio = torch.clamp(ratio, min=_MIN_ERR_RATIO)
+        accept = (ratio <= 1.0) & running
+        # a rejected step must shrink, an accepted one may grow up to FMAX
+        factor = _PI_SAFETY * _pow(ratio, -_PI_BETA1) * _pow(prev_ratio, _PI_BETA2)
+        factor = torch.clamp(factor, _PI_FACTOR_MIN, _PI_FACTOR_MAX)
+        factor = torch.where(accept, factor, torch.clamp(factor, max=1.0))
+        carry = RevHeunState(*(torch.where(_rows(accept, a), a, b)
+                               for a, b in zip(cand, carry)))
+        slot = n_acc.clamp(max=max_steps - 1).long().unsqueeze(-1)
+        for buf, val in ((dts, dt_eff), (ts, t)):
+            buf.scatter_(-1, slot, torch.where(accept, val, buf.gather(-1, slot)[..., 0])
+                         .unsqueeze(-1))
+        t = torch.where(accept, torch.where(is_last, t1a, t_next), t)
+        dt = torch.where(running, dt_eff * factor, dt)
+        prev_ratio = torch.where(accept, ratio, prev_ratio)
+        n_acc = n_acc + accept.to(torch.int32)
+        n_rej = n_rej + (running & ~accept).to(torch.int32)
+        w_left = torch.where(_rows(accept, w_left), w_right, w_left)
+        done = done | (accept & is_last)
+    nfe = (n_acc + n_rej) * spec.nfe_per_step + 1
+    return carry, AdaptiveStats(n_acc, n_rej, nfe, t, done, dts, ts, iterations)
+
+
+def _check_adaptive_bm(bm) -> None:
+    if not hasattr(bm, "value"):
+        raise ValueError(
+            f"adaptive=True queries Brownian values at solver-chosen times via "
+            f"bm.value(t); {type(bm).__name__} has no value method — use "
+            f"BrownianPath")
+
+
+def _check_bridge_depth(bm, bridge_depth) -> None:
+    if bridge_depth is None:
+        return
+    if not (isinstance(bridge_depth, int) and bridge_depth >= 1):
+        raise ValueError(
+            f"bridge_depth must be a positive int (dyadic descent levels), "
+            f"got {bridge_depth!r}")
+    if "depth" not in inspect.signature(bm.value).parameters:
+        raise ValueError(
+            f"bridge_depth requires a Brownian path whose point queries "
+            f"take a depth argument (BrownianPath); {type(bm).__name__} "
+            f"has a fixed resolution — drop bridge_depth")
+
+
+def solve_adaptive(drift, diffusion, params, z0, bm, t0: float, t1: float, *,
+                   solver: str = "reversible_heun", rtol=1e-3, atol=1e-6,
+                   max_steps: int = 4096, dt0: Optional[float] = None,
+                   noise: str = "diagonal", bridge_depth: Optional[int] = None,
+                   precision: str = "highest"):
+    """Adaptive solve -> ``(z_T, AdaptiveStats)``, forward only (no graph is
+    recorded; for gradients call :func:`solve` with ``adaptive=True`` and
+    ``gradient_mode="reversible_adjoint"``).
+
+    With a batched-key path (``K = bm.batch_shape``) every row runs its own
+    controller, as the reference's ``vmap`` of this function does, and the
+    fields receive the rows' times as a ``K``-shaped tensor (a single path
+    gives a 0-d one); ``rtol`` and ``atol`` are scalars (floats or
+    tensors)."""
+    spec = get_solver(solver)
+    _validate(spec, "discretise", noise, False, False, adaptive=True)
+    _check_adaptive_bm(bm)
+    _check_bridge_depth(bm, bridge_depth)
+    resolve_precision(precision)
+    if dt0 is None:
+        dt0 = (t1 - t0) / 16
+    with torch.no_grad():
+        carry, stats = _adaptive_loop(spec, drift, diffusion, params, z0, bm, t0, t1,
+                                      rtol, atol, max_steps, dt0, noise,
+                                      bridge_depth=bridge_depth)
+    return carry.z, stats
 
 
 def solve(drift, diffusion, params, z0, bm, t0: float, t1: float, num_steps: int, *,
@@ -122,7 +360,7 @@ def solve(drift, diffusion, params, z0, bm, t0: float, t1: float, num_steps: int
           rtol: Optional[float] = None, atol: Optional[float] = None,
           max_steps: Optional[int] = None, dt0: Optional[float] = None,
           bridge_depth: Optional[int] = None, precision: str = "highest"):
-    """Solve ``dZ = μ dt + σ ∘ dW`` on a uniform grid of ``num_steps`` steps.
+    """Solve ``dZ = μ dt + σ ∘ dW`` on ``[t0, t1]``.
 
     Same signature and defaults as :func:`repro.core.solve.solve`.  Ported:
     ``solver="reversible_heun"``, ``gradient_mode`` ``"discretise"`` and
@@ -131,19 +369,44 @@ def solve(drift, diffusion, params, z0, bm, t0: float, t1: float, num_steps: int
     only), ``precision="highest"``.  Returns the trajectory
     ``(num_steps+1, *z0.shape)`` or, with ``save_trajectory=False``, the
     terminal value.
+
+    ``adaptive=True`` runs the PI-controlled embedded pair instead of the
+    uniform grid (terminal value only): ``num_steps`` seeds ``dt0 = (t1 −
+    t0)/num_steps`` and the default budget ``max_steps = max(4·num_steps,
+    256)``; ``rtol``/``atol`` default to 1e-3/1e-6 and ``bridge_depth`` caps
+    the Brownian queries' bridge descent (default: the path's 24).  The
+    exact adjoint replays the accepted grid; ``discretise`` is forward-only
+    there.  A solve that runs out of budget before ``t1`` returns NaN; use
+    :func:`solve_adaptive` to read ``converged`` instead.
     """
     spec = get_solver(solver)
-    _validate(spec, gradient_mode, noise, use_pallas_kernels, save_trajectory)
-    resolve_precision(precision)
-    if adaptive:
-        raise NotPortedError(
-            "adaptive=True (the PI-controlled driver and the brownian_value "
-            "kernel) is not ported yet — ROADMAP.md Queue 1, item 8")
-    if any(v is not None for v in (rtol, atol, max_steps, dt0, bridge_depth)):
+    _validate(spec, gradient_mode, noise, use_pallas_kernels, save_trajectory, adaptive)
+    if not adaptive and any(v is not None for v in (rtol, atol, max_steps, dt0,
+                                                     bridge_depth)):
         raise ValueError(
             "rtol/atol/max_steps/dt0/bridge_depth are adaptive-mode options "
             "but adaptive=False — a fixed-grid solve would silently ignore "
             "the requested tolerance")
-    return get_backend(gradient_mode).solve(
+    resolve_precision(precision)
+    backend = get_backend(gradient_mode)
+    if adaptive:
+        _check_adaptive_bm(bm)
+        _check_bridge_depth(bm, bridge_depth)
+        rtol = 1e-3 if rtol is None else rtol
+        atol = 1e-6 if atol is None else atol
+        if max_steps is None:
+            max_steps = max(4 * num_steps, 256)
+        if dt0 is None:
+            dt0 = (t1 - t0) / num_steps
+        z, converged = backend.solve_adaptive(
+            spec, drift, diffusion, params, z0, bm, rtol, atol, t0, t1, max_steps,
+            dt0, noise=noise, use_pallas=use_pallas_kernels, bridge_depth=bridge_depth)
+        # a budget-exhausted solve sits at t_final < t1: poison it rather than
+        # hand back a truncated-horizon state as z_T (a select, so converged
+        # solves keep their gradient)
+        return torch.where(_rows(converged, z), z, torch.full((), float("nan"),
+                                                               dtype=z.dtype,
+                                                               device=z.device))
+    return backend.solve(
         spec, drift, diffusion, params, z0, bm, t0, t1, num_steps, noise=noise,
         save_trajectory=save_trajectory, use_pallas=use_pallas_kernels)

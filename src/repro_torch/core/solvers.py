@@ -1,6 +1,6 @@
-"""Reversible Heun, one step forward and one back (port of
-:mod:`repro.core.solvers`: ``reversible_heun_step`` and
-``reversible_heun_reverse_step``).
+"""Reversible Heun, one step forward and one back, and its embedded error
+estimate (port of :mod:`repro.core.solvers`: ``reversible_heun_step``,
+``reversible_heun_reverse_step`` and ``reversible_heun_embedded_step``).
 
 Calling convention as in the reference::
 
@@ -8,7 +8,8 @@ Calling convention as in the reference::
     diffusion(params, t, z)  -> sigma   (diagonal: shape of z)
 
 Times ``t`` are numpy scalars of the state dtype (or Python floats) and
-never need a device round trip.  On a uniform grid every field time is
+never need a device round trip; the adaptive loop passes tensors of its
+rows' own times and step sizes instead.  On a uniform grid every field time is
 :func:`grid_time`: ``t0 + k·Δt`` rounded once.  That is what the compiled
 reference evaluates — XLA contracts ``t0 + n·Δt`` and the ``± Δt`` after it
 into fused multiply-adds — and the plain two-rounding arithmetic differs
@@ -52,11 +53,19 @@ NFE_PER_STEP = {
 
 
 def apply_diffusion(sigma: torch.Tensor, dw: torch.Tensor, noise: str) -> torch.Tensor:
-    """``sigma · dW`` for diagonal or general (matrix) noise."""
+    """``sigma · dW`` for diagonal or general (matrix) noise.
+
+    General noise sums ``σ[..., :, j]·ΔW[..., j]`` over ``j`` in index
+    order, written out: an einsum becomes a batched GEMM whose kernel (and
+    so its summation order) depends on the batch count, and serving needs
+    every row's bits independent of the rows around it."""
     if noise == "diagonal":
         return sigma * dw
     if noise == "general":
-        return torch.einsum("...ij,...j->...i", sigma, dw)
+        out = sigma[..., 0] * dw[..., 0:1]
+        for j in range(1, dw.shape[-1]):
+            out = out + sigma[..., j] * dw[..., j:j + 1]
+        return out
     raise ValueError(f"unknown noise type: {noise}")
 
 
@@ -112,6 +121,19 @@ def reversible_heun_step(state: RevHeunState, t, dt, dw, drift, diffusion, param
     sigma1 = diffusion(params, t1, zh1)
     z1 = z + 0.5 * (mu + mu1) * dt + apply_diffusion(0.5 * (sigma + sigma1), dw, noise)
     return RevHeunState(z1, zh1, mu1, sigma1)
+
+
+def reversible_heun_embedded_step(state: RevHeunState, t, dt, dw, drift, diffusion,
+                                  params, noise, use_pallas: bool = False,
+                                  use_kernel: Optional[bool] = None, t1=None):
+    """One step and its free error estimate: ``(new_state, err)``.
+
+    The error is the increment of the gap between the two tracks,
+    ``(z₁ − ẑ₁) + (z₀ − ẑ₀)`` — the raw gap accumulates over steps, its
+    increment is this step's local quantity (→ 0 as Δt → 0)."""
+    new = reversible_heun_step(state, t, dt, dw, drift, diffusion, params, noise,
+                               use_pallas=use_pallas, use_kernel=use_kernel, t1=t1)
+    return new, (new.z - new.zh) + (state.z - state.zh)
 
 
 def reversible_heun_reverse_step(state: RevHeunState, t1, dt, dw, drift, diffusion,

@@ -7,6 +7,9 @@
 * :func:`rev_heun_phase1_gen` replaces src/repro/kernels/brownian.py:132:
   reversible-Heun phase 1 with that increment drawn inside the kernel;
   returns ``(ẑ₁, ΔW)``.
+* :func:`brownian_value` replaces src/repro/kernels/brownian.py:101: the
+  point value ``W(t) − W(t0)`` by Lévy-bridge descent, one time per row —
+  the adaptive loop's Brownian query.
 
 The JAX kernels take one key and get a batch from ``jax.vmap``; these take
 the batch explicitly.  ``keys`` has shape ``(*K, 2)`` (int64 words) and the
@@ -14,8 +17,7 @@ state ``(*K, *S)``: row ``k`` draws ``normal(fold_in(keys[k], n), S)``,
 bitwise what ``BrownianPath.increment`` gives for that row's key.  The
 kernels are in ``csrc/rev_heun.cu`` with the Threefry device functions of
 ``csrc/threefry.cuh``; the plain versions are in :mod:`repro_torch.kernels.
-ref`.  ``brownian_value`` (the adaptive driver's bridge descent) is not
-ported yet (ROADMAP.md, Queue 2).
+ref`.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from . import build
 from .reversible_heun_step import DTYPE_CODES, check_operands, scalar
 
 #: Kernel launches made by this module's wrappers (one per launch).
-LAUNCHES = {"brownian_increment": 0, "rev_heun_phase1_gen": 0}
+LAUNCHES = {"brownian_increment": 0, "rev_heun_phase1_gen": 0, "brownian_value": 0}
 
 
 def _check_keys(name: str, keys: torch.Tensor, device) -> int:
@@ -89,3 +91,34 @@ def rev_heun_phase1_gen(z, zh, mu, sigma, keys, n: int, dt_grid, dt,
     build.check("rev_heun_phase1_gen", err)
     LAUNCHES["rev_heun_phase1_gen"] += 1
     return zh1, dw
+
+
+def brownian_value(keys, t, t0: float, t1: float, shape, dtype, depth: int = 24):
+    """``(R, *shape)`` values ``W(t[r]) − W(t0)`` of the rows' paths — one
+    launch.  ``keys``: ``(R, 2)``; ``t``: the ``(R,)`` query times in
+    ``dtype`` on the card, read there by the kernel (no host copy)."""
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"brownian_value: float32 or float64, got {dtype}")
+    if not keys.is_cuda:
+        raise ValueError(f"brownian_value: keys must be a CUDA tensor, got {keys.device}")
+    rows = _check_keys("brownian_value", keys, keys.device)
+    if (t.dtype != dtype or t.device != keys.device or t.shape != keys.shape[:-1]
+            or not t.is_contiguous()):
+        raise ValueError(f"brownian_value: t must be a contiguous {dtype} tensor of "
+                         f"shape {tuple(keys.shape[:-1])} on {keys.device}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if depth < 0:
+        raise ValueError(f"brownian_value: depth must be >= 0, got {depth}")
+    shape = tuple(shape)
+    out = torch.empty(keys.shape[:-1] + shape, dtype=dtype, device=keys.device)
+    if out.numel() == 0:
+        return out
+    lib = build.load()
+    with build.device_guard(keys.device):
+        err = lib.rt_brownian_value(
+            DTYPE_CODES[dtype], keys.data_ptr(), t.data_ptr(), float(t0), float(t1),
+            int(depth), out.data_ptr(), rows, math.prod(shape),
+            torch.cuda.current_stream(keys.device).cuda_stream)
+    build.check("brownian_value", err)
+    LAUNCHES["brownian_value"] += 1
+    return out

@@ -39,6 +39,7 @@ _P, _I, _I64, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_doubl
 #: C signature of every entry point (all return cudaGetLastError()).
 SIGNATURES = {
     "rt_brownian_increment": (_I, _P, _I64, _D, _P, _I64, _I64, _P),
+    "rt_brownian_value": (_I, _P, _P, _D, _D, _I, _P, _I64, _I64, _P),
     "rt_rev_heun_phase1_gen": (_I, _P, _P, _P, _P, _P, _I64, _D, _D, _D, _P, _P,
                                _I64, _I64, _P),
     "rt_rev_heun_phase1": (_I, _P, _P, _P, _P, _P, _D, _D, _P, _I64, _P),

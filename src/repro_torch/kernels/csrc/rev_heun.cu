@@ -8,6 +8,7 @@
 //   rev_heun_bwd_phase2  src/repro/kernels/reversible_heun_step.py:180 (body :94)
 //   brownian_increment   src/repro/kernels/brownian.py:71
 //   rev_heun_phase1_gen  src/repro/kernels/brownian.py:132
+//   brownian_value       src/repro/kernels/brownian.py:101
 // The plain versions are src/repro_torch/kernels/ref.py; each kernel here
 // computes the same function with the same op order, bitwise.  The backward
 // pair's grouping (c_mu1 = g_mu1 + 0.5*(g_z1*dt), d_mu = 0.5*(g_z1*dt) +
@@ -35,6 +36,12 @@
 // with one other element: redundant integer work that costs no memory
 // traffic.
 //
+// brownian_value (the adaptive loop's point query W(t) - W(t0)) is
+// bound by operations, not bytes: each element pays `depth` levels of two
+// key-chain hashes plus one midpoint normal (~3 Threefry hashes and an
+// erf_inv per level), and writes one value.  Its design is in the comment
+// above brownian_value_kernel.
+//
 // Interface: plain C functions (loaded with ctypes by kernels/build.py),
 // dtype code 0 = float32, 1 = float64.  Each launches on the given stream and
 // returns cudaGetLastError().
@@ -54,6 +61,13 @@ __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, 
 __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
 __device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
 __device__ __forceinline__ double sqrt_ieee(double a) { return sqrt(a); }
+__device__ __forceinline__ float divide(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ double divide(double a, double b) { return __ddiv_rn(a, b); }
+// the smallest normal number, finfo(dtype).tiny
+__device__ __forceinline__ float tiny(float) { return __int_as_float(0x00800000); }
+__device__ __forceinline__ double tiny(double) {
+  return __longlong_as_double(0x0010000000000000LL);
+}
 
 // ΔW of element (b, i): normal(fold_in(keys[b], n), (d,))[i] · sqrt(dt_grid)
 template <typename T>
@@ -164,6 +178,66 @@ __global__ void bwd_phase2_kernel(const T* __restrict__ g_z1, const T* __restric
     d_zh[e] = -h;
     d_mu[e] = add(mul(T(0.5), mul(g, dt)), mul(h, dt));
     d_sigma[e] = add(mul(T(0.5), mul(g, w)), mul(h, w));
+  }
+}
+
+// W(t_b) - W(t0) of row b by Lévy-bridge descent to `depth` levels, one
+// thread per element (b, i) of the (rows, d) output.
+// Replaces _value_kernel / brownian_value (src/repro/kernels/brownian.py:101,
+// pallas_call :106), whose plain version is repro.kernels.ref.brownian_value
+// (here src/repro_torch/kernels/ref.py:brownian_value, bitwise).
+//
+// The Pallas kernel walked the row's intervals and keys once as scalars,
+// drew all `depth` midpoints in one batched call, then combined: a layout
+// for the TPU's one core and its large VMEM.  Here each thread repeats its
+// row's scalar walk (interval (a, b), bridge std, go-left bit, the key
+// chain) and draws only its own element's midpoint normal at each level,
+// combining as it goes: no per-level arrays, no shared memory, no
+// communication between threads.  The walk is redundant across a row's d
+// threads, which is integer work on registers; the kernel is bound by
+// those operations (see the file comment), and making it fast (sharing
+// the walk through a warp) is later work.  Each row has its own time t[b]
+// read from device memory, so the adaptive loop never copies a time to
+// the host.  The counter layout of the draws is that of normal(key, (d,)):
+// it depends on the per-row size d, not on rows*d.
+template <typename T>
+__global__ void brownian_value_kernel(const int64_t* __restrict__ keys,
+                                      const T* __restrict__ t, T t0, T t1,
+                                      T sqrt_span, int depth, T* __restrict__ out,
+                                      int64_t rows, int64_t d) {
+  const int64_t total = rows * d;
+  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+       e < total; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t b = e / d;
+    const int64_t i = e - b * d;
+    uint32_t c0 = static_cast<uint32_t>(keys[2 * b]);
+    uint32_t c1 = static_cast<uint32_t>(keys[2 * b + 1]);
+    fold_in(c0, c1, 0xB0B);
+    const T tb = t[b];
+    T wa = T(0);
+    T wb = mul(normal_elem(T(), c0, c1, i, d), sqrt_span);
+    T lo = t0;
+    T hi = t1;
+    for (int level = 0; level < depth; ++level) {
+      const T m = mul(T(0.5), add(lo, hi));
+      const T std_ = sqrt_ieee(divide(mul(sub(hi, m), sub(m, lo)), sub(hi, lo)));
+      const bool go_left = tb <= m;
+      uint32_t f0 = c0, f1 = c1;
+      fold_in(f0, f1, 1);
+      fold_in(c0, c1, go_left ? 2 : 3);
+      const T wm = add(mul(T(0.5), add(wa, wb)), mul(std_, normal_elem(T(), f0, f1, i, d)));
+      if (go_left) {
+        wb = wm;
+        hi = m;
+      } else {
+        wa = wm;
+        lo = m;
+      }
+    }
+    const T span = sub(hi, lo);
+    T frac = divide(sub(tb, lo), span > tiny(T()) ? span : tiny(T()));
+    frac = frac < T(0) ? T(0) : (frac > T(1) ? T(1) : frac);
+    out[e] = add(wa, mul(frac, sub(wb, wa)));
   }
 }
 
@@ -305,6 +379,27 @@ extern "C" int rt_rev_heun_bwd_phase2(int dtype, const void* g_z1, const void* g
           static_cast<const double*>(dw), dt, static_cast<double*>(d_z),
           static_cast<double*>(d_zh), static_cast<double*>(d_mu),
           static_cast<double*>(d_sigma), total);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int rt_brownian_value(int dtype, const int64_t* keys, const void* t,
+                                 double t0, double t1, int depth, void* out,
+                                 int64_t rows, int64_t d, void* stream) {
+  const int64_t total = rows * d;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (total > 0) {
+    // the span and its sqrt in the state dtype, as the plain version rounds them
+    if (dtype == 0) {
+      const float sqrt_span = sqrtf(static_cast<float>(t1 - t0));
+      repro_torch::brownian_value_kernel<float><<<blocks_for(total), kThreads, 0, s>>>(
+          keys, static_cast<const float*>(t), static_cast<float>(t0),
+          static_cast<float>(t1), sqrt_span, depth, static_cast<float*>(out), rows, d);
+    } else {
+      repro_torch::brownian_value_kernel<double><<<blocks_for(total), kThreads, 0, s>>>(
+          keys, static_cast<const double*>(t), t0, t1, sqrt(t1 - t0), depth,
+          static_cast<double*>(out), rows, d);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -80,6 +80,16 @@ def brownian_increment(key, n, shape, dtype, dt, use_kernel: Optional[bool] = No
     return ref.brownian_increment(key[..., 0], key[..., 1], n, tuple(shape), dtype, dt)
 
 
+def brownian_value(key, t, t0, t1, shape, dtype, depth: int = 24,
+                   use_kernel: Optional[bool] = None):
+    """``W(t) − W(t0)`` by Lévy-bridge descent, one path per key row:
+    ``key`` ``(R, 2)``, ``t`` ``(R,)`` in ``dtype`` -> ``(R, *shape)``."""
+    if _decide("brownian_value", key, use_kernel):
+        return _bk.brownian_value(key, t, t0, t1, tuple(shape), dtype, depth)
+    return ref.brownian_value(key[..., 0], key[..., 1], t, t0, t1, tuple(shape), dtype,
+                              depth)
+
+
 def launch_counts() -> dict:
     """Kernel launches by name since the last :func:`reset_launch_counts`."""
     return {**_rh.LAUNCHES, **_bk.LAUNCHES}

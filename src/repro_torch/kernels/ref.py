@@ -61,3 +61,62 @@ def brownian_increment(k1, k2, n, shape, dtype, dt):
     f1, f2 = prng.fold_in(k1, k2, n)
     z = prng.normal_like(f1, f2, tuple(shape), dtype)
     return z * torch.sqrt(torch.as_tensor(dt, dtype=dtype, device=z.device))
+
+
+
+def bridge_descent(k1, k2, t, t0: float, t1: float, depth: int):
+    """The scalar walk of :func:`brownian_value` (the reference's
+    ``scal_body``) -> ``(stds, go_lefts, km1, km2, a, b)``: per level (a
+    leading ``depth`` axis over ``t.shape``) the bridge std, the go-left
+    bit and the midpoint key words, then the last interval ``[a, b]``."""
+    a = torch.full_like(t, t0)
+    b = torch.full_like(t, t1)
+    c1, c2 = prng.fold_in(k1, k2, 0xB0B)
+    stds, gos, chain1, chain2 = [], [], [], []
+    for _ in range(depth):
+        m = 0.5 * (a + b)
+        stds.append(torch.sqrt((b - m) * (m - a) / (b - a)))
+        go_left = t <= m
+        gos.append(go_left)
+        chain1.append(c1)
+        chain2.append(c2)
+        c1, c2 = prng.fold_in(c1, c2, torch.where(go_left, 2, 3))
+        a, b = torch.where(go_left, a, m), torch.where(go_left, m, b)
+    if not depth:
+        empty = t.new_empty((0,) + t.shape)
+        return empty, empty.bool(), empty.long(), empty.long(), a, b
+    # every level's midpoint key fold_in(c, 1), in one call
+    km1, km2 = prng.fold_in(torch.stack(chain1), torch.stack(chain2), 1)
+    return torch.stack(stds), torch.stack(gos), km1, km2, a, b
+
+
+def brownian_value(k1, k2, t, t0: float, t1: float, shape, dtype, depth: int = 24):
+    """``W(t) − W(t0)`` by Lévy-bridge descent to ``depth`` levels
+    (``repro.kernels.ref.brownian_value``, step for step).
+
+    ``k1, k2``: key words of shape ``(R,)``; ``t``: the rows' query times,
+    an ``(R,)`` tensor (under the reference's ``vmap`` each row has its
+    own).  Returns ``(R, *shape)``.  The root key ``fold_in(key, 0xB0B)``
+    draws ``W(t1) = normal·sqrt(t1 − t0)``; each level halves the row's
+    interval at ``m = ½(a+b)``, draws the midpoint from ``fold_in(c, 1)``
+    with the bridge std ``sqrt((b−m)(m−a)/(b−a))`` and descends into the
+    half holding ``t`` with the child key ``fold_in(c, 2 | 3)``
+    (:func:`bridge_descent`); all levels' midpoints are drawn in one call,
+    combined level by level, and the tail interpolates linearly inside the
+    last interval.
+    """
+    shape = tuple(shape)
+    t = t.to(dtype)
+    lead = t.shape + (1,) * len(shape)
+    r1, r2 = prng.fold_in(k1, k2, 0xB0B)
+    sqrt_span = torch.sqrt(torch.as_tensor(t1 - t0, dtype=dtype, device=t.device))
+    wb = prng.normal_like(r1, r2, shape, dtype) * sqrt_span
+    wa = torch.zeros_like(wb)
+    stds, gos, km1, km2, a, b = bridge_descent(k1, k2, t, t0, t1, depth)
+    zms = prng.normal_like(km1, km2, shape, dtype)
+    for i in range(depth):
+        wm = 0.5 * (wa + wb) + stds[i].reshape(lead) * zms[i]
+        left = gos[i].reshape(lead)
+        wa, wb = torch.where(left, wa, wm), torch.where(left, wm, wb)
+    frac = torch.clamp((t - a) / torch.clamp(b - a, min=torch.finfo(dtype).tiny), 0.0, 1.0)
+    return wa + frac.reshape(lead) * (wb - wa)

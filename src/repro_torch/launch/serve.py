@@ -3,14 +3,19 @@
 Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --workload latent-sde --pallas
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload sde-gan
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload sde-gan --adaptive \\
+        --atol 1e-6                         # terminal samples, deadline-routed rtol
     PYTHONPATH=src python -m repro_torch.launch.serve --workload latent-sde \\
         --ckpt-dir /path/to/ckpt            # a JAX- or port-written bundle
     PYTHONPATH=src python -m repro_torch.launch.serve --workload latent-sde \\
         --device cpu                        # plain PyTorch versions, no card
 
 Serves on the card by default; with no card and no ``--device cpu`` it
-stops with a named error.  Other workloads and modes of the reference CLI
-raise a named error pointing at ROADMAP.md.
+stops with a named error.  ``--adaptive`` serves SDE-GAN terminal samples,
+each batch at the tolerance its deadline class admits.  Other workloads
+and modes of the reference CLI raise a named error pointing at
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -36,6 +41,14 @@ def main(argv=None):
     ap.add_argument("--request-max", type=int, default=4,
                     help="largest per-request trajectory count")
     ap.add_argument("--latent-mode", choices=("prior", "posterior"), default="prior")
+    ap.add_argument("--stream-chunks", type=int, default=0,
+                    help="stream each trajectory in this many time chunks (not "
+                         "ported yet)")
+    ap.add_argument("--adaptive", action="store_true",
+                    help="sde-gan: adaptive terminal samples, rtol routed per "
+                         "request deadline class")
+    ap.add_argument("--atol", type=float, default=1e-6,
+                    help="absolute tolerance of --adaptive")
     ap.add_argument("--pallas", action="store_true",
                     help="fresh-init: the fused hot loop (phase-1 kernel draws ΔW, "
                          "phase-2 kernel); restored bundles carry their own")
@@ -51,7 +64,8 @@ def main(argv=None):
             "ROADMAP.md Queue 1, item 14")
     return serve_sde(args.workload, args.ckpt_dir, max_batch=args.max_batch, requests=args.requests,
                      request_max=args.request_max, latent_mode=args.latent_mode,
-                     seed=args.seed, device=args.device, sde_steps=args.sde_steps,
+                     stream_chunks=args.stream_chunks, adaptive=args.adaptive,
+                     atol=args.atol, seed=args.seed, device=args.device, sde_steps=args.sde_steps,
                      pallas=args.pallas)
 
 

@@ -1,6 +1,8 @@
-"""Step builders (port of :mod:`repro.launch.steps`): the Latent-SDE ELBO
+"""Step factories (port of :mod:`repro.launch.steps`): the Latent-SDE ELBO
 training step (``make_latent_sde_optimizer``, ``make_latent_sde_step``) and
-the serving sampler ``make_sample_step`` for the prior decode."""
+the serving samplers: ``make_sample_step`` (the Latent-SDE prior decode and
+the SDE-GAN generator's rollout) and ``make_adaptive_terminal_step`` (the
+SDE-GAN's adaptive terminal samples)."""
 
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ SERVE_WORKLOADS = ("sde-gan", "latent-sde")
 
 def make_sample_step(workload: str, cfg, latent_mode: str = "prior", device=None):
     """Build the batched trajectory sampler of one serving bucket:
-    ``(params, keys) -> (num_steps+1, len(keys), data_dim)``.
+    ``(params, keys) -> (num_steps+1, len(keys), data_dim)`` — the SDE-GAN
+    generator's rollout, or the Latent SDE's decode.
 
     Runs on the card unless ``device="cpu"`` (no card: a named error).
     ``keys`` are moved to that device; ``params`` must already live there.
@@ -27,10 +30,13 @@ def make_sample_step(workload: str, cfg, latent_mode: str = "prior", device=None
 
     if workload not in SERVE_WORKLOADS:
         raise ValueError(f"workload must be one of {SERVE_WORKLOADS}, got {workload!r}")
-    if workload != "latent-sde":
-        raise ServingNotPortedError(
-            f"the {workload!r} sampler is not ported yet — ROADMAP.md Queue 1, "
-            f"items 7 and 12")
+    if workload == "sde-gan":
+        dev = resolve_device(device)
+
+        def sample(params, keys):
+            return S.generator_sample_paths(params, cfg, keys.to(dev))
+
+        return sample
     if latent_mode not in ("prior", "posterior"):
         raise ValueError(f"latent_mode must be 'prior' or 'posterior', got {latent_mode!r}")
     if latent_mode != "prior":
@@ -41,6 +47,35 @@ def make_sample_step(workload: str, cfg, latent_mode: str = "prior", device=None
 
     def sample(params, keys):
         return S.latent_sde_sample_paths(params, cfg, keys.to(dev))
+
+    return sample
+
+
+def make_adaptive_terminal_step(cfg, atol: float = 1e-6, max_steps: int = 4096,
+                                device=None):
+    """Build the SDE-GAN's adaptive terminal sampler of one serving bucket:
+    ``(params, keys, rtol) -> (samples (len(keys), data_dim), converged
+    (len(keys),), AdaptiveStats)``.
+
+    ``rtol`` is an argument, so one sampler serves every tolerance a batch
+    is routed to.  Each row runs its own PI controller to ``t1`` within
+    ``max_steps`` (forward only: no adjoint buffers ride along); a row that
+    runs out comes back ``converged=False``.  Runs on the card unless
+    ``device="cpu"``.  Validation is eager: a solver without an embedded
+    error estimate raises here, at build time."""
+    from ..core import sde as S
+    from ..core.solve import SOLVERS, get_solver
+
+    if get_solver(cfg.solver).embedded_stepper is None:
+        raise ValueError(
+            f"--adaptive needs a solver with an embedded error estimate; "
+            f"{cfg.solver!r} has none (embedded pairs: "
+            f"{sorted(s.name for s in SOLVERS.values() if s.embedded_stepper)})")
+    dev = resolve_device(device)
+
+    def sample(params, keys, rtol):
+        return S.generator_sample_terminal(params, cfg, keys.to(dev), rtol, atol,
+                                           max_steps=max_steps)
 
     return sample
 

@@ -1,6 +1,9 @@
 """The port's CUDA kernels on the card: bitwise against their plain PyTorch
-versions, launch counting, operand checks, fused = unfused decode, and the
-fused exact adjoint = the unfused one on a whole ELBO training step.
+versions, launch counting, operand checks, fused = unfused decode, the
+fused exact adjoint = the unfused one on a whole ELBO training step, and
+the adaptive paths: the ``brownian_value`` kernel, the fused adaptive
+exact adjoint = the unfused one, and the adaptive SDE-GAN sampler's
+padding invariance.
 
 These need an NVIDIA GPU with nvcc (the kernels have no CPU mode); each test
 skips without one.  On the GPU machine::
@@ -11,10 +14,13 @@ skips without one.  On the GPU machine::
 import pytest
 import torch
 
-from repro_torch import tree
-from repro_torch.core.sde import LatentSDEConfig, latent_sde_init, latent_sde_sample_paths
+from repro_torch import nn, tree
+from repro_torch.core import BrownianPath, solve
+from repro_torch.core.sde import (LatentSDEConfig, NeuralSDEConfig, generator_init,
+                                  latent_sde_init, latent_sde_sample_paths)
 from repro_torch.kernels import ops, prng
-from repro_torch.launch.steps import make_latent_sde_optimizer, make_latent_sde_step
+from repro_torch.launch.steps import (make_adaptive_terminal_step, make_latent_sde_optimizer,
+                                      make_latent_sde_step)
 
 pytestmark = pytest.mark.cuda
 
@@ -80,9 +86,13 @@ def test_each_launch_is_counted_once(cuda):
     ops.rev_heun_bwd_phase1(z, zh, mu, dw, 0.1)
     ops.rev_heun_bwd_phase2(z, zh, dw, 0.1)
     ops.rev_heun_bwd_phase2(z, zh, dw, 0.1, use_kernel=False)
+    t = torch.rand(4, device=cuda)
+    ops.brownian_value(keys, t, 0.0, 1.0, (16,), torch.float32)
+    ops.brownian_value(keys, t, 0.0, 1.0, (16,), torch.float32, use_kernel=False)
     assert ops.launch_counts() == {"rev_heun_phase1": 1, "rev_heun_phase2": 1,
                                    "rev_heun_bwd_phase1": 1, "rev_heun_bwd_phase2": 1,
-                                   "rev_heun_phase1_gen": 1, "brownian_increment": 1}
+                                   "rev_heun_phase1_gen": 1, "brownian_increment": 1,
+                                   "brownian_value": 1}
 
 
 def test_operands_are_checked(cuda):
@@ -99,6 +109,72 @@ def test_operands_are_checked(cuda):
         ops.rev_heun_bwd_phase1(z.t(), mu.t(), sg.t(), dw.t(), 0.1)
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.rev_heun_bwd_phase2(z, zh.cpu(), dw, 0.1)
+    t = torch.rand(4, device=cuda)
+    with pytest.raises(ValueError, match="t must be a contiguous"):
+        ops.brownian_value(keys, t.double(), 0.0, 1.0, (16,), torch.float32)
+    with pytest.raises(ValueError, match="t must be a contiguous"):
+        ops.brownian_value(keys, t[:2], 0.0, 1.0, (16,), torch.float32)
+    with pytest.raises(ValueError, match="int64"):
+        ops.brownian_value(keys.int(), t, 0.0, 1.0, (16,), torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,shape", [(1, (256, 32)), (1, (64, 17)), (1024, (4,)), (3, (5,))])
+@pytest.mark.parametrize("depth", [10, 24])
+def test_brownian_value_bitwise_equals_plain_version(cuda, dtype, rows, shape, depth):
+    g = torch.Generator().manual_seed(rows + depth)
+    keys = torch.randint(0, 2 ** 32, (rows, 2), generator=g, dtype=torch.int64).to(cuda)
+    for t in (torch.zeros(rows), torch.ones(rows), torch.full((rows,), 0.375),
+              torch.rand(rows, generator=g, dtype=torch.float64)):
+        t = t.to(dtype=dtype, device=cuda)
+        got = ops.brownian_value(keys, t, 0.0, 1.0, shape, dtype, depth)
+        want = ops.brownian_value(keys, t, 0.0, 1.0, shape, dtype, depth, use_kernel=False)
+        assert got.shape == (rows, *shape) and torch.equal(got, want)
+
+
+def _burst_grad(cuda, dtype, fused):
+    x = 32
+    params = {"f": nn.mlp_init(torch.Generator().manual_seed(9), [x, 64, x], dtype=dtype,
+                               device=cuda)}
+
+    def drift(p, t, y):
+        t = torch.as_tensor(t, dtype=y.dtype, device=y.device)
+        theta = 0.5 + 30.0 * torch.exp(-(((t - 0.5) / 0.05) ** 2))
+        return theta * (1.0 - y) + 0.05 * nn.mlp(p["f"], y, nn.lipswish, torch.tanh)
+
+    bm = BrownianPath(prng.PRNGKey(5, device=cuda), 0.0, 1.0, (64, x), dtype)
+    leaves, spec = tree.flatten(params)
+    leaves = [v.requires_grad_() for v in leaves]
+    z0 = torch.zeros(64, x, dtype=dtype, device=cuda, requires_grad=True)
+    zT = solve(drift, lambda p, t, y: 0.05 * torch.ones_like(y), tree.unflatten(spec, leaves),
+               z0, bm, 0.0, 1.0, 16, gradient_mode="reversible_adjoint",
+               save_trajectory=False, adaptive=True, rtol=2e-3, atol=1e-5, max_steps=2048,
+               bridge_depth=10, use_pallas_kernels=fused)
+    return zT.detach(), torch.autograd.grad(torch.mean(zT ** 2), [z0, *leaves])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_adaptive_adjoint_equals_unfused_on_the_card(cuda, dtype):
+    ops.reset_launch_counts()
+    z_f, g_f = _burst_grad(cuda, dtype, True)
+    counts = ops.launch_counts()
+    z_u, g_u = _burst_grad(cuda, dtype, False)
+    assert counts["brownian_value"] > 0 and counts["rev_heun_bwd_phase2"] > 0
+    assert torch.isfinite(z_f).all() and torch.equal(z_f, z_u)
+    assert all(torch.equal(a, b) for a, b in zip(g_f, g_u))
+
+
+def test_adaptive_sde_gan_rows_are_padding_invariant_on_the_card(cuda):
+    cfg = NeuralSDEConfig(data_dim=1, hidden_dim=16, noise_dim=4, initial_noise_dim=4,
+                          width=32, depth=1, num_steps=16)
+    params = generator_init(torch.Generator().manual_seed(3), cfg, device=cuda)
+    keys = torch.stack(prng.fold_in(5, 6, torch.arange(1024)), -1).to(cuda)
+    sampler = make_adaptive_terminal_step(cfg)
+    y, conv, st = sampler(params, keys, 1e-2)
+    for r in (0, 511, 1023):
+        y1, c1, s1 = sampler(params, keys[r:r + 1], 1e-2)
+        assert torch.equal(y1[0], y[r]) and bool(c1[0] == conv[r])
+        assert int(s1.num_accepted[0]) == int(st.num_accepted[r])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -58,3 +58,9 @@ def test_serving_cli_import_leaves_jax_unloaded():
 def test_train_cli_import_leaves_jax_unloaded():
     _imports_leave_jax_unloaded("repro_torch.launch.train, repro_torch.core.gradients, "
                                 "repro_torch.data, repro_torch.optim")
+
+
+def test_adaptive_slice_import_leaves_jax_unloaded():
+    _imports_leave_jax_unloaded("repro_torch.core.solve, repro_torch.core.sde, "
+                                "repro_torch.core.gradients.discretise, "
+                                "repro_torch.serving.types, repro_torch.launch.steps")

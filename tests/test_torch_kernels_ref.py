@@ -6,6 +6,9 @@ Tolerances (stated per the port's parity rules):
 * elementwise phases: rtol=1e-6, atol=1e-7 in float32; rtol=1e-14,
   atol=1e-15 in float64.  XLA contracts the phases' multiply-adds into FMAs;
   the port rounds every op (as its CUDA kernels do with -fmad=false).
+* Brownian point values (``brownian_value``) sum ``depth + 1`` scaled
+  normals: rtol 1e-5, atol 1e-6 in float32, atol 1e-10 in float64 (the
+  normal bounds, and XLA's FMA-contracted combine).
 * Brownian increments are normals scaled by sqrt(dt): in float32 the phase
   tolerance holds (normals within 4 ulp); in float64 they carry the normal
   bound of tests/test_torch_prng.py (2**19 ulp: XLA's CPU float64 normal
@@ -176,4 +179,34 @@ def test_dispatch_policy_on_cpu():
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         ops.brownian_increment(torch.zeros(2, 2, dtype=torch.int64), 0, (3,),
                                torch.float32, 0.1, use_kernel=True)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ops.brownian_value(torch.zeros(2, 2, dtype=torch.int64), torch.zeros(2), 0.0, 1.0,
+                           (3,), torch.float32, use_kernel=True)
+    assert torch.equal(ops.brownian_value(torch.zeros(2, 2, dtype=torch.int64),
+                                          torch.zeros(2), 0.0, 1.0, (3,), torch.float32),
+                       torch.zeros(2, 3))
     assert set(ops.launch_counts().values()) == {0}
+
+
+VALUE_TOL = {"float32": dict(rtol=1e-5, atol=1e-6), "float64": dict(rtol=0.0, atol=1e-10)}
+
+
+@pytest.mark.parametrize("depth", [10, 24])
+@pytest.mark.parametrize("dtype,shape", [("float32", (5, 4)), ("float64", (5, 3))])
+def test_brownian_value_matches_ref_and_pallas(dtype, shape, depth):
+    """Per-row keys and per-row times (t0, t1, a dyadic point, random
+    points); tolerance as tests/test_torch_brownian.py states for values."""
+    words = key_words(18, shape[0])
+    ts = np.concatenate([[0.0, 1.0, 0.375], np.random.default_rng(19).random(shape[0] - 3)])
+    got = ops.brownian_value(torch_keys(words), torch.from_numpy(ts).to(TORCH_DTYPES[dtype]),
+                             0.0, 1.0, shape[1:], TORCH_DTYPES[dtype], depth)
+    assert got.shape == shape and got.dtype == TORCH_DTYPES[dtype]
+    with jax_config(x64=dtype == "float64"):
+        t = ts.astype(dtype)
+        want = jax.jit(jax.vmap(lambda k1, k2, tt: jref.brownian_value(
+            k1, k2, tt, 0.0, 1.0, shape[1:], dtype, depth)))(*words.T, t)
+        pallas = jax.jit(jax.vmap(lambda k1, k2, tt: jbk.brownian_value(
+            k1, k2, tt, 0.0, 1.0, shape[1:], dtype, depth, interpret=True)))(*words.T, t)
+    for w in (want, pallas):
+        torch.testing.assert_close(got, torch.from_numpy(np.array(w)), **VALUE_TOL[dtype])
+    assert torch.equal(got[0], torch.zeros(shape[1:], dtype=TORCH_DTYPES[dtype]))

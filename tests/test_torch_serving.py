@@ -1,13 +1,18 @@
-"""The port's Latent-SDE prior decode and its serving path against the JAX
-package, on the CPU: latent_sde_sample_paths with weights carried over by
-params_from_jax, serving bundles read across packages, serve_sde on the
-CPU, bitwise padding invariance, and the no-GPU named error.
+"""The port's serving path against the JAX package, on the CPU: the
+Latent-SDE prior decode and the SDE-GAN generator's rollout with weights
+carried over by params_from_jax, serving bundles read across packages,
+serve_sde on the CPU (fixed grid and adaptive terminal sampling), the
+deadline classes and tolerance routing, bitwise padding invariance, and
+the no-GPU named error.  (The adaptive samplers' numbers against the
+reference are in tests/test_torch_adaptive.py.)
 
 Tolerances: trajectories rtol=2e-5, atol=2e-6 in float32 and rtol=1e-11,
 atol=1e-13 in float64, for draws inside |z| < 3.3 (asserted; beyond, XLA's
 CPU float64 normal wobbles by up to 6e-11 relative, see
 tests/test_torch_prng.py).
 """
+
+import math
 
 import dataclasses
 
@@ -26,13 +31,37 @@ from repro_torch.core import sde
 from repro_torch.kernels import prng
 from repro_torch.launch import serve as serve_cli
 from repro_torch.launch.steps import make_sample_step
-from repro_torch.serving import (PAD_SEED, ServingNotPortedError, _request_keys,
-                                 restore_for_serving, serve_buckets, serve_sde,
-                                 synthetic_requests)
+from repro_torch.launch.steps import make_adaptive_terminal_step
+from repro_torch.serving import (DEADLINE_CLASSES, PAD_SEED, Request, ServingNotPortedError,
+                                 _request_keys, deadline_class_for, restore_for_serving,
+                                 route_rtol, serve_buckets, serve_sde, synthetic_requests)
+from repro.serving import types as jax_types
 
 TRAJ_TOL = {"float32": dict(rtol=2e-5, atol=2e-6), "float64": dict(rtol=1e-11, atol=1e-13)}
 WIDTHS = dict(data_dim=2, hidden_dim=5, context_dim=4, initial_noise_dim=3, width=8,
               depth=1, num_steps=8, t1=1.0)
+GAN_WIDTHS = dict(data_dim=1, hidden_dim=5, noise_dim=3, initial_noise_dim=2, width=8,
+                  depth=1, num_steps=8, t1=1.0)
+
+
+def gan_params(dtype, seed=50, sigma_scale=0.2):
+    """Generator weights from a numpy seed, in the reference's tree; the
+    diffusion's last layer scaled by ``sigma_scale`` keeps the adaptive
+    solves a few dozen steps long."""
+    rng = np.random.default_rng(seed)
+
+    def net(sizes, scale=1.0):
+        return {"layers": [{"w": (scale * rng.standard_normal((a, b)) / np.sqrt(a)).astype(dtype),
+                            "b": (0.1 * rng.standard_normal(b)).astype(dtype)}
+                           for a, b in zip(sizes[:-1], sizes[1:])]}
+
+    h, w, n = GAN_WIDTHS["hidden_dim"], GAN_WIDTHS["width"], GAN_WIDTHS["noise_dim"]
+    sigma = net([1 + h, w, h * n])
+    sigma["layers"][-1]["w"] *= sigma_scale
+    return {"zeta": net([GAN_WIDTHS["initial_noise_dim"], w, h]), "mu": net([1 + h, w, h]),
+            "sigma": sigma,
+            "ell": {"w": (rng.standard_normal((h, 1)) / np.sqrt(h)).astype(dtype),
+                    "b": np.zeros(1, dtype)}}
 
 
 def _jax_keys(seed, n):
@@ -150,14 +179,155 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_workloads_and_modes_raise_named_errors():
+    """The SDE-GAN serves now (its refusals are the reference's own: adaptive
+    needs sde-gan and excludes streaming); streaming, the posterior decode
+    and the LM still name their queue items."""
+    with pytest.raises(ValueError, match="--adaptive serves terminal samples"):
+        serve_sde("latent-sde", adaptive=True, device="cpu")
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        serve_sde("sde-gan", adaptive=True, stream_chunks=4, device="cpu")
     with pytest.raises(ServingNotPortedError, match="ROADMAP"):
-        serve_sde("sde-gan", device="cpu")
+        serve_sde("sde-gan", stream_chunks=4, device="cpu")
     with pytest.raises(ServingNotPortedError, match="posterior"):
         serve_sde("latent-sde", latent_mode="posterior", device="cpu")
-    with pytest.raises(ServingNotPortedError, match="ROADMAP"):
-        make_sample_step("sde-gan", None, device="cpu")
+    with pytest.raises(ValueError, match="workload must be one of"):
+        make_sample_step("gan", None, device="cpu")
     with pytest.raises(ServingNotPortedError, match="ROADMAP"):
         serve_cli.main(["--workload", "lm"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_generator_sample_paths_match_jax(dtype):
+    params = gan_params(dtype)
+    with jax_config(x64=dtype == "float64"):
+        jcfg = jax_sde.NeuralSDEConfig(**GAN_WIDTHS, dtype=jnp.dtype(dtype))
+        jkeys = _jax_keys(45, 5)
+        want = np.array(jax.jit(lambda p, k: jax_sde.generator_sample_paths(p, jcfg, k))(
+            params, jkeys))
+        keys = torch.from_numpy(np.asarray(jkeys).astype(np.int64))
+    cfg = sde.NeuralSDEConfig(**GAN_WIDTHS, dtype=TORCH_DTYPES[dtype])
+    got = make_sample_step("sde-gan", cfg, device="cpu")(ckpt.params_from_jax(params), keys)
+    assert got.shape == (9, 5, 1) and got.dtype == TORCH_DTYPES[dtype]
+    torch.testing.assert_close(got, torch.from_numpy(want), **TRAJ_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_generator_fields_match_jax_with_per_row_times(dtype):
+    """``mlp(..., final_activation=tanh)`` over ``tcat(t, x)``: the port's
+    fields take one time per row (the adaptive loop's), the reference's a
+    scalar per vmapped row."""
+    params = gan_params(dtype, seed=53)
+    rng = np.random.default_rng(54)
+    x = rng.standard_normal((4, GAN_WIDTHS["hidden_dim"])).astype(dtype)
+    t = np.array([0.0, 0.3, 0.71, 1.0], dtype)
+    cfg = sde.NeuralSDEConfig(**GAN_WIDTHS, dtype=TORCH_DTYPES[dtype])
+    p = ckpt.params_from_jax(params)
+    got = [f(cfg)(p, torch.from_numpy(t), torch.from_numpy(x))
+           for f in (sde.gen_drift, sde.gen_diffusion)]
+    with jax_config(x64=dtype == "float64"):
+        jcfg = jax_sde.NeuralSDEConfig(**GAN_WIDTHS, dtype=jnp.dtype(dtype))
+        want = [np.array(jax.jit(jax.vmap(lambda tt, xx, f=f: f(jcfg)(params, tt, xx)))(t, x))
+                for f in (jax_sde.gen_drift, jax_sde.gen_diffusion)]
+    assert got[1].shape == (4, GAN_WIDTHS["hidden_dim"], GAN_WIDTHS["noise_dim"])
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, torch.from_numpy(w), **TRAJ_TOL[dtype])
+
+
+def test_sde_gan_samplers_padding_invariance_bitwise():
+    """Both SDE-GAN samplers: a request's rows served in a bucket of 1 (or
+    its own size) equal its rows inside a 16-row coalesced batch, bitwise —
+    the adaptive one with a controller per row."""
+    cfg = sde.NeuralSDEConfig(**GAN_WIDTHS)
+    params = ckpt.params_from_jax(gan_params("float32", seed=51))
+    reqs = list(synthetic_requests(3, 3, 4))
+    paths = make_sample_step("sde-gan", cfg, device="cpu")
+    terminal = make_adaptive_terminal_step(cfg, atol=1e-4, max_steps=64, device="cpu")
+    coalesced = paths(params, _request_keys(reqs, 16, "cpu"))
+    y16, conv16, _ = terminal(params, _request_keys(reqs, 16, "cpu"), 1e-2)
+    row = 0
+    for r in reqs:
+        bucket = next(b for b in serve_buckets(16) if b >= r.size)
+        keys = _request_keys([r], bucket, "cpu")
+        assert torch.equal(paths(params, keys)[:, :r.size], coalesced[:, row:row + r.size])
+        y, conv, _ = terminal(params, keys, 1e-2)
+        assert torch.equal(y[:r.size], y16[row:row + r.size])
+        assert torch.equal(conv[:r.size], conv16[row:row + r.size])
+        row += r.size
+
+
+def test_sde_gan_samplers_padding_invariance_at_1024_rows():
+    """A one-row request in a bucket of 1 equals its row deep inside a
+    1024-row bucket, bitwise, for both SDE-GAN samplers.  There the
+    controller's PI factor runs in the CPU kernels' vector bodies (a small
+    tensor reaches only their scalar tails), where torch.pow rounds
+    differently: this guards the written-out ``core/solve.py:_pow`` (with
+    torch.pow in its place the row takes 34 accepted steps, not 38).  The
+    serving atol and the realtime class's rtol, with the diffusion
+    unscaled, so the PI factor is seldom clipped."""
+    cfg = sde.NeuralSDEConfig(**GAN_WIDTHS)
+    params = ckpt.params_from_jax(gan_params("float32", seed=51, sigma_scale=1.0))
+    others = list(synthetic_requests(20, 64, 7, adaptive=True))
+    one = Request(rid=20, size=1, seed=424242, kind="terminal")
+    row = sum(r.size for r in others)
+    assert 256 < row < 1023
+    big = _request_keys(others + [one], 1024, "cpu")
+    small = _request_keys([one], 1, "cpu")
+    paths = make_sample_step("sde-gan", cfg, device="cpu")
+    assert torch.equal(paths(params, small)[:, 0], paths(params, big)[:, row])
+    terminal = make_adaptive_terminal_step(cfg, atol=1e-6, max_steps=64, device="cpu")
+    y1, c1, s1 = terminal(params, small, 1e-2)
+    y2, c2, s2 = terminal(params, big, 1e-2)
+    assert torch.equal(y1[0], y2[row]) and bool(c1[0]) and bool(c2[row])
+    assert int(s1.num_accepted[0]) == int(s2.num_accepted[row])
+    assert int(s1.num_rejected[0]) == int(s2.num_rejected[row])
+
+
+def test_deadline_classes_and_rtol_routing_match_the_reference():
+    assert [(c.name, c.max_deadline_ms, c.rtol) for c in DEADLINE_CLASSES] == [
+        (c.name, c.max_deadline_ms, c.rtol) for c in jax_types.DEADLINE_CLASSES]
+    for dl in (0.0, 50.0, 50.5, 250.0, 999.0, 1000.0, 5e3, math.inf):
+        assert deadline_class_for(dl).name == jax_types.deadline_class_for(dl).name
+    batches = [[Request(0, 1, 0, deadline_ms=40.0), Request(1, 2, 1, deadline_ms=900.0)],
+               [Request(0, 1, 0, deadline_ms=40.0, rtol=1e-4)],
+               [Request(0, 1, 0)], [Request(0, 1, 0, rtol=5e-3, deadline_ms=200.0)]]
+    for batch in batches:
+        jbatch = [jax_types.Request(r.rid, r.size, r.seed, rtol=r.rtol,
+                                    deadline_ms=r.deadline_ms) for r in batch]
+        assert route_rtol(batch) == jax_types.route_rtol(jbatch)
+    with pytest.raises(ValueError, match="non-empty"):
+        route_rtol([])
+    for adaptive in (False, True):
+        got = synthetic_requests(9, 5, 2, adaptive=adaptive)
+        want = jax_types.synthetic_requests(9, 5, 2, adaptive=adaptive)
+        assert [(r.rid, r.size, r.seed, r.deadline_ms, r.kind) for r in got] == [
+            (r.rid, r.size, r.seed, r.deadline_ms, r.kind) for r in want]
+
+
+def test_jax_written_sde_gan_bundle_is_served_by_the_port_cli(tmp_path, capsys):
+    """A bundle the JAX package wrote serves through the port's CLI on the
+    CPU: fixed-grid rollouts, then adaptive terminal samples routed through
+    all four deadline classes (atol 1e-2 keeps the CPU run short)."""
+    params = gan_params("float32", seed=52)
+    with jax_config():
+        jcfg = jax_sde.NeuralSDEConfig(**GAN_WIDTHS)
+        jax_ckpt.save_serving_bundle(tmp_path, 5, params, "sde-gan", jcfg)
+    restored, cfg, step = restore_for_serving("sde-gan", tmp_path, "cpu")
+    assert step == 5 and cfg == sde.NeuralSDEConfig(**GAN_WIDTHS)
+    assert np.array_equal(restored["sigma"]["layers"][1]["w"].numpy(),
+                          params["sigma"]["layers"][1]["w"])
+    common = ["--workload", "sde-gan", "--ckpt-dir", str(tmp_path), "--device", "cpu",
+              "--max-batch", "4", "--requests", "4", "--request-max", "3"]
+    stats = serve_cli.main(common)
+    assert stats["trajectories"] == sum(r.size for r in synthetic_requests(4, 3, 0))
+    stats = serve_cli.main(common + ["--adaptive", "--atol", "1e-2"])
+    reqs = synthetic_requests(4, 3, 0, adaptive=True)
+    assert stats["classes_served"] == [c.name for c in DEADLINE_CLASSES]
+    assert stats["rtols_served"] == sorted(c.rtol for c in DEADLINE_CLASSES)
+    assert stats["non_converged"] == 0
+    assert sorted((r.rid, r.size, r.rtol) for r in stats["results"]) == sorted(
+        (r.rid, r.size, route_rtol([r])) for r in reqs)
+    assert all(b["iterations"] > 0 for b in stats["batch_log"])
+    assert "class realtime" in capsys.readouterr().out
 
 
 def _request_keys_per_request(requests, pad_to):

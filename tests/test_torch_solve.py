@@ -1,6 +1,7 @@
-"""The port's fixed-grid reversible-Heun solve (repro_torch.core.solve)
-against repro.core.solve, fused against unfused inside the port, and the
-named errors for what the port does not have yet — on the CPU.
+"""The port's reversible-Heun solve (repro_torch.core.solve) against
+repro.core.solve, fused against unfused inside the port, and the named
+errors for what the port does not have yet — on the CPU.  (The adaptive
+loop's own tests are in tests/test_torch_adaptive.py.)
 
 Tolerances: trajectories rtol=2e-5, atol=2e-6 in float32 and rtol=1e-11,
 atol=1e-13 in float64.  The float64 bound holds for draws inside |z| < 3.3
@@ -101,7 +102,7 @@ def _solve(**kw):
     (dict(gradient_mode="continuous_adjoint"), NotPortedError, "not ported"),
     (dict(gradient_mode="checkpoint"), NotPortedError, "not ported"),
     (dict(gradient_mode="bogus"), ValueError, "unknown gradient_mode"),
-    (dict(adaptive=True), NotPortedError, "adaptive"),
+    (dict(adaptive=True), ValueError, "save_trajectory"),
     (dict(rtol=1e-3), ValueError, "adaptive-mode options"),
     (dict(precision="bf16_compute"), NotImplementedError, "bf16_compute"),
     (dict(noise="general", use_pallas_kernels=True), ValueError, "diagonal noise"),
@@ -123,3 +124,37 @@ def test_gradients_point_at_the_training_slice():
                 gradient_mode="reversible_adjoint")
     (g,) = torch.autograd.grad(out.square().sum(), w)
     assert g.shape == w.shape and torch.isfinite(g).all() and g.abs().max() > 0
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(save_trajectory=True), "save_trajectory"),
+    (dict(bridge_depth=0), "bridge_depth must be a positive int"),
+    (dict(gradient_mode="discretise", use_pallas_kernels=True), "incompatible"),
+])
+def test_adaptive_option_errors_are_eager_and_named(kw, match):
+    args = dict(adaptive=True, save_trajectory=False)
+    args.update(kw)
+    with pytest.raises(ValueError, match=match):
+        _solve(**args)
+
+
+def test_adaptive_terminal_value_matches_jax():
+    """``solve(..., adaptive=True)`` returns the adaptive terminal value of
+    the reference (float64, bridge depth 10; tests/test_torch_adaptive.py
+    holds the controller's counts and grid).  Tolerance rtol 1e-9, atol
+    1e-10: the two accepted grids differ by ulps of dt, which the
+    controller amplifies step by step (ROADMAP.md Queue 3)."""
+    params = _params("float64", seed=38)
+    z0 = 0.5 * np.random.default_rng(39).standard_normal((3, D))
+    words = key_words(40, 1)[0]
+    kw = dict(gradient_mode="reversible_adjoint", save_trajectory=False, adaptive=True,
+              rtol=1e-2, atol=1e-4, bridge_depth=10)
+    bm = BrownianPath(torch_keys(words), 0.0, 1.0, (3, D), torch.float64)
+    got = solve(*_torch_fields(), params_from_jax(params), torch.from_numpy(z0), bm, 0.0,
+                1.0, STEPS, **kw)
+    with jax_config(x64=True):
+        jbm = JaxBrownianPath(jnp.asarray(words), 0.0, 1.0, (3, D), jnp.float64)
+        want = jax.jit(lambda p, z: jax_solve(*_jax_fields(), p, z, jbm, 0.0, 1.0, STEPS,
+                                              **kw))(params, z0)
+    assert got.shape == (3, D) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, torch.from_numpy(np.array(want)), rtol=1e-9, atol=1e-10)
