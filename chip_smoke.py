@@ -68,18 +68,46 @@ non-zero and the final result line is never printed):
    A attempts and N accepted steps); fused ≡ unfused bitwise; float64
    exact vs autograd through the frozen accepted grid (≤1e-12 relative);
    peak memory of both at rtol 2e-3 and 2e-4.
-12. Prints a ``{"kernels": [...]}`` JSON line (``launches``: the count on
-   the path each kernel was ported for — training, or the adaptive
-   gradient for ``brownian_value``; ``adaptive_launches``: the fused
-   adaptive gradient's; ``serve_launches``: the Latent-SDE service's, or
-   the adaptive service's for ``brownian_value``) and, last, the result
-   line ``{"ok": true, "device": {...}}``.
+12. ``flash_attention`` (the LM prefill's GQA attention) against its plain
+   version on the card, the same float scale 1/sqrt(D) given to both:
+   float32 (rtol = atol = 2e-5) and bfloat16 (6e-2), causal and full, at
+   (B, Hq, Hkv, S, D) in ATTN_SHAPES (qwen2.5-14b's prefill, a short and a
+   ragged prompt, tinyllama's group-8 D = 64, S = 1 with one KV head).
+   Timed at the prefill shape (bf16, causal) beside the plain version,
+   its bound and ``scaled_dot_product_attention`` (the library yardstick,
+   called nowhere in the port).
+13. LM parity, float32, full width at two layers (qwen2.5-14b with
+   ``num_layers=2``): B = 2, S = 512 prefill and 8 greedy decode steps,
+   through the kernel and with every attention on the plain version: the
+   prefill logits within LM_LOGIT_RTOL of the largest logit, the tokens
+   equal, ``flash_attention`` launched twice per prefill and never in
+   decode.
+14. LM serving, bfloat16, the full qwen2.5-14b (48 layers, 14.77 B
+   parameters, random weights drawn on the card): ``serve_lm`` at B = 4,
+   prompt 2048, 16 tokens, then at the CLI's shapes (prompt 32), and the
+   CLI itself (``--workload lm``, the smoke config).  Counts zeroed just
+   before and read just after each: ``flash_attention`` must launch once
+   per layer of the prefill and never in decode.  Peak memory, a profile
+   of one prefill (the kernel's share), and the full-depth prefill on the
+   plain attention: max |Δ| of the last-position logits and first-token
+   agreement (asserted finite only; phase 13 is the assertion).  A profile
+   of one decode step against the 2064-slot cache (device busy and idle
+   share).
+15. Prints a ``{"kernels": [...]}`` JSON line (``launches``: the count on
+   the path each kernel was ported for — training, the adaptive gradient
+   for ``brownian_value``, the 2048-token LM serve for
+   ``flash_attention``; ``adaptive_launches``: the fused adaptive
+   gradient's; ``serve_launches``: the Latent-SDE service's, the adaptive
+   service's for ``brownian_value``, the LM serve's for
+   ``flash_attention``) and, last, the result line ``{"ok": true,
+   "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -98,7 +126,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # HBM 3.35 TB/s; float32 outside the tensor cores 67 TFLOP/s.  Integer ops
 # are counted at the float32 rate; float64 outside the tensor cores 34 TFLOP/s.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
+PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12,
+                  torch.bfloat16: 989e12}  # bf16: dense tensor cores
 # Operation counts the bound assumes (minimal work, see bound()).
 HASH_OPS = 120          # one Threefry-2x32 hash: 20 rounds of add/rotate/xor + keys
 NORMAL_OPS = {torch.float32: 50, torch.float64: 75}  # bits->uniform->erf_inv->scale
@@ -124,7 +153,25 @@ KERNEL_SOURCES = {
     "rev_heun_bwd_phase2": (CSRC, "src/repro/kernels/reversible_heun_step.py:180"),
     "brownian_increment": (CSRC, "src/repro/kernels/brownian.py:71"),
     "rev_heun_phase1_gen": (CSRC, "src/repro/kernels/brownian.py:132"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:67"),
 }
+# flash_attention checks, (B, Hq, Hkv, S, D): qwen2.5-14b's prefill and a
+# short prompt, a ragged S, tinyllama's group 8 at D = 64, S = 1 with MQA.
+ATTN_SHAPES = [(4, 40, 8, 2048, 128), (4, 40, 8, 32, 128), (1, 40, 8, 1000, 128),
+               (2, 32, 4, 777, 64), (1, 4, 1, 1, 128)]
+ATTN_PREFILL = ATTN_SHAPES[0]
+# the JAX package's kernel-suite tolerances (tests/test_kernels.py:18-21):
+# the kernel's online softmax sums in another order than the plain softmax.
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 6e-2}
+LM_ARCH = "qwen2.5-14b"
+# LM parity (f32, two layers): the attention outputs agree to ~1e-6 relative
+# (f32 sums in two orders); the GEMMs and the 152064-wide head after it keep
+# that relative size, so the logits may differ by a small multiple of 1e-6
+# of the largest logit; 1e-4 leaves room for the card's GEMM order.
+LM_LOGIT_RTOL = 1e-4
+LM_PARITY = dict(batch=2, prompt_len=512, gen=8)
+LM_SERVE = dict(batch=4, prompt_len=2048, gen=16)
 SERVE_KERNELS = ("rev_heun_phase1_gen", "rev_heun_phase2", "brownian_increment")
 # Launches of one fused ELBO step at 23 solver steps: forward 23 x (phase1_gen,
 # phase2); backward 23 x (brownian_increment, phase1 x2, phase2, bwd_phase1,
@@ -251,7 +298,8 @@ def kernel_checks(ops, dev) -> tuple:
     main paths' shapes.  Returns ``{(name, dtype, B, d): row}`` timings and
     ``{name: max |Δ|}``."""
     g = torch.Generator().manual_seed(1234)
-    errs = {name: 0.0 for name in KERNEL_SOURCES if name != "brownian_value"}
+    errs = {name: 0.0 for name in KERNEL_SOURCES
+            if name not in ("brownian_value", "flash_attention")}
     # (rows, d): small and serving shapes, the training state, and the
     # training path's one-key draws (one row of B*17: a BrownianPath with a
     # single key over the (B, 17) state).
@@ -861,6 +909,228 @@ def adaptive_grad_checks(ops, dev, label: str) -> dict:
     return counts
 
 
+def attention_bound(B: int, Hq: int, Hkv: int, S: int, D: int, dtype,
+                    causal: bool = True) -> tuple:
+    """Least time for one attention call: Q, K, V read and O written once
+    against 4·D flops per (query, key) pair the mask keeps (QKᵀ and PV),
+    over HBM bandwidth and the dtype's peak; -> (ms, 'bytes'|'operations')."""
+    s = torch.finfo(dtype).bits // 8
+    pairs = S * (S + 1) // 2 if causal else S * S
+    t_ops = 4 * B * Hq * D * pairs / PEAK_OPS_PER_S[dtype] * 1e3
+    t_bytes = 2 * (Hq + Hkv) * B * S * D * s / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _qkv(g, dev, dtype, B, Hq, Hkv, S, D):
+    return tuple(torch.randn(B, h, S, D, generator=g, device=dev, dtype=dtype)
+                 for h in (Hq, Hkv, Hkv))
+
+
+def attention_checks(ops, dev) -> tuple:
+    """Phase 12: flash_attention against its plain version at ATTN_SHAPES,
+    then timed at the prefill shape.  Returns (timing row, max |Δ|)."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, Hq, Hkv, S, D in ATTN_SHAPES:
+            q, k, v = _qkv(g, dev, dtype, B, Hq, Hkv, S, D)
+            for causal in (True, False):
+                got = ops.flash_attention(q, k, v, causal=causal)
+                want = ops.flash_attention(q, k, v, causal=causal, scale=1 / math.sqrt(D),
+                                           use_kernel=False)
+                torch.cuda.synchronize()
+                tol = ATTN_TOL[dtype]
+                d = (got.float() - want.float()).abs().max().item()
+                check(got.dtype == dtype and got.shape == q.shape
+                      and torch.isfinite(got.float()).all().item()
+                      and torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+                      f"flash_attention {dtype} {(B, Hq, Hkv, S, D)} causal={causal}: "
+                      f"kernel != plain (max |Δ| {d}, tolerance {tol})")
+                err = max(err, d)
+                print(f"flash_attention {str(dtype)[6:]:8s} {(B, Hq, Hkv, S, D)} "
+                      f"causal={causal!s:5s}: max |Δ| {d:.3g} (tol {tol})", flush=True)
+            del q, k, v, got, want
+    torch.cuda.empty_cache()
+
+    B, Hq, Hkv, S, D = ATTN_PREFILL
+    q, k, v = _qkv(g, dev, torch.bfloat16, B, Hq, Hkv, S, D)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_out = sdpa(q, k, v, is_causal=True, enable_gqa=True)
+    d_lib = (ops.flash_attention(q, k, v).float() - lib_out.float()).abs().max().item()
+    k_ms, k_host = time_ms(lambda: ops.flash_attention(q, k, v), reps=10, trials=5)
+    p_ms, p_host = time_ms(lambda: ops.flash_attention(q, k, v, use_kernel=False),
+                           reps=3, trials=3)
+    l_ms, l_host = time_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
+                           reps=20, trials=5)
+    b_ms, b_by = attention_bound(B, Hq, Hkv, S, D, torch.bfloat16)
+    print(f"flash_attention bf16 causal {(B, Hq, Hkv, S, D)}: kernel {k_ms:.4f} ms "
+          f"(host {k_host:.4f}), plain {p_ms:.4f} ms (host {p_host:.4f}), "
+          f"SDPA {l_ms:.4f} ms (host {l_host:.4f}), bound {b_ms:.4f} ms ({b_by}); "
+          f"kernel vs SDPA max |Δ| {d_lib:.3g}", flush=True)
+    del q, k, v, lib_out
+    torch.cuda.empty_cache()
+    row = dict(ms=k_ms, plain_ms=p_ms, host_ms=k_host, plain_host_ms=p_host, bound_ms=b_ms,
+               bound_by=b_by, library_ms=l_ms)
+    return row, err
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Route every LM attention through the plain version (use_kernel=False)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers
+
+    dispatch = layers._attend_dispatch
+    layers._attend_dispatch = lambda cfg, q, k, v, causal: ops.flash_attention(
+        q.contiguous(), k.contiguous(), v.contiguous(), causal=causal, use_kernel=False)
+    try:
+        yield
+    finally:
+        layers._attend_dispatch = dispatch
+
+
+def _greedy(cfg, params, prompts, gen: int) -> tuple:
+    """Prefill, then ``gen`` greedy decode steps -> (prefill logits, tokens,
+    flash_attention launches in the prefill, in the decode)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import greedy_sample, make_prefill_step, make_serve_step
+
+    S = prompts.shape[1]
+    ops.reset_launch_counts()
+    logits, caches = make_prefill_step(cfg, max_len=S + gen)(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    n_prefill = ops.launch_counts()["flash_attention"]
+    decode = make_serve_step(cfg)
+    token = greedy_sample(logits)
+    tokens = [token]
+    for i in range(gen):
+        step_logits, caches = decode(params, caches, token, S + i)
+        token = greedy_sample(step_logits)
+        tokens.append(token)
+    torch.cuda.synchronize()
+    n_decode = ops.launch_counts()["flash_attention"] - n_prefill
+    return logits.float(), torch.cat(tokens, 1), n_prefill, n_decode
+
+
+def lm_parity_checks(dev, label: str) -> None:
+    """Phase 13: float32 LM at full width and two layers, kernel vs plain."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import lm_prompts
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=2, dtype=torch.float32)
+    params = T.init_lm(torch.Generator(device=dev).manual_seed(31), cfg, device=dev)
+    B, S, gen = LM_PARITY["batch"], LM_PARITY["prompt_len"], LM_PARITY["gen"]
+    prompts = lm_prompts(31, B, S, cfg.vocab).to(dev)
+    kernel = _greedy(cfg, params, prompts, gen)
+    with plain_attention():
+        plain = _greedy(cfg, params, prompts, gen)
+    check(kernel[2:] == (2, 0), f"LM parity: flash_attention launched {kernel[2]} times in "
+          f"the prefill and {kernel[3]} in decode (want 2, 0)")
+    check(plain[2:] == (0, 0), f"LM parity: the plain run launched {plain[2:]}")
+    check(torch.isfinite(kernel[0]).all().item(), "LM parity: non-finite logits")
+    diff = (kernel[0] - plain[0]).abs().max().item()
+    top = plain[0].abs().max().item()
+    check(diff <= LM_LOGIT_RTOL * top, f"LM parity: prefill logits differ by {diff} "
+          f"(largest logit {top}, tolerance {LM_LOGIT_RTOL} of it)")
+    check(torch.equal(kernel[1], plain[1]), f"LM parity: greedy tokens differ "
+          f"{kernel[1].tolist()} vs {plain[1].tolist()}")
+    print(f"[{label}] LM parity ({LM_ARCH}, float32, 2 layers, B={B}, S={S}): prefill "
+          f"logits max |Δ| {diff:.3g} (largest logit {top:.3g}; {diff / top:.3g} relative, "
+          f"tolerance {LM_LOGIT_RTOL}); {gen + 1} greedy tokens equal on every row; "
+          f"flash_attention launches: {kernel[2]} per prefill, {kernel[3]} in decode",
+          flush=True)
+    del params
+    torch.cuda.empty_cache()
+
+
+def lm_serve_checks(ops, dev, label: str) -> dict:
+    """Phase 14: the full qwen2.5-14b in bfloat16 served through serve_lm."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch.steps import greedy_sample, make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as T
+    from repro_torch.models.counting import param_count
+
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = T.init_lm(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    torch.cuda.synchronize()
+    from repro_torch import tree
+
+    leaves = tree.leaves(params)
+    n_params = sum(a.numel() for a in leaves)
+    w_bytes = sum(a.numel() * a.element_size() for a in leaves)
+    check(n_params == param_count(cfg), f"{n_params} parameters, param_count "
+          f"{param_count(cfg)}")
+    B, S, gen = LM_SERVE["batch"], LM_SERVE["prompt_len"], LM_SERVE["gen"]
+    kv_bytes = 2 * cfg.num_layers * B * (S + gen) * cfg.num_kv_heads * cfg.head_dim * 2
+    print(f"[{label}] {LM_ARCH} (bf16, {cfg.num_layers} layers): {n_params} parameters "
+          f"(= param_count), weights {w_bytes / 1e9:.3f} GB drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s; KV cache at B={B}, {S}+{gen} slots "
+          f"{kv_bytes / 1e9:.3f} GB", flush=True)
+
+    launches = {}
+    for b, s, g in ((B, S, gen), (4, 32, 16)):
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        tokens = serve_cli.serve_lm(LM_ARCH, b, s, g, smoke=False, params=params)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        launches[s] = counts["flash_attention"]
+        check(counts["flash_attention"] == cfg.num_layers,
+              f"serve_lm prompt {s}: flash_attention launched {counts['flash_attention']} "
+              f"times, want {cfg.num_layers} (one per prefill layer, none in decode)")
+        check(tokens.shape == (b, g) and tokens.dtype == torch.int32
+              and 0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab,
+              f"serve_lm prompt {s}: bad tokens {tuple(tokens.shape)} {tokens.dtype}")
+        print(f"[{label}] serve_lm B={b} prompt {s} gen {g}: peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; flash_attention "
+              f"launches {counts['flash_attention']} (prefill {cfg.num_layers}, decode 0)",
+              flush=True)
+    ops.reset_launch_counts()
+    smoke_tokens = serve_cli.main(["--workload", "lm"])
+    torch.cuda.synchronize()
+    check(ops.launch_counts()["flash_attention"] == 2 and smoke_tokens.shape == (4, 16),
+          f"the CLI (--workload lm, smoke config): {ops.launch_counts()['flash_attention']} "
+          f"launches, tokens {tuple(smoke_tokens.shape)}")
+
+    from repro_torch.launch.serve import lm_prompts
+
+    prompts = lm_prompts(0, B, S, cfg.vocab).to(dev)
+    prefill = make_prefill_step(cfg, max_len=S + gen)
+    prof = profile_call(lambda: prefill(params, {"tokens": prompts}),
+                        f"{label}] [prefill B={B} S={S}")
+    attn_ms = sum(ms for name, ms in prof["by_name"].items() if "flash_attention" in name)
+    if prof["busy_ms"]:
+        print(f"[{label}] prefill: flash_attention {attn_ms:.3f} ms of {prof['busy_ms']:.3f} "
+              f"ms device busy ({attn_ms / prof['busy_ms']:.3f}) and of "
+              f"{prof['wall_ms']:.3f} ms wall ({attn_ms / prof['wall_ms']:.3f})", flush=True)
+
+    logits, caches = prefill(params, {"tokens": prompts})
+    decode, token = make_serve_step(cfg), greedy_sample(logits)
+    profile_call(lambda: decode(params, caches, token, S),
+                 f"{label}] [decode step B={B}, cache {S + gen} slots")
+    del caches
+    with plain_attention():
+        t0 = time.perf_counter()
+        plain, _ = prefill(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    logits, plain = logits.float(), plain.float()
+    check(torch.isfinite(logits).all().item() and torch.isfinite(plain).all().item(),
+          "full-depth prefill: non-finite logits")
+    diff = (logits - plain).abs().max().item()
+    agree = (logits.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    print(f"[{label}] full-depth bf16 prefill, kernel vs plain attention ({plain_s * 1e3:.1f}"
+          f" ms plain): last-position logits max |Δ| {diff:.4g} (largest "
+          f"{plain.abs().max().item():.4g}); first-token agreement {agree:.3f} over {B} rows",
+          flush=True)
+    del params, logits, plain
+    torch.cuda.empty_cache()
+    return dict(launches=launches[S])
+
+
 def _device_us(evt) -> float:
     return getattr(evt, "self_device_time_total", None) or getattr(
         evt, "self_cuda_time_total", 0.0)
@@ -897,13 +1167,15 @@ def profile_call(fn, label: str) -> None:
     if not events:
         print(f"[{label}: wall {wall_ms:.3f} ms; device busy time not measured (the "
               f"profiler recorded no device events)", flush=True)
-        return
+        return dict(wall_ms=wall_ms, busy_ms=None, by_name={})
     top = sorted(events, key=_device_us, reverse=True)[:6]
     print(f"[{label}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
           f"({sum(e.count for e in events)} device kernels and copies), idle share "
           f"{1 - busy_ms / wall_ms:.3f}", flush=True)
     for e in top:
         print(f"    {_device_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}", flush=True)
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                by_name={e.key: _device_us(e) / 1e3 for e in events})
 
 
 def _to_device(tree, device):
@@ -942,12 +1214,19 @@ def main() -> int:
     serve = serve_checks(ops, dev, label)
     adaptive_serve = serve_adaptive_checks(ops, dev, label)
     adaptive_launches = adaptive_grad_checks(ops, dev, label)
+    attn_row, errs["flash_attention"] = attention_checks(ops, dev)
+    lm_parity_checks(dev, label)
+    lm_serve = lm_serve_checks(ops, dev, label)
 
-    print(f"kernels: {', '.join(KERNEL_SOURCES)} (route cuda, bitwise = plain; "
-          f"decodes: {serve['decodes']})", flush=True)
+    print(f"kernels: {', '.join(KERNEL_SOURCES)} (route cuda; bitwise = plain except "
+          f"flash_attention, within {ATTN_TOL}; decodes: {serve['decodes']})", flush=True)
     entries = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
-        if name == "brownian_value":  # timed at the adaptive gradient's shape
+        if name == "flash_attention":  # timed at the prefill shape, bf16 causal
+            r = attn_row
+            launches = serve_launches = lm_serve["launches"]
+            extra = {}
+        elif name == "brownian_value":  # timed at the adaptive gradient's shape
             r = value_rows["grad"]
             launches = adaptive_launches[name]
             serve_launches = adaptive_serve["launches"][name]
@@ -962,9 +1241,9 @@ def main() -> int:
         entries.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches, "max_abs_err": errs[name],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": None,
+                        "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
                         "host_ms": r["host_ms"], "plain_host_ms": r["plain_host_ms"],
-                        "adaptive_launches": adaptive_launches[name],
+                        "adaptive_launches": adaptive_launches.get(name, 0),
                         "serve_launches": serve_launches, **extra})
     print(json.dumps({"kernels": entries}), flush=True)
     print(f"card: {label}", flush=True)

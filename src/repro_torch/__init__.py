@@ -6,9 +6,10 @@ The port imports ``torch`` and numpy only: nothing of JAX and nothing of
 ``repro``.
 
 What is ported so far — Latent-SDE ELBO training (the exact reversible
-adjoint), the prior-decode serving path, and adaptive stepping (the PI
+adjoint), the prior-decode serving path, adaptive stepping (the PI
 controller loop, the exact adjoint over the accepted grid, the SDE-GAN generator's
-fixed-grid and adaptive terminal services):
+fixed-grid and adaptive terminal services), and the dense transformer LM's
+serving (prefill through the GQA attention kernel, greedy decode):
 
 =====================================  ======================================
 port module                            reference
@@ -19,9 +20,17 @@ repro_torch.kernels.ref                repro.kernels.ref (plain versions)
 repro_torch.kernels.csrc/*             the Pallas kernels rev_heun_phase1,
                                        rev_heun_phase2, rev_heun_bwd_phase1,
                                        rev_heun_bwd_phase2, rev_heun_phase1_gen,
-                                       brownian_increment, brownian_value
+                                       brownian_increment, brownian_value,
+                                       flash_attention
 repro_torch.kernels.ops                repro.kernels.ops (dispatch)
-repro_torch.nn.core                    repro.nn.core (MLP pieces, GRU)
+repro_torch.nn.core                    repro.nn.core (MLP pieces, GRU,
+                                       rmsnorm, layernorm, gelu)
+repro_torch.configs                    repro.configs (ArchConfig; the dense
+                                       qwen2.5-14b, tinyllama-1.1b,
+                                       starcoder2-3b)
+repro_torch.models                     repro.models (layers, transformer,
+                                       counting: the dense family's
+                                       prefill and decode)
 repro_torch.core.brownian              repro.core.brownian (BrownianPath:
                                        grid increments, bridge point values)
 repro_torch.core.solvers               repro.core.solvers (reversible Heun:
@@ -41,7 +50,7 @@ repro_torch.checkpoint                 repro.checkpoint (bundles)
 repro_torch.serving / launch           repro.serving / repro.launch (drain
                                        loops incl. adaptive terminal
                                        sampling, serve and train CLIs, step
-                                       factories)
+                                       factories, serve_lm)
 =====================================  ======================================
 
 ROADMAP.md lists what is still to port, in order.

@@ -1,0 +1,65 @@
+"""Architecture registry (port of :mod:`repro.configs`): ``--arch <id>``
+resolution and the reduced smoke configs.
+
+The port has the dense family: qwen2.5-14b, tinyllama-1.1b and
+starcoder2-3b.  The other seven architectures of the reference raise
+:class:`ArchNotPortedError` naming the ROADMAP.md item that ports them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from . import qwen2_5_14b, starcoder2_3b, tinyllama_1_1b
+from .base import ArchConfig
+
+REGISTRY = {m.CONFIG.name: m.CONFIG for m in (qwen2_5_14b, starcoder2_3b, tinyllama_1_1b)}
+
+#: The reference's architectures the port does not have yet, by family.
+NOT_PORTED = {
+    "dbrx-132b": "moe", "grok-1-314b": "moe", "minicpm3-4b": "mla",
+    "mamba2-1.3b": "ssm", "jamba-v0.1-52b": "hybrid",
+    "seamless-m4t-medium": "encdec", "pixtral-12b": "vlm",
+}
+
+ARCH_NAMES = sorted(REGISTRY)
+
+
+class ArchNotPortedError(NotImplementedError):
+    """An architecture of the reference whose family the port lacks."""
+
+
+def get_config(name: str) -> ArchConfig:
+    if name in NOT_PORTED:
+        raise ArchNotPortedError(
+            f"arch {name!r} ({NOT_PORTED[name]} family) is not ported yet: the port "
+            f"has the dense family {ARCH_NAMES} — ROADMAP.md Queue 1, item 14")
+    if name not in REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
+    return REGISTRY[name]
+
+
+def smoke_config(name: str) -> ArchConfig:
+    """Reduced same-family config for CPU tests: small layers/width, tiny
+    vocab, float32 — the reference's ``smoke_config`` field for field."""
+    cfg = get_config(name)
+    updates = dict(
+        num_layers=max(2, cfg.attn_every or 2) if cfg.family == "hybrid" else 2,
+        d_model=64,
+        num_heads=4,
+        num_kv_heads=max(1, min(cfg.num_kv_heads, 2)) if cfg.num_kv_heads < cfg.num_heads else 4,
+        head_dim=16,
+        d_ff=0 if cfg.ssm and cfg.family == "ssm" else 128,
+        vocab=256,
+        dtype=torch.float32,
+        frontend_len=8 if cfg.frontend else 0,
+        scan_layers=False,
+        remat=False,
+    )
+    return dataclasses.replace(cfg, **updates)
+
+
+__all__ = ["REGISTRY", "ARCH_NAMES", "NOT_PORTED", "ArchConfig", "ArchNotPortedError",
+           "get_config", "smoke_config"]

@@ -1,13 +1,16 @@
 """Build and load the port's CUDA kernels from the sources in the checkout.
 
-``nvcc`` compiles ``csrc/*.cu`` into one shared library with a plain C
-interface at first use, and :mod:`ctypes` loads it.  The sources include no
+``nvcc`` compiles each ``csrc/*.cu`` to an object, all sources at once in
+parallel processes, and links them into one shared library with a plain C
+interface at first use; :mod:`ctypes` loads it.  The sources include no
 PyTorch header, so the build takes seconds rather than the minutes a
 ``torch/extension.h`` translation unit takes; the wrappers pass pointers
 from ``Tensor.data_ptr()`` and PyTorch's current stream.
 
 Flags: ``-gencode=arch=compute_90a,code=sm_90a`` (Hopper) and
-``-fmad=false``; no ``--use_fast_math``, so ``sqrt``/``log1p`` stay IEEE.
+``-fmad=false`` (the bitwise contract of ``rev_heun.cu``; the attention
+kernel spells its multiply-adds as ``__fmaf_rn``); no ``--use_fast_math``,
+so ``sqrt``/``log1p``/``exp`` stay IEEE.
 The library lands in ``kernels/_build/`` (listed in .gitignore) under a
 name hashed from the sources and flags, so an edited source rebuilds and
 concurrent processes never load a half-written file.
@@ -32,8 +35,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-fmad=false", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAG = "-gencode=arch=compute_90a,code=sm_90a"
+NVCC_FLAGS = (ARCH_FLAG, "-fmad=false", "-O3", "-std=c++17", "-Xcompiler", "-fPIC")
 
 _P, _I, _I64, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
 #: C signature of every entry point (all return cudaGetLastError()).
@@ -46,6 +49,7 @@ SIGNATURES = {
     "rt_rev_heun_phase2": (_I, _P, _P, _P, _P, _P, _P, _D, _D, _P, _I64, _P),
     "rt_rev_heun_bwd_phase1": (_I, _P, _P, _P, _P, _D, _P, _P, _I64, _P),
     "rt_rev_heun_bwd_phase2": (_I, _P, _P, _P, _D, _P, _P, _P, _P, _I64, _P),
+    "rt_flash_attention": (_I, _I, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _D, _P),
 }
 
 _lock = threading.Lock()
@@ -85,26 +89,34 @@ def library_path() -> Path:
     return BUILD_DIR / f"repro_torch_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Run the commands in parallel processes; raise on the first failure."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True)) for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
+    if failed:
+        raise KernelBuildError("\n".join(failed))
+
+
 def build() -> Path:
     """Compile the kernels unless the hashed library exists; return its path."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise KernelBuildError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        sources = sorted(CSRC.glob("*.cu"))
+        objs = [os.path.join(tmp, p.stem + ".o") for p in sources]
+        _run_all([[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", o, str(p)]
+                  for p, o in zip(sources, objs)])
+        lib = os.path.join(tmp, out.name)
+        _run_all([[nvcc, ARCH_FLAG, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)
     return out
 
 

@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 
 from . import brownian as _bk
+from . import flash_attention as _fa
 from . import ref
 from . import reversible_heun_step as _rh
 
@@ -90,12 +91,22 @@ def brownian_value(key, t, t0, t1, shape, dtype, depth: int = 24,
                               depth)
 
 
+def flash_attention(q, k, v, causal: bool = True, scale: Optional[float] = None,
+                    use_kernel: Optional[bool] = None):
+    """GQA attention: q ``(B, Hq, S, D)``, k and v ``(B, Hkv, S, D)``.  The
+    default scale differs between the two versions exactly as between the
+    Pallas kernel and ``ref.py`` (see :func:`ref.flash_attention`)."""
+    if _decide("flash_attention", q, use_kernel):
+        return _fa.flash_attention(q, k, v, causal=causal, scale=scale)
+    return ref.flash_attention(q, k, v, causal=causal, scale=scale)
+
+
 def launch_counts() -> dict:
     """Kernel launches by name since the last :func:`reset_launch_counts`."""
-    return {**_rh.LAUNCHES, **_bk.LAUNCHES}
+    return {**_rh.LAUNCHES, **_bk.LAUNCHES, **_fa.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
-    for table in (_rh.LAUNCHES, _bk.LAUNCHES):
+    for table in (_rh.LAUNCHES, _bk.LAUNCHES, _fa.LAUNCHES):
         for name in table:
             table[name] = 0

@@ -1,9 +1,11 @@
 """Plain PyTorch versions of the ported kernels (port of
 :mod:`repro.kernels.ref`).
 
-Each function is the definition the CUDA kernel in ``csrc/rev_heun.cu``
-computes, with the same op order, so the two agree bitwise on the card
-(chip_smoke.py checks it).  On the CPU, :mod:`repro_torch.kernels.ops`
+Each function but :func:`flash_attention` is the definition the CUDA
+kernel in ``csrc/rev_heun.cu`` computes, with the same op order, so the two
+agree bitwise on the card (chip_smoke.py checks it).  The attention kernel
+(``csrc/flash_attention.cu``) sums in another order and is held to a
+tolerance.  On the CPU, :mod:`repro_torch.kernels.ops`
 runs these instead of the kernels; with a card they run only when a caller
 asks for them with ``use_kernel=False``.
 
@@ -13,6 +15,8 @@ kernels receive it.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -120,3 +124,29 @@ def brownian_value(k1, k2, t, t0: float, t1: float, shape, dtype, depth: int = 2
         wa, wb = torch.where(left, wa, wm), torch.where(left, wm, wb)
     frac = torch.clamp((t - a) / torch.clamp(b - a, min=torch.finfo(dtype).tiny), 0.0, 1.0)
     return wa + frac.reshape(lead) * (wb - wa)
+
+
+def flash_attention(q, k, v, causal: bool = True, scale=None):
+    """GQA attention, the reference's definition (``repro.kernels.ref.
+    flash_attention``) op for op: q ``(B, Hq, S, D)``; k, v ``(B, Hkv, S,
+    D)``, Hq % Hkv == 0.
+
+    K and V are repeated to the query heads; scores in the input dtype, then
+    ``.float() * scale``; a ``-inf`` causal mask; softmax; P cast back to the
+    input dtype; then P·V.  The default scale is ``1/sqrt(D)`` rounded to the
+    input dtype, as ``ref.py`` rounds it (0.08837890625 in bf16 at D = 128);
+    the CUDA kernel, like the Pallas kernel, takes the float ``1/sqrt(D)``.
+    """
+    D = q.shape[-1]
+    group = q.shape[1] // k.shape[1]
+    if scale is None:
+        scale = 1.0 / torch.sqrt(torch.tensor(float(D))).to(q.dtype)
+    kk = k.repeat_interleave(group, dim=1)
+    vv = v.repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, kk).float() * scale
+    if causal:
+        S = q.shape[2]
+        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~mask, -math.inf)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vv)

@@ -1,4 +1,5 @@
-"""Neural-SDE serving CLI (port of :mod:`repro.launch.serve`).
+"""Serving CLI (port of :mod:`repro.launch.serve`): the Neural-SDE services
+and the transformer LM's prefill + greedy-decode loop.
 
 Usage::
 
@@ -8,22 +9,94 @@ Usage::
         --atol 1e-6                         # terminal samples, deadline-routed rtol
     PYTHONPATH=src python -m repro_torch.launch.serve --workload latent-sde \\
         --ckpt-dir /path/to/ckpt            # a JAX- or port-written bundle
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \\
+        --arch qwen2.5-14b --batch 4 --prompt-len 32 --gen 16   # smoke config
     PYTHONPATH=src python -m repro_torch.launch.serve --workload latent-sde \\
         --device cpu                        # plain PyTorch versions, no card
 
 Serves on the card by default; with no card and no ``--device cpu`` it
 stops with a named error.  ``--adaptive`` serves SDE-GAN terminal samples,
-each batch at the tolerance its deadline class admits.  Other workloads
-and modes of the reference CLI raise a named error pointing at
-ROADMAP.md.
+each batch at the tolerance its deadline class admits.  ``--workload lm``
+serves the dense family (qwen2.5-14b, tinyllama-1.1b, starcoder2-3b) at
+their smoke size unless ``--full`` is given, as the reference's flags read.
+Still unported, each with a named error pointing at ROADMAP.md: the other
+LM families (MoE, MLA, SSM, hybrid, encoder-decoder, VLM), the Latent
+SDE's posterior decode, streaming, and the continuous-batching scheduler.
 """
 
 from __future__ import annotations
 
 import argparse
+import time
 
+import torch
+
+from ..device import resolve_device
 from ..serving import serve_sde
 from .steps import SERVE_WORKLOADS
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def lm_prompts(seed: int, batch: int, prompt_len: int, vocab: int) -> torch.Tensor:
+    """The reference's prompts, bitwise: ``jax.random.randint(fold_in(
+    PRNGKey(seed), 1), (batch, prompt_len), 0, vocab)`` (int32, the
+    ``jax_threefry_partitionable=False`` layout)."""
+    from ..kernels import prng
+
+    key = prng.fold_in_key(prng.PRNGKey(seed), 1)
+    return prng.randint(key, batch * prompt_len, 0, vocab).reshape(batch, prompt_len)
+
+
+def serve_lm(arch: str, batch: int, prompt_len: int, gen: int, smoke: bool = True,
+             seed: int = 0, device=None, params=None):
+    """Prefill + greedy decode of a dense transformer LM; returns the
+    generated tokens, int32 ``(batch, gen)``.
+
+    Fresh weights come from a generator seeded with ``seed`` on the serving
+    device, unless ``params`` are given (weights carried across from JAX,
+    or one model served at several shapes).  The prompts are the
+    reference's (:func:`lm_prompts`).  The cache holds ``prompt_len + gen``
+    slots.  Prints the prefill time and the decode rate, each timed between
+    device synchronisations."""
+    from ..configs import get_config, smoke_config
+    from ..models import transformer as T
+    from .steps import greedy_sample, make_prefill_step, make_serve_step
+
+    cfg = smoke_config(arch) if smoke else get_config(arch)
+    dev = resolve_device(device)
+    if params is None:
+        params = T.init_lm(torch.Generator(device=dev).manual_seed(seed), cfg, device=dev)
+    max_len = prompt_len + gen
+    prompts = lm_prompts(seed, batch, prompt_len, cfg.vocab)
+    prefill = make_prefill_step(cfg, max_len=max_len)
+    decode = make_serve_step(cfg)
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, {"tokens": prompts.to(dev)})
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+
+    token = greedy_sample(logits)
+    out_tokens = [token]
+    t0 = time.perf_counter()
+    for i in range(gen - 1):
+        logits, caches = decode(params, caches, token, prompt_len + i)
+        token = greedy_sample(logits)
+        out_tokens.append(token)
+    _sync(dev)
+    t_decode = time.perf_counter() - t0
+
+    gen_tokens = torch.cat(out_tokens, dim=1)
+    tps = batch * (gen - 1) / max(t_decode, 1e-9)
+    print(f"[serve] {arch}: batch={batch} prefill({prompt_len} tok) "
+          f"{t_prefill * 1e3:.1f}ms; decode {gen - 1} steps @ {tps:.1f} tok/s")
+    print(f"[serve] sample generation (row 0): {gen_tokens[0].tolist()}")
+    return gen_tokens
 
 
 def main(argv=None):
@@ -55,13 +128,19 @@ def main(argv=None):
     ap.add_argument("--sde-steps", type=int, default=None,
                     help="fresh-init solver steps (default 16)")
     ap.add_argument("--seed", type=int, default=0)
+    # --workload lm: the transformer LM's prefill + greedy decode
+    ap.add_argument("--arch", default="qwen2.5-14b")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--smoke", action="store_true", default=True,
+                    help="lm: the reduced config (the default, as in the reference)")
+    ap.add_argument("--full", dest="smoke", action="store_false",
+                    help="lm: the full config")
     args = ap.parse_args(argv)
     if args.workload == "lm":
-        from ..serving.service import ServingNotPortedError
-
-        raise ServingNotPortedError(
-            "--workload lm (the transformer zoo's decode loop) is ported last — "
-            "ROADMAP.md Queue 1, item 14")
+        return serve_lm(args.arch, args.batch, args.prompt_len, args.gen, args.smoke,
+                        args.seed, device=args.device)
     return serve_sde(args.workload, args.ckpt_dir, max_batch=args.max_batch, requests=args.requests,
                      request_max=args.request_max, latent_mode=args.latent_mode,
                      stream_chunks=args.stream_chunks, adaptive=args.adaptive,

@@ -1,8 +1,9 @@
 """Step factories (port of :mod:`repro.launch.steps`): the Latent-SDE ELBO
-training step (``make_latent_sde_optimizer``, ``make_latent_sde_step``) and
+training step (``make_latent_sde_optimizer``, ``make_latent_sde_step``),
 the serving samplers: ``make_sample_step`` (the Latent-SDE prior decode and
 the SDE-GAN generator's rollout) and ``make_adaptive_terminal_step`` (the
-SDE-GAN's adaptive terminal samples)."""
+SDE-GAN's adaptive terminal samples), and the transformer LM's serving
+steps ``make_prefill_step``, ``make_serve_step`` and ``greedy_sample``."""
 
 from __future__ import annotations
 
@@ -152,3 +153,33 @@ def make_latent_sde_step(cfg, opt_update, batch: int, seq_len: int,
         return params, opt_state, metrics
 
     return step
+
+
+def make_prefill_step(cfg, max_len=None):
+    """``(params, batch) -> (last-token logits (B, 1, vocab), caches)``, the
+    caches padded to ``max_len`` slots; ``batch["tokens"]`` is ``(B, S)``."""
+    from ..models import transformer as T
+
+    def prefill_step(params, batch):
+        with torch.no_grad():
+            return T.lm_prefill(params, cfg, batch["tokens"], embeds=batch.get("embeds"),
+                                max_len=max_len)
+
+    return prefill_step
+
+
+def make_serve_step(cfg):
+    """``(params, caches, token, pos) -> (logits, caches)``: one new token
+    against the cache, which is updated in place."""
+    from ..models import transformer as T
+
+    def serve_step(params, caches, token, pos):
+        with torch.no_grad():
+            return T.lm_decode(params, cfg, token, caches, pos)
+
+    return serve_step
+
+
+def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
+    """The argmax of the last position's logits as an int32 ``(B, 1)`` token."""
+    return logits[:, -1, :].argmax(-1).to(torch.int32)[:, None]

@@ -1,0 +1,217 @@
+"""Decoder-only transformer LM: init, forward, prefill and decode (port of
+:mod:`repro.models.transformer`, the dense family).
+
+Parameters keep the reference's pytree: ``{"embed", "final_norm", "head"
+(untied only), "units": [block]}``, where ``units`` holds one block per
+entry of :func:`unit_pattern` (one for the dense family) and every block
+leaf carries a leading layer axis; layer ``i`` is the view ``leaf[i]``, as
+the reference's unrolled path slices it.  So
+:func:`repro_torch.checkpoint.params_from_jax` carries a JAX LM's weights
+across as they are.  Caches are the same: a list of ``{"k", "v"}`` dicts
+with leaves ``(num_units, B, S, Hkv, hd)``.
+
+The layer stack is a Python loop (``scan_layers`` and ``remat`` are XLA
+compile hints; ``reversible_residual`` is not ported).  Decode writes each
+layer's new K/V row into the stacked cache in place, where the reference
+donates the buffer; :func:`lm_decode` returns the same cache object.
+MoE, MLA, mamba2, hybrid, encoder-decoder and prefix ``embeds`` raise
+:class:`ModelNotPortedError` naming ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from .. import nn, tree
+from ..configs.base import ArchConfig
+from . import layers as L
+
+Params = Dict[str, Any]
+
+
+class ModelNotPortedError(NotImplementedError):
+    """A model family or mode of the reference that the port lacks."""
+
+
+def _not_ported(what: str):
+    return ModelNotPortedError(f"{what} is not ported yet: the port has the dense "
+                               f"family — ROADMAP.md Queue 1, item 14")
+
+
+# =============================================================================
+# unit pattern
+# =============================================================================
+
+
+def unit_pattern(cfg: ArchConfig) -> List[Tuple[str, str]]:
+    """(mixer, ffn) per layer in the smallest repeating unit of the stack."""
+    if cfg.ssm or cfg.family in ("hybrid", "encdec") or cfg.moe or cfg.attention != "gqa":
+        raise _not_ported(f"the {cfg.family} family ({cfg.name})")
+    return [("attn", "dense")]
+
+
+def num_units(cfg: ArchConfig) -> int:
+    size = len(unit_pattern(cfg))
+    if cfg.num_layers % size:
+        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers is not a multiple of the "
+                         f"unit size {size}")
+    return cfg.num_layers // size
+
+
+# =============================================================================
+# norms and blocks
+# =============================================================================
+
+
+def _norm_init(cfg: ArchConfig, lead=(), device=None):
+    init = nn.layernorm_init if cfg.norm == "layernorm" else nn.rmsnorm_init
+    p = init(cfg.d_model, cfg.dtype, device)
+    return {k: v.expand(tuple(lead) + v.shape).clone() for k, v in p.items()}
+
+
+def _norm(cfg: ArchConfig, p, x):
+    return nn.layernorm(p, x) if cfg.norm == "layernorm" else nn.rmsnorm(p, x)
+
+
+# The blocks below are the dense family's ("attn", "dense"): unit_pattern
+# refuses every other, so ``mixer`` and ``ffn`` only mirror the reference.
+
+
+def block_init(generator: torch.Generator, cfg: ArchConfig, mixer: str, ffn: str,
+               lead=(), device=None) -> Params:
+    return {"ln1": _norm_init(cfg, lead, device),
+            "mixer": L.gqa_init(generator, cfg, lead, device),
+            "ln2": _norm_init(cfg, lead, device),
+            "ffn": L.ffn_init(generator, cfg, lead, device)}
+
+
+def block_apply(p: Params, cfg: ArchConfig, mixer: str, ffn: str, x):
+    """Full-sequence causal block.  Returns ``(x, cache_entry)`` (the
+    reference's third output, the MoE aux loss, is 0 for a dense block)."""
+    h = _norm(cfg, p["ln1"], x)
+    o, (k, v) = L.gqa_attend(p["mixer"], cfg, h)
+    x = x + o
+    x = x + L.ffn_apply(p["ffn"], cfg, _norm(cfg, p["ln2"], x))
+    return x, {"k": k, "v": v}
+
+
+def block_decode(p: Params, cfg: ArchConfig, mixer: str, ffn: str, x, cache, pos):
+    """Single-token block step against ``cache`` (updated in place).  x: ``(B, 1, D)``."""
+    h = _norm(cfg, p["ln1"], x)
+    o, cache = L.gqa_decode(p["mixer"], cfg, h, cache, pos)
+    x = x + o
+    x = x + L.ffn_apply(p["ffn"], cfg, _norm(cfg, p["ln2"], x))
+    return x, cache
+
+
+# =============================================================================
+# decoder-only LM
+# =============================================================================
+
+
+def init_lm(generator: torch.Generator, cfg: ArchConfig, device=None) -> Params:
+    """Fresh weights at the reference's scales, drawn on the generator's
+    device (a CUDA generator draws the full-size model on the card) and
+    moved to ``device``: embed N(0, 1)·0.02, head N(0, 1)/sqrt(d_model),
+    the stacked blocks as :func:`block_init`."""
+    n = num_units(cfg)
+    params: Params = {
+        "embed": L._normal(generator, (cfg.vocab, cfg.d_model), cfg.dtype, device).mul_(0.02),
+        "final_norm": _norm_init(cfg, device=device),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = L._normal(generator, (cfg.d_model, cfg.vocab), cfg.dtype,
+                                   device).div_(math.sqrt(cfg.d_model))
+    params["units"] = [block_init(generator, cfg, m, f, lead=(n,), device=device)
+                       for m, f in unit_pattern(cfg)]
+    return params
+
+
+def _layer(units, i: int):
+    """Layer ``i``'s blocks: views ``leaf[i]`` of the stacked leaves."""
+    return tree.map(lambda a: a[i], units)
+
+
+def _stack_forward(params_units, cfg: ArchConfig, x, want_cache: bool = False):
+    """Run the unit stack.  Returns ``(x, stacked caches | None)``."""
+    pat = unit_pattern(cfg)
+    per_unit = []
+    for i in range(num_units(cfg)):
+        caches = []
+        for bp, (m, f) in zip(_layer(params_units, i), pat):
+            x, c = block_apply(bp, cfg, m, f, x)
+            caches.append(c)
+        if want_cache:
+            per_unit.append(caches)
+    if not want_cache:
+        return x, None
+    stacked = [{k: torch.stack([u[j][k] for u in per_unit]) for k in per_unit[0][j]}
+               for j in range(len(pat))]
+    return x, stacked
+
+
+def _embed(params, cfg: ArchConfig, tokens, embeds=None):
+    if embeds is not None:
+        raise _not_ported("a prefix of embeddings (the vlm/audio frontends)")
+    return params["embed"][tokens.long()]
+
+
+def _lm_head(params, cfg: ArchConfig, x):
+    w = params["embed"].T if cfg.tie_embeddings else params["head"]
+    return x @ w
+
+
+def lm_forward(params, cfg: ArchConfig, tokens, embeds=None):
+    """Train-mode forward: logits over the full sequence + the aux loss
+    (0: the dense family has no MoE router)."""
+    x = _embed(params, cfg, tokens, embeds)
+    x, _ = _stack_forward(params["units"], cfg, x)
+    x = _norm(cfg, params["final_norm"], x)
+    return _lm_head(params, cfg, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def lm_prefill(params, cfg: ArchConfig, tokens, embeds=None, max_len: Optional[int] = None):
+    """Prefill: last-position logits ``(B, 1, vocab)`` + the populated cache,
+    sized to the prompt, or padded to ``max_len`` slots."""
+    x = _embed(params, cfg, tokens, embeds)
+    x, caches = _stack_forward(params["units"], cfg, x, want_cache=True)
+    x = _norm(cfg, params["final_norm"], x)
+    logits = _lm_head(params, cfg, x[:, -1:, :])
+    if max_len is not None:
+        caches = _pad_caches(caches, max_len)
+    return logits, caches
+
+
+def _pad_caches(caches, max_len: int):
+    """Zero-pad the sequence axis (2 of ``(U, B, S, ...)``) of the attention
+    caches to ``max_len``."""
+    def pad(leaf):
+        if leaf.dim() >= 3 and leaf.shape[2] < max_len:
+            out = leaf.new_zeros(leaf.shape[:2] + (max_len,) + leaf.shape[3:])
+            out[:, :, :leaf.shape[2]] = leaf
+            return out
+        return leaf
+
+    return [{k: pad(v) if k in ("k", "v") else v for k, v in c.items()} for c in caches]
+
+
+def lm_decode(params, cfg: ArchConfig, token, caches, pos):
+    """One decode step.  token: ``(B, 1)`` int32; pos: the position (int).
+    ``caches``: the stacked cache, updated in place.  Returns ``(logits
+    (B, 1, vocab), caches)``."""
+    x = _embed(params, cfg, token)
+    pat = unit_pattern(cfg)
+    for i in range(num_units(cfg)):
+        for bp, c, (m, f) in zip(_layer(params["units"], i), _layer(caches, i), pat):
+            x, _ = block_decode(bp, cfg, m, f, x, c, pos)
+    x = _norm(cfg, params["final_norm"], x)
+    return _lm_head(params, cfg, x), caches
+
+
+def init_cache_zeros(cfg: ArchConfig, batch: int, max_len: int, device=None):
+    """The stacked cache of zeros: ``[{"k", "v": (U, B, max_len, Hkv, hd)}]``."""
+    return [L.gqa_init_cache(cfg, batch, max_len, cfg.dtype, (num_units(cfg),), device)
+            for _ in unit_pattern(cfg)]

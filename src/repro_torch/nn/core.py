@@ -1,4 +1,6 @@
-"""Functional NN building blocks on tensors (port of :mod:`repro.nn.core`).
+"""Functional NN building blocks on tensors (port of :mod:`repro.nn.core`):
+the MLP and GRU pieces of the SDE models, and the norms and activations of
+the transformer zoo (``rmsnorm``, ``layernorm``, ``gelu``).
 
 Parameters are nested dicts of tensors with the reference pytree's layout
 (``{"layers": [{"w": (in, out), "b": (out,)}]}``), so weights carried over
@@ -132,3 +134,33 @@ def gru_scan(params, xs, reverse: bool = False):
         h = gru_cell(params, h, xs[i])
         hs[i] = h
     return torch.stack(hs)
+
+
+def gelu(x):
+    """GELU in its tanh form: ``jax.nn.gelu``'s default is ``approximate=True``."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+def layernorm_init(dim: int, dtype=torch.float32, device=None):
+    return {"g": torch.ones((dim,), dtype=dtype, device=device),
+            "b": torch.zeros((dim,), dtype=dtype, device=device)}
+
+
+def layernorm(params, x, eps: float = 1e-5):
+    """``(x − mean)·rsqrt(var + eps)·g + b`` with the biased variance, in
+    ``x``'s dtype."""
+    m = x.mean(-1, keepdim=True)
+    v = x.var(-1, unbiased=False, keepdim=True)
+    return (x - m) * torch.rsqrt(v + eps) * params["g"] + params["b"]
+
+
+def rmsnorm_init(dim: int, dtype=torch.float32, device=None):
+    return {"g": torch.ones((dim,), dtype=dtype, device=device)}
+
+
+def rmsnorm(params, x, eps: float = 1e-6):
+    """The variance in float32 (bf16 stability), the normalised ``x`` cast
+    back to its dtype, then ``× g``."""
+    xf = x.float()
+    v = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(v + eps)).to(x.dtype) * params["g"]

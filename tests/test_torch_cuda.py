@@ -3,13 +3,17 @@ versions, launch counting, operand checks, fused = unfused decode, the
 fused exact adjoint = the unfused one on a whole ELBO training step, and
 the adaptive paths: the ``brownian_value`` kernel, the fused adaptive
 exact adjoint = the unfused one, and the adaptive SDE-GAN sampler's
-padding invariance.
+padding invariance; the GQA attention kernel against its plain version
+(float32 2e-5, bfloat16 6e-2: the two sum in different orders) and a
+two-layer smoke LM's prefill routed through it.
 
 These need an NVIDIA GPU with nvcc (the kernels have no CPU mode); each test
 skips without one.  On the GPU machine::
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+
+import math
 
 import pytest
 import torch
@@ -89,10 +93,13 @@ def test_each_launch_is_counted_once(cuda):
     t = torch.rand(4, device=cuda)
     ops.brownian_value(keys, t, 0.0, 1.0, (16,), torch.float32)
     ops.brownian_value(keys, t, 0.0, 1.0, (16,), torch.float32, use_kernel=False)
+    q = torch.rand(1, 2, 5, 16, device=cuda)
+    ops.flash_attention(q, q, q)
+    ops.flash_attention(q, q, q, use_kernel=False)
     assert ops.launch_counts() == {"rev_heun_phase1": 1, "rev_heun_phase2": 1,
                                    "rev_heun_bwd_phase1": 1, "rev_heun_bwd_phase2": 1,
                                    "rev_heun_phase1_gen": 1, "brownian_increment": 1,
-                                   "brownian_value": 1}
+                                   "brownian_value": 1, "flash_attention": 1}
 
 
 def test_operands_are_checked(cuda):
@@ -214,3 +221,48 @@ def test_fused_training_step_equals_unfused_on_the_card(cuda):
     assert torch.isfinite(runs[1][2]["loss"])
     for a, b in zip(tree.leaves(runs[0][0]), tree.leaves(runs[1][0])):
         assert torch.equal(a, b)
+
+
+ATTN_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+            torch.bfloat16: dict(rtol=6e-2, atol=6e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", [(2, 10, 2, 200, 128), (1, 8, 1, 65, 64)])
+def test_flash_attention_kernel_matches_plain_version(cuda, dtype, B, Hq, Hkv, S, D):
+    g = torch.Generator().manual_seed(S)
+    q, k, v = (torch.randn(B, h, S, D, generator=g).to(cuda, dtype) for h in (Hq, Hkv, Hkv))
+    for causal in (True, False):
+        ops.reset_launch_counts()
+        got = ops.flash_attention(q, k, v, causal=causal)
+        assert ops.launch_counts()["flash_attention"] == 1
+        want = ops.flash_attention(q, k, v, causal=causal, scale=1 / math.sqrt(D),
+                                   use_kernel=False)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == q.shape
+        torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+
+
+def test_smoke_lm_prefill_runs_through_the_kernel(cuda, monkeypatch):
+    """Two layers at head dim 16: one launch per layer, and the logits of the
+    plain-attention prefill and of the CPU within float32 tolerance."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import layers, transformer
+
+    cfg = smoke_config("qwen2.5-14b")
+    params = transformer.init_lm(torch.Generator().manual_seed(0), cfg, device=cuda)
+    tokens = torch.randint(0, cfg.vocab, (2, 77), generator=torch.Generator().manual_seed(1))
+    prefill = make_prefill_step(cfg, max_len=80)
+    ops.reset_launch_counts()
+    logits, caches = prefill(params, {"tokens": tokens.to(cuda)})
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == cfg.num_layers == 2
+    cpu_logits, _ = prefill(tree.map(lambda a: a.cpu(), params), {"tokens": tokens})
+    torch.testing.assert_close(logits.cpu(), cpu_logits, rtol=2e-5, atol=2e-5)
+    monkeypatch.setattr(layers, "_attend_dispatch", lambda cfg, q, k, v, causal:
+                        ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                            causal=causal, use_kernel=False))
+    plain, _ = prefill(params, {"tokens": tokens.to(cuda)})
+    torch.testing.assert_close(logits, plain, rtol=2e-5, atol=2e-5)
+    assert caches[0]["k"].shape == (2, 2, 80, cfg.num_kv_heads, cfg.head_dim)

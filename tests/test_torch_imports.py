@@ -32,7 +32,10 @@ def _forbidden(name: str) -> bool:
 def test_port_files_exist():
     names = {p.name for p in PORT_FILES}
     assert {"chip_smoke.py", "prng.py", "ops.py", "sde.py", "service.py", "train.py",
-            "discretise.py", "synthetic.py", "optimizers.py", "tree.py"} <= names
+            "discretise.py", "synthetic.py", "optimizers.py", "tree.py",
+            "flash_attention.py", "layers.py", "transformer.py", "counting.py", "base.py",
+            "qwen2_5_14b.py", "tinyllama_1_1b.py", "starcoder2_3b.py"} <= names
+    assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "flash_attention.cu").exists()
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -64,3 +67,9 @@ def test_adaptive_slice_import_leaves_jax_unloaded():
     _imports_leave_jax_unloaded("repro_torch.core.solve, repro_torch.core.sde, "
                                 "repro_torch.core.gradients.discretise, "
                                 "repro_torch.serving.types, repro_torch.launch.steps")
+
+
+def test_lm_slice_import_leaves_jax_unloaded():
+    _imports_leave_jax_unloaded("repro_torch.configs, repro_torch.models.transformer, "
+                                "repro_torch.models.counting, "
+                                "repro_torch.kernels.flash_attention")

@@ -1,0 +1,218 @@
+"""The port's dense transformer LM on the CPU against the JAX package, at
+the smoke size of qwen2.5-14b, tinyllama-1.1b and starcoder2-3b (float32):
+weights from the reference's ``init_lm(PRNGKey(0))`` carried across with
+``params_from_jax``; RoPE, GQA attention, the FFN, the forward logits,
+prefill (logits and the padded caches), 8 greedy decode steps, the
+parameter count, the served tokens and prompts; and bfloat16 weights
+carried across bitwise.
+
+Tolerance, float32: rtol = atol = 1e-5.  Both sides compute the same ops
+in float32; the sums run in other orders (XLA's CPU dot against torch's
+BLAS; the reference's blockwise online softmax against the port's plain
+softmax on the CPU) and exp, sigmoid and pow differ by ulps, which leaves
+differences of at most ~2e-6 on logits of magnitude up to ~4 after two
+layers (measured on the three configs).  Tokens are compared exactly.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import jax_config
+from repro import configs as jconfigs
+from repro.launch import steps as jsteps
+from repro.models import counting as jcounting
+from repro.models import layers as JL
+from repro.models import transformer as JT
+from repro_torch import configs, tree
+from repro_torch.checkpoint import params_from_jax
+from repro_torch.launch import serve as serve_cli
+from repro_torch.launch import steps
+from repro_torch.models import counting
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+
+ARCHS = ["qwen2.5-14b", "tinyllama-1.1b", "starcoder2-3b"]
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def model(request):
+    """(arch, JAX cfg, port cfg, JAX params, port params)."""
+    arch = request.param
+    jcfg, cfg = jconfigs.smoke_config(arch), configs.smoke_config(arch)
+    jparams = JT.init_lm(jax.random.PRNGKey(0), jcfg)
+    return arch, jcfg, cfg, jparams, params_from_jax(jax.device_get(jparams))
+
+
+def _tokens(cfg, B, S, seed=3):
+    return np.random.default_rng(seed).integers(0, cfg.vocab, (B, S), dtype=np.int32)
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+
+
+def test_smoke_config_matches_reference(model):
+    arch, jcfg, cfg, _, _ = model
+    for f in dataclasses.fields(jcfg):
+        if f.name != "dtype":
+            assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
+    assert cfg.dtype == torch.float32 and jcfg.dtype == jnp.float32
+
+
+def test_rope_matches_jax(model):
+    _, jcfg, cfg, _, _ = model
+    x = np.random.default_rng(1).standard_normal((2, 9, 3, cfg.head_dim), dtype=np.float32)
+    pos = np.arange(9, dtype=np.int32)
+    jcos, jsin = JL.rope_freqs(jcfg.head_dim, jcfg.rope_theta, jnp.asarray(pos))
+    cos, sin = L.rope_freqs(cfg.head_dim, cfg.rope_theta, torch.from_numpy(pos))
+    _close(cos, jcos)
+    _close(sin, jsin)
+    _close(L.apply_rope(torch.from_numpy(x), cos, sin),
+           JL.apply_rope(jnp.asarray(x), jcos, jsin))
+
+
+def test_gqa_attend_and_ffn_match_jax(model):
+    _, jcfg, cfg, jparams, params = model
+    x = np.random.default_rng(2).standard_normal((2, 12, cfg.d_model), dtype=np.float32)
+    jblock = jax.tree.map(lambda a: a[0], jparams["units"][0])
+    block = T._layer(params["units"], 0)[0]
+    jo, (jk, jv) = JL.gqa_attend(jblock["mixer"], jcfg, jnp.asarray(x))
+    o, (k, v) = L.gqa_attend(block["mixer"], cfg, torch.from_numpy(x))
+    for a, b in ((o, jo), (k, jk), (v, jv)):
+        _close(a, b)
+    _close(L.ffn_apply(block["ffn"], cfg, torch.from_numpy(x)),
+           JL.ffn_apply(jblock["ffn"], jcfg, jnp.asarray(x)))
+
+
+def test_lm_forward_logits_match_jax(model):
+    _, jcfg, cfg, jparams, params = model
+    tok = _tokens(cfg, 2, 16)
+    jlogits, _ = JT.lm_forward(jparams, jcfg, jnp.asarray(tok))
+    logits, aux = T.lm_forward(params, cfg, torch.from_numpy(tok))
+    assert logits.shape == (2, 16, cfg.vocab) and float(aux) == 0.0
+    _close(logits, jlogits)
+
+
+def test_prefill_and_eight_decode_steps_match_jax(model):
+    """Prefill logits and the padded caches, then 8 greedy decode steps:
+    tokens equal, logits within the tolerance."""
+    _, jcfg, cfg, jparams, params = model
+    B, S, gen = 2, 12, 8
+    tok = _tokens(cfg, B, S, seed=4)
+    jprefill = jax.jit(jsteps.make_prefill_step(jcfg, max_len=S + gen))
+    jdecode = jax.jit(jsteps.make_serve_step(jcfg))
+    jlogits, jcaches = jprefill(jparams, {"tokens": jnp.asarray(tok)})
+    logits, caches = steps.make_prefill_step(cfg, max_len=S + gen)(
+        params, {"tokens": torch.from_numpy(tok)})
+    _close(logits, jlogits)
+    jleaves, leaves = jax.tree.leaves(jcaches), tree.leaves(caches)
+    assert len(leaves) == len(jleaves) == 2
+    for a, b in zip(leaves, jleaves):
+        assert tuple(a.shape) == b.shape == (cfg.num_layers, B, S + gen, cfg.num_kv_heads,
+                                              cfg.head_dim)
+        _close(a, b)
+        assert not a[:, :, S:].any()
+    zeros = T.init_cache_zeros(cfg, B, S + gen)
+    assert [(k, tuple(a.shape)) for c in zeros for k, a in sorted(c.items())] == [
+        (k, tuple(a.shape)) for c in caches for k, a in sorted(c.items())]
+    assert not any(a.any() for a in tree.leaves(zeros))
+    jtoken, token = jsteps.greedy_sample(jlogits), steps.greedy_sample(logits)
+    decode = steps.make_serve_step(cfg)
+    for i in range(gen):
+        np.testing.assert_array_equal(token.numpy(), np.asarray(jtoken))
+        assert token.dtype == torch.int32 and token.shape == (B, 1)
+        jlogits, jcaches = jdecode(jparams, jcaches, jtoken, jnp.asarray(S + i, jnp.int32))
+        logits, caches = decode(params, caches, token, S + i)
+        _close(logits, jlogits)
+        jtoken, token = jsteps.greedy_sample(jlogits), steps.greedy_sample(logits)
+    for a, b in zip(tree.leaves(caches), jax.tree.leaves(jcaches)):
+        _close(a, b)
+
+
+def test_init_lm_leaves_match_jax_and_param_count(model):
+    _, jcfg, cfg, jparams, _ = model
+    fresh = T.init_lm(torch.Generator().manual_seed(0), cfg)
+    jflat, _ = jax.tree_util.tree_flatten_with_path(jparams)
+    flat = tree.leaves(fresh)
+    assert [tuple(a.shape) for a in flat] == [b.shape for _, b in jflat]
+    assert all(a.dtype == torch.float32 for a in flat)
+    assert sum(a.numel() for a in flat) == counting.param_count(cfg) == jcounting.param_count(
+        jcfg)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_full_config_param_count_matches_jax(arch):
+    """Arithmetic only: nothing of full size is allocated."""
+    cfg, jcfg = configs.get_config(arch), jconfigs.get_config(arch)
+    assert cfg.dtype == torch.bfloat16 and jcfg.dtype == jnp.bfloat16
+    assert counting.param_count(cfg) == jcounting.param_count(jcfg) == cfg.param_count()
+
+
+def test_unported_archs_raise_named_errors():
+    for arch in configs.NOT_PORTED:
+        jconfigs.get_config(arch)  # the reference has it
+        with pytest.raises(configs.ArchNotPortedError, match="ROADMAP.md"):
+            configs.get_config(arch)
+    moe = dataclasses.replace(configs.smoke_config("qwen2.5-14b"), moe=True, family="moe")
+    with pytest.raises(T.ModelNotPortedError, match="ROADMAP.md"):
+        T.init_lm(torch.Generator().manual_seed(0), moe)
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "starcoder2-3b"])
+def test_serve_lm_prompts_and_tokens_match_jax(arch, capsys):
+    """Prompts bitwise the reference's randint draw; the served tokens equal
+    the reference's prefill + greedy-decode loop on the same weights."""
+    B, S, gen, seed = 3, 10, 6, 5
+    jcfg = jconfigs.smoke_config(arch)
+    with jax_config():
+        jparams = JT.init_lm(jax.random.PRNGKey(seed), jcfg)
+        jprompts = jax.random.randint(jax.random.fold_in(jax.random.PRNGKey(seed), 1),
+                                      (B, S), 0, jcfg.vocab)
+    prompts = serve_cli.lm_prompts(seed, B, S, jcfg.vocab)
+    assert prompts.dtype == torch.int32
+    np.testing.assert_array_equal(prompts.numpy(), np.asarray(jprompts))
+
+    logits, caches = jax.jit(jsteps.make_prefill_step(jcfg, max_len=S + gen))(
+        jparams, {"tokens": jprompts})
+    decode = jax.jit(jsteps.make_serve_step(jcfg))
+    token = jsteps.greedy_sample(logits)
+    want = [token]
+    for i in range(gen - 1):
+        logits, caches = decode(jparams, caches, token, jnp.asarray(S + i, jnp.int32))
+        token = jsteps.greedy_sample(logits)
+        want.append(token)
+    got = serve_cli.serve_lm(arch, B, S, gen, seed=seed, device="cpu",
+                             params=params_from_jax(jax.device_get(jparams)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jnp.concatenate(want, axis=1)))
+    assert f"[serve] {arch}: batch={B} prefill({S} tok)" in capsys.readouterr().out
+
+
+def test_bf16_weights_cross_bitwise_and_serve():
+    """bfloat16 leaves keep their 16-bit words through params_from_jax, and a
+    bfloat16 smoke prefill runs from them."""
+    x = jnp.asarray(np.random.default_rng(6).standard_normal(37, dtype=np.float32),
+                    jnp.bfloat16)
+    t = params_from_jax(jax.device_get(x))
+    assert t.dtype == torch.bfloat16
+    np.testing.assert_array_equal(t.view(torch.int16).numpy(),
+                                  np.asarray(x).view(np.int16))
+
+    jcfg = dataclasses.replace(jconfigs.smoke_config("qwen2.5-14b"), dtype=jnp.bfloat16)
+    cfg = dataclasses.replace(configs.smoke_config("qwen2.5-14b"), dtype=torch.bfloat16)
+    jparams = jax.device_get(JT.init_lm(jax.random.PRNGKey(1), jcfg))
+    params = params_from_jax(jparams)
+    for a, b in zip(tree.leaves(params), jax.tree.leaves(jparams)):
+        assert a.dtype == torch.bfloat16 and b.dtype.name == "bfloat16"
+        np.testing.assert_array_equal(a.view(torch.int16).numpy(), b.view(np.int16))
+    tok = _tokens(cfg, 2, 8)
+    logits, caches = steps.make_prefill_step(cfg, max_len=12)(
+        params, {"tokens": torch.from_numpy(tok)})
+    assert logits.dtype == torch.bfloat16 and logits.shape == (2, 1, cfg.vocab)
+    assert torch.isfinite(logits.float()).all()
+    assert caches[0]["k"].shape == (2, 2, 12, cfg.num_kv_heads, cfg.head_dim)

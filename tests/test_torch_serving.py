@@ -180,8 +180,8 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
 
 def test_unported_workloads_and_modes_raise_named_errors():
     """The SDE-GAN serves now (its refusals are the reference's own: adaptive
-    needs sde-gan and excludes streaming); streaming, the posterior decode
-    and the LM still name their queue items."""
+    needs sde-gan and excludes streaming); streaming and the posterior
+    decode still name their queue items."""
     with pytest.raises(ValueError, match="--adaptive serves terminal samples"):
         serve_sde("latent-sde", adaptive=True, device="cpu")
     with pytest.raises(ValueError, match="mutually exclusive"):
@@ -192,8 +192,22 @@ def test_unported_workloads_and_modes_raise_named_errors():
         serve_sde("latent-sde", latent_mode="posterior", device="cpu")
     with pytest.raises(ValueError, match="workload must be one of"):
         make_sample_step("gan", None, device="cpu")
-    with pytest.raises(ServingNotPortedError, match="ROADMAP"):
-        serve_cli.main(["--workload", "lm"])
+
+
+def test_lm_workload_serves_on_the_cpu_and_defaults_to_the_card(capsys):
+    """``--workload lm`` runs the dense LM's prefill + greedy decode (the
+    smoke config, as the reference's CLI defaults); without a card and
+    without ``--device cpu`` it stops with the named error."""
+    tokens = serve_cli.main(["--workload", "lm", "--device", "cpu", "--arch",
+                             "tinyllama-1.1b", "--gen", "4"])
+    out = capsys.readouterr().out
+    assert "[serve] tinyllama-1.1b: batch=4 prefill(32 tok)" in out
+    assert "decode 3 steps @" in out and "tok/s" in out
+    assert tokens.shape == (4, 4) and tokens.dtype == torch.int32
+    assert int(tokens.min()) >= 0 and int(tokens.max()) < 256
+    if not torch.cuda.is_available():
+        with pytest.raises(NoCudaDeviceError):
+            serve_cli.main(["--workload", "lm"])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
