@@ -93,14 +93,35 @@ non-zero and the final result line is never printed):
    agreement (asserted finite only; phase 13 is the assertion).  A profile
    of one decode step against the 2064-slot cache (device busy and idle
    share).
-15. Prints a ``{"kernels": [...]}`` JSON line (``launches``: the count on
+15. ``ssd_chunk`` (the Mamba2 prefill's SSD scan) against its plain
+   version (the sequential recurrence) on the card: float32 and bfloat16
+   x, b, c (float32 a), at (B, H, S, P, N) in SSD_SHAPES (mamba2-1.3b's
+   prefill and the CLI's prompt 32, both in the mixer's layout — x and a
+   transposed views, b and c expanded over the heads with stride 0 — then
+   a ragged S, S = 1 and the smoke config's heads, contiguous): y within
+   SSD_TOL (rtol = atol), the terminal state within SSD_STATE_RTOL of its
+   largest magnitude.  Timed at the prefill shape (bf16, the mixer's
+   layout) beside the plain version and its bound; no single PyTorch call
+   computes it, so there is no library time.
+16. LM parity, float32, full width at two layers (mamba2-1.3b with
+   ``num_layers=2``), as phase 13: B = 2, S = 512 prefill and 8 greedy
+   decode steps through the kernel and with every SSD scan on the plain
+   version; ``ssd_chunk`` launched twice per prefill and never in decode.
+17. LM serving, bfloat16, the full mamba2-1.3b (48 layers, 1,343,740,928
+   parameters, random weights drawn on the card) through ``serve_lm`` at
+   B = 4, prompt 2048, 16 tokens, then prompt 32, and the CLI (``--workload
+   lm --arch mamba2-1.3b``, the smoke config), as phase 14 with
+   ``ssd_chunk`` in place of ``flash_attention``: one launch per layer of
+   the prefill, none in decode; profiles of one prefill and one decode
+   step; the full-depth prefill on the plain scan.
+18. Prints a ``{"kernels": [...]}`` JSON line (``launches``: the count on
    the path each kernel was ported for — training, the adaptive gradient
-   for ``brownian_value``, the 2048-token LM serve for
-   ``flash_attention``; ``adaptive_launches``: the fused adaptive
-   gradient's; ``serve_launches``: the Latent-SDE service's, the adaptive
-   service's for ``brownian_value``, the LM serve's for
-   ``flash_attention``) and, last, the result line ``{"ok": true,
-   "device": {...}}``.
+   for ``brownian_value``, the 2048-token LM serves for
+   ``flash_attention`` and ``ssd_chunk``; ``adaptive_launches``: the
+   fused adaptive gradient's; ``serve_launches``: the Latent-SDE
+   service's, the adaptive service's for ``brownian_value``, the LM
+   serves' for ``flash_attention`` and ``ssd_chunk``) and, last, the
+   result line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -109,6 +130,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -155,6 +177,8 @@ KERNEL_SOURCES = {
     "rev_heun_phase1_gen": (CSRC, "src/repro/kernels/brownian.py:132"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:67"),
+    "ssd_chunk": ("src/repro_torch/kernels/csrc/ssd_chunk.cu",
+                  "src/repro/kernels/ssd_chunk.py:59"),
 }
 # flash_attention checks, (B, Hq, Hkv, S, D): qwen2.5-14b's prefill and a
 # short prompt, a ragged S, tinyllama's group 8 at D = 64, S = 1 with MQA.
@@ -171,6 +195,18 @@ LM_ARCH = "qwen2.5-14b"
 # of the largest logit; 1e-4 leaves room for the card's GEMM order.
 LM_LOGIT_RTOL = 1e-4
 LM_PARITY = dict(batch=2, prompt_len=512, gen=8)
+SSM_ARCH = "mamba2-1.3b"
+# ssd_chunk checks, (B, H, S, P, N): mamba2-1.3b's prefill (B 4, prompt 2048)
+# and the CLI's prompt 32, a ragged S, S = 1, the smoke config's heads.
+SSD_SHAPES = [(4, 64, 2048, 64, 128), (4, 64, 32, 64, 128), (1, 64, 2000, 64, 128),
+              (1, 64, 1, 64, 128), (2, 8, 100, 16, 16)]
+SSD_PREFILL = SSD_SHAPES[0]
+# the JAX package's SSD tolerances (tests/test_kernels.py:96 for y in f32,
+# :21 for bf16 outputs; the state within 2e-4 of its largest magnitude, as
+# :120-122 hold ssd_chunked_dense's): a chunked matrix form against the
+# sequential recurrence, both in f32 from the same inputs.
+SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 6e-2}
+SSD_STATE_RTOL = 2e-4
 LM_SERVE = dict(batch=4, prompt_len=2048, gen=16)
 SERVE_KERNELS = ("rev_heun_phase1_gen", "rev_heun_phase2", "brownian_increment")
 # Launches of one fused ELBO step at 23 solver steps: forward 23 x (phase1_gen,
@@ -299,7 +335,7 @@ def kernel_checks(ops, dev) -> tuple:
     ``{name: max |Δ|}``."""
     g = torch.Generator().manual_seed(1234)
     errs = {name: 0.0 for name in KERNEL_SOURCES
-            if name not in ("brownian_value", "flash_attention")}
+            if name not in ("brownian_value", "flash_attention", "ssd_chunk")}
     # (rows, d): small and serving shapes, the training state, and the
     # training path's one-key draws (one row of B*17: a BrownianPath with a
     # single key over the (B, 17) state).
@@ -989,9 +1025,27 @@ def plain_attention():
         layers._attend_dispatch = dispatch
 
 
-def _greedy(cfg, params, prompts, gen: int) -> tuple:
+@contextlib.contextmanager
+def plain_ssd():
+    """Route every Mamba2 SSD scan through the plain version (use_kernel=False)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers
+
+    dispatch = layers._ssd_dispatch
+    layers._ssd_dispatch = lambda x, a, b, c: ops.ssd_chunk(x, a, b, c, use_kernel=False)
+    try:
+        yield
+    finally:
+        layers._ssd_dispatch = dispatch
+
+
+# The kernel each LM family's prefill runs, and the switch to its plain version.
+LM_KERNELS = {LM_ARCH: ("flash_attention", plain_attention), SSM_ARCH: ("ssd_chunk", plain_ssd)}
+
+
+def _greedy(cfg, params, prompts, gen: int, kernel: str) -> tuple:
     """Prefill, then ``gen`` greedy decode steps -> (prefill logits, tokens,
-    flash_attention launches in the prefill, in the decode)."""
+    ``kernel`` launches in the prefill, in the decode)."""
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import greedy_sample, make_prefill_step, make_serve_step
 
@@ -999,7 +1053,7 @@ def _greedy(cfg, params, prompts, gen: int) -> tuple:
     ops.reset_launch_counts()
     logits, caches = make_prefill_step(cfg, max_len=S + gen)(params, {"tokens": prompts})
     torch.cuda.synchronize()
-    n_prefill = ops.launch_counts()["flash_attention"]
+    n_prefill = ops.launch_counts()[kernel]
     decode = make_serve_step(cfg)
     token = greedy_sample(logits)
     tokens = [token]
@@ -1008,127 +1062,224 @@ def _greedy(cfg, params, prompts, gen: int) -> tuple:
         token = greedy_sample(step_logits)
         tokens.append(token)
     torch.cuda.synchronize()
-    n_decode = ops.launch_counts()["flash_attention"] - n_prefill
+    n_decode = ops.launch_counts()[kernel] - n_prefill
     return logits.float(), torch.cat(tokens, 1), n_prefill, n_decode
 
 
-def lm_parity_checks(dev, label: str) -> None:
-    """Phase 13: float32 LM at full width and two layers, kernel vs plain."""
+def lm_parity_checks(dev, label: str, arch: str) -> None:
+    """Phases 13 and 16: a float32 LM at full width and two layers, kernel
+    vs plain."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import lm_prompts
     from repro_torch.models import transformer as T
 
-    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=2, dtype=torch.float32)
+    kernel_name, plain = LM_KERNELS[arch]
+    cfg = dataclasses.replace(get_config(arch), num_layers=2, dtype=torch.float32)
     params = T.init_lm(torch.Generator(device=dev).manual_seed(31), cfg, device=dev)
     B, S, gen = LM_PARITY["batch"], LM_PARITY["prompt_len"], LM_PARITY["gen"]
     prompts = lm_prompts(31, B, S, cfg.vocab).to(dev)
-    kernel = _greedy(cfg, params, prompts, gen)
-    with plain_attention():
-        plain = _greedy(cfg, params, prompts, gen)
-    check(kernel[2:] == (2, 0), f"LM parity: flash_attention launched {kernel[2]} times in "
-          f"the prefill and {kernel[3]} in decode (want 2, 0)")
-    check(plain[2:] == (0, 0), f"LM parity: the plain run launched {plain[2:]}")
-    check(torch.isfinite(kernel[0]).all().item(), "LM parity: non-finite logits")
-    diff = (kernel[0] - plain[0]).abs().max().item()
-    top = plain[0].abs().max().item()
-    check(diff <= LM_LOGIT_RTOL * top, f"LM parity: prefill logits differ by {diff} "
-          f"(largest logit {top}, tolerance {LM_LOGIT_RTOL} of it)")
-    check(torch.equal(kernel[1], plain[1]), f"LM parity: greedy tokens differ "
-          f"{kernel[1].tolist()} vs {plain[1].tolist()}")
-    print(f"[{label}] LM parity ({LM_ARCH}, float32, 2 layers, B={B}, S={S}): prefill "
+    kernel = _greedy(cfg, params, prompts, gen, kernel_name)
+    with plain():
+        plain_run = _greedy(cfg, params, prompts, gen, kernel_name)
+    check(kernel[2:] == (2, 0), f"LM parity ({arch}): {kernel_name} launched {kernel[2]} "
+          f"times in the prefill and {kernel[3]} in decode (want 2, 0)")
+    check(plain_run[2:] == (0, 0), f"LM parity ({arch}): the plain run launched "
+          f"{plain_run[2:]}")
+    check(torch.isfinite(kernel[0]).all().item(), f"LM parity ({arch}): non-finite logits")
+    diff = (kernel[0] - plain_run[0]).abs().max().item()
+    top = plain_run[0].abs().max().item()
+    check(diff <= LM_LOGIT_RTOL * top, f"LM parity ({arch}): prefill logits differ by "
+          f"{diff} (largest logit {top}, tolerance {LM_LOGIT_RTOL} of it)")
+    check(torch.equal(kernel[1], plain_run[1]), f"LM parity ({arch}): greedy tokens differ "
+          f"{kernel[1].tolist()} vs {plain_run[1].tolist()}")
+    print(f"[{label}] LM parity ({arch}, float32, 2 layers, B={B}, S={S}): prefill "
           f"logits max |Δ| {diff:.3g} (largest logit {top:.3g}; {diff / top:.3g} relative, "
           f"tolerance {LM_LOGIT_RTOL}); {gen + 1} greedy tokens equal on every row; "
-          f"flash_attention launches: {kernel[2]} per prefill, {kernel[3]} in decode",
+          f"{kernel_name} launches: {kernel[2]} per prefill, {kernel[3]} in decode",
           flush=True)
     del params
     torch.cuda.empty_cache()
 
 
-def lm_serve_checks(ops, dev, label: str) -> dict:
-    """Phase 14: the full qwen2.5-14b in bfloat16 served through serve_lm."""
-    from repro_torch.configs import get_config
+def _tree_bytes(params) -> int:
+    from repro_torch import tree
+
+    return sum(a.numel() * a.element_size() for a in tree.leaves(params))
+
+
+def lm_serve_checks(ops, dev, label: str, arch: str) -> dict:
+    """Phases 14 and 17: the full model in bfloat16 served through serve_lm."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config, smoke_config
     from repro_torch.launch import serve as serve_cli
     from repro_torch.launch.steps import greedy_sample, make_prefill_step, make_serve_step
     from repro_torch.models import transformer as T
     from repro_torch.models.counting import param_count
 
-    cfg = get_config(LM_ARCH)
+    kernel, plain = LM_KERNELS[arch]
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     params = T.init_lm(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
     torch.cuda.synchronize()
-    from repro_torch import tree
-
-    leaves = tree.leaves(params)
-    n_params = sum(a.numel() for a in leaves)
-    w_bytes = sum(a.numel() * a.element_size() for a in leaves)
+    n_params = sum(a.numel() for a in tree.leaves(params))
+    w_bytes = _tree_bytes(params)
     check(n_params == param_count(cfg), f"{n_params} parameters, param_count "
           f"{param_count(cfg)}")
     B, S, gen = LM_SERVE["batch"], LM_SERVE["prompt_len"], LM_SERVE["gen"]
-    kv_bytes = 2 * cfg.num_layers * B * (S + gen) * cfg.num_kv_heads * cfg.head_dim * 2
-    print(f"[{label}] {LM_ARCH} (bf16, {cfg.num_layers} layers): {n_params} parameters "
+    cache_bytes = _tree_bytes(T.init_cache_zeros(cfg, B, S + gen, device="meta"))
+    print(f"[{label}] {arch} (bf16, {cfg.num_layers} layers): {n_params} parameters "
           f"(= param_count), weights {w_bytes / 1e9:.3f} GB drawn on the card in "
-          f"{time.perf_counter() - t0:.1f} s; KV cache at B={B}, {S}+{gen} slots "
-          f"{kv_bytes / 1e9:.3f} GB", flush=True)
+          f"{time.perf_counter() - t0:.1f} s; cache at B={B}, {S}+{gen} slots "
+          f"{cache_bytes / 1e9:.3f} GB; a decode step's bound (the weights read once) "
+          f"{w_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms", flush=True)
 
     launches = {}
     for b, s, g in ((B, S, gen), (4, 32, 16)):
+        gc.collect()  # an earlier phase's tensors may wait in reference cycles
         torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         ops.reset_launch_counts()
-        tokens = serve_cli.serve_lm(LM_ARCH, b, s, g, smoke=False, params=params)
+        tokens = serve_cli.serve_lm(arch, b, s, g, smoke=False, params=params)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
-        launches[s] = counts["flash_attention"]
-        check(counts["flash_attention"] == cfg.num_layers,
-              f"serve_lm prompt {s}: flash_attention launched {counts['flash_attention']} "
-              f"times, want {cfg.num_layers} (one per prefill layer, none in decode)")
+        launches[s] = counts[kernel]
+        check(counts[kernel] == cfg.num_layers,
+              f"serve_lm {arch} prompt {s}: {kernel} launched {counts[kernel]} times, want "
+              f"{cfg.num_layers} (one per prefill layer, none in decode)")
         check(tokens.shape == (b, g) and tokens.dtype == torch.int32
               and 0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab,
-              f"serve_lm prompt {s}: bad tokens {tuple(tokens.shape)} {tokens.dtype}")
-        print(f"[{label}] serve_lm B={b} prompt {s} gen {g}: peak device memory "
-              f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; flash_attention "
-              f"launches {counts['flash_attention']} (prefill {cfg.num_layers}, decode 0)",
-              flush=True)
+              f"serve_lm {arch} prompt {s}: bad tokens {tuple(tokens.shape)} {tokens.dtype}")
+        print(f"[{label}] serve_lm {arch} B={b} prompt {s} gen {g}: peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB ({base / 1e9:.3f} GB "
+              f"allocated before the call); {kernel} launches "
+              f"{counts[kernel]} (prefill {cfg.num_layers}, decode 0)", flush=True)
     ops.reset_launch_counts()
-    smoke_tokens = serve_cli.main(["--workload", "lm"])
+    smoke_tokens = serve_cli.main(["--workload", "lm", "--arch", arch])
     torch.cuda.synchronize()
-    check(ops.launch_counts()["flash_attention"] == 2 and smoke_tokens.shape == (4, 16),
-          f"the CLI (--workload lm, smoke config): {ops.launch_counts()['flash_attention']} "
-          f"launches, tokens {tuple(smoke_tokens.shape)}")
+    n_smoke = smoke_config(arch).num_layers
+    check(ops.launch_counts()[kernel] == n_smoke and smoke_tokens.shape == (4, 16),
+          f"the CLI (--workload lm --arch {arch}, smoke config): "
+          f"{ops.launch_counts()[kernel]} launches of {kernel} (want {n_smoke}), tokens "
+          f"{tuple(smoke_tokens.shape)}")
 
     from repro_torch.launch.serve import lm_prompts
 
     prompts = lm_prompts(0, B, S, cfg.vocab).to(dev)
     prefill = make_prefill_step(cfg, max_len=S + gen)
     prof = profile_call(lambda: prefill(params, {"tokens": prompts}),
-                        f"{label}] [prefill B={B} S={S}")
-    attn_ms = sum(ms for name, ms in prof["by_name"].items() if "flash_attention" in name)
+                        f"{label}] [{arch} prefill B={B} S={S}")
+    k_ms = sum(ms for name, ms in prof["by_name"].items() if kernel in name)
     if prof["busy_ms"]:
-        print(f"[{label}] prefill: flash_attention {attn_ms:.3f} ms of {prof['busy_ms']:.3f} "
-              f"ms device busy ({attn_ms / prof['busy_ms']:.3f}) and of "
-              f"{prof['wall_ms']:.3f} ms wall ({attn_ms / prof['wall_ms']:.3f})", flush=True)
+        print(f"[{label}] {arch} prefill: {kernel} {k_ms:.3f} ms of {prof['busy_ms']:.3f} "
+              f"ms device busy ({k_ms / prof['busy_ms']:.3f}) and of "
+              f"{prof['wall_ms']:.3f} ms wall ({k_ms / prof['wall_ms']:.3f})", flush=True)
 
     logits, caches = prefill(params, {"tokens": prompts})
     decode, token = make_serve_step(cfg), greedy_sample(logits)
     profile_call(lambda: decode(params, caches, token, S),
-                 f"{label}] [decode step B={B}, cache {S + gen} slots")
+                 f"{label}] [{arch} decode step B={B}, cache {S + gen} slots")
     del caches
-    with plain_attention():
+    with plain():
         t0 = time.perf_counter()
-        plain, _ = prefill(params, {"tokens": prompts})
+        plain_logits, _ = prefill(params, {"tokens": prompts})
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
-    logits, plain = logits.float(), plain.float()
-    check(torch.isfinite(logits).all().item() and torch.isfinite(plain).all().item(),
-          "full-depth prefill: non-finite logits")
-    diff = (logits - plain).abs().max().item()
-    agree = (logits.argmax(-1) == plain.argmax(-1)).float().mean().item()
-    print(f"[{label}] full-depth bf16 prefill, kernel vs plain attention ({plain_s * 1e3:.1f}"
-          f" ms plain): last-position logits max |Δ| {diff:.4g} (largest "
-          f"{plain.abs().max().item():.4g}); first-token agreement {agree:.3f} over {B} rows",
-          flush=True)
-    del params, logits, plain
+    logits, plain_logits = logits.float(), plain_logits.float()
+    check(torch.isfinite(logits).all().item() and torch.isfinite(plain_logits).all().item(),
+          f"{arch} full-depth prefill: non-finite logits")
+    diff = (logits - plain_logits).abs().max().item()
+    agree = (logits.argmax(-1) == plain_logits.argmax(-1)).float().mean().item()
+    print(f"[{label}] {arch} full-depth bf16 prefill, kernel vs plain {kernel} "
+          f"({plain_s * 1e3:.1f} ms plain): last-position logits max |Δ| {diff:.4g} (largest "
+          f"{plain_logits.abs().max().item():.4g}); first-token agreement {agree:.3f} over "
+          f"{B} rows", flush=True)
+    del params, logits, plain_logits
+    gc.collect()
     torch.cuda.empty_cache()
     return dict(launches=launches[S])
+
+
+def ssd_bound(B: int, H: int, S: int, P: int, N: int, dtype, b_heads: int) -> tuple:
+    """Least time for one SSD call: the chunked form's 2LN + 2LP + 4NP f32
+    flops per position and head (L = the kernel's chunk) at the f32 rate,
+    against x read and y written in ``dtype``, a in f32, b and c over their
+    ``b_heads`` distinct heads (1 when expanded) and the f32 state written
+    once; -> (ms, 'bytes'|'operations')."""
+    from repro_torch.kernels.ssd_chunk import CHUNK as L
+
+    s = torch.finfo(dtype).bits // 8
+    flops = B * H * S * (2 * L * N + 2 * L * P + 4 * N * P)
+    nbytes = 2 * B * H * S * P * s + B * H * S * 4 + 2 * B * b_heads * S * N * s + B * H * N * P * 4
+    t_ops = flops / PEAK_OPS_PER_S[torch.float32] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _ssd_operands(g, dev, dtype, B, H, S, P, N, mixer_layout: bool):
+    """x ~ N(0, 1), a = −0.1|N(0, 1)|, b, c ~ 0.5·N(0, 1) (the JAX suite's
+    draws).  In the mixer's layout x and a are transposed views of (B, S,
+    H, ·) tensors and b, c are (B, S, N) expanded over the heads."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    if mixer_layout:
+        x = randn(B, S, H, P).to(dtype).transpose(1, 2)
+        a = (-0.1 * randn(B, S, H).abs()).transpose(1, 2)
+        b, c = ((0.5 * randn(B, S, N)).to(dtype)[:, None].expand(B, H, S, N)
+                for _ in range(2))
+    else:
+        x = randn(B, H, S, P).to(dtype)
+        a = -0.1 * randn(B, H, S).abs()
+        b, c = ((0.5 * randn(B, H, S, N)).to(dtype) for _ in range(2))
+    return x, a, b, c
+
+
+def ssd_checks(ops, dev) -> tuple:
+    """Phase 15: ssd_chunk against its plain version at SSD_SHAPES, then
+    timed at the prefill shape.  Returns (timing row, max |Δ| of y)."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (B, H, S, P, N) in enumerate(SSD_SHAPES):
+            layout = i < 2  # the main path's shapes come in the mixer's layout
+            x, a, b, c = _ssd_operands(g, dev, dtype, B, H, S, P, N, layout)
+            y, h = ops.ssd_chunk(x, a, b, c)
+            y_ref, h_ref = ops.ssd_chunk(x, a, b, c, use_kernel=False)
+            torch.cuda.synchronize()
+            tol = SSD_TOL[dtype]
+            d_y = (y.float() - y_ref.float()).abs().max().item()
+            d_h = (h - h_ref).abs().max().item()
+            top_h = h_ref.abs().max().item()
+            where = f"ssd_chunk {str(dtype)[6:]} {(B, H, S, P, N)}"
+            check(y.dtype == dtype and y.shape == x.shape and h.shape == (B, H, N, P)
+                  and torch.isfinite(y.float()).all().item()
+                  and torch.isfinite(h).all().item()
+                  and torch.allclose(y.float(), y_ref.float(), rtol=tol, atol=tol),
+                  f"{where}: kernel y != plain (max |Δ| {d_y}, tolerance {tol})")
+            check(d_h <= SSD_STATE_RTOL * top_h, f"{where}: kernel state != plain (max |Δ| "
+                  f"{d_h}, largest {top_h}, tolerance {SSD_STATE_RTOL} of it)")
+            err = max(err, d_y)
+            print(f"{where} {'mixer views' if layout else 'contiguous '}: y max |Δ| "
+                  f"{d_y:.3g} (largest {y_ref.float().abs().max().item():.3g}; rtol = atol = "
+                  f"{tol}); h_final max |Δ| {d_h:.3g} (largest {top_h:.3g}, tol "
+                  f"{SSD_STATE_RTOL} of it)", flush=True)
+            del x, a, b, c, y, h, y_ref, h_ref
+    torch.cuda.empty_cache()
+
+    B, H, S, P, N = SSD_PREFILL
+    x, a, b, c = _ssd_operands(g, dev, torch.bfloat16, B, H, S, P, N, True)
+    k_ms, k_host = time_ms(lambda: ops.ssd_chunk(x, a, b, c), reps=10, trials=5)
+    p_ms, p_host = time_ms(lambda: ops.ssd_chunk(x, a, b, c, use_kernel=False),
+                           reps=1, trials=3)
+    b_ms, b_by = ssd_bound(B, H, S, P, N, torch.bfloat16, b_heads=1)
+    print(f"ssd_chunk bf16 {(B, H, S, P, N)} (mixer views): kernel {k_ms:.4f} ms "
+          f"(host {k_host:.4f}), plain {p_ms:.4f} ms (host {p_host:.4f}), bound "
+          f"{b_ms:.4f} ms ({b_by}); no library call computes it", flush=True)
+    del x, a, b, c
+    torch.cuda.empty_cache()
+    row = dict(ms=k_ms, plain_ms=p_ms, host_ms=k_host, plain_host_ms=p_host, bound_ms=b_ms,
+               bound_by=b_by, library_ms=None)
+    return row, err
 
 
 def _device_us(evt) -> float:
@@ -1215,16 +1366,25 @@ def main() -> int:
     adaptive_serve = serve_adaptive_checks(ops, dev, label)
     adaptive_launches = adaptive_grad_checks(ops, dev, label)
     attn_row, errs["flash_attention"] = attention_checks(ops, dev)
-    lm_parity_checks(dev, label)
-    lm_serve = lm_serve_checks(ops, dev, label)
+    lm_parity_checks(dev, label, LM_ARCH)
+    lm_serve = lm_serve_checks(ops, dev, label, LM_ARCH)
+    ssd_row, errs["ssd_chunk"] = ssd_checks(ops, dev)
+    lm_parity_checks(dev, label, SSM_ARCH)
+    ssm_serve = lm_serve_checks(ops, dev, label, SSM_ARCH)
 
     print(f"kernels: {', '.join(KERNEL_SOURCES)} (route cuda; bitwise = plain except "
-          f"flash_attention, within {ATTN_TOL}; decodes: {serve['decodes']})", flush=True)
+          f"flash_attention, within {ATTN_TOL}, and ssd_chunk, within {SSD_TOL} and the "
+          f"state within {SSD_STATE_RTOL} of its largest; decodes: {serve['decodes']})",
+          flush=True)
     entries = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
         if name == "flash_attention":  # timed at the prefill shape, bf16 causal
             r = attn_row
             launches = serve_launches = lm_serve["launches"]
+            extra = {}
+        elif name == "ssd_chunk":  # timed at the mamba2 prefill shape, bf16
+            r = ssd_row
+            launches = serve_launches = ssm_serve["launches"]
             extra = {}
         elif name == "brownian_value":  # timed at the adaptive gradient's shape
             r = value_rows["grad"]

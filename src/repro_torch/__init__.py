@@ -8,8 +8,9 @@ The port imports ``torch`` and numpy only: nothing of JAX and nothing of
 What is ported so far — Latent-SDE ELBO training (the exact reversible
 adjoint), the prior-decode serving path, adaptive stepping (the PI
 controller loop, the exact adjoint over the accepted grid, the SDE-GAN generator's
-fixed-grid and adaptive terminal services), and the dense transformer LM's
-serving (prefill through the GQA attention kernel, greedy decode):
+fixed-grid and adaptive terminal services), and LM serving of the dense
+family (prefill through the GQA attention kernel) and the pure-SSM
+family (prefill through the SSD chunk-scan kernel), with greedy decode:
 
 =====================================  ======================================
 port module                            reference
@@ -21,16 +22,16 @@ repro_torch.kernels.csrc/*             the Pallas kernels rev_heun_phase1,
                                        rev_heun_phase2, rev_heun_bwd_phase1,
                                        rev_heun_bwd_phase2, rev_heun_phase1_gen,
                                        brownian_increment, brownian_value,
-                                       flash_attention
+                                       flash_attention, ssd_chunk
 repro_torch.kernels.ops                repro.kernels.ops (dispatch)
 repro_torch.nn.core                    repro.nn.core (MLP pieces, GRU,
-                                       rmsnorm, layernorm, gelu)
+                                       rmsnorm, layernorm, gelu, softplus)
 repro_torch.configs                    repro.configs (ArchConfig; the dense
                                        qwen2.5-14b, tinyllama-1.1b,
-                                       starcoder2-3b)
+                                       starcoder2-3b; the SSM mamba2-1.3b)
 repro_torch.models                     repro.models (layers, transformer,
-                                       counting: the dense family's
-                                       prefill and decode)
+                                       counting: the dense and SSM
+                                       families' prefill and decode)
 repro_torch.core.brownian              repro.core.brownian (BrownianPath:
                                        grid increments, bridge point values)
 repro_torch.core.solvers               repro.core.solvers (reversible Heun:

@@ -1,9 +1,10 @@
 """Architecture registry (port of :mod:`repro.configs`): ``--arch <id>``
 resolution and the reduced smoke configs.
 
-The port has the dense family: qwen2.5-14b, tinyllama-1.1b and
-starcoder2-3b.  The other seven architectures of the reference raise
-:class:`ArchNotPortedError` naming the ROADMAP.md item that ports them.
+The port has the dense family (qwen2.5-14b, tinyllama-1.1b,
+starcoder2-3b) and the pure-SSM family (mamba2-1.3b).  The other six
+architectures of the reference raise :class:`ArchNotPortedError` naming
+the ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
@@ -12,15 +13,16 @@ import dataclasses
 
 import torch
 
-from . import qwen2_5_14b, starcoder2_3b, tinyllama_1_1b
+from . import mamba2_1_3b, qwen2_5_14b, starcoder2_3b, tinyllama_1_1b
 from .base import ArchConfig
 
-REGISTRY = {m.CONFIG.name: m.CONFIG for m in (qwen2_5_14b, starcoder2_3b, tinyllama_1_1b)}
+REGISTRY = {m.CONFIG.name: m.CONFIG
+            for m in (qwen2_5_14b, starcoder2_3b, tinyllama_1_1b, mamba2_1_3b)}
 
 #: The reference's architectures the port does not have yet, by family.
 NOT_PORTED = {
     "dbrx-132b": "moe", "grok-1-314b": "moe", "minicpm3-4b": "mla",
-    "mamba2-1.3b": "ssm", "jamba-v0.1-52b": "hybrid",
+    "jamba-v0.1-52b": "hybrid",
     "seamless-m4t-medium": "encdec", "pixtral-12b": "vlm",
 }
 
@@ -35,7 +37,7 @@ def get_config(name: str) -> ArchConfig:
     if name in NOT_PORTED:
         raise ArchNotPortedError(
             f"arch {name!r} ({NOT_PORTED[name]} family) is not ported yet: the port "
-            f"has the dense family {ARCH_NAMES} — ROADMAP.md Queue 1, item 14")
+            f"has the dense and SSM families {ARCH_NAMES} — ROADMAP.md Queue 1, item 14")
     if name not in REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
     return REGISTRY[name]
@@ -58,6 +60,15 @@ def smoke_config(name: str) -> ArchConfig:
         scan_layers=False,
         remat=False,
     )
+    if cfg.attention == "mla":
+        updates.update(q_lora_rank=32, kv_lora_rank=16, qk_nope_head_dim=8,
+                       qk_rope_head_dim=8, v_head_dim=8, head_dim=16)
+    if cfg.moe:
+        updates.update(num_experts=4, top_k=min(cfg.top_k, 2))
+    if cfg.ssm or cfg.family == "hybrid":
+        updates.update(ssm_state=16, ssm_headdim=16)
+    if cfg.encoder_layers:
+        updates.update(encoder_layers=2)
     return dataclasses.replace(cfg, **updates)
 
 

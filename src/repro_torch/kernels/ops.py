@@ -23,6 +23,7 @@ from . import brownian as _bk
 from . import flash_attention as _fa
 from . import ref
 from . import reversible_heun_step as _rh
+from . import ssd_chunk as _ssd
 
 
 def _decide(name: str, tensor: torch.Tensor, use_kernel: Optional[bool]) -> bool:
@@ -101,12 +102,22 @@ def flash_attention(q, k, v, causal: bool = True, scale: Optional[float] = None,
     return ref.flash_attention(q, k, v, causal=causal, scale=scale)
 
 
+def ssd_chunk(x, a, b, c, use_kernel: Optional[bool] = None):
+    """The Mamba2 SSD scan: x ``(B, H, S, P)``, a ``(B, H, S)`` log-decays,
+    b and c ``(B, H, S, N)`` -> ``(y in x's dtype, h_final (B, H, N, P)
+    float32)``.  The JAX package's dispatcher returns y alone; the port also
+    returns the terminal state, which seeds the decode cache."""
+    if _decide("ssd_chunk", x, use_kernel):
+        return _ssd.ssd_chunk(x, a, b, c)
+    return ref.ssd_chunk(x, a, b, c)
+
+
 def launch_counts() -> dict:
     """Kernel launches by name since the last :func:`reset_launch_counts`."""
-    return {**_rh.LAUNCHES, **_bk.LAUNCHES, **_fa.LAUNCHES}
+    return {**_rh.LAUNCHES, **_bk.LAUNCHES, **_fa.LAUNCHES, **_ssd.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
-    for table in (_rh.LAUNCHES, _bk.LAUNCHES, _fa.LAUNCHES):
+    for table in (_rh.LAUNCHES, _bk.LAUNCHES, _fa.LAUNCHES, _ssd.LAUNCHES):
         for name in table:
             table[name] = 0

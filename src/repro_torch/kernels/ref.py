@@ -1,11 +1,11 @@
 """Plain PyTorch versions of the ported kernels (port of
 :mod:`repro.kernels.ref`).
 
-Each function but :func:`flash_attention` is the definition the CUDA
-kernel in ``csrc/rev_heun.cu`` computes, with the same op order, so the two
-agree bitwise on the card (chip_smoke.py checks it).  The attention kernel
-(``csrc/flash_attention.cu``) sums in another order and is held to a
-tolerance.  On the CPU, :mod:`repro_torch.kernels.ops`
+Each function but :func:`flash_attention` and :func:`ssd_chunk` is the
+definition the CUDA kernel in ``csrc/rev_heun.cu`` computes, with the same
+op order, so the two agree bitwise on the card (chip_smoke.py checks it).
+The attention and SSD kernels (``csrc/flash_attention.cu``,
+``csrc/ssd_chunk.cu``) sum in another order and are held to a tolerance.  On the CPU, :mod:`repro_torch.kernels.ops`
 runs these instead of the kernels; with a card they run only when a caller
 asks for them with ``use_kernel=False``.
 
@@ -150,3 +150,30 @@ def flash_attention(q, k, v, causal: bool = True, scale=None):
         s = s.masked_fill(~mask, -math.inf)
     p = torch.softmax(s, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", p, vv)
+
+
+def ssd_chunk(x, a, b, c):
+    """The Mamba2 SSD recurrence, the reference's sequential definition
+    (``repro.kernels.ref.ssd_scan``): x ``(B, H, S, P)``, a ``(B, H, S)``
+    log-decays (<= 0), b and c ``(B, H, S, N)`` (any strides; the mixer
+    passes them expanded over heads with stride 0)::
+
+        h_t = exp(a_t)·h_{t-1} + b_t ⊗ x_t,   y_t = c_tᵀ h_t,   h_0 = 0
+
+    in float32, one position at a time (each slice is cast as it is read,
+    so no float32 copy of an expanded b or c is made).  Returns ``y`` in
+    x's dtype and the terminal state ``h_S`` ``(B, H, N, P)`` in float32 —
+    the second output of ``ssd_chunked_dense``, which seeds the decode.
+    The CUDA kernel (``csrc/ssd_chunk.cu``) computes the same function in
+    the chunked matrix form and agrees to a tolerance, not bitwise.
+    """
+    Bb, H, S, P = x.shape
+    N = b.shape[-1]
+    h = torch.zeros((Bb, H, N, P), dtype=torch.float32, device=x.device)
+    ys = torch.empty((Bb, H, S, P), dtype=torch.float32, device=x.device)
+    for t in range(S):
+        xt = x[:, :, t].float()
+        bt = b[:, :, t].float()
+        h = torch.exp(a[:, :, t].float())[..., None, None] * h + bt[..., :, None] * xt[..., None, :]
+        ys[:, :, t] = torch.einsum("bhn,bhnp->bhp", c[:, :, t].float(), h)
+    return ys.to(x.dtype), h

@@ -11,17 +11,20 @@ Usage::
         --ckpt-dir /path/to/ckpt            # a JAX- or port-written bundle
     PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \\
         --arch qwen2.5-14b --batch 4 --prompt-len 32 --gen 16   # smoke config
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \\
+        --arch mamba2-1.3b --full             # the full model, random weights
     PYTHONPATH=src python -m repro_torch.launch.serve --workload latent-sde \\
         --device cpu                        # plain PyTorch versions, no card
 
 Serves on the card by default; with no card and no ``--device cpu`` it
 stops with a named error.  ``--adaptive`` serves SDE-GAN terminal samples,
 each batch at the tolerance its deadline class admits.  ``--workload lm``
-serves the dense family (qwen2.5-14b, tinyllama-1.1b, starcoder2-3b) at
-their smoke size unless ``--full`` is given, as the reference's flags read.
-Still unported, each with a named error pointing at ROADMAP.md: the other
-LM families (MoE, MLA, SSM, hybrid, encoder-decoder, VLM), the Latent
-SDE's posterior decode, streaming, and the continuous-batching scheduler.
+serves the dense family (qwen2.5-14b, tinyllama-1.1b, starcoder2-3b) and
+the pure-SSM family (mamba2-1.3b) at their smoke size unless ``--full`` is
+given, as the reference's flags read.  Still unported, each with a named
+error pointing at ROADMAP.md: the other LM families (MoE, MLA, hybrid,
+encoder-decoder, VLM), the Latent SDE's posterior decode, streaming, and
+the continuous-batching scheduler.
 """
 
 from __future__ import annotations
@@ -53,14 +56,15 @@ def lm_prompts(seed: int, batch: int, prompt_len: int, vocab: int) -> torch.Tens
 
 def serve_lm(arch: str, batch: int, prompt_len: int, gen: int, smoke: bool = True,
              seed: int = 0, device=None, params=None):
-    """Prefill + greedy decode of a dense transformer LM; returns the
-    generated tokens, int32 ``(batch, gen)``.
+    """Prefill + greedy decode of a decoder-only LM (dense or Mamba2);
+    returns the generated tokens, int32 ``(batch, gen)``.
 
     Fresh weights come from a generator seeded with ``seed`` on the serving
     device, unless ``params`` are given (weights carried across from JAX,
     or one model served at several shapes).  The prompts are the
-    reference's (:func:`lm_prompts`).  The cache holds ``prompt_len + gen``
-    slots.  Prints the prefill time and the decode rate, each timed between
+    reference's (:func:`lm_prompts`).  An attention cache holds
+    ``prompt_len + gen`` slots; a Mamba2 cache is its conv window and SSM
+    state, and a prompt shorter than ``ssm_conv − 1`` raises.  Prints the prefill time and the decode rate, each timed between
     device synchronisations."""
     from ..configs import get_config, smoke_config
     from ..models import transformer as T

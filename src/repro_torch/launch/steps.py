@@ -157,7 +157,8 @@ def make_latent_sde_step(cfg, opt_update, batch: int, seq_len: int,
 
 def make_prefill_step(cfg, max_len=None):
     """``(params, batch) -> (last-token logits (B, 1, vocab), caches)``, the
-    caches padded to ``max_len`` slots; ``batch["tokens"]`` is ``(B, S)``."""
+    attention caches padded to ``max_len`` slots (a Mamba2 cache has no
+    sequence axis); ``batch["tokens"]`` is ``(B, S)``."""
     from ..models import transformer as T
 
     def prefill_step(params, batch):
@@ -170,7 +171,8 @@ def make_prefill_step(cfg, max_len=None):
 
 def make_serve_step(cfg):
     """``(params, caches, token, pos) -> (logits, caches)``: one new token
-    against the cache, which is updated in place."""
+    against the cache (KV rows, or the conv window and SSM state), which is
+    updated in place."""
     from ..models import transformer as T
 
     def serve_step(params, caches, token, pos):

@@ -1,2 +1,2 @@
-"""The transformer zoo (port of :mod:`repro.models`), the dense family:
-``layers``, ``transformer``, ``counting``."""
+"""The transformer zoo (port of :mod:`repro.models`), the dense and SSM
+families: ``layers``, ``transformer``, ``counting``."""

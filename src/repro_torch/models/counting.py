@@ -1,5 +1,5 @@
 """Analytic parameter count (port of :mod:`repro.models.counting`, the
-dense family's branch).  It mirrors what
+dense and pure-SSM families' branches).  It mirrors what
 :func:`repro_torch.models.transformer.init_lm` allocates, and the tests
 hold it to the leaf sizes and to the reference's count."""
 
@@ -23,12 +23,23 @@ def _ffn_params(cfg: ArchConfig) -> int:
     return n
 
 
+def _mamba_params(cfg: ArchConfig) -> int:
+    d, di, n, h, k = cfg.d_model, cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_conv
+    conv_dim = di + 2 * n
+    total = d * (2 * di + 2 * n + h)    # in_proj
+    total += k * conv_dim + conv_dim    # conv
+    total += 3 * h                      # A_log, dt_bias, Dskip
+    total += di                         # norm_g
+    total += di * d                     # out_proj
+    return total
+
+
 def _norm_params(cfg: ArchConfig) -> int:
     return 2 * cfg.d_model if cfg.norm == "layernorm" else cfg.d_model
 
 
 def param_count(cfg: ArchConfig) -> int:
-    """Total parameter count of a dense-family model."""
+    """Total parameter count of a dense- or SSM-family model."""
     from .transformer import unit_pattern
 
     unit_pattern(cfg)  # raises for the families the port lacks
@@ -36,5 +47,8 @@ def param_count(cfg: ArchConfig) -> int:
     if not cfg.tie_embeddings:
         n += cfg.vocab * cfg.d_model                  # head
     n += _norm_params(cfg)                            # final norm
-    n += cfg.num_layers * (_attn_params(cfg) + _ffn_params(cfg) + 2 * _norm_params(cfg))
-    return n
+    if cfg.ssm:                                       # pure SSM stack
+        layer = _mamba_params(cfg) + _norm_params(cfg)
+    else:
+        layer = _attn_params(cfg) + _ffn_params(cfg) + 2 * _norm_params(cfg)
+    return n + cfg.num_layers * layer

@@ -1,6 +1,8 @@
 """Sequence-mixing and FFN layers of the transformer zoo (port of
-:mod:`repro.models.layers`), the dense family's: RoPE, GQA self-attention
-(full sequence and single-token decode against a cache) and the dense FFN.
+:mod:`repro.models.layers`), the dense and SSM families': RoPE, GQA
+self-attention (full sequence and single-token decode against a cache),
+the dense FFN, and the Mamba2 mixer (the chunked SSD prefill and the
+recurrent single-token decode).
 
 Parameters are dicts of tensors in the reference's layout (``x @ w``).
 ``*_init`` draw fresh weights from an explicit ``torch.Generator`` at the
@@ -12,7 +14,9 @@ Not ported: ``distributed.sharding.hint``, ``checkpoint_name`` and the
 counterpart on one card (they return with ``distributed/``, ROADMAP.md
 Queue 1, item 13); ``blockwise_attention`` is the XLA path of the
 reference — on the card the attention runs in the CUDA kernel, on the CPU
-in its plain version.  MLA, MoE, mamba2 and cross-attention raise
+in its plain version; likewise ``ssd_chunked_dense`` is the reference's
+XLA form of the SSD scan, and the port's mixer calls the SSD kernel (its
+plain version on the CPU).  MLA, MoE and cross-attention raise
 :class:`LayerNotPortedError`.
 """
 
@@ -186,3 +190,119 @@ def ffn_apply(p, cfg: ArchConfig, x):
     else:
         h = nn.gelu(x @ p["up"])
     return h @ p["down"]
+
+
+# =============================================================================
+# Mamba2 mixer (SSD)
+# =============================================================================
+
+
+def mamba2_init(generator: torch.Generator, cfg: ArchConfig, lead: Sequence[int] = (),
+                device=None):
+    """The reference's ``mamba2_init`` scales and dtypes: ``A_log``,
+    ``dt_bias`` and ``Dskip`` are float32 in a model of any dtype."""
+    d = cfg.d_model
+    di, N, H, k = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_conv
+    conv_dim = di + 2 * N
+    lead = tuple(lead)
+
+    def w(shape):
+        return _normal(generator, lead + shape, cfg.dtype, device)
+
+    def per_head(v):
+        return v.to(device).expand(lead + v.shape).clone()
+
+    return {
+        "in_proj": w((d, 2 * di + 2 * N + H)).mul_(1.0 / math.sqrt(d)),
+        "conv_w": w((k, conv_dim)).div_(math.sqrt(k)),
+        "conv_b": torch.zeros(lead + (conv_dim,), dtype=cfg.dtype, device=device),
+        "A_log": per_head(torch.log(torch.linspace(1.0, 16.0, H, dtype=torch.float32))),
+        "dt_bias": per_head(torch.log(torch.expm1(torch.full((H,), 0.01)))),  # softplus⁻¹
+        "Dskip": per_head(torch.ones((H,), dtype=torch.float32)),
+        "norm_g": torch.ones(lead + (di,), dtype=cfg.dtype, device=device),
+        "out_proj": w((di, d)).div_(math.sqrt(di)).div_(math.sqrt(2 * cfg.num_layers)),
+    }
+
+
+def _causal_conv(xbc, w, b):
+    """xbc: ``(B, S, Cdim)``; depthwise causal conv, kernel ``(k, Cdim)``."""
+    k = w.shape[0]
+    pad = torch.nn.functional.pad(xbc, (0, 0, k - 1, 0))
+    out = sum(pad[:, i: i + xbc.shape[1], :] * w[i] for i in range(k))
+    return out + b
+
+
+def _split_zxbcdt(cfg: ArchConfig, zxbcdt):
+    di, N = cfg.ssm_inner, cfg.ssm_state
+    return torch.split(zxbcdt, [di, di, N, N, cfg.ssm_heads], -1)
+
+
+def _ssd_dispatch(x, a, b, c):
+    """The CUDA kernel for CUDA tensors, the plain version for CPU tensors
+    (:func:`repro_torch.kernels.ops.ssd_chunk`)."""
+    return ops.ssd_chunk(x, a, b, c)
+
+
+def mamba2_apply(p, cfg: ArchConfig, x):
+    """Train/prefill path (chunked SSD).  x: ``(B, S, D)``.
+
+    Returns ``(out, cache)``; the cache is the terminal conv window (the
+    last ``k − 1`` pre-activation conv inputs) and SSM state, so a prefill
+    seeds the recurrent decode.  The rounding order is the reference's:
+    x·dt is rounded to x's dtype before the scan, the skip term and the
+    gate in x's dtype.  b and c go to the scan as views expanded over the
+    heads (the reference broadcasts them)."""
+    B, S, _ = x.shape
+    di, N, H, P_ = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
+    k = cfg.ssm_conv
+    z, xin, Bc, Cc, dt = _split_zxbcdt(cfg, x @ p["in_proj"])
+    conv_in = torch.cat([xin, Bc, Cc], -1)                                # (B,S,conv_dim)
+    xbc = nn.silu(_causal_conv(conv_in, p["conv_w"], p["conv_b"]))
+    xin, Bc, Cc = torch.split(xbc, [di, N, N], -1)
+    dt = nn.softplus(dt.float() + p["dt_bias"])                           # (B,S,H)
+    a = -torch.exp(p["A_log"]) * dt                                       # log-decay
+    xh = xin.reshape(B, S, H, P_)
+    xs = (xh * dt[..., None].to(xh.dtype)).transpose(1, 2)                # (B,H,S,P)
+    y, h_final = _ssd_dispatch(xs, a.transpose(1, 2), Bc[:, None].expand(B, H, S, N),
+                               Cc[:, None].expand(B, H, S, N))
+    y = y + p["Dskip"][None, :, None, None].to(y.dtype) * xh.transpose(1, 2)
+    y = y.transpose(1, 2).reshape(B, S, di)
+    y = y * nn.silu(z)
+    y = nn.rmsnorm({"g": p["norm_g"]}, y)
+    cache = {"conv": conv_in[:, S - (k - 1):, :], "ssm": h_final}
+    return y @ p["out_proj"], cache
+
+
+def mamba2_init_cache(cfg: ArchConfig, batch: int, dtype, lead: Sequence[int] = (),
+                      device=None):
+    di, N, H, P_, k = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_conv
+    lead = tuple(lead)
+    return {"conv": torch.zeros(lead + (batch, k - 1, di + 2 * N), dtype=dtype, device=device),
+            "ssm": torch.zeros(lead + (batch, H, N, P_), dtype=torch.float32, device=device)}
+
+
+def mamba2_decode(p, cfg: ArchConfig, x, cache, pos):
+    """Single-token recurrent step.  x: ``(B, 1, D)``.
+
+    As in the reference, the decay is ``exp(a)`` itself and x·dt stays in
+    float32 (the prefill rounds it to x's dtype).  The new conv window and
+    SSM state are written into ``cache`` in place — where the reference
+    returns them — and ``cache`` is returned; ``pos`` is unused."""
+    B = x.shape[0]
+    di, N, H, P_ = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
+    z, xin, Bc, Cc, dt = _split_zxbcdt(cfg, x[:, 0] @ p["in_proj"])
+    xbc_new = torch.cat([xin, Bc, Cc], -1)                                # (B, conv_dim)
+    conv_win = torch.cat([cache["conv"], xbc_new[:, None]], 1)            # (B, k, conv)
+    out = (conv_win * p["conv_w"][None]).sum(1) + p["conv_b"]
+    xin, Bc, Cc = torch.split(nn.silu(out), [di, N, N], -1)
+    dt = nn.softplus(dt.float() + p["dt_bias"])                           # (B,H)
+    a = torch.exp(-torch.exp(p["A_log"]) * dt)                            # (B,H) decay
+    xh = xin.reshape(B, H, P_).float() * dt[..., None]
+    h = cache["ssm"] * a[..., None, None] + Bc[:, None, :, None].float() * xh[:, :, None, :]
+    y = torch.einsum("bn,bhnp->bhp", Cc.float(), h)
+    y = y + p["Dskip"][None, :, None] * xin.reshape(B, H, P_).float()
+    y = y.reshape(B, di).to(x.dtype) * nn.silu(z)
+    y = nn.rmsnorm({"g": p["norm_g"]}, y)
+    cache["conv"].copy_(conv_win[:, 1:])
+    cache["ssm"].copy_(h)
+    return (y @ p["out_proj"])[:, None], cache

@@ -1,21 +1,24 @@
-"""Decoder-only transformer LM: init, forward, prefill and decode (port of
-:mod:`repro.models.transformer`, the dense family).
+"""Decoder-only LM: init, forward, prefill and decode (port of
+:mod:`repro.models.transformer`, the dense and pure-SSM families).
 
 Parameters keep the reference's pytree: ``{"embed", "final_norm", "head"
 (untied only), "units": [block]}``, where ``units`` holds one block per
-entry of :func:`unit_pattern` (one for the dense family) and every block
+entry of :func:`unit_pattern` (one for both families) and every block
 leaf carries a leading layer axis; layer ``i`` is the view ``leaf[i]``, as
 the reference's unrolled path slices it.  So
 :func:`repro_torch.checkpoint.params_from_jax` carries a JAX LM's weights
-across as they are.  Caches are the same: a list of ``{"k", "v"}`` dicts
-with leaves ``(num_units, B, S, Hkv, hd)``.
+across as they are.  Caches are the same: a list of per-block dicts with a
+leading layer axis, ``{"k", "v": (U, B, S, Hkv, hd)}`` for attention and
+``{"conv": (U, B, k − 1, inner + 2N), "ssm": (U, B, H, N, P) float32}`` for
+the Mamba2 mixer.
 
 The layer stack is a Python loop (``scan_layers`` and ``remat`` are XLA
 compile hints; ``reversible_residual`` is not ported).  Decode writes each
-layer's new K/V row into the stacked cache in place, where the reference
-donates the buffer; :func:`lm_decode` returns the same cache object.
-MoE, MLA, mamba2, hybrid, encoder-decoder and prefix ``embeds`` raise
-:class:`ModelNotPortedError` naming ROADMAP.md.
+layer's new K/V row, or its new conv window and SSM state, into the
+stacked cache in place, where the reference donates the buffer;
+:func:`lm_decode` returns the same cache object.  MoE, MLA, hybrid,
+encoder-decoder and prefix ``embeds`` raise :class:`ModelNotPortedError`
+naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ class ModelNotPortedError(NotImplementedError):
 
 def _not_ported(what: str):
     return ModelNotPortedError(f"{what} is not ported yet: the port has the dense "
-                               f"family — ROADMAP.md Queue 1, item 14")
+                               f"and SSM families — ROADMAP.md Queue 1, item 14")
 
 
 # =============================================================================
@@ -48,7 +51,9 @@ def _not_ported(what: str):
 
 def unit_pattern(cfg: ArchConfig) -> List[Tuple[str, str]]:
     """(mixer, ffn) per layer in the smallest repeating unit of the stack."""
-    if cfg.ssm or cfg.family in ("hybrid", "encdec") or cfg.moe or cfg.attention != "gqa":
+    if cfg.ssm:
+        return [("mamba", "none")]
+    if cfg.family in ("hybrid", "encdec") or cfg.moe or cfg.attention != "gqa":
         raise _not_ported(f"the {cfg.family} family ({cfg.name})")
     return [("attn", "dense")]
 
@@ -76,34 +81,42 @@ def _norm(cfg: ArchConfig, p, x):
     return nn.layernorm(p, x) if cfg.norm == "layernorm" else nn.rmsnorm(p, x)
 
 
-# The blocks below are the dense family's ("attn", "dense"): unit_pattern
-# refuses every other, so ``mixer`` and ``ffn`` only mirror the reference.
+# unit_pattern admits ("attn", "dense") and ("mamba", "none") only.
 
 
 def block_init(generator: torch.Generator, cfg: ArchConfig, mixer: str, ffn: str,
                lead=(), device=None) -> Params:
-    return {"ln1": _norm_init(cfg, lead, device),
-            "mixer": L.gqa_init(generator, cfg, lead, device),
-            "ln2": _norm_init(cfg, lead, device),
-            "ffn": L.ffn_init(generator, cfg, lead, device)}
+    mix = (L.mamba2_init if mixer == "mamba" else L.gqa_init)(generator, cfg, lead, device)
+    p: Params = {"ln1": _norm_init(cfg, lead, device), "mixer": mix}
+    if ffn != "none":
+        p["ln2"] = _norm_init(cfg, lead, device)
+        p["ffn"] = L.ffn_init(generator, cfg, lead, device)
+    return p
 
 
 def block_apply(p: Params, cfg: ArchConfig, mixer: str, ffn: str, x):
     """Full-sequence causal block.  Returns ``(x, cache_entry)`` (the
-    reference's third output, the MoE aux loss, is 0 for a dense block)."""
+    reference's third output, the MoE aux loss, is 0 for these blocks)."""
     h = _norm(cfg, p["ln1"], x)
-    o, (k, v) = L.gqa_attend(p["mixer"], cfg, h)
+    if mixer == "mamba":
+        o, cache = L.mamba2_apply(p["mixer"], cfg, h)
+    else:
+        o, (k, v) = L.gqa_attend(p["mixer"], cfg, h)
+        cache = {"k": k, "v": v}
     x = x + o
-    x = x + L.ffn_apply(p["ffn"], cfg, _norm(cfg, p["ln2"], x))
-    return x, {"k": k, "v": v}
+    if ffn != "none":
+        x = x + L.ffn_apply(p["ffn"], cfg, _norm(cfg, p["ln2"], x))
+    return x, cache
 
 
 def block_decode(p: Params, cfg: ArchConfig, mixer: str, ffn: str, x, cache, pos):
     """Single-token block step against ``cache`` (updated in place).  x: ``(B, 1, D)``."""
     h = _norm(cfg, p["ln1"], x)
-    o, cache = L.gqa_decode(p["mixer"], cfg, h, cache, pos)
+    decode = L.mamba2_decode if mixer == "mamba" else L.gqa_decode
+    o, cache = decode(p["mixer"], cfg, h, cache, pos)
     x = x + o
-    x = x + L.ffn_apply(p["ffn"], cfg, _norm(cfg, p["ln2"], x))
+    if ffn != "none":
+        x = x + L.ffn_apply(p["ffn"], cfg, _norm(cfg, p["ln2"], x))
     return x, cache
 
 
@@ -166,7 +179,7 @@ def _lm_head(params, cfg: ArchConfig, x):
 
 def lm_forward(params, cfg: ArchConfig, tokens, embeds=None):
     """Train-mode forward: logits over the full sequence + the aux loss
-    (0: the dense family has no MoE router)."""
+    (0: neither ported family has a MoE router)."""
     x = _embed(params, cfg, tokens, embeds)
     x, _ = _stack_forward(params["units"], cfg, x)
     x = _norm(cfg, params["final_norm"], x)
@@ -175,7 +188,17 @@ def lm_forward(params, cfg: ArchConfig, tokens, embeds=None):
 
 def lm_prefill(params, cfg: ArchConfig, tokens, embeds=None, max_len: Optional[int] = None):
     """Prefill: last-position logits ``(B, 1, vocab)`` + the populated cache,
-    sized to the prompt, or padded to ``max_len`` slots."""
+    sized to the prompt, or padded to ``max_len`` slots.
+
+    A Mamba2 stack needs a prompt of at least ``ssm_conv − 1`` tokens to
+    fill its conv window: the reference's cache comes out short below that
+    and its first decode step fails on the shapes, so the port refuses it
+    here by name."""
+    k = cfg.ssm_conv
+    if tokens.shape[1] < k - 1 and any(m == "mamba" for m, _ in unit_pattern(cfg)):
+        raise ValueError(f"{cfg.name}: a prompt of {tokens.shape[1]} tokens is shorter than "
+                         f"the conv window's ssm_conv - 1 = {k - 1}; the Mamba2 decode "
+                         f"cache needs that many (ROADMAP.md Queue 3)")
     x = _embed(params, cfg, tokens, embeds)
     x, caches = _stack_forward(params["units"], cfg, x, want_cache=True)
     x = _norm(cfg, params["final_norm"], x)
@@ -187,7 +210,8 @@ def lm_prefill(params, cfg: ArchConfig, tokens, embeds=None, max_len: Optional[i
 
 def _pad_caches(caches, max_len: int):
     """Zero-pad the sequence axis (2 of ``(U, B, S, ...)``) of the attention
-    caches to ``max_len``."""
+    caches to ``max_len``; the Mamba2 ``conv`` and ``ssm`` leaves have no
+    sequence axis and stay as they are."""
     def pad(leaf):
         if leaf.dim() >= 3 and leaf.shape[2] < max_len:
             out = leaf.new_zeros(leaf.shape[:2] + (max_len,) + leaf.shape[3:])
@@ -212,6 +236,12 @@ def lm_decode(params, cfg: ArchConfig, token, caches, pos):
 
 
 def init_cache_zeros(cfg: ArchConfig, batch: int, max_len: int, device=None):
-    """The stacked cache of zeros: ``[{"k", "v": (U, B, max_len, Hkv, hd)}]``."""
-    return [L.gqa_init_cache(cfg, batch, max_len, cfg.dtype, (num_units(cfg),), device)
-            for _ in unit_pattern(cfg)]
+    """The stacked cache of zeros, one dict per block of the unit:
+    ``{"k", "v": (U, B, max_len, Hkv, hd)}`` in ``cfg.dtype`` for attention,
+    ``{"conv": (U, B, k − 1, inner + 2N)}`` in ``cfg.dtype`` and ``{"ssm":
+    (U, B, H, N, P)}`` in float32 for the Mamba2 mixer (the reference's
+    ``block_cache_spec``)."""
+    lead = (num_units(cfg),)
+    return [L.mamba2_init_cache(cfg, batch, cfg.dtype, lead, device) if m == "mamba"
+            else L.gqa_init_cache(cfg, batch, max_len, cfg.dtype, lead, device)
+            for m, _ in unit_pattern(cfg)]

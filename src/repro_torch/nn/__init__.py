@@ -17,5 +17,6 @@ from .core import (  # noqa: F401
     rmsnorm_init,
     sigmoid,
     silu,
+    softplus,
     tcat,
 )

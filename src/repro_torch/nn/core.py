@@ -1,6 +1,6 @@
 """Functional NN building blocks on tensors (port of :mod:`repro.nn.core`):
 the MLP and GRU pieces of the SDE models, and the norms and activations of
-the transformer zoo (``rmsnorm``, ``layernorm``, ``gelu``).
+the transformer zoo (``rmsnorm``, ``layernorm``, ``gelu``, ``softplus``).
 
 Parameters are nested dicts of tensors with the reference pytree's layout
 (``{"layers": [{"w": (in, out), "b": (out,)}]}``), so weights carried over
@@ -35,6 +35,13 @@ def sigmoid(x):
 
 def silu(x):
     return x * sigmoid(x)
+
+
+def softplus(x):
+    """``log(1 + exp(x))`` as ``jax.nn.softplus`` computes it,
+    ``logaddexp(x, 0)``: no linear branch above a threshold, unlike
+    ``torch.nn.functional.softplus``."""
+    return torch.logaddexp(x, torch.zeros_like(x))
 
 
 def lipswish(x):

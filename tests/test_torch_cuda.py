@@ -5,7 +5,9 @@ the adaptive paths: the ``brownian_value`` kernel, the fused adaptive
 exact adjoint = the unfused one, and the adaptive SDE-GAN sampler's
 padding invariance; the GQA attention kernel against its plain version
 (float32 2e-5, bfloat16 6e-2: the two sum in different orders) and a
-two-layer smoke LM's prefill routed through it.
+two-layer smoke LM's prefill routed through it; the SSD chunk-scan kernel
+against its plain version (y: float32 2e-4, bfloat16 6e-2; the state 2e-4
+of its largest magnitude) and a two-layer smoke mamba2 prefill through it.
 
 These need an NVIDIA GPU with nvcc (the kernels have no CPU mode); each test
 skips without one.  On the GPU machine::
@@ -96,10 +98,12 @@ def test_each_launch_is_counted_once(cuda):
     q = torch.rand(1, 2, 5, 16, device=cuda)
     ops.flash_attention(q, q, q)
     ops.flash_attention(q, q, q, use_kernel=False)
+    ops.ssd_chunk(q, -q[..., 0], q, q)
+    ops.ssd_chunk(q, -q[..., 0], q, q, use_kernel=False)
     assert ops.launch_counts() == {"rev_heun_phase1": 1, "rev_heun_phase2": 1,
                                    "rev_heun_bwd_phase1": 1, "rev_heun_bwd_phase2": 1,
                                    "rev_heun_phase1_gen": 1, "brownian_increment": 1,
-                                   "brownian_value": 1, "flash_attention": 1}
+                                   "brownian_value": 1, "flash_attention": 1, "ssd_chunk": 1}
 
 
 def test_operands_are_checked(cuda):
@@ -266,3 +270,48 @@ def test_smoke_lm_prefill_runs_through_the_kernel(cuda, monkeypatch):
     plain, _ = prefill(params, {"tokens": tokens.to(cuda)})
     torch.testing.assert_close(logits, plain, rtol=2e-5, atol=2e-5)
     assert caches[0]["k"].shape == (2, 2, 80, cfg.num_kv_heads, cfg.head_dim)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,S,P,N", [(2, 8, 100, 16, 16), (1, 4, 300, 64, 128),
+                                       (2, 3, 1, 64, 16), (1, 2, 64, 16, 128)])
+def test_ssd_chunk_kernel_matches_plain_version(cuda, dtype, B, H, S, P, N):
+    g = torch.Generator().manual_seed(S)
+    x = torch.randn(B, H, S, P, generator=g).to(cuda, dtype)
+    a = -0.1 * torch.randn(B, H, S, generator=g).abs().to(cuda)
+    b = (0.5 * torch.randn(B, 1, S, N, generator=g)).to(cuda, dtype).expand(B, H, S, N)
+    c = (0.5 * torch.randn(B, H, S, N, generator=g)).to(cuda, dtype)
+    ops.reset_launch_counts()
+    y, h = ops.ssd_chunk(x, a, b, c)
+    assert ops.launch_counts()["ssd_chunk"] == 1
+    y_ref, h_ref = ops.ssd_chunk(x, a, b, c, use_kernel=False)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and y.shape == x.shape and h.shape == (B, H, N, P)
+    tol = 2e-4 if dtype == torch.float32 else 6e-2
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=tol, atol=tol)
+    assert (h - h_ref).abs().max() <= 2e-4 * h_ref.abs().max()
+
+
+def test_smoke_mamba2_prefill_runs_through_the_kernel(cuda, monkeypatch):
+    """Two Mamba2 layers (H 8, P 16, N 16): one launch per layer, none per
+    decode step, and the logits of the plain-scan prefill and of the CPU
+    within float32 tolerance."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.steps import greedy_sample, make_prefill_step, make_serve_step
+    from repro_torch.models import layers, transformer
+
+    cfg = smoke_config("mamba2-1.3b")
+    params = transformer.init_lm(torch.Generator().manual_seed(0), cfg, device=cuda)
+    tokens = torch.randint(0, cfg.vocab, (2, 77), generator=torch.Generator().manual_seed(1))
+    prefill = make_prefill_step(cfg, max_len=80)
+    ops.reset_launch_counts()
+    logits, caches = prefill(params, {"tokens": tokens.to(cuda)})
+    make_serve_step(cfg)(params, caches, greedy_sample(logits), 77)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ssd_chunk"] == cfg.num_layers == 2
+    cpu_logits, _ = prefill(tree.map(lambda a: a.cpu(), params), {"tokens": tokens})
+    torch.testing.assert_close(logits.cpu(), cpu_logits, rtol=2e-4, atol=2e-4)
+    monkeypatch.setattr(layers, "_ssd_dispatch", lambda x, a, b, c:
+                        ops.ssd_chunk(x, a, b, c, use_kernel=False))
+    plain, _ = prefill(params, {"tokens": tokens.to(cuda)})
+    torch.testing.assert_close(logits, plain, rtol=2e-4, atol=2e-4)

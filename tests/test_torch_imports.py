@@ -34,8 +34,10 @@ def test_port_files_exist():
     assert {"chip_smoke.py", "prng.py", "ops.py", "sde.py", "service.py", "train.py",
             "discretise.py", "synthetic.py", "optimizers.py", "tree.py",
             "flash_attention.py", "layers.py", "transformer.py", "counting.py", "base.py",
-            "qwen2_5_14b.py", "tinyllama_1_1b.py", "starcoder2_3b.py"} <= names
-    assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "flash_attention.cu").exists()
+            "qwen2_5_14b.py", "tinyllama_1_1b.py", "starcoder2_3b.py", "ssd_chunk.py",
+            "mamba2_1_3b.py"} <= names
+    for src in ("flash_attention.cu", "ssd_chunk.cu"):
+        assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / src).exists()
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -73,3 +75,8 @@ def test_lm_slice_import_leaves_jax_unloaded():
     _imports_leave_jax_unloaded("repro_torch.configs, repro_torch.models.transformer, "
                                 "repro_torch.models.counting, "
                                 "repro_torch.kernels.flash_attention")
+
+
+def test_ssm_slice_import_leaves_jax_unloaded():
+    _imports_leave_jax_unloaded("repro_torch.configs.mamba2_1_3b, repro_torch.models.layers, "
+                                "repro_torch.kernels.ssd_chunk, repro_torch.kernels.ops")

@@ -1,17 +1,20 @@
-"""The port's dense transformer LM on the CPU against the JAX package, at
-the smoke size of qwen2.5-14b, tinyllama-1.1b and starcoder2-3b (float32):
-weights from the reference's ``init_lm(PRNGKey(0))`` carried across with
-``params_from_jax``; RoPE, GQA attention, the FFN, the forward logits,
-prefill (logits and the padded caches), 8 greedy decode steps, the
-parameter count, the served tokens and prompts; and bfloat16 weights
-carried across bitwise.
+"""The port's decoder-only LMs on the CPU against the JAX package, at the
+smoke size of qwen2.5-14b, tinyllama-1.1b, starcoder2-3b (dense) and
+mamba2-1.3b (pure SSM), float32: weights from the reference's
+``init_lm(PRNGKey(0))`` carried across with ``params_from_jax``; RoPE, GQA
+attention and the FFN (dense); the Mamba2 mixer's prefill (output, conv
+window and SSM state) and recurrent decode step; the forward logits,
+prefill (logits and the caches), 8 greedy decode steps, the parameter
+count, the served tokens and prompts; bfloat16 weights carried across
+bitwise (a Mamba2 model keeps its float32 leaves).
 
 Tolerance, float32: rtol = atol = 1e-5.  Both sides compute the same ops
 in float32; the sums run in other orders (XLA's CPU dot against torch's
 BLAS; the reference's blockwise online softmax against the port's plain
-softmax on the CPU) and exp, sigmoid and pow differ by ulps, which leaves
+softmax on the CPU; the reference's chunked SSD form against the port's
+plain recurrence) and exp, sigmoid and pow differ by ulps, which leaves
 differences of at most ~2e-6 on logits of magnitude up to ~4 after two
-layers (measured on the three configs).  Tokens are compared exactly.
+layers (measured on the dense configs).  Tokens are compared exactly.
 """
 
 import dataclasses
@@ -36,7 +39,8 @@ from repro_torch.models import counting
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
-ARCHS = ["qwen2.5-14b", "tinyllama-1.1b", "starcoder2-3b"]
+DENSE = ["qwen2.5-14b", "tinyllama-1.1b", "starcoder2-3b"]
+ARCHS = DENSE + ["mamba2-1.3b"]
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
@@ -65,6 +69,7 @@ def test_smoke_config_matches_reference(model):
     assert cfg.dtype == torch.float32 and jcfg.dtype == jnp.float32
 
 
+@pytest.mark.parametrize("model", DENSE, indirect=True)
 def test_rope_matches_jax(model):
     _, jcfg, cfg, _, _ = model
     x = np.random.default_rng(1).standard_normal((2, 9, 3, cfg.head_dim), dtype=np.float32)
@@ -77,6 +82,7 @@ def test_rope_matches_jax(model):
            JL.apply_rope(jnp.asarray(x), jcos, jsin))
 
 
+@pytest.mark.parametrize("model", DENSE, indirect=True)
 def test_gqa_attend_and_ffn_match_jax(model):
     _, jcfg, cfg, jparams, params = model
     x = np.random.default_rng(2).standard_normal((2, 12, cfg.d_model), dtype=np.float32)
@@ -113,11 +119,16 @@ def test_prefill_and_eight_decode_steps_match_jax(model):
     _close(logits, jlogits)
     jleaves, leaves = jax.tree.leaves(jcaches), tree.leaves(caches)
     assert len(leaves) == len(jleaves) == 2
-    for a, b in zip(leaves, jleaves):
-        assert tuple(a.shape) == b.shape == (cfg.num_layers, B, S + gen, cfg.num_kv_heads,
-                                              cfg.head_dim)
+    if cfg.ssm:  # conv window, SSM state: no sequence axis, nothing padded
+        shapes = [(cfg.num_layers, B, cfg.ssm_conv - 1, cfg.ssm_inner + 2 * cfg.ssm_state),
+                  (cfg.num_layers, B, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_headdim)]
+    else:
+        shapes = [(cfg.num_layers, B, S + gen, cfg.num_kv_heads, cfg.head_dim)] * 2
+    for a, b, shape in zip(leaves, jleaves, shapes):
+        assert tuple(a.shape) == b.shape == shape
         _close(a, b)
-        assert not a[:, :, S:].any()
+        if not cfg.ssm:
+            assert not a[:, :, S:].any()
     zeros = T.init_cache_zeros(cfg, B, S + gen)
     assert [(k, tuple(a.shape)) for c in zeros for k, a in sorted(c.items())] == [
         (k, tuple(a.shape)) for c in caches for k, a in sorted(c.items())]
@@ -152,6 +163,8 @@ def test_full_config_param_count_matches_jax(arch):
     cfg, jcfg = configs.get_config(arch), jconfigs.get_config(arch)
     assert cfg.dtype == torch.bfloat16 and jcfg.dtype == jnp.bfloat16
     assert counting.param_count(cfg) == jcounting.param_count(jcfg) == cfg.param_count()
+    if arch == "mamba2-1.3b":
+        assert cfg.param_count() == 1_343_740_928
 
 
 def test_unported_archs_raise_named_errors():
@@ -164,7 +177,7 @@ def test_unported_archs_raise_named_errors():
         T.init_lm(torch.Generator().manual_seed(0), moe)
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-14b", "starcoder2-3b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "starcoder2-3b", "mamba2-1.3b"])
 def test_serve_lm_prompts_and_tokens_match_jax(arch, capsys):
     """Prompts bitwise the reference's randint draw; the served tokens equal
     the reference's prefill + greedy-decode loop on the same weights."""
@@ -216,3 +229,87 @@ def test_bf16_weights_cross_bitwise_and_serve():
     assert logits.dtype == torch.bfloat16 and logits.shape == (2, 1, cfg.vocab)
     assert torch.isfinite(logits.float()).all()
     assert caches[0]["k"].shape == (2, 2, 12, cfg.num_kv_heads, cfg.head_dim)
+
+
+@pytest.mark.parametrize("model", ["mamba2-1.3b"], indirect=True)
+def test_mamba2_apply_and_decode_match_jax(model):
+    """The mixer alone: the prefill's output, conv window and SSM state,
+    then three recurrent steps against the prefill's cache (the port
+    writes the cache in place and returns it)."""
+    _, jcfg, cfg, jparams, params = model
+    x = np.random.default_rng(8).standard_normal((2, 13, cfg.d_model), dtype=np.float32)
+    jp = jax.tree.map(lambda a: a[0], jparams["units"][0])["mixer"]
+    p = T._layer(params["units"], 0)[0]["mixer"]
+    jo, jcache = JL.mamba2_apply(jp, jcfg, jnp.asarray(x))
+    o, cache = L.mamba2_apply(p, cfg, torch.from_numpy(x))
+    _close(o, jo)
+    assert cache["conv"].shape == (2, cfg.ssm_conv - 1, cfg.ssm_inner + 2 * cfg.ssm_state)
+    assert cache["ssm"].shape == (2, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_headdim)
+    assert cache["ssm"].dtype == torch.float32
+    _close(cache["conv"], jcache["conv"])
+    _close(cache["ssm"], jcache["ssm"])
+    steps = np.random.default_rng(9).standard_normal((3, 2, 1, cfg.d_model), dtype=np.float32)
+    for i, xt in enumerate(steps):
+        jo, jcache = JL.mamba2_decode(jp, jcfg, jnp.asarray(xt), jcache, 13 + i)
+        o, out_cache = L.mamba2_decode(p, cfg, torch.from_numpy(xt), cache, 13 + i)
+        assert out_cache is cache and o.shape == (2, 1, cfg.d_model)
+        _close(o, jo)
+        _close(cache["conv"], jcache["conv"])
+        _close(cache["ssm"], jcache["ssm"])
+
+
+@pytest.mark.parametrize("model", ["mamba2-1.3b"], indirect=True)
+def test_mamba2_fixed_leaves_equal_jax(model):
+    """The leaves init does not draw (A_log, dt_bias, Dskip, conv_b, norm_g)
+    equal the reference's, and stay float32 in a bfloat16 config."""
+    _, jcfg, cfg, jparams, _ = model
+    fresh = T.init_lm(torch.Generator().manual_seed(0), cfg)["units"][0]["mixer"]
+    jmix = jparams["units"][0]["mixer"]
+    for name in ("A_log", "dt_bias", "Dskip", "conv_b", "norm_g"):
+        _close(fresh[name], jmix[name])
+    bf16 = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    mix = T.init_lm(torch.Generator().manual_seed(0), bf16)["units"][0]["mixer"]
+    assert {k for k, v in mix.items() if v.dtype == torch.float32} == {"A_log", "dt_bias",
+                                                                       "Dskip"}
+
+
+def test_mamba2_prompt_shorter_than_the_conv_window_raises():
+    """The reference's prefill leaves a short conv window for a prompt of
+    fewer than ssm_conv − 1 tokens, and its decode then fails on the
+    shapes; the port refuses such a prompt by name."""
+    cfg = configs.smoke_config("mamba2-1.3b")
+    params = T.init_lm(torch.Generator().manual_seed(0), cfg)
+    prefill = steps.make_prefill_step(cfg, max_len=8)
+    for S in (1, 2):
+        with pytest.raises(ValueError, match="ssm_conv - 1 = 3"):
+            prefill(params, {"tokens": torch.zeros((2, S), dtype=torch.int32)})
+    logits, caches = prefill(params, {"tokens": torch.zeros((2, 3), dtype=torch.int32)})
+    assert caches[0]["conv"].shape[2] == 3
+    with pytest.raises(ValueError, match="shorter than the conv window"):
+        serve_cli.serve_lm("mamba2-1.3b", 2, 2, 4, device="cpu")
+
+
+def test_bf16_mamba2_weights_cross_with_their_float32_leaves():
+    """A bfloat16 mamba2 carries A_log, dt_bias and Dskip in float32
+    (layers.py:487-489 of the reference); params_from_jax keeps every
+    leaf's dtype and bits, and a bfloat16 smoke prefill and decode step run."""
+    jcfg = dataclasses.replace(jconfigs.smoke_config("mamba2-1.3b"), dtype=jnp.bfloat16)
+    cfg = dataclasses.replace(configs.smoke_config("mamba2-1.3b"), dtype=torch.bfloat16)
+    jparams = jax.device_get(JT.init_lm(jax.random.PRNGKey(2), jcfg))
+    params = params_from_jax(jparams)
+    for a, b in zip(tree.leaves(params), jax.tree.leaves(jparams)):
+        if b.dtype.name == "bfloat16":
+            assert a.dtype == torch.bfloat16
+            np.testing.assert_array_equal(a.view(torch.int16).numpy(), b.view(np.int16))
+        else:
+            assert a.dtype == torch.float32 and b.dtype == np.float32
+            np.testing.assert_array_equal(a.numpy(), b)
+    mix = params["units"][0]["mixer"]
+    assert [mix[k].dtype for k in ("A_log", "dt_bias", "Dskip", "in_proj")] == [
+        torch.float32, torch.float32, torch.float32, torch.bfloat16]
+    logits, caches = steps.make_prefill_step(cfg, max_len=12)(
+        params, {"tokens": torch.from_numpy(_tokens(cfg, 2, 8))})
+    assert logits.dtype == torch.bfloat16 and torch.isfinite(logits.float()).all()
+    assert caches[0]["conv"].dtype == torch.bfloat16 and caches[0]["ssm"].dtype == torch.float32
+    logits, _ = steps.make_serve_step(cfg)(params, caches, steps.greedy_sample(logits), 8)
+    assert logits.shape == (2, 1, cfg.vocab) and torch.isfinite(logits.float()).all()

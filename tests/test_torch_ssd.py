@@ -1,0 +1,153 @@
+"""The port's Mamba2 SSD scan on the CPU against the JAX package: its plain
+version (``repro_torch.kernels.ref.ssd_chunk``) against the sequential
+definition ``repro.kernels.ref.ssd_scan``, the Pallas kernel run as the
+JAX package's own tests run it (interpret mode), and the terminal state of
+``repro.models.layers.ssd_chunked_dense``; the dispatch policy; the
+launcher's operand checks.
+
+Tolerances are those of the JAX package's SSD tests
+(tests/test_kernels.py:96, :120-122): rtol = atol = 2e-4 in float32 (the
+chunked forms sum in another order than the recurrence); the terminal
+state within 2e-4 of its largest magnitude; bfloat16 outputs 6e-2
+(tests/test_kernels.py:21: 8 mantissa bits).  The CUDA kernel itself is
+held to its plain version on the card (tests/test_torch_cuda.py,
+chip_smoke.py).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.ssd_chunk import ssd_chunk as pallas_ssd_chunk
+from repro.models.layers import ssd_chunked_dense
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssd_chunk as ssd_kernel
+
+TOL = dict(rtol=2e-4, atol=2e-4)
+BF16_TOL = dict(rtol=6e-2, atol=6e-2)
+
+# (B, H, S, P, N, Pallas chunk): the JAX suite's three shapes
+# (tests/test_kernels.py:83-87), a ragged S and S = 1.
+SHAPES = [
+    (1, 2, 128, 64, 32, 64),
+    (2, 4, 256, 32, 16, 128),
+    (1, 1, 64, 64, 64, 64),
+    (2, 3, 100, 16, 16, 64),
+    (2, 2, 1, 16, 16, 64),
+]
+
+
+def _inputs(B, H, S, P, N, seed=0):
+    """The JAX suite's distributions: x ~ N(0, 1), a = −0.1|N(0, 1)|,
+    b, c ~ 0.5·N(0, 1)."""
+    r = np.random.default_rng(seed)
+    x = r.standard_normal((B, H, S, P), dtype=np.float32)
+    a = -np.abs(r.standard_normal((B, H, S), dtype=np.float32)) * np.float32(0.1)
+    b = r.standard_normal((B, H, S, N), dtype=np.float32) * np.float32(0.5)
+    c = r.standard_normal((B, H, S, N), dtype=np.float32) * np.float32(0.5)
+    return x, a, b, c
+
+
+def _seq_final(x, a, b):
+    """Terminal state of the recurrence, in float64 with numpy."""
+    x, a, b = (np.asarray(v, np.float64) for v in (x, a, b))
+    h = np.zeros(b.shape[:2] + (b.shape[-1], x.shape[-1]))
+    for t in range(x.shape[2]):
+        h = np.exp(a[:, :, t])[..., None, None] * h + b[:, :, t, :, None] * x[:, :, t, None, :]
+    return h
+
+
+def _close_to_largest(got, want, rel=2e-4):
+    want = np.asarray(want)
+    assert np.abs(np.asarray(got) - want).max() <= rel * np.abs(want).max()
+
+
+@pytest.mark.parametrize("B,H,S,P,N,chunk", SHAPES)
+def test_plain_ssd_matches_jax_scan_and_pallas_f32(B, H, S, P, N, chunk):
+    x, a, b, c = _inputs(B, H, S, P, N)
+    y, h = ref.ssd_chunk(*map(torch.from_numpy, (x, a, b, c)))
+    assert y.dtype == torch.float32 and y.shape == (B, H, S, P)
+    assert h.dtype == torch.float32 and h.shape == (B, H, N, P)
+    jx, ja, jb, jc = map(jnp.asarray, (x, a, b, c))
+    np.testing.assert_allclose(y.numpy(), np.asarray(jref.ssd_scan(jx, ja, jb, jc)), **TOL)
+    pallas = pallas_ssd_chunk(jx, ja, jb, jc, chunk=chunk, interpret=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(pallas), **TOL)
+    _close_to_largest(h.numpy(), _seq_final(x, a, b))
+
+
+@pytest.mark.parametrize("S", [128, 100, 1])
+def test_terminal_state_matches_ssd_chunked_dense(S):
+    """The second output of the reference's ``ssd_chunked_dense`` (the
+    state the mixer hands its decode cache), and its y."""
+    x, a, b, c = _inputs(2, 2, S, 32, 16, seed=S)
+    y, h = ref.ssd_chunk(*map(torch.from_numpy, (x, a, b, c)))
+    jy, jh = ssd_chunked_dense(*map(jnp.asarray, (x, a, b, c)), chunk=32)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
+    _close_to_largest(h.numpy(), jh)
+
+
+def test_plain_ssd_bf16_inputs():
+    """bfloat16 x, b, c (float32 a, as the mixer gives): y comes back in
+    bfloat16 within the bf16 tolerance of the JAX scan on the same bf16
+    inputs; the state, float32 in both, within 2e-4 of its largest."""
+    x, a, b, c = _inputs(2, 3, 100, 16, 16, seed=7)
+    tx, tb, tc = (torch.from_numpy(v).to(torch.bfloat16) for v in (x, b, c))
+    y, h = ref.ssd_chunk(tx, torch.from_numpy(a), tb, tc)
+    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+    jx, jb, jc = (jnp.asarray(v).astype(jnp.bfloat16) for v in (x, b, c))
+    want = jref.ssd_scan(jx, jnp.asarray(a), jb, jc)
+    np.testing.assert_allclose(y.float().numpy(), np.asarray(want, np.float32), **BF16_TOL)
+    _close_to_largest(h.numpy(), _seq_final(tx.float(), a, tb.float()))
+
+
+def test_plain_ssd_reads_head_broadcast_views():
+    """b and c expanded over the heads with stride 0 (the mixer's layout)
+    give what materialised copies give, bitwise."""
+    x, a, b, c = map(torch.from_numpy, _inputs(2, 4, 37, 16, 16, seed=3))
+    bv, cv = b[:, :1].expand(2, 4, 37, 16), c[:, :1].expand(2, 4, 37, 16)
+    assert bv.stride(1) == 0
+    y, h = ref.ssd_chunk(x, a, bv, cv)
+    y2, h2 = ref.ssd_chunk(x, a, bv.contiguous(), cv.contiguous())
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
+def test_dispatch_runs_the_plain_version_on_cpu_tensors():
+    x, a, b, c = map(torch.from_numpy, _inputs(1, 2, 40, 16, 16, seed=2))
+    ops.reset_launch_counts()
+    y, h = ops.ssd_chunk(x, a, b, c)
+    y_ref, h_ref = ref.ssd_chunk(x, a, b, c)
+    assert torch.equal(y, y_ref) and torch.equal(h, h_ref)
+    y2, h2 = ops.ssd_chunk(x, a, b, c, use_kernel=False)
+    assert torch.equal(y2, y) and torch.equal(h2, h)
+    assert ops.launch_counts()["ssd_chunk"] == 0
+    with pytest.raises(ValueError, match="use_kernel=True needs CUDA tensors"):
+        ops.ssd_chunk(x, a, b, c, use_kernel=True)
+
+
+def test_kernel_launcher_checks_operands():
+    x, a, b, c = map(torch.from_numpy, _inputs(1, 2, 8, 16, 16))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ssd_kernel.ssd_chunk(x, a, b, c)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ssd_kernel.ssd_chunk(x.double(), a, b.double(), c.double())
+    # shapes and layouts are checked before the device
+    meta = dict(device="meta")
+    mx = torch.empty(1, 2, 8, 64, **meta)
+    ma = torch.empty(1, 2, 8, **meta)
+    mb = torch.empty(1, 2, 8, 128, **meta)
+    checks = [
+        ((mx, ma, torch.empty(1, 2, 8, 32, **meta), torch.empty(1, 2, 8, 32, **meta)),
+         ValueError, "state size N"),
+        ((torch.empty(1, 2, 8, 32, **meta), ma, mb, mb), ValueError, "head dim P"),
+        ((mx, ma[:, :, :4], mb, mb), ValueError, "want x"),
+        ((mx, ma.double(), mb, mb), TypeError, "a must be float32"),
+        ((mx, ma, mb.bfloat16(), mb), ValueError, "share x's dtype"),
+        ((mx, ma, torch.empty(1, 2, 128, 8, **meta).transpose(2, 3), mb), ValueError,
+         "contiguous"),
+    ]
+    for args, err, msg in checks:
+        with pytest.raises(err, match=msg):
+            ssd_kernel.check_operands(*args)
+    assert ssd_kernel.LAUNCHES["ssd_chunk"] == 0
