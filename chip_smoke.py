@@ -16,6 +16,15 @@ non-zero and the final result line is never printed):
    events beside the plain version at the shapes the main paths give it:
    the training state (B in {64, 1024}, d = 17) and the serving bucket
    (B = 1024, d = 16).
+3b. (Run right after 3.)  ``fused_mlp`` (every depth-1 SDE field: Linear
+   → LipSwish → Linear) against its plain version in float32 (2e-5),
+   bfloat16 (6e-2) and float64 (1e-12) at every field shape of the ELBO,
+   the SDE-GAN generator and the adaptive burst, 96 → 48 → 24 and a
+   512-wide MLP (MLP_SHAPES), at 1, 300 and 1024 rows; rows invariant
+   bitwise (1 vs 1000 vs 1024); timed at MLP_TIMED (the training batches,
+   the 1024-row decode bucket's 17 → 32 → 16, nu, the SDE-GAN sigma, the
+   burst) beside the plain version, the layer loop the fields ran before
+   (1024-row blocks) and the bound.
 4. Checks the in-port identities bitwise: ΔW from ``rev_heun_phase1_gen``
    = ΔW from ``brownian_increment`` = the plain ``BrownianPath.increment``,
    and the fused decode = the unfused decode.
@@ -24,18 +33,22 @@ non-zero and the final result line is never printed):
    and the exact adjoint = ``discretise`` (≤1e-12 relative).
 6. Training, the slice's main path: ``train_latent_sde`` (the train CLI's
    entry point) runs 3 ELBO steps at batch 64, fused, with the launch
-   counts zeroed just before and read just after — every kernel of the
-   path must launch exactly 184 times per step (46 forward, 138
-   backward) — then the same 3 steps unfused: finite losses, parameters
+   counts zeroed just before and read just after — the six solver kernels
+   must launch exactly 184 times per step (46 forward, 138 backward) and
+   ``fused_mlp`` 286 times (98 forward, 188 backward; STEP_LAUNCHES) —
+   then the same 3 steps unfused: finite losses, parameters
    bitwise equal.  The fused run writes a serving bundle, which
    ``serve_sde`` restores and serves (train -> serve handshake).  Then
    the fused and the unfused step's steps/s at batch 64 and 1024, timed in
    turns, and the device idle share of one step of each under
-   ``torch.profiler``.
+   ``torch.profiler``; at batch 64 the device kernels of one fused step with
+   the fields through ``fused_mlp`` and under ``plain_mlp()`` (the layer
+   loop they ran before).
 7. Memory: peak allocated bytes of one training step (the trajectory-form
    ELBO) and of one gradient of the terminal-form ELBO, at 23 and 230
    solver steps (24 observations, stride 1 and 10), exact adjoint vs
-   ``discretise``: the exact adjoint's peak stays flat, discretise's grows.
+   ``discretise``: the exact adjoint's peak stays flat (within 1.5x),
+   discretise's grows at least 3x as fast (and by at least 3 MiB).
 8. Serves the Latent-SDE prior decode through ``serve_sde`` at the widths
    of examples/latent_sde_air_quality.py:75 (data 2, hidden 16, context 16,
    noise 8, width 32, depth 1; 23 steps on [0, 1]), fused and unfused:
@@ -45,8 +58,9 @@ non-zero and the final result line is never printed):
    Checks that the two variants agree bitwise, that a request served alone
    gets the same rows as served coalesced (padding invariance, bitwise),
    and that one bucket on the card matches the port on the CPU (float32
-   tolerance below).
-9. (Run right after 3.)  ``brownian_value`` (the adaptive loop's
+   tolerance below).  ``fused_mlp`` must have launched; the device kernels
+   of one 1024-row decode bucket with it and under ``plain_mlp()``.
+9. (Run right after 3b.)  ``brownian_value`` (the adaptive loop's
    Lévy-bridge point query) bitwise against its plain version: float32
    and float64, one key over (256, 32) and (64, 17), 1024 keys and one key
    over (4,), depth 10 and 24, times at t0, t1, a dyadic point and random points; timed beside its
@@ -57,8 +71,9 @@ non-zero and the final result line is never printed):
    width 32, depth 1, dt0 = 1/16, atol 1e-6, budget 4096), 32 requests of
    up to 64 rows through the four deadline classes, buckets up to 1024.
    Counts zeroed before, read after: ``brownian_value`` must have launched
-   exactly once per sampler call plus once per loop iteration.  Both
-   SDE-GAN samplers must be padding-invariant (bucket 1 vs 1024, bitwise).
+   exactly once per sampler call plus once per loop iteration, and
+   ``fused_mlp`` at all.  Both SDE-GAN samplers must be padding-invariant
+   (bucket 1 vs 1024, bitwise) and launch ``fused_mlp``.
 11. The adaptive exact adjoint on the repo's adaptive workload
    (benchmarks/solver_speed.py:207: the stiffness burst plus 0.05·MLP, σ =
    0.05, batch 256, x_dim 32, rtol 2e-3, atol 1e-5, budget 2048), bridge
@@ -67,7 +82,9 @@ non-zero and the final result line is never printed):
    ``brownian_value``, 2N ``rev_heun_phase1``, N of each other phase, for
    A attempts and N accepted steps); fused ≡ unfused bitwise; float64
    exact vs autograd through the frozen accepted grid (≤1e-12 relative);
-   peak memory of both at rtol 2e-3 and 2e-4.
+   peak memory of both at rtol 2e-3 and 2e-4.  ``fused_mlp`` must launch;
+   the device kernels of one gradient (depth 10) with it and under
+   ``plain_mlp()``.
 12. ``flash_attention`` (the LM prefill's GQA attention) against its plain
    version on the card, the same float scale 1/sqrt(D) given to both:
    float32 (rtol = atol = 2e-5) and bfloat16 (6e-2), causal and full, at
@@ -114,13 +131,20 @@ non-zero and the final result line is never printed):
    ``ssd_chunk`` in place of ``flash_attention``: one launch per layer of
    the prefill, none in decode; profiles of one prefill and one decode
    step; the full-depth prefill on the plain scan.
+17b. Gradients through the kernels: for a loss linear in the outputs,
+   ``fused_mlp``, ``flash_attention`` and ``ssd_chunk`` (strided x and a,
+   stride-0 b and c) give the plain path's gradients bitwise; one backward
+   of a two-layer smoke LM's next-token loss (qwen2.5-14b's and
+   mamba2-1.3b's families) reaches every parameter, finite, through one
+   kernel launch per layer.
 18. Prints a ``{"kernels": [...]}`` JSON line (``launches``: the count on
-   the path each kernel was ported for — training, the adaptive gradient
-   for ``brownian_value``, the 2048-token LM serves for
-   ``flash_attention`` and ``ssd_chunk``; ``adaptive_launches``: the
-   fused adaptive gradient's; ``serve_launches``: the Latent-SDE
-   service's, the adaptive service's for ``brownian_value``, the LM
-   serves' for ``flash_attention`` and ``ssd_chunk``) and, last, the
+   the path each kernel was ported for — training (3 steps) for the solver
+   kernels and ``fused_mlp``, the adaptive gradient for
+   ``brownian_value``, the 2048-token LM serves for ``flash_attention``
+   and ``ssd_chunk``; ``adaptive_launches``: the fused adaptive
+   gradient's; ``serve_launches``: the Latent-SDE service's, the adaptive
+   service's for ``brownian_value``, the LM serves' for
+   ``flash_attention`` and ``ssd_chunk``) and, last, the
    result line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -179,7 +203,26 @@ KERNEL_SOURCES = {
                         "src/repro/kernels/flash_attention.py:67"),
     "ssd_chunk": ("src/repro_torch/kernels/csrc/ssd_chunk.cu",
                   "src/repro/kernels/ssd_chunk.py:59"),
+    "fused_mlp": ("src/repro_torch/kernels/csrc/fused_mlp.cu",
+                  "src/repro/kernels/fused_mlp.py:43"),
 }
+# fused_mlp checks, (Din, H, Dout): every depth-1 field of the ELBO (mu and
+# sigma 1 + 16 -> 32 -> 16, nu 1 + 16 + 16, qz0 16 -> 2·8, zeta 8), of the
+# SDE-GAN generator (zeta 4, sigma 1 + 16 -> 16·4) and the adaptive burst
+# (32 -> 64 -> 32), the JAX suite's 96 -> 48 -> 24, and a 512-wide MLP.
+MLP_SHAPES = [(17, 32, 16), (33, 32, 16), (16, 32, 16), (8, 32, 16), (4, 32, 16),
+              (17, 32, 64), (32, 64, 32), (96, 48, 24), (512, 512, 512)]
+# the JAX suite's fused_mlp tolerances (tests/test_kernels.py:18-21) and
+# 1e-12 in float64: the kernel sums each row in its own fixed order, the
+# plain version in cuBLAS's.
+MLP_TOL = {torch.float32: 2e-5, torch.bfloat16: 6e-2, torch.float64: 1e-12}
+LIPSWISH_OPS = 6  # neg, exp, add, div, mul, mul per hidden unit
+# (tag, rows, Din, H, Dout), float32: the ELBO's training batches and, at
+# 1024 rows, the 1024-row decode bucket's prior mu and sigma (the same
+# 17 -> 32 -> 16); the posterior nu, the SDE-GAN sigma and the burst.
+MLP_TIMED = [("train B64", 64, 17, 32, 16), ("train/serve B1024", 1024, 17, 32, 16),
+             ("nu B1024", 1024, 33, 32, 16), ("gan sigma B1024", 1024, 17, 32, 64),
+             ("burst B256", 256, 32, 64, 32)]
 # flash_attention checks, (B, Hq, Hkv, S, D): qwen2.5-14b's prefill and a
 # short prompt, a ragged S, tinyllama's group 8 at D = 64, S = 1 with MQA.
 ATTN_SHAPES = [(4, 40, 8, 2048, 128), (4, 40, 8, 32, 128), (1, 40, 8, 1000, 128),
@@ -212,9 +255,15 @@ SERVE_KERNELS = ("rev_heun_phase1_gen", "rev_heun_phase2", "brownian_increment")
 # Launches of one fused ELBO step at 23 solver steps: forward 23 x (phase1_gen,
 # phase2); backward 23 x (brownian_increment, phase1 x2, phase2, bwd_phase1,
 # bwd_phase2) — 46 + 138 = 184.
+# The fields, each a depth-1 LipSwish MLP (one fused_mlp launch): the
+# posterior drift runs nu, mu and sigma, the diffusion sigma, so 4 per
+# evaluation.  Forward: qz0 and zeta, then the solve's 24 evaluations (t0
+# and one per step) = 2 + 96; backward: per step the reconstruction's and
+# the local VJP's evaluations (8), then the initial VJP's (4) = 188.
 STEP_LAUNCHES = {"rev_heun_phase1_gen": 23, "rev_heun_phase2": 46,
                  "brownian_increment": 23, "rev_heun_phase1": 46,
-                 "rev_heun_bwd_phase1": 23, "rev_heun_bwd_phase2": 23}
+                 "rev_heun_bwd_phase1": 23, "rev_heun_bwd_phase2": 23,
+                 "fused_mlp": 286}
 # The Latent SDE at the widths the repo trains it at (examples/
 # latent_sde_air_quality.py:75, src/repro/launch/train.py:318).
 WIDTHS = dict(data_dim=2, hidden_dim=16, context_dim=16, initial_noise_dim=8,
@@ -335,7 +384,7 @@ def kernel_checks(ops, dev) -> tuple:
     ``{name: max |Δ|}``."""
     g = torch.Generator().manual_seed(1234)
     errs = {name: 0.0 for name in KERNEL_SOURCES
-            if name not in ("brownian_value", "flash_attention", "ssd_chunk")}
+            if name not in ("brownian_value", "flash_attention", "ssd_chunk", "fused_mlp")}
     # (rows, d): small and serving shapes, the training state, and the
     # training path's one-key draws (one row of B*17: a BrownianPath with a
     # single key over the (B, 17) state).
@@ -382,6 +431,87 @@ def kernel_checks(ops, dev) -> tuple:
                                              plain_host_ms=p_host, bound_ms=b_ms,
                                              bound_by=b_by)
     return rows, errs
+
+
+def mlp_bound(rows: int, din: int, h: int, dout: int, dtype) -> tuple:
+    """Least time for one fused_mlp call: x, the weights and biases read and
+    the output written once, against 2·rows·(Din·H + H·Dout) product flops,
+    LIPSWISH_OPS per hidden unit and the bias adds, over the dtype's peak
+    (float32 outside the tensor cores); -> (ms, 'bytes'|'operations')."""
+    s = torch.finfo(dtype).bits // 8
+    nbytes = (rows * din + din * h + h + h * dout + dout + rows * dout) * s
+    ops = 2 * rows * (din * h + h * dout) + rows * h * LIPSWISH_OPS + rows * (h + dout)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _mlp_operands(g, dev, dtype, rows, din, h, dout):
+    """x ~ N(0, 1), W ~ N(0, 1/fan_in), b ~ 0.1·N(0, 1): the JAX suite's
+    draws (W ~ 0.3·N(0, 1) at its widths ≤ 96) with the weight scale of
+    ``nn.mlp_init`` (1/sqrt(fan_in)), so the 512-wide MLP's sums stay O(1)
+    as a trained field's do; at 0.3·N a 512-wide layer's terms reach |7|
+    and its outputs cancel below the float32 tolerance's absolute part."""
+    def randn(*shape, f=1.0):
+        return (f * torch.randn(*shape, generator=g, dtype=torch.float64)).to(dev, dtype)
+
+    return (randn(rows, din), randn(din, h, f=din ** -0.5), randn(h, f=0.1),
+            randn(h, dout, f=h ** -0.5), randn(dout, f=0.1))
+
+
+def mlp_checks(ops, dev) -> tuple:
+    """Phase 3b: fused_mlp against its plain version at every field shape in
+    float32, bfloat16 and float64, row invariance bitwise, then timed at
+    MLP_TIMED beside the plain version, the route the fields took before
+    (the layer loop) and the bound.  Returns ({tag: row}, {dtype: max |Δ|})."""
+    from repro_torch import nn
+    from repro_torch.nn import core as nn_core
+
+    g = torch.Generator().manual_seed(16)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16, torch.float64):
+        for din, h, dout in MLP_SHAPES:
+            for rows in (1, 300, 1024):
+                x, *w = _mlp_operands(g, dev, dtype, rows, din, h, dout)
+                got = ops.fused_mlp(x, *w)
+                want = ops.fused_mlp(x, *w, use_kernel=False)
+                torch.cuda.synchronize()
+                tol = MLP_TOL[dtype]
+                d = (got.double() - want.double()).abs().max().item()
+                check(got.dtype == dtype and got.shape == (rows, dout)
+                      and torch.isfinite(got).all().item()
+                      and torch.allclose(got, want, rtol=tol, atol=tol),
+                      f"fused_mlp {dtype} rows={rows} {(din, h, dout)}: kernel != plain "
+                      f"(max |Δ| {d}, tolerance {tol})")
+                errs[dtype] = max(errs.get(dtype, 0.0), d)
+        for din, h, dout in ((17, 32, 16), (32, 64, 32), (512, 512, 512)):
+            x, *w = _mlp_operands(g, dev, dtype, 1024, din, h, dout)
+            full = ops.fused_mlp(x, *w)
+            check(torch.equal(ops.fused_mlp(x[:1000].contiguous(), *w), full[:1000])
+                  and all(torch.equal(ops.fused_mlp(x[r:r + 1].contiguous(), *w)[0], full[r])
+                          for r in (0, 511, 999, 1023)),
+                  f"fused_mlp {dtype} {(din, h, dout)}: rows differ between 1, 1000 and "
+                  f"1024-row launches")
+        print(f"fused_mlp {str(dtype)[6:]}: kernel vs plain max |Δ| {errs[dtype]:.3g} (tol "
+              f"{MLP_TOL[dtype]}) over (Din, H, Dout) in {MLP_SHAPES} x rows {{1, 300, "
+              f"1024}}; rows invariant bitwise (1 vs 1000 vs 1024)", flush=True)
+
+    rows_out = {}
+    for tag, rows, din, h, dout in MLP_TIMED:
+        x, *w = _mlp_operands(g, dev, torch.float32, rows, din, h, dout)
+        layers = [{"w": w[0], "b": w[1]}, {"w": w[2], "b": w[3]}]
+        k_ms, k_host = time_ms(lambda: ops.fused_mlp(x, *w))
+        p_ms, p_host = time_ms(lambda: ops.fused_mlp(x, *w, use_kernel=False))
+        l_ms, l_host = time_ms(lambda: nn_core._mlp_layers(layers, x, nn.lipswish))
+        b_ms, b_by = mlp_bound(rows, din, h, dout, torch.float32)
+        print(f"fused_mlp float32 {tag} {(rows, din, h, dout)}: kernel {k_ms:.5f} ms (host "
+              f"{k_host:.5f}), plain {p_ms:.5f} ms (host {p_host:.5f}), the layer loop "
+              f"(1024-row blocks) {l_ms:.5f} ms (host {l_host:.5f}), bound {b_ms:.7f} ms "
+              f"({b_by})", flush=True)
+        rows_out[tag] = dict(ms=k_ms, host_ms=k_host, plain_ms=p_ms, plain_host_ms=p_host,
+                             layers_ms=l_ms, layers_host_ms=l_host, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=None)
+    return rows_out, errs
 
 
 def identity_checks(ops, dev) -> None:
@@ -535,6 +665,8 @@ def step_rate(dev, batch: int, label: str) -> None:
               f"all {', '.join(f'{x * 1e3:.1f}' for x in w)} ms)", flush=True)
     for variant, run in runs.items():
         profile_call(run, f"{label}] [train {variant} B={batch}")
+    if batch == 64:
+        compare_kernels(runs["fused"], label, "ELBO step (fused, B=64)")
 
 
 def _terminal_grad(dev, num_steps: int, gradient_mode: str):
@@ -578,8 +710,14 @@ def memory_checks(dev, label: str) -> None:
             [peaks[("discretise", n)] for n in (23, 230)]
         check(exact[1] <= 1.5 * exact[0], f"{form}: exact adjoint's peak grew with N: "
                                            f"{exact} MiB")
-        check(dto[1] >= 3 * dto[0], f"{form}: discretise's peak did not grow with N: "
-                                    f"{dto} MiB")
+        # discretise keeps every step's residuals, so its peak grows with N
+        # at least 3x as fast as the exact adjoint's (whose growth in the
+        # trajectory form is the O(N) trajectory and its cotangent), and by
+        # at least 3 MiB from N = 23 to 230 (~73 KB a step at batch 64).
+        grown = dto[1] - dto[0]
+        check(grown >= 3 * max(exact[1] - exact[0], 1.0),
+              f"{form}: discretise's peak grew {grown:.2f} MiB with N ({dto} MiB), not 3x "
+              f"the exact adjoint's growth ({exact} MiB) and at least 3 MiB")
 
 
 def serve_checks(ops, dev, label: str) -> dict:
@@ -612,7 +750,7 @@ def serve_checks(ops, dev, label: str) -> dict:
         launches = ops.launch_counts()
         print(f"[{label}] serving-path launches: {launches}", flush=True)
         restored, cfg_f, _ = restore_for_serving("latent-sde", os.path.join(tmp, "fused"), dev)
-    for name in SERVE_KERNELS:
+    for name in SERVE_KERNELS + ("fused_mlp",):
         check(launches.get(name, 0) > 0, f"{name} was not launched on the serving path")
 
     fused, unfused = results["fused"]["samples"], results["unfused"]["samples"]
@@ -648,6 +786,7 @@ def serve_checks(ops, dev, label: str) -> dict:
     for variant, fuse in (("fused", True), ("unfused", False)):
         profile_decode(make_sample_step("latent-sde", dataclasses.replace(
             cfg_f, use_pallas_kernels=fuse)), restored, keys, f"{label}] [{variant}")
+    compare_kernels(lambda: sampler(restored, keys), label, "1024-row decode bucket (fused)")
     return dict(launches=launches, results=results, decodes=decodes)
 
 
@@ -754,6 +893,7 @@ def serve_adaptive_checks(ops, dev, label: str) -> dict:
               f"iterations", flush=True)
     print(f"[{label}] adaptive serving launches: {launches} (warm-up iterations "
           f"{stats['warmup_iterations']})", flush=True)
+    check(launches["fused_mlp"] > 0, "fused_mlp was not launched on the adaptive service")
     check(launches["brownian_value"] == expected,
           f"brownian_value: {launches['brownian_value']} launches, expected {expected} "
           f"(1 + loop iterations per sampler call)")
@@ -774,10 +914,19 @@ def serve_adaptive_checks(ops, dev, label: str) -> dict:
     big, small = _request_keys(batch, 1024, dev), _request_keys([one], 1, dev)
     paths = make_sample_step("sde-gan", cfg)
     terminal = make_adaptive_terminal_step(cfg)
+    ops.reset_launch_counts()
     check(torch.equal(paths(params, small)[:, 0], paths(params, big)[:, row]),
           "fixed-grid SDE-GAN: bucket-1 row != its row in the 1024 bucket")
+    n_fixed = ops.launch_counts()["fused_mlp"]
+    ops.reset_launch_counts()
     y1, c1, s1 = terminal(params, small, 1e-2)
     y2, c2, s2 = terminal(params, big, 1e-2)
+    n_adaptive = ops.launch_counts()["fused_mlp"]
+    check(n_fixed > 0 and n_adaptive > 0, f"SDE-GAN samplers: fused_mlp launched {n_fixed} "
+          f"(fixed grid) and {n_adaptive} (adaptive) times")
+    print(f"[{label}] SDE-GAN samplers at buckets 1 and 1024: fused_mlp launched {n_fixed} "
+          f"times (fixed grid, 2 calls) and {n_adaptive} (adaptive terminal, 2 calls)",
+          flush=True)
     check(torch.equal(y1[0], y2[row]) and bool(c1[0] == c2[row]),
           "adaptive SDE-GAN: bucket-1 row != its row in the 1024 bucket")
     check(int(s1.num_accepted[0]) == int(s2.num_accepted[row])
@@ -891,6 +1040,7 @@ def adaptive_grad_checks(ops, dev, label: str) -> dict:
         for name, n in want.items():
             check(c[name] == n, f"adaptive gradient depth {depth}: {name} launched {c[name]}"
                                 f" times, expected {n} (A={A}, N={N})")
+        check(c["fused_mlp"] > 0, f"adaptive gradient depth {depth}: fused_mlp not launched")
         if depth == 10:
             counts = c
         z_u, g_u = run_u()
@@ -909,6 +1059,8 @@ def adaptive_grad_checks(ops, dev, label: str) -> dict:
                   f"{statistics.median(w) * 1e3:.1f} ms (all "
                   f"{', '.join(f'{x * 1e3:.1f}' for x in w)} ms)", flush=True)
         profile_call(run_f, f"{label}] [adaptive gradient fused depth {depth}")
+        if depth == 10:
+            compare_kernels(run_f, label, "adaptive gradient (fused, depth 10)")
     print("adaptive gradient: launches as the code reads, fused == unfused bitwise "
           "(depth 10 and 24)", flush=True)
 
@@ -1008,6 +1160,34 @@ def attention_checks(ops, dev) -> tuple:
     row = dict(ms=k_ms, plain_ms=p_ms, host_ms=k_host, plain_host_ms=p_host, bound_ms=b_ms,
                bound_by=b_by, library_ms=l_ms)
     return row, err
+
+
+@contextlib.contextmanager
+def plain_mlp():
+    """Route every depth-1 SDE field back to the layer loop it ran before
+    fused_mlp (``nn.linear``'s 1024-row blocks and the written-out LipSwish),
+    for the launch counts with and without the kernel."""
+    from repro_torch import nn
+    from repro_torch.nn import core as nn_core
+
+    dispatch = nn_core._mlp_dispatch
+    nn_core._mlp_dispatch = lambda layers, x: nn_core._mlp_layers(layers, x, nn.lipswish)
+    try:
+        yield
+    finally:
+        nn_core._mlp_dispatch = dispatch
+
+
+def compare_kernels(fn, label: str, what: str) -> None:
+    """One profiled call with the fields through fused_mlp and one under
+    plain_mlp(): the device kernels (and copies) each issues."""
+    with_kernel = profile_call(fn, f"{label}] [{what}, fields through fused_mlp")
+    with plain_mlp():
+        without = profile_call(fn, f"{label}] [{what}, fields on the layer loop")
+    print(f"[{label}] device kernels per {what}: {with_kernel['kernels']} with fused_mlp, "
+          f"{without['kernels']} under plain_mlp(); wall {with_kernel['wall_ms']:.3f} vs "
+          f"{without['wall_ms']:.3f} ms; idle share {with_kernel['idle']} vs "
+          f"{without['idle']}", flush=True)
 
 
 @contextlib.contextmanager
@@ -1282,6 +1462,82 @@ def ssd_checks(ops, dev) -> tuple:
     return row, err
 
 
+def _linear_loss_grads(fn, inputs, seed: int):
+    """Gradients of sum(c·out) over every output for fixed random c."""
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    g = torch.Generator(device=leaves[0].device).manual_seed(seed)
+    loss = sum((o * torch.randn(o.shape, generator=g, device=o.device, dtype=o.dtype)).sum()
+               for o in outs)
+    return torch.autograd.grad(loss, leaves)
+
+
+def lm_grad_checks(ops, dev, label: str) -> None:
+    """Phase 17b: gradients through the hand kernels.  For a loss linear in
+    the outputs, fused_mlp's, flash_attention's and ssd_chunk's gradients
+    (the plain versions' VJPs at the saved inputs) are bitwise the plain
+    path's; then one backward of a two-layer smoke LM's next-token loss
+    (qwen2.5-14b's and mamba2-1.3b's families) reaches every parameter with
+    a finite gradient, through one kernel launch per layer."""
+    from repro_torch import tree
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import transformer as T
+
+    g = torch.Generator(device=dev).manual_seed(17)
+
+    def randn(*shape, f=1.0):
+        return f * torch.randn(*shape, generator=g, device=dev)
+
+    B, H, S, P, N = 2, 8, 100, 16, 16
+    cases = [("fused_mlp", ops.fused_mlp, _mlp_operands(torch.Generator().manual_seed(17), dev,
+                                                          torch.float32, 64, 17, 32, 16)),
+             ("flash_attention", ops.flash_attention,
+              [randn(2, 8, 77, 64), randn(2, 2, 77, 64), randn(2, 2, 77, 64)]),
+             ("ssd_chunk", ops.ssd_chunk,
+              [randn(B, S, H, P).transpose(1, 2), (-0.1 * randn(B, S, H).abs()).transpose(1, 2),
+               randn(B, S, N, f=0.5)[:, None].expand(B, H, S, N),
+               randn(B, S, N, f=0.5)[:, None].expand(B, H, S, N)])]
+    for name, fn, inputs in cases:
+        ops.reset_launch_counts()
+        got = _linear_loss_grads(fn, inputs, 3)
+        torch.cuda.synchronize()
+        n = ops.launch_counts()[name]
+        want = _linear_loss_grads(lambda *t: fn(*t, use_kernel=False), inputs, 3)
+        torch.cuda.synchronize()
+        check(n == 1, f"{name}: {n} launches in one gradient, want 1")
+        check(all(a is not None and torch.equal(a, b) for a, b in zip(got, want)),
+              f"{name}: gradients through the kernel != the plain path's (max |Δ| "
+              f"{max((a - b).abs().max().item() for a, b in zip(got, want) if a is not None)})")
+    print("gradients: fused_mlp, flash_attention and ssd_chunk (strided x and a, "
+          "stride-0 b and c) give the plain path's gradients bitwise for a linear loss",
+          flush=True)
+
+    for arch, kernel in ((LM_ARCH, "flash_attention"), (SSM_ARCH, "ssd_chunk")):
+        cfg = smoke_config(arch)
+        params = T.init_lm(torch.Generator(device=dev).manual_seed(18), cfg, device=dev)
+        leaves, spec = tree.flatten(params)
+        leaves = [x.detach().requires_grad_() for x in leaves]
+        tokens = torch.randint(0, cfg.vocab, (2, 65), generator=g, device=dev)
+        ops.reset_launch_counts()
+        logits, _ = T.lm_forward(tree.unflatten(spec, leaves), cfg, tokens)
+        loss = torch.nn.functional.cross_entropy(
+            logits[:, :-1].float().reshape(-1, cfg.vocab), tokens[:, 1:].reshape(-1))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        torch.cuda.synchronize()
+        n = ops.launch_counts()[kernel]
+        missing = sum(gr is None for gr in grads)
+        check(n == cfg.num_layers, f"LM gradient ({arch} smoke): {kernel} launched {n} "
+              f"times, want {cfg.num_layers}")
+        check(missing == 0 and all(torch.isfinite(gr).all().item() for gr in grads),
+              f"LM gradient ({arch} smoke): {missing} of {len(grads)} parameters got no "
+              f"gradient, or one is not finite")
+        print(f"[{label}] LM gradient ({arch} smoke config, {cfg.num_layers} layers, B 2, "
+              f"S 65): loss {loss.item():.4f}; {kernel} launched {n} times; all "
+              f"{len(grads)} parameter leaves have finite gradients (largest |g| "
+              f"{max(gr.abs().max().item() for gr in grads):.3g})", flush=True)
+
+
 def _device_us(evt) -> float:
     return getattr(evt, "self_device_time_total", None) or getattr(
         evt, "self_cuda_time_total", 0.0)
@@ -1291,7 +1547,7 @@ def profile_decode(sampler, params, keys, label: str) -> None:
     profile_call(lambda: sampler(params, keys), f"{label}] [decode B={keys.shape[0]}")
 
 
-def profile_call(fn, label: str) -> None:
+def profile_call(fn, label: str) -> dict:
     """Where one call's time goes: wall time (unprofiled, host clock around a
     synchronised call) against the card's busy time (the summed time of the
     device-side events — kernels, copies — under torch.profiler; the host
@@ -1318,14 +1574,15 @@ def profile_call(fn, label: str) -> None:
     if not events:
         print(f"[{label}: wall {wall_ms:.3f} ms; device busy time not measured (the "
               f"profiler recorded no device events)", flush=True)
-        return dict(wall_ms=wall_ms, busy_ms=None, by_name={})
+        return dict(wall_ms=wall_ms, busy_ms=None, by_name={}, kernels=None, idle=None)
     top = sorted(events, key=_device_us, reverse=True)[:6]
+    kernels = sum(e.count for e in events)
+    idle = round(1 - busy_ms / wall_ms, 3)
     print(f"[{label}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
-          f"({sum(e.count for e in events)} device kernels and copies), idle share "
-          f"{1 - busy_ms / wall_ms:.3f}", flush=True)
+          f"({kernels} device kernels and copies), idle share {idle:.3f}", flush=True)
     for e in top:
         print(f"    {_device_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}", flush=True)
-    return dict(wall_ms=wall_ms, busy_ms=busy_ms,
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, kernels=kernels, idle=idle,
                 by_name={e.key: _device_us(e) / 1e3 for e in events})
 
 
@@ -1357,6 +1614,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     rows, errs = kernel_checks(ops, dev)
+    mlp_rows, mlp_errs = mlp_checks(ops, dev)
+    errs["fused_mlp"] = max(mlp_errs.values())
     value_rows, errs["brownian_value"] = value_checks(ops, dev)
     identity_checks(ops, dev)
     adjoint_checks(dev)
@@ -1371,11 +1630,12 @@ def main() -> int:
     ssd_row, errs["ssd_chunk"] = ssd_checks(ops, dev)
     lm_parity_checks(dev, label, SSM_ARCH)
     ssm_serve = lm_serve_checks(ops, dev, label, SSM_ARCH)
+    lm_grad_checks(ops, dev, label)
 
     print(f"kernels: {', '.join(KERNEL_SOURCES)} (route cuda; bitwise = plain except "
-          f"flash_attention, within {ATTN_TOL}, and ssd_chunk, within {SSD_TOL} and the "
-          f"state within {SSD_STATE_RTOL} of its largest; decodes: {serve['decodes']})",
-          flush=True)
+          f"flash_attention, within {ATTN_TOL}, ssd_chunk, within {SSD_TOL} and the "
+          f"state within {SSD_STATE_RTOL} of its largest, and fused_mlp, within {MLP_TOL}; "
+          f"decodes: {serve['decodes']})", flush=True)
     entries = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
         if name == "flash_attention":  # timed at the prefill shape, bf16 causal
@@ -1386,6 +1646,14 @@ def main() -> int:
             r = ssd_row
             launches = serve_launches = ssm_serve["launches"]
             extra = {}
+        elif name == "fused_mlp":  # timed at the training batch (1024, 17 -> 32 -> 16)
+            r = mlp_rows["train/serve B1024"]
+            launches = train_launches[name]
+            serve_launches = serve["launches"][name]
+            extra = {"max_abs_err_by_dtype": {str(k)[6:]: v for k, v in mlp_errs.items()},
+                     "layers_ms": r["layers_ms"], "layers_host_ms": r["layers_host_ms"],
+                     "timed": {tag: {k: v for k, v in row.items() if k != "library_ms"}
+                               for tag, row in mlp_rows.items()}}
         elif name == "brownian_value":  # timed at the adaptive gradient's shape
             r = value_rows["grad"]
             launches = adaptive_launches[name]

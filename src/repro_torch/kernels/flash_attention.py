@@ -8,6 +8,12 @@ online softmax, q ``(B, Hq, S, D)``, k and v ``(B, Hkv, S, D)``, Hq % Hkv
 ``csrc/flash_attention.cu``; its plain version is
 :func:`repro_torch.kernels.ref.flash_attention`.  The two sum in different
 orders, so they agree to a tolerance (f32 2e-5, bf16 6e-2), not bitwise.
+
+Gradients: the launch is one :class:`~repro_torch.kernels.vjp.PlainVJP`
+node, whose backward is the VJP of the plain version at the saved q, k, v
+and the float scale.  That backward materialises the ``(B, Hq, S, S)``
+scores, as the plain version does; the JAX package has no backward kernel
+either, and the LM training slice decides what replaces it.
 """
 
 from __future__ import annotations
@@ -17,7 +23,8 @@ from typing import Optional
 
 import torch
 
-from . import build
+from . import build, ref
+from .vjp import PlainVJP
 
 #: Kernel launches made by this module's wrapper (one per launch).
 LAUNCHES = {"flash_attention": 0}
@@ -54,18 +61,11 @@ def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"flash_attention: batch {B} or heads {Hq} exceed the grid's 65535")
 
 
-def flash_attention(q, k, v, causal: bool = True, scale: Optional[float] = None):
-    """GQA attention in one launch -> ``(B, Hq, S, D)`` in q's dtype.
-
-    ``scale`` defaults to the float ``1/sqrt(D)``, as the Pallas kernel's
-    wrapper has it (the plain version rounds it to the dtype first)."""
-    check_operands(q, k, v)
-    B, Hq, S, D = q.shape
-    if scale is None:
-        scale = 1.0 / math.sqrt(D)
+def _launch(q, k, v, causal: bool, scale: float):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    B, Hq, S, D = q.shape
     lib = build.load()
     with build.device_guard(q.device):
         err = lib.rt_flash_attention(
@@ -75,3 +75,16 @@ def flash_attention(q, k, v, causal: bool = True, scale: Optional[float] = None)
     build.check("flash_attention", err)
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+def flash_attention(q, k, v, causal: bool = True, scale: Optional[float] = None):
+    """GQA attention in one launch -> ``(B, Hq, S, D)`` in q's dtype,
+    differentiable through the plain version.
+
+    ``scale`` defaults to the float ``1/sqrt(D)``, as the Pallas kernel's
+    wrapper has it (the plain version rounds it to the dtype first)."""
+    check_operands(q, k, v)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return PlainVJP.apply(_launch, ref.flash_attention,
+                          {"causal": bool(causal), "scale": float(scale)}, q, k, v)

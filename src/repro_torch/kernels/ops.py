@@ -21,6 +21,7 @@ import torch
 
 from . import brownian as _bk
 from . import flash_attention as _fa
+from . import fused_mlp as _fm
 from . import ref
 from . import reversible_heun_step as _rh
 from . import ssd_chunk as _ssd
@@ -92,6 +93,14 @@ def brownian_value(key, t, t0, t1, shape, dtype, depth: int = 24,
                               depth)
 
 
+def fused_mlp(x, w1, b1, w2, b2, use_kernel: Optional[bool] = None):
+    """Linear → LipSwish → Linear: x ``(..., Din)``, w1 ``(Din, H)``, w2
+    ``(H, Dout)`` -> ``(..., Dout)`` (a depth-1 SDE field's MLP)."""
+    if _decide("fused_mlp", x, use_kernel):
+        return _fm.fused_mlp(x, w1, b1, w2, b2)
+    return ref.fused_mlp(x, w1, b1, w2, b2)
+
+
 def flash_attention(q, k, v, causal: bool = True, scale: Optional[float] = None,
                     use_kernel: Optional[bool] = None):
     """GQA attention: q ``(B, Hq, S, D)``, k and v ``(B, Hkv, S, D)``.  The
@@ -114,10 +123,11 @@ def ssd_chunk(x, a, b, c, use_kernel: Optional[bool] = None):
 
 def launch_counts() -> dict:
     """Kernel launches by name since the last :func:`reset_launch_counts`."""
-    return {**_rh.LAUNCHES, **_bk.LAUNCHES, **_fa.LAUNCHES, **_ssd.LAUNCHES}
+    return {**_rh.LAUNCHES, **_bk.LAUNCHES, **_fa.LAUNCHES, **_ssd.LAUNCHES,
+            **_fm.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
-    for table in (_rh.LAUNCHES, _bk.LAUNCHES, _fa.LAUNCHES, _ssd.LAUNCHES):
+    for table in (_rh.LAUNCHES, _bk.LAUNCHES, _fa.LAUNCHES, _ssd.LAUNCHES, _fm.LAUNCHES):
         for name in table:
             table[name] = 0

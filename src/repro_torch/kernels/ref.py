@@ -1,13 +1,16 @@
 """Plain PyTorch versions of the ported kernels (port of
 :mod:`repro.kernels.ref`).
 
-Each function but :func:`flash_attention` and :func:`ssd_chunk` is the
-definition the CUDA kernel in ``csrc/rev_heun.cu`` computes, with the same
-op order, so the two agree bitwise on the card (chip_smoke.py checks it).
-The attention and SSD kernels (``csrc/flash_attention.cu``,
-``csrc/ssd_chunk.cu``) sum in another order and are held to a tolerance.  On the CPU, :mod:`repro_torch.kernels.ops`
-runs these instead of the kernels; with a card they run only when a caller
-asks for them with ``use_kernel=False``.
+Each function but :func:`fused_mlp`, :func:`flash_attention` and
+:func:`ssd_chunk` is the definition the CUDA kernel in ``csrc/rev_heun.cu``
+computes, with the same op order, so the two agree bitwise on the card
+(chip_smoke.py checks it).  The MLP, attention and SSD kernels
+(``csrc/fused_mlp.cu``, ``csrc/flash_attention.cu``, ``csrc/ssd_chunk.cu``)
+sum in another order and are held to a tolerance; their backward passes are
+the autograd of the versions here (:mod:`repro_torch.kernels.vjp`).  On
+the CPU, :mod:`repro_torch.kernels.ops` runs these instead of the kernels;
+with a card they run only when a caller asks for them with
+``use_kernel=False``.
 
 Scalars (``dt``, ``sign``) may be Python floats or 0-d tensors; a Python
 float enters the arithmetic rounded to the tensor's dtype, exactly as the
@@ -21,6 +24,7 @@ import math
 import torch
 
 from . import prng
+from ..nn import core as nn_core
 
 
 def rev_heun_phase1(z, zh, mu, sigma, dw, dt, sign: float = 1.0):
@@ -124,6 +128,16 @@ def brownian_value(k1, k2, t, t0: float, t1: float, shape, dtype, depth: int = 2
         wa, wb = torch.where(left, wa, wm), torch.where(left, wm, wb)
     frac = torch.clamp((t - a) / torch.clamp(b - a, min=torch.finfo(dtype).tiny), 0.0, 1.0)
     return wa + frac.reshape(lead) * (wb - wa)
+
+
+def fused_mlp(x, w1, b1, w2, b2):
+    """Linear → LipSwish → Linear (``repro.kernels.ref.fused_mlp``): x
+    ``(..., Din)``, w1 ``(Din, H)``, w2 ``(H, Dout)`` -> ``(..., Dout)``,
+    with the port's written-out :func:`repro_torch.nn.lipswish`.  Every op
+    rounds to x's dtype; the CUDA kernel (``csrc/fused_mlp.cu``) accumulates
+    bfloat16 in float32 and sums in its own fixed order, so the two agree to
+    a tolerance (f32 2e-5, bf16 6e-2, f64 1e-12), not bitwise."""
+    return nn_core.lipswish(x @ w1 + b1) @ w2 + b2
 
 
 def flash_attention(q, k, v, causal: bool = True, scale=None):

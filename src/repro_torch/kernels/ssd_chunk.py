@@ -14,6 +14,14 @@ views; y is allocated with x's strides.  The kernel is in
 matrix form, the plain version position by position, so they agree to a
 tolerance (y: f32 2e-4, bf16 6e-2; the state: 2e-4 of its largest
 magnitude), not bitwise.
+
+Gradients: the launch is one :class:`~repro_torch.kernels.vjp.PlainVJP`
+node, whose backward is the VJP of the plain recurrence at the saved x, a,
+b, c, with cotangents on both outputs (y and the terminal state).  The
+strided views go in as they are: the gradients come back in the view
+shapes, and autograd's ``expand`` backward sums a head-broadcast b's or
+c's over the heads.  The JAX package has no backward kernel; the LM
+training slice decides whether one replaces this.
 """
 
 from __future__ import annotations
@@ -22,7 +30,8 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, ref
+from .vjp import PlainVJP
 
 #: Kernel launches made by this module's wrapper (one per launch).
 LAUNCHES = {"ssd_chunk": 0}
@@ -69,10 +78,7 @@ def check_operands(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"ssd_chunk: operands must be CUDA tensors, got {x.device}")
 
 
-def ssd_chunk(x, a, b, c):
-    """The SSD scan in one launch -> ``(y (B, H, S, P) in x's dtype,
-    h_final (B, H, N, P) float32)``."""
-    check_operands(x, a, b, c)
+def _launch(x, a, b, c):
     B, H, S, P = x.shape
     N = b.shape[-1]
     y = torch.empty_like(x)
@@ -89,3 +95,11 @@ def ssd_chunk(x, a, b, c):
     build.check("ssd_chunk", err)
     LAUNCHES["ssd_chunk"] += 1
     return y, h
+
+
+def ssd_chunk(x, a, b, c):
+    """The SSD scan in one launch -> ``(y (B, H, S, P) in x's dtype,
+    h_final (B, H, N, P) float32)``, differentiable through the plain
+    version."""
+    check_operands(x, a, b, c)
+    return PlainVJP.apply(_launch, ref.ssd_chunk, {}, x, a, b, c)

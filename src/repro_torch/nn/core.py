@@ -12,7 +12,11 @@ shape, and the kernels sum the inner dimension in different orders, so a
 row's bits can change with the number of rows multiplied.  The serving
 contract needs each output row to be a function of that row alone,
 whatever the bucket size, so :func:`linear` always multiplies blocks of
-exactly :data:`ROW_BLOCK` rows (zero-padded).
+exactly :data:`ROW_BLOCK` rows (zero-padded).  On the card a depth-1
+LipSwish MLP with biases (every SDE field at its default depth) is one
+launch of the ``fused_mlp`` kernel instead, which sums each row in one
+fixed order; the CPU, the GRU and the other ``linear`` calls keep the
+blocks.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ import math
 from typing import Callable, Optional, Sequence
 
 import torch
+
+from ..kernels import ops
 
 #: Rows of every matmul :func:`linear` issues (see the module docstring).
 ROW_BLOCK = 1024
@@ -97,12 +103,35 @@ def mlp_init(generator: torch.Generator, sizes: Sequence[int], bias: bool = True
                        for a, b in zip(sizes[:-1], sizes[1:])]}
 
 
+def _fusable(layers, x, activation) -> bool:
+    """Whether :func:`mlp` runs as one ``fused_mlp`` launch: on the card, for
+    Linear → LipSwish → Linear with both biases.  By device only, never by
+    ``use_pallas_kernels``: the fused and unfused steppers must evaluate the
+    same fields."""
+    return (x.is_cuda and len(layers) == 2 and activation is lipswish
+            and all("b" in p for p in layers))
+
+
+def _mlp_dispatch(layers, x):
+    """The depth-1 LipSwish MLP on the card
+    (:func:`repro_torch.kernels.ops.fused_mlp`)."""
+    (l1, l2) = layers
+    return ops.fused_mlp(x.contiguous(), l1["w"], l1["b"], l2["w"], l2["b"])
+
+
+def _mlp_layers(layers, x, activation):
+    for p in layers[:-1]:
+        x = activation(linear(p, x))
+    return linear(layers[-1], x)
+
+
 def mlp(params, x, activation: Callable = lipswish,
         final_activation: Optional[Callable] = None):
     layers = params["layers"]
-    for p in layers[:-1]:
-        x = activation(linear(p, x))
-    x = linear(layers[-1], x)
+    if _fusable(layers, x, activation):
+        x = _mlp_dispatch(layers, x)
+    else:
+        x = _mlp_layers(layers, x, activation)
     if final_activation is not None:
         x = final_activation(x)
     return x

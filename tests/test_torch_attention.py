@@ -8,7 +8,8 @@ Tolerances are those of the JAX package's kernel suite
 kernel's online softmax sums in another order than the plain softmax);
 bfloat16 6e-2 (8 mantissa bits; P is rounded to bf16 before P·V in every
 version, at different points of the sum).  The CUDA kernel itself is held
-to its plain version on the card (tests/test_torch_cuda.py, chip_smoke.py).
+to its plain version on the card (tests/test_torch_cuda.py, chip_smoke.py);
+its autograd node's backward is the plain version's autograd, bitwise.
 """
 
 import jax.numpy as jnp
@@ -21,6 +22,7 @@ from repro.kernels.flash_attention import flash_attention as pallas_flash_attent
 from repro_torch.kernels import flash_attention as fa_kernel
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
+from repro_torch.kernels.vjp import PlainVJP
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = dict(rtol=6e-2, atol=6e-2)
@@ -94,3 +96,44 @@ def test_kernel_launcher_refuses_cpu_tensors():
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa_kernel.flash_attention(q.double(), k.double(), v.double())
     assert fa_kernel.LAUNCHES["flash_attention"] == 0
+
+
+def _attention_node(q, k, v, causal, scale):
+    """The kernel's autograd node with the plain forward in the kernel's place."""
+    return PlainVJP.apply(ref.flash_attention, ref.flash_attention,
+                          {"causal": causal, "scale": scale}, q, k, v)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", [(1, 4, 1, 33, 16), (2, 10, 2, 40, 64)])
+def test_attention_node_gradients_equal_plain_autograd_bitwise(B, Hq, Hkv, S, D, causal):
+    """The launch's autograd node (backward: the plain version's VJP at the
+    saved q, k, v and float scale) gives autograd's gradients of the plain
+    version bit for bit, for a loss linear in the output and one through a
+    projection upstream of q."""
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in _inputs(B, Hq, Hkv, S, D, seed=S))
+    c = torch.from_numpy(np.random.default_rng(9).standard_normal((B, Hq, S, D),
+                                                                  dtype=np.float32))
+    scale = 1 / D ** 0.5
+
+    def grads(f):
+        out = f(torch.tanh(q) * 2.0, k, v, causal, scale)
+        return torch.autograd.grad((out * c).sum(), (q, k, v))
+
+    got, want = grads(_attention_node), grads(ref.flash_attention)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(g.abs().max() > 0 for g in got)
+
+
+def test_attention_node_second_derivative_is_the_plain_versions():
+    """create_graph through the node, a first loss linear in the output: the
+    second derivative is the plain version's, bit for bit."""
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in _inputs(1, 2, 1, 9, 16, seed=4))
+    c = torch.linspace(-1.0, 1.0, q.numel()).reshape(q.shape)
+
+    def grads(f):
+        gq, = torch.autograd.grad((f(q, k, v, True, 0.25) * c).sum(), q, create_graph=True)
+        return torch.autograd.grad(gq.pow(2).sum(), (q, k, v))
+
+    got, want = grads(_attention_node), grads(ref.flash_attention)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

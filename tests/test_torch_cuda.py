@@ -7,7 +7,11 @@ padding invariance; the GQA attention kernel against its plain version
 (float32 2e-5, bfloat16 6e-2: the two sum in different orders) and a
 two-layer smoke LM's prefill routed through it; the SSD chunk-scan kernel
 against its plain version (y: float32 2e-4, bfloat16 6e-2; the state 2e-4
-of its largest magnitude) and a two-layer smoke mamba2 prefill through it.
+of its largest magnitude) and a two-layer smoke mamba2 prefill through it;
+the SDE field MLP kernel against its plain version (float32 2e-5, bfloat16
+6e-2, float64 1e-12), row-invariant bitwise, and the depth-1 fields routed
+through it; gradients through the MLP, attention and SSD kernels bitwise
+the plain path's for a loss linear in the outputs.
 
 These need an NVIDIA GPU with nvcc (the kernels have no CPU mode); each test
 skips without one.  On the GPU machine::
@@ -100,10 +104,14 @@ def test_each_launch_is_counted_once(cuda):
     ops.flash_attention(q, q, q, use_kernel=False)
     ops.ssd_chunk(q, -q[..., 0], q, q)
     ops.ssd_chunk(q, -q[..., 0], q, q, use_kernel=False)
+    w1, b1 = torch.rand(16, 8, device=cuda), torch.rand(8, device=cuda)
+    ops.fused_mlp(z, w1, b1, w1.t().contiguous(), z[0])
+    ops.fused_mlp(z, w1, b1, w1.t().contiguous(), z[0], use_kernel=False)
     assert ops.launch_counts() == {"rev_heun_phase1": 1, "rev_heun_phase2": 1,
                                    "rev_heun_bwd_phase1": 1, "rev_heun_bwd_phase2": 1,
                                    "rev_heun_phase1_gen": 1, "brownian_increment": 1,
-                                   "brownian_value": 1, "flash_attention": 1, "ssd_chunk": 1}
+                                   "brownian_value": 1, "flash_attention": 1, "ssd_chunk": 1,
+                                   "fused_mlp": 1}
 
 
 def test_operands_are_checked(cuda):
@@ -205,7 +213,8 @@ def test_fused_decode_equals_unfused_on_the_card(cuda, dtype):
 def test_fused_training_step_equals_unfused_on_the_card(cuda):
     """float64, full widths, batch 64: the fused exact adjoint (six kernels)
     gives the unfused step's parameters bit for bit; one fused step launches
-    46 forward and 138 backward kernels."""
+    46 forward and 138 backward kernels, and its fields 286 ``fused_mlp``
+    launches (98 forward, 188 backward)."""
     widths = dict(data_dim=2, hidden_dim=16, context_dim=16, width=32, num_steps=23,
                   kl_weight=0.1, dtype=torch.float64)
     init, update = make_latent_sde_optimizer(1e-2)
@@ -222,6 +231,7 @@ def test_fused_training_step_equals_unfused_on_the_card(cuda):
     assert counts["rev_heun_phase1_gen"] == 23 and counts["brownian_increment"] == 23
     assert counts["rev_heun_phase1"] == 46 and counts["rev_heun_phase2"] == 46
     assert counts["rev_heun_bwd_phase1"] == 23 and counts["rev_heun_bwd_phase2"] == 23
+    assert counts["fused_mlp"] == 286
     assert torch.isfinite(runs[1][2]["loss"])
     for a, b in zip(tree.leaves(runs[0][0]), tree.leaves(runs[1][0])):
         assert torch.equal(a, b)
@@ -315,3 +325,94 @@ def test_smoke_mamba2_prefill_runs_through_the_kernel(cuda, monkeypatch):
                         ops.ssd_chunk(x, a, b, c, use_kernel=False))
     plain, _ = prefill(params, {"tokens": tokens.to(cuda)})
     torch.testing.assert_close(logits, plain, rtol=2e-4, atol=2e-4)
+
+
+MLP_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+           torch.bfloat16: dict(rtol=6e-2, atol=6e-2),
+           torch.float64: dict(rtol=1e-12, atol=1e-12)}
+# (Din, H, Dout): the SDE fields (ELBO, SDE-GAN sigma, the burst), the JAX
+# suite's 96 -> 48 -> 24, and a 512-wide MLP (weights read through L2).
+MLP_WIDTHS = [(17, 32, 16), (33, 32, 16), (8, 32, 16), (17, 32, 64), (32, 64, 32),
+              (96, 48, 24), (512, 512, 512)]
+
+
+def _mlp_operands(cuda, dtype, rows, din, h, dout, seed=0):
+    """x ~ N(0, 1), W ~ N(0, 1/fan_in) (nn.mlp_init's scale: a 512-wide
+    layer's sums stay O(1)), b ~ 0.1·N(0, 1)."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(rows, din, generator=g, dtype=torch.float64)
+    ws = [torch.randn(*s, generator=g, dtype=torch.float64) * f
+          for s, f in (((din, h), din ** -0.5), ((h,), 0.1), ((h, dout), h ** -0.5),
+                       ((dout,), 0.1))]
+    return [t.to(cuda, dtype) for t in (x, *ws)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("din,h,dout", MLP_WIDTHS)
+def test_fused_mlp_kernel_matches_plain_version(cuda, dtype, din, h, dout):
+    ops.reset_launch_counts()
+    x, *w = _mlp_operands(cuda, dtype, 300, din, h, dout)
+    got = ops.fused_mlp(x, *w)
+    assert ops.launch_counts()["fused_mlp"] == 1
+    want = ops.fused_mlp(x, *w, use_kernel=False)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (300, dout)
+    torch.testing.assert_close(got, want, **MLP_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("din,h,dout", [(17, 32, 16), (32, 64, 32), (512, 512, 512)])
+def test_fused_mlp_rows_are_invariant(cuda, dtype, din, h, dout):
+    """A row's bits whatever the rows launched with it: 1 vs 1000 vs 1024."""
+    x, *w = _mlp_operands(cuda, dtype, 1024, din, h, dout, seed=1)
+    full = ops.fused_mlp(x, *w)
+    part = ops.fused_mlp(x[:1000].contiguous(), *w)
+    assert torch.equal(part, full[:1000])
+    for r in (0, 517, 999, 1023):
+        assert torch.equal(ops.fused_mlp(x[r:r + 1].contiguous(), *w)[0], full[r])
+
+
+def test_depth1_fields_run_through_the_kernel(cuda):
+    params = nn.mlp_init(torch.Generator().manual_seed(4), [17, 32, 16], device=cuda)
+    deep = nn.mlp_init(torch.Generator().manual_seed(4), [17, 32, 32, 16], device=cuda)
+    x = torch.randn(64, 17, device=cuda)
+    ops.reset_launch_counts()
+    y = nn.mlp(params, x, nn.lipswish, torch.tanh)
+    nn.mlp(deep, x)
+    nn.mlp(params, x, nn.silu)
+    assert ops.launch_counts()["fused_mlp"] == 1
+    (l1, l2) = params["layers"]
+    assert torch.equal(y, torch.tanh(ops.fused_mlp(x, l1["w"], l1["b"], l2["w"], l2["b"])))
+
+
+def _linear_loss_grads(fn, inputs, seed):
+    """Gradients of sum(c·out) for fixed random c, for every output."""
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    g = torch.Generator(device=leaves[0].device).manual_seed(seed)
+    loss = sum((o * torch.randn(o.shape, generator=g, device=o.device, dtype=o.dtype)).sum()
+               for o in outs)
+    return torch.autograd.grad(loss, leaves)
+
+
+def test_kernel_gradients_equal_plain_path_bitwise(cuda):
+    """For a loss linear in the outputs the cotangents do not depend on the
+    forward's bits, so the three kernels' gradients (the plain versions'
+    VJPs at the same inputs) equal the plain path's bit for bit."""
+    mlp = _mlp_operands(cuda, torch.float64, 64, 17, 32, 16)
+    g = torch.Generator().manual_seed(2)
+    qkv = [torch.randn(2, h, 70, 64, generator=g).to(cuda) for h in (8, 2, 2)]
+    x = torch.randn(2, 70, 4, 16, generator=g).to(cuda).transpose(1, 2)
+    a = (-0.1 * torch.randn(2, 70, 4, generator=g).abs()).to(cuda).transpose(1, 2)
+    bc = [(0.5 * torch.randn(2, 70, 16, generator=g)).to(cuda)[:, None].expand(2, 4, 70, 16)
+          for _ in range(2)]
+    cases = [(ops.fused_mlp, mlp, "fused_mlp"),
+             (ops.flash_attention, qkv, "flash_attention"),
+             (ops.ssd_chunk, [x, a, *bc], "ssd_chunk")]
+    for fn, inputs, name in cases:
+        ops.reset_launch_counts()
+        got = _linear_loss_grads(fn, inputs, 3)
+        assert ops.launch_counts()[name] == 1
+        want = _linear_loss_grads(lambda *t: fn(*t, use_kernel=False), inputs, 3)
+        assert all(gr is not None and torch.equal(gr, w) for gr, w in zip(got, want)), name

@@ -11,7 +11,8 @@ chunked forms sum in another order than the recurrence); the terminal
 state within 2e-4 of its largest magnitude; bfloat16 outputs 6e-2
 (tests/test_kernels.py:21: 8 mantissa bits).  The CUDA kernel itself is
 held to its plain version on the card (tests/test_torch_cuda.py,
-chip_smoke.py).
+chip_smoke.py); its autograd node's backward is the plain version's
+autograd, bitwise.
 """
 
 import jax.numpy as jnp
@@ -24,6 +25,7 @@ from repro.kernels.ssd_chunk import ssd_chunk as pallas_ssd_chunk
 from repro.models.layers import ssd_chunked_dense
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import ssd_chunk as ssd_kernel
+from repro_torch.kernels.vjp import PlainVJP
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 BF16_TOL = dict(rtol=6e-2, atol=6e-2)
@@ -151,3 +153,40 @@ def test_kernel_launcher_checks_operands():
         with pytest.raises(err, match=msg):
             ssd_kernel.check_operands(*args)
     assert ssd_kernel.LAUNCHES["ssd_chunk"] == 0
+
+
+def _ssd_node(x, a, b, c):
+    """The kernel's autograd node with the plain forward in the kernel's place."""
+    return PlainVJP.apply(ref.ssd_chunk, ref.ssd_chunk, {}, x, a, b, c)
+
+
+@pytest.mark.parametrize("outputs", ["both", "y", "h"])
+def test_ssd_node_gradients_equal_plain_autograd_bitwise(outputs):
+    """The mixer's layout — x and a transposed views of (B, S, H, ·) leaves,
+    b and c (B, S, N) leaves expanded over the heads with stride 0 — into
+    the launch's autograd node (backward: the plain recurrence's VJP at the
+    saved views) gives autograd's gradients of the plain version bit for
+    bit, for a loss linear in y, in the terminal state, or in both."""
+    B, H, S, P, N = 2, 3, 21, 16, 16
+    x, a, b, c = _inputs(B, H, S, P, N, seed=11)
+    leaves = [torch.from_numpy(np.ascontiguousarray(x.transpose(0, 2, 1, 3))),
+              torch.from_numpy(np.ascontiguousarray(a.transpose(0, 2, 1))),
+              torch.from_numpy(b[:, 0]), torch.from_numpy(c[:, 0])]
+    leaves = [t.requires_grad_() for t in leaves]
+    r = np.random.default_rng(12)
+    cy = torch.from_numpy(r.standard_normal((B, H, S, P), dtype=np.float32))
+    ch = torch.from_numpy(r.standard_normal((B, H, N, P), dtype=np.float32))
+
+    def grads(f):
+        xl, al, bl, cl = leaves
+        bv, cv = (t[:, None].expand(B, H, S, N) for t in (bl, cl))
+        assert bv.stride(1) == 0
+        y, h = f(xl.transpose(1, 2), al.transpose(1, 2), bv, cv)
+        loss = {"both": (y * cy).sum() + (h * ch).sum(), "y": (y * cy).sum(),
+                "h": (h * ch).sum()}[outputs]
+        return torch.autograd.grad(loss, leaves, allow_unused=True)
+
+    got, want = grads(_ssd_node), grads(ref.ssd_chunk)
+    for g, w in zip(got, want):
+        assert (g is None and w is None) or torch.equal(g, w)
+    assert got[0].shape == leaves[0].shape and got[2].shape == (B, S, N)
