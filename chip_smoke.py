@@ -137,11 +137,42 @@ non-zero and the final result line is never printed):
    of a two-layer smoke LM's next-token loss (qwen2.5-14b's and
    mamba2-1.3b's families) reaches every parameter, finite, through one
    kernel launch per layer.
-18. Prints a ``{"kernels": [...]}`` JSON line (``launches``: the count on
+18. (Run first, right after the build.)  ``fused_xent`` (the LM loss's
+   per-token cross entropy) forward and backward against their plain
+   versions, float32 and bfloat16, at XENT_SHAPES (tinyllama-1.1b's
+   8192 × 32000 training logits, mamba2-1.3b's 1024 × 50280, the JAX
+   suite's shapes, qwen2.5's vocab, R = 1, V = 1): the loss and the
+   log-sum-exp within XENT_TOL, dlogits within 1e-5 (float32) or one ulp
+   (bfloat16); rows invariant bitwise (1 vs 300 vs 8192 rows).  Timed at
+   8192 × 32000 in both dtypes beside the plain versions, the bounds and
+   ``F.cross_entropy`` (the forward's library yardstick, called nowhere in
+   the port).
+19. LM training parity, float32, tinyllama-1.1b at full width and two
+   layers, B = 2, S = 512: one ``make_train_step`` step through
+   ``fused_xent`` and ``flash_attention`` against the same step with both
+   on their plain versions (``plain_xent()``, ``plain_attention()``): the
+   loss within 1e-5, ``grad_norm`` within 1e-4, the parameters within
+   2·lr_1; the launches asserted; the card's ``token_batches`` bitwise the
+   CPU's.
+20. LM training, the slice's main path: ``train("tinyllama-1.1b", 3 steps,
+   B = 4, S = 2048, the full config)`` with random bf16 weights drawn on
+   the card, each step's launches counted (zeroed before, read after):
+   ``fused_xent`` and ``fused_xent_bwd`` once each, ``flash_attention`` 44
+   (22 in the forward, 22 recomputed by the per-unit checkpoint); the
+   parameters float32 after step 1 (the reference's promotion); finite
+   losses; wall per step and tokens/s; the peak memory of one gradient
+   with and without remat; a profile of one step (busy, idle share, the
+   kernels' share); then the resume: 2 steps with a checkpoint, a rerun
+   to 3 prints the resume line and reproduces step 3's loss bitwise.
+21. mamba2-1.3b's training loss at full width, two layers, B = 2, S = 512,
+   bf16: one gradient through ``ssd_chunk`` and ``fused_xent`` against
+   the plain route: the loss within 6e-2, every leaf's gradient finite.
+22. Prints a ``{"kernels": [...]}`` JSON line (``launches``: the count on
    the path each kernel was ported for — training (3 steps) for the solver
    kernels and ``fused_mlp``, the adaptive gradient for
    ``brownian_value``, the 2048-token LM serves for ``flash_attention``
-   and ``ssd_chunk``; ``adaptive_launches``: the fused adaptive
+   and ``ssd_chunk``, one LM training step of phase 20 for ``fused_xent``
+   and ``fused_xent_bwd``; ``adaptive_launches``: the fused adaptive
    gradient's; ``serve_launches``: the Latent-SDE service's, the adaptive
    service's for ``brownian_value``, the LM serves' for
    ``flash_attention`` and ``ssd_chunk``) and, last, the
@@ -155,9 +186,11 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -205,6 +238,10 @@ KERNEL_SOURCES = {
                   "src/repro/kernels/ssd_chunk.py:59"),
     "fused_mlp": ("src/repro_torch/kernels/csrc/fused_mlp.cu",
                   "src/repro/kernels/fused_mlp.py:43"),
+    "fused_xent": ("src/repro_torch/kernels/csrc/fused_xent.cu",
+                   "src/repro/kernels/xent.py:56"),
+    "fused_xent_bwd": ("src/repro_torch/kernels/csrc/fused_xent.cu",
+                       "src/repro/kernels/xent.py:56"),
 }
 # fused_mlp checks, (Din, H, Dout): every depth-1 field of the ELBO (mu and
 # sigma 1 + 16 -> 32 -> 16, nu 1 + 16 + 16, qz0 16 -> 2·8, zeta 8), of the
@@ -251,6 +288,29 @@ SSD_PREFILL = SSD_SHAPES[0]
 SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 6e-2}
 SSD_STATE_RTOL = 2e-4
 LM_SERVE = dict(batch=4, prompt_len=2048, gen=16)
+# fused_xent checks, (R, V): tinyllama-1.1b's training logits (B 4 × 2048
+# tokens), mamba2-1.3b's (B 2 × 512), the JAX suite's shapes
+# (tests/test_kernels.py:153-157), qwen2.5's vocab, one row, one class.
+XENT_SHAPES = [(8192, 32000), (1024, 50280), (64, 1024), (128, 512), (32, 1000),
+               (256, 152064), (1, 32000), (64, 1)]
+XENT_TIMED = XENT_SHAPES[0]
+# the JAX suite's tolerances (tests/test_kernels.py:167-168) for the loss
+# and the log-sum-exp; dlogits: float32 1e-5, bfloat16 one ulp of the
+# output (both round the same float32 value, which differs by ulps).
+XENT_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+XENT_FWD_OPS, XENT_BWD_OPS = 6, 5  # per logit: max/compare, sub, exp, add (+ rescale)
+TRAIN_ARCH = "tinyllama-1.1b"
+# LM training parity (phase 19): full width at two layers, float32.  The
+# loss sums the same values in other orders (cuBLAS's and the kernels'), so
+# 1e-5; grad_norm sums ~2e8 squares, 1e-4; Adam's first update is
+# ±lr·sign(m), so a gradient at the noise floor may flip: 2·lr_1 absolute.
+TRAIN_PARITY = dict(batch=2, seq=512)
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 1e-5, 1e-4
+TRAIN_FULL = dict(batch=4, seq=2048, steps=3)
+# mamba2-1.3b's step at full width, two layers, bf16 (phase 21): kernel vs
+# plain route, the loss within bf16's relative 6e-2.
+SSM_TRAIN = dict(batch=2, seq=512)
+SSM_LOSS_RTOL = 6e-2
 SERVE_KERNELS = ("rev_heun_phase1_gen", "rev_heun_phase2", "brownian_increment")
 # Launches of one fused ELBO step at 23 solver steps: forward 23 x (phase1_gen,
 # phase2); backward 23 x (brownian_increment, phase1 x2, phase2, bwd_phase1,
@@ -383,8 +443,8 @@ def kernel_checks(ops, dev) -> tuple:
     main paths' shapes.  Returns ``{(name, dtype, B, d): row}`` timings and
     ``{name: max |Δ|}``."""
     g = torch.Generator().manual_seed(1234)
-    errs = {name: 0.0 for name in KERNEL_SOURCES
-            if name not in ("brownian_value", "flash_attention", "ssd_chunk", "fused_mlp")}
+    errs = {name: 0.0 for name, (src, _) in KERNEL_SOURCES.items()
+            if src == CSRC and name != "brownian_value"}
     # (rows, d): small and serving shapes, the training state, and the
     # training path's one-key draws (one row of B*17: a BrownianPath with a
     # single key over the (B, 17) state).
@@ -1538,6 +1598,368 @@ def lm_grad_checks(ops, dev, label: str) -> None:
               f"{max(gr.abs().max().item() for gr in grads):.3g})", flush=True)
 
 
+def xent_bound(R: int, V: int, dtype, backward: bool) -> tuple:
+    """Least time for one cross-entropy call: the logits read once (and, for
+    the backward, dlogits written once) with the (R,) labels, lse, loss or
+    g, against XENT_FWD_OPS / XENT_BWD_OPS float32 operations per logit;
+    -> (ms, 'bytes'|'operations')."""
+    s = torch.finfo(dtype).bits // 8
+    nbytes = (2 if backward else 1) * R * V * s + 3 * R * 4
+    n_ops = (XENT_BWD_OPS if backward else XENT_FWD_OPS) * R * V
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_OPS_PER_S[torch.float32] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _xent_operands(g, dev, dtype, R, V):
+    """The JAX suite's draws: logits 3·N(0, 1), labels uniform, g ~ N(0, 1)."""
+    x = (3 * torch.randn(R, V, generator=g, device=dev)).to(dtype)
+    lab = torch.randint(0, V, (R,), generator=g, device=dev, dtype=torch.int32)
+    return x, lab, torch.randn(R, generator=g, device=dev)
+
+
+def xent_checks(ops, dev) -> tuple:
+    """Phase 18: the fused_xent forward and backward kernels against their
+    plain versions at XENT_SHAPES, float32 and bfloat16; rows invariant
+    bitwise (1 vs 300 vs 8192 rows); then timed at XENT_TIMED beside the
+    plain versions, the bounds and F.cross_entropy.  Returns (timing rows
+    by kernel, float32 first, max |Δ| by kernel)."""
+    from repro_torch.kernels import ref, xent
+
+    g = torch.Generator(device=dev).manual_seed(18)
+    err = {"fused_xent": 0.0, "fused_xent_bwd": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = XENT_TOL[dtype]
+        for R, V in XENT_SHAPES:
+            x, lab, cot = _xent_operands(g, dev, dtype, R, V)
+            loss, lse = xent.launch_fwd(x, lab)
+            dx = xent.launch_bwd(x, lab, lse, cot)
+            want_loss, want_lse = ref.fused_xent_fwd(x, lab)
+            want_dx = ref.fused_xent_bwd(x, lab, lse, cot)  # at the kernel's lse
+            torch.cuda.synchronize()
+            where = f"fused_xent {str(dtype)[6:]} {(R, V)}"
+            d_loss = (loss - want_loss).abs().max().item()
+            d_lse = (lse - want_lse).abs().max().item()
+            check(loss.dtype == torch.float32 and loss.shape == (R,)
+                  and torch.isfinite(loss).all().item()
+                  and torch.allclose(loss, want_loss, rtol=tol, atol=tol)
+                  and torch.allclose(lse, want_lse, rtol=tol, atol=tol),
+                  f"{where}: kernel loss/lse != plain (max |Δ| {d_loss} / {d_lse}, "
+                  f"tolerance {tol})")
+            d_dx = (dx.float() - want_dx.float()).abs().max().item()
+            if dtype == torch.float32:
+                ok = torch.allclose(dx, want_dx, rtol=1e-5, atol=1e-5)
+            else:  # one bf16 ulp of the output
+                ulp = torch.finfo(dtype).eps * want_dx.float().abs().clamp_min(2 ** -126)
+                ok = bool(((dx.float() - want_dx.float()).abs() <= ulp).all().item())
+            check(ok and dx.dtype == dtype and dx.shape == x.shape,
+                  f"{where}: kernel dlogits != plain (max |Δ| {d_dx})")
+            err["fused_xent"] = max(err["fused_xent"], d_loss)
+            err["fused_xent_bwd"] = max(err["fused_xent_bwd"], d_dx)
+            if (R, V) == XENT_TIMED:
+                for r in (1, 300):
+                    lr_, lse_r = xent.launch_fwd(x[:r], lab[:r])
+                    dx_r = xent.launch_bwd(x[:r], lab[:r], lse_r, cot[:r])
+                    check(torch.equal(lr_, loss[:r]) and torch.equal(dx_r, dx[:r]),
+                          f"{where}: rows {r} != the first {r} of {R} (not row-invariant)")
+            print(f"{where}: loss max |Δ| {d_loss:.3g}, lse {d_lse:.3g} (tol {tol}); dlogits "
+                  f"max |Δ| {d_dx:.3g}" + ("; rows 1 = 300 = 8192 bitwise"
+                                           if (R, V) == XENT_TIMED else ""), flush=True)
+            del x, lab, cot, loss, lse, dx, want_loss, want_lse, want_dx
+        torch.cuda.empty_cache()
+
+    R, V = XENT_TIMED
+    rows = {"fused_xent": {}, "fused_xent_bwd": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        x, lab, cot = _xent_operands(g, dev, dtype, R, V)
+        lab64 = lab.long()
+        _, lse = xent.launch_fwd(x, lab)
+        ce = torch.nn.functional.cross_entropy
+        k_ms, k_host = time_ms(lambda: xent.launch_fwd(x, lab), reps=20, trials=5)
+        p_ms, p_host = time_ms(lambda: ref.fused_xent_fwd(x, lab), reps=5, trials=3)
+        l_ms, l_host = time_ms(lambda: ce(x, lab64, reduction="none"), reps=20, trials=5)
+        kb_ms, kb_host = time_ms(lambda: xent.launch_bwd(x, lab, lse, cot), reps=20, trials=5)
+        pb_ms, pb_host = time_ms(lambda: ref.fused_xent_bwd(x, lab, lse, cot), reps=3,
+                                 trials=3)
+        b_ms, b_by = xent_bound(R, V, dtype, backward=False)
+        bb_ms, bb_by = xent_bound(R, V, dtype, backward=True)
+        name = str(dtype)[6:]
+        print(f"fused_xent {name} {(R, V)}: kernel {k_ms:.4f} ms (host {k_host:.4f}), plain "
+              f"{p_ms:.4f} ms (host {p_host:.4f}), F.cross_entropy {l_ms:.4f} ms (host "
+              f"{l_host:.4f}), bound {b_ms:.4f} ms ({b_by})", flush=True)
+        print(f"fused_xent_bwd {name} {(R, V)}: kernel {kb_ms:.4f} ms (host {kb_host:.4f}), "
+              f"plain {pb_ms:.4f} ms (host {pb_host:.4f}), bound {bb_ms:.4f} ms ({bb_by}); "
+              f"no single library call computes it", flush=True)
+        rows["fused_xent"][name] = dict(ms=k_ms, plain_ms=p_ms, host_ms=k_host,
+                                        plain_host_ms=p_host, bound_ms=b_ms, bound_by=b_by,
+                                        library_ms=l_ms)
+        rows["fused_xent_bwd"][name] = dict(ms=kb_ms, plain_ms=pb_ms, host_ms=kb_host,
+                                            plain_host_ms=pb_host, bound_ms=bb_ms,
+                                            bound_by=bb_by, library_ms=None)
+        del x, lab, lab64, cot, lse
+        torch.cuda.empty_cache()
+    return rows, err
+
+
+@contextlib.contextmanager
+def plain_xent():
+    """Route the LM loss's per-token cross entropy through the plain version
+    (use_kernel=False; autograd of the plain ops for its backward)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    dispatch = T._xent_dispatch
+    T._xent_dispatch = lambda logits, labels: ops.fused_xent(logits, labels,
+                                                             use_kernel=False)
+    try:
+        yield
+    finally:
+        T._xent_dispatch = dispatch
+
+
+def _data_key(device):
+    """The train loop's data key, fold_in(PRNGKey(0), 1), on ``device``."""
+    from repro_torch.kernels import prng
+
+    return prng.fold_in_key(prng.PRNGKey(0, device=device), 1)
+
+
+def _one_train_step(ops, cfg, params, batch):
+    """One make_train_step step from fresh optimizer state -> (params,
+    metrics, launch counts)."""
+    from repro_torch.launch.steps import make_optimizer, make_train_step
+
+    init, update = make_optimizer(cfg)
+    ops.reset_launch_counts()
+    new, _, metrics = make_train_step(cfg, update)(params, init(params), batch)
+    torch.cuda.synchronize()
+    return new, metrics, ops.launch_counts()
+
+
+def lm_train_parity_checks(ops, dev, label: str) -> None:
+    """Phase 19: one float32 training step of tinyllama-1.1b at full width
+    and two layers, through fused_xent and flash_attention, against the same
+    step on their plain versions; the card's token batches against the
+    port's on the CPU, bitwise."""
+    from repro_torch import optim, tree
+    from repro_torch.configs import get_config
+    from repro_torch.data import token_batches
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=2, dtype=torch.float32)
+    B, S = TRAIN_PARITY["batch"], TRAIN_PARITY["seq"]
+    for b, s, step in ((B, S, 0), (TRAIN_FULL["batch"], TRAIN_FULL["seq"], 0),
+                       (TRAIN_FULL["batch"], TRAIN_FULL["seq"], 2)):
+        on_card = token_batches(_data_key(dev), step, b, s, cfg.vocab)
+        on_cpu = token_batches(_data_key("cpu"), step, b, s, cfg.vocab)
+        check(all(torch.equal(on_card[k].cpu(), on_cpu[k]) for k in on_cpu),
+              f"token_batches B={b} S={s} step {step}: the card's differ from the CPU's")
+    print(f"[{label}] token_batches on the card = on the CPU, bitwise (B {B} × {S}, and "
+          f"B {TRAIN_FULL['batch']} × {TRAIN_FULL['seq']} at steps 0 and 2)", flush=True)
+    batch = token_batches(_data_key(dev), 0, B, S, cfg.vocab)
+    params = T.init_lm(torch.Generator(device=dev).manual_seed(41), cfg, device=dev)
+    kp, km, kc = _one_train_step(ops, cfg, params, batch)
+    with plain_attention(), plain_xent():
+        pp, pm, pc = _one_train_step(ops, cfg, params, batch)
+    # per step: one fused_xent and one fused_xent_bwd launch; flash_attention
+    # once per layer in the forward and once more per layer in the backward,
+    # where the per-unit checkpoint (cfg.remat) recomputes the unit.
+    want = {"fused_xent": 1, "fused_xent_bwd": 1, "flash_attention": 2 * cfg.num_layers}
+    check(all(kc[k] == n for k, n in want.items()),
+          f"LM train parity: launches {kc}, want {want}")
+    check(not any(pc.values()), f"LM train parity: the plain step launched {pc}")
+    lr1 = optim.cosine_schedule(3e-4, 100, 10_000)(1)
+    d_loss = abs(km["loss"].item() - pm["loss"].item()) / abs(pm["loss"].item())
+    d_gn = abs(km["grad_norm"].item() - pm["grad_norm"].item()) / pm["grad_norm"].item()
+    d_p = max((a - b).abs().max().item() for a, b in zip(tree.leaves(kp), tree.leaves(pp)))
+    check(math.isfinite(km["loss"].item()) and d_loss <= TRAIN_LOSS_RTOL,
+          f"LM train parity: loss {km['loss'].item()} vs {pm['loss'].item()} ({d_loss} rel)")
+    check(d_gn <= TRAIN_GNORM_RTOL, f"LM train parity: grad_norm {km['grad_norm'].item()} vs "
+          f"{pm['grad_norm'].item()} ({d_gn} rel)")
+    check(d_p <= 2 * lr1, f"LM train parity: parameters differ by {d_p} > 2·lr_1 {2 * lr1}")
+    print(f"[{label}] LM train parity ({TRAIN_ARCH}, float32, 2 layers, B={B}, S={S}): loss "
+          f"{km['loss'].item():.6f} vs plain {pm['loss'].item():.6f} ({d_loss:.3g} rel, tol "
+          f"{TRAIN_LOSS_RTOL}); grad_norm {d_gn:.3g} rel (tol {TRAIN_GNORM_RTOL}); "
+          f"parameters max |Δ| {d_p:.3g} (tol 2·lr_1 = {2 * lr1:.3g}); launches {want}",
+          flush=True)
+    del params, kp, pp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _grad_peak_gb(cfg, params, batch) -> float:
+    """Device memory one gradient of the training loss (forward and
+    backward, no optimizer update) takes at its peak above what was
+    allocated before it, in GB."""
+    from repro_torch import tree
+    from repro_torch.models import transformer as T
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    leaves, spec = tree.flatten(params)
+    leaves = [x.detach().requires_grad_() for x in leaves]
+    loss, _ = T.lm_loss(tree.unflatten(spec, leaves), cfg, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    del loss, grads, leaves
+    return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def lm_train_checks(ops, dev, label: str) -> dict:
+    """Phase 20: train(tinyllama-1.1b, 3 steps, B 4 × 2048, the full config,
+    random bf16 weights drawn on the card), each step's launches counted;
+    then peak memory with and without remat, a profile of one step, and the
+    resume from a checkpoint.  Returns the launches per step."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.data import token_batches
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+
+    cfg = get_config(TRAIN_ARCH)
+    B, S, n = TRAIN_FULL["batch"], TRAIN_FULL["seq"], TRAIN_FULL["steps"]
+    per_step = []
+    make_step = steps_mod.make_train_step
+
+    def counted(cfg_, opt_update=None, grad_clip=1.0):
+        inner = make_step(cfg_, opt_update, grad_clip)
+
+        def step(params, opt_state, batch):
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = inner(params, opt_state, batch)
+            torch.cuda.synchronize()
+            per_step.append((time.perf_counter() - t0, ops.launch_counts(),
+                             {p.dtype for p in tree.leaves(out[0])}))
+            return out
+
+        return step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    steps_mod.make_train_step = counted
+    try:
+        params, losses = train_mod.train(TRAIN_ARCH, n, B, S, None, smoke=False, log_every=1)
+    finally:
+        steps_mod.make_train_step = make_step
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # per step: fused_xent forward 1 and backward 1 (the loss is one call over
+    # all B·S tokens); flash_attention 22 in the forward (one per layer) plus
+    # 22 in the backward, where the per-unit checkpoint recomputes each unit.
+    want = {"fused_xent": 1, "fused_xent_bwd": 1, "flash_attention": 2 * cfg.num_layers}
+    for i, (_, counts, dtypes) in enumerate(per_step):
+        check(all(counts[k] == v for k, v in want.items()),
+              f"train step {i}: launches {counts}, want {want}")
+        check(dtypes == {torch.float32}, f"train step {i}: parameters come out {dtypes}, "
+              f"want float32 (the reference's promotion)")
+    check(len(losses) == n and all(map(math.isfinite, losses)), f"train losses {losses}")
+    wall = statistics.median(w for w, _, _ in per_step[1:])
+    print(f"[{label}] train {TRAIN_ARCH} (full config, {cfg.num_layers} layers, bf16 weights "
+          f"drawn on the card, float32 from step 2), B={B} S={S}: losses {losses}; walls "
+          f"{[round(w, 4) for w, _, _ in per_step]} s; median of steps 2-3 {wall:.4f} s = "
+          f"{B * S / wall:.1f} tokens/s; peak device memory {peak:.3f} GB (remat on); "
+          f"launches per step {want}", flush=True)
+
+    peaks = {}
+    for s_len, remat in ((S, True), (S // 2, True), (S // 2, False)):
+        b = token_batches(_data_key(dev), 0, B, s_len, cfg.vocab)
+        peaks[s_len, remat] = _grad_peak_gb(dataclasses.replace(cfg, remat=remat), params, b)
+    print(f"[{label}] one gradient of the loss (float32 parameters), peak device memory above "
+          f"the parameters: {peaks[S, True]:.3f} GB at B={B} S={S} with remat; at S={S // 2} "
+          f"{peaks[S // 2, True]:.3f} GB with remat, {peaks[S // 2, False]:.3f} GB without",
+          flush=True)
+
+    from repro_torch.launch.steps import make_optimizer
+
+    init, update = make_optimizer(cfg, total=n)
+    opt_state = init(params)
+    batch = token_batches(_data_key(dev), 2, B, S, cfg.vocab)
+    step_fn = make_step(cfg, update)
+    prof = profile_call(lambda: step_fn(params, opt_state, batch),
+                        f"{label}] [{TRAIN_ARCH} train step B={B} S={S}")
+    if prof["busy_ms"]:
+        x_ms = sum(ms for name, ms in prof["by_name"].items() if "xent" in name)
+        print(f"[{label}] {TRAIN_ARCH} train step: fused_xent (both kernels) {x_ms:.3f} ms of "
+              f"{prof['busy_ms']:.3f} ms device busy ({x_ms / prof['busy_ms']:.4f})",
+              flush=True)
+    del params, opt_state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-lm-") as tmp:
+        free = shutil.disk_usage(tmp).free / 1e9
+        t0 = time.perf_counter()
+        _, first = train_mod.train(TRAIN_ARCH, 2, B, S, tmp, smoke=False, log_every=1)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            _, resumed = train_mod.train(TRAIN_ARCH, n, B, S, tmp, smoke=False, log_every=1)
+        print(out.getvalue(), end="", flush=True)
+        check("[train] resumed from step 2" in out.getvalue(), "the resumed run printed no "
+              "resume line")
+        check(first == losses[:2] and resumed == losses[2:],
+              f"resume: losses {first} + {resumed} != the uninterrupted run's {losses}")
+        print(f"[{label}] resume: 2 steps with a checkpoint, then a rerun to {n} resumed from "
+              f"step 2; step {n}'s loss {resumed[0]} = the uninterrupted run's, bitwise "
+              f"({time.perf_counter() - t0:.1f} s with the checkpoints; {free:.1f} GB free "
+              f"before)", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return want
+
+
+def ssm_train_checks(ops, dev, label: str) -> None:
+    """Phase 21: one gradient of mamba2-1.3b's training loss at full width,
+    two layers, B 2 × 512, bfloat16, through ssd_chunk and fused_xent,
+    against the plain route; every leaf's gradient finite."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.data import token_batches
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config(SSM_ARCH), num_layers=2)
+    params = T.init_lm(torch.Generator(device=dev).manual_seed(51), cfg, device=dev)
+    batch = token_batches(_data_key(dev), 0, SSM_TRAIN["batch"], SSM_TRAIN["seq"], cfg.vocab)
+
+    def grads():
+        ops.reset_launch_counts()
+        leaves, spec = tree.flatten(params)
+        leaves = [x.detach().requires_grad_() for x in leaves]
+        loss, _ = T.lm_loss(tree.unflatten(spec, leaves), cfg, batch)
+        gr = torch.autograd.grad(loss, leaves, allow_unused=True)
+        torch.cuda.synchronize()
+        return loss.item(), gr, ops.launch_counts()
+
+    k_loss, k_g, kc = grads()
+    with plain_ssd(), plain_xent():
+        p_loss, p_g, pc = grads()
+    # ssd_chunk once per layer forward and once more per layer in the
+    # recomputing backward (remat); the loss one forward and one backward.
+    want = {"fused_xent": 1, "fused_xent_bwd": 1, "ssd_chunk": 2 * cfg.num_layers}
+    check(all(kc[k] == v for k, v in want.items()), f"mamba2 train: launches {kc}, want {want}")
+    check(not any(pc.values()), f"mamba2 train: the plain route launched {pc}")
+    rel = abs(k_loss - p_loss) / abs(p_loss)
+    check(math.isfinite(k_loss) and rel <= SSM_LOSS_RTOL,
+          f"mamba2 train: loss {k_loss} vs plain {p_loss} ({rel} rel)")
+    bad = sum(gr is None or not torch.isfinite(gr.float()).all().item() for gr in k_g)
+    check(bad == 0, f"mamba2 train: {bad} of {len(k_g)} leaves have no or a non-finite gradient")
+    gn = math.sqrt(sum(gr.float().pow(2).sum().item() for gr in k_g))
+    pgn = math.sqrt(sum(gr.float().pow(2).sum().item() for gr in p_g if gr is not None))
+    print(f"[{label}] mamba2 train ({SSM_ARCH}, bf16, 2 layers, B={SSM_TRAIN['batch']} "
+          f"S={SSM_TRAIN['seq']}): loss {k_loss:.5f} vs plain route {p_loss:.5f} ({rel:.3g} "
+          f"rel, tol {SSM_LOSS_RTOL}); gradient norm {gn:.5g} vs {pgn:.5g}; all {len(k_g)} "
+          f"leaves finite; launches {want}", flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _device_us(evt) -> float:
     return getattr(evt, "self_device_time_total", None) or getattr(
         evt, "self_cuda_time_total", 0.0)
@@ -1613,7 +2035,9 @@ def main() -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    xent_rows, xent_errs = xent_checks(ops, dev)
     rows, errs = kernel_checks(ops, dev)
+    errs.update(xent_errs)
     mlp_rows, mlp_errs = mlp_checks(ops, dev)
     errs["fused_mlp"] = max(mlp_errs.values())
     value_rows, errs["brownian_value"] = value_checks(ops, dev)
@@ -1631,14 +2055,23 @@ def main() -> int:
     lm_parity_checks(dev, label, SSM_ARCH)
     ssm_serve = lm_serve_checks(ops, dev, label, SSM_ARCH)
     lm_grad_checks(ops, dev, label)
+    lm_train_parity_checks(ops, dev, label)
+    train_lm_launches = lm_train_checks(ops, dev, label)
+    ssm_train_checks(ops, dev, label)
 
     print(f"kernels: {', '.join(KERNEL_SOURCES)} (route cuda; bitwise = plain except "
           f"flash_attention, within {ATTN_TOL}, ssd_chunk, within {SSD_TOL} and the "
-          f"state within {SSD_STATE_RTOL} of its largest, and fused_mlp, within {MLP_TOL}; "
+          f"state within {SSD_STATE_RTOL} of its largest, fused_mlp, within {MLP_TOL}, and "
+          f"fused_xent, within {XENT_TOL} (its backward within 1e-5 / one bf16 ulp); "
           f"decodes: {serve['decodes']})", flush=True)
     entries = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
-        if name == "flash_attention":  # timed at the prefill shape, bf16 causal
+        if name in ("fused_xent", "fused_xent_bwd"):  # timed at 8192 × 32000, f32
+            r = xent_rows[name]["float32"]
+            launches = train_lm_launches[name]  # per training step of phase 20
+            serve_launches = 0
+            extra = {"bf16": xent_rows[name]["bfloat16"], "launches_per": "training step"}
+        elif name == "flash_attention":  # timed at the prefill shape, bf16 causal
             r = attn_row
             launches = serve_launches = lm_serve["launches"]
             extra = {}

@@ -8,9 +8,11 @@ The port imports ``torch`` and numpy only: nothing of JAX and nothing of
 What is ported so far — Latent-SDE ELBO training (the exact reversible
 adjoint), the prior-decode serving path, adaptive stepping (the PI
 controller loop, the exact adjoint over the accepted grid, the SDE-GAN generator's
-fixed-grid and adaptive terminal services), and LM serving of the dense
+fixed-grid and adaptive terminal services), LM serving of the dense
 family (prefill through the GQA attention kernel) and the pure-SSM
-family (prefill through the SSD chunk-scan kernel), with greedy decode:
+family (prefill through the SSD chunk-scan kernel), with greedy decode,
+and LM training (AdamW, the loss through the cross-entropy kernels,
+resumable checkpoints):
 
 =====================================  ======================================
 port module                            reference
@@ -22,7 +24,8 @@ repro_torch.kernels.csrc/*             the Pallas kernels rev_heun_phase1,
                                        rev_heun_phase2, rev_heun_bwd_phase1,
                                        rev_heun_bwd_phase2, rev_heun_phase1_gen,
                                        brownian_increment, brownian_value,
-                                       flash_attention, ssd_chunk
+                                       fused_mlp, flash_attention, ssd_chunk,
+                                       fused_xent (+ its backward)
 repro_torch.kernels.ops                repro.kernels.ops (dispatch)
 repro_torch.nn.core                    repro.nn.core (MLP pieces, GRU,
                                        rmsnorm, layernorm, gelu, softplus)
@@ -31,7 +34,8 @@ repro_torch.configs                    repro.configs (ArchConfig; the dense
                                        starcoder2-3b; the SSM mamba2-1.3b)
 repro_torch.models                     repro.models (layers, transformer,
                                        counting: the dense and SSM
-                                       families' prefill and decode)
+                                       families' prefill, decode and
+                                       training loss)
 repro_torch.core.brownian              repro.core.brownian (BrownianPath:
                                        grid increments, bridge point values)
 repro_torch.core.solvers               repro.core.solvers (reversible Heun:
@@ -44,10 +48,15 @@ repro_torch.core.solve                 repro.core.solve (fixed grid and
 repro_torch.core.sde                   repro.core.sde (Latent SDE: ELBO and
                                        prior decode; SDE-GAN generator
                                        samplers)
-repro_torch.data                       repro.data.synthetic (air quality)
-repro_torch.optim                      repro.optim (Adam)
+repro_torch.data                       repro.data.synthetic (air quality,
+                                       LM token batches)
+repro_torch.optim                      repro.optim (Adam, AdamW, clipping,
+                                       the cosine schedule)
+repro_torch.distributed                repro.distributed.elastic (the mesh
+                                       planner)
 repro_torch.tree                       jax.tree (flatten, map)
-repro_torch.checkpoint                 repro.checkpoint (bundles)
+repro_torch.checkpoint                 repro.checkpoint (training
+                                       checkpoints, serving bundles)
 repro_torch.serving / launch           repro.serving / repro.launch (drain
                                        loops incl. adaptive terminal
                                        sampling, serve and train CLIs, step

@@ -29,7 +29,7 @@ import torch
 SERVING_SCHEMA = "repro-serving/v2"
 DEFAULT_MODEL_ID = "default"
 _SERVING_SUBDIR = "serving"
-_KEY_TOKEN = re.compile(r"\['((?:[^'\\]|\\.)*)'\]|\[(\d+)\]")
+_KEY_TOKEN = re.compile(r"\['((?:[^'\\]|\\.)*)'\]|\[(\d+)\]|\.(\w+)")
 
 
 class UnknownServingSchemaError(ValueError):
@@ -57,7 +57,10 @@ def _parse_keystr(name: str) -> list:
     for m in _KEY_TOKEN.finditer(name):
         if m.start() != pos:
             raise ValueError(f"unreadable leaf name {name!r}")
-        path.append(m.group(1) if m.group(2) is None else int(m.group(2)))
+        if m.group(2) is not None:
+            path.append(int(m.group(2)))
+        else:
+            path.append(m.group(1) if m.group(1) is not None else m.group(3))
         pos = m.end()
     if pos != len(name) or not path:
         raise ValueError(f"unreadable leaf name {name!r}")
@@ -87,20 +90,37 @@ def _lists_from_int_keys(node):
     return out
 
 
-def _leaves_from_tree(tree, prefix: str = "") -> dict:
+def _rebuild(tree, fn, prefix: str = ""):
+    """``tree``'s structure with each leaf replaced by ``fn(name, leaf)``;
+    ``name`` is the leaf's ``jax.tree_util.keystr`` (a NamedTuple's fields
+    as ``.name``)."""
     if isinstance(tree, dict):
-        out = {}
-        for k in sorted(tree):
-            out.update(_leaves_from_tree(tree[k], f"{prefix}[{k!r}]"))
-        return out
+        return {k: _rebuild(v, fn, f"{prefix}[{k!r}]") for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_rebuild(getattr(tree, f), fn, f"{prefix}.{f}")
+                            for f in tree._fields))
     if isinstance(tree, (list, tuple)):
-        out = {}
-        for i, v in enumerate(tree):
-            out.update(_leaves_from_tree(v, f"{prefix}[{i}]"))
-        return out
-    if isinstance(tree, torch.Tensor):
-        tree = tree.detach().cpu().numpy()
-    return {prefix: np.asarray(tree)}
+        return type(tree)(_rebuild(v, fn, f"{prefix}[{i}]") for i, v in enumerate(tree))
+    return fn(prefix, tree)
+
+
+def _to_numpy(leaf) -> np.ndarray:
+    """A tensor, a host integer (the optimizer step: int32, as JAX's) or an
+    array -> numpy; bfloat16 as its 16-bit words (``V2``)."""
+    if isinstance(leaf, torch.Tensor):
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.view(torch.int16).numpy().view("V2")
+        return leaf.numpy()
+    if isinstance(leaf, int):
+        return np.asarray(leaf, np.int32)
+    return np.asarray(leaf)
+
+
+def _leaves_from_tree(tree) -> dict:
+    out = {}
+    _rebuild(tree, lambda name, leaf: out.__setitem__(name, _to_numpy(leaf)))
+    return out
 
 
 # -----------------------------------------------------------------------------
@@ -190,3 +210,65 @@ def save_serving_bundle(ckpt_dir, step: int, params, workload: str, cfg,
         shutil.rmtree(final)
     tmp.rename(final)
     return final
+
+
+# -----------------------------------------------------------------------------
+# training checkpoints
+# -----------------------------------------------------------------------------
+
+
+def save_checkpoint(ckpt_dir, step: int, tree, host_id: int = 0, keep: int = 3,
+                    meta: Optional[dict] = None) -> Path:
+    """Atomically persist ``tree`` at ``step``; prune to the ``keep`` newest.
+    ``meta``: an optional JSON-safe dict stored in the manifest."""
+    ckpt_dir = Path(ckpt_dir)
+    step_dir = _step_dir(ckpt_dir, step)
+    tmp_dir = ckpt_dir / f".tmp_step_{step:012d}"
+    if tmp_dir.exists():
+        shutil.rmtree(tmp_dir)
+    tmp_dir.mkdir(parents=True)
+    arrays = _leaves_from_tree(tree)
+    np.savez(tmp_dir / f"shard_{host_id}.npz", **arrays)
+    manifest = {"step": step, "num_hosts": 1,
+                "leaves": {n: {"shape": list(a.shape), "dtype": str(a.dtype)}
+                           for n, a in arrays.items()}}
+    if meta is not None:
+        manifest["meta"] = meta
+    (tmp_dir / "MANIFEST.json").write_text(json.dumps(manifest, indent=2))
+    if step_dir.exists():
+        shutil.rmtree(step_dir)
+    tmp_dir.rename(step_dir)
+    valid = sorted(d for d in ckpt_dir.glob("step_*") if (d / "MANIFEST.json").exists())
+    for d in valid[:-keep]:
+        shutil.rmtree(d)
+    for d in ckpt_dir.glob(".tmp_step_*"):
+        shutil.rmtree(d)
+    return step_dir
+
+
+def _restore_leaf(arr: np.ndarray, like, name: str):
+    """One stored array in the dtype, device and kind of ``like``."""
+    if isinstance(like, int):
+        return int(arr)
+    if tuple(arr.shape) != tuple(like.shape):
+        raise ValueError(f"checkpoint leaf {name}: shape {arr.shape} != {tuple(like.shape)}")
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:  # bfloat16 words
+        t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr, copy=True))
+    return t.to(device=like.device, dtype=like.dtype)
+
+
+def restore_checkpoint(ckpt_dir, like_tree, step: Optional[int] = None, host_id: int = 0):
+    """Restore into the structure, dtypes and devices of ``like_tree`` ->
+    ``(tree, step)``.  Raises FileNotFoundError when nothing valid exists."""
+    ckpt_dir = Path(ckpt_dir)
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no valid checkpoint under {ckpt_dir}")
+    step_dir = _step_dir(ckpt_dir, step)
+    manifest = json.loads((step_dir / "MANIFEST.json").read_text())
+    with np.load(step_dir / f"shard_{host_id}.npz") as data:
+        restored = _rebuild(like_tree, lambda n, like: _restore_leaf(data[n], like, n))
+    return restored, manifest["step"]

@@ -3,10 +3,11 @@
 The port keeps its own copy because ``repro.configs`` imports
 ``jax.numpy``.  :class:`ArchConfig` keeps every field of the reference, so
 the families still to port need no rewrite; ``dtype`` is a torch dtype.
-The execution knobs (``scan_layers``, ``remat``, ``attn_mha_tp``,
-``attn_impl``, ...) are layout and compile hints for XLA: the port's model
-reads none of them, and they stay only so a config reads the same in both
-packages.
+The execution knobs (``scan_layers``, ``attn_mha_tp``, ``attn_impl``, ...)
+are layout and compile hints for XLA: the port's model reads none of them,
+and they stay only so a config reads the same in both packages.  The
+exceptions are ``remat`` and ``remat_policy`` (the training stack's
+per-unit checkpoint) and ``adam_dtype`` (the optimizer's moments).
 """
 
 from __future__ import annotations
@@ -66,7 +67,8 @@ class ArchConfig:
     frontend: Optional[str] = None
     frontend_len: int = 0
 
-    # --- execution knobs of the XLA reference (read by nothing in the port)
+    # --- execution knobs of the XLA reference (the port reads remat,
+    #     remat_policy and adam_dtype only)
     scan_layers: bool = True
     remat: bool = True
     remat_policy: str = "full"

@@ -1,6 +1,6 @@
-"""Deterministic synthetic air-quality data (port of
-:mod:`repro.data.synthetic`: ``air_quality_like`` and
-``_normalise_initial``).
+"""Deterministic synthetic data (port of :mod:`repro.data.synthetic`:
+``air_quality_like``, ``_normalise_initial`` and the LM's
+``token_batches``).
 
 The paper's Beijing air-quality set (Appendix F: PM2.5 and O₃, 24 hourly
 steps, 12 location labels) is offline, so the reference generates a
@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from ..kernels import prng
@@ -64,3 +65,31 @@ def _normalise_initial(ys):
     m = torch.mean(ys[0])
     s = torch.std(ys[0], correction=0) + 1e-6
     return (ys - m) / s
+
+
+def token_batches(key: torch.Tensor, step: int, batch: int, seq_len: int, vocab: int):
+    """Deterministic LM token pipeline: the batch of global step ``step`` is
+    a pure function of ``(key, step)``, so a restart replays the same data.
+    Zipf-like ranks ``floor(V^u)`` with ``u ~ U[1e-6, 1)``, then with
+    probability 0.3 a copy of the previous token.  ``key``: a ``(2,)`` int64
+    key.  Returns ``{"tokens", "labels"}``, each ``(batch, seq_len)`` int32,
+    bitwise the reference's.  ``V^u`` is taken in float64 and rounded to
+    float32: XLA's float32 ``pow`` is nearly correctly rounded, and the
+    floor of the rounded float64 power matched it on 2M draws at every
+    vocab of the port, where float32 ``torch.pow`` (7 mismatched floors
+    per 2M at V = 32000) and ``exp(u·log V)`` did not."""
+    k1, k2 = prng.split(prng.fold_in_key(key, step))
+    n = batch * (seq_len + 1)
+    # jax.random.uniform(k1, minval=1e-6): XLA contracts floats·scale + lo
+    # into one FMA; the float64 product of two float32 values is exact, so
+    # rounding the float64 sum once to float32 gives the FMA's bits.
+    lo = np.float32(1e-6)
+    floats = prng.uniform(k1[0], k1[1], n, torch.float32)
+    u = torch.clamp((floats.double() * float(np.float32(1) - lo) + float(lo)).float(),
+                    min=float(lo))
+    ranks = torch.floor(torch.pow(float(vocab), u.double()).float()).reshape(batch, seq_len + 1)
+    toks = torch.clamp(ranks.to(torch.int32) - 1, 0, vocab - 1)
+    rep = prng.uniform(k2[0], k2[1], n, torch.float32).reshape(batch, seq_len + 1) \
+        < float(np.float32(0.3))
+    toks = torch.where(rep, torch.roll(toks, 1, dims=1), toks)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

@@ -10,7 +10,7 @@ from ``Tensor.data_ptr()`` and PyTorch's current stream.
 Flags: ``-gencode=arch=compute_90a,code=sm_90a`` (Hopper) and
 ``-fmad=false`` (the bitwise contract of ``rev_heun.cu``; the MLP,
 attention and SSD kernels spell their multiply-adds as ``__fmaf_rn`` /
-``__fma_rn``); no ``--use_fast_math``, so ``sqrt``/``log1p``/``exp`` stay
+``__fma_rn``; the cross entropy's has none worth fusing); no ``--use_fast_math``, so ``sqrt``/``log1p``/``exp`` stay
 IEEE.
 The library lands in ``kernels/_build/`` (listed in .gitignore) under a
 name hashed from the sources and flags, so an edited source rebuilds and
@@ -53,6 +53,8 @@ SIGNATURES = {
     "rt_flash_attention": (_I, _I, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _D, _P),
     "rt_ssd_chunk": (_I, _I, _I, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P, _P),
     "rt_fused_mlp": (_I, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P),
+    "rt_fused_xent_fwd": (_I, _P, _P, _P, _P, _I64, _I64, _P),
+    "rt_fused_xent_bwd": (_I, _P, _P, _P, _P, _P, _I64, _I64, _P),
 }
 
 _lock = threading.Lock()

@@ -25,6 +25,7 @@ from . import fused_mlp as _fm
 from . import ref
 from . import reversible_heun_step as _rh
 from . import ssd_chunk as _ssd
+from . import xent as _xent
 
 
 def _decide(name: str, tensor: torch.Tensor, use_kernel: Optional[bool]) -> bool:
@@ -121,13 +122,23 @@ def ssd_chunk(x, a, b, c, use_kernel: Optional[bool] = None):
     return ref.ssd_chunk(x, a, b, c)
 
 
+def fused_xent(logits, labels, use_kernel: Optional[bool] = None):
+    """Per-token cross entropy ``lse − logit[label]``: logits ``(..., V)``
+    in float32 or bfloat16, int labels ``(...)`` -> ``(...)`` float32; on
+    the card the forward and the backward are one kernel launch each."""
+    if _decide("fused_xent", logits, use_kernel):
+        return _xent.fused_xent(logits, labels)
+    return ref.fused_xent(logits, labels)
+
+
 def launch_counts() -> dict:
     """Kernel launches by name since the last :func:`reset_launch_counts`."""
     return {**_rh.LAUNCHES, **_bk.LAUNCHES, **_fa.LAUNCHES, **_ssd.LAUNCHES,
-            **_fm.LAUNCHES}
+            **_fm.LAUNCHES, **_xent.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
-    for table in (_rh.LAUNCHES, _bk.LAUNCHES, _fa.LAUNCHES, _ssd.LAUNCHES, _fm.LAUNCHES):
+    for table in (_rh.LAUNCHES, _bk.LAUNCHES, _fa.LAUNCHES, _ssd.LAUNCHES, _fm.LAUNCHES,
+                  _xent.LAUNCHES):
         for name in table:
             table[name] = 0

@@ -1,13 +1,15 @@
 """Plain PyTorch versions of the ported kernels (port of
 :mod:`repro.kernels.ref`).
 
-Each function but :func:`fused_mlp`, :func:`flash_attention` and
-:func:`ssd_chunk` is the definition the CUDA kernel in ``csrc/rev_heun.cu``
+Each function but :func:`fused_mlp`, :func:`flash_attention`,
+:func:`ssd_chunk` and the cross entropy's is the definition the CUDA kernel in ``csrc/rev_heun.cu``
 computes, with the same op order, so the two agree bitwise on the card
 (chip_smoke.py checks it).  The MLP, attention and SSD kernels
 (``csrc/fused_mlp.cu``, ``csrc/flash_attention.cu``, ``csrc/ssd_chunk.cu``)
 sum in another order and are held to a tolerance; their backward passes are
-the autograd of the versions here (:mod:`repro_torch.kernels.vjp`).  On
+the autograd of the versions here (:mod:`repro_torch.kernels.vjp`).  The
+cross-entropy kernels (``csrc/fused_xent.cu``) are held to a tolerance
+too, against :func:`fused_xent_fwd` and :func:`fused_xent_bwd`.  On
 the CPU, :mod:`repro_torch.kernels.ops` runs these instead of the kernels;
 with a card they run only when a caller asks for them with
 ``use_kernel=False``.
@@ -191,3 +193,49 @@ def ssd_chunk(x, a, b, c):
         h = torch.exp(a[:, :, t].float())[..., None, None] * h + bt[..., :, None] * xt[..., None, :]
         ys[:, :, t] = torch.einsum("bhn,bhnp->bhp", c[:, :, t].float(), h)
     return ys.to(x.dtype), h
+
+
+def _label_index(labels, vocab: int):
+    """``take_along_axis``'s indexing: a label in ``[-V, 0)`` counts from
+    the end; ``(index clamped into range, valid)`` for the rest."""
+    lab = labels.long()
+    lab = torch.where(lab < 0, lab + vocab, lab)
+    valid = (lab >= 0) & (lab < vocab)
+    return lab.clamp(0, vocab - 1), valid
+
+
+def _xent_acc(logits):
+    """The logits in the arithmetic type: float32 for float32 and bfloat16
+    (the reference's), float64 kept (gradcheck)."""
+    return logits.to(torch.promote_types(logits.dtype, torch.float32))
+
+
+def fused_xent_fwd(logits, labels):
+    """Per-token cross entropy and its log-sum-exp: logits ``(..., V)`` in
+    float32 or bfloat16, int labels ``(...)`` -> ``(loss, lse)``, both
+    ``(...)`` float32.  ``loss = lse − logit[label]``, in float32 (the
+    reference's :func:`fused_xent`); a label outside ``[-V, V)`` gives NaN,
+    as the reference's gather fills it."""
+    lf = _xent_acc(logits)
+    lse = torch.logsumexp(lf, dim=-1)
+    idx, valid = _label_index(labels, logits.shape[-1])
+    ll = torch.gather(lf, -1, idx[..., None])[..., 0]
+    loss = torch.where(valid, lse - ll, torch.full_like(lse, math.nan))
+    return loss, lse
+
+
+def fused_xent(logits, labels):
+    """Per-token next-token cross entropy, logsumexp in float32
+    (``repro.kernels.ref.fused_xent``): logits ``(..., V)``, labels
+    ``(...)`` -> ``(...)`` float32."""
+    return fused_xent_fwd(logits, labels)[0]
+
+
+def fused_xent_bwd(logits, labels, lse, g):
+    """The cross entropy's VJP: ``g[..., None]·(exp(x − lse) −
+    onehot(label))`` in float32, returned in the logits' dtype.  ``lse``
+    and ``g`` are ``(...)`` float32."""
+    idx, valid = _label_index(labels, logits.shape[-1])
+    p = torch.exp(_xent_acc(logits) - lse[..., None])
+    hit = torch.zeros_like(p).scatter_(-1, idx[..., None], valid[..., None].to(p.dtype))
+    return (g[..., None] * (p - hit)).to(logits.dtype)

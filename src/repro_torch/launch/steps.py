@@ -1,5 +1,6 @@
-"""Step factories (port of :mod:`repro.launch.steps`): the Latent-SDE ELBO
-training step (``make_latent_sde_optimizer``, ``make_latent_sde_step``),
+"""Step factories (port of :mod:`repro.launch.steps`): the LM training step
+(``make_optimizer``, ``make_train_step``), the Latent-SDE ELBO training
+step (``make_latent_sde_optimizer``, ``make_latent_sde_step``),
 the serving samplers: ``make_sample_step`` (the Latent-SDE prior decode and
 the SDE-GAN generator's rollout) and ``make_adaptive_terminal_step`` (the
 SDE-GAN's adaptive terminal samples), and the transformer LM's serving
@@ -13,6 +14,48 @@ from .. import tree
 from ..device import resolve_device
 
 SERVE_WORKLOADS = ("sde-gan", "latent-sde")
+
+
+def make_optimizer(cfg, peak_lr: float = 3e-4, warmup: int = 100, total: int = 10_000,
+                   weight_decay: float = 0.1):
+    """AdamW on the cosine schedule, moments in ``cfg.adam_dtype`` ("param":
+    the parameters' dtype): ``(init, update)``."""
+    from .. import optim
+
+    sched = optim.cosine_schedule(peak_lr, warmup, total)
+    moment_dtype = None if cfg.adam_dtype == "param" else cfg.adam_dtype
+    return optim.adamw(sched, weight_decay=weight_decay, moment_dtype=moment_dtype)
+
+
+def make_train_step(cfg, opt_update=None, grad_clip: float = 1.0):
+    """``(params, opt_state, batch) -> (params, opt_state, metrics)``: one
+    gradient of :func:`repro_torch.models.transformer.lm_loss`, clipped to
+    ``grad_clip`` global norm, one optimizer update.  ``metrics`` holds
+    ``loss``, ``grad_norm``, ``xent`` and ``moe_aux`` as 0-d tensors on the
+    parameters' device (reading one waits for the step).  The step runs on
+    the device its parameters and batch live on."""
+    from .. import optim
+    from ..models import transformer as T
+
+    if opt_update is None:
+        _, opt_update = make_optimizer(cfg)
+
+    def train_step(params, opt_state, batch):
+        leaves, spec = tree.flatten(params)
+        leaves = [x.detach().requires_grad_() for x in leaves]
+        loss, parts = T.lm_loss(tree.unflatten(spec, leaves), cfg, batch)
+        grads = tree.unflatten(spec, torch.autograd.grad(loss, leaves))
+        del leaves
+        with torch.no_grad():
+            grads, gnorm = optim.clip_by_global_norm(grads, grad_clip)
+            updates, opt_state = opt_update(grads, opt_state, params)
+            del grads
+            params = optim.apply_updates(params, updates)
+        metrics = {"loss": loss.detach(), "grad_norm": gnorm,
+                   **{k: v.detach() for k, v in parts.items()}}
+        return params, opt_state, metrics
+
+    return train_step
 
 
 def make_sample_step(workload: str, cfg, latent_mode: str = "prior", device=None):

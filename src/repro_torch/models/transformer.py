@@ -12,13 +12,23 @@ leading layer axis, ``{"k", "v": (U, B, S, Hkv, hd)}`` for attention and
 ``{"conv": (U, B, k − 1, inner + 2N), "ssm": (U, B, H, N, P) float32}`` for
 the Mamba2 mixer.
 
-The layer stack is a Python loop (``scan_layers`` and ``remat`` are XLA
-compile hints; ``reversible_residual`` is not ported).  Decode writes each
+The layer stack is a Python loop (``scan_layers`` is an XLA compile hint;
+``reversible_residual`` is not ported).  ``remat`` is honoured as the
+reference's ``jax.checkpoint`` per unit is: with grad enabled each unit
+runs under :func:`torch.utils.checkpoint.checkpoint`, so only a unit's
+input is kept and its activations are recomputed in the backward.  That
+changes memory and never a number.  Decode writes each
 layer's new K/V row, or its new conv window and SSM state, into the
 stacked cache in place, where the reference donates the buffer;
 :func:`lm_decode` returns the same cache object.  MoE, MLA, hybrid,
 encoder-decoder and prefix ``embeds`` raise :class:`ModelNotPortedError`
 naming ROADMAP.md.
+
+The training loss :func:`lm_loss` is the reference's: the mean next-token
+cross entropy plus the (zero) aux loss.  On the card its per-token losses
+come from ``fused_xent`` (a forward and a backward kernel launch) through
+the module-level hook :func:`_xent_dispatch`; on the CPU it is the plain
+:func:`softmax_xent`.  The route is chosen by the logits' device only.
 """
 
 from __future__ import annotations
@@ -27,9 +37,11 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import nn, tree
 from ..configs.base import ArchConfig
+from ..kernels import ops
 from . import layers as L
 
 Params = Dict[str, Any]
@@ -37,6 +49,10 @@ Params = Dict[str, Any]
 
 class ModelNotPortedError(NotImplementedError):
     """A model family or mode of the reference that the port lacks."""
+
+
+class NotPortedError(NotImplementedError):
+    """An execution option of the reference that the port lacks."""
 
 
 def _not_ported(what: str):
@@ -148,21 +164,40 @@ def _layer(units, i: int):
     return tree.map(lambda a: a[i], units)
 
 
+def _unit_forward(params_units, cfg: ArchConfig, i: int, x):
+    """Unit ``i`` of the stack -> ``(x, its blocks' caches)``."""
+    caches = []
+    for bp, (m, f) in zip(_layer(params_units, i), unit_pattern(cfg)):
+        x, c = block_apply(bp, cfg, m, f, x)
+        caches.append(c)
+    return x, caches
+
+
 def _stack_forward(params_units, cfg: ArchConfig, x, want_cache: bool = False):
-    """Run the unit stack.  Returns ``(x, stacked caches | None)``."""
-    pat = unit_pattern(cfg)
+    """Run the unit stack.  Returns ``(x, stacked caches | None)``.
+
+    With ``cfg.remat``, grad enabled and no cache wanted (training), each
+    unit runs under a non-reentrant checkpoint, as the reference wraps each
+    unit in ``jax.checkpoint``; the units draw no random numbers, so the
+    RNG state is not saved."""
+    remat = cfg.remat and torch.is_grad_enabled() and not want_cache
+    if remat and cfg.remat_policy == "collectives":
+        raise NotPortedError(
+            "remat_policy='collectives' (save only the post-all-reduce activations) "
+            "belongs to the distributed path, not ported yet — ROADMAP.md Queue 1, item 9")
     per_unit = []
     for i in range(num_units(cfg)):
-        caches = []
-        for bp, (m, f) in zip(_layer(params_units, i), pat):
-            x, c = block_apply(bp, cfg, m, f, x)
-            caches.append(c)
+        if remat:
+            x = checkpoint(lambda xi, i=i: _unit_forward(params_units, cfg, i, xi)[0], x,
+                           use_reentrant=False, preserve_rng_state=False)
+            continue
+        x, caches = _unit_forward(params_units, cfg, i, x)
         if want_cache:
             per_unit.append(caches)
     if not want_cache:
         return x, None
     stacked = [{k: torch.stack([u[j][k] for u in per_unit]) for k in per_unit[0][j]}
-               for j in range(len(pat))]
+               for j in range(len(unit_pattern(cfg)))]
     return x, stacked
 
 
@@ -245,3 +280,39 @@ def init_cache_zeros(cfg: ArchConfig, batch: int, max_len: int, device=None):
     return [L.mamba2_init_cache(cfg, batch, cfg.dtype, lead, device) if m == "mamba"
             else L.gqa_init_cache(cfg, batch, max_len, cfg.dtype, lead, device)
             for m, _ in unit_pattern(cfg)]
+
+
+# =============================================================================
+# loss
+# =============================================================================
+
+
+def softmax_xent(logits, labels):
+    """Mean next-token cross entropy; logsumexp in float32 (the reference's
+    ``softmax_xent``, the plain route of :func:`lm_loss`)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    return torch.mean(lse - ll)
+
+
+def _xent_dispatch(logits, labels):
+    """Per-token losses on the card: :func:`repro_torch.kernels.ops.fused_xent`
+    (one forward and one backward kernel launch)."""
+    return ops.fused_xent(logits, labels)
+
+
+def lm_loss(params, cfg: ArchConfig, batch, aux_weight: float = 0.01):
+    """Unified training loss.  ``batch`` keys: ``tokens``, ``labels`` (+
+    ``embeds``/``src_embeds`` for the vlm, audio and encdec families, which
+    raise :class:`ModelNotPortedError`).  Returns ``(loss, {"xent",
+    "moe_aux"})``."""
+    if cfg.family == "encdec":
+        raise _not_ported(f"the {cfg.family} family ({cfg.name})")
+    logits, aux = lm_forward(params, cfg, batch["tokens"], embeds=batch.get("embeds"))
+    labels = batch["labels"]
+    if logits.is_cuda:
+        loss = torch.mean(_xent_dispatch(logits, labels))
+    else:
+        loss = softmax_xent(logits, labels)
+    return loss + aux_weight * aux, {"xent": loss, "moe_aux": aux}

@@ -11,7 +11,10 @@ of its largest magnitude) and a two-layer smoke mamba2 prefill through it;
 the SDE field MLP kernel against its plain version (float32 2e-5, bfloat16
 6e-2, float64 1e-12), row-invariant bitwise, and the depth-1 fields routed
 through it; gradients through the MLP, attention and SSD kernels bitwise
-the plain path's for a loss linear in the outputs.
+the plain path's for a loss linear in the outputs; the cross-entropy
+kernels against their plain versions (loss float32 1e-5, bfloat16 3e-2;
+dlogits float32 1e-5, bfloat16 one ulp), rows invariant bitwise, and a
+smoke LM training step's loss through them.
 
 These need an NVIDIA GPU with nvcc (the kernels have no CPU mode); each test
 skips without one.  On the GPU machine::
@@ -416,3 +419,53 @@ def test_kernel_gradients_equal_plain_path_bitwise(cuda):
         assert ops.launch_counts()[name] == 1
         want = _linear_loss_grads(lambda *t: fn(*t, use_kernel=False), inputs, 3)
         assert all(gr is not None and torch.equal(gr, w) for gr, w in zip(got, want)), name
+
+
+XENT_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,V", [(64, 1024), (32, 1000), (1, 7), (9, 1), (300, 50280)])
+def test_fused_xent_kernels_match_plain_versions(cuda, dtype, R, V):
+    from repro_torch.kernels import ref, xent
+
+    g = torch.Generator().manual_seed(R + V)
+    x = (3 * torch.randn(R, V, generator=g)).to(dtype).to(cuda)
+    lab = torch.randint(0, V, (R,), generator=g).to(cuda)
+    cot = torch.randn(R, generator=g).to(cuda)
+    ops.reset_launch_counts()
+    loss, lse = xent.launch_fwd(x, lab)
+    dx = xent.launch_bwd(x, lab, lse, cot)
+    assert ops.launch_counts()["fused_xent"] == ops.launch_counts()["fused_xent_bwd"] == 1
+    want_loss, want_lse = ref.fused_xent_fwd(x, lab)
+    tol = XENT_TOL[dtype]
+    assert torch.allclose(loss, want_loss, rtol=tol, atol=tol)
+    assert torch.allclose(lse, want_lse, rtol=tol, atol=tol)
+    want_dx = ref.fused_xent_bwd(x, lab, lse, cot)
+    assert dx.dtype == dtype and dx.shape == x.shape
+    if dtype == torch.float32:
+        assert torch.allclose(dx, want_dx, rtol=1e-5, atol=1e-5)
+    else:  # the same f32 value rounded: at most one bf16 ulp apart
+        ulp = torch.finfo(torch.bfloat16).eps * want_dx.float().abs().clamp_min(2 ** -126)
+        assert ((dx.float() - want_dx.float()).abs() <= ulp).all()
+    one, _ = xent.launch_fwd(x[-1:].contiguous(), lab[-1:])
+    assert torch.equal(one, loss[-1:])  # rows invariant
+
+
+def test_fused_xent_node_and_lm_training_step(cuda):
+    from repro_torch import configs
+    from repro_torch.launch.steps import make_optimizer, make_train_step
+    from repro_torch.models import transformer as T
+
+    cfg = configs.smoke_config("tinyllama-1.1b")
+    params = T.init_lm(torch.Generator(device=cuda).manual_seed(0), cfg, device=cuda)
+    tokens = torch.randint(0, cfg.vocab, (2, 33), device=cuda, dtype=torch.int32)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    init, update = make_optimizer(cfg)
+    ops.reset_launch_counts()
+    _, _, m = make_train_step(cfg, update)(params, init(params), batch)
+    counts = ops.launch_counts()
+    assert counts["fused_xent"] == counts["fused_xent_bwd"] == 1
+    logits, _ = T.lm_forward(params, cfg, batch["tokens"])
+    want = T.softmax_xent(logits, batch["labels"])
+    assert torch.allclose(m["xent"], want, rtol=1e-5)

@@ -35,8 +35,9 @@ def test_port_files_exist():
             "discretise.py", "synthetic.py", "optimizers.py", "tree.py",
             "flash_attention.py", "layers.py", "transformer.py", "counting.py", "base.py",
             "qwen2_5_14b.py", "tinyllama_1_1b.py", "starcoder2_3b.py", "ssd_chunk.py",
-            "mamba2_1_3b.py", "fused_mlp.py", "vjp.py"} <= names
-    for src in ("flash_attention.cu", "ssd_chunk.cu", "fused_mlp.cu"):
+            "mamba2_1_3b.py", "fused_mlp.py", "vjp.py", "xent.py", "elastic.py",
+            "store.py"} <= names
+    for src in ("flash_attention.cu", "ssd_chunk.cu", "fused_mlp.cu", "fused_xent.cu"):
         assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / src).exists()
 
 
@@ -85,3 +86,9 @@ def test_ssm_slice_import_leaves_jax_unloaded():
 def test_field_slice_import_leaves_jax_unloaded():
     _imports_leave_jax_unloaded("repro_torch.nn, repro_torch.kernels.fused_mlp, "
                                 "repro_torch.kernels.vjp")
+
+
+def test_lm_training_slice_import_leaves_jax_unloaded():
+    _imports_leave_jax_unloaded("repro_torch.kernels.xent, repro_torch.distributed.elastic, "
+                                "repro_torch.checkpoint.store, repro_torch.optim.optimizers, "
+                                "repro_torch.data.synthetic, repro_torch.launch.train")

@@ -6,7 +6,8 @@ attention and the FFN (dense); the Mamba2 mixer's prefill (output, conv
 window and SSM state) and recurrent decode step; the forward logits,
 prefill (logits and the caches), 8 greedy decode steps, the parameter
 count, the served tokens and prompts; bfloat16 weights carried across
-bitwise (a Mamba2 model keeps its float32 leaves).
+bitwise (a Mamba2 model keeps its float32 leaves), and a bfloat16 prefill
+and 12 decode steps of qwen2.5-14b and mamba2-1.3b against the reference.
 
 Tolerance, float32: rtol = atol = 1e-5.  Both sides compute the same ops
 in float32; the sums run in other orders (XLA's CPU dot against torch's
@@ -42,6 +43,7 @@ from repro_torch.models import transformer as T
 DENSE = ["qwen2.5-14b", "tinyllama-1.1b", "starcoder2-3b"]
 ARCHS = DENSE + ["mamba2-1.3b"]
 TOL = dict(rtol=1e-5, atol=1e-5)
+BF16_LOGIT_RTOL = 0.025
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -313,3 +315,46 @@ def test_bf16_mamba2_weights_cross_with_their_float32_leaves():
     assert caches[0]["conv"].dtype == torch.bfloat16 and caches[0]["ssm"].dtype == torch.float32
     logits, _ = steps.make_serve_step(cfg)(params, caches, steps.greedy_sample(logits), 8)
     assert logits.shape == (2, 1, cfg.vocab) and torch.isfinite(logits.float()).all()
+
+
+def _bf16_close(logits, jlogits, where):
+    """Logits within BF16_LOGIT_RTOL of the largest |logit|; the port's
+    greedy tokens equal the reference's wherever its top-two gap is at least
+    that.  Returns the number of rows whose token was compared."""
+    got = logits.float().numpy()[:, -1]
+    want = np.asarray(jnp.asarray(jlogits, jnp.float32))[:, -1]
+    tol = BF16_LOGIT_RTOL * np.abs(want).max()
+    diff = np.abs(got - want).max()
+    assert diff <= tol, f"{where}: logits differ by {diff} > {tol}"
+    top2 = np.sort(want, axis=-1)[:, -2:]
+    decided = top2[:, 1] - top2[:, 0] >= tol
+    np.testing.assert_array_equal(got.argmax(-1)[decided], want.argmax(-1)[decided],
+                                  err_msg=where)
+    return int(decided.sum())
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "mamba2-1.3b"])
+def test_bf16_prefill_and_decode_match_jax(arch):
+    """bfloat16 smoke model, B 4, prompt 24, then 12 decode steps, each fed
+    the reference's greedy token (so a near-tie does not fork the two
+    runs): logits and decided tokens as _bf16_close states."""
+    jcfg = dataclasses.replace(jconfigs.smoke_config(arch), dtype=jnp.bfloat16)
+    cfg = dataclasses.replace(configs.smoke_config(arch), dtype=torch.bfloat16)
+    with jax_config():
+        jparams = JT.init_lm(jax.random.PRNGKey(1), jcfg)
+    params = params_from_jax(jax.device_get(jparams))
+    B, S, gen = 4, 24, 12
+    tok = _tokens(cfg, B, S, seed=5)
+    jlogits, jcaches = jax.jit(jsteps.make_prefill_step(jcfg, max_len=S + gen))(
+        jparams, {"tokens": jnp.asarray(tok)})
+    logits, caches = steps.make_prefill_step(cfg, max_len=S + gen)(
+        params, {"tokens": torch.from_numpy(tok)})
+    assert logits.dtype == torch.bfloat16
+    compared = _bf16_close(logits, jlogits, f"{arch} prefill")
+    jdecode, decode = jax.jit(jsteps.make_serve_step(jcfg)), steps.make_serve_step(cfg)
+    for i in range(gen):
+        jtoken = jsteps.greedy_sample(jlogits)
+        jlogits, jcaches = jdecode(jparams, jcaches, jtoken, jnp.asarray(S + i, jnp.int32))
+        logits, caches = decode(params, caches, torch.from_numpy(np.array(jtoken)), S + i)
+        compared += _bf16_close(logits, jlogits, f"{arch} decode step {i}")
+    assert compared >= 0.75 * B * (gen + 1)
