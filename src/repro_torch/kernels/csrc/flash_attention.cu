@@ -18,51 +18,133 @@
 // the input dtype first, so in bf16 the two differ by 1e-4 relative in the
 // scale.  Each keeps the difference its JAX counterpart has.
 //
-// Design.  The TPU kernel runs the KV axis as its sequential innermost grid
+// Layout.  Every operand is read through its strides (batch, head, row; the
+// last axis contiguous, the others multiples of 8 elements, the base
+// 16-byte aligned), so the LM's (B, S, H, D) projections go in as their
+// (B, H, S, D) transposed views with no copy, and o is written through its
+// strides (the launcher hands in a (B, S, Hq, D) buffer's transposed view).
+// The TPU kernel runs the KV axis as its sequential innermost grid
 // dimension and carries (m, l, acc) in VMEM scratch between grid steps.
-// Blocks on Hopper run in no order, so here one thread block owns one
-// (batch, query head, 64-row query tile) and loops over the 64-row KV tiles
+// Blocks on Hopper run in no order, so here one thread block owns a
+// (batch, query head, query tile) at a time and loops over the KV tiles
 // itself, carrying (m, l, acc) in registers.  Under `causal` it stops at the
-// diagonal tile (the TPU kernel's `needed` skip), and it masks the ragged
-// last tile itself (columns past S score -inf and their V rows are zero)
-// where the JAX wrapper halves its block until it divides S; the results
-// are the same function.  Q, the current K (then V) tile and P live in
-// dynamic shared memory as f32, rows padded by 4 floats so the float4 reads
-// of 8 lanes fall in distinct banks (85 KB at D = 128: above the 48 KB of
-// static shared memory, hence cudaFuncSetAttribute).  128 threads as 8 x 16:
-// a thread owns 8 query rows (ty + 8i) x 4 score columns (tx + 16j) of a
-// tile, and 8 rows x 4·ceil(D/64) output columns.  Row max and row sum
-// reduce over the 16 lanes of a half-warp with shuffles.  Query tiles are
-// issued last-first, so the long causal rows start first.
+// diagonal tile (the TPU kernel's `needed` skip) and masks only that tile;
+// it masks the ragged last tile itself (columns past S score -inf) where
+// the JAX wrapper halves its block until it divides S.  The results are the
+// same function.  Query tiles are issued last-first, so the long causal
+// rows start first.  No atomics and no split over the KV axis: two
+// launches on the same inputs give the same bits.
 //
-// Dtypes float32 and bfloat16; D in {16, 64, 128} (template parameter);
-// any S >= 1.  The products are CUDA-core f32 FMAs, spelled __fmaf_rn
-// because the library builds with -fmad=false for the bitwise kernels; this
-// kernel is held to a tolerance (f32 2e-5, bf16 6e-2), not bitwise, since
-// it sums in another order than the plain version.
+// bfloat16: warpgroup MMA fed by TMA (flash_attention_wgmma).  Persistent:
+// one block of 288 threads an SM walks work items of 128 query rows, the
+// longest causal ones first, dealt to the blocks in a zigzag (block c takes
+// item c, then the round's G - 1 - c, ...) so the falling lengths even
+// out.  Two consumer warpgroups own 64 rows each (wgmma's M); one producer
+// warp's lane 0 loads each item's Q tile into one of two Q buffers and the
+// 128-row K and V tiles into a ring of 2 (D = 128) or 3 stages in shared
+// memory with cp.async.bulk.tensor (TMA; one 4-D tensor map per operand
+// over (D, S, H, B) with the operand's strides, made on the host for each
+// call), running ahead across items, so one item's epilogue overlaps the
+// next one's loads.  Each buffer is signalled on an mbarrier by the bytes
+// that landed and released by the 256 consumer threads once their products
+// have read it.  Tiles are 128-byte swizzled (64-column blocks, two at
+// D = 128), 32-byte swizzled at D = 16, so the wgmma shared-memory
+// descriptors read them without bank conflicts.  Per KV tile each consumer
+// warpgroup issues
+//   S = Q.K^T   wgmma m64n128k16, A = Q and B = K from shared memory, both
+//               K-major (D contiguous), f32 accumulators in registers;
+//   softmax     on the accumulator fragment: a thread holds 2 rows x 32
+//               columns; for a positive scale the exponent is one fused
+//               multiply-add s·(scale·log2 e) − m', and exp2 runs on the MUFU
+//               (ex2.approx); the row max reduces over the 4 lanes of a row
+//               (two xor shuffles); row sums stay per thread until the end;
+//               the mask runs on edge tiles only; a warp whose maxima did
+//               not move skips rescaling O;
+//   O += P.V    wgmma m64nDk16 with A = P from registers (the S fragment
+//               rounded to bf16 pairs is exactly wgmma's A fragment, which
+//               is the rounding p.astype(v.dtype) asks for) and B = V from
+//               shared memory with the transpose bit (V is (keys, D), D
+//               contiguous: MN-major).
+// At D <= 64 the two warpgroups ping-pong: each issues its tile's Q.K^T
+// together with the previous tile's P.V, hands the tensor cores to the
+// other through a named barrier, and runs its softmax while both products
+// run; at tinyllama's bf16 training shape (D = 64) that is 7% faster than
+// back to back (PERF.md), and D = 16 shares it untimed.  At D = 128 that
+// schedule holds S, the previous P and O at once (~190 registers a thread)
+// while ptxas gives a block of more than 256 threads at most 168
+// (setmaxnreg does not raise its allocation): it spilled and serialised the
+// wgmma, and ran slower, so D = 128 runs each warpgroup's products back to
+// back and leaves the overlap to the two warpgroups' independent progress.
+// Columns past S are -inf and TMA zero-fills rows past S, so a ragged edge
+// needs no separate path; rows past S are not stored.
+//
+// float32: the CUDA-core design (flash_attention_f32).  Tensor cores do not
+// reach f32 accuracy without a split-TF32 scheme, so one block of 128
+// threads owns 64 query rows, stages Q and the current K (then V) tile as
+// f32 in shared memory (rows padded by 4 floats), and computes both
+// products with __fmaf_rn (the library builds with -fmad=false); a thread
+// owns 8 rows x 4 score columns; row max and sum reduce over a half-warp.
+// Three barriers a tile and synchronous loads keep it far below the
+// 67 TFLOP/s of f32 FMAs.
+//
+// Held to a tolerance against the plain version (f32 2e-5, bf16 6e-2), not
+// bitwise, since each sums in another order.
 //
 // Bound.  At the prefill shape of qwen2.5-14b (B = 4, Hq = 40, Hkv = 8,
 // S = 2048, D = 128, bf16, causal) the work is 2·B·Hq·S²·D = 1.72e11 flops
 // with the masked half skipped, against 201 MB of Q, K, V and O: bound by
 // operations, 0.174 ms at the 989 TFLOP/s of bf16 tensor cores (the bytes
-// alone take 0.060 ms).  This design uses no tensor core: its ceiling is
-// the 67 TFLOP/s of f32 FMAs, 15x the bound, and shared-memory reads and
-// the unoverlapped tile loads (three barriers per tile, 2 blocks per SM)
-// keep it below that.  Left on the table: mma.sync or wgmma on bf16 tiles,
-// TMA or cp.async loads double-buffered against the products, and larger
-// tiles with warp specialisation.
+// alone take 0.060 ms).  What held the earlier CUDA-core bf16 design back,
+// and what this one does about it:
+//   - no tensor core (both products as f32 FMAs, a 67 TFLOP/s ceiling,
+//     15x the bound): both products are wgmma;
+//   - Q, K, V and P staged as f32 in shared memory (85 KB at D = 128, two
+//     blocks an SM, shared-memory reads feeding every FMA): the tiles stay
+//     bf16 in shared memory and are read by the tensor cores through
+//     swizzled descriptors, and P never leaves registers;
+//   - synchronous loads with three __syncthreads a tile: a producer warp
+//     keeps the next K and V tiles in flight by TMA behind mbarriers while
+//     the consumers compute, and the consumers never meet at a block
+//     barrier;
+//   - 64-row tiles: 128-row query and KV tiles, so each K and V byte read
+//     from L2 feeds twice the MMA work.
+// What bounds this design: the softmax.  With the softmax cut out the
+// products alone run at about the speed of PyTorch's SDPA; with them cut
+// out the softmax alone takes longer than the whole kernel.  The 64
+// exponentials a thread a tile (~0.09 ms at this shape on 16 MUFU lanes an
+// SM) and the dependent max and sum chains of two warps an SM sub-partition
+// are what is left to hide.  Skipping TMA loads altogether changes nothing:
+// the loads are hidden.  Left on the table: an overlapped schedule at
+// D = 128 that fits 168 registers (P through shared memory), and a TMA
+// store of O.
 //
 // Interface: a plain C function (loaded with ctypes by kernels/build.py),
-// dtype code 0 = float32, 1 = bfloat16.  It launches on the given stream and
-// returns cudaGetLastError(), or cudaErrorInvalidValue for a dtype or head
-// dimension it does not take.
+// dtype code 0 = float32, 1 = bfloat16, strides (in elements) of q, k, v
+// and o as (batch, head, row) triples.  It launches on the given stream
+// and returns cudaGetLastError(), or cudaErrorInvalidValue for a dtype,
+// head dimension or layout it does not take.  The tensor maps are encoded
+// with cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so
+// the library needs no -lcuda.
 
 #include <cmath>
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace repro_torch_attention {
+
+constexpr float kMasked = -1e30f;     // the TPU kernel's NEG_INF
+
+// Strides of one operand in elements: batch, head, row (the last axis is
+// contiguous).
+struct Strides {
+  int64_t b, h, s;
+};
+
+// ---------------------------------------------------------------------------
+// float32: CUDA cores
+// ---------------------------------------------------------------------------
 
 constexpr int kBQ = 64;               // query rows per block
 constexpr int kBK = 64;               // KV rows per tile
@@ -71,57 +153,40 @@ constexpr int kThreads = kTX * kTY;
 constexpr int kRows = kBQ / kTY;      // query rows per thread
 constexpr int kCols = kBK / kTX;      // score columns per thread
 constexpr int kLdP = kBK + 4;         // P row stride (floats)
-constexpr float kMasked = -1e30f;     // the TPU kernel's NEG_INF
 static_assert(kBQ == kBK, "the causal tile count assumes square tiles");
-
-// x rounded to the input dtype and read back as f32 (p.astype(v.dtype))
-__device__ __forceinline__ float round_to(float, float x) { return x; }
-__device__ __forceinline__ float round_to(__nv_bfloat16, float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 a = __bfloat1622float2(p2[0]);
-  const float2 b = __bfloat1622float2(p2[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
 
 __device__ __forceinline__ void store4(float* p, float4 x) {
   *reinterpret_cast<float4*>(p) = x;
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-  __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(p);
-  p2[0] = __floats2bfloat162_rn(x.x, x.y);
-  p2[1] = __floats2bfloat162_rn(x.z, x.w);
 }
 
 __device__ __forceinline__ float comp(const float4& x, int e) {
   return e == 0 ? x.x : e == 1 ? x.y : e == 2 ? x.z : x.w;
 }
 
-// Rows row0 .. row0+63 of one head's (S, D) slab into shared memory as f32
-// (row stride D + 4); rows at or past S are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int row0,
-                                          int S) {
+// Rows row0 .. row0+63 of one head's (S, D) slab, rows `ld` elements apart,
+// into shared memory (row stride D + 4); rows at or past S are zero.
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
+                                          int64_t ld, int row0, int S) {
   constexpr int kVec = D / 4;
   for (int idx = threadIdx.x; idx < kBK * kVec; idx += kThreads) {
     const int r = idx / kVec, c = (idx % kVec) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < S) x = load4(src + static_cast<int64_t>(row0 + r) * D + c);
+    if (row0 + r < S) x = load4(src + (row0 + r) * ld + c);
     store4(dst + r * (D + 4) + c, x);
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int S, int Hq,
-                       int group, int causal, float scale) {
+flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ o, Strides sq,
+                    Strides sk, Strides sv, Strides so, int S, int group, int causal,
+                    float scale) {
   constexpr int kLd = D + 4;
   constexpr int kGroups = D / 4;                    // 4-column output groups
   constexpr int kGPT = (kGroups + kTX - 1) / kTX;   // output groups per thread
@@ -133,11 +198,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int q0 = qt * kBQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int64_t q_off = (static_cast<int64_t>(b) * Hq + h) * S * D;
-  const int64_t kv_off = (static_cast<int64_t>(b) * (Hq / group) + h / group) * S * D;
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
+  const float* kb = k + b * sk.b + hk * sk.h;
+  const float* vb = v + b * sv.b + hk * sv.h;
 
-  load_tile<T, D>(qs, q + q_off, q0, S);
+  load_tile<D>(qs, q + b * sq.b + h * sq.h, sq.s, q0, S);
 
   float m[kRows], l[kRows], acc[kRows][kGPT * 4];
 #pragma unroll
@@ -152,7 +217,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile's P.V is done with kvs and ps
-    load_tile<T, D>(kvs, k + kv_off, k0, S);
+    load_tile<D>(kvs, kb, sk.s, k0, S);
     __syncthreads();
 
     float s[kRows][kCols];
@@ -202,7 +267,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < kCols; ++j) {
         const float p = expf(__fsub_rn(s[i][j], m_new));
         rs = __fadd_rn(rs, p);
-        ps[(ty + kTY * i) * kLdP + tx + kTX * j] = round_to(T(), p);
+        ps[(ty + kTY * i) * kLdP + tx + kTX * j] = p;
       }
 #pragma unroll
       for (int off = kTX / 2; off > 0; off >>= 1)
@@ -214,7 +279,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     __syncthreads();  // P written; every thread is done reading K
-    load_tile<T, D>(kvs, v + kv_off, k0, S);
+    load_tile<D>(kvs, vb, sv.s, k0, S);
     __syncthreads();
 
 #pragma unroll 2
@@ -243,6 +308,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
+  float* ob = o + b * so.b + h * so.h;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int qi = q0 + ty + kTY * i;
@@ -255,41 +321,636 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float4 out = make_float4(
             __fdiv_rn(acc[i][4 * g + 0], denom), __fdiv_rn(acc[i][4 * g + 1], denom),
             __fdiv_rn(acc[i][4 * g + 2], denom), __fdiv_rn(acc[i][4 * g + 3], denom));
-        store4(o + q_off + static_cast<int64_t>(qi) * D + grp * 4, out);
+        store4(ob + qi * so.s + grp * 4, out);
       }
     }
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int64_t B,
-                   int64_t Hq, int64_t Hkv, int64_t S, int causal, float scale,
-                   cudaStream_t stream) {
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       const Strides* st, int64_t B, int64_t Hq, int64_t Hkv, int64_t S,
+                       int causal, float scale, cudaStream_t stream) {
   constexpr int kLd = D + 4;
   const int smem = static_cast<int>((2 * kBQ * kLd + kBQ * kLdP) * sizeof(float));
-  auto kernel = flash_attention_kernel<T, D>;
+  auto kernel = flash_attention_f32<D>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>((S + kBQ - 1) / kBQ), static_cast<unsigned>(Hq),
                   static_cast<unsigned>(B));
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<int>(S), static_cast<int>(Hq),
-      static_cast<int>(Hq / Hkv), causal, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), st[0], st[1], st[2], st[3],
+      static_cast<int>(S), static_cast<int>(Hq / Hkv), causal, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_d(int D, const void* q, const void* k, const void* v, void* o, int64_t B,
-                     int64_t Hq, int64_t Hkv, int64_t S, int causal, float scale,
-                     cudaStream_t stream) {
-  switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, Hq, Hkv, S, causal, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, Hq, Hkv, S, causal, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, Hq, Hkv, S, causal, scale, stream);
-    default: return cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// bfloat16: warpgroup MMA fed by TMA
+// ---------------------------------------------------------------------------
+
+constexpr int kBM = 128;                       // query rows a work item
+constexpr int kBN = 128;                       // K and V rows a tile
+constexpr int kWgRows = 64;                    // query rows a consumer warpgroup
+constexpr int kConsumers = 256;                // two consumer warpgroups
+constexpr int kWgThreads = kConsumers + 32;    // and one producer warp
+
+// Shared-memory geometry at head dim D.  A tile is kBlocks column blocks of
+// its rows x kRowBytes, each swizzled over its kRowBytes rows.
+template <int D>
+struct Geometry {
+  static constexpr int kRowBytes = D >= 64 ? 128 : 32;      // swizzle span
+  static constexpr uint64_t kSwizzle = D >= 64 ? 1 : 3;     // descriptor code: 128B / 32B
+  static constexpr CUtensorMapSwizzle kTmaSwizzle =
+      D >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B;
+  static constexpr int kBoxCols = kRowBytes / 2;            // bf16 columns a block
+  static constexpr int kBlocks = D / kBoxCols;
+  static constexpr int kKSteps = kRowBytes / 32;            // k16 steps a column block
+  static constexpr int kQBlockBytes = kBM * kRowBytes;
+  static constexpr int kQBytes = kBM * D * 2;
+  static constexpr int kKVBlockBytes = kBN * kRowBytes;
+  static constexpr int kKVBytes = kBN * D * 2;
+  // two Q buffers, the K and V rings, their barriers, and slack to align
+  // the base to 1 KB
+  static constexpr int smem(int stages) {
+    return 2 * kQBytes + 2 * stages * kKVBytes + 8 * (4 + 2 * stages) + 1024;
   }
+  static_assert(D % kBoxCols == 0 && kKVBytes % 1024 == 0, "tile geometry");
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait until the barrier's phase of parity `parity` has completed.  A phase
+// that never completes (a lost arrival) traps after ~10 s instead of
+// hanging the card, and the launcher's next CUDA call reports it.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > 20000000000ll) __trap();
+}
+
+// One box of a 4-D tensor map (coordinates innermost first) into shared
+// memory; its bytes count against the barrier's transaction count.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets (all >> 4), swizzle code in bits 62-63.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t swizzle) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (swizzle << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Pins register operands of wgmma in program order: after a wait, reads
+// of the accumulators stay after it; before a wgmma.fence, writes to the
+// accumulators and to A stay before it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// D (64 x 128, f32) += A (64 x 16, shared) . B (16 x 128, shared), both K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 16, f32) += A (64 x 16, registers) . B (16 x 16, shared, MN-major).
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 64, f32) += A (64 x 16, registers) . B (16 x 64, shared, MN-major).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128, f32) += A (64 x 16, registers) . B (16 x 128, shared, MN-major).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// S (64 x kBN) = Q_wg . K^T over D, Q and K from shared memory (K-major).
+template <int D>
+__device__ __forceinline__ void scores(float (&s)[kBN / 2], uint32_t q_wg, uint32_t k_tile) {
+  using G = Geometry<D>;
+  constexpr uint32_t kSbo = 8 * G::kRowBytes;  // next 8-row group
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = kk / G::kKSteps, k32 = (kk % G::kKSteps) * 32;
+    wgmma_ss(s, smem_desc(q_wg + c * G::kQBlockBytes + k32, 16, kSbo, G::kSwizzle),
+             smem_desc(k_tile + c * G::kKVBlockBytes + k32, 16, kSbo, G::kSwizzle), kk > 0);
+  }
+}
+
+// O (64 x D) += P . V over the tile's kBN keys, P from registers, V from
+// shared memory (MN-major: the transpose bit).
+template <int D>
+__device__ __forceinline__ void accumulate_pv(float (&o)[D / 2], const uint32_t (&p)[kBN / 16][4],
+                                              uint32_t v_tile) {
+  using G = Geometry<D>;
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk)
+    wgmma_rs(o, p[kk],
+             smem_desc(v_tile + kk * 16 * G::kRowBytes, G::kKVBlockBytes, 8 * G::kRowBytes,
+                       G::kSwizzle));
+}
+
+// Named barrier `id` over both consumer warpgroups: wait for the other's
+// arrival, or signal it.
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kConsumers) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(kConsumers) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// One tile's online-softmax step on the score fragment, in place: s (raw
+// scores, s[4j + 2r + e] at row row0 + 8r, column k0 + 8j + col0 + e)
+// becomes p = exp2(s·c − m') with c = scale·log2 e, f32; m (in units of
+// s·c) and l advance; alpha is the factor the accumulator takes before this
+// tile's P.V.  Only an edge tile (the causal diagonal, the ragged end) pays
+// for the mask.  For c > 0 the row maximum is taken on the raw scores (the
+// rounded c·max s is the maximum of the rounded c·s, rounding being
+// monotone), and each exponent is one fused multiply-add.
+template <int N>
+__device__ __forceinline__ void softmax_tile(float (&s)[N], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], bool edge, int k0, int row0,
+                                             int col0, int S, int causal, float c) {
+  const bool fused = c > 0.f;  // the same for every thread
+  if (!fused) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) s[i] = __fmul_rn(s[i], c);
+  }
+  if (edge) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int col = k0 + 8 * (i / 4) + col0 + i % 2;
+      if (col >= S || (causal && col > row0 + 8 * ((i / 2) % 2))) s[i] = -INFINITY;
+    }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < N; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], s[i]);
+  float mb[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], fused ? __fmul_rn(mx[r], c) : mx[r]);
+    mb[r] = m_new == -INFINITY ? 0.f : m_new;
+    alpha[r] = exp2_approx(__fsub_rn(m[r], mb[r]));
+    m[r] = m_new;
+    l[r] = __fmul_rn(l[r], alpha[r]);
+  }
+  if (fused) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int r = (i / 2) % 2;
+      s[i] = exp2_approx(__fmaf_rn(s[i], c, -mb[r]));
+      l[r] = __fadd_rn(l[r], s[i]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int r = (i / 2) % 2;
+      s[i] = exp2_approx(__fsub_rn(s[i], mb[r]));
+      l[r] = __fadd_rn(l[r], s[i]);
+    }
+  }
+}
+
+// acc *= alpha by rows; skipped by a warp whose maxima did not move (a
+// product by 1 is exact, so the bits are the same).
+template <int D>
+__device__ __forceinline__ void rescale(float (&acc)[D / 2], const float (&alpha)[2]) {
+  if (__all_sync(0xffffffffu, alpha[0] == 1.f && alpha[1] == 1.f)) return;
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = __fmul_rn(acc[i], alpha[(i / 2) % 2]);
+}
+
+// p rounded to bf16 pairs: the k16 steps' A fragments (step kk holds the
+// 16 keys of the accumulator's chunks 2kk and 2kk + 1).
+template <int N>
+__device__ __forceinline__ void pack_p(const float (&s)[N], uint32_t (&p)[N / 8][4]) {
+#pragma unroll
+  for (int i = 0; i < N; i += 2) p[i / 8][(i % 8) / 2] = pack_bf16(s[i], s[i + 1]);
+}
+
+// Work items (batch, query head, query tile) are numbered longest causal
+// tile first, heads fastest.  Block c takes item c in round 0, G - 1 - c in
+// round 1, then c again (k·G + c or k·G + G − 1 − c in round k, G blocks):
+// the zigzag evens out the rounds' falling lengths between blocks.
+__device__ __forceinline__ int item_index(int round) {
+  const int G = gridDim.x, c = blockIdx.x;
+  return round * G + (round % 2 == 0 ? c : G - 1 - c);
+}
+
+struct Item {
+  int h, b, q0, n_tiles;
+};
+
+__device__ __forceinline__ Item item_at(int w, int Hq, int B, int n_qt, int S, int causal) {
+  const int qt = n_qt - 1 - w / (Hq * B), r = w % (Hq * B);
+  const int q0 = qt * kBM, kv_tiles = (S + kBN - 1) / kBN;
+  return Item{r % Hq, r / Hq, q0, causal ? min(kv_tiles, (q0 + kBM) / kBN) : kv_tiles};
+}
+
+template <int D, int kStages, bool kPipelined>
+__device__ __forceinline__ void consume(uint32_t q_s, uint32_t k_s, uint32_t v_s,
+                                        uint32_t q_full0, uint32_t q_empty0, uint32_t full0,
+                                        uint32_t empty0, __nv_bfloat16* __restrict__ o,
+                                        Strides so, int S, int Hq, int B, int n_qt, int causal,
+                                        float scale_log2) {
+  using G = Geometry<D>;
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128, lane = t % 32;
+  const int row_in_block = wg * kWgRows + (t / 32) * 16 + lane / 4;
+  const int col0 = 2 * (lane % 4);
+  const int n_items = n_qt * Hq * B;
+  int tile = 0;  // this block's K/V tiles so far: the ring's stage and phase
+  if (kPipelined && wg == 1) named_arrive(1);
+  for (int it = 0; item_index(it) < n_items; ++it) {
+    const Item item = item_at(item_index(it), Hq, B, n_qt, S, causal);
+    const bool last_item = item_index(it + 1) >= n_items;
+    const int q0 = item.q0, n_tiles = item.n_tiles, row0 = q0 + row_in_block;
+    const uint32_t qb = it & 1, q_wg = q_s + qb * G::kQBytes + wg * kWgRows * G::kRowBytes;
+    auto edge = [&](int kt) {
+      return (causal && (kt + 1) * kBN - 1 > q0) || (kt + 1) * kBN > S;
+    };
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+    float s[kBN / 2];
+    uint32_t p[kBN / 16][4];
+
+    mbar_wait(q_full0 + 8 * qb, (it >> 1) & 1);
+    if (kPipelined) {
+      // each warpgroup in turn issues this tile's Q.K^T and the previous
+      // tile's P.V, hands the tensor cores to the other by a named barrier,
+      // and runs its softmax while both products run
+      int st = tile % kStages;
+      mbar_wait(full0 + 8 * st, (tile / kStages) & 1);
+      named_sync(1 + wg);
+      fence_regs(s);
+      wgmma_fence();
+      scores<D>(s, q_wg, k_s + st * G::kKVBytes);
+      wgmma_commit();
+      if (wg == 0 || !(last_item && n_tiles == 1)) named_arrive(2 - wg);
+      wgmma_wait<0>();
+      fence_regs(s);
+      if (n_tiles == 1) mbar_arrive(q_empty0 + 8 * qb);
+      softmax_tile(s, m, l, alpha, edge(0), 0, row0, col0, S, causal, scale_log2);
+      pack_p(s, p);
+      for (int kt = 1; kt < n_tiles; ++kt) {
+        const int prev = st;
+        st = (tile + kt) % kStages;
+        mbar_wait(full0 + 8 * st, ((tile + kt) / kStages) & 1);
+        named_sync(1 + wg);
+        fence_regs(s);
+        fence_regs(acc);
+        fence_regs(p);
+        wgmma_fence();
+        scores<D>(s, q_wg, k_s + st * G::kKVBytes);
+        wgmma_commit();
+        accumulate_pv<D>(acc, p, v_s + prev * G::kKVBytes);
+        wgmma_commit();
+        if (wg == 0 || !(last_item && kt + 1 == n_tiles)) named_arrive(2 - wg);
+        wgmma_wait<1>();
+        fence_regs(s);
+        if (kt + 1 == n_tiles) mbar_arrive(q_empty0 + 8 * qb);
+        softmax_tile(s, m, l, alpha, edge(kt), kt * kBN, row0, col0, S, causal, scale_log2);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        mbar_arrive(empty0 + 8 * prev);
+        rescale<D>(acc, alpha);
+        pack_p(s, p);
+      }
+      fence_regs(acc);
+      fence_regs(p);
+      wgmma_fence();
+      accumulate_pv<D>(acc, p, v_s + st * G::kKVBytes);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(empty0 + 8 * st);
+    } else {
+      for (int kt = 0; kt < n_tiles; ++kt) {
+        const int st = (tile + kt) % kStages;
+        mbar_wait(full0 + 8 * st, ((tile + kt) / kStages) & 1);
+        fence_regs(s);
+        wgmma_fence();
+        scores<D>(s, q_wg, k_s + st * G::kKVBytes);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        if (kt + 1 == n_tiles) mbar_arrive(q_empty0 + 8 * qb);
+        softmax_tile(s, m, l, alpha, edge(kt), kt * kBN, row0, col0, S, causal, scale_log2);
+        rescale<D>(acc, alpha);
+        pack_p(s, p);
+        fence_regs(acc);
+        fence_regs(p);
+        wgmma_fence();
+        accumulate_pv<D>(acc, p, v_s + st * G::kKVBytes);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        mbar_arrive(empty0 + 8 * st);
+      }
+    }
+    tile += n_tiles;
+
+    __nv_bfloat16* ob = o + item.b * so.b + item.h * so.h;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] = __fadd_rn(l[r], __shfl_xor_sync(0xffffffffu, l[r], 1));
+      l[r] = __fadd_rn(l[r], __shfl_xor_sync(0xffffffffu, l[r], 2));
+      const int row = row0 + 8 * r;
+      if (row >= S) continue;
+      const float denom = fmaxf(l[r], 1e-30f);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(ob + row * so.s + 8 * j + col0) =
+            __floats2bfloat162_rn(__fdiv_rn(acc[4 * j + 2 * r], denom),
+                                  __fdiv_rn(acc[4 * j + 2 * r + 1], denom));
+    }
+  }
+}
+
+// Persistent: one block an SM walks its work items; the producer loads the
+// next item's Q into the other of two Q buffers and keeps the K/V ring full
+// across items, so one item's epilogue and the next one's first loads
+// overlap.
+template <int D, int kStages, bool kPipelined>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_attention_wgmma(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                      Strides so, int S, int Hq, int B, int group, int causal,
+                      float scale_log2) {
+  using G = Geometry<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base;                              // two Q buffers
+  const uint32_t k_s = q_s + 2 * G::kQBytes;              // stage i at + i * kKVBytes
+  const uint32_t v_s = k_s + kStages * G::kKVBytes;
+  const uint32_t q_full0 = v_s + kStages * G::kKVBytes;  // q_full[2], q_empty[2],
+  const uint32_t q_empty0 = q_full0 + 16;                 // full[i], empty[i]
+  const uint32_t full0 = q_empty0 + 16, empty0 = full0 + 8 * kStages;
+  const int n_qt = (S + kBM - 1) / kBM, n_items = n_qt * Hq * B;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(q_full0 + 8 * i, 1);
+      mbar_init(q_empty0 + 8 * i, kConsumers);
+    }
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(full0 + 8 * i, 1);
+      mbar_init(empty0 + 8 * i, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // producer warp: lane 0 issues every load
+    if (threadIdx.x == kConsumers) {
+      int tile = 0;
+      for (int it = 0; item_index(it) < n_items; ++it) {
+        const Item item = item_at(item_index(it), Hq, B, n_qt, S, causal);
+        const int qb = it & 1, hk = item.h / group;
+        if (it >= 2) mbar_wait(q_empty0 + 8 * qb, ((it >> 1) - 1) & 1);
+        mbar_expect_tx(q_full0 + 8 * qb, G::kQBytes);
+        for (int c = 0; c < G::kBlocks; ++c)
+          tma_load(q_s + qb * G::kQBytes + c * G::kQBlockBytes, &tq, q_full0 + 8 * qb,
+                   c * G::kBoxCols, item.q0, item.h, item.b);
+        for (int kt = 0; kt < item.n_tiles; ++kt, ++tile) {
+          const int st = tile % kStages;
+          if (tile >= kStages) mbar_wait(empty0 + 8 * st, (tile / kStages - 1) & 1);
+          const uint32_t full = full0 + 8 * st;
+          mbar_expect_tx(full, 2 * G::kKVBytes);
+          for (int c = 0; c < G::kBlocks; ++c) {
+            const uint32_t off = st * G::kKVBytes + c * G::kKVBlockBytes;
+            tma_load(k_s + off, &tk, full, c * G::kBoxCols, kt * kBN, hk, item.b);
+            tma_load(v_s + off, &tv, full, c * G::kBoxCols, kt * kBN, hk, item.b);
+          }
+        }
+      }
+    }
+  } else {
+    consume<D, kStages, kPipelined>(q_s, k_s, v_s, q_full0, q_empty0, full0, empty0, o, so,
+                                        S, Hq, B, n_qt, causal, scale_log2);
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up once through cudaGetDriverEntryPoint.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A 4-D map over (D, S, H, B) with the operand's strides; boxes of
+// kBoxCols x rows x 1 x 1, zero-filled past S.
+template <int D>
+bool encode(CUtensorMap* map, const void* base, Strides st, int64_t S, int64_t H, int64_t B,
+            int rows) {
+  using G = Geometry<D>;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * 2,
+                                 static_cast<cuuint64_t>(st.h) * 2,
+                                 static_cast<cuuint64_t>(st.b) * 2};
+  const cuuint32_t box[4] = {G::kBoxCols, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, G::kTmaSwizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, int kStages, bool kPipelined>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
+                        const Strides* st, int64_t B, int64_t Hq, int64_t Hkv, int64_t S,
+                        int causal, float scale, cudaStream_t stream) {
+  using G = Geometry<D>;
+  CUtensorMap tq, tk, tv;
+  if (!encode<D>(&tq, q, st[0], S, Hq, B, kBM) || !encode<D>(&tk, k, st[1], S, Hkv, B, kBN) ||
+      !encode<D>(&tv, v, st[2], S, Hkv, B, kBN))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_attention_wgmma<D, kStages, kPipelined>;
+  constexpr int smem = G::smem(kStages);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int device = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+          cudaSuccess)
+    return err;
+  const int64_t items = (S + kBM - 1) / kBM * Hq * B;
+  const float scale_log2 = static_cast<float>(static_cast<double>(scale) * 1.4426950408889634);
+  kernel<<<static_cast<unsigned>(items < sms ? items : sms), kWgThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), st[3], static_cast<int>(S),
+      static_cast<int>(Hq), static_cast<int>(B), static_cast<int>(Hq / Hkv), causal,
+      scale_log2);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void* o,
+                   const Strides* st, int64_t B, int64_t Hq, int64_t Hkv, int64_t S,
+                   int causal, float scale, cudaStream_t stream) {
+  if (dtype == 0) return launch_f32<D>(q, k, v, o, st, B, Hq, Hkv, S, causal, scale, stream);
+  // D = 128: each warpgroup's products back to back (the overlapped
+  // schedule needs more than the 168 registers a thread of a block this
+  // size); D <= 64: ping-pong with P.V overlapped.
+  constexpr bool kPipelined = D <= 64;
+  if (dtype == 1)
+    return launch_bf16<D, kPipelined ? 3 : 2, kPipelined>(q, k, v, o, st, B, Hq, Hkv, S, causal,
+                                                          scale, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace repro_torch_attention
@@ -297,16 +958,22 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v, void* o
 extern "C" int rt_flash_attention(int dtype, int head_dim, const void* q, const void* k,
                                   const void* v, void* o, int64_t batch, int64_t heads_q,
                                   int64_t heads_kv, int64_t seq, int causal, double scale,
-                                  void* stream) {
+                                  const int64_t* strides, void* stream) {
   using namespace repro_torch_attention;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float sc = static_cast<float>(scale);
   if (heads_kv <= 0 || heads_q % heads_kv != 0) return cudaErrorInvalidValue;
   if (batch * heads_q * seq == 0) return cudaGetLastError();
-  if (dtype == 0)
-    return launch_d<float>(head_dim, q, k, v, o, batch, heads_q, heads_kv, seq, causal, sc, s);
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(head_dim, q, k, v, o, batch, heads_q, heads_kv, seq,
-                                   causal, sc, s);
-  return cudaErrorInvalidValue;
+  if (batch > 65535 || heads_q > 65535 || (seq + 127) / 128 * heads_q * batch > 0x7fffffff)
+    return cudaErrorInvalidValue;
+  Strides st[4];  // q, k, v, o
+  for (int i = 0; i < 4; ++i)
+    st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  switch (head_dim) {
+    case 16: return launch<16>(dtype, q, k, v, o, st, batch, heads_q, heads_kv, seq, causal, sc, s);
+    case 64: return launch<64>(dtype, q, k, v, o, st, batch, heads_q, heads_kv, seq, causal, sc, s);
+    case 128:
+      return launch<128>(dtype, q, k, v, o, st, batch, heads_q, heads_kv, seq, causal, sc, s);
+    default: return cudaErrorInvalidValue;
+  }
 }

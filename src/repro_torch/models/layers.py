@@ -72,11 +72,11 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 def _attend_dispatch(cfg: ArchConfig, q, k, v, causal: bool):
     """The CUDA kernel for CUDA tensors, the plain version for CPU tensors
-    (:func:`repro_torch.kernels.ops.flash_attention`).  The kernel takes
-    contiguous ``(B, H, S, D)`` operands: the copies the reference's
-    ``swapaxes`` materialise."""
-    return ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                               causal=causal)
+    (:func:`repro_torch.kernels.ops.flash_attention`).  q, k, v are the
+    ``(B, H, S, D)`` transposed views of the ``(B, S, H, D)`` projections;
+    both read them in place, where the reference's ``swapaxes`` leave the
+    copies to XLA."""
+    return ops.flash_attention(q, k, v, causal=causal)
 
 
 def gqa_init(generator: torch.Generator, cfg: ArchConfig, lead: Sequence[int] = (),

@@ -137,3 +137,116 @@ def test_attention_node_second_derivative_is_the_plain_versions():
 
     got, want = grads(_attention_node), grads(ref.flash_attention)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# --- the kernel's operand layouts (a pure function of shapes, strides, dtypes
+# and addresses, so it runs here) and the LM reading them in place ---------
+
+LAYOUT_SHAPES = [(2, 8, 2, 40, 64), (1, 10, 2, 129, 128), (1, 4, 1, 1, 16), (2, 4, 4, 33, 16)]
+
+
+def _layout(t):
+    return t.shape, t.stride(), t.dtype, t.data_ptr()
+
+
+def _metadata(*ts):
+    return [list(x) for x in zip(*map(_layout, ts))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bshd", [False, True], ids=["contiguous", "bshd_views"])
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", LAYOUT_SHAPES)
+def test_kernel_strides_accept_views_and_contiguous(B, Hq, Hkv, S, D, bshd, dtype):
+    """(B, S, H, D) buffers' transposed views and contiguous (B, H, S, D)
+    tensors both go in; the strides come back as the tensors have them,
+    a size-1 axis's as a contiguous tensor's would be."""
+    if bshd:
+        q, k, v = (torch.zeros(B, S, h, D, dtype=dtype).transpose(1, 2) for h in (Hq, Hkv, Hkv))
+    else:
+        q, k, v = (torch.zeros(B, h, S, D, dtype=dtype) for h in (Hq, Hkv, Hkv))
+    got = fa_kernel.kernel_strides(*_metadata(q, k, v))
+    want = tuple(tuple(c if n == 1 else st for n, st, c in
+                       zip(t.shape[:3], t.stride()[:3], (t.shape[1] * S * D, S * D, D)))
+                 for t in (q, k, v))
+    assert got == want
+    if bshd and S > 1:
+        assert got[0] == (S * Hq * D, D, Hq * D)
+
+
+def _refused(case):
+    """Metadata of q, k, v (B 2, Hq 8, Hkv 2, S 40, D 64, bf16 at 0x1000)
+    with one fault."""
+    shapes = [(2, 8, 40, 64), (2, 2, 40, 64), (2, 2, 40, 64)]
+    strides = [(20480, 2560, 64, 1), (5120, 2560, 64, 1), (5120, 2560, 64, 1)]
+    dtypes = [torch.bfloat16] * 3
+    addresses = [0x1000, 0x40000, 0x80000]
+    if case == "last_stride":
+        strides[1] = (5120, 2560, 64, 2)
+    elif case == "misaligned_base":
+        addresses[2] = 0x80000 + 2
+    elif case == "row_stride":
+        strides[0] = (20480, 2560, 68, 1)
+    elif case == "mixed_dtypes":
+        dtypes[2] = torch.float32
+    elif case == "heads":
+        shapes[1] = shapes[2] = (2, 3, 40, 64)
+    return shapes, strides, dtypes, addresses
+
+
+@pytest.mark.parametrize("case,match", [
+    ("last_stride", "k's last stride must be 1"),
+    ("misaligned_base", "v's base address 0x80002 is not 16-byte aligned"),
+    ("row_stride", "q's batch, head and row strides must be positive multiples of 8"),
+    ("mixed_dtypes", "mixed dtypes"),
+    ("heads", "Hq % Hkv == 0"),
+])
+def test_kernel_strides_refuse_what_the_kernel_cannot_read(case, match):
+    fa_kernel.kernel_strides(*_refused(None))  # the faultless layout goes in
+    with pytest.raises(ValueError, match=match):
+        fa_kernel.kernel_strides(*_refused(case))
+
+
+def test_kernel_launcher_checks_layouts_before_the_device():
+    """A misaligned view is refused by name on any device; a good layout on
+    the CPU then meets the device check."""
+    q, k, v = map(torch.from_numpy, _inputs(1, 4, 1, 16, 64))
+    shifted = torch.zeros(q.numel() + 1)[1:].view(q.shape)  # 4 bytes past an aligned base
+    with pytest.raises(ValueError, match="q's base address .* is not 16-byte aligned"):
+        fa_kernel.check_operands(shifted, k, v)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa_kernel.check_operands(q, k, v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", [(2, 8, 2, 40, 64), (1, 10, 2, 129, 128),
+                                          (2, 4, 4, 33, 16)])
+def test_plain_attention_on_bshd_views_is_bitwise_the_contiguous(B, Hq, Hkv, S, D, causal,
+                                                                 dtype):
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in _inputs(B, Hq, Hkv, S, D, seed=S))
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]
+    assert not views[0].is_contiguous()
+    assert torch.equal(ref.flash_attention(*views, causal=causal),
+                       ref.flash_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "tinyllama-1.1b"])
+def test_gqa_attend_is_bitwise_unchanged_without_the_copies(arch, dtype, monkeypatch):
+    """The LM's attention on the CPU, reading the (B, S, H, D) projections
+    in place, gives the bits it gave on contiguous copies."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import layers
+
+    cfg = dataclasses.replace(smoke_config(arch), dtype=dtype)
+    params = layers.gqa_init(torch.Generator().manual_seed(3), cfg)
+    x = torch.randn(2, 37, cfg.d_model, generator=torch.Generator().manual_seed(4)).to(dtype)
+    out, (k, v) = layers.gqa_attend(params, cfg, x)
+    monkeypatch.setattr(layers, "_attend_dispatch", lambda cfg, q, k, v, causal:
+                        ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                            causal=causal))
+    out_copies, (k_copies, v_copies) = layers.gqa_attend(params, cfg, x)
+    assert out.dtype == dtype
+    assert torch.equal(out, out_copies) and torch.equal(k, k_copies) and torch.equal(v, v_copies)

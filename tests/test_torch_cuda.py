@@ -4,8 +4,9 @@ fused exact adjoint = the unfused one on a whole ELBO training step, and
 the adaptive paths: the ``brownian_value`` kernel, the fused adaptive
 exact adjoint = the unfused one, and the adaptive SDE-GAN sampler's
 padding invariance; the GQA attention kernel against its plain version
-(float32 2e-5, bfloat16 6e-2: the two sum in different orders) and a
-two-layer smoke LM's prefill routed through it; the SSD chunk-scan kernel
+(float32 2e-5, bfloat16 6e-2: the two sum in different orders), two
+launches bitwise equal, (B, S, H, D) views bitwise the contiguous
+operands' result, and a two-layer smoke LM's prefill routed through it; the SSD chunk-scan kernel
 against its plain version (y: float32 2e-4, bfloat16 6e-2; the state 2e-4
 of its largest magnitude) and a two-layer smoke mamba2 prefill through it;
 the SDE field MLP kernel against its plain version (float32 2e-5, bfloat16
@@ -31,7 +32,7 @@ from repro_torch import nn, tree
 from repro_torch.core import BrownianPath, solve
 from repro_torch.core.sde import (LatentSDEConfig, NeuralSDEConfig, generator_init,
                                   latent_sde_init, latent_sde_sample_paths)
-from repro_torch.kernels import ops, prng
+from repro_torch.kernels import flash_attention as fa_kernel, ops, prng
 from repro_torch.launch.steps import (make_adaptive_terminal_step, make_latent_sde_optimizer,
                                       make_latent_sde_step)
 
@@ -110,11 +111,15 @@ def test_each_launch_is_counted_once(cuda):
     w1, b1 = torch.rand(16, 8, device=cuda), torch.rand(8, device=cuda)
     ops.fused_mlp(z, w1, b1, w1.t().contiguous(), z[0])
     ops.fused_mlp(z, w1, b1, w1.t().contiguous(), z[0], use_kernel=False)
+    logits = torch.rand(4, 16, device=cuda, requires_grad=True)
+    labels = torch.arange(4, device=cuda)
+    ops.fused_xent(logits, labels).sum().backward()
+    ops.fused_xent(logits, labels, use_kernel=False).sum().backward()
     assert ops.launch_counts() == {"rev_heun_phase1": 1, "rev_heun_phase2": 1,
                                    "rev_heun_bwd_phase1": 1, "rev_heun_bwd_phase2": 1,
                                    "rev_heun_phase1_gen": 1, "brownian_increment": 1,
                                    "brownian_value": 1, "flash_attention": 1, "ssd_chunk": 1,
-                                   "fused_mlp": 1}
+                                   "fused_mlp": 1, "fused_xent": 1, "fused_xent_bwd": 1}
 
 
 def test_operands_are_checked(cuda):
@@ -242,10 +247,15 @@ def test_fused_training_step_equals_unfused_on_the_card(cuda):
 
 ATTN_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
             torch.bfloat16: dict(rtol=6e-2, atol=6e-2)}
+# bf16: the largest ‖Δ‖ / ‖want‖ over the (b, h) slices, as chip_smoke.py's
+# ATTN_REL_TOL (6e-2 alone exceeds a typical |o| at long S).
+ATTN_REL_TOL = 1e-2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,Hq,Hkv,S,D", [(2, 10, 2, 200, 128), (1, 8, 1, 65, 64)])
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", [(2, 10, 2, 200, 128), (1, 8, 1, 65, 64),
+                                          (1, 40, 8, 129, 128), (2, 8, 4, 300, 16),
+                                          (4, 32, 4, 2048, 64)])
 def test_flash_attention_kernel_matches_plain_version(cuda, dtype, B, Hq, Hkv, S, D):
     g = torch.Generator().manual_seed(S)
     q, k, v = (torch.randn(B, h, S, D, generator=g).to(cuda, dtype) for h in (Hq, Hkv, Hkv))
@@ -258,6 +268,45 @@ def test_flash_attention_kernel_matches_plain_version(cuda, dtype, B, Hq, Hkv, S
         torch.cuda.synchronize()
         assert got.dtype == dtype and got.shape == q.shape
         torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+        if dtype == torch.bfloat16:
+            delta = (got.float() - want.float()).flatten(2).norm(dim=-1)
+            assert (delta / want.float().flatten(2).norm(dim=-1)).max() <= ATTN_REL_TOL
+
+
+def _bshd_views(g, cuda, dtype, B, Hq, Hkv, S, D):
+    """q, k, v as (B, H, S, D) views of (B, S, H, D) buffers."""
+    return tuple(torch.randn(B, S, h, D, generator=g).to(cuda, dtype).transpose(1, 2)
+                 for h in (Hq, Hkv, Hkv))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", [(2, 10, 2, 200, 128), (1, 40, 8, 129, 128),
+                                          (2, 8, 4, 300, 16)])
+def test_flash_attention_two_launches_give_the_same_bits(cuda, dtype, B, Hq, Hkv, S, D):
+    q, k, v = _bshd_views(torch.Generator().manual_seed(S), cuda, dtype, B, Hq, Hkv, S, D)
+    for causal in (True, False):
+        first = ops.flash_attention(q, k, v, causal=causal)
+        assert torch.equal(first, ops.flash_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", [(2, 10, 2, 200, 128), (1, 40, 8, 129, 128),
+                                          (2, 32, 4, 64, 64), (2, 8, 4, 300, 16)])
+def test_flash_attention_reads_strided_views_bitwise(cuda, dtype, B, Hq, Hkv, S, D):
+    """(B, S, H, D) views give the contiguous operands' bits, the output is
+    the (B, Hq, S, D) view of a (B, S, Hq, D) buffer, and a contiguous
+    buffer given as ``out`` gets the same bits."""
+    q, k, v = _bshd_views(torch.Generator().manual_seed(S), cuda, dtype, B, Hq, Hkv, S, D)
+    assert not q.is_contiguous()
+    for causal in (True, False):
+        got = ops.flash_attention(q, k, v, causal=causal)
+        want = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                   causal=causal)
+        assert torch.equal(got, want)
+        assert got.shape == (B, Hq, S, D) and got.transpose(1, 2).is_contiguous()
+        out = torch.empty(q.shape, dtype=dtype, device=cuda)
+        assert fa_kernel._launch(q, k, v, causal, 1 / math.sqrt(D), out=out) is out
+        assert torch.equal(out, got)
 
 
 def test_smoke_lm_prefill_runs_through_the_kernel(cuda, monkeypatch):
