@@ -62,10 +62,14 @@ non-zero and the final result line is never printed):
    of one 1024-row decode bucket with it and under ``plain_mlp()``.
 9. (Run right after 3b.)  ``brownian_value`` (the adaptive loop's
    Lévy-bridge point query) bitwise against its plain version: float32
-   and float64, one key over (256, 32) and (64, 17), 1024 keys and one key
-   over (4,), depth 10 and 24, times at t0, t1, a dyadic point and random points; timed beside its
-   bound at the serving shape (1024 rows of (4,), depth 24) and the
-   gradient shape (one key over (256, 32), depth 10).
+   and float64, rows VALUE_ROWS × sizes VALUE_SIZES × depths VALUE_DEPTHS
+   (0 to 40: one, two and more chunks of levels; row counts that leave a
+   partial last block), times at t0, t1, a dyadic point and random points;
+   the launcher's grid at the two path shapes (>= 128 blocks); the chain
+   step's latency (depth 24 against 0 on one row); timed beside its
+   throughput bound and its chain floor at the serving shape (1024 rows of
+   (4,), depth 24) and the gradient shape (one key over (256, 32), depth
+   10).
 10. Adaptive serving: ``serve_sde("sde-gan", adaptive=True)`` at the
    SDE-GAN's serving widths (data 1, hidden 16, noise 4, initial noise 4,
    width 32, depth 1, dt0 = 1/16, atol 1e-6, budget 4096), 32 requests of
@@ -95,11 +99,13 @@ non-zero and the final result line is never printed):
    the operands as (B, S, H, D) views bitwise the contiguous operands'
    result, and the output the (B, Hq, S, D) view of a (B, S, Hq, D)
    buffer.  The SASS of the built library (``cuobjdump -sass``): every
-   bfloat16 attention kernel issues HGMMA, the float32 one none.  Timed in
-   turns, the operands as (B, S, H, D) views, beside the plain version, the
-   bound and ``scaled_dot_product_attention`` (the library yardstick,
-   called nowhere in the port): bfloat16 at the prefill shape, float32
-   (TF32 off) and bfloat16 at the training shape.
+   bfloat16 attention kernel issues HGMMA, the float32 ones HMMA with TF32
+   (split TF32 on mma.sync) and no HGMMA.  Timed in turns, the operands as
+   (B, S, H, D) views, beside the plain version, the bound (float32: split
+   TF32 on the tensor cores, and the CUDA-core bound beside it) and
+   ``scaled_dot_product_attention`` (the library yardstick, called nowhere
+   in the port): bfloat16 at the prefill shape, float32 (TF32 off) and
+   bfloat16 at the training shape.
 13. LM parity, float32, full width at two layers (qwen2.5-14b with
    ``num_layers=2``): B = 2, S = 512 prefill and 8 greedy decode steps,
    through the kernel and with every attention on the plain version: the
@@ -185,14 +191,20 @@ non-zero and the final result line is never printed):
    and ``fused_xent_bwd``; ``adaptive_launches``: the fused adaptive
    gradient's; ``serve_launches``: the Latent-SDE service's, the adaptive
    service's for ``brownian_value``, the LM serves' for
-   ``flash_attention`` and ``ssd_chunk``) and, last, the
-   result line ``{"ok": true, "device": {...}}``.
+   ``flash_attention`` and ``ssd_chunk``; ``ptxas``: the registers,
+   shared memory and spills of ``brownian_value`` and the float32
+   attention, compiled once more with ``-Xptxas -v`` in the background)
+   and, last, the result line ``{"ok": true, "device": {...}}``.
+
+``drain_in_turns(parent_root)`` (not run by ``main``) times phase 10's
+adaptive serving drain in another tree and this one, in turns.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -217,6 +229,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12,
                   torch.bfloat16: 989e12}  # bf16: dense tensor cores
+PEAK_TF32_OPS_PER_S = 495e12  # TF32 dense tensor cores (the f32 attention's split TF32)
 # Operation counts the bound assumes (minimal work, see bound()).
 HASH_OPS = 120          # one Threefry-2x32 hash: 20 rounds of add/rotate/xor + keys
 NORMAL_OPS = {torch.float32: 50, torch.float64: 75}  # bits->uniform->erf_inv->scale
@@ -876,10 +889,20 @@ def serve_checks(ops, dev, label: str) -> dict:
 
 
 def value_bound(rows: int, n_per_row: int, depth: int, dtype) -> tuple:
-    """Least time for ``brownian_value``: each row's key walk once (a root
-    fold_in, then a child and a midpoint fold_in per level), each
-    element's ``depth + 1`` normals (float32 draws share a hash by twos),
-    the combine and the tail; bytes: keys and times in, values out."""
+    """Least time for ``brownian_value`` by throughput: each row's key walk
+    once (a root fold_in, then a child and a midpoint fold_in per level),
+    each element's ``depth + 1`` normals (float32 draws share a hash by
+    twos), the combine and the tail; bytes: keys and times in, values out.
+
+    Beside it stands the chain floor (:func:`chain_floor`): a row's key
+    chain is ``depth + 1`` dependent Threefry hashes (the root fold_in, then
+    one child fold_in a level), each waiting on the last, so no launch ends
+    before ``(depth + 1)`` chain steps at the measured step latency (on an
+    NVIDIA H100 80GB HBM3 at 700 W, ~166 ns a step: 4.1 µs at depth 24,
+    1.8 µs at depth 10; PERF.md).  At the serving shape (1024 rows × 4,
+    depth 24) the throughput bound is ~15x shorter than that chain: the
+    rows' chains run side by side, so more rows add operations but not
+    length, and 1024 rows cannot reach the throughput bound."""
     s = torch.finfo(dtype).bits // 8
     n = rows * n_per_row
     hash_per_normal = 0.5 if dtype == torch.float32 else 1.0
@@ -892,39 +915,81 @@ def value_bound(rows: int, n_per_row: int, depth: int, dtype) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def chain_step_ms(ops, dev, dtype=torch.float32) -> float:
+    """The measured latency of one step of a row's key chain: the kernel on
+    one row of one element at depth 24 against depth 0 (both one chunk of
+    levels, one block), the difference over 24 levels.  Each level adds one
+    dependent child fold_in (the midpoint fold_in issues beside it), the
+    level's scalar walk and one combine step; the launch's fixed costs
+    cancel."""
+    keys = torch.tensor([[7, 11]], dtype=torch.int64, device=dev)
+    t = torch.tensor([0.3], dtype=dtype, device=dev)
+    ms = {depth: time_ms(lambda: ops.brownian_value(keys, t, 0.0, 1.0, (1,), dtype, depth),
+                         reps=50, trials=9)[0] for depth in (0, 24)}
+    return (ms[24] - ms[0]) / 24
+
+
+def chain_floor(depth: int, step_ms: float) -> float:
+    """The chain floor of ``brownian_value``: ``depth + 1`` dependent chain
+    steps (the root fold_in and one a level) at ``step_ms`` each."""
+    return (depth + 1) * step_ms
+
+
+# brownian_value checks: rows × per-row sizes × depths (phase 9).  1000,
+# 1001 and 1024 rows take 4 rows a block (1001 leaves a last block of one
+# row); depth 40 runs two chunks of levels (four in float64); depth 0 draws
+# the root alone.
+VALUE_ROWS = (1, 3, 64, 1000, 1001, 1024)
+VALUE_SIZES = ((1,), (4,), (17,), (256, 32))
+VALUE_DEPTHS = (0, 1, 10, 24, 40)
+
+
 def value_checks(ops, dev) -> tuple:
-    """Phase 9: ``brownian_value`` bitwise against its plain version, and
-    timed at the serving and the gradient shapes.  Returns ``({shape: row},
-    max |Δ|)``."""
+    """Phase 9: ``brownian_value`` bitwise against its plain version at every
+    VALUE_ROWS × VALUE_SIZES × VALUE_DEPTHS case, float32 and float64; the
+    launcher's grid at the two path shapes (>= 128 blocks); timed at the
+    serving and the gradient shapes beside the throughput bound and the
+    chain floor.  Returns ``({shape: row}, max |Δ|)``."""
+    from repro_torch.kernels.brownian import brownian_value_blocks
+
     g = torch.Generator().manual_seed(4321)
-    cases = [(1, (256, 32)), (1, (64, 17)), (1024, (4,)), (1, (4,))]
     err, n_checked = 0.0, 0
     for dtype in (torch.float32, torch.float64):
-        for rows, shape in cases:
-            keys = torch.randint(0, 2 ** 32, (rows, 2), generator=g, dtype=torch.int64).to(dev)
-            rand = torch.rand(max(rows, 4), generator=g, dtype=torch.float64).tolist()
-            if rows == 1:  # one key: each time in turn
-                times = [[0.0], [1.0], [0.375], [rand[0]], [rand[1]]]
-            else:  # many keys: t0, t1, a dyadic point and random times mixed
-                times = [[0.0, 1.0, 0.375][r % 3] if r < 3 else rand[r] for r in range(rows)]
-                times = [times]
-            for depth in (10, 24):
-                for tl in times:
-                    t = torch.tensor(tl, dtype=dtype, device=dev)
-                    got = ops.brownian_value(keys, t, 0.0, 1.0, shape, dtype, depth)
-                    want = ops.brownian_value(keys, t, 0.0, 1.0, shape, dtype, depth,
-                                              use_kernel=False)
-                    torch.cuda.synchronize()
-                    e = (got - want).abs().max().item()
-                    check(torch.equal(got, want) and e == 0.0,
-                          f"brownian_value {dtype} rows={rows} {shape} depth={depth}: "
-                          f"kernel != plain (max |Δ| {e})")
-                    err = max(err, e)
-                    n_checked += 1
-    print(f"bitwise: brownian_value x {{float32, float64}} x {cases} x depth {{10, 24}} "
-          f"({n_checked} calls, t0/t1/dyadic/random times): kernel == plain", flush=True)
+        for rows in VALUE_ROWS:
+            for shape in VALUE_SIZES:
+                keys = torch.randint(0, 2 ** 32, (rows, 2), generator=g,
+                                     dtype=torch.int64).to(dev)
+                rand = torch.rand(max(rows, 4), generator=g, dtype=torch.float64).tolist()
+                if rows == 1:  # one key: each time in turn
+                    times = [[0.0], [1.0], [0.375], [rand[0]], [rand[1]]]
+                else:  # many keys: t0, t1, a dyadic point and random times mixed
+                    times = [[[0.0, 1.0, 0.375][r % 3] if r < 3 else rand[r]
+                              for r in range(rows)]]
+                for depth in VALUE_DEPTHS:
+                    for tl in times:
+                        t = torch.tensor(tl, dtype=dtype, device=dev)
+                        got = ops.brownian_value(keys, t, 0.0, 1.0, shape, dtype, depth)
+                        want = ops.brownian_value(keys, t, 0.0, 1.0, shape, dtype, depth,
+                                                  use_kernel=False)
+                        torch.cuda.synchronize()
+                        e = (got - want).abs().max().item()
+                        check(torch.equal(got, want) and e == 0.0,
+                              f"brownian_value {dtype} rows={rows} {shape} depth={depth}: "
+                              f"kernel != plain (max |Δ| {e})")
+                        err = max(err, e)
+                        n_checked += 1
+                    del got, want
+                torch.cuda.empty_cache()
+    print(f"bitwise: brownian_value x {{float32, float64}} x rows {VALUE_ROWS} x sizes "
+          f"{VALUE_SIZES} x depth {VALUE_DEPTHS} ({n_checked} calls, t0/t1/dyadic/random "
+          f"times): kernel == plain", flush=True)
+    step = chain_step_ms(ops, dev)
+    print(f"brownian_value chain step (float32, one row, depth 24 vs 0): {step * 1e6:.1f} ns",
+          flush=True)
     rows_out = {}
     for tag, rows, shape, depth in (("serve", 1024, (4,), 24), ("grad", 1, (256, 32), 10)):
+        blocks = brownian_value_blocks(torch.float32, rows, math.prod(shape))
+        check(blocks >= 128, f"brownian_value {tag}: {blocks} blocks, fewer than 128 SMs busy")
         keys = torch.randint(0, 2 ** 32, (rows, 2), generator=g, dtype=torch.int64).to(dev)
         t = torch.rand(rows, generator=g, dtype=torch.float64).float().to(dev)
         k_ms, k_host = time_ms(lambda: ops.brownian_value(keys, t, 0.0, 1.0, shape,
@@ -933,12 +998,69 @@ def value_checks(ops, dev) -> tuple:
                                                           torch.float32, depth,
                                                           use_kernel=False), reps=5, trials=3)
         b_ms, b_by = value_bound(rows, math.prod(shape), depth, torch.float32)
-        print(f"brownian_value float32 {tag}: rows {rows} x {shape}, depth {depth}: kernel "
-              f"{k_ms:.5f} ms ({k_host:.5f} host), plain {p_ms:.5f} ms ({p_host:.5f}), "
-              f"bound {b_ms:.7f} ms ({b_by})", flush=True)
+        floor = chain_floor(depth, step)
+        print(f"brownian_value float32 {tag}: rows {rows} x {shape}, depth {depth}, {blocks} "
+              f"blocks: kernel {k_ms:.5f} ms ({k_host:.5f} host), plain {p_ms:.5f} ms "
+              f"({p_host:.5f}), bound {b_ms:.7f} ms ({b_by}), chain floor {floor:.5f} ms "
+              f"({depth + 1} steps)", flush=True)
         rows_out[tag] = dict(ms=k_ms, host_ms=k_host, plain_ms=p_ms, plain_host_ms=p_host,
-                             bound_ms=b_ms, bound_by=b_by)
+                             bound_ms=b_ms, bound_by=b_by, chain_floor_ms=floor,
+                             chain_step_ms=step, blocks=blocks)
     return rows_out, err
+
+
+# One adaptive serving drain in a fresh process of one tree (run from that
+# tree's root): phase 10's serve_sde call timed by the host clock, then the
+# same drain under torch.profiler (device activity only, which about halves
+# the profiled drain's time) for the card's busy time and the
+# brownian_value kernel's share.  Prints one JSON line.
+_DRAIN_CHILD = r"""
+import json, sys, time
+sys.path.insert(0, "src")
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.kernels import build
+from repro_torch.serving import serve_sde
+build.load()
+kw = dict(adaptive=True, atol=1e-6, sde_steps=16, max_batch=1024, requests=32,
+          request_max=64, seed=5)
+t0 = time.perf_counter()
+stats = serve_sde("sde-gan", **kw)
+torch.cuda.synchronize()
+wall = time.perf_counter() - t0
+with profile(activities=[ProfilerActivity.CUDA]) as prof:  # host ops unrecorded: fast
+    serve_sde("sde-gan", **kw)
+    torch.cuda.synchronize()
+dev = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and dev(e) > 0]
+bv = [e for e in events if "brownian_value" in e.key]
+print(json.dumps({"wall_s": wall, "traj_per_s": stats["traj_per_s"],
+                  "busy_ms": sum(dev(e) for e in events) / 1e3,
+                  "brownian_value_ms": sum(dev(e) for e in bv) / 1e3,
+                  "brownian_value_launches": sum(e.count for e in bv)}))
+"""
+
+
+def drain_in_turns(parent_root: str) -> dict:
+    """The adaptive serving drain (phase 10's) in the tree at
+    ``parent_root`` and in this one, in turns (parent, this, this, parent),
+    each a fresh process that builds its own kernels: ``{tree: [runs]}``
+    with each run's wall, traj/s, device busy time and the brownian_value
+    kernel's device time and launches.  A run takes ~4 minutes on an H100
+    (the profiled drain records ~100k kernels), the four ~16.  Run it as
+    ``python3 -c "import
+    chip_smoke as C; C.drain_in_turns('build/parent')"`` after unpacking
+    the parent commit there (``git archive``)."""
+    runs = {"parent": [], "this": []}
+    for tree in ("parent", "this", "this", "parent"):
+        cwd = os.path.abspath(parent_root) if tree == "parent" else ROOT
+        out = subprocess.run([sys.executable, "-c", _DRAIN_CHILD], cwd=cwd, check=True,
+                             capture_output=True, text=True, timeout=900).stdout
+        runs[tree].append(json.loads(out.strip().splitlines()[-1]))
+        print(f"adaptive drain [{tree}]: {runs[tree][-1]}", flush=True)
+    print(f"card: {gpu_label()}", flush=True)
+    return runs
 
 
 def _gan_params(dev, seed: int):
@@ -1183,13 +1305,21 @@ def adaptive_grad_checks(ops, dev, label: str) -> dict:
 
 
 def attention_bound(B: int, Hq: int, Hkv: int, S: int, D: int, dtype,
-                    causal: bool = True) -> tuple:
+                    causal: bool = True, tensor_cores: bool = True) -> tuple:
     """Least time for one attention call: Q, K, V read and O written once
     against 4·D flops per (query, key) pair the mask keeps (QKᵀ and PV),
-    over HBM bandwidth and the dtype's peak; -> (ms, 'bytes'|'operations')."""
+    over HBM bandwidth and the dtype's peak; -> (ms, 'bytes'|'operations').
+
+    float32 runs on the tensor cores as split TF32, three TF32 products for
+    each f32 one (at PEAK_TF32_OPS_PER_S); ``tensor_cores=False`` gives the
+    float32 CUDA-core bound (the earlier design's) instead."""
     s = torch.finfo(dtype).bits // 8
     pairs = S * (S + 1) // 2 if causal else S * S
-    t_ops = 4 * B * Hq * D * pairs / PEAK_OPS_PER_S[dtype] * 1e3
+    flops = 4 * B * Hq * D * pairs
+    if dtype == torch.float32 and tensor_cores:
+        t_ops = 3 * flops / PEAK_TF32_OPS_PER_S * 1e3
+    else:
+        t_ops = flops / PEAK_OPS_PER_S[dtype] * 1e3
     t_bytes = 2 * (Hq + Hkv) * B * S * D * s / HBM_BYTES_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -1217,8 +1347,9 @@ def _in_turns(fns: dict, reps: dict) -> dict:
 
 
 def sass_mix() -> dict:
-    """Instruction mix (mnemonic -> count) of each flash_attention kernel in
-    the built library, from ``cuobjdump -sass``."""
+    """Instruction mix (mnemonic with its modifiers, e.g.
+    ``HMMA.1688.F32.TF32`` -> count) of each flash_attention kernel in the
+    built library, from ``cuobjdump -sass``."""
     from repro_torch.kernels import build
     from torch.utils.cpp_extension import CUDA_HOME
 
@@ -1240,10 +1371,16 @@ def sass_mix() -> dict:
             if words and words[0].startswith("@"):
                 words = words[1:]
             if words:
-                op = words[0].split(".")[0]
-                mix.setdefault(func, {}).setdefault(op, 0)
-                mix[func][op] += 1
+                mix.setdefault(func, {}).setdefault(words[0], 0)
+                mix[func][words[0]] += 1
     return mix
+
+
+def sass_count(ops_count: dict, base: str, variant: str = "") -> int:
+    """Instructions of ``sass_mix`` counts whose mnemonic is ``base`` (any
+    modifiers) and, if given, whose modifiers include ``variant``."""
+    return sum(n for op, n in ops_count.items()
+               if op.split(".")[0] == base and (not variant or variant in op.split(".")[1:]))
 
 
 def attention_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1301,14 +1438,16 @@ def attention_checks(ops, dev) -> tuple:
     mix = sass_mix()
     for func, ops_count in mix.items():
         top = sorted(ops_count.items(), key=lambda kv: -kv[1])[:12]
-        print(f"SASS {func[:72]}: HGMMA {ops_count.get('HGMMA', 0)}, "
-              f"{sum(ops_count.values())} instructions; top {top}", flush=True)
+        print(f"SASS {func[:72]}: HGMMA {sass_count(ops_count, 'HGMMA')}, HMMA TF32 "
+              f"{sass_count(ops_count, 'HMMA', 'TF32')}, {sum(ops_count.values())} "
+              f"instructions; top {top}", flush=True)
     wgmma = [f for f in mix if "wgmma" in f]
     f32 = [f for f in mix if "f32" in f]
-    check(wgmma and all(mix[f].get("HGMMA", 0) > 0 for f in wgmma),
+    check(wgmma and all(sass_count(mix[f], "HGMMA") > 0 for f in wgmma),
           f"the bf16 attention kernels must issue HGMMA: {wgmma}")
-    check(f32 and all(mix[f].get("HGMMA", 0) == 0 for f in f32),
-          f"the f32 attention kernels must not issue HGMMA: {f32}")
+    check(f32 and all(sass_count(mix[f], "HGMMA") == 0 and sass_count(mix[f], "HMMA", "TF32") > 0
+                      for f in f32),
+          f"the f32 attention kernels must issue HMMA with TF32 and no HGMMA: {f32}")
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
@@ -1325,14 +1464,19 @@ def attention_checks(ops, dev) -> tuple:
                        "plain": lambda: ops.flash_attention(q, k, v, use_kernel=False)},
                       {"kernel": 10, "sdpa": 10, "plain": 2})
         b_ms, b_by = attention_bound(B, Hq, Hkv, S, D, dtype)
+        cc_ms = attention_bound(B, Hq, Hkv, S, D, dtype, tensor_cores=False)[0]
+        cc = f", f32 CUDA-core bound {cc_ms:.4f} ms" if dtype == torch.float32 else ""
         print(f"flash_attention {tag} {(B, Hq, Hkv, S, D)} causal, operands as (B, S, H, D) "
               f"views (SDPA on contiguous copies; TF32 off): kernel {t['kernel'][0]:.4f} ms "
               f"(host {t['kernel'][1]:.4f}), SDPA {t['sdpa'][0]:.4f} ms (host "
               f"{t['sdpa'][1]:.4f}), plain {t['plain'][0]:.4f} ms (host {t['plain'][1]:.4f}), "
-              f"bound {b_ms:.4f} ms ({b_by}); kernel vs SDPA max |Δ| {d_lib:.3g}", flush=True)
+              f"bound {b_ms:.4f} ms ({b_by}){cc}; kernel vs SDPA max |Δ| {d_lib:.3g}",
+              flush=True)
         rows[tag] = dict(ms=t["kernel"][0], plain_ms=t["plain"][0], host_ms=t["kernel"][1],
                          plain_host_ms=t["plain"][1], bound_ms=b_ms, bound_by=b_by,
                          library_ms=t["sdpa"][0])
+        if dtype == torch.float32:
+            rows[tag]["cuda_core_bound_ms"] = cc_ms
         del q, k, v, qc, kc, vc, lib_out
         torch.cuda.empty_cache()
     return rows, err, rel_bf16
@@ -2113,6 +2257,47 @@ def ssm_train_checks(ops, dev, label: str) -> None:
     torch.cuda.empty_cache()
 
 
+# The kernels whose registers, shared memory and spills the run reports.
+PTXAS_SOURCES = ("rev_heun", "flash_attention")
+PTXAS_KERNELS = ("brownian_value_kernel", "flash_attention_f32")
+
+
+def start_ptxas_report():
+    """Compile PTXAS_SOURCES once more with ``-Xptxas -v`` (the library's
+    flags), in background processes; :func:`ptxas_report` reads them."""
+    from repro_torch.kernels import build
+
+    tmp = tempfile.mkdtemp(prefix="ptxas_")
+    procs = [subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
+                               str(build.CSRC), "-c", "-o", os.path.join(tmp, f"{name}.o"),
+                               str(build.CSRC / f"{name}.cu")],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for name in PTXAS_SOURCES]
+    # a phase that fails leaves none of them running
+    atexit.register(lambda: [p.kill() for p in procs if p.poll() is None])
+    return tmp, procs
+
+
+def ptxas_report(started) -> dict:
+    """``{mangled kernel: [ptxas lines]}`` for PTXAS_KERNELS: the stack,
+    spill and register / shared-memory lines ptxas prints for each."""
+    tmp, procs = started
+    usage, func = {}, None
+    for proc in procs:
+        _, err = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"nvcc -Xptxas -v failed:\n{err}")
+        for line in err.splitlines():
+            if "Compiling entry function" in line:
+                func = line.split("'")[1]
+            elif func and any(k in func for k in PTXAS_KERNELS) and (
+                    "spill" in line or "Used" in line):
+                usage.setdefault(func, []).append(line.split(":", 1)[-1].strip())
+    shutil.rmtree(tmp, ignore_errors=True)
+    for func, lines in usage.items():
+        print(f"ptxas {func[:80]}: {'; '.join(lines)}", flush=True)
+    return usage
+
+
 def _device_us(evt) -> float:
     return getattr(evt, "self_device_time_total", None) or getattr(
         evt, "self_cuda_time_total", 0.0)
@@ -2187,6 +2372,7 @@ def main() -> int:
     lib = build.build()
     build.load()
     print(f"built {os.path.relpath(lib, ROOT)} in {time.perf_counter() - t0:.1f}s", flush=True)
+    ptxas = start_ptxas_report()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -2213,6 +2399,7 @@ def main() -> int:
     lm_train_parity_checks(ops, dev, label)
     train_lm_launches = lm_train_checks(ops, dev, label)
     ssm_train_checks(ops, dev, label)
+    ptxas_usage = ptxas_report(ptxas)
 
     print(f"kernels: {', '.join(KERNEL_SOURCES)} (route cuda; bitwise = plain except "
           f"flash_attention, within {ATTN_TOL}, ssd_chunk, within {SSD_TOL} and the "
@@ -2233,7 +2420,8 @@ def main() -> int:
                                        launches_per_training_step=ATTN_TRAIN_LAUNCHES),
                      "bf16_train": dict(attn_rows["bf16 training"], shape=list(ATTN_TRAIN)),
                      "max_rel_err_bf16": attn_rel, "rel_limit_bf16": ATTN_REL_TOL,
-                     "copies_saved_per_layer": lm_serve["copies_saved_per_layer"]}
+                     "copies_saved_per_layer": lm_serve["copies_saved_per_layer"],
+                     "ptxas_f32": {k: v for k, v in ptxas_usage.items() if "f32" in k}}
         elif name == "ssd_chunk":  # timed at the mamba2 prefill shape, bf16
             r = ssd_row
             launches = serve_launches = ssm_serve["launches"]
@@ -2252,7 +2440,12 @@ def main() -> int:
             serve_launches = adaptive_serve["launches"][name]
             extra = {"serve_ms": value_rows["serve"]["ms"],
                      "serve_plain_ms": value_rows["serve"]["plain_ms"],
-                     "serve_bound_ms": value_rows["serve"]["bound_ms"]}
+                     "serve_bound_ms": value_rows["serve"]["bound_ms"],
+                     "serve_chain_floor_ms": value_rows["serve"]["chain_floor_ms"],
+                     "chain_floor_ms": r["chain_floor_ms"],
+                     "chain_step_ms": r["chain_step_ms"],
+                     "blocks": {tag: row["blocks"] for tag, row in value_rows.items()},
+                     "ptxas": {k: v for k, v in ptxas_usage.items() if "brownian_value" in k}}
         else:
             r = rows[(name, torch.float32, 1024, 17)]  # the training timing batch
             launches = train_launches[name]

@@ -122,3 +122,10 @@ def brownian_value(keys, t, t0: float, t1: float, shape, dtype, depth: int = 24)
     build.check("brownian_value", err)
     LAUNCHES["brownian_value"] += 1
     return out
+
+
+def brownian_value_blocks(dtype, rows: int, d: int) -> int:
+    """The number of blocks :func:`brownian_value`'s launch takes for
+    ``rows`` rows of ``d`` elements (the launcher's grid choice, in
+    ``csrc/rev_heun.cu``); needs the built library, not a card."""
+    return int(build.load().rt_brownian_value_blocks(DTYPE_CODES[dtype], int(rows), int(d)))

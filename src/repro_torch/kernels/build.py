@@ -40,10 +40,12 @@ ARCH_FLAG = "-gencode=arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = (ARCH_FLAG, "-fmad=false", "-O3", "-std=c++17", "-Xcompiler", "-fPIC")
 
 _P, _I, _I64, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
-#: C signature of every entry point (all return cudaGetLastError()).
+#: C signature of every entry point (all return cudaGetLastError(), but the
+#: grid query rt_brownian_value_blocks, which returns an int64 count).
 SIGNATURES = {
     "rt_brownian_increment": (_I, _P, _I64, _D, _P, _I64, _I64, _P),
     "rt_brownian_value": (_I, _P, _P, _D, _D, _I, _P, _I64, _I64, _P),
+    "rt_brownian_value_blocks": (_I, _I64, _I64),
     "rt_rev_heun_phase1_gen": (_I, _P, _P, _P, _P, _P, _I64, _D, _D, _D, _P, _P,
                                _I64, _I64, _P),
     "rt_rev_heun_phase1": (_I, _P, _P, _P, _P, _P, _D, _D, _P, _I64, _P),
@@ -140,7 +142,7 @@ def load():
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
+                fn.restype = _I64 if name == "rt_brownian_value_blocks" else ctypes.c_int
             _lib = lib
     return _lib
 

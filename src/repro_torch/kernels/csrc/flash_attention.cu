@@ -78,14 +78,45 @@
 // Columns past S are -inf and TMA zero-fills rows past S, so a ragged edge
 // needs no separate path; rows past S are not stored.
 //
-// float32: the CUDA-core design (flash_attention_f32).  Tensor cores do not
-// reach f32 accuracy without a split-TF32 scheme, so one block of 128
-// threads owns 64 query rows, stages Q and the current K (then V) tile as
-// f32 in shared memory (rows padded by 4 floats), and computes both
-// products with __fmaf_rn (the library builds with -fmad=false); a thread
-// owns 8 rows x 4 score columns; row max and sum reduce over a half-warp.
-// Three barriers a tile and synchronous loads keep it far below the
-// 67 TFLOP/s of f32 FMAs.
+// float32: split TF32 on the tensor cores (flash_attention_f32).  Before,
+// both products ran as __fmaf_rn on CUDA cores fed from shared memory (a
+// thread owned 8 rows x 4 score columns), with synchronous loads and three
+// barriers a tile: 2.2050 ms at tinyllama-1.1b's training shape (B 4, Hq 32,
+// Hkv 4, S 2048, D 64, causal), 2.15x the 67 TFLOP/s f32 bound of 1.026 ms
+// (PERF.md).  Now both products run on mma.sync.m16n8k8 TF32 tensor cores
+// as three products of split halves (split_tf32: big = rna(x), small =
+// x - big; small·big + big·small + big·big into f32 accumulators), which
+// lands within ~5·2^-22 of each f32 product: f32 accuracy, held to 2e-5
+// (tests/test_torch_attention.py emulates it; one TF32 product alone is
+// ~1e-3 off).  wgmma takes TF32 only with both operands K-major, and V,
+// (keys, D), is MN-major, hence mma.sync.  One block of 128 threads (4
+// warps) owns 128 query rows at D <= 64 (32 a warp, two m16 tiles, so each
+// split K or V fragment feeds two products) and 64 at D = 128 (16 a warp:
+// two tiles would need ~240 registers).  K and V tiles of 64 keys are
+// double-buffered in shared memory by cp.async, one tile ahead, behind two
+// barriers a tile; Q's fragments are loaded and split from shared memory a
+// k-step at a time (at D = 128 they would not fit in registers, and at
+// D <= 64 two tiles' worth would not either).  Q.K^T sums over D in the k
+// order 0, 2, 4, 6, 1, 3, 5, 7 of each 8, so a thread's two columns are one
+// 64-bit load; Q and K rows are D + 8 floats apart, V rows D + 4, so every
+// fragment load is free of bank conflicts.  P stays f32 (the TPU kernel's
+// p.astype(v.dtype) is a no-op in f32) and never leaves registers: read in
+// the k order above, the S accumulator fragment is P.V's A fragment as it
+// stands, and V's B fragment reads keys 2t and 2t + 1.  The softmax runs
+// on the fragment in base 2 (ex2.approx on the MUFU, the scale folded into
+// log2 e), row maxima over the 4 lanes of a row; a warp skips a tile whose
+// keys all lie past its rows under the causal mask.  Bound: 3 x 4·D flops
+// per unmasked pair on TF32 tensor cores, 0.4167 ms at the training shape
+// (495 TFLOP/s); the CUDA-core bound it replaces is 1.0262 ms.  ptxas
+// (-Xptxas -v): 226 registers at D = 64, 190 at 128, 168 at 16, no spills;
+// dynamic shared memory 108,544 / 172,032 / 34,816 bytes, so 2, 1 and 3
+// blocks an SM.  What bounds it now (1.36 ms at the training shape, 3.3x
+// its bound): about five other instructions issue for each HMMA (three a
+// split, the fragment loads, the softmax), and at two warps a scheduler
+// (the registers) the tensor pipe waits on them.  Left on the table:
+// splitting K and V once a tile into shared memory (each warp splits them
+// again now; it needs 2x the tile memory) and a wgmma design with V
+// transposed in shared memory.
 //
 // Held to a tolerance against the plain version (f32 2e-5, bf16 6e-2), not
 // bitwise, since each sums in another order.
@@ -141,210 +172,6 @@ constexpr float kMasked = -1e30f;     // the TPU kernel's NEG_INF
 struct Strides {
   int64_t b, h, s;
 };
-
-// ---------------------------------------------------------------------------
-// float32: CUDA cores
-// ---------------------------------------------------------------------------
-
-constexpr int kBQ = 64;               // query rows per block
-constexpr int kBK = 64;               // KV rows per tile
-constexpr int kTX = 16, kTY = 8;      // thread grid of a block
-constexpr int kThreads = kTX * kTY;
-constexpr int kRows = kBQ / kTY;      // query rows per thread
-constexpr int kCols = kBK / kTX;      // score columns per thread
-constexpr int kLdP = kBK + 4;         // P row stride (floats)
-static_assert(kBQ == kBK, "the causal tile count assumes square tiles");
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void store4(float* p, float4 x) {
-  *reinterpret_cast<float4*>(p) = x;
-}
-
-__device__ __forceinline__ float comp(const float4& x, int e) {
-  return e == 0 ? x.x : e == 1 ? x.y : e == 2 ? x.z : x.w;
-}
-
-// Rows row0 .. row0+63 of one head's (S, D) slab, rows `ld` elements apart,
-// into shared memory (row stride D + 4); rows at or past S are zero.
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
-                                          int64_t ld, int row0, int S) {
-  constexpr int kVec = D / 4;
-  for (int idx = threadIdx.x; idx < kBK * kVec; idx += kThreads) {
-    const int r = idx / kVec, c = (idx % kVec) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < S) x = load4(src + (row0 + r) * ld + c);
-    store4(dst + r * (D + 4) + c, x);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, float* __restrict__ o, Strides sq,
-                    Strides sk, Strides sv, Strides so, int S, int group, int causal,
-                    float scale) {
-  constexpr int kLd = D + 4;
-  constexpr int kGroups = D / 4;                    // 4-column output groups
-  constexpr int kGPT = (kGroups + kTX - 1) / kTX;   // output groups per thread
-  extern __shared__ float4 smem[];
-  float* qs = reinterpret_cast<float*>(smem);
-  float* kvs = qs + kBQ * kLd;
-  float* ps = kvs + kBK * kLd;
-
-  const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int q0 = qt * kBQ;
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
-  const float* kb = k + b * sk.b + hk * sk.h;
-  const float* vb = v + b * sv.b + hk * sv.h;
-
-  load_tile<D>(qs, q + b * sq.b + h * sq.h, sq.s, q0, S);
-
-  float m[kRows], l[kRows], acc[kRows][kGPT * 4];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kMasked;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kGPT * 4; ++c) acc[i][c] = 0.f;
-  }
-
-  const int n_tiles = causal ? qt + 1 : (S + kBK - 1) / kBK;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // the previous tile's P.V is done with kvs and ps
-    load_tile<D>(kvs, kb, sk.s, k0, S);
-    __syncthreads();
-
-    float s[kRows][kCols];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 kv4[kCols];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) kv4[j] = load4(kvs + (tx + kTX * j) * kLd + d);
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float4 q4 = load4(qs + (ty + kTY * i) * kLd + d);
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          s[i][j] = __fmaf_rn(q4.x, kv4[j].x, s[i][j]);
-          s[i][j] = __fmaf_rn(q4.y, kv4[j].y, s[i][j]);
-          s[i][j] = __fmaf_rn(q4.z, kv4[j].z, s[i][j]);
-          s[i][j] = __fmaf_rn(q4.w, kv4[j].w, s[i][j]);
-        }
-      }
-    }
-
-    // online softmax of this tile's rows
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int qi = q0 + ty + kTY * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int kj = k0 + tx + kTX * j;
-        float x = __fmul_rn(s[i][j], scale);
-        if (kj >= S) x = -INFINITY;                  // past the ragged end: p = 0
-        else if (causal && kj > qi) x = kMasked;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-#pragma unroll
-      for (int off = kTX / 2; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(__fsub_rn(m[i], m_new));
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float p = expf(__fsub_rn(s[i][j], m_new));
-        rs = __fadd_rn(rs, p);
-        ps[(ty + kTY * i) * kLdP + tx + kTX * j] = p;
-      }
-#pragma unroll
-      for (int off = kTX / 2; off > 0; off >>= 1)
-        rs = __fadd_rn(rs, __shfl_xor_sync(0xffffffffu, rs, off));
-      l[i] = __fadd_rn(__fmul_rn(alpha, l[i]), rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < kGPT * 4; ++c) acc[i][c] = __fmul_rn(alpha, acc[i][c]);
-    }
-
-    __syncthreads();  // P written; every thread is done reading K
-    load_tile<D>(kvs, vb, sv.s, k0, S);
-    __syncthreads();
-
-#pragma unroll 2
-    for (int kk = 0; kk < kBK; kk += 4) {
-      float4 p4[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) p4[i] = load4(ps + (ty + kTY * i) * kLdP + kk);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-#pragma unroll
-        for (int g = 0; g < kGPT; ++g) {
-          const int grp = tx + kTX * g;
-          if (kGroups % kTX == 0 || grp < kGroups) {
-            const float4 v4 = load4(kvs + (kk + e) * kLd + grp * 4);
-#pragma unroll
-            for (int i = 0; i < kRows; ++i) {
-              const float p = comp(p4[i], e);
-              acc[i][4 * g + 0] = __fmaf_rn(p, v4.x, acc[i][4 * g + 0]);
-              acc[i][4 * g + 1] = __fmaf_rn(p, v4.y, acc[i][4 * g + 1]);
-              acc[i][4 * g + 2] = __fmaf_rn(p, v4.z, acc[i][4 * g + 2]);
-              acc[i][4 * g + 3] = __fmaf_rn(p, v4.w, acc[i][4 * g + 3]);
-            }
-          }
-        }
-      }
-    }
-  }
-
-  float* ob = o + b * so.b + h * so.h;
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int qi = q0 + ty + kTY * i;
-    if (qi >= S) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int g = 0; g < kGPT; ++g) {
-      const int grp = tx + kTX * g;
-      if (kGroups % kTX == 0 || grp < kGroups) {
-        const float4 out = make_float4(
-            __fdiv_rn(acc[i][4 * g + 0], denom), __fdiv_rn(acc[i][4 * g + 1], denom),
-            __fdiv_rn(acc[i][4 * g + 2], denom), __fdiv_rn(acc[i][4 * g + 3], denom));
-        store4(ob + qi * so.s + grp * 4, out);
-      }
-    }
-  }
-}
-
-template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       const Strides* st, int64_t B, int64_t Hq, int64_t Hkv, int64_t S,
-                       int causal, float scale, cudaStream_t stream) {
-  constexpr int kLd = D + 4;
-  const int smem = static_cast<int>((2 * kBQ * kLd + kBQ * kLdP) * sizeof(float));
-  auto kernel = flash_attention_f32<D>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>((S + kBQ - 1) / kBQ), static_cast<unsigned>(Hq),
-                  static_cast<unsigned>(B));
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), st[0], st[1], st[2], st[3],
-      static_cast<int>(S), static_cast<int>(Hq / Hkv), causal, scale);
-  return cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // bfloat16: warpgroup MMA fed by TMA
@@ -935,6 +762,326 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), st[3], static_cast<int>(S),
       static_cast<int>(Hq), static_cast<int>(B), static_cast<int>(Hq / Hkv), causal,
       scale_log2);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// float32: split TF32 on the tensor cores (mma.sync m16n8k8)
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Keys = 64;  // K and V rows a tile
+constexpr int kF32Threads = 128;
+
+// Geometry at head dim D.  A warp owns kM m16 row tiles (two at D <= 64, so
+// each split K or V fragment feeds two products; one at D = 128, where two
+// would need ~240 registers), a block 4 warps.  Shared tiles: Q's, then two
+// stages of (K, V).  Q and K rows are kLdQK = D + 8 floats apart (≡ 8 mod 32
+// banks), so the 64-bit fragment loads of Q.K^T (8 rows x 4 column pairs a
+// warp) hit distinct banks in each half-warp; V rows are kLdV = D + 4 apart
+// (2·kLdV ≡ 8 mod 32), so P.V's loads (4 row pairs x 8 columns) do too.
+template <int D>
+struct F32Geometry {
+  static constexpr int kM = D <= 64 ? 2 : 1;
+  static constexpr int kWarpRows = 16 * kM;
+  static constexpr int kRows = 4 * kWarpRows;                     // query rows a block
+  static constexpr int kLdQK = D + 8, kLdV = D + 4;
+  static constexpr int kKTile = kF32Keys * kLdQK, kVTile = kF32Keys * kLdV;  // floats
+  static constexpr int kStage = kKTile + kVTile;
+  static constexpr int kSmem = (kRows * kLdQK + 2 * kStage) * static_cast<int>(sizeof(float));
+  static_assert(kRows % kF32Keys == 0, "query tiles are whole key tiles");
+};
+
+// 16 bytes global -> shared without registers; src_bytes 0 writes zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows row0 .. row0 + kRowsT - 1 of one head's (S, D) slab, rows `ld`
+// elements apart, into a tile at `dst` with rows kLdT apart; rows at or
+// past S are zero.
+template <int D, int kRowsT, int kLdT>
+__device__ __forceinline__ void load_tile_async(float* dst, const float* __restrict__ src,
+                                                int64_t ld, int row0, int S) {
+  constexpr int kVec = D / 4;
+  for (int idx = threadIdx.x; idx < kRowsT * kVec; idx += kF32Threads) {
+    const int r = idx / kVec, c = (idx % kVec) * 4;
+    const bool in = row0 + r < S;
+    cp_async16(smem_addr(dst + r * kLdT + c),
+               in ? src + static_cast<int64_t>(row0 + r) * ld + c : src, in ? 16 : 0);
+  }
+}
+
+// x rounded to TF32 (10 explicit mantissa bits), to nearest with ties away
+// from zero on the magnitude: cvt.rna.tf32.f32's value, low 13 bits zero.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = big + small: big = rna(x) and small = x - big (exact, |small| <=
+// 2^-11 |x|), handed to the tensor core as f32 bits, which reads their TF32
+// part (it drops the low 13 bits: small rounded toward zero, as CUTLASS's
+// fast-f32 products do).  big·y_big + big·y_small + small·y_big then misses
+// at most ~5·2^-22 of x·y (small·small, and the two truncated smalls), and
+// costs 3 instructions a split where rounding small too would cost 5.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = __float_as_uint(__fsub_rn(x, __uint_as_float(big)));
+}
+
+// c (16 x 8, f32) += a (16 x 8, TF32) . b (8 x 8, TF32).  Fragments, with
+// g = lane / 4 and t = lane % 4: a = (g, t), (g + 8, t), (g, t + 4),
+// (g + 8, t + 4); b = (k t, n g), (k t + 4, n g); c = (g, 2t), (g, 2t + 1),
+// (g + 8, 2t), (g + 8, 2t + 1).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A split pair of fragments (big, small).
+struct Split4 {
+  uint32_t big[4], small[4];
+};
+struct Split2 {
+  uint32_t big[2], small[2];
+};
+
+// c += a . b at f32 accuracy: the two small cross products, then big·big.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const Split4& a, const Split2& b) {
+  mma_tf32(c, a.small, b.big[0], b.big[1]);
+  mma_tf32(c, a.big, b.small[0], b.small[1]);
+  mma_tf32(c, a.big, b.big[0], b.big[1]);
+}
+
+// Q.K^T sums over D in the k order 0, 2, 4, 6, 1, 3, 5, 7 of each 8: a
+// thread's k = t and t + 4 are columns 2t and 2t + 1, one 64-bit load.
+// The A fragment of Q rows (row, row + 8) at columns (col, col + 1), split.
+template <int kLd>
+__device__ __forceinline__ Split4 load_q_split(const float* tile, int row, int col) {
+  const float2 lo = *reinterpret_cast<const float2*>(tile + row * kLd + col);
+  const float2 hi = *reinterpret_cast<const float2*>(tile + (row + 8) * kLd + col);
+  Split4 a;
+  split_tf32(lo.x, a.big[0], a.small[0]);
+  split_tf32(hi.x, a.big[1], a.small[1]);
+  split_tf32(lo.y, a.big[2], a.small[2]);
+  split_tf32(hi.y, a.big[3], a.small[3]);
+  return a;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kF32Threads, 1)
+flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ o, Strides sq,
+                    Strides sk, Strides sv, Strides so, int S, int group, int causal,
+                    float scale_log2) {
+  using G = F32Geometry<D>;
+  constexpr int kM = G::kM, kLdQK = G::kLdQK, kLdV = G::kLdV;
+  constexpr int kDSteps = D / 8;           // k-steps of Q.K^T, n-tiles of P.V
+  constexpr int kKeySteps = kF32Keys / 8;  // n-tiles of Q.K^T, k-steps of P.V
+  extern __shared__ float4 smem[];
+  float* qs = reinterpret_cast<float*>(smem);
+  float* kv0 = qs + G::kRows * kLdQK;  // stage st: K at kv0 + st·kStage, V kKTile after it
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int qt = gridDim.x - 1 - blockIdx.x;  // the long causal rows first
+  const int q0 = qt * G::kRows;
+  const int wrow = warp * G::kWarpRows;       // the warp's first row in the tile
+  const int first = q0 + wrow, last = first + G::kWarpRows - 1;
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
+  const float* kb = k + b * sk.b + hk * sk.h;
+  const float* vb = v + b * sv.b + hk * sv.h;
+  const int kv_tiles = (S + kF32Keys - 1) / kF32Keys;
+  const int n_tiles = causal ? min(kv_tiles, (q0 + G::kRows) / kF32Keys) : kv_tiles;
+
+  // two cp.async groups a tile, K then V, one tile ahead
+  load_tile_async<D, G::kRows, kLdQK>(qs, q + b * sq.b + h * sq.h, sq.s, q0, S);
+  load_tile_async<D, kF32Keys, kLdQK>(kv0, kb, sk.s, 0, S);
+  cp_async_commit();
+  load_tile_async<D, kF32Keys, kLdV>(kv0 + G::kKTile, vb, sv.s, 0, S);
+  cp_async_commit();
+
+  float acc[kM][kDSteps][4];
+#pragma unroll
+  for (int mi = 0; mi < kM; ++mi)
+#pragma unroll
+    for (int n = 0; n < kDSteps; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][n][e] = 0.f;
+  // m in units of s·scale·log2 e; l sums this thread's columns only
+  float m[kM][2], l[kM][2];
+#pragma unroll
+  for (int mi = 0; mi < kM; ++mi) {
+    m[mi][0] = m[mi][1] = kMasked;
+    l[mi][0] = l[mi][1] = 0.f;
+  }
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const float* kst = kv0 + (kt & 1) * G::kStage;
+    const float* vst = kst + G::kKTile;
+    const int k0 = kt * kF32Keys;
+    cp_async_wait<1>();  // K (and Q) of this tile landed
+    __syncthreads();     // ... for every thread, and every warp is done with tile kt - 1
+    if (kt + 1 < n_tiles) {
+      float* next = kv0 + ((kt + 1) & 1) * G::kStage;
+      load_tile_async<D, kF32Keys, kLdQK>(next, kb, sk.s, k0 + kF32Keys, S);
+      cp_async_commit();
+      load_tile_async<D, kF32Keys, kLdV>(next + G::kKTile, vb, sv.s, k0 + kF32Keys, S);
+    } else {
+      cp_async_commit();
+    }
+    cp_async_commit();
+    // a warp whose rows all lie above the causal diagonal, or past S,
+    // takes nothing from this tile
+    const bool active = first < S && !(causal && k0 > last);
+
+    float s[kM][kKeySteps][4];
+    if (active) {
+      // S = Q.K^T: kWarpRows rows x 64 keys a warp
+#pragma unroll
+      for (int mi = 0; mi < kM; ++mi)
+#pragma unroll
+        for (int j = 0; j < kKeySteps; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[mi][j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kDSteps; ++kk) {
+        Split4 a[kM];
+#pragma unroll
+        for (int mi = 0; mi < kM; ++mi)
+          a[mi] = load_q_split<kLdQK>(qs, wrow + 16 * mi + g, kk * 8 + 2 * t);
+#pragma unroll
+        for (int j = 0; j < kKeySteps; ++j) {
+          // K row = key; columns 2t, 2t + 1 are the k order's t, t + 4
+          const float2 kr =
+              *reinterpret_cast<const float2*>(kst + (j * 8 + g) * kLdQK + kk * 8 + 2 * t);
+          Split2 bk;
+          split_tf32(kr.x, bk.big[0], bk.small[0]);
+          split_tf32(kr.y, bk.big[1], bk.small[1]);
+#pragma unroll
+          for (int mi = 0; mi < kM; ++mi) mma_3xtf32(s[mi][j], a[mi], bk);
+        }
+      }
+
+      // online softmax on the fragment: s[mi][j][e] at row first + 16mi +
+      // g + 8·(e / 2), key k0 + 8j + 2t + e % 2; exponents in base 2
+      const bool edge = (causal && k0 + kF32Keys - 1 > first) || k0 + kF32Keys > S;
+#pragma unroll
+      for (int mi = 0; mi < kM; ++mi) {
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int j = 0; j < kKeySteps; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = __fmul_rn(s[mi][j][e], scale_log2);
+            if (edge) {
+              const int col = k0 + 8 * j + 2 * t + e % 2;
+              const int row = first + 16 * mi + g + 8 * (e / 2);
+              if (col >= S) x = -INFINITY;  // past the ragged end: p = 0
+              else if (causal && col > row) x = kMasked;
+            }
+            s[mi][j][e] = x;
+            mx[e / 2] = fmaxf(mx[e / 2], x);
+          }
+        float alpha[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          const float m_new = fmaxf(m[mi][r], mx[r]);
+          alpha[r] = exp2_approx(__fsub_rn(m[mi][r], m_new));
+          m[mi][r] = m_new;
+          l[mi][r] = __fmul_rn(alpha[r], l[mi][r]);
+        }
+#pragma unroll
+        for (int j = 0; j < kKeySteps; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[mi][j][e] = exp2_approx(__fsub_rn(s[mi][j][e], m[mi][e / 2]));
+            l[mi][e / 2] = __fadd_rn(l[mi][e / 2], s[mi][j][e]);
+          }
+#pragma unroll
+        for (int n = 0; n < kDSteps; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][n][e] = __fmul_rn(alpha[e / 2], acc[mi][n][e]);
+      }
+    }
+
+    cp_async_wait<2>();  // V of this tile landed
+    __syncthreads();
+
+    if (active) {
+      // O += P.V.  The S fragment holds keys (2t, 2t + 1) of each 8; A
+      // wants (t, t + 4).  Read in the k order 0, 2, 4, 6, 1, 3, 5, 7, the
+      // S fragment is A's fragment as it stands ((c0, c2, c1, c3) are A's
+      // (a0, a1, a2, a3)), so V's B fragment reads keys 2t and 2t + 1 (rows
+      // kLdV apart): no shuffle and no trip through shared memory.
+#pragma unroll
+      for (int kk = 0; kk < kKeySteps; ++kk) {
+        Split4 pa[kM];
+#pragma unroll
+        for (int mi = 0; mi < kM; ++mi) {
+          split_tf32(s[mi][kk][0], pa[mi].big[0], pa[mi].small[0]);
+          split_tf32(s[mi][kk][2], pa[mi].big[1], pa[mi].small[1]);
+          split_tf32(s[mi][kk][1], pa[mi].big[2], pa[mi].small[2]);
+          split_tf32(s[mi][kk][3], pa[mi].big[3], pa[mi].small[3]);
+        }
+        const float* vr = vst + (kk * 8 + 2 * t) * kLdV + g;
+#pragma unroll
+        for (int n = 0; n < kDSteps; ++n) {
+          Split2 bv;
+          split_tf32(vr[n * 8], bv.big[0], bv.small[0]);
+          split_tf32(vr[kLdV + n * 8], bv.big[1], bv.small[1]);
+#pragma unroll
+          for (int mi = 0; mi < kM; ++mi) mma_3xtf32(acc[mi][n], pa[mi], bv);
+        }
+      }
+    }
+  }
+
+  float* ob = o + b * so.b + h * so.h;
+#pragma unroll
+  for (int mi = 0; mi < kM; ++mi)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float lr = __fadd_rn(l[mi][r], __shfl_xor_sync(0xffffffffu, l[mi][r], 1));
+      lr = __fadd_rn(lr, __shfl_xor_sync(0xffffffffu, lr, 2));
+      const int row = first + 16 * mi + g + 8 * r;
+      if (row >= S) continue;
+      const float denom = fmaxf(lr, 1e-30f);
+#pragma unroll
+      for (int n = 0; n < kDSteps; ++n)
+        *reinterpret_cast<float2*>(ob + row * so.s + n * 8 + 2 * t) = make_float2(
+            __fdiv_rn(acc[mi][n][2 * r], denom), __fdiv_rn(acc[mi][n][2 * r + 1], denom));
+    }
+}
+
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       const Strides* st, int64_t B, int64_t Hq, int64_t Hkv, int64_t S,
+                       int causal, float scale, cudaStream_t stream) {
+  using G = F32Geometry<D>;
+  auto kernel = flash_attention_f32<D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>((S + G::kRows - 1) / G::kRows),
+                  static_cast<unsigned>(Hq), static_cast<unsigned>(B));
+  const float scale_log2 = static_cast<float>(static_cast<double>(scale) * 1.4426950408889634);
+  kernel<<<grid, kF32Threads, G::kSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), st[0], st[1], st[2], st[3],
+      static_cast<int>(S), static_cast<int>(Hq / Hkv), causal, scale_log2);
   return cudaGetLastError();
 }
 

@@ -37,10 +37,9 @@
 // traffic.
 //
 // brownian_value (the adaptive loop's point query W(t) - W(t0)) is
-// bound by operations, not bytes: each element pays `depth` levels of two
-// key-chain hashes plus one midpoint normal (~3 Threefry hashes and an
-// erf_inv per level), and writes one value.  Its design is in the comment
-// above brownian_value_kernel.
+// bound by latency: each row's key chain is depth + 1 dependent Threefry
+// hashes, while its draws and combine spread over the block.  Its design
+// and what bounds it are in the comment above brownian_value_kernel.
 //
 // Interface: plain C functions (loaded with ctypes by kernels/build.py),
 // dtype code 0 = float32, 1 = float64.  Each launches on the given stream and
@@ -181,64 +180,246 @@ __global__ void bwd_phase2_kernel(const T* __restrict__ g_z1, const T* __restric
   }
 }
 
-// W(t_b) - W(t0) of row b by Lévy-bridge descent to `depth` levels, one
-// thread per element (b, i) of the (rows, d) output.
+// W(t_b) - W(t0) of row b by Lévy-bridge descent to `depth` levels.
 // Replaces _value_kernel / brownian_value (src/repro/kernels/brownian.py:101,
 // pallas_call :106), whose plain version is repro.kernels.ref.brownian_value
 // (here src/repro_torch/kernels/ref.py:brownian_value, bitwise).
 //
-// The Pallas kernel walked the row's intervals and keys once as scalars,
-// drew all `depth` midpoints in one batched call, then combined: a layout
-// for the TPU's one core and its large VMEM.  Here each thread repeats its
-// row's scalar walk (interval (a, b), bridge std, go-left bit, the key
-// chain) and draws only its own element's midpoint normal at each level,
-// combining as it goes: no per-level arrays, no shared memory, no
-// communication between threads.  The walk is redundant across a row's d
-// threads, which is integer work on registers; the kernel is bound by
-// those operations (see the file comment), and making it fast (sharing
-// the walk through a warp) is later work.  Each row has its own time t[b]
-// read from device memory, so the adaptive loop never copies a time to
-// the host.  The counter layout of the draws is that of normal(key, (d,)):
-// it depends on the per-row size d, not on rows*d.
+// Structure: the plain version's and the Pallas kernel's, in three stages
+// inside one launch.  A block owns up to kValueRows rows and a slice of
+// `units` draw units of each (a unit is a counter pair in float32, whose one
+// hash gives elements j and j + half, as normal(key, (d,)) pairs them; an
+// element in float64).  Per chunk of ValueTile<T>::kLevels levels (24 in
+// float32, 12 in float64; shared memory holds one chunk):
+//   1. walk (warp 0, one lane per row): the row's interval (lo, hi),
+//      go-left bit and key chain c -> fold_in(c, 2|3), and, off the chain,
+//      each level's midpoint key fold_in(c, 1), into shared memory; the
+//      first chunk starts from the root key fold_in(key, 0xB0B).  This is
+//      the only serial part; the bridge std is left to stage 2;
+//   2. draw (warps 1-7): (row, level, unit) items, each a normal pair (one
+//      hash; an element in float64) from the level's midpoint key, scaled
+//      by the level's bridge std (std·z, the plain version's product), or
+//      from the root key, scaled by sqrt(t1 - t0), for the root slot, so a
+//      row's draws run in parallel across levels and elements (1024 rows x
+//      d = 4 at depth 24: 100 draws a row, 50 hashes); the drawers decode
+//      their items while warp 0 walks, and the owners of stage 3 take the
+//      tail's fraction from the last interval;
+//   3. combine (warps 1-7, one thread per element): the plain version's op
+//      sequence level by level (wm = 0.5(wa + wb) + std·z, then the go-left
+//      branch), carrying (wa, wb) in registers across chunks; the next
+//      level's wa + wb is taken as (the kept one) + wm, the same sum, so
+//      the select is off the dependent path; after the last chunk the
+//      clamped linear tail writes the value.
+// Any depth the plain version takes runs, 0 included: deeper walks take
+// more chunks.  Each row reads its own time t[b] from device memory, so the
+// adaptive loop never copies a time to the host.
+//
+// Grid (brownian_value_grid): kValueThreads threads a block, at most
+// kDrawThreads elements and kValueRows rows, aiming at kTargetBlocks blocks
+// (two an SM, so the draws take one round).  With rows >= kTargetBlocks a
+// block takes all of a row's units (up to the element cap) and
+// ceil(rows / kTargetBlocks) rows (1024 rows: 4 a block, 256 blocks); with
+// fewer rows a block takes one row and 1/ceil(kTargetBlocks / rows) of its
+// units, each block redoing its row's walk (one key over (256, 32) in
+// float32: 16 pairs a block, 256 blocks); small work gets as many blocks as
+// it has units.
+//
+// Bound.  Before: one thread per element, each repeating its row's whole
+// walk and drawing its own midpoint level by level, so each level cost two
+// dependent hashes plus an erf_inv on every thread's critical path, and
+// 1024 x 4 elements filled 16 of 132 SMs.  Now the critical path is the
+// walk's depth + 1 dependent fold_in hashes (~45 dependent integer ops
+// each), then one round of draws (a hash and the normals) and the combine;
+// the throughput bound (all hashes and normals over the card's integer
+// rate) is far shorter than that chain, so the chain, not the operations,
+// bounds the kernel (chip_smoke.py:value_bound, chain_floor).  Measured on
+// the H100 (PERF.md): a chain step is ~165 ns, so at the serving shape the
+// chain takes ~4.1 of the kernel's ~8.1 us, the launch about as much as
+// the elementwise kernels' whole ~2.4 us, and the rest is the block's
+// start, one round of draws and the combine.  Tried and dropped:
+// signalling the drawers every 4 levels through named barriers, to run the
+// draws and the combine behind the walk, lengthened each walk step by ~35%
+// and the kernel by ~15%.  ptxas (-Xptxas -v):
+// float32 56 registers, 36,128 bytes of static shared memory, float64 64
+// and 33,952; no spills.
 template <typename T>
-__global__ void brownian_value_kernel(const int64_t* __restrict__ keys,
-                                      const T* __restrict__ t, T t0, T t1,
-                                      T sqrt_span, int depth, T* __restrict__ out,
-                                      int64_t rows, int64_t d) {
-  const int64_t total = rows * d;
-  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       e < total; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t b = e / d;
-    const int64_t i = e - b * d;
-    uint32_t c0 = static_cast<uint32_t>(keys[2 * b]);
-    uint32_t c1 = static_cast<uint32_t>(keys[2 * b + 1]);
+struct ValueTile {
+  static constexpr int kLevels = sizeof(T) == 4 ? 24 : 12;  // levels per chunk
+  static constexpr bool kPairs = sizeof(T) == 4;  // float32 draws share a hash by twos
+};
+constexpr int kValueThreads = 256;
+constexpr int kDrawThreads = kValueThreads - 32;  // warps 1-7
+constexpr int kValueRows = 32;                    // the walker warp's lanes
+constexpr int kTargetBlocks = 2 * 132;  // two blocks on each of the H100's SMs
+
+template <typename T>
+__global__ void __launch_bounds__(kValueThreads)
+brownian_value_kernel(const int64_t* __restrict__ keys, const T* __restrict__ t, T t0, T t1,
+                      T sqrt_span, int depth, T* __restrict__ out, int64_t rows, int64_t d,
+                      int rows_per_block, int units_per_block) {
+  constexpr int kLevels = ValueTile<T>::kLevels, kSlots = kLevels + 1;
+  constexpr bool kPairs = ValueTile<T>::kPairs;
+  // slot 0 is the root draw (first chunk only), slot s the chunk's level s - 1
+  __shared__ uint32_t key0[kValueRows][kSlots], key1[kValueRows][kSlots];
+  __shared__ T lo_s[kValueRows][kSlots], hi_s[kValueRows][kSlots];
+  __shared__ bool left_s[kValueRows][kSlots];
+  __shared__ T t_s[kValueRows];
+  __shared__ T term[kDrawThreads * kSlots];  // std·z of each (row, slot, element)
+
+  const int tid = threadIdx.x;
+  const bool walker = tid < 32;
+  const int64_t units = kPairs ? (d + 1) / 2 : d;  // a row's draw units (half in float32)
+  // the grid has < 2^31 blocks, so its decomposition is 32-bit arithmetic
+  const int slices = static_cast<int>((units + units_per_block - 1) / units_per_block);
+  const int bx = static_cast<int>(blockIdx.x);
+  const int64_t r0 = static_cast<int64_t>(bx / slices) * rows_per_block;
+  const int64_t u0 = static_cast<int64_t>(bx % slices) * units_per_block;
+  const int nr = static_cast<int>(rows - r0 < rows_per_block ? rows - r0 : rows_per_block);
+  const int nu = static_cast<int>(units - u0 < units_per_block ? units - u0 : units_per_block);
+  // element e of a block row: unit u0 + e % U, half e / U (float32)
+  const int row_elems = (kPairs ? 2 : 1) * units_per_block;
+
+  // the walker's state (lane tid < nr walks row r0 + tid)
+  uint32_t c0 = 0, c1 = 0;
+  T lo = t0, hi = t1, tb = T(0);
+  if (tid < nr) {
+    c0 = static_cast<uint32_t>(keys[2 * (r0 + tid)]);
+    c1 = static_cast<uint32_t>(keys[2 * (r0 + tid) + 1]);
     fold_in(c0, c1, 0xB0B);
-    const T tb = t[b];
-    T wa = T(0);
-    T wb = mul(normal_elem(T(), c0, c1, i, d), sqrt_span);
-    T lo = t0;
-    T hi = t1;
-    for (int level = 0; level < depth; ++level) {
-      const T m = mul(T(0.5), add(lo, hi));
-      const T std_ = sqrt_ieee(divide(mul(sub(hi, m), sub(m, lo)), sub(hi, lo)));
-      const bool go_left = tb <= m;
-      uint32_t f0 = c0, f1 = c1;
-      fold_in(f0, f1, 1);
-      fold_in(c0, c1, go_left ? 2 : 3);
-      const T wm = add(mul(T(0.5), add(wa, wb)), mul(std_, normal_elem(T(), f0, f1, i, d)));
-      if (go_left) {
-        wb = wm;
-        hi = m;
+    tb = t[r0 + tid];
+    t_s[tid] = tb;
+  }
+  // the drawers' state: draw index dt; as combiner, element (cr, ce)
+  const int dt = tid - 32;
+  const int cr = dt / row_elems, ce = dt % row_elems;
+  const int64_t cu = u0 + ce % units_per_block;
+  const int64_t cg = cu + (ce / units_per_block) * units;  // its index in the row
+  const bool owner = !walker && cr < nr && ce % units_per_block < nu && cg < d;
+  T wa = T(0), wb = T(0), sum = T(0), frac = T(0);
+
+  for (int l0 = 0;; l0 += kLevels) {
+    const int nl = depth - l0 < kLevels ? depth - l0 : kLevels;
+    const int s0 = l0 == 0 ? 0 : 1;
+    const bool last = l0 + nl == depth;
+    const int n_slots = nl + 1 - s0;
+    const int items = nr * n_slots * nu;
+    int ul = 0, sl = 0, rl = 0;  // the first item's (unit, slot, row), decoded during the walk
+    if (walker) {
+      // 1. walk: the chain, and the midpoint keys beside it
+      if (tid < nr) {
+        if (l0 == 0) {
+          key0[tid][0] = c0;
+          key1[tid][0] = c1;
+        }
+#pragma unroll 4
+        for (int s = 1; s <= nl; ++s) {
+          const T m = mul(T(0.5), add(lo, hi));
+          const bool go_left = tb <= m;
+          uint32_t f0 = c0, f1 = c1;
+          fold_in(f0, f1, 1);
+          key0[tid][s] = f0;
+          key1[tid][s] = f1;
+          lo_s[tid][s] = lo;
+          hi_s[tid][s] = hi;
+          left_s[tid][s] = go_left;
+          fold_in(c0, c1, go_left ? 2 : 3);
+          if (go_left) hi = m; else lo = m;
+        }
+        if (last) {  // the last interval, for the tail
+          lo_s[tid][0] = lo;
+          hi_s[tid][0] = hi;
+        }
+      }
+    } else if (dt < items) {
+      ul = dt % nu;
+      sl = s0 + dt / nu % n_slots;
+      rl = dt / nu / n_slots;
+    }
+    __syncthreads();
+    if (owner && last) {  // the tail's fraction of the last interval
+      const T lo_r = lo_s[cr][0], span = sub(hi_s[cr][0], lo_r);
+      frac = divide(sub(t_s[cr], lo_r), span > tiny(T()) ? span : tiny(T()));
+      frac = frac < T(0) ? T(0) : (frac > T(1) ? T(1) : frac);
+    }
+    // 2. draw every (row, slot, unit) of the chunk, scaled
+    for (int it = dt; !walker && it < items; it += kDrawThreads) {
+      if (it != dt) {
+        ul = it % nu;
+        sl = s0 + it / nu % n_slots;
+        rl = it / nu / n_slots;
+      }
+      const uint32_t k0 = key0[rl][sl], k1 = key1[rl][sl];
+      T scale = sqrt_span;
+      if (sl > 0) {  // the level's bridge std
+        const T a = lo_s[rl][sl], b = hi_s[rl][sl];
+        const T m = mul(T(0.5), add(a, b));
+        scale = sqrt_ieee(divide(mul(sub(b, m), sub(m, a)), sub(b, a)));
+      }
+      const int64_t u = u0 + ul;
+      T* ts = term + (rl * kSlots + sl) * row_elems;
+      // the root is normal·sqrt_span, a level std·normal (the plain version's
+      // operand orders; a product commutes bitwise)
+      if constexpr (kPairs) {
+        // counter pair (u, u + half), the odd size's last second counter 0
+        uint32_t x0 = static_cast<uint32_t>(u);
+        uint32_t x1 = (d & 1) && u == units - 1 ? 0u : static_cast<uint32_t>(u + units);
+        threefry2x32(k0, k1, x0, x1);
+        ts[ul] = mul(scale, normal_f32_bits(x0));
+        if (u + units < d) ts[units_per_block + ul] = mul(scale, normal_f32_bits(x1));
       } else {
-        wa = wm;
-        lo = m;
+        ts[ul] = mul(scale, normal_elem(T(), k0, k1, u, d));
       }
     }
-    const T span = sub(hi, lo);
-    T frac = divide(sub(tb, lo), span > tiny(T()) ? span : tiny(T()));
-    frac = frac < T(0) ? T(0) : (frac > T(1) ? T(1) : frac);
-    out[e] = add(wa, mul(frac, sub(wb, wa)));
+    __syncthreads();
+    // 3. combine, the plain version's op order
+    if (owner) {
+      const T* tr = term + cr * kSlots * row_elems + ce;
+      int s = s0;
+      if (s == 0) {
+        wb = tr[0];
+        sum = add(wa, wb);
+        s = 1;
+      }
+#pragma unroll 4
+      for (; s <= nl; ++s) {
+        const T wm = add(mul(T(0.5), sum), tr[s * row_elems]);
+        const bool go_left = left_s[cr][s];
+        sum = add(go_left ? wa : wb, wm);  // the next wa + wb
+        if (go_left) wb = wm; else wa = wm;
+      }
+    }
+    if (last) break;
+    __syncthreads();  // the next chunk's walk and draws overwrite shared memory
   }
+  if (owner) out[(r0 + cr) * d + cg] = add(wa, mul(frac, sub(wb, wa)));
+}
+
+// The launch shape of brownian_value: rows and units a block, and blocks.
+struct ValueGrid {
+  int rows_per_block, units_per_block;
+  int64_t blocks;
+};
+
+inline ValueGrid brownian_value_grid(bool pairs, int64_t rows, int64_t d) {
+  const int64_t units = pairs ? (d + 1) / 2 : d;
+  const int64_t unit_cap = kDrawThreads / (pairs ? 2 : 1);
+  int64_t ub, rb;
+  if (rows >= kTargetBlocks) {
+    ub = units < unit_cap ? units : unit_cap;
+    rb = (rows + kTargetBlocks - 1) / kTargetBlocks;
+    const int64_t fit = unit_cap / ub;
+    rb = rb < fit ? rb : fit;
+    rb = rb < kValueRows ? rb : kValueRows;
+  } else {
+    const int64_t per_row = (kTargetBlocks + rows - 1) / rows;
+    ub = (units + per_row - 1) / per_row;
+    ub = ub < unit_cap ? ub : unit_cap;
+    rb = 1;
+  }
+  ub = ub < 1 ? 1 : ub;
+  rb = rb < 1 ? 1 : rb;
+  return ValueGrid{static_cast<int>(rb), static_cast<int>(ub),
+                   (rows + rb - 1) / rb * ((units + ub - 1) / ub)};
 }
 
 constexpr int kThreads = 256;
@@ -387,20 +568,29 @@ extern "C" int rt_rev_heun_bwd_phase2(int dtype, const void* g_z1, const void* g
 extern "C" int rt_brownian_value(int dtype, const int64_t* keys, const void* t,
                                  double t0, double t1, int depth, void* out,
                                  int64_t rows, int64_t d, void* stream) {
-  const int64_t total = rows * d;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (total > 0) {
+  if (rows * d > 0) {
+    const repro_torch::ValueGrid g = repro_torch::brownian_value_grid(dtype == 0, rows, d);
+    if (g.blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+    const unsigned blocks = static_cast<unsigned>(g.blocks);
+    constexpr int kT = repro_torch::kValueThreads;
     // the span and its sqrt in the state dtype, as the plain version rounds them
     if (dtype == 0) {
       const float sqrt_span = sqrtf(static_cast<float>(t1 - t0));
-      repro_torch::brownian_value_kernel<float><<<blocks_for(total), kThreads, 0, s>>>(
+      repro_torch::brownian_value_kernel<float><<<blocks, kT, 0, s>>>(
           keys, static_cast<const float*>(t), static_cast<float>(t0),
-          static_cast<float>(t1), sqrt_span, depth, static_cast<float*>(out), rows, d);
+          static_cast<float>(t1), sqrt_span, depth, static_cast<float*>(out), rows, d,
+          g.rows_per_block, g.units_per_block);
     } else {
-      repro_torch::brownian_value_kernel<double><<<blocks_for(total), kThreads, 0, s>>>(
+      repro_torch::brownian_value_kernel<double><<<blocks, kT, 0, s>>>(
           keys, static_cast<const double*>(t), t0, t1, sqrt(t1 - t0), depth,
-          static_cast<double*>(out), rows, d);
+          static_cast<double*>(out), rows, d, g.rows_per_block, g.units_per_block);
     }
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The number of blocks rt_brownian_value launches for (dtype, rows, d).
+extern "C" int64_t rt_brownian_value_blocks(int dtype, int64_t rows, int64_t d) {
+  return rows * d > 0 ? repro_torch::brownian_value_grid(dtype == 0, rows, d).blocks : 0;
 }

@@ -94,15 +94,19 @@ __device__ __forceinline__ float erf_inv(float x) {
   return fabsf(x) == 1.0f ? __fmul_rn(x, __int_as_float(0x7f800000)) : __fmul_rn(p, x);
 }
 
-// Element i of normal(key, (size,)) in float32.
-__device__ __forceinline__ float normal_f32(uint32_t k0, uint32_t k1, int64_t i,
-                                            int64_t size) {
-  const uint32_t b = bits32(k0, k1, i, size);
+// The float32 normal of one 32-bit draw b.
+__device__ __forceinline__ float normal_f32_bits(uint32_t b) {
   const float f = __fsub_rn(__uint_as_float((b >> 9) | 0x3F800000u), 1.0f);
   // uniform on [nextafter(-1, 0), 1): scale (1 - lo) rounds to 2 in float32
   const float lo = __uint_as_float(0xBF7FFFFFu);  // nextafter(-1, 0)
   const float u = fmaxf(lo, __fadd_rn(__fmul_rn(f, 2.0f), lo));
   return __fmul_rn(erf_inv(u), __uint_as_float(0x3FB504F3u));  // float32(sqrt 2)
+}
+
+// Element i of normal(key, (size,)) in float32.
+__device__ __forceinline__ float normal_f32(uint32_t k0, uint32_t k1, int64_t i,
+                                            int64_t size) {
+  return normal_f32_bits(bits32(k0, k1, i, size));
 }
 
 // ---------------------------------------------------------------------------

@@ -6,7 +6,8 @@ src/repro/kernels/flash_attention.py:67: causal or full attention with an
 online softmax, q ``(B, Hq, S, D)``, k and v ``(B, Hkv, S, D)``, Hq % Hkv
 == 0, float32 or bfloat16, D in {16, 64, 128}.  The kernel is in
 ``csrc/flash_attention.cu``: bfloat16 through warpgroup MMA (wgmma) on
-tiles that TMA loads into shared memory, float32 on CUDA cores.  Operands
+tiles that TMA loads into shared memory, float32 as split TF32 on
+``mma.sync`` tensor cores.  Operands
 are read through their strides (:func:`kernel_strides` says which views it
 takes), so the LM's ``(B, S, H, D)`` projections go in as transposed views
 with no copy, and the output is the ``(B, Hq, S, D)`` view of a ``(B, S,

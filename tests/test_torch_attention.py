@@ -250,3 +250,71 @@ def test_gqa_attend_is_bitwise_unchanged_without_the_copies(arch, dtype, monkeyp
     out_copies, (k_copies, v_copies) = layers.gqa_attend(params, cfg, x)
     assert out.dtype == dtype
     assert torch.equal(out, out_copies) and torch.equal(k, k_copies) and torch.equal(v, v_copies)
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 explicit mantissa bits), to nearest with
+    ties away from zero, on the bits: the CUDA kernel's ``tf32_rna``."""
+    bits = x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = (bits + 0x1000) & 0xFFFFE000
+    return torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(torch.int32).view(torch.float32)
+
+
+def _tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """The TF32 part the tensor core reads from float32 bits (the low 13
+    bits dropped: toward zero)."""
+    return (x.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _split(x):
+    """The kernel's split: big = rna(x), small = x - big (exact), of which
+    the tensor core reads the TF32 part."""
+    big = _tf32_rna(x)
+    return big, _tf32_trunc(x - big)
+
+
+def _matmul_3xtf32(a, b):
+    """a @ b in f32 accumulation from the split halves: a_small·b_big +
+    a_big·b_small, then + a_big·b_big, as the kernel issues them."""
+    (ab, as_), (bb, bs) = _split(a), _split(b)
+    return (as_ @ bb + ab @ bs) + ab @ bb
+
+
+def _matmul_1xtf32(a, b):
+    return _tf32_rna(a) @ _tf32_rna(b)
+
+
+def _emulated_attention(q, k, v, matmul):
+    """Causal GQA attention with both products through ``matmul`` and the
+    softmax in f32; P stays f32 before P·V (``p.astype(v.dtype)`` is a
+    no-op in f32)."""
+    group = q.shape[1] // k.shape[1]
+    kk, vv = (x.repeat_interleave(group, dim=1) for x in (k, v))
+    s = matmul(q, kk.transpose(-1, -2)) * (1.0 / np.sqrt(q.shape[-1]))
+    S = q.shape[2]
+    s = s.masked_fill(~torch.ones((S, S), dtype=torch.bool).tril(), -np.inf)
+    return matmul(torch.softmax(s, dim=-1), vv)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", [(1, 4, 1, 200, 64), (1, 4, 1, 200, 128)])
+def test_split_tf32_products_hold_the_f32_tolerance(B, Hq, Hkv, S, D):
+    """The f32 CUDA kernel's arithmetic (csrc/flash_attention.cu: each
+    product as three TF32 products of split halves, f32 accumulators),
+    emulated in torch: within the f32 tolerance (2e-5) of the plain f32
+    attention, where one TF32 product alone is not.  The two errors are
+    printed (``-s``) for PERF.md."""
+    q, k, v = map(torch.from_numpy, _inputs(B, Hq, Hkv, S, D, seed=5))
+    want = ref.flash_attention(q, k, v, causal=True, scale=1 / np.sqrt(D))
+    split = _emulated_attention(q, k, v, _matmul_3xtf32)
+    single = _emulated_attention(q, k, v, _matmul_1xtf32)
+    err_split = (split - want).abs().max().item()
+    err_single = (single - want).abs().max().item()
+    print(f"attention {(B, Hq, Hkv, S, D)} causal: split TF32 max |Δ| {err_split:.3g}, "
+          f"one TF32 product {err_single:.3g}")
+    torch.testing.assert_close(split, want, **F32_TOL)
+    assert not torch.allclose(single, want, **F32_TOL)
+    # the split is exact: big + small gives back x, and big keeps 11 bits
+    x = q.flatten()
+    big, _ = _split(x)
+    assert torch.equal(big + (x - big), x)
+    assert torch.all((big.view(torch.int32) & 0x1FFF) == 0)

@@ -6,7 +6,9 @@ exact adjoint = the unfused one, and the adaptive SDE-GAN sampler's
 padding invariance; the GQA attention kernel against its plain version
 (float32 2e-5, bfloat16 6e-2: the two sum in different orders), two
 launches bitwise equal, (B, S, H, D) views bitwise the contiguous
-operands' result, and a two-layer smoke LM's prefill routed through it; the SSD chunk-scan kernel
+operands' result (every chip_smoke.py attention shape in float32), and a
+two-layer smoke LM's prefill routed through it; the ``brownian_value``
+redesign's edges (rows, sizes, depths; the grid) bitwise; the SSD chunk-scan kernel
 against its plain version (y: float32 2e-4, bfloat16 6e-2; the state 2e-4
 of its largest magnitude) and a two-layer smoke mamba2 prefill through it;
 the SDE field MLP kernel against its plain version (float32 2e-5, bfloat16
@@ -145,9 +147,19 @@ def test_operands_are_checked(cuda):
         ops.brownian_value(keys.int(), t, 0.0, 1.0, (16,), torch.float32)
 
 
+# The redesign's edges: 1000, 1001 and 1024 rows take 4 rows a block (1001
+# leaves a last block of one row), fewer rows one row a block and a slice of
+# its units; d 1, 5 and 17 leave an odd pair, 8192 = (256, 32) spreads one
+# row over 256 blocks; depth 0 draws the root alone, 40 runs two chunks of
+# levels (four in float64).
+VALUE_CASES = [(1, (64, 17)), (3, (5,))] + [
+    (rows, shape) for rows in (1, 3, 64, 1000, 1001, 1024)
+    for shape in ((1,), (4,), (17,), (256, 32))]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("rows,shape", [(1, (256, 32)), (1, (64, 17)), (1024, (4,)), (3, (5,))])
-@pytest.mark.parametrize("depth", [10, 24])
+@pytest.mark.parametrize("rows,shape", VALUE_CASES)
+@pytest.mark.parametrize("depth", [0, 1, 10, 24, 40])
 def test_brownian_value_bitwise_equals_plain_version(cuda, dtype, rows, shape, depth):
     g = torch.Generator().manual_seed(rows + depth)
     keys = torch.randint(0, 2 ** 32, (rows, 2), generator=g, dtype=torch.int64).to(cuda)
@@ -157,6 +169,18 @@ def test_brownian_value_bitwise_equals_plain_version(cuda, dtype, rows, shape, d
         got = ops.brownian_value(keys, t, 0.0, 1.0, shape, dtype, depth)
         want = ops.brownian_value(keys, t, 0.0, 1.0, shape, dtype, depth, use_kernel=False)
         assert got.shape == (rows, *shape) and torch.equal(got, want)
+
+
+def test_brownian_value_grid_fills_the_card(cuda):
+    """At the serving shape (1024 rows of 4) and the adaptive gradient's
+    (one key over (256, 32)) the launch puts blocks on >= 128 SMs; small
+    work gets a block per draw unit."""
+    from repro_torch.kernels.brownian import brownian_value_blocks
+
+    assert brownian_value_blocks(torch.float32, 1024, 4) >= 128
+    assert brownian_value_blocks(torch.float32, 1, 256 * 32) >= 128
+    assert brownian_value_blocks(torch.float32, 1, 4) == 2  # two counter pairs
+    assert brownian_value_blocks(torch.float64, 3, 5) == 15
 
 
 def _burst_grad(cuda, dtype, fused):
@@ -271,6 +295,33 @@ def test_flash_attention_kernel_matches_plain_version(cuda, dtype, B, Hq, Hkv, S
         if dtype == torch.bfloat16:
             delta = (got.float() - want.float()).flatten(2).norm(dim=-1)
             assert (delta / want.float().flatten(2).norm(dim=-1)).max() <= ATTN_REL_TOL
+
+
+# chip_smoke.py's ATTN_SHAPES: qwen2.5-14b's prefill and a short prompt, a
+# ragged S, tinyllama's group 8 at D 64, S 1 with MQA, a ragged S just past
+# one tile, D 16, tinyllama's training shape.
+ATTN_SHAPES = [(4, 40, 8, 2048, 128), (4, 40, 8, 32, 128), (1, 40, 8, 1000, 128),
+               (2, 32, 4, 777, 64), (1, 4, 1, 1, 128), (1, 40, 8, 129, 128),
+               (2, 8, 4, 300, 16), (4, 32, 4, 2048, 64)]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", ATTN_SHAPES)
+def test_f32_flash_attention_at_every_attn_shape(cuda, B, Hq, Hkv, S, D):
+    """The split-TF32 float32 kernel, causal and full: within 2e-5 of the
+    plain version, two launches bitwise equal, (B, S, H, D) views bitwise
+    the contiguous operands' result."""
+    q, k, v = _bshd_views(torch.Generator().manual_seed(S + D), cuda, torch.float32, B, Hq,
+                          Hkv, S, D)
+    for causal in (True, False):
+        got = ops.flash_attention(q, k, v, causal=causal)
+        assert torch.equal(got, ops.flash_attention(q, k, v, causal=causal))
+        assert torch.equal(got, ops.flash_attention(q.contiguous(), k.contiguous(),
+                                                    v.contiguous(), causal=causal))
+        want = ops.flash_attention(q, k, v, causal=causal, scale=1 / math.sqrt(D),
+                                   use_kernel=False)
+        torch.testing.assert_close(got, want, **ATTN_TOL[torch.float32])
+        del got, want
+    torch.cuda.empty_cache()
 
 
 def _bshd_views(g, cuda, dtype, B, Hq, Hkv, S, D):

@@ -27,7 +27,7 @@ from _torch_parity import TORCH_DTYPES, jax_config, key_words, torch_keys, ulp_d
 from repro.kernels import brownian as jbk
 from repro.kernels import ref as jref
 from repro.kernels import reversible_heun_step as jrh
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops, prng, ref
 
 TOL = {"float32": dict(rtol=1e-6, atol=1e-7), "float64": dict(rtol=1e-14, atol=1e-15)}
 NORMAL_ULP = {"float32": 4, "float64": 2 ** 19}
@@ -210,3 +210,82 @@ def test_brownian_value_matches_ref_and_pallas(dtype, shape, depth):
     for w in (want, pallas):
         torch.testing.assert_close(got, torch.from_numpy(np.array(w)), **VALUE_TOL[dtype])
     assert torch.equal(got[0], torch.zeros(shape[1:], dtype=TORCH_DTYPES[dtype]))
+
+
+def _normals_of_bits(y1, y2, dtype):
+    """``jax.random.normal``'s transform of one hash's two output words:
+    float32 -> the two normals of the counter pair's elements; float64 ->
+    the one element whose 64-bit draw is ``y1 << 32 | y2``."""
+    if dtype == torch.float32:
+        f = torch.stack([((y >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+                         for y in (y1, y2)]) - 1.0
+    else:
+        f = (((y1 << 20) | (y2 >> 12) | 0x3FF0000000000000).view(torch.float64) - 1.0)
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    lo = np.nextafter(np.array(-1.0, np_dtype), np.array(0.0, np_dtype))
+    scale = float(np.array(1.0, np_dtype) - lo)  # rounds to 2 in both types
+    u = torch.maximum(torch.tensor(float(lo), dtype=dtype), f * scale + float(lo))
+    return prng.erf_inv(u) * float(np.array(np.sqrt(2), np_dtype))
+
+
+def _draws_by_unit(k1, k2, d, dtype):
+    """``normal(key, (d,))`` for each row's key, one hash per draw unit as
+    the CUDA kernel's stage 2 takes them: in float32 the counter pair
+    ``(u, u + half)`` gives elements u and u + half (for odd d the last
+    pair's second counter is JAX's zero pad); in float64 the pair
+    ``(i, i + d)`` gives element i."""
+    rows = k1.shape[0]
+    out = torch.empty((rows, d), dtype=dtype)
+    if dtype == torch.float32:
+        half = (d + 1) // 2
+        for u in range(half):
+            x1 = 0 if d % 2 and u == half - 1 else u + half
+            y1, y2 = prng.threefry2x32(k1, k2, torch.full_like(k1, u), torch.full_like(k1, x1))
+            z = _normals_of_bits(y1, y2, dtype)
+            out[:, u] = z[0]
+            if u + half < d:
+                out[:, u + half] = z[1]
+    else:
+        for i in range(d):
+            y1, y2 = prng.threefry2x32(k1, k2, torch.full_like(k1, i),
+                                       torch.full_like(k1, i + d))
+            out[:, i] = _normals_of_bits(y1, y2, dtype)
+    return out
+
+
+@pytest.mark.parametrize("d", [4, 5])
+@pytest.mark.parametrize("rows", [1, 1000])
+@pytest.mark.parametrize("depth", [0, 1, 24])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_brownian_value_rebuilt_stage_by_stage_is_bitwise_the_plain_version(dtype, depth,
+                                                                            rows, d):
+    """The CUDA kernel's three stages, in plain PyTorch: the walk
+    (``bridge_descent``: chain, midpoint keys, bits, intervals, stds), the
+    draws one hash per (level, unit) with the kernel's counter pairing, and
+    the combine level by level, then the tail — bitwise
+    ``ref.brownian_value``, so the kernel's order of independent work
+    changes no bit."""
+    g = torch.Generator().manual_seed(rows + depth + d)
+    keys = torch.randint(0, 2 ** 32, (rows, 2), generator=g, dtype=torch.int64)
+    t = torch.rand(rows, generator=g, dtype=torch.float64)
+    t[:3] = torch.tensor([0.0, 1.0, 0.375])[:rows]
+    t = t.to(dtype)
+    k1, k2 = keys[:, 0], keys[:, 1]
+    # 1. walk
+    stds, gos, km1, km2, a, b = ref.bridge_descent(k1, k2, t, 0.0, 1.0, depth)
+    r1, r2 = prng.fold_in(k1, k2, 0xB0B)
+    # 2. draws: the root, then every level
+    z_root = _draws_by_unit(r1, r2, d, dtype)
+    z_levels = [_draws_by_unit(km1[lv], km2[lv], d, dtype) for lv in range(depth)]
+    # 3. combine, then the tail
+    sqrt_span = torch.sqrt(torch.tensor(1.0, dtype=dtype))
+    wb = z_root * sqrt_span
+    wa = torch.zeros_like(wb)
+    for lv in range(depth):
+        wm = 0.5 * (wa + wb) + stds[lv][:, None] * z_levels[lv]
+        left = gos[lv][:, None]
+        wa, wb = torch.where(left, wa, wm), torch.where(left, wm, wb)
+    frac = torch.clamp((t - a) / torch.clamp(b - a, min=torch.finfo(dtype).tiny), 0.0, 1.0)
+    staged = wa + frac[:, None] * (wb - wa)
+    want = ref.brownian_value(k1, k2, t, 0.0, 1.0, (d,), dtype, depth)
+    assert staged.dtype == want.dtype and torch.equal(staged, want)
