@@ -128,14 +128,19 @@ non-zero and the final result line is never printed):
    share).
 15. ``ssd_chunk`` (the Mamba2 prefill's SSD scan) against its plain
    version (the sequential recurrence) on the card: float32 and bfloat16
-   x, b, c (float32 a), at (B, H, S, P, N) in SSD_SHAPES (mamba2-1.3b's
-   prefill and the CLI's prompt 32, both in the mixer's layout — x and a
+   x, b, c (float32 a), at the SSD_SHAPES (mamba2-1.3b's prefill, the
+   CLI's prompt 32 and the batch-1 prefill in the mixer's layout — x and a
    transposed views, b and c expanded over the heads with stride 0 — then
-   a ragged S, S = 1 and the smoke config's heads, contiguous): y within
-   SSD_TOL (rtol = atol), the terminal state within SSD_STATE_RTOL of its
-   largest magnitude.  Timed at the prefill shape (bf16, the mixer's
-   layout) beside the plain version and its bound; no single PyTorch call
-   computes it, so there is no library time.
+   a ragged S, S = 1, the four (N, P) pairs around the chunk's edges and a
+   strong decay): y within SSD_TOL (rtol = atol), the terminal state
+   within SSD_STATE_RTOL of its largest magnitude, both finite; two
+   launches, and contiguous copies of the operands, give the same bits; at
+   batch 1 the launcher's P slices give at least 128 blocks.  The SASS:
+   HMMA on bf16 in the bf16 kernels, HMMA on TF32 in the f32 ones.  Timed
+   in turns at the prefill and the batch-1 shapes (bf16, the mixer's
+   layout) beside the plain version, the tensor-core bound and the
+   earlier design's CUDA-core f32 bound; no single PyTorch call computes
+   it, so there is no library time.
 16. LM parity, float32, full width at two layers (mamba2-1.3b with
    ``num_layers=2``), as phase 13: B = 2, S = 512 prefill and 8 greedy
    decode steps through the kernel and with every SSD scan on the plain
@@ -192,12 +197,15 @@ non-zero and the final result line is never printed):
    gradient's; ``serve_launches``: the Latent-SDE service's, the adaptive
    service's for ``brownian_value``, the LM serves' for
    ``flash_attention`` and ``ssd_chunk``; ``ptxas``: the registers,
-   shared memory and spills of ``brownian_value`` and the float32
-   attention, compiled once more with ``-Xptxas -v`` in the background)
-   and, last, the result line ``{"ok": true, "device": {...}}``.
+   shared memory and spills of ``brownian_value``, the float32 attention
+   and ``ssd_chunk``, compiled once more with ``-Xptxas -v`` in the
+   background) and, last, the result line ``{"ok": true, "device":
+   {...}}``.
 
 ``drain_in_turns(parent_root)`` (not run by ``main``) times phase 10's
-adaptive serving drain in another tree and this one, in turns.
+adaptive serving drain in another tree and this one, in turns;
+``ssd_in_turns(parent_root)`` (neither) times ``ssd_chunk`` and
+mamba2-1.3b's prefill there and here, in turns.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -314,11 +322,22 @@ LM_ARCH = "qwen2.5-14b"
 LM_LOGIT_RTOL = 1e-4
 LM_PARITY = dict(batch=2, prompt_len=512, gen=8)
 SSM_ARCH = "mamba2-1.3b"
-# ssd_chunk checks, (B, H, S, P, N): mamba2-1.3b's prefill (B 4, prompt 2048)
-# and the CLI's prompt 32, a ragged S, S = 1, the smoke config's heads.
-SSD_SHAPES = [(4, 64, 2048, 64, 128), (4, 64, 32, 64, 128), (1, 64, 2000, 64, 128),
-              (1, 64, 1, 64, 128), (2, 8, 100, 16, 16)]
-SSD_PREFILL = SSD_SHAPES[0]
+# ssd_chunk checks, ((B, H, S, P, N), the mixer's layout, a's scale):
+# mamba2-1.3b's prefill (B 4, prompt 2048), the CLI's prompt 32 (S < the
+# chunk, 64), the batch-1 prefill (the launcher cuts P into slices), a
+# ragged S, S = 1, the smoke config's heads (N 16, P 16), jamba's (N 16,
+# P 64) one past a chunk boundary, (N 128, P 16) at S = the chunk, and a
+# strong decay (a = −5|N(0, 1)|).
+SSD_SHAPES = [((4, 64, 2048, 64, 128), True, 0.1), ((4, 64, 32, 64, 128), True, 0.1),
+              ((1, 64, 2048, 64, 128), True, 0.1), ((1, 64, 2000, 64, 128), False, 0.1),
+              ((1, 64, 1, 64, 128), False, 0.1), ((2, 8, 100, 16, 16), False, 0.1),
+              ((2, 4, 65, 64, 16), True, 0.1), ((2, 4, 64, 16, 128), False, 0.1),
+              ((1, 8, 500, 64, 128), True, 5.0)]
+SSD_PREFILL = SSD_SHAPES[0][0]
+SSD_BATCH1 = SSD_SHAPES[2][0]
+# the chunk of the earlier CUDA-core f32 design, whose bound stays on
+# record beside the tensor-core one
+SSD_CUDA_CORE_CHUNK = 32
 # the JAX package's SSD tolerances (tests/test_kernels.py:96 for y in f32,
 # :21 for bf16 outputs; the state within 2e-4 of its largest magnitude, as
 # :120-122 hold ssd_chunked_dense's): a chunked matrix form against the
@@ -1346,10 +1365,10 @@ def _in_turns(fns: dict, reps: dict) -> dict:
     return {name: tuple(sum(x) / 2 for x in zip(*r)) for name, r in runs.items()}
 
 
-def sass_mix() -> dict:
+def sass_mix(kernel: str = "flash_attention") -> dict:
     """Instruction mix (mnemonic with its modifiers, e.g.
-    ``HMMA.1688.F32.TF32`` -> count) of each flash_attention kernel in the
-    built library, from ``cuobjdump -sass``."""
+    ``HMMA.1688.F32.TF32`` -> count) of each kernel whose name holds
+    ``kernel`` in the built library, from ``cuobjdump -sass``."""
     from repro_torch.kernels import build
     from torch.utils.cpp_extension import CUDA_HOME
 
@@ -1363,7 +1382,7 @@ def sass_mix() -> dict:
     for line in out.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            func = name if "flash_attention" in name else None
+            func = name if kernel in name else None
             continue
         text = line.strip()
         if func and text.startswith("/*") and "*/" in text:
@@ -1736,58 +1755,73 @@ def lm_serve_checks(ops, dev, label: str, arch: str) -> dict:
     return dict(launches=launches[S], copies_saved_per_layer=copies_saved)
 
 
-def ssd_bound(B: int, H: int, S: int, P: int, N: int, dtype, b_heads: int) -> tuple:
-    """Least time for one SSD call: the chunked form's 2LN + 2LP + 4NP f32
-    flops per position and head (L = the kernel's chunk) at the f32 rate,
-    against x read and y written in ``dtype``, a in f32, b and c over their
-    ``b_heads`` distinct heads (1 when expanded) and the f32 state written
-    once; -> (ms, 'bytes'|'operations')."""
-    from repro_torch.kernels.ssd_chunk import CHUNK as L
-
+def ssd_bound(B: int, H: int, S: int, P: int, N: int, dtype, b_heads: int, L: int,
+              tensor_cores: bool = True) -> tuple:
+    """Least time for one SSD call: the chunked form's 2LN + 2LP + 4NP flops
+    per position and head at chunk L, against x read and y written in
+    ``dtype``, a in f32, b and c over their ``b_heads`` distinct heads (1
+    when expanded) and the f32 state written once; -> (ms,
+    'bytes'|'operations').  On tensor cores: bf16 at the bf16 MMA rate,
+    f32 as split TF32 (three TF32 products an f32 one); ``tensor_cores=False``
+    gives the f32 CUDA-core bound (the earlier design's, at its L = 32)."""
     s = torch.finfo(dtype).bits // 8
     flops = B * H * S * (2 * L * N + 2 * L * P + 4 * N * P)
     nbytes = 2 * B * H * S * P * s + B * H * S * 4 + 2 * B * b_heads * S * N * s + B * H * N * P * 4
-    t_ops = flops / PEAK_OPS_PER_S[torch.float32] * 1e3
+    if not tensor_cores:
+        t_ops = flops / PEAK_OPS_PER_S[torch.float32] * 1e3
+    elif dtype == torch.float32:
+        t_ops = 3 * flops / PEAK_TF32_OPS_PER_S * 1e3
+    else:
+        t_ops = flops / PEAK_OPS_PER_S[torch.bfloat16] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _ssd_operands(g, dev, dtype, B, H, S, P, N, mixer_layout: bool):
-    """x ~ N(0, 1), a = −0.1|N(0, 1)|, b, c ~ 0.5·N(0, 1) (the JAX suite's
-    draws).  In the mixer's layout x and a are transposed views of (B, S,
-    H, ·) tensors and b, c are (B, S, N) expanded over the heads."""
+def _ssd_operands(g, dev, dtype, B, H, S, P, N, mixer_layout: bool, scale: float = 0.1):
+    """x ~ N(0, 1), a = −scale·|N(0, 1)| (the JAX suite's 0.1 by default),
+    b, c ~ 0.5·N(0, 1) (the JAX suite's draws).  In the mixer's layout x and
+    a are transposed views of (B, S, H, ·) tensors and b, c are (B, S, N)
+    expanded over the heads."""
     def randn(*shape):
         return torch.randn(*shape, generator=g, device=dev)
 
     if mixer_layout:
         x = randn(B, S, H, P).to(dtype).transpose(1, 2)
-        a = (-0.1 * randn(B, S, H).abs()).transpose(1, 2)
+        a = (-scale * randn(B, S, H).abs()).transpose(1, 2)
         b, c = ((0.5 * randn(B, S, N)).to(dtype)[:, None].expand(B, H, S, N)
                 for _ in range(2))
     else:
         x = randn(B, H, S, P).to(dtype)
-        a = -0.1 * randn(B, H, S).abs()
+        a = -scale * randn(B, H, S).abs()
         b, c = ((0.5 * randn(B, H, S, N)).to(dtype) for _ in range(2))
     return x, a, b, c
 
 
 def ssd_checks(ops, dev) -> tuple:
-    """Phase 15: ssd_chunk against its plain version at SSD_SHAPES, then
-    timed at the prefill shape.  Returns (timing row, max |Δ| of y)."""
+    """Phase 15: ssd_chunk against its plain version at SSD_SHAPES in both
+    dtypes (finite; two launches and contiguous copies of the operands give
+    the same bits; at batch 1 the grid covers 128 SMs or more), the SASS
+    instruction mix, then timed in turns at the prefill shape and at batch
+    1 (bf16, mixer views) beside the plain version and both bounds.
+    Returns (timing row, max |Δ| of y)."""
+    from repro_torch.kernels import ssd_chunk as ssd_kernel
+
     g = torch.Generator(device=dev).manual_seed(15)
     err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for i, (B, H, S, P, N) in enumerate(SSD_SHAPES):
-            layout = i < 2  # the main path's shapes come in the mixer's layout
-            x, a, b, c = _ssd_operands(g, dev, dtype, B, H, S, P, N, layout)
+        for (B, H, S, P, N), layout, scale in SSD_SHAPES:
+            x, a, b, c = _ssd_operands(g, dev, dtype, B, H, S, P, N, layout, scale)
             y, h = ops.ssd_chunk(x, a, b, c)
+            y2, h2 = ops.ssd_chunk(x, a, b, c)
+            yc, hc = ops.ssd_chunk(*(t.contiguous() for t in (x, a, b, c)))
             y_ref, h_ref = ops.ssd_chunk(x, a, b, c, use_kernel=False)
             torch.cuda.synchronize()
             tol = SSD_TOL[dtype]
             d_y = (y.float() - y_ref.float()).abs().max().item()
             d_h = (h - h_ref).abs().max().item()
             top_h = h_ref.abs().max().item()
-            where = f"ssd_chunk {str(dtype)[6:]} {(B, H, S, P, N)}"
+            slices = ssd_kernel.slices(dtype, N, P, B * H)
+            where = f"ssd_chunk {str(dtype)[6:]} {(B, H, S, P, N)} a×{scale}"
             check(y.dtype == dtype and y.shape == x.shape and h.shape == (B, H, N, P)
                   and torch.isfinite(y.float()).all().item()
                   and torch.isfinite(h).all().item()
@@ -1795,28 +1829,125 @@ def ssd_checks(ops, dev) -> tuple:
                   f"{where}: kernel y != plain (max |Δ| {d_y}, tolerance {tol})")
             check(d_h <= SSD_STATE_RTOL * top_h, f"{where}: kernel state != plain (max |Δ| "
                   f"{d_h}, largest {top_h}, tolerance {SSD_STATE_RTOL} of it)")
+            check(torch.equal(y, y2) and torch.equal(h, h2), f"{where}: two launches differ")
+            check(torch.equal(y, yc) and torch.equal(h, hc),
+                  f"{where}: the operands' views and contiguous copies give other bits")
+            if (B, H, S, P, N) == SSD_BATCH1:
+                check(B * H * slices >= 128, f"{where}: {B * H * slices} blocks ({slices} "
+                      f"slices of P) leave SMs without work")
             err = max(err, d_y)
-            print(f"{where} {'mixer views' if layout else 'contiguous '}: y max |Δ| "
+            print(f"{where} {'mixer views' if layout else 'contiguous '}, {B * H * slices} "
+                  f"blocks ({slices} slice{'s' if slices > 1 else ''} of P): y max |Δ| "
                   f"{d_y:.3g} (largest {y_ref.float().abs().max().item():.3g}; rtol = atol = "
                   f"{tol}); h_final max |Δ| {d_h:.3g} (largest {top_h:.3g}, tol "
-                  f"{SSD_STATE_RTOL} of it)", flush=True)
-            del x, a, b, c, y, h, y_ref, h_ref
+                  f"{SSD_STATE_RTOL} of it); two launches and contiguous copies bitwise "
+                  f"equal", flush=True)
+            del x, a, b, c, y, h, y2, h2, yc, hc, y_ref, h_ref
     torch.cuda.empty_cache()
 
-    B, H, S, P, N = SSD_PREFILL
-    x, a, b, c = _ssd_operands(g, dev, torch.bfloat16, B, H, S, P, N, True)
-    k_ms, k_host = time_ms(lambda: ops.ssd_chunk(x, a, b, c), reps=10, trials=5)
-    p_ms, p_host = time_ms(lambda: ops.ssd_chunk(x, a, b, c, use_kernel=False),
-                           reps=1, trials=3)
-    b_ms, b_by = ssd_bound(B, H, S, P, N, torch.bfloat16, b_heads=1)
-    print(f"ssd_chunk bf16 {(B, H, S, P, N)} (mixer views): kernel {k_ms:.4f} ms "
-          f"(host {k_host:.4f}), plain {p_ms:.4f} ms (host {p_host:.4f}), bound "
-          f"{b_ms:.4f} ms ({b_by}); no library call computes it", flush=True)
-    del x, a, b, c
-    torch.cuda.empty_cache()
-    row = dict(ms=k_ms, plain_ms=p_ms, host_ms=k_host, plain_host_ms=p_host, bound_ms=b_ms,
-               bound_by=b_by, library_ms=None)
+    mix = sass_mix("ssd_chunk")
+    for func, ops_count in mix.items():
+        print(f"SASS {func[:72]}: HMMA BF16 {sass_count(ops_count, 'HMMA', 'BF16')}, HMMA "
+              f"TF32 {sass_count(ops_count, 'HMMA', 'TF32')}, HGMMA "
+              f"{sass_count(ops_count, 'HGMMA')}, {sum(ops_count.values())} instructions",
+              flush=True)
+    bf16 = [f for f in mix if "bfloat16" in f]
+    f32 = [f for f in mix if "bfloat16" not in f]
+    check(bf16 and all(sass_count(mix[f], "HMMA", "BF16") + sass_count(mix[f], "HGMMA") > 0
+                       for f in bf16),
+          f"the bf16 ssd_chunk kernels must issue HMMA or HGMMA on bf16: {bf16}")
+    check(f32 and all(sass_count(mix[f], "HMMA", "TF32") > 0 for f in f32),
+          f"the f32 ssd_chunk kernels must issue HMMA on TF32: {f32}")
+
+    rows = {}
+    for tag, shape in (("prefill", SSD_PREFILL), ("batch 1", SSD_BATCH1)):
+        B, H, S, P, N = shape
+        x, a, b, c = _ssd_operands(g, dev, torch.bfloat16, B, H, S, P, N, True)
+        t = _in_turns({"kernel": lambda: ops.ssd_chunk(x, a, b, c),
+                       "plain": lambda: ops.ssd_chunk(x, a, b, c, use_kernel=False)},
+                      {"kernel": 10, "plain": 1})
+        b_ms, b_by = ssd_bound(B, H, S, P, N, torch.bfloat16, b_heads=1, L=ssd_kernel.CHUNK)
+        cc_ms = ssd_bound(B, H, S, P, N, torch.bfloat16, b_heads=1, L=SSD_CUDA_CORE_CHUNK,
+                          tensor_cores=False)[0]
+        slices = ssd_kernel.slices(torch.bfloat16, N, P, B * H)
+        # the launcher's other choices, for its rule (every slice count gives the same bits)
+        by_slices = {n: time_ms(lambda: ssd_kernel._launch(x, a, b, c, slices=n), reps=10,
+                                trials=5)[0] for n in (1, 2, 4) if P // n >= 16}
+        print(f"ssd_chunk bf16 {tag} {shape}: device ms by P slices "
+              f"{ {n: round(ms, 4) for n, ms in by_slices.items()} } (blocks = {B * H} × "
+              f"slices); the launcher takes {slices}", flush=True)
+        print(f"ssd_chunk bf16 {tag} {shape} (mixer views, {B * H * slices} blocks): kernel "
+              f"{t['kernel'][0]:.4f} ms (host {t['kernel'][1]:.4f}), plain "
+              f"{t['plain'][0]:.4f} ms (host {t['plain'][1]:.4f}), bound {b_ms:.4f} ms "
+              f"({b_by}, tensor cores, L = {ssd_kernel.CHUNK}), f32 CUDA-core bound "
+              f"{cc_ms:.4f} ms (L = {SSD_CUDA_CORE_CHUNK}); no library call computes it",
+              flush=True)
+        rows[tag] = dict(ms=t["kernel"][0], plain_ms=t["plain"][0], host_ms=t["kernel"][1],
+                         plain_host_ms=t["plain"][1], bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None, cuda_core_bound_ms=cc_ms, shape=list(shape),
+                         blocks=B * H * slices, ms_by_slices=by_slices)
+        del x, a, b, c
+        torch.cuda.empty_cache()
+    row = dict(rows["prefill"], batch1=rows["batch 1"],
+               sass={f: {"HMMA_BF16": sass_count(m, "HMMA", "BF16"),
+                         "HMMA_TF32": sass_count(m, "HMMA", "TF32"),
+                         "HGMMA": sass_count(m, "HGMMA")} for f, m in mix.items()})
     return row, err
+
+
+# One process of one tree (run from its root): ssd_chunk at the prefill and
+# batch-1 shapes (bf16, mixer views) and the steady bf16 prefill of the full
+# mamba2-1.3b (B 4 × 2048, wall of a synchronised call, median of 5).
+# Prints one JSON line.
+_SSD_CHILD = r"""
+import json, statistics, sys, time
+sys.path[:0] = [".", "src"]
+import torch
+import chip_smoke as C
+from repro_torch.configs import get_config
+from repro_torch.kernels import build, ops
+from repro_torch.launch.serve import lm_prompts
+from repro_torch.launch.steps import make_prefill_step
+from repro_torch.models import transformer as T
+build.load()
+dev = torch.device("cuda")
+g = torch.Generator(device=dev).manual_seed(15)
+out = {}
+for tag, shape in (("prefill", (4, 64, 2048, 64, 128)), ("batch 1", (1, 64, 2048, 64, 128))):
+    x, a, b, c = C._ssd_operands(g, dev, torch.bfloat16, *shape, True)
+    out[tag + " ms"] = C.time_ms(lambda: ops.ssd_chunk(x, a, b, c), reps=10, trials=5)[0]
+cfg = get_config("mamba2-1.3b")
+params = T.init_lm(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+prompts = lm_prompts(0, 4, 2048, cfg.vocab).to(dev)
+prefill = make_prefill_step(cfg, max_len=2048 + 16)
+walls = []
+for i in range(6):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter() - t0)
+out["mamba2 prefill ms"] = statistics.median(walls[1:]) * 1e3
+print(json.dumps(out))
+"""
+
+
+def ssd_in_turns(parent_root: str) -> dict:
+    """ssd_chunk at the prefill and batch-1 shapes and mamba2-1.3b's steady
+    bf16 prefill in the tree at ``parent_root`` and in this one, in turns
+    (parent, this, this, parent), each a fresh process that builds its own
+    kernels (~1 minute each): ``{tree: [runs]}``.  Run it as ``python3 -c
+    "import chip_smoke as C; C.ssd_in_turns('build/parent')"`` after
+    unpacking the parent commit there (``git archive``)."""
+    runs = {"parent": [], "this": []}
+    for tree in ("parent", "this", "this", "parent"):
+        cwd = os.path.abspath(parent_root) if tree == "parent" else ROOT
+        out = subprocess.run([sys.executable, "-c", _SSD_CHILD], cwd=cwd, check=True,
+                             capture_output=True, text=True, timeout=900).stdout
+        runs[tree].append(json.loads(out.strip().splitlines()[-1]))
+        print(f"ssd_chunk in turns [{tree}]: {runs[tree][-1]}", flush=True)
+    print(f"card: {gpu_label()}", flush=True)
+    return runs
 
 
 def _linear_loss_grads(fn, inputs, seed: int):
@@ -2258,8 +2389,8 @@ def ssm_train_checks(ops, dev, label: str) -> None:
 
 
 # The kernels whose registers, shared memory and spills the run reports.
-PTXAS_SOURCES = ("rev_heun", "flash_attention")
-PTXAS_KERNELS = ("brownian_value_kernel", "flash_attention_f32")
+PTXAS_SOURCES = ("rev_heun", "flash_attention", "ssd_chunk")
+PTXAS_KERNELS = ("brownian_value_kernel", "flash_attention_f32", "ssd_chunk_kernel")
 
 
 def start_ptxas_report():
@@ -2425,7 +2556,9 @@ def main() -> int:
         elif name == "ssd_chunk":  # timed at the mamba2 prefill shape, bf16
             r = ssd_row
             launches = serve_launches = ssm_serve["launches"]
-            extra = {}
+            extra = {k: r[k] for k in ("cuda_core_bound_ms", "shape", "blocks",
+                                       "ms_by_slices", "batch1", "sass")}
+            extra["ptxas"] = {k: v for k, v in ptxas_usage.items() if "ssd_chunk" in k}
         elif name == "fused_mlp":  # timed at the training batch (1024, 17 -> 32 -> 16)
             r = mlp_rows["train/serve B1024"]
             launches = train_launches[name]

@@ -41,7 +41,7 @@ NVCC_FLAGS = (ARCH_FLAG, "-fmad=false", "-O3", "-std=c++17", "-Xcompiler", "-fPI
 
 _P, _I, _I64, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
 #: C signature of every entry point (all return cudaGetLastError(), but the
-#: grid query rt_brownian_value_blocks, which returns an int64 count).
+#: grid queries in INT64_RESULTS, which return an int64 count).
 SIGNATURES = {
     "rt_brownian_increment": (_I, _P, _I64, _D, _P, _I64, _I64, _P),
     "rt_brownian_value": (_I, _P, _P, _D, _D, _I, _P, _I64, _I64, _P),
@@ -53,11 +53,13 @@ SIGNATURES = {
     "rt_rev_heun_bwd_phase1": (_I, _P, _P, _P, _P, _D, _P, _P, _I64, _P),
     "rt_rev_heun_bwd_phase2": (_I, _P, _P, _P, _D, _P, _P, _P, _P, _I64, _P),
     "rt_flash_attention": (_I, _I, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _D, _P, _P),
-    "rt_ssd_chunk": (_I, _I, _I, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P, _P),
+    "rt_ssd_chunk": (_I, _I, _I, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P, _I64, _P),
+    "rt_ssd_chunk_slices": (_I, _I, _I, _I64),
     "rt_fused_mlp": (_I, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P),
     "rt_fused_xent_fwd": (_I, _P, _P, _P, _P, _I64, _I64, _P),
     "rt_fused_xent_bwd": (_I, _P, _P, _P, _P, _P, _I64, _I64, _P),
 }
+INT64_RESULTS = ("rt_brownian_value_blocks", "rt_ssd_chunk_slices")
 
 _lock = threading.Lock()
 _lib = None
@@ -142,7 +144,7 @@ def load():
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)
-                fn.restype = _I64 if name == "rt_brownian_value_blocks" else ctypes.c_int
+                fn.restype = _I64 if name in INT64_RESULTS else ctypes.c_int
             _lib = lib
     return _lib
 

@@ -163,7 +163,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "tensor_core.cuh"
+
 namespace repro_torch_attention {
+
+using namespace repro_torch_tc;
 
 constexpr float kMasked = -1e30f;     // the TPU kernel's NEG_INF
 
@@ -206,46 +210,6 @@ struct Geometry {
   static_assert(D % kBoxCols == 0 && kKVBytes % 1024 == 0, "tile geometry");
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Wait until the barrier's phase of parity `parity` has completed.  A phase
-// that never completes (a lost arrival) traps after ~10 s instead of
-// hanging the card, and the launcher's next CUDA call reports it.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity))
-    if (clock64() - t0 > 20000000000ll) __trap();
-}
-
 // One box of a 4-D tensor map (coordinates innermost first) into shared
 // memory; its bytes count against the barrier's transaction count.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
@@ -287,12 +251,6 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
   for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -791,20 +749,6 @@ struct F32Geometry {
   static_assert(kRows % kF32Keys == 0, "query tiles are whole key tiles");
 };
 
-// 16 bytes global -> shared without registers; src_bytes 0 writes zeros.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Rows row0 .. row0 + kRowsT - 1 of one head's (S, D) slab, rows `ld`
 // elements apart, into a tile at `dst` with rows kLdT apart; rows at or
 // past S are zero.
@@ -818,50 +762,6 @@ __device__ __forceinline__ void load_tile_async(float* dst, const float* __restr
     cp_async16(smem_addr(dst + r * kLdT + c),
                in ? src + static_cast<int64_t>(row0 + r) * ld + c : src, in ? 16 : 0);
   }
-}
-
-// x rounded to TF32 (10 explicit mantissa bits), to nearest with ties away
-// from zero on the magnitude: cvt.rna.tf32.f32's value, low 13 bits zero.
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-
-// x = big + small: big = rna(x) and small = x - big (exact, |small| <=
-// 2^-11 |x|), handed to the tensor core as f32 bits, which reads their TF32
-// part (it drops the low 13 bits: small rounded toward zero, as CUTLASS's
-// fast-f32 products do).  big·y_big + big·y_small + small·y_big then misses
-// at most ~5·2^-22 of x·y (small·small, and the two truncated smalls), and
-// costs 3 instructions a split where rounding small too would cost 5.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  big = tf32_rna(x);
-  small = __float_as_uint(__fsub_rn(x, __uint_as_float(big)));
-}
-
-// c (16 x 8, f32) += a (16 x 8, TF32) . b (8 x 8, TF32).  Fragments, with
-// g = lane / 4 and t = lane % 4: a = (g, t), (g + 8, t), (g, t + 4),
-// (g + 8, t + 4); b = (k t, n g), (k t + 4, n g); c = (g, 2t), (g, 2t + 1),
-// (g + 8, 2t), (g + 8, 2t + 1).
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A split pair of fragments (big, small).
-struct Split4 {
-  uint32_t big[4], small[4];
-};
-struct Split2 {
-  uint32_t big[2], small[2];
-};
-
-// c += a . b at f32 accuracy: the two small cross products, then big·big.
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const Split4& a, const Split2& b) {
-  mma_tf32(c, a.small, b.big[0], b.big[1]);
-  mma_tf32(c, a.big, b.small[0], b.small[1]);
-  mma_tf32(c, a.big, b.big[0], b.big[1]);
 }
 
 // Q.K^T sums over D in the k order 0, 2, 4, 6, 1, 3, 5, 7 of each 8: a

@@ -9,11 +9,14 @@ x's dtype and the terminal state ``(B, H, N, P)`` in float32.  Operands are
 read through their strides (the last axis contiguous), so the mixer's
 transposed x and a and its head-broadcast b and c (stride 0) go in as
 views; y is allocated with x's strides.  The kernel is in
-``csrc/ssd_chunk.cu``; its plain version is
+``csrc/ssd_chunk.cu`` (chunks of CHUNK positions, products on tensor
+cores: bf16 MMAs, or split TF32 for float32); its plain version is
 :func:`repro_torch.kernels.ref.ssd_chunk`.  The kernel sums in the chunked
 matrix form, the plain version position by position, so they agree to a
 tolerance (y: f32 2e-4, bf16 6e-2; the state: 2e-4 of its largest
-magnitude), not bitwise.
+magnitude), not bitwise.  A block owns one (batch, head, slice of P); the
+launcher picks the slices (:func:`slices`) so that a small batch still
+gives every SM a block, and every slice count gives the same bits.
 
 Gradients: the launch is one :class:`~repro_torch.kernels.vjp.PlainVJP`
 node, whose backward is the VJP of the plain recurrence at the saved x, a,
@@ -40,7 +43,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 STATE_SIZES = (16, 128)
 HEAD_DIMS = (16, 64)
 #: Positions per chunk in the kernel (``kL`` in csrc/ssd_chunk.cu).
-CHUNK = 32
+CHUNK = 64
 
 
 def check_operands(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -78,7 +81,16 @@ def check_operands(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"ssd_chunk: operands must be CUDA tensors, got {x.device}")
 
 
-def _launch(x, a, b, c):
+def slices(dtype: torch.dtype, N: int, P: int, BH: int) -> int:
+    """The P slices the launcher cuts each (batch, head) into for ``BH``
+    (batch, head) pairs on the current card: a block owns one (batch, head,
+    slice), so the grid is ``BH · slices`` blocks (csrc/ssd_chunk.cu)."""
+    return int(build.load().rt_ssd_chunk_slices(DTYPE_CODES[dtype], N, P, BH))
+
+
+def _launch(x, a, b, c, slices: int = 0):
+    """One launch; ``slices`` 0 is the launcher's choice (:func:`slices`),
+    else the P slices to cut (a power of two leaving 16 columns or more)."""
     B, H, S, P = x.shape
     N = b.shape[-1]
     y = torch.empty_like(x)
@@ -90,7 +102,7 @@ def _launch(x, a, b, c):
     with build.device_guard(x.device):
         err = lib.rt_ssd_chunk(
             DTYPE_CODES[x.dtype], N, P, x.data_ptr(), a.data_ptr(), b.data_ptr(),
-            c.data_ptr(), y.data_ptr(), h.data_ptr(), B, H, S, strides,
+            c.data_ptr(), y.data_ptr(), h.data_ptr(), B, H, S, strides, slices,
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check("ssd_chunk", err)
     LAUNCHES["ssd_chunk"] += 1

@@ -10,8 +10,10 @@ operands' result (every chip_smoke.py attention shape in float32), and a
 two-layer smoke LM's prefill routed through it; the ``brownian_value``
 redesign's edges (rows, sizes, depths; the grid) bitwise; the SSD chunk-scan kernel
 against its plain version (y: float32 2e-4, bfloat16 6e-2; the state 2e-4
-of its largest magnitude) and a two-layer smoke mamba2 prefill through it;
-the SDE field MLP kernel against its plain version (float32 2e-5, bfloat16
+of its largest magnitude) at its edges (the four (N, P) pairs, S around
+the chunk, batch 1, a strong decay, rows off 16-byte boundaries), two
+launches, contiguous copies and every slice count bitwise equal, and a
+two-layer smoke mamba2 prefill through it; the SDE field MLP kernel against its plain version (float32 2e-5, bfloat16
 6e-2, float64 1e-12), row-invariant bitwise, and the depth-1 fields routed
 through it; gradients through the MLP, attention and SSD kernels bitwise
 the plain path's for a loss linear in the outputs; the cross-entropy
@@ -385,13 +387,27 @@ def test_smoke_lm_prefill_runs_through_the_kernel(cuda, monkeypatch):
     assert caches[0]["k"].shape == (2, 2, 80, cfg.num_kv_heads, cfg.head_dim)
 
 
+# (B, H, S, P, N, a's scale): the four (N, P) pairs; S ragged, = 1, < the
+# chunk (64), = the chunk, one past it; batch 1 at mamba2-1.3b's heads and
+# widths (the launcher cuts P into slices); a strong decay (a = −5|N(0, 1)|)
+SSD_CASES = [(2, 8, 100, 16, 16, 0.1), (1, 4, 300, 64, 128, 0.1), (2, 3, 1, 64, 16, 0.1),
+             (1, 2, 64, 16, 128, 0.1), (2, 3, 33, 16, 128, 0.1), (1, 2, 65, 64, 16, 0.1),
+             (1, 64, 200, 64, 128, 0.1), (1, 8, 500, 64, 128, 5.0)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,H,S,P,N", [(2, 8, 100, 16, 16), (1, 4, 300, 64, 128),
-                                       (2, 3, 1, 64, 16), (1, 2, 64, 16, 128)])
-def test_ssd_chunk_kernel_matches_plain_version(cuda, dtype, B, H, S, P, N):
+@pytest.mark.parametrize("B,H,S,P,N,scale", SSD_CASES)
+def test_ssd_chunk_kernel_matches_plain_version(cuda, dtype, B, H, S, P, N, scale):
+    """x and a as the mixer's transposed views, b expanded over the heads
+    (stride 0): y within 2e-4 (f32) / 6e-2 (bf16) of the plain recurrence,
+    the state within 2e-4 of its largest, both finite; two launches, the
+    contiguous operands and every slice count the launcher takes give the
+    same bits."""
+    from repro_torch.kernels import ssd_chunk as ssd_kernel
+
     g = torch.Generator().manual_seed(S)
-    x = torch.randn(B, H, S, P, generator=g).to(cuda, dtype)
-    a = -0.1 * torch.randn(B, H, S, generator=g).abs().to(cuda)
+    x = torch.randn(B, S, H, P, generator=g).to(cuda, dtype).transpose(1, 2)
+    a = (-scale * torch.randn(B, S, H, generator=g).abs()).to(cuda).transpose(1, 2)
     b = (0.5 * torch.randn(B, 1, S, N, generator=g)).to(cuda, dtype).expand(B, H, S, N)
     c = (0.5 * torch.randn(B, H, S, N, generator=g)).to(cuda, dtype)
     ops.reset_launch_counts()
@@ -400,9 +416,48 @@ def test_ssd_chunk_kernel_matches_plain_version(cuda, dtype, B, H, S, P, N):
     y_ref, h_ref = ops.ssd_chunk(x, a, b, c, use_kernel=False)
     torch.cuda.synchronize()
     assert y.dtype == dtype and y.shape == x.shape and h.shape == (B, H, N, P)
+    assert torch.isfinite(y.float()).all() and torch.isfinite(h).all()
     tol = 2e-4 if dtype == torch.float32 else 6e-2
     torch.testing.assert_close(y.float(), y_ref.float(), rtol=tol, atol=tol)
     assert (h - h_ref).abs().max() <= 2e-4 * h_ref.abs().max()
+    again = ops.ssd_chunk(x, a, b, c)
+    contiguous = ops.ssd_chunk(*(t.contiguous() for t in (x, a, b, c)))
+    widest = 32 if dtype == torch.float32 and N == 128 else P
+    by_slices = [ssd_kernel._launch(x, a, b, c, slices=n) for n in (1, 2, 4)
+                 if 16 <= P // n <= widest]
+    for y2, h2 in (again, contiguous, *by_slices):
+        assert torch.equal(y2, y) and torch.equal(h2, h)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_kernel_reads_rows_off_16_byte_boundaries(cuda, dtype):
+    """x, b and c whose rows start one element past a 16-byte boundary
+    (views into wider buffers) take the kernel's plain-load path and give
+    the bits of 16-byte-aligned copies."""
+    B, H, S, P, N = 1, 4, 150, 64, 128
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(B, H, S, P + 1, generator=g).to(cuda, dtype)[..., 1:]
+    a = -0.1 * torch.randn(B, H, S, generator=g).abs().to(cuda)
+    b, c = ((0.5 * torch.randn(B, H, S, N + 1, generator=g)).to(cuda, dtype)[..., 1:]
+            for _ in range(2))
+    assert x.data_ptr() % 16 and x.stride(-1) == 1
+    y, h = ops.ssd_chunk(x, a, b, c)
+    y2, h2 = ops.ssd_chunk(x.contiguous(), a, b.contiguous(), c.contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    y_ref, _ = ops.ssd_chunk(x, a, b, c, use_kernel=False)
+    tol = 2e-4 if dtype == torch.float32 else 6e-2
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=tol, atol=tol)
+
+
+def test_ssd_chunk_grid_fills_the_card_at_batch_1(cuda):
+    """mamba2-1.3b's 64 heads at batch 1 give at least 128 blocks (one
+    (batch, head, P slice) each); at batch 4 the 256 (batch, head) blocks are
+    not cut."""
+    from repro_torch.kernels import ssd_chunk as ssd_kernel
+
+    assert 64 * ssd_kernel.slices(torch.bfloat16, 128, 64, 64) >= 128
+    assert ssd_kernel.slices(torch.bfloat16, 128, 64, 256) == 1
 
 
 def test_smoke_mamba2_prefill_runs_through_the_kernel(cuda, monkeypatch):
