@@ -15,7 +15,8 @@ non-zero and the final result line is never printed):
    (1 row of B·17): bitwise (max |Δ| must be 0).  Times each with CUDA
    events beside the plain version at the shapes the main paths give it:
    the training state (B in {64, 1024}, d = 17) and the serving bucket
-   (B = 1024, d = 16).
+   (B = 1024, d = 16).  Then the card's launch floor: an empty kernel
+   (``torch.cuda._sleep(0)``) timed back to back the same way.
 3b. (Run right after 3.)  ``fused_mlp`` (every depth-1 SDE field: Linear
    → LipSwish → Linear) against its plain version in float32 (2e-5),
    bfloat16 (6e-2) and float64 (1e-12) at every field shape of the ELBO,
@@ -24,7 +25,12 @@ non-zero and the final result line is never printed):
    bitwise (1 vs 1000 vs 1024); timed at MLP_TIMED (the training batches,
    the 1024-row decode bucket's 17 → 32 → 16, nu, the SDE-GAN sigma, the
    burst) beside the plain version, the layer loop the fields ran before
-   (1024-row blocks) and the bound.
+   (1024-row blocks) and the bound.  Its backward kernel ``fused_mlp_bwd``
+   against ``ref.fused_mlp_bwd`` at MLP_SHAPES × rows MLP_BWD_ROWS in the
+   three dtypes (MLP_TOL), two launches bitwise, dx rows invariant, an
+   expanded cotangent bitwise its copy; timed at MLP_TIMED beside the plain
+   VJP the node ran before, the plain version and its bound.  Then the
+   launcher's host cost a call, piece by piece (``launcher_costs``).
 4. Checks the in-port identities bitwise: ΔW from ``rev_heun_phase1_gen``
    = ΔW from ``brownian_increment`` = the plain ``BrownianPath.increment``,
    and the fused decode = the unfused decode.
@@ -34,16 +40,18 @@ non-zero and the final result line is never printed):
 6. Training, the slice's main path: ``train_latent_sde`` (the train CLI's
    entry point) runs 3 ELBO steps at batch 64, fused, with the launch
    counts zeroed just before and read just after — the six solver kernels
-   must launch exactly 184 times per step (46 forward, 138 backward) and
-   ``fused_mlp`` 286 times (98 forward, 188 backward; STEP_LAUNCHES) —
+   must launch exactly 184 times per step (46 forward, 138 backward),
+   ``fused_mlp`` 286 times (98 forward, 188 backward) and ``fused_mlp_bwd``
+   98 times (STEP_LAUNCHES) —
    then the same 3 steps unfused: finite losses, parameters
    bitwise equal.  The fused run writes a serving bundle, which
    ``serve_sde`` restores and serves (train -> serve handshake).  Then
    the fused and the unfused step's steps/s at batch 64 and 1024, timed in
    turns, and the device idle share of one step of each under
    ``torch.profiler``; at batch 64 the device kernels of one fused step with
-   the fields through ``fused_mlp`` and under ``plain_mlp()`` (the layer
-   loop they ran before).
+   the fields through ``fused_mlp`` and its backward kernel, in the
+   ``PlainVJP`` node they had before (``plainvjp_mlp()``) and under
+   ``plain_mlp()`` (the layer loop they ran before the kernel).
 7. Memory: peak allocated bytes of one training step (the trajectory-form
    ELBO) and of one gradient of the terminal-form ELBO, at 23 and 230
    solver steps (24 observations, stride 1 and 10), exact adjoint vs
@@ -83,12 +91,13 @@ non-zero and the final result line is never printed):
    0.05, batch 256, x_dim 32, rtol 2e-3, atol 1e-5, budget 2048), bridge
    depth 10 and 24: the fused gradient's launches asserted per phase
    (forward 1 + A ``brownian_value``, A of each phase; backward 2N
-   ``brownian_value``, 2N ``rev_heun_phase1``, N of each other phase, for
-   A attempts and N accepted steps); fused ≡ unfused bitwise; float64
+   ``brownian_value``, 2N ``rev_heun_phase1``, N of each other phase and
+   N + 1 ``fused_mlp_bwd``, for A attempts and N accepted steps); fused ≡
+   unfused bitwise; float64
    exact vs autograd through the frozen accepted grid (≤1e-12 relative);
    peak memory of both at rtol 2e-3 and 2e-4.  ``fused_mlp`` must launch;
-   the device kernels of one gradient (depth 10) with it and under
-   ``plain_mlp()``.
+   the device kernels of one gradient (depth 10) with it, in the
+   ``PlainVJP`` node and under ``plain_mlp()``.
 12. ``flash_attention`` (the LM prefill's GQA attention) against its plain
    version on the card, the same float scale 1/sqrt(D) given to both:
    float32 (rtol = atol = 2e-5) and bfloat16 (6e-2, and ‖Δ‖/‖want‖ of
@@ -139,8 +148,9 @@ non-zero and the final result line is never printed):
    HMMA on bf16 in the bf16 kernels, HMMA on TF32 in the f32 ones.  Timed
    in turns at the prefill and the batch-1 shapes (bf16, the mixer's
    layout) beside the plain version, the tensor-core bound and the
-   earlier design's CUDA-core f32 bound; no single PyTorch call computes
-   it, so there is no library time.
+   earlier design's CUDA-core f32 bound, and float32 at the prefill shape
+   beside its split-TF32 bound; no single PyTorch call computes it, so
+   there is no library time.
 16. LM parity, float32, full width at two layers (mamba2-1.3b with
    ``num_layers=2``), as phase 13: B = 2, S = 512 prefill and 8 greedy
    decode steps through the kernel and with every SSD scan on the plain
@@ -153,8 +163,9 @@ non-zero and the final result line is never printed):
    the prefill, none in decode; profiles of one prefill and one decode
    step; the full-depth prefill on the plain scan.
 17b. Gradients through the kernels: for a loss linear in the outputs,
-   ``fused_mlp``, ``flash_attention`` and ``ssd_chunk`` (strided x and a,
-   stride-0 b and c) give the plain path's gradients bitwise; one backward
+   ``flash_attention`` and ``ssd_chunk`` (strided x and a, stride-0 b and
+   c) give the plain path's gradients bitwise, ``fused_mlp`` (one launch
+   of its backward kernel) within MLP_TOL of them; one backward
    of a two-layer smoke LM's next-token loss (qwen2.5-14b's and
    mamba2-1.3b's families) reaches every parameter, finite, through one
    kernel launch per layer.
@@ -190,22 +201,25 @@ non-zero and the final result line is never printed):
    the plain route: the loss within 6e-2, every leaf's gradient finite.
 22. Prints a ``{"kernels": [...]}`` JSON line (``launches``: the count on
    the path each kernel was ported for — training (3 steps) for the solver
-   kernels and ``fused_mlp``, the adaptive gradient for
+   kernels, ``fused_mlp`` and ``fused_mlp_bwd``, the adaptive gradient for
    ``brownian_value``, the 2048-token LM serves for ``flash_attention``
    and ``ssd_chunk``, one LM training step of phase 20 for ``fused_xent``
    and ``fused_xent_bwd``; ``adaptive_launches``: the fused adaptive
    gradient's; ``serve_launches``: the Latent-SDE service's, the adaptive
    service's for ``brownian_value``, the LM serves' for
    ``flash_attention`` and ``ssd_chunk``; ``ptxas``: the registers,
-   shared memory and spills of ``brownian_value``, the float32 attention
-   and ``ssd_chunk``, compiled once more with ``-Xptxas -v`` in the
+   shared memory and spills of ``brownian_value``, the float32 attention,
+   ``ssd_chunk`` and ``fused_mlp_bwd``, compiled once more with ``-Xptxas -v`` in the
    background) and, last, the result line ``{"ok": true, "device":
    {...}}``.
 
 ``drain_in_turns(parent_root)`` (not run by ``main``) times phase 10's
 adaptive serving drain in another tree and this one, in turns;
 ``ssd_in_turns(parent_root)`` (neither) times ``ssd_chunk`` and
-mamba2-1.3b's prefill there and here, in turns.
+mamba2-1.3b's prefill there and here, in turns; ``elbo_in_turns``
+(neither) the fused ELBO step at batch 64 and 1024, the depth-10 adaptive
+gradient (walls, launches, device kernels) and the ``fused_mlp``
+launcher's host cost there and here, in turns.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -269,6 +283,9 @@ KERNEL_SOURCES = {
                   "src/repro/kernels/ssd_chunk.py:59"),
     "fused_mlp": ("src/repro_torch/kernels/csrc/fused_mlp.cu",
                   "src/repro/kernels/fused_mlp.py:43"),
+    # no TPU kernel: XLA differentiates the plain definition of the kernel above
+    "fused_mlp_bwd": ("src/repro_torch/kernels/csrc/fused_mlp.cu",
+                      "src/repro/kernels/fused_mlp.py:43"),
     "fused_xent": ("src/repro_torch/kernels/csrc/fused_xent.cu",
                    "src/repro/kernels/xent.py:56"),
     "fused_xent_bwd": ("src/repro_torch/kernels/csrc/fused_xent.cu",
@@ -284,7 +301,20 @@ MLP_SHAPES = [(17, 32, 16), (33, 32, 16), (16, 32, 16), (8, 32, 16), (4, 32, 16)
 # 1e-12 in float64: the kernel sums each row in its own fixed order, the
 # plain version in cuBLAS's.
 MLP_TOL = {torch.float32: 2e-5, torch.bfloat16: 6e-2, torch.float64: 1e-12}
+# The backward's dW1, db1, dW2 and db2 are sums over the R rows.  In float32
+# the kernel's order and cuBLAS's each round by ~sqrt(R)·eps times the
+# partial sums (~sqrt(R) times a term), ~1e-5 at R = 300 and width 512,
+# which 2e-5 absolute misses where a sum cancels to near zero: they are
+# held within MLP_TOL of their own largest magnitude as well (atol = 2e-5 ×
+# max |want|, as the SSD state is held), which grows with sqrt(R).  dx sums
+# over H per row and keeps MLP_TOL; bfloat16 and float64 keep MLP_TOL.
 LIPSWISH_OPS = 6  # neg, exp, add, div, mul, mul per hidden unit
+# the backward per hidden unit: pre's bias add, LipSwish and a (6), then
+# 1 − s, pre·s·(1 − s), s + ..., 0.909·(...), da·(...) (5), db1's add (1)
+LIPSWISH_BWD_OPS = 13
+# rows of the backward kernel's checks: one block, the ELBO batch, a ragged
+# count, the 1024-row bucket
+MLP_BWD_ROWS = (1, 64, 300, 1024)
 # (tag, rows, Din, H, Dout), float32: the ELBO's training batches and, at
 # 1024 rows, the 1024-row decode bucket's prior mu and sigma (the same
 # 17 -> 32 -> 16); the posterior nu, the SDE-GAN sigma and the burst.
@@ -377,10 +407,13 @@ SERVE_KERNELS = ("rev_heun_phase1_gen", "rev_heun_phase2", "brownian_increment")
 # evaluation.  Forward: qz0 and zeta, then the solve's 24 evaluations (t0
 # and one per step) = 2 + 96; backward: per step the reconstruction's and
 # the local VJP's evaluations (8), then the initial VJP's (4) = 188.
+# The backward kernel runs for every field launch whose output carries a
+# gradient: qz0 and zeta (2), 4 in each local VJP (92) and 4 in the initial
+# VJP (4) = 98; the solve's forward and the reconstruction run no_grad.
 STEP_LAUNCHES = {"rev_heun_phase1_gen": 23, "rev_heun_phase2": 46,
                  "brownian_increment": 23, "rev_heun_phase1": 46,
                  "rev_heun_bwd_phase1": 23, "rev_heun_bwd_phase2": 23,
-                 "fused_mlp": 286}
+                 "fused_mlp": 286, "fused_mlp_bwd": 98}
 # The Latent SDE at the widths the repo trains it at (examples/
 # latent_sde_air_quality.py:75, src/repro/launch/train.py:318).
 WIDTHS = dict(data_dim=2, hidden_dim=16, context_dim=16, initial_noise_dim=8,
@@ -631,6 +664,190 @@ def mlp_checks(ops, dev) -> tuple:
     return rows_out, errs
 
 
+def mlp_bwd_bound(rows: int, din: int, h: int, dout: int, dtype) -> tuple:
+    """Least time for one backward call: x, the weights, b1 and g read and
+    dx, dW1, db1, dW2, db2 written once, against the products (pre
+    recomputed, da = g·W2ᵀ, dW2, dW1, dx: 2·rows·(3·Din·H + 2·H·Dout)
+    flops), LIPSWISH_BWD_OPS per hidden unit and db2's adds, over the
+    dtype's peak (float32 outside the tensor cores for bfloat16's float32
+    arithmetic); -> (ms, 'bytes'|'operations')."""
+    s = torch.finfo(dtype).bits // 8
+    weights = din * h + h + h * dout
+    nbytes = (rows * din + weights + rows * dout + rows * din + weights + dout) * s
+    ops = (2 * rows * (3 * din * h + 2 * h * dout) + rows * h * LIPSWISH_BWD_OPS
+           + rows * dout)
+    peak = PEAK_OPS_PER_S[torch.float32 if dtype == torch.bfloat16 else dtype]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def mlp_bwd_atol(name: str, want: torch.Tensor) -> float:
+    """The absolute tolerance of one backward output against its plain
+    version: MLP_TOL, and for float32 sums over rows (dW, db) at least
+    MLP_TOL of the largest |want| (see MLP_TOL)."""
+    tol = MLP_TOL[want.dtype]
+    if want.dtype == torch.float32 and name != "dx":
+        return max(tol, tol * want.abs().max().item())
+    return tol
+
+
+def _plain_vjp_mlp(x, w, g):
+    """The backward fused_mlp had before its kernel: the plain version's VJP
+    at the saved inputs (kernels/vjp.py), as autograd runs it (no grad)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.vjp import plain_vjp
+
+    with torch.no_grad():
+        return plain_vjp(ref.fused_mlp, (x, *w), (g,), (True,) * 5, {})
+
+
+def mlp_bwd_checks(ops, dev) -> tuple:
+    """Phase 3b, the backward: fused_mlp_bwd against ref.fused_mlp_bwd at
+    MLP_SHAPES × MLP_BWD_ROWS in the three dtypes (MLP_TOL, finite, the
+    inputs' shapes and dtypes), two launches bitwise, dx rows invariant (1
+    vs 1000 vs 1024), an expanded cotangent bitwise its contiguous copy;
+    then timed at MLP_TIMED beside the plain VJP the node ran before, the
+    plain version and the bound.
+    Returns ({tag: row}, {dtype: max |Δ|})."""
+    from repro_torch.kernels import build, fused_mlp as fm, ref
+
+    lib = build.load()
+    g0 = torch.Generator().manual_seed(161)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16, torch.float64):
+        code = fm.DTYPE_CODES[dtype]
+        for din, h, dout in MLP_SHAPES:
+            for rows in MLP_BWD_ROWS:
+                x, *w = _mlp_operands(g0, dev, dtype, rows, din, h, dout)
+                g = torch.randn(rows, dout, generator=g0, dtype=torch.float64).to(dev, dtype)
+                ops.reset_launch_counts()
+                got = fm._launch_bwd(x, *w, g)
+                check(ops.launch_counts()["fused_mlp_bwd"] == 1, "fused_mlp_bwd: not one launch")
+                again = fm._launch_bwd(x, *w, g)
+                want = ref.fused_mlp_bwd(x, *w, g)
+                torch.cuda.synchronize()
+                tol = MLP_TOL[dtype]
+                where = f"fused_mlp_bwd {str(dtype)[6:]} rows={rows} {(din, h, dout)}"
+                for name, a, b, t in zip(("dx", "dW1", "db1", "dW2", "db2"), got, want,
+                                         (x, *w)):
+                    d = (a.double() - b.double()).abs().max().item()
+                    atol = mlp_bwd_atol(name, b)
+                    check(a.dtype == dtype and a.shape == t.shape
+                          and torch.isfinite(a).all().item()
+                          and torch.allclose(a, b, rtol=tol, atol=atol),
+                          f"{where}: {name} kernel != plain (max |Δ| {d}, rtol {tol}, atol "
+                          f"{atol})")
+                    errs[dtype] = max(errs.get(dtype, 0.0), d)
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"{where}: two launches differ")
+            x, *w = _mlp_operands(g0, dev, dtype, 1024, din, h, dout)
+            g = torch.randn(1024, dout, generator=g0, dtype=torch.float64).to(dev, dtype)
+            full = fm._launch_bwd(x, *w, g)[0]
+            check(torch.equal(fm._launch_bwd(x[:1000].contiguous(), *w,
+                                             g[:1000].contiguous())[0], full[:1000])
+                  and all(torch.equal(fm._launch_bwd(x[r:r + 1].contiguous(), *w,
+                                                     g[r:r + 1].contiguous())[0][0], full[r])
+                          for r in (0, 511, 999, 1023)),
+                  f"fused_mlp_bwd {dtype} {(din, h, dout)}: dx rows differ between 1, 1000 "
+                  f"and 1024-row launches")
+            ge = g[:1].expand(1024, dout)
+            check(all(torch.equal(a, b) for a, b in zip(fm._launch_bwd(x, *w, ge),
+                                                         fm._launch_bwd(x, *w, ge.contiguous()))),
+                  f"fused_mlp_bwd {dtype} {(din, h, dout)}: an expanded g != its copy")
+        blocks = {r: lib.rt_fused_mlp_bwd_blocks(code, r, 17, 32, 16)
+                  for r in MLP_BWD_ROWS}
+        print(f"fused_mlp_bwd {str(dtype)[6:]}: kernel vs ref.fused_mlp_bwd max |Δ| "
+              f"{errs[dtype]:.3g} (rtol = atol = {MLP_TOL[dtype]}; float32 dW, db: atol "
+              f"{MLP_TOL[dtype]} of their largest) over (Din, H, Dout) in MLP_SHAPES x "
+              f"rows {MLP_BWD_ROWS}; two launches bitwise; dx rows invariant (1 vs 1000 vs "
+              f"1024); blocks at 17 -> 32 -> 16 by rows {blocks}", flush=True)
+
+    rows_out = {}
+    for tag, rows, din, h, dout in MLP_TIMED:
+        x, *w = _mlp_operands(g0, dev, torch.float32, rows, din, h, dout)
+        g = torch.randn(rows, dout, generator=g0).to(dev)
+        k_ms, k_host = time_ms(lambda: fm._launch_bwd(x, *w, g))
+        v_ms, v_host = time_ms(lambda: _plain_vjp_mlp(x, w, g))
+        p_ms, p_host = time_ms(lambda: ref.fused_mlp_bwd(x, *w, g))
+        b_ms, b_by = mlp_bwd_bound(rows, din, h, dout, torch.float32)
+        blocks = lib.rt_fused_mlp_bwd_blocks(0, rows, din, h, dout)
+        print(f"fused_mlp_bwd float32 {tag} {(rows, din, h, dout)} ({blocks} blocks): kernel "
+              f"{k_ms:.5f} ms (host {k_host:.5f}), the plain VJP {v_ms:.5f} ms (host "
+              f"{v_host:.5f}), ref.fused_mlp_bwd {p_ms:.5f} ms (host {p_host:.5f}), bound "
+              f"{b_ms:.7f} ms ({b_by})", flush=True)
+        rows_out[tag] = dict(ms=k_ms, host_ms=k_host, plain_ms=v_ms, plain_host_ms=v_host,
+                             ref_ms=p_ms, ref_host_ms=p_host, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=None, blocks=blocks)
+    return rows_out, errs
+
+
+def host_us(fn, n: int = 2000, trials: int = 5) -> float:
+    """Host microseconds per call: ``n`` calls back to back by the host
+    clock (median of trials), the card synchronised after each trial."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(trials):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        out.append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(out)
+
+
+def launcher_costs(dev) -> dict:
+    """The host cost of a fused_mlp call at 1024 × 17 -> 32 -> 16 (float32),
+    piece by piece: the launcher's pieces, the pieces of the launcher before
+    them that still exist to call (its output allocation, stream lookup and
+    PlainVJP node), and the whole calls.  µs per call."""
+    from repro_torch import nn
+    from repro_torch.kernels import build, fused_mlp as fm, ops, ref
+    from repro_torch.kernels.vjp import PlainVJP
+
+    g0 = torch.Generator().manual_seed(5)
+    x, *w = _mlp_operands(g0, dev, torch.float32, 1024, 17, 32, 16)
+    g = torch.randn(1024, 16, generator=g0).to(dev)
+    xg, *wg = (t.detach().requires_grad_() for t in (x, *w))
+    params = {"layers": [{"w": w[0], "b": w[1]}, {"w": w[2], "b": w[3]}]}
+    lib = build.load()
+    idx = dev.index or 0
+    stream = fm._stream(idx)
+    out = torch.empty(1024, 16, device=dev)
+    args = (0, x.data_ptr(), w[0].data_ptr(), w[1].data_ptr(), w[2].data_ptr(),
+            w[3].data_ptr(), out.data_ptr(), 1024, 17, 32, 16, stream)
+    pieces = {
+        "checks (check_operands)": lambda: fm.check_operands(x, *w),
+        "output: x.new_empty": lambda: x.new_empty((1024, 16)),
+        "output: torch.empty(shape, dtype, device) (parent)":
+            lambda: torch.empty((1024, 16), dtype=torch.float32, device=x.device),
+        "stream: raw handle": lambda: fm._stream(idx),
+        "stream: torch.cuda.current_stream(dev).cuda_stream (parent)":
+            lambda: torch.cuda.current_stream(x.device).cuda_stream,
+        "device guard": lambda: build.device_guard(idx).__enter__(),
+        "ctypes: the twelve-argument call (+ kernel enqueue)": lambda: lib.rt_fused_mlp(*args),
+        "x.data_ptr() x6": lambda: (x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(),
+                                   x.data_ptr(), x.data_ptr()),
+        "x.contiguous() (nn/core.py)": lambda: x.contiguous(),
+        "_launch (no checks, no node)": lambda: fm._launch(x, *w),
+        "fused_mlp, no node (no input requires grad)": lambda: fm.fused_mlp(x, *w),
+        "fused_mlp, MLPFunction node (inputs require grad)": lambda: fm.fused_mlp(xg, *wg),
+        "PlainVJP node around _launch (parent's node)":
+            lambda: PlainVJP.apply(fm._launch, ref.fused_mlp, {}, xg, *wg),
+        "ops.fused_mlp (dispatch), no node": lambda: ops.fused_mlp(x, *w),
+        "nn.mlp (a field's whole call), no node": lambda: nn.mlp(params, x),
+        "backward: its five outputs, torch.empty_like each":
+            lambda: [torch.empty_like(t) for t in (x, *w)],
+        "backward: _launch_bwd": lambda: fm._launch_bwd(x, *w, g),
+        "backward: the plain VJP (parent)": lambda: _plain_vjp_mlp(x, w, g),
+    }
+    costs = {name: host_us(fn) for name, fn in pieces.items()}
+    for name, us in costs.items():
+        print(f"launcher host cost: {name}: {us:.2f} us", flush=True)
+    return costs
+
+
 def identity_checks(ops, dev) -> None:
     """Phase 4: ΔW and fused/unfused identities inside the port, bitwise."""
     from repro_torch.core.brownian import BrownianPath
@@ -702,7 +919,8 @@ def adjoint_checks(dev) -> None:
 def train_checks(ops, dev, label: str) -> dict:
     """Phase 6: the training main path through train_latent_sde, fused and
     unfused; the train -> serve handshake; steps/s and the device profile.
-    Returns the fused run's launch counts."""
+    Returns the fused run's launch counts and the device kernels of one
+    step (with the backward kernel, the PlainVJP node, the layer loop)."""
     from repro_torch import tree
     from repro_torch.launch.train import train_latent_sde
     from repro_torch.serving import serve_sde
@@ -737,9 +955,8 @@ def train_checks(ops, dev, label: str) -> dict:
     print(f"train -> serve: the fused run's bundle served {served['trajectories']} "
           f"trajectories (finite, (24, n, 2)); fused == unfused parameters bitwise",
           flush=True)
-    for batch in (64, 1024):
-        step_rate(dev, batch, label)
-    return launches
+    kernels = [step_rate(dev, batch, label) for batch in (64, 1024)][0]
+    return dict(launches, device_kernels=kernels)
 
 
 def _train_step(dev, batch: int, fused: bool = True, num_steps: int = 23,
@@ -760,7 +977,7 @@ def _train_step(dev, batch: int, fused: bool = True, num_steps: int = 23,
     return lambda: step(params, state, key)
 
 
-def step_rate(dev, batch: int, label: str) -> None:
+def step_rate(dev, batch: int, label: str):
     """Steps/s of the fused and the unfused step, taken in turns (fused,
     unfused, unfused, fused, ...; host clock around synchronised steps), and
     one step of each under the profiler."""
@@ -783,7 +1000,8 @@ def step_rate(dev, batch: int, label: str) -> None:
     for variant, run in runs.items():
         profile_call(run, f"{label}] [train {variant} B={batch}")
     if batch == 64:
-        compare_kernels(runs["fused"], label, "ELBO step (fused, B=64)")
+        return compare_kernels(runs["fused"], label, "ELBO step (fused, B=64)")
+    return None
 
 
 def _terminal_grad(dev, num_steps: int, gradient_mode: str):
@@ -1082,6 +1300,103 @@ def drain_in_turns(parent_root: str) -> dict:
     return runs
 
 
+# One process of one tree (run from its root): the fused ELBO step at batch
+# 64 and 1024 and the depth-10 adaptive gradient (walls of synchronised
+# calls by the host clock, medians), their launches and device kernels (one
+# profiled call), and the fused_mlp launcher's host cost per call at 1024 ×
+# 17 -> 32 -> 16 (float32): the whole call, the launch without checks, the
+# checks, and the ctypes call as that tree makes it.  Only functions both
+# trees' chip_smoke.py have are used.  Prints one JSON line.
+_ELBO_CHILD = r"""
+import json, statistics, sys, time
+sys.path[:0] = [".", "src"]
+import torch
+import chip_smoke as C
+from repro_torch import nn
+from repro_torch.kernels import build, fused_mlp as fm, ops
+lib = build.load()
+dev = torch.device("cuda")
+torch.backends.cuda.matmul.allow_tf32 = False
+out = {}
+def walls(run, n):
+    run()
+    torch.cuda.synchronize()
+    ws = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        ws.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ws), ws
+runs = {"elbo B64": C._train_step(dev, 64), "elbo B1024": C._train_step(dev, 1024),
+        "adaptive grad depth 10": C._adaptive_grad(dev, torch.float32, True, 10)}
+for tag, run in runs.items():
+    out[tag + " ms"], out[tag + " all ms"] = walls(run, 9)
+    ops.reset_launch_counts()
+    run()
+    torch.cuda.synchronize()
+    out[tag + " launches"] = {k: v for k, v in ops.launch_counts().items() if v}
+    prof = C.profile_call(run, tag)
+    out[tag + " device kernels"] = prof["kernels"]
+    out[tag + " busy ms"] = prof["busy_ms"]
+    out[tag + " idle"] = prof["idle"]
+g = torch.Generator().manual_seed(5)
+x, *w = C._mlp_operands(g, dev, torch.float32, 1024, 17, 32, 16)
+params = {"layers": [{"w": w[0], "b": w[1]}, {"w": w[2], "b": w[3]}]}
+o = torch.empty(1024, 16, device=dev)
+ptrs = [t.data_ptr() for t in (x, *w, o)]
+stream = torch.cuda.current_stream(dev).cuda_stream
+call = lambda: lib.rt_fused_mlp(0, *ptrs, 1024, 17, 32, 16, stream)
+def host_us(fn, n=2000):
+    fn()
+    torch.cuda.synchronize()
+    res = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        res.append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(res)
+out["host us"] = {"ops.fused_mlp": host_us(lambda: ops.fused_mlp(x, *w)),
+                  "nn.mlp": host_us(lambda: nn.mlp(params, x)),
+                  "fm._launch": host_us(lambda: fm._launch(x, *w)),
+                  "fm.check_operands": host_us(lambda: fm.check_operands(x, *w)),
+                  "ctypes launch": host_us(call)}
+out["time_ms host ms"] = C.time_ms(lambda: ops.fused_mlp(x, *w))[1]
+print(json.dumps(out))
+"""
+
+
+def elbo_in_turns(parent_root: str) -> dict:
+    """The fused ELBO step (batch 64 and 1024) and the depth-10 adaptive
+    gradient, their launches and device kernels, and the fused_mlp
+    launcher's host cost, in the tree at ``parent_root`` and in this one, in
+    turns (parent, this, this, parent), each a fresh process that builds
+    its own kernels (~1–2 minutes each): ``{tree: [runs]}``.  Run it as
+    ``python3 -c "import chip_smoke as C; C.elbo_in_turns('build/parent')"``
+    after unpacking the parent commit there (``git archive``)."""
+    runs = {"parent": [], "this": []}
+    for tree in ("parent", "this", "this", "parent"):
+        cwd = os.path.abspath(parent_root) if tree == "parent" else ROOT
+        out = subprocess.run([sys.executable, "-c", _ELBO_CHILD], cwd=cwd, check=True,
+                             capture_output=True, text=True, timeout=900).stdout
+        runs[tree].append(json.loads(out.strip().splitlines()[-1]))
+        print(f"ELBO in turns [{tree}]: {runs[tree][-1]}", flush=True)
+    print(f"card: {gpu_label()}", flush=True)
+    return runs
+
+
+def launch_floor() -> dict:
+    """The card's launch floor: the device time per launch of an empty
+    kernel (``torch.cuda._sleep(0)``) back to back behind a stream hold, and
+    the host time per launch, by CUDA events (time_ms)."""
+    ms, host = time_ms(lambda: torch.cuda._sleep(0), reps=200)
+    print(f"launch floor: torch.cuda._sleep(0) back to back {ms:.5f} ms a launch on the card "
+          f"(host {host:.5f} ms a call)", flush=True)
+    return {"launch_floor_ms": ms, "launch_floor_host_ms": host}
+
+
 def _gan_params(dev, seed: int):
     from repro_torch.core.sde import NeuralSDEConfig, generator_init
 
@@ -1258,9 +1573,11 @@ def adaptive_grad_checks(ops, dev, label: str) -> dict:
         z_f, g_f = run_f()
         torch.cuda.synchronize()
         c = ops.launch_counts()
+        # the burst's one field MLP carries a gradient in each local VJP and
+        # in the initial VJP
         want = {"brownian_value": 1 + A + 2 * N, "rev_heun_phase1": A + 2 * N,
                 "rev_heun_phase2": A + N, "rev_heun_bwd_phase1": N, "rev_heun_bwd_phase2": N,
-                "brownian_increment": 0, "rev_heun_phase1_gen": 0}
+                "brownian_increment": 0, "rev_heun_phase1_gen": 0, "fused_mlp_bwd": N + 1}
         print(f"[{label}] adaptive gradient (float32, depth {depth}): {N} accepted, "
               f"{A - N} rejected; launches {c}", flush=True)
         for name, n in want.items():
@@ -1286,7 +1603,8 @@ def adaptive_grad_checks(ops, dev, label: str) -> dict:
                   f"{', '.join(f'{x * 1e3:.1f}' for x in w)} ms)", flush=True)
         profile_call(run_f, f"{label}] [adaptive gradient fused depth {depth}")
         if depth == 10:
-            compare_kernels(run_f, label, "adaptive gradient (fused, depth 10)")
+            counts["device_kernels"] = compare_kernels(run_f, label,
+                                                       "adaptive gradient (fused, depth 10)")
     print("adaptive gradient: launches as the code reads, fused == unfused bitwise "
           "(depth 10 and 24)", flush=True)
 
@@ -1517,16 +1835,46 @@ def plain_mlp():
         nn_core._mlp_dispatch = dispatch
 
 
-def compare_kernels(fn, label: str, what: str) -> None:
-    """One profiled call with the fields through fused_mlp and one under
-    plain_mlp(): the device kernels (and copies) each issues."""
+@contextlib.contextmanager
+def plainvjp_mlp():
+    """Route every depth-1 field through fused_mlp inside the node it had
+    before its backward kernel (``kernels/vjp.py:PlainVJP``: the forward
+    kernel, the plain version's VJP as the backward, a node whatever the
+    grad mode), for the device kernels the backward kernel saves."""
+    from repro_torch.kernels import fused_mlp as fm, ref
+    from repro_torch.kernels.vjp import PlainVJP
+    from repro_torch.nn import core as nn_core
+
+    def dispatch_then(layers, x):
+        (l1, l2) = layers
+        args = (x.contiguous(), l1["w"], l1["b"], l2["w"], l2["b"])
+        fm.check_operands(*args)
+        return PlainVJP.apply(fm._launch, ref.fused_mlp, {}, *args)
+
+    dispatch = nn_core._mlp_dispatch
+    nn_core._mlp_dispatch = dispatch_then
+    try:
+        yield
+    finally:
+        nn_core._mlp_dispatch = dispatch
+
+
+def compare_kernels(fn, label: str, what: str) -> dict:
+    """One profiled call with the fields through fused_mlp (its backward
+    kernel), one with them in the PlainVJP node (plainvjp_mlp()) and one
+    under plain_mlp(): the device kernels (and copies) each issues."""
     with_kernel = profile_call(fn, f"{label}] [{what}, fields through fused_mlp")
+    with plainvjp_mlp():
+        plain_vjp = profile_call(fn, f"{label}] [{what}, fields in the PlainVJP node")
     with plain_mlp():
         without = profile_call(fn, f"{label}] [{what}, fields on the layer loop")
-    print(f"[{label}] device kernels per {what}: {with_kernel['kernels']} with fused_mlp, "
+    print(f"[{label}] device kernels per {what}: {with_kernel['kernels']} with fused_mlp and "
+          f"its backward kernel, {plain_vjp['kernels']} with the PlainVJP node, "
           f"{without['kernels']} under plain_mlp(); wall {with_kernel['wall_ms']:.3f} vs "
-          f"{without['wall_ms']:.3f} ms; idle share {with_kernel['idle']} vs "
-          f"{without['idle']}", flush=True)
+          f"{plain_vjp['wall_ms']:.3f} vs {without['wall_ms']:.3f} ms; idle share "
+          f"{with_kernel['idle']} vs {plain_vjp['idle']} vs {without['idle']}", flush=True)
+    return {"kernel": with_kernel["kernels"], "plain_vjp": plain_vjp["kernels"],
+            "layer_loop": without["kernels"]}
 
 
 @contextlib.contextmanager
@@ -1888,7 +2236,16 @@ def ssd_checks(ops, dev) -> tuple:
                          blocks=B * H * slices, ms_by_slices=by_slices)
         del x, a, b, c
         torch.cuda.empty_cache()
-    row = dict(rows["prefill"], batch1=rows["batch 1"],
+    B, H, S, P, N = SSD_PREFILL
+    x, a, b, c = _ssd_operands(g, dev, torch.float32, B, H, S, P, N, True)
+    f32_ms, f32_host = time_ms(lambda: ops.ssd_chunk(x, a, b, c), reps=10, trials=5)
+    f32_bound, f32_by = ssd_bound(B, H, S, P, N, torch.float32, b_heads=1, L=ssd_kernel.CHUNK)
+    print(f"ssd_chunk float32 prefill {SSD_PREFILL} (mixer views): kernel {f32_ms:.4f} ms (host "
+          f"{f32_host:.4f}), bound {f32_bound:.4f} ms ({f32_by}, split TF32)", flush=True)
+    del x, a, b, c
+    torch.cuda.empty_cache()
+    rows["f32 prefill"] = dict(ms=f32_ms, host_ms=f32_host, bound_ms=f32_bound, bound_by=f32_by)
+    row = dict(rows["prefill"], batch1=rows["batch 1"], f32_prefill=rows["f32 prefill"],
                sass={f: {"HMMA_BF16": sass_count(m, "HMMA", "BF16"),
                          "HMMA_TF32": sass_count(m, "HMMA", "TF32"),
                          "HGMMA": sass_count(m, "HGMMA")} for f, m in mix.items()})
@@ -1963,9 +2320,10 @@ def _linear_loss_grads(fn, inputs, seed: int):
 
 def lm_grad_checks(ops, dev, label: str) -> None:
     """Phase 17b: gradients through the hand kernels.  For a loss linear in
-    the outputs, fused_mlp's, flash_attention's and ssd_chunk's gradients
-    (the plain versions' VJPs at the saved inputs) are bitwise the plain
-    path's; then one backward of a two-layer smoke LM's next-token loss
+    the outputs, flash_attention's and ssd_chunk's gradients (the plain
+    versions' VJPs at the saved inputs) are bitwise the plain path's, and
+    fused_mlp's (its backward kernel, one launch) within MLP_TOL of them;
+    then one backward of a two-layer smoke LM's next-token loss
     (qwen2.5-14b's and mamba2-1.3b's families) reaches every parameter with
     a finite gradient, through one kernel launch per layer."""
     from repro_torch import tree
@@ -1991,15 +2349,27 @@ def lm_grad_checks(ops, dev, label: str) -> None:
         got = _linear_loss_grads(fn, inputs, 3)
         torch.cuda.synchronize()
         n = ops.launch_counts()[name]
+        n_bwd = ops.launch_counts()["fused_mlp_bwd"]
         want = _linear_loss_grads(lambda *t: fn(*t, use_kernel=False), inputs, 3)
         torch.cuda.synchronize()
         check(n == 1, f"{name}: {n} launches in one gradient, want 1")
-        check(all(a is not None and torch.equal(a, b) for a, b in zip(got, want)),
-              f"{name}: gradients through the kernel != the plain path's (max |Δ| "
-              f"{max((a - b).abs().max().item() for a, b in zip(got, want) if a is not None)})")
-    print("gradients: fused_mlp, flash_attention and ssd_chunk (strided x and a, "
-          "stride-0 b and c) give the plain path's gradients bitwise for a linear loss",
-          flush=True)
+        diff = max((a - b).abs().max().item() for a, b in zip(got, want) if a is not None)
+        check(all(a is not None for a in got), f"{name}: an input got no gradient")
+        if name == "fused_mlp":
+            tol = MLP_TOL[torch.float32]
+            check(n_bwd == 1 and all(torch.allclose(a, b, rtol=tol, atol=mlp_bwd_atol(o, b))
+                                     for o, a, b in zip(("dx", "dW1", "db1", "dW2", "db2"),
+                                                        got, want)),
+                  f"fused_mlp: {n_bwd} backward launches, gradients max |Δ| {diff} from the "
+                  f"plain path's (tolerance {tol})")
+            mlp_diff = diff
+        else:
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"{name}: gradients through the kernel != the plain path's (max |Δ| {diff})")
+    print(f"gradients: flash_attention and ssd_chunk (strided x and a, stride-0 b and c) "
+          f"give the plain path's gradients bitwise for a linear loss; fused_mlp's backward "
+          f"kernel (one launch) within {mlp_diff:.3g} of them (tolerance "
+          f"{MLP_TOL[torch.float32]})", flush=True)
 
     for arch, kernel in ((LM_ARCH, "flash_attention"), (SSM_ARCH, "ssd_chunk")):
         cfg = smoke_config(arch)
@@ -2389,8 +2759,9 @@ def ssm_train_checks(ops, dev, label: str) -> None:
 
 
 # The kernels whose registers, shared memory and spills the run reports.
-PTXAS_SOURCES = ("rev_heun", "flash_attention", "ssd_chunk")
-PTXAS_KERNELS = ("brownian_value_kernel", "flash_attention_f32", "ssd_chunk_kernel")
+PTXAS_SOURCES = ("rev_heun", "flash_attention", "ssd_chunk", "fused_mlp")
+PTXAS_KERNELS = ("brownian_value_kernel", "flash_attention_f32", "ssd_chunk_kernel",
+                 "fused_mlp_bwd_kernel")
 
 
 def start_ptxas_report():
@@ -2509,9 +2880,13 @@ def main() -> int:
 
     xent_rows, xent_errs = xent_checks(ops, dev)
     rows, errs = kernel_checks(ops, dev)
+    floor = launch_floor()
     errs.update(xent_errs)
     mlp_rows, mlp_errs = mlp_checks(ops, dev)
     errs["fused_mlp"] = max(mlp_errs.values())
+    mlp_bwd_rows, mlp_bwd_errs = mlp_bwd_checks(ops, dev)
+    errs["fused_mlp_bwd"] = max(mlp_bwd_errs.values())
+    host_costs = launcher_costs(dev)
     value_rows, errs["brownian_value"] = value_checks(ops, dev)
     identity_checks(ops, dev)
     adjoint_checks(dev)
@@ -2534,7 +2909,8 @@ def main() -> int:
 
     print(f"kernels: {', '.join(KERNEL_SOURCES)} (route cuda; bitwise = plain except "
           f"flash_attention, within {ATTN_TOL}, ssd_chunk, within {SSD_TOL} and the "
-          f"state within {SSD_STATE_RTOL} of its largest, fused_mlp, within {MLP_TOL}, and "
+          f"state within {SSD_STATE_RTOL} of its largest, fused_mlp and fused_mlp_bwd, "
+          f"within {MLP_TOL}, and "
           f"fused_xent, within {XENT_TOL} (its backward within 1e-5 / one bf16 ulp); "
           f"decodes: {serve['decodes']})", flush=True)
     entries = []
@@ -2566,7 +2942,20 @@ def main() -> int:
             extra = {"max_abs_err_by_dtype": {str(k)[6:]: v for k, v in mlp_errs.items()},
                      "layers_ms": r["layers_ms"], "layers_host_ms": r["layers_host_ms"],
                      "timed": {tag: {k: v for k, v in row.items() if k != "library_ms"}
-                               for tag, row in mlp_rows.items()}}
+                               for tag, row in mlp_rows.items()},
+                     "launcher_host_us": host_costs,
+                     "device_kernels_per_elbo_step": train_launches["device_kernels"],
+                     "device_kernels_per_adaptive_gradient":
+                         adaptive_launches["device_kernels"]}
+        elif name == "fused_mlp_bwd":  # timed at the training batch, as fused_mlp
+            r = mlp_bwd_rows["train/serve B1024"]
+            launches = train_launches[name]
+            serve_launches = serve["launches"][name]
+            extra = {"max_abs_err_by_dtype": {str(k)[6:]: v for k, v in mlp_bwd_errs.items()},
+                     "plain_is": "the plain VJP (kernels/vjp.py:plain_vjp of ref.fused_mlp)",
+                     "ptxas": {k: v for k, v in ptxas_usage.items() if "fused_mlp_bwd" in k},
+                     "timed": {tag: {k: v for k, v in row.items() if k != "library_ms"}
+                               for tag, row in mlp_bwd_rows.items()}}
         elif name == "brownian_value":  # timed at the adaptive gradient's shape
             r = value_rows["grad"]
             launches = adaptive_launches[name]
@@ -2583,7 +2972,7 @@ def main() -> int:
             r = rows[(name, torch.float32, 1024, 17)]  # the training timing batch
             launches = train_launches[name]
             serve_launches = serve["launches"][name]
-            extra = {}
+            extra = dict(floor)
         entries.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches, "max_abs_err": errs[name],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -37,7 +37,8 @@ def get_config(name: str) -> ArchConfig:
     if name in NOT_PORTED:
         raise ArchNotPortedError(
             f"arch {name!r} ({NOT_PORTED[name]} family) is not ported yet: the port "
-            f"has the dense and SSM families {ARCH_NAMES} — ROADMAP.md Queue 1, item 14")
+            f"has the dense and SSM families {ARCH_NAMES} — "
+            f"ROADMAP.md Queue 1, 'The rest of the LM zoo'")
     if name not in REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
     return REGISTRY[name]

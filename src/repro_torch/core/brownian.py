@@ -55,7 +55,8 @@ class BrownianPath:
         if self.levy_area is not None:
             raise SpaceTimeLevyNotPortedError(
                 "levy_area='space-time' (the srk solver's (W, H) pairs) is not "
-                "ported yet — ROADMAP.md Queue 1, item 10")
+                "ported yet — ROADMAP.md Queue 1, "
+                "'The rest of the Brownian layer, then space-time Lévy area and srk'")
         if self.key.dtype != torch.int64 or self.key.shape[-1:] != (2,):
             raise ValueError(f"key must be an int64 (..., 2) tensor, got "
                              f"{self.key.dtype} {tuple(self.key.shape)}")

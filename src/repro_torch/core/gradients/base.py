@@ -73,5 +73,6 @@ def resolve_precision(precision) -> None:
         raise NotImplementedError(
             "precision='bf16_compute' (bf16 field evaluation, "
             "repro.core.gradients.base.resolve_precision) is not ported yet — "
-            "ROADMAP.md Queue 1, item 9")
+            "ROADMAP.md Queue 1, "
+            "'The remaining gradient backends, solvers and the precision policy'")
     raise ValueError(f"unknown precision {precision!r}; one of {PRECISION_POLICIES}")

@@ -56,10 +56,15 @@ SIGNATURES = {
     "rt_ssd_chunk": (_I, _I, _I, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P, _I64, _P),
     "rt_ssd_chunk_slices": (_I, _I, _I, _I64),
     "rt_fused_mlp": (_I, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P),
+    "rt_fused_mlp_bwd": (_I, _P, _P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P, _P, _I64, _I64,
+                         _I, _I, _I, _P),
+    "rt_fused_mlp_bwd_scratch": (_I, _I64, _I, _I, _I),
+    "rt_fused_mlp_bwd_blocks": (_I, _I64, _I, _I, _I),
     "rt_fused_xent_fwd": (_I, _P, _P, _P, _P, _I64, _I64, _P),
     "rt_fused_xent_bwd": (_I, _P, _P, _P, _P, _P, _I64, _I64, _P),
 }
-INT64_RESULTS = ("rt_brownian_value_blocks", "rt_ssd_chunk_slices")
+INT64_RESULTS = ("rt_brownian_value_blocks", "rt_ssd_chunk_slices", "rt_fused_mlp_bwd_scratch",
+                 "rt_fused_mlp_bwd_blocks")
 
 _lock = threading.Lock()
 _lib = None
@@ -150,11 +155,13 @@ def load():
 
 
 def device_guard(device):
-    """Make ``device`` current for a launch; a no-op when it already is (the
-    single-card case), which saves the guard's cost on every launch."""
-    if device.index is None or device.index == torch.cuda.current_device():
+    """Make ``device`` (a CUDA device or its index) current for a launch; a
+    no-op when it already is (the single-card case), which saves the guard's
+    cost on every launch."""
+    index = device if isinstance(device, int) else device.index
+    if index is None or index == torch.cuda.current_device():
         return contextlib.nullcontext()
-    return torch.cuda.device(device)
+    return torch.cuda.device(index)
 
 
 def check(name: str, err: int) -> None:

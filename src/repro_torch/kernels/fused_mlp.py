@@ -1,22 +1,36 @@
-"""Launcher of the SDE field MLP CUDA kernel (port of
+"""Launchers of the SDE field MLP CUDA kernels (port of
 :mod:`repro.kernels.fused_mlp`).
 
 :func:`fused_mlp` replaces the Pallas kernel at
 src/repro/kernels/fused_mlp.py:43: Linear → LipSwish → Linear in one
 launch, x ``(..., Din)``, w1 ``(Din, H)``, b1 ``(H,)``, w2 ``(H, Dout)``,
 b2 ``(Dout,)`` in float32, float64 or bfloat16 -> ``(..., Dout)`` in x's
-dtype.  The kernel is in ``csrc/fused_mlp.cu``; its plain version is
-:func:`repro_torch.kernels.ref.fused_mlp`.  The kernel sums each row in one
-fixed order (so a row's bits do not depend on how many rows share the
-launch), the plain version in the BLAS's order, so the two agree to a
-tolerance (f32 2e-5, bf16 6e-2, f64 1e-12), not bitwise.
+dtype.  Its backward is one launch of a second kernel, which writes dx,
+dW1, db1, dW2 and db2 together.  Both are in ``csrc/fused_mlp.cu``; their
+plain versions are :func:`repro_torch.kernels.ref.fused_mlp` and
+:func:`~repro_torch.kernels.ref.fused_mlp_bwd`.  The kernels sum in fixed
+orders of their own (a row's bits do not depend on how many rows share the
+launch; dW and db depend on the row count alone), the plain versions in
+the BLAS's, so the two agree to a tolerance (f32 2e-5, bf16 6e-2, f64
+1e-12), not bitwise.
 
-Gradients: the launch is one :class:`~repro_torch.kernels.vjp.PlainVJP`
-node.  Its forward launches the kernel whatever the grad mode (the exact
-adjoint re-evaluates the fields under ``enable_grad`` and needs the
-forward's bits); its backward is the VJP of the plain version at the saved
-inputs, so second derivatives are the plain version's.  The JAX package has
-no backward kernel for this one either.
+Gradients: a launch that can carry a gradient (grad mode on and an input
+that requires one) is one :class:`MLPFunction` node, which saves the five
+inputs and nothing else; any other launch makes no node.  The forward
+launches the kernel whatever the grad mode (the exact adjoint re-evaluates
+the fields under ``enable_grad`` and needs the forward's bits).  The
+backward dispatches on the grad mode: outside ``create_graph`` it is one
+launch of the backward kernel; with grad mode on it is the plain version's
+VJP (:func:`repro_torch.kernels.vjp.plain_vjp`), so a second derivative
+(the SDE-GAN's gradient penalty) is the plain version's, never zero.  On a
+CUDA tensor neither path catches a failed build or launch.  The JAX
+package has no backward kernel: XLA differentiates the plain definition.
+
+The launchers keep their host cost low (the SDE paths are bound by it):
+the stream is read as its raw handle, a launch that carries no gradient
+makes no autograd node, and the backward's scratch (a ticket counter, zero
+between launches, and the per-block partial sums) is kept per device and
+stream.
 """
 
 from __future__ import annotations
@@ -24,10 +38,10 @@ from __future__ import annotations
 import torch
 
 from . import build, ref
-from .vjp import PlainVJP
+from .vjp import plain_vjp
 
-#: Kernel launches made by this module's wrapper (one per launch).
-LAUNCHES = {"fused_mlp": 0}
+#: Kernel launches made by this module's wrappers (one per launch).
+LAUNCHES = {"fused_mlp": 0, "fused_mlp_bwd": 0}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 #: Shared memory a block may use for one row of x and of the hidden
@@ -65,25 +79,117 @@ def check_operands(x, w1, b1, w2, b2) -> None:
         raise ValueError(f"fused_mlp: operands must be CUDA tensors, got {x.device}")
 
 
+def _stream(index: int) -> int:
+    """The raw handle of the current stream of device ``index``."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def _launch(x, w1, b1, w2, b2):
-    din, dout = w1.shape[0], w2.shape[1]
-    out = torch.empty(x.shape[:-1] + (dout,), dtype=x.dtype, device=x.device)
-    rows = out.numel() // dout
+    """One forward launch -> ``(..., Dout)`` (operands already checked)."""
+    din, hidden = w1.shape
+    dout = w2.shape[1]
+    out = x.new_empty(x.shape[:-1] + (dout,))
+    rows = x.numel() // din
     if rows == 0:
         return out
     lib = build.load()
-    with build.device_guard(x.device):
+    index = x.get_device()
+    with build.device_guard(index):
         err = lib.rt_fused_mlp(
             DTYPE_CODES[x.dtype], x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), out.data_ptr(), rows, din, w1.shape[1], dout,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            b2.data_ptr(), out.data_ptr(), rows, din, hidden, dout, _stream(index))
     build.check("fused_mlp", err)
     LAUNCHES["fused_mlp"] += 1
     return out
 
 
+_PLANS: dict = {}    # (dtype code, R, Din, H, Dout) -> scratch bytes
+_SCRATCH: dict = {}  # (device, stream) -> uint8 scratch, ticket zero between launches
+
+
+def _scratch(index: int, stream: int, nbytes: int) -> torch.Tensor:
+    """The stream's scratch, grown (zeroed, so the ticket starts at 0) when
+    a launch needs more; launches on one stream run in order, so they may
+    share it, and no two streams do."""
+    buf = _SCRATCH.get((index, stream))
+    if buf is None or buf.numel() < nbytes:
+        size = max(nbytes, 2 * buf.numel() if buf is not None else 0)
+        buf = torch.zeros(size, dtype=torch.uint8, device=torch.device("cuda", index))
+        _SCRATCH[(index, stream)] = buf
+    return buf
+
+
+def _launch_bwd(x, w1, b1, w2, b2, g):
+    """One backward launch -> ``(dx, dW1, db1, dW2, db2)`` in the inputs'
+    shapes and dtype, from the inputs and the cotangent ``g`` (``(...,
+    Dout)``, any strides a ``(R, Dout)`` view takes)."""
+    din, hidden = w1.shape
+    dout = w2.shape[1]
+    grads = (torch.empty_like(x), torch.empty_like(w1), torch.empty_like(b1),
+             torch.empty_like(w2), torch.empty_like(b2))
+    rows = x.numel() // din
+    if rows == 0:
+        for t in grads[1:]:
+            t.zero_()
+        return grads
+    code = DTYPE_CODES[x.dtype]
+    key = (code, rows, din, hidden, dout)
+    nbytes = _PLANS.get(key)
+    lib = build.load()
+    if nbytes is None:
+        nbytes = _PLANS[key] = lib.rt_fused_mlp_bwd_scratch(code, rows, din, hidden, dout)
+    if nbytes < 0:
+        raise ValueError(f"fused_mlp_bwd: a row of Din + Dout + 2·H = {din + dout + 2 * hidden} "
+                         f"values exceeds the shared memory of a block")
+    g2 = g.reshape(rows, dout)
+    index = x.get_device()
+    stream = _stream(index)
+    scratch = _scratch(index, stream, nbytes)
+    dx, dw1, db1, dw2, db2 = grads
+    with build.device_guard(index):
+        err = lib.rt_fused_mlp_bwd(
+            code, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), g2.data_ptr(),
+            g2.stride(0), g2.stride(1), dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
+            dw2.data_ptr(), db2.data_ptr(), scratch.data_ptr(), scratch.numel(), rows, din,
+            hidden, dout, stream)
+    build.check("fused_mlp_bwd", err)
+    LAUNCHES["fused_mlp_bwd"] += 1
+    return grads
+
+
+class MLPFunction(torch.autograd.Function):
+    """``MLPFunction.apply(fwd, bwd, x, w1, b1, w2, b2)`` -> ``fwd``'s output.
+
+    ``fwd(x, w1, b1, w2, b2)`` and ``bwd(x, w1, b1, w2, b2, g) -> (dx, dW1,
+    db1, dW2, db2)`` are the two launches on the card; a CPU test builds the
+    node with the plain versions in their place.  The backward runs ``bwd``
+    with grad mode off and the plain version's VJP with it on (see the
+    module docstring); an input that needs no gradient gets None."""
+
+    @staticmethod
+    def forward(ctx, fwd, bwd, x, w1, b1, w2, b2):
+        ctx.bwd = bwd
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        return fwd(x, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = ctx.saved_tensors
+        needs = ctx.needs_input_grad[2:]
+        if torch.is_grad_enabled():  # create_graph: a differentiable VJP
+            grads = plain_vjp(ref.fused_mlp, inputs, (g,), needs, {})
+        elif any(needs):
+            grads = [d if need else None for d, need in zip(ctx.bwd(*inputs, g), needs)]
+        else:
+            grads = [None] * 5
+        return (None, None, *grads)
+
+
 def fused_mlp(x, w1, b1, w2, b2):
-    """``lipswish(x @ w1 + b1) @ w2 + b2`` in one launch, differentiable
-    through the plain version."""
+    """``lipswish(x @ w1 + b1) @ w2 + b2`` in one launch; differentiable
+    through the backward kernel when an input requires a gradient."""
     check_operands(x, w1, b1, w2, b2)
-    return PlainVJP.apply(_launch, ref.fused_mlp, {}, x, w1, b1, w2, b2)
+    if torch.is_grad_enabled() and (x.requires_grad or w1.requires_grad or b1.requires_grad
+                                    or w2.requires_grad or b2.requires_grad):
+        return MLPFunction.apply(_launch, _launch_bwd, x, w1, b1, w2, b2)
+    return _launch(x, w1, b1, w2, b2)

@@ -6,8 +6,10 @@ Each function but :func:`fused_mlp`, :func:`flash_attention`,
 computes, with the same op order, so the two agree bitwise on the card
 (chip_smoke.py checks it).  The MLP, attention and SSD kernels
 (``csrc/fused_mlp.cu``, ``csrc/flash_attention.cu``, ``csrc/ssd_chunk.cu``)
-sum in another order and are held to a tolerance; their backward passes are
-the autograd of the versions here (:mod:`repro_torch.kernels.vjp`).  The
+sum in another order and are held to a tolerance; the MLP's backward kernel
+is held to :func:`fused_mlp_bwd` the same way, and the attention's and the
+SSD scan's backward passes are the autograd of the versions here
+(:mod:`repro_torch.kernels.vjp`).  The
 cross-entropy kernels (``csrc/fused_xent.cu``) are held to a tolerance
 too, against :func:`fused_xent_fwd` and :func:`fused_xent_bwd`.  On
 the CPU, :mod:`repro_torch.kernels.ops` runs these instead of the kernels;
@@ -140,6 +142,37 @@ def fused_mlp(x, w1, b1, w2, b2):
     bfloat16 in float32 and sums in its own fixed order, so the two agree to
     a tolerance (f32 2e-5, bf16 6e-2, f64 1e-12), not bitwise."""
     return nn_core.lipswish(x @ w1 + b1) @ w2 + b2
+
+
+def fused_mlp_bwd(x, w1, b1, w2, b2, g):
+    """The VJP of :func:`fused_mlp` at cotangent ``g`` ``(..., Dout)`` ->
+    ``(dx, dW1, db1, dW2, db2)`` in the inputs' shapes and dtype (``b2``
+    is not read: ``db2 = Σ g``).  With ``pre = x·W1 + b1``, ``s = σ(pre)``::
+
+        a    = 0.909·pre·s              (rounded to x's dtype)
+        da   = g·W2ᵀ
+        dpre = da ⊙ 0.909·(s + pre·s·(1 − s))
+        dW2 = aᵀg,  db2 = Σ_rows g,  dW1 = xᵀ·dpre,  db1 = Σ_rows dpre,
+        dx  = dpre·W1ᵀ
+
+    float32 and float64 operands compute in their dtype; bfloat16 ones in
+    float32, with ``a`` rounded to bfloat16 and the gradients to bfloat16 at
+    the end: the arithmetic of the JAX package's Pallas kernel
+    (``preferred_element_type=float32``) and of ``csrc/fused_mlp.cu``.  The
+    backward kernel sums in its own order, so the two agree to a tolerance
+    (f32 2e-5, bf16 6e-2, f64 1e-12)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    din, dout = w1.shape[0], w2.shape[1]
+    xa = x.reshape(-1, din).to(acc)
+    ga = g.reshape(-1, dout).to(acc)
+    w1a = w1.to(acc)
+    pre = xa @ w1a + b1.to(acc)
+    s = 1.0 / (1.0 + torch.exp(-pre))
+    ps = pre * s
+    a = (0.909 * ps).to(x.dtype).to(acc)
+    dpre = (ga @ w2.to(acc).T) * (0.909 * (s + ps * (1.0 - s)))
+    grads = ((dpre @ w1a.T).reshape(x.shape), xa.T @ dpre, dpre.sum(0), a.T @ ga, ga.sum(0))
+    return tuple(t.to(x.dtype) for t in grads)
 
 
 def flash_attention(q, k, v, causal: bool = True, scale=None):

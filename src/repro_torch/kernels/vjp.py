@@ -1,11 +1,13 @@
 """Gradients through the hand kernels: forward by the kernel, backward by
 the plain version.
 
-The JAX package has no backward kernel for ``fused_mlp``,
-``flash_attention`` or ``ssd_chunk`` (XLA differentiates their plain
-definitions off the TPU), and the launchers write through ctypes into fresh
-tensors that carry no ``grad_fn``.  :class:`PlainVJP` gives each launch one
-autograd node:
+The JAX package has no backward kernel for ``flash_attention`` or
+``ssd_chunk`` (XLA differentiates their plain definitions off the TPU), and
+the launchers write through ctypes into fresh tensors that carry no
+``grad_fn``.  :class:`PlainVJP` gives each launch one autograd node (the
+field MLP has a backward kernel and a node of its own,
+:class:`repro_torch.kernels.fused_mlp.MLPFunction`, which takes
+:func:`plain_vjp` for second derivatives only):
 
 * **forward** runs ``launch(*inputs, **kwargs)`` (the kernel) whatever the
   grad mode, so a field re-evaluated under ``enable_grad`` in the exact

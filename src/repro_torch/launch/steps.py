@@ -85,8 +85,8 @@ def make_sample_step(workload: str, cfg, latent_mode: str = "prior", device=None
         raise ValueError(f"latent_mode must be 'prior' or 'posterior', got {latent_mode!r}")
     if latent_mode != "prior":
         raise ServingNotPortedError(
-            "latent_mode='posterior' is not ported yet — ROADMAP.md Queue 1, "
-            "items 6 and 12")
+            "latent_mode='posterior' is not ported yet — "
+            "ROADMAP.md Queue 1, 'The rest of serving'")
     dev = resolve_device(device)
 
     def sample(params, keys):
@@ -172,7 +172,8 @@ def make_latent_sde_step(cfg, opt_update, batch: int, seq_len: int,
                 else "binomial checkpointing")
         raise NotPortedError(
             f"adjoint={adjoint!r} (the reference's {what} over the terminal-form "
-            f"ELBO) is not ported yet — ROADMAP.md Queue 1, item 9")
+            f"ELBO) is not ported yet — ROADMAP.md Queue 1, "
+            f"'The remaining gradient backends, solvers and the precision policy'")
     if cfg.use_pallas_kernels and not (cfg.solver == "reversible_heun" and cfg.exact_adjoint):
         raise ValueError(
             f"use_pallas_kernels requires solver='reversible_heun' with "

@@ -97,7 +97,7 @@ def train(arch: str, steps: int, batch: int, seq: int, ckpt_dir: Optional[str],
     if cfg.frontend or cfg.family == "encdec":
         raise T.ModelNotPortedError(
             f"{arch}: the {cfg.family} family's training batches (prefix or source "
-            f"embeddings) are not ported yet — ROADMAP.md Queue 1, item 10")
+            f"embeddings) are not ported yet — ROADMAP.md Queue 1, 'The rest of the LM zoo'")
     dev = resolve_device(device)
     key = prng.PRNGKey(seed, device=dev)
     data_key = prng.fold_in_key(key, 1)

@@ -11,9 +11,9 @@ is how :func:`repro_torch.models.transformer.init_lm` stacks the layers.
 
 Not ported: ``distributed.sharding.hint``, ``checkpoint_name`` and the
 ``attn_mha_tp`` K/V repeat are layout hints for XLA's partitioner with no
-counterpart on one card (they return with ``distributed/``, ROADMAP.md
-Queue 1, item 13); ``blockwise_attention`` is the XLA path of the
-reference — on the card the attention runs in the CUDA kernel, on the CPU
+counterpart on one card (they return with ``distributed/``,
+ROADMAP.md Queue 1, 'Distributed'); ``blockwise_attention`` is the XLA
+path of the reference — on the card the attention runs in the CUDA kernel, on the CPU
 in its plain version; likewise ``ssd_chunked_dense`` is the reference's
 XLA form of the SSD scan, and the port's mixer calls the SSD kernel (its
 plain version on the CPU).  MLA, MoE and cross-attention raise
@@ -104,7 +104,7 @@ def _project_qkv(p, cfg: ArchConfig, x, positions, kv_source=None):
     if kv_source is not None:
         raise LayerNotPortedError(
             "cross-attention (kv_source) is the encoder-decoder family's; not ported "
-            "yet — ROADMAP.md Queue 1, item 14")
+            "yet — ROADMAP.md Queue 1, 'The rest of the LM zoo'")
     B, S, _ = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = x @ p["wq"]

@@ -57,7 +57,8 @@ class NotPortedError(NotImplementedError):
 
 def _not_ported(what: str):
     return ModelNotPortedError(f"{what} is not ported yet: the port has the dense "
-                               f"and SSM families — ROADMAP.md Queue 1, item 14")
+                               f"and SSM families — "
+                               f"ROADMAP.md Queue 1, 'The rest of the LM zoo'")
 
 
 # =============================================================================
@@ -184,7 +185,8 @@ def _stack_forward(params_units, cfg: ArchConfig, x, want_cache: bool = False):
     if remat and cfg.remat_policy == "collectives":
         raise NotPortedError(
             "remat_policy='collectives' (save only the post-all-reduce activations) "
-            "belongs to the distributed path, not ported yet — ROADMAP.md Queue 1, item 9")
+            "belongs to the distributed path, not ported yet — "
+            "ROADMAP.md Queue 1, 'Distributed'")
     per_unit = []
     for i in range(num_units(cfg)):
         if remat:

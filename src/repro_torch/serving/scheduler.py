@@ -1,6 +1,6 @@
 """Bucket sizes of the serving path (port of ``serve_buckets`` from
 :mod:`repro.serving.scheduler`; the continuous-batching scheduler itself is
-ROADMAP.md Queue 1, item 12)."""
+ROADMAP.md Queue 1, 'The rest of serving')."""
 
 from __future__ import annotations
 

@@ -14,7 +14,7 @@ fixed-grid rollout (:func:`_batch_loop`), and the SDE-GAN's adaptive
 terminal sampling with deadline-routed tolerances
 (:func:`_adaptive_terminal_loop`).  The posterior decode, streaming and
 the continuous-batching scheduler raise :class:`ServingNotPortedError`
-(ROADMAP.md Queue 1, item 12).
+(ROADMAP.md Queue 1, 'The rest of serving').
 """
 
 from __future__ import annotations
@@ -171,12 +171,12 @@ def serve_sde(workload: str, ckpt_dir=None, max_batch: int = 16,
     if stream_chunks > 1:
         raise ServingNotPortedError(
             "--stream-chunks (the chunked long-horizon rollout) is not ported yet "
-            "— ROADMAP.md Queue 1, item 12")
+            "— ROADMAP.md Queue 1, 'The rest of serving'")
     if latent_mode != "prior":
         raise ServingNotPortedError(
             f"latent_mode={latent_mode!r} is not ported yet (the port serves the "
-            f"prior decode; the posterior decode needs the encoder — ROADMAP.md "
-            f"Queue 1, items 6 and 12)")
+            f"prior decode; the posterior decode needs the encoder — "
+            f"ROADMAP.md Queue 1, 'The rest of serving')")
     if requests < 1 or request_max < 1:
         raise ValueError(f"requests ({requests}) and request_max ({request_max}) "
                          f"must both be >= 1")

@@ -15,8 +15,11 @@ the chunk, batch 1, a strong decay, rows off 16-byte boundaries), two
 launches, contiguous copies and every slice count bitwise equal, and a
 two-layer smoke mamba2 prefill through it; the SDE field MLP kernel against its plain version (float32 2e-5, bfloat16
 6e-2, float64 1e-12), row-invariant bitwise, and the depth-1 fields routed
-through it; gradients through the MLP, attention and SSD kernels bitwise
-the plain path's for a loss linear in the outputs; the cross-entropy
+through it; its backward kernel against ``ref.fused_mlp_bwd`` (the same
+tolerances), two launches bitwise, dx rows invariant, one launch a
+backward and none under create_graph; gradients through the attention and
+SSD kernels bitwise the plain path's for a loss linear in the outputs
+(the MLP's within its tolerances); the cross-entropy
 kernels against their plain versions (loss float32 1e-5, bfloat16 3e-2;
 dlogits float32 1e-5, bfloat16 one ulp), rows invariant bitwise, and a
 smoke LM training step's loss through them.
@@ -123,7 +126,8 @@ def test_each_launch_is_counted_once(cuda):
                                    "rev_heun_bwd_phase1": 1, "rev_heun_bwd_phase2": 1,
                                    "rev_heun_phase1_gen": 1, "brownian_increment": 1,
                                    "brownian_value": 1, "flash_attention": 1, "ssd_chunk": 1,
-                                   "fused_mlp": 1, "fused_xent": 1, "fused_xent_bwd": 1}
+                                   "fused_mlp": 1, "fused_mlp_bwd": 0, "fused_xent": 1,
+                                   "fused_xent_bwd": 1}
 
 
 def test_operands_are_checked(cuda):
@@ -248,7 +252,8 @@ def test_fused_training_step_equals_unfused_on_the_card(cuda):
     """float64, full widths, batch 64: the fused exact adjoint (six kernels)
     gives the unfused step's parameters bit for bit; one fused step launches
     46 forward and 138 backward kernels, and its fields 286 ``fused_mlp``
-    launches (98 forward, 188 backward)."""
+    launches (98 forward, 188 backward) and 98 ``fused_mlp_bwd`` (qz0 and
+    zeta, 4 in each of the 23 local VJPs and 4 in the initial VJP)."""
     widths = dict(data_dim=2, hidden_dim=16, context_dim=16, width=32, num_steps=23,
                   kl_weight=0.1, dtype=torch.float64)
     init, update = make_latent_sde_optimizer(1e-2)
@@ -265,7 +270,7 @@ def test_fused_training_step_equals_unfused_on_the_card(cuda):
     assert counts["rev_heun_phase1_gen"] == 23 and counts["brownian_increment"] == 23
     assert counts["rev_heun_phase1"] == 46 and counts["rev_heun_phase2"] == 46
     assert counts["rev_heun_bwd_phase1"] == 23 and counts["rev_heun_bwd_phase2"] == 23
-    assert counts["fused_mlp"] == 286
+    assert counts["fused_mlp"] == 286 and counts["fused_mlp_bwd"] == 98
     assert torch.isfinite(runs[1][2]["loss"])
     for a, b in zip(tree.leaves(runs[0][0]), tree.leaves(runs[1][0])):
         assert torch.equal(a, b)
@@ -543,6 +548,77 @@ def test_depth1_fields_run_through_the_kernel(cuda):
     assert torch.equal(y, torch.tanh(ops.fused_mlp(x, l1["w"], l1["b"], l2["w"], l2["b"])))
 
 
+# The backward kernel's rows: one block, the ELBO batch, a ragged count, the
+# 1024-row bucket.  Its float32 dW and db are sums of R terms, which round
+# by ~sqrt(R)·eps of the partial sums: they are held within MLP_TOL of their
+# largest magnitude as well (chip_smoke.py MLP_TOL has the reasoning).
+MLP_BWD_ROWS = [1, 64, 300, 1024]
+
+
+def _mlp_bwd_operands(cuda, dtype, rows, din, h, dout, seed=0):
+    x, *w = _mlp_operands(cuda, dtype, rows, din, h, dout, seed)
+    g = torch.randn(rows, dout, generator=torch.Generator().manual_seed(seed + 1),
+                    dtype=torch.float64).to(cuda, dtype)
+    return x, w, g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("din,h,dout", MLP_WIDTHS)
+@pytest.mark.parametrize("rows", MLP_BWD_ROWS)
+def test_fused_mlp_backward_kernel_matches_plain_version(cuda, dtype, din, h, dout, rows):
+    from repro_torch.kernels import fused_mlp as fm, ref
+
+    x, w, g = _mlp_bwd_operands(cuda, dtype, rows, din, h, dout)
+    ops.reset_launch_counts()
+    got = fm._launch_bwd(x, *w, g)
+    assert ops.launch_counts()["fused_mlp_bwd"] == 1
+    want = ref.fused_mlp_bwd(x, *w, g)
+    torch.cuda.synchronize()
+    for name, a, b, t in zip(("dx", "dW1", "db1", "dW2", "db2"), got, want, (x, *w)):
+        assert a.dtype == dtype and a.shape == t.shape and torch.isfinite(a).all()
+        tol = dict(MLP_TOL[dtype])
+        if dtype == torch.float32 and name != "dx":  # sums over R rows: chip_smoke.MLP_TOL
+            tol["atol"] = max(tol["atol"], tol["atol"] * b.abs().max().item())
+        torch.testing.assert_close(a, b, **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("din,h,dout", [(17, 32, 16), (32, 64, 32), (512, 512, 512)])
+def test_fused_mlp_backward_is_deterministic_and_dx_rows_invariant(cuda, dtype, din, h, dout):
+    """Two launches give the same bits (no atomics in any sum; the ticket
+    resets itself), and a row's dx is the same whether 1, 1000 or 1024 rows
+    are launched; an expanded cotangent gives its contiguous copy's bits."""
+    from repro_torch.kernels import fused_mlp as fm
+
+    x, w, g = _mlp_bwd_operands(cuda, dtype, 1024, din, h, dout, seed=1)
+    full = fm._launch_bwd(x, *w, g)
+    assert all(torch.equal(a, b) for a, b in zip(full, fm._launch_bwd(x, *w, g)))
+    assert torch.equal(fm._launch_bwd(x[:1000].contiguous(), *w, g[:1000].contiguous())[0],
+                       full[0][:1000])
+    for r in (0, 517, 1023):
+        one = fm._launch_bwd(x[r:r + 1].contiguous(), *w, g[r:r + 1].contiguous())
+        assert torch.equal(one[0][0], full[0][r])
+    ge = g[:1].expand(1024, dout)
+    assert all(torch.equal(a, b) for a, b in zip(fm._launch_bwd(x, *w, ge),
+                                                 fm._launch_bwd(x, *w, ge.contiguous())))
+
+
+def test_fused_mlp_backward_is_one_launch_and_none_under_create_graph(cuda):
+    x, w, _ = _mlp_bwd_operands(cuda, torch.float32, 64, 17, 32, 16)
+    leaves = [t.requires_grad_() for t in (x, *w)]
+    ops.reset_launch_counts()
+    ops.fused_mlp(*leaves).sum().backward()
+    assert ops.launch_counts()["fused_mlp"] == ops.launch_counts()["fused_mlp_bwd"] == 1
+    ops.reset_launch_counts()
+    gx, = torch.autograd.grad(ops.fused_mlp(*leaves).sum(), leaves[0], create_graph=True)
+    (gx ** 2).sum().backward()
+    assert ops.launch_counts()["fused_mlp"] == 1 and ops.launch_counts()["fused_mlp_bwd"] == 0
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        assert ops.fused_mlp(*leaves).grad_fn is None
+    assert ops.launch_counts()["fused_mlp"] == 1
+
+
 def _linear_loss_grads(fn, inputs, seed):
     """Gradients of sum(c·out) for fixed random c, for every output."""
     leaves = [t.detach().requires_grad_() for t in inputs]
@@ -556,8 +632,10 @@ def _linear_loss_grads(fn, inputs, seed):
 
 def test_kernel_gradients_equal_plain_path_bitwise(cuda):
     """For a loss linear in the outputs the cotangents do not depend on the
-    forward's bits, so the three kernels' gradients (the plain versions'
-    VJPs at the same inputs) equal the plain path's bit for bit."""
+    forward's bits, so the attention's and the SSD scan's gradients (the
+    plain versions' VJPs at the same inputs) equal the plain path's bit for
+    bit; fused_mlp's come from its backward kernel, which sums in its own
+    order, so they are held within MLP_TOL (float64 here: 1e-12)."""
     mlp = _mlp_operands(cuda, torch.float64, 64, 17, 32, 16)
     g = torch.Generator().manual_seed(2)
     qkv = [torch.randn(2, h, 70, 64, generator=g).to(cuda) for h in (8, 2, 2)]
@@ -573,7 +651,12 @@ def test_kernel_gradients_equal_plain_path_bitwise(cuda):
         got = _linear_loss_grads(fn, inputs, 3)
         assert ops.launch_counts()[name] == 1
         want = _linear_loss_grads(lambda *t: fn(*t, use_kernel=False), inputs, 3)
-        assert all(gr is not None and torch.equal(gr, w) for gr, w in zip(got, want)), name
+        assert all(gr is not None for gr in got), name
+        if name == "fused_mlp":
+            for gr, w in zip(got, want):
+                torch.testing.assert_close(gr, w, **MLP_TOL[torch.float64])
+        else:
+            assert all(torch.equal(gr, w) for gr, w in zip(got, want)), name
 
 
 XENT_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}

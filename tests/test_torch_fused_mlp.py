@@ -1,19 +1,22 @@
 """The port's SDE field MLP on the CPU against the JAX package: its plain
 version (``repro_torch.kernels.ref.fused_mlp``) against
 ``repro.kernels.ref.fused_mlp`` and the Pallas kernel run as the JAX
-package's own tests run it (interpret mode); the autograd node the kernel
-launches in (built here with the plain forward in the kernel's place)
-against autograd of the plain version and ``jax.vjp``; the route
-``nn.mlp`` takes; the dispatch policy and the launcher's operand checks.
+package's own tests run it (interpret mode); the plain backward
+(``ref.fused_mlp_bwd``) against ``jax.vjp``; the autograd node the kernels
+launch in (built here with the plain forward and backward in the kernels'
+place) against autograd of the plain version and ``jax.vjp``; the route
+``nn.mlp`` takes; the dispatch policy, the launcher's routing and its
+operand checks.
 
 Tolerances: float32 rtol = atol = 2e-5 and bfloat16 6e-2, the JAX kernel
 suite's (tests/test_kernels.py:18-21: the kernel accumulates in float32
 and sums in another order than the plain product); float64 1e-12 (the
 products sum in different orders, and XLA's CPU exp and logistic differ
-from torch's by an ulp).  The backward of the node is held bitwise to the
-plain version's autograd: it is that autograd, recomputed.  The CUDA
-kernel itself is held to its plain version on the card
-(tests/test_torch_cuda.py, chip_smoke.py).
+from torch's by an ulp).  The node's first derivative is the backward
+launch (here ``ref.fused_mlp_bwd``) bitwise, and autograd of the plain
+version within those tolerances; its second derivative is the plain
+version's, bitwise.  The CUDA kernels themselves are held to their plain
+versions on the card (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
 import types
@@ -30,7 +33,6 @@ from repro.kernels.fused_mlp import fused_mlp as pallas_fused_mlp
 from repro_torch import nn
 from repro_torch.kernels import fused_mlp as fm_kernel
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.vjp import PlainVJP
 from repro_torch.nn import core as nn_core
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=6e-2, atol=6e-2),
@@ -97,9 +99,10 @@ def test_plain_fused_mlp_matches_jax_at_the_sde_field_widths(din, h, dout, dtype
             _close(got, pallas_fused_mlp(jx, *jw, interpret=True), dtype)
 
 
-def _node(*args):
-    """The kernel's autograd node with the plain forward in the kernel's place."""
-    return PlainVJP.apply(ref.fused_mlp, ref.fused_mlp, {}, *args)
+def _node(*args, bwd=ref.fused_mlp_bwd):
+    """The kernels' autograd node with the plain forward and backward in the
+    kernels' place."""
+    return fm_kernel.MLPFunction.apply(ref.fused_mlp, bwd, *args)
 
 
 def _leaves(din, h, dout, dtype=torch.float64, lead=(5,), seed=1):
@@ -107,23 +110,84 @@ def _leaves(din, h, dout, dtype=torch.float64, lead=(5,), seed=1):
             for a in _inputs(lead, din, h, dout, seed=seed)]
 
 
+@pytest.mark.parametrize("din,h,dout", FIELDS)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_plain_backward_matches_jax_vjp(din, h, dout, dtype):
+    """``ref.fused_mlp_bwd`` against ``jax.vjp`` of the reference's plain
+    MLP at every SDE field width."""
+    arrays = _inputs((37,), din, h, dout, seed=din + 2 * h)
+    ct = np.random.default_rng(dout).standard_normal((37, dout))
+    with jax_config(x64=dtype == "float64"):
+        (tx, *tw), (jx, *jw) = _both(arrays, dtype)
+        (tg,), (jg,) = _both([ct], dtype)
+        got = ref.fused_mlp_bwd(tx, *tw, tg)
+        _, vjp = jax.vjp(jref.fused_mlp, jx, *jw)
+        want = vjp(jg)
+        for t, a, w in zip((tx, *tw), got, want):
+            assert a.dtype == t.dtype and a.shape == t.shape
+            _close(a, w, dtype)
+
+
+def _pallas_body(x, w1, b1, w2, b2):
+    """The Pallas kernel's arithmetic (src/repro/kernels/fused_mlp.py:26-32)
+    as plain JAX, which jax.vjp differentiates: float32 products, the hidden
+    activation rounded to x's dtype."""
+    h = jnp.dot(x, w1, preferred_element_type=jnp.float32) + b1
+    h = 0.909 * h * jax.nn.sigmoid(h)
+    o = jnp.dot(h.astype(x.dtype), w2, preferred_element_type=jnp.float32)
+    return (o + b2).astype(x.dtype)
+
+
+@pytest.mark.parametrize("din,h,dout", [(17, 32, 16), (32, 64, 32), (96, 48, 24)])
+def test_plain_backward_bf16_matches_jax_vjp_of_the_kernel_arithmetic(din, h, dout):
+    """bfloat16: float32 arithmetic with ``a`` rounded, as the Pallas kernel
+    computes the forward, against jax.vjp of that arithmetic (6e-2)."""
+    arrays = _inputs((37,), din, h, dout, seed=h)
+    ct = np.random.default_rng(5).standard_normal((37, dout))
+    with jax_config():
+        (tx, *tw), (jx, *jw) = _both(arrays, "bfloat16")
+        (tg,), (jg,) = _both([ct], "bfloat16")
+        got = ref.fused_mlp_bwd(tx, *tw, tg)
+        _, vjp = jax.vjp(_pallas_body, jx, *jw)
+        for t, a, w in zip((tx, *tw), got, vjp(jg)):
+            assert a.dtype == torch.bfloat16 and a.shape == t.shape
+            _close(a, w, "bfloat16")
+
+
 @pytest.mark.parametrize("din,h,dout", [(17, 32, 16), (32, 64, 32)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_node_backward_is_plain_autograd_bitwise(din, h, dout, dtype):
     """A loss linear in the output, and one that is not (through tanh and a
-    product upstream of x): every gradient bitwise autograd's of the plain
-    version."""
+    product upstream of x): every gradient is the backward launch's at the
+    cotangent autograd delivers, bitwise, and autograd of the plain version's
+    within the tolerances (the backward kernel has its own sum order, so
+    the node no longer recomputes the plain version's autograd)."""
     leaves = _leaves(din, h, dout, dtype, lead=(3, 7))
     c = torch.from_numpy(np.random.default_rng(4).standard_normal((3, 7, dout))).to(dtype)
+    losses = (lambda out: (out * c).sum(), lambda out: torch.sin(out).pow(2).sum())
 
     def grads(f):
         x, *w = leaves
-        out = f(torch.tanh(x * 1.5), *w)
-        linear = torch.autograd.grad((out * c).sum(), leaves, retain_graph=True)
-        return linear, torch.autograd.grad(torch.sin(out).pow(2).sum(), leaves)
+        return [torch.autograd.grad(loss(f(torch.tanh(x * 1.5), *w)), leaves)
+                for loss in losses]
 
-    for got, want in zip(grads(_node), grads(ref.fused_mlp)):
-        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    def by_hand():
+        """The same chain with the backward called by hand."""
+        x, *w = leaves
+        xin = torch.tanh(x * 1.5)
+        out = ref.fused_mlp(xin.detach(), *(t.detach() for t in w))
+        for loss in losses:
+            o = out.detach().requires_grad_()
+            g, = torch.autograd.grad(loss(o), o)
+            dxin, *dw = ref.fused_mlp_bwd(xin.detach(), *(t.detach() for t in w), g)
+            dx, = torch.autograd.grad(xin, x, dxin, retain_graph=True)
+            yield [dx, *dw]
+
+    tol = TOL["float32" if dtype == torch.float32 else "float64"]
+    for got, hand, want in zip(grads(_node), by_hand(), grads(ref.fused_mlp)):
+        assert all(torch.equal(a, b) for a, b in zip(got, hand))
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, **tol)
 
 
 def test_node_gradcheck_and_second_derivative_float64():
@@ -211,9 +275,85 @@ def test_kernel_launcher_checks_operands():
         fm_kernel.fused_mlp(x, w1, b1, w2.double(), b2)
     with pytest.raises(ValueError, match="contiguous"):
         fm_kernel.fused_mlp(x, w1.t().contiguous().t(), b1, w2, b2)
+    with pytest.raises(ValueError, match="want x"):
+        fm_kernel.fused_mlp(x[0, 0], w1, b1, w2, b2)
+    with pytest.raises(ValueError, match="want x"):
+        fm_kernel.fused_mlp(x, w1[0], b1, w2, b2)
+    with pytest.raises(ValueError, match="want x"):
+        fm_kernel.fused_mlp(x, w1, b1, w2, b2[:3])
+    with pytest.raises(ValueError, match="want x"):
+        fm_kernel.fused_mlp(x[:, :0], w1[:0], b1, w2, b2)
+    with pytest.raises(ValueError, match="b1 is"):
+        fm_kernel.fused_mlp(x, w1, b1.double(), w2, b2)
+    with pytest.raises(ValueError, match="x must be contiguous"):
+        fm_kernel.fused_mlp(x.t().contiguous().t(), w1, b1, w2, b2)
+    with pytest.raises(ValueError, match="b2 must be contiguous"):
+        fm_kernel.fused_mlp(x, w1, b1, w2, torch.zeros(8)[::2])
+    with pytest.raises(ValueError, match="CUDA tensors"):  # checked before any node
+        fm_kernel.fused_mlp(x.requires_grad_(), w1, b1, w2, b2)
     wide = torch.empty(6000, 200, dtype=torch.float64)
     with pytest.raises(ValueError, match="Din \\+ H"):
         fm_kernel.fused_mlp(torch.empty(1, 6000, dtype=torch.float64), wide,
                             torch.empty(200, dtype=torch.float64), wide[:200, :4],
                             torch.empty(4, dtype=torch.float64))
-    assert fm_kernel.LAUNCHES["fused_mlp"] == 0
+    assert fm_kernel.LAUNCHES == {"fused_mlp": 0, "fused_mlp_bwd": 0}
+
+
+def _spied(calls):
+    """``ref.fused_mlp_bwd`` counting its calls."""
+    def bwd(*args):
+        calls.append(len(args))
+        return ref.fused_mlp_bwd(*args)
+    return bwd
+
+
+@pytest.mark.parametrize("need", [(0,), (1, 2), (3, 4), (0, 3), (0, 1, 2, 3, 4)])
+def test_node_honours_needs_input_grad(need):
+    """Only the inputs that require a gradient get one (None for the rest,
+    from one backward launch); with none, backward is never reached."""
+    arrays = _inputs((6,), 17, 32, 16, seed=7)
+    leaves = [torch.from_numpy(a).requires_grad_(i in need) for i, a in enumerate(arrays)]
+    calls = []
+    out = _node(*leaves, bwd=_spied(calls))
+    grads = torch.autograd.grad(out.sum(), [leaves[i] for i in need], retain_graph=True)
+    want = ref.fused_mlp_bwd(*leaves, torch.ones_like(out))
+    assert calls == [6]
+    for i, gr in zip(need, grads):
+        assert torch.equal(gr, want[i])
+    with torch.no_grad():  # the node's own return: None where no gradient is needed
+        full = fm_kernel.MLPFunction.backward(out.grad_fn, torch.ones_like(out))[2:]
+    assert [i for i, gr in enumerate(full) if gr is not None] == list(need)
+    with torch.no_grad():
+        assert _node(*leaves).grad_fn is None
+
+
+def _routed(monkeypatch, calls):
+    """The launcher with the plain versions in the kernels' place (counted):
+    the routing between a launch with a node and one without."""
+    monkeypatch.setattr(fm_kernel, "check_operands", lambda *a: None)
+    monkeypatch.setattr(fm_kernel, "_launch", lambda *a: (calls.append("fwd"),
+                                                          ref.fused_mlp(*a))[1])
+    monkeypatch.setattr(fm_kernel, "_launch_bwd", lambda *a: (calls.append("bwd"),
+                                                              ref.fused_mlp_bwd(*a))[1])
+
+
+def test_launcher_routes_one_backward_launch_per_node(monkeypatch):
+    """A launch that can carry a gradient is one node whose backward is one
+    launch of the backward kernel; under create_graph it is the plain VJP
+    (no launch); a launch nothing differentiates makes no node."""
+    calls = []
+    _routed(monkeypatch, calls)
+    x, *w = _leaves(17, 32, 16, lead=(4,))
+    out = fm_kernel.fused_mlp(x, *w)
+    assert type(out.grad_fn).__name__ == "MLPFunctionBackward"
+    out.sum().backward()
+    assert calls == ["fwd", "bwd"]
+    calls.clear()
+    gx, = torch.autograd.grad(fm_kernel.fused_mlp(x, *w).sum(), x, create_graph=True)
+    assert calls == ["fwd"] and gx.grad_fn is not None
+    calls.clear()
+    plain = [t.detach() for t in (x, *w)]
+    assert fm_kernel.fused_mlp(*plain).grad_fn is None
+    with torch.no_grad():
+        assert fm_kernel.fused_mlp(x, *w).grad_fn is None
+    assert calls == ["fwd", "fwd"]
