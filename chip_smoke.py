@@ -26,11 +26,16 @@ non-zero and the final result line is never printed):
    the 1024-row decode bucket's 17 → 32 → 16, nu, the SDE-GAN sigma, the
    burst) beside the plain version, the layer loop the fields ran before
    (1024-row blocks) and the bound.  Its backward kernel ``fused_mlp_bwd``
-   against ``ref.fused_mlp_bwd`` at MLP_SHAPES × rows MLP_BWD_ROWS in the
-   three dtypes (MLP_TOL), two launches bitwise, dx rows invariant, an
-   expanded cotangent bitwise its copy; timed at MLP_TIMED beside the plain
-   VJP the node ran before, the plain version and its bound.  Then the
-   launcher's host cost a call, piece by piece (``launcher_costs``).
+   (one thread-block cluster, products on the tensor cores) against
+   ``ref.fused_mlp_bwd`` at MLP_SHAPES × rows MLP_BWD_ROWS (1 to 4096:
+   several tiles a block) in the three dtypes (MLP_TOL), two launches
+   bitwise, dx rows invariant, an expanded cotangent bitwise its copy, the
+   library's launch plan (``fused_mlp.bwd_plan``: cluster size, tile rows
+   and tiles a block printed by R) and the clusters the card can hold
+   (``cudaOccupancyMaxActiveClusters``); timed at MLP_TIMED beside the
+   plain VJP the node ran before, the plain version, its bound and the
+   launch floor.  Then the launcher's host cost a call, piece by piece
+   (``launcher_costs``).
 4. Checks the in-port identities bitwise: ΔW from ``rev_heun_phase1_gen``
    = ΔW from ``brownian_increment`` = the plain ``BrownianPath.increment``,
    and the fused decode = the unfused decode.
@@ -213,7 +218,11 @@ non-zero and the final result line is never printed):
    background) and, last, the result line ``{"ok": true, "device":
    {...}}``.
 
-``drain_in_turns(parent_root)`` (not run by ``main``) times phase 10's
+``mlp_bwd_split(cu_path, cuts)`` and ``mlp_bwd_stamps(cu_path, marks)``
+(not run by ``main``) measure where a ``fused_mlp_bwd`` launch's time
+goes: throwaway builds of its source cut short at the stages of
+PARENT_BWD_CUTS / BWD_CUTS, or recording clock64 at BWD_MARKS, in a
+temporary directory.  ``drain_in_turns(parent_root)`` (neither) times phase 10's
 adaptive serving drain in another tree and this one, in turns;
 ``ssd_in_turns(parent_root)`` (neither) times ``ssd_chunk`` and
 mamba2-1.3b's prefill there and here, in turns; ``elbo_in_turns``
@@ -313,8 +322,8 @@ LIPSWISH_OPS = 6  # neg, exp, add, div, mul, mul per hidden unit
 # 1 − s, pre·s·(1 − s), s + ..., 0.909·(...), da·(...) (5), db1's add (1)
 LIPSWISH_BWD_OPS = 13
 # rows of the backward kernel's checks: one block, the ELBO batch, a ragged
-# count, the 1024-row bucket
-MLP_BWD_ROWS = (1, 64, 300, 1024)
+# count, the 1024-row bucket, and several tiles a block
+MLP_BWD_ROWS = (1, 64, 300, 1024, 4096)
 # (tag, rows, Din, H, Dout), float32: the ELBO's training batches and, at
 # 1024 rows, the 1024-row decode bucket's prior mu and sigma (the same
 # 17 -> 32 -> 16); the posterior nu, the SDE-GAN sigma and the burst.
@@ -702,14 +711,14 @@ def _plain_vjp_mlp(x, w, g):
         return plain_vjp(ref.fused_mlp, (x, *w), (g,), (True,) * 5, {})
 
 
-def mlp_bwd_checks(ops, dev) -> tuple:
+def mlp_bwd_checks(ops, dev, floor_ms: float) -> tuple:
     """Phase 3b, the backward: fused_mlp_bwd against ref.fused_mlp_bwd at
     MLP_SHAPES × MLP_BWD_ROWS in the three dtypes (MLP_TOL, finite, the
     inputs' shapes and dtypes), two launches bitwise, dx rows invariant (1
-    vs 1000 vs 1024), an expanded cotangent bitwise its contiguous copy;
-    then timed at MLP_TIMED beside the plain VJP the node ran before, the
-    plain version and the bound.
-    Returns ({tag: row}, {dtype: max |Δ|})."""
+    vs 1000 vs 1024), an expanded cotangent bitwise its contiguous copy,
+    the launch plan (``fused_mlp.bwd_plan``) printed by R; then timed at
+    MLP_TIMED beside the plain VJP the node ran before, the plain version,
+    the bound and the launch floor ``floor_ms``.  Returns ({tag: row}, {dtype: max |Δ|})."""
     from repro_torch.kernels import build, fused_mlp as fm, ref
 
     lib = build.load()
@@ -755,13 +764,20 @@ def mlp_bwd_checks(ops, dev) -> tuple:
             check(all(torch.equal(a, b) for a, b in zip(fm._launch_bwd(x, *w, ge),
                                                          fm._launch_bwd(x, *w, ge.contiguous()))),
                   f"fused_mlp_bwd {dtype} {(din, h, dout)}: an expanded g != its copy")
-        blocks = {r: lib.rt_fused_mlp_bwd_blocks(code, r, 17, 32, 16)
-                  for r in MLP_BWD_ROWS}
+        plans = {r: fm.bwd_plan(code, r, 17, 32, 16) for r in MLP_BWD_ROWS}
+        clusters = lib.rt_fused_mlp_bwd_clusters(code, 1024, 17, 32, 16)
+        check(clusters >= 1, f"fused_mlp_bwd {dtype}: its cluster cannot be scheduled "
+                             f"({clusters})")
         print(f"fused_mlp_bwd {str(dtype)[6:]}: kernel vs ref.fused_mlp_bwd max |Δ| "
               f"{errs[dtype]:.3g} (rtol = atol = {MLP_TOL[dtype]}; float32 dW, db: atol "
               f"{MLP_TOL[dtype]} of their largest) over (Din, H, Dout) in MLP_SHAPES x "
               f"rows {MLP_BWD_ROWS}; two launches bitwise; dx rows invariant (1 vs 1000 vs "
-              f"1024); blocks at 17 -> 32 -> 16 by rows {blocks}", flush=True)
+              f"1024); at 17 -> 32 -> 16 by rows, cluster "
+              f"x tile rows x tiles a block: "
+              f"{ {r: (p['blocks'], p['tile'], p['tiles_per_block']) for r, p in plans.items()} }"
+              f"; partials at 512 -> 512 -> 512: "
+              f"{fm.bwd_plan(code, 300, 512, 512, 512)['partial_bytes']} bytes; "
+              f"{clusters} clusters of the launch fit the card at once", flush=True)
 
     rows_out = {}
     for tag, rows, din, h, dout in MLP_TIMED:
@@ -771,14 +787,17 @@ def mlp_bwd_checks(ops, dev) -> tuple:
         v_ms, v_host = time_ms(lambda: _plain_vjp_mlp(x, w, g))
         p_ms, p_host = time_ms(lambda: ref.fused_mlp_bwd(x, *w, g))
         b_ms, b_by = mlp_bwd_bound(rows, din, h, dout, torch.float32)
-        blocks = lib.rt_fused_mlp_bwd_blocks(0, rows, din, h, dout)
-        print(f"fused_mlp_bwd float32 {tag} {(rows, din, h, dout)} ({blocks} blocks): kernel "
-              f"{k_ms:.5f} ms (host {k_host:.5f}), the plain VJP {v_ms:.5f} ms (host "
+        plan = fm.bwd_plan(0, rows, din, h, dout)
+        print(f"fused_mlp_bwd float32 {tag} {(rows, din, h, dout)} (cluster of "
+              f"{plan['blocks']}, tiles of {plan['tile']} rows, {plan['tiles_per_block']} a "
+              f"block): kernel {k_ms:.5f} ms (host {k_host:.5f}), {k_ms / floor_ms:.2f}x the "
+              f"launch floor {floor_ms:.5f} ms; the plain VJP {v_ms:.5f} ms (host "
               f"{v_host:.5f}), ref.fused_mlp_bwd {p_ms:.5f} ms (host {p_host:.5f}), bound "
               f"{b_ms:.7f} ms ({b_by})", flush=True)
         rows_out[tag] = dict(ms=k_ms, host_ms=k_host, plain_ms=v_ms, plain_host_ms=v_host,
                              ref_ms=p_ms, ref_host_ms=p_host, bound_ms=b_ms, bound_by=b_by,
-                             library_ms=None, blocks=blocks)
+                             library_ms=None, launch_floor_ms=floor_ms,
+                             plan={k: plan[k] for k in ("blocks", "tile", "tiles_per_block")})
     return rows_out, errs
 
 
@@ -1305,7 +1324,8 @@ def drain_in_turns(parent_root: str) -> dict:
 # calls by the host clock, medians), their launches and device kernels (one
 # profiled call), and the fused_mlp launcher's host cost per call at 1024 ×
 # 17 -> 32 -> 16 (float32): the whole call, the launch without checks, the
-# checks, and the ctypes call as that tree makes it.  Only functions both
+# checks, the ctypes call as that tree makes it, and the backward's launch
+# (``_launch_bwd``, the same widths and rows).  Only functions both
 # trees' chip_smoke.py have are used.  Prints one JSON line.
 _ELBO_CHILD = r"""
 import json, statistics, sys, time
@@ -1342,6 +1362,7 @@ for tag, run in runs.items():
     out[tag + " idle"] = prof["idle"]
 g = torch.Generator().manual_seed(5)
 x, *w = C._mlp_operands(g, dev, torch.float32, 1024, 17, 32, 16)
+ct = torch.randn(1024, 16, generator=g).to(dev)
 params = {"layers": [{"w": w[0], "b": w[1]}, {"w": w[2], "b": w[3]}]}
 o = torch.empty(1024, 16, device=dev)
 ptrs = [t.data_ptr() for t in (x, *w, o)]
@@ -1362,7 +1383,8 @@ out["host us"] = {"ops.fused_mlp": host_us(lambda: ops.fused_mlp(x, *w)),
                   "nn.mlp": host_us(lambda: nn.mlp(params, x)),
                   "fm._launch": host_us(lambda: fm._launch(x, *w)),
                   "fm.check_operands": host_us(lambda: fm.check_operands(x, *w)),
-                  "ctypes launch": host_us(call)}
+                  "ctypes launch": host_us(call),
+                  "fm._launch_bwd": host_us(lambda: fm._launch_bwd(x, *w, ct))}
 out["time_ms host ms"] = C.time_ms(lambda: ops.fused_mlp(x, *w))[1]
 print(json.dumps(out))
 """
@@ -1385,6 +1407,233 @@ def elbo_in_turns(parent_root: str) -> dict:
         print(f"ELBO in turns [{tree}]: {runs[tree][-1]}", flush=True)
     print(f"card: {gpu_label()}", flush=True)
     return runs
+
+
+# Cut points of fused_mlp_bwd for mlp_bwd_split, (label, [(anchor, code),
+# ...]): the variant "cut after <label>" inserts each `code` after the first
+# occurrence of its `anchor` in the source, so that every block ends there
+# (a `continue` skips the rest of a tile; no cut falls between a block's
+# sends and the wait for its own slice, so no block leaves while others
+# still write into its shared memory).  PARENT_BWD_CUTS fit the backward
+# before its cluster design (one tile a block, global partials, a ticket,
+# the last block's pass), as in a parent tree unpacked beside this one;
+# BWD_CUTS fit the cluster kernel.
+PARENT_BWD_CUTS = [
+    ("staging (W1, W1ᵀ, W2ᵀ, b1)",
+     [("for (int e = tid; e < hidden; e += kBwdThreads) b1s[e] = b1[e];\n  }\n",
+       "  __syncthreads();\n  return;\n")]),
+    ("the tile (x, g loads and the products)",
+     [("    __syncthreads();  // the next tile overwrites xs, gs, as, ds\n  }\n",
+       "  return;\n")]),
+    ("the partial write, fence and ticket",
+     [("  if (tid == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;  // a ticket, not a sum\n"
+       "  __syncthreads();\n", "  if (tid == 0 && last) *ticket = 0u;\n  return;\n")]),
+]
+_BWD_REDUCTION = "  // -- the cluster reduction --\n"
+BWD_CUTS = [
+    ("the launch", [("  cg::cluster_group cluster = cg::this_cluster();\n", "  return;\n")]),
+    ("the loads (cp.async issued at once, one wait)",
+     [("  tc::cp_async_wait<0>();\n  __syncthreads();\n", "  return;\n")]),
+    ("step 1 of the tiles (pre, da, a, dpre)",
+     [("    // 2. the sums over the tile's rows", "    continue;\n"),
+      (_BWD_REDUCTION, "  return;\n")]),
+    ("the wait for the slices (mbarrier)",
+     [("    tc::mbar_wait(bar, 0);  // every block's slice for me has arrived\n",
+       "    return;\n")]),
+]
+
+
+# A throwaway library's function-local statics stay its own (g++ makes those
+# of inline template functions process-wide STB_GNU_UNIQUE symbols, so a
+# second library loaded beside the first would share its state).
+_LOCAL_STATICS = ("-Xcompiler", "-fno-gnu-unique")
+
+
+def mlp_bwd_split(cu_path: str, cuts,
+                  shapes=((64, 17, 32, 16), (1024, 17, 32, 16))) -> dict:
+    """Where one fused_mlp_bwd launch's time goes, float32: the backward's
+    source at ``cu_path`` built whole and once cut after each of ``cuts``
+    (PARENT_BWD_CUTS or BWD_CUTS), each variant a throwaway library in a
+    temporary directory (the repo's kernels are not touched), each timed by
+    CUDA events (time_ms) at ``shapes`` (R, Din, H, Dout), in two passes in
+    opposite order.  A variant computes only what precedes its cut, so the
+    differences between consecutive variants are the stages' times.
+    -> {"R×Din→H→Dout": {variant: [ms, ms]}}."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    src = open(cu_path).read()
+    variants = []
+    for label, inserts in cuts:
+        text = src
+        for anchor, code in inserts:
+            at = text.find(anchor)
+            check(at >= 0, f"mlp_bwd_split: no anchor {anchor!r} for {label!r} in {cu_path}")
+            at = text.index("\n", at + len(anchor) - 1) + 1
+            text = text[:at] + code + text[at:]
+        variants.append((f"cut after {label}", text))
+    variants.append(("whole kernel", src))
+    tmp = tempfile.mkdtemp(prefix="bwd_split_")
+    try:
+        cmds, libs = [], []
+        for i, (_, text) in enumerate(variants):
+            cu = os.path.join(tmp, f"v{i}.cu")
+            with open(cu, "w") as f:
+                f.write(text)
+            libs.append(os.path.join(tmp, f"v{i}.so"))
+            cmds.append([build._nvcc(), *build.NVCC_FLAGS, *_LOCAL_STATICS, "-I",
+                         os.path.dirname(os.path.abspath(cu_path)), "-shared", "-o", libs[-1],
+                         cu])
+        build._run_all(cmds)
+        fns = []
+        for path in libs:
+            fn = ctypes.CDLL(path).rt_fused_mlp_bwd
+            fn.argtypes = list(build.SIGNATURES["rt_fused_mlp_bwd"])
+            fn.restype = ctypes.c_int
+            fns.append(fn)
+        dev = torch.device("cuda")
+        scratch = torch.zeros(4 << 20, dtype=torch.uint8, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        out = {}
+        for rows, din, h, dout in shapes:
+            g0 = torch.Generator().manual_seed(7)
+            x, *w = _mlp_operands(g0, dev, torch.float32, rows, din, h, dout)
+            g = torch.randn(rows, dout, generator=g0).to(dev)
+            grads = [torch.empty_like(t) for t in (x, *w)]
+            args = (0, x.data_ptr(), w[0].data_ptr(), w[1].data_ptr(), w[2].data_ptr(),
+                    g.data_ptr(), dout, 1, *(t.data_ptr() for t in grads), scratch.data_ptr(),
+                    scratch.numel(), rows, din, h, dout, stream)
+            tag = f"{rows}x{din}->{h}->{dout}"
+            times = {label: [] for label, _ in variants}
+            for order in (range(len(fns)), reversed(range(len(fns)))):
+                for i in order:
+                    err = fns[i](*args)
+                    check(err == 0, f"mlp_bwd_split: {variants[i][0]} at {tag}: cudaError {err}")
+                    times[variants[i][0]].append(time_ms(lambda: fns[i](*args))[0])
+            out[tag] = times
+            for label, ms in times.items():
+                print(f"fused_mlp_bwd split {tag} f32: {label}: "
+                      f"{' / '.join(f'{t:.5f}' for t in ms)} ms", flush=True)
+        print(f"card: {gpu_label()}", flush=True)
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# Stage marks of the cluster kernel for mlp_bwd_stamps, (label, anchor):
+# thread 0 of every block records clock64 and %globaltimer after the line
+# that ends each anchor.
+BWD_MARKS = [
+    ("start", "  cg::cluster_group cluster = cg::this_cluster();\n"),
+    ("the mbarrier's set-up", "  tc::cluster_arrive_relaxed();  // my barrier is ready"),
+    ("the loads issued", "    pad_cols(ds, d.sd, tile, hidden, d.dc, -1);\n"),
+    ("the loads waited for", "  tc::cp_async_wait<0>();\n  __syncthreads();\n"),
+    ("the cluster wait", "  tc::cluster_wait();  // every block's barrier is ready"),
+    ("tile's loads (the last tile's)", "    const int mt = (nr + M - 1) / M;"),
+    ("step 1: pre, da", "    // a and dpre, a thread an element"),
+    ("step 1: a, dpre", "    // 2. the sums over the tile's rows"),
+    ("step 2: warp 0's first product", "tc::smem_addr(xs + n0), d.sx * es, es, kr);"),
+    ("step 2 (warp 0)", _BWD_REDUCTION),
+    ("the slices arrive", "    tc::mbar_wait(bar, 0);  // every block's slice for me has"),
+    ("end", "    else db2[e - n_w1 - hidden - n_w2] = o;\n  }\n"),
+]
+_STAMPS = r"""
+__device__ long long repro_stamps[64 * 16 * 2];
+#define REPRO_STAMP(k) do { if (threadIdx.x == 0) { unsigned long long n_; \
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(n_)); \
+  repro_stamps[(blockIdx.x * 16 + (k)) * 2] = clock64(); \
+  repro_stamps[(blockIdx.x * 16 + (k)) * 2 + 1] = (long long)n_; } } while (0)
+extern "C" int repro_read_stamps(long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, repro_stamps, sizeof(repro_stamps));
+}
+extern "C" int repro_clear_stamps(void) {
+  static long long zero[64 * 16 * 2];
+  return (int)cudaMemcpyToSymbol(repro_stamps, zero, sizeof(zero));
+}
+"""
+
+
+def mlp_bwd_stamps(cu_path: str, marks, shapes=((64, 17, 32, 16), (1024, 17, 32, 16)),
+                   runs: int = 21) -> dict:
+    """Where one fused_mlp_bwd launch's time goes inside the blocks, float32:
+    the source at ``cu_path`` built once more (a throwaway library in a
+    temporary directory) with thread 0 of every block recording clock64 and
+    %globaltimer after each of ``marks`` (BWD_MARKS); ``runs`` synchronised
+    launches at each of ``shapes``, the stamps cleared before each.  Prints,
+    for block 0 and the block whose stages sum to the most, the median
+    cycles and ns from one mark it passed to the next (a block without
+    rows skips the tiles' marks) and the start's lag behind the earliest
+    block of the cluster (the plan's blocks, ``fused_mlp.bwd_plan``).  ->
+    {shape: {block: {stage: [cycles, ns]}}}"""
+    import ctypes
+
+    from repro_torch.kernels import build, fused_mlp as fm
+
+    text = open(cu_path).read()
+    text = text.replace('#include "tensor_core.cuh"\n', '#include "tensor_core.cuh"\n' + _STAMPS)
+    for k, (label, anchor) in enumerate(marks):
+        at = text.find(anchor)
+        check(at >= 0, f"mlp_bwd_stamps: no anchor for {label!r} in {cu_path}")
+        at = text.index("\n", at + len(anchor) - 1) + 1
+        text = text[:at] + f"  REPRO_STAMP({k});\n" + text[at:]
+    tmp = tempfile.mkdtemp(prefix="bwd_stamps_")
+    try:
+        cu, so = os.path.join(tmp, "stamps.cu"), os.path.join(tmp, "stamps.so")
+        with open(cu, "w") as f:
+            f.write(text)
+        build._run_all([[build._nvcc(), *build.NVCC_FLAGS, *_LOCAL_STATICS, "-I",
+                         os.path.dirname(os.path.abspath(cu_path)), "-shared", "-o", so, cu]])
+        lib = ctypes.CDLL(so)
+        fn = lib.rt_fused_mlp_bwd
+        fn.argtypes = list(build.SIGNATURES["rt_fused_mlp_bwd"])
+        fn.restype = ctypes.c_int
+        dev = torch.device("cuda")
+        scratch = torch.zeros(4 << 20, dtype=torch.uint8, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        buf = (ctypes.c_longlong * (64 * 16 * 2))()
+        out = {}
+        for rows, din, h, dout in shapes:
+            g0 = torch.Generator().manual_seed(7)
+            x, *w = _mlp_operands(g0, dev, torch.float32, rows, din, h, dout)
+            g = torch.randn(rows, dout, generator=g0).to(dev)
+            grads = [torch.empty_like(t) for t in (x, *w)]
+            args = (0, x.data_ptr(), w[0].data_ptr(), w[1].data_ptr(), w[2].data_ptr(),
+                    g.data_ptr(), dout, 1, *(t.data_ptr() for t in grads), scratch.data_ptr(),
+                    scratch.numel(), rows, din, h, dout, stream)
+            samples = []
+            for _ in range(runs):
+                check(lib.repro_clear_stamps() == 0, "mlp_bwd_stamps: cannot clear the stamps")
+                check(fn(*args) == 0, "mlp_bwd_stamps: the launch failed")
+                torch.cuda.synchronize()
+                check(lib.repro_read_stamps(buf) == 0, "mlp_bwd_stamps: no stamps")
+                samples.append(list(buf))
+            tag = f"{rows}x{din}->{h}->{dout}"
+            out[tag] = {}
+            blocks = fm.bwd_plan(0, rows, din, h, dout)["blocks"]
+            for b in range(blocks):
+                # the marks this block passed (one without rows skips the tiles')
+                seen = [k for k in range(len(marks)) if all(s[(b * 16 + k) * 2] for s in samples)]
+                stages = {}
+                for j, k in zip(seen, seen[1:]):
+                    cyc = [s[(b * 16 + k) * 2] - s[(b * 16 + j) * 2] for s in samples]
+                    ns = [s[(b * 16 + k) * 2 + 1] - s[(b * 16 + j) * 2 + 1] for s in samples]
+                    stages[marks[k][0]] = [statistics.median(cyc), statistics.median(ns)]
+                lag = statistics.median(s[(b * 16) * 2 + 1] - min(s[(q * 16) * 2 + 1]
+                                                                 for q in range(blocks))
+                                        for s in samples)
+                out[tag][b] = dict(stages, start_lag_ns=lag)
+            for b in sorted({0, max(out[tag], key=lambda b: sum(
+                    v[1] for k, v in out[tag][b].items() if k != "start_lag_ns"))}):
+                print(f"fused_mlp_bwd stamps {tag} f32 block {b}: start lag "
+                      f"{out[tag][b]['start_lag_ns']:.0f} ns; "
+                      + "; ".join(f"{k} {v[0]:.0f} cycles / {v[1]:.0f} ns"
+                                  for k, v in out[tag][b].items() if k != "start_lag_ns"),
+                      flush=True)
+        print(f"card: {gpu_label()}", flush=True)
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def launch_floor() -> dict:
@@ -2884,7 +3133,7 @@ def main() -> int:
     errs.update(xent_errs)
     mlp_rows, mlp_errs = mlp_checks(ops, dev)
     errs["fused_mlp"] = max(mlp_errs.values())
-    mlp_bwd_rows, mlp_bwd_errs = mlp_bwd_checks(ops, dev)
+    mlp_bwd_rows, mlp_bwd_errs = mlp_bwd_checks(ops, dev, floor["launch_floor_ms"])
     errs["fused_mlp_bwd"] = max(mlp_bwd_errs.values())
     host_costs = launcher_costs(dev)
     value_rows, errs["brownian_value"] = value_checks(ops, dev)
@@ -2953,6 +3202,8 @@ def main() -> int:
             serve_launches = serve["launches"][name]
             extra = {"max_abs_err_by_dtype": {str(k)[6:]: v for k, v in mlp_bwd_errs.items()},
                      "plain_is": "the plain VJP (kernels/vjp.py:plain_vjp of ref.fused_mlp)",
+                     "launch_floor_ms": floor["launch_floor_ms"],
+                     "plan_by_rows": {tag: row["plan"] for tag, row in mlp_bwd_rows.items()},
                      "ptxas": {k: v for k, v in ptxas_usage.items() if "fused_mlp_bwd" in k},
                      "timed": {tag: {k: v for k, v in row.items() if k != "library_ms"}
                                for tag, row in mlp_bwd_rows.items()}}

@@ -58,13 +58,13 @@ SIGNATURES = {
     "rt_fused_mlp": (_I, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P),
     "rt_fused_mlp_bwd": (_I, _P, _P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P, _P, _I64, _I64,
                          _I, _I, _I, _P),
-    "rt_fused_mlp_bwd_scratch": (_I, _I64, _I, _I, _I),
-    "rt_fused_mlp_bwd_blocks": (_I, _I64, _I, _I, _I),
+    "rt_fused_mlp_bwd_plan": (_I, _I64, _I, _I, _I, ctypes.POINTER(ctypes.c_int64)),
+    "rt_fused_mlp_bwd_clusters": (_I, _I64, _I, _I, _I),
     "rt_fused_xent_fwd": (_I, _P, _P, _P, _P, _I64, _I64, _P),
     "rt_fused_xent_bwd": (_I, _P, _P, _P, _P, _P, _I64, _I64, _P),
 }
-INT64_RESULTS = ("rt_brownian_value_blocks", "rt_ssd_chunk_slices", "rt_fused_mlp_bwd_scratch",
-                 "rt_fused_mlp_bwd_blocks")
+INT64_RESULTS = ("rt_brownian_value_blocks", "rt_ssd_chunk_slices",
+                 "rt_fused_mlp_bwd_clusters")
 
 _lock = threading.Lock()
 _lib = None

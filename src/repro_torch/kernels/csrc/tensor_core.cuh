@@ -1,9 +1,13 @@
 // Tensor-core, copy and barrier helpers shared by the hand-written kernels:
 // the shared-memory address of a pointer, cp.async (16 bytes, global ->
-// shared, zero fill), mbarriers (init, expect-tx, arrive, wait), a bulk copy
-// completing on an mbarrier, exp2 on the MUFU, and split-TF32 products on
-// mma.sync.m16n8k8 (float32 at nearly f32 accuracy from three TF32 products
-// of split halves).  Used by flash_attention.cu and ssd_chunk.cu.
+// shared, zero fill; or one 4- or 8-byte element), mbarriers (init,
+// expect-tx, arrive, wait), a bulk copy completing on an mbarrier, exp2 on
+// the MUFU, split-TF32 products on mma.sync.m16n8k8 (float32 at nearly f32
+// accuracy from three TF32 products of split halves) and float64 products
+// on mma.sync.m8n8k4 (DMMA), and the cluster's pieces: another block's
+// shared-memory address, stores into it counted on its mbarrier, a relaxed
+// cluster barrier.  Used by flash_attention.cu, ssd_chunk.cu and
+// fused_mlp.cu.
 #pragma once
 
 #include <cstdint>
@@ -23,6 +27,14 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int sr
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// One element of `Bytes` (4 or 8) global -> shared without registers; both
+// addresses aligned to the element.
+template <int Bytes>
+__device__ __forceinline__ void cp_async_elem(uint32_t dst, const void* src) {
+  static_assert(Bytes == 4 || Bytes == 8, "cp.async.ca copies 4, 8 or 16 bytes");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst), "l"(src), "n"(Bytes)
+               : "memory");
 }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
@@ -63,6 +75,43 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   const long long t0 = clock64();
   while (!mbar_try_wait(bar, parity))
     if (clock64() - t0 > 20000000000ll) __trap();
+}
+
+// The address of the same shared-memory location in block `rank` of the
+// cluster (mapa), for the shared::cluster operations below.
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t local, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(local), "r"(rank));
+  return remote;
+}
+
+// A store into another block's shared memory (cluster addresses) that
+// counts its bytes against that block's mbarrier (complete_tx): the
+// receiver learns of it by waiting on its own barrier, with no fence.
+__device__ __forceinline__ void st_async(uint32_t addr, float v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n"
+               ::"r"(addr), "r"(__float_as_uint(v)), "r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void st_async(uint32_t addr, double v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b64 [%0], %1, [%2];\n"
+               ::"r"(addr), "l"(__double_as_longlong(v)), "r"(bar)
+               : "memory");
+}
+
+// An mbarrier initialised here visible to the other blocks of the cluster.
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// The cluster barrier split in two and relaxed: no memory ordering (no
+// GPU-scope fence), only "every block of the cluster has got this far".
+// Every thread of every block arrives and waits.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
 // `bytes` (a multiple of 16, both addresses 16-byte aligned) global ->
@@ -124,6 +173,15 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const Split4& a, const
   mma_tf32(c, a.small, b.big[0], b.big[1]);
   mma_tf32(c, a.big, b.small[0], b.small[1]);
   mma_tf32(c, a.big, b.big[0], b.big[1]);
+}
+
+// c (8 x 8, f64) += a (8 x 4, f64) . b (4 x 8, f64), each product and sum
+// in float64.  Fragments, with g = lane / 4 and t = lane % 4: a = (g, t);
+// b = (k t, n g); c = (g, 2t), (g, 2t + 1).
+__device__ __forceinline__ void mma_f64(double (&c)[2], double a, double b) {
+  asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};\n"
+      : "+d"(c[0]), "+d"(c[1])
+      : "d"(a), "d"(b));
 }
 
 }  // namespace repro_torch_tc

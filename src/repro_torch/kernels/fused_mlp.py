@@ -27,13 +27,18 @@ CUDA tensor neither path catches a failed build or launch.  The JAX
 package has no backward kernel: XLA differentiates the plain definition.
 
 The launchers keep their host cost low (the SDE paths are bound by it):
-the stream is read as its raw handle, a launch that carries no gradient
-makes no autograd node, and the backward's scratch (a ticket counter, zero
-between launches, and the per-block partial sums) is kept per device and
-stream.
+the stream is read as its raw handle and a launch that carries no gradient
+makes no autograd node.  The backward runs as one thread-block cluster
+whose blocks reduce their sums over rows through each other's shared
+memory, so it needs no scratch; only widths whose sums do not fit in
+shared memory (none of the SDE fields) get a buffer of global partials,
+allocated with ``torch.empty`` at each launch and sized by the library's
+plan (:func:`bwd_plan`).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -103,20 +108,22 @@ def _launch(x, w1, b1, w2, b2):
     return out
 
 
-_PLANS: dict = {}    # (dtype code, R, Din, H, Dout) -> scratch bytes
-_SCRATCH: dict = {}  # (device, stream) -> uint8 scratch, ticket zero between launches
+_PARTIALS: dict = {}  # (dtype code, Din, H, Dout) -> bytes of global partials
 
 
-def _scratch(index: int, stream: int, nbytes: int) -> torch.Tensor:
-    """The stream's scratch, grown (zeroed, so the ticket starts at 0) when
-    a launch needs more; launches on one stream run in order, so they may
-    share it, and no two streams do."""
-    buf = _SCRATCH.get((index, stream))
-    if buf is None or buf.numel() < nbytes:
-        size = max(nbytes, 2 * buf.numel() if buf is not None else 0)
-        buf = torch.zeros(size, dtype=torch.uint8, device=torch.device("cuda", index))
-        _SCRATCH[(index, stream)] = buf
-    return buf
+def bwd_plan(code: int, rows: int, din: int, hidden: int, dout: int):
+    """The backward's launch plan as the library works it out
+    (``rt_fused_mlp_bwd_plan``, ``plan_bwd`` in csrc/fused_mlp.cu), a
+    function of (dtype code, R, widths) alone: ``{"blocks", "tile",
+    "tiles_per_block", "smem", "smem_bytes", "partial_bytes"}``, or None
+    where one tile of rows does not fit in a block's shared memory.
+    ``partial_bytes`` (the global partials of widths whose sums do not fit
+    in shared memory) depends on the dtype and the widths alone."""
+    out = (ctypes.c_int64 * 6)()
+    if build.load().rt_fused_mlp_bwd_plan(code, rows, din, hidden, dout, out) != 0:
+        return None
+    return dict(zip(("blocks", "tile", "tiles_per_block", "smem", "smem_bytes",
+                     "partial_bytes"), (int(v) for v in out)), smem=bool(out[3]))
 
 
 def _launch_bwd(x, w1, b1, w2, b2, g):
@@ -133,25 +140,25 @@ def _launch_bwd(x, w1, b1, w2, b2, g):
             t.zero_()
         return grads
     code = DTYPE_CODES[x.dtype]
-    key = (code, rows, din, hidden, dout)
-    nbytes = _PLANS.get(key)
-    lib = build.load()
+    key = (code, din, hidden, dout)
+    nbytes = _PARTIALS.get(key)
     if nbytes is None:
-        nbytes = _PLANS[key] = lib.rt_fused_mlp_bwd_scratch(code, rows, din, hidden, dout)
-    if nbytes < 0:
-        raise ValueError(f"fused_mlp_bwd: a row of Din + Dout + 2·H = {din + dout + 2 * hidden} "
-                         f"values exceeds the shared memory of a block")
+        plan = bwd_plan(code, rows, din, hidden, dout)
+        if plan is None:
+            raise ValueError(f"fused_mlp_bwd: a tile of rows at Din {din}, H {hidden}, Dout "
+                             f"{dout} exceeds the shared memory of a block")
+        nbytes = _PARTIALS[key] = plan["partial_bytes"]
+    lib = build.load()
     g2 = g.reshape(rows, dout)
     index = x.get_device()
-    stream = _stream(index)
-    scratch = _scratch(index, stream, nbytes)
+    partials = torch.empty(nbytes, dtype=torch.uint8, device=x.device) if nbytes else None
     dx, dw1, db1, dw2, db2 = grads
     with build.device_guard(index):
         err = lib.rt_fused_mlp_bwd(
             code, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), g2.data_ptr(),
             g2.stride(0), g2.stride(1), dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
-            dw2.data_ptr(), db2.data_ptr(), scratch.data_ptr(), scratch.numel(), rows, din,
-            hidden, dout, stream)
+            dw2.data_ptr(), db2.data_ptr(), partials.data_ptr() if nbytes else None, nbytes,
+            rows, din, hidden, dout, _stream(index))
     build.check("fused_mlp_bwd", err)
     LAUNCHES["fused_mlp_bwd"] += 1
     return grads

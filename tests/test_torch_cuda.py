@@ -16,7 +16,8 @@ launches, contiguous copies and every slice count bitwise equal, and a
 two-layer smoke mamba2 prefill through it; the SDE field MLP kernel against its plain version (float32 2e-5, bfloat16
 6e-2, float64 1e-12), row-invariant bitwise, and the depth-1 fields routed
 through it; its backward kernel against ``ref.fused_mlp_bwd`` (the same
-tolerances), two launches bitwise, dx rows invariant, one launch a
+tolerances) at rows up to 4096, two launches bitwise, dx rows invariant,
+its plan the Python mirror's and its cluster schedulable, one launch a
 backward and none under create_graph; gradients through the attention and
 SSD kernels bitwise the plain path's for a loss linear in the outputs
 (the MLP's within its tolerances); the cross-entropy
@@ -549,10 +550,11 @@ def test_depth1_fields_run_through_the_kernel(cuda):
 
 
 # The backward kernel's rows: one block, the ELBO batch, a ragged count, the
-# 1024-row bucket.  Its float32 dW and db are sums of R terms, which round
-# by ~sqrt(R)·eps of the partial sums: they are held within MLP_TOL of their
-# largest magnitude as well (chip_smoke.py MLP_TOL has the reasoning).
-MLP_BWD_ROWS = [1, 64, 300, 1024]
+# 1024-row bucket, several tiles a block.  Its float32 dW and db are sums of
+# R terms, which round by ~sqrt(R)·eps of the partial sums: they are held
+# within MLP_TOL of their largest magnitude as well (chip_smoke.py MLP_TOL
+# has the reasoning).
+MLP_BWD_ROWS = [1, 64, 300, 1024, 4096]
 
 
 def _mlp_bwd_operands(cuda, dtype, rows, din, h, dout, seed=0):
@@ -585,9 +587,10 @@ def test_fused_mlp_backward_kernel_matches_plain_version(cuda, dtype, din, h, do
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
 @pytest.mark.parametrize("din,h,dout", [(17, 32, 16), (32, 64, 32), (512, 512, 512)])
 def test_fused_mlp_backward_is_deterministic_and_dx_rows_invariant(cuda, dtype, din, h, dout):
-    """Two launches give the same bits (no atomics in any sum; the ticket
-    resets itself), and a row's dx is the same whether 1, 1000 or 1024 rows
-    are launched; an expanded cotangent gives its contiguous copy's bits."""
+    """Two launches give the same bits (no atomics in any sum: the cluster
+    adds the blocks' sums in ascending rank), and a row's dx is the same
+    whether 1, 1000 or 1024 rows are launched; an expanded cotangent gives
+    its contiguous copy's bits."""
     from repro_torch.kernels import fused_mlp as fm
 
     x, w, g = _mlp_bwd_operands(cuda, dtype, 1024, din, h, dout, seed=1)
@@ -601,6 +604,23 @@ def test_fused_mlp_backward_is_deterministic_and_dx_rows_invariant(cuda, dtype, 
     ge = g[:1].expand(1024, dout)
     assert all(torch.equal(a, b) for a, b in zip(fm._launch_bwd(x, *w, ge),
                                                  fm._launch_bwd(x, *w, ge.contiguous())))
+
+
+@pytest.mark.parametrize("code", [0, 1, 2])
+def test_fused_mlp_backward_plan_is_the_mirror_and_the_cluster_schedules(cuda, code):
+    """The library's plan (``fused_mlp.bwd_plan``, from ``rt_fused_mlp_bwd_plan``)
+    is its mirror's (``_fused_mlp_plan.bwd_plan``, which the CPU tests use)
+    at every width and row count of the checks, and the card holds at least
+    one cluster of the launch (``cudaOccupancyMaxActiveClusters``)."""
+    from _fused_mlp_plan import bwd_plan as mirror
+    from repro_torch.kernels import build, fused_mlp as fm
+
+    lib = build.load()
+    for din, h, dout in MLP_WIDTHS:
+        for rows in MLP_BWD_ROWS:
+            assert fm.bwd_plan(code, rows, din, h, dout) == mirror(code, rows, din, h, dout), (
+                din, h, dout, rows)
+            assert lib.rt_fused_mlp_bwd_clusters(code, rows, din, h, dout) >= 1
 
 
 def test_fused_mlp_backward_is_one_launch_and_none_under_create_graph(cuda):
@@ -630,7 +650,7 @@ def _linear_loss_grads(fn, inputs, seed):
     return torch.autograd.grad(loss, leaves)
 
 
-def test_kernel_gradients_equal_plain_path_bitwise(cuda):
+def test_kernel_gradients_match_plain_path_attention_ssd_bitwise_mlp_within_tol(cuda):
     """For a loss linear in the outputs the cotangents do not depend on the
     forward's bits, so the attention's and the SSD scan's gradients (the
     plain versions' VJPs at the same inputs) equal the plain path's bit for

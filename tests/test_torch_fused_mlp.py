@@ -15,8 +15,11 @@ products sum in different orders, and XLA's CPU exp and logistic differ
 from torch's by an ulp).  The node's first derivative is the backward
 launch (here ``ref.fused_mlp_bwd``) bitwise, and autograd of the plain
 version within those tolerances; its second derivative is the plain
-version's, bitwise.  The CUDA kernels themselves are held to their plain
-versions on the card (tests/test_torch_cuda.py, chip_smoke.py).
+version's, bitwise.  The backward kernel's arithmetic (split-TF32 products,
+its tile and cluster sums) is emulated here and held to ``jax.vjp``; its
+launch plan's Python mirror is held to its rules.  The CUDA kernels
+themselves are held to their plain versions on the card
+(tests/test_torch_cuda.py, chip_smoke.py).
 """
 
 import types
@@ -27,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+import _fused_mlp_plan as plan_mirror
 from _torch_parity import jax_config
 from repro.kernels import ref as jref
 from repro.kernels.fused_mlp import fused_mlp as pallas_fused_mlp
@@ -156,7 +160,7 @@ def test_plain_backward_bf16_matches_jax_vjp_of_the_kernel_arithmetic(din, h, do
 
 @pytest.mark.parametrize("din,h,dout", [(17, 32, 16), (32, 64, 32)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_node_backward_is_plain_autograd_bitwise(din, h, dout, dtype):
+def test_node_backward_is_the_launch_bitwise_and_plain_autograd_within_tol(din, h, dout, dtype):
     """A loss linear in the output, and one that is not (through tanh and a
     product upstream of x): every gradient is the backward launch's at the
     cotangent autograd delivers, bitwise, and autograd of the plain version's
@@ -357,3 +361,169 @@ def test_launcher_routes_one_backward_launch_per_node(monkeypatch):
     with torch.no_grad():
         assert fm_kernel.fused_mlp(x, *w).grad_fn is None
     assert calls == ["fwd", "fwd"]
+
+
+# ---- the backward kernel's arithmetic, emulated ---------------------------
+#
+# csrc/fused_mlp.cu's fused_mlp_bwd runs every product on mma.sync tensor
+# cores in split TF32 (float32): each operand x = big + small with big =
+# x rounded to TF32 (nearest, ties away: tensor_core.cuh tf32_rna) and
+# small = x − big, which the tensor core reads truncated to TF32; each
+# product is small·big, big·small and big·big in three accumulators, added
+# as big + (small ones) after at most 64 of depth, the 64-deep pieces added
+# in order.  The sums over rows add each tile's product to the block's
+# running sum, and the cluster adds the blocks' sums in ascending rank.
+# The emulation rounds each MMA once (its 8 products summed exactly, then
+# to float32) and takes σ as torch computes it: the card's tensor core may
+# sum with fewer bits, and the kernel's float32 σ (ex2/rcp.approx) is a few
+# ulp off, which the card tests measure.
+
+
+def _tf32_bits(v: torch.Tensor, mask_only: bool) -> torch.Tensor:
+    bits = v.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = (bits if mask_only else bits + 0x1000) & 0xFFFFE000
+    return torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(torch.int32).view(torch.float32)
+
+
+def _split(v: torch.Tensor):
+    """(big, small as the tensor core reads it) of float32 ``v``."""
+    big = _tf32_bits(v, mask_only=False)
+    return big, _tf32_bits(v - big, mask_only=True)
+
+
+def _mma_chain(a, b, k0, k1, step=8):
+    """float32 c accumulated over k-steps of ``step``, each MMA rounded once."""
+    c = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float64)
+    for k in range(k0, k1, step):
+        c = (c + a[:, k:k + step].double() @ b[k:k + step].double()).float().double()
+    return c.float()
+
+
+def _tc_product(a, b, split=True):
+    """A (M, K) · B (K, N), float32, as the kernel's warp_product sums it
+    (K zero-padded to a multiple of 8); ``split=False``: one TF32 rounding
+    of each operand, one accumulator (the precision split TF32 buys)."""
+    pad = -a.shape[1] % 8
+    a = torch.nn.functional.pad(a, (0, pad))
+    b = torch.nn.functional.pad(b, (0, 0, 0, pad))
+    (ab, as_), (bb, bs) = _split(a), _split(b)
+    out = None
+    for k0 in range(0, a.shape[1], 64):
+        k1 = min(k0 + 64, a.shape[1])
+        if split:
+            d = _mma_chain(ab, bb, k0, k1) + (_mma_chain(as_, bb, k0, k1)
+                                              + _mma_chain(ab, bs, k0, k1))
+        else:
+            d = _mma_chain(ab, bb, k0, k1)
+        out = d if out is None else out + d
+    return out
+
+
+def _emulated_bwd(x, w1, b1, w2, g, split=True):
+    """fused_mlp_bwd's float32 arithmetic, tile by tile and block by block
+    as the plan (its mirror, ``_fused_mlp_plan.bwd_plan``) lays the rows out
+    -> (dx, dW1, db1, dW2, db2)."""
+    rows, din = x.shape
+    hidden, dout = w2.shape
+    plan = plan_mirror.bwd_plan(0, rows, din, hidden, dout)
+    tile, tpb = plan["tile"], plan["tiles_per_block"]
+    tiles = -(-rows // tile)
+    ones = torch.ones(rows, 1)
+    pre = _tc_product(x, w1, split) + b1
+    sg = 1.0 / (1.0 + torch.exp(-pre))
+    ps = pre * sg
+    a = 0.909 * ps
+    dpre = _tc_product(g, w2.T.contiguous(), split) * (0.909 * (sg + ps * (1.0 - sg)))
+    dx = _tc_product(dpre, w1.T.contiguous(), split)
+    xa, aa = torch.cat([x, ones], 1), torch.cat([a, ones], 1)
+    blocks = []
+    for b0 in range(0, tiles, tpb):
+        acc1 = acc2 = None
+        for t in range(b0, min(b0 + tpb, tiles)):
+            r = slice(t * tile, min((t + 1) * tile, rows))
+            c1 = _tc_product(dpre[r].T.contiguous(), xa[r], split)  # (H, Din + 1)
+            c2 = _tc_product(g[r].T.contiguous(), aa[r], split)     # (Dout, H + 1)
+            acc1 = c1 if acc1 is None else acc1 + c1
+            acc2 = c2 if acc2 is None else acc2 + c2
+        blocks.append((acc1, acc2))
+    s1, s2 = blocks[0]
+    for acc1, acc2 in blocks[1:]:  # the cluster's ascending rank order
+        s1, s2 = s1 + acc1, s2 + acc2
+    return dx, s1[:, :din].T, s1[:, din], s2[:, :hidden].T, s2[:, hidden]
+
+
+def _fan_in_inputs(rows, din, h, dout, seed):
+    """x, g ~ N(0, 1), W ~ N(0, 1/fan_in), b ~ 0.1·N(0, 1): the card tests'
+    draws (a 512-wide layer's sums stay O(1))."""
+    r = np.random.default_rng(seed)
+    return (r.standard_normal((rows, din)), r.standard_normal((din, h)) / np.sqrt(din),
+            0.1 * r.standard_normal(h), r.standard_normal((h, dout)) / np.sqrt(h),
+            0.1 * r.standard_normal(dout), r.standard_normal((rows, dout)))
+
+
+def _bwd_margins(rows, din, h, dout, split):
+    """Worst |Δ| − tolerance of each emulated gradient against jax.vjp of
+    the reference MLP (float32; dW and db held within MLP_TOL of their
+    largest as well, as on the card)."""
+    *arrays, ct = _fan_in_inputs(rows, din, h, dout, seed=rows + din)
+    with jax_config():
+        (tx, *tw), (jx, *jw) = _both(arrays, "float32")
+        (tg,), (jg,) = _both([ct], "float32")
+        got = _emulated_bwd(tx, tw[0], tw[1], tw[2], tg, split)
+        _, vjp = jax.vjp(jref.fused_mlp, jx, *jw)
+        want = [torch.from_numpy(np.array(w)) for w in vjp(jg)]
+    out = {}
+    for name, a, w in zip(("dx", "dW1", "db1", "dW2", "db2"), got, want):
+        atol = 2e-5 if name == "dx" else max(2e-5, 2e-5 * w.abs().max().item())
+        assert a.shape == w.shape
+        out[name] = ((a - w).abs() - (atol + 2e-5 * w.abs())).max().item()
+    return out
+
+
+@pytest.mark.parametrize("rows,din,h,dout", [(64, 17, 32, 16), (1024, 17, 32, 16),
+                                             (4096, 17, 32, 16), (300, 512, 512, 512)])
+def test_emulated_backward_kernel_holds_the_f32_tolerance(rows, din, h, dout):
+    """The kernel's split-TF32 products, tile and cluster sums hold MLP_TOL
+    against jax.vjp at the ELBO shape (R 64, 1024 and 4096: several tiles
+    a block) and at 512 -> 512 -> 512, R = 300; the margins are printed
+    (``-s``) for PERF.md."""
+    got = _bwd_margins(rows, din, h, dout, split=True)
+    print(f"fused_mlp_bwd emulated split TF32 {(rows, din, h, dout)}, worst |Δ| − tol:", got)
+    assert all(m < 0 for m in got.values()), got
+
+
+def test_emulated_backward_needs_split_tf32():
+    """One TF32 rounding of each operand misses the float32 tolerance at the
+    ELBO shape: the products need the split."""
+    got = _bwd_margins(1024, 17, 32, 16, split=False)
+    print("fused_mlp_bwd emulated one-TF32 (1024, 17, 32, 16), worst |Δ| − tol:", got)
+    assert max(got.values()) > 0, got
+
+
+@pytest.mark.parametrize("code", [0, 1, 2])
+def test_backward_plan_is_a_function_of_dtype_rows_and_widths(code):
+    """The plan (``_fused_mlp_plan.bwd_plan``, the mirror of the kernel's
+    ``plan_bwd`` that a card test holds to ``rt_fused_mlp_bwd_plan``):
+    one cluster of 16 blocks; tiles of a multiple of the product's M rows
+    that cover R; every SDE field's sums in shared memory (no partials),
+    the 512-wide MLP's in global partials; several tiles a block at R =
+    4096; the same plan for the same arguments, whatever was asked before."""
+    m = 8 if code == 2 else 16
+    shapes = FIELDS + [(96, 48, 24), (512, 512, 512)]
+    first = {(r, s): plan_mirror.bwd_plan(code, r, *s) for r in (1, 64, 300, 1024, 4096)
+             for s in shapes}
+    for (rows, shape), p in reversed(list(first.items())):
+        assert p == plan_mirror.bwd_plan(code, rows, *shape)
+        assert p["blocks"] == plan_mirror.BWD_CLUSTER == 16
+        assert p["tile"] % m == 0 and p["tile"] <= plan_mirror.BWD_TILE_MAX
+        assert p["tile"] * p["tiles_per_block"] * 16 >= rows
+        assert p["smem_bytes"] <= plan_mirror.BWD_SMEM_MAX
+        assert (p["partial_bytes"] == 0) == (shape != (512, 512, 512)) == p["smem"]
+    elbo = {r: first[(r, (17, 32, 16))] for r in (1, 64, 1024, 4096)}
+    assert [(p["tile"], p["tiles_per_block"]) for p in elbo.values()] == (
+        [(8, 1), (8, 1), (64, 1), (128, 2)] if code == 2 else
+        [(16, 1), (16, 1), (64, 1), (128, 2)])
+    assert plan_mirror.bwd_plan(code, 300, 512, 512, 512)["partial_bytes"] == (
+        16 * (2 * 512 * 512 + 1024) * (8 if code == 2 else 4))
+    # the sums and weights of the SDE fields stay in shared memory at every R
+    assert all(first[(r, s)]["smem"] for r in (1, 64, 300, 1024, 4096) for s in FIELDS)
