@@ -20,11 +20,12 @@ non-zero and the final result line is never printed):
 3b. (Run right after 3.)  ``fused_mlp`` (every depth-1 SDE field: Linear
    → LipSwish → Linear) against its plain version in float32 (2e-5),
    bfloat16 (6e-2) and float64 (1e-12) at every field shape of the ELBO,
-   the SDE-GAN generator and the adaptive burst, 96 → 48 → 24 and a
-   512-wide MLP (MLP_SHAPES), at 1, 300 and 1024 rows; rows invariant
-   bitwise (1 vs 1000 vs 1024); timed at MLP_TIMED (the training batches,
-   the 1024-row decode bucket's 17 → 32 → 16, nu, the SDE-GAN sigma, the
-   burst) beside the plain version, the layer loop the fields ran before
+   the SDE-GAN generator and discriminator (xi 2 → 32 → 16, g 17 → 32 →
+   32) and the adaptive burst, 96 → 48 → 24 and a 512-wide MLP
+   (MLP_SHAPES), at 1, 300 and 1024 rows; rows invariant bitwise (1 vs
+   1000 vs 1024); timed at MLP_TIMED (the training batches, the 1024-row
+   decode bucket's 17 → 32 → 16, nu, the SDE-GAN sigma, the
+   discriminator's g, the burst) beside the plain version, the layer loop the fields ran before
    (1024-row blocks) and the bound.  Its backward kernel ``fused_mlp_bwd``
    (one thread-block cluster, products on the tensor cores) against
    ``ref.fused_mlp_bwd`` at MLP_SHAPES × rows MLP_BWD_ROWS (1 to 4096:
@@ -103,6 +104,28 @@ non-zero and the final result line is never printed):
    peak memory of both at rtol 2e-3 and 2e-4.  ``fused_mlp`` must launch;
    the device kernels of one gradient (depth 10) with it, in the
    ``PlainVJP`` node and under ``plain_mlp()``.
+11b. SDE-GAN training, the main path's second half, float32 at
+   ``train_sde_gan``'s widths (data 1, hidden 16, noise 4, initial noise
+   4, width 32, depth 1, discriminator hidden 16 and width 32; 31 solver
+   steps, 32 observations), batch 128 and 1024: 3 clip steps through
+   ``train_sde_gan`` (the train CLI's entry point), one a call, each
+   resuming the checkpoint the last wrote, the counts zeroed before and
+   read after each: ``fused_mlp``, ``fused_mlp_bwd`` and
+   ``brownian_increment`` launch GAN_STEP_LAUNCHES times (plus
+   GAN_LOG_LAUNCHES for step 0's sig-MMD log), every other kernel never;
+   finite metrics; every clipped layer's per-layer violation ≤ 1 after
+   every step; step 3 after the resume bitwise the uninterrupted run's
+   (metrics and parameters); the bundle served by ``serve_sde``.  Then the
+   one-pull gradients bitwise the reference's two pulls; the gradients
+   with the fields through ``fused_mlp`` against the layer loop
+   (``plain_mlp()``) within MLP_TOL (atol MLP_TOL of each leaf's
+   largest); the gradient penalty's create_graph gradient launching no
+   ``fused_mlp_bwd``; one gp step through ``train_sde_gan``
+   (GP_STEP_LAUNCHES, finite); float64 at batch 64, the exact adjoint
+   against discretise for both players (≤ 1e-12 relative); the clip and
+   the gp step timed in turns and one clip step profiled at both batches;
+   the peak memory of a clip step at 31 and 310 solver steps (the joint
+   solve keeps only its terminal state, so it should not grow with N).
 12. ``flash_attention`` (the LM prefill's GQA attention) against its plain
    version on the card, the same float scale 1/sqrt(D) given to both:
    float32 (rtol = atol = 2e-5) and bfloat16 (6e-2, and ‖Δ‖/‖want‖ of
@@ -135,7 +158,7 @@ non-zero and the final result line is never printed):
    of one prefill (the kernel's share), the same prefill with the
    attention as the LM called it before the kernel read the projections
    in place (contiguous copies in, a contiguous output: at least 4 more
-   copy kernels a layer), and the
+   copy kernels a layer, each route's count the fewer of two profiles), and the
    full-depth prefill on the plain attention: max |Δ| of the last-position logits and first-token
    agreement (asserted finite only; phase 13 is the assertion).  A profile
    of one decode step against the 2064-slot cache (device busy and idle
@@ -204,13 +227,16 @@ non-zero and the final result line is never printed):
 21. mamba2-1.3b's training loss at full width, two layers, B = 2, S = 512,
    bf16: one gradient through ``ssd_chunk`` and ``fused_xent`` against
    the plain route: the loss within 6e-2, every leaf's gradient finite.
+Each phase's wall is printed as a ``[phase] <name>: <s> s`` line as it ends.
+
 22. Prints a ``{"kernels": [...]}`` JSON line (``launches``: the count on
    the path each kernel was ported for — training (3 steps) for the solver
    kernels, ``fused_mlp`` and ``fused_mlp_bwd``, the adaptive gradient for
    ``brownian_value``, the 2048-token LM serves for ``flash_attention``
    and ``ssd_chunk``, one LM training step of phase 20 for ``fused_xent``
    and ``fused_xent_bwd``; ``adaptive_launches``: the fused adaptive
-   gradient's; ``serve_launches``: the Latent-SDE service's, the adaptive
+   gradient's; ``gan_launches``: the counts of SDE-GAN clip step 3 at batch
+   128 (no sig-MMD log); ``serve_launches``: the Latent-SDE service's, the adaptive
    service's for ``brownian_value``, the LM serves' for
    ``flash_attention`` and ``ssd_chunk``; ``ptxas``: the registers,
    shared memory and spills of ``brownian_value``, the float32 attention,
@@ -228,7 +254,8 @@ adaptive serving drain in another tree and this one, in turns;
 mamba2-1.3b's prefill there and here, in turns; ``elbo_in_turns``
 (neither) the fused ELBO step at batch 64 and 1024, the depth-10 adaptive
 gradient (walls, launches, device kernels) and the ``fused_mlp``
-launcher's host cost there and here, in turns.
+launcher's host cost there and here, in turns; ``smoke_in_turns``
+(neither) the whole script there and here, one after the other.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -302,10 +329,13 @@ KERNEL_SOURCES = {
 }
 # fused_mlp checks, (Din, H, Dout): every depth-1 field of the ELBO (mu and
 # sigma 1 + 16 -> 32 -> 16, nu 1 + 16 + 16, qz0 16 -> 2·8, zeta 8), of the
-# SDE-GAN generator (zeta 4, sigma 1 + 16 -> 16·4) and the adaptive burst
-# (32 -> 64 -> 32), the JAX suite's 96 -> 48 -> 24, and a 512-wide MLP.
+# SDE-GAN generator (zeta 4, sigma 1 + 16 -> 16·4), of its discriminator
+# (xi 1 + 1 -> 32 -> 16, g 1 + 16 -> 32 -> 16·2; f is mu's shape) and the
+# adaptive burst (32 -> 64 -> 32), the JAX suite's 96 -> 48 -> 24, and a
+# 512-wide MLP.
 MLP_SHAPES = [(17, 32, 16), (33, 32, 16), (16, 32, 16), (8, 32, 16), (4, 32, 16),
-              (17, 32, 64), (32, 64, 32), (96, 48, 24), (512, 512, 512)]
+              (17, 32, 64), (2, 32, 16), (17, 32, 32), (32, 64, 32), (96, 48, 24),
+              (512, 512, 512)]
 # the JAX suite's fused_mlp tolerances (tests/test_kernels.py:18-21) and
 # 1e-12 in float64: the kernel sums each row in its own fixed order, the
 # plain version in cuBLAS's.
@@ -326,10 +356,11 @@ LIPSWISH_BWD_OPS = 13
 MLP_BWD_ROWS = (1, 64, 300, 1024, 4096)
 # (tag, rows, Din, H, Dout), float32: the ELBO's training batches and, at
 # 1024 rows, the 1024-row decode bucket's prior mu and sigma (the same
-# 17 -> 32 -> 16); the posterior nu, the SDE-GAN sigma and the burst.
+# 17 -> 32 -> 16); the posterior nu, the SDE-GAN sigma, the
+# discriminator's g at the GAN's 1024 batch, and the burst.
 MLP_TIMED = [("train B64", 64, 17, 32, 16), ("train/serve B1024", 1024, 17, 32, 16),
              ("nu B1024", 1024, 33, 32, 16), ("gan sigma B1024", 1024, 17, 32, 64),
-             ("burst B256", 256, 32, 64, 32)]
+             ("disc g B1024", 1024, 17, 32, 32), ("burst B256", 256, 32, 64, 32)]
 # flash_attention checks, (B, Hq, Hkv, S, D): qwen2.5-14b's prefill and a
 # short prompt, a ragged S, tinyllama's group 8 at D = 64, S = 1 with MQA,
 # a ragged S just past one 128-row tile, head dim 16 (the 32-byte swizzle),
@@ -423,6 +454,25 @@ STEP_LAUNCHES = {"rev_heun_phase1_gen": 23, "rev_heun_phase2": 46,
                  "brownian_increment": 23, "rev_heun_phase1": 46,
                  "rev_heun_bwd_phase1": 23, "rev_heun_bwd_phase2": 23,
                  "fused_mlp": 286, "fused_mlp_bwd": 98}
+# Launches of one SDE-GAN step at train_sde_gan's widths, 31 solver steps and
+# 32 observations (tests/test_torch_gan_train.py holds the formula on the CPU
+# with counted plain launches).  A general-noise solve runs unfused: N + 1
+# field evaluations forward; backward per step the reconstruction's and the
+# local VJP's, then the initial VJP's (2N + 1), a backward launch for each
+# of the local and initial VJPs' (N + 1).  An evaluation is 5 fields in the
+# joint solve (mu, sigma, f, g in the drift and g again in the diffusion), 2
+# in the real path's CDE solve (f, g); zeta and the two xi are one each.
+# Clip (one backward of both players): fused_mlp (2 + 160) + (1 + 64) + 315
+# + 126 = 668; fused_mlp_bwd 3 + 160 + 64 = 227; brownian_increment 31 + 31.
+GAN_STEP_LAUNCHES = {"fused_mlp": 668, "fused_mlp_bwd": 227, "brownian_increment": 62}
+# GP: the discriminator's loss (zeta carries no gradient: 2 + 160 + 64
+# backward launches), the penalty's discretise CDE solve (1 + 64 launches,
+# each one backward launch in the outer backward, none under create_graph),
+# then the fake score again for the generator (162 + 315; 2 + 160).
+GP_STEP_LAUNCHES = {"fused_mlp": 1210, "fused_mlp_bwd": 453, "brownian_increment": 124}
+# the sig-MMD log of train_sde_gan: generator_sample at 256 rows, 1 + 2·32
+# field launches and 31 draws, no gradient
+GAN_LOG_LAUNCHES = {"fused_mlp": 65, "fused_mlp_bwd": 0, "brownian_increment": 31}
 # The Latent SDE at the widths the repo trains it at (examples/
 # latent_sde_air_quality.py:75, src/repro/launch/train.py:318).
 WIDTHS = dict(data_dim=2, hidden_dim=16, context_dim=16, initial_noise_dim=8,
@@ -1409,6 +1459,35 @@ def elbo_in_turns(parent_root: str) -> dict:
     return runs
 
 
+def smoke_in_turns(parent_root: str, log_dir: str) -> dict:
+    """The whole ``chip_smoke.py`` of the tree at ``parent_root`` and of this
+    one, each run as the driver runs it (``python3 chip_smoke.py``, no
+    arguments, from its tree's root; a fresh process that builds its own
+    kernels), parent first: ``{tree: {"wall_s", "rc", "ok"}}``, each
+    run's output in ``log_dir/smoke_<tree>.log`` and this tree's phase
+    walls (its ``[phase]`` lines) printed.  Run it as ``python3 -c "import
+    chip_smoke as C; C.smoke_in_turns('build/parent', 'chiprun_out')"``
+    after unpacking the parent commit there (``git archive``)."""
+    runs = {}
+    os.makedirs(log_dir, exist_ok=True)
+    for tree in ("parent", "this"):
+        cwd = os.path.abspath(parent_root) if tree == "parent" else ROOT
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, timeout=1500,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        wall = time.perf_counter() - t0
+        with open(os.path.join(log_dir, f"smoke_{tree}.log"), "w") as f:
+            f.write(proc.stdout)
+        lines = proc.stdout.strip().splitlines()
+        runs[tree] = {"wall_s": wall, "rc": proc.returncode,
+                      "ok": bool(lines) and lines[-1].startswith('{"ok": true')}
+        if tree == "this":
+            print("\n".join(ln for ln in lines if ln.startswith("[phase]")), flush=True)
+        print(f"chip_smoke.py [{tree}]: {runs[tree]}", flush=True)
+    print(f"card: {gpu_label()}", flush=True)
+    return runs
+
+
 # Cut points of fused_mlp_bwd for mlp_bwd_split, (label, [(anchor, code),
 # ...]): the variant "cut after <label>" inserts each `code` after the first
 # occurrence of its `anchor` in the source, so that every block ends there
@@ -1729,6 +1808,233 @@ def serve_adaptive_checks(ops, dev, label: str) -> dict:
     profile_call(lambda: terminal(params, big, 1e-2), f"{label}] [adaptive terminal "
                                                       f"B=1024 rtol 1e-2")
     return dict(launches=launches, stats=stats)
+
+
+GAN_SEQ = 32            # observations of the OU data (train_sde_gan's seq_len)
+GAN_STEPS = 31          # solver steps (train_sde_gan's num_steps)
+GAN_BATCHES = (128, 1024)  # examples/sde_gan_ou.py:27, benchmarks/clipping.py:40 "full"
+GAN_SEED = 21
+
+
+def _gan_problem(dev, batch: int, dtype=torch.float32, num_steps: int = GAN_STEPS, **kw):
+    """train_sde_gan's config and fresh parameters (float ``dtype``), the
+    real OU batch and the fake key a clip step draws -> (cfg, params, key, y_real)."""
+    from repro_torch.core.sde import NeuralSDEConfig, discriminator_init, generator_init
+    from repro_torch.data import ou_process
+    from repro_torch.kernels import prng
+
+    cfg = NeuralSDEConfig(data_dim=1, hidden_dim=16, noise_dim=4, width=32,
+                          num_steps=num_steps, dtype=dtype, **kw)
+    g = torch.Generator().manual_seed(GAN_SEED)
+    params = {"gen": generator_init(g, cfg, device=dev),
+              "disc": discriminator_init(g, cfg, device=dev)}
+    key = prng.PRNGKey(GAN_SEED, device=dev)
+    y_real = ou_process(prng.fold_in_key(key, 0), batch, GAN_SEQ, dtype=dtype)
+    return cfg, params, prng.fold_in_key(key, 1), y_real
+
+
+def _gan_step(dev, batch: int, constraint: str = "clip", num_steps: int = GAN_STEPS):
+    """``run()`` takes one SDE-GAN step (make_sde_gan_step) from fresh
+    parameters at train_sde_gan's widths, float32."""
+    from repro_torch.kernels import prng
+    from repro_torch.launch.steps import make_gan_optimizers, make_sde_gan_step
+
+    cfg, params, _, _ = _gan_problem(dev, batch, num_steps=num_steps)
+    (gi, gu), (di, du) = make_gan_optimizers(1.0, constraint)
+    step = make_sde_gan_step(cfg, gu, du, batch, GAN_SEQ, constraint=constraint, device=dev)
+    state = (params, gi(params["gen"]), di(params["disc"]))
+    key = prng.PRNGKey(GAN_SEED + 1, device=dev)
+    return lambda: step(*state, key)
+
+
+def _check_gan_launches(got: dict, want: dict, what: str) -> None:
+    for name, n in got.items():
+        check(n == want.get(name, 0), f"{what}: {name} launched {n} times, expected "
+                                      f"{want.get(name, 0)}")
+
+
+def _rel_err(got, want) -> float:
+    return (sum((a - b).abs().sum().item() for a, b in zip(got, want))
+            / sum(b.abs().sum().item() for b in want))
+
+
+def _two_pull_grads(params, cfg, key, y_real, batch: int):
+    """The reference's two cotangent pulls over ``gan_losses`` (``gen_loss``
+    over the generator, then ``disc_loss`` over the discriminator), the
+    check of ``sde_gan_grads``' one pull -> the same 4-tuple."""
+    from repro_torch import tree
+    from repro_torch.core.sde import gan_losses
+
+    (gen, gspec), (disc, dspec) = tree.flatten(params["gen"]), tree.flatten(params["disc"])
+    gen = [x.detach().requires_grad_() for x in gen]
+    disc = [x.detach().requires_grad_() for x in disc]
+    gl, dl, _ = gan_losses({"gen": tree.unflatten(gspec, gen),
+                            "disc": tree.unflatten(dspec, disc)},
+                           cfg, key, y_real, batch, paths=False)
+    gg = torch.autograd.grad(gl, gen, retain_graph=True)
+    dg = torch.autograd.grad(dl, disc)
+    return (gl.detach(), dl.detach(), tree.unflatten(gspec, list(gg)),
+            tree.unflatten(dspec, list(dg)))
+
+
+def gan_checks(ops, dev, label: str) -> dict:
+    """Phase 11b: the SDE-GAN training step (the second half of the main
+    path), float32 at train_sde_gan's widths, batch 128 and 1024.  Returns
+    the launches counted in one clip step (step 3 at batch 128, no sig-MMD
+    log) and its timings."""
+    from repro_torch import tree
+    from repro_torch.core import clipping
+    from repro_torch.core.sde import gradient_penalty
+    from repro_torch.kernels import prng
+    from repro_torch.launch.steps import sde_gan_grads
+    from repro_torch.launch.train import train_sde_gan
+    from repro_torch.serving import serve_sde
+
+    never = 10 ** 9  # log_every: the sig-MMD log at step 0 only
+    step_launches = {}
+    for batch in GAN_BATCHES:
+        full_params, full = train_sde_gan(3, batch, seed=GAN_SEED, log_every=never,
+                                          device=dev)
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-gan-") as tmp:
+            for k in (1, 2, 3):  # one step a call, each resuming the last
+                ops.reset_launch_counts()
+                params, hist = train_sde_gan(k, batch, tmp, ckpt_every=1, seed=GAN_SEED,
+                                             log_every=never, device=dev)
+                torch.cuda.synchronize()
+                want = dict(GAN_STEP_LAUNCHES)
+                if k == 1:  # the sig-MMD log of step 0
+                    want = {n: want[n] + GAN_LOG_LAUNCHES[n] for n in want}
+                counts = ops.launch_counts()
+                _check_gan_launches(counts, want, f"sde-gan clip step {k} at B={batch}")
+                if k == 3:  # a step without the log: the kernels line's gan_launches
+                    step_launches[batch] = counts
+                rec = hist[0]
+                check(len(hist) == 1 and rec["step"] == k - 1
+                      and all(map(math.isfinite, (v for n, v in rec.items() if n != "step"))),
+                      f"sde-gan step {k} at B={batch}: bad metrics {hist}")
+                viol = {n: clipping.per_layer_violation(params["disc"][n]).item()
+                        for n in ("f", "g", "xi")}
+                check(max(viol.values()) <= 1.0,
+                      f"sde-gan step {k} at B={batch}: a clipped layer left its box {viol}")
+                print(f"[{label}] sde-gan clip step {k} (B={batch}, train_sde_gan resuming "
+                      f"from step {k - 1}): {rec}; per-layer violation {viol}", flush=True)
+            check(rec == full[2] and all(torch.equal(a, b) for a, b in zip(
+                tree.leaves(params), tree.leaves(full_params))),
+                  f"sde-gan B={batch}: step 3 after a resume != the uninterrupted run's "
+                  f"({rec} vs {full[2]})")
+            served = serve_sde("sde-gan", tmp, max_batch=64, requests=4, request_max=16,
+                               seed=12, collect=True)
+        for rid, ys in served["samples"].items():
+            check(ys.shape[0] == GAN_STEPS + 1 and ys.shape[2] == 1
+                  and torch.isfinite(ys).all().item(),
+                  f"sde-gan bundle, request {rid}: bad trajectory {tuple(ys.shape)}")
+        print(f"[{label}] sde-gan B={batch}: launches per clip step {GAN_STEP_LAUNCHES} "
+              f"(the sig-MMD log {GAN_LOG_LAUNCHES}), every other kernel 0; step 3 after "
+              f"a resume bitwise the uninterrupted run's; the bundle served "
+              f"{served['trajectories']} trajectories", flush=True)
+
+    # one pull of both players' gradients == the reference's two pulls
+    cfg, params, key, y_real = _gan_problem(dev, GAN_BATCHES[0])
+    one = tree.leaves(sde_gan_grads(params, cfg, key, y_real, GAN_BATCHES[0]))
+    two = tree.leaves(_two_pull_grads(params, cfg, key, y_real, GAN_BATCHES[0]))
+    check(all(torch.equal(a, b) for a, b in zip(one, two)),
+          f"sde-gan: one-pull gradients != two pulls (max |Δ| "
+          f"{max((a - b).abs().max().item() for a, b in zip(one, two))})")
+    # the fields through fused_mlp against the layer loop
+    with plain_mlp():
+        plain = tree.leaves(sde_gan_grads(params, cfg, key, y_real, GAN_BATCHES[0]))
+    worst = 0.0
+    for a, b in zip(one, plain):
+        tol = MLP_TOL[torch.float32]
+        atol = max(tol, tol * b.abs().max().item())
+        worst = max(worst, (a - b).abs().max().item())
+        check(torch.allclose(a, b, rtol=tol, atol=atol),
+              f"sde-gan gradients: fused_mlp vs plain fields beyond rtol {tol}, atol {atol} "
+              f"(max |Δ| {(a - b).abs().max().item()})")
+    print(f"[{label}] sde-gan B={GAN_BATCHES[0]}: one-pull gradients == two pulls bitwise; "
+          f"fields through fused_mlp vs the layer loop max |Δ| {worst:.3g} (rtol {tol}, "
+          f"atol {tol} of each leaf's largest)", flush=True)
+
+    # the gradient penalty: its double backward launches no fused_mlp_bwd
+    leaves, spec = tree.flatten(params["disc"])
+    leaves = [x.detach().requires_grad_() for x in leaves]
+    ops.reset_launch_counts()
+    gp = gradient_penalty(tree.unflatten(spec, leaves), cfg, prng.fold_in_key(key, 3), y_real,
+                          (0.5 * y_real).flip(1))
+    torch.cuda.synchronize()
+    inner = ops.launch_counts()
+    torch.autograd.grad(gp, leaves, allow_unused=True)
+    torch.cuda.synchronize()
+    outer = ops.launch_counts()
+    check(inner["fused_mlp"] == 1 + 2 * GAN_SEQ and inner["fused_mlp_bwd"] == 0
+          and outer["fused_mlp_bwd"] == 1 + 2 * GAN_SEQ and math.isfinite(gp.item()),
+          f"gradient penalty: launches {inner} then {outer}, value {gp.item()}")
+    ops.reset_launch_counts()
+    params_gp, hist = train_sde_gan(1, GAN_BATCHES[0], constraint="gp", seed=GAN_SEED,
+                                    device=dev)
+    torch.cuda.synchronize()
+    want = {n: GP_STEP_LAUNCHES[n] + GAN_LOG_LAUNCHES[n] for n in GP_STEP_LAUNCHES}
+    _check_gan_launches(ops.launch_counts(), want, "sde-gan gp step")
+    check(all(math.isfinite(v) for n, v in hist[0].items() if n != "step")
+          and all(torch.isfinite(x).all().item() for x in tree.leaves(params_gp)),
+          f"sde-gan gp step: not finite {hist}")
+    print(f"[{label}] sde-gan gp step (B={GAN_BATCHES[0]}): {hist[0]}; launches "
+          f"{GP_STEP_LAUNCHES} (+ the log); the penalty's create_graph gradient launched "
+          f"{inner['fused_mlp']} fused_mlp and no fused_mlp_bwd, its outer backward "
+          f"{outer['fused_mlp_bwd']} fused_mlp_bwd", flush=True)
+
+    # float64: the exact adjoint against discretise, both players
+    cfg64, p64, key64, y64 = _gan_problem(dev, 64, dtype=torch.float64)
+    exact = sde_gan_grads(p64, cfg64, key64, y64, 64)
+    dto = sde_gan_grads(p64, dataclasses.replace(cfg64, gradient_mode="discretise"), key64,
+                        y64, 64)
+    rel = {who: _rel_err(tree.leaves(exact[i]), tree.leaves(dto[i]))
+           for who, i in (("generator", 2), ("discriminator", 3))}
+    check(max(rel.values()) <= ADJOINT_RTOL,
+          f"sde-gan float64: exact adjoint vs discretise relative error {rel}")
+    print(f"[{label}] sde-gan float64 B=64: exact adjoint vs discretise relative error "
+          f"{rel} (<= {ADJOINT_RTOL})", flush=True)
+
+    # the clip and the gp step in turns, one clip step under the profiler
+    timing = {}
+    for batch in GAN_BATCHES:
+        runs = {"clip": _gan_step(dev, batch), "gp": _gan_step(dev, batch, "gp")}
+        for run in runs.values():
+            run()
+        torch.cuda.synchronize()
+        walls = {v: [] for v in runs}
+        for i in range(4):
+            for v in (("clip", "gp") if i % 2 == 0 else ("gp", "clip")):
+                t0 = time.perf_counter()
+                runs[v]()
+                torch.cuda.synchronize()
+                walls[v].append(time.perf_counter() - t0)
+        med = {v: statistics.median(w) * 1e3 for v, w in walls.items()}
+        prof = profile_call(runs["clip"], f"{label}] [sde-gan clip step B={batch}")
+        timing[batch] = dict(clip_ms=med["clip"], gp_ms=med["gp"],
+                             gp_over_clip=med["gp"] / med["clip"],
+                             clip_walls_ms=[w * 1e3 for w in walls["clip"]],
+                             gp_walls_ms=[w * 1e3 for w in walls["gp"]],
+                             busy_ms=prof["busy_ms"], idle=prof["idle"],
+                             device_kernels=prof["kernels"])
+        print(f"[{label}] sde-gan B={batch} (float32, {GAN_STEPS} steps): clip step "
+              f"{med['clip']:.1f} ms, gp step {med['gp']:.1f} ms (medians of 4 in turns), "
+              f"gp / clip {med['gp'] / med['clip']:.3f}", flush=True)
+
+    # memory of a clip step at 31 and 310 solver steps
+    peaks = {}
+    for n in (GAN_STEPS, 10 * GAN_STEPS):
+        run = _gan_step(dev, GAN_BATCHES[0], num_steps=n)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run()
+        torch.cuda.synchronize()
+        peaks[n] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    print(f"[{label}] sde-gan memory (clip step, B={GAN_BATCHES[0]}): peak "
+          f"{ {n: round(v, 2) for n, v in peaks.items()} } MiB above what was held before",
+          flush=True)
+    return dict(launches=step_launches[GAN_BATCHES[0]], timing=timing, peak_mib=peaks)
 
 
 def _burst(dev, dtype):
@@ -2312,18 +2618,27 @@ def lm_serve_checks(ops, dev, label: str, arch: str) -> dict:
     if kernel == "flash_attention":
         check(prof["kernels"] is not None, f"{arch} prefill: the profiler recorded no device "
               f"kernels, so the copies cannot be counted")
+        # A profile now and then holds a few events from outside the call (a
+        # run showed one GEMM, one elementwise and three copy kernels more
+        # than the call issues), so each route's count is the fewest of two
+        # profiled calls.
+        in_place = [prof, profile_call(lambda: prefill(params, {"tokens": prompts}),
+                                       f"{label}] [{arch} prefill B={B} S={S}, again")]
         with copying_attention():
-            copying = profile_call(lambda: prefill(params, {"tokens": prompts}),
-                                   f"{label}] [{arch} prefill B={B} S={S}, attention on "
-                                   f"contiguous copies")
-        def copies(p):
-            return sum(n for name, n in p["counts"].items() if "copy" in name.lower())
+            copying = [profile_call(lambda: prefill(params, {"tokens": prompts}),
+                                    f"{label}] [{arch} prefill B={B} S={S}, attention on "
+                                    f"contiguous copies{tag}") for tag in ("", ", again")]
 
-        copies_saved = (copies(copying) - copies(prof)) / cfg.num_layers
-        print(f"[{label}] {arch} prefill: {prof['kernels']} device kernels ({copies(prof)} "
-              f"copy kernels) reading the projections in place, {copying['kernels']} "
-              f"({copies(copying)}) with the copies: {copies_saved:g} fewer copy kernels a "
-              f"layer; wall {prof['wall_ms']:.3f} vs {copying['wall_ms']:.3f} ms", flush=True)
+        def copies(profs):
+            return min(sum(n for name, n in p["counts"].items() if "copy" in name.lower())
+                       for p in profs)
+
+        copies_saved = (copies(copying) - copies(in_place)) / cfg.num_layers
+        print(f"[{label}] {arch} prefill: {prof['kernels']} device kernels ({copies(in_place)} "
+              f"copy kernels, the fewer of two profiles) reading the projections in place, "
+              f"{copying[0]['kernels']} ({copies(copying)}) with the copies: {copies_saved:g} "
+              f"fewer copy kernels a layer; wall {prof['wall_ms']:.3f} vs "
+              f"{copying[0]['wall_ms']:.3f} ms", flush=True)
         check(copies_saved >= 4, f"{arch} prefill: only {copies_saved} fewer copy kernels "
               f"a layer without the copies (want at least 4)")
 
@@ -3060,23 +3375,25 @@ def profile_decode(sampler, params, keys, label: str) -> None:
 
 def profile_call(fn, label: str) -> dict:
     """Where one call's time goes: wall time (unprofiled, host clock around a
-    synchronised call) against the card's busy time (the summed time of the
-    device-side events — kernels, copies — under torch.profiler; the host
-    ops that launched them carry the same time and are left out, or it
-    would count twice); the rest is idle."""
+    synchronised call, median of 3) against the card's busy time (the summed
+    time of the device-side events — kernels, copies — under torch.profiler);
+    the rest is idle.  Only device activity is recorded: the host ops that
+    launched the kernels would carry the same time (and count it twice),
+    and sorting a host-op trace of an SDE step (~10^5 events) costs seconds
+    a call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     walls = []
-    for _ in range(5):
+    for _ in range(3):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     wall_ms = statistics.median(walls) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
@@ -3107,6 +3424,18 @@ def _to_device(tree, device):
     return tree.to(device)
 
 
+PHASE_S: dict = {}
+
+
+def timed(name: str, fn, *args):
+    """``fn(*args)``, its wall kept in PHASE_S and printed as a ``[phase]`` line."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_S[name] = time.perf_counter() - t0
+    print(f"[phase] {name}: {PHASE_S[name]:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script needs the GPU",
@@ -3127,33 +3456,36 @@ def main() -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    xent_rows, xent_errs = xent_checks(ops, dev)
-    rows, errs = kernel_checks(ops, dev)
-    floor = launch_floor()
+    xent_rows, xent_errs = timed("fused_xent", xent_checks, ops, dev)
+    rows, errs = timed("solver kernels", kernel_checks, ops, dev)
+    floor = timed("launch floor", launch_floor)
     errs.update(xent_errs)
-    mlp_rows, mlp_errs = mlp_checks(ops, dev)
+    mlp_rows, mlp_errs = timed("fused_mlp", mlp_checks, ops, dev)
     errs["fused_mlp"] = max(mlp_errs.values())
-    mlp_bwd_rows, mlp_bwd_errs = mlp_bwd_checks(ops, dev, floor["launch_floor_ms"])
+    mlp_bwd_rows, mlp_bwd_errs = timed("fused_mlp_bwd", mlp_bwd_checks, ops, dev,
+                                       floor["launch_floor_ms"])
     errs["fused_mlp_bwd"] = max(mlp_bwd_errs.values())
-    host_costs = launcher_costs(dev)
-    value_rows, errs["brownian_value"] = value_checks(ops, dev)
-    identity_checks(ops, dev)
-    adjoint_checks(dev)
-    train_launches = train_checks(ops, dev, label)
-    memory_checks(dev, label)
-    serve = serve_checks(ops, dev, label)
-    adaptive_serve = serve_adaptive_checks(ops, dev, label)
-    adaptive_launches = adaptive_grad_checks(ops, dev, label)
-    attn_rows, errs["flash_attention"], attn_rel = attention_checks(ops, dev)
-    lm_parity_checks(dev, label, LM_ARCH)
-    lm_serve = lm_serve_checks(ops, dev, label, LM_ARCH)
-    ssd_row, errs["ssd_chunk"] = ssd_checks(ops, dev)
-    lm_parity_checks(dev, label, SSM_ARCH)
-    ssm_serve = lm_serve_checks(ops, dev, label, SSM_ARCH)
-    lm_grad_checks(ops, dev, label)
-    lm_train_parity_checks(ops, dev, label)
-    train_lm_launches = lm_train_checks(ops, dev, label)
-    ssm_train_checks(ops, dev, label)
+    host_costs = timed("launcher costs", launcher_costs, dev)
+    value_rows, errs["brownian_value"] = timed("brownian_value", value_checks, ops, dev)
+    timed("identities", identity_checks, ops, dev)
+    timed("adjoint", adjoint_checks, dev)
+    train_launches = timed("elbo train", train_checks, ops, dev, label)
+    timed("memory", memory_checks, dev, label)
+    serve = timed("serve", serve_checks, ops, dev, label)
+    adaptive_serve = timed("adaptive serve", serve_adaptive_checks, ops, dev, label)
+    adaptive_launches = timed("adaptive grad", adaptive_grad_checks, ops, dev, label)
+    gan = timed("sde-gan", gan_checks, ops, dev, label)
+    attn_rows, errs["flash_attention"], attn_rel = timed("flash_attention",
+                                                          attention_checks, ops, dev)
+    timed(f"lm parity {LM_ARCH}", lm_parity_checks, dev, label, LM_ARCH)
+    lm_serve = timed(f"lm serve {LM_ARCH}", lm_serve_checks, ops, dev, label, LM_ARCH)
+    ssd_row, errs["ssd_chunk"] = timed("ssd_chunk", ssd_checks, ops, dev)
+    timed(f"lm parity {SSM_ARCH}", lm_parity_checks, dev, label, SSM_ARCH)
+    ssm_serve = timed(f"lm serve {SSM_ARCH}", lm_serve_checks, ops, dev, label, SSM_ARCH)
+    timed("lm grad", lm_grad_checks, ops, dev, label)
+    timed("lm train parity", lm_train_parity_checks, ops, dev, label)
+    train_lm_launches = timed("lm train", lm_train_checks, ops, dev, label)
+    timed("ssm train", ssm_train_checks, ops, dev, label)
     ptxas_usage = ptxas_report(ptxas)
 
     print(f"kernels: {', '.join(KERNEL_SOURCES)} (route cuda; bitwise = plain except "
@@ -3195,7 +3527,8 @@ def main() -> int:
                      "launcher_host_us": host_costs,
                      "device_kernels_per_elbo_step": train_launches["device_kernels"],
                      "device_kernels_per_adaptive_gradient":
-                         adaptive_launches["device_kernels"]}
+                         adaptive_launches["device_kernels"],
+                     "gan_step": {"timing": gan["timing"], "peak_mib": gan["peak_mib"]}}
         elif name == "fused_mlp_bwd":  # timed at the training batch, as fused_mlp
             r = mlp_bwd_rows["train/serve B1024"]
             launches = train_launches[name]
@@ -3230,6 +3563,7 @@ def main() -> int:
                         "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
                         "host_ms": r["host_ms"], "plain_host_ms": r["plain_host_ms"],
                         "adaptive_launches": adaptive_launches.get(name, 0),
+                        "gan_launches": gan["launches"].get(name, 0),
                         "serve_launches": serve_launches, **extra})
     print(json.dumps({"kernels": entries}), flush=True)
     print(f"card: {label}", flush=True)

@@ -1,31 +1,40 @@
-"""The SDE-GAN generator's serving samplers, and the Latent SDE: the ELBO
-for training and the prior decode for serving (port of
-:mod:`repro.core.sde`: ``NeuralSDEConfig``, ``generator_init``,
-``gen_drift``, ``gen_diffusion``, ``generator_sample_paths``,
-``generator_sample_terminal``, ``LatentSDEConfig``, ``_cfg_solve``,
+"""The SDE-GAN (generator, Lipschitz CDE discriminator, the joint solve and
+the Wasserstein losses) and the Latent SDE (the ELBO for training, the
+prior decode for serving) — port of :mod:`repro.core.sde`:
+``NeuralSDEConfig``, ``generator_init``, ``gen_drift``, ``gen_diffusion``,
+``generator_sample``, ``generator_sample_paths``,
+``generator_sample_terminal``, ``_disc_spec``, ``discriminator_init``,
+``disc_f``, ``disc_g``, ``discriminate_path``, ``joint_drift``,
+``joint_diffusion``, ``gan_score_fake``, ``gan_losses``,
+``gradient_penalty``, ``LatentSDEConfig``, ``_cfg_solve``,
 ``latent_sde_init``, ``validate_latent_grid``, ``_lsde_sigma``,
 ``_latent_encode``, ``_step_index_lookup``, ``_latent_posterior_fields``,
 ``latent_sde_loss``, ``latent_sde_loss_terminal``, ``latent_prior_drift``,
-``latent_prior_diffusion``, ``latent_sde_sample_paths``).
+``latent_prior_diffusion``, ``latent_sde_sample_paths``.
 
 The generator (paper eq. (1)): ``X_0 = ζ(V)``, ``dX = μ(t, X) dt + σ(t,
-X) ∘ dW`` with general (matrix) noise, ``Y = ℓ(X)``.  Served two ways: the
+X) ∘ dW`` with general (matrix) noise, ``Y = ℓ(X)``.  Trained as an
+SDE-GAN (paper §5) against the Neural CDE discriminator of eq. (2):
+generator and discriminator are solved as one joint SDE, so the fake
+score is a function of one terminal state and the exact adjoint runs end
+to end; the real path drives the CDE alone.  Served two ways: the
 fixed-grid trajectory and the adaptive terminal sample, solved to a
 requested tolerance with one step-size controller per row.
 
-Training (paper eq. (4), Appendix B): a backward GRU encodes the observed
-path into a context path, the posterior SDE runs over the augmented state
-``[x, kl]`` — the KL path integrand rides as a state channel — and the
-exact adjoint differentiates the whole trajectory.  Keys are ``(2,)`` int64
-tensors; every draw is the reference's ``jax.random`` draw on the port's
-Threefry.
+Latent SDE training (paper eq. (4), Appendix B): a backward GRU encodes the
+observed path into a context path, the posterior SDE runs over the
+augmented state ``[x, kl]`` — the KL path integrand rides as a state
+channel — and the exact adjoint differentiates the whole trajectory.
+Keys are ``(2,)`` int64 tensors; every draw is the reference's
+``jax.random`` draw on the port's Threefry.
 
 Serving contract, as in the reference: **every trajectory row is a pure
 function of ``(params, keys[i])``**, so padding a request batch up to a
 bucket never changes a client's rows.  The reference gets this from
 ``jax.vmap`` over keys; here the batch is a tensor dimension, the PRNG and
 the Brownian kernels are per-row by construction, and :func:`repro_torch.
-nn.linear` keeps the matmuls row-invariant.
+nn.linear` keeps the matmuls row-invariant.  The training paths draw one
+key per tensor, as the reference's do.
 """
 
 from __future__ import annotations
@@ -39,9 +48,12 @@ import torch
 
 from .. import nn
 from ..kernels import prng
+from ..data.synthetic import _linspace
 from .brownian import BrownianPath
+from .losses import wasserstein_losses
+from .paths import LinearPathControl
 from .solve import solve, solve_adaptive
-from .solvers import NP_DTYPES
+from .solvers import NP_DTYPES, apply_diffusion
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,6 +150,162 @@ def generator_sample_terminal(params, cfg: NeuralSDEConfig, keys: torch.Tensor, 
     return nn.linear(params["ell"], xT), stats.converged, stats
 
 
+def generator_sample(params, cfg: NeuralSDEConfig, key: torch.Tensor, batch: int):
+    """Sample ``Y`` paths from one ``(2,)`` key, as the training loop's
+    metric does: ``kv, kw = split(key)``, ``(batch, initial_noise)``
+    normals from ``kv`` and one Brownian path of shape ``(batch, noise)``
+    from ``kw`` -> ``(num_steps+1, batch, data_dim)``."""
+    kv, kw = prng.split(key)
+    v = _normal(kv, (batch, cfg.initial_noise_dim), cfg.dtype)
+    x0 = nn.mlp(params["zeta"], v, nn.lipswish)
+    bm = BrownianPath(kw, 0.0, cfg.t1, (batch, cfg.noise_dim), cfg.dtype)
+    traj = _cfg_solve(cfg, gen_drift(cfg), gen_diffusion(cfg), params, x0, bm,
+                      cfg.num_steps, "general")
+    return nn.linear(params["ell"], traj)
+
+
+# =============================================================================
+# Discriminator (Neural CDE, eq. (2))
+# =============================================================================
+
+
+def _disc_spec(cfg: NeuralSDEConfig) -> nn.CDEDiscriminatorSpec:
+    return nn.CDEDiscriminatorSpec(data_dim=cfg.data_dim, hidden_dim=cfg.disc_hidden_dim,
+                                   width=cfg.disc_width, depth=cfg.disc_depth,
+                                   dtype=cfg.dtype)
+
+
+def discriminator_init(generator: torch.Generator, cfg: NeuralSDEConfig, device=None):
+    """Fresh discriminator parameters (:func:`repro_torch.nn.cde_discriminator_init`):
+    xi, f and g inside the careful-clipping box, the readout m unconstrained."""
+    return nn.cde_discriminator_init(generator, _disc_spec(cfg), device=device)
+
+
+def disc_f(cfg: NeuralSDEConfig):
+    return nn.cde_drift(_disc_spec(cfg))
+
+
+def disc_g(cfg: NeuralSDEConfig):
+    """g_φ maps h -> ``(h, 1+y)``: the CDE is driven by the time-augmented
+    path (t, Y_t), so the field sees dt through the control as well."""
+    return nn.cde_control_field(_disc_spec(cfg))
+
+
+def discriminate_path(params, cfg: NeuralSDEConfig, ys: torch.Tensor,
+                      exact_adjoint: Optional[bool] = None):
+    """Score an observed path ``ys`` (T+1, batch, y): F_φ(Y) = m·H_T, the
+    CDE driven by the piecewise-linear time-augmented control (t, Y).
+
+    Gradients into the path: under the exact adjoint only ``ys[0]`` gets
+    one, through ``H_0 = ξ(t_0, Y_0)``; none flows through the control
+    (the reference returns zero cotangents for it, and the port's adjoint
+    does not take the path as an input).  Under ``discretise``
+    (``exact_adjoint=False``, the gradient penalty's mode) autograd reaches
+    every ``ys[n]`` through the control's increments as well."""
+    T = ys.shape[0] - 1
+    ts = _linspace(0.0, cfg.t1, T + 1, ys.dtype, ys.device)
+    tt = ts[:, None, None].expand(ys.shape[:-1] + (1,))
+    control = LinearPathControl(torch.cat([tt, ys], -1))
+    h0 = nn.cde_initial(params, ts[0], ys[0])
+    exact = cfg.exact_adjoint if exact_adjoint is None else exact_adjoint
+    mode = "reversible_adjoint" if exact else "discretise"
+    solver = "reversible_heun" if exact else cfg.solver
+    traj = solve(disc_f(cfg), disc_g(cfg), params, h0, control, 0.0, cfg.t1, T,
+                 solver=solver, gradient_mode=mode, noise="general")
+    return nn.cde_readout(params, traj[-1])
+
+
+# =============================================================================
+# Joint generator+discriminator SDE (fake-sample scoring, end to end)
+# =============================================================================
+
+
+def joint_drift(cfg: NeuralSDEConfig):
+    """Drift of ``u = [x, h]``: the generator's μ, and the CDE's ``f + g·dY/dt``
+    with ``dY/dt = (1, μ·W_ℓ)`` (the time channel and ℓ's linear map)."""
+    mu_f, f_f, g_f = gen_drift(cfg), disc_f(cfg), disc_g(cfg)
+    hd = cfg.hidden_dim
+
+    def drift(params, t, u):
+        x, h = u[..., :hd], u[..., hd:]
+        mu = mu_f(params["gen"], t, x)
+        f = f_f(params["disc"], t, h)
+        g = g_f(params["disc"], t, h)           # (..., h, 1+y)
+        wl = params["gen"]["ell"]["w"]          # (x, y)
+        dy_dt = torch.cat([mu.new_ones(mu.shape[:-1] + (1,)), mu @ wl], -1)  # (..., 1+y)
+        return torch.cat([mu, f + apply_diffusion(g, dy_dt, "general")], -1)
+
+    return drift
+
+
+def joint_diffusion(cfg: NeuralSDEConfig):
+    """Diffusion of ``u = [x, h]``, ``(..., x+h, w)``: the generator's σ, and
+    ``g[..., 1:]·(W_ℓᵀ σ)`` into h (``dY = ℓ'(X) dX``); the reference's
+    ``einsum("...hy,xy,...xw->...hw")`` contracted over x first."""
+    sig_f, g_f = gen_diffusion(cfg), disc_g(cfg)
+    hd = cfg.hidden_dim
+
+    def diffusion(params, t, u):
+        x, h = u[..., :hd], u[..., hd:]
+        sig = sig_f(params["gen"], t, x)        # (..., x, w)
+        g = g_f(params["disc"], t, h)           # (..., h, 1+y)
+        wl = params["gen"]["ell"]["w"]          # (x, y)
+        gh = g[..., 1:] @ (wl.T @ sig)          # (..., h, w)
+        return torch.cat([sig, gh], -2)
+
+    return diffusion
+
+
+def gan_score_fake(params, cfg: NeuralSDEConfig, key: torch.Tensor, batch: int,
+                   paths: bool = True):
+    """F_φ(Y) for generated Y, through one joint SDE solve (the exact
+    adjoint end to end) -> ``(score (batch,), ys (num_steps+1, batch, y))``.
+    With ``paths=False`` the solve keeps only its terminal state, so the
+    forward holds O(1) states in the number of steps, and ``ys`` is None."""
+    kv, kw = prng.split(key)
+    v = _normal(kv, (batch, cfg.initial_noise_dim), cfg.dtype)
+    x0 = nn.mlp(params["gen"]["zeta"], v, nn.lipswish)
+    y0 = nn.linear(params["gen"]["ell"], x0)
+    h0 = nn.cde_initial(params["disc"], 0.0, y0)
+    u0 = torch.cat([x0, h0], -1)
+    bm = BrownianPath(kw, 0.0, cfg.t1, (batch, cfg.noise_dim), cfg.dtype)
+    traj = _cfg_solve(cfg, joint_drift(cfg), joint_diffusion(cfg), params, u0, bm,
+                      cfg.num_steps, "general", save_trajectory=paths)
+    score = nn.cde_readout(params["disc"], (traj[-1] if paths else traj)[..., cfg.hidden_dim:])
+    if not paths:
+        return score, None
+    return score, nn.linear(params["gen"]["ell"], traj[..., :cfg.hidden_dim])
+
+
+def gan_losses(params, cfg: NeuralSDEConfig, key: torch.Tensor, y_real: torch.Tensor,
+               batch: int, paths: bool = True):
+    """Wasserstein losses (eq. (3)) -> ``(gen_loss, disc_loss, fake_ys)``,
+    ``fake_ys`` None with ``paths=False`` (see :func:`gan_score_fake`)."""
+    fake_score, fake_ys = gan_score_fake(params, cfg, key, batch, paths)
+    real_score = discriminate_path(params["disc"], cfg, y_real)
+    gen_loss, disc_loss = wasserstein_losses(fake_score, real_score)
+    return gen_loss, disc_loss, fake_ys
+
+
+def gradient_penalty(params_disc, cfg: NeuralSDEConfig, key: torch.Tensor,
+                     y_real: torch.Tensor, y_fake: torch.Tensor):
+    """WGAN-GP baseline (Gulrajani et al.): ``E[(‖∂F/∂Y‖ − 1)²]`` at
+    ``Y = ε·y_real + (1−ε)·y_fake``, ``ε ~ U(1, B, 1)`` from ``key`` — the
+    double backward the paper's clipping removes.  The inner gradient is
+    taken through the discretise CDE solve with ``create_graph``, so the
+    penalty is differentiable in the discriminator's parameters (and in the
+    paths, where they require a gradient)."""
+    eps = prng.uniform(key[0], key[1], y_real.shape[1], y_real.dtype).reshape(1, -1, 1)
+    with torch.enable_grad():
+        y_mix = eps * y_real + (1 - eps) * y_fake
+        if not y_mix.requires_grad:
+            y_mix.requires_grad_()
+        score = torch.sum(discriminate_path(params_disc, cfg, y_mix, exact_adjoint=False))
+        (g,) = torch.autograd.grad(score, y_mix, create_graph=True)
+    gnorm = torch.sqrt(torch.sum(g * g, dim=(0, 2)) + 1e-12)
+    return torch.mean((gnorm - 1.0) ** 2)
+
+
 @dataclasses.dataclass(frozen=True)
 class LatentSDEConfig:
     data_dim: int = 1
@@ -159,8 +327,8 @@ class LatentSDEConfig:
 
 def _cfg_solve(cfg, drift, diffusion, params, z0, bm, num_steps, noise,
                gradient_mode=None, solver=None, save_trajectory=True):
-    """Every Latent-SDE solve goes through the front-end, with the gradient
-    mode derived from the config as the reference does (exact reversible
+    """Every SDE-GAN and Latent-SDE solve goes through the front-end, with
+    the gradient mode derived from the config as the reference does (exact reversible
     adjoint when configured, discretise otherwise)."""
     solver = cfg.solver if solver is None else solver
     if gradient_mode is None:

@@ -1,5 +1,5 @@
 """Deterministic synthetic data (port of :mod:`repro.data.synthetic`:
-``air_quality_like``, ``_normalise_initial`` and the LM's
+``ou_process``, ``air_quality_like``, ``_normalise_initial`` and the LM's
 ``token_batches``).
 
 The paper's Beijing air-quality set (Appendix F: PM2.5 and O₃, 24 hourly
@@ -37,6 +37,25 @@ def _linspace(start: float, stop: float, num: int, dtype, device) -> torch.Tenso
 
 def _normal(key, shape, dtype):
     return prng.normal_like(key[0], key[1], tuple(shape), dtype)
+
+
+def ou_process(key: torch.Tensor, batch: int, length: int = 32, rho: float = 0.02,
+               kappa: float = 0.1, chi: float = 0.4, dtype=torch.float32):
+    """Paper F.7's time-dependent Ornstein–Uhlenbeck process, the SDE-GAN's
+    data: ``dY = (ρt − κY) dt + χ dW`` on ``t ∈ [0, length−1]`` with ``dt =
+    1``, stepped by Euler–Maruyama.  ``key``: a ``(2,)`` int64 key; ``k0,
+    key = split(key)`` draw the ``(batch, 1)`` start and the ``(length−1,
+    batch, 1)`` increments.  Returns ``(length, batch, 1)``, normalised to a
+    zero-mean, unit-variance initial value."""
+    k0, k1 = prng.split(key)
+    y = _normal(k0, (batch, 1), dtype)  # stationary-ish start
+    eps = _normal(k1, (length - 1, batch, 1), dtype)
+    f = np.float32 if dtype == torch.float32 else np.float64
+    ys = [y]
+    for n in range(length - 1):  # dt = 1, sqrt(dt) = 1; ρt in the data's dtype
+        y = y + (float(f(rho) * f(n)) - kappa * y) + chi * eps[n]
+        ys.append(y)
+    return _normalise_initial(torch.stack(ys))
 
 
 def air_quality_like(key: torch.Tensor, batch: int, length: int = 24,

@@ -23,8 +23,13 @@ field MLP has a backward kernel and a node of its own,
 
 A second derivative is the plain version's, never silently zero: with grad
 mode on in the backward (``create_graph=True`` upstream) the recomputation
-runs on the saved inputs still attached to their graph and keeps its own
-graph.  ``launch`` is an argument so that a CPU test can build the node with
+runs on aliases of the saved inputs still attached to their graph and keeps
+its own graph.  The aliases (``view_as``) make the VJP this node's partial
+derivatives: differentiated by the saved tensors themselves, a weight
+that also reaches an input through earlier nodes (an SDE field's weights
+reach its state through every earlier step) would take its total
+derivative, walking the whole history again from every node — wrong, and
+exponential in the depth.  ``launch`` is an argument so that a CPU test can build the node with
 the plain forward in the kernel's place.
 """
 
@@ -38,8 +43,8 @@ def plain_vjp(plain, inputs, cotangents, needs, kwargs):
     ``needs`` (None elsewhere); a None cotangent is an unused output."""
     create = torch.is_grad_enabled()
     with torch.enable_grad():
-        ins = [x if create and x.requires_grad else x.detach().requires_grad_(need)
-               for x, need in zip(inputs, needs)]
+        ins = [x.view_as(x) if create and x.requires_grad
+               else x.detach().requires_grad_(need) for x, need in zip(inputs, needs)]
         outs = plain(*ins, **kwargs)
         outs = outs if isinstance(outs, tuple) else (outs,)
         pairs = [(o, g) for o, g in zip(outs, cotangents) if g is not None]

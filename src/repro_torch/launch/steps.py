@@ -1,6 +1,8 @@
 """Step factories (port of :mod:`repro.launch.steps`): the LM training step
-(``make_optimizer``, ``make_train_step``), the Latent-SDE ELBO training
-step (``make_latent_sde_optimizer``, ``make_latent_sde_step``),
+(``make_optimizer``, ``make_train_step``), the SDE-GAN training step
+(``make_gan_optimizers``, ``make_sde_gan_step``, and ``sde_gan_grads``
+under it), the Latent-SDE ELBO training step
+(``make_latent_sde_optimizer``, ``make_latent_sde_step``),
 the serving samplers: ``make_sample_step`` (the Latent-SDE prior decode and
 the SDE-GAN generator's rollout) and ``make_adaptive_terminal_step`` (the
 SDE-GAN's adaptive terminal samples), and the transformer LM's serving
@@ -122,6 +124,144 @@ def make_adaptive_terminal_step(cfg, atol: float = 1e-6, max_steps: int = 4096,
                                            max_steps=max_steps)
 
     return sample
+
+
+# -----------------------------------------------------------------------------
+# SDE-GAN (paper §5)
+# -----------------------------------------------------------------------------
+
+GAN_CONSTRAINTS = ("clip", "gp")
+
+
+def make_gan_optimizers(lr: float = 1.0, constraint: str = "clip"):
+    """Paper Appendix F: Adadelta for both players.  Under ``"clip"`` the
+    discriminator's chain ends in the careful-clipping projection (the clip
+    applied after the update, as a transform, so swapping the optimiser
+    never drops the constraint); ``"gp"`` (the baseline) leaves the
+    discriminator unconstrained — the penalty lives in its loss.
+
+    Returns ``((g_init, g_update), (d_init, d_update))``."""
+    from .. import optim
+    from ..core.clipping import clip_lipschitz
+
+    if constraint not in GAN_CONSTRAINTS:
+        raise ValueError(f"constraint must be 'clip' or 'gp', got {constraint!r}")
+    gen_opt = optim.adadelta(lr)
+    if constraint == "clip":
+        disc_opt = optim.chain(optim.adadelta(lr), optim.lipschitz_projection(clip_lipschitz))
+    else:
+        disc_opt = optim.adadelta(lr)
+    return gen_opt, disc_opt
+
+
+def _grad_leaves(params):
+    """``(leaves that require a gradient, spec, the tree over them)``."""
+    leaves, spec = tree.flatten(params)
+    leaves = [x.detach().requires_grad_() for x in leaves]
+    return leaves, spec, tree.unflatten(spec, leaves)
+
+
+def sde_gan_grads(params, cfg, key, y_real, batch: int):
+    """Both players' losses and gradients from one forward (the generator
+    solve inside the joint solve, and the real path's CDE solve) ->
+    ``(gen_loss, disc_loss, gen_grads, disc_grads)``, the losses detached.
+
+    The reference pulls two cotangents through one ``jax.vjp``, each a
+    reversible backward sweep of the joint solve.  Here one
+    ``torch.autograd.grad`` of ``disc_loss`` over both players' leaves gives
+    both, the generator's part negated: ``gen_loss = −E[fake]``,
+    ``disc_loss = E[fake] − E[real]`` and the real path does not depend on
+    the generator, so every cotangent into the generator is exactly the
+    negated one (rounding to nearest is symmetric, and the sums run in
+    fixed orders).  The joint solve keeps only its terminal state."""
+    from ..core.sde import gan_losses
+
+    gen_leaves, gspec, gen = _grad_leaves(params["gen"])
+    disc_leaves, dspec, disc = _grad_leaves(params["disc"])
+    gl, dl, _ = gan_losses({"gen": gen, "disc": disc}, cfg, key, y_real, batch, paths=False)
+    grads = torch.autograd.grad(dl, gen_leaves + disc_leaves)
+    gg = [-g for g in grads[:len(gen_leaves)]]
+    return (gl.detach(), dl.detach(), tree.unflatten(gspec, gg),
+            tree.unflatten(dspec, list(grads[len(gen_leaves):])))
+
+
+def make_sde_gan_step(cfg, g_update, d_update, batch: int, seq_len: int,
+                      constraint: str = "clip", gp_weight: float = 10.0, device=None):
+    """Build the WGAN step ``(params, g_state, d_state, key) -> (params,
+    g_state, d_state, metrics)``; ``params = {"gen": ..., "disc": ...}``.
+
+    The real batch is ``ou_process(fold_in(key, 0), batch, seq_len)``, the
+    fake one is keyed by ``fold_in(key, 1)``.  ``constraint="clip"`` (the
+    paper's recipe) runs the three solves once and takes both players'
+    gradients from one backward sweep (:func:`sde_gan_grads`); the Lipschitz
+    constraint is the projection at the end of ``d_update``, no second
+    backward anywhere.  ``constraint="gp"`` is the WGAN-GP baseline: the
+    discriminator's loss adds ``gp_weight`` × the gradient penalty (a
+    gradient of a gradient through the discretise CDE solve, keyed by
+    ``fold_in(key, 3)``), then the generator's loss is solved again against
+    the pre-update discriminator.  ``metrics`` holds ``gen_loss``,
+    ``disc_loss`` and ``wasserstein`` (= −disc_loss, before the update) as
+    0-d tensors.
+
+    Runs on the card unless ``device="cpu"``; ``params`` and the states must
+    live on that device, ``key`` is moved there.  Validation is eager: an
+    unknown constraint, and ``"gp"`` with ``seq_len != num_steps + 1`` (the
+    interpolates need the real and fake paths on one grid), raise here.
+    The reference's batch-sharding constraint waits for the distributed
+    port; on one device it is the identity."""
+    from .. import optim
+    from ..core.sde import gan_losses, gan_score_fake, gradient_penalty
+    from ..data.synthetic import ou_process
+    from ..kernels import prng
+
+    if constraint not in GAN_CONSTRAINTS:
+        raise ValueError(f"constraint must be 'clip' or 'gp', got {constraint!r}")
+    if constraint == "gp" and seq_len != cfg.num_steps + 1:
+        raise ValueError(
+            f"gp constraint requires seq_len == num_steps + 1 so real and "
+            f"fake paths share a grid; got seq_len={seq_len}, "
+            f"num_steps={cfg.num_steps}")
+    dev = resolve_device(device)
+
+    def update(params, g_state, d_state, gg, dg):
+        with torch.no_grad():
+            upd, d_state = d_update(dg, d_state, params["disc"])
+            disc = optim.apply_updates(params["disc"], upd)  # projection folded in
+            upd, g_state = g_update(gg, g_state, params["gen"])
+            gen = optim.apply_updates(params["gen"], upd)
+        return {"gen": gen, "disc": disc}, g_state, d_state
+
+    def clip_step(params, g_state, d_state, key):
+        key = key.to(dev)
+        y_real = ou_process(prng.fold_in_key(key, 0), batch, seq_len, dtype=cfg.dtype)
+        gl, dl, gg, dg = sde_gan_grads(params, cfg, prng.fold_in_key(key, 1), y_real, batch)
+        params, g_state, d_state = update(params, g_state, d_state, gg, dg)
+        return params, g_state, d_state, {"gen_loss": gl, "disc_loss": dl, "wasserstein": -dl}
+
+    def gp_step(params, g_state, d_state, key):
+        key = key.to(dev)
+        y_real = ou_process(prng.fold_in_key(key, 0), batch, seq_len, dtype=cfg.dtype)
+        disc_leaves, dspec, disc = _grad_leaves(params["disc"])
+        _, dl, fake = gan_losses({"gen": params["gen"], "disc": disc}, cfg,
+                                 prng.fold_in_key(key, 1), y_real, batch)
+        # the fake paths the loss already solved for are constants w.r.t. φ
+        loss = dl + gp_weight * gradient_penalty(disc, cfg, prng.fold_in_key(key, 3),
+                                                 y_real, fake.detach())
+        dg = tree.unflatten(dspec, list(torch.autograd.grad(loss, disc_leaves)))
+        del disc_leaves, disc, loss, fake
+        # The generator's loss needs only the fake score: the reference's
+        # compiled step drops the real path's solve from it as dead code.
+        gen_leaves, gspec, gen = _grad_leaves(params["gen"])
+        score, _ = gan_score_fake({"gen": gen, "disc": params["disc"]}, cfg,
+                                  prng.fold_in_key(key, 1), batch, paths=False)
+        gl = -torch.mean(score)
+        gg = tree.unflatten(gspec, list(torch.autograd.grad(gl, gen_leaves)))
+        params, g_state, d_state = update(params, g_state, d_state, gg, dg)
+        dl = dl.detach()
+        return params, g_state, d_state, {"gen_loss": gl.detach(), "disc_loss": dl,
+                                          "wasserstein": -dl}
+
+    return clip_step if constraint == "clip" else gp_step
 
 
 def make_latent_sde_optimizer(lr: float = 1e-2):

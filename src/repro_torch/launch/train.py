@@ -1,39 +1,48 @@
 """Training CLI (port of :mod:`repro.launch.train`: the ``lm`` workload,
-the default, and ``latent-sde``).
+the default, ``sde-gan`` and ``latent-sde``).
 
 Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
         --steps 50 --ckpt-dir D                   # the smoke config, on the card
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 2
+    PYTHONPATH=src python -m repro_torch.launch.train --workload sde-gan \\
+        --constraint clip --ckpt-dir D && python -m repro_torch.launch.serve \\
+        --workload sde-gan --ckpt-dir D
     PYTHONPATH=src python -m repro_torch.launch.train --workload latent-sde --pallas
-    PYTHONPATH=src python -m repro_torch.launch.train --workload latent-sde \\
-        --ckpt-dir D && python -m repro_torch.launch.serve --ckpt-dir D
 
 ``lm`` trains a decoder-only LM of the dense or SSM family (``--arch``; the
 reduced smoke config unless ``--full``) with AdamW on the cosine schedule,
 the loss through the ``fused_xent`` kernels on the card.  The loop is the
 reference's: the batch of step ``n`` is ``token_batches(fold_in(PRNGKey(
-seed), 1), n)``, bitwise the reference's; with ``--ckpt-dir`` it saves a
-resumable checkpoint every ``--ckpt-every`` steps and at the end, and a
-rerun resumes from the newest one; ``--fail-at-step`` raises at that step
-(the failure drill); ``--lose-devices`` re-plans the mesh it prints.  Fresh
-weights come from a ``torch.Generator`` seeded with ``seed`` on the run's
-device (the port cannot draw the reference's ``jax.random`` init; the
-tests carry weights across instead).
+seed), 1), n)``, bitwise the reference's; ``--fail-at-step`` raises at
+that step (the failure drill); ``--lose-devices`` re-plans the mesh it
+prints.
 
-``latent-sde`` trains the Latent SDE (paper Appendix B) at the widths the
-reference trains it at — data 2, hidden 16, context 16, initial noise 8,
-width 32, depth 1, 24 observations on a 23-step grid — with Adam and the
-exact reversible adjoint; the key of step ``s`` is ``fold_in(fold_in(
-PRNGKey(seed), 2), s)``, the reference's.  With ``--ckpt-dir`` the trained
-parameters are written as a ``repro-serving/v2`` bundle that the serve CLI
-(either package's) restores.
+``sde-gan`` trains the SDE-GAN (paper §5) at the reference's widths — data
+1, hidden 16, noise 4, width 32, depth 1, discriminator hidden 16 and
+width 32, 32 observations of the OU process (``--seq-len``) against 31
+solver steps (``--sde-steps``) — with Adadelta for both players and the
+exact reversible adjoint; the discriminator is carefully clipped
+(``--constraint clip``, the paper's recipe) or penalised (``gp``, the
+WGAN-GP baseline).  ``latent-sde`` trains the Latent SDE (paper Appendix
+B) at the widths the reference trains it at — data 2, hidden 16, context
+16, initial noise 8, width 32, depth 1, 24 observations on a 23-step grid
+— with Adam.  For both the key of step ``s`` is ``fold_in(fold_in(
+PRNGKey(seed), 2), s)``, the reference's.
 
-Both run on the card by default; with no card and no ``--device cpu`` they
-stop with a named error.  The ``sde-gan`` workload, the vlm/audio/encdec
-families and the backsolve/checkpoint adjoints are not ported yet
-(ROADMAP.md Queue 1).
+With ``--ckpt-dir`` every workload saves a resumable checkpoint every
+``--ckpt-every`` steps and at the end, and a rerun resumes from the newest
+one; the SDE workloads also write their servable parameters (the
+generator, the VAE) as a ``repro-serving/v2`` bundle at every save, which
+the serve CLI (either package's) restores.  Fresh weights come from a
+``torch.Generator`` seeded with ``seed`` (the port cannot draw the
+reference's ``jax.random`` init; the tests carry weights across instead).
+
+Every workload runs on the card by default; with no card and no
+``--device cpu`` it stops with a named error.  The vlm/audio/encdec
+families, the backsolve/checkpoint adjoints, the other solvers and the
+data-parallel mesh are not ported yet (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -48,6 +57,7 @@ from .. import checkpoint as ckpt
 from .. import tree
 from ..device import resolve_device
 from ..kernels import prng
+from .steps import GAN_CONSTRAINTS
 
 SEQ_LEN = 24
 
@@ -144,16 +154,137 @@ def train(arch: str, steps: int, batch: int, seq: int, ckpt_dir: Optional[str],
     return params, losses
 
 
+class CheckpointLayoutError(ValueError):
+    """A checkpoint's leaves do not match the run's state layout (saved
+    under other flags, e.g. ``--constraint``, or by an older version)."""
+
+
+def _restore_or_fresh(ckpt_dir: Optional[str], template, tag: str):
+    """Resume from the newest checkpoint into ``template`` (the fresh state
+    and step 0 when there is none).  A layout mismatch stops here with
+    :class:`CheckpointLayoutError` instead of deep inside a leaf lookup."""
+    if ckpt_dir is None or ckpt.latest_step(ckpt_dir) is None:
+        return template, 0
+    try:
+        state, start = ckpt.restore_checkpoint(ckpt_dir, template)
+    except (KeyError, ValueError) as e:
+        raise CheckpointLayoutError(
+            f"checkpoint in {ckpt_dir} does not match the current "
+            f"parameter/optimiser-state layout — it was saved under "
+            f"different flags (e.g. --constraint) or an older code version; "
+            f"use a fresh --ckpt-dir or rerun with matching flags") from e
+    print(f"[{tag}] resumed from step {start}", flush=True)
+    return state, start
+
+
+def _sde_training_loop(tag: str, start: int, steps: int, state, step_fn, data_key,
+                       ckpt_dir: Optional[str], ckpt_every: int, on_step, serving):
+    """The Neural-SDE workloads' step loop -> ``(state, history)``: the key
+    of step ``s`` is ``fold_in(data_key, s)``, each step's metrics are read
+    as floats (which waits for the card), a straggler monitor watches the
+    step times, and with ``ckpt_dir`` a resumable checkpoint of ``state`` is
+    written every ``ckpt_every`` steps and at the end.
+
+    ``step_fn``: ``(state, key) -> (state, metrics)``.  ``on_step(step,
+    state, metrics, dt)`` logs and returns the step's record for
+    ``history``.  ``serving``: ``(workload, cfg, extract_params)`` — every
+    save also writes the servable parameters as a serving bundle
+    (``<ckpt_dir>/serving/``), which the serve CLI restores."""
+    workload, cfg, extract_params = serving
+
+    def save(step, state):
+        ckpt.save_checkpoint(ckpt_dir, step, state)
+        ckpt.save_serving_bundle(ckpt_dir, step, extract_params(state), workload, cfg)
+
+    monitor = StragglerMonitor()
+    history = []
+    for step in range(start, steps):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, prng.fold_in_key(data_key, step))
+        metrics = {k: float(v) for k, v in metrics.items()}
+        dt = time.perf_counter() - t0
+        if monitor.observe(dt):
+            print(f"[{tag}] straggler: step {step} took {dt:.2f}s", flush=True)
+        history.append(on_step(step, state, metrics, dt))
+        if ckpt_dir is not None and (step + 1) % ckpt_every == 0:
+            save(step + 1, state)
+    if ckpt_dir is not None:
+        save(steps, state)
+    return state, history
+
+
+def train_sde_gan(steps: int, batch: int, ckpt_dir: Optional[str] = None,
+                  ckpt_every: int = 50, seed: int = 0, log_every: int = 10,
+                  use_pallas: bool = False, num_steps: int = 31, seq_len: int = 32,
+                  constraint: str = "clip", device=None):
+    """SDE-GAN training (paper §5) -> ``(params, history)``.
+
+    At the reference's widths (data 1, hidden 16, noise 4, initial noise 4,
+    width 32, depth 1; discriminator hidden 16, width 32), reversible Heun
+    with the exact adjoint, Adadelta for both players at lr 1, and the
+    discriminator carefully clipped (``constraint="clip"``) or penalised
+    (``"gp"``); the step is :func:`repro_torch.launch.steps.make_sde_gan_step`.
+    Fresh parameters come from one ``torch.Generator`` seeded with ``seed``
+    (generator, then discriminator); the key of step ``s`` is
+    ``fold_in(fold_in(PRNGKey(seed), 2), s)``, the reference's.  ``history``
+    holds each step's ``gen_loss``, ``disc_loss`` and ``wasserstein`` (before
+    its update), and every ``log_every`` steps ``sig_mmd``: the signature
+    MMD between ``ou_process(fold_in(key, 777), 256, seq_len)`` and
+    ``generator_sample(fold_in(key, 778), 256)`` after the step.  With
+    ``ckpt_dir`` a rerun resumes from the newest checkpoint, and every save
+    writes the generator as a serving bundle."""
+    from ..core.losses import signature_mmd
+    from ..core.sde import NeuralSDEConfig, discriminator_init, generator_init, generator_sample
+    from ..data.synthetic import ou_process
+    from .steps import make_gan_optimizers, make_sde_gan_step
+
+    dev = resolve_device(device)
+    cfg = NeuralSDEConfig(data_dim=1, hidden_dim=16, noise_dim=4, width=32,
+                          num_steps=num_steps, use_pallas_kernels=use_pallas)
+    gen = torch.Generator().manual_seed(seed)
+    params = {"gen": generator_init(gen, cfg, device=dev),
+              "disc": discriminator_init(gen, cfg, device=dev)}
+    key = prng.PRNGKey(seed, device=dev)
+    data_key = prng.fold_in_key(key, 2)
+    (gi, gu), (di, du) = make_gan_optimizers(lr=1.0, constraint=constraint)
+    step_fn = make_sde_gan_step(cfg, gu, du, batch, seq_len, constraint=constraint,
+                                device=dev)
+    state, start = _restore_or_fresh(ckpt_dir, (params, gi(params["gen"]),
+                                                di(params["disc"])), "sde-gan")
+
+    def gan_step(state, k):
+        params, g_state, d_state, metrics = step_fn(*state, k)
+        return (params, g_state, d_state), metrics
+
+    def on_step(step, state, metrics, dt):
+        if step % log_every == 0:
+            with torch.no_grad():
+                y_real = ou_process(prng.fold_in_key(key, 777), 256, seq_len)
+                fake = generator_sample(state[0]["gen"], cfg, prng.fold_in_key(key, 778), 256)
+                metrics["sig_mmd"] = float(signature_mmd(y_real, fake))
+            print(f"[sde-gan] step {step:5d} sig-MMD {metrics['sig_mmd']:.4f} "
+                  f"W {metrics['wasserstein']:.4f} {dt * 1e3:.0f}ms", flush=True)
+        return dict(metrics, step=step)
+
+    (params, _, _), history = _sde_training_loop(
+        "sde-gan", start, steps, state, gan_step, data_key, ckpt_dir, ckpt_every, on_step,
+        ("sde-gan", cfg, lambda s: s[0]["gen"]))
+    return params, history
+
+
 def train_latent_sde(steps: int, batch: int, ckpt_dir: Optional[str] = None,
-                     seed: int = 0, log_every: int = 10, use_pallas: bool = False,
-                     num_steps: int = SEQ_LEN - 1, seq_len: int = SEQ_LEN,
-                     kl_weight: float = 0.1, lr: float = 1e-2, device=None):
-    """Latent-SDE (VAE) training -> ``(params, losses)``.
+                     ckpt_every: int = 50, seed: int = 0, log_every: int = 10,
+                     use_pallas: bool = False, num_steps: int = SEQ_LEN - 1,
+                     seq_len: int = SEQ_LEN, kl_weight: float = 0.1, lr: float = 1e-2,
+                     device=None):
+    """Latent-SDE (VAE) training -> ``(params, losses)``, on the SDE-GAN's
+    loop (:func:`_sde_training_loop`): resumable checkpoints with a serving
+    bundle at every save.
 
     Fresh parameters come from a ``torch.Generator`` seeded with ``seed``
     (the port cannot draw the reference's ``jax.random`` init; the tests
-    carry weights across instead).  ``losses`` holds every step's −ELBO as
-    a float; each one is read after its step, which waits for the card."""
+    carry weights across instead).  ``losses`` holds the −ELBO of every step
+    this call ran."""
     from ..core.sde import LatentSDEConfig, latent_sde_init
     from .steps import make_latent_sde_optimizer, make_latent_sde_step
 
@@ -163,51 +294,57 @@ def train_latent_sde(steps: int, batch: int, ckpt_dir: Optional[str] = None,
         kl_weight=kl_weight, use_pallas_kernels=use_pallas)
     params = latent_sde_init(torch.Generator().manual_seed(seed), cfg, device=dev)
     init, update = make_latent_sde_optimizer(lr)
-    opt_state = init(params)
     step_fn = make_latent_sde_step(cfg, update, batch, seq_len, device=dev)
     data_key = prng.fold_in_key(prng.PRNGKey(seed, device=dev), 2)
-    losses = []
-    for step in range(steps):
-        t0 = time.perf_counter()
-        params, opt_state, metrics = step_fn(params, opt_state,
-                                             prng.fold_in_key(data_key, step))
-        loss = float(metrics["loss"])
-        losses.append(loss)
+    state, start = _restore_or_fresh(ckpt_dir, (params, init(params)), "latent-sde")
+
+    def vae_step(state, k):
+        params, opt_state, metrics = step_fn(*state, k)
+        return (params, opt_state), metrics
+
+    def on_step(step, state, metrics, dt):
         if step % log_every == 0:
-            print(f"[latent-sde] step {step:5d} -ELBO {loss:.4f} "
-                  f"recon {float(metrics['recon']):.4f} "
-                  f"kl_path {float(metrics['kl_path']):.4f} "
-                  f"{(time.perf_counter() - t0) * 1e3:.0f}ms", flush=True)
-    if ckpt_dir is not None:
-        path = ckpt.save_serving_bundle(ckpt_dir, steps, params, "latent-sde", cfg)
-        print(f"[latent-sde] serving bundle written to {path}", flush=True)
+            print(f"[latent-sde] step {step:5d} -ELBO {metrics['loss']:.4f} "
+                  f"recon {metrics['recon']:.4f} kl_path {metrics['kl_path']:.4f} "
+                  f"{dt * 1e3:.0f}ms", flush=True)
+        return metrics["loss"]
+
+    (params, _), losses = _sde_training_loop(
+        "latent-sde", start, steps, state, vae_step, data_key, ckpt_dir, ckpt_every,
+        on_step, ("latent-sde", cfg, lambda s: s[0]))
     return params, losses
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--workload", choices=("lm", "latent-sde"), default="lm")
+    ap.add_argument("--workload", choices=("lm", "sde-gan", "latent-sde"), default="lm")
     ap.add_argument("--arch", default="tinyllama-1.1b", help="lm: the architecture")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=None,
-                    help="default 8 (lm) or 64 (latent-sde)")
+                    help="default 8 (lm), 128 (sde-gan) or 64 (latent-sde)")
     ap.add_argument("--seq", type=int, default=64, help="lm: tokens per sequence")
     ap.add_argument("--smoke", action="store_true", default=True,
                     help="lm: the reduced smoke config (the default)")
     ap.add_argument("--full", dest="smoke", action="store_false",
                     help="lm: the full config")
     ap.add_argument("--ckpt-every", type=int, default=20,
-                    help="lm: steps between resumable checkpoints")
+                    help="steps between resumable checkpoints")
     ap.add_argument("--fail-at-step", type=int, default=None,
                     help="lm: raise at this step (the failure drill)")
     ap.add_argument("--lose-devices", type=int, default=0,
                     help="lm: re-plan the mesh without this many devices")
+    ap.add_argument("--constraint", choices=GAN_CONSTRAINTS, default="clip",
+                    help="sde-gan Lipschitz control: 'clip' = the paper's careful "
+                         "clipping, 'gp' = the WGAN-GP baseline")
     ap.add_argument("--sde-steps", type=int, default=None,
-                    help="latent-sde: solver steps; a positive multiple of seq_len - 1 "
-                         "(default 23)")
+                    help="solver steps per solve (default 31 for sde-gan; 23 for "
+                         "latent-sde, which needs a positive multiple of seq_len - 1)")
+    ap.add_argument("--seq-len", type=int, default=None,
+                    help="sde-gan: observed path length (default 32)")
     ap.add_argument("--pallas", action="store_true",
-                    help="latent-sde: the fused hot loop: forward, reconstruction and "
-                         "cotangent phases in the CUDA kernels")
+                    help="the fused hot loop: latent-sde's forward, reconstruction and "
+                         "cotangent phases in the CUDA kernels; sde-gan's general-noise "
+                         "solves warn and run unfused")
     ap.add_argument("--lr", type=float, default=1e-2, help="latent-sde: Adam learning rate")
     ap.add_argument("--kl-weight", type=float, default=0.1,
                     help="latent-sde: ELBO KL term weight")
@@ -215,8 +352,8 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device; default the card ('cuda'), 'cpu' on request")
     ap.add_argument("--ckpt-dir", default=None,
-                    help="lm: resumable checkpoints here (a rerun resumes); latent-sde: "
-                         "write the trained parameters as a serving bundle here")
+                    help="resumable checkpoints here (a rerun resumes from the newest); "
+                         "sde-gan and latent-sde also write a serving bundle at every save")
     args = ap.parse_args(argv)
     if args.workload == "lm":
         _, losses = train(args.arch, args.steps, args.batch or 8, args.seq, args.ckpt_dir,
@@ -224,16 +361,26 @@ def main(argv=None):
                           fail_at_step=args.fail_at_step, lose_devices=args.lose_devices,
                           device=args.device)
         tag, what = "train", "loss"
+    elif args.workload == "sde-gan":
+        _, history = train_sde_gan(
+            args.steps, args.batch or 128, args.ckpt_dir, args.ckpt_every, args.seed,
+            use_pallas=args.pallas, num_steps=31 if args.sde_steps is None else args.sde_steps,
+            seq_len=32 if args.seq_len is None else args.seq_len,
+            constraint=args.constraint, device=args.device)
+        losses = [r["sig_mmd"] for r in history if "sig_mmd" in r]
+        what = "sig-MMD" if losses else "W"
+        losses = losses or [r["wasserstein"] for r in history]
+        tag = "sde-gan"
     else:
         _, losses = train_latent_sde(
-            args.steps, args.batch or 64, args.ckpt_dir, seed=args.seed,
+            args.steps, args.batch or 64, args.ckpt_dir, args.ckpt_every, seed=args.seed,
             use_pallas=args.pallas,
             num_steps=SEQ_LEN - 1 if args.sde_steps is None else args.sde_steps,
             kl_weight=args.kl_weight, lr=args.lr, device=args.device)
         tag, what = "latent-sde", "-ELBO"
     if losses:
         print(f"[{tag}] done: first {what} {losses[0]:.4f} -> last {losses[-1]:.4f}")
-    else:
+    else:  # e.g. resumed a finished run
         print(f"[{tag}] done: no steps run")
     return losses
 

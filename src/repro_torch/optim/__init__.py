@@ -1,12 +1,16 @@
 """Optimisers as ``(init, update)`` pairs over parameter trees (port of
-:mod:`repro.optim`: Adam, AdamW, global-norm clipping, the cosine
-schedule)."""
+:mod:`repro.optim`: Adam, AdamW, Adadelta, ``chain`` and the
+Lipschitz projection, global-norm clipping, the cosine schedule, SWA)."""
 
 from .optimizers import (  # noqa: F401
     OptState,
+    adadelta,
     adam,
     adamw,
     apply_updates,
+    chain,
     clip_by_global_norm,
     cosine_schedule,
+    lipschitz_projection,
+    swa_update,
 )

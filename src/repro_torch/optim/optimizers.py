@@ -1,9 +1,14 @@
 """Optimizers as ``(init, update)`` pairs over parameter trees (port of
 :mod:`repro.optim.optimizers`: ``OptState``, ``adam``, ``adamw``,
-``apply_updates``, ``clip_by_global_norm``, ``cosine_schedule``).
+``adadelta``, ``apply_updates``, ``chain``, ``lipschitz_projection``,
+``clip_by_global_norm``, ``cosine_schedule``, ``swa_update``).
 
-Paper Appendix F trains Latent SDEs with Adam; AdamW with a cosine schedule
-serves the LM training path.  The rounding points are the reference's:
+Paper Appendix F trains Latent SDEs with Adam and SDE-GANs with Adadelta
+(careful clipping at the end of the discriminator's chain, stochastic
+weight averaging of the generator); AdamW with a cosine schedule serves
+the LM training path.  Every optimiser is an ``(init, update)`` pair with
+``update(updates, state, params) -> (updates, state)``, and :func:`chain`
+composes them left to right.  The rounding points are the reference's:
 
 * the moments live in ``moment_dtype`` (default: the parameter dtype);
   ``g·g`` is taken in the gradient's dtype and then cast;
@@ -95,8 +100,72 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
     return ai, update
 
 
+def adadelta(lr: float = 1.0, rho: float = 0.9, eps: float = 1e-6):
+    """Adadelta, the paper's SDE-GAN optimiser: ``acc_g ← ρ·acc_g +
+    (1−ρ)·g·g``, ``u = −lr·g·sqrt(acc_d + eps) / sqrt(acc_g + eps)`` (in
+    that order), ``acc_d ← ρ·acc_d + (1−ρ)·u·u``, all in the gradient's
+    dtype."""
+
+    def init(params):
+        return OptState(0, tree.map(torch.zeros_like, params),
+                        tree.map(torch.zeros_like, params))
+
+    def update(grads, state: OptState, params=None):
+        acc_g = tree.map(lambda a, g: rho * a + (1 - rho) * g * g, state.m, grads)
+        upd = tree.map(lambda g, ag, ad: -lr * g * torch.sqrt(ad + eps) / torch.sqrt(ag + eps),
+                       grads, acc_g, state.v)
+        acc_d = tree.map(lambda a, u: rho * a + (1 - rho) * u * u, state.v, upd)
+        return upd, OptState(state.step + 1, acc_g, acc_d)
+
+    return init, update
+
+
 def apply_updates(params, updates):
     return tree.map(torch.add, params, updates)
+
+
+def chain(*transforms):
+    """Compose ``(init, update)`` transforms left to right; the states are
+    carried as a tuple."""
+    inits, updates = zip(*transforms)
+
+    def init(params):
+        return tuple(i(params) for i in inits)
+
+    def update(grads, state, params=None):
+        new_state = []
+        for u, s in zip(updates, state):
+            grads, s = u(grads, s, params)
+            new_state.append(s)
+        return grads, tuple(new_state)
+
+    return init, update
+
+
+def lipschitz_projection(clip_fn=None):
+    """Careful clipping (paper §5) as the last transform of a chain.
+
+    The paper clips the parameters after the optimiser's update; on updates
+    that is ``u ← clip(params + u) − params``, so applying the returned
+    update lands on the projected parameters (to the rounding of that
+    subtraction and addition, as in the reference).  Stateless.  ``clip_fn``
+    defaults to :func:`repro_torch.core.clipping.clip_pytree`; pass
+    ``clip_lipschitz`` to clip only a discriminator's named MLPs."""
+    from ..core.clipping import clip_pytree
+
+    project = clip_fn if clip_fn is not None else clip_pytree
+
+    def init(params):
+        return ()
+
+    def update(upd, state, params):
+        if params is None:
+            raise ValueError("lipschitz_projection needs params: the clip is a "
+                             "projection of params + update, not of the update alone")
+        clipped = project(apply_updates(params, upd))
+        return tree.map(torch.sub, clipped, params), state
+
+    return init, update
 
 
 def clip_by_global_norm(grads, max_norm: float):
@@ -129,3 +198,10 @@ def cosine_schedule(peak_lr: float, warmup: int, total: int, floor: float = 0.1)
         return float(cos)
 
     return lr
+
+
+def swa_update(avg_params, params, num_avged: int):
+    """Cesàro (Polyak) averaging, the paper's generator average over the
+    latter half of the GAN steps: ``a + (p − a)/(n + 1)``."""
+    w = 1.0 / (num_avged + 1)
+    return tree.map(lambda a, p: a + w * (p - a), avg_params, params)

@@ -18,7 +18,8 @@ two-layer smoke mamba2 prefill through it; the SDE field MLP kernel against its 
 through it; its backward kernel against ``ref.fused_mlp_bwd`` (the same
 tolerances) at rows up to 4096, two launches bitwise, dx rows invariant,
 its plan the Python mirror's and its cluster schedulable, one launch a
-backward and none under create_graph; gradients through the attention and
+backward and none under create_graph; one SDE-GAN clip step's gradients
+against the plain fields, its launches, one pull = two; gradients through the attention and
 SSD kernels bitwise the plain path's for a loss linear in the outputs
 (the MLP's within its tolerances); the cross-entropy
 kernels against their plain versions (loss float32 1e-5, bfloat16 3e-2;
@@ -494,10 +495,11 @@ def test_smoke_mamba2_prefill_runs_through_the_kernel(cuda, monkeypatch):
 MLP_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
            torch.bfloat16: dict(rtol=6e-2, atol=6e-2),
            torch.float64: dict(rtol=1e-12, atol=1e-12)}
-# (Din, H, Dout): the SDE fields (ELBO, SDE-GAN sigma, the burst), the JAX
-# suite's 96 -> 48 -> 24, and a 512-wide MLP (weights read through L2).
+# (Din, H, Dout): the SDE fields (ELBO, SDE-GAN sigma, the burst, the
+# discriminator's xi and g), the JAX suite's 96 -> 48 -> 24, and a 512-wide
+# MLP (weights read through L2).
 MLP_WIDTHS = [(17, 32, 16), (33, 32, 16), (8, 32, 16), (17, 32, 64), (32, 64, 32),
-              (96, 48, 24), (512, 512, 512)]
+              (2, 32, 16), (17, 32, 32), (96, 48, 24), (512, 512, 512)]
 
 
 def _mlp_operands(cuda, dtype, rows, din, h, dout, seed=0):
@@ -677,6 +679,38 @@ def test_kernel_gradients_match_plain_path_attention_ssd_bitwise_mlp_within_tol(
                 torch.testing.assert_close(gr, w, **MLP_TOL[torch.float64])
         else:
             assert all(torch.equal(gr, w) for gr, w in zip(got, want)), name
+
+
+def test_sde_gan_clip_step_matches_plain_fields(cuda, monkeypatch):
+    """One SDE-GAN clip step's gradients (8 solver steps, 9 observations,
+    batch 16, float64) with the fields through fused_mlp and its backward
+    kernel against the same gradients on the layer loop, within MLP_TOL
+    (1e-12); the launches are chip_smoke.py's GAN_STEP_LAUNCHES formula at
+    N = T = 8; one pull of both players' gradients equals the two pulls."""
+    from _gan_pulls import two_pull_grads
+    from repro_torch.core.sde import discriminator_init
+    from repro_torch.data import ou_process
+    from repro_torch.launch.steps import sde_gan_grads
+    from repro_torch.nn import core as nn_core
+
+    cfg = NeuralSDEConfig(num_steps=8, dtype=torch.float64)
+    g = torch.Generator().manual_seed(5)
+    params = {"gen": generator_init(g, cfg, device=cuda),
+              "disc": discriminator_init(g, cfg, device=cuda)}
+    key = prng.PRNGKey(6, device=cuda)
+    y_real = ou_process(prng.fold_in_key(key, 0), 16, 9, dtype=torch.float64)
+    ops.reset_launch_counts()
+    got = sde_gan_grads(params, cfg, prng.fold_in_key(key, 1), y_real, 16)
+    counts = ops.launch_counts()
+    assert counts == {**{k: 0 for k in counts}, "fused_mlp": 185, "fused_mlp_bwd": 66,
+                      "brownian_increment": 16}
+    two = two_pull_grads(params, cfg, prng.fold_in_key(key, 1), y_real, 16)
+    assert all(torch.equal(a, b) for a, b in zip(tree.leaves(got), tree.leaves(two)))
+    monkeypatch.setattr(nn_core, "_mlp_dispatch",
+                        lambda layers, x: nn_core._mlp_layers(layers, x, nn.lipswish))
+    want = sde_gan_grads(params, cfg, prng.fold_in_key(key, 1), y_real, 16)
+    for a, b in zip(tree.leaves(got), tree.leaves(want)):
+        torch.testing.assert_close(a, b, **MLP_TOL[torch.float64])
 
 
 XENT_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}

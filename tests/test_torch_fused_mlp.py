@@ -36,7 +36,7 @@ from repro.kernels import ref as jref
 from repro.kernels.fused_mlp import fused_mlp as pallas_fused_mlp
 from repro_torch import nn
 from repro_torch.kernels import fused_mlp as fm_kernel
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops, ref, vjp
 from repro_torch.nn import core as nn_core
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=6e-2, atol=6e-2),
@@ -49,7 +49,7 @@ JAX = {"float32": jnp.float32, "bfloat16": jnp.bfloat16, "float64": jnp.float64}
 # qz0 (16 -> 2·8) and zeta (8 -> 16); the SDE-GAN generator's zeta (4 -> 16)
 # and sigma (1 + 16 -> 16·4); the adaptive workload's burst (32 -> 64 -> 32).
 FIELDS = [(17, 32, 16), (33, 32, 16), (16, 32, 16), (8, 32, 16), (4, 32, 16),
-          (17, 32, 64), (32, 64, 32)]
+          (17, 32, 64), (32, 64, 32), (2, 32, 16), (17, 32, 32)]
 
 
 def _inputs(lead, din, h, dout, seed=0):
@@ -212,6 +212,46 @@ def test_node_second_derivative_is_the_plain_versions_bitwise():
     got, want = penalty_grads(_node), penalty_grads(ref.fused_mlp)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert all(g.abs().max() > 0 for g in got)
+
+
+def _chain(f, x, w, depth):
+    """``depth`` field evaluations sharing one set of weights, as a solve
+    chains a field through its steps (a tanh between, as the CDE's)."""
+    for _ in range(depth):
+        x = torch.tanh(f(x, *w))
+    return x
+
+
+def test_node_create_graph_vjp_is_partial_through_shared_weights():
+    """Under create_graph a node's VJP is its own partial derivative: with
+    the weights shared by a chain of nodes (a solve's steps), the gradient
+    w.r.t. the weights and the penalty's second derivative are the plain
+    chain's.  Differentiating the recomputation by the saved tensors
+    themselves took the weights' total derivative through the history
+    instead: 590.47 for 752.94 at depth 2 here, and exponential cost."""
+    x, *w = _leaves(4, 6, 4)
+    runs = []
+    for f in (_node, ref.fused_mlp):
+        y = _chain(f, x, w, 2)
+        gw1, gx = torch.autograd.grad((y ** 2).sum(), [w[0], x], create_graph=True)
+        runs.append((gw1, gx, *torch.autograd.grad((gx ** 2).sum() + gw1.sum(), w[:3])))
+    for a, b in zip(*runs):
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
+
+
+def test_node_create_graph_vjp_runs_once_a_node(monkeypatch):
+    """A create_graph gradient through a chain of 12 nodes recomputes each
+    node's plain version once (it was 2^depth)."""
+    calls = []
+
+    def counted(plain, *args):
+        calls.append(1)
+        return vjp.plain_vjp(plain, *args)
+
+    monkeypatch.setattr(fm_kernel, "plain_vjp", counted)
+    x, *w = _leaves(4, 6, 4)
+    torch.autograd.grad(_chain(_node, x, w, 12).sum(), x, create_graph=True)
+    assert len(calls) == 12
 
 
 def test_node_vjp_matches_jax_vjp_float64():
@@ -481,12 +521,14 @@ def _bwd_margins(rows, din, h, dout, split):
 
 
 @pytest.mark.parametrize("rows,din,h,dout", [(64, 17, 32, 16), (1024, 17, 32, 16),
-                                             (4096, 17, 32, 16), (300, 512, 512, 512)])
+                                             (4096, 17, 32, 16), (300, 512, 512, 512),
+                                             (128, 2, 32, 16), (1024, 17, 32, 32)])
 def test_emulated_backward_kernel_holds_the_f32_tolerance(rows, din, h, dout):
     """The kernel's split-TF32 products, tile and cluster sums hold MLP_TOL
     against jax.vjp at the ELBO shape (R 64, 1024 and 4096: several tiles
-    a block) and at 512 -> 512 -> 512, R = 300; the margins are printed
-    (``-s``) for PERF.md."""
+    a block), at 512 -> 512 -> 512, R = 300, and at the SDE-GAN
+    discriminator's xi (2 -> 32 -> 16, R 128) and g (17 -> 32 -> 32, R
+    1024); the margins are printed (``-s``) for PERF.md."""
     got = _bwd_margins(rows, din, h, dout, split=True)
     print(f"fused_mlp_bwd emulated split TF32 {(rows, din, h, dout)}, worst |Δ| − tol:", got)
     assert all(m < 0 for m in got.values()), got
