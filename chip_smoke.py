@@ -126,6 +126,27 @@ non-zero and the final result line is never printed):
    the gp step timed in turns and one clip step profiled at both batches;
    the peak memory of a clip step at 31 and 310 solver steps (the joint
    solve keeps only its terminal state, so it should not grow with N).
+11c. The paper's baselines through the train CLI's entry points, float32
+   at the widths of 6 and 11b: 3 ELBO steps through ``train_latent_sde``
+   (batch 64, 23 steps) for each of BASELINE_VARIANTS — midpoint with the
+   continuous-adjoint backsolve, midpoint and reversible Heun with
+   recursive checkpointing, and the exact adjoint fused under
+   ``precision="bf16_compute"`` (the fields' ``fused_mlp`` and
+   ``fused_mlp_bwd`` in bfloat16) — and 3 gp steps through
+   ``train_sde_gan`` with the midpoint solver (batch 128), one a call,
+   each resuming the last one's checkpoint, the counts zeroed before and
+   read after each: BASELINE_STEP_LAUNCHES, STEP_LAUNCHES and
+   GP_MIDPOINT_STEP_LAUNCHES (+ GP_MIDPOINT_LOG_LAUNCHES for step 0's
+   log), every other kernel never; finite losses.  Then, float64 at batch
+   64: checkpoint's ELBO gradients against discretise's within
+   CHECKPOINT_ERR_GATE (midpoint and reversible Heun), backsolve's against
+   discretise's at N = 23 and 230 (printed: the O(√h) error), and
+   bf16_compute's against highest's inside BF16_SHIFT_BOUNDS (the exact
+   fused adjoint and midpoint checkpointing).  The peak memory of one
+   terminal-form gradient at N = 23 and 230: checkpoint within 1.5×,
+   backsolve within 1.5×, discretise beside them.  One step of each
+   variant timed in turns against the exact fused step (the paper's
+   1.98× reads off midpoint against reversible Heun).
 12. ``flash_attention`` (the LM prefill's GQA attention) against its plain
    version on the card, the same float scale 1/sqrt(D) given to both:
    float32 (rtol = atol = 2e-5) and bfloat16 (6e-2, and ‖Δ‖/‖want‖ of
@@ -236,7 +257,8 @@ Each phase's wall is printed as a ``[phase] <name>: <s> s`` line as it ends.
    and ``ssd_chunk``, one LM training step of phase 20 for ``fused_xent``
    and ``fused_xent_bwd``; ``adaptive_launches``: the fused adaptive
    gradient's; ``gan_launches``: the counts of SDE-GAN clip step 3 at batch
-   128 (no sig-MMD log); ``serve_launches``: the Latent-SDE service's, the adaptive
+   128 (no sig-MMD log); ``baseline_launches``: phase 11c's counts of step 3
+   of each baseline; ``serve_launches``: the Latent-SDE service's, the adaptive
    service's for ``brownian_value``, the LM serves' for
    ``flash_attention`` and ``ssd_chunk``; ``ptxas``: the registers,
    shared memory and spills of ``brownian_value``, the float32 attention,
@@ -473,6 +495,43 @@ GP_STEP_LAUNCHES = {"fused_mlp": 1210, "fused_mlp_bwd": 453, "brownian_increment
 # the sig-MMD log of train_sde_gan: generator_sample at 256 rows, 1 + 2·32
 # field launches and 31 draws, no gradient
 GAN_LOG_LAUNCHES = {"fused_mlp": 65, "fused_mlp_bwd": 0, "brownian_increment": 31}
+# The paper's baselines at the ELBO's widths, one terminal-form step each at 23
+# solver steps (tests/test_torch_gradients.py:elbo_launches holds the formula
+# on the CPU with counted plain launches).  qz0 and zeta are one fused_mlp
+# launch each, both differentiated; an evaluation of the posterior is 4 field
+# launches (nu, mu, sigma in the drift, sigma in the diffusion).  Backsolve:
+# N x 2 evaluations forward without a graph, then per step 2 stages, each a
+# pull of the drift's 3 fields and the diffusion's 1 (a launch and a backward
+# launch each) — 2 + 184 + 184 and 2 + 184; N draws forward, N re-drawn back.
+# Checkpoint: the halving schedule over 2^5 = 32 padded steps recomputes
+# 5 x 32 = 160 (checkpoint_schedule), so 192 step evaluations, each a draw;
+# the backward differentiates the 32 padded steps once; reversible Heun adds
+# its carry's evaluation at t0 (4 launches, differentiated).
+BASELINE_STEP_LAUNCHES = {
+    "midpoint/backsolve": {"fused_mlp": 370, "fused_mlp_bwd": 186,
+                           "brownian_increment": 46},
+    "midpoint/checkpoint": {"fused_mlp": 1538, "fused_mlp_bwd": 258,
+                            "brownian_increment": 192},
+    "reversible_heun/checkpoint": {"fused_mlp": 774, "fused_mlp_bwd": 134,
+                                   "brownian_increment": 192}}
+# train_latent_sde's keyword arguments of each variant of phase 11c; the bf16
+# step launches what the float32 fused step does (STEP_LAUNCHES).
+BASELINE_VARIANTS = {
+    "midpoint/backsolve": dict(solver="midpoint", adjoint="backsolve"),
+    "midpoint/checkpoint": dict(solver="midpoint", adjoint="checkpoint"),
+    "reversible_heun/checkpoint": dict(solver="reversible_heun", adjoint="checkpoint"),
+    "exact fused/bf16_compute": dict(use_pallas=True, precision="bf16_compute")}
+# One WGAN-GP step with the midpoint solver (discretise, general noise) at
+# train_sde_gan's widths, 31 steps, 32 observations (tests/test_torch_gradients.py:
+# gp_launches): an evaluation is 5 fields in the joint solve, 2 in the CDE's;
+# every field launch of a recorded solve is differentiated once.  The
+# discriminator's loss (2 + 310 fake, zeta without a gradient; 1 + 124 real),
+# the penalty's CDE solve (1 + 124), the generator's fake score (2 + 310).
+GP_MIDPOINT_STEP_LAUNCHES = {"fused_mlp": 874, "fused_mlp_bwd": 873, "brownian_increment": 62}
+# the sig-MMD log: generator_sample at 256 rows, 1 + 31 x 2 x 2 launches
+GP_MIDPOINT_LOG_LAUNCHES = {"fused_mlp": 125, "fused_mlp_bwd": 0, "brownian_increment": 31}
+CHECKPOINT_ERR_GATE = 1e-10        # benchmarks/gradient_error.py:189
+BF16_SHIFT_BOUNDS = (1e-6, 0.2)    # benchmarks/gradient_error.py:194
 # The Latent SDE at the widths the repo trains it at (examples/
 # latent_sde_air_quality.py:75, src/repro/launch/train.py:318).
 WIDTHS = dict(data_dim=2, hidden_dim=16, context_dim=16, initial_noise_dim=8,
@@ -1029,18 +1088,22 @@ def train_checks(ops, dev, label: str) -> dict:
 
 
 def _train_step(dev, batch: int, fused: bool = True, num_steps: int = 23,
-                gradient_mode=None):
+                gradient_mode=None, solver: str = "reversible_heun", adjoint: str = "exact",
+                precision: str = "highest"):
     """``run()`` takes one ELBO step at the training widths (float32) from
-    fresh parameters."""
+    fresh parameters, ``adjoint``, ``solver`` and ``precision`` as
+    train_latent_sde takes them."""
     from repro_torch.core.sde import LatentSDEConfig, latent_sde_init
     from repro_torch.kernels import prng
     from repro_torch.launch.steps import make_latent_sde_optimizer, make_latent_sde_step
 
     cfg = LatentSDEConfig(**{**WIDTHS, "num_steps": num_steps}, kl_weight=0.1,
-                          use_pallas_kernels=fused, gradient_mode=gradient_mode)
+                          use_pallas_kernels=fused, gradient_mode=gradient_mode, solver=solver,
+                          exact_adjoint=adjoint == "exact" and solver == "reversible_heun",
+                          precision=precision)
     params = latent_sde_init(torch.Generator().manual_seed(13), cfg, device=dev)
     init, update = make_latent_sde_optimizer()
-    step = make_latent_sde_step(cfg, update, batch, SEQ_LEN, device=dev)
+    step = make_latent_sde_step(cfg, update, batch, SEQ_LEN, adjoint=adjoint, device=dev)
     key = prng.PRNGKey(14, device=dev)
     state = init(params)
     return lambda: step(params, state, key)
@@ -1073,19 +1136,22 @@ def step_rate(dev, batch: int, label: str):
     return None
 
 
-def _terminal_grad(dev, num_steps: int, gradient_mode: str):
-    """``run()`` takes the gradient of the terminal-form ELBO (the exact
-    adjoint's terminal solve) at the training widths, float32, batch 64."""
+def _terminal_grad(dev, num_steps: int, gradient_mode: str, solver: str = "reversible_heun",
+                   dtype=torch.float32, precision: str = "highest"):
+    """``run()`` takes the gradient of the terminal-form ELBO at the training
+    widths, batch 64 (the exact adjoint fused), from the same parameters
+    and data at every call."""
     from repro_torch.core.sde import LatentSDEConfig, latent_sde_init, latent_sde_loss_terminal
     from repro_torch.data import air_quality_like
     from repro_torch.kernels import prng
 
     cfg = LatentSDEConfig(**{**WIDTHS, "num_steps": num_steps}, kl_weight=0.1,
                           use_pallas_kernels=gradient_mode == "reversible_adjoint",
-                          gradient_mode=gradient_mode)
+                          gradient_mode=gradient_mode, solver=solver, precision=precision,
+                          dtype=dtype)
     params = latent_sde_init(torch.Generator().manual_seed(13), cfg, device=dev)
     key = prng.PRNGKey(14, device=dev)
-    ys, _ = air_quality_like(prng.fold_in_key(key, 0), 64, SEQ_LEN)
+    ys, _ = air_quality_like(prng.fold_in_key(key, 0), 64, SEQ_LEN, dtype=dtype)
     return lambda: _grads(latent_sde_loss_terminal, params, cfg, prng.fold_in_key(key, 1), ys)
 
 
@@ -1122,6 +1188,124 @@ def memory_checks(dev, label: str) -> None:
         check(grown >= 3 * max(exact[1] - exact[0], 1.0),
               f"{form}: discretise's peak grew {grown:.2f} MiB with N ({dto} MiB), not 3x "
               f"the exact adjoint's growth ({exact} MiB) and at least 3 MiB")
+
+
+def baseline_checks(ops, dev, label: str) -> dict:
+    """Phase 11c: the paper's baselines through the train CLI's entry points
+    (launch counts, finite losses), their float64 gradients against
+    discretise, the bf16 policy's shift, peak memory at N = 23 and 230, and
+    one step of each timed in turns against the exact fused step.  Returns
+    the launches of step 3 of each variant and the timings."""
+    from repro_torch.launch.train import train_latent_sde, train_sde_gan
+
+    never = 10 ** 9  # log_every: the sig-MMD log at step 0 only
+    launches = {}
+    for tag, kw in BASELINE_VARIANTS.items():
+        want = BASELINE_STEP_LAUNCHES.get(tag, STEP_LAUNCHES)
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-baseline-") as tmp:
+            for k in (1, 2, 3):  # one step a call, each resuming the last
+                ops.reset_launch_counts()
+                _, losses = train_latent_sde(k, 64, tmp, ckpt_every=1, seed=11,
+                                             log_every=never, device=dev, **kw)
+                torch.cuda.synchronize()
+                counts = ops.launch_counts()
+                _check_gan_launches(counts, want, f"{tag} ELBO step {k}")
+                check(len(losses) == 1 and math.isfinite(losses[0]),
+                      f"{tag} ELBO step {k}: -ELBO {losses}")
+                print(f"[{label}] baseline {tag} step {k} (train_latent_sde resuming from "
+                      f"step {k - 1}): -ELBO {losses[0]:.6f}", flush=True)
+        launches[tag] = counts
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-baseline-gan-") as tmp:
+        for k in (1, 2, 3):
+            ops.reset_launch_counts()
+            _, hist = train_sde_gan(k, GAN_BATCHES[0], tmp, ckpt_every=1, seed=GAN_SEED,
+                                    log_every=never, constraint="gp", solver="midpoint",
+                                    device=dev)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            want = dict(GP_MIDPOINT_STEP_LAUNCHES)
+            if k == 1:  # the sig-MMD log of step 0
+                want = {n: want[n] + GP_MIDPOINT_LOG_LAUNCHES[n] for n in want}
+            _check_gan_launches(counts, want, f"sde-gan gp/midpoint step {k}")
+            rec = hist[0]
+            check(all(math.isfinite(v) for n, v in rec.items() if n != "step"),
+                  f"sde-gan gp/midpoint step {k}: not finite {rec}")
+            print(f"[{label}] baseline sde-gan gp/midpoint step {k} (B={GAN_BATCHES[0]}): "
+                  f"{rec}", flush=True)
+    launches["sde-gan gp/midpoint"] = counts
+    print(f"[{label}] baseline launches per step: {launches}; every other kernel 0",
+          flush=True)
+
+    # float64, batch 64: checkpoint == discretise, backsolve's O(√h) error, bf16
+    readings = {}
+    f64 = torch.float64
+    for solver in ("midpoint", "reversible_heun"):
+        ck = _terminal_grad(dev, 23, "checkpoint", solver, f64)()
+        dto = _terminal_grad(dev, 23, "discretise", solver, f64)()
+        rel = _rel_err(ck, dto)
+        readings[f"checkpoint vs discretise, {solver}"] = rel
+        check(rel <= CHECKPOINT_ERR_GATE,
+              f"{solver}: checkpoint vs discretise relative error {rel} > "
+              f"{CHECKPOINT_ERR_GATE}")
+    for n in (23, 230):
+        otd = _terminal_grad(dev, n, "continuous_adjoint", "midpoint", f64)()
+        dto = _terminal_grad(dev, n, "discretise", "midpoint", f64)()
+        readings[f"backsolve vs discretise, midpoint N={n}"] = _rel_err(otd, dto)
+    for solver, mode in (("reversible_heun", "reversible_adjoint"), ("midpoint", "checkpoint")):
+        hi = _terminal_grad(dev, 23, mode, solver, f64)()
+        lo = _terminal_grad(dev, 23, mode, solver, f64, precision="bf16_compute")()
+        shift = _rel_err(lo, hi)
+        readings[f"bf16_compute vs highest, {solver} {mode}"] = shift
+        check(all(g.dtype == torch.float64 and torch.isfinite(g).all().item() for g in lo)
+              and BF16_SHIFT_BOUNDS[0] < shift < BF16_SHIFT_BOUNDS[1],
+              f"bf16_compute ({solver} {mode}): shift {shift} outside {BF16_SHIFT_BOUNDS}")
+    torch.cuda.synchronize()
+    print(f"[{label}] baselines float64 B=64, relative L1 of the ELBO gradients: "
+          f"{readings} (checkpoint gate {CHECKPOINT_ERR_GATE}, bf16 bounds "
+          f"{BF16_SHIFT_BOUNDS}; backsolve's is a reading)", flush=True)
+
+    # peak memory of one terminal-form gradient, float32, batch 64
+    peaks = {}
+    for solver, mode in (("midpoint", "checkpoint"), ("reversible_heun", "checkpoint"),
+                         ("midpoint", "continuous_adjoint"), ("midpoint", "discretise")):
+        for n in (23, 230):
+            run = _terminal_grad(dev, n, mode, solver)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            run()
+            torch.cuda.synchronize()
+            peaks[f"{solver}/{mode} N={n}"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    print(f"[{label}] baselines memory (one terminal-form gradient, B=64): peak "
+          f"{ {k: round(v, 3) for k, v in peaks.items()} } MiB above what was held before",
+          flush=True)
+    for what in ("midpoint/checkpoint", "reversible_heun/checkpoint",
+                 "midpoint/continuous_adjoint"):
+        lo, hi = peaks[f"{what} N=23"], peaks[f"{what} N=230"]
+        check(hi <= 1.5 * lo, f"{what}: peak grew {lo:.3f} -> {hi:.3f} MiB from N=23 to 230")
+
+    # one step of each, in turns against the exact fused step
+    runs = {"exact fused": _train_step(dev, 64)}
+    for tag, kw in BASELINE_VARIANTS.items():
+        kw = dict(kw)
+        runs[tag] = _train_step(dev, 64, fused=kw.pop("use_pallas", False), **kw)
+    for run in runs.values():
+        run()
+    torch.cuda.synchronize()
+    walls = {v: [] for v in runs}
+    for i in range(4):
+        for v in (list(runs) if i % 2 == 0 else list(runs)[::-1]):
+            t0 = time.perf_counter()
+            runs[v]()
+            torch.cuda.synchronize()
+            walls[v].append(time.perf_counter() - t0)
+    med = {v: statistics.median(w) * 1e3 for v, w in walls.items()}
+    timing = {v: dict(ms=med[v], over_exact=med[v] / med["exact fused"],
+                      walls_ms=[w * 1e3 for w in walls[v]]) for v in runs}
+    print(f"[{label}] baseline ELBO steps (B=64, float32, 23 steps; medians of 4 in turns): "
+          + ", ".join(f"{v} {t['ms']:.1f} ms ({t['over_exact']:.3f}x exact)"
+                      for v, t in timing.items()), flush=True)
+    return dict(launches=launches, timing=timing, peak_mib=peaks, readings=readings)
 
 
 def serve_checks(ops, dev, label: str) -> dict:
@@ -3475,6 +3659,7 @@ def main() -> int:
     adaptive_serve = timed("adaptive serve", serve_adaptive_checks, ops, dev, label)
     adaptive_launches = timed("adaptive grad", adaptive_grad_checks, ops, dev, label)
     gan = timed("sde-gan", gan_checks, ops, dev, label)
+    baselines = timed("baselines", baseline_checks, ops, dev, label)
     attn_rows, errs["flash_attention"], attn_rel = timed("flash_attention",
                                                           attention_checks, ops, dev)
     timed(f"lm parity {LM_ARCH}", lm_parity_checks, dev, label, LM_ARCH)
@@ -3528,7 +3713,9 @@ def main() -> int:
                      "device_kernels_per_elbo_step": train_launches["device_kernels"],
                      "device_kernels_per_adaptive_gradient":
                          adaptive_launches["device_kernels"],
-                     "gan_step": {"timing": gan["timing"], "peak_mib": gan["peak_mib"]}}
+                     "gan_step": {"timing": gan["timing"], "peak_mib": gan["peak_mib"]},
+                     "baselines": {k: baselines[k] for k in ("timing", "peak_mib",
+                                                             "readings")}}
         elif name == "fused_mlp_bwd":  # timed at the training batch, as fused_mlp
             r = mlp_bwd_rows["train/serve B1024"]
             launches = train_launches[name]
@@ -3564,6 +3751,8 @@ def main() -> int:
                         "host_ms": r["host_ms"], "plain_host_ms": r["plain_host_ms"],
                         "adaptive_launches": adaptive_launches.get(name, 0),
                         "gan_launches": gan["launches"].get(name, 0),
+                        "baseline_launches": {tag: counts.get(name, 0) for tag, counts
+                                              in baselines["launches"].items()},
                         "serve_launches": serve_launches, **extra})
     print(json.dumps({"kernels": entries}), flush=True)
     print(f"card: {label}", flush=True)

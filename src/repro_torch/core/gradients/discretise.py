@@ -1,12 +1,14 @@
 """Discretise-then-optimise: autograd straight through the unrolled solver
-loop (port of :mod:`repro.core.gradients.discretise`, the reversible-Heun
-stepper).
+loop (port of :mod:`repro.core.gradients.discretise`).
 
 The reference gradient path (paper §2.3): activation memory grows with the
-number of steps, and the backward is whatever autograd derives.  It is the
-oracle the exact adjoint is held against (≤1e-12 relative in float64,
-tests/test_torch_adjoint.py).  The forward is the reversible adjoint's
-unfused forward loop, run with autograd recording.
+number of steps, and the backward is whatever autograd derives.  Every
+registered stepper serves it: the spec's stepper runs in
+:func:`repro_torch.core.solvers.sde_solve`'s loop (reversible Heun keeps
+its carried-state loop, the reversible adjoint's unfused forward).  It is
+the oracle the exact adjoint and checkpointing are held against (≤1e-12
+relative in float64, tests/test_torch_adjoint.py and
+tests/test_torch_gradients.py).
 
 Adaptive solves run forward only under this mode, as in the reference
 (whose ``lax.while_loop`` has no reverse-mode rule): differentiating one
@@ -19,9 +21,8 @@ from __future__ import annotations
 
 import torch
 
-from ..solvers import RevHeunState, reversible_heun_step
+from ..solvers import RevHeunState, carry_z, reversible_heun_step, sde_solve
 from .base import GradientBackend, register_backend
-from .reversible import _forward
 
 
 class _ForwardOnly(torch.autograd.Function):
@@ -49,19 +50,13 @@ def _validate(spec, *, noise, save_trajectory, use_pallas, adaptive):
             "not something plain autograd could trace.  Use gradient_mode="
             "'reversible_adjoint' instead — its forward pass is the identical "
             "fused loop, and differentiating it runs the fused exact adjoint")
-    if spec.name != "reversible_heun":
-        from ..solve import NotPortedError
-
-        raise NotPortedError(
-            f"gradient_mode='discretise' is ported for the reversible-Heun "
-            f"stepper only, not {spec.name!r} (ROADMAP.md Queue 1)")
 
 
 def _solve(spec, drift, diffusion, params, z0, bm, t0, t1, num_steps, *,
            noise, save_trajectory, use_pallas):
-    traj, final = _forward(drift, diffusion, params, z0, bm, t0, t1, num_steps, noise,
-                           save_trajectory=save_trajectory)
-    return traj if save_trajectory else final.z
+    return sde_solve(drift, diffusion, params, z0, bm, t0, t1, num_steps, solver=spec.name,
+                     noise=noise, save_trajectory=save_trajectory,
+                     step_fn=None if spec.stepper is reversible_heun_step else spec.stepper)
 
 
 def _solve_adaptive(spec, drift, diffusion, params, z0, bm, rtol, atol, t0, t1,
@@ -75,7 +70,7 @@ def _solve_adaptive(spec, drift, diffusion, params, z0, bm, rtol, atol, t0, t1,
                                       bridge_depth=bridge_depth)
     inputs = [x for x in (z0, *tree.leaves(params))
               if isinstance(x, torch.Tensor) and x.requires_grad]
-    z = carry.z
+    z = carry_z(carry)
     if inputs and torch.is_grad_enabled():
         z = _ForwardOnly.apply(z, *inputs)
     return z, stats.converged

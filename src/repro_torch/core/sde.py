@@ -53,7 +53,7 @@ from .brownian import BrownianPath
 from .losses import wasserstein_losses
 from .paths import LinearPathControl
 from .solve import solve, solve_adaptive
-from .solvers import NP_DTYPES, apply_diffusion
+from .solvers import NP_DTYPES, ProductTime32, ProductTime64, apply_diffusion
 
 
 @dataclasses.dataclass(frozen=True)
@@ -416,9 +416,15 @@ def _step_index(t, t1: float, T: int, dtype) -> int:
     """``int(t / t1 * T)`` clipped to ``[0, T]``, computed on the host in the
     state dtype as the reference's ``jnp.asarray(t / t1 * T).astype(int32)``
     rounds; one ulp of ``t`` can move it, so the times must be the
-    reference's (:func:`repro_torch.core.solvers.grid_time`)."""
+    reference's (:func:`repro_torch.core.solvers.grid_time`).  At a time the
+    reference forms as the product ``k·dt``
+    (:func:`repro_torch.core.solvers.product_time`) with ``t1 = 1`` XLA
+    drops the division and folds the constants, ``k·(dt·T)``, and so does
+    this."""
     np_dtype = NP_DTYPES[dtype]
-    if isinstance(t, np.floating):
+    if isinstance(t, (ProductTime32, ProductTime64)) and t1 == 1.0:
+        x = np_dtype(t.k) * (np_dtype(t.dt) * np_dtype(T))
+    elif isinstance(t, np.floating):
         x = t / np_dtype(t1) * np_dtype(T)
     else:  # a Python float is folded in double, then cast, as a constant
         x = np_dtype(t / t1 * T)

@@ -2,14 +2,17 @@
 
 One entry point, :func:`solve`, validated eagerly against a solver registry
 and dispatched to a gradient backend — the reference's design.  The port
-registers the reversible-Heun solver with two backends: ``discretise``
-(autograd through the loop) and ``reversible_adjoint`` (the exact
-O(1)-memory adjoint), on the fixed grid and, with ``adaptive=True``, under
+registers the reference's solvers but srk: euler-maruyama, midpoint, heun
+and reversible Heun, with the gradient modes the reference gives each
+(:func:`gradient_capabilities`): ``discretise`` (autograd through the
+loop), ``reversible_adjoint`` (the exact O(1)-memory adjoint),
+``continuous_adjoint`` (the eq. (6) backsolve) and ``checkpoint``
+(recursive halving), on the fixed grid and, with ``adaptive=True``, under
 the PI step-size controller (:func:`_adaptive_loop`, :func:`solve_adaptive`;
-DESIGN.md §10).  Everything else the reference accepts raises
-:class:`NotPortedError` by name (solvers, gradient modes, the bf16 policy),
-so nothing silently runs another solver's numerics; ROADMAP.md lists the
-order they are ported in.
+DESIGN.md §10).  The precision policy (``precision="bf16_compute"``) wraps
+the fields before any backend sees them.  :func:`solve_batched` solves a
+batch of trajectories, one Brownian path per key row.  ``srk`` (it needs
+space-time Lévy area) raises :class:`NotPortedError` by name.
 """
 
 from __future__ import annotations
@@ -22,7 +25,19 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from .gradients import GRADIENT_BACKENDS, get_backend, resolve_precision
-from .solvers import RevHeunState, reversible_heun_embedded_step, reversible_heun_step
+from .solvers import (
+    RevHeunState,
+    _euler_maruyama_step,
+    _heun_embedded_step,
+    _heun_step,
+    _midpoint_embedded_step,
+    _midpoint_step,
+    carry_init,
+    carry_z,
+    is_reversible,
+    reversible_heun_embedded_step,
+    reversible_heun_step,
+)
 
 __all__ = [
     "AdaptiveStats",
@@ -31,16 +46,16 @@ __all__ = [
     "SolverSpec",
     "available_solvers",
     "get_solver",
+    "gradient_capabilities",
     "register_solver",
     "solve",
     "solve_adaptive",
+    "solve_batched",
 ]
 
-#: Solvers and gradient modes of the reference (repro.core.solve) that this
-#: port does not register yet.
+#: Solvers of the reference (repro.core.solve); the one the port does not
+#: register yet raises NotPortedError by name.
 REFERENCE_SOLVERS = ("euler_maruyama", "midpoint", "heun", "reversible_heun", "srk")
-REFERENCE_GRADIENT_MODES = ("discretise", "reversible_adjoint", "continuous_adjoint",
-                            "checkpoint")
 
 
 class NotPortedError(NotImplementedError):
@@ -80,8 +95,9 @@ def get_solver(name: str) -> SolverSpec:
         return SOLVERS[name]
     if name in REFERENCE_SOLVERS:
         raise NotPortedError(
-            f"solver {name!r} is not ported yet (ported: {sorted(SOLVERS)}); "
-            f"see ROADMAP.md Queue 1")
+            f"solver {name!r} is not ported yet (ported: {sorted(SOLVERS)}) — "
+            f"ROADMAP.md Queue 1, "
+            f"'The rest of the Brownian layer, then space-time Lévy area and srk'")
     raise ValueError(f"unknown solver {name!r}; registered: {sorted(SOLVERS)}")
 
 
@@ -90,24 +106,50 @@ def available_solvers() -> Tuple[str, ...]:
 
 
 register_solver(SolverSpec(
+    "euler_maruyama", _euler_maruyama_step,
+    nfe_per_step=1, strong_order=0.5,
+    gradient_modes=("discretise", "continuous_adjoint", "checkpoint"),
+    sde_type="ito", notes="order-0.5 Itô baseline"))
+
+register_solver(SolverSpec(
+    "midpoint", _midpoint_step,
+    nfe_per_step=2, strong_order=0.5,
+    gradient_modes=("discretise", "continuous_adjoint", "checkpoint"),
+    notes="paper's main baseline",
+    embedded_stepper=_midpoint_embedded_step))
+
+register_solver(SolverSpec(
+    "heun", _heun_step,
+    nfe_per_step=2, strong_order=0.5,
+    gradient_modes=("discretise", "continuous_adjoint", "checkpoint"),
+    notes="trapezoidal",
+    embedded_stepper=_heun_embedded_step))
+
+register_solver(SolverSpec(
     "reversible_heun", reversible_heun_step,
     nfe_per_step=1, strong_order=0.5,
-    gradient_modes=("discretise", "reversible_adjoint"),
+    gradient_modes=("discretise", "reversible_adjoint", "checkpoint"),
     supports_pallas=True,
     notes="algebraically reversible; O(1)-memory exact adjoint (paper §3)",
     embedded_stepper=reversible_heun_embedded_step))
 
 
+def gradient_capabilities() -> dict:
+    """``gradient_mode -> tuple of solver names``: the join of the two
+    registries, in backend-inventory order."""
+    return {mode: tuple(s.name for s in SOLVERS.values() if mode in s.gradient_modes)
+            for mode in GRADIENT_BACKENDS}
+
+
 def _validate(spec: SolverSpec, gradient_mode: str, noise: str,
               use_pallas_kernels: bool, save_trajectory: bool,
               adaptive: bool = False) -> None:
+    backend = get_backend(gradient_mode)  # unknown mode: lists the registry
     if gradient_mode not in spec.gradient_modes:
-        if gradient_mode in REFERENCE_GRADIENT_MODES:
-            raise NotPortedError(
-                f"gradient_mode={gradient_mode!r} is not ported yet for solver "
-                f"{spec.name!r} (ported: {spec.gradient_modes}); see ROADMAP.md "
-                f"Queue 1")
-        get_backend(gradient_mode)  # unknown mode: lists the registry
+        raise ValueError(
+            f"solver {spec.name!r} does not support gradient_mode={gradient_mode!r} "
+            f"(supported: {spec.gradient_modes}; solvers serving {gradient_mode!r}: "
+            f"{gradient_capabilities()[gradient_mode]})")
     if noise not in ("diagonal", "general"):
         raise ValueError(f"unknown noise type {noise!r}")
     if noise not in spec.noise_types:
@@ -132,7 +174,6 @@ def _validate(spec: SolverSpec, gradient_mode: str, noise: str,
                 "output grid cannot represent — call solve(..., "
                 "save_trajectory=False) for the terminal value (or "
                 "solve_adaptive for the accepted-grid stats)")
-    backend = get_backend(gradient_mode)
     if backend.validate is not None:
         backend.validate(spec, noise=noise, save_trajectory=save_trajectory,
                          use_pallas=use_pallas_kernels, adaptive=adaptive)
@@ -237,8 +278,13 @@ def _adaptive_loop(spec, drift, diffusion, params, z0, bm, t0: float, t1: float,
     carried from the last accepted step: one bridge descent per attempt,
     all of a batch's rows in one ``brownian_value`` launch, and the bits
     the exact adjoint's replay recomputes from the stored ``(ts, dts)``.
+
+    Stepper-generic as the reference's: the carry is a :class:`RevHeunState`
+    for reversible Heun (whose initial evaluation ``nfe`` counts) and the
+    bare state for midpoint and heun.
     """
     dtype, dev = z0.dtype, z0.device
+    rev = is_reversible(spec.embedded_stepper)
     K = bm.batch_shape
     fused = use_pallas and noise == "diagonal"
     if fused and K:
@@ -257,7 +303,7 @@ def _adaptive_loop(spec, drift, diffusion, params, z0, bm, t0: float, t1: float,
     done = torch.zeros(K, dtype=torch.bool, device=dev)
     ts = torch.zeros(K + (max_steps,), dtype=dtype, device=dev)
     dts = torch.zeros(K + (max_steps,), dtype=dtype, device=dev)
-    carry = RevHeunState(z0, z0, drift(params, t0, z0), diffusion(params, t0, z0))
+    carry = carry_init(spec.embedded_stepper, drift, diffusion, params, z0, t0)
     w_left = bm.value(t, **dkw).to(dtype)
     iterations = 0
     while True:
@@ -274,10 +320,12 @@ def _adaptive_loop(spec, drift, diffusion, params, z0, bm, t0: float, t1: float,
         iterations += 1
         t_next = t + dt_eff
         w_right = bm.value(t_next, **dkw).to(dtype)
+        # the baselines have no fused path; their midpoint time is K-shaped
+        # like the rows' own
+        step_kw = {"use_pallas": use_pallas} if rev else {"tm": t + 0.5 * dt_eff}
         cand, err = spec.embedded_stepper(carry, t, dt_step, w_right - w_left, drift,
-                                          diffusion, params, noise, use_pallas=use_pallas,
-                                          t1=t_next)
-        scale = atol + rtol * torch.maximum(carry.z.abs(), cand.z.abs())
+                                          diffusion, params, noise, t1=t_next, **step_kw)
+        scale = atol + rtol * torch.maximum(carry_z(carry).abs(), carry_z(cand).abs())
         q = err / scale
         ratio = torch.sqrt(_row_mean(q * q, len(K)))
         ratio = torch.clamp(ratio, min=_MIN_ERR_RATIO)
@@ -286,8 +334,11 @@ def _adaptive_loop(spec, drift, diffusion, params, z0, bm, t0: float, t1: float,
         factor = _PI_SAFETY * _pow(ratio, -_PI_BETA1) * _pow(prev_ratio, _PI_BETA2)
         factor = torch.clamp(factor, _PI_FACTOR_MIN, _PI_FACTOR_MAX)
         factor = torch.where(accept, factor, torch.clamp(factor, max=1.0))
-        carry = RevHeunState(*(torch.where(_rows(accept, a), a, b)
-                               for a, b in zip(cand, carry)))
+        if rev:
+            carry = RevHeunState(*(torch.where(_rows(accept, a), a, b)
+                                   for a, b in zip(cand, carry)))
+        else:
+            carry = torch.where(_rows(accept, cand), cand, carry)
         slot = n_acc.clamp(max=max_steps - 1).long().unsqueeze(-1)
         for buf, val in ((dts, dt_eff), (ts, t)):
             buf.scatter_(-1, slot, torch.where(accept, val, buf.gather(-1, slot)[..., 0])
@@ -299,7 +350,7 @@ def _adaptive_loop(spec, drift, diffusion, params, z0, bm, t0: float, t1: float,
         n_rej = n_rej + (running & ~accept).to(torch.int32)
         w_left = torch.where(_rows(accept, w_left), w_right, w_left)
         done = done | (accept & is_last)
-    nfe = (n_acc + n_rej) * spec.nfe_per_step + 1
+    nfe = (n_acc + n_rej) * spec.nfe_per_step + (1 if rev else 0)
     return carry, AdaptiveStats(n_acc, n_rej, nfe, t, done, dts, ts, iterations)
 
 
@@ -332,7 +383,7 @@ def solve_adaptive(drift, diffusion, params, z0, bm, t0: float, t1: float, *,
                    precision: str = "highest"):
     """Adaptive solve -> ``(z_T, AdaptiveStats)``, forward only (no graph is
     recorded; for gradients call :func:`solve` with ``adaptive=True`` and
-    ``gradient_mode="reversible_adjoint"``).
+    ``gradient_mode="reversible_adjoint"`` or ``"checkpoint"``).
 
     With a batched-key path (``K = bm.batch_shape``) every row runs its own
     controller, as the reference's ``vmap`` of this function does, and the
@@ -343,14 +394,14 @@ def solve_adaptive(drift, diffusion, params, z0, bm, t0: float, t1: float, *,
     _validate(spec, "discretise", noise, False, False, adaptive=True)
     _check_adaptive_bm(bm)
     _check_bridge_depth(bm, bridge_depth)
-    resolve_precision(precision)
+    drift, diffusion = resolve_precision(precision).wrap_fields(drift, diffusion)
     if dt0 is None:
         dt0 = (t1 - t0) / 16
     with torch.no_grad():
         carry, stats = _adaptive_loop(spec, drift, diffusion, params, z0, bm, t0, t1,
                                       rtol, atol, max_steps, dt0, noise,
                                       bridge_depth=bridge_depth)
-    return carry.z, stats
+    return carry_z(carry), stats
 
 
 def solve(drift, diffusion, params, z0, bm, t0: float, t1: float, num_steps: int, *,
@@ -362,22 +413,28 @@ def solve(drift, diffusion, params, z0, bm, t0: float, t1: float, num_steps: int
           bridge_depth: Optional[int] = None, precision: str = "highest"):
     """Solve ``dZ = μ dt + σ ∘ dW`` on ``[t0, t1]``.
 
-    Same signature and defaults as :func:`repro.core.solve.solve`.  Ported:
-    ``solver="reversible_heun"``, ``gradient_mode`` ``"discretise"`` and
-    ``"reversible_adjoint"``, diagonal noise (general noise unfused),
-    ``use_pallas_kernels`` (the CUDA kernels on CUDA tensors; exact adjoint
-    only), ``precision="highest"``.  Returns the trajectory
-    ``(num_steps+1, *z0.shape)`` or, with ``save_trajectory=False``, the
-    terminal value.
+    Same signature and defaults as :func:`repro.core.solve.solve`: every
+    solver of the registry but srk, under the gradient modes
+    :func:`gradient_capabilities` lists (``continuous_adjoint`` and
+    ``checkpoint`` return the terminal value only), diagonal or general
+    noise, ``use_pallas_kernels`` (reversible Heun, diagonal noise, the CUDA
+    kernels on CUDA tensors; not under ``discretise`` or ``checkpoint``), and
+    ``precision`` ``"highest"`` (the fields in the state dtype, the
+    identity) or ``"bf16_compute"`` (the fields evaluated in bfloat16, the
+    state, ΔW and every accumulator in the state dtype).  Returns the
+    trajectory ``(num_steps+1, *z0.shape)`` or, with
+    ``save_trajectory=False``, the terminal value.
 
     ``adaptive=True`` runs the PI-controlled embedded pair instead of the
     uniform grid (terminal value only): ``num_steps`` seeds ``dt0 = (t1 −
     t0)/num_steps`` and the default budget ``max_steps = max(4·num_steps,
     256)``; ``rtol``/``atol`` default to 1e-3/1e-6 and ``bridge_depth`` caps
     the Brownian queries' bridge descent (default: the path's 24).  The
-    exact adjoint replays the accepted grid; ``discretise`` is forward-only
-    there.  A solve that runs out of budget before ``t1`` returns NaN; use
-    :func:`solve_adaptive` to read ``converged`` instead.
+    exact adjoint replays the accepted grid, ``checkpoint`` freezes it and
+    replays it under the halving schedule; ``discretise`` is forward-only
+    there and ``continuous_adjoint`` refuses it.  A solve that runs out of
+    budget before ``t1`` returns NaN; use :func:`solve_adaptive` to read
+    ``converged`` instead.
     """
     spec = get_solver(solver)
     _validate(spec, gradient_mode, noise, use_pallas_kernels, save_trajectory, adaptive)
@@ -387,8 +444,10 @@ def solve(drift, diffusion, params, z0, bm, t0: float, t1: float, num_steps: int
             "rtol/atol/max_steps/dt0/bridge_depth are adaptive-mode options "
             "but adaptive=False — a fixed-grid solve would silently ignore "
             "the requested tolerance")
-    resolve_precision(precision)
     backend = get_backend(gradient_mode)
+    # the policy wraps the fields before the backend sees them, so replays
+    # and backsolves evaluate the same fields as the forward
+    drift, diffusion = resolve_precision(precision).wrap_fields(drift, diffusion)
     if adaptive:
         _check_adaptive_bm(bm)
         _check_bridge_depth(bm, bridge_depth)
@@ -410,3 +469,40 @@ def solve(drift, diffusion, params, z0, bm, t0: float, t1: float, num_steps: int
     return backend.solve(
         spec, drift, diffusion, params, z0, bm, t0, t1, num_steps, noise=noise,
         save_trajectory=save_trajectory, use_pallas=use_pallas_kernels)
+
+
+def solve_batched(drift, diffusion, params, z0, keys, t0: float, t1: float,
+                  num_steps: int, *, w_dim: Optional[int] = None, **kwargs):
+    """Many trajectories in one solve: ``z0`` ``(B, *state_shape)`` and
+    ``keys`` ``(B, 2)``, one Brownian path per key row -> ``(num_steps+1,
+    B, *state_shape)`` trajectories, or ``(B, *state_shape)`` terminal
+    values with ``save_trajectory=False``.
+
+    The reference vmaps :func:`solve` over ``(z0, keys)`` and so returns the
+    batch axis first; here the batch is a tensor dimension (the
+    :class:`BrownianPath` batches by key row) and the trajectory keeps the
+    port's time-major layout.  ``w_dim`` is the Brownian dimension for
+    general noise.  ``kwargs`` go to :func:`solve` and are validated once,
+    eagerly; with ``adaptive=True`` every row runs its own controller and
+    the rows' fields see their own times (``K``-shaped tensors), forward
+    only (:func:`solve_adaptive`)."""
+    from .brownian import BrownianPath
+
+    if z0.dim() < 1 or keys.shape[0] != z0.shape[0]:
+        raise ValueError(f"leading (batch) dims must agree: z0 {tuple(z0.shape)} vs "
+                         f"keys {tuple(keys.shape)}")
+    spec = get_solver(kwargs.get("solver", "reversible_heun"))
+    _validate(spec, kwargs.get("gradient_mode", "discretise"),
+              kwargs.get("noise", "diagonal"), kwargs.get("use_pallas_kernels", False),
+              kwargs.get("save_trajectory", True), kwargs.get("adaptive", False))
+    resolve_precision(kwargs.get("precision", "highest"))
+    state_shape = tuple(z0.shape[1:])
+    if kwargs.get("noise", "diagonal") == "general":
+        if w_dim is None:
+            raise ValueError("general noise needs w_dim= for the Brownian shape")
+        bm_shape = state_shape[:-1] + (w_dim,)
+    else:
+        bm_shape = state_shape
+    bm = BrownianPath(keys.to(device=z0.device, dtype=torch.int64).contiguous(), t0, t1,
+                      bm_shape, z0.dtype)
+    return solve(drift, diffusion, params, z0, bm, t0, t1, num_steps, **kwargs)

@@ -1,6 +1,10 @@
-"""Reversible Heun, one step forward and one back, and its embedded error
-estimate (port of :mod:`repro.core.solvers`: ``reversible_heun_step``,
-``reversible_heun_reverse_step`` and ``reversible_heun_embedded_step``).
+"""The SDE solvers (port of :mod:`repro.core.solvers`): reversible Heun
+(``reversible_heun_step``, ``reversible_heun_reverse_step``,
+``reversible_heun_embedded_step``), the paper's baselines euler-maruyama,
+midpoint and heun with the embedded pairs of the latter two
+(``_euler_maruyama_step``, ``_midpoint_step`` / ``_midpoint_embedded_step``,
+``_heun_step`` / ``_heun_embedded_step``), and the uniform-grid drivers
+``sde_solve`` and ``ode_solve``.
 
 Calling convention as in the reference::
 
@@ -10,11 +14,15 @@ Calling convention as in the reference::
 Times ``t`` are numpy scalars of the state dtype (or Python floats) and
 never need a device round trip; the adaptive loop passes tensors of its
 rows' own times and step sizes instead.  On a uniform grid every field time is
-:func:`grid_time`: ``t0 + k·Δt`` rounded once.  That is what the compiled
-reference evaluates — XLA contracts ``t0 + n·Δt`` and the ``± Δt`` after it
-into fused multiply-adds — and the plain two-rounding arithmetic differs
-from it by an ulp at some steps, enough to move the Latent SDE's context
-index (tests/test_torch_adjoint.py records the reference's times).
+:func:`grid_time`: ``t0 + k·Δt`` rounded once, ``k`` a whole or a half
+step.  That is what the compiled reference evaluates — XLA contracts
+``t0 + n·Δt`` and the ``± Δt`` or ``± ½Δt`` after it into fused
+multiply-adds — and the plain two-rounding arithmetic differs from it by an
+ulp at some steps, enough to move the Latent SDE's context index
+(tests/test_torch_adjoint.py and tests/test_torch_solvers.py record the
+reference's times).  The baseline steppers take those times as ``tm``
+(the midpoint) and ``t1`` (the right end); without them they form
+``t + ½dt`` and ``t + dt`` themselves, as the adaptive loop needs.
 
 With ``use_pallas=True`` (the reference's name for the fused path) and
 diagonal noise, the two state updates go through :mod:`repro_torch.
@@ -23,7 +31,8 @@ CPU.  ``gen=(keys, n, dt_grid)`` draws ΔW inside the phase-1 kernel.  The
 unfused path is plain tensor arithmetic whose bits the fused path matches
 exactly: ``(½Δt)·m`` and ``(½m)·Δt`` agree under power-of-two scaling.
 :func:`reversible_heun_reverse_step` is the algebraic inverse (Algorithm
-2): the same two kernels with ``sign=-1``.
+2): the same two kernels with ``sign=-1``.  The baseline steppers have no
+fused path (the reference's have none either).
 """
 
 from __future__ import annotations
@@ -75,11 +84,50 @@ def dw_shape(z_shape, w_dim: Optional[int], noise: str):
     return tuple(z_shape[:-1]) + (w_dim,)
 
 
-def grid_time(t0: float, k: int, dt):
+def grid_time(t0: float, k, dt):
     """``t0 + k·dt`` rounded once to ``dt``'s numpy dtype (exact arithmetic
     in between; with ``t0 = 0``, as every solve here, float32 needs no
-    second rounding through the double)."""
-    return type(dt)(float(Fraction(t0) + k * Fraction(float(dt))))
+    second rounding through the double).  ``k`` is an int or a
+    :class:`~fractions.Fraction` (a half step)."""
+    return type(dt)(float(Fraction(t0) + Fraction(k) * Fraction(float(dt))))
+
+
+class ProductTime32(np.float32):
+    """A float32 grid time the compiled reference forms as the bare product
+    ``k·dt`` (see :func:`product_time`); ``k`` and ``dt`` ride along."""
+
+
+class ProductTime64(np.float64):
+    """A float64 grid time the compiled reference forms as ``k·dt``."""
+
+
+_PRODUCT_TIMES = {np.float32: ProductTime32, np.float64: ProductTime64}
+
+
+def product_time(t0: float, k: int, dt):
+    """:func:`grid_time` ``t0 + k·dt``, tagged with ``k`` and ``dt`` where the
+    reference forms it as a bare product (``t0 = 0``, whose add XLA drops).
+
+    The value is the grid time's.  The tag matters to a field that scales
+    the time: XLA folds ``(k·dt)·c`` into ``k·(dt·c)``, so the Latent SDE's
+    context index ``int(t / t1 · T)`` at such a time is ``int(k·(dt·T))``,
+    which can differ by one from the index of the rounded time
+    (:func:`repro_torch.core.sde._step_index`).  Arithmetic on it gives an
+    untagged scalar, as a sum is no product in the reference either."""
+    t = grid_time(t0, k, dt)
+    if t0 != 0:
+        return t
+    out = _PRODUCT_TIMES[type(dt)](t)
+    out.k, out.dt = k, dt
+    return out
+
+
+def step_times(t0: float, n: int, dt):
+    """``(t_n, t_{n+½}, t_{n+1})`` of uniform-grid step ``n``, each
+    :func:`grid_time`; ``t_n`` is the reference's product ``n·dt``
+    (:func:`product_time`), the other two its fused multiply-adds."""
+    return (product_time(t0, n, dt), grid_time(t0, Fraction(2 * n + 1, 2), dt),
+            grid_time(t0, n + 1, dt))
 
 
 class RevHeunState(NamedTuple):
@@ -162,3 +210,134 @@ def reversible_heun_reverse_step(state: RevHeunState, t1, dt, dw, drift, diffusi
     sigma = diffusion(params, t, zh)
     z = z1 - 0.5 * (mu + mu1) * dt - apply_diffusion(0.5 * (sigma + sigma1), dw, noise)
     return RevHeunState(z, zh, mu, sigma)
+
+
+# -----------------------------------------------------------------------------
+# The baselines: euler-maruyama, midpoint, heun (state-carried steppers)
+# -----------------------------------------------------------------------------
+#
+# ``(z, t, dt, dw, drift, diffusion, params, noise, tm=None, t1=None) -> z``
+# (the embedded pairs return ``(z, err)``).  The embedded estimate is the
+# Euler predictor ``z + μ₀dt + σ₀dW`` against the step, from the
+# evaluations the step already makes; euler-maruyama has no second
+# solution and no embedded pair.  ``tm`` and ``t1`` are the field times of
+# the midpoint and of the right end (default ``t + ½dt``, ``t + dt``).
+
+
+def _heun_embedded_step(z, t, dt, dw, drift, diffusion, params, noise, tm=None, t1=None):
+    t1 = t + dt if t1 is None else t1
+    mu0 = drift(params, t, z)
+    s0 = diffusion(params, t, z)
+    zp = z + mu0 * dt + apply_diffusion(s0, dw, noise)  # Euler (embedded)
+    mu1 = drift(params, t1, zp)
+    s1 = diffusion(params, t1, zp)
+    z1 = z + 0.5 * (mu0 + mu1) * dt + apply_diffusion(0.5 * (s0 + s1), dw, noise)
+    return z1, z1 - zp
+
+
+def _midpoint_embedded_step(z, t, dt, dw, drift, diffusion, params, noise, tm=None,
+                            t1=None):
+    tm = t + 0.5 * dt if tm is None else tm
+    mu0 = drift(params, t, z)
+    s0 = diffusion(params, t, z)
+    euler = mu0 * dt + apply_diffusion(s0, dw, noise)
+    half = z + 0.5 * euler
+    z1 = z + drift(params, tm, half) * dt + apply_diffusion(
+        diffusion(params, tm, half), dw, noise)
+    return z1, z1 - (z + euler)
+
+
+def _euler_maruyama_step(z, t, dt, dw, drift, diffusion, params, noise, tm=None, t1=None):
+    return z + drift(params, t, z) * dt + apply_diffusion(diffusion(params, t, z), dw, noise)
+
+
+def _midpoint_step(z, t, dt, dw, drift, diffusion, params, noise, tm=None, t1=None):
+    return _midpoint_embedded_step(z, t, dt, dw, drift, diffusion, params, noise, tm, t1)[0]
+
+
+def _heun_step(z, t, dt, dw, drift, diffusion, params, noise, tm=None, t1=None):
+    return _heun_embedded_step(z, t, dt, dw, drift, diffusion, params, noise, tm, t1)[0]
+
+
+#: The builtin state-carried steppers of :func:`sde_solve`.
+BASELINE_STEPPERS = {
+    "euler_maruyama": _euler_maruyama_step,
+    "midpoint": _midpoint_step,
+    "heun": _heun_step,
+}
+
+
+def is_reversible(stepper) -> bool:
+    """Whether ``stepper`` carries a :class:`RevHeunState` (the reversible
+    pair) rather than the bare state."""
+    return stepper in (reversible_heun_step, reversible_heun_embedded_step)
+
+
+def carry_init(stepper, drift, diffusion, params, z0, t0):
+    """The solver carry at ``t0``: a :class:`RevHeunState` for the
+    reversible pair (one evaluation at ``t0``), the bare state otherwise."""
+    if is_reversible(stepper):
+        return RevHeunState(z0, z0, drift(params, t0, z0), diffusion(params, t0, z0))
+    return z0
+
+
+def carry_z(carry):
+    return carry.z if isinstance(carry, RevHeunState) else carry
+
+
+def grid_step(stepper, carry, t0: float, n: int, dt, dw, drift, diffusion, params, noise):
+    """Step ``n`` of a uniform grid from ``t0``, its field times
+    :func:`step_times`."""
+    t, tm, t1 = step_times(t0, n, dt)
+    if is_reversible(stepper):
+        return stepper(carry, t, dt, dw, drift, diffusion, params, noise, t1=t1)
+    return stepper(carry, t, dt, dw, drift, diffusion, params, noise, tm=tm, t1=t1)
+
+
+def sde_solve(drift, diffusion, params, z0, bm, t0: float, t1: float, num_steps: int,
+              solver: str = "reversible_heun", noise: str = "diagonal",
+              save_trajectory: bool = True, use_pallas_kernels: bool = False,
+              step_fn: Optional[Callable] = None):
+    """Solve ``dZ = μ dt + σ ∘ dW`` from ``t0`` to ``t1`` in ``num_steps``
+    uniform steps -> the trajectory ``(num_steps+1, *z0.shape)`` or, with
+    ``save_trajectory=False``, the terminal value.  Autograd through it is
+    discretise-then-optimise (O(N) memory).
+
+    ``step_fn`` runs any state-carried stepper (the registry passes its
+    own); otherwise ``solver`` names a builtin.  Reversible Heun keeps its
+    carried-state loop (:func:`repro_torch.core.gradients.reversible.
+    _forward`), fused with ``use_pallas_kernels``."""
+    if solver == "reversible_heun" and step_fn is None:
+        from .gradients.reversible import _forward
+
+        traj, final = _forward(drift, diffusion, params, z0, bm, t0, t1, num_steps, noise,
+                               use_pallas=use_pallas_kernels,
+                               save_trajectory=save_trajectory)
+        return traj if save_trajectory else final.z
+    step = step_fn or BASELINE_STEPPERS.get(solver)
+    if step is None:
+        raise ValueError(
+            f"solver {solver!r} has no builtin stepper; pass step_fn= "
+            f"(repro_torch.core.solve does this from the registry)")
+    dt = NP_DTYPES[z0.dtype]((t1 - t0) / num_steps)
+    z = z0
+    zs = [z0] if save_trajectory else None
+    for n in range(num_steps):
+        dw = bm.increment(n, num_steps).to(z0.dtype)
+        z = grid_step(step, z, t0, n, dt, dw, drift, diffusion, params, noise)
+        if zs is not None:
+            zs.append(z)
+    return torch.stack(zs) if save_trajectory else z
+
+
+def ode_solve(f, params, z0, t0: float, t1: float, num_steps: int,
+              solver: str = "reversible_heun"):
+    """The deterministic limit (σ = 0), the stability tests' (paper App.
+    D.5): a zero diffusion on a path keyed ``PRNGKey(0)``."""
+    from ..kernels import prng
+    from .brownian import BrownianPath
+
+    zero_diff = lambda p, t, z: torch.zeros_like(z)
+    bm = BrownianPath(prng.PRNGKey(0, device=z0.device), t0, t1, tuple(z0.shape), z0.dtype)
+    return sde_solve(f, zero_diff, params, z0, bm, t0, t1, num_steps, solver=solver,
+                     noise="diagonal")

@@ -131,6 +131,40 @@ def fused_xent(logits, labels, use_kernel: Optional[bool] = None):
     return ref.fused_xent(logits, labels)
 
 
+# -----------------------------------------------------------------------------
+# Precision-policy casts (the solve stack's bf16-compute / state-dtype policy)
+# -----------------------------------------------------------------------------
+
+
+def cast_to_compute(params, compute_dtype):
+    """Every floating-point tensor leaf of ``params`` in ``compute_dtype``;
+    integer leaves (keys, counters) and non-tensors pass through.  The cast
+    is differentiable: a leaf's cotangent comes back in its own dtype."""
+    from .. import tree
+
+    def cast(x):
+        if isinstance(x, torch.Tensor) and x.is_floating_point():
+            return x.to(compute_dtype)
+        return x
+
+    return tree.map(cast, params)
+
+
+def wrap_vector_field(field, compute_dtype):
+    """``(params, t, z) -> f`` evaluated in ``compute_dtype``, the output cast
+    back to the state's dtype.  Under autograd the cotangents of the
+    parameters and of the state come back up-cast, so accumulation (adjoint
+    sums, the loop's carries, the optimiser) stays in the state dtype; only
+    the field's arithmetic runs low.  ``t`` keeps its own dtype: time
+    resolution does not degrade with the policy."""
+
+    def wrapped(params, t, z):
+        out = field(cast_to_compute(params, compute_dtype), t, z.to(compute_dtype))
+        return out.to(z.dtype)
+
+    return wrapped
+
+
 def launch_counts() -> dict:
     """Kernel launches by name since the last :func:`reset_launch_counts`."""
     return {**_rh.LAUNCHES, **_bk.LAUNCHES, **_fa.LAUNCHES, **_ssd.LAUNCHES,

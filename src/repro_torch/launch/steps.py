@@ -279,19 +279,28 @@ def make_latent_sde_step(cfg, opt_update, batch: int, seq_len: int,
     One forward per step — the air-quality batch drawn from ``fold_in(key,
     0)``, the encoder GRU and the posterior solve keyed by ``fold_in(key,
     1)``, the KL path integral riding as a state channel — and one gradient
-    pull through the reversible-Heun exact O(1)-memory adjoint
-    (``adjoint="exact"``, the paper's recipe).  With
-    ``cfg.use_pallas_kernels`` the posterior solve's forward, its backward
-    reconstruction and the cotangent phases run in the CUDA kernels.
+    pull through the solver's adjoint:
+
+    * ``adjoint="exact"`` (the paper's recipe): the reversible-Heun exact
+      O(1)-memory adjoint over the trajectory-form ELBO.  With
+      ``cfg.use_pallas_kernels`` the posterior solve's forward, its backward
+      reconstruction and the cotangent phases run in the CUDA kernels.
+    * ``adjoint="backsolve"`` (the Li et al. baseline): the continuous
+      adjoint of eq. (6), which takes a terminal cotangent only, so the step
+      switches to :func:`repro_torch.core.sde.latent_sde_loss_terminal`
+      (the reconstruction integral rides as a second state channel).  Its
+      gradients carry the O(√h) error the paper removes.
+    * ``adjoint="checkpoint"``: recursive checkpointing over the same
+      terminal-form objective — exact gradients at O(log n) memory, for
+      every registered solver.
 
     Runs on the card unless ``device="cpu"``; ``params`` must live on that
     device, ``key`` is moved there.  Validation is eager: a misaligned grid,
     a wrong data width or an illegal solver × adjoint × fusion cell raises a
-    named error here, at build time.  ``adjoint="backsolve"`` and
-    ``"checkpoint"`` are the reference's other derivations, not ported yet.
+    named error here, at build time.
     """
-    from ..core.sde import latent_sde_loss, validate_latent_grid
-    from ..core.solve import NotPortedError
+    from ..core.sde import latent_sde_loss, latent_sde_loss_terminal, validate_latent_grid
+    from ..core.solve import get_solver
     from ..data.synthetic import air_quality_like
     from ..kernels import prng
     from ..optim import apply_updates
@@ -307,19 +316,33 @@ def make_latent_sde_step(cfg, opt_update, batch: int, seq_len: int,
             f"the latent-SDE workload trains on the bivariate air-quality "
             f"dataset (PM2.5-like, O₃-like); cfg.data_dim must be 2, got "
             f"{cfg.data_dim}")
-    if adjoint != "exact":
-        what = ("continuous-adjoint backsolve" if adjoint == "backsolve"
-                else "binomial checkpointing")
-        raise NotPortedError(
-            f"adjoint={adjoint!r} (the reference's {what} over the terminal-form "
-            f"ELBO) is not ported yet — ROADMAP.md Queue 1, "
-            f"'The remaining gradient backends, solvers and the precision policy'")
-    if cfg.use_pallas_kernels and not (cfg.solver == "reversible_heun" and cfg.exact_adjoint):
+    if adjoint == "backsolve":
+        spec = get_solver(cfg.solver)
+        if "continuous_adjoint" not in spec.gradient_modes:
+            raise ValueError(
+                f"adjoint='backsolve' needs a solver with a continuous-adjoint "
+                f"backward integrator; {cfg.solver!r} serves {spec.gradient_modes} — "
+                f"use midpoint/heun/euler_maruyama (or adjoint='exact' for "
+                f"reversible_heun)")
+        if cfg.use_pallas_kernels:
+            raise ValueError(
+                "use_pallas_kernels requires the exact reversible-Heun adjoint (the "
+                "fused kernels have no autograd rule and the backsolve path is "
+                "autograd over eq. (6)); drop --pallas or use adjoint='exact'")
+    elif adjoint == "checkpoint":
+        if cfg.use_pallas_kernels:
+            raise ValueError(
+                "use_pallas_kernels requires the exact reversible-Heun adjoint "
+                "(checkpointing differentiates the recomputed segments by autograd, "
+                "which the fused state updates have no rule for); drop --pallas or "
+                "use adjoint='exact'")
+    elif cfg.use_pallas_kernels and not (cfg.solver == "reversible_heun" and cfg.exact_adjoint):
         raise ValueError(
             f"use_pallas_kernels requires solver='reversible_heun' with "
             f"exact_adjoint=True (got solver={cfg.solver!r}, "
             f"exact_adjoint={cfg.exact_adjoint}) — the fused kernels only "
             f"apply to the exact-adjoint hot loop")
+    mode = "continuous_adjoint" if adjoint == "backsolve" else "checkpoint"
     dev = resolve_device(device)
 
     def step(params, opt_state, key):
@@ -327,8 +350,13 @@ def make_latent_sde_step(cfg, opt_update, batch: int, seq_len: int,
         ys, _ = air_quality_like(prng.fold_in_key(key, 0), batch, seq_len, dtype=cfg.dtype)
         leaves, spec = tree.flatten(params)
         leaves = [x.detach().requires_grad_() for x in leaves]
-        loss, parts = latent_sde_loss(tree.unflatten(spec, leaves), cfg,
-                                      prng.fold_in_key(key, 1), ys)
+        if adjoint == "exact":
+            loss, parts = latent_sde_loss(tree.unflatten(spec, leaves), cfg,
+                                          prng.fold_in_key(key, 1), ys)
+        else:
+            loss, parts = latent_sde_loss_terminal(tree.unflatten(spec, leaves), cfg,
+                                                   prng.fold_in_key(key, 1), ys,
+                                                   gradient_mode=mode)
         grads = tree.unflatten(spec, torch.autograd.grad(loss, leaves))
         with torch.no_grad():
             upd, opt_state = opt_update(grads, opt_state, params)

@@ -10,6 +10,10 @@ Usage::
         --constraint clip --ckpt-dir D && python -m repro_torch.launch.serve \\
         --workload sde-gan --ckpt-dir D
     PYTHONPATH=src python -m repro_torch.launch.train --workload latent-sde --pallas
+    PYTHONPATH=src python -m repro_torch.launch.train --workload latent-sde \
+        --solver midpoint --adjoint backsolve        # the paper's baseline
+    PYTHONPATH=src python -m repro_torch.launch.train --workload sde-gan \
+        --constraint gp --solver midpoint            # the WGAN-GP baseline
 
 ``lm`` trains a decoder-only LM of the dense or SSM family (``--arch``; the
 reduced smoke config unless ``--full``) with AdamW on the cosine schedule,
@@ -28,8 +32,15 @@ exact reversible adjoint; the discriminator is carefully clipped
 WGAN-GP baseline).  ``latent-sde`` trains the Latent SDE (paper Appendix
 B) at the widths the reference trains it at — data 2, hidden 16, context
 16, initial noise 8, width 32, depth 1, 24 observations on a 23-step grid
-— with Adam.  For both the key of step ``s`` is ``fold_in(fold_in(
-PRNGKey(seed), 2), s)``, the reference's.
+— with Adam.  The paper's baselines take the reference's flags:
+``--solver`` (any registered solver; a solver other than reversible Heun
+trains by discretise-then-optimise), ``--adjoint exact | backsolve |
+checkpoint`` for the Latent SDE (``--backsolve`` is ``--adjoint
+backsolve`` and picks midpoint when the solver is left at reversible
+Heun), and ``--precision bf16_compute`` (the fields in bfloat16, the state
+and the gradients' accumulation in float32) for both.  For both the key
+of step ``s`` is ``fold_in(fold_in(PRNGKey(seed), 2), s)``, the
+reference's.
 
 With ``--ckpt-dir`` every workload saves a resumable checkpoint every
 ``--ckpt-every`` steps and at the end, and a rerun resumes from the newest
@@ -41,8 +52,8 @@ reference's ``jax.random`` init; the tests carry weights across instead).
 
 Every workload runs on the card by default; with no card and no
 ``--device cpu`` it stops with a named error.  The vlm/audio/encdec
-families, the backsolve/checkpoint adjoints, the other solvers and the
-data-parallel mesh are not ported yet (ROADMAP.md Queue 1).
+families, the srk solver and the data-parallel mesh are not ported yet
+(ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -216,12 +227,15 @@ def _sde_training_loop(tag: str, start: int, steps: int, state, step_fn, data_ke
 def train_sde_gan(steps: int, batch: int, ckpt_dir: Optional[str] = None,
                   ckpt_every: int = 50, seed: int = 0, log_every: int = 10,
                   use_pallas: bool = False, num_steps: int = 31, seq_len: int = 32,
-                  constraint: str = "clip", device=None):
+                  constraint: str = "clip", solver: str = "reversible_heun",
+                  precision: str = "highest", device=None):
     """SDE-GAN training (paper §5) -> ``(params, history)``.
 
     At the reference's widths (data 1, hidden 16, noise 4, initial noise 4,
     width 32, depth 1; discriminator hidden 16, width 32), reversible Heun
-    with the exact adjoint, Adadelta for both players at lr 1, and the
+    with the exact adjoint (another ``solver`` trains by discretise-then-
+    optimise, as the reference's), the fields in ``precision``, Adadelta
+    for both players at lr 1, and the
     discriminator carefully clipped (``constraint="clip"``) or penalised
     (``"gp"``); the step is :func:`repro_torch.launch.steps.make_sde_gan_step`.
     Fresh parameters come from one ``torch.Generator`` seeded with ``seed``
@@ -240,7 +254,9 @@ def train_sde_gan(steps: int, batch: int, ckpt_dir: Optional[str] = None,
 
     dev = resolve_device(device)
     cfg = NeuralSDEConfig(data_dim=1, hidden_dim=16, noise_dim=4, width=32,
-                          num_steps=num_steps, use_pallas_kernels=use_pallas)
+                          num_steps=num_steps, solver=solver,
+                          exact_adjoint=solver == "reversible_heun",
+                          use_pallas_kernels=use_pallas, precision=precision)
     gen = torch.Generator().manual_seed(seed)
     params = {"gen": generator_init(gen, cfg, device=dev),
               "disc": discriminator_init(gen, cfg, device=dev)}
@@ -276,7 +292,8 @@ def train_latent_sde(steps: int, batch: int, ckpt_dir: Optional[str] = None,
                      ckpt_every: int = 50, seed: int = 0, log_every: int = 10,
                      use_pallas: bool = False, num_steps: int = SEQ_LEN - 1,
                      seq_len: int = SEQ_LEN, kl_weight: float = 0.1, lr: float = 1e-2,
-                     device=None):
+                     solver: str = "reversible_heun", adjoint: str = "exact",
+                     precision: str = "highest", device=None):
     """Latent-SDE (VAE) training -> ``(params, losses)``, on the SDE-GAN's
     loop (:func:`_sde_training_loop`): resumable checkpoints with a serving
     bundle at every save.
@@ -284,17 +301,22 @@ def train_latent_sde(steps: int, batch: int, ckpt_dir: Optional[str] = None,
     Fresh parameters come from a ``torch.Generator`` seeded with ``seed``
     (the port cannot draw the reference's ``jax.random`` init; the tests
     carry weights across instead).  ``losses`` holds the −ELBO of every step
-    this call ran."""
+    this call ran.  ``adjoint`` is the step's derivation (``"exact"``,
+    ``"backsolve"`` or ``"checkpoint"``, :func:`repro_torch.launch.steps.
+    make_latent_sde_step`), ``solver`` and ``precision`` the posterior
+    solve's."""
     from ..core.sde import LatentSDEConfig, latent_sde_init
     from .steps import make_latent_sde_optimizer, make_latent_sde_step
 
     dev = resolve_device(device)
     cfg = LatentSDEConfig(
         data_dim=2, hidden_dim=16, context_dim=16, width=32, num_steps=num_steps,
-        kl_weight=kl_weight, use_pallas_kernels=use_pallas)
+        solver=solver, kl_weight=kl_weight,
+        exact_adjoint=adjoint == "exact" and solver == "reversible_heun",
+        use_pallas_kernels=use_pallas, precision=precision)
     params = latent_sde_init(torch.Generator().manual_seed(seed), cfg, device=dev)
     init, update = make_latent_sde_optimizer(lr)
-    step_fn = make_latent_sde_step(cfg, update, batch, seq_len, device=dev)
+    step_fn = make_latent_sde_step(cfg, update, batch, seq_len, adjoint=adjoint, device=dev)
     data_key = prng.fold_in_key(prng.PRNGKey(seed, device=dev), 2)
     state, start = _restore_or_fresh(ckpt_dir, (params, init(params)), "latent-sde")
 
@@ -341,6 +363,26 @@ def main(argv=None):
                          "latent-sde, which needs a positive multiple of seq_len - 1)")
     ap.add_argument("--seq-len", type=int, default=None,
                     help="sde-gan: observed path length (default 32)")
+    ap.add_argument("--solver", default="reversible_heun",
+                    help="sde-gan/latent-sde: any solver registered with "
+                         "repro_torch.core.solve")
+    ap.add_argument("--backsolve", action="store_true",
+                    help="latent-sde: use the continuous-adjoint backsolve baseline "
+                         "(Li et al. eq. (6), O(√h) gradient error) instead of the "
+                         "exact reversible adjoint; pairs with --solver midpoint "
+                         "(auto-selected if the solver is left at reversible_heun)")
+    ap.add_argument("--adjoint", choices=("exact", "backsolve", "checkpoint"),
+                    default=None,
+                    help="latent-sde gradient derivation: 'exact' (the paper's "
+                         "reversible adjoint), 'backsolve' (same as --backsolve), or "
+                         "'checkpoint' (recursive binomial checkpointing — exact "
+                         "gradients at O(log n) memory, any solver).  Default: exact, "
+                         "or backsolve when --backsolve is given")
+    ap.add_argument("--precision", choices=("highest", "bf16_compute"), default="highest",
+                    help="sde-gan/latent-sde field-eval compute policy: 'bf16_compute' "
+                         "casts drift/diffusion evaluation to bfloat16 while gradient "
+                         "accumulation stays in the state dtype; 'highest' (default) "
+                         "is bitwise unchanged")
     ap.add_argument("--pallas", action="store_true",
                     help="the fused hot loop: latent-sde's forward, reconstruction and "
                          "cotangent phases in the CUDA kernels; sde-gan's general-noise "
@@ -366,17 +408,29 @@ def main(argv=None):
             args.steps, args.batch or 128, args.ckpt_dir, args.ckpt_every, args.seed,
             use_pallas=args.pallas, num_steps=31 if args.sde_steps is None else args.sde_steps,
             seq_len=32 if args.seq_len is None else args.seq_len,
-            constraint=args.constraint, device=args.device)
+            constraint=args.constraint, solver=args.solver, precision=args.precision,
+            device=args.device)
         losses = [r["sig_mmd"] for r in history if "sig_mmd" in r]
         what = "sig-MMD" if losses else "W"
         losses = losses or [r["wasserstein"] for r in history]
         tag = "sde-gan"
     else:
+        adjoint = args.adjoint
+        if adjoint is None:
+            adjoint = "backsolve" if args.backsolve else "exact"
+        elif args.backsolve and adjoint != "backsolve":
+            ap.error(f"--backsolve conflicts with --adjoint {adjoint}")
+        solver = args.solver
+        if adjoint == "backsolve" and solver == "reversible_heun":
+            solver = "midpoint"  # the backsolve baseline's solver (the paper's)
+            print("[latent-sde] --backsolve: using midpoint (reversible_heun has no "
+                  "continuous-adjoint backward)", flush=True)
         _, losses = train_latent_sde(
             args.steps, args.batch or 64, args.ckpt_dir, args.ckpt_every, seed=args.seed,
             use_pallas=args.pallas,
             num_steps=SEQ_LEN - 1 if args.sde_steps is None else args.sde_steps,
-            kl_weight=args.kl_weight, lr=args.lr, device=args.device)
+            kl_weight=args.kl_weight, lr=args.lr, solver=solver, adjoint=adjoint,
+            precision=args.precision, device=args.device)
         tag, what = "latent-sde", "-ELBO"
     if losses:
         print(f"[{tag}] done: first {what} {losses[0]:.4f} -> last {losses[-1]:.4f}")

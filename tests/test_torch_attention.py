@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_parity  # noqa: F401  (one torch thread per xdist worker)
+
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as pallas_flash_attention
 from repro_torch.kernels import flash_attention as fa_kernel

@@ -24,7 +24,9 @@ SSD kernels bitwise the plain path's for a loss linear in the outputs
 (the MLP's within its tolerances); the cross-entropy
 kernels against their plain versions (loss float32 1e-5, bfloat16 3e-2;
 dlogits float32 1e-5, bfloat16 one ulp), rows invariant bitwise, and a
-smoke LM training step's loss through them.
+smoke LM training step's loss through them; the paper's baselines: the
+backsolve and checkpoint ELBO gradients against the CPU's, and a
+bf16_compute training step.
 
 These need an NVIDIA GPU with nvcc (the kernels have no CPU mode); each test
 skips without one.  On the GPU machine::
@@ -36,6 +38,8 @@ import math
 
 import pytest
 import torch
+
+import _torch_parity  # noqa: F401  (one torch thread per xdist worker)
 
 from repro_torch import nn, tree
 from repro_torch.core import BrownianPath, solve
@@ -276,6 +280,58 @@ def test_fused_training_step_equals_unfused_on_the_card(cuda):
     assert torch.isfinite(runs[1][2]["loss"])
     for a, b in zip(tree.leaves(runs[0][0]), tree.leaves(runs[1][0])):
         assert torch.equal(a, b)
+
+
+def _terminal_grads(dev, adjoint_mode, solver):
+    """float64 terminal-form ELBO gradients at the training widths, batch 16,
+    the same parameters and data on either device."""
+    from repro_torch.core.sde import latent_sde_loss_terminal
+    from repro_torch.data import air_quality_like
+
+    cfg = LatentSDEConfig(data_dim=2, hidden_dim=16, context_dim=16, width=32, num_steps=23,
+                          kl_weight=0.1, solver=solver, exact_adjoint=False,
+                          dtype=torch.float64)
+    params = latent_sde_init(torch.Generator().manual_seed(4), cfg, device=dev)
+    key = prng.PRNGKey(5, device=dev)
+    ys, _ = air_quality_like(prng.fold_in_key(key, 0), 16, 24, dtype=torch.float64)
+    leaves, spec = tree.flatten(params)
+    leaves = [x.requires_grad_() for x in leaves]
+    loss, _ = latent_sde_loss_terminal(tree.unflatten(spec, leaves), cfg,
+                                       prng.fold_in_key(key, 1), ys,
+                                       gradient_mode=adjoint_mode)
+    return [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+
+
+@pytest.mark.parametrize("mode,solver", [("continuous_adjoint", "midpoint"),
+                                         ("checkpoint", "midpoint"),
+                                         ("checkpoint", "reversible_heun")])
+def test_baseline_gradients_on_the_card_match_the_cpu(cuda, mode, solver):
+    """The backsolve and checkpoint ELBO gradients with the fields through
+    ``fused_mlp`` / ``fused_mlp_bwd`` and the draws through
+    ``brownian_increment``, against the port's CPU result (plain versions):
+    ≤ 1e-9 relative L1 in float64."""
+    got, want = _terminal_grads(cuda, mode, solver), _terminal_grads("cpu", mode, solver)
+    num = sum((a - b).abs().sum().item() for a, b in zip(got, want))
+    assert num / sum(b.abs().sum().item() for b in want) <= 1e-9
+
+
+def test_bf16_compute_training_step_is_finite_on_the_card(cuda):
+    """float32 state, the fields in bfloat16 through the kernels: one fused
+    exact-adjoint step launches what the float32 step does and comes out
+    finite, its parameters float32."""
+    widths = dict(data_dim=2, hidden_dim=16, context_dim=16, width=32, num_steps=23,
+                  kl_weight=0.1)
+    cfg = LatentSDEConfig(**widths, use_pallas_kernels=True, precision="bf16_compute")
+    init, update = make_latent_sde_optimizer(1e-2)
+    params = latent_sde_init(torch.Generator().manual_seed(6), cfg, device=cuda)
+    ops.reset_launch_counts()
+    new, _, metrics = make_latent_sde_step(cfg, update, 64, 24)(params, init(params),
+                                                                 prng.PRNGKey(7))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["fused_mlp"] == 286 and counts["fused_mlp_bwd"] == 98
+    assert torch.isfinite(metrics["loss"])
+    assert all(x.dtype == torch.float32 and torch.isfinite(x).all() for x in tree.leaves(new))
 
 
 ATTN_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),

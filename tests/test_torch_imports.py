@@ -1,6 +1,9 @@
 """Import hygiene of the PyTorch port: src/repro_torch and chip_smoke.py
 import neither ``jax`` nor the JAX package ``repro`` (only the tests import
-both), and importing the serving CLI pulls no JAX into the process."""
+both), and importing the serving CLI pulls no JAX into the process.  Every
+tests/test_torch_*.py imports tests/_torch_parity.py, which gives torch one
+intra-op thread per xdist worker on a machine without a card; the
+subprocesses started here get ``OMP_NUM_THREADS=1`` for the same reason."""
 
 import ast
 import os
@@ -9,6 +12,8 @@ import sys
 from pathlib import Path
 
 import pytest
+
+import _torch_parity  # noqa: F401  (one torch thread per xdist worker)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -36,7 +41,7 @@ def test_port_files_exist():
             "flash_attention.py", "layers.py", "transformer.py", "counting.py", "base.py",
             "qwen2_5_14b.py", "tinyllama_1_1b.py", "starcoder2_3b.py", "ssd_chunk.py",
             "mamba2_1_3b.py", "fused_mlp.py", "vjp.py", "xent.py", "elastic.py",
-            "store.py"} <= names
+            "store.py", "continuous.py", "checkpoint.py", "adjoint.py"} <= names
     for src in ("flash_attention.cu", "ssd_chunk.cu", "fused_mlp.cu", "fused_xent.cu"):
         assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / src).exists()
 
@@ -48,7 +53,7 @@ def test_port_module_imports_no_jax_and_no_repro(path):
 
 
 def _imports_leave_jax_unloaded(modules: str):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     code = (f"import sys, {modules}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -57,13 +62,29 @@ def _imports_leave_jax_unloaded(modules: str):
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+TEST_FILES = sorted((ROOT / "tests").glob("test_torch_*.py"))
+
+
+@pytest.mark.parametrize("path", TEST_FILES, ids=lambda p: p.name)
+def test_port_test_file_imports_the_thread_helper(path):
+    assert "_torch_parity" in set(_imported_modules(path)), (
+        f"{path.name} does not import _torch_parity (one torch thread per xdist worker)")
+
+
+def test_the_thread_helper_gives_torch_one_thread_without_a_card():
+    import torch
+
+    assert torch.cuda.is_available() or torch.get_num_threads() == 1
+
+
 def test_serving_cli_import_leaves_jax_unloaded():
     _imports_leave_jax_unloaded("repro_torch.launch.serve, repro_torch.kernels.build")
 
 
 def test_train_cli_import_leaves_jax_unloaded():
     _imports_leave_jax_unloaded("repro_torch.launch.train, repro_torch.core.gradients, "
-                                "repro_torch.data, repro_torch.optim")
+                                "repro_torch.core.adjoint, repro_torch.data, "
+                                "repro_torch.optim")
 
 
 def test_adaptive_slice_import_leaves_jax_unloaded():

@@ -12,6 +12,8 @@ import re
 
 import pytest
 
+import _torch_parity  # noqa: F401  (one torch thread per xdist worker)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 POINTER = re.compile(r"ROADMAP\.md\s+Queue\s+(\d+),\s+'([^']+)'")
 BY_NUMBER = re.compile(r"ROADMAP\.md\s+Queue\s+\d+,\s+items?\s+\d")
@@ -46,7 +48,7 @@ def _queue_text(queue: int) -> str:
 def test_not_ported_errors_name_roadmap_items_by_title():
     pointers = _pointers()
     # the sites of models/, configs/, serving/, core/ and launch/
-    assert len(pointers) >= 14, pointers
+    assert len(pointers) >= 12, pointers
     for path, queue, title in pointers:
         assert f"**{title}" in _queue_text(queue), (
             f"{path}: ROADMAP.md Queue {queue} has no item titled {title!r}")

@@ -1,6 +1,6 @@
 """The port's reversible-Heun solve (repro_torch.core.solve) against
 repro.core.solve, fused against unfused inside the port, and the named
-errors for what the port does not have yet — on the CPU.  (The adaptive
+errors for what it refuses — on the CPU.  (The adaptive
 loop's own tests are in tests/test_torch_adaptive.py.)
 
 Tolerances: trajectories rtol=2e-5, atol=2e-6 in float32 and rtol=1e-11,
@@ -96,15 +96,16 @@ def _solve(**kw):
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(solver="midpoint"), NotPortedError, "not ported"),
+    (dict(solver="midpoint", gradient_mode="discretise", use_pallas_kernels=True), ValueError,
+     "no fused kernel path"),
     (dict(solver="srk"), NotPortedError, "not ported"),
     (dict(solver="rk4"), ValueError, "unknown solver"),
-    (dict(gradient_mode="continuous_adjoint"), NotPortedError, "not ported"),
-    (dict(gradient_mode="checkpoint"), NotPortedError, "not ported"),
+    (dict(gradient_mode="continuous_adjoint"), ValueError, "does not support"),
+    (dict(gradient_mode="checkpoint"), ValueError, "terminal-value cotangent"),
     (dict(gradient_mode="bogus"), ValueError, "unknown gradient_mode"),
     (dict(adaptive=True), ValueError, "save_trajectory"),
     (dict(rtol=1e-3), ValueError, "adaptive-mode options"),
-    (dict(precision="bf16_compute"), NotImplementedError, "bf16_compute"),
+    (dict(precision="bf16"), ValueError, "unknown precision"),
     (dict(noise="general", use_pallas_kernels=True), ValueError, "diagonal noise"),
     (dict(noise="scalar"), ValueError, "unknown noise"),
 ])

@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_parity  # noqa: F401  (one torch thread per xdist worker)
+
 from repro.kernels import ref as jref
 from repro.kernels.ssd_chunk import ssd_chunk as pallas_ssd_chunk
 from repro.models.layers import ssd_chunked_dense

@@ -34,7 +34,6 @@ from repro.nn.core import gru_init as jax_gru_init
 from repro.nn.core import gru_scan as jax_gru_scan
 from repro_torch import NoCudaDeviceError, tree
 from repro_torch.checkpoint import params_from_jax
-from repro_torch.core import NotPortedError
 from repro_torch.core import sde as tsde
 from repro_torch.data import air_quality_like
 from repro_torch.kernels import prng
@@ -185,8 +184,8 @@ def test_fused_step_equals_unfused_step_bitwise():
 @pytest.mark.parametrize("kw,err,match", [
     (dict(num_steps=30), ValueError, "misaligned"),
     (dict(data_dim=1), ValueError, "data_dim must be 2"),
-    (dict(adjoint="backsolve"), NotPortedError, "backsolve"),
-    (dict(adjoint="checkpoint"), NotPortedError, "checkpointing"),
+    (dict(adjoint="backsolve"), ValueError, "continuous-adjoint backward integrator"),
+    (dict(adjoint="checkpoint", use_pallas_kernels=True), ValueError, "checkpointing"),
     (dict(adjoint="bogus"), ValueError, "adjoint must be"),
     (dict(use_pallas_kernels=True, exact_adjoint=False), ValueError, "exact_adjoint=True"),
     (dict(seq_len=1), ValueError, "seq_len must be"),

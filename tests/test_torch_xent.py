@@ -23,6 +23,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_parity  # noqa: F401  (one torch thread per xdist worker)
+
 from repro.kernels import ref as jref
 from repro.kernels.xent import fused_xent as pallas_fused_xent
 from repro.models.transformer import softmax_xent as jax_softmax_xent
