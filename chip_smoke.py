@@ -147,6 +147,33 @@ non-zero and the final result line is never printed):
    backsolve within 1.5×, discretise beside them.  One step of each
    variant timed in turns against the exact fused step (the paper's
    1.98× reads off midpoint against reversible Heun).
+11d. ("levy", right after 11c.)  The srk solver and the rest of the
+   Brownian layer.  The two space-time kernels — ``space_time_increment``
+   (the (W, H) pair of a grid step) and ``space_time_value`` (the joint
+   (W, ∫W) bridge descent) — bitwise against their plain versions at rows
+   LEVY_ROWS × sizes LEVY_SIZES (and the ELBO's one key over 64 × 17),
+   float32 and float64, depths LEVY_DEPTHS, at t0, t1, a dyadic and random
+   times; two launches the same bits, a row's bits the same at 1 and 1024
+   rows; timed beside their bounds at the srk ELBO's and the adaptive srk
+   gradient's shapes.  The srk strong-order gate of
+   benchmarks/convergence.py:srk_frontier at its tiny preset (GBM μ 0.7,
+   σ 0.5, 512 paths, a float64 space-time ``DenseBrownianPath`` of
+   SRK_FINE 4096 cells): the slope over SRK_GRIDS in [1.4, 1.6], reversible
+   Heun on the same W more accurate per NFE at the coarse end and less at
+   the fine end; the device kernels of one ``DenseBrownianPath.sample`` at
+   4096 and at 256 cells.  3 srk ELBO steps through ``train_latent_sde``
+   each of discretise and checkpoint (batch 64, 23 steps), counts zeroed
+   before and read after each: SRK_STEP_LAUNCHES, every other kernel never;
+   finite losses; one step of each in turns against the exact fused step.
+   The adaptive srk gradient (checkpoint) on the burst of phase 11, float64,
+   bridge depth 10 and 24: finite, its replayed value bitwise
+   ``solve_adaptive``'s, the launches per phase.  The Brownian Interval
+   and the host Virtual Brownian Tree on the card, float64, 100 intervals
+   in the sequential, doubly sequential and random orders at size 2560:
+   the card's bits are the CPU's, the cache statistics equal; then (a
+   reading of the paper's Table 2, not a claim) the wall per pattern of the
+   Brownian Interval and of the port's ``VirtualBrownianTree`` on the card
+   at sizes 2560 and 32768.
 12. ``flash_attention`` (the LM prefill's GQA attention) against its plain
    version on the card, the same float scale 1/sqrt(D) given to both:
    float32 (rtol = atol = 2e-5) and bfloat16 (6e-2, and ‖Δ‖/‖want‖ of
@@ -348,6 +375,10 @@ KERNEL_SOURCES = {
                    "src/repro/kernels/xent.py:56"),
     "fused_xent_bwd": ("src/repro_torch/kernels/csrc/fused_xent.cu",
                        "src/repro/kernels/xent.py:56"),
+    # no TPU kernel: the reference draws the srk solver's (W, H) pairs with
+    # jax.random ops
+    "space_time_increment": (CSRC, "src/repro/core/brownian.py:175"),
+    "space_time_value": (CSRC, "src/repro/core/brownian.py:238"),
 }
 # fused_mlp checks, (Din, H, Dout): every depth-1 field of the ELBO (mu and
 # sigma 1 + 16 -> 32 -> 16, nu 1 + 16 + 16, qz0 16 -> 2·8, zeta 8), of the
@@ -530,6 +561,33 @@ BASELINE_VARIANTS = {
 GP_MIDPOINT_STEP_LAUNCHES = {"fused_mlp": 874, "fused_mlp_bwd": 873, "brownian_increment": 62}
 # the sig-MMD log: generator_sample at 256 rows, 1 + 31 x 2 x 2 launches
 GP_MIDPOINT_LOG_LAUNCHES = {"fused_mlp": 125, "fused_mlp_bwd": 0, "brownian_increment": 31}
+# The srk ELBO step (phase 11d): an srk step evaluates the drift 3 times and
+# the diffusion 5 times, the posterior's drift being 3 field launches (nu,
+# mu, sigma) and its diffusion 1, so 14 a step; qz0 and zeta 2 more.
+# Discretise (the trajectory form): 23 steps forward, every launch
+# differentiated once, one (W, H) draw a step.  Checkpoint: the halving
+# schedule's 32 + 160 step evaluations, each a draw, and the 32 padded
+# steps differentiated once (tests/test_torch_srk.py derives both).
+SRK_STEP_LAUNCHES = {
+    "srk/discretise": {"fused_mlp": 324, "fused_mlp_bwd": 324, "space_time_increment": 23},
+    "srk/checkpoint": {"fused_mlp": 2690, "fused_mlp_bwd": 450,
+                       "space_time_increment": 192}}
+SRK_VARIANTS = {"srk/discretise": dict(solver="srk"),
+                "srk/checkpoint": dict(solver="srk", adjoint="checkpoint")}
+# space-time kernel checks (phase 11d): rows x per-row sizes x depths
+LEVY_ROWS = (1, 64, 1000, 1024)
+LEVY_SIZES = (1, 8, 17)
+LEVY_DEPTHS = (0, 1, 10, 24)
+# benchmarks/convergence.py:srk_frontier, its tiny preset
+SRK_MU, SRK_SIGMA = 0.7, 0.5
+SRK_FINE = 4096
+SRK_GRIDS = (8, 16, 32, 64, 128)
+SRK_HEUN_GRIDS = (32, 64, 128, 256, 512, 1024)
+SRK_PATHS = 512
+SRK_SLOPE = (1.4, 1.6)
+# Table 2's access patterns (benchmarks/brownian.py): 100 intervals of [0, 1]
+BI_INTERVALS = 100
+BI_SIZES = (2560, 32768)
 CHECKPOINT_ERR_GATE = 1e-10        # benchmarks/gradient_error.py:189
 BF16_SHIFT_BOUNDS = (1e-6, 0.2)    # benchmarks/gradient_error.py:194
 # The Latent SDE at the widths the repo trains it at (examples/
@@ -652,7 +710,8 @@ def kernel_checks(ops, dev) -> tuple:
     ``{name: max |Δ|}``."""
     g = torch.Generator().manual_seed(1234)
     errs = {name: 0.0 for name, (src, _) in KERNEL_SOURCES.items()
-            if src == CSRC and name != "brownian_value"}
+            if src == CSRC and name not in ("brownian_value", "space_time_increment",
+                                            "space_time_value")}
     # (rows, d): small and serving shapes, the training state, and the
     # training path's one-key draws (one row of B*17: a BrownianPath with a
     # single key over the (B, 17) state).
@@ -1306,6 +1365,358 @@ def baseline_checks(ops, dev, label: str) -> dict:
           + ", ".join(f"{v} {t['ms']:.1f} ms ({t['over_exact']:.3f}x exact)"
                       for v, t in timing.items()), flush=True)
     return dict(launches=launches, timing=timing, peak_mib=peaks, readings=readings)
+
+
+def st_increment_bound(rows: int, d: int, dtype) -> tuple:
+    """Least time for ``space_time_increment``: a row's fold_in and split
+    (3 hashes), a hash per counter pair of each of the two draws (float32
+    pairs two elements), two normals and two scalings an element; bytes:
+    keys in, W and H out."""
+    s = torch.finfo(dtype).bits // 8
+    n = rows * d
+    per_pair = 0.5 if dtype == torch.float32 else 1.0
+    ops_ = rows * 3 * HASH_OPS + n * 2 * (per_pair * HASH_OPS + NORMAL_OPS[dtype] + 1)
+    t_bytes = (rows * 16 + 2 * n * s) / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_ / PEAK_OPS_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def st_value_bound(rows: int, d: int, depth: int, dtype) -> tuple:
+    """Least time for ``space_time_value`` by throughput: a row's root
+    fold_in and split and, a level, the chain fold_in, the midpoint key's
+    fold_in and its split (3 + 4·depth hashes); an element's 2·(depth + 1)
+    normals (float32 pairs share a hash), ~16 operations a level and ~20
+    for the tail; bytes: keys and times in, W and I out.  The chain of
+    depth + 1 dependent hashes a row is a latency floor beside it, as for
+    ``brownian_value``."""
+    s = torch.finfo(dtype).bits // 8
+    n = rows * d
+    per_pair = 0.5 if dtype == torch.float32 else 1.0
+    ops_ = (rows * (3 + 4 * depth) * HASH_OPS
+            + n * 2 * (depth + 1) * (per_pair * HASH_OPS + NORMAL_OPS[dtype])
+            + n * (16 * depth + 20))
+    t_bytes = (rows * (16 + s) + 2 * n * s) / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_ / PEAK_OPS_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _st_times(g, rows: int, dtype, dev):
+    """The rows' query times: t0, t1 and a dyadic point first, the rest
+    random (one row: each of those in turn)."""
+    rand = torch.rand(max(rows, 2), generator=g, dtype=torch.float64).tolist()
+    if rows == 1:
+        return [torch.tensor([v], dtype=dtype, device=dev) for v in (0.0, 1.0, 0.375, rand[0])]
+    tl = [[0.0, 1.0, 0.375][r] if r < 3 else rand[r] for r in range(rows)]
+    return [torch.tensor(tl, dtype=dtype, device=dev)]
+
+
+def _same(got, want) -> tuple:
+    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    return all(torch.equal(a, b) for a, b in zip(got, want)) and err == 0.0, err
+
+
+def st_kernel_checks(ops, dev) -> tuple:
+    """The two space-time kernels bitwise against their plain versions, two
+    launches alike, a row's bits independent of the rows beside it; timed
+    at the srk ELBO's draws (one key over 64 x 17, float32) and the adaptive
+    srk gradient's queries (one key over 256 x 32, float64, depth 10).
+    Returns ``({name: row}, {name: max |Δ|})``."""
+    g = torch.Generator().manual_seed(2525)
+    errs = {"space_time_increment": 0.0, "space_time_value": 0.0}
+    n_calls = 0
+    sizes = [(rows, (d,)) for rows in LEVY_ROWS for d in LEVY_SIZES] + [(1, (64, 17))]
+    for dtype in (torch.float32, torch.float64):
+        for rows, shape in sizes:
+            keys = torch.randint(0, 2 ** 32, (rows, 2), generator=g,
+                                 dtype=torch.int64).to(dev)
+            inc = lambda uk: ops.space_time_increment(keys, 7, shape, dtype, 1.0 / 23,
+                                                      use_kernel=uk)
+            got, again, want = inc(True), inc(True), inc(False)
+            torch.cuda.synchronize()
+            same, e = _same(got, want)
+            check(same and _same(got, again)[0],
+                  f"space_time_increment {dtype} rows={rows} {shape}: kernel != plain "
+                  f"(max |Δ| {e}) or two launches differ")
+            errs["space_time_increment"] = max(errs["space_time_increment"], e)
+            if rows == 1024:  # row 5 alone, against its row of the 1024
+                one = ops.space_time_increment(keys[5:6].contiguous(), 7, shape, dtype,
+                                               1.0 / 23)
+                check(all(torch.equal(a[0], b[5]) for a, b in zip(one, got)),
+                      f"space_time_increment {dtype} {shape}: row 5 differs at 1 vs 1024 rows")
+            n_calls += 1
+            for depth in LEVY_DEPTHS:
+                for t in _st_times(g, rows, dtype, dev):
+                    val = lambda uk: ops.space_time_value(keys, t, 0.0, 1.0, shape, dtype,
+                                                          depth, use_kernel=uk)
+                    got, again, want = val(True), val(True), val(False)
+                    torch.cuda.synchronize()
+                    same, e = _same(got, want)
+                    check(same and _same(got, again)[0],
+                          f"space_time_value {dtype} rows={rows} {shape} depth={depth}: "
+                          f"kernel != plain (max |Δ| {e}) or two launches differ")
+                    errs["space_time_value"] = max(errs["space_time_value"], e)
+                    if rows == 1024:
+                        one = ops.space_time_value(keys[5:6].contiguous(), t[5:6].contiguous(),
+                                                   0.0, 1.0, shape, dtype, depth)
+                        check(all(torch.equal(a[0], b[5]) for a, b in zip(one, got)),
+                              f"space_time_value {dtype} {shape} depth={depth}: row 5 "
+                              f"differs at 1 vs 1024 rows")
+                    n_calls += 1
+            torch.cuda.empty_cache()
+    print(f"bitwise: space_time_increment and space_time_value x {{float32, float64}} x "
+          f"(rows, shape) in {sizes} x depth {LEVY_DEPTHS} ({n_calls} cases, "
+          f"t0/t1/dyadic/random times): kernel == plain, two launches alike, rows "
+          f"independent", flush=True)
+    timed = {}
+    keys1 = torch.randint(0, 2 ** 32, (1, 2), generator=g, dtype=torch.int64).to(dev)
+    key0 = keys1[0].contiguous()
+    shape, dtype = (64, 17), torch.float32
+    call = lambda uk: ops.space_time_increment(key0, 7, shape, dtype, 1.0 / 23, use_kernel=uk)
+    k_ms, k_host = time_ms(lambda: call(True))
+    p_ms, p_host = time_ms(lambda: call(False), reps=5, trials=3)
+    b_ms, b_by = st_increment_bound(1, math.prod(shape), dtype)
+    timed["space_time_increment"] = dict(ms=k_ms, host_ms=k_host, plain_ms=p_ms,
+                                         plain_host_ms=p_host, bound_ms=b_ms, bound_by=b_by,
+                                         shape=[1, *shape], dtype="float32")
+    shape, dtype, depth = (256, 32), torch.float64, 10
+    t = torch.tensor([0.4375], dtype=dtype, device=dev)
+    call = lambda uk: ops.space_time_value(keys1, t, 0.0, 1.0, shape, dtype, depth,
+                                           use_kernel=uk)
+    k_ms, k_host = time_ms(lambda: call(True))
+    p_ms, p_host = time_ms(lambda: call(False), reps=5, trials=3)
+    b_ms, b_by = st_value_bound(1, math.prod(shape), depth, dtype)
+    d24_ms = time_ms(lambda: ops.space_time_value(keys1, t, 0.0, 1.0, shape, dtype, 24))[0]
+    timed["space_time_value"] = dict(
+        ms=k_ms, host_ms=k_host, plain_ms=p_ms, plain_host_ms=p_host, bound_ms=b_ms,
+        bound_by=b_by, shape=[1, *shape], dtype="float64", depth=depth, depth24_ms=d24_ms,
+        depth24_bound_ms=st_value_bound(1, math.prod(shape), 24, dtype)[0])
+    for name, r in timed.items():
+        print(f"{name} {r['dtype']} {r['shape']}: kernel {r['ms']:.5f} ms "
+              f"({r['host_ms']:.5f} host), plain {r['plain_ms']:.5f} ms "
+              f"({r['plain_host_ms']:.5f}), bound {r['bound_ms']:.7f} ms ({r['bound_by']})"
+              + (f"; depth 24: {r['depth24_ms']:.5f} ms, bound {r['depth24_bound_ms']:.7f}"
+                 if "depth24_ms" in r else ""), flush=True)
+    return timed, errs
+
+
+def _device_kernels(fn) -> int:
+    """Device kernels and copies of one call of ``fn`` under torch.profiler
+    (None if the profiler recorded no device activity)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    return n or None
+
+
+def srk_order_checks(dev, label: str) -> dict:
+    """benchmarks/convergence.py:srk_frontier at its tiny preset, on the
+    card: srk on a float64 space-time Dense path against the pathwise-exact
+    GBM terminal value, reversible Heun on the path's own W (the
+    Stratonovich drift); the slope gate and the per-NFE crossing asserts are
+    the reference's."""
+    from repro_torch.core import DenseBrownianPath, sde_solve, solve
+    from repro_torch.kernels import prng
+
+    f64 = torch.float64
+    key = prng.PRNGKey(11, device=dev)
+    sample = lambda fine: DenseBrownianPath.sample(key, 0.0, 1.0, fine, (SRK_PATHS, 1), f64,
+                                                   levy_area="space-time")
+    kernels = {fine: _device_kernels(lambda: sample(fine)) for fine in (256, SRK_FINE)}
+    bm_st = sample(SRK_FINE)
+    bm = DenseBrownianPath(bm_st.w, 0.0, 1.0)  # the same W, bitwise, no H
+    w_t, _ = bm_st.value(1.0)
+    exact = torch.exp((SRK_MU - 0.5 * SRK_SIGMA ** 2) + SRK_SIGMA * w_t)[..., 0]
+    y0 = torch.ones((SRK_PATHS, 1), dtype=f64, device=dev)
+    ito = lambda p, t, z: SRK_MU * z
+    strat = lambda p, t, z: (SRK_MU - 0.5 * SRK_SIGMA ** 2) * z
+    diffusion = lambda p, t, z: SRK_SIGMA * z
+    err = lambda zT: (zT[..., 0] - exact).abs().mean().item()
+    srk_err = [err(solve(ito, diffusion, None, y0, bm_st, 0.0, 1.0, n, solver="srk",
+                         save_trajectory=False)) for n in SRK_GRIDS]
+    heun_err = [err(sde_solve(strat, diffusion, None, y0, bm, 0.0, 1.0, n,
+                              solver="reversible_heun", save_trajectory=False))
+                for n in SRK_HEUN_GRIDS]
+    x = [math.log(n) for n in SRK_GRIDS]
+    y = [math.log(e) for e in srk_err]
+    mx, my = statistics.fmean(x), statistics.fmean(y)
+    slope = -sum((a - mx) * (b - my) for a, b in zip(x, y)) / sum((a - mx) ** 2 for a in x)
+    srk_nfe = [5 * n for n in SRK_GRIDS]
+    heun_nfe = list(SRK_HEUN_GRIDS)
+    lo, hi = max(srk_nfe[0], heun_nfe[0]), min(srk_nfe[-1], heun_nfe[-1])
+
+    def at(nfe, nfes, errs_):  # log-log interpolation
+        lx = [math.log(v) for v in nfes]
+        ly = [math.log(v) for v in errs_]
+        q = math.log(nfe)
+        for i in range(len(lx) - 1):
+            if lx[i] <= q <= lx[i + 1]:
+                f = (q - lx[i]) / (lx[i + 1] - lx[i])
+                return ly[i] + f * (ly[i + 1] - ly[i])
+        return ly[0] if q < lx[0] else ly[-1]
+
+    coarse = at(lo, srk_nfe, srk_err) - at(lo, heun_nfe, heun_err)
+    fine = at(hi, srk_nfe, srk_err) - at(hi, heun_nfe, heun_err)
+    print(f"[{label}] srk strong order (GBM, {SRK_PATHS} paths, Dense {SRK_FINE} cells, "
+          f"float64): slope {slope:.4f} over n {SRK_GRIDS} (gate {SRK_SLOPE}); srk errors "
+          f"{[f'{e:.3e}' for e in srk_err]} at NFE {srk_nfe}; reversible Heun "
+          f"{[f'{e:.3e}' for e in heun_err]} at NFE {heun_nfe}; log(srk/heun) at NFE {lo} "
+          f"{coarse:+.3f}, at {hi} {fine:+.3f}; device kernels of one "
+          f"DenseBrownianPath.sample (space-time): {kernels}", flush=True)
+    check(SRK_SLOPE[0] <= slope <= SRK_SLOPE[1],
+          f"srk strong order {slope:.4f} outside {SRK_SLOPE}")
+    check(coarse > 0, f"reversible Heun must be more accurate per NFE at NFE {lo}")
+    check(fine < 0, f"srk must be more accurate per NFE at NFE {hi}")
+    check(kernels[256] == kernels[SRK_FINE],
+          f"DenseBrownianPath.sample's device kernels grow with the cells: {kernels}")
+    return dict(slope=slope, srk_err=srk_err, heun_err=heun_err, sample_kernels=kernels)
+
+
+def _srk_adaptive(dev, depth: int):
+    """The burst of phase 11 under srk, float64, on a space-time path at
+    bridge depth ``depth``: ``(forward z_T, stats, run())``, ``run()`` the
+    checkpointed gradient ``(z_T, grads)`` of mean(z_T²)."""
+    from repro_torch.core import solve, solve_adaptive
+    from repro_torch import tree
+
+    f64 = torch.float64
+    drift, diffusion, params, z0 = _burst(dev, f64)
+    bm = dataclasses.replace(_burst_path(dev, f64), levy_area="space-time")
+    kw = dict(solver="srk", rtol=BURST["rtol"], atol=BURST["atol"],
+              max_steps=BURST["max_steps"], bridge_depth=depth)
+    z, stats = solve_adaptive(drift, diffusion, params, z0, bm, 0.0, 1.0, dt0=1 / 16, **kw)
+
+    def run():
+        leaves, spec = tree.flatten(params)
+        leaves = [x.detach().requires_grad_() for x in leaves]
+        zT = solve(drift, diffusion, tree.unflatten(spec, leaves), z0, bm, 0.0, 1.0, 16,
+                   gradient_mode="checkpoint", save_trajectory=False, adaptive=True, **kw)
+        return zT.detach(), torch.autograd.grad((zT * zT).mean(), leaves)
+
+    return z, stats, bm, run
+
+
+def levy_checks(ops, dev, label: str) -> dict:
+    """Phase 11d: the space-time kernels, the srk strong-order gate, the srk
+    ELBO step through ``train_latent_sde``, the adaptive srk gradient and
+    the Brownian Interval on the card.  Returns the kernels' timings and
+    errors and each srk path's launches."""
+    from repro_torch.core import BrownianInterval, VirtualBrownianTree
+    from repro_torch.kernels import prng
+    from repro_torch.launch.train import train_latent_sde
+
+    timed, errs = st_kernel_checks(ops, dev)
+    order = srk_order_checks(dev, label)
+
+    never = 10 ** 9
+    launches = {}
+    for tag, kw in SRK_VARIANTS.items():
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-srk-") as tmp:
+            for k in (1, 2, 3):  # one step a call, each resuming the last
+                ops.reset_launch_counts()
+                _, losses = train_latent_sde(k, 64, tmp, ckpt_every=1, seed=11,
+                                             log_every=never, device=dev, **kw)
+                torch.cuda.synchronize()
+                counts = ops.launch_counts()
+                _check_gan_launches(counts, SRK_STEP_LAUNCHES[tag], f"{tag} ELBO step {k}")
+                check(len(losses) == 1 and math.isfinite(losses[0]),
+                      f"{tag} ELBO step {k}: -ELBO {losses}")
+                print(f"[{label}] {tag} step {k} (train_latent_sde resuming from step "
+                      f"{k - 1}): -ELBO {losses[0]:.6f}", flush=True)
+        launches[tag] = counts
+    runs = {"exact fused": _train_step(dev, 64)}
+    for tag, kw in SRK_VARIANTS.items():
+        runs[tag] = _train_step(dev, 64, fused=False, **kw)
+    for run in runs.values():
+        run()
+    torch.cuda.synchronize()
+    walls = {v: [] for v in runs}
+    for i in range(4):
+        for v in (list(runs) if i % 2 == 0 else list(runs)[::-1]):
+            t0 = time.perf_counter()
+            runs[v]()
+            torch.cuda.synchronize()
+            walls[v].append(time.perf_counter() - t0)
+    med = {v: statistics.median(w) * 1e3 for v, w in walls.items()}
+    timing = {v: dict(ms=med[v], over_exact=med[v] / med["exact fused"]) for v in runs}
+    print(f"[{label}] srk ELBO steps (B=64, float32, 23 steps; medians of 4 in turns, a "
+          f"reading): " + ", ".join(f"{v} {t['ms']:.1f} ms ({t['over_exact']:.3f}x exact)"
+                                      for v, t in timing.items()), flush=True)
+
+    adaptive = {}
+    for depth in (10, 24):
+        z, stats, bm, run = _srk_adaptive(dev, depth)
+        check(bool(stats.converged), f"adaptive srk depth {depth}: not converged")
+        attempts = int(stats.num_accepted) + int(stats.num_rejected)
+        ops.reset_launch_counts()
+        zT, grads = run()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        check(all(torch.isfinite(g).all().item() for g in grads),
+              f"adaptive srk depth {depth}: gradient not finite")
+        check(torch.equal(zT, z), f"adaptive srk depth {depth}: the checkpoint replay's "
+                                  f"z_T differs from solve_adaptive's")
+        n = int(stats.num_accepted)
+        for i in range(min(n, 3)):  # the interval pairs the loop and the replay form
+            s_, t_ = stats.ts[i], stats.ts[i] + stats.dts[i]
+            pair = bm.evaluate(s_, t_, depth)
+            check(torch.equal(pair[0], bm.value(t_, depth)[0] - bm.value(s_, depth)[0]),
+                  f"adaptive srk depth {depth}: evaluate's W is not value(t) - value(s)")
+        check(counts["space_time_value"] > 0 and counts["brownian_value"] == 0
+              and counts["brownian_increment"] == 0 and counts["space_time_increment"] == 0,
+              f"adaptive srk depth {depth}: launches {counts}")
+        adaptive[depth] = dict(accepted=n, attempts=attempts, launches=counts)
+        print(f"[{label}] adaptive srk, burst, float64, bridge depth {depth}: {n} accepted of "
+              f"{attempts} attempts; checkpointed gradient finite, replayed z_T bitwise "
+              f"solve_adaptive's; launches of the gradient {counts}", flush=True)
+
+    f64 = torch.float64
+    intervals = [(i / BI_INTERVALS, (i + 1) / BI_INTERVALS) for i in range(BI_INTERVALS)]
+    perm = torch.randperm(BI_INTERVALS, generator=torch.Generator().manual_seed(0)).tolist()
+    patterns = {"sequential": intervals, "doubly": intervals + intervals[::-1],
+                "random": [intervals[i] for i in perm]}
+    for mode in (None, "space-time"):
+        for pattern, order_ in patterns.items():
+            on = {d: BrownianInterval(0.0, 1.0, (2560,), seed=2, dtype=f64, levy_area=mode,
+                                      device=d) for d in (dev, "cpu")}
+            for s, t in order_:
+                a, b = on[dev](s, t), on["cpu"](s, t)
+                a = a if isinstance(a, tuple) else (a,)
+                b = b if isinstance(b, tuple) else (b,)
+                check(all(torch.equal(x.cpu(), y) for x, y in zip(a, b)),
+                      f"BrownianInterval {mode} {pattern} [{s}, {t}]: card != CPU")
+            check(on[dev].cache_stats == on["cpu"].cache_stats,
+                  f"BrownianInterval {mode} {pattern}: cache stats differ")
+    print(f"[{label}] BrownianInterval float64 size 2560, levy_area None and space-time, "
+          f"{BI_INTERVALS} intervals sequential / doubly / random: card bits == CPU bits, "
+          f"cache stats equal", flush=True)
+    table2 = {}
+    for size in BI_SIZES:
+        for pattern, order_ in patterns.items():
+            for name in ("BrownianInterval", "VirtualBrownianTree"):
+                if name == "BrownianInterval":
+                    src = BrownianInterval(0.0, 1.0, (size,), seed=2, dtype=f64, device=dev)
+                    query = src
+                else:
+                    src = VirtualBrownianTree(prng.PRNGKey(2, device=dev), 0.0, 1.0, (size,),
+                                              dtype=f64)
+                    query = src.evaluate
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for s, t in order_:
+                    query(s, t)
+                torch.cuda.synchronize()
+                table2[f"{name} {pattern} size={size}"] = (time.perf_counter() - t0) * 1e3
+    print(f"[{label}] Table 2 reading (float64, on the card, {BI_INTERVALS} intervals, wall "
+          f"ms of the pattern): " + ", ".join(f"{k} {v:.2f}" for k, v in table2.items()),
+          flush=True)
+    return dict(timed=timed, errs=errs, order=order, launches=launches, timing=timing,
+                adaptive=adaptive, table2=table2)
 
 
 def serve_checks(ops, dev, label: str) -> dict:
@@ -3660,6 +4071,8 @@ def main() -> int:
     adaptive_launches = timed("adaptive grad", adaptive_grad_checks, ops, dev, label)
     gan = timed("sde-gan", gan_checks, ops, dev, label)
     baselines = timed("baselines", baseline_checks, ops, dev, label)
+    levy = timed("levy", levy_checks, ops, dev, label)
+    errs.update(levy["errs"])
     attn_rows, errs["flash_attention"], attn_rel = timed("flash_attention",
                                                           attention_checks, ops, dev)
     timed(f"lm parity {LM_ARCH}", lm_parity_checks, dev, label, LM_ARCH)
@@ -3739,6 +4152,22 @@ def main() -> int:
                      "chain_step_ms": r["chain_step_ms"],
                      "blocks": {tag: row["blocks"] for tag, row in value_rows.items()},
                      "ptxas": {k: v for k, v in ptxas_usage.items() if "brownian_value" in k}}
+        elif name in ("space_time_increment", "space_time_value"):
+            r = levy["timed"][name]  # the srk ELBO's draws / the adaptive srk queries
+            if name == "space_time_increment":  # per srk ELBO step (discretise)
+                launches = levy["launches"]["srk/discretise"][name]
+            else:  # per adaptive srk gradient at bridge depth 10
+                launches = levy["adaptive"][10]["launches"][name]
+            serve_launches = 0
+            extra = {k: r[k] for k in r if k not in ("ms", "plain_ms", "bound_ms",
+                                                     "bound_by", "host_ms",
+                                                     "plain_host_ms")}
+            extra["launches_per"] = ("srk ELBO step (discretise)"
+                                     if name == "space_time_increment"
+                                     else "adaptive srk gradient, depth 10")
+            extra["srk_order"] = {k: levy["order"][k] for k in ("slope", "sample_kernels")}
+            extra["srk_step_timing"] = levy["timing"]
+            extra["table2_ms"] = levy["table2"]
         else:
             r = rows[(name, torch.float32, 1024, 17)]  # the training timing batch
             launches = train_launches[name]
@@ -3753,6 +4182,8 @@ def main() -> int:
                         "gan_launches": gan["launches"].get(name, 0),
                         "baseline_launches": {tag: counts.get(name, 0) for tag, counts
                                               in baselines["launches"].items()},
+                        "srk_launches": {tag: counts.get(name, 0) for tag, counts
+                                         in levy["launches"].items()},
                         "serve_launches": serve_launches, **extra})
     print(json.dumps({"kernels": entries}), flush=True)
     print(f"card: {label}", flush=True)

@@ -6,7 +6,11 @@ The port imports ``torch`` and numpy only: nothing of JAX and nothing of
 ``repro``.
 
 What is ported so far — Latent-SDE ELBO training (the exact reversible
-adjoint), the prior-decode serving path, adaptive stepping (the PI
+adjoint), SDE-GAN training, the paper's baselines (euler, midpoint, heun,
+the backsolve, checkpointing, bf16 fields), the srk solver on space-time
+Lévy-area paths, the whole Brownian layer (the counter-based path, the
+Dense path, the Virtual Brownian Tree, the host Brownian Interval), the
+prior-decode serving path, adaptive stepping (the PI
 controller loop, the exact adjoint over the accepted grid, the SDE-GAN generator's
 fixed-grid and adaptive terminal services), LM serving of the dense
 family (prefill through the GQA attention kernel) and the pure-SSM
@@ -25,7 +29,9 @@ repro_torch.kernels.csrc/*             the Pallas kernels rev_heun_phase1,
                                        rev_heun_bwd_phase2, rev_heun_phase1_gen,
                                        brownian_increment, brownian_value,
                                        fused_mlp, flash_attention, ssd_chunk,
-                                       fused_xent (+ its backward)
+                                       fused_xent (+ its backward); and the
+                                       port's own space_time_increment and
+                                       space_time_value (srk's draws)
 repro_torch.kernels.ops                repro.kernels.ops (dispatch)
 repro_torch.nn.core                    repro.nn.core (MLP pieces, GRU,
                                        rmsnorm, layernorm, gelu, softplus)
@@ -36,10 +42,16 @@ repro_torch.models                     repro.models (layers, transformer,
                                        counting: the dense and SSM
                                        families' prefill, decode and
                                        training loss)
-repro_torch.core.brownian              repro.core.brownian (BrownianPath:
-                                       grid increments, bridge point values)
-repro_torch.core.solvers               repro.core.solvers (reversible Heun:
-                                       forward, reverse, embedded step)
+repro_torch.core.brownian              repro.core.brownian (BrownianPath
+                                       in both levy_area modes,
+                                       DenseBrownianPath,
+                                       VirtualBrownianTree, the space-time
+                                       Lévy area, Davie's approximation)
+repro_torch.core.brownian_interval     repro.core.brownian_interval
+                                       (BrownianInterval,
+                                       HostVirtualBrownianTree)
+repro_torch.core.solvers               repro.core.solvers (reversible Heun,
+                                       euler, midpoint, heun, srk)
 repro_torch.core.gradients             repro.core.gradients (exact adjoint
                                        as autograd Functions, fixed grid and
                                        adaptive; discretise)
@@ -67,5 +79,15 @@ ROADMAP.md lists what is still to port, in order.
 """
 
 from .device import NoCudaDeviceError, resolve_device  # noqa: F401
+from .core.solve import (  # noqa: F401
+    SOLVERS,
+    AdaptiveStats,
+    SolverSpec,
+    available_solvers,
+    gradient_capabilities,
+    solve,
+    solve_adaptive,
+    solve_batched,
+)
 
 __version__ = "0.1.0"

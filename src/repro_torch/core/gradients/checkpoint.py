@@ -29,8 +29,10 @@ Adaptive solves freeze and replay: the PI controller runs once without a
 graph and fixes each row's accepted ``(ts, dts)``; the differentiable path
 replays them under the same schedule, a row's steps past its own count
 masked.  Each replayed step re-derives its increment as the loop formed it,
-``value(t + dt) − value(t)``, so the replay is bitwise the controller's
-forward.  The reference replays over the whole ``max_steps`` buffer; the
+``value(t + dt) − value(t)`` (for a space-time path the pair
+:func:`~repro_torch.core.brownian.stlevy_difference` of the two values,
+zero over a padding slot's zero-length interval), so the replay is bitwise
+the controller's forward.  The reference replays over the whole ``max_steps`` buffer; the
 port reads the largest accepted count (one host read, after the
 controller's own) and replays that many, padded to a power of two.
 
@@ -47,9 +49,11 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ... import tree
+from ..brownian import stlevy_difference
 from ..solvers import (
     NP_DTYPES,
     RevHeunState,
+    _tree_cast,
     carry_init,
     carry_z,
     grid_step,
@@ -147,7 +151,7 @@ def checkpoint_solve(spec, drift, diffusion, params, z0, bm, t0, t1, num_steps, 
 
     def step(carry, params_, i):
         j = min(i, num_steps - 1)  # the padding slots evaluate step N - 1 ...
-        dw = bm.increment(j, num_steps).to(z0.dtype)
+        dw = _tree_cast(bm.increment(j, num_steps), z0.dtype)
         new = grid_step(spec.stepper, carry, t0, j, dt, dw, drift, diffusion, params_, noise)
         return new if i < num_steps else _select(pad, new, carry)  # ... masked out
 
@@ -169,12 +173,22 @@ def checkpoint_solve_adaptive(spec, drift, diffusion, params, z0, bm, rtol, atol
     n = max(int(n_acc.max()), 1)
     dkw = {} if bridge_depth is None else {"depth": bridge_depth}
     rev = is_reversible(spec.stepper)
+    has_value = hasattr(bm, "value")
+    levy = getattr(bm, "levy_area", None) == "space-time"
 
     def step(carry, params_, i):
         j = min(i, n - 1)
         t_left, dt = ts[..., j], dts[..., j]
         t_right = t_left + dt  # the loop's t + dt_eff, op for op
-        dw = (bm.value(t_right, **dkw).to(z0.dtype) - bm.value(t_left, **dkw).to(z0.dtype))
+        if not has_value:
+            dw = _tree_cast(bm.evaluate(t_left, t_right, **dkw), z0.dtype)
+        elif levy:  # a row's padding slots (t, dt = 0) give the zero pair
+            dw = stlevy_difference(_tree_cast(bm.value(t_left, **dkw), z0.dtype),
+                                   _tree_cast(bm.value(t_right, **dkw), z0.dtype),
+                                   t_left, t_right, bm.t0)
+        else:
+            dw = (bm.value(t_right, **dkw).to(z0.dtype)
+                  - bm.value(t_left, **dkw).to(z0.dtype))
         kw = {} if rev else {"tm": t_left + 0.5 * dt}
         new = spec.stepper(carry, t_left, _rows(dt, z0), dw, drift, diffusion, params_,
                            noise, t1=t_right, **kw)

@@ -52,7 +52,7 @@ from ..data.synthetic import _linspace
 from .brownian import BrownianPath
 from .losses import wasserstein_losses
 from .paths import LinearPathControl
-from .solve import solve, solve_adaptive
+from .solve import get_solver, solve, solve_adaptive
 from .solvers import NP_DTYPES, ProductTime32, ProductTime64, apply_diffusion
 
 
@@ -329,8 +329,15 @@ def _cfg_solve(cfg, drift, diffusion, params, z0, bm, num_steps, noise,
                gradient_mode=None, solver=None, save_trajectory=True):
     """Every SDE-GAN and Latent-SDE solve goes through the front-end, with
     the gradient mode derived from the config as the reference does (exact reversible
-    adjoint when configured, discretise otherwise)."""
+    adjoint when configured, discretise otherwise).  A solver that consumes
+    ``(W, H)`` pairs (srk) gets the diagonal-noise path rebuilt in
+    space-time mode, as the reference rebuilds it, so ``cfg.solver="srk"``
+    works on every diagonal-noise config path; a general-noise solve meets
+    the registry's named noise error."""
     solver = cfg.solver if solver is None else solver
+    if (get_solver(solver).needs_levy_area and isinstance(bm, BrownianPath)
+            and bm.levy_area is None):
+        bm = dataclasses.replace(bm, levy_area="space-time")
     if gradient_mode is None:
         gradient_mode = cfg.gradient_mode
     if gradient_mode is None:

@@ -2,17 +2,18 @@
 
 One entry point, :func:`solve`, validated eagerly against a solver registry
 and dispatched to a gradient backend — the reference's design.  The port
-registers the reference's solvers but srk: euler-maruyama, midpoint, heun
-and reversible Heun, with the gradient modes the reference gives each
-(:func:`gradient_capabilities`): ``discretise`` (autograd through the
-loop), ``reversible_adjoint`` (the exact O(1)-memory adjoint),
+registers the reference's five solvers: euler-maruyama, midpoint, heun,
+reversible Heun and srk (strong order 1.5 on ``(W, H)`` space-time
+Lévy-area pairs, diagonal noise), with the gradient modes the reference
+gives each (:func:`gradient_capabilities`): ``discretise`` (autograd
+through the loop), ``reversible_adjoint`` (the exact O(1)-memory adjoint),
 ``continuous_adjoint`` (the eq. (6) backsolve) and ``checkpoint``
 (recursive halving), on the fixed grid and, with ``adaptive=True``, under
 the PI step-size controller (:func:`_adaptive_loop`, :func:`solve_adaptive`;
 DESIGN.md §10).  The precision policy (``precision="bf16_compute"``) wraps
 the fields before any backend sees them.  :func:`solve_batched` solves a
-batch of trajectories, one Brownian path per key row.  ``srk`` (it needs
-space-time Lévy area) raises :class:`NotPortedError` by name.
+batch of trajectories, one Brownian path per key row (in space-time mode
+for srk).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from .brownian import stlevy_difference
 from .gradients import GRADIENT_BACKENDS, get_backend, resolve_precision
 from .solvers import (
     RevHeunState,
@@ -32,6 +34,9 @@ from .solvers import (
     _heun_step,
     _midpoint_embedded_step,
     _midpoint_step,
+    _srk_embedded_step,
+    _srk_step,
+    _tree_cast,
     carry_init,
     carry_z,
     is_reversible,
@@ -41,7 +46,6 @@ from .solvers import (
 
 __all__ = [
     "AdaptiveStats",
-    "NotPortedError",
     "SOLVERS",
     "SolverSpec",
     "available_solvers",
@@ -52,15 +56,6 @@ __all__ = [
     "solve_adaptive",
     "solve_batched",
 ]
-
-#: Solvers of the reference (repro.core.solve); the one the port does not
-#: register yet raises NotPortedError by name.
-REFERENCE_SOLVERS = ("euler_maruyama", "midpoint", "heun", "reversible_heun", "srk")
-
-
-class NotPortedError(NotImplementedError):
-    """The reference accepts this option; the port does not have it yet."""
-
 
 @dataclasses.dataclass(frozen=True)
 class SolverSpec:
@@ -76,6 +71,14 @@ class SolverSpec:
     notes: str = ""
     noise_types: Tuple[str, ...] = ("diagonal", "general")
     embedded_stepper: Optional[Callable] = None
+    #: the stepper consumes ``(ΔW, ΔH)`` space-time Lévy-area pairs; the
+    #: path must be built with ``levy_area="space-time"`` (checked both ways)
+    needs_levy_area: bool = False
+
+    @property
+    def reversible(self) -> bool:
+        """Whether the solver has an algebraic inverse (reversible Heun)."""
+        return is_reversible(self.stepper)
 
 
 SOLVERS: dict = {}
@@ -93,11 +96,6 @@ def register_solver(spec: SolverSpec) -> SolverSpec:
 def get_solver(name: str) -> SolverSpec:
     if name in SOLVERS:
         return SOLVERS[name]
-    if name in REFERENCE_SOLVERS:
-        raise NotPortedError(
-            f"solver {name!r} is not ported yet (ported: {sorted(SOLVERS)}) — "
-            f"ROADMAP.md Queue 1, "
-            f"'The rest of the Brownian layer, then space-time Lévy area and srk'")
     raise ValueError(f"unknown solver {name!r}; registered: {sorted(SOLVERS)}")
 
 
@@ -133,6 +131,17 @@ register_solver(SolverSpec(
     notes="algebraically reversible; O(1)-memory exact adjoint (paper §3)",
     embedded_stepper=reversible_heun_embedded_step))
 
+register_solver(SolverSpec(
+    "srk", _srk_step,
+    nfe_per_step=5, strong_order=1.5,
+    gradient_modes=("discretise", "checkpoint"),
+    sde_type="ito",
+    notes="strong-order-1.5 SRK (Kloeden–Platen) on (W, H) space–time "
+          "Lévy-area pairs; diagonal noise",
+    embedded_stepper=_srk_embedded_step,
+    needs_levy_area=True,
+    noise_types=("diagonal",)))
+
 
 def gradient_capabilities() -> dict:
     """``gradient_mode -> tuple of solver names``: the join of the two
@@ -153,11 +162,16 @@ def _validate(spec: SolverSpec, gradient_mode: str, noise: str,
     if noise not in ("diagonal", "general"):
         raise ValueError(f"unknown noise type {noise!r}")
     if noise not in spec.noise_types:
-        raise ValueError(f"solver {spec.name!r} supports noise={spec.noise_types}, "
-                         f"got {noise!r}")
+        raise ValueError(
+            f"solver {spec.name!r} supports noise={spec.noise_types}, got {noise!r} (the "
+            f"order-1.5 scheme needs full Lévy areas for general noise, which "
+            f"space-time H does not provide)")
     if use_pallas_kernels:
         if not spec.supports_pallas:
-            raise ValueError(f"solver {spec.name!r} has no fused kernel path")
+            raise ValueError(
+                f"solver {spec.name!r} has no fused kernel path (the reference's "
+                f"Pallas path; only: "
+                f"{[s.name for s in SOLVERS.values() if s.supports_pallas]})")
         if noise != "diagonal":
             raise ValueError(
                 "use_pallas_kernels requires diagonal noise (the fused kernels "
@@ -278,6 +292,10 @@ def _adaptive_loop(spec, drift, diffusion, params, z0, bm, t0: float, t1: float,
     carried from the last accepted step: one bridge descent per attempt,
     all of a batch's rows in one ``brownian_value`` launch, and the bits
     the exact adjoint's replay recomputes from the stored ``(ts, dts)``.
+    A space-time path's values are ``(W, H)`` pairs, carried alike, and the
+    interval's pair is :func:`stlevy_difference` of the two (one
+    ``space_time_value`` launch an attempt), the op graph the checkpoint
+    replay repeats.  A path without ``value`` is queried by ``evaluate``.
 
     Stepper-generic as the reference's: the carry is a :class:`RevHeunState`
     for reversible Heun (whose initial evaluation ``nfe`` counts) and the
@@ -293,6 +311,8 @@ def _adaptive_loop(spec, drift, diffusion, params, z0, bm, t0: float, t1: float,
             f"supported: the fused kernels take one step size per launch; pass "
             f"a single-key BrownianPath")
     dkw = {} if bridge_depth is None else {"depth": bridge_depth}
+    has_value = hasattr(bm, "value")
+    levy = getattr(bm, "levy_area", None) == "space-time"
     rtol, atol = _scalar(rtol, dtype, dev), _scalar(atol, dtype, dev)
     t1a = _scalar(t1, dtype, dev)
     t = torch.full(K, float(t0), dtype=dtype, device=dev)
@@ -304,7 +324,7 @@ def _adaptive_loop(spec, drift, diffusion, params, z0, bm, t0: float, t1: float,
     ts = torch.zeros(K + (max_steps,), dtype=dtype, device=dev)
     dts = torch.zeros(K + (max_steps,), dtype=dtype, device=dev)
     carry = carry_init(spec.embedded_stepper, drift, diffusion, params, z0, t0)
-    w_left = bm.value(t, **dkw).to(dtype)
+    w_left = _tree_cast(bm.value(t, **dkw), dtype) if has_value else None
     iterations = 0
     while True:
         running = ~done & (n_acc < max_steps) & (n_rej < max_steps)
@@ -319,11 +339,17 @@ def _adaptive_loop(spec, drift, diffusion, params, z0, bm, t0: float, t1: float,
             break
         iterations += 1
         t_next = t + dt_eff
-        w_right = bm.value(t_next, **dkw).to(dtype)
+        if not has_value:
+            w_right = w_left
+            dw = _tree_cast(bm.evaluate(t, t_next, **dkw), dtype)
+        else:
+            w_right = _tree_cast(bm.value(t_next, **dkw), dtype)
+            dw = (stlevy_difference(w_left, w_right, t, t_next, bm.t0) if levy
+                  else w_right - w_left)
         # the baselines have no fused path; their midpoint time is K-shaped
         # like the rows' own
         step_kw = {"use_pallas": use_pallas} if rev else {"tm": t + 0.5 * dt_eff}
-        cand, err = spec.embedded_stepper(carry, t, dt_step, w_right - w_left, drift,
+        cand, err = spec.embedded_stepper(carry, t, dt_step, dw, drift,
                                           diffusion, params, noise, t1=t_next, **step_kw)
         scale = atol + rtol * torch.maximum(carry_z(carry).abs(), carry_z(cand).abs())
         q = err / scale
@@ -348,18 +374,41 @@ def _adaptive_loop(spec, drift, diffusion, params, z0, bm, t0: float, t1: float,
         prev_ratio = torch.where(accept, ratio, prev_ratio)
         n_acc = n_acc + accept.to(torch.int32)
         n_rej = n_rej + (running & ~accept).to(torch.int32)
-        w_left = torch.where(_rows(accept, w_left), w_right, w_left)
+        if levy:
+            keep = _rows(accept, w_left[0])
+            w_left = tuple(torch.where(keep, a, b) for a, b in zip(w_right, w_left))
+        elif has_value:
+            w_left = torch.where(_rows(accept, w_left), w_right, w_left)
         done = done | (accept & is_last)
     nfe = (n_acc + n_rej) * spec.nfe_per_step + (1 if rev else 0)
     return carry, AdaptiveStats(n_acc, n_rej, nfe, t, done, dts, ts, iterations)
 
 
-def _check_adaptive_bm(bm) -> None:
-    if not hasattr(bm, "value"):
+def _check_levy_area(spec: SolverSpec, bm) -> None:
+    """(W, H)-pair solvers need a space-time path, and the others a plain
+    one — eagerly, rather than a tuple meeting a stepper written for a bare
+    ΔW deep inside the loop."""
+    mode = getattr(bm, "levy_area", None)
+    if spec.needs_levy_area and mode != "space-time":
         raise ValueError(
-            f"adaptive=True queries Brownian values at solver-chosen times via "
-            f"bm.value(t); {type(bm).__name__} has no value method — use "
-            f"BrownianPath")
+            f"solver {spec.name!r} consumes (W, H) space-time Lévy-area pairs — "
+            f"construct the Brownian path with levy_area='space-time' (got "
+            f"levy_area={mode!r} on {type(bm).__name__})")
+    if not spec.needs_levy_area and mode == "space-time":
+        raise ValueError(
+            f"solver {spec.name!r} consumes plain ΔW increments but the Brownian "
+            f"path was built with levy_area='space-time' — drop the flag (solvers "
+            f"consuming (W, H) pairs: "
+            f"{[s.name for s in SOLVERS.values() if s.needs_levy_area]})")
+
+
+def _check_adaptive_bm(bm) -> None:
+    if not hasattr(bm, "evaluate"):
+        raise ValueError(
+            f"adaptive=True queries Brownian increments over solver-chosen "
+            f"intervals via bm.evaluate(s, t); {type(bm).__name__} has no "
+            f"evaluate method — use BrownianPath, VirtualBrownianTree or "
+            f"DenseBrownianPath")
 
 
 def _check_bridge_depth(bm, bridge_depth) -> None:
@@ -369,7 +418,8 @@ def _check_bridge_depth(bm, bridge_depth) -> None:
         raise ValueError(
             f"bridge_depth must be a positive int (dyadic descent levels), "
             f"got {bridge_depth!r}")
-    if "depth" not in inspect.signature(bm.value).parameters:
+    probe = bm.value if hasattr(bm, "value") else bm.evaluate
+    if "depth" not in inspect.signature(probe).parameters:
         raise ValueError(
             f"bridge_depth requires a Brownian path whose point queries "
             f"take a depth argument (BrownianPath); {type(bm).__name__} "
@@ -392,6 +442,7 @@ def solve_adaptive(drift, diffusion, params, z0, bm, t0: float, t1: float, *,
     tensors)."""
     spec = get_solver(solver)
     _validate(spec, "discretise", noise, False, False, adaptive=True)
+    _check_levy_area(spec, bm)
     _check_adaptive_bm(bm)
     _check_bridge_depth(bm, bridge_depth)
     drift, diffusion = resolve_precision(precision).wrap_fields(drift, diffusion)
@@ -414,7 +465,8 @@ def solve(drift, diffusion, params, z0, bm, t0: float, t1: float, num_steps: int
     """Solve ``dZ = μ dt + σ ∘ dW`` on ``[t0, t1]``.
 
     Same signature and defaults as :func:`repro.core.solve.solve`: every
-    solver of the registry but srk, under the gradient modes
+    solver of the registry (srk on a ``levy_area="space-time"`` path), under
+    the gradient modes
     :func:`gradient_capabilities` lists (``continuous_adjoint`` and
     ``checkpoint`` return the terminal value only), diagonal or general
     noise, ``use_pallas_kernels`` (reversible Heun, diagonal noise, the CUDA
@@ -438,6 +490,7 @@ def solve(drift, diffusion, params, z0, bm, t0: float, t1: float, num_steps: int
     """
     spec = get_solver(solver)
     _validate(spec, gradient_mode, noise, use_pallas_kernels, save_trajectory, adaptive)
+    _check_levy_area(spec, bm)
     if not adaptive and any(v is not None for v in (rtol, atol, max_steps, dt0,
                                                      bridge_depth)):
         raise ValueError(
@@ -504,5 +557,6 @@ def solve_batched(drift, diffusion, params, z0, keys, t0: float, t1: float,
     else:
         bm_shape = state_shape
     bm = BrownianPath(keys.to(device=z0.device, dtype=torch.int64).contiguous(), t0, t1,
-                      bm_shape, z0.dtype)
+                      bm_shape, z0.dtype,
+                      levy_area="space-time" if spec.needs_levy_area else None)
     return solve(drift, diffusion, params, z0, bm, t0, t1, num_steps, **kwargs)

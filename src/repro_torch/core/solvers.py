@@ -3,8 +3,10 @@
 ``reversible_heun_embedded_step``), the paper's baselines euler-maruyama,
 midpoint and heun with the embedded pairs of the latter two
 (``_euler_maruyama_step``, ``_midpoint_step`` / ``_midpoint_embedded_step``,
-``_heun_step`` / ``_heun_embedded_step``), and the uniform-grid drivers
-``sde_solve`` and ``ode_solve``.
+``_heun_step`` / ``_heun_embedded_step``), the strong-order-1.5 srk scheme
+on ``(W, H)`` space-time Lévy-area pairs (``_srk_step`` /
+``_srk_embedded_step``), and the uniform-grid drivers ``sde_solve`` and
+``ode_solve``.
 
 Calling convention as in the reference::
 
@@ -59,6 +61,15 @@ NFE_PER_STEP = {
     "reversible_heun": 1,
     "srk": 5,
 }
+
+
+def _tree_cast(x, dtype):
+    """``x.to(dtype)`` for a bare ΔW or each member of a ``(W, H)`` pair: a
+    path returns the pair in ``levy_area="space-time"`` mode, and every ΔW
+    consumer casts through this so both shapes flow."""
+    if isinstance(x, tuple):
+        return tuple(a.to(dtype) for a in x)
+    return x.to(dtype)
 
 
 def apply_diffusion(sigma: torch.Tensor, dw: torch.Tensor, noise: str) -> torch.Tensor:
@@ -247,6 +258,77 @@ def _midpoint_embedded_step(z, t, dt, dw, drift, diffusion, params, noise, tm=No
     return z1, z1 - (z + euler)
 
 
+def _srk_embedded_step(z, t, dt, dw, drift, diffusion, params, noise, tm=None, t1=None):
+    """Strong-order-1.5 explicit SRK step (Kloeden–Platen, Itô, diagonal
+    noise) on the ``(ΔW, ΔH)`` pair of a ``levy_area="space-time"`` path,
+    the reference's op for op.  Every supporting value is evaluated at
+    ``t1`` (default ``t + dt``)::
+
+        Υ± = z + a·dt ± b·√dt          Φ± = Υ₊ ± b(Υ₊)·√dt
+        z₁ = z + ¼(a(Υ₊) + 2a + a(Υ₋))dt + b·ΔW
+               + (b(Υ₊) − b(Υ₋))/(2√dt) · I₍₁,₁₎
+               + (a(Υ₊) − a(Υ₋))/(2√dt) · I₍₁,₀₎
+               + (b(Υ₊) − 2b + b(Υ₋))/(2dt) · I₍₀,₁₎
+               + (b(Φ₊) − b(Φ₋) − b(Υ₊) + b(Υ₋))/(2dt) · I₍₁,₁,₁₎
+
+    with I₍₁,₁₎ = (ΔW² − dt)/2, I₍₁,₀₎ = dt(H + ΔW/2), I₍₀,₁₎ = ΔW·dt −
+    I₍₁,₀₎, I₍₁,₁,₁₎ = (ΔW³ − 3dt·ΔW)/6: 3 drift and 5 diffusion
+    evaluations.  The embedded estimate is the Euler–Maruyama step from the
+    first stage.  ``dt == 0`` (the checkpoint replay's padding slots) takes
+    ``dt_safe = 1`` in the divisors, so the step is the identity and no
+    ``inf·0`` enters its gradient.  ``dt``: a numpy scalar of the state
+    dtype (the grid) or a tensor broadcastable to ``z`` (the adaptive
+    rows')."""
+    if not isinstance(dw, (tuple, list)):
+        raise TypeError(
+            "solver 'srk' needs (dW, dH) pairs — construct the Brownian path "
+            "with levy_area='space-time'")
+    if noise != "diagonal":
+        raise ValueError(
+            "solver 'srk' supports diagonal noise only (general noise needs "
+            "full Lévy areas, which space-time H does not provide)")
+    w, h = dw
+    t1 = t + dt if t1 is None else t1
+    if isinstance(dt, torch.Tensor):
+        dt_safe = torch.where(dt == 0, torch.ones_like(dt), dt)
+        sq = torch.sqrt(dt_safe)
+    else:
+        dt_safe = dt if dt != 0 else type(dt)(1)
+        sq = np.sqrt(dt_safe)
+    half_sq, half_dt = 0.5 / sq, 0.5 / dt_safe
+
+    a0 = drift(params, t, z)
+    b0 = diffusion(params, t, z)
+    up = z + a0 * dt + b0 * sq
+    um = z + a0 * dt - b0 * sq
+    ap = drift(params, t1, up)
+    am = drift(params, t1, um)
+    bp = diffusion(params, t1, up)
+    bm_ = diffusion(params, t1, um)
+    pp = up + bp * sq
+    pm = up - bp * sq
+    bpp = diffusion(params, t1, pp)
+    bpm = diffusion(params, t1, pm)
+
+    i10 = (h + 0.5 * w) * dt           # I_(1,0) = ∫ (W_s − W_t) ds
+    i01 = w * dt - i10                 # I_(0,1) = ∫ s dW
+    i11 = 0.5 * (w * w - dt)           # I_(1,1)
+    i111 = (w * w * w - w * (3.0 * dt)) / 6.0
+
+    z1 = (z
+          + 0.25 * (ap + 2.0 * a0 + am) * dt
+          + b0 * w
+          + (bp - bm_) * half_sq * i11
+          + (ap - am) * half_sq * i10
+          + (bp - 2.0 * b0 + bm_) * half_dt * i01
+          + (bpp - bpm - bp + bm_) * half_dt * i111)
+    return z1, z1 - (z + a0 * dt + b0 * w)
+
+
+def _srk_step(z, t, dt, dw, drift, diffusion, params, noise, tm=None, t1=None):
+    return _srk_embedded_step(z, t, dt, dw, drift, diffusion, params, noise, tm, t1)[0]
+
+
 def _euler_maruyama_step(z, t, dt, dw, drift, diffusion, params, noise, tm=None, t1=None):
     return z + drift(params, t, z) * dt + apply_diffusion(diffusion(params, t, z), dw, noise)
 
@@ -323,7 +405,7 @@ def sde_solve(drift, diffusion, params, z0, bm, t0: float, t1: float, num_steps:
     z = z0
     zs = [z0] if save_trajectory else None
     for n in range(num_steps):
-        dw = bm.increment(n, num_steps).to(z0.dtype)
+        dw = _tree_cast(bm.increment(n, num_steps), z0.dtype)
         z = grid_step(step, z, t0, n, dt, dw, drift, diffusion, params, noise)
         if zs is not None:
             zs.append(z)

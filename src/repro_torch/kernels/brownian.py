@@ -11,6 +11,17 @@
   point value ``W(t) − W(t0)`` by Lévy-bridge descent, one time per row —
   the adaptive loop's Brownian query.
 
+Two kernels are the port's own (the reference draws these with
+``jax.random`` ops and has no Pallas kernel for them): the srk solver's
+space-time Lévy-area draws.
+
+* :func:`space_time_increment`: the ``(W, H)`` pair of grid step ``n``,
+  ``space_time_levy_area(fold_in(key, n), dt)``
+  (src/repro/core/brownian.py:175-177, 548-562).
+* :func:`space_time_value`: ``(W(t) − W(t0), I(t))`` by the joint
+  ``(W, ∫W)`` bridge descent of ``BrownianPath._wh``
+  (src/repro/core/brownian.py:238-314), one time per row.
+
 The JAX kernels take one key and get a batch from ``jax.vmap``; these take
 the batch explicitly.  ``keys`` has shape ``(*K, 2)`` (int64 words) and the
 state ``(*K, *S)``: row ``k`` draws ``normal(fold_in(keys[k], n), S)``,
@@ -30,7 +41,12 @@ from . import build
 from .reversible_heun_step import DTYPE_CODES, check_operands, scalar
 
 #: Kernel launches made by this module's wrappers (one per launch).
-LAUNCHES = {"brownian_increment": 0, "rev_heun_phase1_gen": 0, "brownian_value": 0}
+LAUNCHES = {"brownian_increment": 0, "rev_heun_phase1_gen": 0, "brownian_value": 0,
+            "space_time_increment": 0, "space_time_value": 0}
+
+#: The deepest descent :func:`space_time_value`'s kernel takes (its levels
+#: sit in shared memory; float64 intervals stop halving after ~52 levels).
+SPACE_TIME_MAX_DEPTH = 512
 
 
 def _check_keys(name: str, keys: torch.Tensor, device) -> int:
@@ -102,11 +118,7 @@ def brownian_value(keys, t, t0: float, t1: float, shape, dtype, depth: int = 24)
     if not keys.is_cuda:
         raise ValueError(f"brownian_value: keys must be a CUDA tensor, got {keys.device}")
     rows = _check_keys("brownian_value", keys, keys.device)
-    if (t.dtype != dtype or t.device != keys.device or t.shape != keys.shape[:-1]
-            or not t.is_contiguous()):
-        raise ValueError(f"brownian_value: t must be a contiguous {dtype} tensor of "
-                         f"shape {tuple(keys.shape[:-1])} on {keys.device}, got "
-                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    _check_times("brownian_value", keys, t, dtype)
     if depth < 0:
         raise ValueError(f"brownian_value: depth must be >= 0, got {depth}")
     shape = tuple(shape)
@@ -122,6 +134,79 @@ def brownian_value(keys, t, t0: float, t1: float, shape, dtype, depth: int = 24)
     build.check("brownian_value", err)
     LAUNCHES["brownian_value"] += 1
     return out
+
+
+def _check_times(name, keys, t, dtype):
+    if (t.dtype != dtype or t.device != keys.device or t.shape != keys.shape[:-1]
+            or not t.is_contiguous()):
+        raise ValueError(f"{name}: t must be a contiguous {dtype} tensor of "
+                         f"shape {tuple(keys.shape[:-1])} on {keys.device}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def space_time_increment(keys, n: int, shape, dtype, dt):
+    """``(W, H)``, each ``(*K, *shape)``, of grid step ``n`` with spacing
+    ``dt``, one row per key — one launch.  The scales ``sqrt(dt)`` and
+    ``sqrt(dt/12)`` are rounded on the host as the plain version rounds
+    them (:func:`repro_torch.kernels.ref.space_time_scales`)."""
+    from .ref import space_time_scales
+
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"space_time_increment: float32 or float64, got {dtype}")
+    if not keys.is_cuda:
+        raise ValueError(f"space_time_increment: keys must be a CUDA tensor, got "
+                         f"{keys.device}")
+    rows = _check_keys("space_time_increment", keys, keys.device)
+    shape = tuple(shape)
+    w = torch.empty(keys.shape[:-1] + shape, dtype=dtype, device=keys.device)
+    h = torch.empty_like(w)
+    if w.numel() == 0:
+        return w, h
+    s_w, s_h = space_time_scales(dt, dtype)
+    lib = build.load()
+    with build.device_guard(keys.device):
+        err = lib.rt_space_time_increment(
+            DTYPE_CODES[dtype], keys.data_ptr(), int(n), s_w, s_h, w.data_ptr(),
+            h.data_ptr(), rows, math.prod(shape),
+            torch.cuda.current_stream(keys.device).cuda_stream)
+    build.check("space_time_increment", err)
+    LAUNCHES["space_time_increment"] += 1
+    return w, h
+
+
+def space_time_value(keys, t, t0: float, t1: float, shape, dtype, depth: int = 24):
+    """``(W(t[r]) − W(t0), I(t[r]))``, each ``(R, *shape)``, of the rows'
+    space-time paths — one launch.  ``keys``: ``(R, 2)``; ``t``: the
+    ``(R,)`` query times in ``dtype`` on the card; ``0 <= depth <=``
+    :data:`SPACE_TIME_MAX_DEPTH`."""
+    from .ref import space_time_scales
+    from .prng import _NP_DTYPES
+
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"space_time_value: float32 or float64, got {dtype}")
+    if not keys.is_cuda:
+        raise ValueError(f"space_time_value: keys must be a CUDA tensor, got {keys.device}")
+    rows = _check_keys("space_time_value", keys, keys.device)
+    _check_times("space_time_value", keys, t, dtype)
+    if not 0 <= depth <= SPACE_TIME_MAX_DEPTH:
+        raise ValueError(f"space_time_value: depth must be in [0, {SPACE_TIME_MAX_DEPTH}], "
+                         f"got {depth}")
+    shape = tuple(shape)
+    w = torch.empty(keys.shape[:-1] + shape, dtype=dtype, device=keys.device)
+    i = torch.empty_like(w)
+    if w.numel() == 0:
+        return w, i
+    span = float(_NP_DTYPES[dtype](t1 - t0))
+    s_w, s_h = space_time_scales(t1 - t0, dtype)
+    lib = build.load()
+    with build.device_guard(keys.device):
+        err = lib.rt_space_time_value(
+            DTYPE_CODES[dtype], keys.data_ptr(), t.data_ptr(), float(t0), float(t1), span,
+            s_w, s_h, int(depth), w.data_ptr(), i.data_ptr(), rows, math.prod(shape),
+            torch.cuda.current_stream(keys.device).cuda_stream)
+    build.check("space_time_value", err)
+    LAUNCHES["space_time_value"] += 1
+    return w, i
 
 
 def brownian_value_blocks(dtype, rows: int, d: int) -> int:

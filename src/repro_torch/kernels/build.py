@@ -46,6 +46,8 @@ SIGNATURES = {
     "rt_brownian_increment": (_I, _P, _I64, _D, _P, _I64, _I64, _P),
     "rt_brownian_value": (_I, _P, _P, _D, _D, _I, _P, _I64, _I64, _P),
     "rt_brownian_value_blocks": (_I, _I64, _I64),
+    "rt_space_time_increment": (_I, _P, _I64, _D, _D, _P, _P, _I64, _I64, _P),
+    "rt_space_time_value": (_I, _P, _P, _D, _D, _D, _D, _D, _I, _P, _P, _I64, _I64, _P),
     "rt_rev_heun_phase1_gen": (_I, _P, _P, _P, _P, _P, _I64, _D, _D, _D, _P, _P,
                                _I64, _I64, _P),
     "rt_rev_heun_phase1": (_I, _P, _P, _P, _P, _P, _D, _D, _P, _I64, _P),

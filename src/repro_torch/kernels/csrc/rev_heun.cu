@@ -9,6 +9,10 @@
 //   brownian_increment   src/repro/kernels/brownian.py:71
 //   rev_heun_phase1_gen  src/repro/kernels/brownian.py:132
 //   brownian_value       src/repro/kernels/brownian.py:101
+// and holds two kernels of the port's own, the srk solver's (W, H) draws,
+// which the reference writes as jax.random ops with no Pallas kernel:
+//   space_time_increment src/repro/core/brownian.py:175-177, 548-562
+//   space_time_value     src/repro/core/brownian.py:238-314 (BrownianPath._wh)
 // The plain versions are src/repro_torch/kernels/ref.py; each kernel here
 // computes the same function with the same op order, bitwise.  The backward
 // pair's grouping (c_mu1 = g_mu1 + 0.5*(g_z1*dt), d_mu = 0.5*(g_z1*dt) +
@@ -39,7 +43,9 @@
 // brownian_value (the adaptive loop's point query W(t) - W(t0)) is
 // bound by latency: each row's key chain is depth + 1 dependent Threefry
 // hashes, while its draws and combine spread over the block.  Its design
-// and what bounds it are in the comment above brownian_value_kernel.
+// and what bounds it are in the comment above brownian_value_kernel; the
+// space-time kernels' are above space_time_increment_kernel and
+// space_time_value_kernel.
 //
 // Interface: plain C functions (loaded with ctypes by kernels/build.py),
 // dtype code 0 = float32, 1 = float64.  Each launches on the given stream and
@@ -394,6 +400,223 @@ brownian_value_kernel(const int64_t* __restrict__ keys, const T* __restrict__ t,
   if (owner) out[(r0 + cr) * d + cg] = add(wa, mul(frac, sub(wb, wa)));
 }
 
+// ---------------------------------------------------------------------------
+// Space-time Lévy area: (W, H) draws of the srk solver.  No TPU kernel: the
+// reference draws these with jax.random ops that XLA fuses
+// (src/repro/core/brownian.py:175-177, 238-314, 548-562); the plain versions
+// are src/repro_torch/kernels/ref.py:space_time_increment and
+// space_time_value, bitwise.
+// ---------------------------------------------------------------------------
+
+// jax.random.split(key): the two keys of counter pairs (0, 2) and (1, 3),
+// (a0, a1) from the pairs' first lanes and (b0, b1) from their second.
+__device__ __forceinline__ void split2(uint32_t k0, uint32_t k1, uint32_t& a0, uint32_t& a1,
+                                       uint32_t& b0, uint32_t& b1) {
+  uint32_t x0 = 0u, x1 = 2u, y0 = 1u, y1 = 3u;
+  threefry2x32(k0, k1, x0, x1);
+  threefry2x32(k0, k1, y0, y1);
+  a0 = x0;
+  a1 = y0;
+  b0 = x1;
+  b1 = y1;
+}
+
+// (W, H) of grid step n, element (b, i): kw, kh = split(fold_in(keys[b], n)),
+// W = normal(kw)[i]·sqrt(dt), H = normal(kh)[i]·sqrt(dt/12).  One thread per
+// element, each redoing its row's fold_in and split (three hashes) before
+// its two draws: integer work that costs no memory traffic.  Bound: the
+// hashes and normals over the integer rate at the main path's shapes (one
+// key over 64 x 17), bytes at many rows.
+template <typename T>
+__global__ void space_time_increment_kernel(const int64_t* __restrict__ keys, int64_t n,
+                                            T s_w, T s_h, T* __restrict__ w,
+                                            T* __restrict__ h, int64_t rows, int64_t d) {
+  const int64_t total = rows * d;
+  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+       e < total; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t b = e / d, i = e - b * d;
+    uint32_t k0 = static_cast<uint32_t>(keys[2 * b]);
+    uint32_t k1 = static_cast<uint32_t>(keys[2 * b + 1]);
+    fold_in(k0, k1, n);
+    uint32_t a0, a1, b0, b1;
+    split2(k0, k1, a0, a1, b0, b1);
+    w[e] = mul(normal_elem(T(), a0, a1, i, d), s_w);
+    h[e] = mul(normal_elem(T(), b0, b1, i, d), s_h);
+  }
+}
+
+// (W(t_b) - W(t0), I(t_b)) of row b, I the running time-integral, by the
+// joint (W, ∫W) Lévy-bridge descent to `depth` levels (the reference's
+// BrownianPath._wh).  A block owns `rpb` rows and one slice of at most
+// kStThreads of their elements (a row of more elements spreads over several
+// blocks, each redoing the row's walk), in three stages:
+//   1. walk (one thread a row): the interval, its length h = b - a and
+//      half = 0.5h, the go-left bit and the chain key c of every level into
+//      shared memory; c starts at the root key fold_in(key, 0xB0BA) and
+//      moves to fold_in(c, 2|3).  The only serial part: depth dependent
+//      hashes;
+//   2. keys (every thread, items (row, level)): the level's normal keys
+//      split(fold_in(c, 1)) and its scales sqrt(half/8), sqrt(half^3/24);
+//      the root's split(root key);
+//   3. combine (one thread an element): the root pair, then every level's
+//      two conditional normals and the plain version's op sequence, then the
+//      conditional-mean tail.
+// Bound: the chain of depth + 1 dependent hashes a row, as brownian_value's,
+// plus each element's 2(depth + 1) normals one after another in stage 3.
+constexpr int kStThreads = 256;
+constexpr int kStMaxRows = 32;
+constexpr int kStMaxDepth = 512;
+constexpr int kStSmemBytes = 40 * 1024;
+
+template <typename T>
+struct StLevel {  // one level of one row, in shared memory
+  uint32_t k[4];  // (a0, a1) the xi0 key, (b0, b1) the xi1 key; the chain key first
+  T h, half, s0, s1;
+  int left;
+};
+
+template <typename T>
+struct StRow {  // one row's root and last interval
+  uint32_t kw0, kw1, kh0, kh1;
+  T a, b, t;
+};
+
+template <typename T>
+__host__ __device__ constexpr int64_t st_row_bytes(int depth) {
+  return static_cast<int64_t>(depth) * sizeof(StLevel<T>) + sizeof(StRow<T>);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kStThreads)
+space_time_value_kernel(const int64_t* __restrict__ keys, const T* __restrict__ t, T t0, T t1,
+                        T span, T s_w, T s_h, int depth, T* __restrict__ w_out,
+                        T* __restrict__ i_out, int64_t rows, int64_t d, int rpb, int epb) {
+  extern __shared__ __align__(16) unsigned char st_smem[];
+  StRow<T>* row_s = reinterpret_cast<StRow<T>*>(st_smem);
+  StLevel<T>* lev_s = reinterpret_cast<StLevel<T>*>(st_smem + rpb * sizeof(StRow<T>));
+
+  const int tid = threadIdx.x;
+  const int64_t slices = (d + epb - 1) / epb;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x / slices) * rpb;
+  const int64_t e0 = static_cast<int64_t>(blockIdx.x % slices) * epb;
+  const int nr = static_cast<int>(rows - r0 < rpb ? rows - r0 : rpb);
+
+  // 1. walk
+  if (tid < nr) {
+    const int64_t r = r0 + tid;
+    uint32_t c0 = static_cast<uint32_t>(keys[2 * r]);
+    uint32_t c1 = static_cast<uint32_t>(keys[2 * r + 1]);
+    fold_in(c0, c1, 0xB0BA);
+    StRow<T>& rs = row_s[tid];
+    rs.kw0 = c0;  // the root key, split in stage 2
+    rs.kw1 = c1;
+    const T tb = t[r];
+    T a = t0, b = t1;
+    StLevel<T>* lv = lev_s + static_cast<int64_t>(tid) * depth;
+    for (int l = 0; l < depth; ++l) {
+      const T h = sub(b, a);
+      const T half = mul(T(0.5), h);
+      const T m = add(a, half);
+      const bool go_left = tb <= m;
+      lv[l].k[0] = c0;
+      lv[l].k[1] = c1;
+      lv[l].h = h;
+      lv[l].half = half;
+      lv[l].left = go_left;
+      fold_in(c0, c1, go_left ? 2 : 3);
+      if (go_left) b = m; else a = m;
+    }
+    rs.a = a;
+    rs.b = b;
+    rs.t = tb;
+  }
+  __syncthreads();
+  // 2. the levels' keys and scales, and the root's keys
+  for (int it = tid; it < nr * (depth + 1); it += kStThreads) {
+    const int r = it / (depth + 1), l = it % (depth + 1) - 1;
+    if (l < 0) {
+      StRow<T>& rs = row_s[r];
+      uint32_t a0, a1, b0, b1;
+      split2(rs.kw0, rs.kw1, a0, a1, b0, b1);
+      rs.kw0 = a0;
+      rs.kw1 = a1;
+      rs.kh0 = b0;
+      rs.kh1 = b1;
+    } else {
+      StLevel<T>& lv = lev_s[static_cast<int64_t>(r) * depth + l];
+      uint32_t f0 = lv.k[0], f1 = lv.k[1];
+      fold_in(f0, f1, 1);
+      split2(f0, f1, lv.k[0], lv.k[1], lv.k[2], lv.k[3]);
+      const T half = lv.half;
+      lv.s0 = sqrt_ieee(divide(half, T(8)));
+      lv.s1 = sqrt_ieee(divide(mul(half, mul(half, half)), T(24)));
+    }
+  }
+  __syncthreads();
+  // 3. combine: element e of row r
+  const int r = tid / epb;
+  const int64_t e = e0 + tid % epb;
+  if (r >= nr || e >= d) return;
+  const StRow<T>& rs = row_s[r];
+  T w = mul(normal_elem(T(), rs.kw0, rs.kw1, e, d), s_w);
+  const T hr = mul(normal_elem(T(), rs.kh0, rs.kh1, e, d), s_h);
+  T area = mul(span, add(hr, mul(T(0.5), w)));
+  T pw = T(0), pi = T(0);
+  const StLevel<T>* lv = lev_s + static_cast<int64_t>(r) * depth;
+  for (int l = 0; l < depth; ++l) {
+    const StLevel<T>& L = lv[l];
+    const T xi0 = normal_elem(T(), L.k[0], L.k[1], e, d);
+    const T xi1 = normal_elem(T(), L.k[2], L.k[3], e, d);
+    const T w_l = add(sub(divide(mul(T(1.5), area), L.h), mul(T(0.25), w)), mul(L.s0, xi0));
+    const T a_l = add(add(mul(mul(T(-0.25), L.half), w), mul(T(0.5), area)), mul(L.s1, xi1));
+    if (L.left) {
+      w = w_l;
+      area = a_l;
+    } else {
+      pi = add(add(pi, mul(L.half, pw)), a_l);
+      pw = add(pw, w_l);
+      const T w_r = sub(w, w_l);
+      area = sub(sub(area, a_l), mul(L.half, w_l));
+      w = w_r;
+    }
+  }
+  const T hh = sub(rs.b, rs.a);
+  T th = divide(sub(rs.t, rs.a), hh > tiny(T()) ? hh : tiny(T()));
+  th = th < T(0) ? T(0) : (th > T(1) ? T(1) : th);
+  const T th2 = mul(th, th);
+  const T th3 = mul(th, th2);
+  const T c1 = sub(mul(T(3), th2), mul(T(2), th));
+  const T c2 = mul(mul(T(6), th), sub(T(1), th));
+  const int64_t o = (r0 + r) * d + e;
+  w_out[o] = add(add(pw, mul(c1, w)), divide(mul(c2, area), hh));
+  i_out[o] = add(add(add(pi, mul(mul(th, hh), pw)), mul(mul(hh, sub(th3, th2)), w)),
+                 mul(sub(mul(T(3), th2), mul(T(2), th3)), area));
+}
+
+// The launch shape of space_time_value: rows and elements a block, blocks.
+struct StGrid {
+  int rows_per_block, elems_per_block;
+  int64_t blocks;
+  int64_t smem;
+};
+
+template <typename T>
+inline StGrid space_time_value_grid(int64_t rows, int64_t d, int depth) {
+  int64_t rb = 1, eb = kStThreads;
+  if (d <= kStThreads) {
+    eb = d;
+    rb = kStThreads / d;
+    rb = rb < kStMaxRows ? rb : kStMaxRows;
+    const int64_t fit = kStSmemBytes / st_row_bytes<T>(depth);
+    rb = rb < fit ? rb : fit;
+    rb = rb < rows ? rb : rows;
+    rb = rb < 1 ? 1 : rb;
+  }
+  const int64_t slices = (d + eb - 1) / eb;
+  return StGrid{static_cast<int>(rb), static_cast<int>(eb), (rows + rb - 1) / rb * slices,
+                rb * st_row_bytes<T>(depth)};
+}
+
 // The launch shape of brownian_value: rows and units a block, and blocks.
 struct ValueGrid {
   int rows_per_block, units_per_block;
@@ -593,4 +816,55 @@ extern "C" int rt_brownian_value(int dtype, const int64_t* keys, const void* t,
 // The number of blocks rt_brownian_value launches for (dtype, rows, d).
 extern "C" int64_t rt_brownian_value_blocks(int dtype, int64_t rows, int64_t d) {
   return rows * d > 0 ? repro_torch::brownian_value_grid(dtype == 0, rows, d).blocks : 0;
+}
+
+extern "C" int rt_space_time_increment(int dtype, const int64_t* keys, int64_t n, double s_w,
+                                       double s_h, void* w, void* h, int64_t rows, int64_t d,
+                                       void* stream) {
+  const int64_t total = rows * d;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (total > 0) {
+    if (dtype == 0) {
+      repro_torch::space_time_increment_kernel<float><<<blocks_for(total), kThreads, 0, s>>>(
+          keys, n, static_cast<float>(s_w), static_cast<float>(s_h), static_cast<float*>(w),
+          static_cast<float*>(h), rows, d);
+    } else {
+      repro_torch::space_time_increment_kernel<double><<<blocks_for(total), kThreads, 0, s>>>(
+          keys, n, s_w, s_h, static_cast<double*>(w), static_cast<double*>(h), rows, d);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// span, s_w = sqrt(span) and s_h = sqrt(span / 12) come rounded to the
+// state dtype from the host, as the plain version forms them.
+extern "C" int rt_space_time_value(int dtype, const int64_t* keys, const void* t, double t0,
+                                   double t1, double span, double s_w, double s_h, int depth,
+                                   void* w, void* i, int64_t rows, int64_t d, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (depth < 0 || depth > repro_torch::kStMaxDepth) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (rows * d > 0) {
+    constexpr int kT = repro_torch::kStThreads;
+    if (dtype == 0) {
+      const auto g = repro_torch::space_time_value_grid<float>(rows, d, depth);
+      if (g.blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+      repro_torch::space_time_value_kernel<float>
+          <<<static_cast<unsigned>(g.blocks), kT, static_cast<size_t>(g.smem), s>>>(
+              keys, static_cast<const float*>(t), static_cast<float>(t0),
+              static_cast<float>(t1), static_cast<float>(span), static_cast<float>(s_w),
+              static_cast<float>(s_h), depth, static_cast<float*>(w), static_cast<float*>(i),
+              rows, d, g.rows_per_block, g.elems_per_block);
+    } else {
+      const auto g = repro_torch::space_time_value_grid<double>(rows, d, depth);
+      if (g.blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+      repro_torch::space_time_value_kernel<double>
+          <<<static_cast<unsigned>(g.blocks), kT, static_cast<size_t>(g.smem), s>>>(
+              keys, static_cast<const double*>(t), t0, t1, span, s_w, s_h, depth,
+              static_cast<double*>(w), static_cast<double*>(i), rows, d, g.rows_per_block,
+              g.elems_per_block);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
 }

@@ -94,6 +94,25 @@ def brownian_value(key, t, t0, t1, shape, dtype, depth: int = 24,
                               depth)
 
 
+def space_time_increment(key, n, shape, dtype, dt, use_kernel: Optional[bool] = None):
+    """``(W, H)`` of uniform-grid step ``n`` per key, each ``(*K, *shape)``:
+    ``space_time_levy_area(fold_in(key, n), dt)``."""
+    if _decide("space_time_increment", key, use_kernel):
+        return _bk.space_time_increment(key, n, tuple(shape), dtype, dt)
+    return ref.space_time_increment(key[..., 0], key[..., 1], n, tuple(shape), dtype, dt)
+
+
+def space_time_value(key, t, t0, t1, shape, dtype, depth: int = 24,
+                     use_kernel: Optional[bool] = None):
+    """``(W(t) − W(t0), I(t))`` by the joint ``(W, ∫W)`` bridge descent, one
+    path per key row: ``key`` ``(R, 2)``, ``t`` ``(R,)`` in ``dtype`` -> two
+    ``(R, *shape)`` tensors."""
+    if _decide("space_time_value", key, use_kernel):
+        return _bk.space_time_value(key, t, t0, t1, tuple(shape), dtype, depth)
+    return ref.space_time_value(key[..., 0], key[..., 1], t, t0, t1, tuple(shape), dtype,
+                                depth)
+
+
 def fused_mlp(x, w1, b1, w2, b2, use_kernel: Optional[bool] = None):
     """Linear → LipSwish → Linear: x ``(..., Din)``, w1 ``(Din, H)``, w2
     ``(H, Dout)`` -> ``(..., Dout)`` (a depth-1 SDE field's MLP)."""

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from . import prng
@@ -132,6 +133,135 @@ def brownian_value(k1, k2, t, t0: float, t1: float, shape, dtype, depth: int = 2
         wa, wb = torch.where(left, wa, wm), torch.where(left, wm, wb)
     frac = torch.clamp((t - a) / torch.clamp(b - a, min=torch.finfo(dtype).tiny), 0.0, 1.0)
     return wa + frac.reshape(lead) * (wb - wa)
+
+
+def _split2(k1, k2):
+    """``jax.random.split(key)``'s two keys as word tensors: ``(a1, a2),
+    (b1, b2)`` (:func:`prng.split`, one hash per counter pair)."""
+    bits = prng.random_bits(k1, k2, 32, 4)
+    return (bits[..., 0], bits[..., 1]), (bits[..., 2], bits[..., 3])
+
+
+def true_divide(x, c: float):
+    """``x / c`` by a true division: on the card ``tensor / python_scalar``
+    multiplies by the scalar's reciprocal, which is not the kernels' (nor
+    numpy's, nor the reference's) division for a ``c`` that is not a power
+    of two."""
+    return x / torch.full((), float(c), dtype=x.dtype, device=x.device)
+
+
+def space_time_scales(dt: float, dtype):
+    """``(sqrt(dt), sqrt(dt/12))`` with ``dt`` rounded to ``dtype`` and each
+    op rounded once in it (IEEE, on the host): the scales of a ``(W, H)``
+    draw over an interval of length ``dt``, as
+    ``repro.core.brownian.space_time_levy_area`` forms them."""
+    np_dtype = prng._NP_DTYPES[dtype]
+    d = np_dtype(dt)
+    return float(np.sqrt(d)), float(np.sqrt(d / np_dtype(12.0)))
+
+
+def levy_pair(k1, k2, shape, dtype, dt):
+    """``(W, H)`` over an interval of length ``dt`` from the key words:
+    ``kw, kh = split(key)``, ``W = normal(kw)·sqrt(dt)``, ``H =
+    normal(kh)·sqrt(dt/12)`` (the reference's ``space_time_levy_area``).
+    ``k1, k2``: any batch shape ``K``; both results ``(*K, *shape)``."""
+    (a1, a2), (b1, b2) = _split2(k1, k2)
+    s_w, s_h = space_time_scales(dt, dtype)
+    return (prng.normal_like(a1, a2, tuple(shape), dtype) * s_w,
+            prng.normal_like(b1, b2, tuple(shape), dtype) * s_h)
+
+
+def space_time_increment(k1, k2, n, shape, dtype, dt):
+    """``(W, H)`` of step ``n`` of a uniform grid with spacing ``dt``: the
+    pair of ``fold_in(key, n)`` (:func:`levy_pair`)."""
+    return levy_pair(*prng.fold_in(k1, k2, n), shape, dtype, dt)
+
+
+def wh_descent(k1, k2, t, t0: float, t1: float, depth: int):
+    """The scalar walk of :func:`space_time_value`: per level (a leading
+    ``depth`` axis over ``t.shape``) the interval's length ``h``, ``half =
+    ½h``, the go-left bit, the two conditional scales ``sqrt(half/8)`` and
+    ``sqrt(half³/24)`` and the words of the level's two normal keys
+    ``split(fold_in(c, 1))``; then the last interval ``[a, b]``.  The chain
+    starts at the root key ``c = fold_in(key, 0xB0BA)`` and moves to
+    ``fold_in(c, 2 | 3)``."""
+    a = torch.full_like(t, t0)
+    b = torch.full_like(t, t1)
+    c1, c2 = prng.fold_in(k1, k2, 0xB0BA)
+    hs, halves, gos, chain1, chain2 = [], [], [], [], []
+    for _ in range(depth):
+        h = b - a
+        half = 0.5 * h
+        m = a + half
+        go_left = t <= m
+        hs.append(h)
+        halves.append(half)
+        gos.append(go_left)
+        chain1.append(c1)
+        chain2.append(c2)
+        c1, c2 = prng.fold_in(c1, c2, torch.where(go_left, 2, 3))
+        a, b = torch.where(go_left, a, m), torch.where(go_left, m, b)
+    if not depth:
+        empty = t.new_empty((0,) + t.shape)
+        keys = (empty.long(), empty.long())
+        return empty, empty, empty.bool(), empty, empty, keys, keys, a, b
+    f1, f2 = prng.fold_in(torch.stack(chain1), torch.stack(chain2), 1)
+    k0, k1_ = _split2(f1, f2)
+    h, half = torch.stack(hs), torch.stack(halves)
+    s0 = torch.sqrt(half / 8.0)
+    s1 = torch.sqrt(true_divide(half * (half * half), 24.0))
+    return h, half, torch.stack(gos), s0, s1, k0, k1_, a, b
+
+
+def space_time_value(k1, k2, t, t0: float, t1: float, shape, dtype, depth: int = 24):
+    """``(W(t) − W(t0), I(t))``, ``I(t) = ∫_{t0}^t (W_r − W_{t0}) dr``, by
+    the joint ``(W, ∫W)`` Lévy-bridge descent of the reference's
+    ``BrownianPath._wh`` (src/repro/core/brownian.py:238-312), op for op
+    but without its FMAs.
+
+    ``k1, k2``: key words ``(R,)``; ``t``: the rows' times ``(R,)``.  The
+    root draws ``(w, A)`` over ``[t0, t1]`` from ``split(fold_in(key,
+    0xB0BA))``; each level draws the midpoint's conditional pair from
+    ``split(fold_in(c, 1))`` (:func:`wh_descent`)::
+
+        w_l = 1.5·A/h − 0.25·w + sqrt(half/8)·ξ0
+        a_l = (−0.25·half)·w + 0.5·A + sqrt(half³/24)·ξ1
+
+    keeps the left half or the right (``w − w_l``, ``A − a_l − half·w_l``,
+    the prefix ``(pw, pi)`` advanced), and the depth bound closes with the
+    conditional mean inside the last interval.  Returns two ``(R,
+    *shape)`` tensors."""
+    shape = tuple(shape)
+    t = t.to(dtype)
+    lead = t.shape + (1,) * len(shape)
+    span = float(prng._NP_DTYPES[dtype](t1 - t0))
+    w, h_root = levy_pair(*prng.fold_in(k1, k2, 0xB0BA), shape, dtype, t1 - t0)
+    area = span * (h_root + 0.5 * w)
+    pw = torch.zeros_like(w)
+    pi = torch.zeros_like(w)
+    h, half, gos, s0, s1, k0, kk1, a, b = wh_descent(k1, k2, t, t0, t1, depth)
+    xi0 = prng.normal_like(k0[0], k0[1], shape, dtype)
+    xi1 = prng.normal_like(kk1[0], kk1[1], shape, dtype)
+    for i in range(depth):
+        hl, hf = h[i].reshape(lead), half[i].reshape(lead)
+        w_l = (1.5 * area / hl - 0.25 * w) + s0[i].reshape(lead) * xi0[i]
+        a_l = ((-0.25 * hf) * w + 0.5 * area) + s1[i].reshape(lead) * xi1[i]
+        w_r = w - w_l
+        a_r = (area - a_l) - hf * w_l
+        left = gos[i].reshape(lead)
+        pi = torch.where(left, pi, (pi + hf * pw) + a_l)
+        pw = torch.where(left, pw, pw + w_l)
+        w, area = torch.where(left, w_l, w_r), torch.where(left, a_l, a_r)
+    hh = b - a
+    th = torch.clamp((t - a) / torch.clamp(hh, min=torch.finfo(dtype).tiny), 0.0, 1.0)
+    th2 = th * th
+    th3 = th * th2
+    c1 = 3.0 * th2 - 2.0 * th
+    c2 = (6.0 * th) * (1.0 - th)
+    w_t = (pw + c1.reshape(lead) * w) + (c2.reshape(lead) * area) / hh.reshape(lead)
+    i_t = (((pi + (th * hh).reshape(lead) * pw) + (hh * (th3 - th2)).reshape(lead) * w)
+           + (3.0 * th2 - 2.0 * th3).reshape(lead) * area)
+    return w_t, i_t
 
 
 def fused_mlp(x, w1, b1, w2, b2):

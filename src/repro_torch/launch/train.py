@@ -14,6 +14,8 @@ Usage::
         --solver midpoint --adjoint backsolve        # the paper's baseline
     PYTHONPATH=src python -m repro_torch.launch.train --workload sde-gan \
         --constraint gp --solver midpoint            # the WGAN-GP baseline
+    PYTHONPATH=src python -m repro_torch.launch.train --workload latent-sde \
+        --solver srk [--adjoint checkpoint]          # strong order 1.5
 
 ``lm`` trains a decoder-only LM of the dense or SSM family (``--arch``; the
 reduced smoke config unless ``--full``) with AdamW on the cosine schedule,
@@ -34,7 +36,10 @@ B) at the widths the reference trains it at — data 2, hidden 16, context
 16, initial noise 8, width 32, depth 1, 24 observations on a 23-step grid
 — with Adam.  The paper's baselines take the reference's flags:
 ``--solver`` (any registered solver; a solver other than reversible Heun
-trains by discretise-then-optimise), ``--adjoint exact | backsolve |
+trains by discretise-then-optimise; srk draws ``(W, H)`` space-time
+Lévy-area pairs, its path rebuilt in that mode, and takes diagonal noise
+only, so ``--workload sde-gan --solver srk`` stops with the registry's
+named noise error), ``--adjoint exact | backsolve |
 checkpoint`` for the Latent SDE (``--backsolve`` is ``--adjoint
 backsolve`` and picks midpoint when the solver is left at reversible
 Heun), and ``--precision bf16_compute`` (the fields in bfloat16, the state
@@ -52,8 +57,8 @@ reference's ``jax.random`` init; the tests carry weights across instead).
 
 Every workload runs on the card by default; with no card and no
 ``--device cpu`` it stops with a named error.  The vlm/audio/encdec
-families, the srk solver and the data-parallel mesh are not ported yet
-(ROADMAP.md Queue 1).
+families and the data-parallel mesh are not ported yet (ROADMAP.md Queue
+1).
 """
 
 from __future__ import annotations

@@ -22,7 +22,7 @@ import torch
 from _torch_parity import TORCH_DTYPES, jax_config, key_words, torch_keys, ulp_distance
 from repro.core.brownian import BrownianPath as JaxBrownianPath
 from repro.kernels import prng as jprng
-from repro_torch.core.brownian import BrownianPath, SpaceTimeLevyNotPortedError
+from repro_torch.core.brownian import BrownianPath
 from repro_torch.kernels import ref
 
 NORMAL_ULP = {"float32": 4, "float64": 2 ** 19}
@@ -72,7 +72,9 @@ def test_off_grid_queries_name_the_adaptive_slice():
     """Off-grid queries, ported with the adaptive slice: one time per key
     row against the reference's per-row ``value``; ``evaluate(s, t) ==
     value(t) − value(s)`` bitwise; a scalar time broadcasts to every row.
-    The space-time Lévy mode still names its queue item."""
+    The space-time Lévy mode, ported with the srk slice, gives ``(W, H)``
+    pairs of the same rows (tests/test_torch_levy_area.py holds their
+    values); an unknown mode is refused by name."""
     words = key_words(22, len(TIMES))
     ts = np.array(TIMES)
     bm = BrownianPath(torch_keys(words), 0.0, 1.0, (3,))
@@ -85,8 +87,12 @@ def test_off_grid_queries_name_the_adaptive_slice():
     s, t = torch.full((len(TIMES),), 0.25), torch.from_numpy(ts).float()
     assert torch.equal(bm.evaluate(s, t), bm.value(t) - bm.value(s))
     assert torch.equal(bm.value(0.3), bm.value(torch.full((len(TIMES),), 0.3)))
-    with pytest.raises(SpaceTimeLevyNotPortedError, match="srk"):
-        BrownianPath(bm.key, 0.0, 1.0, (3,), levy_area="space-time")
+    st = BrownianPath(bm.key, 0.0, 1.0, (3,), levy_area="space-time")
+    w, h = st.value(torch.from_numpy(ts).float())
+    assert w.shape == h.shape == (len(TIMES), 3)
+    assert torch.equal(w[0], torch.zeros(3)) and torch.equal(h[0], torch.zeros(3))
+    with pytest.raises(ValueError, match="levy_area"):
+        BrownianPath(bm.key, 0.0, 1.0, (3,), levy_area="space-time-time")
     with pytest.raises(ValueError, match="int64"):
         BrownianPath(bm.key.to(torch.int32), 0.0, 1.0, (3,))
 

@@ -26,7 +26,10 @@ kernels against their plain versions (loss float32 1e-5, bfloat16 3e-2;
 dlogits float32 1e-5, bfloat16 one ulp), rows invariant bitwise, and a
 smoke LM training step's loss through them; the paper's baselines: the
 backsolve and checkpoint ELBO gradients against the CPU's, and a
-bf16_compute training step.
+bf16_compute training step; the srk solver's space-time kernels
+(``space_time_increment``, ``space_time_value``) bitwise against their
+plain versions, counted and checked, and the srk checkpoint ELBO gradient
+against the CPU's.
 
 These need an NVIDIA GPU with nvcc (the kernels have no CPU mode); each test
 skips without one.  On the GPU machine::
@@ -116,6 +119,10 @@ def test_each_launch_is_counted_once(cuda):
     t = torch.rand(4, device=cuda)
     ops.brownian_value(keys, t, 0.0, 1.0, (16,), torch.float32)
     ops.brownian_value(keys, t, 0.0, 1.0, (16,), torch.float32, use_kernel=False)
+    ops.space_time_increment(keys, 0, (16,), torch.float32, 0.1)
+    ops.space_time_increment(keys, 0, (16,), torch.float32, 0.1, use_kernel=False)
+    ops.space_time_value(keys, t, 0.0, 1.0, (16,), torch.float32)
+    ops.space_time_value(keys, t, 0.0, 1.0, (16,), torch.float32, use_kernel=False)
     q = torch.rand(1, 2, 5, 16, device=cuda)
     ops.flash_attention(q, q, q)
     ops.flash_attention(q, q, q, use_kernel=False)
@@ -131,7 +138,8 @@ def test_each_launch_is_counted_once(cuda):
     assert ops.launch_counts() == {"rev_heun_phase1": 1, "rev_heun_phase2": 1,
                                    "rev_heun_bwd_phase1": 1, "rev_heun_bwd_phase2": 1,
                                    "rev_heun_phase1_gen": 1, "brownian_increment": 1,
-                                   "brownian_value": 1, "flash_attention": 1, "ssd_chunk": 1,
+                                   "brownian_value": 1, "space_time_increment": 1,
+                                   "space_time_value": 1, "flash_attention": 1, "ssd_chunk": 1,
                                    "fused_mlp": 1, "fused_mlp_bwd": 0, "fused_xent": 1,
                                    "fused_xent_bwd": 1}
 
@@ -817,3 +825,70 @@ def test_fused_xent_node_and_lm_training_step(cuda):
     logits, _ = T.lm_forward(params, cfg, batch["tokens"])
     want = T.softmax_xent(logits, batch["labels"])
     assert torch.allclose(m["xent"], want, rtol=1e-5)
+
+
+# -----------------------------------------------------------------------------
+# the srk solver's space-time draws (the port's own kernels)
+# -----------------------------------------------------------------------------
+
+ST_CASES = [(1, (64, 17)), (1, (256, 32))] + [
+    (rows, shape) for rows in (1, 64, 1000, 1024) for shape in ((1,), (8,), (17,))]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,shape", ST_CASES)
+def test_space_time_increment_bitwise_equals_plain_version(cuda, dtype, rows, shape):
+    g = torch.Generator().manual_seed(rows)
+    keys = torch.randint(0, 2 ** 32, (rows, 2), generator=g, dtype=torch.int64).to(cuda)
+    got = ops.space_time_increment(keys, 9, shape, dtype, 1.0 / 23)
+    want = ops.space_time_increment(keys, 9, shape, dtype, 1.0 / 23, use_kernel=False)
+    assert all(a.shape == (rows, *shape) and torch.equal(a, b) for a, b in zip(got, want))
+    again = ops.space_time_increment(keys, 9, shape, dtype, 1.0 / 23)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,shape", ST_CASES)
+@pytest.mark.parametrize("depth", [0, 1, 10, 24])
+def test_space_time_value_bitwise_equals_plain_version(cuda, dtype, rows, shape, depth):
+    g = torch.Generator().manual_seed(rows + depth)
+    keys = torch.randint(0, 2 ** 32, (rows, 2), generator=g, dtype=torch.int64).to(cuda)
+    for t in (torch.zeros(rows), torch.ones(rows), torch.full((rows,), 0.375),
+              torch.rand(rows, generator=g, dtype=torch.float64)):
+        t = t.to(dtype=dtype, device=cuda)
+        got = ops.space_time_value(keys, t, 0.0, 1.0, shape, dtype, depth)
+        want = ops.space_time_value(keys, t, 0.0, 1.0, shape, dtype, depth, use_kernel=False)
+        assert all(a.shape == (rows, *shape) and torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_space_time_kernels_are_counted_and_refuse_bad_operands(cuda):
+    from repro_torch.kernels import brownian as bk
+
+    keys = torch.zeros(3, 2, dtype=torch.int64, device=cuda)
+    t = torch.zeros(3, device=cuda)
+    ops.reset_launch_counts()
+    ops.space_time_increment(keys, 0, (4,), torch.float32, 0.1)
+    ops.space_time_value(keys, t, 0.0, 1.0, (4,), torch.float32, 10)
+    counts = ops.launch_counts()
+    assert counts["space_time_increment"] == counts["space_time_value"] == 1
+    with pytest.raises(ValueError, match="depth"):
+        bk.space_time_value(keys, t, 0.0, 1.0, (4,), torch.float32, bk.SPACE_TIME_MAX_DEPTH + 1)
+    with pytest.raises(ValueError, match="t must be"):
+        bk.space_time_value(keys, t.double(), 0.0, 1.0, (4,), torch.float32, 10)
+    with pytest.raises(ValueError, match="CUDA"):
+        bk.space_time_increment(keys.cpu(), 0, (4,), torch.float32, 0.1)
+
+
+def test_srk_elbo_gradients_on_the_card_match_the_cpu(cuda):
+    """The srk checkpoint ELBO gradient with the fields through the MLP
+    kernels and the draws through ``space_time_increment``, against the
+    port's CPU result: ≤ 1e-9 relative L1 in float64; no other Brownian
+    kernel launches."""
+    ops.reset_launch_counts()
+    got = _terminal_grads(cuda, "checkpoint", "srk")
+    counts = ops.launch_counts()
+    want = _terminal_grads("cpu", "checkpoint", "srk")
+    num = sum((a - b).abs().sum().item() for a, b in zip(got, want))
+    assert num / sum(b.abs().sum().item() for b in want) <= 1e-9
+    assert counts["space_time_increment"] > 0
+    assert counts["brownian_increment"] == counts["brownian_value"] == 0

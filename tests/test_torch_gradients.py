@@ -497,7 +497,7 @@ def test_train_cli_refuses_conflicting_adjoints():
 @pytest.fixture
 def counted_kernels(monkeypatch):
     """Every depth-1 field through ``fused_mlp``'s node and the Brownian
-    draws through their launcher, each launch a counted plain version."""
+    draws through their launchers, each launch a counted plain version."""
 
     def fwd(*args):
         fm.LAUNCHES["fused_mlp"] += 1
@@ -517,13 +517,18 @@ def counted_kernels(monkeypatch):
     monkeypatch.setattr(nn_core, "_fusable", lambda layers, x, act: (
         len(layers) == 2 and act is nn_core.lipswish and all("b" in p for p in layers)))
     monkeypatch.setattr(nn_core, "_mlp_dispatch", dispatch)
-    increment = ops.brownian_increment
+    originals = {name: getattr(ops, name) for name in
+                 ("brownian_increment", "brownian_value", "space_time_increment",
+                  "space_time_value")}
 
-    def counted_increment(*args, **kw):
-        bk.LAUNCHES["brownian_increment"] += 1
-        return increment(*args, **kw)
+    def counted(name):
+        def call(*args, **kw):
+            bk.LAUNCHES[name] += 1
+            return originals[name](*args, **kw)
+        return call
 
-    monkeypatch.setattr(ops, "brownian_increment", counted_increment)
+    for name in originals:
+        monkeypatch.setattr(ops, name, counted(name))
     ops.reset_launch_counts()
     yield ops
     ops.reset_launch_counts()

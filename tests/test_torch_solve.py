@@ -21,7 +21,7 @@ from repro.core.solve import solve as jax_solve
 from repro.nn.core import mlp as jax_mlp
 from repro.nn.core import tcat as jax_tcat
 from repro_torch.checkpoint import params_from_jax
-from repro_torch.core import BrownianPath, NotPortedError, solve
+from repro_torch.core import BrownianPath, solve
 from repro_torch.nn import mlp, tcat
 
 TRAJ_TOL = {"float32": dict(rtol=2e-5, atol=2e-6), "float64": dict(rtol=1e-11, atol=1e-13)}
@@ -98,7 +98,7 @@ def _solve(**kw):
 @pytest.mark.parametrize("kw,err,match", [
     (dict(solver="midpoint", gradient_mode="discretise", use_pallas_kernels=True), ValueError,
      "no fused kernel path"),
-    (dict(solver="srk"), NotPortedError, "not ported"),
+    (dict(solver="srk", gradient_mode="discretise"), ValueError, "space-time"),
     (dict(solver="rk4"), ValueError, "unknown solver"),
     (dict(gradient_mode="continuous_adjoint"), ValueError, "does not support"),
     (dict(gradient_mode="checkpoint"), ValueError, "terminal-value cotangent"),

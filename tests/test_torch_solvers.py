@@ -33,7 +33,7 @@ from repro.core.brownian import BrownianPath as JaxBrownianPath
 from repro.nn.core import mlp as jax_mlp
 from repro.nn.core import tcat as jax_tcat
 from repro_torch.checkpoint import params_from_jax
-from repro_torch.core import BrownianPath, NotPortedError
+from repro_torch.core import BrownianPath
 from repro_torch.core import solvers as tsolvers
 from repro_torch.core.solve import (
     SOLVERS,
@@ -257,28 +257,36 @@ def test_field_times_are_the_compiled_references(solver):
 
 
 def test_gradient_capabilities_are_the_references_without_srk():
-    want = {mode: tuple(s for s in solvers if s != "srk")
-            for mode, solvers in jsolve.gradient_capabilities().items()}
+    """The capability table, srk included since the srk slice: the
+    reference's, mode for mode and in its order."""
+    want = jsolve.gradient_capabilities()
     assert gradient_capabilities() == want
     assert list(gradient_capabilities()) == list(want)
+    assert "srk" in gradient_capabilities()["checkpoint"]
 
 
-@pytest.mark.parametrize("name", BASELINES + ["reversible_heun"])
+@pytest.mark.parametrize("name", BASELINES + ["reversible_heun", "srk"])
 def test_solver_specs_match_the_reference(name):
     got, want = SOLVERS[name], jsolve.SOLVERS[name]
     assert (got.nfe_per_step, got.strong_order, got.sde_type, got.gradient_modes,
-            got.supports_pallas, got.noise_types) == (
+            got.supports_pallas, got.noise_types, got.needs_levy_area, got.reversible) == (
         want.nfe_per_step, want.strong_order, want.sde_type, want.gradient_modes,
-        want.supports_pallas, want.noise_types)
+        want.supports_pallas, want.noise_types, want.needs_levy_area, want.reversible)
     assert (got.embedded_stepper is None) == (want.embedded_stepper is None)
     assert got.nfe_per_step == tsolvers.NFE_PER_STEP[name]
 
 
 def test_srk_names_its_roadmap_item():
-    with pytest.raises(NotPortedError, match="space-time Lévy area and srk"):
-        solve(*_torch_fields(), params_from_jax(_params("float32")), torch.zeros(2, D),
-              BrownianPath(torch_keys(key_words(37, 1)[0]), 0.0, 1.0, (2, D)), 0.0, 1.0, 4,
-              solver="srk")
+    """srk is ported (the srk slice): on a plain path it raises the
+    reference's named error, on a space-time path it solves
+    (tests/test_torch_srk.py holds the values against the reference)."""
+    args = (*_torch_fields(), params_from_jax(_params("float32")), torch.zeros(2, D))
+    key = torch_keys(key_words(37, 1)[0])
+    with pytest.raises(ValueError, match="levy_area='space-time'"):
+        solve(*args, BrownianPath(key, 0.0, 1.0, (2, D)), 0.0, 1.0, 4, solver="srk")
+    traj = solve(*args, BrownianPath(key, 0.0, 1.0, (2, D), levy_area="space-time"), 0.0,
+                 1.0, 4, solver="srk")
+    assert traj.shape == (5, 2, D) and torch.isfinite(traj).all()
 
 
 # -----------------------------------------------------------------------------
