@@ -22,11 +22,12 @@ non-zero and the final result line is never printed):
    bfloat16 (6e-2) and float64 (1e-12) at every field shape of the ELBO,
    the SDE-GAN generator and discriminator (xi 2 → 32 → 16, g 17 → 32 →
    32) and the adaptive burst, 96 → 48 → 24 and a 512-wide MLP
-   (MLP_SHAPES), at 1, 300 and 1024 rows; rows invariant bitwise (1 vs
-   1000 vs 1024); timed at MLP_TIMED (the training batches, the 1024-row
-   decode bucket's 17 → 32 → 16, nu, the SDE-GAN sigma, the
-   discriminator's g, the burst) beside the plain version, the layer loop the fields ran before
-   (1024-row blocks) and the bound.  Its backward kernel ``fused_mlp_bwd``
+   (MLP_SHAPES), at 1, 300 and 1024 rows; at every width two launches
+   alike and rows invariant bitwise (1 vs 1000 vs 1024); timed at
+   MLP_TIMED (the training batches, the 1024-row decode bucket's 17 → 32
+   → 16, nu, the SDE-GAN sigma, the discriminator's g, the burst) beside
+   the plain version, the layer loop the fields ran before (1024-row
+   blocks) and the bound.  Its backward kernel ``fused_mlp_bwd``
    (one thread-block cluster, products on the tensor cores) against
    ``ref.fused_mlp_bwd`` at MLP_SHAPES × rows MLP_BWD_ROWS (1 to 4096:
    several tiles a block) in the three dtypes (MLP_TOL), two launches
@@ -153,8 +154,10 @@ non-zero and the final result line is never printed):
    (W, ∫W) bridge descent) — bitwise against their plain versions at rows
    LEVY_ROWS × sizes LEVY_SIZES (and the ELBO's one key over 64 × 17),
    float32 and float64, depths LEVY_DEPTHS, at t0, t1, a dyadic and random
-   times; two launches the same bits, a row's bits the same at 1 and 1024
-   rows; timed beside their bounds at the srk ELBO's and the adaptive srk
+   times, and ``space_time_value`` at LEVY_DEEP_SIZES × LEVY_DEEP (100 and
+   512 levels, past its ring of 16; a float32 descent from t0 past ~150
+   levels is NaN in both, at the same places); two launches the same bits,
+   a row's bits the same at 1 and 1024 rows; timed beside their bounds at the srk ELBO's and the adaptive srk
    gradient's shapes.  The srk strong-order gate of
    benchmarks/convergence.py:srk_frontier at its tiny preset (GBM μ 0.7,
    σ 0.5, 512 paths, a float64 space-time ``DenseBrownianPath`` of
@@ -289,15 +292,23 @@ Each phase's wall is printed as a ``[phase] <name>: <s> s`` line as it ends.
    service's for ``brownian_value``, the LM serves' for
    ``flash_attention`` and ``ssd_chunk``; ``ptxas``: the registers,
    shared memory and spills of ``brownian_value``, the float32 attention,
-   ``ssd_chunk`` and ``fused_mlp_bwd``, compiled once more with ``-Xptxas -v`` in the
-   background) and, last, the result line ``{"ok": true, "device":
+   ``ssd_chunk``, ``fused_mlp_bwd``, ``fused_mlp``'s 17 → 32 → 16
+   instantiations and the two space-time kernels, compiled once more with
+   ``-Xptxas -v`` in the background) and, last, the result line ``{"ok": true, "device":
    {...}}``.
 
 ``mlp_bwd_split(cu_path, cuts)`` and ``mlp_bwd_stamps(cu_path, marks)``
 (not run by ``main``) measure where a ``fused_mlp_bwd`` launch's time
 goes: throwaway builds of its source cut short at the stages of
 PARENT_BWD_CUTS / BWD_CUTS, or recording clock64 at BWD_MARKS, in a
-temporary directory.  ``drain_in_turns(parent_root)`` (neither) times phase 10's
+temporary directory.  ``mlp_fwd_stamps(cu_path, marks)`` and
+``st_value_stamps(cu_path, marks)`` record the same stamps in
+``fused_mlp`` (FWD_MARKS, or PARENT_FWD_MARKS in a parent tree's source)
+and ``space_time_value`` (ST_MARKS, PARENT_ST_MARKS);
+``kernels_in_turns(parent_root)`` (not run by ``main``) times those two
+kernels through the port's launchers with the parent tree's build of the
+kernels and with this one's, in turns, their outputs bitwise alike.
+``drain_in_turns(parent_root)`` (neither) times phase 10's
 adaptive serving drain in another tree and this one, in turns;
 ``ssd_in_turns(parent_root)`` (neither) times ``ssd_chunk`` and
 mamba2-1.3b's prefill there and here, in turns; ``elbo_in_turns``
@@ -578,6 +589,10 @@ SRK_VARIANTS = {"srk/discretise": dict(solver="srk"),
 LEVY_ROWS = (1, 64, 1000, 1024)
 LEVY_SIZES = (1, 8, 17)
 LEVY_DEPTHS = (0, 1, 10, 24)
+# space_time_value past its ring of levels (csrc/rev_heun.cu kStRing = 16: the
+# walker waits for the combiner to free a slot)
+LEVY_DEEP = (100, 512)
+LEVY_DEEP_SIZES = [(1, (256, 32)), (1024, (32,))]
 # benchmarks/convergence.py:srk_frontier, its tiny preset
 SRK_MU, SRK_SIGMA = 0.7, 0.5
 SRK_FINE = 4096
@@ -811,9 +826,11 @@ def mlp_checks(ops, dev) -> tuple:
                       f"fused_mlp {dtype} rows={rows} {(din, h, dout)}: kernel != plain "
                       f"(max |Δ| {d}, tolerance {tol})")
                 errs[dtype] = max(errs.get(dtype, 0.0), d)
-        for din, h, dout in ((17, 32, 16), (32, 64, 32), (512, 512, 512)):
+        for din, h, dout in MLP_SHAPES:
             x, *w = _mlp_operands(g, dev, dtype, 1024, din, h, dout)
             full = ops.fused_mlp(x, *w)
+            check(torch.equal(ops.fused_mlp(x, *w), full),
+                  f"fused_mlp {dtype} {(din, h, dout)}: two launches differ")
             check(torch.equal(ops.fused_mlp(x[:1000].contiguous(), *w), full[:1000])
                   and all(torch.equal(ops.fused_mlp(x[r:r + 1].contiguous(), *w)[0], full[r])
                           for r in (0, 511, 999, 1023)),
@@ -821,7 +838,8 @@ def mlp_checks(ops, dev) -> tuple:
                   f"1024-row launches")
         print(f"fused_mlp {str(dtype)[6:]}: kernel vs plain max |Δ| {errs[dtype]:.3g} (tol "
               f"{MLP_TOL[dtype]}) over (Din, H, Dout) in {MLP_SHAPES} x rows {{1, 300, "
-              f"1024}}; rows invariant bitwise (1 vs 1000 vs 1024)", flush=True)
+              f"1024}}; at every width two launches alike and rows invariant bitwise (1 vs "
+              f"1000 vs 1024)", flush=True)
 
     rows_out = {}
     for tag, rows, din, h, dout in MLP_TIMED:
@@ -1415,6 +1433,18 @@ def _same(got, want) -> tuple:
     return all(torch.equal(a, b) for a, b in zip(got, want)) and err == 0.0, err
 
 
+def _same_nan(got, want) -> tuple:
+    """``_same`` where NaN equals NaN: ``(alike, max |Δ| off the NaNs, NaNs)``.
+    A float32 descent past ~150 levels from t0 underflows the interval's
+    length to 0 and divides by it, in the plain version as in the kernel."""
+    nan = [a.isnan() for a in want]
+    alike = all(torch.equal(a.isnan(), m) and torch.equal(a[~m], b[~m])
+                for a, b, m in zip(got, want, nan))
+    err = max(((a - b)[~m].abs().max().item() if (~m).any() else 0.0)
+              for a, b, m in zip(got, want, nan))
+    return alike, err, sum(int(m.sum()) for m in nan)
+
+
 def st_kernel_checks(ops, dev) -> tuple:
     """The two space-time kernels bitwise against their plain versions, two
     launches alike, a row's bits independent of the rows beside it; timed
@@ -1463,10 +1493,40 @@ def st_kernel_checks(ops, dev) -> tuple:
                               f"differs at 1 vs 1024 rows")
                     n_calls += 1
             torch.cuda.empty_cache()
+    # past the ring of levels: the adaptive srk gradient's key over (256, 32)
+    # and 1024 rows of 32, at depths 100 and 512 (NaN where the plain version
+    # has NaN, at the same places)
+    deep_nans = 0
+    for dtype in (torch.float32, torch.float64):
+        for rows, shape in LEVY_DEEP_SIZES:
+            keys = torch.randint(0, 2 ** 32, (rows, 2), generator=g,
+                                 dtype=torch.int64).to(dev)
+            for depth in LEVY_DEEP:
+                for t in _st_times(g, rows, dtype, dev):
+                    val = lambda uk: ops.space_time_value(keys, t, 0.0, 1.0, shape, dtype,
+                                                          depth, use_kernel=uk)
+                    got, again, want = val(True), val(True), val(False)
+                    torch.cuda.synchronize()
+                    same, e, nans = _same_nan(got, want)
+                    check(same and _same_nan(got, again)[0],
+                          f"space_time_value {dtype} rows={rows} {shape} depth={depth}: "
+                          f"kernel != plain (max |Δ| {e}, {nans} NaN in the plain version) "
+                          f"or two launches differ")
+                    errs["space_time_value"] = max(errs["space_time_value"], e)
+                    deep_nans += nans
+                    if rows == 1024:
+                        one = ops.space_time_value(keys[5:6].contiguous(), t[5:6].contiguous(),
+                                                   0.0, 1.0, shape, dtype, depth)
+                        check(_same_nan([a[0] for a in one], [b[5] for b in got])[0],
+                              f"space_time_value {dtype} {shape} depth={depth}: row 5 "
+                              f"differs at 1 vs 1024 rows")
+                    n_calls += 1
+                torch.cuda.empty_cache()
     print(f"bitwise: space_time_increment and space_time_value x {{float32, float64}} x "
-          f"(rows, shape) in {sizes} x depth {LEVY_DEPTHS} ({n_calls} cases, "
-          f"t0/t1/dyadic/random times): kernel == plain, two launches alike, rows "
-          f"independent", flush=True)
+          f"(rows, shape) in {sizes} x depth {LEVY_DEPTHS}, and space_time_value at "
+          f"{LEVY_DEEP_SIZES} x depth {LEVY_DEEP} ({n_calls} cases, t0/t1/dyadic/random "
+          f"times): kernel == plain, two launches alike, rows independent ({deep_nans} "
+          f"elements NaN in both at the deep depths)", flush=True)
     timed = {}
     keys1 = torch.randint(0, 2 ** 32, (1, 2), generator=g, dtype=torch.int64).to(dev)
     key0 = keys1[0].contiguous()
@@ -2083,6 +2143,108 @@ def smoke_in_turns(parent_root: str, log_dir: str) -> dict:
     return runs
 
 
+# space_time_value's in-turns shapes: row 13's, the adaptive srk gradient's
+# one key over (256, 32) in float64, at bridge depths 10 and 24
+ST_TIMED = [(f"space_time_value 1x(256, 32) f64 depth {depth}", depth) for depth in (10, 24)]
+
+
+@contextlib.contextmanager
+def _library(lib):
+    """Route the port's launchers through ``lib`` (a loaded library with the
+    same entry points) for the ``with`` body."""
+    from repro_torch.kernels import build
+
+    saved = build._lib
+    build._lib = lib
+    try:
+        yield
+    finally:
+        build._lib = saved
+
+
+def _parent_library(parent_root: str, tmp: str, entries):
+    """The kernels' library built from the sources of the tree at
+    ``parent_root`` (one nvcc a source, started together, then the link),
+    loaded with this tree's signatures for ``entries``."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    csrc = os.path.join(os.path.abspath(parent_root), "src", "repro_torch", "kernels", "csrc")
+    sources = sorted(f for f in os.listdir(csrc) if f.endswith(".cu"))
+    objs = [os.path.join(tmp, f[:-3] + ".o") for f in sources]
+    build._run_all([[build._nvcc(), *build.NVCC_FLAGS, *_LOCAL_STATICS, "-I", csrc, "-c",
+                     "-o", o, os.path.join(csrc, f)] for f, o in zip(sources, objs)])
+    so = os.path.join(tmp, "parent.so")
+    build._run_all([[build._nvcc(), build.ARCH_FLAG, "-shared", "-o", so, *objs]])
+    lib = ctypes.CDLL(so)
+    for name in entries:
+        fn = getattr(lib, name)
+        fn.argtypes = list(build.SIGNATURES[name])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def kernels_in_turns(parent_root: str) -> dict:
+    """The two kernels this tree redesigned against the parent's build of
+    them, through the port's launchers on one card: ``fused_mlp`` float32
+    at MLP_TIMED and ``space_time_value`` at ST_TIMED, with the library
+    built from the tree at ``parent_root`` and with this tree's, in turns
+    (parent, this, this, parent), device and host ms a call by time_ms.
+    Each output of this tree's kernels must be bitwise the parent's (the
+    redesigns keep every element's op order).  ``{case: {tree: [[device
+    ms, host ms], ...]}}``, printed with the launch floor and the card.
+    Run it as ``python3 -c "import chip_smoke as C;
+    C.kernels_in_turns('build/parent')"`` after unpacking the parent commit
+    there (``git archive``)."""
+    from repro_torch.kernels import build, ops
+
+    dev = torch.device("cuda")
+    tmp = tempfile.mkdtemp(prefix="parent_lib_")
+    try:
+        libs = {"parent": _parent_library(parent_root, tmp,
+                                          ("rt_fused_mlp", "rt_space_time_value")),
+                "this": build.load()}
+        g = torch.Generator().manual_seed(26)
+        calls = {}
+        for tag, rows, din, h, dout in MLP_TIMED:
+            x, *w = _mlp_operands(g, dev, torch.float32, rows, din, h, dout)
+            calls[f"fused_mlp {tag} f32 {(rows, din, h, dout)}"] = (
+                lambda x=x, w=w: ops.fused_mlp(x, *w))
+        keys = torch.randint(0, 2 ** 32, (1, 2), generator=g, dtype=torch.int64).to(dev)
+        t = torch.tensor([0.4375], dtype=torch.float64, device=dev)
+        for tag, depth in ST_TIMED:
+            calls[tag] = lambda depth=depth: ops.space_time_value(
+                keys, t, 0.0, 1.0, (256, 32), torch.float64, depth)
+        outs = {}
+        for tree in ("parent", "this"):
+            with _library(libs[tree]):
+                outs[tree] = {case: fn() for case, fn in calls.items()}
+        torch.cuda.synchronize()
+        for case in calls:
+            a, b = outs["parent"][case], outs["this"][case]
+            same = (all(torch.equal(u, v) for u, v in zip(a, b)) if isinstance(a, tuple)
+                    else torch.equal(a, b))
+            check(same, f"kernels_in_turns {case}: this tree's kernel differs from the parent's")
+        runs = {case: {"parent": [], "this": []} for case in calls}
+        for tree in ("parent", "this", "this", "parent"):
+            with _library(libs[tree]):
+                for case, fn in calls.items():
+                    runs[case][tree].append(list(time_ms(fn)))
+        floor = launch_floor()
+        for case, r in runs.items():
+            med = {tree: [statistics.median(v[i] for v in r[tree]) for i in (0, 1)]
+                   for tree in r}
+            print(f"in turns {case}: parent {med['parent'][0]:.5f} ms (host "
+                  f"{med['parent'][1]:.5f}), this {med['this'][0]:.5f} ms (host "
+                  f"{med['this'][1]:.5f}); runs {r}", flush=True)
+        print(f"outputs of this tree's kernels bitwise the parent's in every case; launch "
+              f"floor {floor['launch_floor_ms']:.5f} ms; card: {gpu_label()}", flush=True)
+        return runs
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # Cut points of fused_mlp_bwd for mlp_bwd_split, (label, [(anchor, code),
 # ...]): the variant "cut after <label>" inserts each `code` after the first
 # occurrence of its `anchor` in the source, so that every block ends there
@@ -2125,51 +2287,27 @@ _LOCAL_STATICS = ("-Xcompiler", "-fno-gnu-unique")
 
 def mlp_bwd_split(cu_path: str, cuts,
                   shapes=((64, 17, 32, 16), (1024, 17, 32, 16))) -> dict:
-    """Where one fused_mlp_bwd launch's time goes, float32: the backward's
-    source at ``cu_path`` built whole and once cut after each of ``cuts``
-    (PARENT_BWD_CUTS or BWD_CUTS), each variant a throwaway library in a
-    temporary directory (the repo's kernels are not touched), each timed by
-    CUDA events (time_ms) at ``shapes`` (R, Din, H, Dout), in two passes in
-    opposite order.  A variant computes only what precedes its cut, so the
-    differences between consecutive variants are the stages' times.
-    -> {"R×Din→H→Dout": {variant: [ms, ms]}}."""
-    import ctypes
-
-    from repro_torch.kernels import build
-
+    """Where one fused_mlp_bwd launch's time goes, float32:
+    :func:`source_variants` of the backward's source at ``cu_path``, as it
+    is and cut after each of ``cuts`` (PARENT_BWD_CUTS or BWD_CUTS: each
+    `code` inserted after the line that ends its `anchor`), at ``shapes``
+    (R, Din, H, Dout).  A variant computes only what precedes its cut, so
+    the differences between consecutive variants are the stages' times.
+    -> {"R×Din→H→Dout f32": {variant: [ms, ms]}}"""
     src = open(cu_path).read()
     variants = []
     for label, inserts in cuts:
-        text = src
+        edits = []
         for anchor, code in inserts:
-            at = text.find(anchor)
+            at = src.find(anchor)
             check(at >= 0, f"mlp_bwd_split: no anchor {anchor!r} for {label!r} in {cu_path}")
-            at = text.index("\n", at + len(anchor) - 1) + 1
-            text = text[:at] + code + text[at:]
-        variants.append((f"cut after {label}", text))
-    variants.append(("whole kernel", src))
-    tmp = tempfile.mkdtemp(prefix="bwd_split_")
-    try:
-        cmds, libs = [], []
-        for i, (_, text) in enumerate(variants):
-            cu = os.path.join(tmp, f"v{i}.cu")
-            with open(cu, "w") as f:
-                f.write(text)
-            libs.append(os.path.join(tmp, f"v{i}.so"))
-            cmds.append([build._nvcc(), *build.NVCC_FLAGS, *_LOCAL_STATICS, "-I",
-                         os.path.dirname(os.path.abspath(cu_path)), "-shared", "-o", libs[-1],
-                         cu])
-        build._run_all(cmds)
-        fns = []
-        for path in libs:
-            fn = ctypes.CDLL(path).rt_fused_mlp_bwd
-            fn.argtypes = list(build.SIGNATURES["rt_fused_mlp_bwd"])
-            fn.restype = ctypes.c_int
-            fns.append(fn)
-        dev = torch.device("cuda")
+            line = src[at:src.index("\n", at + len(anchor) - 1) + 1]
+            edits.append((line, line + code))
+        variants.append((f"cut after {label}", edits, False))
+
+    def cases(dev):
         scratch = torch.zeros(4 << 20, dtype=torch.uint8, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        out = {}
         for rows, din, h, dout in shapes:
             g0 = torch.Generator().manual_seed(7)
             x, *w = _mlp_operands(g0, dev, torch.float32, rows, din, h, dout)
@@ -2178,21 +2316,13 @@ def mlp_bwd_split(cu_path: str, cuts,
             args = (0, x.data_ptr(), w[0].data_ptr(), w[1].data_ptr(), w[2].data_ptr(),
                     g.data_ptr(), dout, 1, *(t.data_ptr() for t in grads), scratch.data_ptr(),
                     scratch.numel(), rows, din, h, dout, stream)
-            tag = f"{rows}x{din}->{h}->{dout}"
-            times = {label: [] for label, _ in variants}
-            for order in (range(len(fns)), reversed(range(len(fns)))):
-                for i in order:
-                    err = fns[i](*args)
-                    check(err == 0, f"mlp_bwd_split: {variants[i][0]} at {tag}: cudaError {err}")
-                    times[variants[i][0]].append(time_ms(lambda: fns[i](*args))[0])
-            out[tag] = times
-            for label, ms in times.items():
-                print(f"fused_mlp_bwd split {tag} f32: {label}: "
-                      f"{' / '.join(f'{t:.5f}' for t in ms)} ms", flush=True)
-        print(f"card: {gpu_label()}", flush=True)
-        return out
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+
+            def run(fn, args=args, grads=grads):
+                check(fn(*args) == 0, "mlp_bwd_split: the launch failed")
+                return grads
+            yield f"{rows}x{din}->{h}->{dout} f32", run
+
+    return source_variants(cu_path, "rt_fused_mlp_bwd", variants, cases, "fused_mlp_bwd")
 
 
 # Stage marks of the cluster kernel for mlp_bwd_stamps, (label, anchor):
@@ -2212,9 +2342,55 @@ BWD_MARKS = [
     ("the slices arrive", "    tc::mbar_wait(bar, 0);  // every block's slice for me has"),
     ("end", "    else db2[e - n_w1 - hidden - n_w2] = o;\n  }\n"),
 ]
+# Stage marks of the forward for mlp_fwd_stamps, (label, anchor): in the
+# fixed-width kernel (FWD_MARKS) and in the runtime-width kernel the
+# forward had before it (PARENT_FWD_MARKS, also this tree's generic path).
+FWD_MARKS = [
+    ("start", "  const int nr = static_cast<int>(rows - row0 < kFixedRows ? rows - row0 : "
+              "kFixedRows);\n"),
+    ("the copies issued (cp.async)", "  repro_torch_tc::cp_async_commit();\n"),
+    ("the copies waited for", "  repro_torch_tc::cp_async_wait<0>();\n  __syncthreads();\n"),
+    ("layer 1: pre, a (warp 0)", "  __syncwarp();\n"),
+    ("layer 2 and the store (warp 0)",
+     "        out[(row0 + r) * DOUT + j] = from_acc<T, Acc>(acc[q][m] + to_acc(b2s[j]));\n"
+     "      }\n    }\n  }\n"),
+]
+PARENT_FWD_MARKS = [
+    ("start", "  const int nr = static_cast<int>(rows - row0 < tile ? rows - row0 : tile);\n"),
+    ("the weights and x staged",
+     "  for (int e = tid; e < nr * din; e += kThreads) xs[e] = load(xb + e);\n"
+     "  __syncthreads();\n"),
+    ("pass 1: pre, a", "    as[e] = to_acc(from_acc<T, Acc>(lipswish(pre)));\n  }\n"
+                       "  __syncthreads();\n"),
+    ("pass 2: out", "    ob[e] = from_acc<T, Acc>(acc + (kStaged ? to_acc(b2s[j]) : "
+                    "load(b2 + j)));\n  }\n"),
+]
+# Stage marks of space_time_value for st_value_stamps, (label, anchor,
+# recording thread): the pipelined kernel (ST_MARKS: the walker is thread
+# 0, the combiner thread 128, drawer 1 (warp 2) thread 64) and the one it
+# replaced (PARENT_ST_MARKS).
+ST_MARKS = [
+    ("start", "  if (tid == 0) walked = combined = tail_ready = 0;\n  __syncthreads();\n", 0),
+    ("the root pair (combiner)", "      area = mul(span, add(hr, mul(T(0.5), w)));\n    }\n", 128),
+    ("the walk (walker)", "    publish(&tail_ready, 1, lane);\n", 0),
+    ("drawer 1's levels (warp 2)", "      publish(&drawn[l % kStRing], l + 1, lane);\n    }\n", 64),
+    ("the levels' combine (combiner)", "      publish(&combined, l + 1, lane);\n    }\n", 128),
+    ("the tail and the store (combiner)",
+     "                   mul(sub(mul(T(3), th2), mul(T(2), th3)), area));\n", 128),
+]
+PARENT_ST_MARKS = [
+    ("start", "  const int nr = static_cast<int>(rows - r0 < rpb ? rows - r0 : rpb);\n"),
+    ("1. the walk",
+     "  __syncthreads();\n  // 2. the levels' keys and scales, and the root's keys\n"),
+    ("2. the keys", "  __syncthreads();\n  // 3. combine: element e of row r\n"),
+    ("3. the draws and the combine, a thread an element, and the store",
+     "                 mul(sub(mul(T(3), th2), mul(T(2), th3)), area));\n"),
+]
+_STAMP_BLOCKS, _STAMP_MARKS = 1024, 16
 _STAMPS = r"""
-__device__ long long repro_stamps[64 * 16 * 2];
-#define REPRO_STAMP(k) do { if (threadIdx.x == 0) { unsigned long long n_; \
+__device__ long long repro_stamps[1024 * 16 * 2];
+#define REPRO_STAMP(k, th) do { if (threadIdx.x == (th) && blockIdx.x < 1024) { \
+  unsigned long long n_; \
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(n_)); \
   repro_stamps[(blockIdx.x * 16 + (k)) * 2] = clock64(); \
   repro_stamps[(blockIdx.x * 16 + (k)) * 2 + 1] = (long long)n_; } } while (0)
@@ -2222,36 +2398,46 @@ extern "C" int repro_read_stamps(long long* out) {
   return (int)cudaMemcpyFromSymbol(out, repro_stamps, sizeof(repro_stamps));
 }
 extern "C" int repro_clear_stamps(void) {
-  static long long zero[64 * 16 * 2];
+  static long long zero[1024 * 16 * 2];
   return (int)cudaMemcpyToSymbol(repro_stamps, zero, sizeof(zero));
 }
 """
 
 
-def mlp_bwd_stamps(cu_path: str, marks, shapes=((64, 17, 32, 16), (1024, 17, 32, 16)),
-                   runs: int = 21) -> dict:
-    """Where one fused_mlp_bwd launch's time goes inside the blocks, float32:
-    the source at ``cu_path`` built once more (a throwaway library in a
-    temporary directory) with thread 0 of every block recording clock64 and
-    %globaltimer after each of ``marks`` (BWD_MARKS); ``runs`` synchronised
-    launches at each of ``shapes``, the stamps cleared before each.  Prints,
-    for block 0 and the block whose stages sum to the most, the median
-    cycles and ns from one mark it passed to the next (a block without
-    rows skips the tiles' marks) and the start's lag behind the earliest
-    block of the cluster (the plan's blocks, ``fused_mlp.bwd_plan``).  ->
-    {shape: {block: {stage: [cycles, ns]}}}"""
+def kernel_stamps(cu_path: str, entry: str, marks, cases, what: str, runs: int = 21,
+                  edits=()) -> dict:
+    """Where one launch's time goes inside its blocks: the source at
+    ``cu_path`` built once more (a throwaway library in a temporary
+    directory; the repo's kernels are not touched) with one thread of every
+    block recording clock64 and %globaltimer after each of ``marks``
+    ((label, anchor[, thread]): after the line that ends the anchor, thread
+    0 unless given).  ``cases``
+    is a function of the card and the loaded library's entry point
+    returning ``[(tag, call)]``, ``call()`` one launch of ``entry`` that
+    returns its error code; ``runs`` synchronised launches each, the
+    stamps cleared before each; ``edits`` ((old, new) pairs, a variant's)
+    change the source first.  Prints, for block 0 and the block whose
+    stages sum to the most, the median cycles and ns from one mark it
+    passed to the next (a block that skips a mark skips its stage) and the
+    start's lag behind the earliest block.  -> {tag: {block: {stage:
+    [cycles, ns, ns since the start], "start_lag_ns": ns}}}"""
     import ctypes
 
-    from repro_torch.kernels import build, fused_mlp as fm
+    from repro_torch.kernels import build
 
+    check(len(marks) <= _STAMP_MARKS, f"{what} stamps: at most {_STAMP_MARKS} marks")
     text = open(cu_path).read()
-    text = text.replace('#include "tensor_core.cuh"\n', '#include "tensor_core.cuh"\n' + _STAMPS)
-    for k, (label, anchor) in enumerate(marks):
+    for old, new in edits:  # a variant's (ST_VARIANTS), applied before the marks
+        check(old in text, f"{what} stamps: no {old!r} in {cu_path}")
+        text = text.replace(old, new, 1)
+    at = text.index("\nnamespace ") + 1  # the stamps at file scope, before the kernels
+    text = text[:at] + _STAMPS + text[at:]
+    for k, (label, anchor, *thread) in enumerate(marks):
         at = text.find(anchor)
-        check(at >= 0, f"mlp_bwd_stamps: no anchor for {label!r} in {cu_path}")
+        check(at >= 0, f"{what} stamps: no anchor for {label!r} in {cu_path}")
         at = text.index("\n", at + len(anchor) - 1) + 1
-        text = text[:at] + f"  REPRO_STAMP({k});\n" + text[at:]
-    tmp = tempfile.mkdtemp(prefix="bwd_stamps_")
+        text = text[:at] + f"  REPRO_STAMP({k}, {thread[0] if thread else 0});\n" + text[at:]
+    tmp = tempfile.mkdtemp(prefix="stamps_")
     try:
         cu, so = os.path.join(tmp, "stamps.cu"), os.path.join(tmp, "stamps.so")
         with open(cu, "w") as f:
@@ -2259,14 +2445,57 @@ def mlp_bwd_stamps(cu_path: str, marks, shapes=((64, 17, 32, 16), (1024, 17, 32,
         build._run_all([[build._nvcc(), *build.NVCC_FLAGS, *_LOCAL_STATICS, "-I",
                          os.path.dirname(os.path.abspath(cu_path)), "-shared", "-o", so, cu]])
         lib = ctypes.CDLL(so)
-        fn = lib.rt_fused_mlp_bwd
-        fn.argtypes = list(build.SIGNATURES["rt_fused_mlp_bwd"])
+        fn = getattr(lib, entry)
+        fn.argtypes = list(build.SIGNATURES[entry])
         fn.restype = ctypes.c_int
         dev = torch.device("cuda")
+        size = _STAMP_BLOCKS * _STAMP_MARKS * 2
+        buf = (ctypes.c_longlong * size)()
+        slot = lambda b, k: (b * _STAMP_MARKS + k) * 2
+        out = {}
+        for tag, call in cases(dev, fn):
+            samples = []
+            for _ in range(runs):
+                check(lib.repro_clear_stamps() == 0, f"{what} stamps: cannot clear the stamps")
+                check(call() == 0, f"{what} stamps {tag}: the launch failed")
+                torch.cuda.synchronize()
+                check(lib.repro_read_stamps(buf) == 0, f"{what} stamps: no stamps")
+                samples.append(list(buf))
+            blocks = [b for b in range(_STAMP_BLOCKS) if all(s[slot(b, 0)] for s in samples)]
+            out[tag] = {}
+            for b in blocks:
+                seen = [k for k in range(len(marks)) if all(s[slot(b, k)] for s in samples)]
+                stages = {}
+                for j, k in zip(seen, seen[1:]):
+                    cyc = [s[slot(b, k)] - s[slot(b, j)] for s in samples]
+                    ns = [s[slot(b, k) + 1] - s[slot(b, j) + 1] for s in samples]
+                    at = [s[slot(b, k) + 1] - s[slot(b, seen[0]) + 1] for s in samples]
+                    stages[marks[k][0]] = [statistics.median(cyc), statistics.median(ns),
+                                           statistics.median(at)]
+                lag = statistics.median(s[slot(b, 0) + 1] - min(s[slot(q, 0) + 1] for q in blocks)
+                                        for s in samples)
+                out[tag][b] = dict(stages, start_lag_ns=lag)
+            slowest = max(out[tag], key=lambda b: sum(
+                v[1] for k, v in out[tag][b].items() if k != "start_lag_ns"))
+            for b in sorted({0, slowest}):
+                print(f"{what} stamps {tag} block {b} of {len(blocks)}: start lag "
+                      f"{out[tag][b]['start_lag_ns']:.0f} ns; "
+                      + "; ".join(f"{k} {v[0]:.0f} cycles / {v[1]:.0f} ns (at {v[2]:.0f})"
+                                  for k, v in out[tag][b].items() if k != "start_lag_ns"),
+                      flush=True)
+        print(f"card: {gpu_label()}", flush=True)
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def mlp_bwd_stamps(cu_path: str, marks, shapes=((64, 17, 32, 16), (1024, 17, 32, 16)),
+                   runs: int = 21) -> dict:
+    """:func:`kernel_stamps` of one fused_mlp_bwd launch, float32, at
+    ``shapes`` (R, Din, H, Dout), marks BWD_MARKS."""
+    def cases(dev, fn):
         scratch = torch.zeros(4 << 20, dtype=torch.uint8, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        buf = (ctypes.c_longlong * (64 * 16 * 2))()
-        out = {}
         for rows, din, h, dout in shapes:
             g0 = torch.Generator().manual_seed(7)
             x, *w = _mlp_operands(g0, dev, torch.float32, rows, din, h, dout)
@@ -2275,39 +2504,208 @@ def mlp_bwd_stamps(cu_path: str, marks, shapes=((64, 17, 32, 16), (1024, 17, 32,
             args = (0, x.data_ptr(), w[0].data_ptr(), w[1].data_ptr(), w[2].data_ptr(),
                     g.data_ptr(), dout, 1, *(t.data_ptr() for t in grads), scratch.data_ptr(),
                     scratch.numel(), rows, din, h, dout, stream)
-            samples = []
-            for _ in range(runs):
-                check(lib.repro_clear_stamps() == 0, "mlp_bwd_stamps: cannot clear the stamps")
-                check(fn(*args) == 0, "mlp_bwd_stamps: the launch failed")
+            yield f"{rows}x{din}->{h}->{dout} f32", lambda: fn(*args)
+
+    return kernel_stamps(cu_path, "rt_fused_mlp_bwd", marks, cases, "fused_mlp_bwd", runs)
+
+
+def mlp_fwd_stamps(cu_path: str, marks, shapes=((64, 17, 32, 16), (1024, 17, 32, 16)),
+                   runs: int = 21) -> dict:
+    """:func:`kernel_stamps` of one fused_mlp launch, float32, at ``shapes``
+    (R, Din, H, Dout): marks FWD_MARKS for this tree's source,
+    PARENT_FWD_MARKS for the runtime-width kernel it replaced (a parent
+    tree's source).  Run it as ``python3 -c "import chip_smoke as C;
+    C.mlp_fwd_stamps('src/repro_torch/kernels/csrc/fused_mlp.cu',
+    C.FWD_MARKS)"``."""
+    def cases(dev, fn):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for rows, din, h, dout in shapes:
+            x, *w = _mlp_operands(torch.Generator().manual_seed(7), dev, torch.float32, rows,
+                                  din, h, dout)
+            o = torch.empty(rows, dout, device=dev)
+            args = (0, *(t.data_ptr() for t in (x, *w, o)), rows, din, h, dout, stream)
+            yield f"{rows}x{din}->{h}->{dout} f32", lambda: fn(*args)
+
+    return kernel_stamps(cu_path, "rt_fused_mlp", marks, cases, "fused_mlp", runs)
+
+
+def st_value_stamps(cu_path: str, marks, depths=(10, 24), runs: int = 21, edits=()) -> dict:
+    """:func:`kernel_stamps` of one space_time_value launch at row 13's
+    shape (one key over (256, 32), float64) and ``depths``: marks ST_MARKS
+    for this tree's source (``edits``: an ST_VARIANTS entry's),
+    PARENT_ST_MARKS for the kernel it replaced."""
+    from repro_torch.kernels.ref import space_time_scales
+
+    def cases(dev, fn):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        keys = torch.tensor([[12345, 678]], dtype=torch.int64, device=dev)
+        t = torch.tensor([0.4375], dtype=torch.float64, device=dev)
+        w, i = (torch.empty(1, 256 * 32, dtype=torch.float64, device=dev) for _ in range(2))
+        s_w, s_h = space_time_scales(1.0, torch.float64)
+        for depth in depths:
+            args = (1, keys.data_ptr(), t.data_ptr(), 0.0, 1.0, 1.0, s_w, s_h, depth,
+                    w.data_ptr(), i.data_ptr(), 1, 256 * 32, stream)
+            yield f"1x(256, 32) f64 depth {depth}", lambda: fn(*args)
+
+    return kernel_stamps(cu_path, "rt_space_time_value", marks, cases, "space_time_value", runs,
+                         edits)
+
+
+# Source variants for source_variants, (label, [(old, new), ...], exact):
+# the first `old` is replaced by `new`; an exact variant must give the
+# unchanged source's bits.  FWD_VARIANTS cut fused_mlp's fixed-width
+# kernel short (where a launch's device time goes) or change its staging;
+# ST_VARIANTS change space_time_value's waits, block, ring and walk.
+_FWD_START = ("  const int nr = static_cast<int>(rows - row0 < kFixedRows ? rows - row0 : "
+              "kFixedRows);\n")
+_FWD_WAIT = "  repro_torch_tc::cp_async_wait<0>();\n  __syncthreads();\n"
+FWD_VARIANTS = [
+    ("cut at the start", [(_FWD_START, _FWD_START + "  return;\n")], False),
+    ("cut after the copies", [(_FWD_WAIT, _FWD_WAIT + "  return;\n")], False),
+    ("16-byte loads and stores in place of cp.async",
+     [("      repro_torch_tc::cp_async16(repro_torch_tc::smem_addr(reinterpret_cast<char*>(dst)"
+       " + 16 * c),\n                                 reinterpret_cast<const char*>(src) + 16 * "
+       "c, 16);\n",
+       "      *reinterpret_cast<int4*>(reinterpret_cast<char*>(dst) + 16 * c) =\n"
+       "          *reinterpret_cast<const int4*>(reinterpret_cast<const char*>(src) + 16 * c);\n")],
+     True),
+    ("x staged first",
+     [("  stage(w1s, w1, DIN * H, tid);\n", "  stage(xs, x + row0 * DIN, nr * DIN, tid);\n"
+                                            "  stage(w1s, w1, DIN * H, tid);\n"),
+      ("  stage(b2s, b2, DOUT, tid);\n  stage(xs, x + row0 * DIN, nr * DIN, tid);\n",
+       "  stage(b2s, b2, DOUT, tid);\n")], True),
+]
+ST_VARIANTS = [
+    ("the drawers wait for the walk's first kStRing levels (all of them at depth 10)",
+     [("      while (ld_acquire(&walked) <= l) __nanosleep(32);\n",
+       "      while (ld_acquire(&walked) < (depth < kStRing ? depth : kStRing)) __nanosleep(32);\n"
+       "      while (ld_acquire(&walked) <= l) __nanosleep(32);\n")], True),
+    ("the walker publishes every 4 levels",
+     [("      publish(&walked, l + 1, lane);\n",
+       "      if ((l + 1) % 4 == 0 || l + 1 == depth) publish(&walked, l + 1, lane);\n")], True),
+    ("the combiner is warp 1",
+     [("constexpr int kStCombineWarp = 4;", "constexpr int kStCombineWarp = 1;")], True),
+    ("the drawers derive fold_in(c, 1)",
+     [("        uint32_t f0 = ch0, f1 = ch1;  // the midpoint's key, off the chain\n"
+       "        fold_in(f0, f1, 1);\n        sl.c0[lane] = f0;\n        sl.c1[lane] = f1;\n",
+       "        sl.c0[lane] = ch0;\n        sl.c1[lane] = ch1;\n"),
+      ("        uint32_t k0 = sl.c0[r], k1 = sl.c1[r];\n",
+       "        uint32_t k0 = sl.c0[r], k1 = sl.c1[r];\n        fold_in(k0, k1, 1);\n")], True),
+    ("publish after __threadfence_block",
+     [("  __syncwarp();\n  if (lane == 0) st_release(flag, v);",
+       "  __threadfence_block();\n  __syncwarp();\n  if (lane == 0) st_release(flag, v);")], True),
+    ("the combiner sleeps while it waits",
+     [("      while (ld_acquire(&drawn[l % kStRing]) <= l) {\n      }\n",
+       "      while (ld_acquire(&drawn[l % kStRing]) <= l) __nanosleep(16);\n")], True),
+    ("the drawers spin without sleeping",
+     [("      while (ld_acquire(&walked) <= l) __nanosleep(32);\n",
+       "      while (ld_acquire(&walked) <= l) {\n      }\n")], True),
+    ("512 threads a block (14 drawer warps)",
+     [("constexpr int kStThreads = 256;", "constexpr int kStThreads = 512;")], True),
+    ("a ring of 32 levels", [("constexpr int kStRing = 16;", "constexpr int kStRing = 32;")], True),
+    ("four blocks an SM (16 elements a block)",
+     [("constexpr int kStTargetBlocks = kTargetBlocks;",
+       "constexpr int kStTargetBlocks = 2 * kTargetBlocks;")], True),
+]
+
+
+def source_variants(cu_path: str, entry: str, variants, cases, what: str,
+                    passes: int = 2) -> dict:
+    """Device ms of ``entry`` built from the source at ``cu_path`` as it is
+    and with each of ``variants`` (FWD_VARIANTS, ST_VARIANTS), each a
+    throwaway library in a temporary directory (all built at once; the
+    repo's kernels are not touched), timed by time_ms at each case in
+    ``passes`` passes in alternating order.  ``cases`` is a function of the
+    card returning ``[(tag, run)]``, ``run(fn)`` one launch through the
+    entry point ``fn`` returning its output tensors; an exact variant's
+    outputs must equal the unchanged source's bitwise.  -> {tag: {label:
+    [ms, ...]}}"""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    src = open(cu_path).read()
+    texts = [("as it is", src, True)]
+    for label, edits, exact in variants:
+        text = src
+        for old, new in edits:  # the first occurrence, as the stamps' anchors
+            check(old in text, f"{what} variants: no {old!r} for {label!r} in {cu_path}")
+            text = text.replace(old, new, 1)
+        texts.append((label, text, exact))
+    tmp = tempfile.mkdtemp(prefix="variants_")
+    try:
+        cmds, libs = [], []
+        for i, (_, text, _) in enumerate(texts):
+            cu = os.path.join(tmp, f"v{i}.cu")
+            with open(cu, "w") as f:
+                f.write(text)
+            libs.append(os.path.join(tmp, f"v{i}.so"))
+            cmds.append([build._nvcc(), *build.NVCC_FLAGS, *_LOCAL_STATICS, "-I",
+                         os.path.dirname(os.path.abspath(cu_path)), "-shared", "-o", libs[-1],
+                         cu])
+        build._run_all(cmds)
+        fns = []
+        for path in libs:
+            fn = getattr(ctypes.CDLL(path), entry)
+            fn.argtypes = list(build.SIGNATURES[entry])
+            fn.restype = ctypes.c_int
+            fns.append(fn)
+        out = {}
+        for tag, run in cases(torch.device("cuda")):
+            want = run(fns[0])
+            for (label, _, exact), fn in zip(texts, fns):
+                got = run(fn)
                 torch.cuda.synchronize()
-                check(lib.repro_read_stamps(buf) == 0, "mlp_bwd_stamps: no stamps")
-                samples.append(list(buf))
-            tag = f"{rows}x{din}->{h}->{dout}"
-            out[tag] = {}
-            blocks = fm.bwd_plan(0, rows, din, h, dout)["blocks"]
-            for b in range(blocks):
-                # the marks this block passed (one without rows skips the tiles')
-                seen = [k for k in range(len(marks)) if all(s[(b * 16 + k) * 2] for s in samples)]
-                stages = {}
-                for j, k in zip(seen, seen[1:]):
-                    cyc = [s[(b * 16 + k) * 2] - s[(b * 16 + j) * 2] for s in samples]
-                    ns = [s[(b * 16 + k) * 2 + 1] - s[(b * 16 + j) * 2 + 1] for s in samples]
-                    stages[marks[k][0]] = [statistics.median(cyc), statistics.median(ns)]
-                lag = statistics.median(s[(b * 16) * 2 + 1] - min(s[(q * 16) * 2 + 1]
-                                                                 for q in range(blocks))
-                                        for s in samples)
-                out[tag][b] = dict(stages, start_lag_ns=lag)
-            for b in sorted({0, max(out[tag], key=lambda b: sum(
-                    v[1] for k, v in out[tag][b].items() if k != "start_lag_ns"))}):
-                print(f"fused_mlp_bwd stamps {tag} f32 block {b}: start lag "
-                      f"{out[tag][b]['start_lag_ns']:.0f} ns; "
-                      + "; ".join(f"{k} {v[0]:.0f} cycles / {v[1]:.0f} ns"
-                                  for k, v in out[tag][b].items() if k != "start_lag_ns"),
+                check(not exact or all(torch.equal(a, b) for a, b in zip(got, want)),
+                      f"{what} variant {label!r} at {tag}: bits differ from the source's")
+            times = {label: [] for label, _, _ in texts}
+            for p in range(passes):
+                order = range(len(fns)) if p % 2 == 0 else reversed(range(len(fns)))
+                for i in order:
+                    times[texts[i][0]].append(time_ms(lambda: run(fns[i]))[0])
+            out[tag] = times
+            for label, ms in times.items():
+                print(f"{what} variant {tag}: {label}: {' / '.join(f'{t:.5f}' for t in ms)} ms",
                       flush=True)
         print(f"card: {gpu_label()}", flush=True)
         return out
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _fwd_variant_cases(dev):
+    """source_variants cases of rt_fused_mlp: float32 at the training
+    batches, 64 and 1024 rows of 17 -> 32 -> 16."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for rows in (64, 1024):
+        x, *w = _mlp_operands(torch.Generator().manual_seed(7), dev, torch.float32, rows,
+                              17, 32, 16)
+
+        def run(fn, x=x, w=w, rows=rows):
+            o = torch.zeros(rows, 16, device=dev)
+            check(fn(0, *(t.data_ptr() for t in (x, *w, o)), rows, 17, 32, 16, stream) == 0,
+                  "fused_mlp variant: launch failed")
+            return (o,)
+        yield f"{rows}x17->32->16 f32", run
+
+
+def _st_variant_cases(dev):
+    """source_variants cases of rt_space_time_value: row 13's one key over
+    (256, 32), float64, depth 10 and 24."""
+    from repro_torch.kernels.ref import space_time_scales
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    keys = torch.tensor([[12345, 678]], dtype=torch.int64, device=dev)
+    t = torch.tensor([0.4375], dtype=torch.float64, device=dev)
+    s_w, s_h = space_time_scales(1.0, torch.float64)
+    for depth in (10, 24):
+        def run(fn, depth=depth):
+            w, i = (torch.empty(1, 256 * 32, dtype=torch.float64, device=dev) for _ in range(2))
+            check(fn(1, keys.data_ptr(), t.data_ptr(), 0.0, 1.0, 1.0, s_w, s_h, depth,
+                     w.data_ptr(), i.data_ptr(), 1, 256 * 32, stream) == 0,
+                  "space_time_value variant: launch failed")
+            return w, i
+        yield f"1x(256, 32) f64 depth {depth}", run
 
 
 def launch_floor() -> dict:
@@ -3920,7 +4318,8 @@ def ssm_train_checks(ops, dev, label: str) -> None:
 # The kernels whose registers, shared memory and spills the run reports.
 PTXAS_SOURCES = ("rev_heun", "flash_attention", "ssd_chunk", "fused_mlp")
 PTXAS_KERNELS = ("brownian_value_kernel", "flash_attention_f32", "ssd_chunk_kernel",
-                 "fused_mlp_bwd_kernel")
+                 "fused_mlp_bwd_kernel", "fused_mlp_fixed", "space_time_increment_kernel",
+                 "space_time_value_kernel")
 
 
 def start_ptxas_report():
@@ -4123,6 +4522,8 @@ def main() -> int:
                      "timed": {tag: {k: v for k, v in row.items() if k != "library_ms"}
                                for tag, row in mlp_rows.items()},
                      "launcher_host_us": host_costs,
+                     "ptxas": {k: v for k, v in ptxas_usage.items()
+                               if "fused_mlp_fixed" in k and "Li17ELi32ELi16E" in k},
                      "device_kernels_per_elbo_step": train_launches["device_kernels"],
                      "device_kernels_per_adaptive_gradient":
                          adaptive_launches["device_kernels"],
@@ -4162,6 +4563,7 @@ def main() -> int:
             extra = {k: r[k] for k in r if k not in ("ms", "plain_ms", "bound_ms",
                                                      "bound_by", "host_ms",
                                                      "plain_host_ms")}
+            extra["ptxas"] = {k: v for k, v in ptxas_usage.items() if name + "_kernel" in k}
             extra["launches_per"] = ("srk ELBO step (discretise)"
                                      if name == "space_time_increment"
                                      else "adaptive srk gradient, depth 10")

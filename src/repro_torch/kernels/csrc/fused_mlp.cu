@@ -25,27 +25,49 @@
 // operations in the same order whatever R, the block the row lands in, the
 // rows per block or whether the weights came from shared memory.
 //
-// Design.  The SDE widths are tiny (Din 4–33, H 32–64, Dout 16–64), so the
-// kernel is launch-bound, and the simple form is enough: a block of 128
-// threads owns up to 8 rows.  It stages the weights and biases in shared
-// memory (the largest field, the 32→64→32 burst, is 16 KB in f32 and 33 KB in
-// f64) together with the row tile of x and of a, converted to the
-// accumulator type; then two barrier-separated passes: thread e computes
-// pre/a for (row e / H, unit e % H), then out for (row e / Dout, column e %
-// Dout).  Neighbouring threads read neighbouring weight columns (distinct
-// banks) and one broadcast row of x or a, and write neighbouring outputs.
-// Where the weights and the tile do not fit in 48 KB of shared memory
-// together (widths up to 512 in f32 and f64), the weights are read through
-// L1/L2 (__ldg) with the same per-row order; the row tile shrinks to fit
-// when (Din + H) is large.  Tensor cores (mma.sync on bf16 or TF32 tiles)
-// and a persistent block per SM are later work.
+// Design.  The SDE widths are tiny (Din 2-33, H 32-64, Dout 16-64), so a
+// launch is bound by latency, not by bytes or flops.  Each field shape the
+// port runs (REPRO_MLP_FIXED_WIDTHS: the ELBO's, the SDE-GAN's, the burst's) has
+// its own instantiation, fused_mlp_fixed<T, Acc, Din, H, Dout>, so every
+// loop is unrolled; any other width takes the runtime-width kernel below
+// (fused_mlp_kernel), and which one runs depends on the dtype and the
+// widths alone, never on R.  A fixed block is 4 warps over 8 consecutive
+// rows (R 1024: 128 blocks, one wave on 132 SMs; R 64: 8 blocks).  It
+// stages W1, b1, W2, b2 and its tile of x with 16-byte cp.async copies
+// (element copies where a source is not 16-byte aligned), then one
+// barrier; after it the warps share nothing.  A warp owns 2 rows: layer l's
+// N outputs of a row spread over min(N, 32) lanes (two rows a pass where N
+// = 16), each lane keeping rows × N/32 independent accumulators, the
+// weights read across lanes from shared memory (distinct banks) and x or a
+// as a broadcast; a passes to layer 2 through shared memory (row stride H
+// + 1) and a __syncwarp.  The sums and the LipSwish are the runtime-width
+// kernel's, op for op, so both give the same bits, and the forward's bits
+// are the earlier kernel's.  Tensor cores were not taken: the products are
+// ~0.5 us of the launch (below).
+//
+// What bounds it (an NVIDIA H100 80GB HBM3 at 700 W, 17 -> 32 -> 16,
+// float32; chip_smoke.py mlp_fwd_stamps and source_variants): the launch
+// (~1.7-1.9 us back to back), then one memory round trip for the copies
+// (~1800 cycles issued and waited for, ~0.9 us of device time: with plain
+// 16-byte loads in their place it takes ~0.8 us more), then layer 1 ~530
+// and layer 2 with the store ~400 cycles.  The runtime-width kernel it
+// replaced on these shapes spent ~3270 cycles staging element by element
+// and ~1870 + ~1190 in its two passes (runtime loops, one FMA chain a
+// thread, each FMA waiting on two shared loads).  ptxas: float32 17 -> 32
+// -> 16 32 registers, 6,016 bytes of shared memory; float64 32 -> 64 -> 32
+// 90 registers, 39,744 bytes; no spills.  The runtime-width kernel: a block
+// of 128 threads owns up to 8 rows, stages the weights (when they fit in
+// 48 KB beside the tile; else reads them through L1/L2) and converts the
+// row tile to the accumulator type, then thread e computes pre/a for (row
+// e / H, unit e % H) and, after a barrier, out for (row e / Dout, column e
+// % Dout).
 //
 // Bound.  At the training state (R = 1024, 17 -> 32 -> 16, f32) the kernel
-// reads 69.6 KB of x and 4.4 KB of weights and writes 65.5 KB: 0.042 µs at
+// reads 69.6 KB of x and 4.4 KB of weights and writes 65.5 KB: 0.042 us at
 // 3.35 TB/s, so it is bound by bytes; its 2R(Din·H + H·Dout) + 6R·H
-// (LipSwish) + R(H + Dout) flops, 2.41 MFLOP, take 0.036 µs at 67 TFLOP/s.
-// Both are far below the ~2–3 µs a launch costs, so launches are what
-// count: one here against the ~16 device kernels of the unfused chain.
+// (LipSwish) + R(H + Dout) flops, 2.41 MFLOP, take 0.036 us at 67 TFLOP/s.
+// Both are far below the ~2 us a launch costs, so launches are what count:
+// one here against the ~16 device kernels of the unfused chain.
 //
 // The backward, fused_mlp_bwd.  It replaces the plain VJP the port ran
 // before (kernels/vjp.py: ref.fused_mlp recomputed under autograd, ~34 aten
@@ -221,10 +243,184 @@ fused_mlp_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __r
   }
 }
 
+// ---- the fixed-width forward ----------------------------------------------
+//
+// One instantiation for each field shape the port runs (kFixedWidths), the
+// widths compile-time constants so that every loop is unrolled.  A block of
+// kFixedWarps warps owns kFixedRows consecutive rows, a warp kWarpRows of
+// them; the warps share nothing but the staged weights, so the one block
+// barrier is the staging's.  Inside a warp, layer l's N outputs of a row
+// are spread over LaneSplit<N>::lanes lanes (several rows a pass where N <
+// 32), and a lane keeps `rows × cols` independent accumulators.
+constexpr int kFixedWarps = 4;
+constexpr int kFixedThreads = 32 * kFixedWarps;
+constexpr int kWarpRows = 2;
+constexpr int kFixedRows = kFixedWarps * kWarpRows;
+
+template <int N>
+struct LaneSplit {
+  static constexpr int lanes = N < 32 ? N : 32;      // lanes sharing one row
+  static constexpr int groups = 32 / lanes;          // rows a warp covers at once
+  static constexpr int cols = N / lanes;             // outputs a lane, a row
+  static constexpr int rows = kWarpRows / groups;    // rows a lane
+  static constexpr bool ok = (N % 32 == 0 || 32 % N == 0) && kWarpRows % groups == 0;
+};
+
+// (Din, H, Dout) of the fixed instantiations: the depth-1 fields of the
+// ELBO (mu, sigma, nu, qz0, zeta), the SDE-GAN's generator and
+// discriminator (chip_smoke.py MLP_SHAPES) and the adaptive burst.
+#define REPRO_MLP_FIXED_WIDTHS(X) \
+  X(17, 32, 16) X(33, 32, 16) X(16, 32, 16) X(8, 32, 16) X(4, 32, 16) X(2, 32, 16) \
+  X(17, 32, 64) X(17, 32, 32) X(32, 64, 32)
+
+// Copy n elements of T from global to shared memory, 16-byte cp.async
+// chunks where the source is 16-byte aligned (the destination always is),
+// the remainder (or everything, unaligned) an element at a time.
+template <typename T>
+__device__ __forceinline__ void stage(T* dst, const T* src, int n, int tid) {
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int chunks = n * static_cast<int>(sizeof(T)) / 16;
+    for (int c = tid; c < chunks; c += kFixedThreads)
+      repro_torch_tc::cp_async16(repro_torch_tc::smem_addr(reinterpret_cast<char*>(dst) + 16 * c),
+                                 reinterpret_cast<const char*>(src) + 16 * c, 16);
+    for (int e = chunks * 16 / static_cast<int>(sizeof(T)) + tid; e < n; e += kFixedThreads)
+      dst[e] = src[e];
+  } else {
+    for (int e = tid; e < n; e += kFixedThreads) dst[e] = src[e];
+  }
+}
+
+template <typename T, typename Acc, int DIN, int H, int DOUT>
+__global__ void __launch_bounds__(kFixedThreads)
+fused_mlp_fixed(const T* __restrict__ x, const T* __restrict__ w1, const T* __restrict__ b1,
+                const T* __restrict__ w2, const T* __restrict__ b2, T* __restrict__ out,
+                int64_t rows) {
+  using S1 = LaneSplit<H>;
+  using S2 = LaneSplit<DOUT>;
+  static_assert(S1::ok && S2::ok, "a fixed width must divide or be a multiple of 32");
+  constexpr int kAs = H + 1;  // the activation's row stride: two rows a pass, distinct banks
+  __shared__ __align__(16) T w1s[DIN * H];
+  __shared__ __align__(16) T w2s[H * DOUT];
+  __shared__ __align__(16) T b1s[H];
+  __shared__ __align__(16) T b2s[DOUT];
+  __shared__ __align__(16) T xs[kFixedRows * DIN];
+  __shared__ Acc as[kFixedRows * kAs];
+
+  const int tid = threadIdx.x;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kFixedRows;
+  const int nr = static_cast<int>(rows - row0 < kFixedRows ? rows - row0 : kFixedRows);
+  stage(w1s, w1, DIN * H, tid);
+  stage(w2s, w2, H * DOUT, tid);
+  stage(b1s, b1, H, tid);
+  stage(b2s, b2, DOUT, tid);
+  stage(xs, x + row0 * DIN, nr * DIN, tid);
+  repro_torch_tc::cp_async_commit();
+  repro_torch_tc::cp_async_wait<0>();
+  __syncthreads();
+
+  const int lane = tid & 31;
+  const int wr = (tid >> 5) * kWarpRows;  // the warp's first row in the tile
+  // layer 1: pre = x·W1 + b1 and a = cast(LipSwish(pre)) for rows
+  // wr + g1 + groups·q and hidden units c1 + lanes·m
+  {
+    const int g1 = lane / S1::lanes, c1 = lane % S1::lanes;
+    Acc acc[S1::rows][S1::cols];
+#pragma unroll
+    for (int q = 0; q < S1::rows; ++q)
+#pragma unroll
+      for (int m = 0; m < S1::cols; ++m) acc[q][m] = static_cast<Acc>(0);
+#pragma unroll
+    for (int i = 0; i < DIN; ++i) {
+      Acc w[S1::cols];
+#pragma unroll
+      for (int m = 0; m < S1::cols; ++m) w[m] = to_acc(w1s[i * H + c1 + S1::lanes * m]);
+#pragma unroll
+      for (int q = 0; q < S1::rows; ++q) {
+        const Acc xv = to_acc(xs[(wr + g1 + S1::groups * q) * DIN + i]);
+#pragma unroll
+        for (int m = 0; m < S1::cols; ++m) acc[q][m] = fma_rn(xv, w[m], acc[q][m]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < S1::rows; ++q)
+#pragma unroll
+      for (int m = 0; m < S1::cols; ++m) {
+        const int k = c1 + S1::lanes * m;
+        const Acc pre = acc[q][m] + to_acc(b1s[k]);
+        // the hidden activation in x's dtype before the second product
+        as[(wr + g1 + S1::groups * q) * kAs + k] = to_acc(from_acc<T, Acc>(lipswish(pre)));
+      }
+  }
+  __syncwarp();
+  // layer 2: out = a·W2 + b2 for rows wr + g2 + groups·q, columns c2 + lanes·m
+  const int g2 = lane / S2::lanes, c2 = lane % S2::lanes;
+  Acc acc[S2::rows][S2::cols];
+#pragma unroll
+  for (int q = 0; q < S2::rows; ++q)
+#pragma unroll
+    for (int m = 0; m < S2::cols; ++m) acc[q][m] = static_cast<Acc>(0);
+#pragma unroll
+  for (int k = 0; k < H; ++k) {
+    Acc w[S2::cols];
+#pragma unroll
+    for (int m = 0; m < S2::cols; ++m) w[m] = to_acc(w2s[k * DOUT + c2 + S2::lanes * m]);
+#pragma unroll
+    for (int q = 0; q < S2::rows; ++q) {
+      const Acc av = as[(wr + g2 + S2::groups * q) * kAs + k];
+#pragma unroll
+      for (int m = 0; m < S2::cols; ++m) acc[q][m] = fma_rn(av, w[m], acc[q][m]);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < S2::rows; ++q) {
+    const int r = wr + g2 + S2::groups * q;
+    if (r < nr) {
+#pragma unroll
+      for (int m = 0; m < S2::cols; ++m) {
+        const int j = c2 + S2::lanes * m;
+        out[(row0 + r) * DOUT + j] = from_acc<T, Acc>(acc[q][m] + to_acc(b2s[j]));
+      }
+    }
+  }
+}
+
+// 1 when (Din, H, Dout) has a fixed instantiation.
+inline bool fixed_width(int din, int hidden, int dout) {
+#define REPRO_MLP_IS(a, b, c) if (din == a && hidden == b && dout == c) return true;
+  REPRO_MLP_FIXED_WIDTHS(REPRO_MLP_IS)
+#undef REPRO_MLP_IS
+  return false;
+}
+
+template <typename T, typename Acc>
+cudaError_t launch_fixed(const T* x, const T* w1, const T* b1, const T* w2, const T* b2, T* out,
+                         int64_t rows, int din, int hidden, int dout, cudaStream_t stream) {
+  const int64_t blocks = (rows + kFixedRows - 1) / kFixedRows;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  const unsigned grid = static_cast<unsigned>(blocks);
+#define REPRO_MLP_LAUNCH(a, b, c)                                                       \
+  if (din == a && hidden == b && dout == c) {                                           \
+    fused_mlp_fixed<T, Acc, a, b, c><<<grid, kFixedThreads, 0, stream>>>(x, w1, b1, w2, \
+                                                                         b2, out, rows); \
+    return cudaGetLastError();                                                          \
+  }
+  REPRO_MLP_FIXED_WIDTHS(REPRO_MLP_LAUNCH)
+#undef REPRO_MLP_LAUNCH
+  return cudaErrorInvalidValue;
+}
+
 template <typename T, typename Acc>
 cudaError_t launch(const void* x, const void* w1, const void* b1, const void* w2,
                    const void* b2, void* out, int64_t rows, int din, int hidden, int dout,
                    cudaStream_t stream) {
+  const T* px = static_cast<const T*>(x);
+  const T* pw1 = static_cast<const T*>(w1);
+  const T* pb1 = static_cast<const T*>(b1);
+  const T* pw2 = static_cast<const T*>(w2);
+  const T* pb2 = static_cast<const T*>(b2);
+  T* po = static_cast<T*>(out);
+  if (fixed_width(din, hidden, dout))
+    return launch_fixed<T, Acc>(px, pw1, pb1, pw2, pb2, po, rows, din, hidden, dout, stream);
   int tile = kRowsMax;
   while (tile > 1 && static_cast<int64_t>(tile) * (din + hidden) * sizeof(Acc) > kSmemBytes)
     tile /= 2;
@@ -236,12 +432,6 @@ cudaError_t launch(const void* x, const void* w1, const void* b1, const void* w2
   const bool staged = tile_bytes + weight_bytes <= kSmemBytes;
   const int64_t blocks = (rows + tile - 1) / tile;
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  const T* px = static_cast<const T*>(x);
-  const T* pw1 = static_cast<const T*>(w1);
-  const T* pb1 = static_cast<const T*>(b1);
-  const T* pw2 = static_cast<const T*>(w2);
-  const T* pb2 = static_cast<const T*>(b2);
-  T* po = static_cast<T*>(out);
   const unsigned grid = static_cast<unsigned>(blocks);
   if (staged) {
     fused_mlp_kernel<T, Acc, true><<<grid, kThreads, tile_bytes + weight_bytes, stream>>>(

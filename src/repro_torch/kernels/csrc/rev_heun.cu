@@ -447,174 +447,271 @@ __global__ void space_time_increment_kernel(const int64_t* __restrict__ keys, in
 
 // (W(t_b) - W(t0), I(t_b)) of row b, I the running time-integral, by the
 // joint (W, ∫W) Lévy-bridge descent to `depth` levels (the reference's
-// BrownianPath._wh).  A block owns `rpb` rows and one slice of at most
-// kStThreads of their elements (a row of more elements spreads over several
-// blocks, each redoing the row's walk), in three stages:
-//   1. walk (one thread a row): the interval, its length h = b - a and
-//      half = 0.5h, the go-left bit and the chain key c of every level into
-//      shared memory; c starts at the root key fold_in(key, 0xB0BA) and
-//      moves to fold_in(c, 2|3).  The only serial part: depth dependent
-//      hashes;
-//   2. keys (every thread, items (row, level)): the level's normal keys
-//      split(fold_in(c, 1)) and its scales sqrt(half/8), sqrt(half^3/24);
-//      the root's split(root key);
-//   3. combine (one thread an element): the root pair, then every level's
-//      two conditional normals and the plain version's op sequence, then the
-//      conditional-mean tail.
-// Bound: the chain of depth + 1 dependent hashes a row, as brownian_value's,
-// plus each element's 2(depth + 1) normals one after another in stage 3.
+// BrownianPath._wh).  A block owns up to 32 elements: `rpb` rows and a
+// slice of `upb` draw units of each (a unit is a counter pair in float32,
+// whose one hash gives elements j and j + half; an element in float64).
+// Its eight warps form a pipeline over the levels, each level passing
+// through a ring of kStRing slots in shared memory:
+//   warp 0, the walker (a lane a row): the interval's h = b - a, half =
+//     0.5h, the go-left bit and the chain key c of each level into the
+//     level's slot, then publishes the level; c starts at the root key
+//     fold_in(key, 0xB0BA) and moves to fold_in(c, 2|3).  The only serial
+//     part: a dependent hash a level.  It waits only when it is kStRing
+//     levels ahead of the combiner;
+//   warps 2-7, the drawers (level l to warp l mod 6; a lane an element in
+//     float64, a (row, ξ, unit) in float32): once level l is published,
+//     its keys split(fold_in(c, 1)), its scales sqrt(half/8),
+//     sqrt(half³/24), and its two scaled normals an element (s·ξ, the plain
+//     version's products) into the slot, then publish the slot;
+//   warp 1, the combiner (a lane an element): the root pair (W, H) from
+//     split(root key) while the walk starts, then, as each level's draws
+//     arrive, the plain version's op sequence for that level, carrying (w,
+//     A, pw, pi) in registers; after the last level the conditional-mean
+//     tail writes W and I.
+// So the draws of level l overlap the walk of later levels and the combine
+// of earlier ones, and a launch costs about the walk plus one level's draws
+// and combine.  Publishing is a release store of a counter in shared
+// memory after __syncwarp; waiting is an acquire load in a loop (the
+// drawers sleep between tries).  Grid (space_time_value_grid): at most 32
+// elements and 32 rows a block, aiming at kStTargetBlocks blocks (two an
+// SM): one key over (256, 32) in float64 is 256 blocks of 32 elements,
+// each redoing the row's walk.
+//
+// What bounds it (an NVIDIA H100 80GB HBM3 at 700 W, one key over (256,
+// 32), float64; chip_smoke.py st_value_stamps and source_variants): not
+// the operations (the bound is ~0.0011 ms at depth 10) but two latency
+// chains.  The walk, ~320 ns a level with the midpoint hash beside the
+// chain's (the walker alone, drawers held back, takes as long): it ends
+// ~3.4 us into the block at depth 10, ~8.3 us at depth 24.  One level's
+// draws, ~1.9 us from its publication (a split, then a hash and XLA's
+// float64 erf_inv a normal, two a lane): the combiner's root pair, three
+// hashes and two normals, alone takes ~2.7 us.  The combine of the last
+// levels and the tail add ~0.5 us.  The kernel it replaced ran the same
+// walk at ~166 ns a level, then every element's 2(depth + 1) normals one
+// after another on one thread (~17 us at depth 10).  Tried and dropped
+// (source_variants, ST_VARIANTS): 512 threads, four blocks an SM, a ring of
+// 32, publishing every 4 levels, the combiner beside or away from the
+// walker, the drawers deriving fold_in(c, 1), sleeping or spinning waits:
+// none faster by more than 0.3%, four blocks an SM ~1.5x slower.  ptxas: float64 48 registers, 23,116 bytes of
+// static shared memory; float32 31 and 14,668; no spills.
 constexpr int kStThreads = 256;
-constexpr int kStMaxRows = 32;
+constexpr int kStDrawWarps = kStThreads / 32 - 2;
+constexpr int kStCombineWarp = 4;                // the walker is warp 0, the drawers the rest
+constexpr int kStRing = 16;                      // levels in flight between walk and combine
 constexpr int kStMaxDepth = 512;
-constexpr int kStSmemBytes = 40 * 1024;
+constexpr int kStTargetBlocks = kTargetBlocks;
 
 template <typename T>
-struct StLevel {  // one level of one row, in shared memory
-  uint32_t k[4];  // (a0, a1) the xi0 key, (b0, b1) the xi1 key; the chain key first
-  T h, half, s0, s1;
-  int left;
+struct StSlot {  // one level of the block's rows
+  uint32_t c0[32], c1[32];  // the midpoint's key fold_in(c, 1), c the level's chain key
+  T h[32], half[32];
+  int left[32];
+  T term[2][32];  // s0·ξ0 and s1·ξ1 of each element of the block
 };
 
-template <typename T>
-struct StRow {  // one row's root and last interval
-  uint32_t kw0, kw1, kh0, kh1;
-  T a, b, t;
-};
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.cta.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.cta.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+// the warp's writes (ordered by __syncwarp), then lane 0 publishes `v`
+__device__ __forceinline__ void publish(int* flag, int v, int lane) {
+  __syncwarp();
+  if (lane == 0) st_release(flag, v);
+}
 
-template <typename T>
-__host__ __device__ constexpr int64_t st_row_bytes(int depth) {
-  return static_cast<int64_t>(depth) * sizeof(StLevel<T>) + sizeof(StRow<T>);
+// The scaled normal(s) of draw unit u (of `units`, element count d) from key
+// (k0, k1): element u's in float64, elements u and u + units in float32
+// (their counter pair's one hash), into ts[ul] and ts[upb + ul].
+__device__ __forceinline__ void st_draw(float, uint32_t k0, uint32_t k1, float scale,
+                                        int64_t u, int64_t units, int64_t d, float* ts,
+                                        int ul, int upb) {
+  uint32_t x0 = static_cast<uint32_t>(u);
+  uint32_t x1 = (d & 1) && u == units - 1 ? 0u : static_cast<uint32_t>(u + units);
+  threefry2x32(k0, k1, x0, x1);
+  ts[ul] = mul(scale, normal_f32_bits(x0));
+  if (u + units < d) ts[upb + ul] = mul(scale, normal_f32_bits(x1));
+}
+__device__ __forceinline__ void st_draw(double, uint32_t k0, uint32_t k1, double scale,
+                                        int64_t u, int64_t, int64_t d, double* ts, int ul,
+                                        int) {
+  ts[ul] = mul(scale, normal_elem(double(), k0, k1, u, d));
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kStThreads)
 space_time_value_kernel(const int64_t* __restrict__ keys, const T* __restrict__ t, T t0, T t1,
                         T span, T s_w, T s_h, int depth, T* __restrict__ w_out,
-                        T* __restrict__ i_out, int64_t rows, int64_t d, int rpb, int epb) {
-  extern __shared__ __align__(16) unsigned char st_smem[];
-  StRow<T>* row_s = reinterpret_cast<StRow<T>*>(st_smem);
-  StLevel<T>* lev_s = reinterpret_cast<StLevel<T>*>(st_smem + rpb * sizeof(StRow<T>));
+                        T* __restrict__ i_out, int64_t rows, int64_t d, int rpb, int upb) {
+  constexpr bool kPairs = sizeof(T) == 4;
+  __shared__ StSlot<T> ring[kStRing];
+  __shared__ T tail_a[32], tail_b[32];
+  __shared__ int walked, combined, tail_ready, drawn[kStRing];
 
-  const int tid = threadIdx.x;
-  const int64_t slices = (d + epb - 1) / epb;
-  const int64_t r0 = static_cast<int64_t>(blockIdx.x / slices) * rpb;
-  const int64_t e0 = static_cast<int64_t>(blockIdx.x % slices) * epb;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int64_t units = kPairs ? (d + 1) / 2 : d;
+  // the grid has < 2^31 blocks, so its decomposition is 32-bit arithmetic
+  const int slices = static_cast<int>((units + upb - 1) / upb);
+  const int bx = static_cast<int>(blockIdx.x);
+  const int64_t r0 = static_cast<int64_t>(bx / slices) * rpb;
+  const int64_t u0 = static_cast<int64_t>(bx % slices) * upb;
   const int nr = static_cast<int>(rows - r0 < rpb ? rows - r0 : rpb);
+  const int nu = static_cast<int>(units - u0 < upb ? units - u0 : upb);
+  const int row_elems = (kPairs ? 2 : 1) * upb;
+  if (tid < kStRing) drawn[tid] = 0;
+  if (tid == 0) walked = combined = tail_ready = 0;
+  __syncthreads();
 
-  // 1. walk
-  if (tid < nr) {
-    const int64_t r = r0 + tid;
-    uint32_t c0 = static_cast<uint32_t>(keys[2 * r]);
-    uint32_t c1 = static_cast<uint32_t>(keys[2 * r + 1]);
-    fold_in(c0, c1, 0xB0BA);
-    StRow<T>& rs = row_s[tid];
-    rs.kw0 = c0;  // the root key, split in stage 2
-    rs.kw1 = c1;
-    const T tb = t[r];
-    T a = t0, b = t1;
-    StLevel<T>* lv = lev_s + static_cast<int64_t>(tid) * depth;
+  if (warp == 0) {  // the walker
+    uint32_t ch0 = 0, ch1 = 0;
+    T a = t0, b = t1, tb = T(0);
+    if (lane < nr) {
+      ch0 = static_cast<uint32_t>(keys[2 * (r0 + lane)]);
+      ch1 = static_cast<uint32_t>(keys[2 * (r0 + lane) + 1]);
+      fold_in(ch0, ch1, 0xB0BA);
+      tb = t[r0 + lane];
+    }
     for (int l = 0; l < depth; ++l) {
-      const T h = sub(b, a);
-      const T half = mul(T(0.5), h);
-      const T m = add(a, half);
-      const bool go_left = tb <= m;
-      lv[l].k[0] = c0;
-      lv[l].k[1] = c1;
-      lv[l].h = h;
-      lv[l].half = half;
-      lv[l].left = go_left;
-      fold_in(c0, c1, go_left ? 2 : 3);
-      if (go_left) b = m; else a = m;
+      if (l >= kStRing) {  // the slot's last level must have been combined
+        while (ld_acquire(&combined) < l - kStRing + 1) {
+        }
+      }
+      StSlot<T>& sl = ring[l % kStRing];
+      if (lane < nr) {
+        const T h = sub(b, a);
+        const T half = mul(T(0.5), h);
+        const T m = add(a, half);
+        const bool go_left = tb <= m;
+        uint32_t f0 = ch0, f1 = ch1;  // the midpoint's key, off the chain
+        fold_in(f0, f1, 1);
+        sl.c0[lane] = f0;
+        sl.c1[lane] = f1;
+        sl.h[lane] = h;
+        sl.half[lane] = half;
+        sl.left[lane] = go_left;
+        fold_in(ch0, ch1, go_left ? 2 : 3);
+        if (go_left) b = m; else a = m;
+      }
+      publish(&walked, l + 1, lane);
     }
-    rs.a = a;
-    rs.b = b;
-    rs.t = tb;
-  }
-  __syncthreads();
-  // 2. the levels' keys and scales, and the root's keys
-  for (int it = tid; it < nr * (depth + 1); it += kStThreads) {
-    const int r = it / (depth + 1), l = it % (depth + 1) - 1;
-    if (l < 0) {
-      StRow<T>& rs = row_s[r];
+    if (lane < nr) {
+      tail_a[lane] = a;
+      tail_b[lane] = b;
+    }
+    publish(&tail_ready, 1, lane);
+  } else if (warp != kStCombineWarp) {  // drawer k: levels k, k + kStDrawWarps, ...
+    const int drawer = warp - 1 - (warp > kStCombineWarp ? 1 : 0);
+    // its lane's item: element (r, ul) in float64, (r, ξ, ul) in float32
+    const int per_row = (kPairs ? 2 : 1) * upb;
+    const int r = lane / per_row, which = kPairs ? lane / upb % 2 : 0, ul = lane % upb;
+    const bool item = r < nr && ul < nu;
+    for (int l = drawer; l < depth; l += kStDrawWarps) {
+      while (ld_acquire(&walked) <= l) __nanosleep(32);
+      StSlot<T>& sl = ring[l % kStRing];
+      if (item) {
+        uint32_t k0 = sl.c0[r], k1 = sl.c1[r];
+        uint32_t a0, a1, b0, b1;
+        split2(k0, k1, a0, a1, b0, b1);
+        const T half = sl.half[r];
+        T* ts = sl.term[0] + r * row_elems;
+        if constexpr (kPairs) {
+          const T scale = which ? sqrt_ieee(divide(mul(half, mul(half, half)), T(24)))
+                                : sqrt_ieee(divide(half, T(8)));
+          st_draw(T(), which ? b0 : a0, which ? b1 : a1, scale, u0 + ul, units, d,
+                  ts + which * 32, ul, upb);
+        } else {
+          const T s0 = sqrt_ieee(divide(half, T(8)));
+          const T s1 = sqrt_ieee(divide(mul(half, mul(half, half)), T(24)));
+          st_draw(T(), a0, a1, s0, u0 + ul, units, d, ts, ul, upb);
+          st_draw(T(), b0, b1, s1, u0 + ul, units, d, ts + 32, ul, upb);
+        }
+      }
+      publish(&drawn[l % kStRing], l + 1, lane);
+    }
+  } else {  // the combiner: element (cr, ce), unit u0 + ce % upb, half ce / upb (float32)
+    const int cr = lane / row_elems, ce = lane % row_elems;
+    const int64_t cg = u0 + ce % upb + (ce / upb) * units;  // its index in the row
+    const bool owner = cr < nr && ce % upb < nu && cg < d;
+    T w = T(0), area = T(0), pw = T(0), pi = T(0);
+    if (owner) {  // the root pair (W, H) from split(fold_in(key, 0xB0BA))
+      uint32_t k0 = static_cast<uint32_t>(keys[2 * (r0 + cr)]);
+      uint32_t k1 = static_cast<uint32_t>(keys[2 * (r0 + cr) + 1]);
+      fold_in(k0, k1, 0xB0BA);
       uint32_t a0, a1, b0, b1;
-      split2(rs.kw0, rs.kw1, a0, a1, b0, b1);
-      rs.kw0 = a0;
-      rs.kw1 = a1;
-      rs.kh0 = b0;
-      rs.kh1 = b1;
-    } else {
-      StLevel<T>& lv = lev_s[static_cast<int64_t>(r) * depth + l];
-      uint32_t f0 = lv.k[0], f1 = lv.k[1];
-      fold_in(f0, f1, 1);
-      split2(f0, f1, lv.k[0], lv.k[1], lv.k[2], lv.k[3]);
-      const T half = lv.half;
-      lv.s0 = sqrt_ieee(divide(half, T(8)));
-      lv.s1 = sqrt_ieee(divide(mul(half, mul(half, half)), T(24)));
+      split2(k0, k1, a0, a1, b0, b1);
+      w = mul(normal_elem(T(), a0, a1, cg, d), s_w);
+      const T hr = mul(normal_elem(T(), b0, b1, cg, d), s_h);
+      area = mul(span, add(hr, mul(T(0.5), w)));
     }
-  }
-  __syncthreads();
-  // 3. combine: element e of row r
-  const int r = tid / epb;
-  const int64_t e = e0 + tid % epb;
-  if (r >= nr || e >= d) return;
-  const StRow<T>& rs = row_s[r];
-  T w = mul(normal_elem(T(), rs.kw0, rs.kw1, e, d), s_w);
-  const T hr = mul(normal_elem(T(), rs.kh0, rs.kh1, e, d), s_h);
-  T area = mul(span, add(hr, mul(T(0.5), w)));
-  T pw = T(0), pi = T(0);
-  const StLevel<T>* lv = lev_s + static_cast<int64_t>(r) * depth;
-  for (int l = 0; l < depth; ++l) {
-    const StLevel<T>& L = lv[l];
-    const T xi0 = normal_elem(T(), L.k[0], L.k[1], e, d);
-    const T xi1 = normal_elem(T(), L.k[2], L.k[3], e, d);
-    const T w_l = add(sub(divide(mul(T(1.5), area), L.h), mul(T(0.25), w)), mul(L.s0, xi0));
-    const T a_l = add(add(mul(mul(T(-0.25), L.half), w), mul(T(0.5), area)), mul(L.s1, xi1));
-    if (L.left) {
-      w = w_l;
-      area = a_l;
-    } else {
-      pi = add(add(pi, mul(L.half, pw)), a_l);
-      pw = add(pw, w_l);
-      const T w_r = sub(w, w_l);
-      area = sub(sub(area, a_l), mul(L.half, w_l));
-      w = w_r;
+    for (int l = 0; l < depth; ++l) {
+      const StSlot<T>& sl = ring[l % kStRing];
+      while (ld_acquire(&drawn[l % kStRing]) <= l) {
+      }
+      if (owner) {
+        const T h = sl.h[cr], half = sl.half[cr];
+        const T w_l = add(sub(divide(mul(T(1.5), area), h), mul(T(0.25), w)), sl.term[0][lane]);
+        const T a_l = add(add(mul(mul(T(-0.25), half), w), mul(T(0.5), area)), sl.term[1][lane]);
+        if (sl.left[cr]) {
+          w = w_l;
+          area = a_l;
+        } else {
+          pi = add(add(pi, mul(half, pw)), a_l);
+          pw = add(pw, w_l);
+          const T w_r = sub(w, w_l);
+          area = sub(sub(area, a_l), mul(half, w_l));
+          w = w_r;
+        }
+      }
+      publish(&combined, l + 1, lane);
     }
+    while (ld_acquire(&tail_ready) == 0) {
+    }
+    if (!owner) return;
+    const T ta = tail_a[cr], hh = sub(tail_b[cr], ta), tb = t[r0 + cr];
+    T th = divide(sub(tb, ta), hh > tiny(T()) ? hh : tiny(T()));
+    th = th < T(0) ? T(0) : (th > T(1) ? T(1) : th);
+    const T th2 = mul(th, th);
+    const T th3 = mul(th, th2);
+    const T c1 = sub(mul(T(3), th2), mul(T(2), th));
+    const T c2 = mul(mul(T(6), th), sub(T(1), th));
+    const int64_t o = (r0 + cr) * d + cg;
+    w_out[o] = add(add(pw, mul(c1, w)), divide(mul(c2, area), hh));
+    i_out[o] = add(add(add(pi, mul(mul(th, hh), pw)), mul(mul(hh, sub(th3, th2)), w)),
+                   mul(sub(mul(T(3), th2), mul(T(2), th3)), area));
   }
-  const T hh = sub(rs.b, rs.a);
-  T th = divide(sub(rs.t, rs.a), hh > tiny(T()) ? hh : tiny(T()));
-  th = th < T(0) ? T(0) : (th > T(1) ? T(1) : th);
-  const T th2 = mul(th, th);
-  const T th3 = mul(th, th2);
-  const T c1 = sub(mul(T(3), th2), mul(T(2), th));
-  const T c2 = mul(mul(T(6), th), sub(T(1), th));
-  const int64_t o = (r0 + r) * d + e;
-  w_out[o] = add(add(pw, mul(c1, w)), divide(mul(c2, area), hh));
-  i_out[o] = add(add(add(pi, mul(mul(th, hh), pw)), mul(mul(hh, sub(th3, th2)), w)),
-                 mul(sub(mul(T(3), th2), mul(T(2), th3)), area));
 }
 
-// The launch shape of space_time_value: rows and elements a block, blocks.
+// The launch shape of space_time_value: rows and units a block (at most 32
+// elements), and blocks; a function of (dtype, rows, d) alone.
 struct StGrid {
-  int rows_per_block, elems_per_block;
+  int rows_per_block, units_per_block;
   int64_t blocks;
-  int64_t smem;
 };
 
 template <typename T>
-inline StGrid space_time_value_grid(int64_t rows, int64_t d, int depth) {
-  int64_t rb = 1, eb = kStThreads;
-  if (d <= kStThreads) {
-    eb = d;
-    rb = kStThreads / d;
-    rb = rb < kStMaxRows ? rb : kStMaxRows;
-    const int64_t fit = kStSmemBytes / st_row_bytes<T>(depth);
+inline StGrid space_time_value_grid(int64_t rows, int64_t d) {
+  constexpr bool kPairs = sizeof(T) == 4;
+  const int64_t units = kPairs ? (d + 1) / 2 : d;
+  const int64_t unit_cap = kPairs ? 16 : 32;  // 32 elements a block
+  int64_t ub, rb;
+  if (rows >= kStTargetBlocks) {
+    ub = units < unit_cap ? units : unit_cap;
+    rb = (rows + kStTargetBlocks - 1) / kStTargetBlocks;
+    const int64_t fit = unit_cap / ub;
     rb = rb < fit ? rb : fit;
-    rb = rb < rows ? rb : rows;
-    rb = rb < 1 ? 1 : rb;
+  } else {
+    const int64_t per_row = (kStTargetBlocks + rows - 1) / rows;
+    ub = (units + per_row - 1) / per_row;
+    ub = ub < unit_cap ? ub : unit_cap;
+    rb = 1;
   }
-  const int64_t slices = (d + eb - 1) / eb;
-  return StGrid{static_cast<int>(rb), static_cast<int>(eb), (rows + rb - 1) / rb * slices,
-                rb * st_row_bytes<T>(depth)};
+  ub = ub < 1 ? 1 : ub;
+  rb = rb < 1 ? 1 : rb;
+  return StGrid{static_cast<int>(rb), static_cast<int>(ub),
+                (rows + rb - 1) / rb * ((units + ub - 1) / ub)};
 }
 
 // The launch shape of brownian_value: rows and units a block, and blocks.
@@ -847,23 +944,21 @@ extern "C" int rt_space_time_value(int dtype, const int64_t* keys, const void* t
   }
   if (rows * d > 0) {
     constexpr int kT = repro_torch::kStThreads;
+    const auto g = dtype == 0 ? repro_torch::space_time_value_grid<float>(rows, d)
+                              : repro_torch::space_time_value_grid<double>(rows, d);
+    if (g.blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+    const unsigned blocks = static_cast<unsigned>(g.blocks);
     if (dtype == 0) {
-      const auto g = repro_torch::space_time_value_grid<float>(rows, d, depth);
-      if (g.blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-      repro_torch::space_time_value_kernel<float>
-          <<<static_cast<unsigned>(g.blocks), kT, static_cast<size_t>(g.smem), s>>>(
-              keys, static_cast<const float*>(t), static_cast<float>(t0),
-              static_cast<float>(t1), static_cast<float>(span), static_cast<float>(s_w),
-              static_cast<float>(s_h), depth, static_cast<float*>(w), static_cast<float*>(i),
-              rows, d, g.rows_per_block, g.elems_per_block);
+      repro_torch::space_time_value_kernel<float><<<blocks, kT, 0, s>>>(
+          keys, static_cast<const float*>(t), static_cast<float>(t0), static_cast<float>(t1),
+          static_cast<float>(span), static_cast<float>(s_w), static_cast<float>(s_h), depth,
+          static_cast<float*>(w), static_cast<float*>(i), rows, d, g.rows_per_block,
+          g.units_per_block);
     } else {
-      const auto g = repro_torch::space_time_value_grid<double>(rows, d, depth);
-      if (g.blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-      repro_torch::space_time_value_kernel<double>
-          <<<static_cast<unsigned>(g.blocks), kT, static_cast<size_t>(g.smem), s>>>(
-              keys, static_cast<const double*>(t), t0, t1, span, s_w, s_h, depth,
-              static_cast<double*>(w), static_cast<double*>(i), rows, d, g.rows_per_block,
-              g.elems_per_block);
+      repro_torch::space_time_value_kernel<double><<<blocks, kT, 0, s>>>(
+          keys, static_cast<const double*>(t), t0, t1, span, s_w, s_h, depth,
+          static_cast<double*>(w), static_cast<double*>(i), rows, d, g.rows_per_block,
+          g.units_per_block);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -27,9 +27,11 @@ dlogits float32 1e-5, bfloat16 one ulp), rows invariant bitwise, and a
 smoke LM training step's loss through them; the paper's baselines: the
 backsolve and checkpoint ELBO gradients against the CPU's, and a
 bf16_compute training step; the srk solver's space-time kernels
-(``space_time_increment``, ``space_time_value``) bitwise against their
-plain versions, counted and checked, and the srk checkpoint ELBO gradient
-against the CPU's.
+(``space_time_increment``, ``space_time_value``, the latter also at depths
+100 and 512, past its ring of levels) bitwise against their plain
+versions, counted and checked, and the srk checkpoint ELBO gradient
+against the CPU's; the MLP kernel's two launches alike and rows invariant
+at every width chip_smoke.py checks.
 
 These need an NVIDIA GPU with nvcc (the kernels have no CPU mode); each test
 skips without one.  On the GPU machine::
@@ -590,8 +592,13 @@ def test_fused_mlp_kernel_matches_plain_version(cuda, dtype, din, h, dout):
     torch.testing.assert_close(got, want, **MLP_TOL[dtype])
 
 
+# every width chip_smoke.py checks (its MLP_SHAPES): the fixed-width
+# instantiations of csrc/fused_mlp.cu and the runtime-width kernel
+MLP_ALL_WIDTHS = MLP_WIDTHS + [(16, 32, 16), (4, 32, 16)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
-@pytest.mark.parametrize("din,h,dout", [(17, 32, 16), (32, 64, 32), (512, 512, 512)])
+@pytest.mark.parametrize("din,h,dout", MLP_ALL_WIDTHS)
 def test_fused_mlp_rows_are_invariant(cuda, dtype, din, h, dout):
     """A row's bits whatever the rows launched with it: 1 vs 1000 vs 1024."""
     x, *w = _mlp_operands(cuda, dtype, 1024, din, h, dout, seed=1)
@@ -600,6 +607,20 @@ def test_fused_mlp_rows_are_invariant(cuda, dtype, din, h, dout):
     assert torch.equal(part, full[:1000])
     for r in (0, 517, 999, 1023):
         assert torch.equal(ops.fused_mlp(x[r:r + 1].contiguous(), *w)[0], full[r])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("din,h,dout", MLP_ALL_WIDTHS)
+def test_fused_mlp_two_launches_give_the_same_bits(cuda, dtype, din, h, dout):
+    """Two launches alike, and a row whose x starts off a 16-byte boundary
+    (the kernel's element copies) bitwise the aligned launch's row."""
+    x, *w = _mlp_operands(cuda, dtype, 300, din, h, dout, seed=2)
+    ops.reset_launch_counts()
+    first = ops.fused_mlp(x, *w)
+    assert torch.equal(ops.fused_mlp(x, *w), first)
+    assert ops.launch_counts()["fused_mlp"] == 2
+    shifted = ops.fused_mlp(x[1:], *w)  # a contiguous view one row in
+    assert torch.equal(shifted, first[1:])
 
 
 def test_depth1_fields_run_through_the_kernel(cuda):
@@ -859,6 +880,35 @@ def test_space_time_value_bitwise_equals_plain_version(cuda, dtype, rows, shape,
         got = ops.space_time_value(keys, t, 0.0, 1.0, shape, dtype, depth)
         want = ops.space_time_value(keys, t, 0.0, 1.0, shape, dtype, depth, use_kernel=False)
         assert all(a.shape == (rows, *shape) and torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,shape", [(1, (256, 32)), (1024, (32,))])
+@pytest.mark.parametrize("depth", [100, 512])
+def test_space_time_value_bitwise_past_its_ring_of_levels(cuda, dtype, rows, shape, depth):
+    """Depths past the kernel's ring of 16 levels (the walker waits for the
+    combiner to free a slot): bitwise the plain version, two launches
+    alike, a row's bits the same alone and among 1024.  A
+    float32 descent from t0 past ~150 levels divides by an interval length
+    that underflowed to 0, in the plain version as in the kernel: NaN
+    counts as equal to NaN at the same places."""
+    def alike(got, want):
+        return all(torch.equal(a.isnan(), b.isnan()) and torch.equal(a[~a.isnan()], b[~a.isnan()])
+                   for a, b in zip(got, want))
+
+    g = torch.Generator().manual_seed(rows + depth)
+    keys = torch.randint(0, 2 ** 32, (rows, 2), generator=g, dtype=torch.int64).to(cuda)
+    t = torch.rand(rows, generator=g, dtype=torch.float64)
+    t[: min(rows, 3)] = torch.tensor([0.0, 1.0, 0.375])[: min(rows, 3)]
+    t = t.to(dtype=dtype, device=cuda)
+    got = ops.space_time_value(keys, t, 0.0, 1.0, shape, dtype, depth)
+    want = ops.space_time_value(keys, t, 0.0, 1.0, shape, dtype, depth, use_kernel=False)
+    assert all(a.shape == (rows, *shape) for a in got) and alike(got, want)
+    assert alike(ops.space_time_value(keys, t, 0.0, 1.0, shape, dtype, depth), got)
+    r = rows - 1
+    one = ops.space_time_value(keys[r:].contiguous(), t[r:].contiguous(), 0.0, 1.0, shape,
+                               dtype, depth)
+    assert alike([a[0] for a in one], [b[r] for b in got])
 
 
 def test_space_time_kernels_are_counted_and_refuse_bad_operands(cuda):
