@@ -75,6 +75,26 @@ non-zero and the final result line is never printed):
    and that one bucket on the card matches the port on the CPU (float32
    tolerance below).  ``fused_mlp`` must have launched; the device kernels
    of one 1024-row decode bucket with it and under ``plain_mlp()``.
+8b. ("sched serve", right after 8.)  The rest of SDE serving, float32 on
+   the card at the repo's serving widths (the Latent SDE at WIDTHS with
+   SEQ_LEN observations; the SDE-GAN generator at GAN_WIDTHS with 32 steps
+   in 4 chunks), SCHED_SERVE's 32 requests of up to 64 rows, buckets up to
+   1024, random weights from seeds: ``serve_sde`` for the posterior decode
+   (fused), for ``stream_chunks=4``, and for ``scheduler="continuous"`` and
+   ``"fifo"`` with ``preempt``, a ``pool_budget_mb`` and the asyncio front;
+   every request's rows finite, the scheduler's rows (CUDA-graph replays)
+   bitwise the stream loop's (eager chunks) in both modes; the posterior's
+   rows solo == coalesced and the card against the CPU (CPU_RTOL /
+   CPU_ATOL); a captured chunk and initial state bitwise the eager ones at
+   buckets GRAPH_BUCKETS (1, 64, 1024), their bytes and recorded launches;
+   wall, busy and idle of one 1024-row chunk replayed and eager (readings);
+   an eviction under a budget that frees the evicted graph's bytes, and a
+   rebuild that replays its bits; mid-flight admission and cross-lane
+   preemption (with a realtime adaptive terminal batch) bitwise the solo
+   runs', and the scheduler on the card against the CPU.  Counts zeroed
+   before each path and read after it, graph replays counted through the
+   registry: ``brownian_increment``, ``fused_mlp``, ``rev_heun_phase1_gen``,
+   ``rev_heun_phase2`` and ``brownian_value`` each launched.
 9. (Run right after 3b.)  ``brownian_value`` (the adaptive loop's
    Lévy-bridge point query) bitwise against its plain version: float32
    and float64, rows VALUE_ROWS × sizes VALUE_SIZES × depths VALUE_DEPTHS
@@ -163,8 +183,10 @@ non-zero and the final result line is never printed):
    σ 0.5, 512 paths, a float64 space-time ``DenseBrownianPath`` of
    SRK_FINE 4096 cells): the slope over SRK_GRIDS in [1.4, 1.6], reversible
    Heun on the same W more accurate per NFE at the coarse end and less at
-   the fine end; the device kernels of one ``DenseBrownianPath.sample`` at
-   4096 and at 256 cells.  3 srk ELBO steps through ``train_latent_sde``
+   the fine end; one ``DenseBrownianPath.sample`` at 4096 and at 256 cells
+   dispatches as many aten ops with CUDA outputs (a ``TorchDispatchMode``
+   count) and as many of the port's launches (``ops.launch_counts()``),
+   the profiler's device kernels printed beside them as a reading.  3 srk ELBO steps through ``train_latent_sde``
    each of discretise and checkpoint (batch 64, 23 steps), counts zeroed
    before and read after each: SRK_STEP_LAUNCHES, every other kernel never;
    finite losses; one step of each in turns against the exact fused step.
@@ -290,7 +312,9 @@ Each phase's wall is printed as a ``[phase] <name>: <s> s`` line as it ends.
    128 (no sig-MMD log); ``baseline_launches``: phase 11c's counts of step 3
    of each baseline; ``serve_launches``: the Latent-SDE service's, the adaptive
    service's for ``brownian_value``, the LM serves' for
-   ``flash_attention`` and ``ssd_chunk``; ``ptxas``: the registers,
+   ``flash_attention`` and ``ssd_chunk``; ``sched_chunk_launches``: the
+   launches one 1024-row scheduler chunk graph recorded;
+   ``posterior_decode_launches``: one 1024-row posterior decode's; ``ptxas``: the registers,
    shared memory and spills of ``brownian_value``, the float32 attention,
    ``ssd_chunk``, ``fused_mlp_bwd``, ``fused_mlp``'s 17 → 32 → 16
    instantiations and the two space-time kernels, compiled once more with
@@ -323,6 +347,7 @@ It imports nothing of JAX and nothing of the JAX package ``repro``.
 from __future__ import annotations
 
 import atexit
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -1559,6 +1584,35 @@ def st_kernel_checks(ops, dev) -> tuple:
     return timed, errs
 
 
+def _dispatched(fn) -> tuple:
+    """What one call of ``fn`` (after a first, warming call) dispatches:
+    ``(aten ops with a CUDA output, the port's kernel launches by name)`` —
+    counts of the code alone, unlike the profiler's device events, which
+    moved between processes on unchanged code (1046 / 1050 / 1065 for one
+    Dense-path sample)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    from repro_torch.kernels import ops
+
+    class _Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if any(isinstance(t, torch.Tensor) and t.is_cuda for t in tree_flatten(out)[0]):
+                _Count.n += 1
+            return out
+
+    fn()
+    torch.cuda.synchronize()
+    before = ops.launch_counts()
+    with _Count():
+        fn()
+    after = ops.launch_counts()
+    return _Count.n, {k: n - before[k] for k, n in after.items() if n != before[k]}
+
+
 def _device_kernels(fn) -> int:
     """Device kernels and copies of one call of ``fn`` under torch.profiler
     (None if the profiler recorded no device activity)."""
@@ -1587,6 +1641,7 @@ def srk_order_checks(dev, label: str) -> dict:
     key = prng.PRNGKey(11, device=dev)
     sample = lambda fine: DenseBrownianPath.sample(key, 0.0, 1.0, fine, (SRK_PATHS, 1), f64,
                                                    levy_area="space-time")
+    dispatched = {fine: _dispatched(lambda: sample(fine)) for fine in (256, SRK_FINE)}
     kernels = {fine: _device_kernels(lambda: sample(fine)) for fine in (256, SRK_FINE)}
     bm_st = sample(SRK_FINE)
     bm = DenseBrownianPath(bm_st.w, 0.0, 1.0)  # the same W, bitwise, no H
@@ -1626,15 +1681,18 @@ def srk_order_checks(dev, label: str) -> dict:
           f"float64): slope {slope:.4f} over n {SRK_GRIDS} (gate {SRK_SLOPE}); srk errors "
           f"{[f'{e:.3e}' for e in srk_err]} at NFE {srk_nfe}; reversible Heun "
           f"{[f'{e:.3e}' for e in heun_err]} at NFE {heun_nfe}; log(srk/heun) at NFE {lo} "
-          f"{coarse:+.3f}, at {hi} {fine:+.3f}; device kernels of one "
-          f"DenseBrownianPath.sample (space-time): {kernels}", flush=True)
+          f"{coarse:+.3f}, at {hi} {fine:+.3f}; one DenseBrownianPath.sample (space-time) "
+          f"dispatches (aten ops with CUDA outputs, the port's launches) {dispatched}; "
+          f"device kernels under the profiler (a reading) {kernels}", flush=True)
     check(SRK_SLOPE[0] <= slope <= SRK_SLOPE[1],
           f"srk strong order {slope:.4f} outside {SRK_SLOPE}")
     check(coarse > 0, f"reversible Heun must be more accurate per NFE at NFE {lo}")
     check(fine < 0, f"srk must be more accurate per NFE at NFE {hi}")
-    check(kernels[256] == kernels[SRK_FINE],
-          f"DenseBrownianPath.sample's device kernels grow with the cells: {kernels}")
-    return dict(slope=slope, srk_err=srk_err, heun_err=heun_err, sample_kernels=kernels)
+    check(dispatched[256] == dispatched[SRK_FINE],
+          f"DenseBrownianPath.sample's dispatched ops or launches grow with the cells: "
+          f"{dispatched}")
+    return dict(slope=slope, srk_err=srk_err, heun_err=heun_err, sample_kernels=kernels,
+                sample_dispatched=dispatched)
 
 
 def _srk_adaptive(dev, depth: int):
@@ -1847,6 +1905,273 @@ def serve_checks(ops, dev, label: str) -> dict:
             cfg_f, use_pallas_kernels=fuse)), restored, keys, f"{label}] [{variant}")
     compare_kernels(lambda: sampler(restored, keys), label, "1024-row decode bucket (fused)")
     return dict(launches=launches, results=results, decodes=decodes)
+
+
+#: The rest of SDE serving (phase 8b): the buckets' widest, the requests
+#: of phase 8, the SDE-GAN at GAN_WIDTHS with 32 steps in 4 chunks, the
+#: posterior at WIDTHS with SEQ_LEN observations.
+SCHED_SERVE = dict(max_batch=1024, requests=32, request_max=64, seed=9, collect=True)
+SCHED_STEPS, SCHED_CHUNKS = 32, 4
+GRAPH_BUCKETS = (1, 64, 1024)
+SCHED_BUDGET_MB = 16  # below the 22 warmed entries' 46 MiB
+SCHED_PATH_KERNELS = ("brownian_increment", "fused_mlp", "rev_heun_phase1_gen",
+                      "rev_heun_phase2", "brownian_value")
+
+
+def _sched_model(dev, seed: int):
+    from repro_torch.core.sde import NeuralSDEConfig, generator_init
+
+    cfg = NeuralSDEConfig(**dict(GAN_WIDTHS, num_steps=SCHED_STEPS))
+    return cfg, generator_init(torch.Generator().manual_seed(seed), cfg, device=dev)
+
+
+def _chunk_inputs(cfg, params, bucket: int, dev, seed: int = 12):
+    """A chunk batch of ``bucket`` rows at mixed chunk positions."""
+    from repro_torch.core.sde import generator_initial_state
+    from repro_torch.serving.scheduler import _keys
+
+    keys = _keys([seed] * bucket, range(bucket), dev,
+                 chunks=[i % SCHED_CHUNKS for i in range(bucket)])
+    span = cfg.t1 / SCHED_CHUNKS
+    ts = torch.tensor([(i % SCHED_CHUNKS) * span for i in range(bucket)],
+                      dtype=cfg.dtype).to(dev)
+    with torch.no_grad():
+        return keys, generator_initial_state(params, cfg, keys), ts
+
+
+def _chunk_step(cfg, params):
+    from repro_torch.core.sde import generator_rollout_chunk
+
+    def step(keys, x0, ts):
+        with torch.no_grad():
+            return generator_rollout_chunk(params, cfg, keys, x0, ts, cfg.t1 / SCHED_CHUNKS,
+                                           cfg.num_steps // SCHED_CHUNKS)
+    return step
+
+
+def sched_serve_checks(ops, dev, label: str) -> dict:
+    """Phase 8b: the rest of SDE serving — the posterior decode, streaming,
+    the continuous-batching scheduler (continuous and fifo, preemption, a
+    pool budget, the asyncio front) with its CUDA-graph pools."""
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.core.sde import LatentSDEConfig, generator_initial_state, latent_sde_init
+    from repro_torch.launch.steps import make_sample_step
+    from repro_torch.serving import (LoadedModel, ModelRegistry, Request, Scheduler,
+                                     restore_for_serving, serve_sde, synthetic_requests)
+    from repro_torch.serving.registry import CapturedGraph
+    from repro_torch.serving.service import _request_keys
+
+    # launches on this phase's paths: the eager calls' (ops.launch_counts, which
+    # a capture leaves unchanged) plus the graphs' replays
+    used = collections.Counter()
+
+    def count(extra=None):
+        used.update({k: v for k, v in ops.launch_counts().items() if v})
+        if extra:
+            used.update(extra)
+
+    # -- the posterior decode through serve_sde (fused), buckets up to 1024
+    reqs = list(synthetic_requests(SCHED_SERVE["requests"], SCHED_SERVE["request_max"],
+                                   SCHED_SERVE["seed"]))
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
+        lcfg = LatentSDEConfig(**WIDTHS, use_pallas_kernels=True)
+        ckpt.save_serving_bundle(tmp, 0, latent_sde_init(torch.Generator().manual_seed(8), lcfg),
+                                 "latent-sde", lcfg)
+        ops.reset_launch_counts()
+        post = serve_sde("latent-sde", tmp, latent_mode="posterior", obs_len=SEQ_LEN,
+                         **SCHED_SERVE)
+        torch.cuda.synchronize()
+        post_launches = ops.launch_counts()
+        count()
+        lparams, lcfg, _ = restore_for_serving("latent-sde", tmp, dev)
+    print(f"[{label}] posterior serve: {post['traj_per_s']:.1f} traj/s, p50 "
+          f"{post['p50_s'] * 1e3:.2f} ms, p99 {post['p99_s'] * 1e3:.2f} ms "
+          f"({post['trajectories']} trajectories, {post['batches']} batches); launches "
+          f"{ {k: v for k, v in post_launches.items() if v} }", flush=True)
+    for name in ("rev_heun_phase1_gen", "rev_heun_phase2", "fused_mlp"):
+        check(post_launches[name] > 0, f"{name} was not launched by the posterior decode")
+    for r in reqs:
+        ys = post["samples"][r.rid]
+        check(ys.shape == (WIDTHS["num_steps"] + 1, r.size, 2) and torch.isfinite(ys).all().item(),
+              f"posterior request {r.rid}: bad trajectory {tuple(ys.shape)}")
+    sampler = make_sample_step("latent-sde", lcfg, latent_mode="posterior", obs_len=SEQ_LEN)
+    keys = _request_keys(reqs, 1024, dev)
+    sampler(lparams, keys)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    full = sampler(lparams, keys).cpu()
+    per_decode = {k: v for k, v in ops.launch_counts().items() if v}
+    row = 0
+    for r in reqs[:6]:
+        bucket = next(b for b in post["buckets"] if b >= r.size)
+        solo = sampler(lparams, _request_keys([r], bucket, dev))[:, :r.size].cpu()
+        check(torch.equal(solo, post["samples"][r.rid]) and
+              torch.equal(solo, full[:, row:row + r.size]),
+              f"posterior request {r.rid}: solo rows != coalesced rows")
+        row += r.size
+    keys64 = _request_keys(reqs[:3], 64, dev)
+    on_card = sampler(lparams, keys64).cpu()
+    on_cpu = make_sample_step("latent-sde", lcfg, latent_mode="posterior", obs_len=SEQ_LEN,
+                              device="cpu")(_to_device(lparams, "cpu"), keys64.cpu())
+    err_post = (on_card - on_cpu).abs().max().item()
+    check(torch.allclose(on_card, on_cpu, rtol=CPU_RTOL, atol=CPU_ATOL),
+          f"posterior card vs CPU: max |Δ| {err_post}")
+    print(f"[{label}] posterior decode at bucket 1024: launches {per_decode}; 6 requests "
+          f"solo == coalesced (bitwise); card vs CPU (bucket 64) max |Δ| {err_post:.3g} within "
+          f"rtol={CPU_RTOL}, atol={CPU_ATOL}", flush=True)
+
+    # -- streaming and the scheduler through serve_sde
+    gan = dict(sde_steps=SCHED_STEPS, **SCHED_SERVE)
+    ops.reset_launch_counts()
+    stream = serve_sde("sde-gan", stream_chunks=SCHED_CHUNKS, **gan)
+    torch.cuda.synchronize()
+    count()
+    check(ops.launch_counts()["brownian_increment"] > 0 and ops.launch_counts()["fused_mlp"] > 0,
+          "streaming did not launch brownian_increment and fused_mlp")
+    served = {"stream": stream}
+    # Alternating order, so a cost that only the first drain pays shows as
+    # order, not as mode.  At this traffic (every request at once, one
+    # model, no deadline) both modes run the same chunk batches and
+    # preemption never engages; the budget is below the warmed pool, so the
+    # warm-up evicts and the drain serves from what stayed.
+    for run, mode in enumerate(("continuous", "fifo", "fifo", "continuous")):
+        ops.reset_launch_counts()
+        st = serve_sde("sde-gan", scheduler=mode, preempt=True, pool_budget_mb=SCHED_BUDGET_MB,
+                       async_front=True, **gan)
+        torch.cuda.synchronize()
+        count(st["replay_launches"])
+        served[f"{mode} {run}"] = st
+        check(st["replay_launches"].get("brownian_increment", 0) > 0
+              and st["replay_launches"].get("fused_mlp", 0) > 0,
+              f"scheduler ({mode}): no kernel launched by a graph replay")
+        check(st["pool_evictions"] > 0 and st["pool_bytes"] <= st["pool_budget_bytes"],
+              f"scheduler ({mode}): pool {st['pool_bytes']} B after {st['pool_evictions']} "
+              f"evictions under a {st['pool_budget_bytes']} B budget")
+        print(f"[{label}] scheduler {mode} drain {run} (preempt, {SCHED_BUDGET_MB} MB budget, "
+              f"asyncio front): {st['traj_per_s']:.1f} traj/s, p50 {st['p50_s'] * 1e3:.2f} ms, "
+              f"p99 {st['p99_s'] * 1e3:.2f} ms, {st['counters']['chunk_batches']} chunk "
+              f"batches, {st['counters']['preempted_rows']} rows preempted, pool "
+              f"{st['pool_bytes']} B over {len(st['pool_keys'])} entries, "
+              f"{st['pool_evictions']} evictions, {st['pool_builds']} builds; replays "
+              f"launched {st['replay_launches']}", flush=True)
+    print(f"[{label}] stream x{SCHED_CHUNKS}: {stream['traj_per_s']:.1f} traj/s, first chunk "
+          f"{stream['first_chunk_ms']:.2f} ms", flush=True)
+    for r in reqs:
+        ys = served["stream"]["samples"][r.rid]
+        check(ys.shape == (SCHED_STEPS + 1, r.size, 1) and torch.isfinite(ys).all().item(),
+              f"stream request {r.rid}: bad trajectory {tuple(ys.shape)}")
+        for mode in (m for m in served if m != "stream"):
+            check(torch.equal(served[mode]["samples"][r.rid], ys),
+                  f"request {r.rid}: scheduler {mode} rows != streamed rows")
+    print(f"[{label}] {len(reqs)} requests: scheduler continuous == fifo == stream loop "
+          f"(graph replays against eager chunks, bitwise)", flush=True)
+
+    # -- graph replay == the eager chunk, bitwise, at buckets 1, 64, 1024
+    cfg, params = _sched_model(dev, 10)
+    step = _chunk_step(cfg, params)
+    init = lambda k: generator_initial_state(params, cfg, k)
+    graphs = {}
+    for b in GRAPH_BUCKETS:
+        args = _chunk_inputs(cfg, params, b, dev)
+        want = step(*args)
+        with torch.no_grad():
+            want_x0 = init(args[0])
+        graph = CapturedGraph(step, args)
+        init_graph = CapturedGraph(init, args[:1])
+        got = graph(*args)
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"bucket {b}: the replayed chunk != the eager chunk")
+        check(torch.equal(init_graph(args[0]), want_x0),
+              f"bucket {b}: the replayed initial state != the eager one")
+        print(f"[{label}] bucket {b}: chunk graph {graph.nbytes} B, launches {graph.launches}; "
+              f"init graph {init_graph.nbytes} B; replay == eager (bitwise)", flush=True)
+        graphs[b] = (graph, args)
+        init_graph.release()
+    graph, args = graphs[GRAPH_BUCKETS[-1]]
+    readings = {"replay": profile_call(lambda: graph(*args),
+                                       f"{label}] [scheduler chunk B=1024 replayed"),
+                "eager": profile_call(lambda: step(*args),
+                                      f"{label}] [scheduler chunk B=1024 eager")}
+    chunk_launches = dict(graph.launches)
+
+    # -- eviction frees the entry's bytes; a rebuild gives its bits
+    reg = ModelRegistry()
+    reg.register(LoadedModel("default", "sde-gan", cfg, params))
+    a = reg.compiled("default", "chunk", 1024, lambda: CapturedGraph(step, args))
+    want = a(*args)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    reg.pool_budget_bytes = a.nbytes
+    small = _chunk_inputs(cfg, params, 64, dev)
+    b64 = reg.compiled("default", "chunk", 64, lambda: CapturedGraph(step, small))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the evicted pool's segments go back here
+    freed = before + b64.nbytes - torch.cuda.memory_reserved()
+    check(reg.evictions == 1 and reg.pool_keys() == (("default", "chunk", 64),),
+          f"eviction: {reg.evictions} evictions, pool {reg.pool_keys()}")
+    check(freed >= a.nbytes, f"eviction freed {freed} B of the entry's {a.nbytes} B")
+    rebuilt = reg.compiled("default", "chunk", 1024, lambda: CapturedGraph(step, args))
+    check(all(torch.equal(g, w) for g, w in zip(rebuilt(*args), want)),
+          "the rebuilt chunk graph != the evicted one")
+    print(f"[{label}] eviction: the 1024-row chunk graph's {a.nbytes} B freed ({freed} B "
+          f"returned); the rebuild replays its bits", flush=True)
+    for g, _ in graphs.values():
+        g.release()
+    del reg, a, b64, rebuilt, graphs, graph
+
+    # -- mid-flight admission and preemption on the card, bitwise invisible
+    reg = ModelRegistry()
+    for i, mid in enumerate(("bulk", "rt")):
+        reg.register(LoadedModel(mid, "sde-gan", cfg, _sched_model(dev, 20 + i)[1]))
+
+    def solo(req):
+        sched = Scheduler(reg, max_batch=64, chunks=SCHED_CHUNKS, collect=True)
+        sched.submit(req)
+        (res,) = sched.run()
+        return res.samples
+
+    ops.reset_launch_counts()
+    sched = Scheduler(reg, max_batch=64, chunks=SCHED_CHUNKS, collect=True, preempt=True)
+    first = Request(rid=0, size=5, seed=31, model_id="bulk")
+    sched.submit(first)
+    sched.step()
+    late = Request(rid=1, size=3, seed=32, model_id="bulk")
+    sched.submit(late)
+    sched.step()
+    sched.submit(Request(rid=2, size=2, seed=33, model_id="rt", kind="terminal",
+                         deadline_ms=40.0))
+    sched.submit(Request(rid=3, size=4, seed=34, model_id="rt"))
+    results = sched.run()
+    count(reg.replay_launches)
+    by_rid = {r.rid: r for r in results}
+    check(sched.counters["preempted_rows"] > 0 and sched.counters["resumed_rows"] > 0,
+          f"preemption did not engage: {sched.counters}")
+    for req in (first, late, Request(rid=3, size=4, seed=34, model_id="rt")):
+        check(torch.equal(by_rid[req.rid].samples, solo(req)),
+              f"request {req.rid}: admitted mid-flight / preempted rows != solo rows")
+    check(by_rid[2].num_converged == 2 and by_rid[2].rtol == 1e-2,
+          f"the realtime terminal batch: {by_rid[2]}")
+    print(f"[{label}] mid-flight admission and preemption ({sched.counters}): rows bitwise "
+          f"the solo runs'", flush=True)
+
+    # -- the card against the CPU (the scheduler on both)
+    cpu_reg = ModelRegistry()
+    cpu_reg.register(LoadedModel("bulk", "sde-gan", cfg, _to_device(reg.get("bulk").params,
+                                                                     "cpu")))
+    cpu = Scheduler(cpu_reg, max_batch=64, chunks=SCHED_CHUNKS, collect=True)
+    cpu.submit(first)
+    on_cpu = cpu.run()[0].samples
+    err = (on_cpu - by_rid[0].samples).abs().max().item()
+    check(torch.allclose(by_rid[0].samples, on_cpu, rtol=CPU_RTOL, atol=CPU_ATOL),
+          f"scheduler card vs CPU: max |Δ| {err}")
+    print(f"[{label}] scheduler card vs CPU: max |Δ| {err:.3g} within rtol={CPU_RTOL}, "
+          f"atol={CPU_ATOL}", flush=True)
+    for name in SCHED_PATH_KERNELS:
+        check(used.get(name, 0) > 0, f"{name} was not launched on the serving paths")
+    print(f"[{label}] serving-path launches (eager and replayed): {dict(used)}", flush=True)
+    return dict(posterior=post, served=served, posterior_decode=per_decode,
+                chunk_launches=chunk_launches, readings=readings, launches=dict(used))
 
 
 def value_bound(rows: int, n_per_row: int, depth: int, dtype) -> tuple:
@@ -4466,6 +4791,7 @@ def main() -> int:
     train_launches = timed("elbo train", train_checks, ops, dev, label)
     timed("memory", memory_checks, dev, label)
     serve = timed("serve", serve_checks, ops, dev, label)
+    sched_serve = timed("sched serve", sched_serve_checks, ops, dev, label)
     adaptive_serve = timed("adaptive serve", serve_adaptive_checks, ops, dev, label)
     adaptive_launches = timed("adaptive grad", adaptive_grad_checks, ops, dev, label)
     gan = timed("sde-gan", gan_checks, ops, dev, label)
@@ -4567,7 +4893,8 @@ def main() -> int:
             extra["launches_per"] = ("srk ELBO step (discretise)"
                                      if name == "space_time_increment"
                                      else "adaptive srk gradient, depth 10")
-            extra["srk_order"] = {k: levy["order"][k] for k in ("slope", "sample_kernels")}
+            extra["srk_order"] = {k: levy["order"][k] for k in ("slope", "sample_kernels",
+                                                                 "sample_dispatched")}
             extra["srk_step_timing"] = levy["timing"]
             extra["table2_ms"] = levy["table2"]
         else:
@@ -4586,7 +4913,10 @@ def main() -> int:
                                               in baselines["launches"].items()},
                         "srk_launches": {tag: counts.get(name, 0) for tag, counts
                                          in levy["launches"].items()},
-                        "serve_launches": serve_launches, **extra})
+                        "serve_launches": serve_launches,
+                        "sched_chunk_launches": sched_serve["chunk_launches"].get(name, 0),
+                        "posterior_decode_launches":
+                            sched_serve["posterior_decode"].get(name, 0), **extra})
     print(json.dumps({"kernels": entries}), flush=True)
     print(f"card: {label}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,8 +2,7 @@
 
 :func:`params_from_jax` is the one function that does it: a JAX parameter
 pytree, as nested dicts/lists of numpy arrays (``jax.device_get`` of the
-params, or :func:`repro_torch.checkpoint.load_serving_bundle`'s tree), becomes
-the port's parameters.  The port keeps the reference's layout —
+params), becomes the port's parameters.  The port keeps the reference's layout —
 ``{"layers": [{"w": (in, out), "b": (out,)}]}`` with ``y = x @ w + b`` — so
 the conversion copies each leaf into a tensor and both packages compute the
 same function.

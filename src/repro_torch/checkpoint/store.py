@@ -9,16 +9,18 @@ Layout, shared with the JAX package::
         MANIFEST.json    # written last: the commit marker
 
 The manifest's ``meta`` carries the ``repro-serving/v2`` handshake: a list
-of ``{model_id, workload, config}`` entries.  A bundle written here reads
-in the JAX package and the other way round.  (The reference also upgrades
-older v1 bundles; the port reads v2 only.)
+of ``{model_id, workload, config}`` entries (and an optional per-model
+``serving`` hints dict), one params tree per model id.  A bundle written
+here reads in the JAX package and the other way round.  An older
+``repro-serving/v1`` bundle (one flat params tree, ``workload`` and
+``config`` at the top of ``meta``) is read as a v2 registry with the single
+entry ``"default"``, as the reference upgrades it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-import re
 import shutil
 from pathlib import Path
 from typing import Optional, Tuple
@@ -26,10 +28,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-SERVING_SCHEMA = "repro-serving/v2"
+SERVING_SCHEMA = SERVING_SCHEMA_V2 = "repro-serving/v2"
+SERVING_SCHEMA_V1 = "repro-serving/v1"
 DEFAULT_MODEL_ID = "default"
 _SERVING_SUBDIR = "serving"
-_KEY_TOKEN = re.compile(r"\['((?:[^'\\]|\\.)*)'\]|\[(\d+)\]|\.(\w+)")
 
 
 class UnknownServingSchemaError(ValueError):
@@ -47,47 +49,8 @@ def _step_dir(sdir: Path, step: int) -> Path:
 
 
 # -----------------------------------------------------------------------------
-# leaf names <-> nested trees (JAX's jax.tree_util.keystr format)
+# leaf names (JAX's jax.tree_util.keystr format)
 # -----------------------------------------------------------------------------
-
-
-def _parse_keystr(name: str) -> list:
-    path = []
-    pos = 0
-    for m in _KEY_TOKEN.finditer(name):
-        if m.start() != pos:
-            raise ValueError(f"unreadable leaf name {name!r}")
-        if m.group(2) is not None:
-            path.append(int(m.group(2)))
-        else:
-            path.append(m.group(1) if m.group(1) is not None else m.group(3))
-        pos = m.end()
-    if pos != len(name) or not path:
-        raise ValueError(f"unreadable leaf name {name!r}")
-    return path
-
-
-def _tree_from_leaves(leaves: dict):
-    """``{keystr: array}`` -> nested dicts (string keys) and lists (indices)."""
-    root: dict = {}
-    for name, arr in leaves.items():
-        path = _parse_keystr(name)
-        node = root
-        for tok in path[:-1]:
-            node = node.setdefault(tok, {})
-        node[path[-1]] = arr
-    return _lists_from_int_keys(root)
-
-
-def _lists_from_int_keys(node):
-    if not isinstance(node, dict):
-        return node
-    out = {k: _lists_from_int_keys(v) for k, v in node.items()}
-    if out and all(isinstance(k, int) for k in out):
-        if sorted(out) != list(range(len(out))):
-            raise ValueError(f"sequence leaves with gaps: {sorted(out)}")
-        return [out[i] for i in range(len(out))]
-    return out
 
 
 def _rebuild(tree, fn, prefix: str = ""):
@@ -128,8 +91,7 @@ def _leaves_from_tree(tree) -> dict:
 # -----------------------------------------------------------------------------
 
 
-def load_serving_manifest(ckpt_dir) -> Tuple[dict, int]:
-    """The newest bundle's ``repro-serving/v2`` handshake -> ``(meta, step)``."""
+def _raw_serving_manifest(ckpt_dir) -> Tuple[dict, int]:
     sdir = Path(ckpt_dir) / _SERVING_SUBDIR
     step = latest_step(sdir)
     if step is None:
@@ -138,25 +100,48 @@ def load_serving_manifest(ckpt_dir) -> Tuple[dict, int]:
             f"<ckpt-dir>/{_SERVING_SUBDIR}/step_*/MANIFEST.json, written by "
             f"repro.launch.train or repro_torch.checkpoint.save_serving_bundle)")
     manifest = json.loads((_step_dir(sdir, step) / "MANIFEST.json").read_text())
-    meta = manifest.get("meta") or {}
+    return manifest.get("meta") or {}, step
+
+
+def load_serving_manifest(ckpt_dir) -> Tuple[dict, int]:
+    """The newest bundle's handshake as v2 -> ``(meta, step)``.
+
+    ``meta["models"]`` is a list of ``{model_id, workload, config}``
+    entries; a v1 bundle comes back as one ``"default"`` entry with
+    ``meta["upgraded_from"]`` set (its leaves are flat, which
+    :func:`restore_serving_model` reads)."""
+    meta, step = _raw_serving_manifest(ckpt_dir)
     schema = meta.get("schema")
-    if schema != SERVING_SCHEMA:
+    if schema == SERVING_SCHEMA_V1:
+        meta = {"schema": SERVING_SCHEMA, "upgraded_from": SERVING_SCHEMA_V1,
+                "models": [{"model_id": DEFAULT_MODEL_ID, "workload": meta.get("workload"),
+                            "config": meta.get("config", {})}]}
+    elif schema != SERVING_SCHEMA:
         raise UnknownServingSchemaError(
             f"serving bundle under {ckpt_dir} has schema {schema!r}; the port reads "
-            f"{SERVING_SCHEMA!r} (re-save older bundles with the JAX package)")
+            f"{SERVING_SCHEMA!r} (and upgrades {SERVING_SCHEMA_V1!r})")
     if not meta.get("models"):
         raise ValueError(f"serving bundle under {ckpt_dir} carries no model entries")
     return meta, step
 
 
-def load_serving_bundle(ckpt_dir, model_id: Optional[str] = None):
-    """Read one model of the newest bundle -> ``(tree, entry, step)``.
-
-    ``tree`` is the model's parameter pytree as nested dicts/lists of numpy
-    arrays (feed it to :func:`params_from_jax`); ``entry`` is its manifest
-    entry (``model_id``, ``workload``, ``config``).  ``model_id=None``
-    takes the sole entry of a single-model bundle."""
+def load_serving_meta(ckpt_dir) -> Tuple[dict, int]:
+    """The single-model view of the handshake -> ``(meta, step)``, ``meta``
+    with flat ``model_id``, ``workload`` and ``config`` keys; a bundle of
+    several models is refused by name."""
     meta, step = load_serving_manifest(ckpt_dir)
+    models = meta["models"]
+    if len(models) != 1:
+        raise ValueError(
+            f"serving bundle under {ckpt_dir} carries {len(models)} model entries "
+            f"({[m['model_id'] for m in models]}); the single-model reader cannot "
+            f"pick one — use load_serving_manifest / repro_torch.serving.ModelRegistry.load")
+    entry = models[0]
+    return {"schema": meta["schema"], "model_id": entry["model_id"],
+            "workload": entry["workload"], "config": entry["config"]}, step
+
+
+def _entry(meta: dict, ckpt_dir, model_id: Optional[str]) -> dict:
     ids = [m["model_id"] for m in meta["models"]]
     if model_id is None:
         if len(ids) != 1:
@@ -166,11 +151,20 @@ def load_serving_bundle(ckpt_dir, model_id: Optional[str] = None):
     if model_id not in ids:
         raise ValueError(f"serving bundle under {ckpt_dir} has no model "
                          f"{model_id!r} (entries: {ids})")
-    entry = meta["models"][ids.index(model_id)]
-    shard = _step_dir(Path(ckpt_dir) / _SERVING_SUBDIR, step) / "shard_0.npz"
-    with np.load(shard) as data:
-        tree = _tree_from_leaves({n: data[n] for n in data.files})
-    return tree[model_id], entry, step
+    return meta["models"][ids.index(model_id)]
+
+
+def restore_serving_model(ckpt_dir, like_tree, model_id: str, step: Optional[int] = None):
+    """Restore one named model into the structure, dtypes and devices of
+    ``like_tree`` -> ``(tree, step)``: a v2 bundle's leaves under the
+    model id, an upgraded v1 bundle's flat leaves."""
+    meta, _ = load_serving_manifest(ckpt_dir)
+    _entry(meta, ckpt_dir, model_id)
+    sdir = Path(ckpt_dir) / _SERVING_SUBDIR
+    if meta.get("upgraded_from") == SERVING_SCHEMA_V1:
+        return restore_checkpoint(sdir, like_tree, step=step)
+    tree, got = restore_checkpoint(sdir, {model_id: like_tree}, step=step)
+    return tree[model_id], got
 
 
 # -----------------------------------------------------------------------------
@@ -190,26 +184,35 @@ def save_serving_bundle(ckpt_dir, step: int, params, workload: str, cfg,
                         model_id: str = DEFAULT_MODEL_ID) -> Path:
     """Write a single-model ``repro-serving/v2`` bundle (atomically: the
     manifest is written into a temporary directory that is renamed last)."""
-    sdir = Path(ckpt_dir) / _SERVING_SUBDIR
-    final = _step_dir(sdir, step)
-    tmp = sdir / f".tmp_step_{step:012d}"
-    if tmp.exists():
-        shutil.rmtree(tmp)
-    tmp.mkdir(parents=True)
-    arrays = _leaves_from_tree({model_id: params})
-    np.savez(tmp / "shard_0.npz", **arrays)
+    return save_serving_registry(ckpt_dir, step, {model_id: (params, workload, cfg)})
+
+
+def save_serving_registry(ckpt_dir, step: int, models: dict,
+                          serving_hints: Optional[dict] = None) -> Path:
+    """Write N named models as one v2 bundle: ``models`` is ``{model_id:
+    (params, workload, cfg)}``; ``serving_hints`` an optional ``{model_id:
+    dict}`` of JSON-safe hints stored as each entry's ``"serving"`` key (the
+    scheduler reads ``quota`` from it)."""
+    if not models:
+        raise ValueError("a serving bundle needs at least one model entry")
+    hints = serving_hints or {}
+    unknown = sorted(set(hints) - set(models))
+    if unknown:
+        raise ValueError(f"serving_hints name model ids {unknown} that are not in "
+                         f"the bundle ({sorted(models)})")
     meta = {"schema": SERVING_SCHEMA,
-            "models": [{"model_id": model_id, "workload": workload,
-                        "config": config_to_meta(cfg)}]}
-    manifest = {"step": step, "num_hosts": 1,
-                "leaves": {n: {"shape": list(a.shape), "dtype": str(a.dtype)}
-                           for n, a in arrays.items()},
-                "meta": meta}
-    (tmp / "MANIFEST.json").write_text(json.dumps(manifest, indent=2))
-    if final.exists():
-        shutil.rmtree(final)
-    tmp.rename(final)
-    return final
+            "models": [{"model_id": mid, "workload": workload, "config": config_to_meta(cfg),
+                        **({"serving": hints[mid]} if mid in hints else {})}
+                       for mid, (_, workload, cfg) in models.items()]}
+    tree = {mid: params for mid, (params, _, _) in models.items()}
+    return save_checkpoint(Path(ckpt_dir) / _SERVING_SUBDIR, step, tree, meta=meta)
+
+
+def save_serving_bundle_v1(ckpt_dir, step: int, params, workload: str, cfg) -> Path:
+    """Write an older single-workload v1 bundle (one flat params tree): the
+    fixture the v1 → v2 upgrade is tested on."""
+    meta = {"schema": SERVING_SCHEMA_V1, "workload": workload, "config": config_to_meta(cfg)}
+    return save_checkpoint(Path(ckpt_dir) / _SERVING_SUBDIR, step, params, meta=meta)
 
 
 # -----------------------------------------------------------------------------

@@ -10,7 +10,9 @@ prior decode for serving) — port of :mod:`repro.core.sde`:
 ``latent_sde_init``, ``validate_latent_grid``, ``_lsde_sigma``,
 ``_latent_encode``, ``_step_index_lookup``, ``_latent_posterior_fields``,
 ``latent_sde_loss``, ``latent_sde_loss_terminal``, ``latent_prior_drift``,
-``latent_prior_diffusion``, ``latent_sde_sample_paths``.
+``latent_prior_diffusion``, ``latent_sde_sample_paths``; and for streamed
+serving ``generator_initial_state`` and ``generator_rollout_chunk``, and
+``latent_sde_posterior_decode``.
 
 The generator (paper eq. (1)): ``X_0 = ζ(V)``, ``dX = μ(t, X) dt + σ(t,
 X) ∘ dW`` with general (matrix) noise, ``Y = ℓ(X)``.  Trained as an
@@ -111,11 +113,54 @@ def _generator_start(params, cfg: NeuralSDEConfig, keys: torch.Tensor):
     """Per row, as the reference: ``kv, kw = split(key)``, ``x0 =
     ζ(normal(kv, (initial_noise,)))``, and ``kw``'s Brownian path over the
     noise channels -> ``(x0, bm)``."""
-    kk = prng.split(keys)
-    kv, kw = kk[:, 0], kk[:, 1]
+    kw = prng.split(keys)[:, 1]
+    return (generator_initial_state(params, cfg, keys),
+            BrownianPath(kw.contiguous(), 0.0, cfg.t1, (cfg.noise_dim,), cfg.dtype))
+
+
+def generator_initial_state(params, cfg: NeuralSDEConfig, keys: torch.Tensor):
+    """``x₀ = ζ(V)`` per key, ``V = normal(split(key)[0])`` — the entry state
+    of the streamed (time-chunked) rollout: ``(B, 2)`` keys -> ``(B,
+    hidden_dim)``."""
+    kv = prng.split(keys)[:, 0]
     v = prng.normal(kv[:, 0], kv[:, 1], cfg.initial_noise_dim, cfg.dtype)
-    x0 = nn.mlp(params["zeta"], v, nn.lipswish)
-    return x0, BrownianPath(kw.contiguous(), 0.0, cfg.t1, (cfg.noise_dim,), cfg.dtype)
+    return nn.mlp(params["zeta"], v, nn.lipswish)
+
+
+def generator_rollout_chunk(params, cfg: NeuralSDEConfig, keys: torch.Tensor, x0, t_start,
+                            span: float, num_steps: int):
+    """Continue generator trajectories over one time chunk ``[t_start,
+    t_start + span]`` of a streamed horizon -> ``(ys, xT)``: ``ys``
+    ``(num_steps+1, B, data_dim)`` with row 0 the chunk's entry state (the
+    previous chunk's last row), ``xT`` ``(B, hidden_dim)`` to carry on.
+
+    ``t_start`` is a scalar (a float or a 0-d tensor: every row at the same
+    chunk, the stream loop) or a ``(B,)`` tensor, one horizon position per
+    row (the continuous-batching scheduler, whose rows joined at different
+    chunk boundaries).  Each row runs the reference's traced-time grid
+    (:class:`~repro_torch.core.solvers.RowGrid`) on a Brownian path over
+    ``[0, span]`` keyed by its own (pre-folded, per chunk) key, so a row is a
+    pure function of ``(params, keys[i], x0[i], t_start[i])``.  Solved
+    ``discretise`` and unfused, as the reference does (general noise, no
+    gradient).  Nothing is read back to the host, so the step can be
+    captured in a CUDA graph."""
+    B = keys.shape[0]
+    if isinstance(t_start, torch.Tensor):
+        if t_start.ndim > 1:
+            raise ValueError(f"t_start must be a scalar or a (B,) per-row vector, got "
+                             f"shape {tuple(t_start.shape)}")
+        t0 = t_start.to(device=x0.device, dtype=cfg.dtype).expand(B)
+    else:
+        t0 = torch.full((B,), float(t_start), dtype=cfg.dtype, device=x0.device)
+    np_dtype = NP_DTYPES[cfg.dtype]
+    if cfg.dtype == torch.float32:  # t0 + span in float32, one rounding
+        t1 = (t0.double() + float(np_dtype(span))).float()
+    else:
+        t1 = t0 + float(span)
+    bm = BrownianPath(keys.contiguous(), 0.0, span, (cfg.noise_dim,), cfg.dtype)
+    traj = solve(gen_drift(cfg), gen_diffusion(cfg), params, x0, bm, t0, t1, num_steps,
+                 solver=cfg.solver, gradient_mode="discretise", noise="general")
+    return nn.linear(params["ell"], traj), traj[-1]
 
 
 def generator_sample_paths(params, cfg: NeuralSDEConfig, keys: torch.Tensor):
@@ -408,12 +453,18 @@ def _normal(key, shape, dtype):
 def _latent_encode(params, cfg: LatentSDEConfig, key, y_true):
     """Backward-GRU context + initial-latent sample -> ``(ctx, x0, kl_v)``:
     the ``(T+1, B, c)`` context path, ``ζ(V̂)`` with ``V̂ ~ N(m, s)`` from
-    ``ξ(ctx_0)``, and the per-sample ``KL(N(m, s) ‖ N(0, 1))``."""
+    ``ξ(ctx_0)``, and the per-sample ``KL(N(m, s) ‖ N(0, 1))``.  ``key``: one
+    ``(2,)`` key for the batch (training), or ``(B, 2)``, one per row (the
+    posterior decode, as the reference's vmapped rows draw)."""
     ctx = nn.gru_scan(params["enc"], y_true, reverse=True)
     ms = nn.mlp(params["qz0"], ctx[0], nn.lipswish)
     m, log_s = ms.chunk(2, -1)
     s = torch.exp(torch.clamp(log_s, -8, 4))
-    v = m + s * _normal(key, m.shape, cfg.dtype)
+    if key.ndim == 2:
+        eps = prng.normal(key[:, 0], key[:, 1], m.shape[-1], cfg.dtype)
+    else:
+        eps = _normal(key, m.shape, cfg.dtype)
+    v = m + s * eps
     kl_v = 0.5 * torch.sum(m ** 2 + s ** 2 - 2.0 * torch.log(s) - 1.0, -1)
     x0 = nn.mlp(params["zeta"], v, nn.lipswish)
     return ctx, x0, kl_v
@@ -562,4 +613,35 @@ def latent_sde_sample_paths(params, cfg: LatentSDEConfig, keys: torch.Tensor):
     bm = BrownianPath(kw.contiguous(), 0.0, cfg.t1, (cfg.hidden_dim,), cfg.dtype)
     traj = _cfg_solve(cfg, latent_prior_drift, latent_prior_diffusion, params, x0,
                       bm, cfg.num_steps, "diagonal")
+    return nn.linear(params["ell"], traj)
+
+
+def latent_sde_posterior_decode(params, cfg: LatentSDEConfig, keys: torch.Tensor, y_obs):
+    """Latent-SDE posterior decode for serving: encode the observed paths,
+    solve the posterior SDE (no KL or reconstruction channels) and return
+    ŷ on the solver grid, ``(num_steps+1, B, data_dim)``.
+
+    ``keys``: ``(B, 2)``; ``y_obs``: ``(T+1, B, data_dim)``.  Per row, as
+    the reference: the encoder's draw from ``fold_in(key, 0)``, the
+    Brownian path from ``fold_in(key, 1)``.  Row ``i`` depends only on
+    ``(params, keys[i], y_obs[:, i])`` — the bucket-padding contract.  With
+    ``cfg.use_pallas_kernels`` the solve runs the fused forward (ΔW drawn in
+    the phase-1 kernel)."""
+    T = y_obs.shape[0] - 1
+    validate_latent_grid(cfg.num_steps, T)
+    ctx_at = _step_index_lookup(cfg.t1, T, cfg.dtype)
+
+    def drift(p, t, x):
+        c = ctx_at(p["ctx"], t)
+        return nn.mlp(p["nets"]["nu"], torch.cat([nn.tcat(t, x), c], -1), nn.lipswish,
+                      torch.tanh)
+
+    def diffusion(p, t, x):
+        return _lsde_sigma(p["nets"], t, x)
+
+    ctx, x0, _ = _latent_encode(params, cfg, prng.fold_in_key(keys, 0), y_obs)
+    bm = BrownianPath(prng.fold_in_key(keys, 1).contiguous(), 0.0, cfg.t1,
+                      (cfg.hidden_dim,), cfg.dtype)
+    traj = _cfg_solve(cfg, drift, diffusion, {"nets": params, "ctx": ctx}, x0, bm,
+                      cfg.num_steps, "diagonal")
     return nn.linear(params["ell"], traj)

@@ -6,7 +6,8 @@ midpoint and heun with the embedded pairs of the latter two
 ``_heun_step`` / ``_heun_embedded_step``), the strong-order-1.5 srk scheme
 on ``(W, H)`` space-time Lévy-area pairs (``_srk_step`` /
 ``_srk_embedded_step``), and the uniform-grid drivers ``sde_solve`` and
-``ode_solve``.
+``ode_solve``; ``sde_solve`` also runs a grid per row (:class:`RowGrid`),
+the streamed and continuously batched chunk step's.
 
 Calling convention as in the reference::
 
@@ -139,6 +140,93 @@ def step_times(t0: float, n: int, dt):
     (:func:`product_time`), the other two its fused multiply-adds."""
     return (product_time(t0, n, dt), grid_time(t0, Fraction(2 * n + 1, 2), dt),
             grid_time(t0, n + 1, dt))
+
+
+class RowGrid:
+    """A uniform grid per row: row ``i`` runs from ``t0[i]`` to ``t1[i]`` in
+    ``num_steps`` steps, the times device tensors of shape ``(B,)`` (the
+    continuous-batching chunk step, whose rows sit at different horizon
+    positions).
+
+    The arithmetic is the compiled reference's with a traced ``t0``
+    (``core/solvers.py:sde_solve`` under ``vmap``), measured on the CPU by
+    recording the times its fields see (tests/test_torch_stream.py)::
+
+        dt  = (t1 − t0) · round(1/N)         XLA multiplies by the reciprocal
+        t_n = fma(n, dt, t0)                 one rounding
+        right end t_n + dt, midpoint t_n + ½dt
+
+    float32 is carried in float64, where every intermediate is exact, and
+    rounded once.  float64's ``fma`` is a double-double sum (Veltkamp split
+    of ``dt``, ``n`` a small integer, two exact TwoSums, one final rounding);
+    it rounds as a true ``fma`` except in ties at the last bit.  Every op is
+    elementwise, so a row's times depend on that row alone, and nothing is
+    read back to the host (the chunk step is captured as a CUDA graph)."""
+
+    def __init__(self, t0: torch.Tensor, t1: torch.Tensor, num_steps: int):
+        if t0.ndim != 1 or t1.shape != t0.shape:
+            raise ValueError(f"a per-row grid takes (B,) start and end times, got "
+                             f"{tuple(t0.shape)} and {tuple(t1.shape)}")
+        self.dtype = t0.dtype
+        self.num_steps = num_steps
+        np_dtype = NP_DTYPES[t0.dtype]
+        recip = float(np_dtype(1) / np_dtype(num_steps))
+        if t0.dtype == torch.float32:
+            self._t0 = t0.double()
+            span = (t1.double() - self._t0).float().double()
+            self._dt = (span * recip).float().double()
+        else:
+            self._t0 = t0
+            self._dt = (t1 - t0) * recip
+            c = self._dt * 134217729.0  # 2^27 + 1: the split's high half
+            self._dt_hi = c - (c - self._dt)
+            self._dt_lo = self._dt - self._dt_hi
+        self.dt = self._dt.to(t0.dtype)
+
+    def left(self, n: int) -> torch.Tensor:
+        """``fma(n, dt, t0)`` per row."""
+        if n == 0:
+            return self._t0.to(self.dtype)
+        if self.dtype == torch.float32:
+            return (self._t0 + self._dt * n).float()
+        a, b = self._dt_hi * n, self._dt_lo * n  # both exact
+        p, pe = _two_sum(a, b)
+        s, se = _two_sum(self._t0, p)
+        return s + (se + pe)
+
+    def right(self, n: int) -> torch.Tensor:
+        return self.left(n) + self.dt
+
+    def mid(self, n: int) -> torch.Tensor:
+        return self.left(n) + 0.5 * self.dt
+
+
+def _two_sum(a, b):
+    """Knuth's TwoSum: ``a + b = s + e`` exactly."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _row_solve(stepper, drift, diffusion, params, z0, bm, grid: RowGrid, noise,
+               save_trajectory):
+    """:func:`sde_solve` on a :class:`RowGrid` (``z0``: ``(B, d)``): each
+    step's ``dt`` is the ``(B, 1)`` column of the rows' own step sizes."""
+    dt = grid.dt.reshape(grid.dt.shape + (1,) * (z0.ndim - 1))
+    carry = carry_init(stepper, drift, diffusion, params, z0, grid.left(0))
+    zs = [z0] if save_trajectory else None
+    for n in range(grid.num_steps):
+        dw = _tree_cast(bm.increment(n, grid.num_steps), z0.dtype)
+        t = grid.left(n)
+        if is_reversible(stepper):
+            carry = stepper(carry, t, dt, dw, drift, diffusion, params, noise,
+                            t1=grid.right(n))
+        else:
+            carry = stepper(carry, t, dt, dw, drift, diffusion, params, noise,
+                            tm=grid.mid(n), t1=grid.right(n))
+        if zs is not None:
+            zs.append(carry_z(carry))
+    return torch.stack(zs) if save_trajectory else carry_z(carry)
 
 
 class RevHeunState(NamedTuple):
@@ -388,7 +476,21 @@ def sde_solve(drift, diffusion, params, z0, bm, t0: float, t1: float, num_steps:
     ``step_fn`` runs any state-carried stepper (the registry passes its
     own); otherwise ``solver`` names a builtin.  Reversible Heun keeps its
     carried-state loop (:func:`repro_torch.core.gradients.reversible.
-    _forward`), fused with ``use_pallas_kernels``."""
+    _forward`), fused with ``use_pallas_kernels``.
+
+    ``t0`` and ``t1`` may be ``(B,)`` tensors instead: row ``i`` of a
+    ``(B, d)`` state then runs on its own grid (:class:`RowGrid`), unfused,
+    while the path ``bm`` is shared by every row's ``[0, t1 − t0]`` cells."""
+    if isinstance(t0, torch.Tensor):
+        if use_pallas_kernels:
+            raise ValueError("a per-row time grid runs unfused: the fused kernels "
+                             "take one step size for every row")
+        step = reversible_heun_step if solver == "reversible_heun" and step_fn is None \
+            else step_fn or BASELINE_STEPPERS.get(solver)
+        if step is None:
+            raise ValueError(f"solver {solver!r} has no builtin stepper; pass step_fn=")
+        return _row_solve(step, drift, diffusion, params, z0, bm,
+                          RowGrid(t0, t1, num_steps), noise, save_trajectory)
     if solver == "reversible_heun" and step_fn is None:
         from .gradients.reversible import _forward
 

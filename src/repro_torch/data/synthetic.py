@@ -1,6 +1,7 @@
 """Deterministic synthetic data (port of :mod:`repro.data.synthetic`:
 ``ou_process``, ``air_quality_like``, ``_normalise_initial`` and the LM's
-``token_batches``).
+``token_batches``; ``air_quality_rows`` draws one ``air_quality_like``
+profile per key).
 
 The paper's Beijing air-quality set (Appendix F: PM2.5 and O₃, 24 hourly
 steps, 12 location labels) is offline, so the reference generates a
@@ -76,6 +77,32 @@ def air_quality_like(key: torch.Tensor, batch: int, length: int = 24,
         + 0.1 * _normal(ko, (length, batch, 1), dtype)
     ys = torch.cat([pm, o3], -1)
     return _normalise_initial(ys), labels
+
+
+def air_quality_rows(keys: torch.Tensor, length: int = 24, num_labels: int = 12,
+                     dtype=torch.float32) -> torch.Tensor:
+    """One profile per key, ``(length, B, 2)``: column ``i`` is
+    ``air_quality_like(keys[i], 1, length)[0][:, 0]``, each normalised on its
+    own initial value (the posterior decode's stand-in observations, drawn
+    for every row in one batched pass)."""
+    kk = prng.split(keys, 4)
+    kl, kp, ko = kk[:, 0], kk[:, 1], kk[:, 2]
+    labels = prng.randint(kl, 1, 0, num_labels, LABEL_DTYPES[dtype])[:, 0]
+    ts = _linspace(0.0, 1.0, length, dtype, keys.device)[:, None]
+    base = (labels.to(dtype) / num_labels)[None, :]
+    pm = base + 0.3 * torch.sin(2 * math.pi * (ts + 0.2 * base)) \
+        + 0.15 * prng.normal(kp[:, 0], kp[:, 1], length, dtype).T
+    peak_t = 0.55 + 0.25 * base
+    o3 = 0.8 * torch.exp(-((ts - peak_t) ** 2) / 0.02) + base * 0.2 \
+        + 0.1 * prng.normal(ko[:, 0], ko[:, 1], length, dtype).T
+    ys = torch.stack([pm, o3], -1)
+    # each row's mean and population std over its two channels, the sums
+    # written out: torch.std's CPU kernel rounds a lone row differently from
+    # a row among others, and a row's bits must not depend on its batch
+    m = ((ys[0, :, 0] + ys[0, :, 1]) / 2)[:, None]
+    d = ys[0] - m
+    s = torch.sqrt((d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) / 2)[:, None] + 1e-6
+    return (ys - m) / s
 
 
 def _normalise_initial(ys):

@@ -184,14 +184,26 @@ def wrap_vector_field(field, compute_dtype):
     return wrapped
 
 
+def _launch_tables() -> tuple:
+    return (_rh.LAUNCHES, _bk.LAUNCHES, _fa.LAUNCHES, _ssd.LAUNCHES, _fm.LAUNCHES,
+            _xent.LAUNCHES)
+
+
 def launch_counts() -> dict:
     """Kernel launches by name since the last :func:`reset_launch_counts`."""
-    return {**_rh.LAUNCHES, **_bk.LAUNCHES, **_fa.LAUNCHES, **_ssd.LAUNCHES,
-            **_fm.LAUNCHES, **_xent.LAUNCHES}
+    return {k: v for table in _launch_tables() for k, v in table.items()}
 
 
 def reset_launch_counts() -> None:
-    for table in (_rh.LAUNCHES, _bk.LAUNCHES, _fa.LAUNCHES, _ssd.LAUNCHES, _fm.LAUNCHES,
-                  _xent.LAUNCHES):
+    for table in _launch_tables():
         for name in table:
             table[name] = 0
+
+
+def uncount_launches(counts: dict) -> None:
+    """Take ``counts`` back off the launch counters: the wrapper calls made
+    while a CUDA graph was captured, which record their kernels and launch
+    nothing (whoever replays the graph counts its launches)."""
+    for table in _launch_tables():
+        for name in table:
+            table[name] -= counts.get(name, 0)

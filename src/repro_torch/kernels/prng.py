@@ -175,7 +175,7 @@ def uniform_range(k1, k2, size: int, dtype, minval, maxval) -> torch.Tensor:
     lo = np.array(minval, np_dtype)
     scale = np.array(maxval, np_dtype) - lo
     floats = uniform(k1, k2, size, dtype)
-    lo_t = torch.tensor(float(lo), dtype=dtype, device=floats.device)
+    lo_t = torch.full((), float(lo), dtype=dtype, device=floats.device)
     return torch.maximum(lo_t, floats * float(scale) + float(lo))
 
 
@@ -185,8 +185,8 @@ def _erf_inv32(x: torch.Tensor) -> torch.Tensor:
     ww = torch.where(lt, w + (-2.5), torch.sqrt(w) + (-3.0))
 
     def coef(a, b):
-        return torch.where(lt, torch.tensor(a, dtype=x.dtype, device=x.device),
-                           torch.tensor(b, dtype=x.dtype, device=x.device))
+        return torch.where(lt, torch.full((), a, dtype=x.dtype, device=x.device),
+                           torch.full((), b, dtype=x.dtype, device=x.device))
 
     p = coef(_ERFINV32_LT5[0], _ERFINV32_GE5[0])
     for a, b in zip(_ERFINV32_LT5[1:], _ERFINV32_GE5[1:]):
@@ -200,7 +200,7 @@ def _erf_inv64(x: torch.Tensor) -> torch.Tensor:
     lt16 = w < 16.0
 
     def c(v):
-        return torch.tensor(v, dtype=x.dtype, device=x.device)
+        return torch.full((), v, dtype=x.dtype, device=x.device)
 
     ww = torch.where(lt625, w + (-3.125),
                      torch.sqrt(w) - torch.where(lt16, c(3.25), c(5.0)))
@@ -276,7 +276,8 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
 
 def randint(key: torch.Tensor, size: int, minval: int, maxval: int,
             dtype=torch.int32) -> torch.Tensor:
-    """``jax.random.randint(key, (size,), minval, maxval, dtype)``, bitwise.
+    """``jax.random.randint(key, (size,), minval, maxval, dtype)``, bitwise;
+    a ``(*K, 2)`` batch of keys draws ``(*K, size)``, one row per key.
 
     ``dtype`` int32 draws 32-bit words, int64 64-bit words — JAX's default
     ``int`` is int32 without x64 and int64 with it.  JAX's unsigned modular
@@ -292,8 +293,8 @@ def randint(key: torch.Tensor, size: int, minval: int, maxval: int,
         raise ValueError(f"randint: span {span} does not fit the int64 words")
     mult = pow(2, nbits // 2, span) ** 2 % 2 ** nbits % span  # uint product wraps
     k = split(key)
-    hi_bits = random_bits(k[0, 0], k[0, 1], nbits, size)
-    lo_bits = random_bits(k[1, 0], k[1, 1], nbits, size)
+    hi_bits = random_bits(k[..., 0, 0], k[..., 0, 1], nbits, size)
+    lo_bits = random_bits(k[..., 1, 0], k[..., 1, 1], nbits, size)
     if nbits == 32:
         off = ((hi_bits % span) * mult + lo_bits % span) & MASK
     else:

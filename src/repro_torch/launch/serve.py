@@ -7,6 +7,12 @@ Usage::
     PYTHONPATH=src python -m repro_torch.launch.serve --workload sde-gan
     PYTHONPATH=src python -m repro_torch.launch.serve --workload sde-gan --adaptive \\
         --atol 1e-6                         # terminal samples, deadline-routed rtol
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload sde-gan \\
+        --scheduler continuous --preempt --pool-budget-mb 64 --async-front
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload sde-gan \\
+        --stream-chunks 4                   # the rollout in four time chunks
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload latent-sde \\
+        --latent-mode posterior --obs-len 9
     PYTHONPATH=src python -m repro_torch.launch.serve --workload latent-sde \\
         --ckpt-dir /path/to/ckpt            # a JAX- or port-written bundle
     PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \\
@@ -17,14 +23,19 @@ Usage::
         --device cpu                        # plain PyTorch versions, no card
 
 Serves on the card by default; with no card and no ``--device cpu`` it
-stops with a named error.  ``--adaptive`` serves SDE-GAN terminal samples,
-each batch at the tolerance its deadline class admits.  ``--workload lm``
-serves the dense family (qwen2.5-14b, tinyllama-1.1b, starcoder2-3b) and
-the pure-SSM family (mamba2-1.3b) at their smoke size unless ``--full`` is
-given, as the reference's flags read.  Still unported, each with a named
-error pointing at ROADMAP.md: the other LM families (MoE, MLA, hybrid,
-encoder-decoder, VLM), the Latent SDE's posterior decode, streaming, and
-the continuous-batching scheduler.
+stops with a named error.  The Neural-SDE modes are the reference's:
+``--latent-mode posterior [--obs-len N]`` encodes observations and decodes
+the posterior, ``--stream-chunks K`` emits the SDE-GAN rollout in time
+chunks, ``--adaptive`` serves SDE-GAN terminal samples, each batch at the
+tolerance its deadline class admits, and ``--scheduler
+{continuous,fifo}`` drives the continuous-batching scheduler (``--preempt``,
+``--pool-budget-mb``, ``--async-front`` ride on it; its steps are CUDA
+graphs on the card).  ``--workload lm`` serves the dense family
+(qwen2.5-14b, tinyllama-1.1b, starcoder2-3b) and the pure-SSM family
+(mamba2-1.3b) at their smoke size unless ``--full`` is given, as the
+reference's flags read.  Still unported, each with a named error pointing
+at ROADMAP.md: the other LM families (MoE, MLA, hybrid, encoder-decoder,
+VLM) and ``--host-devices`` (data-parallel serving).
 """
 
 from __future__ import annotations
@@ -117,15 +128,36 @@ def main(argv=None):
                     help="synthetic requests to drain through the queue")
     ap.add_argument("--request-max", type=int, default=4,
                     help="largest per-request trajectory count")
-    ap.add_argument("--latent-mode", choices=("prior", "posterior"), default="prior")
+    ap.add_argument("--host-devices", type=int, default=None,
+                    help="data-parallel serving over N devices (not ported yet)")
+    ap.add_argument("--latent-mode", choices=("prior", "posterior"), default="prior",
+                    help="latent-sde: decode from the prior, or encode observations "
+                         "and decode the posterior")
+    ap.add_argument("--obs-len", type=int, default=9,
+                    help="latent-sde posterior: observation points per request "
+                         "(num_steps must be a multiple of obs_len - 1)")
     ap.add_argument("--stream-chunks", type=int, default=0,
-                    help="stream each trajectory in this many time chunks (not "
-                         "ported yet)")
+                    help="sde-gan: stream the horizon in K time chunks (0/1 = whole "
+                         "trajectories)")
     ap.add_argument("--adaptive", action="store_true",
                     help="sde-gan: adaptive terminal samples, rtol routed per "
                          "request deadline class")
     ap.add_argument("--atol", type=float, default=1e-6,
                     help="absolute tolerance of --adaptive")
+    ap.add_argument("--scheduler", choices=("continuous", "fifo"), default=None,
+                    help="sde-gan: drive the continuous-batching scheduler; 'fifo' runs "
+                         "the same pooled steps, draining before each coalesce")
+    ap.add_argument("--preempt", action="store_true",
+                    help="scheduler: relaxed-class rollouts yield at chunk boundaries "
+                         "while any lane has realtime-class work (bitwise invisible)")
+    ap.add_argument("--pool-budget-mb", type=float, default=None,
+                    help="scheduler: evict the coldest pool entries (CUDA graphs on the "
+                         "card) once the pools exceed this many MB; rebuilt on reuse")
+    ap.add_argument("--async-front", action="store_true",
+                    help="scheduler: drive the drain through the asyncio front instead "
+                         "of a direct step loop")
+    ap.add_argument("--solver", default="reversible_heun",
+                    help="fresh-init solver; restored bundles carry their own")
     ap.add_argument("--pallas", action="store_true",
                     help="fresh-init: the fused hot loop (phase-1 kernel draws ΔW, "
                          "phase-2 kernel); restored bundles carry their own")
@@ -142,6 +174,12 @@ def main(argv=None):
     ap.add_argument("--full", dest="smoke", action="store_false",
                     help="lm: the full config")
     args = ap.parse_args(argv)
+    if args.host_devices is not None:
+        from ..serving import DistributedNotPortedError
+
+        raise DistributedNotPortedError(
+            f"--host-devices {args.host_devices}: data-parallel serving needs the "
+            f"distributed port — ROADMAP.md Queue 1, 'Distributed'")
     if args.workload == "lm":
         return serve_lm(args.arch, args.batch, args.prompt_len, args.gen, args.smoke,
                         args.seed, device=args.device)
@@ -149,7 +187,9 @@ def main(argv=None):
                      request_max=args.request_max, latent_mode=args.latent_mode,
                      stream_chunks=args.stream_chunks, adaptive=args.adaptive,
                      atol=args.atol, seed=args.seed, device=args.device, sde_steps=args.sde_steps,
-                     pallas=args.pallas)
+                     pallas=args.pallas, obs_len=args.obs_len, scheduler=args.scheduler,
+                     preempt=args.preempt, pool_budget_mb=args.pool_budget_mb,
+                     async_front=args.async_front, solver=args.solver)
 
 
 if __name__ == "__main__":

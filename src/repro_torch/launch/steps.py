@@ -3,12 +3,16 @@
 (``make_gan_optimizers``, ``make_sde_gan_step``, and ``sde_gan_grads``
 under it), the Latent-SDE ELBO training step
 (``make_latent_sde_optimizer``, ``make_latent_sde_step``),
-the serving samplers: ``make_sample_step`` (the Latent-SDE prior decode and
-the SDE-GAN generator's rollout) and ``make_adaptive_terminal_step`` (the
-SDE-GAN's adaptive terminal samples), and the transformer LM's serving
+the serving samplers: ``make_sample_step`` (the Latent-SDE prior and
+posterior decodes and the SDE-GAN generator's rollout),
+``make_stream_chunk_step`` (one time chunk of a streamed or continuously
+batched rollout) and ``make_adaptive_terminal_step`` (the SDE-GAN's
+adaptive terminal samples), and the transformer LM's serving
 steps ``make_prefill_step``, ``make_serve_step`` and ``greedy_sample``."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -60,19 +64,24 @@ def make_train_step(cfg, opt_update=None, grad_clip: float = 1.0):
     return train_step
 
 
-def make_sample_step(workload: str, cfg, latent_mode: str = "prior", device=None):
+def make_sample_step(workload: str, cfg, latent_mode: str = "prior",
+                     obs_len: Optional[int] = None, device=None):
     """Build the batched trajectory sampler of one serving bucket:
     ``(params, keys) -> (num_steps+1, len(keys), data_dim)`` — the SDE-GAN
-    generator's rollout, or the Latent SDE's decode.
+    generator's rollout, or the Latent SDE's prior or posterior decode.
 
+    ``latent_mode="posterior"`` encodes ``obs_len`` observations per row,
+    drawn as the reference draws its stand-in observation channel:
+    ``air_quality_like(fold_in(key, 2), 1, obs_len)`` per row
+    (:func:`repro_torch.data.air_quality_rows`), then solves the posterior.
     Runs on the card unless ``device="cpu"`` (no card: a named error).
     ``keys`` are moved to that device; ``params`` must already live there.
     Every output row is a pure function of ``(params, keys[i])``, so padding
     ``keys`` up to a bucket cannot change the real rows.  Validation is
-    eager: an unported workload or mode raises here, at build time.
+    eager: an unknown workload or mode, or a misaligned observation grid,
+    raises here, at build time.
     """
     from ..core import sde as S
-    from ..serving.service import ServingNotPortedError
 
     if workload not in SERVE_WORKLOADS:
         raise ValueError(f"workload must be one of {SERVE_WORKLOADS}, got {workload!r}")
@@ -85,16 +94,49 @@ def make_sample_step(workload: str, cfg, latent_mode: str = "prior", device=None
         return sample
     if latent_mode not in ("prior", "posterior"):
         raise ValueError(f"latent_mode must be 'prior' or 'posterior', got {latent_mode!r}")
-    if latent_mode != "prior":
-        raise ServingNotPortedError(
-            "latent_mode='posterior' is not ported yet — "
-            "ROADMAP.md Queue 1, 'The rest of serving'")
+    if latent_mode == "prior":
+        dev = resolve_device(device)
+
+        def sample(params, keys):
+            return S.latent_sde_sample_paths(params, cfg, keys.to(dev))
+
+        return sample
+    if obs_len is None or obs_len < 2:
+        raise ValueError(f"latent_mode='posterior' needs obs_len >= 2 observation points "
+                         f"per request, got {obs_len!r}")
+    S.validate_latent_grid(cfg.num_steps, obs_len - 1)
     dev = resolve_device(device)
 
     def sample(params, keys):
-        return S.latent_sde_sample_paths(params, cfg, keys.to(dev))
+        from ..data.synthetic import air_quality_rows
+        from ..kernels import prng
+
+        keys = keys.to(dev)
+        y_obs = air_quality_rows(prng.fold_in_key(keys, 2), obs_len, dtype=cfg.dtype)
+        return S.latent_sde_posterior_decode(params, cfg, keys, y_obs)
 
     return sample
+
+
+def make_stream_chunk_step(cfg, span: float, num_steps: int, device=None):
+    """Build the streamed-rollout chunk step: ``(params, keys, x0, t_start)
+    -> (ys_chunk, xT)`` over ``[t_start, t_start + span]`` in ``num_steps``
+    steps (:func:`repro_torch.core.sde.generator_rollout_chunk`).
+
+    ``t_start`` is a scalar (the stream loop: every row at one chunk) or a
+    ``(B,)`` per-row tensor (the continuous-batching scheduler).  ``keys``
+    are pre-folded per chunk by the caller; the loop carries ``xT`` into the
+    next chunk.  SDE-GAN generator only.  Runs on the card unless
+    ``device="cpu"``."""
+    from ..core import sde as S
+
+    dev = resolve_device(device)
+
+    def chunk_step(params, keys, x0, t_start):
+        return S.generator_rollout_chunk(params, cfg, keys.to(dev), x0, t_start, span,
+                                         num_steps)
+
+    return chunk_step
 
 
 def make_adaptive_terminal_step(cfg, atol: float = 1e-6, max_steps: int = 4096,

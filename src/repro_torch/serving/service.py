@@ -1,20 +1,24 @@
 """The serving engine (port of :mod:`repro.serving.service`:
 ``_request_keys``, ``_coalesce``, ``_batch_loop``,
-``_adaptive_terminal_loop`` and ``serve_sde``).
+``_adaptive_terminal_loop``, ``_stream_loop``, ``_scheduler_loop``,
+``_drain_async`` and ``serve_sde``).
 
-The reference AOT-compiles one program per bucket; the port runs eagerly,
-so it runs one warm-up pass per bucket instead (the first pass builds the
-CUDA kernels and initialises cuBLAS).  Requests drain FIFO: coalesced until
-the next one would overflow the largest bucket, keys padded with
-``PAD_SEED`` rows up to the nearest bucket.  Every row is a pure function
-of its own key, so padding never changes a client's rows.
+The reference AOT-compiles one program per bucket; the drain loops here run
+eagerly, so they run one warm-up pass per bucket instead (the first pass
+builds the CUDA kernels and initialises cuBLAS).  The continuous-batching
+scheduler pools its steps in a :class:`~repro_torch.serving.ModelRegistry`,
+as CUDA graphs on the card.  Requests drain FIFO: coalesced until the next
+one would overflow the largest bucket, keys padded with ``PAD_SEED`` rows
+up to the nearest bucket.  Every row is a pure function of its own key, so
+padding never changes a client's rows.
 
-Ported: the Latent-SDE prior decode and the SDE-GAN generator's
-fixed-grid rollout (:func:`_batch_loop`), and the SDE-GAN's adaptive
-terminal sampling with deadline-routed tolerances
-(:func:`_adaptive_terminal_loop`).  The posterior decode, streaming and
-the continuous-batching scheduler raise :class:`ServingNotPortedError`
-(ROADMAP.md Queue 1, 'The rest of serving').
+The loops: :func:`_batch_loop` (the Latent SDE's prior and posterior
+decodes and the SDE-GAN generator's fixed-grid rollout),
+:func:`_adaptive_terminal_loop` (SDE-GAN terminal samples at
+deadline-routed tolerances), :func:`_stream_loop` (the generator's rollout
+emitted in time chunks) and :func:`_scheduler_loop` (the
+:class:`~repro_torch.serving.Scheduler`, directly or through the
+:class:`~repro_torch.serving.AsyncFrontend`).
 """
 
 from __future__ import annotations
@@ -30,63 +34,25 @@ import torch
 from .. import checkpoint as ckpt
 from ..device import resolve_device
 from ..kernels import prng
-from ..launch.steps import SERVE_WORKLOADS
-from .scheduler import serve_buckets
+from .registry import (LoadedModel, ModelRegistry, _config_class, _init_params,
+                       restore_for_serving)
+from .scheduler import _CHUNK_FOLD, Scheduler, _keys, latency_summary, serve_buckets
 from .types import (DEADLINE_CLASSES, PAD_SEED, ServeResult, deadline_class_for,
                     percentile, route_rtol, synthetic_requests)
 
-class ServingNotPortedError(NotImplementedError):
-    """A serving workload or mode of the reference that the port lacks."""
+#: The reference's stable private name for the percentile helper.
+_percentile = percentile
 
 
-def _config_class(workload: str):
-    from ..core.sde import LatentSDEConfig, NeuralSDEConfig
-
-    if workload not in SERVE_WORKLOADS:
-        raise ValueError(f"workload must be one of {SERVE_WORKLOADS}, got {workload!r}")
-    return NeuralSDEConfig if workload == "sde-gan" else LatentSDEConfig
-
-
-def _fresh_cfg(workload: str, num_steps: Optional[int], pallas: bool):
+def _fresh_cfg(workload: str, num_steps: Optional[int], pallas: bool,
+               solver: str = "reversible_heun"):
     """The reference's fresh-init (``--smoke``) config of a workload."""
     num_steps = 16 if num_steps is None else num_steps
+    kw = dict(num_steps=num_steps, solver=solver, exact_adjoint=solver == "reversible_heun",
+              use_pallas_kernels=pallas)
     if workload == "sde-gan":
-        return _config_class(workload)(data_dim=1, hidden_dim=16, noise_dim=4, width=32,
-                                       num_steps=num_steps, use_pallas_kernels=pallas)
-    return _config_class(workload)(data_dim=2, hidden_dim=16, context_dim=16, width=32,
-                                   num_steps=num_steps, use_pallas_kernels=pallas)
-
-
-def _init_params(workload: str, cfg, seed: int):
-    """Fresh parameters of a workload's bundle (the SDE-GAN serves its
-    generator only), from a ``torch.Generator`` seeded with ``seed``."""
-    from ..core.sde import generator_init, latent_sde_init
-
-    gen = torch.Generator().manual_seed(seed)
-    return (generator_init if workload == "sde-gan" else latent_sde_init)(gen, cfg)
-
-
-def config_from_meta(workload: str, config: dict):
-    """Rebuild the model config from a bundle's JSON dict."""
-    cls = _config_class(workload)
-    d = dict(config)
-    d["dtype"] = getattr(torch, d.get("dtype", "float32"))
-    try:
-        return cls(**d)
-    except TypeError as e:
-        raise ValueError(f"serving bundle config does not match {cls.__name__} "
-                         f"— written by an incompatible code version ({e})") from e
-
-
-def restore_for_serving(workload: str, ckpt_dir, device):
-    """Read a (JAX- or port-written) bundle -> ``(params, cfg, step)``."""
-    tree, entry, step = ckpt.load_serving_bundle(ckpt_dir)
-    if entry["workload"] != workload:
-        raise ValueError(
-            f"serving bundle under {ckpt_dir} was trained for workload "
-            f"{entry['workload']!r}, not {workload!r}")
-    cfg = config_from_meta(workload, entry["config"])
-    return ckpt.params_from_jax(tree, device=device, dtype=cfg.dtype), cfg, step
+        return _config_class(workload)(data_dim=1, hidden_dim=16, noise_dim=4, width=32, **kw)
+    return _config_class(workload)(data_dim=2, hidden_dim=16, context_dim=16, width=32, **kw)
 
 
 def _request_keys(requests, pad_to: int, device) -> torch.Tensor:
@@ -106,8 +72,29 @@ def _request_keys(requests, pad_to: int, device) -> torch.Tensor:
         idx[row:row + r.size] = np.arange(r.size)
         row += r.size
     idx[used:] -= used
-    words = torch.from_numpy(np.stack([seeds >> 32, seeds & prng.MASK, idx])).to(device)
-    return torch.stack(prng.fold_in(words[0], words[1], words[2]), -1)
+    return _keys(seeds, idx, device)
+
+
+def _warm_buckets(run, buckets, device, tag: str = "") -> None:
+    """One warm-up pass per bucket, in place of the reference's AOT compiles:
+    ``run(keys)`` on a bucket of padding keys pays first-use costs (kernel
+    builds, cuBLAS set-up) before the clock starts.  A string that ``run``
+    returns is a note for the bucket's line."""
+    for b in buckets:
+        t0 = time.perf_counter()
+        note = run(_request_keys([], b, device))
+        _sync(device)
+        print(f"[serve] warmed {tag}bucket {b} in {time.perf_counter() - t0:.2f}s"
+              + (f" ({note})" if isinstance(note, str) else ""), flush=True)
+
+
+def _compile_pool(sampler, params, buckets, *example_args, tag: str = "", device=None):
+    """The reference's ``{bucket: program}`` pool: ``sampler`` warmed at every
+    bucket by :func:`_warm_buckets`, and serving each.  ``example_args``:
+    operands after ``(params, keys)``, e.g. the adaptive sampler's rtol."""
+    _warm_buckets(lambda keys: sampler(params, keys, *example_args), buckets,
+                  resolve_device(device), tag)
+    return {b: sampler for b in buckets}
 
 
 def _coalesce(pending, cap: int):
@@ -142,20 +129,30 @@ def serve_sde(workload: str, ckpt_dir=None, max_batch: int = 16,
               requests: int = 12, request_max: int = 4, latent_mode: str = "prior",
               stream_chunks: int = 0, adaptive: bool = False, atol: float = 1e-6,
               seed: int = 0, device=None, sde_steps: Optional[int] = None,
-              pallas: bool = False, collect: bool = False) -> dict:
+              pallas: bool = False, collect: bool = False, obs_len: int = 9,
+              scheduler: Optional[str] = None, preempt: bool = False,
+              pool_budget_mb: Optional[float] = None, async_front: bool = False,
+              solver: str = "reversible_heun") -> dict:
     """Run the trajectory-sampling service; return the stats it prints.
 
     ``device=None`` serves on the card and raises
     :class:`~repro_torch.NoCudaDeviceError` without one; ``device="cpu"``
-    runs the plain versions on the CPU.  Without ``ckpt_dir``, a
-    fresh model (``torch.Generator`` seeded with ``seed``; ``sde_steps`` and
-    ``pallas`` shape its config) is written to a throwaway bundle and
-    restored from it, the path a trained checkpoint takes.  ``adaptive``
-    serves SDE-GAN terminal samples at deadline-routed tolerances
-    (absolute tolerance ``atol``).  ``collect`` keeps every request's
-    output on the CPU under ``stats["samples"][rid]``: trajectories
-    ``(num_steps+1, size, data_dim)``, or terminal samples ``(size,
-    data_dim)``.
+    runs the plain versions on the CPU.  Without ``ckpt_dir``, a fresh model
+    (``torch.Generator`` seeded with ``seed``; ``sde_steps``, ``pallas`` and
+    ``solver`` shape its config) is written to a throwaway bundle and
+    restored from it, the path a trained checkpoint takes.
+
+    Modes, as the reference's: ``latent_mode="posterior"`` encodes
+    ``obs_len`` stand-in observations per row and decodes the posterior;
+    ``stream_chunks`` > 1 emits the SDE-GAN rollout in that many time
+    chunks; ``adaptive`` serves SDE-GAN terminal samples at deadline-routed
+    tolerances (absolute tolerance ``atol``); ``scheduler`` (``"continuous"``
+    or ``"fifo"``) drives the continuous-batching scheduler, with
+    ``preempt``, ``pool_budget_mb`` (the pool's LRU budget) and
+    ``async_front`` (the drain through the asyncio front) riding on it.
+    ``collect`` keeps every request's output on the CPU under
+    ``stats["samples"][rid]``: trajectories ``(num_steps+1, size,
+    data_dim)``, or terminal samples ``(size, data_dim)``.
     """
     _config_class(workload)
     if adaptive and workload != "sde-gan":
@@ -168,15 +165,19 @@ def serve_sde(workload: str, ckpt_dir=None, max_batch: int = 16,
             "--adaptive and --stream-chunks are mutually exclusive: "
             "streaming emits a fixed per-chunk grid, adaptive solving "
             "chooses its own")
-    if stream_chunks > 1:
-        raise ServingNotPortedError(
-            "--stream-chunks (the chunked long-horizon rollout) is not ported yet "
-            "— ROADMAP.md Queue 1, 'The rest of serving'")
-    if latent_mode != "prior":
-        raise ServingNotPortedError(
-            f"latent_mode={latent_mode!r} is not ported yet (the port serves the "
-            f"prior decode; the posterior decode needs the encoder — "
-            f"ROADMAP.md Queue 1, 'The rest of serving')")
+    if scheduler is not None and workload != "sde-gan":
+        raise ValueError(
+            "--scheduler drives the continuous-batching chunked rollout, which is "
+            "the SDE-GAN generator's carry machinery; latent-sde serves through "
+            "the coalescing loop")
+    if scheduler is None and (preempt or pool_budget_mb is not None or async_front):
+        opts = [n for n, on in (("--preempt", preempt),
+                                ("--pool-budget-mb", pool_budget_mb is not None),
+                                ("--async-front", async_front)) if on]
+        raise ValueError(f"{', '.join(opts)} require the continuous-batching path — "
+                         f"pass --scheduler continuous (or fifo)")
+    if pool_budget_mb is not None and pool_budget_mb <= 0:
+        raise ValueError(f"--pool-budget-mb must be positive, got {pool_budget_mb}")
     if requests < 1 or request_max < 1:
         raise ValueError(f"requests ({requests}) and request_max ({request_max}) "
                          f"must both be >= 1")
@@ -184,7 +185,7 @@ def serve_sde(workload: str, ckpt_dir=None, max_batch: int = 16,
     with tempfile.TemporaryDirectory(prefix="repro-torch-serve-") as tmp:
         if ckpt_dir is None:
             ckpt_dir = tmp
-            cfg = _fresh_cfg(workload, sde_steps, pallas)
+            cfg = _fresh_cfg(workload, sde_steps, pallas, solver)
             ckpt.save_serving_bundle(ckpt_dir, 0, _init_params(workload, cfg, seed),
                                      workload, cfg)
             print(f"[serve] fresh {workload} bundle (seed {seed})", flush=True)
@@ -195,26 +196,29 @@ def serve_sde(workload: str, ckpt_dir=None, max_batch: int = 16,
     buckets = serve_buckets(max_batch)
     stats = {"workload": workload, "restored_step": step, "buckets": buckets}
     request_max = min(request_max, buckets[-1])
-    if adaptive:
+    if scheduler is not None:
+        _scheduler_loop(cfg, params, buckets, requests, request_max, scheduler, seed, stats,
+                        dev, preempt=preempt, pool_budget_mb=pool_budget_mb,
+                        async_front=async_front, collect=collect)
+    elif adaptive:
         _adaptive_terminal_loop(cfg, params, buckets, requests, request_max, atol, seed,
                                 stats, dev, collect)
+    elif stream_chunks > 1:
+        _stream_loop(workload, cfg, params, buckets, requests, request_max, stream_chunks,
+                     seed, stats, dev, collect)
     else:
         _batch_loop(workload, cfg, params, buckets, requests, request_max, latent_mode,
-                    seed, stats, dev, collect)
+                    obs_len, seed, stats, dev, collect)
     return stats
 
 
 def _batch_loop(workload, cfg, params, buckets, requests, request_max, latent_mode,
-                seed, stats, device, collect=False):
+                obs_len, seed, stats, device, collect=False):
     from ..launch.steps import make_sample_step
 
-    sampler = make_sample_step(workload, cfg, latent_mode=latent_mode, device=device)
-    for b in buckets:  # warm-up pass per bucket, in place of AOT compiles
-        t0 = time.perf_counter()
-        sampler(params, _request_keys([], b, device))
-        _sync(device)
-        print(f"[serve] warmed bucket {b} in {time.perf_counter() - t0:.2f}s", flush=True)
-
+    sampler = make_sample_step(workload, cfg, latent_mode=latent_mode, obs_len=obs_len,
+                               device=device)
+    _warm_buckets(lambda keys: sampler(params, keys), buckets, device)
     pending = synthetic_requests(requests, request_max, seed)
     latencies, total_rows, n_batches, samples = [], 0, 0, {}
     t_start = time.perf_counter()
@@ -257,13 +261,12 @@ def _adaptive_terminal_loop(cfg, params, buckets, requests, request_max, atol, s
     warm = make_adaptive_terminal_step(cfg, atol=atol, max_steps=1, device=device)
     warm_rtol = DEADLINE_CLASSES[0].rtol
     warmup_iterations = []
-    for b in buckets:  # warm-up pass per bucket, one loop iteration each
-        t0 = time.perf_counter()
-        warmup_iterations.append(warm(params, _request_keys([], b, device),
-                                      warm_rtol)[2].iterations)
-        _sync(device)
-        print(f"[serve] warmed adaptive bucket {b} in {time.perf_counter() - t0:.2f}s "
-              f"(rtol {warm_rtol}, {warmup_iterations[-1]} loop iterations)", flush=True)
+
+    def warm_once(keys):
+        warmup_iterations.append(warm(params, keys, warm_rtol)[2].iterations)
+        return f"rtol {warm_rtol}, {warmup_iterations[-1]} loop iterations"
+
+    _warm_buckets(warm_once, buckets, device, "adaptive ")
 
     by_class = {c.name: collections.deque() for c in DEADLINE_CLASSES}
     for r in synthetic_requests(requests, request_max, seed, adaptive=True):
@@ -287,7 +290,7 @@ def _adaptive_terminal_loop(cfg, params, buckets, requests, request_max, atol, s
             i = 0
             for r in batch:
                 results.append(ServeResult(
-                    rid=r.rid, size=r.size,
+                    rid=r.rid, model_id=r.model_id, size=r.size,
                     converged=conv[i:i + r.size].tolist(), latency_s=t_now - t_start,
                     deadline_ms=r.deadline_ms, rtol=batch_rtol))
                 if collect:
@@ -327,3 +330,139 @@ def _adaptive_terminal_loop(cfg, params, buckets, requests, request_max, atol, s
               f"loosen the tolerance", flush=True)
     if collect:
         stats["samples"] = samples
+
+
+def _stream_loop(workload, cfg, params, buckets, requests, request_max, stream_chunks,
+                 seed, stats, device, collect=False):
+    """Long-horizon streaming: each batch's trajectories emitted in
+    ``stream_chunks`` time chunks, chunk ``c`` keyed ``fold_in(key, 1000 +
+    c)`` per row and carried from the last (the first chunk's latency, not
+    the whole horizon's, is what a client waits for)."""
+    from ..core.sde import generator_initial_state
+    from ..launch.steps import make_stream_chunk_step
+
+    if workload != "sde-gan":
+        raise ValueError("--stream-chunks streams the SDE-GAN generator rollout; the "
+                         "latent decoder serves whole trajectories")
+    if cfg.num_steps % stream_chunks != 0:
+        raise ValueError(f"--stream-chunks ({stream_chunks}) must divide the solver "
+                         f"horizon num_steps ({cfg.num_steps}) so chunks share a grid")
+    span = cfg.t1 / stream_chunks
+    steps_per_chunk = cfg.num_steps // stream_chunks
+    chunk = make_stream_chunk_step(cfg, span, steps_per_chunk, device=device)
+
+    def rollout(keys, emit=None):
+        x = generator_initial_state(params, cfg, keys)
+        for c in range(stream_chunks):
+            ys_c, x = chunk(params, prng.fold_in_key(keys, _CHUNK_FOLD + c), x, c * span)
+            _sync(device)  # "emitted" to the client here
+            if emit is not None:
+                emit(c, ys_c)
+
+    _warm_buckets(rollout, buckets, device, "stream ")
+
+    pending = synthetic_requests(requests, request_max, seed)
+    latencies, first_chunk_ms, total_rows, n_batches, samples = [], [], 0, 0, {}
+    t_start = time.perf_counter()
+    while pending:
+        batch, rows = _coalesce(pending, buckets[-1])
+        bucket = next(b for b in buckets if b >= rows)
+        pieces = []
+        t_batch0 = time.perf_counter()
+
+        def emit(c, ys_c):
+            if c == 0:
+                first_chunk_ms.append((time.perf_counter() - t_batch0) * 1e3)
+            if collect:  # a later chunk's entry row is the previous chunk's last
+                pieces.append(ys_c.cpu() if c == 0 else ys_c[1:].cpu())
+
+        rollout(_request_keys(batch, bucket, device), emit)
+        t_now = time.perf_counter()
+        if collect:
+            ys, i = torch.cat(pieces), 0
+            for r in batch:
+                samples[r.rid] = ys[:, i:i + r.size]
+                i += r.size
+        latencies += [t_now - t_start] * len(batch)
+        total_rows += rows
+        n_batches += 1
+    wall = time.perf_counter() - t_start
+    _report(f"sde-gan/stream×{stream_chunks}", stats, total_rows, n_batches, latencies,
+            wall, device)
+    stats["first_chunk_ms"] = sum(first_chunk_ms) / len(first_chunk_ms)
+    print(f"[serve] stream: mean first-chunk latency {stats['first_chunk_ms']:.1f}ms "
+          f"({steps_per_chunk}/{cfg.num_steps} steps per chunk)", flush=True)
+    if collect:
+        stats["samples"] = samples
+
+
+def _scheduler_loop(cfg, params, buckets, requests, request_max, mode, seed, stats,
+                    device, preempt: bool = False, pool_budget_mb: Optional[float] = None,
+                    async_front: bool = False, collect: bool = False):
+    """Drive the continuous-batching :class:`Scheduler` over the synthetic
+    stream (closed loop: every request arrives as the drain starts, after
+    the pool's builds — the reference stamps the scheduler's construction,
+    so its latencies carry its compiles).  With
+    ``async_front`` the stream goes through :class:`AsyncFrontend` — one
+    ``submit`` coroutine per request — instead of a direct ``step`` loop.
+    The stats carry the registry's pool (keys, bytes, evictions, builds) and
+    the launches its graph replays made."""
+    budget = None if pool_budget_mb is None else int(pool_budget_mb * 2 ** 20)
+    registry = ModelRegistry(pool_budget_bytes=budget)
+    registry.register(LoadedModel("default", "sde-gan", cfg, params))
+    chunks = 4 if cfg.num_steps % 4 == 0 else 1
+    sched = Scheduler(registry, max_batch=buckets[-1], chunks=chunks, mode=mode,
+                      preempt=preempt, collect=collect)
+    sched.warm("default")
+    pending = synthetic_requests(requests, request_max, seed)
+    t_start = time.perf_counter()
+    arrival = sched.now()  # every request arrives as the drain starts, after the builds
+    if async_front:
+        results, n_iter = _drain_async(sched, pending, arrival)
+    else:
+        for r in pending:
+            sched.submit(r, arrival_s=arrival)
+        results, n_iter = [], 0
+        while sched.busy:
+            results += sched.step()
+            n_iter += 1
+    wall = time.perf_counter() - t_start
+    _report(f"sde-gan/scheduler-{mode}×{chunks}chunks", stats,
+            sum(r.size for r in results), n_iter, [r.latency_s for r in results], wall,
+            device)
+    stats.update(latency_summary(results), scheduler=mode, chunks=chunks, preempt=preempt,
+                 frontend="asyncio" if async_front else "direct",
+                 counters=dict(sched.counters), pool_keys=registry.pool_keys(),
+                 pool_bytes=registry.pool_bytes(), pool_evictions=registry.evictions,
+                 pool_builds=registry.compiles,
+                 replay_launches=dict(registry.replay_launches))
+    if budget is not None:
+        stats["pool_budget_bytes"] = budget
+        print(f"[serve] pool budget {pool_budget_mb:g} MB: {registry.pool_bytes()} B "
+              f"resident, {registry.evictions} evictions", flush=True)
+    print(f"[serve] scheduler: mode={mode}, {len(results)} requests, "
+          f"pools={len(registry.pool_keys('default'))} entries (chunk t_start per row — "
+          f"admission at chunk boundaries)", flush=True)
+    if collect:
+        stats["samples"] = {r.rid: r.samples for r in results}
+
+
+def _drain_async(sched, pending, arrival_s: float = 0.0):
+    """Closed-loop drain over the asyncio front: one ``submit`` coroutine per
+    request (all stamped ``arrival_s``), gathered -> ``(results, engine
+    iterations)``."""
+    import asyncio
+
+    from .frontend import AsyncFrontend
+
+    async def drive():
+        front = AsyncFrontend(sched)
+        await front.start()
+        try:
+            results = await asyncio.gather(*(front.submit(r, arrival_s=arrival_s)
+                                              for r in pending))
+        finally:
+            await front.close()
+        return list(results), front.steps
+
+    return asyncio.run(drive())

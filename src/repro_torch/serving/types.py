@@ -14,6 +14,8 @@ import dataclasses
 import math
 from typing import Any, Optional
 
+import numpy as np
+
 #: Seed for bucket-padding rows (their output is discarded; rows are
 #: independent, so padding never reaches a client's rows).
 PAD_SEED = 0x5EED_0DD
@@ -25,15 +27,21 @@ class Request:
     off ``seed``.
 
     ``deadline_ms`` picks the request's deadline class (``math.inf``: no
-    SLO); ``rtol`` is an optional explicit accuracy ask, a floor the batch
-    never runs looser than; ``kind`` is ``"rollout"`` (a fixed-grid
-    trajectory) or ``"terminal"`` (an adaptive terminal sample)."""
+    SLO), which routes an adaptive batch's tolerance and, under
+    ``Scheduler(preempt=True)``, makes the request realtime pressure (the
+    tightest class) or lets it yield (the loosest); ``model_id`` names the
+    registry entry that serves it (``"default"``: a single-model bundle,
+    every upgraded v1 bundle); ``rtol`` is an optional explicit accuracy
+    ask, a floor the batch never runs looser than; ``kind`` is
+    ``"rollout"`` (a fixed-grid trajectory, chunked by the scheduler) or
+    ``"terminal"`` (an adaptive terminal sample)."""
 
     rid: int
     size: int
     seed: int
     rtol: Optional[float] = None
     deadline_ms: float = math.inf
+    model_id: str = "default"
     kind: str = "rollout"
 
     def __post_init__(self):
@@ -52,14 +60,29 @@ class ServeResult:
 
     ``converged``: one bool per row; ``False`` marks an adaptive row whose
     controller ran out of budget before ``t1`` (its sample is the state at
-    ``t_final < t1``).  ``rtol``: the tolerance the batch ran at."""
+    ``t_final < t1``).  ``rtol``: the tolerance the batch ran at.
+    ``samples``: the payload on the CPU when the caller asked the scheduler
+    to collect it (``(num_steps+1, size, data_dim)`` trajectories, or
+    ``(size, data_dim)`` terminal samples), else None."""
 
     rid: int
+    model_id: str
     size: int
     converged: Any
     latency_s: float
     deadline_ms: float = math.inf
     rtol: Optional[float] = None
+    samples: Any = None
+
+    @property
+    def deadline_met(self) -> bool:
+        """Whether the latency landed inside ``deadline_ms`` (always, with no SLO)."""
+        return self.latency_s * 1e3 <= self.deadline_ms
+
+    @property
+    def num_converged(self) -> int:
+        """How many of the rows converged (``size`` for fixed-grid rollouts)."""
+        return int(np.sum(np.asarray(self.converged)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,11 +126,13 @@ def route_rtol(batch, classes=DEADLINE_CLASSES) -> float:
     return rtol
 
 
-def synthetic_requests(n: int, max_size: int, seed: int, adaptive: bool = False):
-    """Deterministic request stream: sizes cycle ``1..max_size``, seeds
-    unique.  With ``adaptive`` the requests are terminal samples cycling
-    through every deadline class (the unbounded class gets ten times the
-    previous class's bound); otherwise rollouts with no deadline."""
+def synthetic_requests(n: int, max_size: int, seed: int, adaptive: bool = False,
+                       model_id: str = "default"):
+    """Deterministic request stream for ``model_id``: sizes cycle
+    ``1..max_size``, seeds unique.  With ``adaptive`` the requests are
+    terminal samples cycling through every deadline class (the unbounded
+    class gets ten times the previous class's bound); otherwise rollouts
+    with no deadline."""
     reqs = collections.deque()
     for i in range(n):
         kw = {}
@@ -117,7 +142,7 @@ def synthetic_requests(n: int, max_size: int, seed: int, adaptive: bool = False)
                   else 10 * DEADLINE_CLASSES[-2].max_deadline_ms)
             kw = dict(kind="terminal", deadline_ms=dl)
         reqs.append(Request(rid=i, size=1 + (i * 7 + seed) % max_size,
-                            seed=seed * 100_003 + i, **kw))
+                            seed=seed * 100_003 + i, model_id=model_id, **kw))
     return reqs
 
 

@@ -31,7 +31,10 @@ bf16_compute training step; the srk solver's space-time kernels
 100 and 512, past its ring of levels) bitwise against their plain
 versions, counted and checked, and the srk checkpoint ELBO gradient
 against the CPU's; the MLP kernel's two launches alike and rows invariant
-at every width chip_smoke.py checks.
+at every width chip_smoke.py checks; the serving registry's CUDA graphs:
+a replayed chunk bitwise the eager chunk at buckets 1, 64 and 1024, its
+recorded launches, and an eviction that frees the graph's bytes and a
+rebuild that gives its bits.
 
 These need an NVIDIA GPU with nvcc (the kernels have no CPU mode); each test
 skips without one.  On the GPU machine::
@@ -942,3 +945,69 @@ def test_srk_elbo_gradients_on_the_card_match_the_cpu(cuda):
     assert num / sum(b.abs().sum().item() for b in want) <= 1e-9
     assert counts["space_time_increment"] > 0
     assert counts["brownian_increment"] == counts["brownian_value"] == 0
+
+
+def _chunk_case(cuda, bucket, seed=40):
+    """The scheduler's chunk step at GAN widths (32 steps in 4 chunks) on
+    ``bucket`` rows at mixed chunk positions, and its inputs."""
+    from repro_torch.core.sde import generator_initial_state, generator_rollout_chunk
+    from repro_torch.serving.scheduler import _keys
+
+    cfg = NeuralSDEConfig(data_dim=1, hidden_dim=16, noise_dim=4, width=32, num_steps=32)
+    params = generator_init(torch.Generator().manual_seed(seed), cfg, device=cuda)
+    keys = _keys([seed] * bucket, range(bucket), cuda, chunks=[i % 4 for i in range(bucket)])
+    x0 = generator_initial_state(params, cfg, keys)
+    ts = torch.tensor([(i % 4) * 0.25 for i in range(bucket)]).to(cuda)
+
+    def step(k, x, t):
+        with torch.no_grad():
+            return generator_rollout_chunk(params, cfg, k, x, t, 0.25, 8)
+
+    return step, (keys, x0, ts)
+
+
+@pytest.mark.parametrize("bucket", [1, 64, 1024])
+def test_chunk_graph_replay_bitwise_equals_the_eager_chunk(cuda, bucket):
+    """A captured chunk replays the eager chunk's bits, counts the kernels
+    it recorded, and each replay adds them to the registry's counter."""
+    import collections
+
+    from repro_torch.serving.registry import CapturedGraph
+
+    step, args = _chunk_case(cuda, bucket)
+    want = step(*args)
+    graph = CapturedGraph(step, args)
+    graph.counter = collections.Counter()
+    got = graph(*args)
+    again = graph(*args)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, w) and torch.equal(a, w)
+    # 8 steps: one ΔW each; the fields at t0 and once a step, drift and diffusion
+    assert graph.launches["brownian_increment"] == 8 and graph.launches["fused_mlp"] == 18
+    assert graph.counter["brownian_increment"] == 16 and graph.nbytes > 0
+    graph.release()
+
+
+def test_eviction_frees_the_graphs_bytes_and_a_rebuild_gives_its_bits(cuda):
+    from repro_torch.serving import LoadedModel, ModelRegistry
+    from repro_torch.serving.registry import CapturedGraph
+
+    big_step, big = _chunk_case(cuda, 1024)
+    small_step, small = _chunk_case(cuda, 64)
+    reg = ModelRegistry()
+    cfg = NeuralSDEConfig(data_dim=1, hidden_dim=16, noise_dim=4, width=32, num_steps=32)
+    reg.register(LoadedModel("default", "sde-gan", cfg, {}))
+    a = reg.compiled("default", "chunk", 1024, lambda: CapturedGraph(big_step, big))
+    want = a(*big)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    reg.pool_budget_bytes = a.nbytes
+    b = reg.compiled("default", "chunk", 64, lambda: CapturedGraph(small_step, small))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the evicted pool's segments go back here
+    assert reg.evictions == 1 and reg.pool_keys() == (("default", "chunk", 64),)
+    assert before + b.nbytes - torch.cuda.memory_reserved() >= a.nbytes
+    rebuilt = reg.compiled("default", "chunk", 1024, lambda: CapturedGraph(big_step, big))
+    for g, w in zip(rebuilt(*big), want):
+        assert torch.equal(g, w)
