@@ -7,16 +7,23 @@ non-zero and the final result line is never printed):
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the CUDA kernels from ``src/repro_torch/kernels/csrc``.
-3. Holds each of the six kernels — ``rev_heun_phase1`` (sign ±1),
-   ``rev_heun_phase2``, ``rev_heun_bwd_phase1``, ``rev_heun_bwd_phase2``,
-   ``rev_heun_phase1_gen``, ``brownian_increment`` — against its plain
-   PyTorch version on the card, in float32 and float64, at d in {16, 17}
-   and B in {1, 64, 1024}, plus the training path's one-key draws
-   (1 row of B·17): bitwise (max |Δ| must be 0).  Times each with CUDA
-   events beside the plain version at the shapes the main paths give it:
-   the training state (B in {64, 1024}, d = 17) and the serving bucket
-   (B = 1024, d = 16).  Then the card's launch floor: an empty kernel
-   (``torch.cuda._sleep(0)``) timed back to back the same way.
+3. Holds each of the six kernels — ``rev_heun_phase1`` and
+   ``rev_heun_phase1_gen`` (sign ±1), ``rev_heun_phase2``,
+   ``rev_heun_bwd_phase1``, ``rev_heun_bwd_phase2``,
+   ``brownian_increment`` — against its plain PyTorch version on the card,
+   in float32 and float64, at KERNEL_SHAPES (d in {1, 3, 16, 17}, B in {1,
+   64, 1024}, the training path's one-key draws, 1 row of B·17, and the
+   SDE-GAN's, 1 row of B·4): bitwise (max |Δ| must be 0); and
+   ``rev_heun_phase2`` on contiguous views 1, 2 and 3 elements into a flat
+   buffer (off a 16-byte boundary), bitwise the contiguous copies' result.
+   Times each with CUDA events beside the plain version at the shapes the
+   main paths give it: the training state (B in {64, 1024}, d = 17) and
+   the serving bucket (B = 1024, d = 16).  Then the card's launch floor:
+   an empty kernel (``torch.cuda._sleep(0)``) timed back to back the same
+   way.  Then a CUDA graph of ``fused_mlp`` → ``rev_heun_phase2`` →
+   ``brownian_increment`` (the last two launched as programmatic dependent
+   launches) captured, replayed bitwise the eager calls, and its
+   programmatic edges counted: whether capture kept the dependent launch.
 3b. (Run right after 3.)  ``fused_mlp`` (every depth-1 SDE field: Linear
    → LipSwish → Linear) against its plain version in float32 (2e-5),
    bfloat16 (6e-2) and float64 (1e-12) at every field shape of the ELBO,
@@ -46,8 +53,10 @@ non-zero and the final result line is never printed):
    and the exact adjoint = ``discretise`` (≤1e-12 relative).
 6. Training, the slice's main path: ``train_latent_sde`` (the train CLI's
    entry point) runs 3 ELBO steps at batch 64, fused, with the launch
-   counts zeroed just before and read just after — the six solver kernels
-   must launch exactly 184 times per step (46 forward, 138 backward),
+   counts zeroed just before and read just after — the solver kernels
+   must launch exactly 161 times per step (46 forward, 115 backward: the
+   reconstruction draws its ΔW in ``rev_heun_phase1_gen``, so
+   ``brownian_increment`` never launches),
    ``fused_mlp`` 286 times (98 forward, 188 backward) and ``fused_mlp_bwd``
    98 times (STEP_LAUNCHES) —
    then the same 3 steps unfused: finite losses, parameters
@@ -304,7 +313,9 @@ Each phase's wall is printed as a ``[phase] <name>: <s> s`` line as it ends.
 
 22. Prints a ``{"kernels": [...]}`` JSON line (``launches``: the count on
    the path each kernel was ported for — training (3 steps) for the solver
-   kernels, ``fused_mlp`` and ``fused_mlp_bwd``, the adaptive gradient for
+   kernels, ``fused_mlp`` and ``fused_mlp_bwd``, but SDE-GAN clip step 3 at
+   batch 128 for ``brownian_increment``, which the ELBO step no longer
+   launches; the adaptive gradient for
    ``brownian_value``, the 2048-token LM serves for ``flash_attention``
    and ``ssd_chunk``, one LM training step of phase 20 for ``fused_xent``
    and ``fused_xent_bwd``; ``adaptive_launches``: the fused adaptive
@@ -317,8 +328,10 @@ Each phase's wall is printed as a ``[phase] <name>: <s> s`` line as it ends.
    ``posterior_decode_launches``: one 1024-row posterior decode's; ``ptxas``: the registers,
    shared memory and spills of ``brownian_value``, the float32 attention,
    ``ssd_chunk``, ``fused_mlp_bwd``, ``fused_mlp``'s 17 → 32 → 16
-   instantiations and the two space-time kernels, compiled once more with
-   ``-Xptxas -v`` in the background) and, last, the result line ``{"ok": true, "device":
+   instantiations, the two space-time kernels, ``brownian_increment`` and
+   ``rev_heun_phase2``, compiled once more with ``-Xptxas -v`` in the
+   background; ``dependent_launch_graph`` on those last two: phase 3's
+   graph check) and, last, the result line ``{"ok": true, "device":
    {...}}``.
 
 ``mlp_bwd_split(cu_path, cuts)`` and ``mlp_bwd_stamps(cu_path, marks)``
@@ -330,8 +343,13 @@ temporary directory.  ``mlp_fwd_stamps(cu_path, marks)`` and
 ``fused_mlp`` (FWD_MARKS, or PARENT_FWD_MARKS in a parent tree's source)
 and ``space_time_value`` (ST_MARKS, PARENT_ST_MARKS);
 ``kernels_in_turns(parent_root)`` (not run by ``main``) times those two
-kernels through the port's launchers with the parent tree's build of the
-kernels and with this one's, in turns, their outputs bitwise alike.
+kernels, ``brownian_increment`` and ``rev_heun_phase2`` through the port's
+launchers with the parent tree's build of the kernels and with this
+one's, in turns, their outputs bitwise alike: the last two alone and in
+path order (behind a ``fused_mlp`` launch); ``rev_heun_launcher_costs``
+(neither) those two launchers' host cost, piece by piece;
+``chunk_in_turns(parent_root)`` (neither) phase 8b's 1024-row chunk graph
+(busy, idle, wall of a replay) there and here, in turns.
 ``drain_in_turns(parent_root)`` (neither) times phase 10's
 adaptive serving drain in another tree and this one, in turns;
 ``ssd_in_turns(parent_root)`` (neither) times ``ssd_chunk`` and
@@ -529,8 +547,9 @@ SSM_TRAIN = dict(batch=2, seq=512)
 SSM_LOSS_RTOL = 6e-2
 SERVE_KERNELS = ("rev_heun_phase1_gen", "rev_heun_phase2", "brownian_increment")
 # Launches of one fused ELBO step at 23 solver steps: forward 23 x (phase1_gen,
-# phase2); backward 23 x (brownian_increment, phase1 x2, phase2, bwd_phase1,
-# bwd_phase2) — 46 + 138 = 184.
+# phase2); backward 23 x (phase1_gen at sign -1, which draws the step's ΔW
+# inside the reconstruction, phase1, phase2, bwd_phase1, bwd_phase2) — 46 +
+# 115 = 161; brownian_increment 0.
 # The fields, each a depth-1 LipSwish MLP (one fused_mlp launch): the
 # posterior drift runs nu, mu and sigma, the diffusion sigma, so 4 per
 # evaluation.  Forward: qz0 and zeta, then the solve's 24 evaluations (t0
@@ -539,8 +558,8 @@ SERVE_KERNELS = ("rev_heun_phase1_gen", "rev_heun_phase2", "brownian_increment")
 # The backward kernel runs for every field launch whose output carries a
 # gradient: qz0 and zeta (2), 4 in each local VJP (92) and 4 in the initial
 # VJP (4) = 98; the solve's forward and the reconstruction run no_grad.
-STEP_LAUNCHES = {"rev_heun_phase1_gen": 23, "rev_heun_phase2": 46,
-                 "brownian_increment": 23, "rev_heun_phase1": 46,
+STEP_LAUNCHES = {"rev_heun_phase1_gen": 46, "rev_heun_phase2": 46,
+                 "brownian_increment": 0, "rev_heun_phase1": 23,
                  "rev_heun_bwd_phase1": 23, "rev_heun_bwd_phase2": 23,
                  "fused_mlp": 286, "fused_mlp_bwd": 98}
 # Launches of one SDE-GAN step at train_sde_gan's widths, 31 solver steps and
@@ -733,9 +752,38 @@ def _kernel_calls(ops, keys, st, d, dtype):
             z, zh, dw, dt, use_kernel=uk),
         "brownian_increment": lambda uk: ops.brownian_increment(
             keys, 5, (d,), dtype, dt, use_kernel=uk),
-        "rev_heun_phase1_gen": lambda uk: ops.rev_heun_phase1_gen(
-            z, zh, mu, sg, keys, 5, dt, dt, use_kernel=uk),
+        "rev_heun_phase1_gen": lambda uk: (
+            *ops.rev_heun_phase1_gen(z, zh, mu, sg, keys, 5, dt, dt, 1.0, use_kernel=uk),
+            *ops.rev_heun_phase1_gen(z, zh, mu, sg, keys, 5, dt, dt, -1.0, use_kernel=uk)),
     }
+
+
+# The kernels' checked shapes, (rows, d): one element and odd sizes (the last
+# counter pair's zero pad), the serving bucket and the training state, the
+# training path's one-key draws (one row of B·17: a BrownianPath with a
+# single key over the (B, 17) state) and the SDE-GAN's (one row of B·4).
+KERNEL_SHAPES = [(1, 1), (1, 3), (1, 16), (1, 17), (64, 17), (1024, 16), (1024, 17),
+                 (1, 64 * 17), (1, 1024 * 17), (1, 128 * 4), (1, 1024 * 4)]
+# rev_heun_phase2 on contiguous views this many elements into a flat buffer
+# (off a 16-byte boundary: the kernel's element-a-thread path)
+VIEW_OFFSETS = (1, 2, 3)
+
+
+def _phase2_views(ops, g, dev, dtype, rows, d):
+    """rev_heun_phase2 on views at VIEW_OFFSETS of flat buffers against the
+    same values as contiguous copies: bitwise, or raise."""
+    n = rows * d
+    for off in VIEW_OFFSETS:
+        flat = [torch.randn(n + off, generator=g, dtype=dtype).to(dev) for _ in range(6)]
+        views = [f[off:].view(rows, d) for f in flat]
+        got = ops.rev_heun_phase2(*views, 1.0 / 23, -1.0)
+        want = ops.rev_heun_phase2(*(v.clone() for v in views), 1.0 / 23, -1.0)
+        plain = ops.rev_heun_phase2(*views, 1.0 / 23, -1.0, use_kernel=False)
+        check(views[0].data_ptr() % 16 != 0 or dtype == torch.float64,
+              f"rev_heun_phase2 view at offset {off} sits on a 16-byte boundary")
+        check(torch.equal(got, want) and torch.equal(got, plain),
+              f"rev_heun_phase2 {dtype} ({rows}, {d}) view at offset {off}: kernel != "
+              f"contiguous copies / plain")
 
 
 def _operands(g, dev, dtype, rows, d):
@@ -752,13 +800,10 @@ def kernel_checks(ops, dev) -> tuple:
     errs = {name: 0.0 for name, (src, _) in KERNEL_SOURCES.items()
             if src == CSRC and name not in ("brownian_value", "space_time_increment",
                                             "space_time_value")}
-    # (rows, d): small and serving shapes, the training state, and the
-    # training path's one-key draws (one row of B*17: a BrownianPath with a
-    # single key over the (B, 17) state).
-    shapes = [(1, 16), (1, 17), (64, 17), (1024, 16), (1024, 17), (1, 64 * 17),
-              (1, 1024 * 17)]
+    shapes = KERNEL_SHAPES
     for dtype in (torch.float32, torch.float64):
         for rows, d in shapes:
+            _phase2_views(ops, g, dev, dtype, rows, d)
             keys, st = _operands(g, dev, dtype, rows, d)
             for name, call in _kernel_calls(ops, keys, st, d, dtype).items():
                 got, want = call(True), call(False)
@@ -771,7 +816,8 @@ def kernel_checks(ops, dev) -> tuple:
                       f"{name} {dtype} rows={rows} d={d}: kernel != plain (max |Δ| {err})")
                 errs[name] = max(errs[name], err)
     print("bitwise: 6 kernels x {float32, float64} x (rows, d) in "
-          f"{shapes}: kernel == plain", flush=True)
+          f"{shapes}: kernel == plain; rev_heun_phase2 on views at offsets "
+          f"{VIEW_OFFSETS}: == the contiguous copies' result", flush=True)
 
     rows = {}
     print("kernel                dtype    B     d   kernel_ms (host)     "
@@ -787,7 +833,8 @@ def kernel_checks(ops, dev) -> tuple:
             r, dd = (1, B * d) if one_key else (B, d)
             keys, st = _operands(g, dev, dtype, r, dd)
             call = _kernel_calls(ops, keys, st, dd, dtype)[name]
-            per = 2 if name == "rev_heun_phase1" else 1  # the call runs sign +1 and -1
+            # the call runs sign +1 and -1
+            per = 2 if name in ("rev_heun_phase1", "rev_heun_phase1_gen") else 1
             k_ms, k_host = (x / per for x in time_ms(lambda: call(True)))
             p_ms, p_host = (x / per for x in time_ms(lambda: call(False)))
             b_ms, b_by = bound(name, r, dd, dtype)
@@ -798,6 +845,56 @@ def kernel_checks(ops, dev) -> tuple:
                                              plain_host_ms=p_host, bound_ms=b_ms,
                                              bound_by=b_by)
     return rows, errs
+
+
+def _pdl_chain(ops, dev, rows: int = 1024):
+    """``chain()``: the diffusion field (``fused_mlp``, rows × 17 -> 32 ->
+    16), ``rev_heun_phase2`` on a rows × 16 state consuming its σ′, then
+    the next step's ``brownian_increment`` (per-row keys), float32 — the
+    serving step's order, the last two as programmatic dependent launches."""
+    g = torch.Generator().manual_seed(28)
+    x, *w = _mlp_operands(g, dev, torch.float32, rows, 17, 32, 16)
+    keys = torch.randint(0, 2 ** 32, (rows, 2), generator=g, dtype=torch.int64).to(dev)
+    z, mu, mu1, sigma, dw = (torch.randn(rows, 16, generator=g).to(dev) for _ in range(5))
+
+    def chain():
+        sigma1 = ops.fused_mlp(x, *w)
+        z1 = ops.rev_heun_phase2(z, mu, mu1, sigma, sigma1, dw, 1.0 / 32)
+        return sigma1, z1, ops.brownian_increment(keys, 3, (16,), torch.float32, 1.0 / 32)
+    return chain
+
+
+def pdl_graph_checks(ops, dev) -> dict:
+    """Phase 3's graph check: ``_pdl_chain`` captured as one CUDA graph
+    (``keep_graph``, so its edges can be read) and replayed, bitwise the
+    eager calls; its programmatic-dependency edges counted, which says
+    whether stream capture kept the dependent launches (2: both kept)."""
+    from repro_torch.kernels import brownian as bk
+
+    chain = _pdl_chain(ops, dev)
+    want = chain()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        chain()  # first-use work outside the capture
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=side):
+        outs = chain()
+    edges = bk.graph_programmatic_edges(graph)
+    graph.instantiate()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(outs, want)),
+              "the captured fused_mlp -> rev_heun_phase2 -> brownian_increment graph's "
+              "replay != the eager calls")
+    kept = edges >= 2
+    print(f"dependent launch under stream capture: {edges} programmatic edges in the "
+          f"graph of fused_mlp -> rev_heun_phase2 -> brownian_increment ("
+          f"{'kept' if kept else 'not kept' if edges >= 0 else 'runtime cannot tell'}); "
+          f"two replays bitwise the eager calls", flush=True)
+    return {"programmatic_edges": edges, "kept_under_capture": kept}
 
 
 def mlp_bound(rows: int, din: int, h: int, dout: int, dtype) -> tuple:
@@ -2439,6 +2536,52 @@ def elbo_in_turns(parent_root: str) -> dict:
     return runs
 
 
+# One process of one tree (run from its root): phase 8b's 1024-row chunk
+# graph (the SDE-GAN generator, 8 reversible-Heun steps) replayed and the
+# same chunk eager: wall, busy, idle and device kernels of one call
+# (profile_call) and its device and host ms (time_ms).  Only functions both
+# trees' chip_smoke.py have are used.  Prints one JSON line.
+_CHUNK_CHILD = r"""
+import json, sys
+sys.path[:0] = [".", "src"]
+import torch
+import chip_smoke as C
+from repro_torch.kernels import build
+from repro_torch.serving.registry import CapturedGraph
+build.load()
+dev = torch.device("cuda")
+torch.backends.cuda.matmul.allow_tf32 = False
+cfg, params = C._sched_model(dev, 10)
+step = C._chunk_step(cfg, params)
+args = C._chunk_inputs(cfg, params, 1024, dev)
+graph = CapturedGraph(step, args)
+out = {}
+for tag, fn in (("replay", lambda: graph(*args)), ("eager", lambda: step(*args))):
+    prof = C.profile_call(fn, "chunk B=1024 " + tag)
+    out[tag] = {k: prof[k] for k in ("wall_ms", "busy_ms", "idle", "kernels")}
+    out[tag]["device_ms"], out[tag]["host_ms"] = C.time_ms(fn, reps=5)
+print(json.dumps(out))
+"""
+
+
+def chunk_in_turns(parent_root: str) -> dict:
+    """Phase 8b's 1024-row chunk graph and eager chunk (``_CHUNK_CHILD``) in
+    the tree at ``parent_root`` and in this one, in turns (parent, this,
+    this, parent), each a fresh process that builds its own kernels:
+    ``{tree: [runs]}``.  Run it as ``python3 -c "import chip_smoke as C;
+    C.chunk_in_turns('build/parent')"`` after unpacking the parent commit
+    there (``git archive``)."""
+    runs = {"parent": [], "this": []}
+    for tree in ("parent", "this", "this", "parent"):
+        cwd = os.path.abspath(parent_root) if tree == "parent" else ROOT
+        out = subprocess.run([sys.executable, "-c", _CHUNK_CHILD], cwd=cwd, check=True,
+                             capture_output=True, text=True, timeout=600).stdout
+        runs[tree].append(json.loads(out.strip().splitlines()[-1]))
+        print(f"chunk in turns [{tree}]: {runs[tree][-1]}", flush=True)
+    print(f"card: {gpu_label()}", flush=True)
+    return runs
+
+
 def smoke_in_turns(parent_root: str, log_dir: str) -> dict:
     """The whole ``chip_smoke.py`` of the tree at ``parent_root`` and of this
     one, each run as the driver runs it (``python3 chip_smoke.py``, no
@@ -2510,25 +2653,62 @@ def _parent_library(parent_root: str, tmp: str, entries):
     return lib
 
 
+# brownian_increment's and rev_heun_phase2's in-turns cases, (tag, dtype, B,
+# d): the training state at batch 64 and 1024 (draws: one key over the
+# (B, 17) state) and the serving bucket (draws: a key a row).
+REV_TIMED = [("train B64", torch.float32, 64, 17), ("train B1024", torch.float32, 1024, 17),
+             ("train B64", torch.float64, 64, 17), ("train B1024", torch.float64, 1024, 17),
+             ("serve B1024", torch.float32, 1024, 16)]
+
+
+def _rev_cases(ops, g, dev) -> tuple:
+    """``(alone, path, fields)`` for REV_TIMED: ``{case: call}`` of each of the
+    two kernels alone, the same behind the diffusion field's ``fused_mlp``
+    launch (B × 17 -> 32 -> 16, float32: where the forward and the
+    reconstruction put ``rev_heun_phase2`` and the GAN solve its draws),
+    and ``{case: the fused_mlp launch alone}`` for the path cases."""
+    alone, path, fields = {}, {}, {}
+    for tag, dtype, B, d in REV_TIMED:
+        keys = torch.randint(0, 2 ** 32, (1 if d == 17 else B, 2), generator=g,
+                             dtype=torch.int64).to(dev)
+        st = [torch.randn(B, d, generator=g, dtype=dtype).to(dev) for _ in range(6)]
+        x, *w = _mlp_operands(g, dev, torch.float32, B, 17, 32, 16)
+        shape = (B * d,) if d == 17 else (d,)
+        kernels = {"rev_heun_phase2": lambda st=st: ops.rev_heun_phase2(*st, 1.0 / 23),
+                   "brownian_increment": lambda keys=keys, shape=shape, dtype=dtype:
+                       ops.brownian_increment(keys, 7, shape, dtype, 1.0 / 23)}
+        field = lambda x=x, w=w: ops.fused_mlp(x, *w)
+        for name, call in kernels.items():
+            case = f"{name} {tag} {str(dtype)[6:]}"
+            alone[case] = call
+            path[case + " after fused_mlp"] = lambda call=call, field=field: (field(), call())
+            fields[case + " after fused_mlp"] = field
+    return alone, path, fields
+
+
 def kernels_in_turns(parent_root: str) -> dict:
-    """The two kernels this tree redesigned against the parent's build of
-    them, through the port's launchers on one card: ``fused_mlp`` float32
-    at MLP_TIMED and ``space_time_value`` at ST_TIMED, with the library
-    built from the tree at ``parent_root`` and with this tree's, in turns
-    (parent, this, this, parent), device and host ms a call by time_ms.
-    Each output of this tree's kernels must be bitwise the parent's (the
-    redesigns keep every element's op order).  ``{case: {tree: [[device
-    ms, host ms], ...]}}``, printed with the launch floor and the card.
-    Run it as ``python3 -c "import chip_smoke as C;
-    C.kernels_in_turns('build/parent')"`` after unpacking the parent commit
-    there (``git archive``)."""
+    """The kernels this tree or the one before it redesigned against the
+    parent's build of them, through the port's launchers on one card:
+    ``fused_mlp`` float32 at MLP_TIMED, ``space_time_value`` at ST_TIMED,
+    and ``brownian_increment`` and ``rev_heun_phase2`` at REV_TIMED, alone
+    and in path order (``_rev_cases``), with the library built from the
+    tree at ``parent_root`` and with this tree's, in turns (parent, this,
+    this, parent), device and host ms a call by time_ms.  A path-order
+    case's kernel time is the pair's time less the ``fused_mlp`` launch's
+    alone in the same turn.  Each output of this tree's kernels must be
+    bitwise the parent's (every redesign keeps each element's op order).
+    ``{case: {tree: [[device ms, host ms], ...]}}``, printed with the
+    launch floor and the card.  Run it as ``python3 -c "import chip_smoke as
+    C; C.kernels_in_turns('build/parent')"`` after unpacking the parent
+    commit there (``git archive``)."""
     from repro_torch.kernels import build, ops
 
     dev = torch.device("cuda")
     tmp = tempfile.mkdtemp(prefix="parent_lib_")
     try:
         libs = {"parent": _parent_library(parent_root, tmp,
-                                          ("rt_fused_mlp", "rt_space_time_value")),
+                                          ("rt_fused_mlp", "rt_space_time_value",
+                                           "rt_brownian_increment", "rt_rev_heun_phase2")),
                 "this": build.load()}
         g = torch.Generator().manual_seed(26)
         calls = {}
@@ -2541,21 +2721,28 @@ def kernels_in_turns(parent_root: str) -> dict:
         for tag, depth in ST_TIMED:
             calls[tag] = lambda depth=depth: ops.space_time_value(
                 keys, t, 0.0, 1.0, (256, 32), torch.float64, depth)
+        alone, path, fields = _rev_cases(ops, g, dev)
+        calls.update(alone)
         outs = {}
         for tree in ("parent", "this"):
             with _library(libs[tree]):
-                outs[tree] = {case: fn() for case, fn in calls.items()}
+                outs[tree] = {case: fn() for case, fn in {**calls, **path}.items()}
         torch.cuda.synchronize()
-        for case in calls:
+        for case in outs["this"]:
             a, b = outs["parent"][case], outs["this"][case]
             same = (all(torch.equal(u, v) for u, v in zip(a, b)) if isinstance(a, tuple)
                     else torch.equal(a, b))
             check(same, f"kernels_in_turns {case}: this tree's kernel differs from the parent's")
-        runs = {case: {"parent": [], "this": []} for case in calls}
+        timed_calls = {**calls, **path, **{c + " [field alone]": f for c, f in fields.items()}}
+        runs = {case: {"parent": [], "this": []} for case in timed_calls}
         for tree in ("parent", "this", "this", "parent"):
             with _library(libs[tree]):
-                for case, fn in calls.items():
+                for case, fn in timed_calls.items():
                     runs[case][tree].append(list(time_ms(fn)))
+        for case in path:  # the kernel's share of the pair, turn by turn
+            field = runs.pop(case + " [field alone]")
+            runs[case] = {tree: [[p[0] - f[0], p[1] - f[1]] for p, f in zip(r, field[tree])]
+                          for tree, r in runs[case].items()}
         floor = launch_floor()
         for case, r in runs.items():
             med = {tree: [statistics.median(v[i] for v in r[tree]) for i in (0, 1)]
@@ -2568,6 +2755,77 @@ def kernels_in_turns(parent_root: str) -> dict:
         return runs
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def rev_heun_launcher_costs(dev) -> dict:
+    """The host cost of a ``brownian_increment`` call (one key over 1024 ×
+    17, float32) and a ``rev_heun_phase2`` call (1024 × 17, float32), piece
+    by piece as :func:`launcher_costs` reads ``fused_mlp``'s: the checks
+    (and the same checks as one pass on device indices), the output (and
+    the allocations the launcher made before, or could make), the stream
+    lookup (the raw handle, and the Stream object the launchers built
+    before), the device guard, the ctypes call (with the kernel's
+    enqueue), and the whole launcher and dispatch.  µs a call."""
+    from repro_torch.kernels import brownian as bk, build, ops
+    from repro_torch.kernels import reversible_heun_step as rh
+
+    g = torch.Generator().manual_seed(7)
+    keys = torch.randint(0, 2 ** 32, (1, 2), generator=g, dtype=torch.int64).to(dev)
+    st = [torch.randn(1024, 17, generator=g).to(dev) for _ in range(7)]
+    z = st[0]
+    lib = build.load()
+    idx = dev.index or 0
+    stream = rh._stream(z)
+    inc_out = torch.empty(1, 1024 * 17, device=dev)
+    inc_args = (0, keys.data_ptr(), 7, 1.0 / 23, inc_out.data_ptr(), 1, 1024 * 17, stream)
+    p2_args = (0, *(t.data_ptr() for t in st[:6]), 1.0 / 23, 1.0, st[6].data_ptr(),
+               1024 * 17, stream)
+
+    def one_pass(ref, others):  # the checks as one pass on device indices
+        shape, dtype, index = ref.shape, ref.dtype, ref.get_device()
+        for t in (ref, *others):
+            if (t.shape != shape or t.dtype != dtype or t.get_device() != index
+                    or not t.is_contiguous()):
+                raise ValueError("operands differ")
+
+    pieces = {
+        "increment checks (_check_keys)": lambda: bk._check_keys("brownian_increment", keys,
+                                                                 keys.device),
+        "increment output: keys.new_empty(shape, dtype)":
+            lambda: keys.new_empty((1, 1024 * 17), dtype=torch.float32),
+        "increment output: torch.empty(shape, dtype, device) (parent)":
+            lambda: torch.empty((1, 1024 * 17), dtype=torch.float32, device=keys.device),
+        "increment output: torch.empty(shape, dtype, device=index)":
+            lambda: torch.empty((1, 1024 * 17), dtype=torch.float32, device=idx),
+        "increment ctypes: rt_brownian_increment (+ kernel enqueue)":
+            lambda: lib.rt_brownian_increment(*inc_args),
+        "increment launcher (kernels/brownian.py)":
+            lambda: bk.brownian_increment(keys, 7, (1024 * 17,), torch.float32, 1.0 / 23),
+        "increment dispatch (ops.brownian_increment)":
+            lambda: ops.brownian_increment(keys, 7, (1024 * 17,), torch.float32, 1.0 / 23),
+        "phase2 checks (check_operands, 6 operands)":
+            lambda: rh.check_operands("rev_heun_phase2", z, st[1:6]),
+        "phase2 checks, one pass on get_device()": lambda: one_pass(z, st[1:6]),
+        "phase2 output: torch.empty_like": lambda: torch.empty_like(z),
+        "phase2 scalars: scalar(dt), scalar(sign)": lambda: (rh.scalar(1.0 / 23),
+                                                            rh.scalar(1.0)),
+        "phase2 x.data_ptr() x7": lambda: [t.data_ptr() for t in st],
+        "phase2 ctypes: rt_rev_heun_phase2 (+ kernel enqueue)":
+            lambda: lib.rt_rev_heun_phase2(*p2_args),
+        "phase2 launcher (kernels/reversible_heun_step.py)":
+            lambda: rh.rev_heun_phase2(*st[:6], 1.0 / 23),
+        "phase2 dispatch (ops.rev_heun_phase2)": lambda: ops.rev_heun_phase2(*st[:6], 1.0 / 23),
+        "stream: raw handle (rh._stream)": lambda: rh._stream(z),
+        "stream: torch.cuda.current_stream(dev).cuda_stream (parent)":
+            lambda: torch.cuda.current_stream(z.device).cuda_stream,
+        "device guard (the device's index)": lambda: build.device_guard(idx).__enter__(),
+        "device guard (z.device)": lambda: build.device_guard(z.device).__enter__(),
+    }
+    costs = {name: host_us(fn) for name, fn in pieces.items()}
+    for name, us in costs.items():
+        print(f"rev_heun launcher host cost: {name}: {us:.2f} us", flush=True)
+    print(f"card: {gpu_label()}", flush=True)
+    return costs
 
 
 # Cut points of fused_mlp_bwd for mlp_bwd_split, (label, [(anchor, code),
@@ -4644,7 +4902,8 @@ def ssm_train_checks(ops, dev, label: str) -> None:
 PTXAS_SOURCES = ("rev_heun", "flash_attention", "ssd_chunk", "fused_mlp")
 PTXAS_KERNELS = ("brownian_value_kernel", "flash_attention_f32", "ssd_chunk_kernel",
                  "fused_mlp_bwd_kernel", "fused_mlp_fixed", "space_time_increment_kernel",
-                 "space_time_value_kernel")
+                 "space_time_value_kernel", "brownian_increment_kernel",
+                 "rev_heun_phase2_kernel")
 
 
 def start_ptxas_report():
@@ -4777,6 +5036,7 @@ def main() -> int:
 
     xent_rows, xent_errs = timed("fused_xent", xent_checks, ops, dev)
     rows, errs = timed("solver kernels", kernel_checks, ops, dev)
+    pdl = timed("dependent launch graph", pdl_graph_checks, ops, dev)
     floor = timed("launch floor", launch_floor)
     errs.update(xent_errs)
     mlp_rows, mlp_errs = timed("fused_mlp", mlp_checks, ops, dev)
@@ -4902,6 +5162,13 @@ def main() -> int:
             launches = train_launches[name]
             serve_launches = serve["launches"][name]
             extra = dict(floor)
+            if name == "brownian_increment":  # the ELBO step draws in phase1_gen
+                launches = gan["launches"][name]
+                extra["launches_per"] = "SDE-GAN clip step (an ELBO step: 0)"
+            if name in ("brownian_increment", "rev_heun_phase2"):
+                extra["dependent_launch_graph"] = pdl
+                extra["ptxas"] = {k: v for k, v in ptxas_usage.items()
+                                  if name + "_kernel" in k}
         entries.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches, "max_abs_err": errs[name],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -9,9 +9,12 @@ The reference wraps the solve in a ``jax.custom_vjp``; here it is a
 ``torch.no_grad()`` and saves only the terminal :class:`RevHeunState`, the
 parameter leaves and (on the Function's context) the Brownian path.  The
 backward walks the grid right to left: it re-draws each step's ΔW from the
-path's key (the ``brownian_increment`` kernel on the card), reconstructs the
-step's left state in closed form (Algorithm 2), and pulls **one**
-``torch.autograd.grad`` of the fields per step.  Each step's graph is freed
+path's key, reconstructs the step's left state in closed form (Algorithm 2),
+and pulls **one** ``torch.autograd.grad`` of the fields per step.  Where the
+forward draws inside its phase-1 kernel (:func:`_gen_spec`), so does the
+reconstruction: one ``rev_heun_phase1_gen`` launch at ``sign = -1`` gives the
+step's left ẑ and its ΔW, which the rest of the step consumes; otherwise
+the path's ``increment`` re-draws it.  Each step's graph is freed
 before the next, so memory does not grow with ``num_steps``.
 
 Parameters.  The params tree is flattened into tensor inputs of ``apply``
@@ -184,14 +187,21 @@ def _backward(spec: _SolveSpec, final: RevHeunState, leaves, needs, g_out):
     g_z = g_out[N] if spec.save_trajectory else g_out
     cts = (g_z, zeros, zeros, torch.zeros_like(final.sigma))
     fused = spec.use_pallas and spec.noise == "diagonal"
+    gen = _gen_spec(spec.bm, final.z, spec.noise, spec.use_pallas)
     state = final
     for n in range(N - 1, -1, -1):
         t_left, t_right = grid_time(spec.t0, n, dt), grid_time(spec.t0, n + 1, dt)
-        dw = spec.bm.increment(n, N).to(final.z.dtype)
         with torch.no_grad():
-            state = reversible_heun_reverse_step(state, t_right, dt, dw, spec.drift,
-                                                 spec.diffusion, params, spec.noise,
-                                                 use_pallas=spec.use_pallas, t0=t_left)
+            if gen is not None:
+                keys, dt_grid_fn = gen
+                state, dw = reversible_heun_reverse_step(
+                    state, t_right, dt, None, spec.drift, spec.diffusion, params, spec.noise,
+                    use_pallas=spec.use_pallas, t0=t_left, gen=(keys, n, dt_grid_fn(N)))
+            else:
+                dw = spec.bm.increment(n, N).to(final.z.dtype)
+                state = reversible_heun_reverse_step(state, t_right, dt, dw, spec.drift,
+                                                     spec.diffusion, params, spec.noise,
+                                                     use_pallas=spec.use_pallas, t0=t_left)
         if fused:
             d_params, d_state = _fused_local_vjp(spec.drift, spec.diffusion, params, wrt,
                                                  state, cts, t_right, dt, dw)

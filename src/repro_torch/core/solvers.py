@@ -285,7 +285,7 @@ def reversible_heun_embedded_step(state: RevHeunState, t, dt, dw, drift, diffusi
 
 def reversible_heun_reverse_step(state: RevHeunState, t1, dt, dw, drift, diffusion,
                                  params, noise, use_pallas: bool = False,
-                                 use_kernel: Optional[bool] = None, t0=None):
+                                 use_kernel: Optional[bool] = None, t0=None, gen=None):
     """Algebraic inverse of :func:`reversible_heun_step` (Algorithm 2).
 
     Reconstructs ``(z_n, ẑ_n, μ_n, σ_n)`` from the step-``n+1`` state in
@@ -293,17 +293,28 @@ def reversible_heun_reverse_step(state: RevHeunState, t1, dt, dw, drift, diffusi
     ``t1 - dt``; the grid solves pass :func:`grid_time`).  The
     fused path runs the phase kernels with ``sign=-1``; it is bitwise the
     unfused arithmetic (``a − b`` is ``a + (−b)`` exactly).
+
+    ``gen=(keys, n, dt_grid)`` (fused path only) draws the step's ΔW inside
+    the reconstruction's phase-1 kernel (bitwise
+    ``BrownianPath.increment(n)``), ignores ``dw`` and returns ``(state,
+    ΔW)``, so the caller's local VJP consumes the same draw.
     """
     z1, zh1, mu1, sigma1 = state
     t = t1 - dt if t0 is None else t0
     if use_pallas and noise == "diagonal":
-        zh = ops.rev_heun_phase1(z1, zh1, mu1, sigma1, dw, dt, sign=-1.0,
-                                 use_kernel=use_kernel)
+        if gen is not None:
+            keys, n, dt_grid = gen
+            zh, dw = ops.rev_heun_phase1_gen(z1, zh1, mu1, sigma1, keys, n, dt_grid, dt,
+                                             sign=-1.0, use_kernel=use_kernel)
+        else:
+            zh = ops.rev_heun_phase1(z1, zh1, mu1, sigma1, dw, dt, sign=-1.0,
+                                     use_kernel=use_kernel)
         mu = drift(params, t, zh)
         sigma = diffusion(params, t, zh)
         z = ops.rev_heun_phase2(z1, mu, mu1, sigma, sigma1, dw, dt, sign=-1.0,
                                 use_kernel=use_kernel)
-        return RevHeunState(z, zh, mu, sigma)
+        state = RevHeunState(z, zh, mu, sigma)
+        return state if gen is None else (state, dw)
     zh = 2.0 * z1 - zh1 - mu1 * dt - apply_diffusion(sigma1, dw, noise)
     mu = drift(params, t, zh)
     sigma = diffusion(params, t, zh)

@@ -33,12 +33,13 @@ ref`.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
 from . import build
-from .reversible_heun_step import DTYPE_CODES, check_operands, scalar
+from .reversible_heun_step import DTYPE_CODES, _stream, check_operands, scalar
 
 #: Kernel launches made by this module's wrappers (one per launch).
 LAUNCHES = {"brownian_increment": 0, "rev_heun_phase1_gen": 0, "brownian_value": 0,
@@ -68,14 +69,14 @@ def brownian_increment(keys, n: int, shape, dtype, dt):
         raise ValueError(f"brownian_increment: keys must be a CUDA tensor, got {keys.device}")
     rows = _check_keys("brownian_increment", keys, keys.device)
     shape = tuple(shape)
-    out = torch.empty(keys.shape[:-1] + shape, dtype=dtype, device=keys.device)
+    out = keys.new_empty(keys.shape[:-1] + shape, dtype=dtype)
     if out.numel() == 0:
         return out
     lib = build.load()
     with build.device_guard(keys.device):
         err = lib.rt_brownian_increment(
             DTYPE_CODES[dtype], keys.data_ptr(), int(n), scalar(dt), out.data_ptr(),
-            rows, math.prod(shape), torch.cuda.current_stream(keys.device).cuda_stream)
+            rows, math.prod(shape), _stream(keys))
     build.check("brownian_increment", err)
     LAUNCHES["brownian_increment"] += 1
     return out
@@ -103,7 +104,7 @@ def rev_heun_phase1_gen(z, zh, mu, sigma, keys, n: int, dt_grid, dt,
             DTYPE_CODES[z.dtype], z.data_ptr(), zh.data_ptr(), mu.data_ptr(),
             sigma.data_ptr(), keys.data_ptr(), int(n), scalar(dt_grid), scalar(dt),
             scalar(sign), zh1.data_ptr(), dw.data_ptr(), rows, z.numel() // rows,
-            torch.cuda.current_stream(z.device).cuda_stream)
+            _stream(z))
     build.check("rev_heun_phase1_gen", err)
     LAUNCHES["rev_heun_phase1_gen"] += 1
     return zh1, dw
@@ -130,7 +131,7 @@ def brownian_value(keys, t, t0: float, t1: float, shape, dtype, depth: int = 24)
         err = lib.rt_brownian_value(
             DTYPE_CODES[dtype], keys.data_ptr(), t.data_ptr(), float(t0), float(t1),
             int(depth), out.data_ptr(), rows, math.prod(shape),
-            torch.cuda.current_stream(keys.device).cuda_stream)
+            _stream(keys))
     build.check("brownian_value", err)
     LAUNCHES["brownian_value"] += 1
     return out
@@ -168,7 +169,7 @@ def space_time_increment(keys, n: int, shape, dtype, dt):
         err = lib.rt_space_time_increment(
             DTYPE_CODES[dtype], keys.data_ptr(), int(n), s_w, s_h, w.data_ptr(),
             h.data_ptr(), rows, math.prod(shape),
-            torch.cuda.current_stream(keys.device).cuda_stream)
+            _stream(keys))
     build.check("space_time_increment", err)
     LAUNCHES["space_time_increment"] += 1
     return w, h
@@ -203,10 +204,30 @@ def space_time_value(keys, t, t0: float, t1: float, shape, dtype, depth: int = 2
         err = lib.rt_space_time_value(
             DTYPE_CODES[dtype], keys.data_ptr(), t.data_ptr(), float(t0), float(t1), span,
             s_w, s_h, int(depth), w.data_ptr(), i.data_ptr(), rows, math.prod(shape),
-            torch.cuda.current_stream(keys.device).cuda_stream)
+            _stream(keys))
     build.check("space_time_value", err)
     LAUNCHES["space_time_value"] += 1
     return w, i
+
+
+def increment_unit(dtype, rows: int, d: int, u: int) -> tuple:
+    """``(wide, row, unit)``: whether :func:`brownian_increment`'s launch at
+    ``(rows, d)`` takes its 64-bit index path (``rows·d >= 2**31``), and
+    draw unit ``u``'s row and unit in the row by that path's index helper
+    (``unit_coords`` in ``csrc/rev_heun.cu``; a unit is a counter pair in
+    float32, an element in float64); needs the built library, not a card."""
+    out = (ctypes.c_int64 * 2)()
+    wide = build.load().rt_brownian_increment_unit(DTYPE_CODES[dtype], int(rows), int(d),
+                                                   int(u), out)
+    return bool(wide), out[0], out[1]
+
+
+def graph_programmatic_edges(graph) -> int:
+    """The programmatic-dependency edges of a ``torch.cuda.CUDAGraph``
+    captured with ``keep_graph=True`` (the edges a dependent launch such as
+    :func:`brownian_increment`'s leaves under stream capture), or -1 where
+    the CUDA runtime cannot tell."""
+    return int(build.load().rt_graph_programmatic_edges(graph.raw_cuda_graph()))
 
 
 def brownian_value_blocks(dtype, rows: int, d: int) -> int:

@@ -41,9 +41,12 @@ NVCC_FLAGS = (ARCH_FLAG, "-fmad=false", "-O3", "-std=c++17", "-Xcompiler", "-fPI
 
 _P, _I, _I64, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
 #: C signature of every entry point (all return cudaGetLastError(), but the
-#: grid queries in INT64_RESULTS, which return an int64 count).
+#: queries: those in INT64_RESULTS return an int64 count, and
+#: rt_brownian_increment_unit its index path).
 SIGNATURES = {
     "rt_brownian_increment": (_I, _P, _I64, _D, _P, _I64, _I64, _P),
+    "rt_brownian_increment_unit": (_I, _I64, _I64, _I64, ctypes.POINTER(ctypes.c_int64)),
+    "rt_graph_programmatic_edges": (_P,),
     "rt_brownian_value": (_I, _P, _P, _D, _D, _I, _P, _I64, _I64, _P),
     "rt_brownian_value_blocks": (_I, _I64, _I64),
     "rt_space_time_increment": (_I, _P, _I64, _D, _D, _P, _P, _I64, _I64, _P),
@@ -66,7 +69,7 @@ SIGNATURES = {
     "rt_fused_xent_bwd": (_I, _P, _P, _P, _P, _P, _I64, _I64, _P),
 }
 INT64_RESULTS = ("rt_brownian_value_blocks", "rt_ssd_chunk_slices",
-                 "rt_fused_mlp_bwd_clusters")
+                 "rt_fused_mlp_bwd_clusters", "rt_graph_programmatic_edges")
 
 _lock = threading.Lock()
 _lib = None

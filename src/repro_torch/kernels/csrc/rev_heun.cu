@@ -19,26 +19,54 @@
 // ghat*dt, ...) is the transpose's own, which is what makes the fused exact
 // adjoint bitwise equal to autograd through the unfused step.
 //
-// Design.  All six are elementwise over a (rows, d) state, one thread per
-// element in a grid-stride loop.  The TPU kernels held the whole state in
-// VMEM as one block; here no element needs another, so there is nothing to
-// stage in shared memory.  The draws are per row: row b's key is keys[b]
-// (the JAX package got per-row keys from jax.vmap), folded with the step
-// counter n inside the kernel, so the Brownian increment never goes through
-// device memory between generation and use in rev_heun_phase1_gen.  Step
-// size and sign are runtime scalars, so one compiled kernel serves every
-// step size and both directions (forward +1, reconstruction -1).
+// Design.  All six are elementwise over a (rows, d) state.  The TPU kernels
+// held the whole state in VMEM as one block; here no element needs another,
+// so there is nothing to stage in shared memory.  The draws are per row: row
+// b's key is keys[b] (the JAX package got per-row keys from jax.vmap),
+// folded with the step counter n inside the kernel, so the Brownian
+// increment never goes through device memory between generation and use in
+// rev_heun_phase1_gen.  Step size and sign are runtime scalars, so one
+// compiled kernel serves every step size and both directions (forward +1,
+// reconstruction -1).  rev_heun_phase1, the two backward phases and
+// rev_heun_phase1_gen run one thread per element in a grid-stride loop.
 //
 // Bound.  The non-drawing kernels move 6 (phase 1, bwd phase 1) or 7
 // (phase 2, bwd phase 2) state-sized tensors and do a handful of flops per
 // element: HBM-bound, bytes / 3.35 TB/s.  At the training shapes (B <= 1024
-// rows, d = 17) that is at most ~0.15 us, far under the ~2.5 us launch
-// floor, so each launch costs its launch; only fusing phases (fewer
-// launches) would move the time.  The ~0.5 KFLOP-equivalent of integer
-// hashing per drawn element is far under the compute peak.  Each thread
-// recomputes its row's fold_in and, in float32, the counter pair it shares
-// with one other element: redundant integer work that costs no memory
-// traffic.
+// rows, d = 17) that is at most ~0.15 us, far under the ~1.7 us launch
+// floor, so each launch costs its launch and its blocks' start and tail.
+// The ~0.5 KFLOP-equivalent of integer hashing per drawn element is far
+// under the compute peak; what a draw costs is one thread's dependent
+// chain: key load -> fold_in (20 rounds) -> the pair's hash -> erf_inv ->
+// store.
+//
+// brownian_increment and rev_heun_phase2 are laid out for that: launch and
+// chain, not bytes or operations.
+//   * Both launch through launch_dependent (a programmatic dependent launch,
+//     sm_90): the kernel is scheduled while its predecessor's blocks drain,
+//     runs its index arithmetic and scalar setup, and then waits in
+//     griddepcontrol.wait until the predecessor's memory is visible.  Every
+//     global read and write comes after the wait, the keys included (the
+//     serving Scheduler folds the rows' keys on the card just before its
+//     draws), and each block issues griddepcontrol.launch_dependents as it
+//     starts, so a successor launched the same way can start in turn.  A
+//     wait without a programmatic predecessor returns at once.
+//   * brownian_increment runs one thread per draw unit: in float32 one
+//     counter pair, whose one hash gives elements j and j + half of the row
+//     (normal(key, (d,)) pairs them so), in float64 one element (a float64
+//     draw uses a whole pair).  The unit index is split into (row, unit) by
+//     one 32-bit division (unit_coords); only where rows·d >= 2^31 does a
+//     64-bit path run.  At B 1024 (one key over 17,408 float32 elements)
+//     that is 8,704 threads in 34 blocks, each one fold_in and one pair
+//     hash.  The key load and fold_in stay per thread: they sit on the
+//     dependent chain either way, and a shared-memory broadcast would add a
+//     barrier to it.
+//   * rev_heun_phase2 is one pass with no loop: a thread takes 16 bytes of
+//     each operand (float4 / double2) when all seven pointers are 16-byte
+//     aligned, the last thread the scalar tail; otherwise (a contiguous view
+//     off a 16-byte boundary: a slice of g_out, a 1 x 17 state) a thread an
+//     element.  At B 1024 in float32: 4,352 threads in 17 blocks.
+// Every element keeps the plain version's op order, so both give its bits.
 //
 // brownian_value (the adaptive loop's point query W(t) - W(t0)) is
 // bound by latency: each row's key chain is depth + 1 dependent Threefry
@@ -52,6 +80,8 @@
 // returns cudaGetLastError().
 
 #include <cstdint>
+#include <vector>
+
 #include <cuda_runtime.h>
 
 #include "threefry.cuh"
@@ -84,16 +114,54 @@ __device__ __forceinline__ T increment(const int64_t* __restrict__ keys, int64_t
   return mul(normal_elem(T(), k0, k1, i, d), sqrt_dt);
 }
 
-template <typename T>
-__global__ void brownian_increment_kernel(const int64_t* __restrict__ keys, int64_t n,
-                                          T dt, T* __restrict__ out, int64_t rows,
-                                          int64_t d) {
+// The programmatic dependent launch's two halves (sm_90).  The memory
+// clobber keeps every load and store of the kernel after the wait.
+__device__ __forceinline__ void release_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+__device__ __forceinline__ void wait_for_predecessor() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+constexpr int kThreads = 256;
+
+// Draw unit u of a (rows, units) grid -> (row, unit in the row): one
+// division in the index type I (uint32_t, or uint64_t where rows·d >= 2^31).
+template <typename I>
+__host__ __device__ __forceinline__ void unit_coords(I u, I units, I& row, I& j) {
+  row = u / units;
+  j = u - row * units;
+}
+
+// Row b's step-n increment normal(fold_in(keys[b], n), (d,))·sqrt(dt), one
+// thread a draw unit (a counter pair in float32, an element in float64;
+// `units` a row).  Replaces src/repro/kernels/brownian.py:71.
+template <typename T, typename I>
+__global__ void __launch_bounds__(kThreads)
+brownian_increment_kernel(const int64_t* __restrict__ keys, int64_t n, T dt,
+                          T* __restrict__ out, I total, I units, I d) {
   const T sqrt_dt = sqrt_ieee(dt);
-  const int64_t total = rows * d;
-  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       e < total; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t b = e / d;
-    out[e] = increment(keys, n, sqrt_dt, b, e - b * d, d);
+  const I u = static_cast<I>(blockIdx.x) * kThreads + threadIdx.x;
+  I b = 0, j = 0;
+  unit_coords(u, units, b, j);
+  release_dependents();
+  wait_for_predecessor();
+  if (u >= total) return;
+  uint32_t k0 = static_cast<uint32_t>(keys[2 * b]);
+  uint32_t k1 = static_cast<uint32_t>(keys[2 * b + 1]);
+  fold_in(k0, k1, n);
+  T* row = out + static_cast<size_t>(b) * d;
+  if constexpr (sizeof(T) == 4) {
+    // pair (j, j + half); for odd d the last pair's second counter is 0
+    const I second = j + units;
+    uint32_t x0 = static_cast<uint32_t>(j);
+    uint32_t x1 = second < d ? static_cast<uint32_t>(second) : 0u;
+    threefry2x32(k0, k1, x0, x1);
+    row[j] = mul(normal_f32_bits(x0), sqrt_dt);
+    if (second < d) row[second] = mul(normal_f32_bits(x1), sqrt_dt);
+  } else {
+    row[j] = mul(normal_f64(k0, k1, static_cast<int64_t>(j), static_cast<int64_t>(d)),
+                 sqrt_dt);
   }
 }
 
@@ -133,19 +201,58 @@ __global__ void phase1_kernel(const T* __restrict__ z, const T* __restrict__ zh,
   }
 }
 
-// z₁ = z + (sign·½Δt)(μ+μ′) + (sign·½)(σ+σ′)ΔW
+// z₁ = z + (sign·½Δt)(μ+μ′) + (sign·½)(σ+σ′)ΔW, element e.
 template <typename T>
-__global__ void phase2_kernel(const T* __restrict__ z, const T* __restrict__ mu,
-                              const T* __restrict__ mu1, const T* __restrict__ sigma,
-                              const T* __restrict__ sigma1, const T* __restrict__ dw,
-                              T dt, T sign, T* __restrict__ out, int64_t total) {
+__device__ __forceinline__ T phase2_elem(T z, T mu, T mu1, T sigma, T sigma1, T dw,
+                                         T hdt, T half_sign) {
+  const T drift = mul(hdt, add(mu, mu1));
+  const T noise = mul(mul(half_sign, add(sigma, sigma1)), dw);
+  return add(add(z, drift), noise);
+}
+
+// 16 bytes of one operand: four float32 or two float64 elements.
+template <typename T>
+struct alignas(16) Pack16 {
+  static constexpr int kN = 16 / sizeof(T);
+  T v[kN];
+};
+
+// Replaces _phase2_kernel (src/repro/kernels/reversible_heun_step.py:76).
+// kVector: thread t takes elements [t·N, t·N + N) as one 16-byte load of
+// each operand and one store (all pointers 16-byte aligned), the thread past
+// the last whole pack the scalar tail; otherwise thread t takes element t.
+template <typename T, bool kVector>
+__global__ void __launch_bounds__(kThreads)
+rev_heun_phase2_kernel(const T* __restrict__ z, const T* __restrict__ mu,
+                       const T* __restrict__ mu1, const T* __restrict__ sigma,
+                       const T* __restrict__ sigma1, const T* __restrict__ dw, T dt, T sign,
+                       T* __restrict__ out, int64_t total) {
   const T half_sign = mul(sign, T(0.5));
   const T hdt = mul(half_sign, dt);
-  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       e < total; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const T drift = mul(hdt, add(mu[e], mu1[e]));
-    const T noise = mul(mul(half_sign, add(sigma[e], sigma1[e])), dw[e]);
-    out[e] = add(add(z[e], drift), noise);
+  constexpr int kN = kVector ? Pack16<T>::kN : 1;
+  const int64_t e0 = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * kN;
+  release_dependents();
+  wait_for_predecessor();
+  if constexpr (kVector) {
+    if (e0 + kN <= total) {
+      using P = Pack16<T>;
+      const P a = *reinterpret_cast<const P*>(z + e0);
+      const P m = *reinterpret_cast<const P*>(mu + e0);
+      const P m1 = *reinterpret_cast<const P*>(mu1 + e0);
+      const P s = *reinterpret_cast<const P*>(sigma + e0);
+      const P s1 = *reinterpret_cast<const P*>(sigma1 + e0);
+      const P w = *reinterpret_cast<const P*>(dw + e0);
+      P o;
+  #pragma unroll
+      for (int i = 0; i < kN; ++i) {
+        o.v[i] = phase2_elem(a.v[i], m.v[i], m1.v[i], s.v[i], s1.v[i], w.v[i], hdt, half_sign);
+      }
+      *reinterpret_cast<P*>(out + e0) = o;
+      return;
+    }
+  }
+  for (int64_t e = e0; e < total && e < e0 + kN; ++e) {
+    out[e] = phase2_elem(z[e], mu[e], mu1[e], sigma[e], sigma1[e], dw[e], hdt, half_sign);
   }
 }
 
@@ -742,12 +849,67 @@ inline ValueGrid brownian_value_grid(bool pairs, int64_t rows, int64_t d) {
                    (rows + rb - 1) / rb * ((units + ub - 1) / ub)};
 }
 
-constexpr int kThreads = 256;
-
 inline unsigned blocks_for(int64_t total) {
   const int64_t cap = 132 * 16;  // enough resident blocks to fill 132 SMs
   int64_t b = (total + kThreads - 1) / kThreads;
   return static_cast<unsigned>(b < 1 ? 1 : (b > cap ? cap : b));
+}
+
+// Launch `kernel` with `blocks` blocks of kThreads on `stream` as a
+// programmatic dependent launch: it may be scheduled while its predecessor
+// on the stream drains, and its griddepcontrol.wait holds it until the
+// predecessor's memory is visible.  Returns the launch's error, else
+// cudaGetLastError(), as every rt_* function does.
+template <typename... Params, typename... Args>
+inline cudaError_t launch_dependent(void (*kernel)(Params...), int64_t blocks,
+                                    cudaStream_t stream, Args... args) {
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
+}
+
+// brownian_increment's draw units a row: counter pairs in float32.
+inline int64_t increment_units(int dtype, int64_t d) { return dtype == 0 ? (d + 1) / 2 : d; }
+
+// Whether brownian_increment takes its 64-bit index path at (rows, d).
+inline bool increment_wide(int64_t rows, int64_t d) { return rows * d >= (int64_t{1} << 31); }
+
+template <typename T, typename I>
+cudaError_t launch_increment(const int64_t* keys, int64_t n, double dt, void* out,
+                             int64_t rows, int64_t d, int64_t units, cudaStream_t s) {
+  const int64_t total = rows * units;
+  return launch_dependent(brownian_increment_kernel<T, I>, (total + kThreads - 1) / kThreads,
+                          s, keys, n, static_cast<T>(dt), static_cast<T*>(out),
+                          static_cast<I>(total), static_cast<I>(units), static_cast<I>(d));
+}
+
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
+template <typename T>
+cudaError_t launch_phase2(const void* z, const void* mu, const void* mu1, const void* sigma,
+                          const void* sigma1, const void* dw, double dt, double sign,
+                          void* out, int64_t total, cudaStream_t s) {
+  const bool vector = aligned16(z) && aligned16(mu) && aligned16(mu1) && aligned16(sigma) &&
+                      aligned16(sigma1) && aligned16(dw) && aligned16(out);
+  const int64_t per = vector ? Pack16<T>::kN : 1;
+  const int64_t blocks = ((total + per - 1) / per + kThreads - 1) / kThreads;
+  const auto in = [](const void* p) { return static_cast<const T*>(p); };
+  return launch_dependent(vector ? rev_heun_phase2_kernel<T, true>
+                                 : rev_heun_phase2_kernel<T, false>,
+                          blocks, s, in(z), in(mu), in(mu1), in(sigma), in(sigma1), in(dw),
+                          static_cast<T>(dt), static_cast<T>(sign), static_cast<T*>(out),
+                          total);
 }
 
 }  // namespace repro_torch
@@ -758,18 +920,67 @@ using repro_torch::kThreads;
 extern "C" int rt_brownian_increment(int dtype, const int64_t* keys, int64_t n,
                                      double dt, void* out, int64_t rows, int64_t d,
                                      void* stream) {
-  const int64_t total = rows * d;
+  using repro_torch::launch_increment;
+  if (rows * d <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (total > 0) {
-    if (dtype == 0) {
-      repro_torch::brownian_increment_kernel<float><<<blocks_for(total), kThreads, 0, s>>>(
-          keys, n, static_cast<float>(dt), static_cast<float*>(out), rows, d);
-    } else {
-      repro_torch::brownian_increment_kernel<double><<<blocks_for(total), kThreads, 0, s>>>(
-          keys, n, dt, static_cast<double*>(out), rows, d);
-    }
+  const int64_t units = repro_torch::increment_units(dtype, d);
+  cudaError_t err;
+  if (repro_torch::increment_wide(rows, d)) {
+    err = dtype == 0 ? launch_increment<float, uint64_t>(keys, n, dt, out, rows, d, units, s)
+                     : launch_increment<double, uint64_t>(keys, n, dt, out, rows, d, units, s);
+  } else {
+    err = dtype == 0 ? launch_increment<float, uint32_t>(keys, n, dt, out, rows, d, units, s)
+                     : launch_increment<double, uint32_t>(keys, n, dt, out, rows, d, units, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
+}
+
+// brownian_increment's index helper on the host: whether the launcher takes
+// the 64-bit path at (dtype, rows, d) (the return value), and unit u's (row,
+// unit in the row) by that path's unit_coords into row_j[0], row_j[1].
+extern "C" int rt_brownian_increment_unit(int dtype, int64_t rows, int64_t d, int64_t u,
+                                          int64_t* row_j) {
+  const int64_t units = repro_torch::increment_units(dtype, d);
+  if (repro_torch::increment_wide(rows, d)) {
+    uint64_t b, j;
+    repro_torch::unit_coords<uint64_t>(u, units, b, j);
+    row_j[0] = static_cast<int64_t>(b);
+    row_j[1] = static_cast<int64_t>(j);
+    return 1;
+  }
+  uint32_t b, j;
+  repro_torch::unit_coords<uint32_t>(static_cast<uint32_t>(u), static_cast<uint32_t>(units),
+                                     b, j);
+  row_j[0] = b;
+  row_j[1] = j;
+  return 0;
+}
+
+// The number of programmatic-dependency edges of a captured CUDA graph (a
+// cudaGraph_t), or -1 where the runtime cannot tell.
+extern "C" int64_t rt_graph_programmatic_edges(void* graph) {
+#if CUDART_VERSION >= 12030
+  cudaGraph_t g = static_cast<cudaGraph_t>(graph);
+  size_t num = 0;
+#if CUDART_VERSION >= 13000
+#define REPRO_GRAPH_EDGES cudaGraphGetEdges
+#else
+#define REPRO_GRAPH_EDGES cudaGraphGetEdges_v2
+#endif
+  if (REPRO_GRAPH_EDGES(g, nullptr, nullptr, nullptr, &num) != cudaSuccess) return -1;
+  std::vector<cudaGraphNode_t> from(num), to(num);
+  std::vector<cudaGraphEdgeData> data(num);
+  if (REPRO_GRAPH_EDGES(g, from.data(), to.data(), data.data(), &num) != cudaSuccess) {
+    return -1;
+  }
+#undef REPRO_GRAPH_EDGES
+  int64_t count = 0;
+  for (size_t i = 0; i < num; ++i) count += data[i].type == cudaGraphDependencyTypeProgrammatic;
+  return count;
+#else
+  (void)graph;
+  return -1;
+#endif
 }
 
 extern "C" int rt_rev_heun_phase1_gen(int dtype, const void* z, const void* zh,
@@ -800,23 +1011,14 @@ extern "C" int rt_rev_heun_phase2(int dtype, const void* z, const void* mu,
                                   const void* mu1, const void* sigma, const void* sigma1,
                                   const void* dw, double dt, double sign, void* out,
                                   int64_t total, void* stream) {
+  if (total <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (total > 0) {
-    if (dtype == 0) {
-      repro_torch::phase2_kernel<float><<<blocks_for(total), kThreads, 0, s>>>(
-          static_cast<const float*>(z), static_cast<const float*>(mu),
-          static_cast<const float*>(mu1), static_cast<const float*>(sigma),
-          static_cast<const float*>(sigma1), static_cast<const float*>(dw),
-          static_cast<float>(dt), static_cast<float>(sign), static_cast<float*>(out), total);
-    } else {
-      repro_torch::phase2_kernel<double><<<blocks_for(total), kThreads, 0, s>>>(
-          static_cast<const double*>(z), static_cast<const double*>(mu),
-          static_cast<const double*>(mu1), static_cast<const double*>(sigma),
-          static_cast<const double*>(sigma1), static_cast<const double*>(dw), dt, sign,
-          static_cast<double*>(out), total);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err =
+      dtype == 0 ? repro_torch::launch_phase2<float>(z, mu, mu1, sigma, sigma1, dw, dt, sign,
+                                                     out, total, s)
+                 : repro_torch::launch_phase2<double>(z, mu, mu1, sigma, sigma1, dw, dt, sign,
+                                                      out, total, s);
+  return static_cast<int>(err);
 }
 
 extern "C" int rt_rev_heun_phase1(int dtype, const void* z, const void* zh, const void* mu,

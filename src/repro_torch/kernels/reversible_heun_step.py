@@ -51,7 +51,9 @@ def scalar(x) -> float:
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream of ``t``'s device (without the
+    ``torch.cuda.Stream`` object that ``current_stream`` builds)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def rev_heun_phase1(z, zh, mu, sigma, dw, dt, sign: float = 1.0):

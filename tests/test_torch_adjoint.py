@@ -98,6 +98,16 @@ def _rel_err(a, b):
 def test_exact_adjoint_gradients_match_jax_custom_vjp(dtype, save, fused):
     seed = 52
     got = _torch_grads(dtype, "reversible_adjoint", fused, save, seed)
+    want = _jax_grads(dtype, save, fused, seed)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, torch.from_numpy(np.array(w)), **GRAD_TOL[dtype])
+
+
+def _jax_grads(dtype, save, fused, seed):
+    """The JAX package's ``custom_vjp`` gradients of the same loss, in the
+    order of :func:`_torch_grads`; the draws stay where the float64
+    tolerance holds (module docstring)."""
     params = _params(dtype)
     z0 = np.random.default_rng(seed).standard_normal((B, D)).astype(dtype)
     words = key_words(seed, 1)[0]
@@ -115,9 +125,7 @@ def test_exact_adjoint_gradients_match_jax_custom_vjp(dtype, save, fused):
     draws = torch.stack([BrownianPath(torch_keys(words), 0.0, 1.0, (B, D)).increment(n, STEPS)
                          for n in range(STEPS)]) * STEPS ** 0.5
     assert draws.abs().max() < 3.3  # inside the float64 bound's range (docstring)
-    assert len(got) == len(want)
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g, torch.from_numpy(np.array(w)), **GRAD_TOL[dtype])
+    return want
 
 
 @pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
@@ -135,6 +143,40 @@ def test_fused_adjoint_bitwise_equals_unfused(dtype, save):
     b = _torch_grads(dtype, "reversible_adjoint", True, save, seed=53)
     for x, y in zip(a, b):
         assert torch.equal(x, y), (x - y).abs().max().item()
+
+
+@pytest.mark.parametrize("save", [True, False], ids=["trajectory", "final"])
+def test_fused_backward_draws_only_through_phase1_gen(monkeypatch, save):
+    """The fused exact adjoint on a ``BrownianPath`` draws every ΔW inside
+    ``rev_heun_phase1_gen``: the forward's N at sign +1, the reconstruction's
+    N at sign -1, and none through ``brownian_increment``.  Its float64
+    gradients are the unfused route's bitwise (that route re-draws through
+    ``brownian_increment``: the same bits) and the JAX package's within
+    GRAD_TOL."""
+    from repro_torch.kernels import ops
+
+    signs, increments = [], []
+    gen, increment = ops.rev_heun_phase1_gen, ops.brownian_increment
+
+    def counted_gen(*args, **kw):
+        signs.append(kw.get("sign", args[8] if len(args) > 8 else 1.0))
+        return gen(*args, **kw)
+
+    def counted_increment(*args, **kw):
+        increments.append(args[1])
+        return increment(*args, **kw)
+
+    monkeypatch.setattr(ops, "rev_heun_phase1_gen", counted_gen)
+    monkeypatch.setattr(ops, "brownian_increment", counted_increment)
+    fused = _torch_grads("float64", "reversible_adjoint", True, save, seed=52)
+    assert increments == [] and sorted(signs) == [-1.0] * STEPS + [1.0] * STEPS
+    unfused = _torch_grads("float64", "reversible_adjoint", False, save, seed=52)
+    assert len(increments) == 2 * STEPS  # the unfused route: forward and backward
+    for x, y in zip(fused, unfused):
+        assert torch.equal(x, y), (x - y).abs().max().item()
+    want = _jax_grads("float64", save, True, 52)
+    for g, w in zip(fused, want):
+        torch.testing.assert_close(g, torch.from_numpy(np.array(w)), **GRAD_TOL["float64"])
 
 
 def _saved_bytes(mode, num_steps):

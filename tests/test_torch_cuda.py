@@ -34,7 +34,12 @@ against the CPU's; the MLP kernel's two launches alike and rows invariant
 at every width chip_smoke.py checks; the serving registry's CUDA graphs:
 a replayed chunk bitwise the eager chunk at buckets 1, 64 and 1024, its
 recorded launches, and an eviction that frees the graph's bytes and a
-rebuild that gives its bits.
+rebuild that gives its bits; ``brownian_increment`` and
+``rev_heun_phase2`` (programmatic dependent launches) bitwise their plain
+versions at REDESIGN_SHAPES and from launch to launch, phase 2 on views
+off 16-byte boundaries, the two replayed in a captured graph behind
+``fused_mlp``, and the increment's index helper on its 32- and 64-bit
+paths.
 
 These need an NVIDIA GPU with nvcc (the kernels have no CPU mode); each test
 skips without one.  On the GPU machine::
@@ -76,14 +81,24 @@ def _inputs(cuda, dtype, B, d, seed=0):
     return keys, st
 
 
+# rev_heun_phase2, rev_heun_phase1_gen and brownian_increment at one element,
+# odd sizes (the last counter pair's zero pad), the training state, the
+# serving bucket and the training path's one-key draws (one row of B·17)
+REDESIGN_SHAPES = [(1, 1), (1, 3), (1, 17), (64, 17), (1024, 16), (1024, 17), (1, 1088),
+                   (1, 17408)]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("B,d", [(1, 16), (3, 17), (64, 16)])
+@pytest.mark.parametrize("B,d", [(1, 16), (3, 17), (64, 16)] + REDESIGN_SHAPES)
 def test_kernels_bitwise_equal_plain_versions(cuda, dtype, B, d):
+    """Bitwise the plain versions; the pair-a-thread draw and the 16-byte
+    phase 2 (both dependent launches) also alike from launch to launch."""
     keys, (z, zh, mu, sg, mu1, sg1, dw) = _inputs(cuda, dtype, B, d)
     for sign in (1.0, -1.0):
         a = ops.rev_heun_phase2(z, mu, mu1, sg, sg1, dw, 0.05, sign)
         b = ops.rev_heun_phase2(z, mu, mu1, sg, sg1, dw, 0.05, sign, use_kernel=False)
         assert torch.equal(a, b)
+        assert torch.equal(a, ops.rev_heun_phase2(z, mu, mu1, sg, sg1, dw, 0.05, sign))
         zh1, w = ops.rev_heun_phase1_gen(z, zh, mu, sg, keys, 4, 0.05, 0.05, sign)
         zh1_r, w_r = ops.rev_heun_phase1_gen(z, zh, mu, sg, keys, 4, 0.05, 0.05, sign,
                                              use_kernel=False)
@@ -92,6 +107,7 @@ def test_kernels_bitwise_equal_plain_versions(cuda, dtype, B, d):
     assert torch.equal(inc, ops.brownian_increment(keys, 4, (d,), dtype, 0.05,
                                                    use_kernel=False))
     assert torch.equal(inc, w)
+    assert torch.equal(inc, ops.brownian_increment(keys, 4, (d,), dtype, 0.05))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -108,6 +124,68 @@ def test_training_kernels_bitwise_equal_plain_versions(cuda, dtype, B, d):
     for got, want in zip(ops.rev_heun_bwd_phase2(z, zh, dw, 1 / 23),
                          ops.rev_heun_bwd_phase2(z, zh, dw, 1 / 23, use_kernel=False)):
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_rev_heun_phase2_reads_views_off_16_byte_boundaries(cuda, dtype, offset):
+    """Contiguous views ``offset`` elements into flat buffers (the kernel's
+    element-a-thread path where a view sits off a 16-byte boundary) give the
+    bits of contiguous copies and of the plain version."""
+    g = torch.Generator().manual_seed(offset)
+    rows, d = 64, 17
+    flat = [torch.randn(rows * d + offset, generator=g, dtype=dtype).to(cuda) for _ in range(6)]
+    views = [f[offset:].view(rows, d) for f in flat]
+    got = ops.rev_heun_phase2(*views, 1 / 23, -1.0)
+    assert torch.equal(got, ops.rev_heun_phase2(*(v.clone() for v in views), 1 / 23, -1.0))
+    assert torch.equal(got, ops.rev_heun_phase2(*views, 1 / 23, -1.0, use_kernel=False))
+
+
+def test_dependent_launches_replay_in_a_captured_graph(cuda):
+    """fused_mlp -> rev_heun_phase2 -> brownian_increment captured as one
+    CUDA graph replays the eager calls' bits."""
+    g = torch.Generator().manual_seed(28)
+    x = torch.randn(1024, 17, generator=g).to(cuda)
+    w1, b1 = torch.randn(17, 32, generator=g).to(cuda), torch.randn(32, generator=g).to(cuda)
+    w2, b2 = torch.randn(32, 16, generator=g).to(cuda), torch.randn(16, generator=g).to(cuda)
+    keys, (z, mu, mu1, sg, dw, *_) = _inputs(cuda, torch.float32, 1024, 16, seed=28)
+
+    def chain():
+        sg1 = ops.fused_mlp(x, w1, b1, w2, b2)
+        z1 = ops.rev_heun_phase2(z, mu, mu1, sg, sg1, dw, 1 / 32)
+        return sg1, z1, ops.brownian_increment(keys, 3, (16,), torch.float32, 1 / 32)
+
+    want = chain()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        chain()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        outs = chain()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, w in zip(outs, want):
+            assert torch.equal(got, w)
+
+
+def test_brownian_increment_index_helper_on_both_paths(cuda):
+    """The launcher's 32-bit path below rows·d = 2^31 and its 64-bit path at
+    and above it split a draw unit into (row, unit) as divmod does, past
+    2^31 too (a unit is a counter pair in float32, an element in float64)."""
+    from repro_torch.kernels import brownian as bk
+
+    cases = [(torch.float32, 1024, 17, False), (torch.float64, 1024, 17, False),
+             (torch.float32, 1, 2 ** 31 - 1, False), (torch.float32, 1, 2 ** 31 + 3, True),
+             (torch.float64, 3, 2 ** 30 + 1, True), (torch.float64, 5, 2 ** 31 + 7, True)]
+    for dtype, rows, d, wide in cases:
+        units = (d + 1) // 2 if dtype == torch.float32 else d
+        for u in {0, 1, units - 1, units, rows * units // 2, rows * units - 1}:
+            if u >= rows * units:
+                continue
+            assert bk.increment_unit(dtype, rows, d, u) == (wide, *divmod(u, units))
 
 
 def test_each_launch_is_counted_once(cuda):
@@ -268,11 +346,13 @@ def test_fused_decode_equals_unfused_on_the_card(cuda, dtype):
 
 
 def test_fused_training_step_equals_unfused_on_the_card(cuda):
-    """float64, full widths, batch 64: the fused exact adjoint (six kernels)
-    gives the unfused step's parameters bit for bit; one fused step launches
-    46 forward and 138 backward kernels, and its fields 286 ``fused_mlp``
-    launches (98 forward, 188 backward) and 98 ``fused_mlp_bwd`` (qz0 and
-    zeta, 4 in each of the 23 local VJPs and 4 in the initial VJP)."""
+    """float64, full widths, batch 64: the fused exact adjoint (five
+    kernels) gives the unfused step's parameters bit for bit; one fused step
+    launches 46 forward and 115 backward kernels (the reconstruction draws
+    its ΔW inside ``rev_heun_phase1_gen``, so ``brownian_increment`` never
+    runs), and its fields 286 ``fused_mlp`` launches (98 forward, 188
+    backward) and 98 ``fused_mlp_bwd`` (qz0 and zeta, 4 in each of the 23
+    local VJPs and 4 in the initial VJP)."""
     widths = dict(data_dim=2, hidden_dim=16, context_dim=16, width=32, num_steps=23,
                   kl_weight=0.1, dtype=torch.float64)
     init, update = make_latent_sde_optimizer(1e-2)
@@ -286,8 +366,8 @@ def test_fused_training_step_equals_unfused_on_the_card(cuda):
         runs.append(step(params, init(params), prng.PRNGKey(3)))
         torch.cuda.synchronize()
     counts = ops.launch_counts()
-    assert counts["rev_heun_phase1_gen"] == 23 and counts["brownian_increment"] == 23
-    assert counts["rev_heun_phase1"] == 46 and counts["rev_heun_phase2"] == 46
+    assert counts["rev_heun_phase1_gen"] == 46 and counts["brownian_increment"] == 0
+    assert counts["rev_heun_phase1"] == 23 and counts["rev_heun_phase2"] == 46
     assert counts["rev_heun_bwd_phase1"] == 23 and counts["rev_heun_bwd_phase2"] == 23
     assert counts["fused_mlp"] == 286 and counts["fused_mlp_bwd"] == 98
     assert torch.isfinite(runs[1][2]["loss"])

@@ -141,25 +141,29 @@ def test_brownian_increment_matches_ref_and_pallas(dtype, shape, n):
     _assert_increment_close(got, pallas, dtype)
 
 
+@pytest.mark.parametrize("sign", [1.0, -1.0])
 @pytest.mark.parametrize("dtype,shape", CASES)
-def test_rev_heun_phase1_gen_matches_pallas(dtype, shape):
+def test_rev_heun_phase1_gen_matches_pallas(dtype, shape, sign):
+    """Both directions: +1 is the forward's draw, -1 the exact adjoint's
+    reconstruction, which draws its ΔW in the same launch."""
     words = key_words(13, shape[0])
     z, zh, mu, sigma = _state(14, shape, dtype, 4)
     dt = 1.0 / 23
     zh1, dw = ops.rev_heun_phase1_gen(*map(torch.from_numpy, (z, zh, mu, sigma)),
-                                      torch_keys(words), 3, dt, dt)
+                                      torch_keys(words), 3, dt, dt, sign)
     with jax_config(x64=dtype == "float64"):
         j_zh1, j_dw = jax.jit(jax.vmap(lambda z_, zh_, mu_, s_, k1, k2: jbk.rev_heun_phase1_gen(
-            z_, zh_, mu_, s_, k1, k2, 3, dt, dt, interpret=True)))(z, zh, mu, sigma, *words.T)
+            z_, zh_, mu_, s_, k1, k2, 3, dt, dt, sign=sign, interpret=True)))(
+            z, zh, mu, sigma, *words.T)
     _assert_increment_close(dw, j_dw, dtype)
     on_ref_dw = ref.rev_heun_phase1(*map(torch.from_numpy, (z, zh, mu, sigma)),
-                                    torch.from_numpy(np.array(j_dw)), dt)
+                                    torch.from_numpy(np.array(j_dw)), dt, sign)
     _close(on_ref_dw, j_zh1, dtype)
     # in-port identity: the in-kernel ΔW is BrownianPath.increment's
     inc = ops.brownian_increment(torch_keys(words), 3, shape[1:], TORCH_DTYPES[dtype], dt)
     assert torch.equal(dw, inc)
     assert torch.equal(zh1, ref.rev_heun_phase1(*map(torch.from_numpy, (z, zh, mu, sigma)),
-                                                inc, dt))
+                                                inc, dt, sign))
 
 
 def test_dispatch_policy_on_cpu():
