@@ -14,16 +14,19 @@ non-zero and the final result line is never printed):
    in float32 and float64, at KERNEL_SHAPES (d in {1, 3, 16, 17}, B in {1,
    64, 1024}, the training path's one-key draws, 1 row of B·17, and the
    SDE-GAN's, 1 row of B·4): bitwise (max |Δ| must be 0); and
-   ``rev_heun_phase2`` on contiguous views 1, 2 and 3 elements into a flat
-   buffer (off a 16-byte boundary), bitwise the contiguous copies' result.
+   ``rev_heun_phase2`` and ``rev_heun_bwd_phase1`` on contiguous views 1,
+   2 and 3 elements into a flat buffer (off a 16-byte boundary), bitwise
+   the contiguous copies' result and the plain version's.
    Times each with CUDA events beside the plain version at the shapes the
    main paths give it: the training state (B in {64, 1024}, d = 17) and
    the serving bucket (B = 1024, d = 16).  Then the card's launch floor:
    an empty kernel (``torch.cuda._sleep(0)``) timed back to back the same
    way.  Then a CUDA graph of ``fused_mlp`` → ``rev_heun_phase2`` →
-   ``brownian_increment`` (the last two launched as programmatic dependent
-   launches) captured, replayed bitwise the eager calls, and its
-   programmatic edges counted: whether capture kept the dependent launch.
+   ``brownian_increment`` → ``rev_heun_phase1_gen`` →
+   ``rev_heun_bwd_phase1`` (the last four launched as programmatic
+   dependent launches, each reading its predecessor's output) captured,
+   replayed bitwise the eager calls, and its programmatic edges counted:
+   whether capture kept the dependent launches.
 3b. (Run right after 3.)  ``fused_mlp`` (every depth-1 SDE field: Linear
    → LipSwish → Linear) against its plain version in float32 (2e-5),
    bfloat16 (6e-2) and float64 (1e-12) at every field shape of the ELBO,
@@ -328,10 +331,12 @@ Each phase's wall is printed as a ``[phase] <name>: <s> s`` line as it ends.
    ``posterior_decode_launches``: one 1024-row posterior decode's; ``ptxas``: the registers,
    shared memory and spills of ``brownian_value``, the float32 attention,
    ``ssd_chunk``, ``fused_mlp_bwd``, ``fused_mlp``'s 17 → 32 → 16
-   instantiations, the two space-time kernels, ``brownian_increment`` and
-   ``rev_heun_phase2``, compiled once more with ``-Xptxas -v`` in the
-   background; ``dependent_launch_graph`` on those last two: phase 3's
-   graph check) and, last, the result line ``{"ok": true, "device":
+   instantiations, the two space-time kernels and the four dependent
+   launches, ``brownian_increment``, ``rev_heun_phase2``,
+   ``rev_heun_phase1_gen`` and ``rev_heun_bwd_phase1``, compiled once more
+   with ``-Xptxas -v`` in the background; ``dependent_launch_graph`` on
+   those last four: phase 3's graph check) and, last, the result line
+   ``{"ok": true, "device":
    {...}}``.
 
 ``mlp_bwd_split(cu_path, cuts)`` and ``mlp_bwd_stamps(cu_path, marks)``
@@ -343,10 +348,17 @@ temporary directory.  ``mlp_fwd_stamps(cu_path, marks)`` and
 ``fused_mlp`` (FWD_MARKS, or PARENT_FWD_MARKS in a parent tree's source)
 and ``space_time_value`` (ST_MARKS, PARENT_ST_MARKS);
 ``kernels_in_turns(parent_root)`` (not run by ``main``) times those two
-kernels, ``brownian_increment`` and ``rev_heun_phase2`` through the port's
-launchers with the parent tree's build of the kernels and with this
-one's, in turns, their outputs bitwise alike: the last two alone and in
-path order (behind a ``fused_mlp`` launch); ``rev_heun_launcher_costs``
+kernels and the rev_heun kernels through the port's launchers with the
+parent tree's build of the kernels and with this one's, in turns, their
+outputs bitwise alike: ``brownian_increment``, ``rev_heun_phase2``,
+``rev_heun_phase1_gen`` (both signs) and ``rev_heun_bwd_phase1`` alone and
+in path order (behind ``fused_mlp``, ``rev_heun_phase2`` and
+``rev_heun_phase1``, as the main path orders them), ``rev_heun_phase1``
+and ``rev_heun_bwd_phase2`` alone, and each rev_heun kernel's device span
+on an idle card (``span_us``: what a launch of the eager training step
+costs); ``source_variants`` (neither) times text edits of a kernel's
+source (FWD_VARIANTS, ST_VARIANTS, GEN_VARIANTS) back to back and by
+their spans; ``rev_heun_launcher_costs``
 (neither) those two launchers' host cost, piece by piece;
 ``chunk_in_turns(parent_root)`` (neither) phase 8b's 1024-row chunk graph
 (busy, idle, wall of a replay) there and here, in turns.
@@ -355,7 +367,8 @@ adaptive serving drain in another tree and this one, in turns;
 ``ssd_in_turns(parent_root)`` (neither) times ``ssd_chunk`` and
 mamba2-1.3b's prefill there and here, in turns; ``elbo_in_turns``
 (neither) the fused ELBO step at batch 64 and 1024, the depth-10 adaptive
-gradient (walls, launches, device kernels) and the ``fused_mlp``
+gradient (walls, launches, device kernels, busy as the sum and as the
+union of the device spans) and the ``fused_mlp``
 launcher's host cost there and here, in turns; ``smoke_in_turns``
 (neither) the whole script there and here, one after the other.
 
@@ -708,6 +721,27 @@ def time_ms(fn, reps: int = 20, trials: int = 7) -> tuple:
     return device, host
 
 
+def span_us(fn, n: int = 100) -> float:
+    """The device span of a one-launch call on an idle card, µs: ``n``
+    calls, each followed by a synchronise (so no launch queues behind
+    another, as in the eager training step, whose host issues slower than
+    the card runs), under torch.profiler; the mean span of the device
+    events it recorded (it may drop a few)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+            torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    check(bool(events), "span_us: the profiler recorded no device events")
+    return sum(_device_us(e) for e in events) / sum(e.count for e in events)
+
+
 def bound(name: str, B: int, d: int, dtype) -> tuple:
     """Least time for the work: bytes each read and written once over HBM
     bandwidth vs operations over the peak rate; -> (ms, 'bytes'|'operations').
@@ -764,26 +798,34 @@ def _kernel_calls(ops, keys, st, d, dtype):
 # single key over the (B, 17) state) and the SDE-GAN's (one row of B·4).
 KERNEL_SHAPES = [(1, 1), (1, 3), (1, 16), (1, 17), (64, 17), (1024, 16), (1024, 17),
                  (1, 64 * 17), (1, 1024 * 17), (1, 128 * 4), (1, 1024 * 4)]
-# rev_heun_phase2 on contiguous views this many elements into a flat buffer
-# (off a 16-byte boundary: the kernel's element-a-thread path)
+# rev_heun_phase2 and rev_heun_bwd_phase1 on contiguous views this many
+# elements into a flat buffer (off a 16-byte boundary: the kernels'
+# element-a-thread path)
 VIEW_OFFSETS = (1, 2, 3)
 
 
-def _phase2_views(ops, g, dev, dtype, rows, d):
-    """rev_heun_phase2 on views at VIEW_OFFSETS of flat buffers against the
-    same values as contiguous copies: bitwise, or raise."""
+def _view_checks(ops, g, dev, dtype, rows, d):
+    """rev_heun_phase2 and rev_heun_bwd_phase1 on views at VIEW_OFFSETS of
+    flat buffers against the same values as contiguous copies and the plain
+    version: bitwise, or raise."""
     n = rows * d
-    for off in VIEW_OFFSETS:
-        flat = [torch.randn(n + off, generator=g, dtype=dtype).to(dev) for _ in range(6)]
-        views = [f[off:].view(rows, d) for f in flat]
-        got = ops.rev_heun_phase2(*views, 1.0 / 23, -1.0)
-        want = ops.rev_heun_phase2(*(v.clone() for v in views), 1.0 / 23, -1.0)
-        plain = ops.rev_heun_phase2(*views, 1.0 / 23, -1.0, use_kernel=False)
-        check(views[0].data_ptr() % 16 != 0 or dtype == torch.float64,
-              f"rev_heun_phase2 view at offset {off} sits on a 16-byte boundary")
-        check(torch.equal(got, want) and torch.equal(got, plain),
-              f"rev_heun_phase2 {dtype} ({rows}, {d}) view at offset {off}: kernel != "
-              f"contiguous copies / plain")
+    calls = {"rev_heun_phase2": (6, lambda uk, *v: (ops.rev_heun_phase2(
+                 *v, 1.0 / 23, -1.0, use_kernel=uk),)),
+             "rev_heun_bwd_phase1": (4, lambda uk, *v: ops.rev_heun_bwd_phase1(
+                 *v, 1.0 / 23, use_kernel=uk))}
+    for name, (k, call) in calls.items():
+        for off in VIEW_OFFSETS:
+            flat = [torch.randn(n + off, generator=g, dtype=dtype).to(dev) for _ in range(k)]
+            views = [f[off:].view(rows, d) for f in flat]
+            got = call(None, *views)
+            want = call(None, *(v.clone() for v in views))
+            plain = call(False, *views)
+            check(views[0].data_ptr() % 16 != 0 or dtype == torch.float64,
+                  f"{name} view at offset {off} sits on a 16-byte boundary")
+            check(all(torch.equal(a, b) and torch.equal(a, c)
+                      for a, b, c in zip(got, want, plain)),
+                  f"{name} {dtype} ({rows}, {d}) view at offset {off}: kernel != "
+                  f"contiguous copies / plain")
 
 
 def _operands(g, dev, dtype, rows, d):
@@ -803,7 +845,7 @@ def kernel_checks(ops, dev) -> tuple:
     shapes = KERNEL_SHAPES
     for dtype in (torch.float32, torch.float64):
         for rows, d in shapes:
-            _phase2_views(ops, g, dev, dtype, rows, d)
+            _view_checks(ops, g, dev, dtype, rows, d)
             keys, st = _operands(g, dev, dtype, rows, d)
             for name, call in _kernel_calls(ops, keys, st, d, dtype).items():
                 got, want = call(True), call(False)
@@ -816,8 +858,8 @@ def kernel_checks(ops, dev) -> tuple:
                       f"{name} {dtype} rows={rows} d={d}: kernel != plain (max |Δ| {err})")
                 errs[name] = max(errs[name], err)
     print("bitwise: 6 kernels x {float32, float64} x (rows, d) in "
-          f"{shapes}: kernel == plain; rev_heun_phase2 on views at offsets "
-          f"{VIEW_OFFSETS}: == the contiguous copies' result", flush=True)
+          f"{shapes}: kernel == plain; rev_heun_phase2 and rev_heun_bwd_phase1 on views "
+          f"at offsets {VIEW_OFFSETS}: == the contiguous copies' result", flush=True)
 
     rows = {}
     print("kernel                dtype    B     d   kernel_ms (host)     "
@@ -847,20 +889,39 @@ def kernel_checks(ops, dev) -> tuple:
     return rows, errs
 
 
+# The rev_heun kernels launched as programmatic dependent launches, and
+# their device functions (as ptxas names them).
+DEPENDENT_KERNELS = {"brownian_increment": "brownian_increment_kernel",
+                     "rev_heun_phase2": "rev_heun_phase2_kernel",
+                     "rev_heun_phase1_gen": "phase1_gen_kernel",
+                     "rev_heun_bwd_phase1": "bwd_phase1_kernel"}
+# The stages of _pdl_chain, in launch order; every one after fused_mlp is a
+# programmatic dependent launch that reads its predecessor's output.
+PDL_CHAIN = ("fused_mlp", "rev_heun_phase2", "brownian_increment", "rev_heun_phase1_gen",
+             "rev_heun_bwd_phase1")
+
+
 def _pdl_chain(ops, dev, rows: int = 1024):
     """``chain()``: the diffusion field (``fused_mlp``, rows × 17 -> 32 ->
-    16), ``rev_heun_phase2`` on a rows × 16 state consuming its σ′, then
-    the next step's ``brownian_increment`` (per-row keys), float32 — the
-    serving step's order, the last two as programmatic dependent launches."""
+    16), ``rev_heun_phase2`` on a rows × 16 state consuming its σ′, the
+    next step's ``brownian_increment`` (per-row keys), then
+    ``rev_heun_phase1_gen`` on phase 2's z₁ with that increment as its σ,
+    and ``rev_heun_bwd_phase1`` seeded with its ẑ₁ and ΔW, float32 — the
+    serving step's order, then the forward's and the backward's, each
+    launch after ``fused_mlp`` a programmatic dependent launch behind the
+    kernel whose output it reads (PDL_CHAIN)."""
     g = torch.Generator().manual_seed(28)
     x, *w = _mlp_operands(g, dev, torch.float32, rows, 17, 32, 16)
     keys = torch.randint(0, 2 ** 32, (rows, 2), generator=g, dtype=torch.int64).to(dev)
-    z, mu, mu1, sigma, dw = (torch.randn(rows, 16, generator=g).to(dev) for _ in range(5))
+    z, zh, mu, mu1, sigma, dw = (torch.randn(rows, 16, generator=g).to(dev) for _ in range(6))
 
     def chain():
         sigma1 = ops.fused_mlp(x, *w)
         z1 = ops.rev_heun_phase2(z, mu, mu1, sigma, sigma1, dw, 1.0 / 32)
-        return sigma1, z1, ops.brownian_increment(keys, 3, (16,), torch.float32, 1.0 / 32)
+        inc = ops.brownian_increment(keys, 3, (16,), torch.float32, 1.0 / 32)
+        zh1, dw1 = ops.rev_heun_phase1_gen(z1, zh, mu, inc, keys, 4, 1.0 / 32, 1.0 / 32)
+        return (sigma1, z1, inc, zh1, dw1,
+                *ops.rev_heun_bwd_phase1(zh1, mu1, sigma1, dw1, 1.0 / 32))
     return chain
 
 
@@ -868,7 +929,7 @@ def pdl_graph_checks(ops, dev) -> dict:
     """Phase 3's graph check: ``_pdl_chain`` captured as one CUDA graph
     (``keep_graph``, so its edges can be read) and replayed, bitwise the
     eager calls; its programmatic-dependency edges counted, which says
-    whether stream capture kept the dependent launches (2: both kept)."""
+    whether stream capture kept the dependent launches (4: all kept)."""
     from repro_torch.kernels import brownian as bk
 
     chain = _pdl_chain(ops, dev)
@@ -883,18 +944,19 @@ def pdl_graph_checks(ops, dev) -> dict:
         outs = chain()
     edges = bk.graph_programmatic_edges(graph)
     graph.instantiate()
+    what = " -> ".join(PDL_CHAIN)
     for _ in range(2):
         graph.replay()
         torch.cuda.synchronize()
         check(all(torch.equal(a, b) for a, b in zip(outs, want)),
-              "the captured fused_mlp -> rev_heun_phase2 -> brownian_increment graph's "
-              "replay != the eager calls")
-    kept = edges >= 2
-    print(f"dependent launch under stream capture: {edges} programmatic edges in the "
-          f"graph of fused_mlp -> rev_heun_phase2 -> brownian_increment ("
-          f"{'kept' if kept else 'not kept' if edges >= 0 else 'runtime cannot tell'}); "
+              f"the captured {what} graph's replay != the eager calls")
+    expected = len(PDL_CHAIN) - 1
+    kept = edges >= expected
+    print(f"dependent launch under stream capture: {edges} programmatic edges (of "
+          f"{expected}) in the graph of {what} ("
+          f"{'kept' if kept else 'not all kept' if edges >= 0 else 'runtime cannot tell'}); "
           f"two replays bitwise the eager calls", flush=True)
-    return {"programmatic_edges": edges, "kept_under_capture": kept}
+    return {"programmatic_edges": edges, "expected_edges": expected, "kept_under_capture": kept}
 
 
 def mlp_bound(rows: int, din: int, h: int, dout: int, dtype) -> tuple:
@@ -2449,7 +2511,11 @@ def drain_in_turns(parent_root: str) -> dict:
 # One process of one tree (run from its root): the fused ELBO step at batch
 # 64 and 1024 and the depth-10 adaptive gradient (walls of synchronised
 # calls by the host clock, medians), their launches and device kernels (one
-# profiled call), and the fused_mlp launcher's host cost per call at 1024 ×
+# profiled call), their busy as the sum of the device spans and as their
+# union (another profiled call: a dependent kernel's span may overlap its
+# predecessor's, which the sum counts twice), the rev_heun kernels' device
+# time and launches in the profiled call, and the fused_mlp launcher's
+# host cost per call at 1024 ×
 # 17 -> 32 -> 16 (float32): the whole call, the launch without checks, the
 # checks, the ctypes call as that tree makes it, and the backward's launch
 # (``_launch_bwd``, the same widths and rows).  Only functions both
@@ -2475,6 +2541,24 @@ def walls(run, n):
         torch.cuda.synchronize()
         ws.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(ws), ws
+def busy_spans(run):
+    # one profiled call's device spans: their sum and their union (a
+    # dependent kernel's span may overlap its predecessor's), in ms
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    iv = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start)
+    union, end = 0.0, float("-inf")
+    for a, b in iv:
+        if b > end:
+            union += b - max(a, end)
+            end = b
+    return [sum(b - a for a, b in iv) / 1e3, union / 1e3, len(iv)]
 runs = {"elbo B64": C._train_step(dev, 64), "elbo B1024": C._train_step(dev, 1024),
         "adaptive grad depth 10": C._adaptive_grad(dev, torch.float32, True, 10)}
 for tag, run in runs.items():
@@ -2487,6 +2571,12 @@ for tag, run in runs.items():
     out[tag + " device kernels"] = prof["kernels"]
     out[tag + " busy ms"] = prof["busy_ms"]
     out[tag + " idle"] = prof["idle"]
+    out[tag + " busy ms sum, union, spans"] = busy_spans(run)
+    out[tag + " rev_heun ms, launches"] = {
+        k: [sum(v for n, v in prof["by_name"].items() if "::" + k + "<" in n),
+            sum(c for n, c in prof["counts"].items() if "::" + k + "<" in n)]
+        for k in ("phase1_gen_kernel", "rev_heun_phase2_kernel", "phase1_kernel",
+                  "bwd_phase1_kernel", "bwd_phase2_kernel")}
 g = torch.Generator().manual_seed(5)
 x, *w = C._mlp_operands(g, dev, torch.float32, 1024, 17, 32, 16)
 ct = torch.randn(1024, 16, generator=g).to(dev)
@@ -2519,8 +2609,9 @@ print(json.dumps(out))
 
 def elbo_in_turns(parent_root: str) -> dict:
     """The fused ELBO step (batch 64 and 1024) and the depth-10 adaptive
-    gradient, their launches and device kernels, and the fused_mlp
-    launcher's host cost, in the tree at ``parent_root`` and in this one, in
+    gradient, their launches and device kernels, their busy as the sum and
+    as the union of the device spans, and the fused_mlp launcher's host
+    cost, in the tree at ``parent_root`` and in this one, in
     turns (parent, this, this, parent), each a fresh process that builds
     its own kernels (~1–2 minutes each): ``{tree: [runs]}``.  Run it as
     ``python3 -c "import chip_smoke as C; C.elbo_in_turns('build/parent')"``
@@ -2531,7 +2622,7 @@ def elbo_in_turns(parent_root: str) -> dict:
         out = subprocess.run([sys.executable, "-c", _ELBO_CHILD], cwd=cwd, check=True,
                              capture_output=True, text=True, timeout=900).stdout
         runs[tree].append(json.loads(out.strip().splitlines()[-1]))
-        print(f"ELBO in turns [{tree}]: {runs[tree][-1]}", flush=True)
+        print(f"ELBO in turns [{tree}]: {json.dumps(runs[tree][-1])}", flush=True)
     print(f"card: {gpu_label()}", flush=True)
     return runs
 
@@ -2653,52 +2744,101 @@ def _parent_library(parent_root: str, tmp: str, entries):
     return lib
 
 
-# brownian_increment's and rev_heun_phase2's in-turns cases, (tag, dtype, B,
-# d): the training state at batch 64 and 1024 (draws: one key over the
-# (B, 17) state) and the serving bucket (draws: a key a row).
+# The rev_heun kernels' in-turns cases, (tag, dtype, B, d): the training
+# state at batch 64 and 1024 (draws: one key over the (B, 17) state) and the
+# serving bucket (draws: a key a row).
 REV_TIMED = [("train B64", torch.float32, 64, 17), ("train B1024", torch.float32, 1024, 17),
              ("train B64", torch.float64, 64, 17), ("train B1024", torch.float64, 1024, 17),
              ("serve B1024", torch.float32, 1024, 16)]
 
 
 def _rev_cases(ops, g, dev) -> tuple:
-    """``(alone, path, fields)`` for REV_TIMED: ``{case: call}`` of each of the
-    two kernels alone, the same behind the diffusion field's ``fused_mlp``
-    launch (B × 17 -> 32 -> 16, float32: where the forward and the
-    reconstruction put ``rev_heun_phase2`` and the GAN solve its draws),
-    and ``{case: the fused_mlp launch alone}`` for the path cases."""
-    alone, path, fields = {}, {}, {}
+    """``(alone, path, before)`` for REV_TIMED: ``{case: call}`` of each
+    kernel alone; ``{case: call}`` of the redesigned ones behind the launch
+    that precedes them on the main path; and ``{path case: that predecessor
+    alone}``.  ``brownian_increment`` and ``rev_heun_phase2`` follow the
+    diffusion field's ``fused_mlp`` launch (B × 17 -> 32 -> 16, float32:
+    where the forward and the reconstruction put ``rev_heun_phase2`` and
+    the GAN solve its draws); ``rev_heun_phase1_gen`` follows
+    ``rev_heun_phase2`` (the forward's order; sign +1 and, at the training
+    shapes, -1, the reconstruction's draw); ``rev_heun_bwd_phase1`` follows
+    ``rev_heun_phase1`` (the backward's ``_fused_local_vjp``).
+    ``rev_heun_phase1`` and ``rev_heun_bwd_phase2``, whose device code no
+    redesign has changed yet, run alone at the training shapes: parent and
+    this tree build the same kernel, so their pair is the method's
+    control."""
+    alone, path, before = {}, {}, {}
     for tag, dtype, B, d in REV_TIMED:
-        keys = torch.randint(0, 2 ** 32, (1 if d == 17 else B, 2), generator=g,
-                             dtype=torch.int64).to(dev)
-        st = [torch.randn(B, d, generator=g, dtype=dtype).to(dev) for _ in range(6)]
-        x, *w = _mlp_operands(g, dev, torch.float32, B, 17, 32, 16)
-        shape = (B * d,) if d == 17 else (d,)
-        kernels = {"rev_heun_phase2": lambda st=st: ops.rev_heun_phase2(*st, 1.0 / 23),
-                   "brownian_increment": lambda keys=keys, shape=shape, dtype=dtype:
-                       ops.brownian_increment(keys, 7, shape, dtype, 1.0 / 23)}
-        field = lambda x=x, w=w: ops.fused_mlp(x, *w)
-        for name, call in kernels.items():
+        for name, (call, pred, pred_name) in _rev_kernels(ops, g, dev, dtype, B, d).items():
             case = f"{name} {tag} {str(dtype)[6:]}"
             alone[case] = call
-            path[case + " after fused_mlp"] = lambda call=call, field=field: (field(), call())
-            fields[case + " after fused_mlp"] = field
-    return alone, path, fields
+            if pred is not None:
+                pcase = f"{case} after {pred_name}"
+                path[pcase] = lambda call=call, pred=pred: (pred(), call())
+                before[pcase] = pred
+    return alone, path, before
+
+
+def _rev_kernels(ops, g, dev, dtype, B: int, d: int) -> dict:
+    """One REV_TIMED case of ``_rev_cases``: ``{name: (call, predecessor
+    call or None, predecessor's name)}`` on fresh operands."""
+    dt = 1.0 / 23
+    train = d == 17
+    keys = torch.randint(0, 2 ** 32, (1 if train else B, 2), generator=g,
+                         dtype=torch.int64).to(dev)
+    gen_keys = keys[0] if train else keys  # one key over the (B, 17) state
+    st = [torch.randn(B, d, generator=g, dtype=dtype).to(dev) for _ in range(7)]
+    z, zh, mu, sg, mu1, sg1, dw = st
+    x, *w = _mlp_operands(g, dev, torch.float32, B, 17, 32, 16)
+    shape = (B * d,) if train else (d,)
+
+    def field():
+        return ops.fused_mlp(x, *w)
+
+    def phase2():
+        return ops.rev_heun_phase2(*st[:6], dt)
+
+    def phase1():
+        return ops.rev_heun_phase1(z, zh, mu, sg, dw, dt)
+
+    kernels = {
+        "rev_heun_phase2": (phase2, field, "fused_mlp"),
+        "brownian_increment": (lambda: ops.brownian_increment(keys, 7, shape, dtype, dt),
+                               field, "fused_mlp"),
+        "rev_heun_bwd_phase1": (lambda: ops.rev_heun_bwd_phase1(z, mu1, sg1, dw, dt),
+                                phase1, "rev_heun_phase1")}
+    for sign in ((1.0, -1.0) if train else (1.0,)):
+        kernels[f"rev_heun_phase1_gen sign {sign:+.0f}"] = (
+            lambda sign=sign: ops.rev_heun_phase1_gen(z, zh, mu, sg, gen_keys, 7, dt, dt, sign),
+            phase2, "rev_heun_phase2")
+    if train:
+        kernels["rev_heun_phase1"] = (phase1, None, None)
+        kernels["rev_heun_bwd_phase2"] = (lambda: ops.rev_heun_bwd_phase2(z, zh, dw, dt),
+                                          None, None)
+    return kernels
+
+
+def _flat(out) -> list:
+    """The tensors of a (nested) tuple of outputs, in order."""
+    return [t for o in out for t in _flat(o)] if isinstance(out, tuple) else [out]
 
 
 def kernels_in_turns(parent_root: str) -> dict:
-    """The kernels this tree or the one before it redesigned against the
+    """The kernels this tree or the ones before it redesigned against the
     parent's build of them, through the port's launchers on one card:
     ``fused_mlp`` float32 at MLP_TIMED, ``space_time_value`` at ST_TIMED,
-    and ``brownian_increment`` and ``rev_heun_phase2`` at REV_TIMED, alone
-    and in path order (``_rev_cases``), with the library built from the
-    tree at ``parent_root`` and with this tree's, in turns (parent, this,
-    this, parent), device and host ms a call by time_ms.  A path-order
-    case's kernel time is the pair's time less the ``fused_mlp`` launch's
-    alone in the same turn.  Each output of this tree's kernels must be
-    bitwise the parent's (every redesign keeps each element's op order).
-    ``{case: {tree: [[device ms, host ms], ...]}}``, printed with the
-    launch floor and the card.  Run it as ``python3 -c "import chip_smoke as
+    and the rev_heun kernels at REV_TIMED, alone and the redesigned ones in
+    path order (``_rev_cases``), with the library built from the tree at
+    ``parent_root`` and with this tree's, in turns (parent, this, this,
+    parent), device and host ms a call by time_ms; the rev_heun cases alone
+    also by their device span on an idle card (span_us), which is what each
+    launch of the eager training step costs.  A path-order case's kernel
+    time is the pair's time less its predecessor's alone in the same
+    turn.  Each output of this tree's kernels must be bitwise the parent's
+    (every redesign keeps each element's op order).
+    ``{case: {tree: [[device ms, host ms], ...]}}`` and ``{case + " [isolated
+    span us]": {tree: [µs, ...]}}``, printed with the launch floor and the
+    card.  Run it as ``python3 -c "import chip_smoke as
     C; C.kernels_in_turns('build/parent')"`` after unpacking the parent
     commit there (``git archive``)."""
     from repro_torch.kernels import build, ops
@@ -2708,7 +2848,9 @@ def kernels_in_turns(parent_root: str) -> dict:
     try:
         libs = {"parent": _parent_library(parent_root, tmp,
                                           ("rt_fused_mlp", "rt_space_time_value",
-                                           "rt_brownian_increment", "rt_rev_heun_phase2")),
+                                           "rt_brownian_increment", "rt_rev_heun_phase2",
+                                           "rt_rev_heun_phase1_gen", "rt_rev_heun_bwd_phase1",
+                                           "rt_rev_heun_phase1", "rt_rev_heun_bwd_phase2")),
                 "this": build.load()}
         g = torch.Generator().manual_seed(26)
         calls = {}
@@ -2721,7 +2863,7 @@ def kernels_in_turns(parent_root: str) -> dict:
         for tag, depth in ST_TIMED:
             calls[tag] = lambda depth=depth: ops.space_time_value(
                 keys, t, 0.0, 1.0, (256, 32), torch.float64, depth)
-        alone, path, fields = _rev_cases(ops, g, dev)
+        alone, path, before = _rev_cases(ops, g, dev)
         calls.update(alone)
         outs = {}
         for tree in ("parent", "this"):
@@ -2729,19 +2871,27 @@ def kernels_in_turns(parent_root: str) -> dict:
                 outs[tree] = {case: fn() for case, fn in {**calls, **path}.items()}
         torch.cuda.synchronize()
         for case in outs["this"]:
-            a, b = outs["parent"][case], outs["this"][case]
-            same = (all(torch.equal(u, v) for u, v in zip(a, b)) if isinstance(a, tuple)
-                    else torch.equal(a, b))
-            check(same, f"kernels_in_turns {case}: this tree's kernel differs from the parent's")
-        timed_calls = {**calls, **path, **{c + " [field alone]": f for c, f in fields.items()}}
+            a, b = _flat(outs["parent"][case]), _flat(outs["this"][case])
+            check(len(a) == len(b) and all(torch.equal(u, v) for u, v in zip(a, b)),
+                  f"kernels_in_turns {case}: this tree's kernel differs from the parent's")
+        timed_calls = {**calls, **path, **{c + " [predecessor alone]": f
+                                           for c, f in before.items()}}
         runs = {case: {"parent": [], "this": []} for case in timed_calls}
         for tree in ("parent", "this", "this", "parent"):
             with _library(libs[tree]):
                 for case, fn in timed_calls.items():
                     runs[case][tree].append(list(time_ms(fn)))
+        spans = {case: {"parent": [], "this": []} for case in alone}
+        for tree in ("parent", "this", "this", "parent"):
+            with _library(libs[tree]):
+                for case, fn in alone.items():
+                    spans[case][tree].append(span_us(fn))
+        for case, r in spans.items():
+            print(f"isolated span {case}: parent {statistics.median(r['parent']):.3f} us, "
+                  f"this {statistics.median(r['this']):.3f} us; runs {r}", flush=True)
         for case in path:  # the kernel's share of the pair, turn by turn
-            field = runs.pop(case + " [field alone]")
-            runs[case] = {tree: [[p[0] - f[0], p[1] - f[1]] for p, f in zip(r, field[tree])]
+            pred = runs.pop(case + " [predecessor alone]")
+            runs[case] = {tree: [[p[0] - f[0], p[1] - f[1]] for p, f in zip(r, pred[tree])]
                           for tree, r in runs[case].items()}
         floor = launch_floor()
         for case, r in runs.items():
@@ -2752,7 +2902,7 @@ def kernels_in_turns(parent_root: str) -> dict:
                   f"{med['this'][1]:.5f}); runs {r}", flush=True)
         print(f"outputs of this tree's kernels bitwise the parent's in every case; launch "
               f"floor {floor['launch_floor_ms']:.5f} ms; card: {gpu_label()}", flush=True)
-        return runs
+        return {**runs, **{case + " [isolated span us]": r for case, r in spans.items()}}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3201,8 +3351,9 @@ def source_variants(cu_path: str, entry: str, variants, cases, what: str,
     ``passes`` passes in alternating order.  ``cases`` is a function of the
     card returning ``[(tag, run)]``, ``run(fn)`` one launch through the
     entry point ``fn`` returning its output tensors; an exact variant's
-    outputs must equal the unchanged source's bitwise.  -> {tag: {label:
-    [ms, ...]}}"""
+    outputs must equal the unchanged source's bitwise.  Each pass also
+    reads each variant's device span on an idle card (span_us, printed in
+    µs).  -> {tag: {label: [ms, ...]}}"""
     import ctypes
 
     from repro_torch.kernels import build
@@ -3242,13 +3393,16 @@ def source_variants(cu_path: str, entry: str, variants, cases, what: str,
                 check(not exact or all(torch.equal(a, b) for a, b in zip(got, want)),
                       f"{what} variant {label!r} at {tag}: bits differ from the source's")
             times = {label: [] for label, _, _ in texts}
+            span = {label: [] for label, _, _ in texts}
             for p in range(passes):
                 order = range(len(fns)) if p % 2 == 0 else reversed(range(len(fns)))
                 for i in order:
                     times[texts[i][0]].append(time_ms(lambda: run(fns[i]))[0])
+                    span[texts[i][0]].append(span_us(lambda: run(fns[i])))
             out[tag] = times
             for label, ms in times.items():
-                print(f"{what} variant {tag}: {label}: {' / '.join(f'{t:.5f}' for t in ms)} ms",
+                print(f"{what} variant {tag}: {label}: {' / '.join(f'{t:.5f}' for t in ms)} "
+                      f"ms; isolated span {' / '.join(f'{t:.3f}' for t in span[label])} us",
                       flush=True)
         print(f"card: {gpu_label()}", flush=True)
         return out
@@ -3289,6 +3443,55 @@ def _st_variant_cases(dev):
                   "space_time_value variant: launch failed")
             return w, i
         yield f"1x(256, 32) f64 depth {depth}", run
+
+
+# Variants of rev_heun_phase1_gen's source for source_variants (exact: same
+# bits): where its time goes on an idle card, the eager step's case.
+GEN_VARIANTS = [
+    ("a pair's second normal drawn only where it is an element (a branch between the two)",
+     [("    w0 = mul(normal_f32_bits(x0), sqrt_dt);\n    w1 = mul(normal_f32_bits(x1), sqrt_dt);\n"
+       "    return second < d;\n",
+       "    w0 = mul(normal_f32_bits(x0), sqrt_dt);\n    if (second >= d) return false;\n"
+       "    w1 = mul(normal_f32_bits(x1), sqrt_dt);\n    return true;\n")], True),
+    ("the state loads after the draw",
+     [("  const T z0 = z[e0], zh0 = zh[e0], mu0 = mu[e0], s0 = sigma[e0];\n"
+       "  T z1 = T(0), zh_1 = T(0), mu1 = T(0), s1 = T(0);\n"
+       "  if (pair) {\n    z1 = z[e1];\n    zh_1 = zh[e1];\n    mu1 = mu[e1];\n    s1 = sigma[e1];\n"
+       "  }\n  T w0, w1;\n  const bool two = draw_unit(keys, n, b, j, units, d, sqrt_dt, w0, w1);\n",
+       "  T w0, w1;\n  const bool two = draw_unit(keys, n, b, j, units, d, sqrt_dt, w0, w1);\n"
+       "  const T z0 = z[e0], zh0 = zh[e0], mu0 = mu[e0], s0 = sigma[e0];\n"
+       "  T z1 = T(0), zh_1 = T(0), mu1 = T(0), s1 = T(0);\n"
+       "  if (pair) {\n    z1 = z[e1];\n    zh_1 = zh[e1];\n    mu1 = mu[e1];\n    s1 = sigma[e1];\n"
+       "  }\n")], True),
+    ("a plain launch (its griddepcontrol.wait then returns at once)",
+     [("  return launch_dependent(phase1_gen_kernel<T, I>, (total + kThreads - 1) / kThreads, s,\n",
+       "  phase1_gen_kernel<T, I><<<(total + kThreads - 1) / kThreads, kThreads, 0, s>>>(\n"),
+      ("                          static_cast<I>(d));\n}\n\ninline bool aligned16",
+       "                          static_cast<I>(d));\n  return cudaGetLastError();\n}\n\n"
+       "inline bool aligned16")], True),
+]
+
+
+def _gen_variant_cases(dev):
+    """source_variants cases of rt_rev_heun_phase1_gen at sign +1: the
+    training path's one key over 64 × 17 and 1024 × 17 (float32, and
+    float64 at 1024), and the serving bucket, a key a row of 1024 × 16."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    g = torch.Generator().manual_seed(29)
+    for tag, dtype, rows, d in (("1x(64*17) f32", torch.float32, 1, 64 * 17),
+                                ("1x(1024*17) f32", torch.float32, 1, 1024 * 17),
+                                ("1x(1024*17) f64", torch.float64, 1, 1024 * 17),
+                                ("1024x16 f32", torch.float32, 1024, 16)):
+        keys, st = _operands(g, dev, dtype, rows, d)
+        code = 0 if dtype == torch.float32 else 1
+
+        def run(fn, keys=keys, st=st, code=code, rows=rows, d=d):
+            zh1, dw = torch.empty_like(st[0]), torch.empty_like(st[0])
+            check(fn(code, *(t.data_ptr() for t in st[:4]), keys.data_ptr(), 7, 1.0 / 23,
+                     1.0 / 23, 1.0, zh1.data_ptr(), dw.data_ptr(), rows, d, stream) == 0,
+                  "rev_heun_phase1_gen variant: launch failed")
+            return zh1, dw
+        yield tag, run
 
 
 def launch_floor() -> dict:
@@ -4903,7 +5106,7 @@ PTXAS_SOURCES = ("rev_heun", "flash_attention", "ssd_chunk", "fused_mlp")
 PTXAS_KERNELS = ("brownian_value_kernel", "flash_attention_f32", "ssd_chunk_kernel",
                  "fused_mlp_bwd_kernel", "fused_mlp_fixed", "space_time_increment_kernel",
                  "space_time_value_kernel", "brownian_increment_kernel",
-                 "rev_heun_phase2_kernel")
+                 "rev_heun_phase2_kernel", "phase1_gen_kernel", "bwd_phase1_kernel")
 
 
 def start_ptxas_report():
@@ -5165,10 +5368,10 @@ def main() -> int:
             if name == "brownian_increment":  # the ELBO step draws in phase1_gen
                 launches = gan["launches"][name]
                 extra["launches_per"] = "SDE-GAN clip step (an ELBO step: 0)"
-            if name in ("brownian_increment", "rev_heun_phase2"):
+            if name in DEPENDENT_KERNELS:
                 extra["dependent_launch_graph"] = pdl
                 extra["ptxas"] = {k: v for k, v in ptxas_usage.items()
-                                  if name + "_kernel" in k}
+                                  if DEPENDENT_KERNELS[name] in k}
         entries.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches, "max_abs_err": errs[name],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

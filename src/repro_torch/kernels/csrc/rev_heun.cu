@@ -27,8 +27,8 @@
 // increment never goes through device memory between generation and use in
 // rev_heun_phase1_gen.  Step size and sign are runtime scalars, so one
 // compiled kernel serves every step size and both directions (forward +1,
-// reconstruction -1).  rev_heun_phase1, the two backward phases and
-// rev_heun_phase1_gen run one thread per element in a grid-stride loop.
+// reconstruction -1).  rev_heun_phase1 and rev_heun_bwd_phase2 run one
+// thread per element in a grid-stride loop.
 //
 // Bound.  The non-drawing kernels move 6 (phase 1, bwd phase 1) or 7
 // (phase 2, bwd phase 2) state-sized tensors and do a handful of flops per
@@ -40,33 +40,36 @@
 // chain: key load -> fold_in (20 rounds) -> the pair's hash -> erf_inv ->
 // store.
 //
-// brownian_increment and rev_heun_phase2 are laid out for that: launch and
-// chain, not bytes or operations.
-//   * Both launch through launch_dependent (a programmatic dependent launch,
-//     sm_90): the kernel is scheduled while its predecessor's blocks drain,
-//     runs its index arithmetic and scalar setup, and then waits in
+// brownian_increment, rev_heun_phase1_gen, rev_heun_phase2 and
+// rev_heun_bwd_phase1 are laid out for that: launch and chain, not bytes or
+// operations.
+//   * All four launch through launch_dependent (a programmatic dependent
+//     launch, sm_90): the kernel is scheduled while its predecessor's blocks
+//     drain, runs its index arithmetic and scalar setup, and then waits in
 //     griddepcontrol.wait until the predecessor's memory is visible.  Every
 //     global read and write comes after the wait, the keys included (the
 //     serving Scheduler folds the rows' keys on the card just before its
 //     draws), and each block issues griddepcontrol.launch_dependents as it
 //     starts, so a successor launched the same way can start in turn.  A
 //     wait without a programmatic predecessor returns at once.
-//   * brownian_increment runs one thread per draw unit: in float32 one
-//     counter pair, whose one hash gives elements j and j + half of the row
-//     (normal(key, (d,)) pairs them so), in float64 one element (a float64
-//     draw uses a whole pair).  The unit index is split into (row, unit) by
-//     one 32-bit division (unit_coords); only where rows·d >= 2^31 does a
-//     64-bit path run.  At B 1024 (one key over 17,408 float32 elements)
-//     that is 8,704 threads in 34 blocks, each one fold_in and one pair
-//     hash.  The key load and fold_in stay per thread: they sit on the
-//     dependent chain either way, and a shared-memory broadcast would add a
-//     barrier to it.
-//   * rev_heun_phase2 is one pass with no loop: a thread takes 16 bytes of
-//     each operand (float4 / double2) when all seven pointers are 16-byte
-//     aligned, the last thread the scalar tail; otherwise (a contiguous view
-//     off a 16-byte boundary: a slice of g_out, a 1 x 17 state) a thread an
-//     element.  At B 1024 in float32: 4,352 threads in 17 blocks.
-// Every element keeps the plain version's op order, so both give its bits.
+//   * The two drawing kernels run one thread per draw unit (draw_unit): in
+//     float32 one counter pair, whose one hash gives elements j and j + half
+//     of the row (normal(key, (d,)) pairs them so), in float64 one element
+//     (a float64 draw uses a whole pair).  The unit index is split into
+//     (row, unit) by one 32-bit division (unit_coords); only where
+//     rows·d >= 2^31 does a 64-bit path run.  At B 1024 (one key over 17,408
+//     float32 elements) that is 8,704 threads in 34 blocks, each one fold_in
+//     and one pair hash.  The key load and fold_in stay per thread: they sit
+//     on the dependent chain either way, and a shared-memory broadcast would
+//     add a barrier to it.  rev_heun_phase1_gen issues its state loads
+//     before the hash, so their latency hides under the chain.
+//   * rev_heun_phase2 and rev_heun_bwd_phase1 are one pass with no loop: a
+//     thread takes 16 bytes of each operand (float4 / double2) when every
+//     pointer is 16-byte aligned, the last thread the scalar tail; otherwise
+//     (a contiguous view off a 16-byte boundary: a slice of g_out, a 1 x 17
+//     state) a thread an element.  At B 1024 in float32: 4,352 threads in 17
+//     blocks.
+// Every element keeps the plain version's op order, so each gives its bits.
 //
 // brownian_value (the adaptive loop's point query W(t) - W(t0)) is
 // bound by latency: each row's key chain is depth + 1 dependent Threefry
@@ -104,16 +107,6 @@ __device__ __forceinline__ double tiny(double) {
   return __longlong_as_double(0x0010000000000000LL);
 }
 
-// ΔW of element (b, i): normal(fold_in(keys[b], n), (d,))[i] · sqrt(dt_grid)
-template <typename T>
-__device__ __forceinline__ T increment(const int64_t* __restrict__ keys, int64_t n,
-                                       T sqrt_dt, int64_t b, int64_t i, int64_t d) {
-  uint32_t k0 = static_cast<uint32_t>(keys[2 * b]);
-  uint32_t k1 = static_cast<uint32_t>(keys[2 * b + 1]);
-  fold_in(k0, k1, n);
-  return mul(normal_elem(T(), k0, k1, i, d), sqrt_dt);
-}
-
 // The programmatic dependent launch's two halves (sm_90).  The memory
 // clobber keeps every load and store of the kernel after the wait.
 __device__ __forceinline__ void release_dependents() {
@@ -133,6 +126,34 @@ __host__ __device__ __forceinline__ void unit_coords(I u, I units, I& row, I& j)
   j = u - row * units;
 }
 
+// The step-n increments normal(fold_in(keys[b], n), (d,))·sqrt(dt) of draw
+// unit j of row b (`units` a row): in float32 the counter pair (j, j +
+// units), whose one hash gives elements j (w0) and j + units (w1, where
+// j + units < d; for odd d the last pair's second counter is 0); in float64
+// element j (w0).  Returns whether w1 is an element of the row.  Both
+// float32 normals are drawn unconditionally, the pad's too: two independent
+// chains in straight-line code interleave, where a branch between them
+// would run them one after the other (0.05 us of a launch's span on an H100).
+template <typename T, typename I>
+__device__ __forceinline__ bool draw_unit(const int64_t* __restrict__ keys, int64_t n, I b,
+                                          I j, I units, I d, T sqrt_dt, T& w0, T& w1) {
+  uint32_t k0 = static_cast<uint32_t>(keys[2 * b]);
+  uint32_t k1 = static_cast<uint32_t>(keys[2 * b + 1]);
+  fold_in(k0, k1, n);
+  if constexpr (sizeof(T) == 4) {
+    const I second = j + units;
+    uint32_t x0 = static_cast<uint32_t>(j);
+    uint32_t x1 = second < d ? static_cast<uint32_t>(second) : 0u;
+    threefry2x32(k0, k1, x0, x1);
+    w0 = mul(normal_f32_bits(x0), sqrt_dt);
+    w1 = mul(normal_f32_bits(x1), sqrt_dt);
+    return second < d;
+  } else {
+    w0 = mul(normal_f64(k0, k1, static_cast<int64_t>(j), static_cast<int64_t>(d)), sqrt_dt);
+    return false;
+  }
+}
+
 // Row b's step-n increment normal(fold_in(keys[b], n), (d,))·sqrt(dt), one
 // thread a draw unit (a counter pair in float32, an element in float64;
 // `units` a row).  Replaces src/repro/kernels/brownian.py:71.
@@ -147,41 +168,56 @@ brownian_increment_kernel(const int64_t* __restrict__ keys, int64_t n, T dt,
   release_dependents();
   wait_for_predecessor();
   if (u >= total) return;
-  uint32_t k0 = static_cast<uint32_t>(keys[2 * b]);
-  uint32_t k1 = static_cast<uint32_t>(keys[2 * b + 1]);
-  fold_in(k0, k1, n);
   T* row = out + static_cast<size_t>(b) * d;
-  if constexpr (sizeof(T) == 4) {
-    // pair (j, j + half); for odd d the last pair's second counter is 0
-    const I second = j + units;
-    uint32_t x0 = static_cast<uint32_t>(j);
-    uint32_t x1 = second < d ? static_cast<uint32_t>(second) : 0u;
-    threefry2x32(k0, k1, x0, x1);
-    row[j] = mul(normal_f32_bits(x0), sqrt_dt);
-    if (second < d) row[second] = mul(normal_f32_bits(x1), sqrt_dt);
-  } else {
-    row[j] = mul(normal_f64(k0, k1, static_cast<int64_t>(j), static_cast<int64_t>(d)),
-                 sqrt_dt);
-  }
+  T w0, w1;
+  const bool two = draw_unit(keys, n, b, j, units, d, sqrt_dt, w0, w1);
+  row[j] = w0;
+  if (two) row[j + units] = w1;
 }
 
-// ẑ₁ = 2z − ẑ + μ·(sign·Δt) + (sign·σ)·ΔW, with ΔW drawn here
+// ẑ₁ = 2z − ẑ + μ·(sign·Δt) + (sign·σ)·ΔW of one element, ΔW = w.
 template <typename T>
-__global__ void phase1_gen_kernel(const T* __restrict__ z, const T* __restrict__ zh,
-                                  const T* __restrict__ mu, const T* __restrict__ sigma,
-                                  const int64_t* __restrict__ keys, int64_t n,
-                                  T dt_grid, T dt, T sign, T* __restrict__ zh1,
-                                  T* __restrict__ dw, int64_t rows, int64_t d) {
+__device__ __forceinline__ T phase1_elem(T z, T zh, T mu, T sigma, T w, T sdt, T sign) {
+  const T a = sub(mul(T(2), z), zh);
+  return add(add(a, mul(mu, sdt)), mul(mul(sign, sigma), w));
+}
+
+// ẑ₁ = 2z − ẑ + μ·(sign·Δt) + (sign·σ)·ΔW, with ΔW drawn here: one thread a
+// draw unit, as brownian_increment_kernel (draw_unit), which updates the
+// unit's one or two elements.  The state loads come before the hash, off
+// its dependent chain.  Replaces src/repro/kernels/brownian.py:132.
+template <typename T, typename I>
+__global__ void __launch_bounds__(kThreads)
+phase1_gen_kernel(const T* __restrict__ z, const T* __restrict__ zh,
+                  const T* __restrict__ mu, const T* __restrict__ sigma,
+                  const int64_t* __restrict__ keys, int64_t n, T dt_grid, T dt, T sign,
+                  T* __restrict__ zh1, T* __restrict__ dw, I total, I units, I d) {
   const T sqrt_dt = sqrt_ieee(dt_grid);
   const T sdt = mul(sign, dt);
-  const int64_t total = rows * d;
-  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       e < total; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t b = e / d;
-    const T w = increment(keys, n, sqrt_dt, b, e - b * d, d);
-    const T a = sub(mul(T(2), z[e]), zh[e]);
-    zh1[e] = add(add(a, mul(mu[e], sdt)), mul(mul(sign, sigma[e]), w));
-    dw[e] = w;
+  const I u = static_cast<I>(blockIdx.x) * kThreads + threadIdx.x;
+  I b = 0, j = 0;
+  unit_coords(u, units, b, j);
+  const size_t e0 = static_cast<size_t>(b) * d + j;
+  const size_t e1 = e0 + units;
+  const bool pair = sizeof(T) == 4 && j + units < d;
+  release_dependents();
+  wait_for_predecessor();
+  if (u >= total) return;
+  const T z0 = z[e0], zh0 = zh[e0], mu0 = mu[e0], s0 = sigma[e0];
+  T z1 = T(0), zh_1 = T(0), mu1 = T(0), s1 = T(0);
+  if (pair) {
+    z1 = z[e1];
+    zh_1 = zh[e1];
+    mu1 = mu[e1];
+    s1 = sigma[e1];
+  }
+  T w0, w1;
+  const bool two = draw_unit(keys, n, b, j, units, d, sqrt_dt, w0, w1);
+  zh1[e0] = phase1_elem(z0, zh0, mu0, s0, w0, sdt, sign);
+  dw[e0] = w0;
+  if (two) {
+    zh1[e1] = phase1_elem(z1, zh_1, mu1, s1, w1, sdt, sign);
+    dw[e1] = w1;
   }
 }
 
@@ -256,19 +292,49 @@ rev_heun_phase2_kernel(const T* __restrict__ z, const T* __restrict__ mu,
   }
 }
 
-// Field-VJP seeds: c_mu1 = ḡ_mu1 + ½(ḡ_z1·Δt), c_sig1 = ḡ_sig1 + ½(ḡ_z1·ΔW).
-// Replaces _bwd_phase1_kernel (src/repro/kernels/reversible_heun_step.py:86).
-// Bound: 6 state-sized tensors through HBM (4 read, 2 written).
+// Field-VJP seeds of one element: c_mu1 = ḡ_mu1 + ½(ḡ_z1·Δt),
+// c_sig1 = ḡ_sig1 + ½(ḡ_z1·ΔW).
 template <typename T>
-__global__ void bwd_phase1_kernel(const T* __restrict__ g_z1, const T* __restrict__ g_mu1,
-                                  const T* __restrict__ g_sig1, const T* __restrict__ dw,
-                                  T dt, T* __restrict__ c_mu1, T* __restrict__ c_sig1,
-                                  int64_t total) {
-  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       e < total; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const T g = g_z1[e];
-    c_mu1[e] = add(g_mu1[e], mul(T(0.5), mul(g, dt)));
-    c_sig1[e] = add(g_sig1[e], mul(T(0.5), mul(g, dw[e])));
+__device__ __forceinline__ void bwd_phase1_elem(T g, T g_mu1, T g_sig1, T w, T dt, T& c_mu1,
+                                                T& c_sig1) {
+  c_mu1 = add(g_mu1, mul(T(0.5), mul(g, dt)));
+  c_sig1 = add(g_sig1, mul(T(0.5), mul(g, w)));
+}
+
+// Replaces _bwd_phase1_kernel (src/repro/kernels/reversible_heun_step.py:86).
+// Bound: 6 state-sized tensors through HBM (4 read, 2 written).  kVector:
+// thread t takes elements [t·N, t·N + N) as one 16-byte load of each operand
+// and one store of each output (all six pointers 16-byte aligned), the
+// thread past the last whole pack the scalar tail; otherwise thread t takes
+// element t.
+template <typename T, bool kVector>
+__global__ void __launch_bounds__(kThreads)
+bwd_phase1_kernel(const T* __restrict__ g_z1, const T* __restrict__ g_mu1,
+                  const T* __restrict__ g_sig1, const T* __restrict__ dw, T dt,
+                  T* __restrict__ c_mu1, T* __restrict__ c_sig1, int64_t total) {
+  constexpr int kN = kVector ? Pack16<T>::kN : 1;
+  const int64_t e0 = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * kN;
+  release_dependents();
+  wait_for_predecessor();
+  if constexpr (kVector) {
+    if (e0 + kN <= total) {
+      using P = Pack16<T>;
+      const P g = *reinterpret_cast<const P*>(g_z1 + e0);
+      const P m = *reinterpret_cast<const P*>(g_mu1 + e0);
+      const P s = *reinterpret_cast<const P*>(g_sig1 + e0);
+      const P w = *reinterpret_cast<const P*>(dw + e0);
+      P cm, cs;
+  #pragma unroll
+      for (int i = 0; i < kN; ++i) {
+        bwd_phase1_elem(g.v[i], m.v[i], s.v[i], w.v[i], dt, cm.v[i], cs.v[i]);
+      }
+      *reinterpret_cast<P*>(c_mu1 + e0) = cm;
+      *reinterpret_cast<P*>(c_sig1 + e0) = cs;
+      return;
+    }
+  }
+  for (int64_t e = e0; e < total && e < e0 + kN; ++e) {
+    bwd_phase1_elem(g_z1[e], g_mu1[e], g_sig1[e], dw[e], dt, c_mu1[e], c_sig1[e]);
   }
 }
 
@@ -879,10 +945,10 @@ inline cudaError_t launch_dependent(void (*kernel)(Params...), int64_t blocks,
   return err != cudaSuccess ? err : last;
 }
 
-// brownian_increment's draw units a row: counter pairs in float32.
+// The drawing kernels' draw units a row: counter pairs in float32.
 inline int64_t increment_units(int dtype, int64_t d) { return dtype == 0 ? (d + 1) / 2 : d; }
 
-// Whether brownian_increment takes its 64-bit index path at (rows, d).
+// Whether the drawing kernels take their 64-bit index path at (rows, d).
 inline bool increment_wide(int64_t rows, int64_t d) { return rows * d >= (int64_t{1} << 31); }
 
 template <typename T, typename I>
@@ -894,7 +960,29 @@ cudaError_t launch_increment(const int64_t* keys, int64_t n, double dt, void* ou
                           static_cast<I>(total), static_cast<I>(units), static_cast<I>(d));
 }
 
+template <typename T, typename I>
+cudaError_t launch_phase1_gen(const void* z, const void* zh, const void* mu, const void* sigma,
+                              const int64_t* keys, int64_t n, double dt_grid, double dt,
+                              double sign, void* zh1, void* dw, int64_t rows, int64_t d,
+                              int64_t units, cudaStream_t s) {
+  const int64_t total = rows * units;
+  const auto in = [](const void* p) { return static_cast<const T*>(p); };
+  return launch_dependent(phase1_gen_kernel<T, I>, (total + kThreads - 1) / kThreads, s,
+                          in(z), in(zh), in(mu), in(sigma), keys, n, static_cast<T>(dt_grid),
+                          static_cast<T>(dt), static_cast<T>(sign), static_cast<T*>(zh1),
+                          static_cast<T*>(dw), static_cast<I>(total), static_cast<I>(units),
+                          static_cast<I>(d));
+}
+
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
+// A one-pass launch's blocks: a thread a 16-byte pack where `vector`, else
+// a thread an element.
+template <typename T>
+int64_t pass_blocks(bool vector, int64_t total) {
+  const int64_t per = vector ? Pack16<T>::kN : 1;
+  return ((total + per - 1) / per + kThreads - 1) / kThreads;
+}
 
 template <typename T>
 cudaError_t launch_phase2(const void* z, const void* mu, const void* mu1, const void* sigma,
@@ -902,14 +990,25 @@ cudaError_t launch_phase2(const void* z, const void* mu, const void* mu1, const 
                           void* out, int64_t total, cudaStream_t s) {
   const bool vector = aligned16(z) && aligned16(mu) && aligned16(mu1) && aligned16(sigma) &&
                       aligned16(sigma1) && aligned16(dw) && aligned16(out);
-  const int64_t per = vector ? Pack16<T>::kN : 1;
-  const int64_t blocks = ((total + per - 1) / per + kThreads - 1) / kThreads;
   const auto in = [](const void* p) { return static_cast<const T*>(p); };
   return launch_dependent(vector ? rev_heun_phase2_kernel<T, true>
                                  : rev_heun_phase2_kernel<T, false>,
-                          blocks, s, in(z), in(mu), in(mu1), in(sigma), in(sigma1), in(dw),
-                          static_cast<T>(dt), static_cast<T>(sign), static_cast<T*>(out),
-                          total);
+                          pass_blocks<T>(vector, total), s, in(z), in(mu), in(mu1), in(sigma),
+                          in(sigma1), in(dw), static_cast<T>(dt), static_cast<T>(sign),
+                          static_cast<T*>(out), total);
+}
+
+template <typename T>
+cudaError_t launch_bwd_phase1(const void* g_z1, const void* g_mu1, const void* g_sig1,
+                              const void* dw, double dt, void* c_mu1, void* c_sig1,
+                              int64_t total, cudaStream_t s) {
+  const bool vector = aligned16(g_z1) && aligned16(g_mu1) && aligned16(g_sig1) &&
+                      aligned16(dw) && aligned16(c_mu1) && aligned16(c_sig1);
+  const auto in = [](const void* p) { return static_cast<const T*>(p); };
+  return launch_dependent(vector ? bwd_phase1_kernel<T, true> : bwd_phase1_kernel<T, false>,
+                          pass_blocks<T>(vector, total), s, in(g_z1), in(g_mu1), in(g_sig1),
+                          in(dw), static_cast<T>(dt), static_cast<T*>(c_mu1),
+                          static_cast<T*>(c_sig1), total);
 }
 
 }  // namespace repro_torch
@@ -988,23 +1087,25 @@ extern "C" int rt_rev_heun_phase1_gen(int dtype, const void* z, const void* zh,
                                       const int64_t* keys, int64_t n, double dt_grid,
                                       double dt, double sign, void* zh1, void* dw,
                                       int64_t rows, int64_t d, void* stream) {
-  const int64_t total = rows * d;
+  using repro_torch::launch_phase1_gen;
+  if (rows * d <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (total > 0) {
-    if (dtype == 0) {
-      repro_torch::phase1_gen_kernel<float><<<blocks_for(total), kThreads, 0, s>>>(
-          static_cast<const float*>(z), static_cast<const float*>(zh),
-          static_cast<const float*>(mu), static_cast<const float*>(sigma), keys, n,
-          static_cast<float>(dt_grid), static_cast<float>(dt), static_cast<float>(sign),
-          static_cast<float*>(zh1), static_cast<float*>(dw), rows, d);
-    } else {
-      repro_torch::phase1_gen_kernel<double><<<blocks_for(total), kThreads, 0, s>>>(
-          static_cast<const double*>(z), static_cast<const double*>(zh),
-          static_cast<const double*>(mu), static_cast<const double*>(sigma), keys, n,
-          dt_grid, dt, sign, static_cast<double*>(zh1), static_cast<double*>(dw), rows, d);
-    }
+  const int64_t units = repro_torch::increment_units(dtype, d);
+  cudaError_t err;
+  if (repro_torch::increment_wide(rows, d)) {
+    err = dtype == 0 ? launch_phase1_gen<float, uint64_t>(z, zh, mu, sigma, keys, n, dt_grid,
+                                                          dt, sign, zh1, dw, rows, d, units, s)
+                     : launch_phase1_gen<double, uint64_t>(z, zh, mu, sigma, keys, n, dt_grid,
+                                                           dt, sign, zh1, dw, rows, d, units,
+                                                           s);
+  } else {
+    err = dtype == 0 ? launch_phase1_gen<float, uint32_t>(z, zh, mu, sigma, keys, n, dt_grid,
+                                                          dt, sign, zh1, dw, rows, d, units, s)
+                     : launch_phase1_gen<double, uint32_t>(z, zh, mu, sigma, keys, n, dt_grid,
+                                                           dt, sign, zh1, dw, rows, d, units,
+                                                           s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 extern "C" int rt_rev_heun_phase2(int dtype, const void* z, const void* mu,
@@ -1046,22 +1147,14 @@ extern "C" int rt_rev_heun_bwd_phase1(int dtype, const void* g_z1, const void* g
                                       const void* g_sig1, const void* dw, double dt,
                                       void* c_mu1, void* c_sig1, int64_t total,
                                       void* stream) {
+  if (total <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (total > 0) {
-    if (dtype == 0) {
-      repro_torch::bwd_phase1_kernel<float><<<blocks_for(total), kThreads, 0, s>>>(
-          static_cast<const float*>(g_z1), static_cast<const float*>(g_mu1),
-          static_cast<const float*>(g_sig1), static_cast<const float*>(dw),
-          static_cast<float>(dt), static_cast<float*>(c_mu1), static_cast<float*>(c_sig1),
-          total);
-    } else {
-      repro_torch::bwd_phase1_kernel<double><<<blocks_for(total), kThreads, 0, s>>>(
-          static_cast<const double*>(g_z1), static_cast<const double*>(g_mu1),
-          static_cast<const double*>(g_sig1), static_cast<const double*>(dw), dt,
-          static_cast<double*>(c_mu1), static_cast<double*>(c_sig1), total);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err =
+      dtype == 0 ? repro_torch::launch_bwd_phase1<float>(g_z1, g_mu1, g_sig1, dw, dt, c_mu1,
+                                                         c_sig1, total, s)
+                 : repro_torch::launch_bwd_phase1<double>(g_z1, g_mu1, g_sig1, dw, dt, c_mu1,
+                                                          c_sig1, total, s);
+  return static_cast<int>(err);
 }
 
 extern "C" int rt_rev_heun_bwd_phase2(int dtype, const void* g_z1, const void* ghat,

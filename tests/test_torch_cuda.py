@@ -34,10 +34,11 @@ against the CPU's; the MLP kernel's two launches alike and rows invariant
 at every width chip_smoke.py checks; the serving registry's CUDA graphs:
 a replayed chunk bitwise the eager chunk at buckets 1, 64 and 1024, its
 recorded launches, and an eviction that frees the graph's bytes and a
-rebuild that gives its bits; ``brownian_increment`` and
-``rev_heun_phase2`` (programmatic dependent launches) bitwise their plain
-versions at REDESIGN_SHAPES and from launch to launch, phase 2 on views
-off 16-byte boundaries, the two replayed in a captured graph behind
+rebuild that gives its bits; ``brownian_increment``,
+``rev_heun_phase2``, ``rev_heun_phase1_gen`` and ``rev_heun_bwd_phase1``
+(programmatic dependent launches) bitwise their plain versions at
+REDESIGN_SHAPES and from launch to launch, the two one-pass kernels on
+views off 16-byte boundaries, the four replayed in a captured graph behind
 ``fused_mlp``, and the increment's index helper on its 32- and 64-bit
 paths.
 
@@ -81,9 +82,10 @@ def _inputs(cuda, dtype, B, d, seed=0):
     return keys, st
 
 
-# rev_heun_phase2, rev_heun_phase1_gen and brownian_increment at one element,
-# odd sizes (the last counter pair's zero pad), the training state, the
-# serving bucket and the training path's one-key draws (one row of B·17)
+# rev_heun_phase2, rev_heun_phase1_gen, rev_heun_bwd_phase1 and
+# brownian_increment at one element, odd sizes (the last counter pair's zero
+# pad), the training state, the serving bucket and the training path's
+# one-key draws (one row of B·17)
 REDESIGN_SHAPES = [(1, 1), (1, 3), (1, 17), (64, 17), (1024, 16), (1024, 17), (1, 1088),
                    (1, 17408)]
 
@@ -91,8 +93,8 @@ REDESIGN_SHAPES = [(1, 1), (1, 3), (1, 17), (64, 17), (1024, 16), (1024, 17), (1
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,d", [(1, 16), (3, 17), (64, 16)] + REDESIGN_SHAPES)
 def test_kernels_bitwise_equal_plain_versions(cuda, dtype, B, d):
-    """Bitwise the plain versions; the pair-a-thread draw and the 16-byte
-    phase 2 (both dependent launches) also alike from launch to launch."""
+    """Bitwise the plain versions; the pair-a-thread draws and the 16-byte
+    passes (all dependent launches) also alike from launch to launch."""
     keys, (z, zh, mu, sg, mu1, sg1, dw) = _inputs(cuda, dtype, B, d)
     for sign in (1.0, -1.0):
         a = ops.rev_heun_phase2(z, mu, mu1, sg, sg1, dw, 0.05, sign)
@@ -103,6 +105,13 @@ def test_kernels_bitwise_equal_plain_versions(cuda, dtype, B, d):
         zh1_r, w_r = ops.rev_heun_phase1_gen(z, zh, mu, sg, keys, 4, 0.05, 0.05, sign,
                                              use_kernel=False)
         assert torch.equal(zh1, zh1_r) and torch.equal(w, w_r)
+        again = ops.rev_heun_phase1_gen(z, zh, mu, sg, keys, 4, 0.05, 0.05, sign)
+        assert torch.equal(zh1, again[0]) and torch.equal(w, again[1])
+    seeds = ops.rev_heun_bwd_phase1(z, mu1, sg1, dw, 0.05)
+    for got, want, again in zip(seeds,
+                                ops.rev_heun_bwd_phase1(z, mu1, sg1, dw, 0.05, use_kernel=False),
+                                ops.rev_heun_bwd_phase1(z, mu1, sg1, dw, 0.05)):
+        assert torch.equal(got, want) and torch.equal(got, again)
     inc = ops.brownian_increment(keys, 4, (d,), dtype, 0.05)
     assert torch.equal(inc, ops.brownian_increment(keys, 4, (d,), dtype, 0.05,
                                                    use_kernel=False))
@@ -126,34 +135,51 @@ def test_training_kernels_bitwise_equal_plain_versions(cuda, dtype, B, d):
         assert torch.equal(got, want)
 
 
+# the one-pass kernels: (operands, call(use_kernel, *operands) -> outputs)
+VIEW_KERNELS = {
+    "rev_heun_phase2": (6, lambda uk, *v: (ops.rev_heun_phase2(*v, 1 / 23, -1.0,
+                                                               use_kernel=uk),)),
+    "rev_heun_bwd_phase1": (4, lambda uk, *v: ops.rev_heun_bwd_phase1(*v, 1 / 23,
+                                                                      use_kernel=uk)),
+}
+
+
+@pytest.mark.parametrize("kernel", list(VIEW_KERNELS))
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("offset", [1, 2, 3])
-def test_rev_heun_phase2_reads_views_off_16_byte_boundaries(cuda, dtype, offset):
-    """Contiguous views ``offset`` elements into flat buffers (the kernel's
-    element-a-thread path where a view sits off a 16-byte boundary) give the
-    bits of contiguous copies and of the plain version."""
+def test_rev_heun_phase2_reads_views_off_16_byte_boundaries(cuda, dtype, offset, kernel):
+    """Contiguous views ``offset`` elements into flat buffers (the
+    element-a-thread path of ``rev_heun_phase2`` and ``rev_heun_bwd_phase1``
+    where a view sits off a 16-byte boundary, as the backward's first
+    ``g_out[N]`` does) give the bits of contiguous copies and of the plain
+    version."""
+    n, call = VIEW_KERNELS[kernel]
     g = torch.Generator().manual_seed(offset)
     rows, d = 64, 17
-    flat = [torch.randn(rows * d + offset, generator=g, dtype=dtype).to(cuda) for _ in range(6)]
+    flat = [torch.randn(rows * d + offset, generator=g, dtype=dtype).to(cuda) for _ in range(n)]
     views = [f[offset:].view(rows, d) for f in flat]
-    got = ops.rev_heun_phase2(*views, 1 / 23, -1.0)
-    assert torch.equal(got, ops.rev_heun_phase2(*(v.clone() for v in views), 1 / 23, -1.0))
-    assert torch.equal(got, ops.rev_heun_phase2(*views, 1 / 23, -1.0, use_kernel=False))
+    got = call(None, *views)
+    for a, b, c in zip(got, call(None, *(v.clone() for v in views)), call(False, *views)):
+        assert torch.equal(a, b) and torch.equal(a, c)
 
 
 def test_dependent_launches_replay_in_a_captured_graph(cuda):
-    """fused_mlp -> rev_heun_phase2 -> brownian_increment captured as one
-    CUDA graph replays the eager calls' bits."""
+    """fused_mlp -> rev_heun_phase2 -> brownian_increment ->
+    rev_heun_phase1_gen -> rev_heun_bwd_phase1, each reading its
+    predecessor's output, captured as one CUDA graph replays the eager
+    calls' bits."""
     g = torch.Generator().manual_seed(28)
     x = torch.randn(1024, 17, generator=g).to(cuda)
     w1, b1 = torch.randn(17, 32, generator=g).to(cuda), torch.randn(32, generator=g).to(cuda)
     w2, b2 = torch.randn(32, 16, generator=g).to(cuda), torch.randn(16, generator=g).to(cuda)
-    keys, (z, mu, mu1, sg, dw, *_) = _inputs(cuda, torch.float32, 1024, 16, seed=28)
+    keys, (z, mu, mu1, sg, dw, zh, _) = _inputs(cuda, torch.float32, 1024, 16, seed=28)
 
     def chain():
         sg1 = ops.fused_mlp(x, w1, b1, w2, b2)
         z1 = ops.rev_heun_phase2(z, mu, mu1, sg, sg1, dw, 1 / 32)
-        return sg1, z1, ops.brownian_increment(keys, 3, (16,), torch.float32, 1 / 32)
+        inc = ops.brownian_increment(keys, 3, (16,), torch.float32, 1 / 32)
+        zh1, dw1 = ops.rev_heun_phase1_gen(z1, zh, mu, inc, keys, 4, 1 / 32, 1 / 32)
+        return (sg1, z1, inc, zh1, dw1, *ops.rev_heun_bwd_phase1(zh1, mu1, sg1, dw1, 1 / 32))
 
     want = chain()
     side = torch.cuda.Stream()

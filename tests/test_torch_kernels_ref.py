@@ -33,6 +33,10 @@ TOL = {"float32": dict(rtol=1e-6, atol=1e-7), "float64": dict(rtol=1e-14, atol=1
 NORMAL_ULP = {"float32": 4, "float64": 2 ** 19}
 CASES = [("float32", (1, 16)), ("float32", (8, 17)), ("float64", (1, 17)),
          ("float64", (8, 16))]
+# The redesigned kernels' plain versions also at the training path's one-key
+# draw (one row of 64·17) and an odd width (the last counter pair's zero pad).
+ONE_KEY_CASES = [("float32", (1, 1088)), ("float64", (1, 1088)), ("float32", (4, 3)),
+                 ("float64", (4, 3))]
 
 
 def _state(seed, shape, dtype, n):
@@ -71,7 +75,7 @@ def test_rev_heun_phase1_matches_ref_and_pallas(dtype, shape, sign):
     _close(got, pallas, dtype)
 
 
-@pytest.mark.parametrize("dtype,shape", CASES)
+@pytest.mark.parametrize("dtype,shape", CASES + ONE_KEY_CASES)
 def test_rev_heun_bwd_phase1_matches_ref_and_pallas(dtype, shape):
     args = _state(15, shape, dtype, 4)
     got = ops.rev_heun_bwd_phase1(*map(torch.from_numpy, args), 0.01)
@@ -142,7 +146,7 @@ def test_brownian_increment_matches_ref_and_pallas(dtype, shape, n):
 
 
 @pytest.mark.parametrize("sign", [1.0, -1.0])
-@pytest.mark.parametrize("dtype,shape", CASES)
+@pytest.mark.parametrize("dtype,shape", CASES + ONE_KEY_CASES)
 def test_rev_heun_phase1_gen_matches_pallas(dtype, shape, sign):
     """Both directions: +1 is the forward's draw, -1 the exact adjoint's
     reconstruction, which draws its ΔW in the same launch."""
