@@ -13,20 +13,22 @@ non-zero and the final result line is never printed):
    ``brownian_increment`` — against its plain PyTorch version on the card,
    in float32 and float64, at KERNEL_SHAPES (d in {1, 3, 16, 17}, B in {1,
    64, 1024}, the training path's one-key draws, 1 row of B·17, and the
-   SDE-GAN's, 1 row of B·4): bitwise (max |Δ| must be 0); and
-   ``rev_heun_phase2`` and ``rev_heun_bwd_phase1`` on contiguous views 1,
-   2 and 3 elements into a flat buffer (off a 16-byte boundary), bitwise
+   SDE-GAN's, 1 row of B·4): bitwise (max |Δ| must be 0); and the four
+   one-pass kernels, ``rev_heun_phase1`` (both signs), ``rev_heun_phase2``,
+   ``rev_heun_bwd_phase1`` and ``rev_heun_bwd_phase2``, on contiguous views
+   1, 2 and 3 elements into a flat buffer (off a 16-byte boundary), bitwise
    the contiguous copies' result and the plain version's.
    Times each with CUDA events beside the plain version at the shapes the
    main paths give it: the training state (B in {64, 1024}, d = 17) and
    the serving bucket (B = 1024, d = 16).  Then the card's launch floor:
    an empty kernel (``torch.cuda._sleep(0)``) timed back to back the same
    way.  Then a CUDA graph of ``fused_mlp`` → ``rev_heun_phase2`` →
-   ``brownian_increment`` → ``rev_heun_phase1_gen`` →
-   ``rev_heun_bwd_phase1`` (the last four launched as programmatic
-   dependent launches, each reading its predecessor's output) captured,
-   replayed bitwise the eager calls, and its programmatic edges counted:
-   whether capture kept the dependent launches.
+   ``brownian_increment`` → ``rev_heun_phase1_gen`` → ``rev_heun_phase1``
+   (sign −1) → ``rev_heun_bwd_phase1`` → ``rev_heun_bwd_phase2`` (the last
+   six launched as programmatic dependent launches, each reading an
+   earlier stage's output) captured, replayed bitwise the eager calls, and
+   its programmatic edges counted: whether capture kept the dependent
+   launches.
 3b. (Run right after 3.)  ``fused_mlp`` (every depth-1 SDE field: Linear
    → LipSwish → Linear) against its plain version in float32 (2e-5),
    bfloat16 (6e-2) and float64 (1e-12) at every field shape of the ELBO,
@@ -331,11 +333,13 @@ Each phase's wall is printed as a ``[phase] <name>: <s> s`` line as it ends.
    ``posterior_decode_launches``: one 1024-row posterior decode's; ``ptxas``: the registers,
    shared memory and spills of ``brownian_value``, the float32 attention,
    ``ssd_chunk``, ``fused_mlp_bwd``, ``fused_mlp``'s 17 → 32 → 16
-   instantiations, the two space-time kernels and the four dependent
+   instantiations, the two space-time kernels and the six dependent
    launches, ``brownian_increment``, ``rev_heun_phase2``,
-   ``rev_heun_phase1_gen`` and ``rev_heun_bwd_phase1``, compiled once more
-   with ``-Xptxas -v`` in the background; ``dependent_launch_graph`` on
-   those last four: phase 3's graph check) and, last, the result line
+   ``rev_heun_phase1_gen``, ``rev_heun_phase1``, ``rev_heun_bwd_phase1``
+   and ``rev_heun_bwd_phase2``, compiled once more with ``-Xptxas -v`` in
+   the background, the last six checked free of spills;
+   ``dependent_launch_graph`` on those six: phase 3's graph check) and,
+   last, the result line
    ``{"ok": true, "device":
    {...}}``.
 
@@ -350,16 +354,19 @@ and ``space_time_value`` (ST_MARKS, PARENT_ST_MARKS);
 ``kernels_in_turns(parent_root)`` (not run by ``main``) times those two
 kernels and the rev_heun kernels through the port's launchers with the
 parent tree's build of the kernels and with this one's, in turns, their
-outputs bitwise alike: ``brownian_increment``, ``rev_heun_phase2``,
-``rev_heun_phase1_gen`` (both signs) and ``rev_heun_bwd_phase1`` alone and
-in path order (behind ``fused_mlp``, ``rev_heun_phase2`` and
-``rev_heun_phase1``, as the main path orders them), ``rev_heun_phase1``
-and ``rev_heun_bwd_phase2`` alone, and each rev_heun kernel's device span
-on an idle card (``span_us``: what a launch of the eager training step
-costs); ``source_variants`` (neither) times text edits of a kernel's
-source (FWD_VARIANTS, ST_VARIANTS, GEN_VARIANTS) back to back and by
-their spans; ``rev_heun_launcher_costs``
-(neither) those two launchers' host cost, piece by piece;
+outputs bitwise alike: the six rev_heun kernels alone and in path order
+(``brownian_increment`` and ``rev_heun_phase2`` behind ``fused_mlp``,
+``rev_heun_phase1_gen`` (both signs) behind ``rev_heun_phase2``,
+``rev_heun_phase1`` behind ``rev_heun_phase2`` at sign −1,
+``rev_heun_bwd_phase1`` behind ``rev_heun_phase1`` and
+``rev_heun_bwd_phase2`` behind an add, as the main path orders them), and
+each one's device span on an idle card (``span_us``: what a launch of the
+eager training step costs); ``path_predecessors`` (neither) reads that
+order from a profiled ELBO step; ``source_variants`` (neither) times
+text edits of a kernel's source (FWD_VARIANTS, ST_VARIANTS,
+GEN_VARIANTS) back to back and by their spans;
+``rev_heun_launcher_costs`` (neither) two launchers' host cost, piece by
+piece;
 ``chunk_in_turns(parent_root)`` (neither) phase 8b's 1024-row chunk graph
 (busy, idle, wall of a replay) there and here, in turns.
 ``drain_in_turns(parent_root)`` (neither) times phase 10's
@@ -726,18 +733,23 @@ def span_us(fn, n: int = 100) -> float:
     calls, each followed by a synchronise (so no launch queues behind
     another, as in the eager training step, whose host issues slower than
     the card runs), under torch.profiler; the mean span of the device
-    events it recorded (it may drop a few)."""
+    events it recorded (it may drop a few, and a whole profile now and
+    then: up to three profiles are taken)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-            torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    events = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+                torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+        if events:
+            break
     check(bool(events), "span_us: the profiler recorded no device events")
     return sum(_device_us(e) for e in events) / sum(e.count for e in events)
 
@@ -798,21 +810,27 @@ def _kernel_calls(ops, keys, st, d, dtype):
 # single key over the (B, 17) state) and the SDE-GAN's (one row of B·4).
 KERNEL_SHAPES = [(1, 1), (1, 3), (1, 16), (1, 17), (64, 17), (1024, 16), (1024, 17),
                  (1, 64 * 17), (1, 1024 * 17), (1, 128 * 4), (1, 1024 * 4)]
-# rev_heun_phase2 and rev_heun_bwd_phase1 on contiguous views this many
-# elements into a flat buffer (off a 16-byte boundary: the kernels'
+# The one-pass kernels on contiguous views this many elements into a flat
+# buffer (off a 16-byte boundary: rev_heun_phase2's and rev_heun_bwd_phase1's
 # element-a-thread path)
 VIEW_OFFSETS = (1, 2, 3)
 
 
 def _view_checks(ops, g, dev, dtype, rows, d):
-    """rev_heun_phase2 and rev_heun_bwd_phase1 on views at VIEW_OFFSETS of
-    flat buffers against the same values as contiguous copies and the plain
-    version: bitwise, or raise."""
+    """The four one-pass kernels (rev_heun_phase1 at both signs,
+    rev_heun_phase2, rev_heun_bwd_phase1, rev_heun_bwd_phase2) on views at
+    VIEW_OFFSETS of flat buffers against the same values as contiguous
+    copies and the plain version: bitwise, or raise."""
     n = rows * d
-    calls = {"rev_heun_phase2": (6, lambda uk, *v: (ops.rev_heun_phase2(
-                 *v, 1.0 / 23, -1.0, use_kernel=uk),)),
+    dt = 1.0 / 23
+    calls = {"rev_heun_phase1": (5, lambda uk, *v: tuple(ops.rev_heun_phase1(
+                 *v, dt, sign, use_kernel=uk) for sign in (1.0, -1.0))),
+             "rev_heun_phase2": (6, lambda uk, *v: (ops.rev_heun_phase2(
+                 *v, dt, -1.0, use_kernel=uk),)),
              "rev_heun_bwd_phase1": (4, lambda uk, *v: ops.rev_heun_bwd_phase1(
-                 *v, 1.0 / 23, use_kernel=uk))}
+                 *v, dt, use_kernel=uk)),
+             "rev_heun_bwd_phase2": (3, lambda uk, *v: ops.rev_heun_bwd_phase2(
+                 *v, dt, use_kernel=uk))}
     for name, (k, call) in calls.items():
         for off in VIEW_OFFSETS:
             flat = [torch.randn(n + off, generator=g, dtype=dtype).to(dev) for _ in range(k)]
@@ -858,8 +876,9 @@ def kernel_checks(ops, dev) -> tuple:
                       f"{name} {dtype} rows={rows} d={d}: kernel != plain (max |Δ| {err})")
                 errs[name] = max(errs[name], err)
     print("bitwise: 6 kernels x {float32, float64} x (rows, d) in "
-          f"{shapes}: kernel == plain; rev_heun_phase2 and rev_heun_bwd_phase1 on views "
-          f"at offsets {VIEW_OFFSETS}: == the contiguous copies' result", flush=True)
+          f"{shapes}: kernel == plain; rev_heun_phase1 (both signs), rev_heun_phase2, "
+          f"rev_heun_bwd_phase1 and rev_heun_bwd_phase2 on views at offsets "
+          f"{VIEW_OFFSETS}: == the contiguous copies' result", flush=True)
 
     rows = {}
     print("kernel                dtype    B     d   kernel_ms (host)     "
@@ -894,11 +913,19 @@ def kernel_checks(ops, dev) -> tuple:
 DEPENDENT_KERNELS = {"brownian_increment": "brownian_increment_kernel",
                      "rev_heun_phase2": "rev_heun_phase2_kernel",
                      "rev_heun_phase1_gen": "phase1_gen_kernel",
-                     "rev_heun_bwd_phase1": "bwd_phase1_kernel"}
+                     "rev_heun_phase1": "phase1_kernel",
+                     "rev_heun_bwd_phase1": "bwd_phase1_kernel",
+                     "rev_heun_bwd_phase2": "bwd_phase2_kernel"}
 # The stages of _pdl_chain, in launch order; every one after fused_mlp is a
-# programmatic dependent launch that reads its predecessor's output.
+# programmatic dependent launch that reads an earlier stage's output.
 PDL_CHAIN = ("fused_mlp", "rev_heun_phase2", "brownian_increment", "rev_heun_phase1_gen",
-             "rev_heun_bwd_phase1")
+             "rev_heun_phase1", "rev_heun_bwd_phase1", "rev_heun_bwd_phase2")
+
+
+def _mangled(func: str) -> str:
+    """The piece of a mangled name that names the device function ``func``
+    and no other (``phase1_kernel`` is a suffix of ``bwd_phase1_kernel``)."""
+    return f"{len(func)}{func}I"
 
 
 def _pdl_chain(ops, dev, rows: int = 1024):
@@ -906,22 +933,27 @@ def _pdl_chain(ops, dev, rows: int = 1024):
     16), ``rev_heun_phase2`` on a rows × 16 state consuming its σ′, the
     next step's ``brownian_increment`` (per-row keys), then
     ``rev_heun_phase1_gen`` on phase 2's z₁ with that increment as its σ,
-    and ``rev_heun_bwd_phase1`` seeded with its ẑ₁ and ΔW, float32 — the
-    serving step's order, then the forward's and the backward's, each
-    launch after ``fused_mlp`` a programmatic dependent launch behind the
-    kernel whose output it reads (PDL_CHAIN)."""
+    ``rev_heun_phase1`` at sign -1 on that z₁ and phase1_gen's ẑ₁ and ΔW,
+    ``rev_heun_bwd_phase1`` seeded with its output, and
+    ``rev_heun_bwd_phase2`` taking bwd_phase1's first output as its ĝ,
+    float32 — the serving step's order, then the forward's and the
+    backward's, each launch after ``fused_mlp`` a programmatic dependent
+    launch behind the kernel before it (PDL_CHAIN)."""
     g = torch.Generator().manual_seed(28)
     x, *w = _mlp_operands(g, dev, torch.float32, rows, 17, 32, 16)
     keys = torch.randint(0, 2 ** 32, (rows, 2), generator=g, dtype=torch.int64).to(dev)
     z, zh, mu, mu1, sigma, dw = (torch.randn(rows, 16, generator=g).to(dev) for _ in range(6))
+    dt = 1.0 / 32
 
     def chain():
         sigma1 = ops.fused_mlp(x, *w)
-        z1 = ops.rev_heun_phase2(z, mu, mu1, sigma, sigma1, dw, 1.0 / 32)
-        inc = ops.brownian_increment(keys, 3, (16,), torch.float32, 1.0 / 32)
-        zh1, dw1 = ops.rev_heun_phase1_gen(z1, zh, mu, inc, keys, 4, 1.0 / 32, 1.0 / 32)
-        return (sigma1, z1, inc, zh1, dw1,
-                *ops.rev_heun_bwd_phase1(zh1, mu1, sigma1, dw1, 1.0 / 32))
+        z1 = ops.rev_heun_phase2(z, mu, mu1, sigma, sigma1, dw, dt)
+        inc = ops.brownian_increment(keys, 3, (16,), torch.float32, dt)
+        zh1, dw1 = ops.rev_heun_phase1_gen(z1, zh, mu, inc, keys, 4, dt, dt)
+        zr = ops.rev_heun_phase1(z1, zh1, mu, sigma, dw1, dt, -1.0)
+        seeds = ops.rev_heun_bwd_phase1(zr, mu1, sigma1, dw1, dt)
+        return (sigma1, z1, inc, zh1, dw1, zr, *seeds,
+                *ops.rev_heun_bwd_phase2(zr, seeds[0], dw1, dt))
     return chain
 
 
@@ -929,7 +961,7 @@ def pdl_graph_checks(ops, dev) -> dict:
     """Phase 3's graph check: ``_pdl_chain`` captured as one CUDA graph
     (``keep_graph``, so its edges can be read) and replayed, bitwise the
     eager calls; its programmatic-dependency edges counted, which says
-    whether stream capture kept the dependent launches (4: all kept)."""
+    whether stream capture kept the dependent launches (6: all kept)."""
     from repro_torch.kernels import brownian as bk
 
     chain = _pdl_chain(ops, dev)
@@ -2762,11 +2794,11 @@ def _rev_cases(ops, g, dev) -> tuple:
     the GAN solve its draws); ``rev_heun_phase1_gen`` follows
     ``rev_heun_phase2`` (the forward's order; sign +1 and, at the training
     shapes, -1, the reconstruction's draw); ``rev_heun_bwd_phase1`` follows
-    ``rev_heun_phase1`` (the backward's ``_fused_local_vjp``).
-    ``rev_heun_phase1`` and ``rev_heun_bwd_phase2``, whose device code no
-    redesign has changed yet, run alone at the training shapes: parent and
-    this tree build the same kernel, so their pair is the method's
-    control."""
+    ``rev_heun_phase1`` (the backward's ``_fused_local_vjp``), and, at the
+    training shapes, ``rev_heun_phase1`` follows ``rev_heun_phase2`` at sign
+    -1 (the reconstruction) and ``rev_heun_bwd_phase2`` the field VJP's last
+    kernel, autograd's sum of ẑ₁'s gradients (a ``CUDAFunctor_add``, as
+    ``path_predecessors`` reads the ELBO step)."""
     alone, path, before = {}, {}, {}
     for tag, dtype, B, d in REV_TIMED:
         for name, (call, pred, pred_name) in _rev_kernels(ops, g, dev, dtype, B, d).items():
@@ -2801,6 +2833,9 @@ def _rev_kernels(ops, g, dev, dtype, B: int, d: int) -> dict:
     def phase1():
         return ops.rev_heun_phase1(z, zh, mu, sg, dw, dt)
 
+    def reconstruction():  # the backward's rev_heun_phase2 at sign -1
+        return ops.rev_heun_phase2(*st[:6], dt, -1.0)
+
     kernels = {
         "rev_heun_phase2": (phase2, field, "fused_mlp"),
         "brownian_increment": (lambda: ops.brownian_increment(keys, 7, shape, dtype, dt),
@@ -2812,10 +2847,42 @@ def _rev_kernels(ops, g, dev, dtype, B: int, d: int) -> dict:
             lambda sign=sign: ops.rev_heun_phase1_gen(z, zh, mu, sg, gen_keys, 7, dt, dt, sign),
             phase2, "rev_heun_phase2")
     if train:
-        kernels["rev_heun_phase1"] = (phase1, None, None)
+        kernels["rev_heun_phase1"] = (phase1, reconstruction, "rev_heun_phase2 sign -1")
+        # the field VJP's last kernel: autograd's sum of ẑ₁'s gradients
         kernels["rev_heun_bwd_phase2"] = (lambda: ops.rev_heun_bwd_phase2(z, zh, dw, dt),
-                                          None, None)
+                                          lambda: torch.add(mu1, sg1), "add (CUDAFunctor_add)")
     return kernels
+
+
+def path_predecessors(dev, batch: int = 64, funcs=("phase1_kernel", "bwd_phase2_kernel"),
+                      before: int = 3) -> dict:
+    """Which device kernels run just before each of ``funcs`` on the main
+    path: one fused ELBO step at ``batch`` (``_train_step``) under
+    torch.profiler, its device events in start order; for each launch of a
+    function, the names of the ``before`` kernels before it, counted.
+    ``{func: {"k-th before": {name: count}}}``, printed."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run = _train_step(dev, batch)
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    names = [e.name for e in sorted((e for e in prof.events()
+                                     if e.device_type == DeviceType.CUDA),
+                                    key=lambda e: e.time_range.start)]
+    out = {}
+    for func in funcs:
+        at = [i for i, n in enumerate(names) if "::" + func + "<" in n]
+        out[func] = {f"{k}-th before": dict(collections.Counter(
+            names[i - k] for i in at if i >= k)) for k in range(1, before + 1)}
+        out[func]["launches"] = len(at)
+        print(f"path predecessors of {func} (ELBO step B {batch}): "
+              f"{json.dumps(out[func])}", flush=True)
+    print(f"card: {gpu_label()}", flush=True)
+    return out
 
 
 def _flat(out) -> list:
@@ -5105,8 +5172,7 @@ def ssm_train_checks(ops, dev, label: str) -> None:
 PTXAS_SOURCES = ("rev_heun", "flash_attention", "ssd_chunk", "fused_mlp")
 PTXAS_KERNELS = ("brownian_value_kernel", "flash_attention_f32", "ssd_chunk_kernel",
                  "fused_mlp_bwd_kernel", "fused_mlp_fixed", "space_time_increment_kernel",
-                 "space_time_value_kernel", "brownian_increment_kernel",
-                 "rev_heun_phase2_kernel", "phase1_gen_kernel", "bwd_phase1_kernel")
+                 "space_time_value_kernel", *DEPENDENT_KERNELS.values())
 
 
 def start_ptxas_report():
@@ -5143,6 +5209,17 @@ def ptxas_report(started) -> dict:
     for func, lines in usage.items():
         print(f"ptxas {func[:80]}: {'; '.join(lines)}", flush=True)
     return usage
+
+
+def check_no_spills(usage: dict, funcs) -> None:
+    """Every instantiation of each device function in ``funcs`` compiled,
+    and ptxas reports no spill stores or loads for it, or raise."""
+    for func in funcs:
+        lines = [line for k, v in usage.items() if _mangled(func) in k for line in v]
+        check(any("spill" in line for line in lines), f"ptxas reported nothing for {func}")
+        check(all("0 bytes spill stores, 0 bytes spill loads" in line
+                  for line in lines if "spill" in line), f"ptxas: {func} spills: {lines}")
+    print(f"ptxas: no spills in {', '.join(funcs)}", flush=True)
 
 
 def _device_us(evt) -> float:
@@ -5273,6 +5350,7 @@ def main() -> int:
     train_lm_launches = timed("lm train", lm_train_checks, ops, dev, label)
     timed("ssm train", ssm_train_checks, ops, dev, label)
     ptxas_usage = ptxas_report(ptxas)
+    check_no_spills(ptxas_usage, DEPENDENT_KERNELS.values())
 
     print(f"kernels: {', '.join(KERNEL_SOURCES)} (route cuda; bitwise = plain except "
           f"flash_attention, within {ATTN_TOL}, ssd_chunk, within {SSD_TOL} and the "
@@ -5371,7 +5449,7 @@ def main() -> int:
             if name in DEPENDENT_KERNELS:
                 extra["dependent_launch_graph"] = pdl
                 extra["ptxas"] = {k: v for k, v in ptxas_usage.items()
-                                  if DEPENDENT_KERNELS[name] in k}
+                                  if _mangled(DEPENDENT_KERNELS[name]) in k}
         entries.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches, "max_abs_err": errs[name],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

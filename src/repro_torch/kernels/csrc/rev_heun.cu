@@ -27,8 +27,7 @@
 // increment never goes through device memory between generation and use in
 // rev_heun_phase1_gen.  Step size and sign are runtime scalars, so one
 // compiled kernel serves every step size and both directions (forward +1,
-// reconstruction -1).  rev_heun_phase1 and rev_heun_bwd_phase2 run one
-// thread per element in a grid-stride loop.
+// reconstruction -1).
 //
 // Bound.  The non-drawing kernels move 6 (phase 1, bwd phase 1) or 7
 // (phase 2, bwd phase 2) state-sized tensors and do a handful of flops per
@@ -40,10 +39,9 @@
 // chain: key load -> fold_in (20 rounds) -> the pair's hash -> erf_inv ->
 // store.
 //
-// brownian_increment, rev_heun_phase1_gen, rev_heun_phase2 and
-// rev_heun_bwd_phase1 are laid out for that: launch and chain, not bytes or
-// operations.
-//   * All four launch through launch_dependent (a programmatic dependent
+// All six elementwise and drawing kernels are laid out for that: launch and
+// chain, not bytes or operations.
+//   * All six launch through launch_dependent (a programmatic dependent
 //     launch, sm_90): the kernel is scheduled while its predecessor's blocks
 //     drain, runs its index arithmetic and scalar setup, and then waits in
 //     griddepcontrol.wait until the predecessor's memory is visible.  Every
@@ -69,6 +67,14 @@
 //     (a contiguous view off a 16-byte boundary: a slice of g_out, a 1 x 17
 //     state) a thread an element.  At B 1024 in float32: 4,352 threads in 17
 //     blocks.
+//   * rev_heun_phase1 and rev_heun_bwd_phase2 are one pass of one element a
+//     thread on every operand layout (17,408 threads in 68 blocks at B 1024
+//     in float32): with the packs of the two above they spanned 0.10-0.21 us
+//     more on an idle card and ran slower back to back, so they have no pack
+//     path.
+//   Each computes through one element helper (phase1_elem, phase2_elem,
+//   bwd_phase1_elem, bwd_phase2_elem), so a formula is written once in the
+//   file.
 // Every element keeps the plain version's op order, so each gives its bits.
 //
 // brownian_value (the adaptive loop's point query W(t) - W(t0)) is
@@ -223,18 +229,18 @@ phase1_gen_kernel(const T* __restrict__ z, const T* __restrict__ zh,
 
 // ẑ₁ = 2z − ẑ + μ·(sign·Δt) + (sign·σ)·ΔW, with ΔW given.
 // Replaces _phase1_kernel (src/repro/kernels/reversible_heun_step.py:66).
-// Bound: 6 state-sized tensors through HBM (5 read, 1 written).
+// Bound: 6 state-sized tensors through HBM (5 read, 1 written).  Thread t
+// takes element t.
 template <typename T>
-__global__ void phase1_kernel(const T* __restrict__ z, const T* __restrict__ zh,
-                              const T* __restrict__ mu, const T* __restrict__ sigma,
-                              const T* __restrict__ dw, T dt, T sign,
-                              T* __restrict__ zh1, int64_t total) {
+__global__ void __launch_bounds__(kThreads)
+phase1_kernel(const T* __restrict__ z, const T* __restrict__ zh, const T* __restrict__ mu,
+              const T* __restrict__ sigma, const T* __restrict__ dw, T dt, T sign,
+              T* __restrict__ zh1, int64_t total) {
   const T sdt = mul(sign, dt);
-  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       e < total; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const T a = sub(mul(T(2), z[e]), zh[e]);
-    zh1[e] = add(add(a, mul(mu[e], sdt)), mul(mul(sign, sigma[e]), dw[e]));
-  }
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  release_dependents();
+  wait_for_predecessor();
+  if (e < total) zh1[e] = phase1_elem(z[e], zh[e], mu[e], sigma[e], dw[e], sdt, sign);
 }
 
 // z₁ = z + (sign·½Δt)(μ+μ′) + (sign·½)(σ+σ′)ΔW, element e.
@@ -338,24 +344,30 @@ bwd_phase1_kernel(const T* __restrict__ g_z1, const T* __restrict__ g_mu1,
   }
 }
 
-// Step-n cotangents from ĝ (the total ẑ₁ cotangent):
+// Step-n cotangents of one element from ĝ (the total ẑ₁ cotangent):
 // d_z = ḡ_z1 + 2ĝ, d_zh = −ĝ, d_μ = ½(ḡ_z1·Δt) + ĝΔt, d_σ = ½(ḡ_z1·ΔW) + ĝΔW.
-// Replaces _bwd_phase2_kernel (src/repro/kernels/reversible_heun_step.py:94).
-// Bound: 7 state-sized tensors through HBM (3 read, 4 written).
 template <typename T>
-__global__ void bwd_phase2_kernel(const T* __restrict__ g_z1, const T* __restrict__ ghat,
-                                  const T* __restrict__ dw, T dt, T* __restrict__ d_z,
-                                  T* __restrict__ d_zh, T* __restrict__ d_mu,
-                                  T* __restrict__ d_sigma, int64_t total) {
-  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       e < total; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const T g = g_z1[e];
-    const T h = ghat[e];
-    const T w = dw[e];
-    d_z[e] = add(g, mul(T(2), h));
-    d_zh[e] = -h;
-    d_mu[e] = add(mul(T(0.5), mul(g, dt)), mul(h, dt));
-    d_sigma[e] = add(mul(T(0.5), mul(g, w)), mul(h, w));
+__device__ __forceinline__ void bwd_phase2_elem(T g, T h, T w, T dt, T& d_z, T& d_zh, T& d_mu,
+                                                T& d_sigma) {
+  d_z = add(g, mul(T(2), h));
+  d_zh = -h;
+  d_mu = add(mul(T(0.5), mul(g, dt)), mul(h, dt));
+  d_sigma = add(mul(T(0.5), mul(g, w)), mul(h, w));
+}
+
+// Replaces _bwd_phase2_kernel (src/repro/kernels/reversible_heun_step.py:94).
+// Bound: 7 state-sized tensors through HBM (3 read, 4 written).  Thread t
+// takes element t.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bwd_phase2_kernel(const T* __restrict__ g_z1, const T* __restrict__ ghat,
+                  const T* __restrict__ dw, T dt, T* __restrict__ d_z, T* __restrict__ d_zh,
+                  T* __restrict__ d_mu, T* __restrict__ d_sigma, int64_t total) {
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  release_dependents();
+  wait_for_predecessor();
+  if (e < total) {
+    bwd_phase2_elem(g_z1[e], ghat[e], dw[e], dt, d_z[e], d_zh[e], d_mu[e], d_sigma[e]);
   }
 }
 
@@ -1011,6 +1023,27 @@ cudaError_t launch_bwd_phase1(const void* g_z1, const void* g_mu1, const void* g
                           static_cast<T*>(c_sig1), total);
 }
 
+template <typename T>
+cudaError_t launch_phase1(const void* z, const void* zh, const void* mu, const void* sigma,
+                          const void* dw, double dt, double sign, void* zh1, int64_t total,
+                          cudaStream_t s) {
+  const auto in = [](const void* p) { return static_cast<const T*>(p); };
+  return launch_dependent(phase1_kernel<T>, (total + kThreads - 1) / kThreads, s, in(z),
+                          in(zh), in(mu), in(sigma), in(dw), static_cast<T>(dt),
+                          static_cast<T>(sign), static_cast<T*>(zh1), total);
+}
+
+template <typename T>
+cudaError_t launch_bwd_phase2(const void* g_z1, const void* ghat, const void* dw, double dt,
+                              void* d_z, void* d_zh, void* d_mu, void* d_sigma, int64_t total,
+                              cudaStream_t s) {
+  const auto in = [](const void* p) { return static_cast<const T*>(p); };
+  return launch_dependent(bwd_phase2_kernel<T>, (total + kThreads - 1) / kThreads, s,
+                          in(g_z1), in(ghat), in(dw), static_cast<T>(dt), static_cast<T*>(d_z),
+                          static_cast<T*>(d_zh), static_cast<T*>(d_mu),
+                          static_cast<T*>(d_sigma), total);
+}
+
 }  // namespace repro_torch
 
 using repro_torch::blocks_for;
@@ -1125,22 +1158,13 @@ extern "C" int rt_rev_heun_phase2(int dtype, const void* z, const void* mu,
 extern "C" int rt_rev_heun_phase1(int dtype, const void* z, const void* zh, const void* mu,
                                   const void* sigma, const void* dw, double dt, double sign,
                                   void* zh1, int64_t total, void* stream) {
+  if (total <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (total > 0) {
-    if (dtype == 0) {
-      repro_torch::phase1_kernel<float><<<blocks_for(total), kThreads, 0, s>>>(
-          static_cast<const float*>(z), static_cast<const float*>(zh),
-          static_cast<const float*>(mu), static_cast<const float*>(sigma),
-          static_cast<const float*>(dw), static_cast<float>(dt), static_cast<float>(sign),
-          static_cast<float*>(zh1), total);
-    } else {
-      repro_torch::phase1_kernel<double><<<blocks_for(total), kThreads, 0, s>>>(
-          static_cast<const double*>(z), static_cast<const double*>(zh),
-          static_cast<const double*>(mu), static_cast<const double*>(sigma),
-          static_cast<const double*>(dw), dt, sign, static_cast<double*>(zh1), total);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err =
+      dtype == 0 ? repro_torch::launch_phase1<float>(z, zh, mu, sigma, dw, dt, sign, zh1, total, s)
+                 : repro_torch::launch_phase1<double>(z, zh, mu, sigma, dw, dt, sign, zh1, total,
+                                                      s);
+  return static_cast<int>(err);
 }
 
 extern "C" int rt_rev_heun_bwd_phase1(int dtype, const void* g_z1, const void* g_mu1,
@@ -1161,23 +1185,14 @@ extern "C" int rt_rev_heun_bwd_phase2(int dtype, const void* g_z1, const void* g
                                       const void* dw, double dt, void* d_z, void* d_zh,
                                       void* d_mu, void* d_sigma, int64_t total,
                                       void* stream) {
+  if (total <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (total > 0) {
-    if (dtype == 0) {
-      repro_torch::bwd_phase2_kernel<float><<<blocks_for(total), kThreads, 0, s>>>(
-          static_cast<const float*>(g_z1), static_cast<const float*>(ghat),
-          static_cast<const float*>(dw), static_cast<float>(dt), static_cast<float*>(d_z),
-          static_cast<float*>(d_zh), static_cast<float*>(d_mu), static_cast<float*>(d_sigma),
-          total);
-    } else {
-      repro_torch::bwd_phase2_kernel<double><<<blocks_for(total), kThreads, 0, s>>>(
-          static_cast<const double*>(g_z1), static_cast<const double*>(ghat),
-          static_cast<const double*>(dw), dt, static_cast<double*>(d_z),
-          static_cast<double*>(d_zh), static_cast<double*>(d_mu),
-          static_cast<double*>(d_sigma), total);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err =
+      dtype == 0 ? repro_torch::launch_bwd_phase2<float>(g_z1, ghat, dw, dt, d_z, d_zh, d_mu,
+                                                         d_sigma, total, s)
+                 : repro_torch::launch_bwd_phase2<double>(g_z1, ghat, dw, dt, d_z, d_zh, d_mu,
+                                                          d_sigma, total, s);
+  return static_cast<int>(err);
 }
 
 extern "C" int rt_brownian_value(int dtype, const int64_t* keys, const void* t,

@@ -35,12 +35,12 @@ at every width chip_smoke.py checks; the serving registry's CUDA graphs:
 a replayed chunk bitwise the eager chunk at buckets 1, 64 and 1024, its
 recorded launches, and an eviction that frees the graph's bytes and a
 rebuild that gives its bits; ``brownian_increment``,
-``rev_heun_phase2``, ``rev_heun_phase1_gen`` and ``rev_heun_bwd_phase1``
-(programmatic dependent launches) bitwise their plain versions at
-REDESIGN_SHAPES and from launch to launch, the two one-pass kernels on
-views off 16-byte boundaries, the four replayed in a captured graph behind
-``fused_mlp``, and the increment's index helper on its 32- and 64-bit
-paths.
+``rev_heun_phase2``, ``rev_heun_phase1_gen``, ``rev_heun_phase1``,
+``rev_heun_bwd_phase1`` and ``rev_heun_bwd_phase2`` (programmatic dependent
+launches) bitwise their plain versions at REDESIGN_SHAPES and from launch
+to launch, the four one-pass kernels on views off 16-byte boundaries, the
+six replayed in a captured graph behind ``fused_mlp``, and the increment's
+index helper on its 32- and 64-bit paths.
 
 These need an NVIDIA GPU with nvcc (the kernels have no CPU mode); each test
 skips without one.  On the GPU machine::
@@ -82,10 +82,10 @@ def _inputs(cuda, dtype, B, d, seed=0):
     return keys, st
 
 
-# rev_heun_phase2, rev_heun_phase1_gen, rev_heun_bwd_phase1 and
-# brownian_increment at one element, odd sizes (the last counter pair's zero
-# pad), the training state, the serving bucket and the training path's
-# one-key draws (one row of B·17)
+# the six dependent launches (rev_heun_phase1 and rev_heun_bwd_phase2 in
+# test_training_kernels_bitwise_equal_plain_versions) at one element, odd
+# sizes (the last counter pair's zero pad), the training state, the serving
+# bucket and the training path's one-key draws (one row of B·17)
 REDESIGN_SHAPES = [(1, 1), (1, 3), (1, 17), (64, 17), (1024, 16), (1024, 17), (1, 1088),
                    (1, 17408)]
 
@@ -120,26 +120,36 @@ def test_kernels_bitwise_equal_plain_versions(cuda, dtype, B, d):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("B,d", [(1, 16), (64, 17), (1024, 17)])
+@pytest.mark.parametrize("B,d", [(1, 16)] + REDESIGN_SHAPES)
 def test_training_kernels_bitwise_equal_plain_versions(cuda, dtype, B, d):
+    """The backward's kernels bitwise their plain versions; the dependent
+    launches of ``rev_heun_phase1`` (both signs) and ``rev_heun_bwd_phase2``
+    also alike from launch to launch."""
     _, (z, zh, mu, sg, mu1, sg1, dw) = _inputs(cuda, dtype, B, d, seed=1)
     for sign in (1.0, -1.0):
-        assert torch.equal(ops.rev_heun_phase1(z, zh, mu, sg, dw, 1 / 23, sign),
-                           ops.rev_heun_phase1(z, zh, mu, sg, dw, 1 / 23, sign,
-                                               use_kernel=False))
+        got = ops.rev_heun_phase1(z, zh, mu, sg, dw, 1 / 23, sign)
+        assert torch.equal(got, ops.rev_heun_phase1(z, zh, mu, sg, dw, 1 / 23, sign,
+                                                    use_kernel=False))
+        assert torch.equal(got, ops.rev_heun_phase1(z, zh, mu, sg, dw, 1 / 23, sign))
     for got, want in zip(ops.rev_heun_bwd_phase1(z, zh, mu, dw, 1 / 23),
                          ops.rev_heun_bwd_phase1(z, zh, mu, dw, 1 / 23, use_kernel=False)):
         assert torch.equal(got, want)
-    for got, want in zip(ops.rev_heun_bwd_phase2(z, zh, dw, 1 / 23),
-                         ops.rev_heun_bwd_phase2(z, zh, dw, 1 / 23, use_kernel=False)):
-        assert torch.equal(got, want)
+    for got, want, again in zip(ops.rev_heun_bwd_phase2(z, zh, dw, 1 / 23),
+                                ops.rev_heun_bwd_phase2(z, zh, dw, 1 / 23, use_kernel=False),
+                                ops.rev_heun_bwd_phase2(z, zh, dw, 1 / 23)):
+        assert torch.equal(got, want) and torch.equal(got, again)
 
 
 # the one-pass kernels: (operands, call(use_kernel, *operands) -> outputs)
 VIEW_KERNELS = {
+    "rev_heun_phase1": (5, lambda uk, *v: tuple(ops.rev_heun_phase1(*v, 1 / 23, sign,
+                                                                    use_kernel=uk)
+                                                for sign in (1.0, -1.0))),
     "rev_heun_phase2": (6, lambda uk, *v: (ops.rev_heun_phase2(*v, 1 / 23, -1.0,
                                                                use_kernel=uk),)),
     "rev_heun_bwd_phase1": (4, lambda uk, *v: ops.rev_heun_bwd_phase1(*v, 1 / 23,
+                                                                      use_kernel=uk)),
+    "rev_heun_bwd_phase2": (3, lambda uk, *v: ops.rev_heun_bwd_phase2(*v, 1 / 23,
                                                                       use_kernel=uk)),
 }
 
@@ -148,10 +158,10 @@ VIEW_KERNELS = {
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("offset", [1, 2, 3])
 def test_rev_heun_phase2_reads_views_off_16_byte_boundaries(cuda, dtype, offset, kernel):
-    """Contiguous views ``offset`` elements into flat buffers (the
-    element-a-thread path of ``rev_heun_phase2`` and ``rev_heun_bwd_phase1``
-    where a view sits off a 16-byte boundary, as the backward's first
-    ``g_out[N]`` does) give the bits of contiguous copies and of the plain
+    """Contiguous views ``offset`` elements into flat buffers (off a 16-byte
+    boundary, as the backward's first ``g_out[N]`` is: the element-a-thread
+    path of ``rev_heun_phase2`` and ``rev_heun_bwd_phase1``, the only path of
+    the other two) give the bits of contiguous copies and of the plain
     version."""
     n, call = VIEW_KERNELS[kernel]
     g = torch.Generator().manual_seed(offset)
@@ -165,9 +175,9 @@ def test_rev_heun_phase2_reads_views_off_16_byte_boundaries(cuda, dtype, offset,
 
 def test_dependent_launches_replay_in_a_captured_graph(cuda):
     """fused_mlp -> rev_heun_phase2 -> brownian_increment ->
-    rev_heun_phase1_gen -> rev_heun_bwd_phase1, each reading its
-    predecessor's output, captured as one CUDA graph replays the eager
-    calls' bits."""
+    rev_heun_phase1_gen -> rev_heun_phase1 (sign -1) -> rev_heun_bwd_phase1
+    -> rev_heun_bwd_phase2, each reading an earlier stage's output, captured
+    as one CUDA graph replays the eager calls' bits."""
     g = torch.Generator().manual_seed(28)
     x = torch.randn(1024, 17, generator=g).to(cuda)
     w1, b1 = torch.randn(17, 32, generator=g).to(cuda), torch.randn(32, generator=g).to(cuda)
@@ -179,7 +189,10 @@ def test_dependent_launches_replay_in_a_captured_graph(cuda):
         z1 = ops.rev_heun_phase2(z, mu, mu1, sg, sg1, dw, 1 / 32)
         inc = ops.brownian_increment(keys, 3, (16,), torch.float32, 1 / 32)
         zh1, dw1 = ops.rev_heun_phase1_gen(z1, zh, mu, inc, keys, 4, 1 / 32, 1 / 32)
-        return (sg1, z1, inc, zh1, dw1, *ops.rev_heun_bwd_phase1(zh1, mu1, sg1, dw1, 1 / 32))
+        zr = ops.rev_heun_phase1(z1, zh1, mu, sg, dw1, 1 / 32, -1.0)
+        seeds = ops.rev_heun_bwd_phase1(zr, mu1, sg1, dw1, 1 / 32)
+        return (sg1, z1, inc, zh1, dw1, zr, *seeds,
+                *ops.rev_heun_bwd_phase2(zr, seeds[0], dw1, 1 / 32))
 
     want = chain()
     side = torch.cuda.Stream()
