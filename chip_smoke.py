@@ -23,10 +23,11 @@ non-zero and the final result line is never printed):
    the serving bucket (B = 1024, d = 16).  Then the card's launch floor:
    an empty kernel (``torch.cuda._sleep(0)``) timed back to back the same
    way.  Then a CUDA graph of ``fused_mlp`` → ``rev_heun_phase2`` →
-   ``brownian_increment`` → ``rev_heun_phase1_gen`` → ``rev_heun_phase1``
-   (sign −1) → ``rev_heun_bwd_phase1`` → ``rev_heun_bwd_phase2`` (the last
-   six launched as programmatic dependent launches, each reading an
-   earlier stage's output) captured, replayed bitwise the eager calls, and
+   ``brownian_increment`` → ``space_time_increment`` →
+   ``rev_heun_phase1_gen`` → ``rev_heun_phase1`` (sign −1) →
+   ``rev_heun_bwd_phase1`` → ``rev_heun_bwd_phase2`` (the last seven
+   launched as programmatic dependent launches, each reading an earlier
+   stage's output) captured, replayed bitwise the eager calls, and
    its programmatic edges counted: whether capture kept the dependent
    launches.
 3b. (Run right after 3.)  ``fused_mlp`` (every depth-1 SDE field: Linear
@@ -186,7 +187,8 @@ non-zero and the final result line is never printed):
    Brownian layer.  The two space-time kernels — ``space_time_increment``
    (the (W, H) pair of a grid step) and ``space_time_value`` (the joint
    (W, ∫W) bridge descent) — bitwise against their plain versions at rows
-   LEVY_ROWS × sizes LEVY_SIZES (and the ELBO's one key over 64 × 17),
+   LEVY_ROWS × sizes LEVY_SIZES (and LEVY_ONE_KEY: one key over the srk
+   ELBO's 64 × 17 and 1024 × 17, and over 1087),
    float32 and float64, depths LEVY_DEPTHS, at t0, t1, a dyadic and random
    times, and ``space_time_value`` at LEVY_DEEP_SIZES × LEVY_DEEP (100 and
    512 levels, past its ring of 16; a float32 descent from t0 past ~150
@@ -333,12 +335,13 @@ Each phase's wall is printed as a ``[phase] <name>: <s> s`` line as it ends.
    ``posterior_decode_launches``: one 1024-row posterior decode's; ``ptxas``: the registers,
    shared memory and spills of ``brownian_value``, the float32 attention,
    ``ssd_chunk``, ``fused_mlp_bwd``, ``fused_mlp``'s 17 → 32 → 16
-   instantiations, the two space-time kernels and the six dependent
+   instantiations, ``space_time_value`` and the seven dependent
    launches, ``brownian_increment``, ``rev_heun_phase2``,
-   ``rev_heun_phase1_gen``, ``rev_heun_phase1``, ``rev_heun_bwd_phase1``
-   and ``rev_heun_bwd_phase2``, compiled once more with ``-Xptxas -v`` in
-   the background, the last six checked free of spills;
-   ``dependent_launch_graph`` on those six: phase 3's graph check) and,
+   ``rev_heun_phase1_gen``, ``rev_heun_phase1``, ``rev_heun_bwd_phase1``,
+   ``rev_heun_bwd_phase2`` and ``space_time_increment``, compiled once
+   more with ``-Xptxas -v`` in the background, the last seven checked free
+   of spills; ``dependent_launch_graph`` on those seven: phase 3's graph
+   check) and,
    last, the result line
    ``{"ok": true, "device":
    {...}}``.
@@ -352,16 +355,17 @@ temporary directory.  ``mlp_fwd_stamps(cu_path, marks)`` and
 ``fused_mlp`` (FWD_MARKS, or PARENT_FWD_MARKS in a parent tree's source)
 and ``space_time_value`` (ST_MARKS, PARENT_ST_MARKS);
 ``kernels_in_turns(parent_root)`` (not run by ``main``) times those two
-kernels and the rev_heun kernels through the port's launchers with the
-parent tree's build of the kernels and with this one's, in turns, their
-outputs bitwise alike: the six rev_heun kernels alone and in path order
-(``brownian_increment`` and ``rev_heun_phase2`` behind ``fused_mlp``,
-``rev_heun_phase1_gen`` (both signs) behind ``rev_heun_phase2``,
-``rev_heun_phase1`` behind ``rev_heun_phase2`` at sign −1,
-``rev_heun_bwd_phase1`` behind ``rev_heun_phase1`` and
+kernels, ``space_time_increment`` and the rev_heun kernels through the
+port's launchers with the parent tree's build of the kernels and with this
+one's, in turns, their outputs bitwise alike: ``space_time_increment`` at
+ST_INCREMENT_TIMED and the six rev_heun kernels alone, the rev_heun ones
+also in path order (``brownian_increment`` and ``rev_heun_phase2`` behind
+``fused_mlp``, ``rev_heun_phase1_gen`` (both signs) behind
+``rev_heun_phase2``, ``rev_heun_phase1`` behind ``rev_heun_phase2`` at
+sign −1, ``rev_heun_bwd_phase1`` behind ``rev_heun_phase1`` and
 ``rev_heun_bwd_phase2`` behind an add, as the main path orders them), and
-each one's device span on an idle card (``span_us``: what a launch of the
-eager training step costs); ``path_predecessors`` (neither) reads that
+each one alone by its device span on an idle card (``span_us``: what a
+launch of the eager training step costs); ``path_predecessors`` (neither) reads that
 order from a profiled ELBO step; ``source_variants`` (neither) times
 text edits of a kernel's source (FWD_VARIANTS, ST_VARIANTS,
 GEN_VARIANTS) back to back and by their spans;
@@ -376,7 +380,9 @@ mamba2-1.3b's prefill there and here, in turns; ``elbo_in_turns``
 (neither) the fused ELBO step at batch 64 and 1024, the depth-10 adaptive
 gradient (walls, launches, device kernels, busy as the sum and as the
 union of the device spans) and the ``fused_mlp``
-launcher's host cost there and here, in turns; ``smoke_in_turns``
+launcher's host cost there and here, in turns; ``srk_in_turns`` (neither)
+one srk discretise ELBO step at batch 64 (wall, launches, device kernels,
+busy, idle) there and here, in turns; ``smoke_in_turns``
 (neither) the whole script there and here, one after the other.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -652,6 +658,9 @@ SRK_VARIANTS = {"srk/discretise": dict(solver="srk"),
 # space-time kernel checks (phase 11d): rows x per-row sizes x depths
 LEVY_ROWS = (1, 64, 1000, 1024)
 LEVY_SIZES = (1, 8, 17)
+# one key over the srk ELBO's draws at B 64 and 1024, and over an odd width
+# (the last counter pair's zero pad)
+LEVY_ONE_KEY = [(1, (64, 17)), (1, (1024, 17)), (1, (1087,))]
 LEVY_DEPTHS = (0, 1, 10, 24)
 # space_time_value past its ring of levels (csrc/rev_heun.cu kStRing = 16: the
 # walker waits for the combiner to free a slot)
@@ -915,11 +924,13 @@ DEPENDENT_KERNELS = {"brownian_increment": "brownian_increment_kernel",
                      "rev_heun_phase1_gen": "phase1_gen_kernel",
                      "rev_heun_phase1": "phase1_kernel",
                      "rev_heun_bwd_phase1": "bwd_phase1_kernel",
-                     "rev_heun_bwd_phase2": "bwd_phase2_kernel"}
+                     "rev_heun_bwd_phase2": "bwd_phase2_kernel",
+                     "space_time_increment": "space_time_increment_kernel"}
 # The stages of _pdl_chain, in launch order; every one after fused_mlp is a
 # programmatic dependent launch that reads an earlier stage's output.
-PDL_CHAIN = ("fused_mlp", "rev_heun_phase2", "brownian_increment", "rev_heun_phase1_gen",
-             "rev_heun_phase1", "rev_heun_bwd_phase1", "rev_heun_bwd_phase2")
+PDL_CHAIN = ("fused_mlp", "rev_heun_phase2", "brownian_increment", "space_time_increment",
+             "rev_heun_phase1_gen", "rev_heun_phase1", "rev_heun_bwd_phase1",
+             "rev_heun_bwd_phase2")
 
 
 def _mangled(func: str) -> str:
@@ -931,9 +942,10 @@ def _mangled(func: str) -> str:
 def _pdl_chain(ops, dev, rows: int = 1024):
     """``chain()``: the diffusion field (``fused_mlp``, rows × 17 -> 32 ->
     16), ``rev_heun_phase2`` on a rows × 16 state consuming its σ′, the
-    next step's ``brownian_increment`` (per-row keys), then
-    ``rev_heun_phase1_gen`` on phase 2's z₁ with that increment as its σ,
-    ``rev_heun_phase1`` at sign -1 on that z₁ and phase1_gen's ẑ₁ and ΔW,
+    next step's ``brownian_increment`` (per-row keys), the srk step's
+    ``space_time_increment`` (the same keys), then ``rev_heun_phase1_gen``
+    on phase 2's z₁ with that increment as its σ and the space-time W as
+    its μ, ``rev_heun_phase1`` at sign -1 on that z₁ and phase1_gen's ẑ₁ and ΔW,
     ``rev_heun_bwd_phase1`` seeded with its output, and
     ``rev_heun_bwd_phase2`` taking bwd_phase1's first output as its ĝ,
     float32 — the serving step's order, then the forward's and the
@@ -949,10 +961,11 @@ def _pdl_chain(ops, dev, rows: int = 1024):
         sigma1 = ops.fused_mlp(x, *w)
         z1 = ops.rev_heun_phase2(z, mu, mu1, sigma, sigma1, dw, dt)
         inc = ops.brownian_increment(keys, 3, (16,), torch.float32, dt)
-        zh1, dw1 = ops.rev_heun_phase1_gen(z1, zh, mu, inc, keys, 4, dt, dt)
+        w_st, h_st = ops.space_time_increment(keys, 3, (16,), torch.float32, dt)
+        zh1, dw1 = ops.rev_heun_phase1_gen(z1, zh, w_st, inc, keys, 4, dt, dt)
         zr = ops.rev_heun_phase1(z1, zh1, mu, sigma, dw1, dt, -1.0)
         seeds = ops.rev_heun_bwd_phase1(zr, mu1, sigma1, dw1, dt)
-        return (sigma1, z1, inc, zh1, dw1, zr, *seeds,
+        return (sigma1, z1, inc, w_st, h_st, zh1, dw1, zr, *seeds,
                 *ops.rev_heun_bwd_phase2(zr, seeds[0], dw1, dt))
     return chain
 
@@ -961,7 +974,8 @@ def pdl_graph_checks(ops, dev) -> dict:
     """Phase 3's graph check: ``_pdl_chain`` captured as one CUDA graph
     (``keep_graph``, so its edges can be read) and replayed, bitwise the
     eager calls; its programmatic-dependency edges counted, which says
-    whether stream capture kept the dependent launches (6: all kept)."""
+    whether stream capture kept the dependent launches (one edge a stage
+    after ``fused_mlp``: all kept)."""
     from repro_torch.kernels import brownian as bk
 
     chain = _pdl_chain(ops, dev)
@@ -1670,7 +1684,7 @@ def st_kernel_checks(ops, dev) -> tuple:
     g = torch.Generator().manual_seed(2525)
     errs = {"space_time_increment": 0.0, "space_time_value": 0.0}
     n_calls = 0
-    sizes = [(rows, (d,)) for rows in LEVY_ROWS for d in LEVY_SIZES] + [(1, (64, 17))]
+    sizes = [(rows, (d,)) for rows in LEVY_ROWS for d in LEVY_SIZES] + LEVY_ONE_KEY
     for dtype in (torch.float32, torch.float64):
         for rows, shape in sizes:
             keys = torch.randint(0, 2 ** 32, (rows, 2), generator=g,
@@ -1753,6 +1767,7 @@ def st_kernel_checks(ops, dev) -> tuple:
     b_ms, b_by = st_increment_bound(1, math.prod(shape), dtype)
     timed["space_time_increment"] = dict(ms=k_ms, host_ms=k_host, plain_ms=p_ms,
                                          plain_host_ms=p_host, bound_ms=b_ms, bound_by=b_by,
+                                         span_us=span_us(lambda: call(True)),
                                          shape=[1, *shape], dtype="float32")
     shape, dtype, depth = (256, 32), torch.float64, 10
     t = torch.tensor([0.4375], dtype=dtype, device=dev)
@@ -1770,6 +1785,7 @@ def st_kernel_checks(ops, dev) -> tuple:
         print(f"{name} {r['dtype']} {r['shape']}: kernel {r['ms']:.5f} ms "
               f"({r['host_ms']:.5f} host), plain {r['plain_ms']:.5f} ms "
               f"({r['plain_host_ms']:.5f}), bound {r['bound_ms']:.7f} ms ({r['bound_by']})"
+              + (f"; span {r['span_us']:.3f} us" if "span_us" in r else "")
               + (f"; depth 24: {r['depth24_ms']:.5f} ms, bound {r['depth24_bound_ms']:.7f}"
                  if "depth24_ms" in r else ""), flush=True)
     return timed, errs
@@ -2519,6 +2535,21 @@ print(json.dumps({"wall_s": wall, "traj_per_s": stats["traj_per_s"],
 """
 
 
+def _children_in_turns(parent_root: str, child: str, what: str, timeout: int) -> dict:
+    """Run ``child`` (a script that prints one JSON line last) as a fresh
+    process from the root of the tree at ``parent_root`` and of this one,
+    in turns (parent, this, this, parent): ``{tree: [runs]}``, printed."""
+    runs = {"parent": [], "this": []}
+    for tree in ("parent", "this", "this", "parent"):
+        cwd = os.path.abspath(parent_root) if tree == "parent" else ROOT
+        out = subprocess.run([sys.executable, "-c", child], cwd=cwd, check=True,
+                             capture_output=True, text=True, timeout=timeout).stdout
+        runs[tree].append(json.loads(out.strip().splitlines()[-1]))
+        print(f"{what} [{tree}]: {json.dumps(runs[tree][-1])}", flush=True)
+    print(f"card: {gpu_label()}", flush=True)
+    return runs
+
+
 def drain_in_turns(parent_root: str) -> dict:
     """The adaptive serving drain (phase 10's) in the tree at
     ``parent_root`` and in this one, in turns (parent, this, this, parent),
@@ -2529,15 +2560,7 @@ def drain_in_turns(parent_root: str) -> dict:
     ``python3 -c "import
     chip_smoke as C; C.drain_in_turns('build/parent')"`` after unpacking
     the parent commit there (``git archive``)."""
-    runs = {"parent": [], "this": []}
-    for tree in ("parent", "this", "this", "parent"):
-        cwd = os.path.abspath(parent_root) if tree == "parent" else ROOT
-        out = subprocess.run([sys.executable, "-c", _DRAIN_CHILD], cwd=cwd, check=True,
-                             capture_output=True, text=True, timeout=900).stdout
-        runs[tree].append(json.loads(out.strip().splitlines()[-1]))
-        print(f"adaptive drain [{tree}]: {runs[tree][-1]}", flush=True)
-    print(f"card: {gpu_label()}", flush=True)
-    return runs
+    return _children_in_turns(parent_root, _DRAIN_CHILD, "adaptive drain", 900)
 
 
 # One process of one tree (run from its root): the fused ELBO step at batch
@@ -2648,15 +2671,7 @@ def elbo_in_turns(parent_root: str) -> dict:
     its own kernels (~1–2 minutes each): ``{tree: [runs]}``.  Run it as
     ``python3 -c "import chip_smoke as C; C.elbo_in_turns('build/parent')"``
     after unpacking the parent commit there (``git archive``)."""
-    runs = {"parent": [], "this": []}
-    for tree in ("parent", "this", "this", "parent"):
-        cwd = os.path.abspath(parent_root) if tree == "parent" else ROOT
-        out = subprocess.run([sys.executable, "-c", _ELBO_CHILD], cwd=cwd, check=True,
-                             capture_output=True, text=True, timeout=900).stdout
-        runs[tree].append(json.loads(out.strip().splitlines()[-1]))
-        print(f"ELBO in turns [{tree}]: {json.dumps(runs[tree][-1])}", flush=True)
-    print(f"card: {gpu_label()}", flush=True)
-    return runs
+    return _children_in_turns(parent_root, _ELBO_CHILD, "ELBO in turns", 900)
 
 
 # One process of one tree (run from its root): phase 8b's 1024-row chunk
@@ -2687,6 +2702,53 @@ print(json.dumps(out))
 """
 
 
+# One process of one tree (run from its root): one srk discretise ELBO step
+# at batch 64 (SRK_VARIANTS, the training widths, float32): walls of
+# synchronised steps by the host clock (median of 9), its launches, and one
+# profiled step's device kernels, busy, idle and space_time_increment's
+# device time and count.  Prints one JSON line.
+_SRK_CHILD = r"""
+import json, statistics, sys, time
+sys.path[:0] = [".", "src"]
+import torch
+import chip_smoke as C
+from repro_torch.kernels import build, ops
+build.load()
+dev = torch.device("cuda")
+torch.backends.cuda.matmul.allow_tf32 = False
+run = C._train_step(dev, 64, fused=False, **C.SRK_VARIANTS["srk/discretise"])
+run()
+torch.cuda.synchronize()
+ws = []
+for _ in range(9):
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    ws.append((time.perf_counter() - t0) * 1e3)
+ops.reset_launch_counts()
+run()
+torch.cuda.synchronize()
+launches = {k: v for k, v in ops.launch_counts().items() if v}
+prof = C.profile_call(run, "srk discretise B64")
+st = [n for n in prof["by_name"] if "space_time_increment_kernel" in n]
+print(json.dumps({"wall ms": statistics.median(ws), "walls": ws, "launches": launches,
+                  "device kernels": prof["kernels"], "busy ms": prof["busy_ms"],
+                  "idle": prof["idle"],
+                  "space_time_increment ms, count": [sum(prof["by_name"][n] for n in st),
+                                                     sum(prof["counts"][n] for n in st)]}))
+"""
+
+
+def srk_in_turns(parent_root: str) -> dict:
+    """One srk discretise ELBO step (``_SRK_CHILD``) in the tree at
+    ``parent_root`` and in this one, in turns (parent, this, this, parent),
+    each a fresh process that builds its own kernels: ``{tree: [runs]}``.
+    Run it as ``python3 -c "import chip_smoke as C;
+    C.srk_in_turns('build/parent')"`` after unpacking the parent commit
+    there (``git archive``)."""
+    return _children_in_turns(parent_root, _SRK_CHILD, "srk in turns", 900)
+
+
 def chunk_in_turns(parent_root: str) -> dict:
     """Phase 8b's 1024-row chunk graph and eager chunk (``_CHUNK_CHILD``) in
     the tree at ``parent_root`` and in this one, in turns (parent, this,
@@ -2694,15 +2756,7 @@ def chunk_in_turns(parent_root: str) -> dict:
     ``{tree: [runs]}``.  Run it as ``python3 -c "import chip_smoke as C;
     C.chunk_in_turns('build/parent')"`` after unpacking the parent commit
     there (``git archive``)."""
-    runs = {"parent": [], "this": []}
-    for tree in ("parent", "this", "this", "parent"):
-        cwd = os.path.abspath(parent_root) if tree == "parent" else ROOT
-        out = subprocess.run([sys.executable, "-c", _CHUNK_CHILD], cwd=cwd, check=True,
-                             capture_output=True, text=True, timeout=600).stdout
-        runs[tree].append(json.loads(out.strip().splitlines()[-1]))
-        print(f"chunk in turns [{tree}]: {runs[tree][-1]}", flush=True)
-    print(f"card: {gpu_label()}", flush=True)
-    return runs
+    return _children_in_turns(parent_root, _CHUNK_CHILD, "chunk in turns", 600)
 
 
 def smoke_in_turns(parent_root: str, log_dir: str) -> dict:
@@ -2737,6 +2791,13 @@ def smoke_in_turns(parent_root: str, log_dir: str) -> dict:
 # space_time_value's in-turns shapes: row 13's, the adaptive srk gradient's
 # one key over (256, 32) in float64, at bridge depths 10 and 24
 ST_TIMED = [(f"space_time_value 1x(256, 32) f64 depth {depth}", depth) for depth in (10, 24)]
+# space_time_increment's in-turns cases, (tag, dtype, rows, shape): one key
+# over the srk ELBO's draws at B 64 and 1024, and a key a row at 1024 rows
+ST_INCREMENT_TIMED = [(f"space_time_increment {tag} {str(dtype)[6:]}", dtype, rows, shape)
+                      for dtype in (torch.float32, torch.float64)
+                      for tag, rows, shape in (("1x(64, 17)", 1, (64, 17)),
+                                               ("1x(1024, 17)", 1, (1024, 17)),
+                                               ("1024x(17,)", 1024, (17,)))]
 
 
 @contextlib.contextmanager
@@ -2894,12 +2955,14 @@ def kernels_in_turns(parent_root: str) -> dict:
     """The kernels this tree or the ones before it redesigned against the
     parent's build of them, through the port's launchers on one card:
     ``fused_mlp`` float32 at MLP_TIMED, ``space_time_value`` at ST_TIMED,
-    and the rev_heun kernels at REV_TIMED, alone and the redesigned ones in
-    path order (``_rev_cases``), with the library built from the tree at
+    ``space_time_increment`` at ST_INCREMENT_TIMED and the rev_heun kernels
+    at REV_TIMED, alone and the redesigned ones in path order
+    (``_rev_cases``), with the library built from the tree at
     ``parent_root`` and with this tree's, in turns (parent, this, this,
-    parent), device and host ms a call by time_ms; the rev_heun cases alone
-    also by their device span on an idle card (span_us), which is what each
-    launch of the eager training step costs.  A path-order case's kernel
+    parent), device and host ms a call by time_ms; the rev_heun and
+    space_time_increment cases alone also by their device span on an idle
+    card (span_us), which is what each launch of the eager training step
+    costs.  A path-order case's kernel
     time is the pair's time less its predecessor's alone in the same
     turn.  Each output of this tree's kernels must be bitwise the parent's
     (every redesign keeps each element's op order).
@@ -2915,7 +2978,7 @@ def kernels_in_turns(parent_root: str) -> dict:
     try:
         libs = {"parent": _parent_library(parent_root, tmp,
                                           ("rt_fused_mlp", "rt_space_time_value",
-                                           "rt_brownian_increment", "rt_rev_heun_phase2",
+                                           "rt_space_time_increment", "rt_brownian_increment", "rt_rev_heun_phase2",
                                            "rt_rev_heun_phase1_gen", "rt_rev_heun_bwd_phase1",
                                            "rt_rev_heun_phase1", "rt_rev_heun_bwd_phase2")),
                 "this": build.load()}
@@ -2931,6 +2994,11 @@ def kernels_in_turns(parent_root: str) -> dict:
             calls[tag] = lambda depth=depth: ops.space_time_value(
                 keys, t, 0.0, 1.0, (256, 32), torch.float64, depth)
         alone, path, before = _rev_cases(ops, g, dev)
+        for tag, dtype, rows, shape in ST_INCREMENT_TIMED:
+            st_keys = torch.randint(0, 2 ** 32, (rows, 2), generator=g,
+                                    dtype=torch.int64).to(dev)
+            alone[tag] = lambda st_keys=st_keys, dtype=dtype, shape=shape: (
+                ops.space_time_increment(st_keys, 7, shape, dtype, 1.0 / 23))
         calls.update(alone)
         outs = {}
         for tree in ("parent", "this"):
@@ -2956,6 +3024,9 @@ def kernels_in_turns(parent_root: str) -> dict:
         for case, r in spans.items():
             print(f"isolated span {case}: parent {statistics.median(r['parent']):.3f} us, "
                   f"this {statistics.median(r['this']):.3f} us; runs {r}", flush=True)
+        for tag, dtype, rows, shape in ST_INCREMENT_TIMED:
+            b_ms, b_by = st_increment_bound(rows, math.prod(shape), dtype)
+            print(f"bound {tag}: {b_ms:.7f} ms ({b_by})", flush=True)
         for case in path:  # the kernel's share of the pair, turn by turn
             pred = runs.pop(case + " [predecessor alone]")
             runs[case] = {tree: [[p[0] - f[0], p[1] - f[1]] for p, f in zip(r, pred[tree])]
@@ -4706,15 +4777,7 @@ def ssd_in_turns(parent_root: str) -> dict:
     kernels (~1 minute each): ``{tree: [runs]}``.  Run it as ``python3 -c
     "import chip_smoke as C; C.ssd_in_turns('build/parent')"`` after
     unpacking the parent commit there (``git archive``)."""
-    runs = {"parent": [], "this": []}
-    for tree in ("parent", "this", "this", "parent"):
-        cwd = os.path.abspath(parent_root) if tree == "parent" else ROOT
-        out = subprocess.run([sys.executable, "-c", _SSD_CHILD], cwd=cwd, check=True,
-                             capture_output=True, text=True, timeout=900).stdout
-        runs[tree].append(json.loads(out.strip().splitlines()[-1]))
-        print(f"ssd_chunk in turns [{tree}]: {runs[tree][-1]}", flush=True)
-    print(f"card: {gpu_label()}", flush=True)
-    return runs
+    return _children_in_turns(parent_root, _SSD_CHILD, "ssd_chunk in turns", 900)
 
 
 def _linear_loss_grads(fn, inputs, seed: int):
@@ -5171,8 +5234,8 @@ def ssm_train_checks(ops, dev, label: str) -> None:
 # The kernels whose registers, shared memory and spills the run reports.
 PTXAS_SOURCES = ("rev_heun", "flash_attention", "ssd_chunk", "fused_mlp")
 PTXAS_KERNELS = ("brownian_value_kernel", "flash_attention_f32", "ssd_chunk_kernel",
-                 "fused_mlp_bwd_kernel", "fused_mlp_fixed", "space_time_increment_kernel",
-                 "space_time_value_kernel", *DEPENDENT_KERNELS.values())
+                 "fused_mlp_bwd_kernel", "fused_mlp_fixed", "space_time_value_kernel",
+                 *DEPENDENT_KERNELS.values())
 
 
 def start_ptxas_report():
@@ -5431,6 +5494,8 @@ def main() -> int:
                                                      "bound_by", "host_ms",
                                                      "plain_host_ms")}
             extra["ptxas"] = {k: v for k, v in ptxas_usage.items() if name + "_kernel" in k}
+            if name in DEPENDENT_KERNELS:
+                extra["dependent_launch_graph"] = pdl
             extra["launches_per"] = ("srk ELBO step (discretise)"
                                      if name == "space_time_increment"
                                      else "adaptive srk gradient, depth 10")

@@ -34,11 +34,14 @@ ref`.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
 
 from . import build
+from .prng import _NP_DTYPES
+from .ref import space_time_scales
 from .reversible_heun_step import DTYPE_CODES, _stream, check_operands, scalar
 
 #: Kernel launches made by this module's wrappers (one per launch).
@@ -145,13 +148,17 @@ def _check_times(name, keys, t, dtype):
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+#: ``space_time_scales`` cached by ``(dt, dtype)``: a grid asks for its one
+#: spacing at every step, so the launcher rounds it through numpy once.
+_increment_scales = functools.lru_cache(maxsize=256)(space_time_scales)
+
+
 def space_time_increment(keys, n: int, shape, dtype, dt):
     """``(W, H)``, each ``(*K, *shape)``, of grid step ``n`` with spacing
     ``dt``, one row per key — one launch.  The scales ``sqrt(dt)`` and
     ``sqrt(dt/12)`` are rounded on the host as the plain version rounds
-    them (:func:`repro_torch.kernels.ref.space_time_scales`)."""
-    from .ref import space_time_scales
-
+    them (:func:`repro_torch.kernels.ref.space_time_scales`, cached by
+    ``(dt, dtype)``)."""
     if dtype not in DTYPE_CODES:
         raise TypeError(f"space_time_increment: float32 or float64, got {dtype}")
     if not keys.is_cuda:
@@ -159,11 +166,11 @@ def space_time_increment(keys, n: int, shape, dtype, dt):
                          f"{keys.device}")
     rows = _check_keys("space_time_increment", keys, keys.device)
     shape = tuple(shape)
-    w = torch.empty(keys.shape[:-1] + shape, dtype=dtype, device=keys.device)
+    w = keys.new_empty(keys.shape[:-1] + shape, dtype=dtype)
     h = torch.empty_like(w)
     if w.numel() == 0:
         return w, h
-    s_w, s_h = space_time_scales(dt, dtype)
+    s_w, s_h = _increment_scales(float(dt), dtype)
     lib = build.load()
     with build.device_guard(keys.device):
         err = lib.rt_space_time_increment(
@@ -180,9 +187,6 @@ def space_time_value(keys, t, t0: float, t1: float, shape, dtype, depth: int = 2
     space-time paths — one launch.  ``keys``: ``(R, 2)``; ``t``: the
     ``(R,)`` query times in ``dtype`` on the card; ``0 <= depth <=``
     :data:`SPACE_TIME_MAX_DEPTH`."""
-    from .ref import space_time_scales
-    from .prng import _NP_DTYPES
-
     if dtype not in DTYPE_CODES:
         raise TypeError(f"space_time_value: float32 or float64, got {dtype}")
     if not keys.is_cuda:

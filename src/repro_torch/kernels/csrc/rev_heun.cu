@@ -1,7 +1,7 @@
 // Reversible-Heun state updates, their hand-derived backward phases, and
 // in-kernel Brownian draws for Hopper.
 //
-// Replaces six Pallas kernels of the JAX package:
+// Replaces seven Pallas kernels of the JAX package:
 //   rev_heun_phase1      src/repro/kernels/reversible_heun_step.py:152 (body :66)
 //   rev_heun_phase2      src/repro/kernels/reversible_heun_step.py:161 (body :76)
 //   rev_heun_bwd_phase1  src/repro/kernels/reversible_heun_step.py:170 (body :86)
@@ -39,9 +39,10 @@
 // chain: key load -> fold_in (20 rounds) -> the pair's hash -> erf_inv ->
 // store.
 //
-// All six elementwise and drawing kernels are laid out for that: launch and
-// chain, not bytes or operations.
-//   * All six launch through launch_dependent (a programmatic dependent
+// All six elementwise and drawing kernels and the space-time increment
+// (space_time_increment_kernel) are laid out for that: launch and chain, not
+// bytes or operations.
+//   * All seven launch through launch_dependent (a programmatic dependent
 //     launch, sm_90): the kernel is scheduled while its predecessor's blocks
 //     drain, runs its index arithmetic and scalar setup, and then waits in
 //     griddepcontrol.wait until the predecessor's memory is visible.  Every
@@ -50,17 +51,19 @@
 //     draws), and each block issues griddepcontrol.launch_dependents as it
 //     starts, so a successor launched the same way can start in turn.  A
 //     wait without a programmatic predecessor returns at once.
-//   * The two drawing kernels run one thread per draw unit (draw_unit): in
+//   * The three drawing kernels run one thread per draw unit (draw_pair): in
 //     float32 one counter pair, whose one hash gives elements j and j + half
 //     of the row (normal(key, (d,)) pairs them so), in float64 one element
 //     (a float64 draw uses a whole pair).  The unit index is split into
 //     (row, unit) by one 32-bit division (unit_coords); only where
 //     rows·d >= 2^31 does a 64-bit path run.  At B 1024 (one key over 17,408
 //     float32 elements) that is 8,704 threads in 34 blocks, each one fold_in
-//     and one pair hash.  The key load and fold_in stay per thread: they sit
-//     on the dependent chain either way, and a shared-memory broadcast would
-//     add a barrier to it.  rev_heun_phase1_gen issues its state loads
-//     before the hash, so their latency hides under the chain.
+//     and one pair hash (the space-time increment: one fold_in, one split
+//     and a pair hash for each of W and H).  The key load and fold_in stay
+//     per thread: they sit on the dependent chain either way, and a
+//     shared-memory broadcast would add a barrier to it.
+//     rev_heun_phase1_gen issues its state loads before the hash, so their
+//     latency hides under the chain.
 //   * rev_heun_phase2 and rev_heun_bwd_phase1 are one pass with no loop: a
 //     thread takes 16 bytes of each operand (float4 / double2) when every
 //     pointer is 16-byte aligned, the last thread the scalar tail; otherwise
@@ -132,32 +135,46 @@ __host__ __device__ __forceinline__ void unit_coords(I u, I units, I& row, I& j)
   j = u - row * units;
 }
 
+// Draw unit j of normal(key, (d,))·scale, `units` a row: in float32 the
+// counter pair (j, j + units), whose one hash gives elements j (w0) and
+// j + units (w1; for odd d the last pair's second counter is 0 and w1 the
+// pad's draw); in float64 element j (w0; w1 is 0).  Both float32 normals
+// are drawn unconditionally, the pad's too: two independent chains in
+// straight-line code interleave, where a branch between them would run them
+// one after the other (0.05 us of a launch's span on an H100).
+template <typename T, typename I>
+__device__ __forceinline__ void draw_pair(uint32_t k0, uint32_t k1, I j, I units, I d, T scale,
+                                          T& w0, T& w1) {
+  if constexpr (sizeof(T) == 4) {
+    const I second = j + units;
+    uint32_t x0 = static_cast<uint32_t>(j);
+    uint32_t x1 = second < d ? static_cast<uint32_t>(second) : 0u;
+    threefry2x32(k0, k1, x0, x1);
+    w0 = mul(normal_f32_bits(x0), scale);
+    w1 = mul(normal_f32_bits(x1), scale);
+  } else {
+    w0 = mul(normal_f64(k0, k1, static_cast<int64_t>(j), static_cast<int64_t>(d)), scale);
+    w1 = T(0);
+  }
+}
+
+// Whether draw unit j's second draw is an element of the row (float32, j +
+// units < d).
+template <typename T, typename I>
+__device__ __forceinline__ bool unit_has_pair(I j, I units, I d) {
+  return sizeof(T) == 4 && j + units < d;
+}
+
 // The step-n increments normal(fold_in(keys[b], n), (d,))·sqrt(dt) of draw
-// unit j of row b (`units` a row): in float32 the counter pair (j, j +
-// units), whose one hash gives elements j (w0) and j + units (w1, where
-// j + units < d; for odd d the last pair's second counter is 0); in float64
-// element j (w0).  Returns whether w1 is an element of the row.  Both
-// float32 normals are drawn unconditionally, the pad's too: two independent
-// chains in straight-line code interleave, where a branch between them
-// would run them one after the other (0.05 us of a launch's span on an H100).
+// unit j of row b (draw_pair).  Returns whether w1 is an element of the row.
 template <typename T, typename I>
 __device__ __forceinline__ bool draw_unit(const int64_t* __restrict__ keys, int64_t n, I b,
                                           I j, I units, I d, T sqrt_dt, T& w0, T& w1) {
   uint32_t k0 = static_cast<uint32_t>(keys[2 * b]);
   uint32_t k1 = static_cast<uint32_t>(keys[2 * b + 1]);
   fold_in(k0, k1, n);
-  if constexpr (sizeof(T) == 4) {
-    const I second = j + units;
-    uint32_t x0 = static_cast<uint32_t>(j);
-    uint32_t x1 = second < d ? static_cast<uint32_t>(second) : 0u;
-    threefry2x32(k0, k1, x0, x1);
-    w0 = mul(normal_f32_bits(x0), sqrt_dt);
-    w1 = mul(normal_f32_bits(x1), sqrt_dt);
-    return second < d;
-  } else {
-    w0 = mul(normal_f64(k0, k1, static_cast<int64_t>(j), static_cast<int64_t>(d)), sqrt_dt);
-    return false;
-  }
+  draw_pair(k0, k1, j, units, d, sqrt_dt, w0, w1);
+  return unit_has_pair<T>(j, units, d);
 }
 
 // Row b's step-n increment normal(fold_in(keys[b], n), (d,))·sqrt(dt), one
@@ -205,7 +222,7 @@ phase1_gen_kernel(const T* __restrict__ z, const T* __restrict__ zh,
   unit_coords(u, units, b, j);
   const size_t e0 = static_cast<size_t>(b) * d + j;
   const size_t e1 = e0 + units;
-  const bool pair = sizeof(T) == 4 && j + units < d;
+  const bool pair = unit_has_pair<T>(j, units, d);
   release_dependents();
   wait_for_predecessor();
   if (u >= total) return;
@@ -606,27 +623,54 @@ __device__ __forceinline__ void split2(uint32_t k0, uint32_t k1, uint32_t& a0, u
   b1 = y1;
 }
 
-// (W, H) of grid step n, element (b, i): kw, kh = split(fold_in(keys[b], n)),
-// W = normal(kw)[i]·sqrt(dt), H = normal(kh)[i]·sqrt(dt/12).  One thread per
-// element, each redoing its row's fold_in and split (three hashes) before
-// its two draws: integer work that costs no memory traffic.  Bound: the
-// hashes and normals over the integer rate at the main path's shapes (one
-// key over 64 x 17), bytes at many rows.
-template <typename T>
-__global__ void space_time_increment_kernel(const int64_t* __restrict__ keys, int64_t n,
-                                            T s_w, T s_h, T* __restrict__ w,
-                                            T* __restrict__ h, int64_t rows, int64_t d) {
-  const int64_t total = rows * d;
-  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       e < total; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t b = e / d, i = e - b * d;
-    uint32_t k0 = static_cast<uint32_t>(keys[2 * b]);
-    uint32_t k1 = static_cast<uint32_t>(keys[2 * b + 1]);
-    fold_in(k0, k1, n);
-    uint32_t a0, a1, b0, b1;
-    split2(k0, k1, a0, a1, b0, b1);
-    w[e] = mul(normal_elem(T(), a0, a1, i, d), s_w);
-    h[e] = mul(normal_elem(T(), b0, b1, i, d), s_h);
+// (W, H) of grid step n, draw unit j of row b: kw, kh = split(fold_in(keys[b],
+// n)), W = normal(kw)·sqrt(dt), H = normal(kh)·sqrt(dt/12), the scales
+// rounded on the host.  One pass with no loop, one thread a draw unit, as
+// brownian_increment_kernel: in float32 the counter pair (j, j + units),
+// whose one hash gives two elements, in float64 an element; the unit index
+// split by unit_coords (32-bit unless rows·d >= 2^31).  A thread loads its
+// row's key once and runs fold_in and split2 once (three hashes a unit),
+// then the two pair draws (draw_pair), W's and H's, independent chains that
+// interleave; in float32 all four normals are drawn, the pad's too, and the
+// second lane stored where j + units < d.  A programmatic dependent launch:
+// index arithmetic, then release and wait, then every global access.
+//
+// The first design held it back: one thread an element, each redoing its
+// row's key load, fold_in and split (three hashes an element), in float32
+// each counter pair hashed twice (once for each of its two elements' lanes,
+// bits32), a 64-bit division e / d for the row, and a plain launch of a
+// grid-stride loop: 5 hashes an element in float32 where 2.5 do.  What
+// bounds this one at the srk ELBO's draws (one key over 64 x 17, float32:
+// 544 threads in 3 blocks) is one thread's dependent chain, key load ->
+// fold_in -> split -> the pair hash -> erf_inv -> store, against the launch
+// floor (~1.7 us).  The work's bound (chip_smoke.py:st_increment_bound: a
+// row's 3 hashes, half a hash and a normal an element and draw, over the
+// integer rate; bytes at many rows) is 0.0000036 ms there.
+template <typename T, typename I>
+__global__ void __launch_bounds__(kThreads)
+space_time_increment_kernel(const int64_t* __restrict__ keys, int64_t n, T s_w, T s_h,
+                            T* __restrict__ w, T* __restrict__ h, I total, I units, I d) {
+  const I u = static_cast<I>(blockIdx.x) * kThreads + threadIdx.x;
+  I b = 0, j = 0;
+  unit_coords(u, units, b, j);
+  const size_t e0 = static_cast<size_t>(b) * d + j;
+  const bool pair = unit_has_pair<T>(j, units, d);
+  release_dependents();
+  wait_for_predecessor();
+  if (u >= total) return;
+  uint32_t k0 = static_cast<uint32_t>(keys[2 * b]);
+  uint32_t k1 = static_cast<uint32_t>(keys[2 * b + 1]);
+  fold_in(k0, k1, n);
+  uint32_t a0, a1, b0, b1;
+  split2(k0, k1, a0, a1, b0, b1);
+  T w0, w1, h0, h1;
+  draw_pair(a0, a1, j, units, d, s_w, w0, w1);
+  draw_pair(b0, b1, j, units, d, s_h, h0, h1);
+  w[e0] = w0;
+  h[e0] = h0;
+  if (pair) {
+    w[e0 + units] = w1;
+    h[e0 + units] = h1;
   }
 }
 
@@ -927,12 +971,6 @@ inline ValueGrid brownian_value_grid(bool pairs, int64_t rows, int64_t d) {
                    (rows + rb - 1) / rb * ((units + ub - 1) / ub)};
 }
 
-inline unsigned blocks_for(int64_t total) {
-  const int64_t cap = 132 * 16;  // enough resident blocks to fill 132 SMs
-  int64_t b = (total + kThreads - 1) / kThreads;
-  return static_cast<unsigned>(b < 1 ? 1 : (b > cap ? cap : b));
-}
-
 // Launch `kernel` with `blocks` blocks of kThreads on `stream` as a
 // programmatic dependent launch: it may be scheduled while its predecessor
 // on the stream drains, and its griddepcontrol.wait holds it until the
@@ -970,6 +1008,17 @@ cudaError_t launch_increment(const int64_t* keys, int64_t n, double dt, void* ou
   return launch_dependent(brownian_increment_kernel<T, I>, (total + kThreads - 1) / kThreads,
                           s, keys, n, static_cast<T>(dt), static_cast<T*>(out),
                           static_cast<I>(total), static_cast<I>(units), static_cast<I>(d));
+}
+
+template <typename T, typename I>
+cudaError_t launch_space_time_increment(const int64_t* keys, int64_t n, double s_w, double s_h,
+                                        void* w, void* h, int64_t rows, int64_t d,
+                                        int64_t units, cudaStream_t s) {
+  const int64_t total = rows * units;
+  return launch_dependent(space_time_increment_kernel<T, I>, (total + kThreads - 1) / kThreads,
+                          s, keys, n, static_cast<T>(s_w), static_cast<T>(s_h),
+                          static_cast<T*>(w), static_cast<T*>(h), static_cast<I>(total),
+                          static_cast<I>(units), static_cast<I>(d));
 }
 
 template <typename T, typename I>
@@ -1046,8 +1095,6 @@ cudaError_t launch_bwd_phase2(const void* g_z1, const void* ghat, const void* dw
 
 }  // namespace repro_torch
 
-using repro_torch::blocks_for;
-using repro_torch::kThreads;
 
 extern "C" int rt_brownian_increment(int dtype, const int64_t* keys, int64_t n,
                                      double dt, void* out, int64_t rows, int64_t d,
@@ -1225,22 +1272,28 @@ extern "C" int64_t rt_brownian_value_blocks(int dtype, int64_t rows, int64_t d) 
   return rows * d > 0 ? repro_torch::brownian_value_grid(dtype == 0, rows, d).blocks : 0;
 }
 
+// s_w = sqrt(dt) and s_h = sqrt(dt / 12) come rounded to the state dtype
+// from the host, as the plain version forms them.
 extern "C" int rt_space_time_increment(int dtype, const int64_t* keys, int64_t n, double s_w,
                                        double s_h, void* w, void* h, int64_t rows, int64_t d,
                                        void* stream) {
-  const int64_t total = rows * d;
+  using repro_torch::launch_space_time_increment;
+  if (rows * d <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (total > 0) {
-    if (dtype == 0) {
-      repro_torch::space_time_increment_kernel<float><<<blocks_for(total), kThreads, 0, s>>>(
-          keys, n, static_cast<float>(s_w), static_cast<float>(s_h), static_cast<float*>(w),
-          static_cast<float*>(h), rows, d);
-    } else {
-      repro_torch::space_time_increment_kernel<double><<<blocks_for(total), kThreads, 0, s>>>(
-          keys, n, s_w, s_h, static_cast<double*>(w), static_cast<double*>(h), rows, d);
-    }
+  const int64_t units = repro_torch::increment_units(dtype, d);
+  cudaError_t err;
+  if (repro_torch::increment_wide(rows, d)) {
+    err = dtype == 0 ? launch_space_time_increment<float, uint64_t>(keys, n, s_w, s_h, w, h,
+                                                                    rows, d, units, s)
+                     : launch_space_time_increment<double, uint64_t>(keys, n, s_w, s_h, w, h,
+                                                                     rows, d, units, s);
+  } else {
+    err = dtype == 0 ? launch_space_time_increment<float, uint32_t>(keys, n, s_w, s_h, w, h,
+                                                                    rows, d, units, s)
+                     : launch_space_time_increment<double, uint32_t>(keys, n, s_w, s_h, w, h,
+                                                                     rows, d, units, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 // span, s_w = sqrt(span) and s_h = sqrt(span / 12) come rounded to the

@@ -175,9 +175,10 @@ def test_rev_heun_phase2_reads_views_off_16_byte_boundaries(cuda, dtype, offset,
 
 def test_dependent_launches_replay_in_a_captured_graph(cuda):
     """fused_mlp -> rev_heun_phase2 -> brownian_increment ->
-    rev_heun_phase1_gen -> rev_heun_phase1 (sign -1) -> rev_heun_bwd_phase1
-    -> rev_heun_bwd_phase2, each reading an earlier stage's output, captured
-    as one CUDA graph replays the eager calls' bits."""
+    space_time_increment -> rev_heun_phase1_gen -> rev_heun_phase1 (sign -1)
+    -> rev_heun_bwd_phase1 -> rev_heun_bwd_phase2, each reading an earlier
+    stage's output, captured as one CUDA graph replays the eager calls'
+    bits."""
     g = torch.Generator().manual_seed(28)
     x = torch.randn(1024, 17, generator=g).to(cuda)
     w1, b1 = torch.randn(17, 32, generator=g).to(cuda), torch.randn(32, generator=g).to(cuda)
@@ -188,10 +189,11 @@ def test_dependent_launches_replay_in_a_captured_graph(cuda):
         sg1 = ops.fused_mlp(x, w1, b1, w2, b2)
         z1 = ops.rev_heun_phase2(z, mu, mu1, sg, sg1, dw, 1 / 32)
         inc = ops.brownian_increment(keys, 3, (16,), torch.float32, 1 / 32)
-        zh1, dw1 = ops.rev_heun_phase1_gen(z1, zh, mu, inc, keys, 4, 1 / 32, 1 / 32)
+        w_st, h_st = ops.space_time_increment(keys, 3, (16,), torch.float32, 1 / 32)
+        zh1, dw1 = ops.rev_heun_phase1_gen(z1, zh, w_st, inc, keys, 4, 1 / 32, 1 / 32)
         zr = ops.rev_heun_phase1(z1, zh1, mu, sg, dw1, 1 / 32, -1.0)
         seeds = ops.rev_heun_bwd_phase1(zr, mu1, sg1, dw1, 1 / 32)
-        return (sg1, z1, inc, zh1, dw1, zr, *seeds,
+        return (sg1, z1, inc, w_st, h_st, zh1, dw1, zr, *seeds,
                 *ops.rev_heun_bwd_phase2(zr, seeds[0], dw1, 1 / 32))
 
     want = chain()
@@ -974,13 +976,18 @@ def test_fused_xent_node_and_lm_training_step(cuda):
 # the srk solver's space-time draws (the port's own kernels)
 # -----------------------------------------------------------------------------
 
-ST_CASES = [(1, (64, 17)), (1, (256, 32))] + [
+# one key over the srk ELBO's draws at B 64 and 1024 and over an odd width
+# (the last counter pair's zero pad), the adaptive srk gradient's (256, 32),
+# and a key a row
+ST_CASES = [(1, (64, 17)), (1, (256, 32)), (1, (1024, 17)), (1, (1087,))] + [
     (rows, shape) for rows in (1, 64, 1000, 1024) for shape in ((1,), (8,), (17,))]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("rows,shape", ST_CASES)
 def test_space_time_increment_bitwise_equals_plain_version(cuda, dtype, rows, shape):
+    """Bitwise the plain version, two launches alike, and at 1024 rows a
+    row's bits the same alone."""
     g = torch.Generator().manual_seed(rows)
     keys = torch.randint(0, 2 ** 32, (rows, 2), generator=g, dtype=torch.int64).to(cuda)
     got = ops.space_time_increment(keys, 9, shape, dtype, 1.0 / 23)
@@ -988,6 +995,9 @@ def test_space_time_increment_bitwise_equals_plain_version(cuda, dtype, rows, sh
     assert all(a.shape == (rows, *shape) and torch.equal(a, b) for a, b in zip(got, want))
     again = ops.space_time_increment(keys, 9, shape, dtype, 1.0 / 23)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if rows == 1024:
+        one = ops.space_time_increment(keys[5:6].contiguous(), 9, shape, dtype, 1.0 / 23)
+        assert all(torch.equal(a[0], b[5]) for a, b in zip(one, got))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -17,6 +17,7 @@ Tolerances (stated per the port's parity rules):
 """
 
 import functools
+from fractions import Fraction
 
 import jax
 import numpy as np
@@ -50,7 +51,7 @@ def _close(got, want, dtype):
 
 
 @pytest.mark.parametrize("sign", [1.0, -1.0])
-@pytest.mark.parametrize("dtype,shape", CASES)
+@pytest.mark.parametrize("dtype,shape", CASES + ONE_KEY_CASES)
 def test_rev_heun_phase2_matches_ref_and_pallas(dtype, shape, sign):
     args = _state(10, shape, dtype, 6)
     got = ops.rev_heun_phase2(*map(torch.from_numpy, args), 0.3, sign=sign)
@@ -90,6 +91,53 @@ def test_rev_heun_phase1_equals_the_op_by_op_ref_bitwise(dtype, shape, sign):
     with jax_config(x64=dtype == "float64"):
         want = np.asarray(jref.rev_heun_phase1(*args, 0.01, sign=sign))
     assert got.numpy().tobytes() == want.tobytes()
+
+
+def _round_f32(x: Fraction) -> np.float32:
+    """``x`` rounded once to float32, to nearest, ties to even: the nearest of
+    the float32 rounding of ``float(x)`` and its two neighbours."""
+    c = np.float32(float(x))
+    near = (np.nextafter(c, np.float32(-np.inf)), c, np.nextafter(c, np.float32(np.inf)))
+    return min(near, key=lambda v: (abs(Fraction(float(v)) - x), int(v.view(np.uint32)) & 1))
+
+
+def _fma_f32(a, b, c) -> np.float32:
+    """``fma(a, b, c)`` in float32: ``a·b + c`` exact, rounded once."""
+    return _round_f32(Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c)))
+
+
+def _phase1_fma_model(z, zh, mu, sigma, dw, dt, sign):
+    """XLA's float32 phase 1: ``fma(sign·σ, ΔW, fma(μ, sign·Δt, 2z − ẑ))``.
+    ``2z − ẑ``, ``sign·Δt`` and ``sign·σ`` round once in float32 (the
+    latter two exactly: sign is ±1); each FMA forms ``a·b + c`` exactly as
+    a ``Fraction`` and rounds it once to float32 (``_round_f32``), with no
+    float64 step between (which could round twice)."""
+    a = np.float32(2.0) * z - zh
+    sdt = np.float32(sign) * np.float32(dt)
+    out = np.empty_like(z)
+    for i in np.ndindex(z.shape):
+        inner = _fma_f32(mu[i], sdt, a[i])
+        out[i] = _fma_f32(np.float32(sign) * sigma[i], dw[i], inner)
+    return out
+
+
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+@pytest.mark.parametrize("shape", sorted({shape for _, shape in CASES + ONE_KEY_CASES}))
+def test_rev_heun_phase1_jit_and_pallas_are_the_fma_model_bitwise(shape, sign):
+    """The jitted JAX ref and the Pallas kernel (interpret mode) of phase 1
+    are, in float32, bitwise ``fma(sign·σ, ΔW, fma(μ, sign·Δt, 2z − ẑ))``
+    (``_phase1_fma_model``) at every shape of ``CASES + ONE_KEY_CASES``:
+    where they differ from the port (which rounds every op, as its CUDA
+    kernel does), it is by those two contractions and nothing else."""
+    args = _state(11, shape, "float32", 5)
+    with jax_config(x64=False):
+        want = np.asarray(jax.jit(functools.partial(jref.rev_heun_phase1, sign=sign))(
+            *args, 0.01))
+        pallas = np.asarray(jax.jit(lambda *a: jrh.rev_heun_phase1(
+            *a, sign=sign, interpret=True))(*args, 0.01))
+    model = _phase1_fma_model(*args, 0.01, sign)
+    assert want.tobytes() == model.tobytes()
+    assert pallas.tobytes() == model.tobytes()
 
 
 @pytest.mark.parametrize("dtype,shape", CASES + ONE_KEY_CASES)

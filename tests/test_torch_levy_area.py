@@ -67,21 +67,43 @@ def _levy_path(words, shape=(3,), dtype="float64"):
 # -----------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_space_time_increments_match_vmapped_jax(dtype):
-    words = key_words(70, 5)
+# (dtype, rows, shape): five keys over (4,), and the space_time_increment
+# kernel's edges: an odd width (the float32 counter pairs' zero pad) and one
+# key over the srk ELBO's (64, 17) state
+ST_INCREMENT_CASES = [pytest.param(dtype, 5, (4,), id=dtype) for dtype in DTYPES] + [
+    pytest.param(dtype, rows, shape, id=f"{dtype}-{rows}x{shape}")
+    for dtype in DTYPES for rows, shape in ((5, (17,)), (1, (64, 17)))]
+
+
+@pytest.mark.parametrize("dtype,rows,shape", ST_INCREMENT_CASES)
+def test_space_time_increments_match_vmapped_jax(dtype, rows, shape):
+    words = key_words(70, rows)
     with jax_config(x64=dtype == "float64"):
         def per_row(k):
-            path = jb.BrownianPath(k, 0.0, 1.0, (4,), jnp.dtype(dtype), levy_area="space-time")
+            path = jb.BrownianPath(k, 0.0, 1.0, shape, jnp.dtype(dtype), levy_area="space-time")
             return path.increment(5, 16)
 
         want = jax.device_get(jax.jit(jax.vmap(per_row))(jnp.asarray(words)))
-    got = _levy_path(words, (4,), dtype).increment(5, 16)
+    got = _levy_path(words, shape, dtype).increment(5, 16)
     for g, w in zip(got, want):
-        assert g.dtype == TORCH_DTYPES[dtype] and g.shape == (5, 4)
+        assert g.dtype == TORCH_DTYPES[dtype] and g.shape == (rows, *shape)
         assert ulp_distance(g.numpy(), w).max() <= NORMAL_ULP[dtype]
-    stacked = _levy_path(words, (4,), dtype).increments(16)
+    stacked = _levy_path(words, shape, dtype).increments(16)
     assert torch.equal(stacked[0][5], got[0]) and torch.equal(stacked[1][5], got[1])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dt", [1 / 23, 0.1, 1e-3, 1 / 7])
+def test_space_time_increment_launcher_scales_are_the_plain_versions(dt, dtype):
+    """The launcher's scales, cached by ``(dt, dtype)``, are bitwise
+    ``ref.space_time_scales``: on the first call and on a cached one."""
+    from repro_torch.kernels import brownian as bk
+
+    want = ref.space_time_scales(dt, TORCH_DTYPES[dtype])
+    for _ in range(2):
+        got = bk._increment_scales(float(dt), TORCH_DTYPES[dtype])
+        assert np.array(got).tobytes() == np.array(want).tobytes()
+    assert bk._increment_scales.cache_info().hits >= 1
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
