@@ -215,6 +215,25 @@ non-zero and the final result line is never printed):
    reading of the paper's Table 2, not a claim) the wall per pattern of the
    Brownian Interval and of the port's ``VirtualBrownianTree`` on the card
    at sizes 2560 and 32768.
+11e. ("data parallel", right after 11d.)  Data parallelism on
+   ``torch.distributed``: (a) a process group of world size 1 over NCCL on
+   the card, where the flat gradient mean, the row gather and the
+   broadcast are bitwise identities and ``data_parallel_mesh`` is None;
+   (c) the row-windowed one-key draws of ``brownian_increment``,
+   ``rev_heun_phase1_gen`` and ``space_time_increment`` bitwise their
+   plain versions window by window and, concatenated, the whole launch, at
+   DP_WINDOW_SHAPES in float32 and float64, and timed at rank 0's half of
+   the ELBO's one key over 1024 × 17 beside the whole launch and the
+   window's bound; (b) DP_RANKS gloo ranks spawned on the one card
+   (``compat.launch``; they load the parent's build), global batch
+   DP_BATCH: DP_STEPS SDE-GAN clip steps and DP_STEPS fused ELBO steps and
+   one srk discretise ELBO step held to the one-rank card run within
+   DP_REL of the largest magnitude, the ranks' parameters bitwise equal
+   after every step, each of the three draws launched with a window on
+   every rank (counts zeroed before the run, read after), the walls per
+   step printed beside the card; (d) a ``Scheduler(shard_base=DP_RANKS)``
+   drain of DP_SCHED's 32 requests on the same ranks (rank 0 drives, the
+   other follows; CUDA-graph pools per rank) bitwise the one-rank drain.
 12. ``flash_attention`` (the LM prefill's GQA attention) against its plain
    version on the card, the same float scale 1/sqrt(D) given to both:
    float32 (rtol = atol = 2e-5) and bfloat16 (6e-2, and ‖Δ‖/‖want‖ of
@@ -247,7 +266,7 @@ non-zero and the final result line is never printed):
    of one prefill (the kernel's share), the same prefill with the
    attention as the LM called it before the kernel read the projections
    in place (contiguous copies in, a contiguous output: at least 4 more
-   copy kernels a layer, each route's count the fewer of two profiles), and the
+   copy kernels a layer, each route's count the median of three profiles), and the
    full-depth prefill on the plain attention: max |Δ| of the last-position logits and first-token
    agreement (asserted finite only; phase 13 is the assertion).  A profile
    of one decode step against the 2064-slot cache (device busy and idle
@@ -318,7 +337,10 @@ non-zero and the final result line is never printed):
    the plain route: the loss within 6e-2, every leaf's gradient finite.
 Each phase's wall is printed as a ``[phase] <name>: <s> s`` line as it ends.
 
-22. Prints a ``{"kernels": [...]}`` JSON line (``launches``: the count on
+22. Prints a ``{"kernels": [...]}`` JSON line (``dp_launches``: each
+   rank's count in phase 11e's data-parallel run; ``window``: the
+   windowed launch's timing and launches per rank, for rows 5, 7 and 12;
+   ``launches``: the count on
    the path each kernel was ported for — training (3 steps) for the solver
    kernels, ``fused_mlp`` and ``fused_mlp_bwd``, but SDE-GAN clip step 3 at
    batch 128 for ``brownian_increment``, which the ELBO step no longer
@@ -4537,25 +4559,32 @@ def lm_serve_checks(ops, dev, label: str, arch: str) -> dict:
               f"kernels, so the copies cannot be counted")
         # A profile now and then holds a few events from outside the call (a
         # run showed one GEMM, one elementwise and three copy kernels more
-        # than the call issues), so each route's count is the fewest of two
-        # profiled calls.
-        in_place = [prof, profile_call(lambda: prefill(params, {"tokens": prompts}),
-                                       f"{label}] [{arch} prefill B={B} S={S}, again")]
+        # than the call issues) or drops a few of the call's (six copy
+        # kernels in run 4, PR 32), so each route's count is the median of
+        # three profiled calls.
+        in_place = [prof] + [profile_call(lambda: prefill(params, {"tokens": prompts}),
+                                          f"{label}] [{arch} prefill B={B} S={S}, again")
+                             for _ in range(2)]
         with copying_attention():
             copying = [profile_call(lambda: prefill(params, {"tokens": prompts}),
                                     f"{label}] [{arch} prefill B={B} S={S}, attention on "
-                                    f"contiguous copies{tag}") for tag in ("", ", again")]
+                                    f"contiguous copies{tag}")
+                       for tag in ("", ", again", ", a third time")]
+
+        def each(profs):
+            return [sum(n for name, n in p["counts"].items() if "copy" in name.lower())
+                    for p in profs]
 
         def copies(profs):
-            return min(sum(n for name, n in p["counts"].items() if "copy" in name.lower())
-                       for p in profs)
+            return statistics.median(each(profs))
 
         copies_saved = (copies(copying) - copies(in_place)) / cfg.num_layers
         print(f"[{label}] {arch} prefill: {prof['kernels']} device kernels ({copies(in_place)} "
-              f"copy kernels, the fewer of two profiles) reading the projections in place, "
+              f"copy kernels, the median of three profiles) reading the projections in place, "
               f"{copying[0]['kernels']} ({copies(copying)}) with the copies: {copies_saved:g} "
               f"fewer copy kernels a layer; wall {prof['wall_ms']:.3f} vs "
-              f"{copying[0]['wall_ms']:.3f} ms", flush=True)
+              f"{copying[0]['wall_ms']:.3f} ms; copy kernels of each profile "
+              f"{each(in_place)} in place, {each(copying)} with the copies", flush=True)
         check(copies_saved >= 4, f"{arch} prefill: only {copies_saved} fewer copy kernels "
               f"a layer without the copies (want at least 4)")
 
@@ -5233,9 +5262,12 @@ def ssm_train_checks(ops, dev, label: str) -> None:
 
 # The kernels whose registers, shared memory and spills the run reports.
 PTXAS_SOURCES = ("rev_heun", "flash_attention", "ssd_chunk", "fused_mlp")
+# the row-windowed draws' device functions (phase 11e), dependent launches too
+WINDOW_KERNELS = ("brownian_increment_window_kernel", "phase1_gen_window_kernel",
+                  "space_time_increment_window_kernel")
 PTXAS_KERNELS = ("brownian_value_kernel", "flash_attention_f32", "ssd_chunk_kernel",
                  "fused_mlp_bwd_kernel", "fused_mlp_fixed", "space_time_value_kernel",
-                 *DEPENDENT_KERNELS.values())
+                 *DEPENDENT_KERNELS.values(), *WINDOW_KERNELS)
 
 
 def start_ptxas_report():
@@ -5348,6 +5380,362 @@ def _to_device(tree, device):
 PHASE_S: dict = {}
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: data parallelism on torch.distributed
+# ---------------------------------------------------------------------------
+
+DP_BATCH = 1024          # the global batch; 512 rows a rank
+DP_RANKS = 2             # gloo ranks sharing the one card
+DP_STEPS = 3             # clip steps and ELBO steps each
+DP_SRK_BATCH = 64        # one srk discretise ELBO step (row 12's windows)
+DP_REL = 2e-4            # the CPU tests' float32 bound (tests/test_torch_distributed.py)
+DP_WINDOW_KERNELS = ("brownian_increment", "rev_heun_phase1_gen", "space_time_increment")
+# (rows, d, ranks) of the windowed draws checked against the plain versions
+# and the whole launch: the ELBO's one key over (B, 17), the SDE-GAN's over
+# (B, noise 4), the srk ELBO's, three ranks, and odd sizes (a window that
+# splits a counter pair)
+DP_WINDOW_SHAPES = [(1024, 17, 2), (1024, 17, 3), (1024, 4, 2), (64, 17, 2), (7, 3, 2),
+                    (5, 1, 3)]
+DP_SCHED = dict(max_batch=64, requests=32, request_max=8, chunks=4)
+
+
+def _dp_window_calls(ops, key, rows: int, d: int, dtype, g, dev):
+    """name -> call(window, rows_slice, use_kernel) of the three one-key draws."""
+    dt = 1.0 / 23
+    st = [torch.randn(rows, d, generator=g, dtype=dtype).to(dev) for _ in range(4)]
+
+    def gen(window, sl, uk):
+        z, zh, mu, sg = (t[sl] for t in st)
+        return ops.rev_heun_phase1_gen(z, zh, mu, sg, key, 5, dt, dt, -1.0, use_kernel=uk,
+                                       window=window)
+
+    return {
+        "brownian_increment": lambda window, sl, uk: (ops.brownian_increment(
+            key, 5, (sl.stop - sl.start, d), dtype, dt, use_kernel=uk, window=window),),
+        "rev_heun_phase1_gen": gen,
+        "space_time_increment": lambda window, sl, uk: ops.space_time_increment(
+            key, 5, (sl.stop - sl.start, d), dtype, dt, use_kernel=uk, window=window),
+    }
+
+
+def _window_pairs(e0: int, count: int, size: int) -> int:
+    """The float32 counter pairs elements [e0, e0 + count) of a size-``size``
+    draw touch (lane 0 of pair j is element j, lane 1 element j + half)."""
+    half = (size + 1) // 2
+    lo = (e0, min(e0 + count, half))
+    hi = (max(e0, half) - half, e0 + count - half)
+    a, b = max(lo[1] - lo[0], 0), max(hi[1] - hi[0], 0)
+    overlap = max(0, min(lo[1], hi[1]) - max(lo[0], hi[0])) if a and b else 0
+    return a + b - overlap
+
+
+def window_bound(name: str, e0: int, count: int, size: int, dtype) -> tuple:
+    """Least time for a windowed one-key draw of ``count`` elements: one
+    fold_in (and for space_time_increment the split's two hashes), one hash
+    per counter pair the window touches (float32; a float64 element is its
+    own), a normal and a scaling an element (two draws for (W, H)); bytes:
+    the key in, the outputs out (rev_heun_phase1_gen: four state tensors
+    in, two out, and its six flops an element)."""
+    s = torch.finfo(dtype).bits // 8
+    pairs = _window_pairs(e0, count, size) if dtype == torch.float32 else count
+    draws = 2 if name == "space_time_increment" else 1
+    ops_ = ((3 if draws == 2 else 1) * HASH_OPS
+            + draws * (pairs * HASH_OPS + count * (NORMAL_OPS[dtype] + 1)))
+    nbytes = 16 + draws * count * s
+    if name == "rev_heun_phase1_gen":
+        ops_ += 6 * count
+        nbytes = 16 + 6 * count * s
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_ / PEAK_OPS_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def dp_window_checks(ops, dev) -> tuple:
+    """Phase 22c: the windowed draws of rows 5, 7 and 12 against their plain
+    versions (same window) and their windows, concatenated, against the
+    whole launch, bitwise, in float32 and float64; timed at the ELBO's one
+    key over (1024, 17) float32 (rank 0's half) beside the whole launch.
+    Returns ``({name: timing row}, {name: max |Δ|})``."""
+    from repro_torch.kernels import prng
+
+    g = torch.Generator().manual_seed(2201)
+    errs = {name: 0.0 for name in DP_WINDOW_KERNELS}
+    for dtype in (torch.float32, torch.float64):
+        for rows, d, ranks in DP_WINDOW_SHAPES:
+            key = prng.PRNGKey(rows * 131 + d, device=dev)
+            calls = _dp_window_calls(ops, key, rows, d, dtype, g, dev)
+            bounds = [rows * r // ranks for r in range(ranks + 1)]
+            for name, call in calls.items():
+                whole = call(None, slice(0, rows), True)
+                parts = []
+                for r0, r1 in zip(bounds[:-1], bounds[1:]):
+                    window = (r0 * d, rows * d)
+                    got = call(window, slice(r0, r1), True)
+                    want = call(window, slice(r0, r1), False)
+                    torch.cuda.synchronize()
+                    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+                    check(all(torch.equal(a, b) for a, b in zip(got, want)) and err == 0.0,
+                          f"{name} {dtype} ({rows}, {d}) window {window}: kernel != plain "
+                          f"(max |Δ| {err})")
+                    errs[name] = max(errs[name], err)
+                    parts.append(got)
+                for i, w in enumerate(whole):
+                    check(torch.equal(torch.cat([p[i] for p in parts]), w),
+                          f"{name} {dtype} ({rows}, {d}) over {ranks} ranks: the windows "
+                          f"!= the whole launch")
+    print(f"windowed draws: {', '.join(DP_WINDOW_KERNELS)} x {{float32, float64}} x "
+          f"(rows, d, ranks) in {DP_WINDOW_SHAPES}: kernel == plain per window, windows "
+          f"concatenated == the whole launch, bitwise", flush=True)
+
+    rows_t = {}
+    B, d = 1024, 17
+    key = prng.PRNGKey(7, device=dev)
+    calls = _dp_window_calls(ops, key, B, d, torch.float32, g, dev)
+    print("windowed kernel        rows   kernel_ms (host)     plain_ms (host)      "
+          "whole_ms (host)      bound_ms (by)", flush=True)
+    for name, call in calls.items():
+        window, sl = (0, B * d), slice(0, B // DP_RANKS)
+        k_ms, k_host = time_ms(lambda: call(window, sl, True))
+        p_ms, p_host = time_ms(lambda: call(window, sl, False))
+        w_ms, w_host = time_ms(lambda: call(None, slice(0, B), True))
+        b_ms, b_by = window_bound(name, 0, (B // DP_RANKS) * d, B * d, torch.float32)
+        print(f"{name:22s} {B // DP_RANKS:<4d}/{B}  {k_ms:.5f} ({k_host:.5f})  "
+              f"{p_ms:.5f} ({p_host:.5f})  {w_ms:.5f} ({w_host:.5f})  {b_ms:.6f} ({b_by})",
+              flush=True)
+        rows_t[name] = dict(ms=k_ms, plain_ms=p_ms, host_ms=k_host, plain_host_ms=p_host,
+                            whole_ms=w_ms, whole_host_ms=w_host, bound_ms=b_ms,
+                            bound_by=b_by, shape=[B // DP_RANKS, d], of=[B, d],
+                            dtype="float32")
+    return rows_t, errs
+
+
+def dp_world1_checks(dev) -> dict:
+    """Phase 22a: a process group of world size 1 over NCCL on the card: the
+    path's collectives (the flat gradient mean, the row gather, the
+    broadcast) are each a bitwise identity, and ``data_parallel_mesh`` is
+    None, as the reference's on one device."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import compat, sharding
+
+    g = torch.Generator().manual_seed(2202)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", rank=0,
+                                world_size=1,
+                                device_id=torch.device("cuda", torch.cuda.current_device()))
+        try:
+            check(sharding.data_parallel_mesh(DP_BATCH) is None,
+                  "data_parallel_mesh on one rank is not None")
+            mesh = compat.make_mesh((1,), ("data",))
+            with compat.set_mesh(mesh):
+                grads = [torch.randn(s, generator=g).to(dev) for s in ((33, 32), (32,), ())]
+                grads.append(torch.randn(5, generator=g, dtype=torch.float64).to(dev))
+                means = sharding.allreduce_mean(grads)
+                rows = torch.randn(24, 64, 17, generator=g).to(dev)
+                keys = torch.randint(0, 2 ** 32, (64, 2), generator=g).to(dev)
+                gathered = sharding.gather_rows(rows, 1)
+                sent = sharding.broadcast(keys.clone())
+                torch.cuda.synchronize()
+            same = (all(torch.equal(a, b) for a, b in zip(means, grads))
+                    and torch.equal(gathered, rows) and torch.equal(sent, keys))
+            check(same, "a world-size-1 collective is not the identity")
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    print(f"world size 1 over {backend}: allreduce_mean, gather_rows and broadcast are "
+          f"bitwise identities; data_parallel_mesh({DP_BATCH}) is None", flush=True)
+    return {"backend": backend, "identities": True}
+
+
+def _dp_train(dev) -> dict:
+    """DP_STEPS SDE-GAN clip steps and DP_STEPS fused ELBO steps at the
+    global batch DP_BATCH, and one srk discretise ELBO step at DP_SRK_BATCH,
+    float32 at the training widths, under the data-parallel mesh when the
+    process group has ranks -> metrics and parameters after each step, the
+    walls, and the launches of the whole run (the counts zeroed just before
+    it)."""
+    from repro_torch.distributed import compat, sharding
+    from repro_torch.kernels import brownian as bk
+    from repro_torch.kernels import ops, prng
+    from repro_torch.launch.steps import make_gan_optimizers, make_sde_gan_step
+
+    def mesh_ctx(batch):
+        mesh = sharding.data_parallel_mesh(batch)
+        return compat.set_mesh(mesh) if mesh is not None else contextlib.nullcontext()
+
+    def cpu(x):
+        from repro_torch import tree
+        return tree.map(lambda t: t.detach().cpu().clone(), x)
+
+    from repro_torch.core.sde import LatentSDEConfig, latent_sde_init
+    from repro_torch.launch.steps import make_latent_sde_optimizer, make_latent_sde_step
+
+    cfg, params, _, _ = _gan_problem(dev, DP_BATCH)
+    (gi, gu), (di, du) = make_gan_optimizers(1.0, "clip")
+    gan = make_sde_gan_step(cfg, gu, du, DP_BATCH, GAN_SEQ, device=dev)
+    gan_state = (params, gi(params["gen"]), di(params["disc"]))
+    lcfg = LatentSDEConfig(**WIDTHS, kl_weight=0.1, use_pallas_kernels=True)
+    lparams = latent_sde_init(torch.Generator().manual_seed(13), lcfg, device=dev)
+    init, update = make_latent_sde_optimizer()
+    elbo = make_latent_sde_step(lcfg, update, DP_BATCH, SEQ_LEN, device=dev)
+    elbo_state = (lparams, init(lparams))
+    srk = _train_step(dev, DP_SRK_BATCH, fused=False, solver="srk")
+    out = {"clip": [], "elbo": [], "walls_ms": {"clip": [], "elbo": []}}
+    ops.reset_launch_counts()
+    for k in bk.WINDOW_LAUNCHES:
+        bk.WINDOW_LAUNCHES[k] = 0
+    key = prng.PRNGKey(GAN_SEED + 1, device=dev)
+    with mesh_ctx(DP_BATCH):
+        for s in range(DP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            *gan_state, metrics = gan(*gan_state, prng.fold_in_key(key, s))
+            torch.cuda.synchronize()
+            out["walls_ms"]["clip"].append((time.perf_counter() - t0) * 1e3)
+            out["clip"].append((cpu(metrics), cpu(gan_state[0])))
+        for s in range(DP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            *elbo_state, metrics = elbo(*elbo_state, prng.fold_in_key(key, 100 + s))
+            torch.cuda.synchronize()
+            out["walls_ms"]["elbo"].append((time.perf_counter() - t0) * 1e3)
+            out["elbo"].append((cpu(metrics), cpu(elbo_state[0])))
+    with mesh_ctx(DP_SRK_BATCH):
+        _, _, metrics = srk()
+        out["srk"] = cpu(metrics)
+    torch.cuda.synchronize()
+    out["launches"] = dict(ops.launch_counts())
+    out["window_launches"] = dict(bk.WINDOW_LAUNCHES)
+    return out
+
+
+def _dp_sched(dev, shard_base: int) -> dict:
+    """Phase 22d's drain: DP_SCHED's requests (every fourth a terminal one)
+    through ``Scheduler(shard_base=...)`` with CUDA-graph pools -> rank 0's
+    samples and converged flags by request id (None on a follower)."""
+    from repro_torch.distributed import compat
+    from repro_torch.serving import LoadedModel, ModelRegistry, Scheduler
+    from repro_torch.serving.types import synthetic_requests
+
+    cfg, params = _sched_model(dev, 31)
+    reg = ModelRegistry()
+    reg.register(LoadedModel("default", "sde-gan", cfg, params))
+    sched = Scheduler(reg, max_batch=DP_SCHED["max_batch"], chunks=DP_SCHED["chunks"],
+                      collect=True, shard_base=shard_base, atol=1e-3, max_steps=512)
+    sched.warm("default")
+    if compat.rank() != 0:
+        sched.follow()
+        return None
+    reqs = synthetic_requests(DP_SCHED["requests"], DP_SCHED["request_max"], 17)
+    for i, r in enumerate(reqs):
+        sched.submit(dataclasses.replace(r, kind="terminal") if i % 4 == 3 else r)
+    results = sched.run()
+    sched.close()
+    return {r.rid: (r.samples.cpu(), torch.as_tensor(r.converged)) for r in results}
+
+
+def _dp_rank() -> dict:
+    """One gloo rank of phase 22b and 22d (spawned by compat.launch, sharing
+    the card): the training run and the scheduler's drain.  The library was
+    built by the parent; a rank only loads it."""
+    from repro_torch.distributed import compat
+    from repro_torch.kernels import build
+
+    prebuilt = build.library_path().exists()
+    build.load()
+    dev = torch.device("cuda")
+    out = {"prebuilt": prebuilt, "rank": compat.rank(), "note": compat.backend_note(dev)}
+    out["train"] = _dp_train(dev)
+    out["sched"] = _dp_sched(dev, DP_RANKS)
+    return out
+
+
+def _max_rel(got, want) -> float:
+    """max |got − want| over the largest |want|, over matching leaves."""
+    from repro_torch import tree
+
+    worst = 0.0
+    for a, b in zip(tree.leaves(got), tree.leaves(want)):
+        scale = float(b.abs().max()) if b.numel() else 0.0
+        err = float((a - b).abs().max()) if b.numel() else 0.0
+        worst = max(worst, err / max(scale, 1e-30))
+    return worst
+
+
+def dp_checks(ops, dev, label: str) -> dict:
+    """Phase 22: data parallelism.  (a) world size 1 over NCCL: the
+    collectives are identities; (b) DP_RANKS gloo ranks on the one card at
+    the global batch DP_BATCH: DP_STEPS clip steps and DP_STEPS ELBO steps
+    held to the one-rank card run within the CPU tests' float32 bound, the
+    ranks' parameters bitwise equal, rows 5, 7 and 12 launched with windows;
+    (c) the windowed kernels (dp_window_checks); (d) a DP_SCHED drain of
+    ``Scheduler(shard_base=DP_RANKS)`` bitwise the one-rank drain.  Returns
+    the windows' timings and errors and each rank's launches."""
+    from repro_torch import tree
+    from repro_torch.distributed import compat
+
+    world1 = dp_world1_checks(dev)
+    windows, window_errs = dp_window_checks(ops, dev)
+    t0 = time.perf_counter()
+    one = _dp_train(dev)
+    one_sched = _dp_sched(dev, 1)
+    t_one = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = compat.launch(_dp_rank, DP_RANKS, device="cuda", timeout=600)
+    t_ranks = time.perf_counter() - t0
+    print(f"{DP_RANKS} ranks ({ranks[0]['note']}): {t_ranks:.1f} s with the spawn, one rank "
+          f"in this process {t_one:.1f} s", flush=True)
+    for r in ranks:
+        check(r["prebuilt"], f"rank {r['rank']} found no built library (it would rebuild)")
+    worst = {}
+    for kind in ("clip", "elbo"):
+        for s in range(DP_STEPS):
+            m1, p1 = one[kind][s]
+            (ma, pa), (mb, pb) = (r["train"][kind][s] for r in ranks)
+            check(all(torch.equal(a, b) for a, b in zip(tree.leaves(pa), tree.leaves(pb))),
+                  f"{kind} step {s}: the ranks' parameters differ")
+            rel = max(_max_rel(pa, p1), _max_rel([ma[k] for k in m1], [m1[k] for k in m1]))
+            worst[kind] = max(worst.get(kind, 0.0), rel)
+            check(rel <= DP_REL, f"{kind} step {s}: {DP_RANKS} ranks vs one, rel {rel:.3g} "
+                                 f"> {DP_REL}")
+    srk = ranks[0]["train"]["srk"]
+    worst["srk"] = _max_rel([srk[k] for k in one["srk"]], [one["srk"][k] for k in one["srk"]])
+    check(worst["srk"] <= DP_REL, f"srk step: {DP_RANKS} ranks vs one, rel {worst['srk']:.3g}")
+    for r in ranks:
+        for name in DP_WINDOW_KERNELS:
+            check(r["train"]["window_launches"][name] > 0,
+                  f"rank {r['rank']}: {name} never launched with a window")
+    check(all(v == 0 for v in one["window_launches"].values()),
+          f"the one-rank run launched windows: {one['window_launches']}")
+    print(f"{DP_RANKS} ranks vs one, B {DP_BATCH}, float32: max rel {worst} (limit "
+          f"{DP_REL}); the ranks' parameters bitwise equal after every step [card: {label}]",
+          flush=True)
+    for kind in ("clip", "elbo"):
+        print(f"{kind} wall per step, ms: one rank {[round(x, 1) for x in one['walls_ms'][kind]]}"
+              + "".join(f"; rank {r['rank']} "
+                        f"{[round(x, 1) for x in r['train']['walls_ms'][kind]]}"
+                        for r in ranks) + f" [card: {label}]", flush=True)
+    sched = ranks[0]["sched"]
+    check(ranks[1]["sched"] is None and sorted(sched) == sorted(one_sched)
+          and len(sched) == DP_SCHED["requests"], "the sharded drain served other requests")
+    for rid, (samples, conv) in one_sched.items():
+        check(torch.equal(sched[rid][0], samples) and torch.equal(sched[rid][1], conv),
+              f"request {rid}: the {DP_RANKS}-rank drain != the one-rank drain")
+    print(f"Scheduler(shard_base={DP_RANKS}) drain of {DP_SCHED['requests']} requests: "
+          f"bitwise the one-rank drain", flush=True)
+    dp_launches = {name: [r["train"]["launches"].get(name, 0) for r in ranks]
+                   for name in KERNEL_SOURCES}
+    window_launches = {name: [r["train"]["window_launches"][name] for r in ranks]
+                       for name in DP_WINDOW_KERNELS}
+    print(f"launches per rank (the whole run): {dp_launches}; of them windowed: "
+          f"{window_launches}", flush=True)
+    return {"world1": world1, "windows": windows, "window_errs": window_errs,
+            "dp_launches": dp_launches, "window_launches": window_launches,
+            "walls_ms": {"one": one["walls_ms"],
+                         "ranks": [r["train"]["walls_ms"] for r in ranks]},
+            "max_rel": worst, "one_rank_launches": one["launches"]}
+
+
 def timed(name: str, fn, *args):
     """``fn(*args)``, its wall kept in PHASE_S and printed as a ``[phase]`` line."""
     t0 = time.perf_counter()
@@ -5399,6 +5787,7 @@ def main() -> int:
     adaptive_launches = timed("adaptive grad", adaptive_grad_checks, ops, dev, label)
     gan = timed("sde-gan", gan_checks, ops, dev, label)
     baselines = timed("baselines", baseline_checks, ops, dev, label)
+    dp = timed("data parallel", dp_checks, ops, dev, label)
     levy = timed("levy", levy_checks, ops, dev, label)
     errs.update(levy["errs"])
     attn_rows, errs["flash_attention"], attn_rel = timed("flash_attention",
@@ -5413,7 +5802,7 @@ def main() -> int:
     train_lm_launches = timed("lm train", lm_train_checks, ops, dev, label)
     timed("ssm train", ssm_train_checks, ops, dev, label)
     ptxas_usage = ptxas_report(ptxas)
-    check_no_spills(ptxas_usage, DEPENDENT_KERNELS.values())
+    check_no_spills(ptxas_usage, (*DEPENDENT_KERNELS.values(), *WINDOW_KERNELS))
 
     print(f"kernels: {', '.join(KERNEL_SOURCES)} (route cuda; bitwise = plain except "
           f"flash_attention, within {ATTN_TOL}, ssd_chunk, within {SSD_TOL} and the "
@@ -5515,6 +5904,11 @@ def main() -> int:
                 extra["dependent_launch_graph"] = pdl
                 extra["ptxas"] = {k: v for k, v in ptxas_usage.items()
                                   if _mangled(DEPENDENT_KERNELS[name]) in k}
+        if name in DP_WINDOW_KERNELS:  # the rank's windows of a one-key draw
+            extra["window"] = dict(dp["windows"][name], launches_per_rank=dp[
+                "window_launches"][name], launches_per="data-parallel run (phase 22b)")
+            errs[name] = max(errs[name], dp["window_errs"][name])
+        extra["dp_launches"] = {f"rank{i}": n for i, n in enumerate(dp["dp_launches"][name])}
         entries.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches, "max_abs_err": errs[name],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -15,8 +15,9 @@ controller loop, the exact adjoint over the accepted grid, the SDE-GAN generator
 fixed-grid and adaptive terminal services), LM serving of the dense
 family (prefill through the GQA attention kernel) and the pure-SSM
 family (prefill through the SSD chunk-scan kernel), with greedy decode,
-and LM training (AdamW, the loss through the cross-entropy kernels,
-resumable checkpoints):
+LM training (AdamW, the loss through the cross-entropy kernels,
+resumable checkpoints), and data-parallel Neural-SDE training and serving
+on ``torch.distributed``:
 
 =====================================  ======================================
 port module                            reference
@@ -63,16 +64,20 @@ repro_torch.core.sde                   repro.core.sde (Latent SDE: ELBO and
 repro_torch.data                       repro.data.synthetic (air quality,
                                        LM token batches)
 repro_torch.optim                      repro.optim (Adam, AdamW, clipping,
-                                       the cosine schedule)
-repro_torch.distributed                repro.distributed.elastic (the mesh
-                                       planner)
+                                       the cosine schedule, int8
+                                       error-feedback compression)
+repro_torch.distributed                repro.distributed (compat: meshes
+                                       and the rank launcher; sharding:
+                                       rule tables, data-parallel
+                                       collectives; elastic: the planner)
 repro_torch.tree                       jax.tree (flatten, map)
 repro_torch.checkpoint                 repro.checkpoint (training
                                        checkpoints, serving bundles)
 repro_torch.serving / launch           repro.serving / repro.launch (drain
                                        loops incl. adaptive terminal
                                        sampling, serve and train CLIs, step
-                                       factories, serve_lm)
+                                       factories, serve_lm, the production
+                                       mesh)
 =====================================  ======================================
 
 ROADMAP.md lists what is still to port, in order.

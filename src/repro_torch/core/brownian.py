@@ -65,6 +65,16 @@ def _check_levy_mode(levy_area) -> None:
         raise ValueError(f"unknown levy_area mode {levy_area!r}; supported: {LEVY_AREAS}")
 
 
+def _keep(x, rows):
+    """Rows ``[r0, r1)`` of a query's result (each of a ``(W, H)`` pair);
+    the result itself for ``rows=None``."""
+    if rows is None:
+        return x
+    if isinstance(x, tuple):
+        return tuple(v[rows[0]:rows[1]] for v in x)
+    return x[rows[0]:rows[1]]
+
+
 def _as_rows(x, like: torch.Tensor) -> torch.Tensor:
     """A time (a float, or a tensor of the key batch shape) in ``like``'s
     dtype and device, shaped to broadcast against ``like`` (``(*K,
@@ -140,7 +150,15 @@ def davie_levy_area(key: torch.Tensor, w: torch.Tensor, h: torch.Tensor, dt) -> 
 
 @dataclasses.dataclass(frozen=True)
 class BrownianPath:
-    """Exact, stateless Brownian path on ``[t0, t1]``, one per key row."""
+    """Exact, stateless Brownian path on ``[t0, t1]``, one per key row.
+
+    ``rows = (r0, r1)``: a data-parallel rank's row window of a one-key path
+    (``key`` of shape ``(2,)``).  ``shape`` stays the whole batch's, so the
+    draws are the whole path's, and every query returns rows ``[r0, r1)``
+    of ``shape[0]``: the grid increments through the windowed draws (elements
+    ``[r0·m, r1·m)`` of the one-key draw, ``m = prod(shape[1:])``), the
+    point queries by drawing whole and keeping the rows (the reference's
+    GSPMD program computes the whole draw on every device too)."""
 
     key: torch.Tensor
     t0: float
@@ -148,16 +166,36 @@ class BrownianPath:
     shape: Tuple[int, ...]
     dtype: torch.dtype = torch.float32
     levy_area: Optional[str] = None
+    rows: Optional[Tuple[int, int]] = None
 
     def __post_init__(self):
         _check_levy_mode(self.levy_area)
         if self.key.dtype != torch.int64 or self.key.shape[-1:] != (2,):
             raise ValueError(f"key must be an int64 (..., 2) tensor, got "
                              f"{self.key.dtype} {tuple(self.key.shape)}")
+        if self.rows is not None:
+            r0, r1 = self.rows
+            if self.key.shape != (2,) or not 0 <= r0 < r1 <= self.shape[0]:
+                raise ValueError(f"rows {self.rows} must be a window of shape[0] = "
+                                 f"{self.shape[0]} of a one-key path")
 
     @property
     def batch_shape(self) -> Tuple[int, ...]:
         return tuple(self.key.shape[:-1])
+
+    @property
+    def local_shape(self) -> Tuple[int, ...]:
+        """The shape a query returns per key: ``shape`` with the row window."""
+        if self.rows is None:
+            return tuple(self.shape)
+        return (self.rows[1] - self.rows[0],) + tuple(self.shape[1:])
+
+    @property
+    def window(self):
+        """``(e0, size)`` of the row window in the flat one-key draw, or None."""
+        if self.rows is None:
+            return None
+        return self.rows[0] * math.prod(self.shape[1:]), math.prod(self.shape)
 
     def increment(self, n: int, num_steps: int, use_kernel: Optional[bool] = None):
         """Increment of step ``n`` on the ``num_steps`` uniform grid; in
@@ -165,10 +203,10 @@ class BrownianPath:
         ``space_time_levy_area(fold_in(key, n), dt)``."""
         dt = (self.t1 - self.t0) / num_steps
         if self.levy_area == "space-time":
-            return ops.space_time_increment(self.key, n, self.shape, self.dtype, dt,
-                                            use_kernel=use_kernel)
-        return ops.brownian_increment(self.key, n, self.shape, self.dtype, dt,
-                                      use_kernel=use_kernel)
+            return ops.space_time_increment(self.key, n, self.local_shape, self.dtype, dt,
+                                            use_kernel=use_kernel, window=self.window)
+        return ops.brownian_increment(self.key, n, self.local_shape, self.dtype, dt,
+                                      use_kernel=use_kernel, window=self.window)
 
     def increments(self, num_steps: int):
         """All grid increments stacked: ``(num_steps, *K, *shape)`` (a pair of
@@ -205,10 +243,10 @@ class BrownianPath:
             w, i = w.reshape(out), i.reshape(out)
             span = _as_rows(tt, w) - torch.full((), float(self.t0), dtype=self.dtype,
                                                  device=w.device)
-            return w, _h_from_wi(w, i, span)
+            return _keep((w, _h_from_wi(w, i, span)), self.rows)
         w = ops.brownian_value(self.key.reshape(-1, 2), tt.reshape(-1).contiguous(),
                                self.t0, self.t1, self.shape, self.dtype, depth)
-        return w.reshape(out)
+        return _keep(w.reshape(out), self.rows)
 
     def evaluate(self, s, t, depth: int = 24):
         """``W(t) − W(s)``, as ``value(t) − value(s)``; in space-time mode the

@@ -71,9 +71,9 @@ def _gen_spec(bm, z0, noise, use_pallas):
         return None
     if bm.dtype != z0.dtype:
         return None
-    if bm.batch_shape + tuple(bm.shape) != tuple(z0.shape):
+    if bm.batch_shape + bm.local_shape != tuple(z0.shape):
         return None
-    return bm.key, lambda num_steps: (bm.t1 - bm.t0) / num_steps
+    return bm.key, lambda num_steps: (bm.t1 - bm.t0) / num_steps, bm.window
 
 
 def _forward(drift, diffusion, params, z0, bm, t0, t1, num_steps, noise,
@@ -90,10 +90,11 @@ def _forward(drift, diffusion, params, z0, bm, t0, t1, num_steps, noise,
     for n in range(num_steps):
         t, t1_n = grid_time(t0, n, dt), grid_time(t0, n + 1, dt)
         if gen is not None:
-            keys, dt_grid_fn = gen
+            keys, dt_grid_fn, window = gen
             state = reversible_heun_step(state, t, dt, None, drift, diffusion, params,
                                          noise, use_pallas=use_pallas,
-                                         gen=(keys, n, dt_grid_fn(num_steps)), t1=t1_n)
+                                         gen=(keys, n, dt_grid_fn(num_steps), window),
+                                         t1=t1_n)
         else:
             dw = bm.increment(n, num_steps).to(dtype)
             state = reversible_heun_step(state, t, dt, dw, drift, diffusion, params,
@@ -193,10 +194,11 @@ def _backward(spec: _SolveSpec, final: RevHeunState, leaves, needs, g_out):
         t_left, t_right = grid_time(spec.t0, n, dt), grid_time(spec.t0, n + 1, dt)
         with torch.no_grad():
             if gen is not None:
-                keys, dt_grid_fn = gen
+                keys, dt_grid_fn, window = gen
                 state, dw = reversible_heun_reverse_step(
                     state, t_right, dt, None, spec.drift, spec.diffusion, params, spec.noise,
-                    use_pallas=spec.use_pallas, t0=t_left, gen=(keys, n, dt_grid_fn(N)))
+                    use_pallas=spec.use_pallas, t0=t_left,
+                    gen=(keys, n, dt_grid_fn(N), window))
             else:
                 dw = spec.bm.increment(n, N).to(final.z.dtype)
                 state = reversible_heun_reverse_step(state, t_right, dt, dw, spec.drift,

@@ -302,18 +302,21 @@ def joint_diffusion(cfg: NeuralSDEConfig):
 
 
 def gan_score_fake(params, cfg: NeuralSDEConfig, key: torch.Tensor, batch: int,
-                   paths: bool = True):
+                   paths: bool = True, rows=None):
     """F_φ(Y) for generated Y, through one joint SDE solve (the exact
     adjoint end to end) -> ``(score (batch,), ys (num_steps+1, batch, y))``.
     With ``paths=False`` the solve keeps only its terminal state, so the
-    forward holds O(1) states in the number of steps, and ``ys`` is None."""
+    forward holds O(1) states in the number of steps, and ``ys`` is None.
+    ``rows``: a data-parallel rank's row window ``(r0, r1)`` of the
+    ``batch`` rows: the initial noise is drawn whole and the Brownian path
+    windowed, and the rank solves and returns its rows."""
     kv, kw = prng.split(key)
-    v = _normal(kv, (batch, cfg.initial_noise_dim), cfg.dtype)
+    v = _normal(kv, (batch, cfg.initial_noise_dim), cfg.dtype, rows)
     x0 = nn.mlp(params["gen"]["zeta"], v, nn.lipswish)
     y0 = nn.linear(params["gen"]["ell"], x0)
     h0 = nn.cde_initial(params["disc"], 0.0, y0)
     u0 = torch.cat([x0, h0], -1)
-    bm = BrownianPath(kw, 0.0, cfg.t1, (batch, cfg.noise_dim), cfg.dtype)
+    bm = BrownianPath(kw, 0.0, cfg.t1, (batch, cfg.noise_dim), cfg.dtype, rows=rows)
     traj = _cfg_solve(cfg, joint_drift(cfg), joint_diffusion(cfg), params, u0, bm,
                       cfg.num_steps, "general", save_trajectory=paths)
     score = nn.cde_readout(params["disc"], (traj[-1] if paths else traj)[..., cfg.hidden_dim:])
@@ -323,24 +326,29 @@ def gan_score_fake(params, cfg: NeuralSDEConfig, key: torch.Tensor, batch: int,
 
 
 def gan_losses(params, cfg: NeuralSDEConfig, key: torch.Tensor, y_real: torch.Tensor,
-               batch: int, paths: bool = True):
+               batch: int, paths: bool = True, rows=None):
     """Wasserstein losses (eq. (3)) -> ``(gen_loss, disc_loss, fake_ys)``,
-    ``fake_ys`` None with ``paths=False`` (see :func:`gan_score_fake`)."""
-    fake_score, fake_ys = gan_score_fake(params, cfg, key, batch, paths)
+    ``fake_ys`` None with ``paths=False`` (see :func:`gan_score_fake`, which
+    takes ``rows``; ``y_real`` then holds the rank's rows)."""
+    fake_score, fake_ys = gan_score_fake(params, cfg, key, batch, paths, rows)
     real_score = discriminate_path(params["disc"], cfg, y_real)
     gen_loss, disc_loss = wasserstein_losses(fake_score, real_score)
     return gen_loss, disc_loss, fake_ys
 
 
 def gradient_penalty(params_disc, cfg: NeuralSDEConfig, key: torch.Tensor,
-                     y_real: torch.Tensor, y_fake: torch.Tensor):
+                     y_real: torch.Tensor, y_fake: torch.Tensor, batch=None, rows=None):
     """WGAN-GP baseline (Gulrajani et al.): ``E[(‖∂F/∂Y‖ − 1)²]`` at
     ``Y = ε·y_real + (1−ε)·y_fake``, ``ε ~ U(1, B, 1)`` from ``key`` — the
     double backward the paper's clipping removes.  The inner gradient is
     taken through the discretise CDE solve with ``create_graph``, so the
     penalty is differentiable in the discriminator's parameters (and in the
-    paths, where they require a gradient)."""
-    eps = prng.uniform(key[0], key[1], y_real.shape[1], y_real.dtype).reshape(1, -1, 1)
+    paths, where they require a gradient).  ``batch`` and ``rows``: the
+    whole batch and a data-parallel rank's row window of it, whose rows
+    ``y_real`` and ``y_fake`` hold; ε is drawn whole."""
+    batch = y_real.shape[1] if batch is None else batch
+    eps = _keep_rows(prng.uniform(key[0], key[1], batch, y_real.dtype), rows)
+    eps = eps.reshape(1, -1, 1)
     with torch.enable_grad():
         y_mix = eps * y_real + (1 - eps) * y_fake
         if not y_mix.requires_grad:
@@ -446,16 +454,24 @@ def _lsde_sigma(params, t, x):
     return nn.sigmoid(raw) * 0.5 + 0.05  # bounded positive diagonal
 
 
-def _normal(key, shape, dtype):
-    return prng.normal_like(key[0], key[1], tuple(shape), dtype)
+def _keep_rows(x, rows):
+    return x if rows is None else x[rows[0]:rows[1]]
 
 
-def _latent_encode(params, cfg: LatentSDEConfig, key, y_true):
+def _normal(key, shape, dtype, rows=None):
+    """One-key normals of ``shape``; with ``rows`` a data-parallel rank's row
+    window, drawn whole (as the one-device run draws them) and kept."""
+    return _keep_rows(prng.normal_like(key[0], key[1], tuple(shape), dtype), rows)
+
+
+def _latent_encode(params, cfg: LatentSDEConfig, key, y_true, batch=None, rows=None):
     """Backward-GRU context + initial-latent sample -> ``(ctx, x0, kl_v)``:
     the ``(T+1, B, c)`` context path, ``ζ(V̂)`` with ``V̂ ~ N(m, s)`` from
     ``ξ(ctx_0)``, and the per-sample ``KL(N(m, s) ‖ N(0, 1))``.  ``key``: one
     ``(2,)`` key for the batch (training), or ``(B, 2)``, one per row (the
-    posterior decode, as the reference's vmapped rows draw)."""
+    posterior decode, as the reference's vmapped rows draw).  ``batch`` and
+    ``rows``: the whole batch and the rank's row window under a
+    data-parallel mesh (the one-key draw is made whole)."""
     ctx = nn.gru_scan(params["enc"], y_true, reverse=True)
     ms = nn.mlp(params["qz0"], ctx[0], nn.lipswish)
     m, log_s = ms.chunk(2, -1)
@@ -463,7 +479,8 @@ def _latent_encode(params, cfg: LatentSDEConfig, key, y_true):
     if key.ndim == 2:
         eps = prng.normal(key[:, 0], key[:, 1], m.shape[-1], cfg.dtype)
     else:
-        eps = _normal(key, m.shape, cfg.dtype)
+        eps = _normal(key, (m.shape[0] if batch is None else batch,) + m.shape[1:],
+                      cfg.dtype, rows)
     v = m + s * eps
     kl_v = 0.5 * torch.sum(m ** 2 + s ** 2 - 2.0 * torch.log(s) - 1.0, -1)
     x0 = nn.mlp(params["zeta"], v, nn.lipswish)
@@ -537,21 +554,26 @@ def _metrics(recon, kl_path, kl_v):
     return {"recon": recon, "kl_path": torch.mean(kl_path), "kl_v": torch.mean(kl_v)}
 
 
-def latent_sde_loss(params, cfg: LatentSDEConfig, key, y_true):
+def latent_sde_loss(params, cfg: LatentSDEConfig, key, y_true, batch=None, rows=None):
     """Negative ELBO (paper eq. (4) / Appendix B) -> ``(loss, metrics)``.
 
     ``y_true``: ``(T+1, B, data_dim)`` on the training device; ``key`` a
     ``(2,)`` key there.  The KL path integral rides as a state channel, so
     the objective is a function of one solve's trajectory, which the
-    reconstruction term reads at the observation times."""
+    reconstruction term reads at the observation times.  ``batch`` and
+    ``rows``: the whole batch and a data-parallel rank's row window of it,
+    whose rows ``y_true`` holds; the one-key draws are the whole batch's
+    (windowed), and the loss is the rank's: the mean of the ranks' losses
+    is the whole batch's."""
     T, B = y_true.shape[0] - 1, y_true.shape[1]
     stride = validate_latent_grid(cfg.num_steps, T)
     dt_data = cfg.t1 / T
     kz0, kw = prng.split(key)
-    ctx, x0, kl_v = _latent_encode(params, cfg, kz0, y_true)
+    batch = B if batch is None else batch
+    ctx, x0, kl_v = _latent_encode(params, cfg, kz0, y_true, batch, rows)
     post_drift, post_diffusion = _latent_posterior_fields(cfg, T, n_aux=1)
     u0 = torch.cat([x0, x0.new_zeros(B, 1)], -1)
-    bm = BrownianPath(kw, 0.0, cfg.t1, (B, cfg.hidden_dim + 1), cfg.dtype)
+    bm = BrownianPath(kw, 0.0, cfg.t1, (batch, cfg.hidden_dim + 1), cfg.dtype, rows=rows)
     traj = _cfg_solve(cfg, post_drift, post_diffusion, {"nets": params, "ctx": ctx},
                       u0, bm, cfg.num_steps, "diagonal")
     xs = traj[..., :cfg.hidden_dim]
@@ -564,18 +586,20 @@ def latent_sde_loss(params, cfg: LatentSDEConfig, key, y_true):
 
 
 def latent_sde_loss_terminal(params, cfg: LatentSDEConfig, key, y_true,
-                             gradient_mode=None, solver=None):
+                             gradient_mode=None, solver=None, batch=None, rows=None):
     """Negative ELBO as a function of the terminal augmented state only:
     both the KL path integral and the reconstruction error ride as state
     channels (the form a terminal-cotangent adjoint needs), solved with the
-    exact adjoint's terminal form by default."""
+    exact adjoint's terminal form by default.  ``batch`` and ``rows`` as
+    :func:`latent_sde_loss`'s."""
     T, B = y_true.shape[0] - 1, y_true.shape[1]
     validate_latent_grid(cfg.num_steps, T)
     kz0, kw = prng.split(key)
-    ctx, x0, kl_v = _latent_encode(params, cfg, kz0, y_true)
+    batch = B if batch is None else batch
+    ctx, x0, kl_v = _latent_encode(params, cfg, kz0, y_true, batch, rows)
     post_drift, post_diffusion = _latent_posterior_fields(cfg, T, n_aux=2, with_recon=True)
     u0 = torch.cat([x0, x0.new_zeros(B, 2)], -1)
-    bm = BrownianPath(kw, 0.0, cfg.t1, (B, cfg.hidden_dim + 2), cfg.dtype)
+    bm = BrownianPath(kw, 0.0, cfg.t1, (batch, cfg.hidden_dim + 2), cfg.dtype, rows=rows)
     uT = _cfg_solve(cfg, post_drift, post_diffusion,
                     {"nets": params, "ctx": ctx, "y": y_true}, u0, bm, cfg.num_steps,
                     "diagonal", gradient_mode=gradient_mode, solver=solver,

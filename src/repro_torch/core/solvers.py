@@ -30,7 +30,7 @@ reference's times).  The baseline steppers take those times as ``tm``
 With ``use_pallas=True`` (the reference's name for the fused path) and
 diagonal noise, the two state updates go through :mod:`repro_torch.
 kernels.ops`: the CUDA kernels for CUDA tensors, the plain versions on the
-CPU.  ``gen=(keys, n, dt_grid)`` draws ΔW inside the phase-1 kernel.  The
+CPU.  ``gen=(keys, n, dt_grid, window)`` draws ΔW inside the phase-1 kernel.  The
 unfused path is plain tensor arithmetic whose bits the fused path matches
 exactly: ``(½Δt)·m`` and ``(½m)·Δt`` agree under power-of-two scaling.
 :func:`reversible_heun_reverse_step` is the algebraic inverse (Algorithm
@@ -244,18 +244,19 @@ def reversible_heun_step(state: RevHeunState, t, dt, dw, drift, diffusion, param
     """One step of Algorithm 1: exactly one drift+diffusion evaluation, at
     ``t1`` (default ``t + dt``; the grid solves pass :func:`grid_time`).
 
-    ``gen=(keys, n, dt_grid)`` draws this step's ΔW inside the phase-1
-    kernel (bitwise ``BrownianPath.increment(n)``) instead of consuming
-    ``dw``, which is then ignored.  ``use_kernel`` follows the dispatch
+    ``gen=(keys, n, dt_grid, window)`` draws this step's ΔW inside the
+    phase-1 kernel (bitwise ``BrownianPath.increment(n)``; ``window`` the
+    path's row window or None) instead of consuming ``dw``, which is then
+    ignored.  ``use_kernel`` follows the dispatch
     policy of :mod:`repro_torch.kernels.ops`.
     """
     z, zh, mu, sigma = state
     t1 = t + dt if t1 is None else t1
     if use_pallas and noise == "diagonal":
         if gen is not None:
-            keys, n, dt_grid = gen
+            keys, n, dt_grid, window = gen
             zh1, dw = ops.rev_heun_phase1_gen(z, zh, mu, sigma, keys, n, dt_grid, dt,
-                                              use_kernel=use_kernel)
+                                              use_kernel=use_kernel, window=window)
         else:
             zh1 = ops.rev_heun_phase1(z, zh, mu, sigma, dw, dt, use_kernel=use_kernel)
         mu1 = drift(params, t1, zh1)
@@ -294,8 +295,8 @@ def reversible_heun_reverse_step(state: RevHeunState, t1, dt, dw, drift, diffusi
     fused path runs the phase kernels with ``sign=-1``; it is bitwise the
     unfused arithmetic (``a − b`` is ``a + (−b)`` exactly).
 
-    ``gen=(keys, n, dt_grid)`` (fused path only) draws the step's ΔW inside
-    the reconstruction's phase-1 kernel (bitwise
+    ``gen=(keys, n, dt_grid, window)`` (fused path only) draws the step's
+    ΔW inside the reconstruction's phase-1 kernel (bitwise
     ``BrownianPath.increment(n)``), ignores ``dw`` and returns ``(state,
     ΔW)``, so the caller's local VJP consumes the same draw.
     """
@@ -303,9 +304,9 @@ def reversible_heun_reverse_step(state: RevHeunState, t1, dt, dw, drift, diffusi
     t = t1 - dt if t0 is None else t0
     if use_pallas and noise == "diagonal":
         if gen is not None:
-            keys, n, dt_grid = gen
+            keys, n, dt_grid, window = gen
             zh, dw = ops.rev_heun_phase1_gen(z1, zh1, mu1, sigma1, keys, n, dt_grid, dt,
-                                             sign=-1.0, use_kernel=use_kernel)
+                                             sign=-1.0, use_kernel=use_kernel, window=window)
         else:
             zh = ops.rev_heun_phase1(z1, zh1, mu1, sigma1, dw, dt, sign=-1.0,
                                      use_kernel=use_kernel)

@@ -48,6 +48,11 @@ from .reversible_heun_step import DTYPE_CODES, _stream, check_operands, scalar
 LAUNCHES = {"brownian_increment": 0, "rev_heun_phase1_gen": 0, "brownian_value": 0,
             "space_time_increment": 0, "space_time_value": 0}
 
+#: Of those, the launches of a row window (a data-parallel rank's rows of a
+#: one-key draw; counted in :data:`LAUNCHES` too).
+WINDOW_LAUNCHES = {"brownian_increment": 0, "rev_heun_phase1_gen": 0,
+                   "space_time_increment": 0}
+
 #: The deepest descent :func:`space_time_value`'s kernel takes (its levels
 #: sit in shared memory; float64 intervals stop halving after ~52 levels).
 SPACE_TIME_MAX_DEPTH = 512
@@ -64,8 +69,32 @@ def _check_keys(name: str, keys: torch.Tensor, device) -> int:
     return math.prod(keys.shape[:-1])
 
 
-def brownian_increment(keys, n: int, shape, dtype, dt):
-    """``(*K, *shape)`` step-``n`` increments, one row per key — one launch."""
+def _window(name: str, keys: torch.Tensor, window, count: int):
+    """``(e0, size)`` of a proper row window, or None where the launch is
+    the unwindowed one (no window, or the whole draw, whose bits are the
+    unwindowed launch's).  A window takes one ``(2,)`` key."""
+    if window is None:
+        return None
+    e0, size = (int(v) for v in window)
+    if keys.shape != (2,):
+        raise ValueError(f"{name}: a row window takes one (2,) key, got "
+                         f"{tuple(keys.shape)}")
+    if e0 < 0 or e0 + count > size or size >= 2 ** 32:
+        raise ValueError(f"{name}: window of {count} at {e0} is not inside a draw "
+                         f"of {size}")
+    return None if (e0, size) == (0, count) else (e0, size)
+
+
+def _count(name: str, window) -> None:
+    LAUNCHES[name] += 1
+    if window is not None:
+        WINDOW_LAUNCHES[name] += 1
+
+
+def brownian_increment(keys, n: int, shape, dtype, dt, window=None):
+    """``(*K, *shape)`` step-``n`` increments, one row per key — one launch.
+    ``window = (e0, size)``: one key, ``shape`` the rank's block of
+    elements ``[e0, e0 + prod(shape))`` of the ``size``-element draw."""
     if dtype not in DTYPE_CODES:
         raise TypeError(f"brownian_increment: float32 or float64, got {dtype}")
     if not keys.is_cuda:
@@ -75,22 +104,30 @@ def brownian_increment(keys, n: int, shape, dtype, dt):
     out = keys.new_empty(keys.shape[:-1] + shape, dtype=dtype)
     if out.numel() == 0:
         return out
+    window = _window("brownian_increment", keys, window, out.numel())
     lib = build.load()
     with build.device_guard(keys.device):
-        err = lib.rt_brownian_increment(
-            DTYPE_CODES[dtype], keys.data_ptr(), int(n), scalar(dt), out.data_ptr(),
-            rows, math.prod(shape), _stream(keys))
+        if window is None:
+            err = lib.rt_brownian_increment(
+                DTYPE_CODES[dtype], keys.data_ptr(), int(n), scalar(dt), out.data_ptr(),
+                rows, math.prod(shape), _stream(keys))
+        else:
+            err = lib.rt_brownian_increment_window(
+                DTYPE_CODES[dtype], keys.data_ptr(), int(n), scalar(dt), out.data_ptr(),
+                window[0], out.numel(), window[1], _stream(keys))
     build.check("brownian_increment", err)
-    LAUNCHES["brownian_increment"] += 1
+    _count("brownian_increment", window)
     return out
 
 
 def rev_heun_phase1_gen(z, zh, mu, sigma, keys, n: int, dt_grid, dt,
-                        sign: float = 1.0):
+                        sign: float = 1.0, window=None):
     """Phase 1 with ΔW drawn in-kernel: ``(ẑ₁, ΔW)`` from one launch.
 
     ``dt_grid`` is the Brownian grid spacing (the ``sqrt`` scaling) and
-    ``dt`` the integration step; they coincide on the uniform fixed grid."""
+    ``dt`` the integration step; they coincide on the uniform fixed grid.
+    ``window = (e0, size)``: one key, the state the rank's block of
+    elements ``[e0, e0 + z.numel())`` of the ``size``-element draw."""
     check_operands("rev_heun_phase1_gen", z, (zh, mu, sigma))
     rows = _check_keys("rev_heun_phase1_gen", keys, z.device)
     batch = keys.shape[:-1]
@@ -101,15 +138,23 @@ def rev_heun_phase1_gen(z, zh, mu, sigma, keys, n: int, dt_grid, dt,
     dw = torch.empty_like(z)
     if z.numel() == 0:
         return zh1, dw
+    window = _window("rev_heun_phase1_gen", keys, window, z.numel())
     lib = build.load()
     with build.device_guard(z.device):
-        err = lib.rt_rev_heun_phase1_gen(
-            DTYPE_CODES[z.dtype], z.data_ptr(), zh.data_ptr(), mu.data_ptr(),
-            sigma.data_ptr(), keys.data_ptr(), int(n), scalar(dt_grid), scalar(dt),
-            scalar(sign), zh1.data_ptr(), dw.data_ptr(), rows, z.numel() // rows,
-            _stream(z))
+        if window is None:
+            err = lib.rt_rev_heun_phase1_gen(
+                DTYPE_CODES[z.dtype], z.data_ptr(), zh.data_ptr(), mu.data_ptr(),
+                sigma.data_ptr(), keys.data_ptr(), int(n), scalar(dt_grid), scalar(dt),
+                scalar(sign), zh1.data_ptr(), dw.data_ptr(), rows, z.numel() // rows,
+                _stream(z))
+        else:
+            err = lib.rt_rev_heun_phase1_gen_window(
+                DTYPE_CODES[z.dtype], z.data_ptr(), zh.data_ptr(), mu.data_ptr(),
+                sigma.data_ptr(), keys.data_ptr(), int(n), scalar(dt_grid), scalar(dt),
+                scalar(sign), zh1.data_ptr(), dw.data_ptr(), window[0], z.numel(),
+                window[1], _stream(z))
     build.check("rev_heun_phase1_gen", err)
-    LAUNCHES["rev_heun_phase1_gen"] += 1
+    _count("rev_heun_phase1_gen", window)
     return zh1, dw
 
 
@@ -153,12 +198,12 @@ def _check_times(name, keys, t, dtype):
 _increment_scales = functools.lru_cache(maxsize=256)(space_time_scales)
 
 
-def space_time_increment(keys, n: int, shape, dtype, dt):
+def space_time_increment(keys, n: int, shape, dtype, dt, window=None):
     """``(W, H)``, each ``(*K, *shape)``, of grid step ``n`` with spacing
     ``dt``, one row per key — one launch.  The scales ``sqrt(dt)`` and
     ``sqrt(dt/12)`` are rounded on the host as the plain version rounds
     them (:func:`repro_torch.kernels.ref.space_time_scales`, cached by
-    ``(dt, dtype)``)."""
+    ``(dt, dtype)``).  ``window`` as :func:`brownian_increment`'s."""
     if dtype not in DTYPE_CODES:
         raise TypeError(f"space_time_increment: float32 or float64, got {dtype}")
     if not keys.is_cuda:
@@ -171,14 +216,20 @@ def space_time_increment(keys, n: int, shape, dtype, dt):
     if w.numel() == 0:
         return w, h
     s_w, s_h = _increment_scales(float(dt), dtype)
+    window = _window("space_time_increment", keys, window, w.numel())
     lib = build.load()
     with build.device_guard(keys.device):
-        err = lib.rt_space_time_increment(
-            DTYPE_CODES[dtype], keys.data_ptr(), int(n), s_w, s_h, w.data_ptr(),
-            h.data_ptr(), rows, math.prod(shape),
-            _stream(keys))
+        if window is None:
+            err = lib.rt_space_time_increment(
+                DTYPE_CODES[dtype], keys.data_ptr(), int(n), s_w, s_h, w.data_ptr(),
+                h.data_ptr(), rows, math.prod(shape),
+                _stream(keys))
+        else:
+            err = lib.rt_space_time_increment_window(
+                DTYPE_CODES[dtype], keys.data_ptr(), int(n), s_w, s_h, w.data_ptr(),
+                h.data_ptr(), window[0], w.numel(), window[1], _stream(keys))
     build.check("space_time_increment", err)
-    LAUNCHES["space_time_increment"] += 1
+    _count("space_time_increment", window)
     return w, h
 
 

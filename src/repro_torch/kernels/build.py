@@ -53,6 +53,10 @@ SIGNATURES = {
     "rt_space_time_value": (_I, _P, _P, _D, _D, _D, _D, _D, _I, _P, _P, _I64, _I64, _P),
     "rt_rev_heun_phase1_gen": (_I, _P, _P, _P, _P, _P, _I64, _D, _D, _D, _P, _P,
                                _I64, _I64, _P),
+    "rt_brownian_increment_window": (_I, _P, _I64, _D, _P, _I64, _I64, _I64, _P),
+    "rt_rev_heun_phase1_gen_window": (_I, _P, _P, _P, _P, _P, _I64, _D, _D, _D, _P, _P,
+                                      _I64, _I64, _I64, _P),
+    "rt_space_time_increment_window": (_I, _P, _I64, _D, _D, _P, _P, _I64, _I64, _I64, _P),
     "rt_rev_heun_phase1": (_I, _P, _P, _P, _P, _P, _D, _D, _P, _I64, _P),
     "rt_rev_heun_phase2": (_I, _P, _P, _P, _P, _P, _P, _D, _D, _P, _I64, _P),
     "rt_rev_heun_bwd_phase1": (_I, _P, _P, _P, _P, _D, _P, _P, _I64, _P),

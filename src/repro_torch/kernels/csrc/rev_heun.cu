@@ -13,6 +13,9 @@
 // which the reference writes as jax.random ops with no Pallas kernel:
 //   space_time_increment src/repro/core/brownian.py:175-177, 548-562
 //   space_time_value     src/repro/core/brownian.py:238-314 (BrownianPath._wh)
+// brownian_increment, rev_heun_phase1_gen and space_time_increment also have
+// row-windowed variants (a data-parallel rank's elements of a one-key draw;
+// below space_time_increment_kernel).
 // The plain versions are src/repro_torch/kernels/ref.py; each kernel here
 // computes the same function with the same op order, bitwise.  The backward
 // pair's grouping (c_mu1 = g_mu1 + 0.5*(g_z1*dt), d_mu = 0.5*(g_z1*dt) +
@@ -135,6 +138,19 @@ __host__ __device__ __forceinline__ void unit_coords(I u, I units, I& row, I& j)
   j = u - row * units;
 }
 
+// The float32 counter pair of draw unit j of a draw of `size` elements,
+// `units` = ceil(size / 2): (j, j + units), whose one hash gives elements j
+// (lane 0) and j + units (lane 1); for odd size the last pair's second
+// counter is 0 (the pad).  The one statement of the layout (draw_pair,
+// draw_element; the plain version's is kernels/prng.py).
+template <typename I>
+__device__ __forceinline__ void pair_counters(I j, I units, I size, uint32_t& x0,
+                                              uint32_t& x1) {
+  const I second = j + units;
+  x0 = static_cast<uint32_t>(j);
+  x1 = second < size ? static_cast<uint32_t>(second) : 0u;
+}
+
 // Draw unit j of normal(key, (d,))·scale, `units` a row: in float32 the
 // counter pair (j, j + units), whose one hash gives elements j (w0) and
 // j + units (w1; for odd d the last pair's second counter is 0 and w1 the
@@ -146,9 +162,8 @@ template <typename T, typename I>
 __device__ __forceinline__ void draw_pair(uint32_t k0, uint32_t k1, I j, I units, I d, T scale,
                                           T& w0, T& w1) {
   if constexpr (sizeof(T) == 4) {
-    const I second = j + units;
-    uint32_t x0 = static_cast<uint32_t>(j);
-    uint32_t x1 = second < d ? static_cast<uint32_t>(second) : 0u;
+    uint32_t x0, x1;
+    pair_counters(j, units, d, x0, x1);
     threefry2x32(k0, k1, x0, x1);
     w0 = mul(normal_f32_bits(x0), scale);
     w1 = mul(normal_f32_bits(x1), scale);
@@ -674,6 +689,99 @@ space_time_increment_kernel(const int64_t* __restrict__ keys, int64_t n, T s_w, 
   }
 }
 
+// ---------------------------------------------------------------------------
+// Row-windowed one-key draws (data parallelism).  A one-key path draws
+// normal(key, (B, d)) over the whole batch, so under a data-parallel mesh a
+// rank's rows [r0, r1) are elements [r0·d, r1·d) of that draw, not a draw
+// of shape (r1 − r0, d): in float32 element e is a lane of counter pair
+// e (lane 0, e < half) or e − half (lane 1), half = ceil(size / 2), and the
+// two lanes of a pair usually belong to different ranks.  These kernels
+// draw elements [e0, e0 + count) of a size-`size` draw, one thread an
+// element: in float32 the thread hashes its element's pair and transforms
+// only its own lane, in float64 its element is its own hash (e, e + size),
+// as normal_f64 draws it.  Every element keeps the whole draw's op order,
+// so the windows, concatenated, are the whole launch's bits.  A window is
+// one key (rows = 1).  Programmatic dependent launches, as the others.
+// ---------------------------------------------------------------------------
+
+// Element e (global) of normal(key, (size,))·scale: in float32 the lane of
+// its counter pair (pair_counters) that is e.
+template <typename T>
+__device__ __forceinline__ T draw_element(uint32_t k0, uint32_t k1, int64_t e, int64_t size,
+                                          T scale) {
+  if constexpr (sizeof(T) == 4) {
+    const int64_t units = (size + 1) / 2;
+    const bool lane1 = e >= units;
+    uint32_t x0, x1;
+    pair_counters<int64_t>(lane1 ? e - units : e, units, size, x0, x1);
+    threefry2x32(k0, k1, x0, x1);
+    return mul(normal_f32_bits(lane1 ? x1 : x0), scale);
+  } else {
+    return mul(normal_f64(k0, k1, e, size), scale);
+  }
+}
+
+// Elements [e0, e0 + count) of the step-n increment normal(fold_in(key, n),
+// (size,))·sqrt(dt).  The windowed brownian_increment_kernel.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+brownian_increment_window_kernel(const int64_t* __restrict__ keys, int64_t n, T dt,
+                                 T* __restrict__ out, int64_t e0, int64_t count, int64_t size) {
+  const T sqrt_dt = sqrt_ieee(dt);
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  release_dependents();
+  wait_for_predecessor();
+  if (i >= count) return;
+  uint32_t k0 = static_cast<uint32_t>(keys[0]);
+  uint32_t k1 = static_cast<uint32_t>(keys[1]);
+  fold_in(k0, k1, n);
+  out[i] = draw_element(k0, k1, e0 + i, size, sqrt_dt);
+}
+
+// Phase 1 of the rank's elements, ΔW elements [e0, e0 + count) of the
+// one-key draw.  The windowed phase1_gen_kernel; the state is the rank's.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+phase1_gen_window_kernel(const T* __restrict__ z, const T* __restrict__ zh,
+                         const T* __restrict__ mu, const T* __restrict__ sigma,
+                         const int64_t* __restrict__ keys, int64_t n, T dt_grid, T dt, T sign,
+                         T* __restrict__ zh1, T* __restrict__ dw, int64_t e0, int64_t count,
+                         int64_t size) {
+  const T sqrt_dt = sqrt_ieee(dt_grid);
+  const T sdt = mul(sign, dt);
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  release_dependents();
+  wait_for_predecessor();
+  if (i >= count) return;
+  const T z0 = z[i], zh0 = zh[i], mu0 = mu[i], s0 = sigma[i];
+  uint32_t k0 = static_cast<uint32_t>(keys[0]);
+  uint32_t k1 = static_cast<uint32_t>(keys[1]);
+  fold_in(k0, k1, n);
+  const T w = draw_element(k0, k1, e0 + i, size, sqrt_dt);
+  zh1[i] = phase1_elem(z0, zh0, mu0, s0, w, sdt, sign);
+  dw[i] = w;
+}
+
+// (W, H) elements [e0, e0 + count) of grid step n.  The windowed
+// space_time_increment_kernel.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+space_time_increment_window_kernel(const int64_t* __restrict__ keys, int64_t n, T s_w, T s_h,
+                                   T* __restrict__ w, T* __restrict__ h, int64_t e0,
+                                   int64_t count, int64_t size) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  release_dependents();
+  wait_for_predecessor();
+  if (i >= count) return;
+  uint32_t k0 = static_cast<uint32_t>(keys[0]);
+  uint32_t k1 = static_cast<uint32_t>(keys[1]);
+  fold_in(k0, k1, n);
+  uint32_t a0, a1, b0, b1;
+  split2(k0, k1, a0, a1, b0, b1);
+  w[i] = draw_element(a0, a1, e0 + i, size, s_w);
+  h[i] = draw_element(b0, b1, e0 + i, size, s_h);
+}
+
 // (W(t_b) - W(t0), I(t_b)) of row b, I the running time-integral, by the
 // joint (W, ∫W) Lévy-bridge descent to `depth` levels (the reference's
 // BrownianPath._wh).  A block owns up to 32 elements: `rpb` rows and a
@@ -1093,6 +1201,10 @@ cudaError_t launch_bwd_phase2(const void* g_z1, const void* ghat, const void* dw
                           static_cast<T*>(d_sigma), total);
 }
 
+
+// The windowed draws' launches: a thread an element of the window.
+inline int64_t window_blocks(int64_t count) { return (count + kThreads - 1) / kThreads; }
+
 }  // namespace repro_torch
 
 
@@ -1325,4 +1437,77 @@ extern "C" int rt_space_time_value(int dtype, const int64_t* keys, const void* t
     }
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Row-windowed one-key draws: elements [e0, e0 + count) of the size-`size`
+// draw of the one key keys[0..1] (a data-parallel rank's rows).  The window
+// (0, size, size) gives the unwindowed launch's bits.
+extern "C" int rt_brownian_increment_window(int dtype, const int64_t* keys, int64_t n,
+                                            double dt, void* out, int64_t e0, int64_t count,
+                                            int64_t size, void* stream) {
+  using namespace repro_torch;
+  if (count <= 0) return static_cast<int>(cudaGetLastError());
+  if (e0 < 0 || e0 + count > size || size >= (int64_t{1} << 32)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t blocks = window_blocks(count);
+  const cudaError_t err =
+      dtype == 0 ? launch_dependent(brownian_increment_window_kernel<float>, blocks, s, keys, n,
+                                    static_cast<float>(dt), static_cast<float*>(out), e0, count,
+                                    size)
+                 : launch_dependent(brownian_increment_window_kernel<double>, blocks, s, keys,
+                                    n, dt, static_cast<double*>(out), e0, count, size);
+  return static_cast<int>(err);
+}
+
+extern "C" int rt_rev_heun_phase1_gen_window(int dtype, const void* z, const void* zh,
+                                             const void* mu, const void* sigma,
+                                             const int64_t* keys, int64_t n, double dt_grid,
+                                             double dt, double sign, void* zh1, void* dw,
+                                             int64_t e0, int64_t count, int64_t size,
+                                             void* stream) {
+  using namespace repro_torch;
+  if (count <= 0) return static_cast<int>(cudaGetLastError());
+  if (e0 < 0 || e0 + count > size || size >= (int64_t{1} << 32)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t blocks = window_blocks(count);
+  cudaError_t err;
+  if (dtype == 0) {
+    const auto in = [](const void* p) { return static_cast<const float*>(p); };
+    err = launch_dependent(phase1_gen_window_kernel<float>, blocks, s, in(z), in(zh), in(mu),
+                           in(sigma), keys, n, static_cast<float>(dt_grid),
+                           static_cast<float>(dt), static_cast<float>(sign),
+                           static_cast<float*>(zh1), static_cast<float*>(dw), e0, count, size);
+  } else {
+    const auto in = [](const void* p) { return static_cast<const double*>(p); };
+    err = launch_dependent(phase1_gen_window_kernel<double>, blocks, s, in(z), in(zh), in(mu),
+                           in(sigma), keys, n, dt_grid, dt, sign, static_cast<double*>(zh1),
+                           static_cast<double*>(dw), e0, count, size);
+  }
+  return static_cast<int>(err);
+}
+
+extern "C" int rt_space_time_increment_window(int dtype, const int64_t* keys, int64_t n,
+                                              double s_w, double s_h, void* w, void* h,
+                                              int64_t e0, int64_t count, int64_t size,
+                                              void* stream) {
+  using namespace repro_torch;
+  if (count <= 0) return static_cast<int>(cudaGetLastError());
+  if (e0 < 0 || e0 + count > size || size >= (int64_t{1} << 32)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t blocks = window_blocks(count);
+  const cudaError_t err =
+      dtype == 0 ? launch_dependent(space_time_increment_window_kernel<float>, blocks, s, keys,
+                                    n, static_cast<float>(s_w), static_cast<float>(s_h),
+                                    static_cast<float*>(w), static_cast<float*>(h), e0, count,
+                                    size)
+                 : launch_dependent(space_time_increment_window_kernel<double>, blocks, s, keys,
+                                    n, s_w, s_h, static_cast<double*>(w),
+                                    static_cast<double*>(h), e0, count, size);
+  return static_cast<int>(err);
 }

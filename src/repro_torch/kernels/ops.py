@@ -68,20 +68,28 @@ def rev_heun_bwd_phase2(g_z1, ghat, dw, dt, use_kernel: Optional[bool] = None):
 
 
 def rev_heun_phase1_gen(z, zh, mu, sigma, key, n, dt_grid, dt, sign: float = 1.0,
-                        use_kernel: Optional[bool] = None):
-    """Phase 1 with ΔW drawn from ``key`` (shape ``(*K, 2)``) — ``(ẑ₁, ΔW)``."""
+                        use_kernel: Optional[bool] = None, window=None):
+    """Phase 1 with ΔW drawn from ``key`` (shape ``(*K, 2)``) — ``(ẑ₁, ΔW)``.
+    ``window = (e0, size)``: one key, ``z`` the block of elements ``[e0, e0
+    + z.numel())`` of the ``size``-element draw (a data-parallel rank's
+    rows)."""
     if _decide("rev_heun_phase1_gen", z, use_kernel):
-        return _bk.rev_heun_phase1_gen(z, zh, mu, sigma, key, n, dt_grid, dt, sign)
+        return _bk.rev_heun_phase1_gen(z, zh, mu, sigma, key, n, dt_grid, dt, sign, window)
     k1, k2 = key[..., 0], key[..., 1]
-    dw = ref.brownian_increment(k1, k2, n, z.shape[key.dim() - 1:], z.dtype, dt_grid)
+    dw = ref.brownian_increment(k1, k2, n, z.shape[key.dim() - 1:], z.dtype, dt_grid,
+                                window)
     return ref.rev_heun_phase1(z, zh, mu, sigma, dw, dt, sign), dw
 
 
-def brownian_increment(key, n, shape, dtype, dt, use_kernel: Optional[bool] = None):
-    """Step-``n`` uniform-grid increment per key: ``(*K, *shape)``."""
+def brownian_increment(key, n, shape, dtype, dt, use_kernel: Optional[bool] = None,
+                       window=None):
+    """Step-``n`` uniform-grid increment per key: ``(*K, *shape)``; with
+    ``window = (e0, size)`` (one key) the block ``shape`` of elements
+    ``[e0, e0 + prod(shape))`` of the ``size``-element draw."""
     if _decide("brownian_increment", key, use_kernel):
-        return _bk.brownian_increment(key, n, tuple(shape), dtype, dt)
-    return ref.brownian_increment(key[..., 0], key[..., 1], n, tuple(shape), dtype, dt)
+        return _bk.brownian_increment(key, n, tuple(shape), dtype, dt, window)
+    return ref.brownian_increment(key[..., 0], key[..., 1], n, tuple(shape), dtype, dt,
+                                  window)
 
 
 def brownian_value(key, t, t0, t1, shape, dtype, depth: int = 24,
@@ -94,12 +102,15 @@ def brownian_value(key, t, t0, t1, shape, dtype, depth: int = 24,
                               depth)
 
 
-def space_time_increment(key, n, shape, dtype, dt, use_kernel: Optional[bool] = None):
+def space_time_increment(key, n, shape, dtype, dt, use_kernel: Optional[bool] = None,
+                         window=None):
     """``(W, H)`` of uniform-grid step ``n`` per key, each ``(*K, *shape)``:
-    ``space_time_levy_area(fold_in(key, n), dt)``."""
+    ``space_time_levy_area(fold_in(key, n), dt)`` (``window`` as
+    :func:`brownian_increment`'s)."""
     if _decide("space_time_increment", key, use_kernel):
-        return _bk.space_time_increment(key, n, tuple(shape), dtype, dt)
-    return ref.space_time_increment(key[..., 0], key[..., 1], n, tuple(shape), dtype, dt)
+        return _bk.space_time_increment(key, n, tuple(shape), dtype, dt, window)
+    return ref.space_time_increment(key[..., 0], key[..., 1], n, tuple(shape), dtype, dt,
+                                    window)
 
 
 def space_time_value(key, t, t0, t1, shape, dtype, depth: int = 24,

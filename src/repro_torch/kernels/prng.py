@@ -156,25 +156,55 @@ def random_bits(k1, k2, bit_width: int, size: int) -> torch.Tensor:
     raise ValueError(f"bit_width must be 32 or 64, got {bit_width}")
 
 
-def uniform(k1, k2, size: int, dtype) -> torch.Tensor:
-    """Unit uniforms ``bitcast(mantissa | 1.0) - 1`` in ``[0, 1)``."""
-    if dtype == torch.float32:
-        bits = random_bits(k1, k2, 32, size)
-        f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    elif dtype == torch.float64:
-        hi, lo = _bits64_halves(k1, k2, size)
-        f = ((hi << 20) | (lo >> 12) | 0x3FF0000000000000).view(torch.float64)
-    else:
+def _window_hash(k1, k2, size: int, window, dtype):
+    """The words of elements ``[e0, e0 + count)`` of a ``size``-element
+    draw, ``window = (e0, count)``: in float32 element ``e`` is lane 0 of
+    counter pair ``e`` (``e < half``) or lane 1 of pair ``e − half``, the
+    odd pad's second counter 0; in float64 the 64-bit element ``e`` is its
+    own pair ``(e, e + size)`` -> ``(hi, lo)`` words."""
+    e0, count = window
+    if e0 < 0 or count < 0 or e0 + count > size:
+        raise ValueError(f"window ({e0}, {count}) is not inside a draw of {size}")
+    k1 = _words(k1)
+    k2 = _words(k2, k1.device)
+    e = torch.arange(e0, e0 + count, dtype=torch.int64, device=k1.device)
+    if dtype == torch.float64:
+        return threefry2x32(k1[..., None], k2[..., None], e, e + size)
+    half = (size + 1) // 2
+    second = e >= half
+    j = torch.where(second, e - half, e)
+    x2 = torch.where(j + half < size, j + half, torch.zeros_like(j))
+    y1, y2 = threefry2x32(k1[..., None], k2[..., None], j, x2)
+    return torch.where(second, y2, y1), None
+
+
+def uniform(k1, k2, size: int, dtype, window=None) -> torch.Tensor:
+    """Unit uniforms ``bitcast(mantissa | 1.0) - 1`` in ``[0, 1)``; with
+    ``window = (e0, count)`` only elements ``[e0, e0 + count)`` of the
+    ``size``-element draw, bitwise that slice of it (a data-parallel rank's
+    rows of a one-key draw)."""
+    if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"uniform draws float32 or float64, got {dtype}")
+    if window is not None:
+        hi, lo = _window_hash(k1, k2, size, window, dtype)
+    elif dtype == torch.float32:
+        hi, lo = random_bits(k1, k2, 32, size), None
+    else:
+        hi, lo = _bits64_halves(k1, k2, size)
+    if dtype == torch.float32:
+        f = ((hi >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    else:
+        f = ((hi << 20) | (lo >> 12) | 0x3FF0000000000000).view(torch.float64)
     return f - 1.0
 
 
-def uniform_range(k1, k2, size: int, dtype, minval, maxval) -> torch.Tensor:
-    """``jax.random.uniform(key, (size,), dtype, minval, maxval)``."""
+def uniform_range(k1, k2, size: int, dtype, minval, maxval, window=None) -> torch.Tensor:
+    """``jax.random.uniform(key, (size,), dtype, minval, maxval)`` (its
+    ``window`` slice, as :func:`uniform`)."""
     np_dtype = _NP_DTYPES[dtype]
     lo = np.array(minval, np_dtype)
     scale = np.array(maxval, np_dtype) - lo
-    floats = uniform(k1, k2, size, dtype)
+    floats = uniform(k1, k2, size, dtype, window)
     lo_t = torch.full((), float(lo), dtype=dtype, device=floats.device)
     return torch.maximum(lo_t, floats * float(scale) + float(lo))
 
@@ -230,19 +260,26 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"erf_inv takes float32 or float64, got {x.dtype}")
 
 
-def normal(k1, k2, size: int, dtype) -> torch.Tensor:
+def normal(k1, k2, size: int, dtype, window=None) -> torch.Tensor:
     """``(*key_shape, size)`` standard normals, ``jax.random.normal``'s
-    transform: ``sqrt(2)·erf_inv(uniform(nextafter(-1, 0), 1))``."""
+    transform: ``sqrt(2)·erf_inv(uniform(nextafter(-1, 0), 1))``; with
+    ``window = (e0, count)`` the ``(*key_shape, count)`` elements ``[e0, e0
+    + count)`` of that draw, bitwise (:func:`uniform`)."""
     np_dtype = _NP_DTYPES[dtype]
     lo = np.nextafter(np.array(-1.0, np_dtype), np.array(0.0, np_dtype),
                       dtype=np_dtype)
-    u = uniform_range(k1, k2, size, dtype, lo, np.array(1.0, np_dtype))
+    u = uniform_range(k1, k2, size, dtype, lo, np.array(1.0, np_dtype), window)
     return erf_inv(u) * float(np.array(np.sqrt(2), np_dtype))
 
 
-def normal_like(k1, k2, shape: Tuple[int, ...], dtype) -> torch.Tensor:
-    """Shaped normals, ``(*key_shape, *shape)``."""
-    z = normal(k1, k2, math.prod(shape), dtype)
+def normal_like(k1, k2, shape: Tuple[int, ...], dtype, window=None) -> torch.Tensor:
+    """Shaped normals, ``(*key_shape, *shape)``.  With ``window = (e0,
+    size)``, ``shape`` is the local block: elements ``[e0, e0 +
+    prod(shape))`` of a ``size``-element draw."""
+    if window is None:
+        z = normal(k1, k2, math.prod(shape), dtype)
+    else:
+        z = normal(k1, k2, window[1], dtype, (window[0], math.prod(shape)))
     return z.reshape(z.shape[:-1] + tuple(shape))
 
 

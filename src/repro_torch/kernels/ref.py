@@ -64,15 +64,18 @@ def rev_heun_bwd_phase2(g_z1, ghat, dw, dt):
     return d_z, d_zh, d_mu, d_sigma
 
 
-def brownian_increment(k1, k2, n, shape, dtype, dt):
+def brownian_increment(k1, k2, n, shape, dtype, dt, window=None):
     """Step-``n`` increment of a uniform grid with spacing ``dt``:
     ``normal(fold_in(key, n), shape)·sqrt(dt)``.
 
     ``k1, k2``: key word tensors of any batch shape ``K``; the result has
-    shape ``(*K, *shape)``, one independent draw per key.
+    shape ``(*K, *shape)``, one independent draw per key.  ``window = (e0,
+    size)``: ``shape`` is a block of elements ``[e0, e0 + prod(shape))`` of
+    the ``size``-element draw (a data-parallel rank's rows of a one-key
+    increment), bitwise that slice of it.
     """
     f1, f2 = prng.fold_in(k1, k2, n)
-    z = prng.normal_like(f1, f2, tuple(shape), dtype)
+    z = prng.normal_like(f1, f2, tuple(shape), dtype, window)
     return z * torch.sqrt(torch.as_tensor(dt, dtype=dtype, device=z.device))
 
 
@@ -160,21 +163,22 @@ def space_time_scales(dt: float, dtype):
     return float(np.sqrt(d)), float(np.sqrt(d / np_dtype(12.0)))
 
 
-def levy_pair(k1, k2, shape, dtype, dt):
+def levy_pair(k1, k2, shape, dtype, dt, window=None):
     """``(W, H)`` over an interval of length ``dt`` from the key words:
     ``kw, kh = split(key)``, ``W = normal(kw)·sqrt(dt)``, ``H =
     normal(kh)·sqrt(dt/12)`` (the reference's ``space_time_levy_area``).
-    ``k1, k2``: any batch shape ``K``; both results ``(*K, *shape)``."""
+    ``k1, k2``: any batch shape ``K``; both results ``(*K, *shape)``
+    (``window`` as :func:`brownian_increment`'s)."""
     (a1, a2), (b1, b2) = _split2(k1, k2)
     s_w, s_h = space_time_scales(dt, dtype)
-    return (prng.normal_like(a1, a2, tuple(shape), dtype) * s_w,
-            prng.normal_like(b1, b2, tuple(shape), dtype) * s_h)
+    return (prng.normal_like(a1, a2, tuple(shape), dtype, window) * s_w,
+            prng.normal_like(b1, b2, tuple(shape), dtype, window) * s_h)
 
 
-def space_time_increment(k1, k2, n, shape, dtype, dt):
+def space_time_increment(k1, k2, n, shape, dtype, dt, window=None):
     """``(W, H)`` of step ``n`` of a uniform grid with spacing ``dt``: the
     pair of ``fold_in(key, n)`` (:func:`levy_pair`)."""
-    return levy_pair(*prng.fold_in(k1, k2, n), shape, dtype, dt)
+    return levy_pair(*prng.fold_in(k1, k2, n), shape, dtype, dt, window)
 
 
 def wh_descent(k1, k2, t, t0: float, t1: float, depth: int):

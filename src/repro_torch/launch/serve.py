@@ -21,6 +21,8 @@ Usage::
         --arch mamba2-1.3b --full             # the full model, random weights
     PYTHONPATH=src python -m repro_torch.launch.serve --workload latent-sde \\
         --device cpu                        # plain PyTorch versions, no card
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload sde-gan \\
+        --host-devices 2 [--scheduler continuous]   # data-parallel over 2 ranks
 
 Serves on the card by default; with no card and no ``--device cpu`` it
 stops with a named error.  The Neural-SDE modes are the reference's:
@@ -33,9 +35,13 @@ tolerance its deadline class admits, and ``--scheduler
 graphs on the card).  ``--workload lm`` serves the dense family
 (qwen2.5-14b, tinyllama-1.1b, starcoder2-3b) and the pure-SSM family
 (mamba2-1.3b) at their smoke size unless ``--full`` is given, as the
-reference's flags read.  Still unported, each with a named error pointing
-at ROADMAP.md: the other LM families (MoE, MLA, hybrid, encoder-decoder,
-VLM) and ``--host-devices`` (data-parallel serving).
+reference's flags read.  ``--host-devices N`` serves the Neural-SDE
+workloads data-parallel over ``N`` local ranks (spawned processes: gloo on
+the CPU with ``--device cpu`` or ranks sharing one card, NCCL with a card a
+rank), every mode included, each trajectory bitwise the one-rank
+service's.  Still unported, each with a named error pointing at
+ROADMAP.md: the other LM families (MoE, MLA, hybrid, encoder-decoder,
+VLM).
 """
 
 from __future__ import annotations
@@ -129,7 +135,9 @@ def main(argv=None):
     ap.add_argument("--request-max", type=int, default=4,
                     help="largest per-request trajectory count")
     ap.add_argument("--host-devices", type=int, default=None,
-                    help="data-parallel serving over N devices (not ported yet)")
+                    help="sde-gan/latent-sde: serve data-parallel over N local ranks "
+                         "(spawned processes; gloo on the CPU or ranks sharing one card, "
+                         "NCCL with a card a rank)")
     ap.add_argument("--latent-mode", choices=("prior", "posterior"), default="prior",
                     help="latent-sde: decode from the prior, or encode observations "
                          "and decode the posterior")
@@ -174,12 +182,13 @@ def main(argv=None):
     ap.add_argument("--full", dest="smoke", action="store_false",
                     help="lm: the full config")
     args = ap.parse_args(argv)
-    if args.host_devices is not None:
-        from ..serving import DistributedNotPortedError
+    if args.host_devices is not None and args.host_devices > 1:
+        if args.workload == "lm":
+            ap.error("--host-devices: the LM's sharded execution is not ported yet — "
+                     "ROADMAP.md Queue 1, 'Sharded LM execution'")
+        from ..distributed.compat import run_cli_ranks
 
-        raise DistributedNotPortedError(
-            f"--host-devices {args.host_devices}: data-parallel serving needs the "
-            f"distributed port — ROADMAP.md Queue 1, 'Distributed'")
+        return run_cli_ranks(main, argv, args.host_devices, args.device)
     if args.workload == "lm":
         return serve_lm(args.arch, args.batch, args.prompt_len, args.gen, args.smoke,
                         args.seed, device=args.device)

@@ -196,6 +196,17 @@ def make_gan_optimizers(lr: float = 1.0, constraint: str = "clip"):
     return gen_opt, disc_opt
 
 
+def _dp_mean(*trees):
+    """The mean over the data-parallel ranks of every leaf of ``trees`` (the
+    gradients and the logged metrics), through one flat all-reduce per
+    dtype; the trees themselves without a mesh.  With equal shards the mean
+    of the ranks' batch means is the whole batch's mean."""
+    from ..distributed.sharding import allreduce_mean
+
+    leaves, spec = tree.flatten(list(trees))
+    return tuple(tree.unflatten(spec, allreduce_mean(leaves)))
+
+
 def _grad_leaves(params):
     """``(leaves that require a gradient, spec, the tree over them)``."""
     leaves, spec = tree.flatten(params)
@@ -203,7 +214,7 @@ def _grad_leaves(params):
     return leaves, spec, tree.unflatten(spec, leaves)
 
 
-def sde_gan_grads(params, cfg, key, y_real, batch: int):
+def sde_gan_grads(params, cfg, key, y_real, batch: int, rows=None):
     """Both players' losses and gradients from one forward (the generator
     solve inside the joint solve, and the real path's CDE solve) ->
     ``(gen_loss, disc_loss, gen_grads, disc_grads)``, the losses detached.
@@ -215,12 +226,15 @@ def sde_gan_grads(params, cfg, key, y_real, batch: int):
     ``disc_loss = E[fake] − E[real]`` and the real path does not depend on
     the generator, so every cotangent into the generator is exactly the
     negated one (rounding to nearest is symmetric, and the sums run in
-    fixed orders).  The joint solve keeps only its terminal state."""
+    fixed orders).  The joint solve keeps only its terminal state.
+    ``rows``: a data-parallel rank's row window of ``batch``, whose rows
+    ``y_real`` holds (see :func:`repro_torch.core.sde.gan_score_fake`)."""
     from ..core.sde import gan_losses
 
     gen_leaves, gspec, gen = _grad_leaves(params["gen"])
     disc_leaves, dspec, disc = _grad_leaves(params["disc"])
-    gl, dl, _ = gan_losses({"gen": gen, "disc": disc}, cfg, key, y_real, batch, paths=False)
+    gl, dl, _ = gan_losses({"gen": gen, "disc": disc}, cfg, key, y_real, batch, paths=False,
+                           rows=rows)
     grads = torch.autograd.grad(dl, gen_leaves + disc_leaves)
     gg = [-g for g in grads[:len(gen_leaves)]]
     return (gl.detach(), dl.detach(), tree.unflatten(gspec, gg),
@@ -249,11 +263,17 @@ def make_sde_gan_step(cfg, g_update, d_update, batch: int, seq_len: int,
     live on that device, ``key`` is moved there.  Validation is eager: an
     unknown constraint, and ``"gp"`` with ``seq_len != num_steps + 1`` (the
     interpolates need the real and fake paths on one grid), raise here.
-    The reference's batch-sharding constraint waits for the distributed
-    port; on one device it is the identity."""
+    Under a data-parallel mesh (:mod:`repro_torch.distributed.sharding`)
+    every rank makes the real batch whole and keeps its rows
+    (``shard_time_major``, the reference's batch-sharding constraint), the
+    fake batch's draws are the whole batch's, windowed to the rank's rows
+    (``row_window``, passed to the losses), and the gradients and metrics
+    are the ranks' mean (one flat all-reduce), so every rank applies the
+    same update; on one device it is the identity."""
     from .. import optim
     from ..core.sde import gan_losses, gan_score_fake, gradient_penalty
     from ..data.synthetic import ou_process
+    from ..distributed.sharding import row_window, shard_time_major
     from ..kernels import prng
 
     if constraint not in GAN_CONSTRAINTS:
@@ -273,34 +293,39 @@ def make_sde_gan_step(cfg, g_update, d_update, batch: int, seq_len: int,
             gen = optim.apply_updates(params["gen"], upd)
         return {"gen": gen, "disc": disc}, g_state, d_state
 
+    def real_batch(key):
+        return shard_time_major(ou_process(prng.fold_in_key(key, 0), batch, seq_len,
+                                           dtype=cfg.dtype))
+
     def clip_step(params, g_state, d_state, key):
         key = key.to(dev)
-        y_real = ou_process(prng.fold_in_key(key, 0), batch, seq_len, dtype=cfg.dtype)
-        gl, dl, gg, dg = sde_gan_grads(params, cfg, prng.fold_in_key(key, 1), y_real, batch)
+        y_real = real_batch(key)
+        gl, dl, gg, dg = _dp_mean(*sde_gan_grads(params, cfg, prng.fold_in_key(key, 1),
+                                                 y_real, batch, row_window(batch)))
         params, g_state, d_state = update(params, g_state, d_state, gg, dg)
         return params, g_state, d_state, {"gen_loss": gl, "disc_loss": dl, "wasserstein": -dl}
 
     def gp_step(params, g_state, d_state, key):
         key = key.to(dev)
-        y_real = ou_process(prng.fold_in_key(key, 0), batch, seq_len, dtype=cfg.dtype)
+        y_real, rows = real_batch(key), row_window(batch)
         disc_leaves, dspec, disc = _grad_leaves(params["disc"])
         _, dl, fake = gan_losses({"gen": params["gen"], "disc": disc}, cfg,
-                                 prng.fold_in_key(key, 1), y_real, batch)
+                                 prng.fold_in_key(key, 1), y_real, batch, rows=rows)
         # the fake paths the loss already solved for are constants w.r.t. φ
         loss = dl + gp_weight * gradient_penalty(disc, cfg, prng.fold_in_key(key, 3),
-                                                 y_real, fake.detach())
+                                                 y_real, fake.detach(), batch, rows)
         dg = tree.unflatten(dspec, list(torch.autograd.grad(loss, disc_leaves)))
         del disc_leaves, disc, loss, fake
         # The generator's loss needs only the fake score: the reference's
         # compiled step drops the real path's solve from it as dead code.
         gen_leaves, gspec, gen = _grad_leaves(params["gen"])
         score, _ = gan_score_fake({"gen": gen, "disc": params["disc"]}, cfg,
-                                  prng.fold_in_key(key, 1), batch, paths=False)
+                                  prng.fold_in_key(key, 1), batch, paths=False, rows=rows)
         gl = -torch.mean(score)
         gg = tree.unflatten(gspec, list(torch.autograd.grad(gl, gen_leaves)))
+        gl, dl, gg, dg = _dp_mean(gl.detach(), dl.detach(), gg, dg)
         params, g_state, d_state = update(params, g_state, d_state, gg, dg)
-        dl = dl.detach()
-        return params, g_state, d_state, {"gen_loss": gl.detach(), "disc_loss": dl,
+        return params, g_state, d_state, {"gen_loss": gl, "disc_loss": dl,
                                           "wasserstein": -dl}
 
     return clip_step if constraint == "clip" else gp_step
@@ -339,11 +364,15 @@ def make_latent_sde_step(cfg, opt_update, batch: int, seq_len: int,
     Runs on the card unless ``device="cpu"``; ``params`` must live on that
     device, ``key`` is moved there.  Validation is eager: a misaligned grid,
     a wrong data width or an illegal solver × adjoint × fusion cell raises a
-    named error here, at build time.
+    named error here, at build time.  Under a data-parallel mesh the batch
+    is made whole and the rank keeps its rows (``shard_time_major``), the
+    one-key draws are windowed, and the gradients and metrics are the
+    ranks' mean, as :func:`make_sde_gan_step`'s.
     """
     from ..core.sde import latent_sde_loss, latent_sde_loss_terminal, validate_latent_grid
     from ..core.solve import get_solver
     from ..data.synthetic import air_quality_like
+    from ..distributed.sharding import row_window, shard_time_major
     from ..kernels import prng
     from ..optim import apply_updates
 
@@ -390,20 +419,22 @@ def make_latent_sde_step(cfg, opt_update, batch: int, seq_len: int,
     def step(params, opt_state, key):
         key = key.to(dev)
         ys, _ = air_quality_like(prng.fold_in_key(key, 0), batch, seq_len, dtype=cfg.dtype)
+        ys, rows = shard_time_major(ys), row_window(batch)
         leaves, spec = tree.flatten(params)
         leaves = [x.detach().requires_grad_() for x in leaves]
         if adjoint == "exact":
             loss, parts = latent_sde_loss(tree.unflatten(spec, leaves), cfg,
-                                          prng.fold_in_key(key, 1), ys)
+                                          prng.fold_in_key(key, 1), ys, batch, rows)
         else:
             loss, parts = latent_sde_loss_terminal(tree.unflatten(spec, leaves), cfg,
                                                    prng.fold_in_key(key, 1), ys,
-                                                   gradient_mode=mode)
+                                                   gradient_mode=mode, batch=batch, rows=rows)
         grads = tree.unflatten(spec, torch.autograd.grad(loss, leaves))
+        metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()}}
+        grads, metrics = _dp_mean(grads, metrics)
         with torch.no_grad():
             upd, opt_state = opt_update(grads, opt_state, params)
             params = apply_updates(params, upd)
-        metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()}}
         return params, opt_state, metrics
 
     return step

@@ -55,10 +55,19 @@ the serve CLI (either package's) restores.  Fresh weights come from a
 ``torch.Generator`` seeded with ``seed`` (the port cannot draw the
 reference's ``jax.random`` init; the tests carry weights across instead).
 
+``--host-devices N`` trains the SDE workloads data-parallel over ``N``
+local ranks (spawned processes, :func:`repro_torch.distributed.compat.
+launch`): gloo ranks on the CPU with ``--device cpu``, or on the card
+(NCCL when each rank has a card of its own, gloo when they share one).  The
+parameters are replicated, each rank steps its ``batch / N`` rows, and one
+flat all-reduce of the gradients a step keeps the ranks' parameters
+bitwise equal; rank 0 writes the checkpoints.  A batch that does not
+divide runs unsharded on every rank, with the reference's message.
+
 Every workload runs on the card by default; with no card and no
 ``--device cpu`` it stops with a named error.  The vlm/audio/encdec
-families and the data-parallel mesh are not ported yet (ROADMAP.md Queue
-1).
+families and the LM's sharded execution are not ported yet (ROADMAP.md
+Queue 1).
 """
 
 from __future__ import annotations
@@ -193,37 +202,70 @@ def _restore_or_fresh(ckpt_dir: Optional[str], template, tag: str):
     return state, start
 
 
-def _sde_training_loop(tag: str, start: int, steps: int, state, step_fn, data_key,
-                       ckpt_dir: Optional[str], ckpt_every: int, on_step, serving):
+def _data_parallel_mesh(batch: int, tag: str):
+    """The data-parallel mesh over the process group's ranks (one rank: no
+    mesh).  Both Neural-SDE workloads are pure batch parallelism: the
+    parameters are tiny and replicated, only the sample batch shards.  A
+    batch that does not divide runs unsharded on every rank."""
+    import torch.distributed as dist
+
+    from ..distributed.sharding import data_parallel_mesh
+
+    mesh = data_parallel_mesh(batch)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if mesh is None and world > 1:
+        print(f"[{tag}] batch {batch} not divisible by {world} devices — running "
+              f"unsharded", flush=True)
+    return mesh
+
+
+def _sde_training_loop(tag: str, start: int, steps: int, batch: int, state, step_fn,
+                       data_key, ckpt_dir: Optional[str], ckpt_every: int, on_step,
+                       serving):
     """The Neural-SDE workloads' step loop -> ``(state, history)``: the key
     of step ``s`` is ``fold_in(data_key, s)``, each step's metrics are read
     as floats (which waits for the card), a straggler monitor watches the
     step times, and with ``ckpt_dir`` a resumable checkpoint of ``state`` is
-    written every ``ckpt_every`` steps and at the end.
+    written every ``ckpt_every`` steps and at the end.  Under a process
+    group of several ranks the steps run under the data-parallel mesh
+    (:func:`_data_parallel_mesh`), rank 0 writes each save while the others
+    wait at a barrier, and every rank has restored the same checkpoint.
 
     ``step_fn``: ``(state, key) -> (state, metrics)``.  ``on_step(step,
     state, metrics, dt)`` logs and returns the step's record for
     ``history``.  ``serving``: ``(workload, cfg, extract_params)`` — every
     save also writes the servable parameters as a serving bundle
     (``<ckpt_dir>/serving/``), which the serve CLI restores."""
+    import contextlib
+
+    from ..distributed import compat
+
     workload, cfg, extract_params = serving
 
     def save(step, state):
-        ckpt.save_checkpoint(ckpt_dir, step, state)
-        ckpt.save_serving_bundle(ckpt_dir, step, extract_params(state), workload, cfg)
+        if compat.rank() == 0:
+            ckpt.save_checkpoint(ckpt_dir, step, state)
+            ckpt.save_serving_bundle(ckpt_dir, step, extract_params(state), workload, cfg)
+        compat.barrier()
 
+    mesh = _data_parallel_mesh(batch, tag)
+    if mesh is not None:
+        device = tree.leaves(state)[0].device
+        print(f"[{tag}] data-parallel over {mesh.size} devices "
+              f"({compat.backend_note(device)})", flush=True)
     monitor = StragglerMonitor()
     history = []
-    for step in range(start, steps):
-        t0 = time.perf_counter()
-        state, metrics = step_fn(state, prng.fold_in_key(data_key, step))
-        metrics = {k: float(v) for k, v in metrics.items()}
-        dt = time.perf_counter() - t0
-        if monitor.observe(dt):
-            print(f"[{tag}] straggler: step {step} took {dt:.2f}s", flush=True)
-        history.append(on_step(step, state, metrics, dt))
-        if ckpt_dir is not None and (step + 1) % ckpt_every == 0:
-            save(step + 1, state)
+    with compat.set_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+        for step in range(start, steps):
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, prng.fold_in_key(data_key, step))
+            metrics = {k: float(v) for k, v in metrics.items()}
+            dt = time.perf_counter() - t0
+            if monitor.observe(dt):
+                print(f"[{tag}] straggler: step {step} took {dt:.2f}s", flush=True)
+            history.append(on_step(step, state, metrics, dt))
+            if ckpt_dir is not None and (step + 1) % ckpt_every == 0:
+                save(step + 1, state)
     if ckpt_dir is not None:
         save(steps, state)
     return state, history
@@ -288,8 +330,8 @@ def train_sde_gan(steps: int, batch: int, ckpt_dir: Optional[str] = None,
         return dict(metrics, step=step)
 
     (params, _, _), history = _sde_training_loop(
-        "sde-gan", start, steps, state, gan_step, data_key, ckpt_dir, ckpt_every, on_step,
-        ("sde-gan", cfg, lambda s: s[0]["gen"]))
+        "sde-gan", start, steps, batch, state, gan_step, data_key, ckpt_dir, ckpt_every,
+        on_step, ("sde-gan", cfg, lambda s: s[0]["gen"]))
     return params, history
 
 
@@ -337,7 +379,7 @@ def train_latent_sde(steps: int, batch: int, ckpt_dir: Optional[str] = None,
         return metrics["loss"]
 
     (params, _), losses = _sde_training_loop(
-        "latent-sde", start, steps, state, vae_step, data_key, ckpt_dir, ckpt_every,
+        "latent-sde", start, steps, batch, state, vae_step, data_key, ckpt_dir, ckpt_every,
         on_step, ("latent-sde", cfg, lambda s: s[0]))
     return params, losses
 
@@ -401,7 +443,18 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None,
                     help="resumable checkpoints here (a rerun resumes from the newest); "
                          "sde-gan and latent-sde also write a serving bundle at every save")
+    ap.add_argument("--host-devices", type=int, default=None,
+                    help="sde-gan/latent-sde: train data-parallel over N local ranks "
+                         "(spawned processes; gloo on the CPU or ranks sharing one card, "
+                         "NCCL with a card a rank)")
     args = ap.parse_args(argv)
+    if args.host_devices is not None and args.host_devices > 1:
+        if args.workload == "lm":
+            ap.error("--host-devices: the LM's sharded execution is not ported yet — "
+                     "ROADMAP.md Queue 1, 'Sharded LM execution'")
+        from ..distributed.compat import run_cli_ranks
+
+        return run_cli_ranks(main, argv, args.host_devices, args.device)
     if args.workload == "lm":
         _, losses = train(args.arch, args.steps, args.batch or 8, args.seq, args.ckpt_dir,
                           ckpt_every=args.ckpt_every, smoke=args.smoke, seed=args.seed,

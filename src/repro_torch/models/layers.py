@@ -11,8 +11,8 @@ is how :func:`repro_torch.models.transformer.init_lm` stacks the layers.
 
 Not ported: ``distributed.sharding.hint``, ``checkpoint_name`` and the
 ``attn_mha_tp`` K/V repeat are layout hints for XLA's partitioner with no
-counterpart on one card (they return with ``distributed/``,
-ROADMAP.md Queue 1, 'Distributed'); ``blockwise_attention`` is the XLA
+counterpart on one card (they return with the LM's sharded execution,
+ROADMAP.md Queue 1, 'Sharded LM execution'); ``blockwise_attention`` is the XLA
 path of the reference — on the card the attention runs in the CUDA kernel, on the CPU
 in its plain version; likewise ``ssd_chunked_dense`` is the reference's
 XLA form of the SSD scan, and the port's mixer calls the SSD kernel (its

@@ -185,8 +185,8 @@ def _stack_forward(params_units, cfg: ArchConfig, x, want_cache: bool = False):
     if remat and cfg.remat_policy == "collectives":
         raise NotPortedError(
             "remat_policy='collectives' (save only the post-all-reduce activations) "
-            "belongs to the distributed path, not ported yet — "
-            "ROADMAP.md Queue 1, 'Distributed'")
+            "belongs to the LM's sharded execution, not ported yet — "
+            "ROADMAP.md Queue 1, 'Sharded LM execution'")
     per_unit = []
     for i in range(num_units(cfg)):
         if remat:

@@ -1,6 +1,7 @@
 """Optimisers as ``(init, update)`` pairs over parameter trees (port of
 :mod:`repro.optim`: Adam, AdamW, Adadelta, ``chain`` and the
-Lipschitz projection, global-norm clipping, the cosine schedule, SWA)."""
+Lipschitz projection, global-norm clipping, the cosine schedule, SWA; the
+int8 error-feedback compression)."""
 
 from .optimizers import (  # noqa: F401
     OptState,
@@ -14,3 +15,4 @@ from .optimizers import (  # noqa: F401
     lipschitz_projection,
     swa_update,
 )
+from .compression import compress_int8, decompress_int8, ef_compress_update  # noqa: F401

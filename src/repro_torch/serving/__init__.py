@@ -30,7 +30,6 @@ from .registry import (  # noqa: F401
     restore_for_serving,
 )
 from .scheduler import (  # noqa: F401
-    DistributedNotPortedError,
     Scheduler,
     class_latency_summary,
     latency_summary,

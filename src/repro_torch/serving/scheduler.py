@@ -35,8 +35,16 @@ chunk boundary (carrying their state and chunk index) and its
 relaxed-class terminal batches wait; paused rows resume once the pressure
 clears.
 
-A data-parallel bucket grid (``shard_base > 1``) needs the distributed
-port and raises a named error.
+Data parallelism (``shard_base = W > 1``, under a process group of ``W``
+ranks): the buckets are ``W`` × powers of two, rank 0 alone admits
+requests, keeps the lanes and quotas and preempts, and every pooled call
+(a batch's initial states, a chunk, a terminal batch) is broadcast to the
+other ranks, which wait in :meth:`Scheduler.follow`: the per-row keys,
+states and times go out, each rank steps its ``bucket / W`` rows through
+its own pool entry at that local bucket (its own CUDA graphs on the card),
+and the rows are gathered back (:mod:`repro_torch.distributed.sharding`),
+bitwise the one-rank drain by the padding invariance.  Rank 0 ends the
+followers with :meth:`Scheduler.close`.
 """
 
 from __future__ import annotations
@@ -57,10 +65,6 @@ from .types import (DEADLINE_CLASSES, PAD_SEED, Request, ServeResult, deadline_c
 #: Chunk-key fold offset: the stream loop's constant, so scheduler rollouts
 #: are bitwise the streamed rollouts.
 _CHUNK_FOLD = 1000
-
-
-class DistributedNotPortedError(NotImplementedError):
-    """A data-parallel serving option that waits for the distributed port."""
 
 
 def serve_buckets(max_batch: int, shard_base: int = 1) -> list:
@@ -173,7 +177,9 @@ class Scheduler:
         atol / max_steps: the adaptive terminal sampler's limits.
         collect: keep each request's rows on the CPU as
             :attr:`ServeResult.samples`.
-        shard_base: bucket granularity; above 1 raises (the distributed port).
+        shard_base: bucket granularity: the data-parallel rank count, whose
+            process group must be up (rank 0 drives, the others
+            :meth:`follow`), or 1.
         clock: the time source (seconds), injectable for deterministic tests.
         preempt: cross-lane preemption (see the module docstring).
         quota: per-model admission cap on rows in flight: an int (every
@@ -193,12 +199,18 @@ class Scheduler:
         if quota is not None and not isinstance(quota, (int, dict)):
             raise TypeError(f"quota must be an int (every model), a dict "
                             f"{{model_id: int}}, or None, got {type(quota).__name__}")
-        if shard_base > 1:
-            raise DistributedNotPortedError(
-                f"shard_base={shard_base}: data-parallel buckets need the distributed "
-                f"port — ROADMAP.md Queue 1, 'Distributed'")
         self.registry = registry
         self.buckets = serve_buckets(max_batch, shard_base)
+        self.shard_base = shard_base
+        self._mesh = None
+        if shard_base > 1:
+            from ..distributed.sharding import data_parallel_mesh
+
+            self._mesh = data_parallel_mesh()
+            if self._mesh is None or self._mesh.size != shard_base:
+                raise ValueError(
+                    f"shard_base={shard_base} needs a process group of {shard_base} "
+                    f"ranks (repro_torch.distributed.compat.launch)")
         self.chunks = chunks
         self.mode = mode
         self.classes = classes
@@ -320,11 +332,97 @@ class Scheduler:
 
         return self.registry.compiled(model.model_id, "terminal", bucket, build)
 
+    # -- data parallelism -----------------------------------------------------
+
+    _KINDS = ("init", "chunk", "terminal")
+
+    def _head(self, *words) -> torch.Tensor:
+        """A call's header on the registry's device: ``(kind + 1, bucket,
+        model index, rtol's float64 bits)``; kind 0 ends :meth:`follow`."""
+        model = self.registry.get(self.registry.ids()[0])
+        return torch.tensor(words or (0, 0, 0, 0), dtype=torch.int64, device=_device(model))
+
+    def _pool_call(self, kind: str, lane: _Lane, bucket: int, *operands, rtol=None):
+        """A pooled step over a ``bucket``-row batch: the pool entry itself on
+        one rank; with ``shard_base > 1`` the leader's broadcast of the call
+        (:meth:`follow` receives it), then :meth:`_sharded_call`."""
+        if self._mesh is None:
+            return self._local_call(kind, lane, bucket, operands, rtol)
+        from ..distributed import compat, sharding
+
+        head = self._head(1 + self._KINDS.index(kind), bucket,
+                          self.registry.ids().index(lane.model.model_id),
+                          int(np.float64(rtol or 0.0).view(np.int64)))
+        with compat.set_mesh(self._mesh):
+            for x in (head, *operands):
+                sharding.broadcast(x)
+        return self._sharded_call(kind, lane, bucket, operands, rtol)
+
+    def _local_call(self, kind, lane, bucket, operands, rtol):
+        if kind == "init":
+            return self._init_pool(lane, bucket)(*operands)
+        if kind == "chunk":
+            return self._chunk_pool(lane, bucket)(*operands)
+        return self._terminal_pool(lane, bucket)(*operands, rtol)
+
+    def _sharded_call(self, kind, lane, bucket, operands, rtol):
+        """This rank's rows of the call through its pool entry at the local
+        bucket, then the rows gathered back (bitwise)."""
+        from ..distributed import compat, sharding
+
+        with compat.set_mesh(self._mesh):
+            local = [sharding.shard_rows(x, 0) for x in operands]
+            out = self._local_call(kind, lane, bucket // self.shard_base, local, rtol)
+            if kind == "init":
+                return sharding.gather_rows(out, 0)
+            if kind == "chunk":
+                ys, x_next = out
+                return sharding.gather_rows(ys, 1), sharding.gather_rows(x_next, 0)
+            samples, conv, stats = out
+            return sharding.gather_rows(samples, 0), sharding.gather_rows(conv, 0), stats
+
+    def follow(self) -> None:
+        """A follower rank's loop (``shard_base > 1``, rank > 0): receive each
+        pooled call the leader broadcasts (its header, then its operands: the
+        keys, and for a chunk the states and times), step this rank's rows,
+        join the gather; return when the leader calls :meth:`close`."""
+        from ..distributed import compat, sharding
+
+        while True:
+            with compat.set_mesh(self._mesh):
+                kind_i, bucket, index, rtol_bits = sharding.broadcast(self._head()).tolist()
+            if kind_i == 0:
+                return
+            kind = self._KINDS[kind_i - 1]
+            lane = self._lane(self.registry.ids()[index])
+            cfg = lane.model.cfg
+            shapes = [((bucket, 2), torch.int64)]
+            if kind == "chunk":
+                shapes += [((bucket, cfg.hidden_dim), cfg.dtype), ((bucket,), cfg.dtype)]
+            operands = [torch.zeros(shape, dtype=dtype, device=lane.device)
+                        for shape, dtype in shapes]
+            with compat.set_mesh(self._mesh):
+                for x in operands:
+                    sharding.broadcast(x)
+            rtol = float(np.int64(rtol_bits).view(np.float64)) if kind == "terminal" else None
+            self._sharded_call(kind, lane, bucket, operands, rtol)
+
+    def close(self) -> None:
+        """The leader's end of a data-parallel drain: release the followers."""
+        if self._mesh is None:
+            return
+        from ..distributed import compat, sharding
+
+        with compat.set_mesh(self._mesh):
+            sharding.broadcast(self._head())
+
     def warm(self, model_id: str, kinds=("init", "chunk")) -> None:
         """Build a model's pool entries for every bucket up front (so builds
-        never ride the latency measurements)."""
+        never ride the latency measurements); with ``shard_base > 1`` every
+        rank builds its own, at the local buckets."""
         lane = self._lane(model_id)
         for b in self.buckets:
+            b //= self.shard_base
             if "init" in kinds:
                 self._init_pool(lane, b)
             if "chunk" in kinds:
@@ -420,7 +518,7 @@ class Scheduler:
         rows = [j for f in admitted for j in range(f.request.size)]
         keys = _keys(seeds + [PAD_SEED] * (bucket - n), rows + list(range(bucket - n)),
                      lane.device)
-        x0 = self._init_pool(lane, bucket)(keys)
+        x0 = self._pool_call("init", lane, bucket, keys)
         i = 0
         for flight in admitted:
             for j in range(flight.request.size):
@@ -441,7 +539,7 @@ class Scheduler:
                         + [lane.active[0].x.new_zeros(lane.active[0].x.shape)] * pad)
         t_starts = torch.tensor([r.chunk_idx * lane.span for r in lane.active] + [0.0] * pad,
                                 dtype=cfg.dtype).to(lane.device)
-        ys, x_next = self._chunk_pool(lane, bucket)(keys, x, t_starts)
+        ys, x_next = self._pool_call("chunk", lane, bucket, keys, x, t_starts)
         _sync(lane.device)
         self.counters["chunk_batches"] += 1
 
@@ -504,7 +602,7 @@ class Scheduler:
         keys = _keys([r.seed for r in reqs for _ in range(r.size)] + [PAD_SEED] * (bucket - rows),
                      [j for r in reqs for j in range(r.size)] + list(range(bucket - rows)),
                      lane.device)
-        samples, conv, _ = self._terminal_pool(lane, bucket)(keys, rtol)
+        samples, conv, _ = self._pool_call("terminal", lane, bucket, keys, rtol=rtol)
         _sync(lane.device)
         self.counters["terminal_batches"] += 1
         conv = conv.cpu().numpy()

@@ -12,6 +12,15 @@ one would overflow the largest bucket, keys padded with ``PAD_SEED`` rows
 up to the nearest bucket.  Every row is a pure function of its own key, so
 padding never changes a client's rows.
 
+Under a process group of several ranks (the serve CLI's ``--host-devices
+N``) the buckets are ``N`` × powers of two and every loop runs on every
+rank: each bucket's rows split evenly over the ranks, each rank samples its
+own through its own steps (CUDA-graph pools on the card), and the rows are
+gathered whole (:func:`repro_torch.distributed.sharding.gather_rows`,
+bitwise); rank 0 answers.  The scheduler's rank 0 drives and the others
+follow it (:meth:`Scheduler.follow`).  By the padding invariance every row
+is the one-rank service's, bitwise.
+
 The loops: :func:`_batch_loop` (the Latent SDE's prior and posterior
 decodes and the SDE-GAN generator's fixed-grid rollout),
 :func:`_adaptive_terminal_loop` (SDE-GAN terminal samples at
@@ -24,6 +33,7 @@ emitted in time chunks) and :func:`_scheduler_loop` (the
 from __future__ import annotations
 
 import collections
+import contextlib
 import tempfile
 import time
 from typing import Optional
@@ -33,6 +43,7 @@ import torch
 
 from .. import checkpoint as ckpt
 from ..device import resolve_device
+from ..distributed import compat
 from ..kernels import prng
 from .registry import (LoadedModel, ModelRegistry, _config_class, _init_params,
                        restore_for_serving)
@@ -95,6 +106,43 @@ def _compile_pool(sampler, params, buckets, *example_args, tag: str = "", device
     _warm_buckets(lambda keys: sampler(params, keys, *example_args), buckets,
                   resolve_device(device), tag)
     return {b: sampler for b in buckets}
+
+
+def _rank_rows(fn, dims):
+    """``fn(params, keys, *rest)`` run on this rank's rows of ``keys`` under
+    the active data-parallel mesh, each tensor output gathered whole along
+    its entry of ``dims`` (a bare tensor output: ``dims[0]``); an
+    ``AdaptiveStats`` output keeps its loop iterations, the ranks' most.
+    ``fn`` itself without a mesh."""
+    from ..distributed import sharding
+
+    if sharding.dp_world() == 1:
+        return fn
+
+    def run(params, keys, *rest):
+        out = fn(params, sharding.shard_rows(keys, 0), *rest)
+        if isinstance(out, torch.Tensor):
+            return sharding.gather_rows(out, dims[0])
+        whole = [sharding.gather_rows(o, d) for o, d in zip(out, dims)]
+        for extra in out[len(dims):]:
+            whole.append(extra._replace(iterations=sharding.global_max(extra.iterations)))
+        return tuple(whole)
+
+    return run
+
+
+def _serving_mesh(max_batch: int):
+    """The data-parallel mesh over the process group's ranks, or None (one
+    rank, or a largest bucket smaller than the rank count, which serves
+    unsharded as the reference does)."""
+    from ..distributed.sharding import data_parallel_mesh
+
+    mesh = data_parallel_mesh()
+    if mesh is not None and max_batch < mesh.size:
+        print(f"[serve] --max-batch {max_batch} < {mesh.size} devices — serving "
+              f"unsharded", flush=True)
+        mesh = None
+    return mesh
 
 
 def _coalesce(pending, cap: int):
@@ -193,22 +241,29 @@ def serve_sde(workload: str, ckpt_dir=None, max_batch: int = 16,
     print(f"[serve] restored {workload} serving bundle (train step {step}, "
           f"solver={cfg.solver}, num_steps={cfg.num_steps}, "
           f"fused={cfg.use_pallas_kernels}, device={dev})", flush=True)
-    buckets = serve_buckets(max_batch)
-    stats = {"workload": workload, "restored_step": step, "buckets": buckets}
+    mesh = _serving_mesh(max_batch)
+    n_dev = 1 if mesh is None else mesh.size
+    buckets = serve_buckets(max_batch, n_dev)
+    stats = {"workload": workload, "restored_step": step, "buckets": buckets,
+             "devices": n_dev}
     request_max = min(request_max, buckets[-1])
-    if scheduler is not None:
-        _scheduler_loop(cfg, params, buckets, requests, request_max, scheduler, seed, stats,
-                        dev, preempt=preempt, pool_budget_mb=pool_budget_mb,
-                        async_front=async_front, collect=collect)
-    elif adaptive:
-        _adaptive_terminal_loop(cfg, params, buckets, requests, request_max, atol, seed,
-                                stats, dev, collect)
-    elif stream_chunks > 1:
-        _stream_loop(workload, cfg, params, buckets, requests, request_max, stream_chunks,
-                     seed, stats, dev, collect)
-    else:
-        _batch_loop(workload, cfg, params, buckets, requests, request_max, latent_mode,
-                    obs_len, seed, stats, dev, collect)
+    with compat.set_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+        if mesh is not None:
+            print(f"[serve] data-parallel over {n_dev} devices ({compat.backend_note(dev)})",
+                  flush=True)
+        if scheduler is not None:
+            _scheduler_loop(cfg, params, buckets, requests, request_max, scheduler, seed,
+                            stats, dev, preempt=preempt, pool_budget_mb=pool_budget_mb,
+                            async_front=async_front, collect=collect, shard_base=n_dev)
+        elif adaptive:
+            _adaptive_terminal_loop(cfg, params, buckets, requests, request_max, atol, seed,
+                                    stats, dev, collect)
+        elif stream_chunks > 1:
+            _stream_loop(workload, cfg, params, buckets, requests, request_max,
+                         stream_chunks, seed, stats, dev, collect)
+        else:
+            _batch_loop(workload, cfg, params, buckets, requests, request_max, latent_mode,
+                        obs_len, seed, stats, dev, collect)
     return stats
 
 
@@ -216,8 +271,8 @@ def _batch_loop(workload, cfg, params, buckets, requests, request_max, latent_mo
                 obs_len, seed, stats, device, collect=False):
     from ..launch.steps import make_sample_step
 
-    sampler = make_sample_step(workload, cfg, latent_mode=latent_mode, obs_len=obs_len,
-                               device=device)
+    sampler = _rank_rows(make_sample_step(workload, cfg, latent_mode=latent_mode,
+                                          obs_len=obs_len, device=device), (1,))
     _warm_buckets(lambda keys: sampler(params, keys), buckets, device)
     pending = synthetic_requests(requests, request_max, seed)
     latencies, total_rows, n_batches, samples = [], 0, 0, {}
@@ -255,10 +310,11 @@ def _adaptive_terminal_loop(cfg, params, buckets, requests, request_max, atol, s
     request's :class:`ServeResult` and are counted."""
     from ..launch.steps import make_adaptive_terminal_step
 
-    sampler = make_adaptive_terminal_step(cfg, atol=atol, device=device)
+    sampler = _rank_rows(make_adaptive_terminal_step(cfg, atol=atol, device=device), (0, 0))
     # The warm-up pays first-use costs only (kernel builds, BLAS set-up): one
     # controller iteration per bucket runs every op of the loop.
-    warm = make_adaptive_terminal_step(cfg, atol=atol, max_steps=1, device=device)
+    warm = _rank_rows(make_adaptive_terminal_step(cfg, atol=atol, max_steps=1, device=device),
+                      (0, 0))
     warm_rtol = DEADLINE_CLASSES[0].rtol
     warmup_iterations = []
 
@@ -339,6 +395,7 @@ def _stream_loop(workload, cfg, params, buckets, requests, request_max, stream_c
     c)`` per row and carried from the last (the first chunk's latency, not
     the whole horizon's, is what a client waits for)."""
     from ..core.sde import generator_initial_state
+    from ..distributed import sharding
     from ..launch.steps import make_stream_chunk_step
 
     if workload != "sde-gan":
@@ -352,9 +409,11 @@ def _stream_loop(workload, cfg, params, buckets, requests, request_max, stream_c
     chunk = make_stream_chunk_step(cfg, span, steps_per_chunk, device=device)
 
     def rollout(keys, emit=None):
+        keys = sharding.shard_rows(keys, 0)  # this rank's rows (all without a mesh)
         x = generator_initial_state(params, cfg, keys)
         for c in range(stream_chunks):
             ys_c, x = chunk(params, prng.fold_in_key(keys, _CHUNK_FOLD + c), x, c * span)
+            ys_c = sharding.gather_rows(ys_c, 1)
             _sync(device)  # "emitted" to the client here
             if emit is not None:
                 emit(c, ys_c)
@@ -398,7 +457,7 @@ def _stream_loop(workload, cfg, params, buckets, requests, request_max, stream_c
 
 def _scheduler_loop(cfg, params, buckets, requests, request_max, mode, seed, stats,
                     device, preempt: bool = False, pool_budget_mb: Optional[float] = None,
-                    async_front: bool = False, collect: bool = False):
+                    async_front: bool = False, collect: bool = False, shard_base: int = 1):
     """Drive the continuous-batching :class:`Scheduler` over the synthetic
     stream (closed loop: every request arrives as the drain starts, after
     the pool's builds — the reference stamps the scheduler's construction,
@@ -406,14 +465,18 @@ def _scheduler_loop(cfg, params, buckets, requests, request_max, mode, seed, sta
     ``async_front`` the stream goes through :class:`AsyncFrontend` — one
     ``submit`` coroutine per request — instead of a direct ``step`` loop.
     The stats carry the registry's pool (keys, bytes, evictions, builds) and
-    the launches its graph replays made."""
+    the launches its graph replays made.  With ``shard_base > 1`` rank 0
+    drives the drain and the other ranks follow it."""
     budget = None if pool_budget_mb is None else int(pool_budget_mb * 2 ** 20)
     registry = ModelRegistry(pool_budget_bytes=budget)
     registry.register(LoadedModel("default", "sde-gan", cfg, params))
     chunks = 4 if cfg.num_steps % 4 == 0 else 1
     sched = Scheduler(registry, max_batch=buckets[-1], chunks=chunks, mode=mode,
-                      preempt=preempt, collect=collect)
+                      preempt=preempt, collect=collect, shard_base=shard_base)
     sched.warm("default")
+    if compat.rank() != 0 and shard_base > 1:
+        sched.follow()
+        return
     pending = synthetic_requests(requests, request_max, seed)
     t_start = time.perf_counter()
     arrival = sched.now()  # every request arrives as the drain starts, after the builds
@@ -426,6 +489,7 @@ def _scheduler_loop(cfg, params, buckets, requests, request_max, mode, seed, sta
         while sched.busy:
             results += sched.step()
             n_iter += 1
+    sched.close()
     wall = time.perf_counter() - t_start
     _report(f"sde-gan/scheduler-{mode}×{chunks}chunks", stats,
             sum(r.size for r in results), n_iter, [r.latency_s for r in results], wall,

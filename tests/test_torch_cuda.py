@@ -40,7 +40,10 @@ rebuild that gives its bits; ``brownian_increment``,
 launches) bitwise their plain versions at REDESIGN_SHAPES and from launch
 to launch, the four one-pass kernels on views off 16-byte boundaries, the
 six replayed in a captured graph behind ``fused_mlp``, and the increment's
-index helper on its 32- and 64-bit paths.
+index helper on its 32- and 64-bit paths; the row-windowed one-key draws
+of ``brownian_increment``, ``rev_heun_phase1_gen`` and
+``space_time_increment`` bitwise their plain versions and, concatenated,
+the whole launch.
 
 These need an NVIDIA GPU with nvcc (the kernels have no CPU mode); each test
 skips without one.  On the GPU machine::
@@ -1140,3 +1143,38 @@ def test_eviction_frees_the_graphs_bytes_and_a_rebuild_gives_its_bits(cuda):
     rebuilt = reg.compiled("default", "chunk", 1024, lambda: CapturedGraph(big_step, big))
     for g, w in zip(rebuilt(*big), want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,d,ranks", [(1024, 17, 2), (1024, 17, 3), (1024, 4, 2),
+                                          (7, 3, 2), (5, 1, 3)])
+def test_row_windowed_draws_are_the_whole_launch_bitwise(cuda, dtype, rows, d, ranks):
+    """Rows 5, 7 and 12 with a data-parallel rank's element window: each
+    window bitwise its plain version, the windows concatenated bitwise the
+    whole launch, and each window counted as a windowed launch."""
+    from repro_torch.kernels import brownian as bk
+
+    key = prng.PRNGKey(rows + d, device=cuda)
+    g = torch.Generator().manual_seed(rows * d)
+    st = [torch.randn(rows, d, generator=g, dtype=dtype).to(cuda) for _ in range(4)]
+    calls = {
+        "brownian_increment": lambda w, sl, uk: (ops.brownian_increment(
+            key, 5, (sl.stop - sl.start, d), dtype, 0.1, use_kernel=uk, window=w),),
+        "rev_heun_phase1_gen": lambda w, sl, uk: ops.rev_heun_phase1_gen(
+            *(t[sl] for t in st), key, 5, 0.1, 0.1, -1.0, use_kernel=uk, window=w),
+        "space_time_increment": lambda w, sl, uk: ops.space_time_increment(
+            key, 5, (sl.stop - sl.start, d), dtype, 0.1, use_kernel=uk, window=w),
+    }
+    bounds = [rows * r // ranks for r in range(ranks + 1)]
+    for name, call in calls.items():
+        whole = call(None, slice(0, rows), True)
+        before = bk.WINDOW_LAUNCHES[name]
+        parts = []
+        for r0, r1 in zip(bounds[:-1], bounds[1:]):
+            got = call((r0 * d, rows * d), slice(r0, r1), True)
+            want = call((r0 * d, rows * d), slice(r0, r1), False)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), (name, r0)
+            parts.append(got)
+        assert bk.WINDOW_LAUNCHES[name] - before == ranks
+        for i, w in enumerate(whole):
+            assert torch.equal(torch.cat([p[i] for p in parts]), w), name

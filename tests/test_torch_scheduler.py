@@ -23,7 +23,7 @@ from repro.serving import (LoadedModel as JaxLoadedModel, ModelRegistry as JaxRe
                            Request as JaxRequest, Scheduler as JaxScheduler)
 from repro_torch import checkpoint as ckpt
 from repro_torch.core import sde
-from repro_torch.serving import (DEADLINE_CLASSES, DistributedNotPortedError, LoadedModel,
+from repro_torch.serving import (DEADLINE_CLASSES, LoadedModel,
                                  ModelRegistry, Request, Scheduler, class_latency_summary,
                                  latency_summary, route_rtol, run_open_loop)
 from repro_torch.serving import registry as registry_mod
@@ -227,8 +227,6 @@ def test_latency_summary_and_open_loop_on_an_injected_clock():
 
 def test_scheduler_named_errors():
     reg = _registry()
-    with pytest.raises(DistributedNotPortedError, match="ROADMAP.md Queue 1, 'Distributed'"):
-        Scheduler(reg, shard_base=2)
     with pytest.raises(ValueError, match="'continuous' or 'fifo'"):
         Scheduler(reg, mode="lifo")
     with pytest.raises(ValueError, match="chunks must be >= 1"):

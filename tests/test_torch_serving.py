@@ -32,7 +32,7 @@ from repro_torch.kernels import prng
 from repro_torch.launch import serve as serve_cli
 from repro_torch.launch.steps import make_sample_step
 from repro_torch.launch.steps import make_adaptive_terminal_step
-from repro_torch.serving import (DEADLINE_CLASSES, PAD_SEED, DistributedNotPortedError,
+from repro_torch.serving import (DEADLINE_CLASSES, PAD_SEED,
                                  Request, _request_keys, deadline_class_for, restore_for_serving,
                                  route_rtol, serve_buckets, serve_sde, synthetic_requests)
 from repro.serving import types as jax_types
@@ -179,16 +179,14 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_workloads_and_modes_raise_named_errors():
-    """Every serving mode of the reference is ported; its refusals are the
-    reference's own (adaptive needs sde-gan and excludes streaming), and
-    only data-parallel serving (``--host-devices``, ``shard_base > 1``)
-    still names its queue item."""
+    """Every serving mode of the reference is ported, data-parallel serving
+    too (tests/test_torch_distributed.py runs ``--host-devices 2``); its
+    refusals are the reference's own (adaptive needs sde-gan and excludes
+    streaming)."""
     with pytest.raises(ValueError, match="--adaptive serves terminal samples"):
         serve_sde("latent-sde", adaptive=True, device="cpu")
     with pytest.raises(ValueError, match="mutually exclusive"):
         serve_sde("sde-gan", adaptive=True, stream_chunks=4, device="cpu")
-    with pytest.raises(DistributedNotPortedError, match="ROADMAP.md Queue 1, 'Distributed'"):
-        serve_cli.main(["--workload", "sde-gan", "--host-devices", "2", "--device", "cpu"])
     with pytest.raises(ValueError, match="workload must be one of"):
         make_sample_step("gan", None, device="cpu")
     stats = serve_sde("latent-sde", latent_mode="posterior", obs_len=5, max_batch=2,
