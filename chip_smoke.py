@@ -240,7 +240,8 @@ non-zero and the final result line is never printed):
    every (b, h) slice within ATTN_REL_TOL), causal and full, at (B, Hq,
    Hkv, S, D) in ATTN_SHAPES (qwen2.5-14b's prefill, a short and a ragged
    prompt, tinyllama's group-8 D = 64, S = 1 with one KV head, S = 129,
-   D = 16, tinyllama's training shape); at each, two launches bitwise equal,
+   D = 16, dbrx-132b's and jamba-v0.1-52b's prefills, tinyllama's
+   training shape); at each, two launches bitwise equal,
    the operands as (B, S, H, D) views bitwise the contiguous operands'
    result, and the output the (B, Hq, S, D) view of a (B, S, Hq, D)
    buffer.  The SASS of the built library (``cuobjdump -sass``): every
@@ -250,7 +251,8 @@ non-zero and the final result line is never printed):
    TF32 on the tensor cores, and the CUDA-core bound beside it) and
    ``scaled_dot_product_attention`` (the library yardstick, called nowhere
    in the port): bfloat16 at the prefill shape, float32 (TF32 off) and
-   bfloat16 at the training shape.
+   bfloat16 at the training shape, bfloat16 at dbrx's and jamba's
+   prefills.
 13. LM parity, float32, full width at two layers (qwen2.5-14b with
    ``num_layers=2``): B = 2, S = 512 prefill and 8 greedy decode steps,
    through the kernel and with every attention on the plain version: the
@@ -276,14 +278,15 @@ non-zero and the final result line is never printed):
    x, b, c (float32 a), at the SSD_SHAPES (mamba2-1.3b's prefill, the
    CLI's prompt 32 and the batch-1 prefill in the mixer's layout — x and a
    transposed views, b and c expanded over the heads with stride 0 — then
-   a ragged S, S = 1, the four (N, P) pairs around the chunk's edges and a
-   strong decay): y within SSD_TOL (rtol = atol), the terminal state
-   within SSD_STATE_RTOL of its largest magnitude, both finite; two
+   a ragged S, S = 1, the four (N, P) pairs around the chunk's edges, a
+   strong decay and jamba-v0.1-52b's prefill, H 128, N 16, P 64): y
+   within SSD_TOL (rtol = atol), the terminal state within SSD_STATE_RTOL
+   of its largest magnitude, both finite; two
    launches, and contiguous copies of the operands, give the same bits; at
    batch 1 the launcher's P slices give at least 128 blocks.  The SASS:
    HMMA on bf16 in the bf16 kernels, HMMA on TF32 in the f32 ones.  Timed
-   in turns at the prefill and the batch-1 shapes (bf16, the mixer's
-   layout) beside the plain version, the tensor-core bound and the
+   in turns at the prefill, the batch-1 and jamba's prefill shapes (bf16,
+   the mixer's layout) beside the plain version, the tensor-core bound and the
    earlier design's CUDA-core f32 bound, and float32 at the prefill shape
    beside its split-TF32 bound; no single PyTorch call computes it, so
    there is no library time.
@@ -335,6 +338,32 @@ non-zero and the final result line is never printed):
 21. mamba2-1.3b's training loss at full width, two layers, B = 2, S = 512,
    bf16: one gradient through ``ssd_chunk`` and ``fused_xent`` against
    the plain route: the loss within 6e-2, every leaf's gradient finite.
+23. The MoE and hybrid families, float32, full width at cut depth
+   (MOE_PARITY_LAYERS: dbrx-132b and grok-1-314b at two layers,
+   jamba-v0.1-52b at one 8-layer unit, weights drawn on the card), as
+   phase 13: B = 2, S = 512 prefill and 8 greedy decode steps through the
+   kernels and with every attention and SSD scan plain, the plain run
+   routed with the kernel run's top-k experts and its own choice compared
+   (``route_flips``: flips and their margins printed): the prefill logits
+   and the router logits within LM_LOGIT_RTOL of their largest, the tokens
+   equal, ``flash_attention`` once per attention layer and ``ssd_chunk``
+   once per Mamba2 layer of a prefill, neither in decode; three kernel
+   prefills bitwise equal (the MoE combine adds in a fixed order, no
+   atomics).
+24. Their serving, bfloat16 (MOE_SERVE_LAYERS: jamba's one unit, dbrx at
+   4 layers) at B = 4, prompt 2048, 16 tokens through
+   ``make_prefill_step`` and ``make_serve_step``: the parameter count
+   against ``param_count``, the launches per prefill and in decode, peak
+   memory, the decode bound (every expert's weights are read: all E
+   capacity rows run), a profile of one prefill and one decode step with
+   the MoE's routing, dispatch, expert products and combine as ranges
+   beside the two kernels; then the serve CLI (``--workload lm --arch``,
+   smoke config) for dbrx-132b, grok-1-314b and jamba-v0.1-52b.
+25. Their training: the train CLI (``--workload lm --arch``, smoke
+   config, float32, B 8 × 64) 3 steps on the card each, the launches and
+   metrics of every step read (``moe_aux`` > 0 and in the loss at 0.01);
+   one gradient twice: the router's and the experts' finite, the leaves
+   whose bits do not repeat printed.
 Each phase's wall is printed as a ``[phase] <name>: <s> s`` line as it ends.
 
 22. Prints a ``{"kernels": [...]}`` JSON line (``dp_launches``: each
@@ -347,7 +376,8 @@ Each phase's wall is printed as a ``[phase] <name>: <s> s`` line as it ends.
    launches; the adaptive gradient for
    ``brownian_value``, the 2048-token LM serves for ``flash_attention``
    and ``ssd_chunk``, one LM training step of phase 20 for ``fused_xent``
-   and ``fused_xent_bwd``; ``adaptive_launches``: the fused adaptive
+   and ``fused_xent_bwd``; ``moe_prefill_launches`` and
+   ``moe_train_launches_per_step``: phases 23–25's; ``adaptive_launches``: the fused adaptive
    gradient's; ``gan_launches``: the counts of SDE-GAN clip step 3 at batch
    128 (no sig-MMD log); ``baseline_launches``: phase 11c's counts of step 3
    of each baseline; ``serve_launches``: the Latent-SDE service's, the adaptive
@@ -519,12 +549,15 @@ MLP_TIMED = [("train B64", 64, 17, 32, 16), ("train/serve B1024", 1024, 17, 32, 
 # flash_attention checks, (B, Hq, Hkv, S, D): qwen2.5-14b's prefill and a
 # short prompt, a ragged S, tinyllama's group 8 at D = 64, S = 1 with MQA,
 # a ragged S just past one 128-row tile, head dim 16 (the 32-byte swizzle),
-# and tinyllama's training shape (B 4 × 2048, the f32 and bf16 training
-# timing rows).
+# dbrx-132b's and jamba-v0.1-52b's prefills (Hq 48 and 32 over Hkv 8, B 4 ×
+# 2048), and tinyllama's training shape (B 4 × 2048, the f32 and bf16
+# training timing rows).
 ATTN_SHAPES = [(4, 40, 8, 2048, 128), (4, 40, 8, 32, 128), (1, 40, 8, 1000, 128),
                (2, 32, 4, 777, 64), (1, 4, 1, 1, 128), (1, 40, 8, 129, 128),
-               (2, 8, 4, 300, 16), (4, 32, 4, 2048, 64)]
+               (2, 8, 4, 300, 16), (4, 48, 8, 2048, 128), (4, 32, 8, 2048, 128),
+               (4, 32, 4, 2048, 64)]
 ATTN_PREFILL = ATTN_SHAPES[0]
+ATTN_MOE_PREFILLS = {"dbrx-132b": ATTN_SHAPES[7], "jamba-v0.1-52b": ATTN_SHAPES[8]}
 ATTN_TRAIN = ATTN_SHAPES[-1]
 # flash_attention launches in one tinyllama-1.1b training step (phase 20):
 # 22 layers in the forward and 22 recomputed by the per-unit checkpoint.
@@ -551,15 +584,17 @@ SSM_ARCH = "mamba2-1.3b"
 # mamba2-1.3b's prefill (B 4, prompt 2048), the CLI's prompt 32 (S < the
 # chunk, 64), the batch-1 prefill (the launcher cuts P into slices), a
 # ragged S, S = 1, the smoke config's heads (N 16, P 16), jamba's (N 16,
-# P 64) one past a chunk boundary, (N 128, P 16) at S = the chunk, and a
-# strong decay (a = −5|N(0, 1)|).
+# P 64) one past a chunk boundary, (N 128, P 16) at S = the chunk, a
+# strong decay (a = −5|N(0, 1)|), and jamba-v0.1-52b's prefill (B 4 × 2048,
+# H 128, N 16, P 64: d_model 4096 at ssm_expand 2).
 SSD_SHAPES = [((4, 64, 2048, 64, 128), True, 0.1), ((4, 64, 32, 64, 128), True, 0.1),
               ((1, 64, 2048, 64, 128), True, 0.1), ((1, 64, 2000, 64, 128), False, 0.1),
               ((1, 64, 1, 64, 128), False, 0.1), ((2, 8, 100, 16, 16), False, 0.1),
               ((2, 4, 65, 64, 16), True, 0.1), ((2, 4, 64, 16, 128), False, 0.1),
-              ((1, 8, 500, 64, 128), True, 5.0)]
+              ((1, 8, 500, 64, 128), True, 5.0), ((4, 128, 2048, 64, 16), True, 0.1)]
 SSD_PREFILL = SSD_SHAPES[0][0]
 SSD_BATCH1 = SSD_SHAPES[2][0]
+SSD_JAMBA = SSD_SHAPES[-1][0]
 # the chunk of the earlier CUDA-core f32 design, whose bound stays on
 # record beside the tensor-core one
 SSD_CUDA_CORE_CHUNK = 32
@@ -4284,7 +4319,9 @@ def attention_checks(ops, dev) -> tuple:
     rows = {}
     for tag, dtype, shape in (("bf16 prefill", torch.bfloat16, ATTN_PREFILL),
                               ("f32 training", torch.float32, ATTN_TRAIN),
-                              ("bf16 training", torch.bfloat16, ATTN_TRAIN)):
+                              ("bf16 training", torch.bfloat16, ATTN_TRAIN),
+                              *((f"bf16 {arch} prefill", torch.bfloat16, shape)
+                                for arch, shape in ATTN_MOE_PREFILLS.items())):
         B, Hq, Hkv, S, D = shape
         q, k, v = (_bshd(t) for t in _qkv(g, dev, dtype, B, Hq, Hkv, S, D))
         qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
@@ -4421,11 +4458,13 @@ def plain_ssd():
 
 # The kernel each LM family's prefill runs, and the switch to its plain version.
 LM_KERNELS = {LM_ARCH: ("flash_attention", plain_attention), SSM_ARCH: ("ssd_chunk", plain_ssd)}
+# The hand kernels an LM prefill can reach (attention and Mamba2 mixers).
+LM_PATH_KERNELS = ("flash_attention", "ssd_chunk")
 
 
-def _greedy(cfg, params, prompts, gen: int, kernel: str) -> tuple:
+def _greedy(cfg, params, prompts, gen: int, kernels=LM_PATH_KERNELS) -> tuple:
     """Prefill, then ``gen`` greedy decode steps -> (prefill logits, tokens,
-    ``kernel`` launches in the prefill, in the decode)."""
+    {kernel: launches in the prefill}, {kernel: launches in the decode})."""
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import greedy_sample, make_prefill_step, make_serve_step
 
@@ -4433,7 +4472,7 @@ def _greedy(cfg, params, prompts, gen: int, kernel: str) -> tuple:
     ops.reset_launch_counts()
     logits, caches = make_prefill_step(cfg, max_len=S + gen)(params, {"tokens": prompts})
     torch.cuda.synchronize()
-    n_prefill = ops.launch_counts()[kernel]
+    n_prefill = {k: ops.launch_counts()[k] for k in kernels}
     decode = make_serve_step(cfg)
     token = greedy_sample(logits)
     tokens = [token]
@@ -4442,7 +4481,7 @@ def _greedy(cfg, params, prompts, gen: int, kernel: str) -> tuple:
         token = greedy_sample(step_logits)
         tokens.append(token)
     torch.cuda.synchronize()
-    n_decode = ops.launch_counts()[kernel] - n_prefill
+    n_decode = {k: ops.launch_counts()[k] - n_prefill[k] for k in kernels}
     return logits.float(), torch.cat(tokens, 1), n_prefill, n_decode
 
 
@@ -4458,9 +4497,11 @@ def lm_parity_checks(dev, label: str, arch: str) -> None:
     params = T.init_lm(torch.Generator(device=dev).manual_seed(31), cfg, device=dev)
     B, S, gen = LM_PARITY["batch"], LM_PARITY["prompt_len"], LM_PARITY["gen"]
     prompts = lm_prompts(31, B, S, cfg.vocab).to(dev)
-    kernel = _greedy(cfg, params, prompts, gen, kernel_name)
+    kernel = _greedy(cfg, params, prompts, gen, (kernel_name,))
     with plain():
-        plain_run = _greedy(cfg, params, prompts, gen, kernel_name)
+        plain_run = _greedy(cfg, params, prompts, gen, (kernel_name,))
+    kernel = (*kernel[:2], kernel[2][kernel_name], kernel[3][kernel_name])
+    plain_run = (*plain_run[:2], plain_run[2][kernel_name], plain_run[3][kernel_name])
     check(kernel[2:] == (2, 0), f"LM parity ({arch}): {kernel_name} launched {kernel[2]} "
           f"times in the prefill and {kernel[3]} in decode (want 2, 0)")
     check(plain_run[2:] == (0, 0), f"LM parity ({arch}): the plain run launched "
@@ -4718,7 +4759,8 @@ def ssd_checks(ops, dev) -> tuple:
           f"the f32 ssd_chunk kernels must issue HMMA on TF32: {f32}")
 
     rows = {}
-    for tag, shape in (("prefill", SSD_PREFILL), ("batch 1", SSD_BATCH1)):
+    for tag, shape in (("prefill", SSD_PREFILL), ("batch 1", SSD_BATCH1),
+                       ("jamba prefill", SSD_JAMBA)):
         B, H, S, P, N = shape
         x, a, b, c = _ssd_operands(g, dev, torch.bfloat16, B, H, S, P, N, True)
         t = _in_turns({"kernel": lambda: ops.ssd_chunk(x, a, b, c),
@@ -4756,6 +4798,7 @@ def ssd_checks(ops, dev) -> tuple:
     torch.cuda.empty_cache()
     rows["f32 prefill"] = dict(ms=f32_ms, host_ms=f32_host, bound_ms=f32_bound, bound_by=f32_by)
     row = dict(rows["prefill"], batch1=rows["batch 1"], f32_prefill=rows["f32 prefill"],
+               jamba_prefill=rows["jamba prefill"],
                sass={f: {"HMMA_BF16": sass_count(m, "HMMA", "BF16"),
                          "HMMA_TF32": sass_count(m, "HMMA", "TF32"),
                          "HGMMA": sass_count(m, "HGMMA")} for f, m in mix.items()})
@@ -5258,6 +5301,420 @@ def ssm_train_checks(ops, dev, label: str) -> None:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Phases 23-25: the MoE and hybrid families (dbrx-132b, grok-1-314b,
+# jamba-v0.1-52b)
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ("dbrx-132b", "grok-1-314b", "jamba-v0.1-52b")
+# float32 parity at full width (phase 23): the depth cut as phases 13 and 16
+# cut theirs; jamba's one unit is 8 layers (1 attention, 7 Mamba2, 4 MoE),
+# 53 GB of float32 weights.
+MOE_PARITY_LAYERS = {"dbrx-132b": 2, "grok-1-314b": 2, "jamba-v0.1-52b": 8}
+# bfloat16 serving at LM_SERVE's B 4 x 2048 + 16 (phase 24): jamba's one unit
+# (26.5 GB), dbrx at 4 of its 40 layers (28.5 GB).
+MOE_SERVE_LAYERS = {"jamba-v0.1-52b": 8, "dbrx-132b": 4}
+# the train CLI's LM defaults (--batch 8 --seq 64) on the smoke configs (phase 25)
+MOE_TRAIN = dict(batch=8, seq=64, steps=3)
+MOE_RANGES = {"moe_apply": "moe", "moe_dispatch": "moe.dispatch",
+              "moe_experts": "moe.experts", "moe_combine": "moe.combine"}
+
+
+def _path_launches(cfg) -> dict:
+    """The hand kernels one prefill of ``cfg`` launches: flash_attention once
+    per attention layer, ssd_chunk once per Mamba2 layer."""
+    from repro_torch.models import transformer as T
+
+    mixers = [m for m, _ in T.unit_pattern(cfg)] * T.num_units(cfg)
+    return {"flash_attention": mixers.count("attn"), "ssd_chunk": mixers.count("mamba")}
+
+
+@contextlib.contextmanager
+def recorded_routes(replay=None):
+    """Record every ``moe_topk`` call's router logits and chosen experts, in
+    call order; with ``replay`` (an earlier run's record), route each call
+    with that run's experts instead, this run's own choice recorded beside
+    them (its weights are this run's probabilities at those experts,
+    normalised as ``moe_topk`` does, so an equal choice gives equal bits)."""
+    from repro_torch.models import layers
+
+    topk = layers.moe_topk
+    calls = []
+
+    def routed(logits, k):
+        w, idx = topk(logits, k)
+        calls.append((logits.detach(), idx))
+        if replay is not None:
+            idx = replay[len(calls) - 1][1]
+            w = torch.softmax(logits, dim=-1).gather(-1, idx)
+            w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+        return w, idx
+
+    layers.moe_topk = routed
+    try:
+        yield calls
+    finally:
+        layers.moe_topk = topk
+
+
+def route_flips(ref_calls, calls, k: int) -> tuple:
+    """Choices of ``calls`` whose expert set differs from ``ref_calls``' ->
+    (flips, choices, the router logits' max |Δ| and largest |logit|, the
+    k-th minus (k+1)-th probability of ``calls`` at each flip)."""
+    flips = total = 0
+    d = top = 0.0
+    margins = []
+    for (ref_logits, ref_idx), (logits, idx) in zip(ref_calls, calls):
+        moved = (ref_idx.sort(-1).values != idx.sort(-1).values).any(-1)
+        flips += int(moved.sum())
+        total += moved.numel()
+        d = max(d, (logits - ref_logits).abs().max().item())
+        top = max(top, ref_logits.abs().max().item())
+        if moved.any() and logits.shape[-1] > k:
+            p = torch.softmax(logits, dim=-1).sort(-1, descending=True).values
+            margins += (p[..., k - 1] - p[..., k])[moved].tolist()
+    return flips, total, d, top, margins
+
+
+def moe_parity_checks(ops, dev, label: str) -> dict:
+    """Phase 23: float32 at full width and MOE_PARITY_LAYERS, B 2, a 512-token
+    prefill and 8 greedy decode steps through the kernels, twice more
+    prefilled through them (bits equal: the combine has no atomics), and
+    once with every attention and SSD scan plain, routed with the kernel
+    run's experts (route_flips reports where its own choice would differ,
+    and the margin there).  The prefill logits within LM_LOGIT_RTOL of the
+    largest, the router logits too, the tokens equal, flash_attention once
+    per attention layer and ssd_chunk once per Mamba2 layer of a prefill,
+    neither in decode.  Returns {arch: prefill launches}."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import lm_prompts
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as T
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "MoE parity: TF32 is on; the router "
+          "product must run in float32")
+    B, S, gen = LM_PARITY["batch"], LM_PARITY["prompt_len"], LM_PARITY["gen"]
+    out = {}
+    for arch, n_layers in MOE_PARITY_LAYERS.items():
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), num_layers=n_layers, dtype=torch.float32)
+        params = T.init_lm(torch.Generator(device=dev).manual_seed(33), cfg, device=dev)
+        prompts = lm_prompts(33, B, S, cfg.vocab).to(dev)
+        want = _path_launches(cfg)
+        with recorded_routes() as k_calls:
+            kernel = _greedy(cfg, params, prompts, gen)
+        prefill = make_prefill_step(cfg, max_len=S + gen)
+        first, again = (prefill(params, {"tokens": prompts}) for _ in range(2))
+        torch.cuda.synchronize()
+        same = (torch.equal(first[0].float(), kernel[0]) and torch.equal(first[0], again[0])
+                and all(torch.equal(a, b) for a, b in zip(tree.leaves(first[1]),
+                                                          tree.leaves(again[1]))))
+        del first, again
+        with plain_attention(), plain_ssd(), recorded_routes(replay=k_calls) as p_calls:
+            plain_run = _greedy(cfg, params, prompts, gen)
+        check(kernel[2] == want and not any(kernel[3].values()),
+              f"MoE parity ({arch}): launches {kernel[2]} per prefill, {kernel[3]} in decode "
+              f"(want {want} and none)")
+        check(not any(plain_run[2].values()) and not any(plain_run[3].values()),
+              f"MoE parity ({arch}): the plain run launched {plain_run[2:]}")
+        check(same, f"MoE parity ({arch}): three kernel prefills are not bitwise equal")
+        check(len(p_calls) == len(k_calls) == T.num_units(cfg) * sum(
+            f == "moe" for _, f in T.unit_pattern(cfg)) * (gen + 1),
+              f"MoE parity ({arch}): {len(k_calls)} / {len(p_calls)} routings")
+        flips, total, d_router, top_router, margins = route_flips(k_calls, p_calls, cfg.top_k)
+        check(torch.isfinite(kernel[0]).all().item(), f"MoE parity ({arch}): non-finite logits")
+        diff = (kernel[0] - plain_run[0]).abs().max().item()
+        top = plain_run[0].abs().max().item()
+        check(diff <= LM_LOGIT_RTOL * top, f"MoE parity ({arch}): prefill logits differ by "
+              f"{diff} (largest logit {top}, tolerance {LM_LOGIT_RTOL} of it)")
+        check(d_router <= LM_LOGIT_RTOL * top_router, f"MoE parity ({arch}): router logits "
+              f"differ by {d_router} (largest {top_router})")
+        check(torch.equal(kernel[1], plain_run[1]), f"MoE parity ({arch}): greedy tokens "
+              f"differ {kernel[1].tolist()} vs {plain_run[1].tolist()}")
+        print(f"[{label}] MoE parity ({arch}, float32, {n_layers} layers, B={B}, S={S}): "
+              f"prefill logits max |Δ| {diff:.3g} (largest {top:.3g}; {diff / top:.3g} "
+              f"relative, tolerance {LM_LOGIT_RTOL}); router logits max |Δ| {d_router:.3g} "
+              f"(largest {top_router:.3g}); {flips} of {total} top-{cfg.top_k} choices would "
+              f"flip on the plain route (margins {[f'{m:.3g}' for m in margins]}); {gen + 1} "
+              f"greedy tokens equal on every row; three kernel prefills bitwise equal; "
+              f"launches {kernel[2]} per prefill, {kernel[3]} in decode; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        out[arch] = dict(launches=kernel[2], flips=flips, choices=total, margins=margins,
+                         max_rel=diff / top, router_max_abs=d_router)
+        del params, kernel, plain_run, k_calls, p_calls
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def moe_ranges():
+    """The MoE layer's stages as profiler ranges (MOE_RANGES); the routing
+    (router product, top-k, slots) is the rest of the ``moe`` range."""
+    from torch.profiler import record_function
+
+    from repro_torch.models import layers
+
+    saved = {name: getattr(layers, name) for name in MOE_RANGES}
+
+    def ranged(name, fn):
+        def call(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return call
+
+    for name, rng in MOE_RANGES.items():
+        setattr(layers, name, ranged(rng, saved[name]))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(layers, name, fn)
+
+
+def profile_moe(fn, label: str) -> dict:
+    """One call profiled with host and device activity, the MoE stages as
+    ranges: wall (median of 3 synchronised calls), device busy (the device
+    kernels and copies), idle share, and the device ms of the MoE's routing,
+    dispatch, expert products and combine beside flash_attention and
+    ssd_chunk."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall_ms = statistics.median(walls) * 1e3
+    with moe_ranges(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ranges = set(MOE_RANGES.values())
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+              and e.key not in ranges and _device_us(e) > 0]
+    busy_ms = sum(_device_us(e) for e in device) / 1e3
+    if not device:
+        print(f"[{label}: wall {wall_ms:.3f} ms; device time not measured (the profiler "
+              f"recorded no device events)", flush=True)
+        return dict(wall_ms=wall_ms, busy_ms=None, idle=None, shares=None)
+    host = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU and e.key in ranges}
+    parts = {"moe routing": host.get("moe", 0.0) - sum(
+        host.get(r, 0.0) for r in ranges - {"moe"}),
+             "moe dispatch": host.get("moe.dispatch", 0.0),
+             "moe expert products": host.get("moe.experts", 0.0),
+             "moe combine": host.get("moe.combine", 0.0)}
+    for kernel in LM_PATH_KERNELS:
+        parts[kernel] = sum(_device_us(e) for e in device if kernel in e.key) / 1e3
+    idle = round(1 - busy_ms / wall_ms, 3)
+    shares = {k: round(v / busy_ms, 4) for k, v in parts.items()}
+    print(f"[{label}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+          f"({sum(e.count for e in device)} device kernels and copies), idle share {idle:.3f}; "
+          f"device ms {({k: round(v, 3) for k, v in parts.items()})}, share of busy "
+          f"{shares}", flush=True)
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, idle=idle, ms=parts, shares=shares)
+
+
+def moe_serve_checks(ops, dev, label: str) -> dict:
+    """Phase 24: bfloat16 serving at full width, MOE_SERVE_LAYERS deep, with
+    random weights drawn on the card: the parameter count against
+    param_count, a prefill of B 4 x 2048 and 15 greedy decode steps through
+    make_prefill_step and make_serve_step (serve_lm's loop: it builds the
+    full depth), launches counted (flash_attention once per attention layer
+    and ssd_chunk once per Mamba2 layer of the prefill, neither in decode),
+    peak memory, the decode bound (every expert's weights are read: each
+    computes its capacity rows, empty or not), profiles of one prefill and
+    one decode step; then the serve CLI (``--workload lm --arch``, the smoke
+    config) of the three archs.  Returns {arch: prefill launches}."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch.serve import lm_prompts
+    from repro_torch.launch.steps import greedy_sample, make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as T
+    from repro_torch.models.counting import param_count
+
+    B, S, gen = LM_SERVE["batch"], LM_SERVE["prompt_len"], LM_SERVE["gen"]
+    out = {}
+    for arch, n_layers in MOE_SERVE_LAYERS.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(get_config(arch), num_layers=n_layers)
+        t0 = time.perf_counter()
+        params = T.init_lm(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+        torch.cuda.synchronize()
+        n_params = sum(a.numel() for a in tree.leaves(params))
+        active = param_count(cfg, active_only=True)
+        check(n_params == param_count(cfg), f"{arch}: {n_params} parameters, param_count "
+              f"{param_count(cfg)}")
+        w_bytes = _tree_bytes(params)
+        active_bytes = w_bytes - (n_params - active) * 2  # the idle experts' bf16 words
+        print(f"[{label}] {arch} (bf16, {n_layers} of {get_config(arch).num_layers} layers): "
+              f"{n_params} parameters (= param_count; {active} active), weights "
+              f"{w_bytes / 1e9:.3f} GB drawn on the card in {time.perf_counter() - t0:.1f} s; "
+              f"a decode step's bound {w_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms (every "
+              f"weight read once: all {cfg.num_experts} experts compute their capacity rows; "
+              f"{active_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms if only the top-{cfg.top_k} "
+              f"were read)", flush=True)
+        want = _path_launches(cfg)
+        prompts = lm_prompts(0, B, S, cfg.vocab).to(dev)
+        prefill, decode = make_prefill_step(cfg, max_len=S + gen), make_serve_step(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        n_prefill = {k: ops.launch_counts()[k] for k in LM_PATH_KERNELS}
+        token = greedy_sample(logits)
+        tokens = [token]
+        t0 = time.perf_counter()
+        for i in range(gen - 1):
+            logits, caches = decode(params, caches, token, S + i)
+            token = greedy_sample(logits)
+            tokens.append(token)
+        torch.cuda.synchronize()
+        t_decode = time.perf_counter() - t0
+        n_decode = {k: ops.launch_counts()[k] - n_prefill[k] for k in LM_PATH_KERNELS}
+        tokens = torch.cat(tokens, 1)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        check(n_prefill == want and not any(n_decode.values()),
+              f"{arch} serve: launches {n_prefill} in the prefill, {n_decode} in decode "
+              f"(want {want} and none)")
+        check(tokens.shape == (B, gen) and 0 <= int(tokens.min())
+              and int(tokens.max()) < cfg.vocab and torch.isfinite(logits.float()).all().item(),
+              f"{arch} serve: bad tokens {tuple(tokens.shape)} or non-finite logits")
+        print(f"[{label}] {arch} serve B={B} prompt {S} gen {gen}: prefill "
+              f"{t_prefill * 1e3:.1f} ms, decode {gen - 1} steps @ "
+              f"{B * (gen - 1) / t_decode:.1f} tok/s ({t_decode / (gen - 1) * 1e3:.2f} ms a "
+              f"step); peak device memory {peak:.3f} GB ({base / 1e9:.3f} GB before); "
+              f"launches {n_prefill} in the prefill, {n_decode} in decode", flush=True)
+        del caches
+        prof_prefill = profile_moe(lambda: prefill(params, {"tokens": prompts}),
+                                   f"{label}] [{arch} prefill B={B} S={S}")
+        logits, caches = prefill(params, {"tokens": prompts})
+        token = greedy_sample(logits)
+        prof_decode = profile_moe(lambda: decode(params, caches, token, S),
+                                  f"{label}] [{arch} decode step B={B}, cache {S + gen} slots")
+        out[arch] = dict(launches=n_prefill, prefill_ms=t_prefill * 1e3,
+                         decode_tok_s=B * (gen - 1) / t_decode, peak_gb=peak,
+                         params=n_params, decode_bound_ms=w_bytes / HBM_BYTES_PER_S * 1e3,
+                         profile_prefill=prof_prefill, profile_decode=prof_decode)
+        del params, caches, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch in MOE_ARCHS:
+        ops.reset_launch_counts()
+        tokens = serve_cli.main(["--workload", "lm", "--arch", arch])
+        torch.cuda.synchronize()
+        want = _path_launches(smoke_config(arch))
+        got = {k: ops.launch_counts()[k] for k in LM_PATH_KERNELS}
+        check(got == want and tokens.shape == (4, 16),
+              f"the CLI (--workload lm --arch {arch}, smoke config): launches {got} (want "
+              f"{want}), tokens {tuple(tokens.shape)}")
+        print(f"[{label}] serve CLI --workload lm --arch {arch} (smoke config): launches "
+              f"{got}, tokens {tuple(tokens.shape)}", flush=True)
+    return out
+
+
+def moe_train_checks(ops, dev, label: str) -> dict:
+    """Phase 25: the train CLI (``--workload lm --arch``, the smoke configs,
+    float32) MOE_TRAIN['steps'] steps on the card, each step's launches and
+    metrics read: finite losses, ``moe_aux`` > 0 and in the loss at 0.01,
+    fused_xent and fused_xent_bwd once a step, flash_attention once per
+    attention layer and ssd_chunk once per Mamba2 layer (the smoke configs
+    do not remat); then one gradient of the loss twice: the router and
+    every expert finite, the router's nonzero, and which leaves' bits do
+    not repeat (the dispatch gather's backward, like the embedding's, is
+    autograd's index backward).  Returns {arch: launches per step}."""
+    from repro_torch import tree
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import token_batches
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import transformer as T
+
+    make_step = steps_mod.make_train_step
+    out = {}
+    for arch in MOE_ARCHS:
+        cfg = smoke_config(arch)
+        per_step = []
+
+        def counted(cfg_, opt_update=None, grad_clip=1.0):
+            inner = make_step(cfg_, opt_update, grad_clip)
+
+            def step(params, opt_state, batch):
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                res = inner(params, opt_state, batch)
+                torch.cuda.synchronize()
+                per_step.append((ops.launch_counts(), {k: float(v) for k, v in res[2].items()}))
+                return res
+
+            return step
+
+        steps_mod.make_train_step = counted
+        try:
+            losses = train_mod.main(["--workload", "lm", "--arch", arch, "--steps",
+                                     str(MOE_TRAIN["steps"]), "--batch",
+                                     str(MOE_TRAIN["batch"]), "--seq", str(MOE_TRAIN["seq"])])
+        finally:
+            steps_mod.make_train_step = make_step
+        want = dict(_path_launches(cfg), fused_xent=1, fused_xent_bwd=1)
+        for i, (counts, m) in enumerate(per_step):
+            check(all(counts[k] == v for k, v in want.items()),
+                  f"{arch} train step {i}: launches {counts}, want {want}")
+            check(all(map(math.isfinite, m.values())) and m["moe_aux"] > 0
+                  and abs(m["loss"] - (m["xent"] + 0.01 * m["moe_aux"])) <= 1e-6 * m["loss"],
+                  f"{arch} train step {i}: metrics {m} (want finite, moe_aux > 0, loss = "
+                  f"xent + 0.01 moe_aux)")
+        check(len(per_step) == len(losses) == MOE_TRAIN["steps"], f"{arch}: {len(per_step)} "
+              f"steps counted, losses {losses}")
+
+        params = T.init_lm(torch.Generator(device=dev).manual_seed(61), cfg, device=dev)
+        batch = token_batches(_data_key(dev), 0, MOE_TRAIN["batch"], MOE_TRAIN["seq"], cfg.vocab)
+
+        leaves, spec = tree.flatten(params)
+        paths = tree.unflatten(spec, list(range(len(leaves))))
+        paths = {i: f"units[{j}].{part}.{name}" for j, u in enumerate(paths["units"])
+                 for part, d in u.items() for name, i in d.items()} | {
+            paths["embed"]: "embed", paths["head"]: "head"}
+
+        def grads():
+            xs = [x.detach().requires_grad_() for x in leaves]
+            loss, _ = T.lm_loss(tree.unflatten(spec, xs), cfg, batch)
+            return torch.autograd.grad(loss, xs)
+
+        g1, g2 = grads(), grads()
+        torch.cuda.synchronize()
+        moe = [u["ffn"] for u in tree.unflatten(spec, g1)["units"]
+               if "ffn" in u and "router" in u["ffn"]]
+        check(moe and all(torch.isfinite(g).all().item() for f in moe for g in f.values())
+              and all(f["router"].abs().sum().item() > 0 for f in moe),
+              f"{arch}: a MoE gradient is non-finite, or a router's is zero")
+        repeat = [paths.get(i, f"leaf {i}") for i, (a, b) in enumerate(zip(g1, g2))
+                  if not torch.equal(a, b)]
+        print(f"[{label}] train CLI --workload lm --arch {arch} (smoke, float32, B="
+              f"{MOE_TRAIN['batch']} S={MOE_TRAIN['seq']}): losses {losses}; moe_aux "
+              f"{[round(m['moe_aux'], 5) for _, m in per_step]} (in the loss at 0.01); "
+              f"launches per step {want}; the router and expert gradients of all "
+              f"{sum(f['router'].shape[0] for f in moe)} MoE layers finite; two gradients "
+              f"differ bitwise in "
+              f"{repeat or 'no leaf'}", flush=True)
+        out[arch] = dict(launches=want, gradient_bits_differ=repeat, losses=losses)
+        del params, g1, g2
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 # The kernels whose registers, shared memory and spills the run reports.
@@ -5801,6 +6258,9 @@ def main() -> int:
     timed("lm train parity", lm_train_parity_checks, ops, dev, label)
     train_lm_launches = timed("lm train", lm_train_checks, ops, dev, label)
     timed("ssm train", ssm_train_checks, ops, dev, label)
+    moe_parity = timed("moe parity", moe_parity_checks, ops, dev, label)
+    moe_serve = timed("moe serve", moe_serve_checks, ops, dev, label)
+    moe_train = timed("moe train", moe_train_checks, ops, dev, label)
     ptxas_usage = ptxas_report(ptxas)
     check_no_spills(ptxas_usage, (*DEPENDENT_KERNELS.values(), *WINDOW_KERNELS))
 
@@ -5825,12 +6285,15 @@ def main() -> int:
                      "bf16_train": dict(attn_rows["bf16 training"], shape=list(ATTN_TRAIN)),
                      "max_rel_err_bf16": attn_rel, "rel_limit_bf16": ATTN_REL_TOL,
                      "copies_saved_per_layer": lm_serve["copies_saved_per_layer"],
-                     "ptxas_f32": {k: v for k, v in ptxas_usage.items() if "f32" in k}}
+                     "ptxas_f32": {k: v for k, v in ptxas_usage.items() if "f32" in k},
+                     **{f"bf16_{arch}_prefill": dict(attn_rows[f"bf16 {arch} prefill"],
+                                                      shape=list(shape))
+                        for arch, shape in ATTN_MOE_PREFILLS.items()}}
         elif name == "ssd_chunk":  # timed at the mamba2 prefill shape, bf16
             r = ssd_row
             launches = serve_launches = ssm_serve["launches"]
             extra = {k: r[k] for k in ("cuda_core_bound_ms", "shape", "blocks",
-                                       "ms_by_slices", "batch1", "sass")}
+                                       "ms_by_slices", "batch1", "jamba_prefill", "sass")}
             extra["ptxas"] = {k: v for k, v in ptxas_usage.items() if "ssd_chunk" in k}
         elif name == "fused_mlp":  # timed at the training batch (1024, 17 -> 32 -> 16)
             r = mlp_rows["train/serve B1024"]
@@ -5909,6 +6372,15 @@ def main() -> int:
                 "window_launches"][name], launches_per="data-parallel run (phase 22b)")
             errs[name] = max(errs[name], dp["window_errs"][name])
         extra["dp_launches"] = {f"rank{i}": n for i, n in enumerate(dp["dp_launches"][name])}
+        if name in LM_PATH_KERNELS:  # per prefill of each MoE / hybrid model run
+            extra["moe_prefill_launches"] = {
+                **{f"{arch} f32 {MOE_PARITY_LAYERS[arch]} layers": v["launches"][name]
+                   for arch, v in moe_parity.items()},
+                **{f"{arch} bf16 {MOE_SERVE_LAYERS[arch]} layers": v["launches"][name]
+                   for arch, v in moe_serve.items()}}
+        if name in (*LM_PATH_KERNELS, "fused_xent", "fused_xent_bwd"):
+            extra["moe_train_launches_per_step"] = {arch: v["launches"][name]
+                                                    for arch, v in moe_train.items()}
         entries.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches, "max_abs_err": errs[name],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

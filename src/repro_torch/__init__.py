@@ -38,11 +38,13 @@ repro_torch.nn.core                    repro.nn.core (MLP pieces, GRU,
                                        rmsnorm, layernorm, gelu, softplus)
 repro_torch.configs                    repro.configs (ArchConfig; the dense
                                        qwen2.5-14b, tinyllama-1.1b,
-                                       starcoder2-3b; the SSM mamba2-1.3b)
+                                       starcoder2-3b; the MoE dbrx-132b,
+                                       grok-1-314b; the SSM mamba2-1.3b;
+                                       the hybrid jamba-v0.1-52b)
 repro_torch.models                     repro.models (layers, transformer,
-                                       counting: the dense and SSM
-                                       families' prefill, decode and
-                                       training loss)
+                                       counting: the dense, MoE, SSM and
+                                       hybrid families' prefill, decode
+                                       and training loss)
 repro_torch.core.brownian              repro.core.brownian (BrownianPath
                                        in both levy_area modes,
                                        DenseBrownianPath,

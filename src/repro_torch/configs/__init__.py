@@ -2,9 +2,10 @@
 resolution and the reduced smoke configs.
 
 The port has the dense family (qwen2.5-14b, tinyllama-1.1b,
-starcoder2-3b) and the pure-SSM family (mamba2-1.3b).  The other six
-architectures of the reference raise :class:`ArchNotPortedError` naming
-the ROADMAP.md item that ports them.
+starcoder2-3b), the MoE family (dbrx-132b, grok-1-314b), the pure-SSM
+family (mamba2-1.3b) and the hybrid family (jamba-v0.1-52b).  The other
+three architectures of the reference (MLA, encoder-decoder, VLM) raise
+:class:`ArchNotPortedError` naming the ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
@@ -13,18 +14,16 @@ import dataclasses
 
 import torch
 
-from . import mamba2_1_3b, qwen2_5_14b, starcoder2_3b, tinyllama_1_1b
+from . import (dbrx_132b, grok_1_314b, jamba_v0_1_52b, mamba2_1_3b, qwen2_5_14b,
+               starcoder2_3b, tinyllama_1_1b)
 from .base import ArchConfig
 
 REGISTRY = {m.CONFIG.name: m.CONFIG
-            for m in (qwen2_5_14b, starcoder2_3b, tinyllama_1_1b, mamba2_1_3b)}
+            for m in (qwen2_5_14b, starcoder2_3b, tinyllama_1_1b, dbrx_132b, grok_1_314b,
+                      jamba_v0_1_52b, mamba2_1_3b)}
 
 #: The reference's architectures the port does not have yet, by family.
-NOT_PORTED = {
-    "dbrx-132b": "moe", "grok-1-314b": "moe", "minicpm3-4b": "mla",
-    "jamba-v0.1-52b": "hybrid",
-    "seamless-m4t-medium": "encdec", "pixtral-12b": "vlm",
-}
+NOT_PORTED = {"minicpm3-4b": "mla", "seamless-m4t-medium": "encdec", "pixtral-12b": "vlm"}
 
 ARCH_NAMES = sorted(REGISTRY)
 
@@ -37,7 +36,7 @@ def get_config(name: str) -> ArchConfig:
     if name in NOT_PORTED:
         raise ArchNotPortedError(
             f"arch {name!r} ({NOT_PORTED[name]} family) is not ported yet: the port "
-            f"has the dense and SSM families {ARCH_NAMES} — "
+            f"has the dense, MoE, SSM and hybrid families {ARCH_NAMES} — "
             f"ROADMAP.md Queue 1, 'The rest of the LM zoo'")
     if name not in REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")

@@ -93,7 +93,13 @@ class ArchConfig:
         return self.ssm_inner // self.ssm_headdim
 
     def param_count(self) -> int:
-        """Analytic parameter count (:func:`repro_torch.models.counting.param_count`)."""
+        """Analytic parameter count (:func:`repro_torch.models.counting.param_count`;
+        for MoE also see :meth:`active_param_count`)."""
         from ..models.counting import param_count
 
         return param_count(self)
+
+    def active_param_count(self) -> int:
+        from ..models.counting import param_count
+
+        return param_count(self, active_only=True)

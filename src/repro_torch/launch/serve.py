@@ -19,6 +19,10 @@ Usage::
         --arch qwen2.5-14b --batch 4 --prompt-len 32 --gen 16   # smoke config
     PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \\
         --arch mamba2-1.3b --full             # the full model, random weights
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \\
+        --arch dbrx-132b                    # MoE (also grok-1-314b), smoke config
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \\
+        --arch jamba-v0.1-52b               # hybrid: attention, Mamba2 and MoE
     PYTHONPATH=src python -m repro_torch.launch.serve --workload latent-sde \\
         --device cpu                        # plain PyTorch versions, no card
     PYTHONPATH=src python -m repro_torch.launch.serve --workload sde-gan \\
@@ -33,15 +37,15 @@ tolerance its deadline class admits, and ``--scheduler
 {continuous,fifo}`` drives the continuous-batching scheduler (``--preempt``,
 ``--pool-budget-mb``, ``--async-front`` ride on it; its steps are CUDA
 graphs on the card).  ``--workload lm`` serves the dense family
-(qwen2.5-14b, tinyllama-1.1b, starcoder2-3b) and the pure-SSM family
-(mamba2-1.3b) at their smoke size unless ``--full`` is given, as the
+(qwen2.5-14b, tinyllama-1.1b, starcoder2-3b), the MoE family (dbrx-132b,
+grok-1-314b), the pure-SSM family (mamba2-1.3b) and the hybrid family
+(jamba-v0.1-52b) at their smoke size unless ``--full`` is given, as the
 reference's flags read.  ``--host-devices N`` serves the Neural-SDE
 workloads data-parallel over ``N`` local ranks (spawned processes: gloo on
 the CPU with ``--device cpu`` or ranks sharing one card, NCCL with a card a
 rank), every mode included, each trajectory bitwise the one-rank
 service's.  Still unported, each with a named error pointing at
-ROADMAP.md: the other LM families (MoE, MLA, hybrid, encoder-decoder,
-VLM).
+ROADMAP.md: the other LM families (MLA, encoder-decoder, VLM).
 """
 
 from __future__ import annotations
@@ -73,7 +77,8 @@ def lm_prompts(seed: int, batch: int, prompt_len: int, vocab: int) -> torch.Tens
 
 def serve_lm(arch: str, batch: int, prompt_len: int, gen: int, smoke: bool = True,
              seed: int = 0, device=None, params=None):
-    """Prefill + greedy decode of a decoder-only LM (dense or Mamba2);
+    """Prefill + greedy decode of a decoder-only LM (dense, MoE, Mamba2 or
+    hybrid);
     returns the generated tokens, int32 ``(batch, gen)``.
 
     Fresh weights come from a generator seeded with ``seed`` on the serving
@@ -173,7 +178,9 @@ def main(argv=None):
                     help="fresh-init solver steps (default 16)")
     ap.add_argument("--seed", type=int, default=0)
     # --workload lm: the transformer LM's prefill + greedy decode
-    ap.add_argument("--arch", default="qwen2.5-14b")
+    ap.add_argument("--arch", default="qwen2.5-14b",
+                    help="lm: qwen2.5-14b, tinyllama-1.1b, starcoder2-3b, dbrx-132b, "
+                         "grok-1-314b, mamba2-1.3b or jamba-v0.1-52b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)

@@ -6,6 +6,8 @@ Usage::
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
         --steps 50 --ckpt-dir D                   # the smoke config, on the card
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch dbrx-132b \\
+        --steps 3                                 # MoE (also grok-1-314b, jamba-v0.1-52b)
     PYTHONPATH=src python -m repro_torch.launch.train --workload sde-gan \\
         --constraint clip --ckpt-dir D && python -m repro_torch.launch.serve \\
         --workload sde-gan --ckpt-dir D
@@ -17,9 +19,10 @@ Usage::
     PYTHONPATH=src python -m repro_torch.launch.train --workload latent-sde \
         --solver srk [--adjoint checkpoint]          # strong order 1.5
 
-``lm`` trains a decoder-only LM of the dense or SSM family (``--arch``; the
-reduced smoke config unless ``--full``) with AdamW on the cosine schedule,
-the loss through the ``fused_xent`` kernels on the card.  The loop is the
+``lm`` trains a decoder-only LM of the dense, MoE, SSM or hybrid family
+(``--arch``; the reduced smoke config unless ``--full``) with AdamW on the
+cosine schedule, the loss through the ``fused_xent`` kernels on the card
+plus 0.01 times the MoE load-balancing loss (``moe_aux`` in the metrics).  The loop is the
 reference's: the batch of step ``n`` is ``token_batches(fold_in(PRNGKey(
 seed), 1), n)``, bitwise the reference's; ``--fail-at-step`` raises at
 that step (the failure drill); ``--lose-devices`` re-plans the mesh it
@@ -65,9 +68,9 @@ bitwise equal; rank 0 writes the checkpoints.  A batch that does not
 divide runs unsharded on every rank, with the reference's message.
 
 Every workload runs on the card by default; with no card and no
-``--device cpu`` it stops with a named error.  The vlm/audio/encdec
-families and the LM's sharded execution are not ported yet (ROADMAP.md
-Queue 1).
+``--device cpu`` it stops with a named error.  The MLA, vlm/audio and
+encdec families and the LM's sharded execution are not ported yet
+(ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -387,7 +390,9 @@ def train_latent_sde(steps: int, batch: int, ckpt_dir: Optional[str] = None,
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--workload", choices=("lm", "sde-gan", "latent-sde"), default="lm")
-    ap.add_argument("--arch", default="tinyllama-1.1b", help="lm: the architecture")
+    ap.add_argument("--arch", default="tinyllama-1.1b",
+                    help="lm: the architecture (qwen2.5-14b, tinyllama-1.1b, starcoder2-3b, "
+                         "dbrx-132b, grok-1-314b, mamba2-1.3b or jamba-v0.1-52b)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=None,
                     help="default 8 (lm), 128 (sde-gan) or 64 (latent-sde)")

@@ -1,2 +1,2 @@
-"""The transformer zoo (port of :mod:`repro.models`), the dense and SSM
-families: ``layers``, ``transformer``, ``counting``."""
+"""The transformer zoo (port of :mod:`repro.models`), the dense, MoE, SSM
+and hybrid families: ``layers``, ``transformer``, ``counting``."""

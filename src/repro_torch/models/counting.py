@@ -1,7 +1,7 @@
-"""Analytic parameter count (port of :mod:`repro.models.counting`, the
-dense and pure-SSM families' branches).  It mirrors what
+"""Analytic parameter counts (port of :mod:`repro.models.counting`, the
+dense, MoE, pure-SSM and hybrid families' branches).  They mirror what
 :func:`repro_torch.models.transformer.init_lm` allocates, and the tests
-hold it to the leaf sizes and to the reference's count."""
+hold them to the leaf sizes and to the reference's counts."""
 
 from __future__ import annotations
 
@@ -23,6 +23,11 @@ def _ffn_params(cfg: ArchConfig) -> int:
     return n
 
 
+def _moe_params(cfg: ArchConfig, active_only: bool = False) -> int:
+    e = cfg.top_k if active_only else cfg.num_experts
+    return cfg.d_model * cfg.num_experts + e * _ffn_params(cfg)  # router + experts
+
+
 def _mamba_params(cfg: ArchConfig) -> int:
     d, di, n, h, k = cfg.d_model, cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_conv
     conv_dim = di + 2 * n
@@ -38,8 +43,23 @@ def _norm_params(cfg: ArchConfig) -> int:
     return 2 * cfg.d_model if cfg.norm == "layernorm" else cfg.d_model
 
 
-def param_count(cfg: ArchConfig) -> int:
-    """Total parameter count of a dense- or SSM-family model."""
+def _layer_params(cfg: ArchConfig, layer_idx: int, active_only: bool) -> int:
+    """One block of the stack at global index ``layer_idx``."""
+    if cfg.ssm:                                       # pure SSM stack
+        return _mamba_params(cfg) + _norm_params(cfg)
+    if cfg.family == "hybrid":
+        is_attn = (layer_idx % cfg.attn_every) == 0
+        mixer = _attn_params(cfg) if is_attn else _mamba_params(cfg)
+        is_moe = cfg.moe and (layer_idx % cfg.moe_every) == 1
+        ffn = _moe_params(cfg, active_only) if is_moe else _ffn_params(cfg)
+        return mixer + ffn + 2 * _norm_params(cfg)
+    ffn = _moe_params(cfg, active_only) if cfg.moe else _ffn_params(cfg)
+    return _attn_params(cfg) + ffn + 2 * _norm_params(cfg)
+
+
+def param_count(cfg: ArchConfig, active_only: bool = False) -> int:
+    """Total (or routing-active: ``top_k`` of the experts) parameter count
+    of the full model."""
     from .transformer import unit_pattern
 
     unit_pattern(cfg)  # raises for the families the port lacks
@@ -47,8 +67,9 @@ def param_count(cfg: ArchConfig) -> int:
     if not cfg.tie_embeddings:
         n += cfg.vocab * cfg.d_model                  # head
     n += _norm_params(cfg)                            # final norm
-    if cfg.ssm:                                       # pure SSM stack
-        layer = _mamba_params(cfg) + _norm_params(cfg)
-    else:
-        layer = _attn_params(cfg) + _ffn_params(cfg) + 2 * _norm_params(cfg)
-    return n + cfg.num_layers * layer
+    return n + sum(_layer_params(cfg, i, active_only) for i in range(cfg.num_layers))
+
+
+def model_flops_per_token(cfg: ArchConfig) -> int:
+    """6·N_active — the standard training-FLOPs-per-token estimate."""
+    return 6 * param_count(cfg, active_only=True)

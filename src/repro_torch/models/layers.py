@@ -1,8 +1,9 @@
 """Sequence-mixing and FFN layers of the transformer zoo (port of
-:mod:`repro.models.layers`), the dense and SSM families': RoPE, GQA
-self-attention (full sequence and single-token decode against a cache),
-the dense FFN, and the Mamba2 mixer (the chunked SSD prefill and the
-recurrent single-token decode).
+:mod:`repro.models.layers`), the dense, MoE, SSM and hybrid families': RoPE,
+GQA self-attention (full sequence and single-token decode against a cache),
+the dense FFN, the top-k token-choice MoE with its load-balancing loss, and
+the Mamba2 mixer (the chunked SSD prefill and the recurrent single-token
+decode).
 
 Parameters are dicts of tensors in the reference's layout (``x @ w``).
 ``*_init`` draw fresh weights from an explicit ``torch.Generator`` at the
@@ -16,8 +17,10 @@ ROADMAP.md Queue 1, 'Sharded LM execution'); ``blockwise_attention`` is the XLA
 path of the reference — on the card the attention runs in the CUDA kernel, on the CPU
 in its plain version; likewise ``ssd_chunked_dense`` is the reference's
 XLA form of the SSD scan, and the port's mixer calls the SSD kernel (its
-plain version on the CPU).  MLA, MoE and cross-attention raise
-:class:`LayerNotPortedError`.
+plain version on the CPU).  The MoE layer reaches no kernel of the
+reference: its routing, dispatch, expert products and combine are plain
+PyTorch on both devices, the combine a fixed-order sum (no atomics).  MLA
+and cross-attention raise :class:`LayerNotPortedError`.
 """
 
 from __future__ import annotations
@@ -190,6 +193,145 @@ def ffn_apply(p, cfg: ArchConfig, x):
     else:
         h = nn.gelu(x @ p["up"])
     return h @ p["down"]
+
+
+# =============================================================================
+# MoE FFN
+# =============================================================================
+
+
+def moe_init(generator: torch.Generator, cfg: ArchConfig, lead: Sequence[int] = (),
+             device=None):
+    """The reference's ``moe_init`` scales and dtypes: ``router`` is float32
+    in a model of any dtype, the experts ``(E, d, f)`` / ``(E, f, d)`` in
+    ``cfg.dtype``."""
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    lead = tuple(lead)
+    s = 1.0 / math.sqrt(d)
+
+    def w(shape, dtype=cfg.dtype):
+        return _normal(generator, lead + shape, dtype, device)
+
+    p = {"router": w((d, E), torch.float32).mul_(s),
+         "e_up": w((E, d, f)).mul_(s),
+         "e_down": w((E, f, d)).div_(math.sqrt(f)).div_(math.sqrt(2 * cfg.num_layers))}
+    if cfg.ffn == "swiglu":
+        p["e_gate"] = w((E, d, f)).mul_(s)
+    return p
+
+
+def moe_capacity(cfg: ArchConfig, S: int) -> int:
+    """Slots per expert and batch row: ``C = max(1, int(cf·S·k/E))``."""
+    return max(1, int(cfg.capacity_factor * S * cfg.top_k / cfg.num_experts))
+
+
+def moe_topk(logits: torch.Tensor, k: int):
+    """The reference's router choice: the top ``k`` softmax probabilities
+    of logits ``(B, S, E)`` and their experts, ties to the lower expert (as
+    ``jax.lax.top_k``), the weights normalised by their sum clipped at
+    1e-9 -> ``(w (B, S, k) float32, idx (B, S, k))``."""
+    probs = torch.softmax(logits, dim=-1)
+    w, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    w, idx = w[..., :k], idx[..., :k]
+    return w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9), idx
+
+
+def moe_slots(idx: torch.Tensor, E: int, C: int):
+    """The reference's ``route_one``, batched over the rows: each choice's
+    position within its expert ``(B, S·k)``, counted over the token-major,
+    k-minor flattening of idx ``(B, S, k)``; whether it is within the
+    capacity ``C``; and ``buf (B, E·C)``, the token each expert slot reads
+    (``S``, the zero pad row, for an empty slot)."""
+    B, S, k = idx.shape
+    flat_e = idx.reshape(B, S * k)
+    oh = torch.nn.functional.one_hot(flat_e, E)
+    pos = (oh.cumsum(1) - oh).gather(-1, flat_e[..., None])[..., 0]
+    keep = pos < C
+    slot = torch.where(keep, flat_e * C + pos, E * C)            # E·C: dropped
+    tok = torch.arange(S, device=idx.device).repeat_interleave(k).expand(B, S * k)
+    buf = torch.full((B, E * C + 1), S, dtype=torch.int64, device=idx.device)
+    buf = buf.scatter_(1, slot, tok)[:, :E * C]     # a kept slot is written once
+    return pos, keep, buf
+
+
+def moe_apply(p, cfg: ArchConfig, x):
+    """Top-k token-choice MoE with per-row capacity (the reference's
+    ``moe_apply``).  x: ``(B, S, D)`` -> ``(y (B, S, D), router logits (B,
+    S, E) float32)``.
+
+    The router product is ``x.float() @ router`` (TF32 stays off on the
+    card, PyTorch's default).  The weights are cast to x's dtype before the
+    combine.  Every expert computes all its ``C`` capacity rows (the empty
+    ones read the zero pad row), in decode too, as a batched product over
+    the experts.  The combine adds each token's kept slots in ascending
+    expert order into zero, rounding to x's dtype after each add: the order
+    of the reference's sequential scatter-add, with no atomics, so two runs
+    give the same bits on the card.  Its backward (and the dispatch
+    gather's) is plain autograd."""
+    E, K = cfg.num_experts, cfg.top_k
+    C = moe_capacity(cfg, x.shape[1])
+    logits = x.float() @ p["router"]
+    w, idx = moe_topk(logits, K)
+    pos, keep, buf = moe_slots(idx, E, C)
+    ye = moe_experts(p, cfg, moe_dispatch(x, buf, E, C))
+    return moe_combine(ye, w.to(x.dtype), idx, pos, keep, C), logits
+
+
+def moe_dispatch(x, buf, E: int, C: int):
+    """The rows each expert computes: ``xe (E, B·C, D)``, row ``b·C + p`` of
+    expert e the token ``buf[b, e·C + p]`` of batch row b (the zero pad
+    row for an empty slot)."""
+    B, S, D = x.shape
+    x_pad = torch.cat([x, x.new_zeros(B, 1, D)], 1)
+    rows = torch.arange(B, device=x.device)[None, :, None]
+    return x_pad[rows, buf.view(B, E, C).transpose(0, 1)].reshape(E, B * C, D)
+
+
+def moe_experts(p, cfg: ArchConfig, xe):
+    """Each expert's FFN on its rows, one batched product over the experts
+    (the reference's ``becd,edf->becf`` and back): ``(E, R, D) -> (E, R, D)``."""
+    if cfg.ffn == "swiglu":
+        h = nn.silu(torch.bmm(xe, p["e_gate"])) * torch.bmm(xe, p["e_up"])
+    else:
+        h = nn.gelu(torch.bmm(xe, p["e_up"]))
+    return torch.bmm(h, p["e_down"])
+
+
+def moe_combine(ye, w, idx, pos, keep, C: int):
+    """The experts' rows back to their tokens: ``y[b, t] = Σ_k w[b, t, k]·
+    ye[slot of (b, t, k)]`` over the kept slots.  ye: ``(E, B·C, D)``, row
+    ``b·C + p`` of expert e holding slot p of batch row b; w ``(B, S, k)``
+    in ye's dtype; idx as :func:`moe_topk`, pos and keep as
+    :func:`moe_slots` give them.
+
+    Each token's kept slots are added in ascending expert order into zero,
+    each product and each sum rounded to ye's dtype: the order of the
+    reference's sequential scatter-add over the slots.  A gather and a
+    fixed loop over k, no atomics."""
+    E, BC, D = ye.shape
+    B, S, K = idx.shape
+    # slot (b, e, p) is row e·B·C + b·C + p; row E·B·C is a zero row
+    ye_pad = torch.cat([ye.reshape(E * BC, D), ye.new_zeros(1, D)])
+    b_off = torch.arange(B, device=ye.device)[:, None] * C
+    row = torch.where(keep, idx.reshape(B, S * K) * BC + b_off + pos, E * BC).view(B, S, K)
+    order = torch.argsort(idx, dim=-1)                                # ascending expert
+    row, kept, w = (t.gather(-1, order) for t in (row, keep.view(B, S, K), w))
+    y = ye.new_zeros(B, S, D)
+    for j in range(K):
+        y = torch.where(kept[..., j, None], y + ye_pad[row[..., j]] * w[..., j, None], y)
+    return y
+
+
+def moe_aux_loss(logits):
+    """Load-balancing auxiliary loss (Switch-style), float32: E·Σ_e (mean
+    router probability of e)·(share of tokens whose top expert is e);
+    ``argmax`` ties go to the first expert."""
+    E = logits.shape[-1]
+    probs = torch.softmax(logits, dim=-1)
+    frac_prob = probs.mean(dim=(0, 1))
+    top1 = probs.argmax(dim=-1)
+    frac_tok = torch.nn.functional.one_hot(top1, E).float().mean(dim=(0, 1))
+    return E * torch.sum(frac_prob * frac_tok)
 
 
 # =============================================================================

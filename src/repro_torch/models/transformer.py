@@ -1,14 +1,16 @@
 """Decoder-only LM: init, forward, prefill and decode (port of
-:mod:`repro.models.transformer`, the dense and pure-SSM families).
+:mod:`repro.models.transformer`, the dense, MoE, pure-SSM and hybrid
+families).
 
 Parameters keep the reference's pytree: ``{"embed", "final_norm", "head"
 (untied only), "units": [block]}``, where ``units`` holds one block per
-entry of :func:`unit_pattern` (one for both families) and every block
-leaf carries a leading layer axis; layer ``i`` is the view ``leaf[i]``, as
-the reference's unrolled path slices it.  So
+entry of :func:`unit_pattern` (one for the homogeneous families, jamba's
+8-layer unit for the hybrid) and every block leaf carries a leading unit
+axis; unit ``i`` is the view ``leaf[i]``, as the reference's unrolled
+path slices it.  So
 :func:`repro_torch.checkpoint.params_from_jax` carries a JAX LM's weights
 across as they are.  Caches are the same: a list of per-block dicts with a
-leading layer axis, ``{"k", "v": (U, B, S, Hkv, hd)}`` for attention and
+leading unit axis, ``{"k", "v": (U, B, S, Hkv, hd)}`` for attention and
 ``{"conv": (U, B, k − 1, inner + 2N), "ssm": (U, B, H, N, P) float32}`` for
 the Mamba2 mixer.
 
@@ -16,19 +18,22 @@ The layer stack is a Python loop (``scan_layers`` is an XLA compile hint;
 ``reversible_residual`` is not ported).  ``remat`` is honoured as the
 reference's ``jax.checkpoint`` per unit is: with grad enabled each unit
 runs under :func:`torch.utils.checkpoint.checkpoint`, so only a unit's
-input is kept and its activations are recomputed in the backward.  That
-changes memory and never a number.  Decode writes each
+input is kept and its activations are recomputed in the backward; the
+checkpointed unit returns its MoE aux loss beside ``x``.  That changes
+memory and never a number.  Decode writes each
 layer's new K/V row, or its new conv window and SSM state, into the
 stacked cache in place, where the reference donates the buffer;
-:func:`lm_decode` returns the same cache object.  MoE, MLA, hybrid,
-encoder-decoder and prefix ``embeds`` raise :class:`ModelNotPortedError`
-naming ROADMAP.md.
+:func:`lm_decode` returns the same cache object.  MLA, encoder-decoder and
+prefix ``embeds`` raise :class:`ModelNotPortedError` (ROADMAP.md Queue 1,
+'The rest of the LM zoo').
 
 The training loss :func:`lm_loss` is the reference's: the mean next-token
-cross entropy plus the (zero) aux loss.  On the card its per-token losses
-come from ``fused_xent`` (a forward and a backward kernel launch) through
-the module-level hook :func:`_xent_dispatch`; on the CPU it is the plain
-:func:`softmax_xent`.  The route is chosen by the logits' device only.
+cross entropy plus 0.01 times the MoE aux loss (the sum over the MoE
+blocks of :func:`repro_torch.models.layers.moe_aux_loss`, 0 without one).
+On the card its per-token losses come from ``fused_xent`` (a forward and a
+backward kernel launch) through the module-level hook
+:func:`_xent_dispatch`; on the CPU it is the plain :func:`softmax_xent`.
+The route is chosen by the logits' device only.
 """
 
 from __future__ import annotations
@@ -56,8 +61,8 @@ class NotPortedError(NotImplementedError):
 
 
 def _not_ported(what: str):
-    return ModelNotPortedError(f"{what} is not ported yet: the port has the dense "
-                               f"and SSM families — "
+    return ModelNotPortedError(f"{what} is not ported yet: the port has the dense, "
+                               f"MoE, SSM and hybrid families — "
                                f"ROADMAP.md Queue 1, 'The rest of the LM zoo'")
 
 
@@ -70,8 +75,15 @@ def unit_pattern(cfg: ArchConfig) -> List[Tuple[str, str]]:
     """(mixer, ffn) per layer in the smallest repeating unit of the stack."""
     if cfg.ssm:
         return [("mamba", "none")]
-    if cfg.family in ("hybrid", "encdec") or cfg.moe or cfg.attention != "gqa":
+    if cfg.family == "encdec" or cfg.attention != "gqa":
         raise _not_ported(f"the {cfg.family} family ({cfg.name})")
+    if cfg.family == "hybrid":
+        size = math.lcm(cfg.attn_every, cfg.moe_every if cfg.moe else 1)
+        return [("attn" if l % cfg.attn_every == 0 else "mamba",
+                 "moe" if cfg.moe and l % cfg.moe_every == 1 else "dense")
+                for l in range(size)]
+    if cfg.moe:
+        return [("attn", "moe")]
     return [("attn", "dense")]
 
 
@@ -98,22 +110,23 @@ def _norm(cfg: ArchConfig, p, x):
     return nn.layernorm(p, x) if cfg.norm == "layernorm" else nn.rmsnorm(p, x)
 
 
-# unit_pattern admits ("attn", "dense") and ("mamba", "none") only.
-
-
 def block_init(generator: torch.Generator, cfg: ArchConfig, mixer: str, ffn: str,
                lead=(), device=None) -> Params:
     mix = (L.mamba2_init if mixer == "mamba" else L.gqa_init)(generator, cfg, lead, device)
     p: Params = {"ln1": _norm_init(cfg, lead, device), "mixer": mix}
     if ffn != "none":
         p["ln2"] = _norm_init(cfg, lead, device)
-        p["ffn"] = L.ffn_init(generator, cfg, lead, device)
+        p["ffn"] = (L.moe_init if ffn == "moe" else L.ffn_init)(generator, cfg, lead, device)
     return p
 
 
+def _aux_zero(x):
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 def block_apply(p: Params, cfg: ArchConfig, mixer: str, ffn: str, x):
-    """Full-sequence causal block.  Returns ``(x, cache_entry)`` (the
-    reference's third output, the MoE aux loss, is 0 for these blocks)."""
+    """Full-sequence causal block.  Returns ``(x, cache_entry, aux_loss)``:
+    the MoE block's load-balancing loss, a float32 0 for the others."""
     h = _norm(cfg, p["ln1"], x)
     if mixer == "mamba":
         o, cache = L.mamba2_apply(p["mixer"], cfg, h)
@@ -121,9 +134,14 @@ def block_apply(p: Params, cfg: ArchConfig, mixer: str, ffn: str, x):
         o, (k, v) = L.gqa_attend(p["mixer"], cfg, h)
         cache = {"k": k, "v": v}
     x = x + o
-    if ffn != "none":
+    aux = _aux_zero(x)
+    if ffn == "moe":
+        f, router_logits = L.moe_apply(p["ffn"], cfg, _norm(cfg, p["ln2"], x))
+        aux = L.moe_aux_loss(router_logits)
+        x = x + f
+    elif ffn != "none":
         x = x + L.ffn_apply(p["ffn"], cfg, _norm(cfg, p["ln2"], x))
-    return x, cache
+    return x, cache, aux
 
 
 def block_decode(p: Params, cfg: ArchConfig, mixer: str, ffn: str, x, cache, pos):
@@ -132,7 +150,9 @@ def block_decode(p: Params, cfg: ArchConfig, mixer: str, ffn: str, x, cache, pos
     decode = L.mamba2_decode if mixer == "mamba" else L.gqa_decode
     o, cache = decode(p["mixer"], cfg, h, cache, pos)
     x = x + o
-    if ffn != "none":
+    if ffn == "moe":
+        x = x + L.moe_apply(p["ffn"], cfg, _norm(cfg, p["ln2"], x))[0]
+    elif ffn != "none":
         x = x + L.ffn_apply(p["ffn"], cfg, _norm(cfg, p["ln2"], x))
     return x, cache
 
@@ -166,41 +186,46 @@ def _layer(units, i: int):
 
 
 def _unit_forward(params_units, cfg: ArchConfig, i: int, x):
-    """Unit ``i`` of the stack -> ``(x, its blocks' caches)``."""
-    caches = []
+    """Unit ``i`` of the stack -> ``(x, its blocks' caches, aux)``; aux sums
+    the blocks' aux losses in order from 0, as the reference's
+    ``_unit_apply``."""
+    caches, aux = [], _aux_zero(x)
     for bp, (m, f) in zip(_layer(params_units, i), unit_pattern(cfg)):
-        x, c = block_apply(bp, cfg, m, f, x)
+        x, c, a = block_apply(bp, cfg, m, f, x)
+        aux = aux + a
         caches.append(c)
-    return x, caches
+    return x, caches, aux
 
 
 def _stack_forward(params_units, cfg: ArchConfig, x, want_cache: bool = False):
-    """Run the unit stack.  Returns ``(x, stacked caches | None)``.
+    """Run the unit stack.  Returns ``(x, stacked caches | None, aux)``,
+    aux the units' aux losses summed in order from 0.
 
     With ``cfg.remat``, grad enabled and no cache wanted (training), each
     unit runs under a non-reentrant checkpoint, as the reference wraps each
-    unit in ``jax.checkpoint``; the units draw no random numbers, so the
-    RNG state is not saved."""
+    unit in ``jax.checkpoint``, and returns ``(x, aux)``; the units draw no
+    random numbers, so the RNG state is not saved."""
     remat = cfg.remat and torch.is_grad_enabled() and not want_cache
     if remat and cfg.remat_policy == "collectives":
         raise NotPortedError(
             "remat_policy='collectives' (save only the post-all-reduce activations) "
             "belongs to the LM's sharded execution, not ported yet — "
             "ROADMAP.md Queue 1, 'Sharded LM execution'")
-    per_unit = []
+    per_unit, aux = [], _aux_zero(x)
     for i in range(num_units(cfg)):
         if remat:
-            x = checkpoint(lambda xi, i=i: _unit_forward(params_units, cfg, i, xi)[0], x,
-                           use_reentrant=False, preserve_rng_state=False)
-            continue
-        x, caches = _unit_forward(params_units, cfg, i, x)
-        if want_cache:
-            per_unit.append(caches)
+            x, a = checkpoint(lambda xi, i=i: _unit_forward(params_units, cfg, i, xi)[::2], x,
+                              use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, caches, a = _unit_forward(params_units, cfg, i, x)
+            if want_cache:
+                per_unit.append(caches)
+        aux = aux + a
     if not want_cache:
-        return x, None
+        return x, None, aux
     stacked = [{k: torch.stack([u[j][k] for u in per_unit]) for k in per_unit[0][j]}
                for j in range(len(unit_pattern(cfg)))]
-    return x, stacked
+    return x, stacked, aux
 
 
 def _embed(params, cfg: ArchConfig, tokens, embeds=None):
@@ -215,12 +240,12 @@ def _lm_head(params, cfg: ArchConfig, x):
 
 
 def lm_forward(params, cfg: ArchConfig, tokens, embeds=None):
-    """Train-mode forward: logits over the full sequence + the aux loss
-    (0: neither ported family has a MoE router)."""
+    """Train-mode forward: logits over the full sequence + the MoE aux loss
+    (float32; 0 for a stack without a MoE block)."""
     x = _embed(params, cfg, tokens, embeds)
-    x, _ = _stack_forward(params["units"], cfg, x)
+    x, _, aux = _stack_forward(params["units"], cfg, x)
     x = _norm(cfg, params["final_norm"], x)
-    return _lm_head(params, cfg, x), torch.zeros((), dtype=torch.float32, device=x.device)
+    return _lm_head(params, cfg, x), aux
 
 
 def lm_prefill(params, cfg: ArchConfig, tokens, embeds=None, max_len: Optional[int] = None):
@@ -237,7 +262,7 @@ def lm_prefill(params, cfg: ArchConfig, tokens, embeds=None, max_len: Optional[i
                          f"the conv window's ssm_conv - 1 = {k - 1}; the Mamba2 decode "
                          f"cache needs that many (ROADMAP.md Queue 3)")
     x = _embed(params, cfg, tokens, embeds)
-    x, caches = _stack_forward(params["units"], cfg, x, want_cache=True)
+    x, caches, _ = _stack_forward(params["units"], cfg, x, want_cache=True)
     x = _norm(cfg, params["final_norm"], x)
     logits = _lm_head(params, cfg, x[:, -1:, :])
     if max_len is not None:

@@ -13,7 +13,9 @@ against its plain version (y: float32 2e-4, bfloat16 6e-2; the state 2e-4
 of its largest magnitude) at its edges (the four (N, P) pairs, S around
 the chunk, batch 1, a strong decay, rows off 16-byte boundaries), two
 launches, contiguous copies and every slice count bitwise equal, and a
-two-layer smoke mamba2 prefill through it; the SDE field MLP kernel against its plain version (float32 2e-5, bfloat16
+two-layer smoke mamba2 prefill through it; the MoE and hybrid smoke
+prefills through both kernels, two of them bitwise equal, and the MoE
+combine bitwise the CPU's; the SDE field MLP kernel against its plain version (float32 2e-5, bfloat16
 6e-2, float64 1e-12), row-invariant bitwise, and the depth-1 fields routed
 through it; its backward kernel against ``ref.fused_mlp_bwd`` (the same
 tolerances) at rows up to 4096, two launches bitwise, dx rows invariant,
@@ -501,10 +503,12 @@ def test_flash_attention_kernel_matches_plain_version(cuda, dtype, B, Hq, Hkv, S
 
 # chip_smoke.py's ATTN_SHAPES: qwen2.5-14b's prefill and a short prompt, a
 # ragged S, tinyllama's group 8 at D 64, S 1 with MQA, a ragged S just past
-# one tile, D 16, tinyllama's training shape.
+# one tile, D 16, dbrx-132b's and jamba-v0.1-52b's prefills, tinyllama's
+# training shape.
 ATTN_SHAPES = [(4, 40, 8, 2048, 128), (4, 40, 8, 32, 128), (1, 40, 8, 1000, 128),
                (2, 32, 4, 777, 64), (1, 4, 1, 1, 128), (1, 40, 8, 129, 128),
-               (2, 8, 4, 300, 16), (4, 32, 4, 2048, 64)]
+               (2, 8, 4, 300, 16), (4, 48, 8, 2048, 128), (4, 32, 8, 2048, 128),
+               (4, 32, 4, 2048, 64)]
 
 
 @pytest.mark.parametrize("B,Hq,Hkv,S,D", ATTN_SHAPES)
@@ -585,6 +589,53 @@ def test_smoke_lm_prefill_runs_through_the_kernel(cuda, monkeypatch):
     plain, _ = prefill(params, {"tokens": tokens.to(cuda)})
     torch.testing.assert_close(logits, plain, rtol=2e-5, atol=2e-5)
     assert caches[0]["k"].shape == (2, 2, 80, cfg.num_kv_heads, cfg.head_dim)
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "grok-1-314b", "jamba-v0.1-52b"])
+def test_smoke_moe_and_hybrid_prefills_run_through_the_kernels(cuda, arch):
+    """The MoE and hybrid smoke models: flash_attention once per attention
+    layer and ssd_chunk once per Mamba2 layer, two prefills bitwise equal
+    (the combine has no atomics), the logits of the CPU within 2e-4 (the
+    SSD scan's float32 tolerance)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer
+
+    cfg = smoke_config(arch)
+    params = transformer.init_lm(torch.Generator().manual_seed(0), cfg, device=cuda)
+    tokens = torch.randint(0, cfg.vocab, (2, 77), generator=torch.Generator().manual_seed(1))
+    prefill = make_prefill_step(cfg, max_len=80)
+    ops.reset_launch_counts()
+    logits, caches = prefill(params, {"tokens": tokens.to(cuda)})
+    again, caches2 = prefill(params, {"tokens": tokens.to(cuda)})
+    torch.cuda.synchronize()
+    mixers = [m for m, _ in transformer.unit_pattern(cfg)] * transformer.num_units(cfg)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 2 * mixers.count("attn")
+    assert counts["ssd_chunk"] == 2 * mixers.count("mamba")
+    assert torch.equal(logits, again)
+    assert all(torch.equal(a, b) for a, b in zip(tree.leaves(caches), tree.leaves(caches2)))
+    cpu_logits, _ = prefill(tree.map(lambda a: a.cpu(), params), {"tokens": tokens})
+    torch.testing.assert_close(logits.cpu(), cpu_logits, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_combine_on_the_card_is_the_cpus_bitwise(cuda, dtype):
+    """The combine's gathers, products and fixed-order sums round alike on
+    both devices: dbrx's top-4 of 16 experts at B 2 × 300, some slots
+    dropped."""
+    from repro_torch.models import layers
+
+    g = torch.Generator().manual_seed(7)
+    B, S, E, K, D = 2, 300, 16, 4, 64
+    C = max(1, int(1.0 * S * K / E))
+    w, idx = layers.moe_topk(torch.randn(B, S, E, generator=g), K)
+    pos, keep, _ = layers.moe_slots(idx, E, C)
+    assert not keep.all()
+    ye = torch.randn(E, B * C, D, generator=g).to(dtype)
+    want = layers.moe_combine(ye, w.to(dtype), idx, pos, keep, C)
+    got = layers.moe_combine(*(t.to(cuda) for t in (ye, w.to(dtype), idx, pos, keep)), C)
+    assert torch.equal(got.cpu(), want)
 
 
 # (B, H, S, P, N, a's scale): the four (N, P) pairs; S ragged, = 1, < the

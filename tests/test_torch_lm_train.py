@@ -2,13 +2,15 @@
 pipeline (bitwise), the cosine schedule, global-norm clipping and AdamW
 (float32 moments over bfloat16 parameters, the reference's promotion of
 the parameters to float32), one and two jitted ``make_train_step`` steps on
-the four ported smoke configs (weights carried across with
-``params_from_jax``), the per-unit checkpoint (remat), the loss's CPU
-route, the train CLI with its resume, and checkpoints crossing between
-the two packages in both directions.
+the dense and SSM smoke configs and dbrx-132b's (MoE: the router's and
+the experts' gradients and the aux loss weighted 0.01 into the loss;
+weights carried across with ``params_from_jax``), the per-unit checkpoint
+(remat, with a MoE and the hybrid stack too), the loss's CPU route, the
+train CLI with its resume (and a MoE and the hybrid arch), and checkpoints
+crossing between the two packages in both directions.
 
-Tolerances, float32: the loss, ``xent`` and ``grad_norm`` rtol = 1e-5 (the
-same ops summed in other orders: XLA's CPU dots against torch's BLAS, the
+Tolerances, float32: the loss, ``xent``, ``moe_aux`` and ``grad_norm`` rtol
+= 1e-5 (the same ops summed in other orders: XLA's CPU dots against torch's BLAS, the
 reference's blockwise attention against the port's plain softmax); the
 parameters after a step within 2·lr of the reference's (Adam's first
 update is ±lr·sign(m) for a gradient above eps, so a gradient component at
@@ -42,7 +44,7 @@ from repro_torch.launch import steps
 from repro_torch.launch import train as train_cli
 from repro_torch.models import transformer as T
 
-ARCHS = ["tinyllama-1.1b", "qwen2.5-14b", "starcoder2-3b", "mamba2-1.3b"]
+ARCHS = ["tinyllama-1.1b", "qwen2.5-14b", "starcoder2-3b", "mamba2-1.3b", "dbrx-132b"]
 B, S = 2, 32
 RTOL = 1e-5
 
@@ -176,9 +178,11 @@ def two_steps(request):
 
 def _close_state(params, opt_state, metrics, want, lr):
     jp, jo, jm = want
-    for k in ("loss", "xent", "grad_norm"):
+    for k in ("loss", "xent", "grad_norm", "moe_aux"):
         np.testing.assert_allclose(float(metrics[k]), float(jm[k]), rtol=RTOL, err_msg=k)
-    assert float(metrics["moe_aux"]) == float(jm["moe_aux"]) == 0.0
+    np.testing.assert_allclose(float(metrics["loss"]),
+                               float(metrics["xent"]) + 0.01 * float(metrics["moe_aux"]),
+                               rtol=1e-6)
     for a, b in zip(tree.leaves(params), jax.tree.leaves(jp)):
         assert a.dtype == torch.float32 and a.shape == b.shape
         np.testing.assert_allclose(_np(a), np.asarray(b), rtol=0, atol=2 * lr)
@@ -208,7 +212,8 @@ def test_two_train_steps_match_jax(two_steps):
     _close_state(p, o, m, outs[1], lr=lr(1) + lr(2))
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-1.3b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-1.3b", "dbrx-132b",
+                                  "jamba-v0.1-52b"])
 def test_remat_gives_the_same_loss_and_gradients_bitwise(arch):
     cfg = configs.smoke_config(arch)
     params = T.init_lm(torch.Generator().manual_seed(3), cfg)
@@ -222,7 +227,7 @@ def test_remat_gives_the_same_loss_and_gradients_bitwise(arch):
 
     loss0, g0 = grads(dataclasses.replace(cfg, remat=False))
     loss1, g1 = grads(dataclasses.replace(cfg, remat=True))
-    assert torch.equal(loss0, loss1)
+    assert torch.equal(loss0, loss1) and len(g0) == len(g1)
     assert all(torch.equal(a, b) for a, b in zip(g0, g1))
 
 
@@ -236,7 +241,7 @@ def test_remat_collectives_policy_is_not_ported():
         T.lm_forward(params, cfg, _port_tokens(1, 8, cfg.vocab)["tokens"])
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-14b", "mamba2-1.3b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "mamba2-1.3b", "grok-1-314b", "jamba-v0.1-52b"])
 def test_lm_loss_cpu_route_is_softmax_xent_and_matches_jax(arch):
     jcfg, cfg = jconfigs.smoke_config(arch), configs.smoke_config(arch)
     with jax_config():
@@ -250,6 +255,8 @@ def test_lm_loss_cpu_route_is_softmax_xent_and_matches_jax(arch):
     jloss, jparts = JT.lm_loss(jparams, jcfg, {k: jnp.asarray(v) for k, v in batch.items()})
     np.testing.assert_allclose(float(loss), float(jloss), rtol=RTOL)
     np.testing.assert_allclose(float(parts["xent"]), float(jparts["xent"]), rtol=RTOL)
+    np.testing.assert_allclose(float(parts["moe_aux"]), float(jparts["moe_aux"]), rtol=RTOL)
+    assert (float(parts["moe_aux"]) > 0) == cfg.moe
 
 
 # -----------------------------------------------------------------------------
@@ -271,6 +278,27 @@ def test_train_cli_lm_on_cpu_and_resume(tmp_path, capsys):
     resumed = train_cli.main(args + ["--steps", "3", "--ckpt-dir", d])
     assert "resumed from step 2" in capsys.readouterr().out
     assert resumed == full[2:]
+
+
+@pytest.mark.parametrize("arch", ["grok-1-314b", "jamba-v0.1-52b"])
+def test_train_cli_trains_the_moe_and_hybrid_archs(arch, capsys):
+    """The CLI's LM loop on a MoE and the hybrid smoke config; one gradient
+    of the loss reaches the router (through the combine's weights and the
+    aux loss) and every expert, finite."""
+    losses = train_cli.main(["--arch", arch, "--device", "cpu", "--steps", "2", "--batch",
+                             "2", "--seq", "16"])
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    assert "done: first loss" in capsys.readouterr().out
+    cfg = configs.smoke_config(arch)
+    params = T.init_lm(torch.Generator().manual_seed(4), cfg)
+    leaves, spec = tree.flatten(params)
+    leaves = [x.detach().requires_grad_() for x in leaves]
+    loss, parts = T.lm_loss(tree.unflatten(spec, leaves), cfg, _port_tokens(B, S, cfg.vocab))
+    grads = tree.unflatten(spec, torch.autograd.grad(loss, leaves))
+    assert parts["moe_aux"].item() > 0
+    moe = [u["ffn"] for u in grads["units"] if "ffn" in u and "router" in u["ffn"]]
+    assert moe and all(torch.isfinite(g).all() for f in moe for g in f.values())
+    assert all(f["router"].abs().sum() > 0 for f in moe)
 
 
 def test_resume_restores_bfloat16_runs_as_the_step_left_them(tmp_path):
