@@ -253,6 +253,16 @@ non-zero and the final result line is never printed):
    in the port): bfloat16 at the prefill shape, float32 (TF32 off) and
    bfloat16 at the training shape, bfloat16 at dbrx's and jamba's
    prefills.
+12b. ``flash_attention`` at MLA's head dim 96 and with a key length of
+   its own (the encoder-decoder's cross-attention, full), ATTN_ZOO_SHAPES
+   in float32 and bfloat16, held as phase 12 (ATTN_TOL, bf16 also by
+   ATTN_REL_TOL a slice, two launches bitwise, views bitwise); causal
+   with Sk != S refused by name by the launcher and the plain version;
+   HGMMA in the bf16 D = 96 kernel's SASS; timed in turns in both dtypes
+   at ATTN_ZOO_TIMED (minicpm3-4b's and pixtral-12b's prefills,
+   seamless-m4t-medium's cross-attention and encoder) beside SDPA, the
+   plain version and the bound.  ptxas: the D = 96 instantiations free of
+   spills and of serialised wgmma (checked after phase 28).
 13. LM parity, float32, full width at two layers (qwen2.5-14b with
    ``num_layers=2``): B = 2, S = 512 prefill and 8 greedy decode steps,
    through the kernel and with every attention on the plain version: the
@@ -364,13 +374,40 @@ non-zero and the final result line is never printed):
    metrics of every step read (``moe_aux`` > 0 and in the loss at 0.01);
    one gradient twice: the router's and the experts' finite, the leaves
    whose bits do not repeat printed.
+26. The rest of the zoo, float32, full width at two layers: minicpm3-4b
+   (MLA through the kernel at D = 96), pixtral-12b (a 1024-row prefix of
+   patch embeddings, the reference's normal draw) and seamless-m4t-medium
+   (two encoder and two decoder layers over ZOO_SRC_LEN source frames),
+   B = 2, S = 512 prefill and 8 greedy decode steps through the kernel and
+   with every attention plain: the logits within LM_LOGIT_RTOL of the
+   largest, the tokens equal, ``flash_attention`` once per attention of a
+   prefill (seamless: each encoder layer once, each decoder layer twice —
+   self and cross), never in decode, three kernel prefills bitwise equal.
+27. Their serving, bfloat16, full width and full depth (8.52 / 24.5 /
+   1.75 GB of weights drawn on the card): the parameter count against
+   ``param_count``, a prefill of B = 4 × 2048 (pixtral behind its prefix,
+   seamless over 1024 frames) and 15 greedy decode steps through
+   ``make_prefill_step`` / ``make_serve_step``, 62 / 40 / 36 launches a
+   prefill and none in decode, peak memory, each decode step against its
+   weight-read bound, profiles of a prefill (busy, idle,
+   ``flash_attention``'s share) and a decode step; then the serve CLI on
+   the minicpm3 and pixtral smoke configs and its refusal of seamless.
+28. Their training: the train CLI (smoke configs, float32, B 8 × 64) 3
+   steps each, launches and metrics of every step read; one gradient of a
+   4-unit reversible tinyllama smoke stack against the plain two-track
+   recursion (REV_GRAD_RTOL); the peak memory of one tinyllama gradient at
+   full width (f32, B 2 × 512) at 4 and 8 layers, reversible, remat and
+   neither.
 Each phase's wall is printed as a ``[phase] <name>: <s> s`` line as it ends.
 
 22. Prints a ``{"kernels": [...]}`` JSON line (``dp_launches``: each
    rank's count in phase 11e's data-parallel run; ``window``: the
    windowed launch's timing and launches per rank, for rows 5, 7 and 12;
    ``launches``: the count on
-   the path each kernel was ported for — training (3 steps) for the solver
+   the path each kernel was ported for (``flash_attention`` also
+   ``zoo_timed``, ``ptxas_d96``, ``zoo_prefill_launches``,
+   ``zoo_train_launches_per_step`` and ``reversible_gradient_launches``:
+   phases 12b and 26–28's) — training (3 steps) for the solver
    kernels, ``fused_mlp`` and ``fused_mlp_bwd``, but SDE-GAN clip step 3 at
    batch 128 for ``brownian_increment``, which the ELBO step no longer
    launches; the adaptive gradient for
@@ -572,6 +609,25 @@ ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 6e-2}
 # row after them move a causal S = 2048 slice by ~sqrt(1/(8j)), above 0.035
 # for every j ≤ 100.
 ATTN_REL_TOL = 1e-2
+# Phase 12b: flash_attention at MLA's head dim 96 (minicpm3-4b's 64 + 32)
+# and with a key length of its own (the encoder-decoder's cross-attention,
+# never causal), (B, Hq, Hkv, S, Sk, D, causal): minicpm3's heads at S 512
+# and at its serving prefill, a ragged S, D 96 full, seamless's cross at
+# its serving shape (2048 decoder rows against 1024 frames), a ragged
+# cross (300 rows against 1000 keys) at D 64 and D 96, and the smoke
+# configs' D 16.
+ATTN_ZOO_SHAPES = [(2, 40, 40, 512, 512, 96, True), (4, 40, 40, 2048, 2048, 96, True),
+                   (1, 40, 40, 1000, 1000, 96, True), (2, 40, 40, 300, 300, 96, False),
+                   (4, 16, 16, 2048, 1024, 64, False), (2, 16, 16, 300, 1000, 64, False),
+                   (2, 40, 40, 300, 1000, 96, False), (2, 4, 4, 12, 10, 16, False)]
+# the shapes the new serving paths give the kernel, timed in turns beside
+# SDPA: minicpm3-4b's and pixtral-12b's prefills (B 4, pixtral's 1024-row
+# prefix ahead of 2048 tokens), seamless-m4t-medium's cross-attention and
+# its encoder (B 4 x 1024 frames)
+ATTN_ZOO_TIMED = {"minicpm3-4b prefill": (4, 40, 40, 2048, 2048, 96, True),
+                  "pixtral-12b prefill": (4, 32, 8, 3072, 3072, 128, True),
+                  "seamless-m4t-medium cross": (4, 16, 16, 2048, 1024, 64, False),
+                  "seamless-m4t-medium encoder": (4, 16, 16, 1024, 1024, 64, False)}
 LM_ARCH = "qwen2.5-14b"
 # LM parity (f32, two layers): the attention outputs agree to ~1e-6 relative
 # (f32 sums in two orders); the GEMMs and the 152064-wide head after it keep
@@ -4171,28 +4227,37 @@ def adaptive_grad_checks(ops, dev, label: str) -> dict:
 
 
 def attention_bound(B: int, Hq: int, Hkv: int, S: int, D: int, dtype,
-                    causal: bool = True, tensor_cores: bool = True) -> tuple:
+                    causal: bool = True, tensor_cores: bool = True, Sk=None) -> tuple:
     """Least time for one attention call: Q, K, V read and O written once
-    against 4·D flops per (query, key) pair the mask keeps (QKᵀ and PV),
-    over HBM bandwidth and the dtype's peak; -> (ms, 'bytes'|'operations').
+    (Q and O of S rows, K and V of Sk, default S) against 4·D flops per
+    (query, key) pair the mask keeps (QKᵀ and PV), over HBM bandwidth and
+    the dtype's peak; -> (ms, 'bytes'|'operations').
 
     float32 runs on the tensor cores as split TF32, three TF32 products for
     each f32 one (at PEAK_TF32_OPS_PER_S); ``tensor_cores=False`` gives the
     float32 CUDA-core bound (the earlier design's) instead."""
     s = torch.finfo(dtype).bits // 8
-    pairs = S * (S + 1) // 2 if causal else S * S
+    Sk = S if Sk is None else Sk
+    pairs = S * (S + 1) // 2 if causal else S * Sk
     flops = 4 * B * Hq * D * pairs
     if dtype == torch.float32 and tensor_cores:
         t_ops = 3 * flops / PEAK_TF32_OPS_PER_S * 1e3
     else:
         t_ops = flops / PEAK_OPS_PER_S[dtype] * 1e3
-    t_bytes = 2 * (Hq + Hkv) * B * S * D * s / HBM_BYTES_PER_S * 1e3
+    t_bytes = 2 * (Hq * S + Hkv * Sk) * B * D * s / HBM_BYTES_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _qkv(g, dev, dtype, B, Hq, Hkv, S, D):
     return tuple(torch.randn(B, h, S, D, generator=g, device=dev, dtype=dtype)
                  for h in (Hq, Hkv, Hkv))
+
+
+def _qkv_sk(g, dev, dtype, B, Hq, Hkv, S, Sk, D):
+    """q (B, Hq, S, D) and k, v (B, Hkv, Sk, D), standard normal."""
+    return (torch.randn(B, Hq, S, D, generator=g, device=dev, dtype=dtype),
+            *(torch.randn(B, Hkv, Sk, D, generator=g, device=dev, dtype=dtype)
+              for _ in range(2)))
 
 
 def _bshd(t):
@@ -4350,6 +4415,222 @@ def attention_checks(ops, dev) -> tuple:
     return rows, err, rel_bf16
 
 
+def attention_zoo_checks(ops, dev) -> tuple:
+    """Phase 12b: flash_attention at D = 96 and with Sk != S, in float32
+    and bfloat16, at ATTN_ZOO_SHAPES against its plain version (f32 within
+    ATTN_TOL, bf16 within it and by attention_rel_err), two launches
+    bitwise equal, (B, S, H, D) views bitwise the contiguous operands'
+    result; causal with Sk != S refused by name on the card; HGMMA in the
+    bf16 D = 96 kernel's SASS; then timed in turns at ATTN_ZOO_TIMED in
+    both dtypes beside SDPA (on contiguous copies) and the plain version.
+    Returns ({tag: timed row}, max |Δ|, the largest bf16 rel err)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    err = rel_bf16 = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, Hq, Hkv, S, Sk, D, causal in ATTN_ZOO_SHAPES:
+            q, k, v = _qkv_sk(g, dev, dtype, B, Hq, Hkv, S, Sk, D)
+            views = tuple(_bshd(t) for t in (q, k, v))
+            scale = 1 / math.sqrt(D)
+            got = ops.flash_attention(q, k, v, causal=causal, scale=scale)
+            again = ops.flash_attention(q, k, v, causal=causal, scale=scale)
+            strided = ops.flash_attention(*views, causal=causal, scale=scale)
+            want = ops.flash_attention(q, k, v, causal=causal, scale=scale, use_kernel=False)
+            torch.cuda.synchronize()
+            tol = ATTN_TOL[dtype]
+            d = (got.float() - want.float()).abs().max().item()
+            tag = f"flash_attention {dtype} {(B, Hq, Hkv, S, Sk, D)} causal={causal}"
+            check(got.dtype == dtype and got.shape == q.shape
+                  and torch.isfinite(got.float()).all().item()
+                  and torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+                  f"{tag}: kernel != plain (max |Δ| {d}, tolerance {tol})")
+            check(torch.equal(got, again), f"{tag}: two launches differ")
+            check(torch.equal(strided, got), f"{tag}: (B, S, H, D) views differ from "
+                  f"contiguous operands")
+            rel = attention_rel_err(got, want)
+            if dtype == torch.bfloat16:
+                check(rel <= ATTN_REL_TOL, f"{tag}: ‖Δ‖/‖want‖ {rel} over a (b, h) slice "
+                      f"(limit {ATTN_REL_TOL})")
+                rel_bf16 = max(rel_bf16, rel)
+            err = max(err, d)
+            print(f"flash_attention {str(dtype)[6:]:8s} {(B, Hq, Hkv, S, Sk, D)} "
+                  f"causal={causal!s:5s}: max |Δ| {d:.3g} (tol {tol}); ‖Δ‖/‖want‖ {rel:.3g}; "
+                  f"two launches equal; (B, S, H, D) views equal", flush=True)
+            del q, k, v, views, got, again, strided, want
+    q, k, v = _qkv_sk(g, dev, torch.bfloat16, 1, 4, 4, 64, 32, 96)
+    for fn in (lambda: fa._launch(q, k, v, True, 0.1),
+               lambda: ops.flash_attention(q, k, v, causal=True, use_kernel=False)):
+        try:
+            fn()
+        except ValueError as e:
+            check("key length" in str(e), f"causal Sk != S: unexpected message {e}")
+        else:
+            check(False, "causal attention with Sk != S was not refused")
+    torch.cuda.empty_cache()
+
+    mix = sass_mix()
+    d96 = [f for f in mix if "wgmma" in f and "ILi96E" in f]
+    check(d96 and all(sass_count(mix[f], "HGMMA") > 0 for f in d96),
+          f"the bf16 D = 96 attention kernel must issue HGMMA: {d96}")
+    print(f"SASS: HGMMA in {d96}", flush=True)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for name, (B, Hq, Hkv, S, Sk, D, causal) in ATTN_ZOO_TIMED.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = f"{str(dtype)[6:]} {name}"
+            q, k, v = (_bshd(t) for t in _qkv_sk(g, dev, dtype, B, Hq, Hkv, S, Sk, D))
+            qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+
+            def lib():
+                return sdpa(qc, kc, vc, is_causal=causal, enable_gqa=Hq != Hkv)
+
+            d_lib = (ops.flash_attention(q, k, v, causal=causal).float()
+                     - lib().float()).abs().max().item()
+            t = _in_turns({"kernel": lambda: ops.flash_attention(q, k, v, causal=causal),
+                           "sdpa": lib,
+                           "plain": lambda: ops.flash_attention(q, k, v, causal=causal,
+                                                                use_kernel=False)},
+                          {"kernel": 10, "sdpa": 10, "plain": 2})
+            b_ms, b_by = attention_bound(B, Hq, Hkv, S, D, dtype, causal, Sk=Sk)
+            by_bytes = (2 * (Hq * S + Hkv * Sk) * B * D * torch.finfo(dtype).bits // 8
+                        / HBM_BYTES_PER_S * 1e3)
+            print(f"flash_attention {tag} {(B, Hq, Hkv, S, Sk, D)} causal={causal}, operands "
+                  f"as (B, S, H, D) views (SDPA on contiguous copies; TF32 off): kernel "
+                  f"{t['kernel'][0]:.4f} ms (host {t['kernel'][1]:.4f}), SDPA "
+                  f"{t['sdpa'][0]:.4f} ms, plain {t['plain'][0]:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by}; the bytes alone {by_bytes:.4f} ms); kernel vs SDPA max |Δ| "
+                  f"{d_lib:.3g}", flush=True)
+            rows[tag] = dict(ms=t["kernel"][0], plain_ms=t["plain"][0], host_ms=t["kernel"][1],
+                             plain_host_ms=t["plain"][1], bound_ms=b_ms, bound_by=b_by,
+                             bytes_bound_ms=by_bytes, library_ms=t["sdpa"][0],
+                             shape=[B, Hq, Hkv, S, Sk, D], causal=causal)
+            del q, k, v, qc, kc, vc
+            torch.cuda.empty_cache()
+    return rows, err, rel_bf16
+
+
+ATTN_IN_TURNS = [("bf16 tinyllama training", torch.bfloat16, (4, 32, 4, 2048, 2048, 64, True)),
+                 ("bf16 qwen prefill", torch.bfloat16, (4, 40, 8, 2048, 2048, 128, True)),
+                 ("bf16 D 16", torch.bfloat16, (2, 8, 4, 300, 300, 16, True)),
+                 ("f32 tinyllama training", torch.float32, (4, 32, 4, 2048, 2048, 64, True))]
+
+
+def _parent_attention(lib):
+    """flash_attention through the parent library's entry point, whose
+    signature has no key length (q, k, v of one length)."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+
+    fn = lib.rt_flash_attention
+    P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    fn.argtypes = [I, I, P, P, P, P, I64, I64, I64, I64, I, ctypes.c_double, P, P]
+    fn.restype = I
+
+    def call(q, k, v, causal: bool):
+        st = fa.check_operands(q, k, v, causal)
+        B, Hq, S, D = q.shape
+        out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+        args = (ctypes.c_int64 * 12)(*(s for t in (*st, out.stride()[:3]) for s in t))
+        err = fn(fa.DTYPE_CODES[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 out.data_ptr(), B, Hq, k.shape[1], S, int(causal), 1 / math.sqrt(D), args,
+                 torch.cuda.current_stream().cuda_stream)
+        build.check("parent flash_attention", err)
+        return out
+
+    return call
+
+
+def attention_in_turns(parent_root: str) -> dict:
+    """flash_attention with the parent tree's build and this one's, in turns
+    (parent, this, this, parent), at ATTN_IN_TURNS (the shapes whose
+    instantiations this tree's key length touched), outputs bitwise alike;
+    and the parent source's ptxas report of its attention kernels.  Run it
+    as ``python3 -c "import chip_smoke as C; C.attention_in_turns(
+    'build/parent')"`` after unpacking the parent commit there."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    tmp = tempfile.mkdtemp(prefix="parent_lib_")
+    try:
+        parent = _parent_attention(_parent_library(parent_root, tmp, ()))
+        csrc = os.path.join(os.path.abspath(parent_root), "src", "repro_torch", "kernels", "csrc")
+        rep = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-I", csrc,
+                              "-c", "-o", os.path.join(tmp, "fa.o"),
+                              os.path.join(csrc, "flash_attention.cu")],
+                             capture_output=True, text=True, timeout=600)
+        func = None
+        for line in rep.stderr.splitlines():
+            if "Compiling entry function" in line:
+                func = line.split("'")[1]
+            elif func and "flash_attention" in func and ("spill" in line or "Used" in line):
+                print(f"parent ptxas {func[:80]}: {line.split(':', 1)[-1].strip()}", flush=True)
+        this = lambda q, k, v, causal: fa._launch(q, k, v, causal, 1 / math.sqrt(q.shape[-1]))
+        g = torch.Generator(device=dev).manual_seed(35)
+        runs = {}
+        for tag, dtype, (B, Hq, Hkv, S, Sk, D, causal) in ATTN_IN_TURNS:
+            q, k, v = (_bshd(t) for t in _qkv_sk(g, dev, dtype, B, Hq, Hkv, S, Sk, D))
+            fns = {"parent": lambda: parent(q, k, v, causal), "this": lambda: this(q, k, v, causal)}
+            check(torch.equal(fns["parent"](), fns["this"]()), f"{tag}: this tree's attention "
+                  f"differs from the parent's")
+            runs[tag] = {"parent": [], "this": []}
+            for tree in ("parent", "this", "this", "parent"):
+                runs[tag][tree].append(time_ms(fns[tree])[0])
+            print(f"flash_attention in turns, {tag} {(B, Hq, Hkv, S, D)}: parent "
+                  f"{statistics.mean(runs[tag]['parent']):.4f} ms, this "
+                  f"{statistics.mean(runs[tag]['this']):.4f} ms; runs {runs[tag]}; outputs "
+                  f"bitwise equal", flush=True)
+            del q, k, v
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"card: {gpu_label()}", flush=True)
+    return runs
+
+
+# The ping-pong schedule at D = 96, as a text edit of the source.
+PIPELINED_96 = (("constexpr bool kPipelined = D <= 64;", "constexpr bool kPipelined = D <= 96;"),)
+
+
+def ptxas_attention_variant(edits=PIPELINED_96) -> dict:
+    """A copy of ``flash_attention.cu`` with ``edits`` (``(old, new)`` text
+    pairs, each found once) compiled with ``-Xptxas -v``: {mangled D = 96
+    kernel: its ptxas lines, warnings (C7512, "wgmma serialized")
+    included}.  Reads a schedule the library does not build (the
+    ping-pong one at D = 96); no edits reads the library's own."""
+    from repro_torch.kernels import build
+
+    text = (build.CSRC / "flash_attention.cu").read_text()
+    for old, new in edits:
+        check(text.count(old) == 1, f"ptxas variant: {old!r} is not in the source once")
+        text = text.replace(old, new)
+    variant = [new for _, new in edits]
+    with tempfile.TemporaryDirectory(prefix="ptxas_variant_") as tmp:
+        src = os.path.join(tmp, "flash_attention.cu")
+        with open(src, "w") as f:
+            f.write(text)
+        proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
+                               str(build.CSRC), "-c", "-o", os.path.join(tmp, "v.o"), src],
+                              capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"nvcc {variant} failed:\n{proc.stderr}")
+    out, func = {}, None
+    for line in proc.stderr.splitlines():
+        if "Compiling entry function" in line:
+            func = line.split("'")[1]
+        elif func and "ILi96E" in func and ("spill" in line or "Used" in line
+                                            or "C7512" in line or "serialized" in line):
+            out.setdefault(func, []).append(line.split(":", 1)[-1].strip())
+    for func, lines in out.items():
+        print(f"ptxas {' '.join(variant)} {func[:80]}: {'; '.join(lines)}", flush=True)
+    for line in proc.stderr.splitlines():
+        if "C75" in line:
+            print(f"ptxas {' '.join(variant)}: {line.strip()}", flush=True)
+    return out
+
+
 @contextlib.contextmanager
 def plain_mlp():
     """Route every depth-1 SDE field back to the layer loop it ran before
@@ -4415,8 +4696,9 @@ def plain_attention():
     from repro_torch.models import layers
 
     dispatch = layers._attend_dispatch
-    layers._attend_dispatch = lambda cfg, q, k, v, causal: ops.flash_attention(
-        q.contiguous(), k.contiguous(), v.contiguous(), causal=causal, use_kernel=False)
+    layers._attend_dispatch = lambda cfg, q, k, v, causal, scale=None: ops.flash_attention(
+        q.contiguous(), k.contiguous(), v.contiguous(), causal=causal, scale=scale,
+        use_kernel=False)
     try:
         yield
     finally:
@@ -4433,8 +4715,9 @@ def copying_attention():
     from repro_torch.models import layers
 
     dispatch = layers._attend_dispatch
-    layers._attend_dispatch = lambda cfg, q, k, v, causal: fa._launch(
-        q.contiguous(), k.contiguous(), v.contiguous(), causal, 1 / math.sqrt(q.shape[-1]),
+    layers._attend_dispatch = lambda cfg, q, k, v, causal, scale=None: fa._launch(
+        q.contiguous(), k.contiguous(), v.contiguous(), causal,
+        1 / math.sqrt(q.shape[-1]) if scale is None else scale,
         out=torch.empty(q.shape, dtype=q.dtype, device=q.device))
     try:
         yield
@@ -5717,12 +6000,401 @@ def moe_train_checks(ops, dev, label: str) -> dict:
     return out
 
 
+ZOO_ARCHS = ("minicpm3-4b", "pixtral-12b", "seamless-m4t-medium")
+# the encoder-decoder's source frames in phases 26-27 (its stub frontend's
+# frontend_len, as pixtral's prefix rows)
+ZOO_SRC_LEN = 1024
+ZOO_TRAIN = dict(batch=8, seq=64, steps=3)
+# phase 28's reversible stack: tinyllama's smoke config at 4 units against
+# the plain two-track recursion, and tinyllama's full width at 4 and 8
+# layers (f32, B 2 x 512) for the peak memory of one gradient
+REV_UNITS = 4
+REV_MEMORY = dict(batch=2, seq=512, units=(4, 8))
+# a reversible gradient against the two-track recursion: both float32 on
+# the card, the same kernels; the adjoint reconstructs each unit's input in
+# closed form instead of keeping it, which moves the last bits
+REV_GRAD_RTOL = 1e-4
+
+
+def _zoo_launches(cfg) -> int:
+    """flash_attention launches in one prefill (or training forward) of a
+    zoo model: one per attention layer; the encoder-decoder's encoder layers
+    once each and its decoder layers twice (self and cross)."""
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + 2 * cfg.num_layers
+    return cfg.num_layers
+
+
+def _zoo_batch(cfg, B: int, S: int, seed: int, dev) -> dict:
+    """Prompts (lm_prompts), and pixtral's prefix (serve.lm_prefix: the
+    reference's normal draw) or the encoder-decoder's ZOO_SRC_LEN source
+    frames (a normal draw of the same key) in cfg.dtype."""
+    from repro_torch.kernels import prng
+    from repro_torch.launch.serve import lm_prefix, lm_prompts
+
+    batch = {"tokens": lm_prompts(seed, B, S, cfg.vocab).to(dev)}
+    if cfg.family == "encdec":
+        key = prng.fold_in_key(prng.PRNGKey(seed, device=dev), 2)
+        batch["src_embeds"] = prng.normal_like(key[0], key[1], (B, ZOO_SRC_LEN, cfg.d_model),
+                                               cfg.dtype)
+    elif cfg.frontend:
+        batch["embeds"] = lm_prefix(seed, B, cfg).to(dev)
+    return batch
+
+
+def _greedy_batch(cfg, params, batch: dict, gen: int) -> tuple:
+    """Prefill ``batch`` (with its prefix or source), then ``gen`` greedy
+    decode steps -> (prefill logits, tokens, flash_attention launches in
+    the prefill, in the decode)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import greedy_sample, make_prefill_step, make_serve_step
+
+    pos = batch["tokens"].shape[1] + (batch["embeds"].shape[1] if "embeds" in batch else 0)
+    ops.reset_launch_counts()
+    logits, caches = make_prefill_step(cfg, max_len=pos + gen)(params, batch)
+    torch.cuda.synchronize()
+    n_prefill = ops.launch_counts()["flash_attention"]
+    decode = make_serve_step(cfg)
+    token = greedy_sample(logits)
+    tokens = [token]
+    for i in range(gen):
+        step_logits, caches = decode(params, caches, token, pos + i)
+        token = greedy_sample(step_logits)
+        tokens.append(token)
+    torch.cuda.synchronize()
+    n_decode = ops.launch_counts()["flash_attention"] - n_prefill
+    return logits.float(), torch.cat(tokens, 1), n_prefill, n_decode
+
+
+def zoo_parity_checks(ops, dev, label: str) -> dict:
+    """Phase 26: minicpm3-4b, pixtral-12b (its 1024-row prefix) and
+    seamless-m4t-medium (ZOO_SRC_LEN source frames) in float32 at full
+    width, two layers (seamless two encoder and two decoder layers), B 2 x
+    512 + 8 greedy steps, through the kernel and with every attention
+    plain: the prefill logits within LM_LOGIT_RTOL of the largest, the
+    tokens equal; flash_attention once per attention of a prefill (seamless:
+    once per encoder layer, twice per decoder layer), never in decode;
+    three kernel prefills bitwise equal.  Returns {arch: launches a
+    prefill}."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as T
+
+    B, S, gen = LM_PARITY["batch"], LM_PARITY["prompt_len"], LM_PARITY["gen"]
+    out = {}
+    for arch in ZOO_ARCHS:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), num_layers=2, dtype=torch.float32,
+                                  **({"encoder_layers": 2} if get_config(arch).encoder_layers
+                                     else {}))
+        params = T.init_lm(torch.Generator(device=dev).manual_seed(34), cfg, device=dev)
+        batch = _zoo_batch(cfg, B, S, 34, dev)
+        want = _zoo_launches(cfg)
+        kernel = _greedy_batch(cfg, params, batch, gen)
+        pos = S + (batch["embeds"].shape[1] if "embeds" in batch else 0)
+        prefill = make_prefill_step(cfg, max_len=pos + gen)
+        first, again = (prefill(params, batch) for _ in range(2))
+        torch.cuda.synchronize()
+        same = (torch.equal(first[0], again[0]) and torch.equal(first[0].float(), kernel[0])
+                and all(torch.equal(a, b) for a, b in zip(tree.leaves(first[1]),
+                                                          tree.leaves(again[1]))))
+        del first, again
+        with plain_attention():
+            plain_run = _greedy_batch(cfg, params, batch, gen)
+        check(kernel[2:] == (want, 0), f"zoo parity ({arch}): flash_attention launched "
+              f"{kernel[2]} times in the prefill, {kernel[3]} in decode (want {want}, 0)")
+        check(plain_run[2:] == (0, 0), f"zoo parity ({arch}): the plain run launched "
+              f"{plain_run[2:]}")
+        check(same, f"zoo parity ({arch}): three kernel prefills are not bitwise equal")
+        check(torch.isfinite(kernel[0]).all().item(), f"zoo parity ({arch}): non-finite logits")
+        diff = (kernel[0] - plain_run[0]).abs().max().item()
+        top = plain_run[0].abs().max().item()
+        check(diff <= LM_LOGIT_RTOL * top, f"zoo parity ({arch}): prefill logits differ by "
+              f"{diff} (largest logit {top}, tolerance {LM_LOGIT_RTOL} of it)")
+        check(torch.equal(kernel[1], plain_run[1]), f"zoo parity ({arch}): greedy tokens "
+              f"differ {kernel[1].tolist()} vs {plain_run[1].tolist()}")
+        extra = {k: tuple(v.shape) for k, v in batch.items() if k != "tokens"}
+        print(f"[{label}] zoo parity ({arch}, float32, {cfg.num_layers} layers"
+              f"{f' + {cfg.encoder_layers} encoder layers' if cfg.encoder_layers else ''}, B={B}, "
+              f"S={S}, {extra or 'no prefix'}): prefill logits max |Δ| {diff:.3g} (largest "
+              f"{top:.3g}; {diff / top:.3g} relative, tolerance {LM_LOGIT_RTOL}); {gen + 1} "
+              f"greedy tokens equal on every row; three kernel prefills bitwise equal; "
+              f"flash_attention {kernel[2]} per prefill, {kernel[3]} in decode; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        out[arch] = dict(launches=kernel[2], max_rel=diff / top)
+        del params, kernel, plain_run, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def zoo_serve_checks(ops, dev, label: str) -> dict:
+    """Phase 27: minicpm3-4b, pixtral-12b and seamless-m4t-medium in
+    bfloat16 at full width and full depth, random weights drawn on the
+    card: the parameter count against param_count, a prefill of LM_SERVE's
+    B 4 x 2048 (pixtral behind its 1024-row prefix, seamless over
+    ZOO_SRC_LEN source frames) and 15 greedy decode steps through
+    make_prefill_step / make_serve_step (serve_lm's loop), flash_attention
+    once per attention of the prefill (62 / 40 / 36) and never in decode,
+    peak memory, each decode step against its weight-read bound, profiles
+    of one prefill (busy, idle, flash_attention's share) and one decode
+    step; then the serve CLI on the minicpm3 and pixtral smoke configs and
+    its refusal of seamless.  Returns {arch: {...}}."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch.steps import greedy_sample, make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as T
+    from repro_torch.models.counting import param_count
+
+    B, S, gen = LM_SERVE["batch"], LM_SERVE["prompt_len"], LM_SERVE["gen"]
+    out = {}
+    for arch in ZOO_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        params = T.init_lm(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+        torch.cuda.synchronize()
+        n_params = sum(a.numel() for a in tree.leaves(params))
+        check(n_params == param_count(cfg), f"{arch}: {n_params} parameters, param_count "
+              f"{param_count(cfg)}")
+        w_bytes = _tree_bytes(params)
+        bound_ms = w_bytes / HBM_BYTES_PER_S * 1e3
+        print(f"[{label}] {arch} (bf16, {cfg.num_layers} layers"
+              f"{f' + {cfg.encoder_layers} encoder layers' if cfg.encoder_layers else ''}, full "
+              f"width and depth): {n_params} parameters (= param_count), weights "
+              f"{w_bytes / 1e9:.3f} GB drawn on the card in {time.perf_counter() - t0:.1f} s; "
+              f"a decode step's bound (the weights read once) {bound_ms:.3f} ms", flush=True)
+        want = _zoo_launches(cfg)
+        batch = _zoo_batch(cfg, B, S, 0, dev)
+        pos = S + (batch["embeds"].shape[1] if "embeds" in batch else 0)
+        prefill, decode = make_prefill_step(cfg, max_len=pos + gen), make_serve_step(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, batch)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        n_prefill = ops.launch_counts()["flash_attention"]
+        token = greedy_sample(logits)
+        tokens = [token]
+        t0 = time.perf_counter()
+        for i in range(gen - 1):
+            logits, caches = decode(params, caches, token, pos + i)
+            token = greedy_sample(logits)
+            tokens.append(token)
+        torch.cuda.synchronize()
+        t_decode = time.perf_counter() - t0
+        n_decode = ops.launch_counts()["flash_attention"] - n_prefill
+        tokens = torch.cat(tokens, 1)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        check(n_prefill == want and n_decode == 0, f"{arch} serve: flash_attention "
+              f"{n_prefill} in the prefill, {n_decode} in decode (want {want} and none)")
+        check(tokens.shape == (B, gen) and 0 <= int(tokens.min())
+              and int(tokens.max()) < cfg.vocab and torch.isfinite(logits.float()).all().item(),
+              f"{arch} serve: bad tokens {tuple(tokens.shape)} or non-finite logits")
+        step_ms = t_decode / (gen - 1) * 1e3
+        print(f"[{label}] {arch} serve B={B} prompt {S}{f' + prefix {pos - S}' if pos > S else ''}"
+              f"{f' over {ZOO_SRC_LEN} source frames' if cfg.encoder_layers else ''} gen {gen}: "
+              f"prefill {t_prefill * 1e3:.1f} ms, decode {gen - 1} steps @ "
+              f"{B * (gen - 1) / t_decode:.1f} tok/s ({step_ms:.2f} ms a step against the "
+              f"{bound_ms:.3f} ms bound: {step_ms / bound_ms:.1f}x); peak device memory "
+              f"{peak:.3f} GB ({base / 1e9:.3f} GB before); flash_attention {n_prefill} in "
+              f"the prefill, {n_decode} in decode", flush=True)
+        del caches
+        prof = profile_call(lambda: prefill(params, batch), f"{label}] [{arch} prefill B={B} S={S}")
+        k_ms = sum(ms for name, ms in (prof["by_name"] or {}).items() if "flash_attention" in name)
+        share = k_ms / prof["busy_ms"] if prof["busy_ms"] else None
+        if share is not None:
+            print(f"[{label}] {arch} prefill: flash_attention {k_ms:.3f} ms of "
+                  f"{prof['busy_ms']:.3f} ms device busy ({share:.4f})", flush=True)
+        logits, caches = prefill(params, batch)
+        token = greedy_sample(logits)
+        prof_d = profile_call(lambda: decode(params, caches, token, pos),
+                              f"{label}] [{arch} decode step B={B}")
+        out[arch] = dict(launches=n_prefill, prefill_ms=t_prefill * 1e3,
+                         decode_tok_s=B * (gen - 1) / t_decode, decode_step_ms=step_ms,
+                         decode_bound_ms=bound_ms, peak_gb=peak, params=n_params,
+                         prefill_busy_ms=prof["busy_ms"], prefill_idle=prof.get("idle"),
+                         attention_share=share, decode_busy_ms=prof_d["busy_ms"],
+                         decode_idle=prof_d.get("idle"))
+        del params, caches, logits, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch in ZOO_ARCHS[:2]:
+        ops.reset_launch_counts()
+        tokens = serve_cli.main(["--workload", "lm", "--arch", arch])
+        torch.cuda.synchronize()
+        want = _zoo_launches(smoke_config(arch))
+        got = ops.launch_counts()["flash_attention"]
+        check(got == want and tokens.shape == (4, 16), f"the CLI (--workload lm --arch "
+              f"{arch}, smoke config): flash_attention {got} (want {want}), tokens "
+              f"{tuple(tokens.shape)}")
+        print(f"[{label}] serve CLI --workload lm --arch {arch} (smoke config): "
+              f"flash_attention {got}, tokens {tuple(tokens.shape)}", flush=True)
+    try:
+        serve_cli.main(["--workload", "lm", "--arch", "seamless-m4t-medium"])
+    except SystemExit as e:
+        check("decoder-only" in str(e), f"the serve CLI's seamless refusal: {e}")
+        print(f"[{label}] serve CLI --arch seamless-m4t-medium: refused ({e})", flush=True)
+    else:
+        check(False, "the serve CLI served the encoder-decoder")
+    return out
+
+
+def _rev_grads(cfg, params, x):
+    """Gradients of sum(stack(x)²) with respect to every unit leaf and x, by
+    the reversible stack when ``cfg.reversible_residual``, else by autograd
+    of the plain two-track recursion (the reference's ``ref_two_track``)."""
+    from repro_torch import tree
+    from repro_torch.models import transformer as T
+    from repro_torch.models.reversible import reversible_stack
+
+    leaves, spec = tree.flatten(params["units"])
+    leaves = [a.detach().requires_grad_() for a in leaves]
+    units, x = tree.unflatten(spec, leaves), x.detach().requires_grad_()
+    if cfg.reversible_residual:
+        z = reversible_stack(cfg, units, x, T._unit_residual)
+    else:
+        n = T.num_units(cfg)
+        z = zh = x
+        mu = T._unit_residual(T._layer(units, 0), cfg, zh)
+        for i in range(n):
+            zh1 = 2 * z - zh + mu
+            mu1 = T._unit_residual(T._layer(units, min(i + 1, n - 1)), cfg, zh1)
+            z, zh, mu = z + 0.5 * (mu + mu1), zh1, mu1
+    return z.detach(), torch.autograd.grad(z.square().sum(), [*leaves, x])
+
+
+def zoo_train_checks(ops, dev, label: str) -> dict:
+    """Phase 28: the train CLI (``--workload lm --arch``, smoke configs,
+    float32) ZOO_TRAIN['steps'] steps on the three archs, each step's
+    launches and metrics read (finite losses; flash_attention once per
+    attention of the forward, fused_xent and fused_xent_bwd once); one
+    gradient of a REV_UNITS-unit reversible tinyllama smoke stack against
+    the plain two-track recursion (REV_GRAD_RTOL of each leaf's largest);
+    the peak memory of one gradient of tinyllama at full width, f32, at
+    REV_MEMORY's depths: reversible, remat, neither.  Returns {...}."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.data import token_batches
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import transformer as T
+
+    make_step = steps_mod.make_train_step
+    out = {"launches": {}}
+    for arch in ZOO_ARCHS:
+        cfg = smoke_config(arch)
+        per_step = []
+
+        def counted(cfg_, opt_update=None, grad_clip=1.0):
+            inner = make_step(cfg_, opt_update, grad_clip)
+
+            def step(params, opt_state, batch):
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                res = inner(params, opt_state, batch)
+                torch.cuda.synchronize()
+                per_step.append((ops.launch_counts(), {k: float(v) for k, v in res[2].items()}))
+                return res
+
+            return step
+
+        steps_mod.make_train_step = counted
+        try:
+            losses = train_mod.main(["--workload", "lm", "--arch", arch, "--steps",
+                                     str(ZOO_TRAIN["steps"]), "--batch", str(ZOO_TRAIN["batch"]),
+                                     "--seq", str(ZOO_TRAIN["seq"])])
+        finally:
+            steps_mod.make_train_step = make_step
+        want = {"flash_attention": _zoo_launches(cfg), "fused_xent": 1, "fused_xent_bwd": 1}
+        for i, (counts, m) in enumerate(per_step):
+            check(all(counts[k] == v for k, v in want.items()),
+                  f"{arch} train step {i}: launches {counts}, want {want}")
+            check(all(map(math.isfinite, m.values())), f"{arch} train step {i}: metrics {m}")
+        check(len(per_step) == len(losses) == ZOO_TRAIN["steps"], f"{arch}: {len(per_step)} "
+              f"steps counted, losses {losses}")
+        print(f"[{label}] train CLI --workload lm --arch {arch} (smoke, float32, B="
+              f"{ZOO_TRAIN['batch']} S={ZOO_TRAIN['seq']}): losses {losses}; launches per step "
+              f"{want}", flush=True)
+        out["launches"][arch] = want
+
+    cfg = dataclasses.replace(smoke_config("tinyllama-1.1b"), num_layers=REV_UNITS,
+                              reversible_residual=True)
+    params = T.init_lm(torch.Generator(device=dev).manual_seed(28), cfg, device=dev)
+    x = torch.randn(2, 64, cfg.d_model, generator=torch.Generator(device=dev).manual_seed(29),
+                    device=dev)
+    ops.reset_launch_counts()
+    z_rev, g_rev = _rev_grads(cfg, params, x)
+    torch.cuda.synchronize()
+    rev_launches = ops.launch_counts()["flash_attention"]
+    z_ref, g_ref = _rev_grads(dataclasses.replace(cfg, reversible_residual=False), params, x)
+    d_z = (z_rev - z_ref).abs().max().item() / z_ref.abs().max().item()
+    rel = max((a - b).abs().max().item() / b.abs().max().item() for a, b in zip(g_rev, g_ref))
+    check(all(torch.isfinite(g).all().item() for g in g_rev) and d_z <= REV_GRAD_RTOL
+          and rel <= REV_GRAD_RTOL, f"reversible stack: value {d_z}, gradients {rel} of their "
+          f"largest from the two-track recursion (limit {REV_GRAD_RTOL})")
+    print(f"[{label}] reversible tinyllama smoke stack ({REV_UNITS} units, f32, B 2 x 64) on "
+          f"the card: value within {d_z:.3g} and every gradient within {rel:.3g} of its "
+          f"largest of the two-track recursion (limit {REV_GRAD_RTOL}); flash_attention "
+          f"{rev_launches} launches a gradient (forward {REV_UNITS + 1}, the backward's "
+          f"reconstructions and local forwards)", flush=True)
+    out.update(rev_rel=rel, rev_launches=rev_launches)
+    del params, g_rev, g_ref
+
+    peaks = {}
+    for units in REV_MEMORY["units"]:
+        base_cfg = dataclasses.replace(get_config("tinyllama-1.1b"), num_layers=units,
+                                       dtype=torch.float32)
+        params = T.init_lm(torch.Generator(device=dev).manual_seed(30), base_cfg, device=dev)
+        batch = token_batches(_data_key(dev), 0, REV_MEMORY["batch"], REV_MEMORY["seq"],
+                              base_cfg.vocab)
+        weights = _tree_bytes(params)
+        for tag, kw in (("reversible", dict(reversible_residual=True, remat=False)),
+                        ("remat", dict(remat=True)), ("neither", dict(remat=False))):
+            c = dataclasses.replace(base_cfg, **kw)
+            leaves, spec = tree.flatten(params)
+            leaves = [a.detach().requires_grad_() for a in leaves]
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            loss, _ = T.lm_loss(tree.unflatten(spec, leaves), c, batch)
+            grads = torch.autograd.grad(loss, leaves)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            peaks[f"{tag} {units} layers"] = dict(peak_gb=peak / 1e9,
+                                                  beyond_grads_gb=(peak - weights) / 1e9)
+            check(math.isfinite(loss.item()), f"{tag} {units} layers: loss {loss.item()}")
+            del loss, grads, leaves
+        print(f"[{label}] one gradient of tinyllama at full width, f32, B "
+              f"{REV_MEMORY['batch']} x {REV_MEMORY['seq']}, {units} layers (weights "
+              f"{weights / 1e9:.3f} GB, their gradients as many): peak above the weights "
+              f"{ {k: round(v['peak_gb'], 3) for k, v in peaks.items() if str(units) in k} } "
+              f"GB, of which beyond the gradients "
+              f"{ {k: round(v['beyond_grads_gb'], 3) for k, v in peaks.items() if str(units) in k} }",
+              flush=True)
+        del params
+        torch.cuda.empty_cache()
+    out["peaks"] = peaks
+    return out
+
+
 # The kernels whose registers, shared memory and spills the run reports.
+# The D = 96 attention instantiations (phase 12b), held free of spills and
+# of serialised wgmma.
+ATTN_D96_KERNELS = ("19flash_attention_f32ILi96E", "21flash_attention_wgmmaILi96E")
 PTXAS_SOURCES = ("rev_heun", "flash_attention", "ssd_chunk", "fused_mlp")
 # the row-windowed draws' device functions (phase 11e), dependent launches too
 WINDOW_KERNELS = ("brownian_increment_window_kernel", "phase1_gen_window_kernel",
                   "space_time_increment_window_kernel")
-PTXAS_KERNELS = ("brownian_value_kernel", "flash_attention_f32", "ssd_chunk_kernel",
+PTXAS_KERNELS = ("brownian_value_kernel", "flash_attention_f32", "flash_attention_wgmma",
+                 "ssd_chunk_kernel",
                  "fused_mlp_bwd_kernel", "fused_mlp_fixed", "space_time_value_kernel",
                  *DEPENDENT_KERNELS.values(), *WINDOW_KERNELS)
 
@@ -5754,6 +6426,9 @@ def ptxas_report(started) -> dict:
         for line in err.splitlines():
             if "Compiling entry function" in line:
                 func = line.split("'")[1]
+            elif "C7512" in line:  # wgmma serialised: names its function
+                named = line.split("'")[1] if line.count("'") >= 2 else func
+                usage.setdefault(named, []).append(line.split(":", 1)[-1].strip())
             elif func and any(k in func for k in PTXAS_KERNELS) and (
                     "spill" in line or "Used" in line):
                 usage.setdefault(func, []).append(line.split(":", 1)[-1].strip())
@@ -5764,13 +6439,18 @@ def ptxas_report(started) -> dict:
 
 
 def check_no_spills(usage: dict, funcs) -> None:
-    """Every instantiation of each device function in ``funcs`` compiled,
-    and ptxas reports no spill stores or loads for it, or raise."""
+    """Every instantiation of each device function in ``funcs`` (a name, or
+    a mangled piece such as ``19flash_attention_f32ILi96E``) compiled, and
+    ptxas reports no spill stores or loads for it and no serialised wgmma
+    (C7512), or raise."""
     for func in funcs:
-        lines = [line for k, v in usage.items() if _mangled(func) in k for line in v]
+        piece = func if func[0].isdigit() else _mangled(func)
+        lines = [line for k, v in usage.items() if piece in k for line in v]
         check(any("spill" in line for line in lines), f"ptxas reported nothing for {func}")
         check(all("0 bytes spill stores, 0 bytes spill loads" in line
-                  for line in lines if "spill" in line), f"ptxas: {func} spills: {lines}")
+                  for line in lines if "spill" in line)
+              and not any("C7512" in line for line in lines), f"ptxas: {func} spills or "
+              f"serialises its wgmma: {lines}")
     print(f"ptxas: no spills in {', '.join(funcs)}", flush=True)
 
 
@@ -6249,6 +6929,9 @@ def main() -> int:
     errs.update(levy["errs"])
     attn_rows, errs["flash_attention"], attn_rel = timed("flash_attention",
                                                           attention_checks, ops, dev)
+    zoo_rows, zoo_err, zoo_rel = timed("flash_attention zoo", attention_zoo_checks, ops, dev)
+    errs["flash_attention"] = max(errs["flash_attention"], zoo_err)
+    attn_rel = max(attn_rel, zoo_rel)
     timed(f"lm parity {LM_ARCH}", lm_parity_checks, dev, label, LM_ARCH)
     lm_serve = timed(f"lm serve {LM_ARCH}", lm_serve_checks, ops, dev, label, LM_ARCH)
     ssd_row, errs["ssd_chunk"] = timed("ssd_chunk", ssd_checks, ops, dev)
@@ -6261,8 +6944,12 @@ def main() -> int:
     moe_parity = timed("moe parity", moe_parity_checks, ops, dev, label)
     moe_serve = timed("moe serve", moe_serve_checks, ops, dev, label)
     moe_train = timed("moe train", moe_train_checks, ops, dev, label)
+    zoo_parity = timed("zoo parity", zoo_parity_checks, ops, dev, label)
+    zoo_serve = timed("zoo serve", zoo_serve_checks, ops, dev, label)
+    zoo_train = timed("zoo train", zoo_train_checks, ops, dev, label)
     ptxas_usage = ptxas_report(ptxas)
-    check_no_spills(ptxas_usage, (*DEPENDENT_KERNELS.values(), *WINDOW_KERNELS))
+    check_no_spills(ptxas_usage, (*DEPENDENT_KERNELS.values(), *WINDOW_KERNELS,
+                                  *ATTN_D96_KERNELS))
 
     print(f"kernels: {', '.join(KERNEL_SOURCES)} (route cuda; bitwise = plain except "
           f"flash_attention, within {ATTN_TOL}, ssd_chunk, within {SSD_TOL} and the "
@@ -6288,7 +6975,20 @@ def main() -> int:
                      "ptxas_f32": {k: v for k, v in ptxas_usage.items() if "f32" in k},
                      **{f"bf16_{arch}_prefill": dict(attn_rows[f"bf16 {arch} prefill"],
                                                       shape=list(shape))
-                        for arch, shape in ATTN_MOE_PREFILLS.items()}}
+                        for arch, shape in ATTN_MOE_PREFILLS.items()},
+                     # phase 12b: D = 96 and a key length of its own, both dtypes
+                     "zoo_timed": zoo_rows,
+                     "ptxas_d96": {k: v for k, v in ptxas_usage.items() if "ILi96E" in k},
+                     # phases 26-28: per prefill (f32 2 layers; bf16 full depth)
+                     # and per training step (smoke configs)
+                     "zoo_prefill_launches": {
+                         **{f"{arch} f32 2 layers": v["launches"]
+                            for arch, v in zoo_parity.items()},
+                         **{f"{arch} bf16 full depth": v["launches"]
+                            for arch, v in zoo_serve.items()}},
+                     "zoo_train_launches_per_step": {
+                         arch: v["flash_attention"] for arch, v in zoo_train["launches"].items()},
+                     "reversible_gradient_launches": zoo_train["rev_launches"]}
         elif name == "ssd_chunk":  # timed at the mamba2 prefill shape, bf16
             r = ssd_row
             launches = serve_launches = ssm_serve["launches"]

@@ -1,11 +1,12 @@
 """Architecture registry (port of :mod:`repro.configs`): ``--arch <id>``
 resolution and the reduced smoke configs.
 
-The port has the dense family (qwen2.5-14b, tinyllama-1.1b,
-starcoder2-3b), the MoE family (dbrx-132b, grok-1-314b), the pure-SSM
-family (mamba2-1.3b) and the hybrid family (jamba-v0.1-52b).  The other
-three architectures of the reference (MLA, encoder-decoder, VLM) raise
-:class:`ArchNotPortedError` naming the ROADMAP.md item that ports them.
+The port has all ten architectures of the reference: the dense family
+(qwen2.5-14b, tinyllama-1.1b, starcoder2-3b, and minicpm3-4b with MLA
+attention), the MoE family (dbrx-132b, grok-1-314b), the pure-SSM family
+(mamba2-1.3b), the hybrid family (jamba-v0.1-52b), the VLM (pixtral-12b:
+a prefix of patch embeddings ahead of a GQA decoder) and the
+encoder-decoder (seamless-m4t-medium).
 """
 
 from __future__ import annotations
@@ -14,30 +15,19 @@ import dataclasses
 
 import torch
 
-from . import (dbrx_132b, grok_1_314b, jamba_v0_1_52b, mamba2_1_3b, qwen2_5_14b,
-               starcoder2_3b, tinyllama_1_1b)
+from . import (dbrx_132b, grok_1_314b, jamba_v0_1_52b, mamba2_1_3b, minicpm3_4b,
+               pixtral_12b, qwen2_5_14b, seamless_m4t_medium, starcoder2_3b, tinyllama_1_1b)
 from .base import ArchConfig
 
 REGISTRY = {m.CONFIG.name: m.CONFIG
-            for m in (qwen2_5_14b, starcoder2_3b, tinyllama_1_1b, dbrx_132b, grok_1_314b,
-                      jamba_v0_1_52b, mamba2_1_3b)}
-
-#: The reference's architectures the port does not have yet, by family.
-NOT_PORTED = {"minicpm3-4b": "mla", "seamless-m4t-medium": "encdec", "pixtral-12b": "vlm"}
+            for m in (qwen2_5_14b, starcoder2_3b, tinyllama_1_1b, minicpm3_4b, dbrx_132b,
+                      grok_1_314b, jamba_v0_1_52b, mamba2_1_3b, pixtral_12b,
+                      seamless_m4t_medium)}
 
 ARCH_NAMES = sorted(REGISTRY)
 
 
-class ArchNotPortedError(NotImplementedError):
-    """An architecture of the reference whose family the port lacks."""
-
-
 def get_config(name: str) -> ArchConfig:
-    if name in NOT_PORTED:
-        raise ArchNotPortedError(
-            f"arch {name!r} ({NOT_PORTED[name]} family) is not ported yet: the port "
-            f"has the dense, MoE, SSM and hybrid families {ARCH_NAMES} — "
-            f"ROADMAP.md Queue 1, 'The rest of the LM zoo'")
     if name not in REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
     return REGISTRY[name]
@@ -72,5 +62,4 @@ def smoke_config(name: str) -> ArchConfig:
     return dataclasses.replace(cfg, **updates)
 
 
-__all__ = ["REGISTRY", "ARCH_NAMES", "NOT_PORTED", "ArchConfig", "ArchNotPortedError",
-           "get_config", "smoke_config"]
+__all__ = ["REGISTRY", "ARCH_NAMES", "ArchConfig", "get_config", "smoke_config"]

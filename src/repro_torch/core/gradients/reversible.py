@@ -53,11 +53,11 @@ from ... import tree
 from ...kernels import ops
 from ..brownian import BrownianPath
 from ..solvers import (
-    NP_DTYPES,
     RevHeunState,
     grid_time,
     reversible_heun_reverse_step,
     reversible_heun_step,
+    time_dtype,
 )
 from .base import GradientBackend, register_backend
 
@@ -82,7 +82,7 @@ def _forward(drift, diffusion, params, z0, bm, t0, t1, num_steps, noise,
     state)``.  Without ``save_trajectory`` no state outlives its step, so
     the terminal form holds O(1) states in the forward too."""
     dtype = z0.dtype
-    np_dtype = NP_DTYPES[dtype]
+    np_dtype = time_dtype(dtype)
     dt = np_dtype((t1 - t0) / num_steps)
     state = RevHeunState(z0, z0, drift(params, t0, z0), diffusion(params, t0, z0))
     gen = _gen_spec(bm, z0, noise, use_pallas)
@@ -180,7 +180,7 @@ def _backward_leaves(treespec, leaves, needs):
 def _backward(spec: _SolveSpec, final: RevHeunState, leaves, needs, g_out):
     """Algorithm 2 sweep -> ``(g_z0, [g_leaf or None])``."""
     N = spec.num_steps
-    np_dtype = NP_DTYPES[final.z.dtype]
+    np_dtype = time_dtype(final.z.dtype)
     dt = np_dtype((spec.t1 - spec.t0) / N)
     p_leaves, wrt, params, g_params = _backward_leaves(spec.treespec, leaves, needs)
     g_out = g_out.contiguous()

@@ -54,6 +54,14 @@ Diffusion = Callable
 #: numpy scalar type of each state dtype (the times' arithmetic).
 NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
+
+def time_dtype(dtype: torch.dtype):
+    """The numpy dtype of a grid's time arithmetic for a state of ``dtype``:
+    the state's own for float32 and float64, float32 for bfloat16, which
+    numpy lacks (the reversible layer stack's integer times are exact
+    there, and a numpy scalar ``dt`` keeps a bfloat16 state bfloat16)."""
+    return np.float32 if dtype == torch.bfloat16 else NP_DTYPES[dtype]
+
 #: drift+diffusion evaluations per step, per solver (paper's NFE accounting).
 NFE_PER_STEP = {
     "euler_maruyama": 1,

@@ -61,7 +61,8 @@ SIGNATURES = {
     "rt_rev_heun_phase2": (_I, _P, _P, _P, _P, _P, _P, _D, _D, _P, _I64, _P),
     "rt_rev_heun_bwd_phase1": (_I, _P, _P, _P, _P, _D, _P, _P, _I64, _P),
     "rt_rev_heun_bwd_phase2": (_I, _P, _P, _P, _D, _P, _P, _P, _P, _I64, _P),
-    "rt_flash_attention": (_I, _I, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _D, _P, _P),
+    "rt_flash_attention": (_I, _I, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I, _D, _P,
+                           _P),
     "rt_ssd_chunk": (_I, _I, _I, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P, _I64, _P),
     "rt_ssd_chunk_slices": (_I, _I, _I, _I64),
     "rt_fused_mlp": (_I, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P),

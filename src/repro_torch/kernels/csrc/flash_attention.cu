@@ -3,8 +3,14 @@
 // Replaces the Pallas kernel flash_attention of the JAX package:
 //   src/repro/kernels/flash_attention.py:67 (kernel body :27-64)
 // It computes what that kernel computes: q (B, Hq, S, D), k and v
-// (B, Hkv, S, D) with Hq % Hkv == 0; query head h reads KV head
-// h / (Hq/Hkv) in place, with no repeat copy.  Per query row:
+// (B, Hkv, Sk, D) with Hq % Hkv == 0; query head h reads KV head
+// h / (Hq/Hkv) in place, with no repeat copy.  The key length Sk is the
+// query length S for self-attention and its own for the encoder-decoder's
+// cross-attention (decoder rows against the encoder's frames, never causal:
+// causal with Sk != S is refused).  The Pallas wrapper derives its key block
+// and grid from S (flash_attention.py:84-90) and so assumes Sk == S; here
+// the KV loop, the tensor maps and the ragged mask run on Sk, which is what
+// the reference's CPU path (blockwise_attention) computes.  Per query row:
 //   s   = (q . k^T accumulated in f32) * scale, masked scores -1e30
 //   m'  = max(m, rowmax(s));  p = exp(s - m');  alpha = exp(m - m')
 //   l   = alpha*l + rowsum(p)
@@ -75,8 +81,17 @@
 // (setmaxnreg does not raise its allocation): it spilled and serialised the
 // wgmma, and ran slower, so D = 128 runs each warpgroup's products back to
 // back and leaves the overlap to the two warpgroups' independent progress.
-// Columns past S are -inf and TMA zero-fills rows past S, so a ragged edge
-// needs no separate path; rows past S are not stored.
+// At D = 96 (MLA's concatenated 64 + 32 head) the back-to-back schedule
+// runs too, with tiles 64-byte swizzled: three 32-column blocks, Q.K^T as
+// six k-steps of m64n128k16 and P.V as m64n96k16.  ptxas gives it 145
+// registers and no spill; the ping-pong schedule at D = 96 holds S, P and
+// a 48-register O at once and spilled 84 bytes at 168 registers with its
+// wgmma serialised (C7512; PERF.md, PR 34).  The one argument it added
+// (the key length) moved D = 64's ping-pong kernel from 168 registers and
+// no spill to an 8-byte spill, at no measured cost (the same PR).
+// Columns past Sk are -inf and TMA zero-fills rows past S (past Sk for K
+// and V), so a ragged edge needs no separate path; rows past S are not
+// stored.
 //
 // float32: split TF32 on the tensor cores (flash_attention_f32).  Before,
 // both products ran as __fmaf_rn on CUDA cores fed from shared memory (a
@@ -91,15 +106,17 @@
 // ~1e-3 off).  wgmma takes TF32 only with both operands K-major, and V,
 // (keys, D), is MN-major, hence mma.sync.  One block of 128 threads (4
 // warps) owns 128 query rows at D <= 64 (32 a warp, two m16 tiles, so each
-// split K or V fragment feeds two products) and 64 at D = 128 (16 a warp:
-// two tiles would need ~240 registers).  K and V tiles of 64 keys are
+// split K or V fragment feeds two products) and 64 at D = 96 and 128 (16 a
+// warp: two tiles would need ~240 registers at D = 128, and at D = 96 96
+// accumulators and 64 scores a thread besides the fragments).  K and V tiles of 64 keys are
 // double-buffered in shared memory by cp.async, one tile ahead, behind two
 // barriers a tile; Q's fragments are loaded and split from shared memory a
 // k-step at a time (at D = 128 they would not fit in registers, and at
 // D <= 64 two tiles' worth would not either).  Q.K^T sums over D in the k
 // order 0, 2, 4, 6, 1, 3, 5, 7 of each 8, so a thread's two columns are one
-// 64-bit load; Q and K rows are D + 8 floats apart, V rows D + 4, so every
-// fragment load is free of bank conflicts.  P stays f32 (the TPU kernel's
+// 64-bit load; Q and K rows are D + 8 floats apart, V rows D + 4 (at every
+// D taken, D + 8 ≡ 8 and 2·(D + 4) ≡ 8 mod 32 banks), so every fragment
+// load is free of bank conflicts.  P stays f32 (the TPU kernel's
 // p.astype(v.dtype) is a no-op in f32) and never leaves registers: read in
 // the k order above, the S accumulator fragment is P.V's A fragment as it
 // stands, and V's B fragment reads keys 2t and 2t + 1.  The softmax runs
@@ -151,7 +168,8 @@
 //
 // Interface: a plain C function (loaded with ctypes by kernels/build.py),
 // dtype code 0 = float32, 1 = bfloat16, strides (in elements) of q, k, v
-// and o as (batch, head, row) triples.  It launches on the given stream
+// and o as (batch, head, row) triples, the query length and the key length.
+// It launches on the given stream
 // and returns cudaGetLastError(), or cudaErrorInvalidValue for a dtype,
 // head dimension or layout it does not take.  The tensor maps are encoded
 // with cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so
@@ -188,13 +206,17 @@ constexpr int kConsumers = 256;                // two consumer warpgroups
 constexpr int kWgThreads = kConsumers + 32;    // and one producer warp
 
 // Shared-memory geometry at head dim D.  A tile is kBlocks column blocks of
-// its rows x kRowBytes, each swizzled over its kRowBytes rows.
+// its rows x kRowBytes, each swizzled over its kRowBytes rows: 128-byte
+// blocks (64 columns) where D is a multiple of 64, 64-byte blocks (32
+// columns, three at D = 96), 32-byte at D = 16.
 template <int D>
 struct Geometry {
-  static constexpr int kRowBytes = D >= 64 ? 128 : 32;      // swizzle span
-  static constexpr uint64_t kSwizzle = D >= 64 ? 1 : 3;     // descriptor code: 128B / 32B
+  static constexpr int kRowBytes = D % 64 == 0 ? 128 : (D % 32 == 0 ? 64 : 32);  // swizzle span
+  // descriptor code: 1 = 128B, 2 = 64B, 3 = 32B
+  static constexpr uint64_t kSwizzle = kRowBytes == 128 ? 1 : (kRowBytes == 64 ? 2 : 3);
   static constexpr CUtensorMapSwizzle kTmaSwizzle =
-      D >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B;
+      kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                       : (kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B);
   static constexpr int kBoxCols = kRowBytes / 2;            // bf16 columns a block
   static constexpr int kBlocks = D / kBoxCols;
   static constexpr int kKSteps = kRowBytes / 32;            // k16 steps a column block
@@ -312,6 +334,26 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64 x 96, f32) += A (64 x 16, registers) . B (16 x 96, shared, MN-major).
+__device__ __forceinline__ void wgmma_rs(float (&d)[48], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // D (64 x 128, f32) += A (64 x 16, registers) . B (16 x 128, shared, MN-major).
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
@@ -381,14 +423,14 @@ __device__ __forceinline__ void wgmma_wait() {
 // scores, s[4j + 2r + e] at row row0 + 8r, column k0 + 8j + col0 + e)
 // becomes p = exp2(s·c − m') with c = scale·log2 e, f32; m (in units of
 // s·c) and l advance; alpha is the factor the accumulator takes before this
-// tile's P.V.  Only an edge tile (the causal diagonal, the ragged end) pays
-// for the mask.  For c > 0 the row maximum is taken on the raw scores (the
+// tile's P.V.  Only an edge tile (the causal diagonal, the ragged end of
+// the Sk keys) pays for the mask.  For c > 0 the row maximum is taken on the raw scores (the
 // rounded c·max s is the maximum of the rounded c·s, rounding being
 // monotone), and each exponent is one fused multiply-add.
 template <int N>
 __device__ __forceinline__ void softmax_tile(float (&s)[N], float (&m)[2], float (&l)[2],
                                              float (&alpha)[2], bool edge, int k0, int row0,
-                                             int col0, int S, int causal, float c) {
+                                             int col0, int Sk, int causal, float c) {
   const bool fused = c > 0.f;  // the same for every thread
   if (!fused) {
 #pragma unroll
@@ -398,7 +440,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[N], float (&m)[2], float
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       const int col = k0 + 8 * (i / 4) + col0 + i % 2;
-      if (col >= S || (causal && col > row0 + 8 * ((i / 2) % 2))) s[i] = -INFINITY;
+      if (col >= Sk || (causal && col > row0 + 8 * ((i / 2) % 2))) s[i] = -INFINITY;
     }
   }
   float mx[2] = {-INFINITY, -INFINITY};
@@ -462,9 +504,10 @@ struct Item {
   int h, b, q0, n_tiles;
 };
 
-__device__ __forceinline__ Item item_at(int w, int Hq, int B, int n_qt, int S, int causal) {
+// KV tiles over the Sk keys (under `causal`, Sk == S).
+__device__ __forceinline__ Item item_at(int w, int Hq, int B, int n_qt, int Sk, int causal) {
   const int qt = n_qt - 1 - w / (Hq * B), r = w % (Hq * B);
-  const int q0 = qt * kBM, kv_tiles = (S + kBN - 1) / kBN;
+  const int q0 = qt * kBM, kv_tiles = (Sk + kBN - 1) / kBN;
   return Item{r % Hq, r / Hq, q0, causal ? min(kv_tiles, (q0 + kBM) / kBN) : kv_tiles};
 }
 
@@ -472,8 +515,8 @@ template <int D, int kStages, bool kPipelined>
 __device__ __forceinline__ void consume(uint32_t q_s, uint32_t k_s, uint32_t v_s,
                                         uint32_t q_full0, uint32_t q_empty0, uint32_t full0,
                                         uint32_t empty0, __nv_bfloat16* __restrict__ o,
-                                        Strides so, int S, int Hq, int B, int n_qt, int causal,
-                                        float scale_log2) {
+                                        Strides so, int S, int Sk, int Hq, int B, int n_qt,
+                                        int causal, float scale_log2) {
   using G = Geometry<D>;
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128, lane = t % 32;
   const int row_in_block = wg * kWgRows + (t / 32) * 16 + lane / 4;
@@ -482,12 +525,12 @@ __device__ __forceinline__ void consume(uint32_t q_s, uint32_t k_s, uint32_t v_s
   int tile = 0;  // this block's K/V tiles so far: the ring's stage and phase
   if (kPipelined && wg == 1) named_arrive(1);
   for (int it = 0; item_index(it) < n_items; ++it) {
-    const Item item = item_at(item_index(it), Hq, B, n_qt, S, causal);
+    const Item item = item_at(item_index(it), Hq, B, n_qt, Sk, causal);
     const bool last_item = item_index(it + 1) >= n_items;
     const int q0 = item.q0, n_tiles = item.n_tiles, row0 = q0 + row_in_block;
     const uint32_t qb = it & 1, q_wg = q_s + qb * G::kQBytes + wg * kWgRows * G::kRowBytes;
     auto edge = [&](int kt) {
-      return (causal && (kt + 1) * kBN - 1 > q0) || (kt + 1) * kBN > S;
+      return (causal && (kt + 1) * kBN - 1 > q0) || (kt + 1) * kBN > Sk;
     };
     float acc[D / 2];
 #pragma unroll
@@ -512,7 +555,7 @@ __device__ __forceinline__ void consume(uint32_t q_s, uint32_t k_s, uint32_t v_s
       wgmma_wait<0>();
       fence_regs(s);
       if (n_tiles == 1) mbar_arrive(q_empty0 + 8 * qb);
-      softmax_tile(s, m, l, alpha, edge(0), 0, row0, col0, S, causal, scale_log2);
+      softmax_tile(s, m, l, alpha, edge(0), 0, row0, col0, Sk, causal, scale_log2);
       pack_p(s, p);
       for (int kt = 1; kt < n_tiles; ++kt) {
         const int prev = st;
@@ -531,7 +574,7 @@ __device__ __forceinline__ void consume(uint32_t q_s, uint32_t k_s, uint32_t v_s
         wgmma_wait<1>();
         fence_regs(s);
         if (kt + 1 == n_tiles) mbar_arrive(q_empty0 + 8 * qb);
-        softmax_tile(s, m, l, alpha, edge(kt), kt * kBN, row0, col0, S, causal, scale_log2);
+        softmax_tile(s, m, l, alpha, edge(kt), kt * kBN, row0, col0, Sk, causal, scale_log2);
         wgmma_wait<0>();
         fence_regs(acc);
         mbar_arrive(empty0 + 8 * prev);
@@ -557,7 +600,7 @@ __device__ __forceinline__ void consume(uint32_t q_s, uint32_t k_s, uint32_t v_s
         wgmma_wait<0>();
         fence_regs(s);
         if (kt + 1 == n_tiles) mbar_arrive(q_empty0 + 8 * qb);
-        softmax_tile(s, m, l, alpha, edge(kt), kt * kBN, row0, col0, S, causal, scale_log2);
+        softmax_tile(s, m, l, alpha, edge(kt), kt * kBN, row0, col0, Sk, causal, scale_log2);
         rescale<D>(acc, alpha);
         pack_p(s, p);
         fence_regs(acc);
@@ -598,7 +641,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 flash_attention_wgmma(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
-                      Strides so, int S, int Hq, int B, int group, int causal,
+                      Strides so, int S, int Sk, int Hq, int B, int group, int causal,
                       float scale_log2) {
   using G = Geometry<D>;
   extern __shared__ uint8_t smem_raw[];
@@ -629,7 +672,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tq,
     if (threadIdx.x == kConsumers) {
       int tile = 0;
       for (int it = 0; item_index(it) < n_items; ++it) {
-        const Item item = item_at(item_index(it), Hq, B, n_qt, S, causal);
+        const Item item = item_at(item_index(it), Hq, B, n_qt, Sk, causal);
         const int qb = it & 1, hk = item.h / group;
         if (it >= 2) mbar_wait(q_empty0 + 8 * qb, ((it >> 1) - 1) & 1);
         mbar_expect_tx(q_full0 + 8 * qb, G::kQBytes);
@@ -651,7 +694,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tq,
     }
   } else {
     consume<D, kStages, kPipelined>(q_s, k_s, v_s, q_full0, q_empty0, full0, empty0, o, so,
-                                        S, Hq, B, n_qt, causal, scale_log2);
+                                    S, Sk, Hq, B, n_qt, causal, scale_log2);
   }
 }
 
@@ -674,8 +717,9 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 4-D map over (D, S, H, B) with the operand's strides; boxes of
-// kBoxCols x rows x 1 x 1, zero-filled past S.
+// A 4-D map over (D, S, H, B) with the operand's strides (S its own row
+// count: the query or the key length); boxes of kBoxCols x rows x 1 x 1,
+// zero-filled past S.
 template <int D>
 bool encode(CUtensorMap* map, const void* base, Strides st, int64_t S, int64_t H, int64_t B,
             int rows) {
@@ -698,11 +742,11 @@ bool encode(CUtensorMap* map, const void* base, Strides st, int64_t S, int64_t H
 template <int D, int kStages, bool kPipelined>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         const Strides* st, int64_t B, int64_t Hq, int64_t Hkv, int64_t S,
-                        int causal, float scale, cudaStream_t stream) {
+                        int64_t Sk, int causal, float scale, cudaStream_t stream) {
   using G = Geometry<D>;
   CUtensorMap tq, tk, tv;
-  if (!encode<D>(&tq, q, st[0], S, Hq, B, kBM) || !encode<D>(&tk, k, st[1], S, Hkv, B, kBN) ||
-      !encode<D>(&tv, v, st[2], S, Hkv, B, kBN))
+  if (!encode<D>(&tq, q, st[0], S, Hq, B, kBM) || !encode<D>(&tk, k, st[1], Sk, Hkv, B, kBN) ||
+      !encode<D>(&tv, v, st[2], Sk, Hkv, B, kBN))
     return cudaErrorInvalidValue;
   auto kernel = flash_attention_wgmma<D, kStages, kPipelined>;
   constexpr int smem = G::smem(kStages);
@@ -718,7 +762,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   const float scale_log2 = static_cast<float>(static_cast<double>(scale) * 1.4426950408889634);
   kernel<<<static_cast<unsigned>(items < sms ? items : sms), kWgThreads, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), st[3], static_cast<int>(S),
-      static_cast<int>(Hq), static_cast<int>(B), static_cast<int>(Hq / Hkv), causal,
+      static_cast<int>(Sk), static_cast<int>(Hq), static_cast<int>(B), static_cast<int>(Hq / Hkv), causal,
       scale_log2);
   return cudaGetLastError();
 }
@@ -783,7 +827,7 @@ template <int D>
 __global__ void __launch_bounds__(kF32Threads, 1)
 flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ o, Strides sq,
-                    Strides sk, Strides sv, Strides so, int S, int group, int causal,
+                    Strides sk, Strides sv, Strides so, int S, int Sk, int group, int causal,
                     float scale_log2) {
   using G = F32Geometry<D>;
   constexpr int kM = G::kM, kLdQK = G::kLdQK, kLdV = G::kLdV;
@@ -801,14 +845,14 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
   const float* kb = k + b * sk.b + hk * sk.h;
   const float* vb = v + b * sv.b + hk * sv.h;
-  const int kv_tiles = (S + kF32Keys - 1) / kF32Keys;
+  const int kv_tiles = (Sk + kF32Keys - 1) / kF32Keys;  // under `causal`, Sk == S
   const int n_tiles = causal ? min(kv_tiles, (q0 + G::kRows) / kF32Keys) : kv_tiles;
 
   // two cp.async groups a tile, K then V, one tile ahead
   load_tile_async<D, G::kRows, kLdQK>(qs, q + b * sq.b + h * sq.h, sq.s, q0, S);
-  load_tile_async<D, kF32Keys, kLdQK>(kv0, kb, sk.s, 0, S);
+  load_tile_async<D, kF32Keys, kLdQK>(kv0, kb, sk.s, 0, Sk);
   cp_async_commit();
-  load_tile_async<D, kF32Keys, kLdV>(kv0 + G::kKTile, vb, sv.s, 0, S);
+  load_tile_async<D, kF32Keys, kLdV>(kv0 + G::kKTile, vb, sv.s, 0, Sk);
   cp_async_commit();
 
   float acc[kM][kDSteps][4];
@@ -834,9 +878,9 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();     // ... for every thread, and every warp is done with tile kt - 1
     if (kt + 1 < n_tiles) {
       float* next = kv0 + ((kt + 1) & 1) * G::kStage;
-      load_tile_async<D, kF32Keys, kLdQK>(next, kb, sk.s, k0 + kF32Keys, S);
+      load_tile_async<D, kF32Keys, kLdQK>(next, kb, sk.s, k0 + kF32Keys, Sk);
       cp_async_commit();
-      load_tile_async<D, kF32Keys, kLdV>(next + G::kKTile, vb, sv.s, k0 + kF32Keys, S);
+      load_tile_async<D, kF32Keys, kLdV>(next + G::kKTile, vb, sv.s, k0 + kF32Keys, Sk);
     } else {
       cp_async_commit();
     }
@@ -875,7 +919,7 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
 
       // online softmax on the fragment: s[mi][j][e] at row first + 16mi +
       // g + 8·(e / 2), key k0 + 8j + 2t + e % 2; exponents in base 2
-      const bool edge = (causal && k0 + kF32Keys - 1 > first) || k0 + kF32Keys > S;
+      const bool edge = (causal && k0 + kF32Keys - 1 > first) || k0 + kF32Keys > Sk;
 #pragma unroll
       for (int mi = 0; mi < kM; ++mi) {
         float mx[2] = {-INFINITY, -INFINITY};
@@ -887,7 +931,7 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
             if (edge) {
               const int col = k0 + 8 * j + 2 * t + e % 2;
               const int row = first + 16 * mi + g + 8 * (e / 2);
-              if (col >= S) x = -INFINITY;  // past the ragged end: p = 0
+              if (col >= Sk) x = -INFINITY;  // past the ragged end: p = 0
               else if (causal && col > row) x = kMasked;
             }
             s[mi][j][e] = x;
@@ -969,7 +1013,7 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        const Strides* st, int64_t B, int64_t Hq, int64_t Hkv, int64_t S,
-                       int causal, float scale, cudaStream_t stream) {
+                       int64_t Sk, int causal, float scale, cudaStream_t stream) {
   using G = F32Geometry<D>;
   auto kernel = flash_attention_f32<D>;
   cudaError_t err =
@@ -981,22 +1025,26 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   kernel<<<grid, kF32Threads, G::kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), st[0], st[1], st[2], st[3],
-      static_cast<int>(S), static_cast<int>(Hq / Hkv), causal, scale_log2);
+      static_cast<int>(S), static_cast<int>(Sk), static_cast<int>(Hq / Hkv), causal,
+      scale_log2);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void* o,
                    const Strides* st, int64_t B, int64_t Hq, int64_t Hkv, int64_t S,
-                   int causal, float scale, cudaStream_t stream) {
-  if (dtype == 0) return launch_f32<D>(q, k, v, o, st, B, Hq, Hkv, S, causal, scale, stream);
-  // D = 128: each warpgroup's products back to back (the overlapped
+                   int64_t Sk, int causal, float scale, cudaStream_t stream) {
+  if (dtype == 0)
+    return launch_f32<D>(q, k, v, o, st, B, Hq, Hkv, S, Sk, causal, scale, stream);
+  // D = 96 and 128: each warpgroup's products back to back (the overlapped
   // schedule needs more than the 168 registers a thread of a block this
-  // size); D <= 64: ping-pong with P.V overlapped.
+  // size); D <= 64: ping-pong with P.V overlapped.  Three K/V stages where
+  // they fit in shared memory (all but D = 128).
   constexpr bool kPipelined = D <= 64;
+  constexpr int kStages = D == 128 ? 2 : 3;
   if (dtype == 1)
-    return launch_bf16<D, kPipelined ? 3 : 2, kPipelined>(q, k, v, o, st, B, Hq, Hkv, S, causal,
-                                                          scale, stream);
+    return launch_bf16<D, kStages, kPipelined>(q, k, v, o, st, B, Hq, Hkv, S, Sk, causal, scale,
+                                               stream);
   return cudaErrorInvalidValue;
 }
 
@@ -1004,23 +1052,30 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void*
 
 extern "C" int rt_flash_attention(int dtype, int head_dim, const void* q, const void* k,
                                   const void* v, void* o, int64_t batch, int64_t heads_q,
-                                  int64_t heads_kv, int64_t seq, int causal, double scale,
-                                  const int64_t* strides, void* stream) {
+                                  int64_t heads_kv, int64_t seq, int64_t seq_k, int causal,
+                                  double scale, const int64_t* strides, void* stream) {
   using namespace repro_torch_attention;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float sc = static_cast<float>(scale);
   if (heads_kv <= 0 || heads_q % heads_kv != 0) return cudaErrorInvalidValue;
+  if (causal && seq_k != seq) return cudaErrorInvalidValue;
   if (batch * heads_q * seq == 0) return cudaGetLastError();
-  if (batch > 65535 || heads_q > 65535 || (seq + 127) / 128 * heads_q * batch > 0x7fffffff)
+  if (seq_k <= 0 || seq_k > 0x7fffffff || batch > 65535 || heads_q > 65535 ||
+      (seq + 127) / 128 * heads_q * batch > 0x7fffffff)
     return cudaErrorInvalidValue;
   Strides st[4];  // q, k, v, o
   for (int i = 0; i < 4; ++i)
     st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   switch (head_dim) {
-    case 16: return launch<16>(dtype, q, k, v, o, st, batch, heads_q, heads_kv, seq, causal, sc, s);
-    case 64: return launch<64>(dtype, q, k, v, o, st, batch, heads_q, heads_kv, seq, causal, sc, s);
+    case 16:
+      return launch<16>(dtype, q, k, v, o, st, batch, heads_q, heads_kv, seq, seq_k, causal, sc, s);
+    case 64:
+      return launch<64>(dtype, q, k, v, o, st, batch, heads_q, heads_kv, seq, seq_k, causal, sc, s);
+    case 96:
+      return launch<96>(dtype, q, k, v, o, st, batch, heads_q, heads_kv, seq, seq_k, causal, sc, s);
     case 128:
-      return launch<128>(dtype, q, k, v, o, st, batch, heads_q, heads_kv, seq, causal, sc, s);
+      return launch<128>(dtype, q, k, v, o, st, batch, heads_q, heads_kv, seq, seq_k, causal, sc,
+                         s);
     default: return cudaErrorInvalidValue;
   }
 }

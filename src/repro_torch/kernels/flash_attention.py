@@ -3,8 +3,11 @@
 
 :func:`flash_attention` replaces the Pallas kernel at
 src/repro/kernels/flash_attention.py:67: causal or full attention with an
-online softmax, q ``(B, Hq, S, D)``, k and v ``(B, Hkv, S, D)``, Hq % Hkv
-== 0, float32 or bfloat16, D in {16, 64, 128}.  The kernel is in
+online softmax, q ``(B, Hq, S, D)``, k and v ``(B, Hkv, Sk, D)``, Hq % Hkv
+== 0, float32 or bfloat16, D in {16, 64, 96, 128} (96: MLA's concatenated
+64 + 32 head).  Sk is S for self-attention and the encoder's length for
+the encoder-decoder's cross-attention, which is never causal: causal with
+Sk != S is refused, here and in the plain version.  The kernel is in
 ``csrc/flash_attention.cu``: bfloat16 through warpgroup MMA (wgmma) on
 tiles that TMA loads into shared memory, float32 as split TF32 on
 ``mma.sync`` tensor cores.  Operands
@@ -38,17 +41,18 @@ from .vjp import PlainVJP
 LAUNCHES = {"flash_attention": 0}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 64, 128)
+HEAD_DIMS = (16, 64, 96, 128)
 #: A non-unit stride must be a multiple of this many elements, and the base
 #: a multiple of ALIGN_BYTES (TMA's 16-byte rows and base).
 STRIDE_MULTIPLE = 8
 ALIGN_BYTES = 16
 
 
-def kernel_strides(shapes, strides, dtypes, addresses) -> tuple:
+def kernel_strides(shapes, strides, dtypes, addresses, causal: bool = True) -> tuple:
     """The kernel's view of q, k, v, or a named error: the shapes, strides
     (in elements), dtypes and data addresses of q, k, v, in that order ->
-    ``((sB, sH, sS) of q, of k, of v)``.
+    ``((sB, sH, sS) of q, of k, of v)``.  k and v may have their own length
+    Sk unless ``causal``.
 
     The kernel takes any 4-D view whose last stride is 1, whose other
     strides are positive multiples of 8 elements (16 bytes of bf16: a TMA
@@ -67,16 +71,19 @@ def kernel_strides(shapes, strides, dtypes, addresses) -> tuple:
         raise ValueError(f"flash_attention: q and k must be 4-D (B, H, S, D), got "
                          f"{shapes[0]} and {shapes[1]}")
     B, Hq, S, D = shapes[0]
-    Hkv = shapes[1][1]
-    if shapes[1] != (B, Hkv, S, D) or shapes[2] != shapes[1] or Hkv == 0 or Hq % Hkv:
-        raise ValueError(f"flash_attention: want q (B, Hq, S, D) and k, v (B, Hkv, S, D) "
+    Hkv, Sk = shapes[1][1], shapes[1][2]
+    if shapes[1] != (B, Hkv, Sk, D) or shapes[2] != shapes[1] or Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"flash_attention: want q (B, Hq, S, D) and k, v (B, Hkv, Sk, D) "
                          f"with Hq % Hkv == 0, got q {shapes[0]}, k {shapes[1]}, v {shapes[2]}")
+    ref.check_causal_keys(S, Sk, causal)
+    if S and not Sk:
+        raise ValueError(f"flash_attention: {S} query rows against no keys")
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim must be one of {HEAD_DIMS}, got {D}")
     if B > 65535 or Hq > 65535:
         raise ValueError(f"flash_attention: batch {B} or heads {Hq} exceed the grid's 65535")
     out = []
-    for name, (_, H, _, _), stride, address in zip("qkv", shapes, strides, addresses):
+    for name, (_, H, S, _), stride, address in zip("qkv", shapes, strides, addresses):
         if stride[-1] != 1:
             raise ValueError(f"flash_attention: {name}'s last stride must be 1, got strides "
                              f"{tuple(stride)}")
@@ -94,11 +101,13 @@ def kernel_strides(shapes, strides, dtypes, addresses) -> tuple:
     return tuple(out)
 
 
-def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
+def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool = True) -> tuple:
     """Raise unless q, k, v are what the kernel takes (the device last, so
     layouts are checked on any device); -> :func:`kernel_strides`."""
     strides = kernel_strides([t.shape for t in (q, k, v)], [t.stride() for t in (q, k, v)],
-                             [t.dtype for t in (q, k, v)], [t.data_ptr() for t in (q, k, v)])
+                             [t.dtype for t in (q, k, v)], [t.data_ptr() for t in (q, k, v)],
+                             causal)
     for t in (k, v):
         if t.device != q.device:
             raise ValueError(f"flash_attention: q, k, v must share one device, got "
@@ -112,12 +121,12 @@ def _launch(q, k, v, causal: bool, scale: float, out: Optional[torch.Tensor] = N
     """One launch -> o, by default a ``(B, S, Hq, D)`` buffer's ``(B, Hq, S,
     D)`` view; ``out``, of q's shape and any layout the kernel takes for q,
     is written in its place."""
-    strides = check_operands(q, k, v)
+    strides = check_operands(q, k, v, causal)
     B, Hq, S, D = q.shape
     if out is None:
         out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     else:
-        check_operands(out, k, v)
+        check_operands(out, k, v, causal)
         if out.shape != q.shape:
             raise ValueError(f"flash_attention: out must have q's shape {tuple(q.shape)}, "
                              f"got {tuple(out.shape)}")
@@ -128,7 +137,8 @@ def _launch(q, k, v, causal: bool, scale: float, out: Optional[torch.Tensor] = N
     with build.device_guard(q.device):
         err = lib.rt_flash_attention(
             DTYPE_CODES[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), B, Hq, k.shape[1], S, int(bool(causal)), float(scale), args,
+            out.data_ptr(), B, Hq, k.shape[1], S, k.shape[2], int(bool(causal)), float(scale),
+            args,
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check("flash_attention", err)
     LAUNCHES["flash_attention"] += 1

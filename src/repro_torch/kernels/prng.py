@@ -23,6 +23,10 @@ order read from the compiled HLO of ``jax.lax.erf_inv``), written as
 separate multiplies and adds.  XLA on the CPU contracts them into FMAs and
 its ``log1p`` differs from torch's, so normals agree with ``jax.random``
 within a few ulp, not bitwise; tests/test_torch_prng.py states the bound.
+bfloat16 draws follow ``jax.random``'s: a 7-bit mantissa takes 8-bit words
+(``rng_bits = 8`` where ``nmant < 8``), the uniform is exact, the
+``erf_inv`` runs in float32 and is rounded to bfloat16 before the product
+with bfloat16 ``sqrt(2)``; tests/test_torch_lm_zoo.py states the ulp bound.
 """
 
 from __future__ import annotations
@@ -145,7 +149,16 @@ def random_bits(k1, k2, bit_width: int, size: int) -> torch.Tensor:
     """``(*key_shape, size)`` draws, bitwise ``_threefry_random_bits``.
 
     32-bit words come back as ``int64`` in ``[0, 2**32)``; 64-bit words as
-    the ``int64`` with the same bit pattern as JAX's ``uint64``."""
+    the ``int64`` with the same bit pattern as JAX's ``uint64``; 8- and
+    16-bit words as ``int64`` in ``[0, 2**bit_width)``: the 32-bit stream of
+    ``ceil(bit_width·size / 32)`` words cut into its sub-words, the low ones
+    first (``bits.view(uint8 or uint16)[:size]``)."""
+    if bit_width in (8, 16):
+        per = 32 // bit_width
+        words = random_bits(k1, k2, 32, -(-size // per))
+        shifts = torch.arange(0, 32, bit_width, dtype=torch.int64, device=words.device)
+        subs = (words[..., None] >> shifts) & ((1 << bit_width) - 1)
+        return subs.flatten(-2)[..., :size]
     if bit_width == 32:
         y1, y2, half, odd = _hash_counters(k1, k2, size)
         return torch.cat([y1, y2[..., :half - odd]], -1)
@@ -153,7 +166,7 @@ def random_bits(k1, k2, bit_width: int, size: int) -> torch.Tensor:
         hi, lo = _bits64_halves(k1, k2, size)
         hi_signed = torch.where(hi >= 2 ** 31, hi - 2 ** 32, hi)
         return (hi_signed * 2 ** 32) | lo
-    raise ValueError(f"bit_width must be 32 or 64, got {bit_width}")
+    raise ValueError(f"bit_width must be 8, 16, 32 or 64, got {bit_width}")
 
 
 def _window_hash(k1, k2, size: int, window, dtype):
@@ -182,9 +195,14 @@ def uniform(k1, k2, size: int, dtype, window=None) -> torch.Tensor:
     """Unit uniforms ``bitcast(mantissa | 1.0) - 1`` in ``[0, 1)``; with
     ``window = (e0, count)`` only elements ``[e0, e0 + count)`` of the
     ``size``-element draw, bitwise that slice of it (a data-parallel rank's
-    rows of a one-key draw)."""
+    rows of a one-key draw).  bfloat16 draws 8-bit words, as ``jax.random``
+    does for a mantissa of fewer than 8 bits, and takes no window."""
+    if dtype == torch.bfloat16 and window is None:
+        bits = random_bits(k1, k2, 8, size) >> 1       # 7 mantissa bits
+        return (bits | 0x3F80).to(torch.int16).view(torch.bfloat16) - 1.0
     if dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"uniform draws float32 or float64, got {dtype}")
+        raise ValueError(f"uniform draws float32, float64 or (without a window) bfloat16, "
+                         f"got {dtype}")
     if window is not None:
         hi, lo = _window_hash(k1, k2, size, window, dtype)
     elif dtype == torch.float32:
@@ -265,11 +283,29 @@ def normal(k1, k2, size: int, dtype, window=None) -> torch.Tensor:
     transform: ``sqrt(2)·erf_inv(uniform(nextafter(-1, 0), 1))``; with
     ``window = (e0, count)`` the ``(*key_shape, count)`` elements ``[e0, e0
     + count)`` of that draw, bitwise (:func:`uniform`)."""
+    if dtype == torch.bfloat16:
+        return _normal_bf16(k1, k2, size, window)
     np_dtype = _NP_DTYPES[dtype]
     lo = np.nextafter(np.array(-1.0, np_dtype), np.array(0.0, np_dtype),
                       dtype=np_dtype)
     u = uniform_range(k1, k2, size, dtype, lo, np.array(1.0, np_dtype), window)
     return erf_inv(u) * float(np.array(np.sqrt(2), np_dtype))
+
+
+def _normal_bf16(k1, k2, size: int, window=None) -> torch.Tensor:
+    """bfloat16 normals, ``jax.random.normal``'s arithmetic: the uniform on
+    ``[nextafter(-1, 0), 1)`` in bfloat16 (every op exact there: 8-bit
+    words on a grid of 2^-8), ``erf_inv`` in float32 rounded to bfloat16,
+    times bfloat16 ``sqrt(2)`` rounded.  No window (no caller shards one)."""
+    if window is not None:
+        raise ValueError("bfloat16 normals take no window")
+    bf16 = torch.bfloat16
+    floats = uniform(k1, k2, size, bf16)
+    one = torch.ones((), dtype=bf16, device=floats.device)
+    lo = torch.nextafter(-one, torch.zeros_like(one))
+    u = torch.maximum(lo, floats * (one - lo) + lo)
+    sqrt2 = torch.full((), math.sqrt(2), dtype=bf16, device=floats.device)
+    return erf_inv(u.float()).to(bf16) * sqrt2
 
 
 def normal_like(k1, k2, shape: Tuple[int, ...], dtype, window=None) -> torch.Tensor:

@@ -309,10 +309,23 @@ def fused_mlp_bwd(x, w1, b1, w2, b2, g):
     return tuple(t.to(x.dtype) for t in grads)
 
 
+def check_causal_keys(S: int, Sk: int, causal: bool) -> None:
+    """Refuse causal attention with a key length of its own: its mask is
+    ``tril(S, S)``, and no caller needs another (the cross-attention is
+    full)."""
+    if causal and Sk != S:
+        raise ValueError(f"flash_attention: causal attention needs the key length equal to the "
+                         f"query length, got Sk {Sk} against S {S} (cross-attention is "
+                         f"causal=False)")
+
+
 def flash_attention(q, k, v, causal: bool = True, scale=None):
     """GQA attention, the reference's definition (``repro.kernels.ref.
-    flash_attention``) op for op: q ``(B, Hq, S, D)``; k, v ``(B, Hkv, S,
-    D)``, Hq % Hkv == 0.
+    flash_attention``) op for op: q ``(B, Hq, S, D)``; k, v ``(B, Hkv, Sk,
+    D)``, Hq % Hkv == 0.  Sk is S for self-attention; a key length of its
+    own (the encoder-decoder's cross-attention, what the reference's
+    ``blockwise_attention`` takes) only when not ``causal``: the causal
+    mask is ``tril(S, S)``, and causal with Sk != S raises.
 
     K and V are repeated to the query heads; scores in the input dtype, then
     ``.float() * scale``; a ``-inf`` causal mask; softmax; P cast back to the
@@ -322,6 +335,7 @@ def flash_attention(q, k, v, causal: bool = True, scale=None):
     """
     D = q.shape[-1]
     group = q.shape[1] // k.shape[1]
+    check_causal_keys(q.shape[2], k.shape[2], causal)
     if scale is None:
         scale = 1.0 / torch.sqrt(torch.tensor(float(D))).to(q.dtype)
     kk = k.repeat_interleave(group, dim=1)

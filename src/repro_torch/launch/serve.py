@@ -23,6 +23,8 @@ Usage::
         --arch dbrx-132b                    # MoE (also grok-1-314b), smoke config
     PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \\
         --arch jamba-v0.1-52b               # hybrid: attention, Mamba2 and MoE
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \\
+        --arch minicpm3-4b                  # MLA (also pixtral-12b: a VLM prefix)
     PYTHONPATH=src python -m repro_torch.launch.serve --workload latent-sde \\
         --device cpu                        # plain PyTorch versions, no card
     PYTHONPATH=src python -m repro_torch.launch.serve --workload sde-gan \\
@@ -37,15 +39,19 @@ tolerance its deadline class admits, and ``--scheduler
 {continuous,fifo}`` drives the continuous-batching scheduler (``--preempt``,
 ``--pool-budget-mb``, ``--async-front`` ride on it; its steps are CUDA
 graphs on the card).  ``--workload lm`` serves the dense family
-(qwen2.5-14b, tinyllama-1.1b, starcoder2-3b), the MoE family (dbrx-132b,
-grok-1-314b), the pure-SSM family (mamba2-1.3b) and the hybrid family
-(jamba-v0.1-52b) at their smoke size unless ``--full`` is given, as the
-reference's flags read.  ``--host-devices N`` serves the Neural-SDE
+(qwen2.5-14b, tinyllama-1.1b, starcoder2-3b, and minicpm3-4b with MLA
+attention), the MoE family (dbrx-132b, grok-1-314b), the pure-SSM family
+(mamba2-1.3b), the hybrid family (jamba-v0.1-52b) and the VLM
+(pixtral-12b, behind a prefix of random patch embeddings) at their smoke
+size unless ``--full`` is given, as the reference's flags read; the
+encoder-decoder (seamless-m4t-medium) is refused with the reference's
+message (it serves through ``make_prefill_step`` / ``make_serve_step``
+with source embeddings).  ``--host-devices N`` serves the Neural-SDE
 workloads data-parallel over ``N`` local ranks (spawned processes: gloo on
 the CPU with ``--device cpu`` or ranks sharing one card, NCCL with a card a
 rank), every mode included, each trajectory bitwise the one-rank
-service's.  Still unported, each with a named error pointing at
-ROADMAP.md: the other LM families (MLA, encoder-decoder, VLM).
+service's.  Still unported, with a named error pointing at ROADMAP.md:
+the LM's sharded execution (``--workload lm --host-devices``).
 """
 
 from __future__ import annotations
@@ -75,35 +81,55 @@ def lm_prompts(seed: int, batch: int, prompt_len: int, vocab: int) -> torch.Tens
     return prng.randint(key, batch * prompt_len, 0, vocab).reshape(batch, prompt_len)
 
 
+def lm_prefix(seed: int, batch: int, cfg) -> torch.Tensor:
+    """The reference's VLM prefix, ``jax.random.normal(fold_in(PRNGKey(
+    seed), 2), (batch, frontend_len, d_model), cfg.dtype)``: the same
+    random bits, the normals within a few float32 ulp (one bfloat16 ulp)."""
+    from ..kernels import prng
+
+    key = prng.fold_in_key(prng.PRNGKey(seed), 2)
+    return prng.normal_like(key[0], key[1], (batch, cfg.frontend_len, cfg.d_model), cfg.dtype)
+
+
 def serve_lm(arch: str, batch: int, prompt_len: int, gen: int, smoke: bool = True,
              seed: int = 0, device=None, params=None):
-    """Prefill + greedy decode of a decoder-only LM (dense, MoE, Mamba2 or
-    hybrid);
-    returns the generated tokens, int32 ``(batch, gen)``.
+    """Prefill + greedy decode of a decoder-only LM (dense with GQA or MLA,
+    MoE, Mamba2, hybrid, or the VLM); returns the generated tokens, int32
+    ``(batch, gen)``.  The encoder-decoder is refused with the reference's
+    ``SystemExit``.
 
     Fresh weights come from a generator seeded with ``seed`` on the serving
     device, unless ``params`` are given (weights carried across from JAX,
     or one model served at several shapes).  The prompts are the
-    reference's (:func:`lm_prompts`).  An attention cache holds
-    ``prompt_len + gen`` slots; a Mamba2 cache is its conv window and SSM
-    state, and a prompt shorter than ``ssm_conv − 1`` raises.  Prints the prefill time and the decode rate, each timed between
+    reference's (:func:`lm_prompts`); a VLM's prefix is the reference's
+    ``normal(fold_in(PRNGKey(seed), 2), (batch, frontend_len, d_model),
+    cfg.dtype)`` (:func:`lm_prefix`), and the first decode position follows
+    it.  An attention cache holds ``frontend_len + prompt_len + gen`` slots;
+    a Mamba2 cache is its conv window and SSM state, and a prompt shorter
+    than ``ssm_conv − 1`` raises.  Prints the prefill time and the decode rate, each timed between
     device synchronisations."""
     from ..configs import get_config, smoke_config
     from ..models import transformer as T
     from .steps import greedy_sample, make_prefill_step, make_serve_step
 
     cfg = smoke_config(arch) if smoke else get_config(arch)
+    if cfg.family == "encdec":
+        raise SystemExit("use --arch with a decoder-only config for serve.py")
     dev = resolve_device(device)
     if params is None:
         params = T.init_lm(torch.Generator(device=dev).manual_seed(seed), cfg, device=dev)
-    max_len = prompt_len + gen
-    prompts = lm_prompts(seed, batch, prompt_len, cfg.vocab)
+    prefix = cfg.frontend_len if cfg.frontend else 0
+    max_len = prompt_len + gen + prefix
+    batch_in = {"tokens": lm_prompts(seed, batch, prompt_len, cfg.vocab).to(dev)}
+    if prefix:
+        batch_in["embeds"] = lm_prefix(seed, batch, cfg).to(dev)
+    pos0 = prompt_len + prefix
     prefill = make_prefill_step(cfg, max_len=max_len)
     decode = make_serve_step(cfg)
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, caches = prefill(params, {"tokens": prompts.to(dev)})
+    logits, caches = prefill(params, batch_in)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
@@ -111,7 +137,7 @@ def serve_lm(arch: str, batch: int, prompt_len: int, gen: int, smoke: bool = Tru
     out_tokens = [token]
     t0 = time.perf_counter()
     for i in range(gen - 1):
-        logits, caches = decode(params, caches, token, prompt_len + i)
+        logits, caches = decode(params, caches, token, pos0 + i)
         token = greedy_sample(logits)
         out_tokens.append(token)
     _sync(dev)
@@ -179,8 +205,10 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     # --workload lm: the transformer LM's prefill + greedy decode
     ap.add_argument("--arch", default="qwen2.5-14b",
-                    help="lm: qwen2.5-14b, tinyllama-1.1b, starcoder2-3b, dbrx-132b, "
-                         "grok-1-314b, mamba2-1.3b or jamba-v0.1-52b")
+                    help="lm: qwen2.5-14b, tinyllama-1.1b, starcoder2-3b, minicpm3-4b, "
+                         "dbrx-132b, grok-1-314b, mamba2-1.3b, jamba-v0.1-52b or "
+                         "pixtral-12b (seamless-m4t-medium, the encoder-decoder, is "
+                         "refused)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)

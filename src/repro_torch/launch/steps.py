@@ -443,11 +443,16 @@ def make_latent_sde_step(cfg, opt_update, batch: int, seq_len: int,
 def make_prefill_step(cfg, max_len=None):
     """``(params, batch) -> (last-token logits (B, 1, vocab), caches)``, the
     attention caches padded to ``max_len`` slots (a Mamba2 cache has no
-    sequence axis); ``batch["tokens"]`` is ``(B, S)``."""
+    sequence axis, the encoder-decoder's cross cache keeps the source's
+    length); ``batch["tokens"]`` is ``(B, S)``, plus ``embeds`` (a VLM's
+    prefix) or ``src_embeds`` (the encoder-decoder's source)."""
     from ..models import transformer as T
 
     def prefill_step(params, batch):
         with torch.no_grad():
+            if cfg.family == "encdec":
+                return T.encdec_prefill(params, cfg, batch["tokens"], batch["src_embeds"],
+                                        max_len=max_len)
             return T.lm_prefill(params, cfg, batch["tokens"], embeds=batch.get("embeds"),
                                 max_len=max_len)
 
@@ -462,6 +467,8 @@ def make_serve_step(cfg):
 
     def serve_step(params, caches, token, pos):
         with torch.no_grad():
+            if cfg.family == "encdec":
+                return T.encdec_decode(params, cfg, token, caches, pos)
             return T.lm_decode(params, cfg, token, caches, pos)
 
     return serve_step

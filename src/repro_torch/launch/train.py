@@ -8,6 +8,8 @@ Usage::
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 2
     PYTHONPATH=src python -m repro_torch.launch.train --arch dbrx-132b \\
         --steps 3                                 # MoE (also grok-1-314b, jamba-v0.1-52b)
+    PYTHONPATH=src python -m repro_torch.launch.train --arch seamless-m4t-medium \\
+        --steps 3                                 # also minicpm3-4b, pixtral-12b
     PYTHONPATH=src python -m repro_torch.launch.train --workload sde-gan \\
         --constraint clip --ckpt-dir D && python -m repro_torch.launch.serve \\
         --workload sde-gan --ckpt-dir D
@@ -19,14 +21,18 @@ Usage::
     PYTHONPATH=src python -m repro_torch.launch.train --workload latent-sde \
         --solver srk [--adjoint checkpoint]          # strong order 1.5
 
-``lm`` trains a decoder-only LM of the dense, MoE, SSM or hybrid family
-(``--arch``; the reduced smoke config unless ``--full``) with AdamW on the
-cosine schedule, the loss through the ``fused_xent`` kernels on the card
-plus 0.01 times the MoE load-balancing loss (``moe_aux`` in the metrics).  The loop is the
-reference's: the batch of step ``n`` is ``token_batches(fold_in(PRNGKey(
-seed), 1), n)``, bitwise the reference's; ``--fail-at-step`` raises at
-that step (the failure drill); ``--lose-devices`` re-plans the mesh it
-prints.
+``lm`` trains any of the ten LMs (``--arch``: dense with GQA or MLA, MoE,
+SSM, hybrid, the VLM and the encoder-decoder; the reduced smoke config
+unless ``--full``) with AdamW on the cosine schedule, the loss through the
+``fused_xent`` kernels on the card plus 0.01 times the MoE load-balancing
+loss (``moe_aux`` in the metrics).  The loop is the reference's: the batch
+of step ``n`` is ``token_batches(fold_in(PRNGKey(seed), 1), n)``, bitwise
+the reference's; a VLM trains on ``normal(fold_in(data_key, n + 10000),
+(batch, frontend_len, d_model))`` prefix embeddings ahead of the batch's
+last ``seq − frontend_len`` tokens, the encoder-decoder on ``(batch, seq,
+d_model)`` source embeddings drawn the same way (:func:`lm_batch`);
+``--fail-at-step`` raises at that step (the failure drill);
+``--lose-devices`` re-plans the mesh it prints.
 
 ``sde-gan`` trains the SDE-GAN (paper §5) at the reference's widths — data
 1, hidden 16, noise 4, width 32, depth 1, discriminator hidden 16 and
@@ -68,9 +74,8 @@ bitwise equal; rank 0 writes the checkpoints.  A batch that does not
 divide runs unsharded on every rank, with the reference's message.
 
 Every workload runs on the card by default; with no card and no
-``--device cpu`` it stops with a named error.  The MLA, vlm/audio and
-encdec families and the LM's sharded execution are not ported yet
-(ROADMAP.md Queue 1).
+``--device cpu`` it stops with a named error.  The LM's sharded execution
+is not ported yet (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -111,6 +116,25 @@ def _device_count(dev: torch.device) -> int:
     return torch.cuda.device_count() if dev.type == "cuda" else 1
 
 
+def lm_batch(cfg, data_key, step: int, batch: int, seq: int) -> dict:
+    """Step ``step``'s batch, the reference's: ``token_batches`` and, for a
+    VLM, the prefix embeddings in place of the first ``frontend_len``
+    tokens, or, for the encoder-decoder, the source embeddings; the
+    normals from ``fold_in(data_key, step + 10000)`` in ``cfg.dtype``."""
+    from ..data.synthetic import token_batches
+
+    data = token_batches(data_key, step, batch, seq, cfg.vocab)
+    if not (cfg.frontend or cfg.family == "encdec"):
+        return data
+    key = prng.fold_in_key(data_key, step + 10_000)
+    if cfg.family == "encdec":
+        src = prng.normal_like(key[0], key[1], (batch, seq, cfg.d_model), cfg.dtype)
+        return {"src_embeds": src, **data}
+    f = cfg.frontend_len
+    embeds = prng.normal_like(key[0], key[1], (batch, f, cfg.d_model), cfg.dtype)
+    return {"embeds": embeds, "tokens": data["tokens"][:, f:], "labels": data["labels"][:, f:]}
+
+
 def train(arch: str, steps: int, batch: int, seq: int, ckpt_dir: Optional[str],
           ckpt_every: int = 20, smoke: bool = True, seed: int = 0,
           fail_at_step: Optional[int] = None, lose_devices: int = 0, log_every: int = 10,
@@ -126,16 +150,11 @@ def train(arch: str, steps: int, batch: int, seq: int, ckpt_dir: Optional[str],
     and so rounds a bfloat16 model's back to bfloat16, ROADMAP.md Queue 3),
     so it continues bitwise where the uninterrupted run would be."""
     from ..configs import get_config, smoke_config
-    from ..data.synthetic import token_batches
     from ..distributed.elastic import plan_mesh, surviving_devices
     from ..models import transformer as T
     from .steps import make_optimizer, make_train_step
 
     cfg = smoke_config(arch) if smoke else get_config(arch)
-    if cfg.frontend or cfg.family == "encdec":
-        raise T.ModelNotPortedError(
-            f"{arch}: the {cfg.family} family's training batches (prefix or source "
-            f"embeddings) are not ported yet — ROADMAP.md Queue 1, 'The rest of the LM zoo'")
     dev = resolve_device(device)
     key = prng.PRNGKey(seed, device=dev)
     data_key = prng.fold_in_key(key, 1)
@@ -164,7 +183,7 @@ def train(arch: str, steps: int, batch: int, seq: int, ckpt_dir: Optional[str],
         if fail_at_step is not None and step == fail_at_step:
             raise RuntimeError(f"simulated node failure at step {step}")
         t0 = time.perf_counter()
-        batch_data = token_batches(data_key, step, batch, seq, cfg.vocab)
+        batch_data = lm_batch(cfg, data_key, step, batch, seq)
         params, opt_state, metrics = step_fn(params, opt_state, batch_data)
         loss = float(metrics["loss"])
         losses.append(loss)
@@ -392,7 +411,8 @@ def main(argv=None):
     ap.add_argument("--workload", choices=("lm", "sde-gan", "latent-sde"), default="lm")
     ap.add_argument("--arch", default="tinyllama-1.1b",
                     help="lm: the architecture (qwen2.5-14b, tinyllama-1.1b, starcoder2-3b, "
-                         "dbrx-132b, grok-1-314b, mamba2-1.3b or jamba-v0.1-52b)")
+                         "minicpm3-4b, dbrx-132b, grok-1-314b, mamba2-1.3b, jamba-v0.1-52b, "
+                         "pixtral-12b or seamless-m4t-medium)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=None,
                     help="default 8 (lm), 128 (sde-gan) or 64 (latent-sde)")

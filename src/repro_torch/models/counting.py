@@ -1,5 +1,6 @@
-"""Analytic parameter counts (port of :mod:`repro.models.counting`, the
-dense, MoE, pure-SSM and hybrid families' branches).  They mirror what
+"""Analytic parameter counts (port of :mod:`repro.models.counting`: every
+family, MLA attention and the encoder-decoder's encoder and
+cross-attention included).  They mirror what
 :func:`repro_torch.models.transformer.init_lm` allocates, and the tests
 hold them to the leaf sizes and to the reference's counts."""
 
@@ -10,6 +11,14 @@ from ..configs.base import ArchConfig
 
 def _attn_params(cfg: ArchConfig) -> int:
     d, hq, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if cfg.attention == "mla":
+        rq, rkv = cfg.q_lora_rank, cfg.kv_lora_rank
+        dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+        return (d * rq + rq                           # wq_a + q_ln
+                + rq * hq * (dn + dr)                 # wq_b
+                + d * (rkv + dr) + rkv                # wkv_a + kv_ln
+                + rkv * hq * (dn + dv)                # wkv_b
+                + hq * dv * d)                        # wo
     n = d * hq * hd + 2 * d * hkv * hd + hq * hd * d
     if cfg.qkv_bias:
         n += hq * hd + 2 * hkv * hd
@@ -60,14 +69,17 @@ def _layer_params(cfg: ArchConfig, layer_idx: int, active_only: bool) -> int:
 def param_count(cfg: ArchConfig, active_only: bool = False) -> int:
     """Total (or routing-active: ``top_k`` of the experts) parameter count
     of the full model."""
-    from .transformer import unit_pattern
-
-    unit_pattern(cfg)  # raises for the families the port lacks
     n = cfg.vocab * cfg.d_model                       # embed
     if not cfg.tie_embeddings:
         n += cfg.vocab * cfg.d_model                  # head
     n += _norm_params(cfg)                            # final norm
-    return n + sum(_layer_params(cfg, i, active_only) for i in range(cfg.num_layers))
+    n += sum(_layer_params(cfg, i, active_only) for i in range(cfg.num_layers))
+    if cfg.encoder_layers:
+        # encoder blocks: self-attention + FFN; the decoder adds a
+        # cross-attention (and its norm) per block; the encoder's final norm
+        n += cfg.encoder_layers * (_attn_params(cfg) + _ffn_params(cfg) + 2 * _norm_params(cfg))
+        n += cfg.num_layers * (_attn_params(cfg) + _norm_params(cfg)) + _norm_params(cfg)
+    return n
 
 
 def model_flops_per_token(cfg: ArchConfig) -> int:

@@ -1,9 +1,11 @@
 """Sequence-mixing and FFN layers of the transformer zoo (port of
-:mod:`repro.models.layers`), the dense, MoE, SSM and hybrid families': RoPE,
-GQA self-attention (full sequence and single-token decode against a cache),
-the dense FFN, the top-k token-choice MoE with its load-balancing loss, and
-the Mamba2 mixer (the chunked SSD prefill and the recurrent single-token
-decode).
+:mod:`repro.models.layers`), every family's: RoPE, GQA attention (self-
+and cross-attention over the full sequence, single-token decode against a
+cache and against the encoder's fixed cross cache), MLA (multi-head latent
+attention: the full-sequence form through the attention kernel at the
+concatenated head dim, the absorbed latent-cache decode), the dense FFN,
+the top-k token-choice MoE with its load-balancing loss, and the Mamba2
+mixer (the chunked SSD prefill and the recurrent single-token decode).
 
 Parameters are dicts of tensors in the reference's layout (``x @ w``).
 ``*_init`` draw fresh weights from an explicit ``torch.Generator`` at the
@@ -19,8 +21,11 @@ in its plain version; likewise ``ssd_chunked_dense`` is the reference's
 XLA form of the SSD scan, and the port's mixer calls the SSD kernel (its
 plain version on the CPU).  The MoE layer reaches no kernel of the
 reference: its routing, dispatch, expert products and combine are plain
-PyTorch on both devices, the combine a fixed-order sum (no atomics).  MLA
-and cross-attention raise :class:`LayerNotPortedError`.
+PyTorch on both devices, the combine a fixed-order sum (no atomics).  The
+reference's MLA calls ``blockwise_attention`` directly, on every backend;
+the port's goes through the attention kernel (D = 96 at minicpm3-4b) with
+the same float scale.  The decodes (GQA, cross, MLA) are float32 einsums
+on both devices.
 """
 
 from __future__ import annotations
@@ -33,10 +38,6 @@ import torch
 from .. import nn
 from ..configs.base import ArchConfig
 from ..kernels import ops
-
-
-class LayerNotPortedError(NotImplementedError):
-    """A layer of the reference that the port lacks."""
 
 
 def _normal(generator: torch.Generator, shape: Sequence[int], dtype, device) -> torch.Tensor:
@@ -73,13 +74,14 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 # =============================================================================
 
 
-def _attend_dispatch(cfg: ArchConfig, q, k, v, causal: bool):
+def _attend_dispatch(cfg: ArchConfig, q, k, v, causal: bool, scale=None):
     """The CUDA kernel for CUDA tensors, the plain version for CPU tensors
     (:func:`repro_torch.kernels.ops.flash_attention`).  q, k, v are the
     ``(B, H, S, D)`` transposed views of the ``(B, S, H, D)`` projections;
     both read them in place, where the reference's ``swapaxes`` leave the
-    copies to XLA."""
-    return ops.flash_attention(q, k, v, causal=causal)
+    copies to XLA.  k and v have the encoder's length in cross-attention
+    (not causal); ``scale`` is MLA's explicit float ``1/sqrt(dn + dr)``."""
+    return ops.flash_attention(q, k, v, causal=causal, scale=scale)
 
 
 def gqa_init(generator: torch.Generator, cfg: ArchConfig, lead: Sequence[int] = (),
@@ -103,28 +105,40 @@ def gqa_init(generator: torch.Generator, cfg: ArchConfig, lead: Sequence[int] = 
     return p
 
 
-def _project_qkv(p, cfg: ArchConfig, x, positions, kv_source=None):
-    if kv_source is not None:
-        raise LayerNotPortedError(
-            "cross-attention (kv_source) is the encoder-decoder family's; not ported "
-            "yet — ROADMAP.md Queue 1, 'The rest of the LM zoo'")
+def _project_q(p, cfg: ArchConfig, x):
     B, S, _ = x.shape
-    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
     if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, hq, hd)
-    k = k.reshape(B, S, hkv, hd)
-    v = v.reshape(B, S, hkv, hd)
+        q = q + p["bq"]
+    return q.reshape(B, S, cfg.num_heads, cfg.head_dim)
+
+
+def _project_qkv(p, cfg: ArchConfig, x, positions, kv_source=None):
+    """q from x, k and v from ``kv_source`` ``(B, Sk, D)`` (cross-attention:
+    no RoPE, as the reference's ``use_rope=False``) or from x
+    (self-attention: q and k rotated at ``positions``)."""
+    src = x if kv_source is None else kv_source
+    B, Sk, _ = src.shape
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    q = _project_q(p, cfg, x)
+    k = src @ p["wk"]
+    v = src @ p["wv"]
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
+    k = k.reshape(B, Sk, hkv, hd)
+    v = v.reshape(B, Sk, hkv, hd)
+    if kv_source is not None:
+        return q, k, v
     cos, sin = rope_freqs(hd, cfg.rope_theta, positions, x.dtype)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
 def gqa_attend(p, cfg: ArchConfig, x, causal: bool = True, kv_source=None):
-    """Full-sequence self-attention (train/prefill).  x: ``(B, S, D)``.
-    Returns ``(out, (k, v))``, k and v ``(B, S, Hkv, hd)`` for the cache."""
+    """Full-sequence attention (train/prefill).  x: ``(B, S, D)``.
+    ``kv_source`` ``(B, Sk, D)`` switches to cross-attention (the
+    encoder-decoder's decoder): k and v from it, no RoPE, pass
+    ``causal=False``.  Returns ``(out, (k, v))``, k and v ``(B, S|Sk, Hkv,
+    hd)`` for the cache."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, torch.arange(S, device=x.device), kv_source=kv_source)
     o = _attend_dispatch(cfg, q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
@@ -164,6 +178,129 @@ def gqa_decode(p, cfg: ArchConfig, x, cache, pos):
     o = torch.einsum("bhgs,bshd->bhgd", w, v.float())
     o = o.reshape(B, 1, hq * hd).to(x.dtype)
     return o @ p["wo"], cache
+
+
+def gqa_cross_decode(p, cfg: ArchConfig, x, k, v):
+    """Cross-attention decode: q from one new token against ``(k, v)``
+    ``(B, Sk, Hkv, hd)``, the encoder's fixed cross cache (no RoPE, no
+    mask).  x: ``(B, 1, D)``.  The reference projects k and v from x too and
+    drops them; the port projects q alone (the same q)."""
+    B = x.shape[0]
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    qg = _project_q(p, cfg, x).reshape(B, hkv, hq // hkv, hd)
+    scores = torch.einsum("bhgd,bshd->bhgs", qg.float(), k.float()) / math.sqrt(hd)
+    w = torch.softmax(scores, dim=-1)
+    o = torch.einsum("bhgs,bshd->bhgd", w, v.float())
+    return o.reshape(B, 1, hq * hd).to(x.dtype) @ p["wo"]
+
+
+# =============================================================================
+# MLA (multi-head latent attention, MiniCPM3 / DeepSeek style)
+# =============================================================================
+
+
+def mla_init(generator: torch.Generator, cfg: ArchConfig, lead: Sequence[int] = (),
+             device=None):
+    """The reference's ``mla_init`` scales: the query's low-rank pair
+    ``wq_a`` / ``wq_b`` with the RMSNorm ``q_ln`` between, the shared
+    latent projection ``wkv_a`` (``kv_lora_rank`` latent + ``qk_rope_head_dim``
+    rope key), its norm ``kv_ln``, the per-head up-projection ``wkv_b`` and
+    ``wo``."""
+    d, h = cfg.d_model, cfg.num_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    rq, rkv = cfg.q_lora_rank, cfg.kv_lora_rank
+    lead = tuple(lead)
+    s = 1.0 / math.sqrt(d)
+
+    def w(shape):
+        return _normal(generator, lead + shape, cfg.dtype, device)
+
+    def norm(width):
+        return {k: v.expand(lead + v.shape).clone()
+                for k, v in nn.rmsnorm_init(width, cfg.dtype, device).items()}
+
+    return {
+        "wq_a": w((d, rq)).mul_(s),
+        "q_ln": norm(rq),
+        "wq_b": w((rq, h * (dn + dr))).div_(math.sqrt(rq)),
+        "wkv_a": w((d, rkv + dr)).mul_(s),
+        "kv_ln": norm(rkv),
+        "wkv_b": w((rkv, h * (dn + dv))).div_(math.sqrt(rkv)),
+        "wo": w((h * dv, d)).mul_(s).div_(math.sqrt(2 * cfg.num_layers)),
+    }
+
+
+def _mla_qkv(p, cfg: ArchConfig, x, positions):
+    """-> ``(q_nope (B, S, h, dn), q_pe (B, S, h, dr), ckv (B, S, r), k_pe
+    (B, S, dr))``: the rope halves rotated at ``positions``, ``k_pe``
+    shared across the heads."""
+    B, S, _ = x.shape
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q = nn.rmsnorm(p["q_ln"], x @ p["wq_a"]) @ p["wq_b"]
+    q = q.reshape(B, S, cfg.num_heads, dn + dr)
+    q_nope, q_pe = q[..., :dn], q[..., dn:]
+    kv = x @ p["wkv_a"]
+    ckv = nn.rmsnorm(p["kv_ln"], kv[..., :cfg.kv_lora_rank])
+    k_pe = kv[..., cfg.kv_lora_rank:]
+    cos, sin = rope_freqs(dr, cfg.rope_theta, positions, x.dtype)
+    q_pe = apply_rope(q_pe, cos, sin)
+    k_pe = apply_rope(k_pe[..., None, :], cos, sin)[..., 0, :]
+    return q_nope, q_pe, ckv, k_pe
+
+
+def mla_attend(p, cfg: ArchConfig, x, causal: bool = True):
+    """MLA train/prefill.  x: ``(B, S, D)`` -> ``(out, (ckv, k_pe))``, the
+    latent cache.  As the reference: the (nope ‖ rope) score split folded
+    into one ``dn + dr`` head (``k_pe`` broadcast over the heads), v
+    zero-padded from ``dv`` to that width and the output sliced back, so
+    the attention kernel runs unchanged (D = 96 at minicpm3-4b), with the
+    explicit float scale ``1/sqrt(dn + dr)``."""
+    B, S, _ = x.shape
+    h = cfg.num_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    q_nope, q_pe, ckv, k_pe = _mla_qkv(p, cfg, x, torch.arange(S, device=x.device))
+    kv = (ckv @ p["wkv_b"]).reshape(B, S, h, dn + dv)
+    q_cat = torch.cat([q_nope, q_pe], -1)                             # (B, S, h, dn + dr)
+    k_cat = torch.cat([kv[..., :dn], k_pe[:, :, None].expand(B, S, h, dr)], -1)
+    v_pad = torch.nn.functional.pad(kv[..., dn:], (0, dn + dr - dv))
+    o = _attend_dispatch(cfg, q_cat.transpose(1, 2), k_cat.transpose(1, 2),
+                         v_pad.transpose(1, 2), causal, scale=1.0 / math.sqrt(dn + dr))
+    o = o.transpose(1, 2)[..., :dv]                                   # (B, S, h, dv)
+    return o.reshape(B, S, h * dv) @ p["wo"], (ckv, k_pe)
+
+
+def mla_init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
+                   lead: Sequence[int] = (), device=None):
+    lead = tuple(lead) + (batch, max_len)
+    return {"ckv": torch.zeros(lead + (cfg.kv_lora_rank,), dtype=dtype, device=device),
+            "kpe": torch.zeros(lead + (cfg.qk_rope_head_dim,), dtype=dtype, device=device)}
+
+
+def mla_decode(p, cfg: ArchConfig, x, cache, pos):
+    """Latent-cache decode (the MLA memory win), float32 einsums: the scores
+    through the absorbed ``q_nope · W_ukᵀ`` against the cached latent
+    ``ckv`` plus the rope part against ``kpe``, the output through
+    ``W_uv``.  The new latent row is written into ``cache`` in place at
+    ``pos`` and ``cache`` is returned."""
+    B = x.shape[0]
+    h = cfg.num_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    pos = int(pos)
+    q_nope, q_pe, ckv_new, kpe_new = _mla_qkv(p, cfg, x, torch.full((1,), pos, device=x.device))
+    ckv, kpe = cache["ckv"], cache["kpe"]
+    ckv[:, pos:pos + 1] = ckv_new.to(ckv.dtype)
+    kpe[:, pos:pos + 1] = kpe_new.to(kpe.dtype)
+    wkv_b = p["wkv_b"].reshape(cfg.kv_lora_rank, h, dn + dv).float()
+    w_uk, w_uv = wkv_b[..., :dn], wkv_b[..., dn:]                     # (r, h, dn), (r, h, dv)
+    ckv_f = ckv.float()
+    q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope.float(), w_uk)      # (B, 1, h, r)
+    scores = (torch.einsum("bqhr,bsr->bhqs", q_lat, ckv_f)
+              + torch.einsum("bqhd,bsd->bhqs", q_pe.float(), kpe.float())) / math.sqrt(dn + dr)
+    mask = (torch.arange(ckv.shape[1], device=x.device) <= pos)[None, None, None, :]
+    w = torch.softmax(scores.masked_fill(~mask, -1e30), dim=-1)
+    o_lat = torch.einsum("bhqs,bsr->bqhr", w, ckv_f)                  # (B, 1, h, r)
+    o = torch.einsum("bqhr,rhd->bqhd", o_lat, w_uv).to(x.dtype)
+    return o.reshape(B, 1, h * dv) @ p["wo"], cache
 
 
 # =============================================================================

@@ -566,6 +566,84 @@ def test_flash_attention_reads_strided_views_bitwise(cuda, dtype, B, Hq, Hkv, S,
         assert torch.equal(out, got)
 
 
+# chip_smoke.py's ATTN_ZOO_SHAPES, (B, Hq, Hkv, S, Sk, D, causal): MLA's
+# head dim 96 (causal, ragged, full) and a key length of its own (the
+# encoder-decoder's cross-attention, full).
+ATTN_ZOO_SHAPES = [(2, 40, 40, 512, 512, 96, True), (1, 40, 40, 1000, 1000, 96, True),
+                   (2, 40, 40, 300, 300, 96, False), (4, 16, 16, 2048, 1024, 64, False),
+                   (2, 16, 16, 300, 1000, 64, False), (2, 40, 40, 300, 1000, 96, False),
+                   (2, 4, 4, 12, 10, 16, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,S,Sk,D,causal", ATTN_ZOO_SHAPES)
+def test_flash_attention_at_head_dim_96_and_a_key_length(cuda, dtype, B, Hq, Hkv, S, Sk, D,
+                                                         causal):
+    """Within ATTN_TOL of the plain version (bf16 also by ATTN_REL_TOL a
+    (b, h) slice), two launches bitwise equal, (B, S, H, D) views bitwise
+    the contiguous operands'."""
+    g = torch.Generator().manual_seed(S + Sk + D)
+    q = torch.randn(B, S, Hq, D, generator=g).to(cuda, dtype).transpose(1, 2)
+    k, v = (torch.randn(B, Sk, Hkv, D, generator=g).to(cuda, dtype).transpose(1, 2)
+            for _ in range(2))
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert torch.equal(got, ops.flash_attention(q, k, v, causal=causal))
+    assert torch.equal(got, ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                                causal=causal))
+    want = ops.flash_attention(q, k, v, causal=causal, scale=1 / math.sqrt(D), use_kernel=False)
+    torch.cuda.synchronize()
+    assert got.shape == (B, Hq, S, D)
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+    if dtype == torch.bfloat16:
+        delta = (got.float() - want.float()).flatten(2).norm(dim=-1)
+        assert (delta / want.float().flatten(2).norm(dim=-1)).max() <= ATTN_REL_TOL
+
+
+def test_flash_attention_refuses_causal_with_a_key_length_on_the_card(cuda):
+    q = torch.randn(1, 4, 8, 64, device=cuda, dtype=torch.bfloat16)
+    k = torch.randn(1, 4, 16, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="key length equal to the query length"):
+        fa_kernel._launch(q, k, k, True, 0.125)
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "pixtral-12b", "seamless-m4t-medium"])
+def test_smoke_zoo_prefills_run_through_the_kernel(cuda, arch):
+    """The smoke MLA, VLM and encoder-decoder prefills launch the kernel once
+    per attention (the encoder-decoder: each encoder layer once, each decoder
+    layer twice), never in decode, and their logits are within 1e-4 of the
+    largest of the plain attention's (f32)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.steps import greedy_sample, make_prefill_step, make_serve_step
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    cfg = smoke_config(arch)
+    params = T.init_lm(torch.Generator(device=cuda).manual_seed(0), cfg, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 12), generator=g, device=cuda)}
+    if cfg.family == "encdec":
+        batch["src_embeds"] = torch.randn(2, 10, cfg.d_model, generator=g, device=cuda)
+    elif cfg.frontend:
+        batch["embeds"] = torch.randn(2, cfg.frontend_len, cfg.d_model, generator=g, device=cuda)
+    pos = 12 + (cfg.frontend_len if "embeds" in batch else 0)
+    prefill = make_prefill_step(cfg, max_len=pos + 2)
+    ops.reset_launch_counts()
+    logits, caches = prefill(params, batch)
+    torch.cuda.synchronize()
+    want = cfg.encoder_layers + 2 * cfg.num_layers if cfg.encoder_layers else cfg.num_layers
+    assert ops.launch_counts()["flash_attention"] == want
+    make_serve_step(cfg)(params, caches, greedy_sample(logits), pos)
+    assert ops.launch_counts()["flash_attention"] == want
+    dispatch = L._attend_dispatch
+    L._attend_dispatch = lambda cfg_, q, k, v, causal, scale=None: ops.flash_attention(
+        q, k, v, causal=causal, scale=scale, use_kernel=False)
+    try:
+        plain, _ = prefill(params, batch)
+    finally:
+        L._attend_dispatch = dispatch
+    assert (logits - plain).abs().max() <= 1e-4 * plain.abs().max()
+
+
 def test_smoke_lm_prefill_runs_through_the_kernel(cuda, monkeypatch):
     """Two layers at head dim 16: one launch per layer, and the logits of the
     plain-attention prefill and of the CPU within float32 tolerance."""

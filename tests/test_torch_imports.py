@@ -113,3 +113,14 @@ def test_lm_training_slice_import_leaves_jax_unloaded():
     _imports_leave_jax_unloaded("repro_torch.kernels.xent, repro_torch.distributed.elastic, "
                                 "repro_torch.checkpoint.store, repro_torch.optim.optimizers, "
                                 "repro_torch.data.synthetic, repro_torch.launch.train")
+
+
+def test_zoo_slice_import_leaves_jax_unloaded():
+    """The last LM families' modules exist and pull no JAX in: the three
+    configs, the reversible stack, the MLA and cross-attention layers."""
+    names = {p.name for p in PORT_FILES}
+    assert {"minicpm3_4b.py", "pixtral_12b.py", "seamless_m4t_medium.py",
+            "reversible.py"} <= names
+    _imports_leave_jax_unloaded("repro_torch.configs.minicpm3_4b, repro_torch.configs.pixtral_12b, "
+                                "repro_torch.configs.seamless_m4t_medium, "
+                                "repro_torch.models.reversible, repro_torch.models.layers")

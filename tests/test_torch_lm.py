@@ -200,16 +200,6 @@ def test_full_config_param_count_matches_jax(arch):
         assert cfg.param_count() == 1_343_740_928
 
 
-def test_unported_archs_raise_named_errors():
-    for arch in configs.NOT_PORTED:
-        jconfigs.get_config(arch)  # the reference has it
-        with pytest.raises(configs.ArchNotPortedError, match="ROADMAP.md"):
-            configs.get_config(arch)
-    mla = dataclasses.replace(configs.smoke_config("qwen2.5-14b"), attention="mla")
-    with pytest.raises(T.ModelNotPortedError, match="ROADMAP.md"):
-        T.init_lm(torch.Generator().manual_seed(0), mla)
-
-
 @pytest.mark.parametrize("arch", ["qwen2.5-14b", "starcoder2-3b", "mamba2-1.3b", "dbrx-132b",
                                   "jamba-v0.1-52b"])
 def test_serve_lm_prompts_and_tokens_match_jax(arch, capsys):

@@ -47,8 +47,8 @@ def _queue_text(queue: int) -> str:
 
 def test_not_ported_errors_name_roadmap_items_by_title():
     pointers = _pointers()
-    # the sites of models/, configs/ and launch/
-    assert len(pointers) >= 11, pointers
+    # the sites of models/ and launch/ (the LM's sharded execution)
+    assert len(pointers) >= 4, pointers
     for path, queue, title in pointers:
         assert f"**{title}" in _queue_text(queue), (
             f"{path}: ROADMAP.md Queue {queue} has no item titled {title!r}")
